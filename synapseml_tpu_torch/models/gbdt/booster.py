@@ -1,0 +1,460 @@
+"""Boosting loop and the serializable Booster.
+
+The PyTorch port of the JAX package's ``models/gbdt/booster.py`` for
+``boosting_type="gbdt"`` with the ``binary`` and ``regression``
+objectives on one device.  The JAX package scans the boosting loop on the
+device; here it is a Python loop over :func:`~.trainer.grow_tree_depthwise`
+with the kernels on the card.  The model format is the JAX package's
+version-2 JSON (:meth:`Booster.to_dict`), so a model moves between the two
+packages both ways.
+
+Every other config value raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...device import DeviceLike, resolve_device, synchronize
+from .binning import BinMapper, bin_features, fit_bin_mapper
+from .objectives import get_objective, initial_score
+from .trainer import (TWO_LEVEL_MIN_ROWS, GrowthParams, Tree,
+                      default_n_slots, grow_tree_depthwise,
+                      predict_raw_features, stack_trees, tree_depth)
+
+
+@dataclasses.dataclass
+class BoostingConfig:
+    """TrainParams analogue; the JAX package's fields and defaults (field
+    names follow LightGBM's config strings)."""
+    objective: str = "regression"
+    boosting_type: str = "gbdt"            # gbdt | rf | dart | goss
+    num_iterations: int = 100
+    learning_rate: float = 0.1
+    num_leaves: int = 31
+    max_depth: int = -1
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
+    max_bin: int = 255
+    feature_fraction: float = 1.0
+    bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    seed: int = 0
+    num_class: int = 1
+    boost_from_average: bool = True
+    early_stopping_round: int = 0
+    metric: str = ""
+    top_rate: float = 0.2                  # goss
+    other_rate: float = 0.1                # goss
+    drop_rate: float = 0.1                 # dart
+    max_drop: int = 50                     # dart
+    skip_drop: float = 0.5                 # dart
+    scale_pos_weight: float = 1.0
+    is_unbalance: bool = False
+    alpha: float = 0.9                     # huber / quantile
+    tweedie_variance_power: float = 1.5
+    fair_c: float = 1.0
+    max_position: int = 10                 # lambdarank ndcg@
+    label_gain: Optional[List[float]] = None
+    bin_sample_count: int = 200_000
+    bagging_seed: int = 3
+    verbosity: int = -1
+    parallelism: str = "data_parallel"
+    top_k: int = 20                        # voting-parallel votes per rank
+    growth_policy: str = "depthwise"
+    #: two-level (coarse-then-refine) histograms for wide-bin growth:
+    #: "auto" (on at >= 500k rows), "on", "off"
+    two_level_hist: Any = "auto"
+    refine_features: int = 8
+    enable_bundle: bool = False
+    max_conflict_rate: float = 0.0
+    categorical_feature: Optional[List[int]] = None
+    monotone_constraints: Optional[List[int]] = None
+    monotone_constraints_method: str = "basic"
+    monotone_penalty: float = 0.0
+    collective_compression: Any = "none"
+    #: bf16 gradient/hessian ingest into the histogram quantization
+    #: ("auto" = on); histogram sums stay exact over the rounded values
+    fused_ingest: Any = "auto"
+    pass_through: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def growth_params(self) -> GrowthParams:
+        return GrowthParams(
+            num_leaves=self.num_leaves,
+            max_depth=self.max_depth,
+            min_data_in_leaf=float(self.min_data_in_leaf),
+            min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
+            lambda_l1=self.lambda_l1,
+            lambda_l2=self.lambda_l2,
+            min_gain_to_split=self.min_gain_to_split,
+            total_bins=self.max_bin + 1,
+            two_level=({True: "on", False: "off"}.get(
+                self.two_level_hist, str(self.two_level_hist))),
+            refine_k=int(self.refine_features),
+        )
+
+
+def _fused_ingest_on(config: BoostingConfig) -> bool:
+    v = config.fused_ingest
+    if v in ("auto", "on", True):
+        return True
+    if v in ("off", False):
+        return False
+    raise ValueError(f"fused_ingest={v!r}: must be 'auto', 'on', 'off', "
+                     "True or False")
+
+
+def _check_ported(config: BoostingConfig) -> None:
+    """Raise ``NotImplementedError`` for every config value this slice of
+    the port does not train, naming the ROADMAP item that ports it."""
+    todo = "is not ported yet (ROADMAP queue A, GBDT breadth: {})"
+    checks = [
+        (config.boosting_type != "gbdt",
+         f"boosting_type={config.boosting_type!r}", "goss/dart/rf"),
+        (config.bagging_fraction < 1.0 and config.bagging_freq > 0,
+         "bagging", "goss/dart/rf/bagging"),
+        (config.growth_policy != "depthwise",
+         f"growth_policy={config.growth_policy!r}", "lossguide on K1"),
+        (config.parallelism != "data_parallel",
+         f"parallelism={config.parallelism!r}", "voting/feature parallel"),
+        (config.enable_bundle, "enable_bundle", "EFB"),
+        (bool(config.monotone_constraints)
+         and any(config.monotone_constraints),
+         "monotone_constraints", "monotone constraints"),
+        (bool(config.categorical_feature), "categorical_feature",
+         "categorical features"),
+        (config.early_stopping_round > 0, "early_stopping_round",
+         "validation and early stopping"),
+        (config.objective not in ("binary", "regression"),
+         f"objective={config.objective!r}", "multiclass and the other "
+         "objectives"),
+    ]
+    for bad, what, item in checks:
+        if bad:
+            raise NotImplementedError(f"{what} " + todo.format(item))
+    if config.two_level_hist not in ("auto", "on", "off", True, False):
+        raise ValueError(f"two_level_hist={config.two_level_hist!r}: must "
+                         "be 'auto', 'on', or 'off'")
+    _fused_ingest_on(config)
+
+
+class Booster:
+    """Trained model: host-resident flat tree arrays + binning metadata.
+    Predicts on ``device`` (the device it was trained on, by default)."""
+
+    def __init__(self, trees: List[Tree], tree_class: List[int],
+                 tree_weights: List[float], num_class: int, objective: str,
+                 init_score: np.ndarray, bin_mapper: BinMapper,
+                 feature_names: List[str], config: BoostingConfig,
+                 best_iteration: int = -1, device: DeviceLike = "cuda"):
+        self.trees = [Tree(*[np.asarray(torch.as_tensor(a).cpu())
+                             for a in t]) for t in trees]
+        self.tree_class = list(tree_class)
+        self.tree_weights = list(tree_weights)
+        self.num_class = num_class
+        self.objective = objective
+        self.init_score = np.asarray(init_score, np.float32).reshape(-1)
+        self.bin_mapper = bin_mapper
+        self.feature_names = list(feature_names)
+        self.config = config
+        self.best_iteration = best_iteration
+        self.device = str(device)
+
+    # -- prediction --------------------------------------------------------
+    @property
+    def num_trees(self) -> int:
+        return len(self.trees)
+
+    def depth_bound(self) -> int:
+        return max((tree_depth(t) for t in self.trees), default=1)
+
+    def _stacked_for_class(self, k: int, num_iteration: Optional[int],
+                           dev: torch.device) -> Optional[Tree]:
+        sel = [i for i, c in enumerate(self.tree_class) if c == k]
+        if num_iteration is not None and num_iteration >= 0:
+            sel = sel[:num_iteration]
+        if not sel:
+            return None
+        trees = []
+        for i in sel:
+            t = self.trees[i]
+            w = self.tree_weights[i]
+            trees.append(t._replace(leaf_value=t.leaf_value * np.float32(w)))
+        return Tree(*[t.to(dev) for t in stack_trees(trees)])
+
+    def predict_margin(self, features: np.ndarray,
+                       num_iteration: Optional[int] = None,
+                       return_leaves: bool = False,
+                       device: Optional[DeviceLike] = None):
+        """Raw margin (n,): batched tree traversal on the device."""
+        if self.bin_mapper.has_categorical:
+            raise NotImplementedError(
+                "categorical models are not ported yet (ROADMAP queue A, "
+                "GBDT breadth: categorical features)")
+        dev = resolve_device(self.device if device is None else device)
+        features = np.ascontiguousarray(features, np.float32)
+        n = features.shape[0]
+        depth = self.depth_bound()
+        x = torch.as_tensor(features, device=dev)
+        outs, leaves = [], []
+        for k in range(self.num_class):
+            stacked = self._stacked_for_class(k, num_iteration, dev)
+            base = self.init_score[min(k, len(self.init_score) - 1)]
+            if stacked is None:
+                outs.append(np.full(n, base, np.float32))
+                leaves.append(np.zeros((0, n), np.int32))
+                continue
+            total, lv = predict_raw_features(x, stacked, depth)
+            total = total.cpu().numpy() + base
+            if self.config.boosting_type == "rf":
+                ntree = stacked.split_feature.shape[0]
+                total = base + (total - base) / max(ntree, 1)
+            outs.append(total)
+            leaves.append(lv.cpu().numpy())
+        margin = outs[0] if self.num_class == 1 else np.stack(outs, axis=1)
+        if return_leaves:
+            return margin, leaves
+        return margin
+
+    def predict_leaf(self, features: np.ndarray,
+                     device: Optional[DeviceLike] = None) -> np.ndarray:
+        """Per-tree leaf index (n, num_trees)."""
+        _, leaves = self.predict_margin(features, return_leaves=True,
+                                        device=device)
+        return np.concatenate([l for l in leaves if l.size], axis=0).T
+
+    def to_proba(self, margin: np.ndarray) -> np.ndarray:
+        if self.objective in ("multiclass", "multiclassova"):
+            if self.objective == "multiclassova":
+                p = 1.0 / (1.0 + np.exp(-margin))
+                return p / np.maximum(p.sum(1, keepdims=True), 1e-12)
+            m = margin - margin.max(axis=1, keepdims=True)
+            e = np.exp(m)
+            return e / e.sum(axis=1, keepdims=True)
+        p1 = 1.0 / (1.0 + np.exp(-margin))
+        return np.stack([1 - p1, p1], axis=1)
+
+    # -- introspection -----------------------------------------------------
+    def feature_importance(self, importance_type: str = "split") -> np.ndarray:
+        """Split counts or total gains per feature."""
+        out = np.zeros(len(self.feature_names), np.float64)
+        for t in self.trees:
+            for node in np.nonzero(np.asarray(t.split_feature) >= 0)[0]:
+                w = (1.0 if importance_type == "split"
+                     else float(t.split_gain[node]))
+                out[int(t.split_feature[node])] += w
+        return out
+
+    # -- serialization -----------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        """The JAX package's version-2 model JSON."""
+        return {
+            "version": 2,
+            "num_class": self.num_class,
+            "objective": self.objective,
+            "init_score": self.init_score.tolist(),
+            "feature_names": self.feature_names,
+            "tree_class": self.tree_class,
+            "tree_weights": self.tree_weights,
+            "best_iteration": self.best_iteration,
+            "config": dataclasses.asdict(self.config),
+            "bin_mapper": {
+                "upper_bounds": self.bin_mapper.upper_bounds.tolist(),
+                "num_bins": self.bin_mapper.num_bins.tolist(),
+                "max_bin": self.bin_mapper.max_bin,
+                "cat_features": None,
+            },
+            "bundler": None,
+            "trees": [{f: np.asarray(getattr(t, f)).tolist()
+                       for f in Tree._fields} for t in self.trees],
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any],
+                  device: DeviceLike = "cuda") -> "Booster":
+        """Read the version-2 model JSON (the JAX package's or this
+        package's :meth:`to_dict`)."""
+        if int(d.get("version", 1)) != 2:
+            raise ValueError(f"model JSON version {d.get('version')!r}: "
+                             "only version 2 is read")
+        if d.get("bundler"):
+            raise NotImplementedError(
+                "EFB models are not ported yet (ROADMAP queue A, GBDT "
+                "breadth: EFB)")
+        if d["bin_mapper"].get("cat_features"):
+            raise NotImplementedError(
+                "categorical models are not ported yet (ROADMAP queue A, "
+                "GBDT breadth: categorical features)")
+        names = {f.name for f in dataclasses.fields(BoostingConfig)}
+        cfg = BoostingConfig(**{k: v for k, v in d["config"].items()
+                                if k in names})
+        bm = BinMapper(
+            upper_bounds=np.asarray(d["bin_mapper"]["upper_bounds"],
+                                    np.float32),
+            num_bins=np.asarray(d["bin_mapper"]["num_bins"], np.int32),
+            max_bin=d["bin_mapper"]["max_bin"])
+        trees = []
+        for td in d["trees"]:
+            m = len(td["leaf_value"])
+            trees.append(Tree(
+                split_feature=np.asarray(td["split_feature"], np.int32),
+                split_bin=np.asarray(td["split_bin"], np.int32),
+                threshold=np.asarray(td["threshold"], np.float32),
+                split_gain=np.asarray(td["split_gain"], np.float32),
+                left_child=np.asarray(td["left_child"], np.int32),
+                right_child=np.asarray(td["right_child"], np.int32),
+                leaf_value=np.asarray(td["leaf_value"], np.float32),
+                node_value=np.asarray(td["node_value"], np.float32),
+                num_nodes=np.asarray(td["num_nodes"], np.int32),
+                default_left=np.asarray(
+                    td.get("default_left", np.ones(m, bool)), bool),
+                node_count=np.asarray(
+                    td.get("node_count", np.zeros(m)), np.float32),
+                missing_zero=np.asarray(
+                    td.get("missing_zero", np.zeros(m, bool)), bool)))
+        return Booster(trees, d["tree_class"], d["tree_weights"],
+                       d["num_class"], d["objective"],
+                       np.asarray(d["init_score"], np.float32), bm,
+                       d["feature_names"], cfg, d["best_iteration"],
+                       device=device)
+
+    @staticmethod
+    def from_json(s: str, device: DeviceLike = "cuda") -> "Booster":
+        return Booster.from_dict(json.loads(s), device=device)
+
+
+@dataclasses.dataclass
+class InstrumentationMeasures:
+    """Per-phase wall clock of one fit, attached to the Booster as
+    ``.measures``.  Every phase ends in a device synchronize, so the
+    clock covers the device work."""
+    binning_s: float = 0.0            # bin-mapper fit + device binning
+    data_prep_s: float = 0.0          # labels/weights/init score on device
+    training_s: float = 0.0           # whole boosting loop
+    iterations: int = 0
+    total_s: float = 0.0
+
+    def seconds_per_iteration(self) -> float:
+        return self.training_s / max(self.iterations, 1)
+
+
+def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
+          sample_weight: Optional[np.ndarray] = None,
+          feature_names: Optional[Sequence[str]] = None,
+          valid: Optional[Tuple] = None,
+          init_model: Optional[Booster] = None,
+          checkpoint_dir: Optional[str] = None,
+          device: DeviceLike = "cuda") -> Tuple[Booster, list]:
+    """Full training run on ``device`` → (booster, eval history).
+
+    Raw features bin on the device; gradients, the binned matrix and the
+    scores stay there for the whole run, and each tree comes back to the
+    host once it is grown."""
+    dev = resolve_device(device)
+    if valid is not None:
+        raise NotImplementedError(
+            "validation sets are not ported yet (ROADMAP queue A, GBDT "
+            "breadth: validation and early stopping)")
+    if init_model is not None or checkpoint_dir:
+        raise NotImplementedError(
+            "warm starts and checkpoints are not ported yet (ROADMAP queue "
+            "A, GBDT breadth: checkpoints)")
+    _check_ported(config)
+    measures = InstrumentationMeasures()
+    t0 = time.perf_counter()
+
+    X = np.ascontiguousarray(X, np.float32)
+    n, F = X.shape
+    feature_names = (list(feature_names) if feature_names
+                     else [f"f{i}" for i in range(F)])
+    rng = np.random.default_rng(config.seed)
+
+    mapper = fit_bin_mapper(X, config.max_bin,
+                            sample_count=config.bin_sample_count,
+                            seed=config.seed, y=np.asarray(y, np.float64))
+    bins_t = bin_features(X, mapper, dev)                 # (F, n) int32
+    synchronize(dev)
+    measures.binning_s = time.perf_counter() - t0
+    t_prep = time.perf_counter()
+
+    w = (np.ones(n, np.float32) if sample_weight is None
+         else np.asarray(sample_weight, np.float32).copy())
+    if config.objective == "binary":
+        yb = (np.asarray(y) > 0).astype(np.float32)
+        if config.is_unbalance or config.scale_pos_weight != 1.0:
+            pos = max(float(yb.sum()), 1.0)
+            neg = max(float(n - yb.sum()), 1.0)
+            spw = (neg / pos) if config.is_unbalance \
+                else config.scale_pos_weight
+            w = np.where(yb > 0, w * spw, w).astype(np.float32)
+        labels_np = yb
+    else:
+        labels_np = np.asarray(y, np.float32)
+    if config.boost_from_average:
+        init_sc = np.full(1, initial_score(config.objective, labels_np, w),
+                          np.float32)
+    else:
+        init_sc = np.zeros(1, np.float32)
+
+    # "auto" two-level resolves from the row count, as the JAX package
+    # resolves it when its kernel grower is in play
+    if config.two_level_hist == "auto":
+        config = dataclasses.replace(
+            config, two_level_hist=("on" if n >= TWO_LEVEL_MIN_ROWS
+                                    else "off"))
+    labels = torch.as_tensor(labels_np, device=dev)
+    weights = torch.as_tensor(w, device=dev)
+    scores = torch.full((n,), float(init_sc[0]), dtype=torch.float32,
+                        device=dev)
+    row_valid = torch.ones(n, dtype=torch.float32, device=dev)
+    upper_bounds = torch.as_tensor(mapper.upper_bounds, device=dev)
+    num_bins = torch.as_tensor(mapper.num_bins, device=dev)
+    objective_fn = get_objective(config.objective)
+    p = config.growth_params()
+    n_slots = default_n_slots(config.num_leaves)
+    fused = _fused_ingest_on(config)
+    synchronize(dev)
+    measures.data_prep_s = time.perf_counter() - t_prep
+
+    t_train = time.perf_counter()
+    trees: List[Tree] = []
+    fmask_dev = torch.ones(F, dtype=torch.bool, device=dev)
+    for _ in range(config.num_iterations):
+        if config.feature_fraction < 1.0:
+            # the host stream the JAX package draws from, draw for draw
+            k = max(1, int(round(F * config.feature_fraction)))
+            fmask = np.zeros(F, bool)
+            fmask[rng.choice(F, k, replace=False)] = True
+            fmask_dev = torch.as_tensor(fmask, device=dev)
+        grad, hess = objective_fn(scores, labels, weights)
+        if fused:
+            grad = grad.to(torch.bfloat16)
+            hess = hess.to(torch.bfloat16)
+        tree, node_id = grow_tree_depthwise(
+            bins_t, grad, hess, row_valid, fmask_dev, upper_bounds,
+            num_bins, config.learning_rate, p, n_slots=n_slots)
+        scores = scores + tree.leaf_value[node_id.long()]
+        trees.append(Tree(*[a.cpu() for a in tree]))
+    synchronize(dev)
+    measures.training_s = time.perf_counter() - t_train
+    measures.iterations = len(trees)
+    measures.total_s = time.perf_counter() - t0
+    booster = Booster(trees, [0] * len(trees), [1.0] * len(trees), 1,
+                      config.objective, init_sc, mapper, feature_names,
+                      config, device=dev)
+    booster.measures = measures
+    return booster, []
+

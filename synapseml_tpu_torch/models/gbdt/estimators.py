@@ -1,0 +1,298 @@
+"""GBDT pipeline estimator: ``GBDTClassifier`` → ``GBDTClassificationModel``.
+
+The PyTorch port of the JAX package's ``models/gbdt/estimators.py`` for
+the classifier, on one card: ``fit`` trains with
+:func:`~.booster.train` on the ``device`` param, ``transform`` scores
+whole column batches with one batched traversal on the model's
+``device``.  The param surface is the JAX package's, less the mesh
+(``numShards``, ``collectiveCompression``) and the checkpoint manager;
+params whose features are not ported raise ``NotImplementedError`` at
+``fit``.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from ...core.dataset import Dataset
+from ...core.params import (BoolParam, DictParam, FloatParam, IntParam,
+                            ListParam, Params, PyObjectParam, StringParam)
+from ...core.pipeline import Estimator, Model
+from .booster import Booster, BoostingConfig, train
+
+
+class GBDTParams(Params):
+    """Shared boosting params (reference: params/LightGBMParams.scala)."""
+    device = StringParam(doc="device to train on: 'cuda' (raises when no "
+                             "card is present) or 'cpu'", default="cuda")
+    featuresCol = StringParam(doc="features vector column", default="features")
+    labelCol = StringParam(doc="label column", default="label")
+    weightCol = StringParam(doc="sample weight column")
+    predictionCol = StringParam(doc="prediction output column", default="prediction")
+    validationIndicatorCol = StringParam(
+        doc="bool column marking validation rows (not ported yet)")
+    numIterations = IntParam(doc="number of boosting iterations", default=100)
+    learningRate = FloatParam(doc="shrinkage rate", default=0.1)
+    numLeaves = IntParam(doc="max leaves per tree", default=31)
+    maxDepth = IntParam(doc="max tree depth (<=0: unlimited)", default=-1)
+    minDataInLeaf = IntParam(doc="min rows per leaf", default=20)
+    minSumHessianInLeaf = FloatParam(doc="min hessian sum per leaf", default=1e-3)
+    lambdaL1 = FloatParam(doc="L1 regularization", default=0.0)
+    lambdaL2 = FloatParam(doc="L2 regularization", default=0.0)
+    minGainToSplit = FloatParam(doc="min split gain", default=0.0)
+    maxBin = IntParam(doc="max feature bins", default=255)
+    binSampleCount = IntParam(doc="rows sampled for bin boundaries", default=200000)
+    featureFraction = FloatParam(doc="per-tree feature subsample", default=1.0)
+    baggingFraction = FloatParam(doc="row subsample fraction", default=1.0)
+    baggingFreq = IntParam(doc="resample every k iterations", default=0)
+    baggingSeed = IntParam(doc="bagging seed", default=3)
+    boostingType = StringParam(doc="gbdt|rf|dart|goss (gbdt is ported)",
+                               default="gbdt",
+                               allowed=("gbdt", "rf", "dart", "goss"))
+    topRate = FloatParam(doc="goss top-gradient keep rate", default=0.2)
+    otherRate = FloatParam(doc="goss small-gradient sample rate", default=0.1)
+    dropRate = FloatParam(doc="dart tree dropout rate", default=0.1)
+    maxDrop = IntParam(doc="dart max dropped trees per iter", default=50)
+    skipDrop = FloatParam(doc="dart skip-dropout probability", default=0.5)
+    earlyStoppingRound = IntParam(doc="early stopping patience (0=off)", default=0)
+    metric = StringParam(doc="eval metric name", default="")
+    boostFromAverage = BoolParam(doc="init score from label mean", default=True)
+    seed = IntParam(doc="master seed", default=0)
+    verbosity = IntParam(doc="log verbosity", default=-1)
+    numBatches = IntParam(
+        doc="split data into k sequential warm-started batches (not "
+            "ported yet)", default=0)
+    parallelism = StringParam(
+        doc="data_parallel|voting_parallel|feature_parallel "
+            "(data_parallel on one card is ported)",
+        default="data_parallel",
+        allowed=("data_parallel", "voting_parallel", "feature_parallel"))
+    topK = IntParam(doc="voting-parallel top features per shard", default=20)
+    enableBundle = BoolParam(doc="exclusive feature bundling (not ported "
+                                 "yet)", default=False)
+    maxConflictRate = FloatParam(doc="EFB allowed conflict fraction",
+                                 default=0.0)
+    categoricalSlotIndexes = ListParam(
+        doc="feature-vector slots holding category codes (not ported yet)")
+    checkpointDir = StringParam(
+        doc="iteration-checkpoint directory (not ported yet)")
+    checkpointInterval = IntParam(doc="save every N boosting iterations "
+                                      "(0 = off)", default=0)
+    monotoneConstraints = ListParam(
+        doc="per-feature monotone direction {-1, 0, 1} (not ported yet)")
+    monotoneConstraintsMethod = StringParam(
+        doc="constraint enforcement method", default="basic",
+        allowed=("basic", "intermediate", "advanced"))
+    monotonePenalty = FloatParam(
+        doc="gain penalization for constrained-feature splits near the "
+            "root", default=0.0)
+    passThroughArgs = DictParam(doc="extra engine params (ParamsStringBuilder "
+                                    "pass-through analogue)")
+    predictDisableShapeCheck = BoolParam(doc="skip feature-count check at "
+                                             "predict", default=False)
+
+    def _build_config(self, objective: str, num_class: int = 1) -> BoostingConfig:
+        extra = self.passThroughArgs or {}
+        cfg = BoostingConfig(
+            objective=objective,
+            boosting_type=self.boostingType,
+            num_iterations=self.numIterations,
+            learning_rate=self.learningRate,
+            num_leaves=self.numLeaves,
+            max_depth=self.maxDepth,
+            min_data_in_leaf=self.minDataInLeaf,
+            min_sum_hessian_in_leaf=self.minSumHessianInLeaf,
+            lambda_l1=self.lambdaL1,
+            lambda_l2=self.lambdaL2,
+            min_gain_to_split=self.minGainToSplit,
+            max_bin=self.maxBin,
+            bin_sample_count=self.binSampleCount,
+            feature_fraction=self.featureFraction,
+            bagging_fraction=self.baggingFraction,
+            bagging_freq=self.baggingFreq,
+            bagging_seed=self.baggingSeed,
+            seed=self.seed,
+            num_class=num_class,
+            boost_from_average=self.boostFromAverage,
+            early_stopping_round=self.earlyStoppingRound,
+            metric=self.metric,
+            top_rate=self.topRate,
+            other_rate=self.otherRate,
+            drop_rate=self.dropRate,
+            max_drop=self.maxDrop,
+            skip_drop=self.skipDrop,
+            parallelism=self.parallelism,
+            top_k=self.topK,
+            enable_bundle=self.enableBundle,
+            max_conflict_rate=self.maxConflictRate,
+            categorical_feature=[int(i) for i in self.categoricalSlotIndexes]
+            if self.get("categoricalSlotIndexes") else None,
+            monotone_constraints=[int(c) for c in self.monotoneConstraints]
+            if self.get("monotoneConstraints") else None,
+            monotone_constraints_method=self.monotoneConstraintsMethod,
+            monotone_penalty=self.monotonePenalty,
+        )
+        for k, v in extra.items():
+            if hasattr(cfg, k):
+                setattr(cfg, k, v)
+            else:
+                cfg.pass_through[k] = v
+        return cfg
+
+    def _features_matrix(self, ds: Dataset) -> np.ndarray:
+        return ds.to_numpy([self.featuresCol])
+
+    def _train_args(self, ds: Dataset):
+        """Refuse what this slice of the port does not train."""
+        vcol = self.validationIndicatorCol
+        if vcol and vcol in ds:
+            raise NotImplementedError(
+                "validationIndicatorCol is not ported yet (ROADMAP queue "
+                "A, GBDT breadth: validation and early stopping)")
+        if self.numBatches and self.numBatches > 1:
+            raise NotImplementedError(
+                "numBatches > 1 (warm-started batches) is not ported yet "
+                "(ROADMAP queue A, GBDT breadth: checkpoints)")
+        return dict(checkpoint_dir=(self.get("checkpointDir")
+                                    if self.checkpointInterval > 0
+                                    else None),
+                    device=self.device)
+
+
+class GBDTModelBase(Model):
+    device = StringParam(doc="device to score on: 'cuda' (raises when no "
+                             "card is present) or 'cpu'", default="cuda")
+    featuresCol = StringParam(doc="features vector column", default="features")
+    predictionCol = StringParam(doc="prediction output column", default="prediction")
+    leafPredictionCol = StringParam(doc="per-tree leaf index output column")
+    featuresShapCol = StringParam(doc="per-feature contribution output "
+                                      "column (not ported yet)")
+    numIterationsUsed = IntParam(doc="trees used at predict (-1: all)", default=-1)
+    predictDisableShapeCheck = BoolParam(doc="skip feature-count check",
+                                         default=False)
+    boosterModel = PyObjectParam(doc="trained booster")
+
+    @property
+    def booster(self) -> Booster:
+        return self.boosterModel
+
+    @property
+    def training_measures(self):
+        """Per-phase wall clock of the fit that produced this model; None
+        for deserialized models."""
+        return getattr(self.booster, "measures", None)
+
+    def get_feature_importances(self, importance_type: str = "split") -> List[float]:
+        return list(self.booster.feature_importance(importance_type))
+
+    def get_booster_num_trees(self) -> int:
+        return self.booster.num_trees
+
+    def get_model_string(self) -> str:
+        """The model as the JAX package's version-2 JSON."""
+        return self.booster.to_json()
+
+    def _check_features(self, X: np.ndarray):
+        expected = self.booster.bin_mapper.num_features
+        if not self.predictDisableShapeCheck and X.shape[1] != expected:
+            raise ValueError(f"feature count {X.shape[1]} != model's {expected}")
+
+    def _maybe_add_leaves(self, ds: Dataset, X: np.ndarray) -> Dataset:
+        if self.featuresShapCol:
+            raise NotImplementedError(
+                "featuresShapCol (TreeSHAP) is not ported yet (ROADMAP "
+                "queue A, GBDT breadth)")
+        if self.leafPredictionCol:
+            leaves = self.booster.predict_leaf(
+                X, device=self.device).astype(np.float64)
+            ds = ds.with_column(self.leafPredictionCol, list(leaves))
+        return ds
+
+
+class GBDTClassifier(GBDTParams, Estimator):
+    """LightGBMClassifier analogue (reference: LightGBMClassifier.scala:27)."""
+    objective = StringParam(doc="binary|multiclass|multiclassova (binary "
+                                "is ported)", default="binary",
+                            allowed=("binary", "multiclass", "multiclassova"))
+    probabilityCol = StringParam(doc="probability vector column", default="probability")
+    rawPredictionCol = StringParam(doc="margin vector column", default="rawPrediction")
+    isUnbalance = BoolParam(doc="auto-reweight positive class", default=False)
+    scalePosWeight = FloatParam(doc="positive class weight", default=1.0)
+    thresholds = ListParam(doc="per-class prediction thresholds")
+
+    def _fit(self, ds: Dataset) -> "GBDTClassificationModel":
+        kw = self._train_args(ds)
+        X = self._features_matrix(ds)
+        y_raw = np.asarray(ds[self.labelCol], np.float64)
+        w = ds[self.weightCol].astype(np.float32) if self.weightCol else None
+        classes = np.unique(y_raw[~np.isnan(y_raw)])
+        num_class = len(classes)
+        # remap arbitrary label values to contiguous 0..K-1 class indices
+        y = np.searchsorted(classes, y_raw).astype(np.float64)
+        objective = self.objective
+        if objective == "binary" and num_class > 2:
+            objective = "multiclass"
+        K = num_class if objective in ("multiclass", "multiclassova") else 1
+        cfg = self._build_config(objective, max(K, 1))
+        cfg.is_unbalance = self.isUnbalance
+        cfg.scale_pos_weight = self.scalePosWeight
+        booster, history = train(X, y, cfg, sample_weight=w, **kw)
+        model = GBDTClassificationModel(
+            boosterModel=booster,
+            device=self.device,
+            featuresCol=self.featuresCol,
+            predictionCol=self.predictionCol,
+            probabilityCol=self.probabilityCol,
+            rawPredictionCol=self.rawPredictionCol,
+            numClasses=max(num_class, 2),
+            classLabels=[float(c) for c in classes],
+        )
+        if self.is_set("thresholds"):
+            model.set("thresholds", self.thresholds)
+        model._eval_history = history
+        return model
+
+
+class GBDTClassificationModel(GBDTModelBase):
+    """LightGBMClassificationModel analogue; batched scoring."""
+    probabilityCol = StringParam(doc="probability vector column", default="probability")
+    rawPredictionCol = StringParam(doc="margin vector column", default="rawPrediction")
+    numClasses = IntParam(doc="number of classes", default=2)
+    classLabels = ListParam(doc="original label value per class index")
+    thresholds = ListParam(doc="per-class prediction thresholds")
+
+    def _transform(self, ds: Dataset) -> Dataset:
+        X = ds.to_numpy([self.featuresCol])
+        self._check_features(X)
+        ni = self.numIterationsUsed
+        margin = self.booster.predict_margin(X, None if ni < 0 else ni,
+                                             device=self.device)
+        proba = self.booster.to_proba(np.asarray(margin))
+        if margin.ndim == 1:
+            raw = np.stack([-margin, margin], axis=1)
+        else:
+            raw = margin
+        if self.thresholds:
+            scaled = proba / np.asarray(self.thresholds)[None, :]
+            pred = np.argmax(scaled, axis=1).astype(np.float64)
+        else:
+            pred = np.argmax(proba, axis=1).astype(np.float64)
+        if self.classLabels:
+            pred = np.asarray(self.classLabels, np.float64)[pred.astype(int)]
+        out = ds
+        if self.rawPredictionCol:
+            out = out.with_column(self.rawPredictionCol, list(raw.astype(np.float64)))
+        if self.probabilityCol:
+            out = out.with_column(self.probabilityCol, list(proba.astype(np.float64)))
+        out = out.with_column(self.predictionCol, pred)
+        return self._maybe_add_leaves(out, X)
+
+    @staticmethod
+    def load_native_model_from_string(s: str, device: str = "cuda",
+                                      **kw) -> "GBDTClassificationModel":
+        """A model from the version-2 JSON of either package."""
+        b = Booster.from_json(s, device=device)
+        return GBDTClassificationModel(boosterModel=b, device=device,
+                                       numClasses=max(b.num_class, 2), **kw)

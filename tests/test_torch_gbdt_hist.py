@@ -1,0 +1,166 @@
+"""The port's histogram ops (``synapseml_tpu_torch.models.gbdt.hist``) held
+against the JAX package's Pallas kernels, run through the Pallas
+interpreter on the CPU as the JAX package's own tests run them.
+
+On the CPU the port's wrappers take the kernels' plain versions, so these
+tests pin the function both the plain versions and the CUDA kernels
+compute (the card test, ``test_torch_gbdt_cuda.py``, pins the kernels
+against the plain versions bit for bit).  Histograms are exact int32 limb
+sums in both packages, reconstructed to f32 by the same operations in the
+same order, so the outputs compare exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from synapseml_tpu.models.gbdt import pallas_hist as jh
+from synapseml_tpu_torch.models.gbdt import hist as th
+
+
+def _vals(grad, hess, mask):
+    """Limbs and scales from both packages on the same numpy inputs."""
+    jv, js = jh.prep_hist_vals(jnp.asarray(grad), jnp.asarray(hess),
+                               jnp.asarray(mask))
+    tv, ts = th.prep_hist_vals(torch.from_numpy(np.asarray(grad)),
+                               torch.from_numpy(np.asarray(hess)),
+                               torch.from_numpy(np.asarray(mask)))
+    return (np.asarray(jv), np.asarray(js)), (tv, ts)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("case", ["random", "exact_halves", "bf16"])
+def test_prep_hist_vals_limbs_bit_identical(case):
+    rng = np.random.default_rng(1)
+    N = 4096
+    grad = rng.normal(size=N).astype(np.float32)
+    hess = (np.abs(grad) * 0.5 + 0.1).astype(np.float32)
+    mask = (rng.random(N) < 0.8).astype(np.float32)
+    if case == "exact_halves":
+        # max|g| = _Q_MAX makes the scale exactly 1, so every value below
+        # sits on a rounding tie: half-to-even must agree in both packages
+        q = th._Q_MAX
+        halves = np.array([q, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 63.5, 64.5,
+                           -64.5, 8191.5, -8192.5], np.float32)
+        grad[:len(halves)] = halves
+        hess[:len(halves)] = np.abs(halves)
+        mask[:len(halves)] = 1.0
+    (jv, js), (tv, ts) = _vals(grad, hess, mask)
+    if case == "bf16":
+        # the fused ingest: bf16 g/h times the f32 mask promote to f32
+        gb = jnp.asarray(grad).astype(jnp.bfloat16)
+        hb = jnp.asarray(hess).astype(jnp.bfloat16)
+        jv, js = (np.asarray(a) for a in jh.prep_hist_vals(
+            gb, hb, jnp.asarray(mask)))
+        tv, ts = th.prep_hist_vals(_t(grad).to(torch.bfloat16),
+                                   _t(hess).to(torch.bfloat16), _t(mask))
+    assert tv.dtype == torch.int8 and tuple(tv.shape) == (N, 8)
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(ts.numpy(), js)
+
+
+def test_coarse_bins_matches():
+    for B in (16, 64, 128, 255, 256, 512):
+        for s in (1, 2, 3):
+            assert th.coarse_bins(B, s) == jh.coarse_bins(B, s)
+
+
+def _route_case(seed, N, F, B, S, n_real):
+    rng = np.random.default_rng(seed)
+    bins_t = rng.integers(0, B, (F, N)).astype(np.int32)
+    node_id = rng.integers(0, 2 * n_real, N).astype(np.int32)
+    leaf = np.array(list(range(1, 2 * n_real, 2))
+                    + [61] * (S - n_real), np.int32)         # junk tail
+    feat = rng.integers(0, F, S).astype(np.int32)
+    thr = rng.integers(0, B, S).astype(np.int32)
+    l_id = np.arange(S, dtype=np.int32) * 2 + 2 * n_real
+    r_id = l_id + 1
+    grad = rng.normal(size=N).astype(np.float32)
+    hess = (np.abs(grad) + 0.1).astype(np.float32)
+    mask = (rng.random(N) < 0.8).astype(np.float32)
+    route = dict(leaf=leaf, sel=bins_t[feat], t1=thr,
+                 rlo=np.full(S, -1, np.int32), rhi=np.full(S, B, np.int32),
+                 dflt=np.ones(S, np.int32), l_id=l_id, r_id=r_id)
+    return bins_t, node_id, route, (grad, hess, mask)
+
+
+@pytest.mark.parametrize("shape,shift,K", [
+    ((2048, 9, 64, 16, 4), 0, 0),        # plain mode (maxBin=63 path)
+    ((8192, 7, 256, 4, 4), 2, 0),        # coarse only
+    ((8192, 7, 256, 4, 4), 3, 3),        # coarse + fine-K refine
+])
+def test_route_and_hist_matches_pallas(shape, shift, K):
+    N, F, B, S, n_real = shape
+    bins_t, node_id, r, gh = _route_case(11, N, F, B, S, n_real)
+    (jv, js), (tv, ts) = _vals(*gh)
+    sel_k = bins_t[[0, 3, 5][:K]] if K else None
+    jout = route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
+                                    sel_k)
+    tout = th.route_and_hist(
+        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["sel"]), _t(r["t1"]),
+        _t(r["rlo"]), _t(r["rhi"]), _t(r["dflt"]), _t(r["l_id"]),
+        _t(r["r_id"]), tv, ts, S, B, hist_shift=shift,
+        sel_k=None if sel_k is None else _t(sel_k))
+    assert len(tout) == len(jout)
+    np.testing.assert_array_equal(tout[0].numpy(), jout[0])     # new ids
+    for t_h, j_h in zip(tout[1:], jout[1:]):
+        assert tuple(t_h.shape) == j_h.shape
+        np.testing.assert_array_equal(t_h.numpy(), j_h)
+
+
+def route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
+                             sel_k):
+    out = jh.route_and_hist_pallas(
+        jnp.asarray(bins_t), jnp.asarray(node_id), jnp.asarray(r["leaf"]),
+        jnp.asarray(r["sel"]), jnp.asarray(r["t1"]), jnp.asarray(r["rlo"]),
+        jnp.asarray(r["rhi"]), jnp.asarray(r["dflt"]),
+        jnp.asarray(r["l_id"]), jnp.asarray(r["r_id"]), jnp.asarray(jv),
+        jnp.asarray(js), S, B, hist_shift=shift,
+        sel_k=None if sel_k is None else jnp.asarray(sel_k), interpret=True)
+    return tuple(np.asarray(a) for a in out)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+def test_build_hist_nodes_matches_pallas(shift):
+    rng = np.random.default_rng(3)
+    N, F, B, S = 2048, 11, 64, 5
+    bins_t = rng.integers(0, B, (F, N)).astype(np.int32)
+    grad = rng.normal(size=N).astype(np.float32)
+    hess = (np.abs(grad) + 0.1).astype(np.float32)
+    mask = (rng.random(N) < 0.7).astype(np.float32) * 1.5
+    slot = rng.integers(-1, S, N).astype(np.int32)
+    (jv, js), (tv, ts) = _vals(grad, hess, mask)
+    j = np.asarray(jh.build_hist_nodes_pallas(
+        jnp.asarray(bins_t), jnp.asarray(slot), jnp.asarray(jv),
+        jnp.asarray(js), S, B, hist_shift=shift, interpret=True))
+    t = th.build_hist_nodes(_t(bins_t), _t(slot), tv, ts, S, B,
+                            hist_shift=shift)
+    assert tuple(t.shape) == j.shape
+    np.testing.assert_array_equal(t.numpy(), j)
+
+
+def test_plain_versions_count_no_launches():
+    """The CPU path never reaches a kernel, so the launch counters stay
+    at zero; rows outside [0, width) and slots outside [0, S) add
+    nothing."""
+    th.reset_launch_counts()
+    rng = np.random.default_rng(4)
+    N, F, B, S = 512, 3, 16, 2
+    bins_t = rng.integers(-2, B + 3, (F, N)).astype(np.int32)
+    slot = rng.integers(-1, S + 2, N).astype(np.int32)
+    vals = torch.from_numpy(rng.integers(-64, 64, (N, 8)).astype(np.int8))
+    out = th.build_hist_nodes_limbs(_t(bins_t), _t(slot), vals, S, B)
+    exp = np.zeros((F, B, S, 8), np.int64)
+    v = vals.numpy().astype(np.int64)
+    for f in range(F):
+        for i in range(N):
+            b, s = bins_t[f, i], slot[i]
+            if 0 <= b < B and 0 <= s < S:
+                exp[f, b, s] += v[i]
+    np.testing.assert_array_equal(out.numpy(), exp)
+    assert th.LAUNCHES == {"build_hist_nodes": 0, "route_and_hist": 0}
+    assert th.LAUNCHES_BY_SHAPE == {}

@@ -1,0 +1,186 @@
+"""The port's GBDT slice as a whole held against the JAX package on the
+CPU: binning, the model JSON in both directions, and the classifier's
+fit → transform.
+
+The JAX package's CPU fit histograms f32 gradients by scatter-add, while
+the port always builds the kernels' exact int8-limb histograms, so whole
+fits agree to the quantization (holdout AUC within 0.005, the first
+split equal) rather than bit for bit; a model carried across predicts
+the same margins to 1e-6.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+from synapseml_tpu.core.dataset import Dataset as JDataset
+from synapseml_tpu.models.gbdt import BoostingConfig as JConfig
+from synapseml_tpu.models.gbdt import binning as jbin
+from synapseml_tpu.models.gbdt import train as jtrain
+from synapseml_tpu.models.gbdt.booster import Booster as JBooster
+from synapseml_tpu.models.gbdt.estimators import GBDTClassifier as JClf
+from synapseml_tpu.models.gbdt.metrics import auc as jauc
+from synapseml_tpu_torch.core import Dataset as TDataset
+from synapseml_tpu_torch.core import Pipeline as TPipeline
+from synapseml_tpu_torch.models.gbdt import binning as tbin
+from synapseml_tpu_torch.models.gbdt.booster import Booster as TBooster
+from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig
+from synapseml_tpu_torch.models.gbdt.booster import train as ttrain
+from synapseml_tpu_torch.models.gbdt.convert import booster_from_reference
+from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
+from synapseml_tpu_torch.models.gbdt.metrics import auc
+
+
+def _binary_data(n=3000, F=8, seed=0):
+    """tests/test_benchmark_fixtures.py's binary task."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    logit = 2 * X[:, 0] - 1.5 * X[:, 1] + X[:, 2] * X[:, 3]
+    y = (logit + rng.normal(scale=0.5, size=n) > 0).astype(np.float64)
+    return X, y
+
+
+@pytest.mark.parametrize("max_bin,n", [(255, 3000), (63, 3000), (15, 500),
+                                       (255, 250_000)])
+def test_bin_mapper_and_bins_match(max_bin, n):
+    import torch
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(n, 5)).astype(np.float32)
+    X[:, 3] = np.round(X[:, 3] * 2)          # few distinct values
+    X[::13, 1] = np.nan
+    kw = dict(sample_count=200_000, seed=4)
+    jm = jbin.fit_bin_mapper(X, max_bin, **kw)
+    tm = tbin.fit_bin_mapper(X, max_bin, **kw)
+    np.testing.assert_array_equal(tm.upper_bounds, jm.upper_bounds)
+    np.testing.assert_array_equal(tm.num_bins, jm.num_bins)
+    t_bins = tbin.bin_features(X, tm, torch.device("cpu"))
+    np.testing.assert_array_equal(t_bins.numpy(), jm.transform(X).T)
+
+
+def test_reference_booster_round_trip():
+    """A JAX-trained model → the port: margins to 1e-6 on rows with NaN;
+    the port's JSON → the JAX package's reader: the same margins."""
+    X, y = _binary_data()
+    X[::29, 2] = np.nan
+    cfg = JConfig(objective="binary", num_iterations=12, num_leaves=15,
+                  min_data_in_leaf=5, learning_rate=0.2)
+    jb, _ = jtrain(X[:2400], y[:2400], cfg)
+    d = json.loads(json.dumps(jb.to_dict()))
+    tb = booster_from_reference(d, device="cpu")
+    jm = jb.predict_margin(X[2400:])
+    tm = tb.predict_margin(X[2400:])
+    np.testing.assert_allclose(tm, jm, rtol=0, atol=1e-6)
+    back = JBooster.from_dict(json.loads(json.dumps(tb.to_dict())))
+    np.testing.assert_allclose(back.predict_margin(X[2400:]), jm, rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(tb.predict_leaf(X[:50]),
+                                  jb.predict_leaf(X[:50]))
+
+
+def test_port_model_read_by_jax():
+    """A port-trained model's JSON predicts the same margins in the JAX
+    package."""
+    X, y = _binary_data(seed=1)
+    b, _ = ttrain(X[:2400], y[:2400], BoostingConfig(
+        objective="binary", num_iterations=6, num_leaves=15,
+        min_data_in_leaf=5), device="cpu")
+    jb = JBooster.from_dict(json.loads(b.to_json()))
+    np.testing.assert_allclose(jb.predict_margin(X[2400:]),
+                               b.predict_margin(X[2400:]), rtol=0,
+                               atol=1e-6)
+
+
+def test_classifier_fit_transform_matches_jax():
+    """tests/test_benchmark_fixtures.py's data with bagging off: the two
+    packages' classifiers agree on holdout AUC, the first split and the
+    output columns (JAX on one shard: the test session fakes 8
+    devices)."""
+    X, y = _binary_data()
+    common = dict(numIterations=30, numLeaves=15, learningRate=0.2,
+                  minDataInLeaf=5, seed=7)
+    jm = JClf(numShards=1, **common).fit(
+        JDataset({"features": list(X[:2400]), "label": y[:2400]}))
+    tm = TPipeline(stages=[GBDTClassifier(device="cpu", **common)]).fit(
+        TDataset({"features": list(X[:2400]), "label": y[:2400]}))
+    jout = jm.transform(JDataset({"features": list(X[2400:]),
+                                  "label": y[2400:]}))
+    tout = tm.transform(TDataset({"features": list(X[2400:]),
+                                  "label": y[2400:]}))
+    assert tout.columns == jout.columns
+    ja = jauc(y[2400:], np.stack(jout["probability"])[:, 1])
+    ta = auc(y[2400:], np.stack(tout["probability"])[:, 1])
+    assert ta > 0.9 and abs(ta - ja) <= 0.005, (ta, ja)
+    jt0 = jm.booster.trees[0]
+    tt0 = tm.get_or_default("stages")[0].booster.trees[0]
+    assert tt0.split_feature[0] == jt0.split_feature[0]
+    assert tt0.split_bin[0] == jt0.split_bin[0]
+    np.testing.assert_array_equal(np.stack(tout["prediction"]) >= 0, True)
+
+
+def test_two_level_fit_on_cpu_is_close_to_full_resolution():
+    """two_level_hist='on' (what 'auto' picks at >= 500k rows) keeps
+    holdout quality at this size (the JAX package's own bar)."""
+    X, y = _binary_data(n=20_000, F=12, seed=3)
+    aucs = {}
+    for tl in ("on", "off"):
+        b, _ = ttrain(X[:16_000], y[:16_000], BoostingConfig(
+            objective="binary", num_iterations=10, two_level_hist=tl),
+            device="cpu")
+        assert b.config.two_level_hist == tl
+        aucs[tl] = auc(y[16_000:], b.predict_margin(X[16_000:]))
+    assert abs(aucs["on"] - aucs["off"]) <= 0.005, aucs
+
+
+@pytest.mark.parametrize("kw", [
+    dict(boosting_type="goss"), dict(boosting_type="dart"),
+    dict(bagging_fraction=0.5, bagging_freq=1),
+    dict(growth_policy="lossguide"), dict(enable_bundle=True),
+    dict(monotone_constraints=[1, 0, 0, 0, 0, 0, 0, 0]),
+    dict(categorical_feature=[1]), dict(early_stopping_round=5),
+    dict(objective="multiclass"), dict(parallelism="voting_parallel"),
+])
+def test_unported_config_raises(kw):
+    X, y = _binary_data(n=200)
+    cfg = BoostingConfig(**{"objective": "binary", **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain(X, y, cfg, device="cpu")
+
+
+def test_feature_fraction_draws_like_jax():
+    """feature_fraction draws its per-tree masks from the same numpy
+    stream as the JAX package: no tree splits on an unsampled feature."""
+    X, y = _binary_data(n=2000, F=8)
+    cfg = BoostingConfig(objective="binary", num_iterations=4,
+                         feature_fraction=0.5, seed=11, min_data_in_leaf=5)
+    b, _ = ttrain(X, y, cfg, device="cpu")
+    rng = np.random.default_rng(11)
+    for t in b.trees:
+        allowed = set(rng.choice(8, 4, replace=False).tolist())
+        used = set(t.split_feature[t.split_feature >= 0].tolist())
+        assert used <= allowed, (used, allowed)
+
+
+def test_regression_objective_fits():
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(3000, 6)).astype(np.float32)
+    y = (X[:, 0] * 2 + np.sin(X[:, 1])).astype(np.float64)
+    b, _ = ttrain(X, y, BoostingConfig(num_iterations=20, num_leaves=15),
+                  device="cpu")
+    pred = b.predict_margin(X)
+    assert np.mean((pred - y) ** 2) < 0.3 * np.var(y)
+    jb = JBooster.from_dict(b.to_dict())
+    np.testing.assert_allclose(jb.predict_margin(X), pred, atol=1e-6)
+
+
+def test_model_save_load_round_trip(tmp_path):
+    from synapseml_tpu_torch.core import load_stage
+    X, y = _binary_data(n=1500)
+    ds = TDataset({"features": list(X), "label": y})
+    m = GBDTClassifier(numIterations=3, device="cpu").fit(ds)
+    m.save(str(tmp_path / "m"))
+    m2 = load_stage(str(tmp_path / "m"))
+    np.testing.assert_array_equal(
+        np.stack(m2.transform(ds)["probability"]),
+        np.stack(m.transform(ds)["probability"]))
+    assert isinstance(m2.booster, TBooster)
