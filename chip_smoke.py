@@ -21,6 +21,35 @@
    path must have launched, and the holdout AUC must exceed 0.8.
 5. Profiles one more default fit with ``torch.profiler``: device time by
    kernel and the device's busy share of the fit's wall clock.
+6. Holds the paged decode-attention kernel (K3) against its plain version
+   at the LLM engine's shapes (Llama-3.2-1B heads: H=32, KV=8, D=64; 16
+   slots of 2048 positions; seeded ragged spans including 1, the tile
+   edges and 2048): bf16 at S = 1, 2, 4, 8 and 32 (the last spreads its
+   128 query rows per kv head over two blocks; atol = rtol = 1e-2 on rows
+   with a live key) and f32 at S = 1 (atol 1e-5).  Times the kernel, the
+   plain version and one ``scaled_dot_product_attention`` call over the
+   full cache rows with a boolean span mask, and computes the bound.
+7. The decode engine on the card against the engine on the CPU, f32, at
+   Llama-3.2-1B width and 2 layers (max_len 512, 4 slots, ragged
+   repeated-phrase prompts admitted as slots free), once plain and once
+   with ``spec_draft_len=4``: greedy tokens must be equal on both, equal
+   to the port's dense ``generate`` on the card, and K3 must have
+   launched on the card.
+8. The main LLM path at full width and depth: ``LlamaConfig.llama3_1b(
+   max_len=2048)`` in bf16 (16 layers, vocab 128,256, tied head), random
+   weights from ``--seed``, ``SlotEngine(n_slots=16)`` over 24 requests
+   of 64-1536 prompt tokens and 64 new tokens each, admitted as slots
+   free, once with ``spec_draft_len=0`` and once with 7.  K3's launch
+   counts are reset just before and read just after each run: the S=1
+   shape must have launched in the first, an S>1 shape in the second.
+   Reports decode tokens/s, mean step ms, admit (TTFT) p50, decode K/V
+   bytes per token (the reference's tile ledger and the exact live spans
+   the kernel reads), and the tokens' agreement with a dense-backend
+   engine (reported, not asserted: random bf16 weights give near-tied
+   argmaxes).
+9. Profiles a window of full-width decode steps with ``torch.profiler``:
+   the device's busy share, its top kernels, the kernels launched per
+   step and the operators that take the most host time.
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -39,10 +68,13 @@ import time
 import numpy as np
 import torch
 
-#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-#: non-tensor-core 32-bit operations/s
+#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+#: non-tensor-core 32-bit operations/s and dense bf16 tensor-core flops/s
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_BF16_S = 989e12
+#: requests of the full-width LLM run (phase 8): 1.5 waves of 16 slots
+LLM_REQUESTS = 24
 
 
 def log(*a):
@@ -71,11 +103,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(nbytes: int, nops: int):
+def bound(nbytes: int, nops: int, peak_ops: float = PEAK_OPS_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the 32-bit rate."""
+    operations over ``peak_ops`` (default the 32-bit rate)."""
     tb = nbytes / PEAK_BYTES_S * 1e3
-    to = nops / PEAK_OPS_S * 1e3
+    to = nops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -206,17 +238,17 @@ def card_vs_cpu(X, y, Xh, two_level: str):
     """The same fit through ``train`` on the card and on the CPU: → the
     largest margin difference on ``Xh``; raises if any tree splits on
     another feature or bin, or (two-level on) K1 never ran on the card."""
-    from synapseml_tpu_torch.models.gbdt import hist as H
+    from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
     cfg = BoostingConfig(num_iterations=2, two_level_hist=two_level)
     res = {}
     for d in ("cuda", "cpu"):
-        H.reset_launch_counts()
+        L.reset()
         booster, _ = train(X, y, cfg, device=d)
-        if d == "cuda" and (H.LAUNCHES["route_and_hist"] == 0 or (
-                two_level == "on" and H.LAUNCHES["build_hist_nodes"] == 0)):
+        if d == "cuda" and (L.total("route_and_hist") == 0 or (
+                two_level == "on" and L.total("build_hist_nodes") == 0)):
             raise AssertionError(f"two_level={two_level}: a kernel never ran "
-                                 f"on the card: {H.LAUNCHES}")
+                                 f"on the card: {L.BY_SHAPE}")
         res[d] = (booster, booster.predict_margin(Xh, device="cpu"))
     for tc, tp in zip(res["cuda"][0].trees, res["cpu"][0].trees):
         n = int(tc.num_nodes)
@@ -230,20 +262,21 @@ def card_vs_cpu(X, y, Xh, two_level: str):
 
 def fit_path(X, y, Xh, yh, max_bin, iters, device="cuda"):
     from synapseml_tpu_torch.core import Dataset, Pipeline
-    from synapseml_tpu_torch.models.gbdt import hist as H
+    from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
     from synapseml_tpu_torch.models.gbdt.metrics import auc
     ds = Dataset({"features": list(X), "label": y})
     hold = Dataset({"features": list(Xh), "label": yh})
-    H.reset_launch_counts()
+    L.reset()
     t0 = time.perf_counter()
     model = Pipeline(stages=[GBDTClassifier(
         numIterations=iters, maxBin=max_bin, device=device)]).fit(ds)
     if device == "cuda":
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = dict(H.LAUNCHES)
-    shapes = dict(H.LAUNCHES_BY_SHAPE)
+    launches = {k: L.total(k) for k in ("build_hist_nodes",
+                                        "route_and_hist")}
+    shapes = dict(L.BY_SHAPE)
     t0 = time.perf_counter()
     out = model.transform(hold)
     transform_s = time.perf_counter() - t0
@@ -291,6 +324,222 @@ def profile_fit(X, y, iters: int) -> dict:
                      for e in kern[:10]])
 
 
+# --------------------------------------------------------------------------
+# phases 6 to 9: the LLM decode path (SlotEngine over K3)
+# --------------------------------------------------------------------------
+
+def k3_case(dev, seed, B, S, H, KV, D, T, dtype, spans):
+    """K3 against its plain version on the same inputs, timed beside the
+    plain version and one ``scaled_dot_product_attention`` call over the
+    full cache rows with a boolean span mask (its inputs transposed to its
+    head-major layout beforehand)."""
+    from synapseml_tpu_torch.models.llm import paged_attn as PA
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, T, KV, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, T, KV, D), generator=g, device=dev).to(dtype)
+    q_in = q[:, 0] if S == 1 else q       # the decode step passes (B, H, D)
+    sp = torch.as_tensor(np.asarray(spans, np.int32), device=dev)
+    out = PA.paged_decode_attention(q_in, k, v, sp)
+    ref = PA.paged_decode_attention_plain(q_in, k, v, sp)
+    out, ref = out.reshape(q.shape).float(), ref.reshape(q.shape).float()
+    lim = sp.long()[:, None] - (S - 1) + torch.arange(S, device=dev)[None]
+    live = lim > 0                         # rows with at least one key
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
+    diff = (out - ref).abs()[live]
+    if not bool((diff <= atol + rtol * ref.abs()[live]).all()):
+        raise AssertionError(f"paged_decode_attention S={S} {dtype}: "
+                             f"kernel and plain differ by {diff.max()}")
+    qt = q.transpose(1, 2).contiguous()                        # (B, H, S, D)
+    kt = k.transpose(1, 2).contiguous()                        # (B, KV, T, D)
+    vt = v.transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device=dev)[None, None] < lim[:, :, None])[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib():
+        return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - ref).abs()[live].max())
+    if lib_err > 10 * atol + 0.05:
+        raise AssertionError(f"SDPA yardstick disagrees by {lib_err}")
+    item = torch.empty((), dtype=dtype).element_size()
+    live_keys = int(np.minimum(np.asarray(spans), T).sum())
+    # reads: each live K and V row once per kv head, q and the spans;
+    # writes: out.  Flops: q.k and p.v over each slot's span per query row
+    nbytes = (2 * live_keys * KV * D * item + 2 * B * S * H * D * item
+              + 4 * B)
+    flops = 4 * S * H * D * live_keys
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S if dtype == torch.bfloat16
+                       else PEAK_OPS_S)
+    return dict(
+        ms=cuda_ms(lambda: PA.paged_decode_attention(q_in, k, v, sp),
+                   iters=20),
+        plain_ms=cuda_ms(
+            lambda: PA.paged_decode_attention_plain(q_in, k, v, sp),
+            iters=5),
+        library_ms=cuda_ms(lib, iters=20), bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=float(diff.max()), bytes=nbytes, sdpa_err=lib_err)
+
+
+def phrase_prompts(rng, lengths, vocab, period):
+    """Repeated-phrase prompts (bench.py's spec-decode leg: a random
+    phrase tiled to length), one phrase per request."""
+    out = []
+    for n in lengths:
+        base = rng.integers(1, vocab, period)
+        out.append(np.tile(base, -(-int(n) // period))[:n].astype(np.int32))
+    return out
+
+
+def drive(engine, prompts, new_tokens) -> dict:
+    """Admit requests in order as slots free and step until all finish:
+    → {outs (request -> generated ids), ttft_s (admit wall per request),
+    step_s (wall per step), step_tokens, wall_s}.  Both ``admit`` and
+    ``step`` end in a device-to-host copy, so their host clocks cover
+    the device work."""
+    pending = list(range(len(prompts)))
+    req_of = {}
+    outs, ttft, step_s = {}, [], []
+    step_tokens = 0
+    t0 = time.perf_counter()
+    while pending or engine.active.any():
+        while pending and engine.free_slot_count:
+            i = pending.pop(0)
+            ta = time.perf_counter()
+            r = engine.admit(prompts[i], int(new_tokens[i]))
+            ttft.append(time.perf_counter() - ta)
+            req_of[r.slot] = i
+            if r.finished:
+                outs[i] = engine.generated_ids(r.slot)
+        ts = time.perf_counter()
+        events = engine.step()
+        step_s.append(time.perf_counter() - ts)
+        step_tokens += len(events)
+        for ev in events:
+            if ev.finished:
+                outs[req_of[ev.slot]] = engine.generated_ids(ev.slot)
+    return dict(outs=outs, ttft_s=ttft, step_s=step_s,
+                step_tokens=step_tokens, wall_s=time.perf_counter() - t0)
+
+
+def llm_card_vs_cpu(dev, seed: int) -> dict:
+    """Phase 7: the engine on the card and on the CPU at f32, plain and
+    speculative; raises on any token difference."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
+                                                SlotEngine, generate)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the f32 check needs "
+                             "full f32 products")
+    cfg = LlamaConfig.llama3_1b(num_layers=2, max_len=512,
+                                dtype=torch.float32)
+    cpu = LlamaModel(cfg, device="cpu", seed=seed)
+    card = LlamaModel(cfg, device=dev, seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed)
+    prompts = phrase_prompts(rng, [21, 40, 13, 33, 57, 9], cfg.vocab_size, 5)
+    new = [12, 9, 16, 10, 12, 8]
+    dense = [generate(card, p[None], max_new_tokens=n)[0]
+             for p, n in zip(prompts, new)]
+    res = {}
+    for spec in (0, 4):
+        outs = {}
+        for d, m in (("cpu", cpu), ("card", card)):
+            eng = SlotEngine(m, n_slots=4, max_len=cfg.max_len,
+                             spec_draft_len=spec, device=m.device)
+            L.reset()
+            outs[d] = drive(eng, prompts, new)["outs"]
+            if d == "card":
+                shapes = L.shapes("paged_decode_attention")
+                verify = [k for k in shapes if ",S=1," not in k]
+                if not shapes or (spec and not verify):
+                    raise AssertionError(f"spec={spec}: K3 did not launch "
+                                         f"on the card: {shapes}")
+        for i in range(len(prompts)):
+            if not (np.array_equal(outs["cpu"][i], outs["card"][i])
+                    and np.array_equal(outs["card"][i], dense[i])):
+                raise AssertionError(
+                    f"spec={spec} request {i}: card {outs['card'][i]}, "
+                    f"CPU {outs['cpu'][i]}, dense generate {dense[i]}")
+        res[spec] = dict(
+            launches=shapes, steps=eng.steps_run, spec_steps=eng.spec_steps,
+            tokens=int(sum(len(o) for o in outs["card"].values())))
+    return res
+
+
+def llm_main_path(model, prompts, new, spec: int, backend: str = "auto"):
+    """One full-width engine run; K3's counts are reset just before and
+    read just after it."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.llm import SlotEngine
+    eng = SlotEngine(model, n_slots=16, spec_draft_len=spec,
+                     attention_backend=backend, device=model.device)
+    L.reset()
+    r = drive(eng, prompts, new)
+    shapes = L.shapes("paged_decode_attention")
+    vocab = model.cfg.vocab_size
+    for i, n in enumerate(new):
+        o = r["outs"].get(i)
+        if o is None or len(o) != n or o.min() < 0 or o.max() >= vocab:
+            raise AssertionError(f"spec={spec}: request {i} gave {o}")
+    steps = np.asarray(r["step_s"])
+    return dict(
+        backend=eng.attention_backend, spec=spec, requests=len(prompts),
+        steps=eng.steps_run, spec_steps=eng.spec_steps,
+        acceptance=eng.spec_acceptance_rate,
+        decode_tokens=r["step_tokens"],
+        decode_tokens_per_s=r["step_tokens"] / float(steps.sum()),
+        mean_step_ms=float(steps.mean() * 1e3),
+        ttft_p50_ms=float(np.median(r["ttft_s"]) * 1e3),
+        ttft_p90_ms=float(np.percentile(r["ttft_s"], 90) * 1e3),
+        wall_s=r["wall_s"],
+        # decode K/V bytes per committed token: the reference's tile
+        # ledger, and the exact live spans the CUDA kernel reads
+        ledger_bytes_per_token=eng.decode_attn_bytes / max(
+            1, r["step_tokens"]),
+        live_bytes_per_token=eng.decode_attn_live_bytes / max(
+            1, r["step_tokens"]),
+        launches=shapes), r["outs"]
+
+
+def profile_decode(model, prompts, new, steps: int = 12) -> dict:
+    """Device time by kernel over a window of full-width decode steps
+    (16 slots busy, after 3 warm steps), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from synapseml_tpu_torch.models.llm import SlotEngine
+    eng = SlotEngine(model, n_slots=16, device=model.device)
+    for p, n in list(zip(prompts, new))[:16]:
+        eng.admit(p, n)
+    for _ in range(3):
+        eng.step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in kern) / 1e6
+    # the host side: device kernels launched per step, and the operators
+    # that spend the most host time themselves
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.self_cpu_time_total > 0]
+    host.sort(key=lambda e: -e.self_cpu_time_total)
+    return dict(steps=steps, wall_s=wall, step_ms=wall / steps * 1e3,
+                kernel_s=total, busy_share=total / wall,
+                launches_per_step=sum(e.count for e in kern) / steps,
+                top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                     for e in kern[:10]],
+                top_host=[[e.key[:40], e.self_cpu_time_total / 1e3, e.count]
+                          for e in host[:10]])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -300,8 +549,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: this script runs the port on a card")
         return 1
+    from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.kernels._build import build_all
-    from synapseml_tpu_torch.models.gbdt import hist as H
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -342,7 +591,7 @@ def main(argv=None) -> int:
     for kern, dims, fit in shapes:
         case = k2_case if kern == "route_and_hist" else k1_case
         r = case(rng, dev, N, **dims)
-        key = H.launch_key(kern, **dims)
+        key = L.launch_key(kern, **dims)
         log(f"{key}: identical to plain; kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bytes']} B)")
@@ -385,6 +634,66 @@ def main(argv=None) -> int:
 
     # -- 5. where the time goes --------------------------------------------
     log(f"profile maxBin=255: {json.dumps(profile_fit(X, y, 2))}")
+    del X, y, Xh, yh
+
+    # -- 6. K3 at the engine's shapes ---------------------------------------
+    from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
+                                                cast_params)
+    krng = np.random.default_rng(args.seed)
+    B, H, KV, D, T = 16, 32, 8, 64, 2048
+    edges = [1, 63, 64, 65, 255, 256, 257, 2047, 2048]
+    spans = np.concatenate([edges, krng.integers(1, T + 1, B - len(edges))])
+    k3 = {}
+    for S, dt in ((1, torch.bfloat16), (2, torch.bfloat16),
+                  (4, torch.bfloat16), (8, torch.bfloat16),
+                  (32, torch.bfloat16), (1, torch.float32)):
+        key = L.launch_key("paged_decode_attention", B=B, S=S, H=H, KV=KV,
+                            D=D, T=T, dtype="bf16" if dt == torch.bfloat16
+                            else "f32")
+        r = k3_case(dev, args.seed + S, B, S, H, KV, D, T, dt, spans)
+        log(f"{key}: max_abs_err {r['max_abs_err']:.3g} (SDPA "
+            f"{r['sdpa_err']:.3g}); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bytes']} B, {r['bound_by']})")
+        k3[key] = r
+
+    # -- 7. the engine on the card against the engine on the CPU ------------
+    t0 = time.perf_counter()
+    log(f"LLM card vs CPU, f32, 2 layers: tokens equal (and equal to dense "
+        f"generate): {json.dumps(llm_card_vs_cpu(dev, args.seed))} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 8. the LLM main path at full width and depth -----------------------
+    cfg = LlamaConfig.llama3_1b(max_len=T)
+    model = cast_params(LlamaModel(cfg, device=dev, seed=args.seed),
+                        cfg.dtype)
+    prng = np.random.default_rng(args.seed)
+    lengths = prng.integers(64, 1537, LLM_REQUESTS)
+    prompts = phrase_prompts(prng, lengths, cfg.vocab_size, 8)
+    new = [64] * LLM_REQUESTS
+    llm_runs, outs = {}, {}
+    for spec in (0, 7):
+        llm_runs[spec], outs[spec] = llm_main_path(model, prompts, new, spec)
+        log(f"LLM llama3_1b bf16, 16 slots, spec_draft_len={spec}: "
+            f"{json.dumps(llm_runs[spec])}")
+    if not any(k.endswith(",S=1,H=32,KV=8,D=64,T=2048,dtype=bf16]")
+               for k in llm_runs[0]["launches"]):
+        raise AssertionError("the plain run never launched K3 at S=1")
+    if not any(",S=1," not in k for k in llm_runs[7]["launches"]):
+        raise AssertionError("the speculative run never launched K3 at "
+                             "S>1")
+    dense, dense_outs = llm_main_path(model, prompts, new, 0, "dense")
+    log(f"LLM llama3_1b bf16, dense backend: {json.dumps(dense)}")
+    for spec in (0, 7):
+        agree = float(np.mean([np.mean(outs[spec][i] == dense_outs[i])
+                               for i in range(len(prompts))]))
+        log(f"token agreement, paged spec_draft_len={spec} vs dense: "
+            f"{agree:.4f} (reported; random bf16 weights give near-tied "
+            "argmaxes)")
+
+    # -- 9. where the decode time goes ------------------------------------
+    log(f"profile LLM decode: "
+        f"{json.dumps(profile_decode(model, prompts, new))}")
 
     # -- results -----------------------------------------------------------
     # each shape's launches in the one fit that runs it
@@ -398,6 +707,21 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    # each K3 shape with its launches in the one LLM run that runs it
+    # (S=1 in the plain run, S>1 in the speculative run); a verify width
+    # the drafts never reached is checked above and left out here
+    for key, r in k3.items():
+        run = llm_runs[0] if ",S=1," in key else llm_runs[7]
+        n = run["launches"].get(key, 0)
+        if n == 0:
+            continue
+        kernels.append(dict(
+            name=key, route="cuda",
+            source="synapseml_tpu_torch/csrc/paged_attn.cu",
+            replaces="synapseml_tpu/models/llm/pallas_attn.py:315",
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

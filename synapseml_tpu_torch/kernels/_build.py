@@ -26,7 +26,8 @@ REPO_ROOT = _PKG.parent
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 
 #: library name -> source file, relative to the package
-SOURCES: Dict[str, str] = {"gbdt_hist": "csrc/gbdt_hist.cu"}
+SOURCES: Dict[str, str] = {"gbdt_hist": "csrc/gbdt_hist.cu",
+                            "paged_attn": "csrc/paged_attn.cu"}
 
 #: library name -> compile-time limits, passed to ``nvcc`` as ``-D``
 #: defines; the Python wrappers check their inputs against the same numbers
@@ -36,6 +37,13 @@ DEFINES: Dict[str, Dict[str, int]] = {
         # the H100's opt-in shared memory per block (227 KB) less the
         # kernel's static routing table of 7 x SML_MAX_SLOTS int32
         "SML_MAX_SMEM": 232448 - 7 * 64 * 4,
+    },
+    "paged_attn": {
+        # query rows one block keeps (S verify positions x the GQA group
+        # of one kv head) and the largest head width; at both limits a
+        # block takes 115,968 bytes of shared memory
+        "SML_PA_MAX_ROWS": 64,
+        "SML_PA_MAX_D": 128,
     },
 }
 

@@ -29,10 +29,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
-
 import torch
 
+from ...kernels import launches
 from ...kernels._build import DEFINES
 
 #: value channels per row (and output lanes per slot)
@@ -45,31 +44,6 @@ _Q_MAX = 1_040_447.0
 #: the CUDA kernels' compile-time limits (csrc/gbdt_hist.cu)
 _MAX_SLOTS = DEFINES["gbdt_hist"]["SML_MAX_SLOTS"]
 _MAX_SMEM = DEFINES["gbdt_hist"]["SML_MAX_SMEM"]
-
-#: kernel launches since the last :func:`reset_launch_counts` — one per
-#: CUDA launch, never for the plain versions
-LAUNCHES: Dict[str, int] = {"build_hist_nodes": 0, "route_and_hist": 0}
-#: the same launches by shape, keyed by :func:`launch_key`
-LAUNCHES_BY_SHAPE: Dict[str, int] = {}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    LAUNCHES_BY_SHAPE.clear()
-
-
-def launch_key(kernel: str, **dims: int) -> str:
-    """``kernel[name=value,...]``: K1 takes ``F, B, shift, S`` and K2
-    ``F, B, shift, K, S``, with ``B`` the full bin count."""
-    return kernel + "[" + ",".join(f"{k}={v}" for k, v in dims.items()) + "]"
-
-
-def _count(kernel: str, **dims: int) -> None:
-    LAUNCHES[kernel] += 1
-    key = launch_key(kernel, **dims)
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
-
 
 # --------------------------------------------------------------------------
 # quantization
@@ -266,8 +240,10 @@ def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
             n_slots, Bh, hist_shift, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "build_hist_nodes")
-    _count("build_hist_nodes", F=F, B=total_bins, shift=hist_shift,
-           S=n_slots)
+    # launch keys: K1 ``F, B, shift, S`` and K2 ``F, B, shift, K, S``, with
+    # ``B`` the full bin count
+    launches.count("build_hist_nodes", F=F, B=total_bins, shift=hist_shift,
+                   S=n_slots)
     return out
 
 
@@ -306,7 +282,7 @@ def _route_and_hist_cuda(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
             outf.data_ptr() if K else None,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "route_and_hist")
-    _count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S)
+    launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S)
     return new_id, out, outf
 
 

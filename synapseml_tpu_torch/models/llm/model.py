@@ -1,0 +1,341 @@
+"""Decoder-only causal LLM (Llama-3 family architecture) as ``nn.Module``s.
+
+The PyTorch port of the JAX package's ``models/llm/model.py``: RMSNorm,
+rotary embeddings, grouped-query attention and a SwiGLU MLP, with the KV
+cache as explicit state — a list of per-layer ``{"k", "v"}`` tensors
+shaped ``(batch, max_len, kv_heads, d_head)`` that the attention updates
+IN PLACE (the reference threads an immutable pytree through ``apply``
+and donates it; here the write lands in the caller's tensors and the
+same list comes back).
+
+Parameters keep the reference's layouts and names, so a flax parameter
+tree converts by renaming alone (:mod:`.convert`): projection kernels
+are ``(in, out)``, the embedding table ``(vocab, d_model)``.  The
+precision rules are the reference's: projections compute in
+``cfg.dtype``, RMSNorm in f32 then ``(normed * scale).to(dtype)``,
+attention scores and softmax in f32 with the probabilities cast to
+``cfg.dtype`` before the PV product, and the tied head promotes both the
+hidden state and the table to ``cfg.dtype`` (flax ``nn.Embed.attend``)
+before its logits go to f32.  The projections are plain ``torch.matmul``
+as the reference leaves them to XLA; the paged decode read is the K3
+kernel (:mod:`.paged_attn`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...device import DeviceLike, resolve_device
+from .paged_attn import paged_decode_attention
+
+#: flax ``truncated_normal(stddev)`` draws from a standard normal cut at
+#: ±2 and rescales by this constant, so the kept values have std ``stddev``
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(unsafe_hash=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    d_model: int = 4096
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    d_ff: int = 14_336
+    max_len: int = 8192
+    rope_theta: float = 500_000.0
+    rms_norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    tie_embeddings: bool = False
+    #: "int8" weight-only quantization is not ported yet (ROADMAP A1)
+    weight_quant: str = "none"
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.num_heads
+
+    @staticmethod
+    def llama3_1b(**kw) -> "LlamaConfig":
+        """Llama-3.2-1B's published shapes; ``kw`` overrides any field
+        (a cut depth: ``num_layers=2``)."""
+        shapes = dict(d_model=2048, num_layers=16, num_heads=32,
+                      num_kv_heads=8, d_ff=8192, tie_embeddings=True)
+        return LlamaConfig(**{**shapes, **kw})
+
+    @staticmethod
+    def tiny(**kw) -> "LlamaConfig":
+        """Test config: byte vocab, 4 layers."""
+        kw.setdefault("vocab_size", 512)
+        kw.setdefault("d_model", 128)
+        kw.setdefault("num_layers", 4)
+        kw.setdefault("num_heads", 8)
+        kw.setdefault("num_kv_heads", 4)
+        kw.setdefault("d_ff", 256)
+        kw.setdefault("max_len", 256)
+        return LlamaConfig(**kw)
+
+
+def _trunc_normal(shape, device, generator, stddev: float = 0.02):
+    s = stddev / _TRUNC_STD
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(w, std=s, a=-2 * s, b=2 * s, generator=generator)
+    return nn.Parameter(w)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` without bias: ``kernel`` is ``(in, out)``; the
+    input and kernel are cast to ``dtype`` and multiplied there."""
+
+    def __init__(self, in_features: int, features: int, dtype,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = _trunc_normal((in_features, features), device,
+                                    generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, features: int, eps: float, dtype,
+                 device: torch.device):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        normed = xf * torch.rsqrt(var + self.eps)
+        return (normed * self.scale).to(self.dtype)
+
+
+def rope_frequencies(d_head: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, d_head, 2, np.float32) / d_head))
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(d_head: int, theta: float, device: torch.device):
+    return torch.from_numpy(rope_frequencies(d_head, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) absolute token positions."""
+    inv = _inv_freq(x.shape[-1], float(theta), x.device)       # (D/2,)
+    ang = positions[..., None].float() * inv                   # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               device: DeviceLike = "cuda") -> List[Dict[str, torch.Tensor]]:
+    """Per-layer KV cache: ``batch`` rows of ``(max_len, kv_heads,
+    d_head)`` zeros in ``cfg.dtype``.  ``batch`` doubles as the slot axis
+    of the continuous-batching engine (:mod:`.slots`)."""
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.d_head)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            for _ in range(cfg.num_layers)]
+
+
+class CausalAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+        self.q_proj = Dense(cfg.d_model, H * D, cfg.dtype, device, generator)
+        self.k_proj = Dense(cfg.d_model, KV * D, cfg.dtype, device,
+                            generator)
+        self.v_proj = Dense(cfg.d_model, KV * D, cfg.dtype, device,
+                            generator)
+        self.o_proj = Dense(H * D, cfg.d_model, cfg.dtype, device, generator)
+
+    def forward(self, x, positions, cache: Optional[Dict],
+                cache_index=None, slot_mask: Optional[torch.Tensor] = None,
+                attention_backend: str = "dense"):
+        """→ ``(out, cache)``.  ``cache_index`` is an int (prefill: write
+        the S new K/V rows at that offset of every batch row) or a ``(B,)``
+        tensor (decode / verify: row b writes its S rows at its own
+        offset).  ``slot_mask`` gates the vector write: an inactive row
+        rewrites the values it holds, so its K/V is bitwise unchanged
+        (the reference's payload masking).  Every written position must
+        lie inside the cache: the engine guarantees it."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+        q = apply_rope(self.q_proj(x).reshape(B, S, H, D), positions,
+                       cfg.rope_theta)
+        k = apply_rope(self.k_proj(x).reshape(B, S, KV, D), positions,
+                       cfg.rope_theta)
+        v = self.v_proj(x).reshape(B, S, KV, D)
+
+        vector = cache is not None and torch.is_tensor(cache_index) \
+            and cache_index.dim() > 0
+        if cache is not None:
+            k_all, v_all = cache["k"], cache["v"]
+            T = k_all.shape[1]
+            if not vector:
+                ci = int(cache_index)
+                if ci < 0 or ci + S > T:
+                    raise ValueError(f"cache_index {ci} + {S} new rows "
+                                     f"overrun the cache's {T} positions")
+                k_all[:, ci:ci + S] = k
+                v_all[:, ci:ci + S] = v
+            else:
+                wpos = (cache_index.long()[:, None]
+                        + torch.arange(S, device=x.device)[None, :])
+                bidx = torch.arange(B, device=x.device)[:, None]
+                k_w, v_w = k, v
+                if slot_mask is not None:
+                    m = slot_mask.to(torch.bool).reshape(B, 1, 1, 1)
+                    k_w = torch.where(m, k, k_all[bidx, wpos])
+                    v_w = torch.where(m, v, v_all[bidx, wpos])
+                k_all.index_put_((bidx, wpos), k_w)
+                v_all.index_put_((bidx, wpos), v_w)
+            key_pos = torch.arange(T, device=x.device)[None, :]
+            causal = key_pos[:, None, :] <= positions[:, :, None]  # (B,S,T)
+        else:
+            k_all, v_all = k, v
+            causal = torch.tril(torch.ones(S, S, dtype=torch.bool,
+                                           device=x.device))[None]
+
+        if attention_backend in ("paged", "interpret") and vector:
+            # the paged decode read (K3): each slot attends only its live
+            # span; spans count the LAST query's keys.  'interpret' is the
+            # reference's CPU spelling of the same read
+            spans = (positions[:, -1].to(torch.int32) + 1).contiguous()
+            out = paged_decode_attention(q, k_all, v_all, spans)
+            out = out.reshape(B, S, H * D)
+        else:
+            group = H // KV
+            qg = q.reshape(B, S, KV, group, D)
+            logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                                  k_all.float())
+            logits = logits / float(np.sqrt(D))
+            logits = logits.masked_fill(~causal[:, None, None],
+                                        torch.finfo(torch.float32).min)
+            probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            out = torch.einsum("bkgst,btkd->bskgd", probs, v_all)
+            out = out.reshape(B, S, H * D)
+        return self.o_proj(out), cache
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.ln_attn = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
+                               device)
+        self.attn = CausalAttention(cfg, device, generator)
+        self.ln_mlp = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
+                              device)
+        self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
+                               generator)
+        self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
+                             generator)
+        self.down_proj = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device,
+                               generator)
+
+    def forward(self, x, positions, cache, cache_index, slot_mask=None,
+                attention_backend: str = "dense"):
+        a, cache = self.attn(self.ln_attn(x), positions, cache, cache_index,
+                             slot_mask, attention_backend)
+        x = x + a
+        h = self.ln_mlp(x)
+        h = nn.functional.silu(self.gate_proj(h)) * self.up_proj(h)  # SwiGLU
+        return x + self.down_proj(h), cache
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: ``embedding`` is ``(vocab, features)``; lookups
+    and :meth:`attend` compute in ``dtype``."""
+
+    def __init__(self, vocab: int, features: int, dtype,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = _trunc_normal((vocab, features), device, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return nn.functional.embedding(ids.long(), self.embedding).to(
+            self.dtype)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x.to(self.dtype),
+                            self.embedding.to(self.dtype).T)
+
+
+class LlamaModel(nn.Module):
+    """Causal LM: ``forward`` returns logits (B, S, vocab) f32; pass a
+    cache (:func:`init_cache`) and ``cache_index`` for incremental decode,
+    and ``(logits, cache)`` comes back.
+
+    Parameters are created on ``device`` (default ``"cuda"``; raises
+    without a card unless ``device="cpu"``) in f32, drawn from ``seed`` as
+    the reference initializes them (truncated normal, std 0.02; RMSNorm
+    scales 1); :func:`~.generate.cast_params` casts them to the serving
+    type."""
+
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda",
+                 seed: int = 0):
+        super().__init__()
+        if cfg.weight_quant != "none":
+            raise NotImplementedError(
+                f"weight_quant={cfg.weight_quant!r} (QuantDense/QuantEmbed) "
+                "is not ported yet (ROADMAP A1: int8 weights)")
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        self.cfg = cfg
+        self.tok_embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, dev,
+                               gen)
+        self.layers = nn.ModuleList(DecoderBlock(cfg, dev, gen)
+                                    for _ in range(cfg.num_layers))
+        self.ln_final = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
+                                dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, torch.float32,
+                                 dev, gen)
+
+    @property
+    def device(self) -> torch.device:
+        return self.ln_final.scale.device
+
+    def forward(self, input_ids, positions=None, cache=None,
+                cache_index=None, slot_mask: Optional[torch.Tensor] = None,
+                attention_backend: str = "dense"):
+        cfg = self.cfg
+        B, S = input_ids.shape
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=input_ids.device)[None].expand(
+                                         B, S)
+        x = self.tok_embed(input_ids)
+        for i, layer in enumerate(self.layers):
+            x, _ = layer(x, positions, cache[i] if cache is not None
+                         else None, cache_index, slot_mask,
+                         attention_backend)
+        x = self.ln_final(x)
+        if cfg.tie_embeddings:
+            logits = self.tok_embed.attend(x.float())
+        else:
+            logits = self.lm_head(x)
+        logits = logits.float()
+        if cache is not None:
+            return logits, cache
+        return logits

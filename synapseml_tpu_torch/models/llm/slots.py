@@ -1,0 +1,778 @@
+"""Slotted KV cache + continuous-batching decode engine.
+
+The PyTorch port of the JAX package's ``models/llm/slots.py``: the cache
+is a fixed tensor of ``n_slots`` independent rows — ``(n_slots, max_len,
+kv_heads, d_head)`` per layer — and one decode step advances every
+active slot by one token.  Admission and retirement happen between steps
+on the host.  The reference's jitted bodies (prefill-into-slot, decode
+step, verify step, prefix copy) are methods here that update the cache
+in place; the reference donates the cache to each program instead.
+
+Mechanics, as in the reference:
+
+- **decode step** — the vector ``cache_index`` path of
+  :class:`~synapseml_tpu_torch.models.llm.model.CausalAttention` writes
+  each slot's K/V at its own offset and ``slot_mask`` gates the writes so
+  inactive slots' rows stay bitwise unchanged (they are live prefix-cache
+  material).  ``attention_backend`` selects the read: dense (full
+  ``max_len`` rows, masked) or paged (the K3 kernel,
+  :mod:`~synapseml_tpu_torch.models.llm.paged_attn`: only each slot's
+  live span; ``'auto'`` resolves to it whenever a geometry fits, and a
+  head layout the CUDA kernel is not built for raises on the card).
+- **prefill-into-slot** — the prompt is padded to a power-of-two bucket,
+  its K/V lands in ONE slot row (a view of the cache, written in place)
+  and the true last token's logits come back for the first sampled token.
+  ``start > 0`` resumes a prefill after a prefix copy.
+- **prefix reuse** — one radix index per tenant over the slots'
+  contexts; on admit the engine copies the longest common prefix's K/V
+  into the new slot and prefills only the tail.  Reuse is capped at
+  ``len(prompt) - 1`` so the prefill always produces next-token logits.
+- **retirement** — EOS or the token budget frees the slot; its K/V and
+  tokens persist as prefix cache until the slot is reclaimed
+  (least-recently-retired first).
+- **speculative decoding** (``spec_draft_len > 0``, greedy only) — the
+  per-slot :class:`~synapseml_tpu_torch.models.llm.drafter.NgramDrafter`
+  proposes a span; any hit upgrades the step to a multi-token VERIFY in
+  one forward, which commits the longest exact-greedy draft prefix plus
+  the model's bonus token per slot.
+
+Junk-write safety: padded prefill rows, pre-copy leftovers and rejected
+verify positions only ever land at positions strictly beyond a slot's
+current length; decode writes position ``q`` BEFORE attending ``<= q``,
+so every attendable key was written by the slot's current occupant.
+
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A1):
+the host KV arena (``kv_arena``), ahead-of-time warm-up (``warmup``; CUDA
+graph capture here), the step profiler and the metrics registry; the
+counters are plain attributes.  There is no tuning table: the prefill
+bucket floor is 8 and the paged geometry the gate's default, the
+reference's no-table choices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...device import DeviceLike, resolve_device
+from .drafter import NgramDrafter
+from .generate import sample_logits
+from .kvtier import RadixPrefixIndex
+from .model import LlamaModel, init_cache
+from .paged_attn import (_itemsize, check_kernel_layout, dense_read_bytes,
+                         paged_geometry, paged_read_bytes,
+                         resolve_attention_backend)
+
+
+def _next_pow2(n: int) -> int:
+    """Smallest power of two >= n — the one round-up behind the verify S
+    bucket and the geometry gate's widest-span pricing."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@dataclasses.dataclass
+class AdmitResult:
+    """What :meth:`SlotEngine.admit` hands back: the slot, the FIRST
+    generated token (the time-to-first-token moment), whether the sequence
+    already finished, how many prompt tokens came from a reused prefix,
+    the prefill's last-token logits (f32 host copy), the padded prefill
+    bucket and, when finished, the reason."""
+    slot: int
+    token: int
+    finished: bool
+    reused_tokens: int
+    logits: np.ndarray
+    bucket: int = 0
+    reason: Optional[str] = None
+
+
+@dataclasses.dataclass
+class StepEvent:
+    """One slot's outcome of a decode step."""
+    slot: int
+    token: int
+    finished: bool
+    reason: Optional[str] = None      # "eos" | "length" when finished
+
+
+class SlotEngine:
+    """Continuous-batching decode engine over a slotted KV cache.
+
+    Single-threaded by contract: one serving loop owns the engine and
+    interleaves :meth:`admit` and :meth:`step` freely.  Greedy output is
+    token-exact with the dense-cache :func:`~.generate.generate` path.
+    The cache lives on ``device`` (default ``"cuda"``; raises without a
+    card unless ``device="cpu"``), which must be the model's."""
+
+    def __init__(self, model: LlamaModel, n_slots: int = 16,
+                 max_len: Optional[int] = None, *,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, eos_id: Optional[int] = None,
+                 pad_id: int = 0, min_prefix: int = 8, seed: int = 0,
+                 attention_backend: str = "auto", step_profiler=None,
+                 spec_draft_len: int = 0, warmup: str = "off",
+                 kv_arena=None, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"the model is on {model.device} but "
+                             f"device={str(device)!r}")
+        if kv_arena is not None:
+            raise NotImplementedError(
+                "kv_arena (the host KV tier) is not ported yet "
+                "(ROADMAP A1: kvtier arena and journal)")
+        if warmup != "off":
+            raise NotImplementedError(
+                f"warmup={warmup!r}: ahead-of-time warm-up (CUDA graph "
+                "capture per bucket) is not ported yet (ROADMAP A1: "
+                "CUDA-graph warmup)")
+        if step_profiler is not None:
+            raise NotImplementedError(
+                "step_profiler is not ported yet (ROADMAP A1: LLMServer + "
+                "_DecodeLoop + QoS/SLO/tracing)")
+        self.model = model
+        self.cfg = model.cfg
+        self.n_slots = int(n_slots)
+        self.max_len = int(max_len or self.cfg.max_len)
+        # the widest verify step a spec-enabled engine can launch (the
+        # pow2 S bucket over pending + longest draft): the gate prices it
+        spec_span = _next_pow2(1 + max(0, int(spec_draft_len)))
+        self.attention_backend = resolve_attention_backend(
+            attention_backend, max_len=self.max_len,
+            num_heads=self.cfg.num_heads,
+            num_kv_heads=self.cfg.num_kv_heads,
+            d_head=self.cfg.d_head, dtype=self.cfg.dtype,
+            max_query_span=spec_span)
+        if self.attention_backend == "paged" and self.device.type == "cuda":
+            # a head layout the kernel is not built for raises here, once:
+            # the card never runs the plain version in the kernel's place
+            check_kernel_layout(self.cfg.num_heads, self.cfg.num_kv_heads,
+                                self.cfg.d_head, self.cfg.dtype)
+        self._paged_geo = (None if self.attention_backend == "dense"
+                           else paged_geometry(
+                               self.max_len, self.cfg.num_heads,
+                               self.cfg.num_kv_heads, self.cfg.d_head,
+                               self.cfg.dtype, max_query_span=spec_span))
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.eos_id = eos_id
+        self.pad_id = int(pad_id)
+        self.min_prefix = max(1, int(min_prefix))
+        self.spec_draft_len = max(0, int(spec_draft_len))
+        if self.spec_draft_len and self.temperature > 0:
+            raise ValueError(
+                "spec_draft_len > 0 requires greedy decoding "
+                "(temperature <= 0): speculative verification accepts a "
+                "draft token only when it equals the model's argmax, "
+                "which is only the sampling rule at temperature 0")
+        self._drafter = (NgramDrafter(self.n_slots)
+                         if self.spec_draft_len else None)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.cache = init_cache(self.cfg, self.n_slots, self.max_len,
+                                self.device)
+        # prompt-length buckets: powers of two from 8 (the reference's
+        # floor without a tuning table) up to max_len
+        buckets = []
+        b = 8
+        while b < self.max_len:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.max_len)
+        self._buckets = tuple(buckets)
+        # host-side slot state (one serving loop owns these, no locks)
+        n = self.n_slots
+        self.ctx = np.zeros((n, self.max_len), np.int32)   # incl. pending tok
+        self.lengths = np.zeros(n, np.int64)               # tokens in ctx
+        self.active = np.zeros(n, bool)
+        self.kv_len = np.zeros(n, np.int64)                # valid K/V rows
+        self._retired_at = np.full(n, -np.inf)             # reclaim recency
+        self._max_new = np.zeros(n, np.int64)
+        self._generated = np.zeros(n, np.int64)
+        # radix prefix indices over slot contexts, ONE PER TENANT: a
+        # lookup only ever matches a slot the same tenant filled
+        self._radices: Dict[str, RadixPrefixIndex] = {}
+        #: per-slot owning tenant (sticky through retirement)
+        self._slot_tenant: List[str] = ["default"] * n
+        #: slot -> tenant whose radix currently indexes the slot
+        self._slot_radix: Dict[int, str] = {}
+        # per-slot draft-length adaptation (AIMD over an acceptance EWMA)
+        self._spec_k0 = min(2, self.spec_draft_len) if self.spec_draft_len \
+            else 0
+        self._spec_k = np.full(n, self._spec_k0, np.int64)
+        self._spec_ewma = np.ones(n)
+        self.admissions = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
+        self.tokens_generated = 0
+        #: cumulative decode-attention K/V bytes (the byte ledger)
+        self.decode_attn_bytes = 0
+        #: the same steps' K/V bytes at each slot's exact live span, which
+        #: is what the CUDA kernel reads (it stops at the span, not at the
+        #: ledger's tile); equal to the ledger for the dense read
+        self.decode_attn_live_bytes = 0
+        #: steps_run counts every engine step (plain or verify), spec_*
+        #: only drafted work
+        self.steps_run = 0
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_draft_hits = 0
+        self.spec_draft_misses = 0
+
+    # -- capacity ----------------------------------------------------------
+    @property
+    def active_count(self) -> int:
+        return int(self.active.sum())
+
+    @property
+    def free_slot_count(self) -> int:
+        return self.n_slots - self.active_count
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Accepted / drafted tokens, cumulative."""
+        return self.spec_accepted / max(1, self.spec_drafted)
+
+    # -- the cache programs (the reference's jitted bodies) ---------------
+    @torch.no_grad()
+    def _prefill_slot(self, padded: np.ndarray, plen: int, slot: int,
+                      start: int) -> torch.Tensor:
+        """Prefill ``plen`` real tokens (``padded`` to a bucket length)
+        into row ``slot`` from position ``start``, in place → the logits
+        (V,) f32 of the prompt's true last token."""
+        pb = len(padded)
+        dev = self.device
+        tokens = torch.as_tensor(padded[None], device=dev)
+        positions = (start + torch.arange(pb, dtype=torch.int32,
+                                          device=dev))[None]
+        row = [{"k": c["k"][slot:slot + 1], "v": c["v"][slot:slot + 1]}
+               for c in self.cache]
+        logits, _ = self.model(tokens, positions=positions, cache=row,
+                               cache_index=start)
+        return logits[0, plen - 1]
+
+    @torch.no_grad()
+    def _copy_prefix(self, src: int, dst: int, length: int) -> None:
+        """Copy K/V positions ``[0, length)`` of slot ``src`` into slot
+        ``dst`` (the longest-common-prefix reuse transfer)."""
+        for c in self.cache:
+            c["k"][dst, :length] = c["k"][src, :length]
+            c["v"][dst, :length] = c["v"][src, :length]
+
+    def _step_inputs(self, tokens: np.ndarray, lengths: np.ndarray):
+        """Device tensors of one decode/verify step: tokens (n, S),
+        positions ``lengths-1 .. lengths-1+S-1`` (int32), the write
+        offsets and the active mask.  Raises before any launch if an
+        active slot's writes would pass the cache's end (a CUDA scatter
+        out of bounds would fault the device)."""
+        S = tokens.shape[1]
+        if (lengths[self.active] - 1 + S > self.max_len).any():
+            raise RuntimeError(f"a verify of width {S} would write past "
+                               f"max_len={self.max_len}")
+        dev = self.device
+        li = torch.as_tensor((lengths - 1).astype(np.int32), device=dev)
+        positions = li[:, None] + torch.arange(S, dtype=torch.int32,
+                                               device=dev)[None]
+        return (torch.as_tensor(tokens, device=dev), positions, li,
+                torch.as_tensor(self.active, device=dev))
+
+    @torch.no_grad()
+    def _decode_step(self, tokens: np.ndarray,
+                     lengths: np.ndarray) -> np.ndarray:
+        """One decode step for every slot: feed each slot's pending token
+        at its own position, sample the next.  Inactive slots compute a
+        throwaway row and write nothing (``slot_mask``)."""
+        toks, positions, li, active = self._step_inputs(tokens[:, None],
+                                                        lengths)
+        logits, _ = self.model(toks, positions=positions, cache=self.cache,
+                               cache_index=li, slot_mask=active,
+                               attention_backend=self.attention_backend)
+        nxt = sample_logits(logits[:, 0], self._gen, self.temperature,
+                            self.top_k, self.top_p)
+        return nxt.cpu().numpy()
+
+    @torch.no_grad()
+    def _verify_forward(self, tokens: np.ndarray,
+                        lengths: np.ndarray) -> np.ndarray:
+        """One speculative VERIFY forward: every slot's pending token plus
+        its drafted span (``tokens`` is ``(n_slots, S)``) at positions
+        ``lengths-1 ..``, → the model's greedy continuation at every
+        position ``(n_slots, S)`` int32."""
+        toks, positions, li, active = self._step_inputs(tokens, lengths)
+        logits, _ = self.model(toks, positions=positions, cache=self.cache,
+                               cache_index=li, slot_mask=active,
+                               attention_backend=self.attention_backend)
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    # -- prefix reuse ------------------------------------------------------
+    def _radix_for(self, tenant: str) -> RadixPrefixIndex:
+        idx = self._radices.get(tenant)
+        if idx is None:
+            idx = self._radices[tenant] = RadixPrefixIndex()
+        return idx
+
+    def _register_prefix(self, slot: int, ids: np.ndarray) -> None:
+        tenant = self._slot_tenant[slot]
+        prev = self._slot_radix.get(slot)
+        if prev is not None and prev != tenant:
+            # the slot changed hands: its old owner's index must not keep
+            # pointing at K/V the new owner is about to overwrite
+            idx = self._radices.get(prev)
+            if idx is not None:
+                idx.remove(slot)
+            del self._slot_radix[slot]
+        if len(ids) < self.min_prefix:
+            idx = self._radices.get(tenant)
+            if idx is not None:
+                idx.remove(slot)
+            self._slot_radix.pop(slot, None)
+        else:
+            self._radix_for(tenant).insert(ids, slot)
+            self._slot_radix[slot] = tenant
+
+    def _clamp_reuse(self, lcp: int, total: int) -> int:
+        """Shrink a reuse length until the remaining tail's PADDED
+        prefill bucket fits inside ``max_len`` (``lcp == total``, a full
+        restore with no tail, passes through)."""
+        if lcp >= total:
+            return min(lcp, total)
+        while lcp >= self.min_prefix \
+                and lcp + self._bucket(total - lcp) > self.max_len:
+            lcp = self.max_len - self._bucket(total - lcp)
+        return max(0, lcp)
+
+    def _best_prefix(self, prompt: np.ndarray,
+                     dst: int) -> Tuple[Optional[int], int]:
+        """Longest common prefix between ``prompt`` and any slot of the
+        admitting tenant's index (``dst`` itself wins ties: its K/V is
+        already in place), capped at ``len(prompt) - 1`` and
+        bucket-clamped; ``(None, 0)`` below ``min_prefix``."""
+        radix = self._radices.get(self._slot_tenant[dst])
+        if radix is None:
+            return None, 0
+        src, lcp = radix.longest_prefix(prompt, prefer=dst)
+        if src is None:
+            return None, 0
+        lcp = int(min(lcp, self.kv_len[src], len(prompt) - 1))
+        lcp = self._clamp_reuse(lcp, len(prompt))
+        if lcp < self.min_prefix:
+            return None, 0
+        return src, lcp
+
+    # -- admission ---------------------------------------------------------
+    def _pick_slot(self) -> Optional[int]:
+        free = np.flatnonzero(~self.active)
+        if len(free) == 0:
+            return None
+        # least-recently-retired first: the freshest retired caches stay
+        # resident longest, which is what multi-turn prefix reuse wants
+        return int(free[np.argmin(self._retired_at[free])])
+
+    def _bucket(self, n: int) -> int:
+        for b in self._buckets:
+            if b >= n:
+                return b
+        return self._buckets[-1]
+
+    def _sample_one(self, logits: torch.Tensor) -> int:
+        return int(sample_logits(logits[None], self._gen, self.temperature,
+                                 self.top_k, self.top_p)[0])
+
+    def admit(self, prompt_ids, max_new_tokens: int,
+              tenant: str = "default") -> Optional[AdmitResult]:
+        """Admit one sequence into a free slot (prefill + first token).
+        Returns None when every slot is busy.  Raises ``ValueError`` for a
+        prompt that cannot fit.  ``tenant`` scopes prefix reuse."""
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        if len(prompt) == 0:
+            raise ValueError("empty prompt")
+        max_new = int(max_new_tokens)
+        if max_new < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        # room for prompt + every generated token incl. the final
+        # sampled-but-never-fed one
+        if len(prompt) + max_new + 1 > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)} tokens) + max_new_tokens "
+                f"({max_new}) exceeds the engine's max_len "
+                f"({self.max_len})")
+        slot = self._pick_slot()
+        if slot is None:
+            return None
+        tenant = str(tenant)
+        # the slot's tenant is set BEFORE any cache lookup: _best_prefix
+        # and _register_prefix scope themselves by it
+        self._slot_tenant[slot] = tenant
+        src, lcp = self._best_prefix(prompt, slot)
+        if src is not None and lcp > 0:
+            if src != slot:
+                self._copy_prefix(src, slot, lcp)
+            # src == slot: in-place resume, the K/V is already there
+            self.prefix_hits += 1
+            self.prefix_tokens_reused += lcp
+        else:
+            lcp = 0
+        tail = prompt[lcp:]
+        pb = self._bucket(len(tail))
+        padded = np.full(pb, self.pad_id, np.int32)
+        padded[:len(tail)] = tail
+        last = self._prefill_slot(padded, len(tail), slot, lcp)
+        logits = last.cpu().numpy().astype(np.float32)
+        tok = (int(np.argmax(logits)) if self.temperature <= 0.0
+               else self._sample_one(last))
+        plen = len(prompt)
+        self.ctx[slot, :plen] = prompt
+        self.ctx[slot, plen] = tok
+        self.lengths[slot] = plen + 1
+        self.kv_len[slot] = plen
+        self.active[slot] = True
+        self._max_new[slot] = max_new
+        self._generated[slot] = 1
+        self._register_prefix(slot, prompt)
+        if self._drafter is not None:
+            self._spec_k[slot] = self._spec_k0
+            self._spec_ewma[slot] = 1.0
+            self._drafter.begin(slot, self.ctx[slot], plen + 1)
+        self.admissions += 1
+        self.tokens_generated += 1
+        finished, reason = self._finish_reason(slot, tok)
+        if finished:
+            self._retire(slot, reason)
+        return AdmitResult(slot, tok, finished, lcp, logits, bucket=pb,
+                           reason=reason)
+
+    # -- stepping ----------------------------------------------------------
+    def _finish_reason(self, slot: int,
+                       tok: int) -> Tuple[bool, Optional[str]]:
+        if self.eos_id is not None and tok == self.eos_id:
+            return True, "eos"
+        if self._generated[slot] >= self._max_new[slot]:
+            return True, "length"
+        return False, None
+
+    def _retire(self, slot: int, reason: str) -> None:
+        self.active[slot] = False
+        self._retired_at[slot] = time.monotonic()
+        span = int(self.kv_len[slot])
+        if reason != "reset" and span >= self.min_prefix:
+            # re-index the slot under its FULL retired context (prompt +
+            # generated tokens) so a follow-up turn matches through it
+            self._register_prefix(slot, self.ctx[slot, :span])
+
+    # -- preemption --------------------------------------------------------
+    def preempt_slot(self) -> Optional[int]:
+        """The active slot with the most remaining token budget; None when
+        idle."""
+        if not self.active.any():
+            return None
+        rem = np.where(self.active, self._max_new - self._generated, -1)
+        return int(np.argmax(rem))
+
+    def preempt(self, slot: int) -> Optional[Dict[str, Any]]:
+        """Evict an ACTIVE slot mid-decode → a resume ticket (the full
+        context including the pending token, the valid K/V span, the
+        budget position and the tenant).  :meth:`resume` continues the
+        sequence token-exactly."""
+        if not self.active[slot]:
+            return None
+        ticket = {"ids": self.ctx[slot, :int(self.lengths[slot])].copy(),
+                  "kv_len": int(self.kv_len[slot]),
+                  "generated": int(self._generated[slot]),
+                  "max_new": int(self._max_new[slot]),
+                  "tenant": self._slot_tenant[slot]}
+        self._retire(slot, "preempted")
+        if self._drafter is not None:
+            self._drafter.forget(slot)
+        return ticket
+
+    def resume(self, ticket: Dict[str, Any]) -> Optional[int]:
+        """Re-admit a preempted ticket into a free slot and continue
+        decoding where it left off: the K/V span is copied from a
+        device-resident prefix when one is indexed, and the rest
+        cold-prefilled — both reproduce the same K/V, so the continuation
+        is token-exact.  Returns the slot, or None when every slot is
+        busy."""
+        ids = np.asarray(ticket["ids"], np.int32).reshape(-1)
+        span = int(ticket["kv_len"])
+        if len(ids) == 0 or span < 1 or span >= len(ids):
+            # the pending token ids[span] must exist past the K/V span
+            raise ValueError("malformed resume ticket")
+        slot = self._pick_slot()
+        if slot is None:
+            return None
+        tenant = str(ticket.get("tenant", "default"))
+        self._slot_tenant[slot] = tenant
+        est = 0
+        radix = self._radices.get(tenant)
+        src, dlcp = (radix.longest_prefix(ids[:span], prefer=slot)
+                     if radix is not None else (None, 0))
+        if src is not None:
+            dlcp = self._clamp_reuse(
+                int(min(dlcp, self.kv_len[src], span)), span)
+            if dlcp >= self.min_prefix:
+                if src != slot:
+                    self._copy_prefix(src, slot, dlcp)
+                est = dlcp
+        if est < span:
+            # cold tail: rebuild K/V for ids[est:span]; the logits are
+            # discarded — the pending token ids[span] is already committed
+            tail = ids[est:span]
+            pb = self._bucket(len(tail))
+            padded = np.full(pb, self.pad_id, np.int32)
+            padded[:len(tail)] = tail
+            self._prefill_slot(padded, len(tail), slot, est)
+        ln = len(ids)
+        self.ctx[slot, :ln] = ids
+        self.lengths[slot] = ln
+        self.kv_len[slot] = span
+        self.active[slot] = True
+        self._max_new[slot] = int(ticket["max_new"])
+        self._generated[slot] = int(ticket["generated"])
+        self._register_prefix(slot, ids[:span])
+        if self._drafter is not None:
+            self._spec_k[slot] = self._spec_k0
+            self._spec_ewma[slot] = 1.0
+            self._drafter.begin(slot, self.ctx[slot], ln)
+        return slot
+
+    def cancel(self, slot: int) -> None:
+        """Retire ``slot`` early; its K/V stays as prefix material."""
+        if self.active[slot]:
+            self._retire(slot, "cancelled")
+
+    def reset(self) -> None:
+        """Clear every slot and rebuild the cache (after a failed step:
+        active sequences are lost and no K/V is a valid prefix any
+        more)."""
+        for slot in np.flatnonzero(self.active):
+            self._retire(int(slot), "reset")
+        self.cache = init_cache(self.cfg, self.n_slots, self.max_len,
+                                self.device)
+        self.kv_len[:] = 0
+        self.lengths[:] = 0
+        self._radices.clear()
+        self._slot_radix.clear()
+        if self._drafter is not None:
+            for slot in range(self.n_slots):
+                self._drafter.forget(slot)
+            self._spec_k[:] = self._spec_k0
+            self._spec_ewma[:] = 1.0
+
+    def _decode_step_args(self) -> np.ndarray:
+        """Per-slot live lengths for THIS step, inactive slots at 1: the
+        spans the byte ledger prices (a verify adds its S-1 extra
+        positions).  The reference also derived its static span bucket
+        here; the CUDA kernel's loop bound is dynamic, so none is
+        needed."""
+        return np.where(self.active, self.lengths, 1)
+
+    def _account_decode_bytes(self, spans: np.ndarray) -> None:
+        """Add one step's decode-attention K/V bytes in the reference's
+        ledger (the paged read over ``spans``, every slot included, or the
+        full-capacity dense read) to :attr:`decode_attn_bytes`, and the
+        exact live-span bytes to :attr:`decode_attn_live_bytes`."""
+        cfg = self.cfg
+        itemsize = _itemsize(cfg.dtype)
+        if self._paged_geo is not None:
+            nbytes = paged_read_bytes(
+                spans, self._paged_geo.tile, cfg.num_kv_heads, cfg.d_head,
+                itemsize, cfg.num_layers)
+            keys = int(np.clip(np.asarray(spans, np.int64), 1,
+                               self.max_len).sum())
+            live = (cfg.num_layers * 2 * keys * cfg.num_kv_heads
+                    * cfg.d_head * itemsize)
+        else:
+            nbytes = live = dense_read_bytes(
+                self.n_slots, self.max_len, cfg.num_kv_heads, cfg.d_head,
+                itemsize, cfg.num_layers)
+        self.decode_attn_bytes += nbytes
+        self.decode_attn_live_bytes += live
+
+    def step(self) -> List[StepEvent]:
+        """One decode step across every active slot → the per-slot events
+        (several per slot when a drafted span is accepted); empty when no
+        slot is active.  With ``spec_draft_len > 0`` any draft hit makes
+        the step a multi-token verify; an all-miss step is the plain
+        one-token step."""
+        if not self.active.any():
+            return []
+        if self._drafter is not None:
+            s_cap = self._spec_headroom()
+            drafts = self._collect_drafts(s_cap)
+            if drafts:
+                return self._finish_step(self._verify_step(drafts, s_cap))
+        return self._finish_step(self._plain_step())
+
+    def _finish_step(self, events: List[StepEvent]) -> List[StepEvent]:
+        for ev in events:
+            if ev.finished:
+                self._retire(ev.slot, ev.reason)
+        self.steps_run += 1
+        return events
+
+    def _plain_step(self) -> List[StepEvent]:
+        """The one-token step."""
+        idx = np.arange(self.n_slots)
+        lengths = self._decode_step_args()
+        tokens = np.where(self.active,
+                          self.ctx[idx, np.maximum(self.lengths - 1, 0)],
+                          self.pad_id).astype(np.int32)
+        nxt = self._decode_step(tokens, lengths)
+        self._account_decode_bytes(lengths)
+        events: List[StepEvent] = []
+        for slot in np.flatnonzero(self.active):
+            slot = int(slot)
+            tok = int(nxt[slot])
+            ln = int(self.lengths[slot])
+            self.ctx[slot, ln] = tok
+            self.lengths[slot] = ln + 1
+            self.kv_len[slot] = ln        # the fed token's K/V just landed
+            self._generated[slot] += 1
+            self.tokens_generated += 1
+            if self._drafter is not None:
+                self._drafter.extend(slot, self.ctx[slot], ln, ln + 1)
+            finished, reason = self._finish_reason(slot, tok)
+            events.append(StepEvent(slot, tok, finished, reason))
+        return events
+
+    # -- speculative decoding ----------------------------------------------
+    def _spec_headroom(self) -> int:
+        """Cache headroom for this step's verify width: S cannot exceed
+        ``max_len - longest_active_length + 1`` (>= 2 always)."""
+        return self.max_len - int(self.lengths[self.active].max()) + 1
+
+    def _collect_drafts(self, s_cap: int) -> Dict[int, np.ndarray]:
+        """A draft per active slot, capped by its remaining budget, its
+        adaptive cap and the step's headroom ``s_cap``."""
+        out: Dict[int, np.ndarray] = {}
+        hits = misses = 0
+        for slot in np.flatnonzero(self.active):
+            slot = int(slot)
+            rem = int(self._max_new[slot] - self._generated[slot])
+            k_cap = min(self.spec_draft_len, int(self._spec_k[slot]),
+                        rem - 1, s_cap - 1)
+            if k_cap < 1:
+                continue            # no draft possible: not a miss
+            d = self._drafter.draft(slot, self.ctx[slot],
+                                    int(self.lengths[slot]), k_cap)
+            if len(d):
+                out[slot] = d
+                hits += 1
+            else:
+                misses += 1
+        self.spec_draft_hits += hits
+        self.spec_draft_misses += misses
+        return out
+
+    def _spec_bucket(self, max_k: int, s_cap: int) -> int:
+        """S for this verify step: the next power of two covering pending
+        + longest draft, shrunk to the cache headroom."""
+        s = max(2, _next_pow2(1 + max_k))
+        while s > s_cap and s > 2:
+            s //= 2
+        return s
+
+    def _verify_step(self, drafts: Dict[int, np.ndarray],
+                     s_cap: int) -> List[StepEvent]:
+        """One multi-token verify step: score every slot's draft span in
+        ONE forward, accept the longest exact-greedy prefix and commit
+        accepted + 1 tokens (only committed positions become attendable
+        through ``lengths``/``kv_len``)."""
+        idx = np.arange(self.n_slots)
+        S = self._spec_bucket(max(len(d) for d in drafts.values()), s_cap)
+        lengths = self._decode_step_args()
+        tokens = np.full((self.n_slots, S), self.pad_id, np.int32)
+        tokens[:, 0] = np.where(
+            self.active, self.ctx[idx, np.maximum(self.lengths - 1, 0)],
+            self.pad_id)
+        klen = np.zeros(self.n_slots, np.int64)
+        for slot, d in drafts.items():
+            d = d[:S - 1]
+            tokens[slot, 1:1 + len(d)] = d
+            klen[slot] = len(d)
+        g = self._verify_forward(tokens, lengths)
+        self.spec_steps += 1
+        events: List[StepEvent] = []
+        for slot in np.flatnonzero(self.active):
+            slot = int(slot)
+            ln = int(self.lengths[slot])
+            k_s = int(klen[slot])
+            row = g[slot]
+            # longest exact-greedy prefix of the draft, then the model's
+            # bonus token after it
+            a = 0
+            while a < k_s and int(tokens[slot, a + 1]) == int(row[a]):
+                a += 1
+            commit = row[:a + 1]
+            rem = int(self._max_new[slot] - self._generated[slot])
+            commit = commit[:rem]
+            if self.eos_id is not None:
+                eos = np.flatnonzero(commit == self.eos_id)
+                if len(eos):
+                    commit = commit[:int(eos[0]) + 1]
+            c = len(commit)
+            self.ctx[slot, ln:ln + c] = commit
+            self.lengths[slot] = ln + c
+            # positions ln-1 .. ln+c-2 were fed the COMMITTED tokens;
+            # rejected positions beyond hold junk the next step
+            # overwrites before any query can attend it
+            self.kv_len[slot] = ln + c - 1
+            self._generated[slot] += c
+            self.tokens_generated += c
+            if k_s:
+                self.spec_drafted += k_s
+                self.spec_accepted += min(a, k_s)
+                self._adapt_slot(slot, min(a, k_s) / k_s)
+            if self._drafter is not None:
+                self._drafter.extend(slot, self.ctx[slot], ln, ln + c)
+            finished, reason = self._finish_reason(slot, int(commit[-1]))
+            for j, tok in enumerate(commit):
+                last = j == c - 1
+                events.append(StepEvent(slot, int(tok),
+                                        finished and last,
+                                        reason if last else None))
+        self._account_decode_bytes(lengths + (S - 1))
+        return events
+
+    def _adapt_slot(self, slot: int, acceptance: float) -> None:
+        """Fold one verify outcome into the slot's acceptance EWMA and
+        AIMD its draft cap: a fully-accepted draft doubles it, one that
+        lost more than half halves it, and an EWMA under 0.2 collapses it
+        to the 1-token probe."""
+        w = 0.3
+        e = (1 - w) * self._spec_ewma[slot] + w * acceptance
+        self._spec_ewma[slot] = e
+        k = int(self._spec_k[slot])
+        if e < 0.2:
+            self._spec_k[slot] = 1
+        elif acceptance >= 1.0:
+            self._spec_k[slot] = min(self.spec_draft_len, max(2, 2 * k))
+        elif acceptance < 0.5:
+            self._spec_k[slot] = max(1, k // 2)
+
+    # -- output ------------------------------------------------------------
+    def generated_ids(self, slot: int) -> np.ndarray:
+        """The tokens generated so far in ``slot`` (prompt excluded)."""
+        start = int(self.lengths[slot] - self._generated[slot])
+        return self.ctx[slot, start:int(self.lengths[slot])].copy()
+
+    def run_to_completion(self, max_steps: Optional[int] = None
+                          ) -> Dict[int, np.ndarray]:
+        """Drive :meth:`step` until every slot retires → {slot: generated
+        ids}."""
+        slots = [int(s) for s in np.flatnonzero(self.active)]
+        steps = 0
+        while self.active.any():
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return {s: self.generated_ids(s) for s in slots}

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models.gbdt import hist as H
 from synapseml_tpu_torch.models.gbdt import trainer as T
 
@@ -40,9 +41,9 @@ def test_build_hist_nodes_kernel_equals_plain(dev, N, F, S, B, shift):
     slot = torch.as_tensor(rng.integers(-1, S, N).astype(np.int32),
                            device=dev)
     vals, scales = _vals(rng, N, dev)
-    before = H.LAUNCHES["build_hist_nodes"]
+    before = launches.total("build_hist_nodes")
     k = H.build_hist_nodes_limbs(bins, slot, vals, S, B, shift)
-    assert H.LAUNCHES["build_hist_nodes"] == before + 1
+    assert launches.total("build_hist_nodes") == before + 1
     p = H.build_hist_nodes_plain(bins, slot, vals, S, B, shift)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
@@ -79,9 +80,9 @@ def test_route_and_hist_kernel_equals_plain(dev, N, F, S, B, shift, K):
     sel_k = bins[:K].contiguous() if K else None
     args = (bins, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id, l_id + 1,
             vals, S, B, shift, sel_k)
-    H.reset_launch_counts()
+    launches.reset()
     k = H.route_and_hist_limbs(*args)
-    assert H.LAUNCHES_BY_SHAPE == {H.launch_key(
+    assert launches.BY_SHAPE == {launches.launch_key(
         "route_and_hist", F=F, B=B, shift=shift, K=K, S=S): 1}
     p = H.route_and_hist_plain(*args)
     torch.cuda.synchronize()

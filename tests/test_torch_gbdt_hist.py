@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from synapseml_tpu.models.gbdt import pallas_hist as jh
+from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models.gbdt import hist as th
 
 
@@ -147,7 +148,7 @@ def test_plain_versions_count_no_launches():
     """The CPU path never reaches a kernel, so the launch counters stay
     at zero; rows outside [0, width) and slots outside [0, S) add
     nothing."""
-    th.reset_launch_counts()
+    launches.reset()
     rng = np.random.default_rng(4)
     N, F, B, S = 512, 3, 16, 2
     bins_t = rng.integers(-2, B + 3, (F, N)).astype(np.int32)
@@ -162,5 +163,4 @@ def test_plain_versions_count_no_launches():
             if 0 <= b < B and 0 <= s < S:
                 exp[f, b, s] += v[i]
     np.testing.assert_array_equal(out.numpy(), exp)
-    assert th.LAUNCHES == {"build_hist_nodes": 0, "route_and_hist": 0}
-    assert th.LAUNCHES_BY_SHAPE == {}
+    assert launches.BY_SHAPE == {}

@@ -5,6 +5,7 @@ import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -123,3 +124,58 @@ def test_kernel_limits_come_from_the_build():
     src = (_build._PKG / _build.SOURCES["gbdt_hist"]).read_text()
     assert "kMaxSlots = SML_MAX_SLOTS" in src
     assert "kMaxSmem = SML_MAX_SMEM" in src
+
+
+def test_llm_import_builds_no_kernel():
+    """Importing the LLM modules builds nothing and loads no library: K3
+    builds at its first launch on a card."""
+    import importlib
+    from synapseml_tpu_torch.kernels import _build
+    for m in ("model", "paged_attn", "generate", "slots", "convert",
+              "drafter", "kvtier"):
+        importlib.import_module(f"synapseml_tpu_torch.models.llm.{m}")
+    from synapseml_tpu_torch.models.llm import paged_attn
+    assert paged_attn._kernels.cache_info().currsize == 0
+    assert _build.load_library.cache_info().currsize == 0
+
+
+def test_paged_attention_limits_come_from_the_build():
+    """K3's rows per block and head-width limit are stated once, in the
+    build's defines, which the wrapper reads and nvcc receives.  Rows past
+    one block's spread over more blocks, so only the head width limits
+    what the wrapper takes."""
+    from synapseml_tpu_torch.kernels import _build
+    from synapseml_tpu_torch.models.llm import paged_attn
+    d = _build.DEFINES["paged_attn"]
+    assert (paged_attn._MAX_ROWS, paged_attn._MAX_D) == (
+        d["SML_PA_MAX_ROWS"], d["SML_PA_MAX_D"])
+    assert max(paged_attn._HEAD_DIMS) <= d["SML_PA_MAX_D"]
+    flags = _build._flags("paged_attn")
+    assert f"-DSML_PA_MAX_ROWS={d['SML_PA_MAX_ROWS']}" in flags
+    assert f"-DSML_PA_MAX_D={d['SML_PA_MAX_D']}" in flags
+    src = (_build._PKG / _build.SOURCES["paged_attn"]).read_text()
+    assert "kMaxRows = SML_PA_MAX_ROWS" in src
+    assert "kMaxD = SML_PA_MAX_D" in src
+    assert "blockIdx.z * kMaxRows" in src
+    with pytest.raises(ValueError):
+        paged_attn.check_kernel_layout(8, 8, 2 * d["SML_PA_MAX_D"],
+                                       torch.float32)
+    paged_attn.check_kernel_layout(8, 8, d["SML_PA_MAX_D"], torch.float32)
+
+
+def test_launch_counts_are_one_registry():
+    """Every wrapper counts into ``kernels.launches``: one reset clears
+    them all, and a count is kept per shape."""
+    from synapseml_tpu_torch.kernels import launches
+    launches.reset()
+    launches.count("k_a", S=1)
+    launches.count("k_a", S=1)
+    launches.count("k_a", S=8)
+    launches.count("k_ab", S=1)
+    assert launches.total("k_a") == 3 and launches.total("k_ab") == 1
+    assert launches.shapes("k_a") == {"k_a[S=1]": 2, "k_a[S=8]": 1}
+    launches.reset()
+    assert launches.BY_SHAPE == {} and launches.total("k_a") == 0
+    for mod in ("models/gbdt/hist.py", "models/llm/paged_attn.py"):
+        src = (Path(launches.__file__).parent.parent / mod).read_text()
+        assert "launches.count(" in src and "LAUNCHES" not in src
