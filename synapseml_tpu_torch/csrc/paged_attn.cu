@@ -39,12 +39,28 @@
 // Bound on the H100: bytes.  A step reads each live K and V row once per kv
 // head (2 * span * D * itemsize per (slot, kv head)) plus q and writes out;
 // the arithmetic is 4 * S * group * span * D flops per (slot, kv head), far
-// below the tensor-core rate at the engine's S * group <= 64 rows.  This
-// first version is plain: one block per (slot, kv head, row chunk) and no
-// copy/compute overlap, so a long
-// span is read by one SM at the latency of one tile per iteration; splitting
-// the span across blocks (flash-decoding) and TMA/cp.async pipelining are
-// left to a later change.
+// below the tensor-core rate at the engine's S * group <= 64 rows.
+//
+// Two kernels compute it.
+//
+// - paged_decode_kernel (f32, and the yardstick of the other): one block per
+//   (kv head, slot, row chunk) walks the slot's whole span, so the longest
+//   span sets the time and a block reads one tile per iteration with
+//   nothing in flight while it computes.  f32 stays on it: it is the
+//   kernel the f32 engine is held token-exact to (card = CPU = dense
+//   generate), and its f32 products are what the tolerance of 1e-5 rests on.
+// - paged_split_kernel + paged_combine_kernel (bf16, f16; flash-decoding):
+//   each block takes one chunk of kSplit keys of one slot's span, so the
+//   phase-6 spans (10,574 live keys over 16 slots) give ~50 chunks x 8 kv
+//   heads of work against 132 SMs instead of 128 blocks behind the one
+//   2048-key slot.  A chunk's key tiles stream through a kStages-deep
+//   cp.async ring in the cache's own type, so the next tiles' bytes are in
+//   flight while one is computed.  Each block writes its rows' running max,
+//   sum and unnormalised f32 accumulators; a second kernel rescales the live
+//   chunks by exp(m - m_max) and normalises.  The combine is its own launch,
+//   not the last-arriving block through an atomic counter: that would need
+//   a zeroed counter per (slot, kv head, row chunk) kept across calls, and
+//   the partials it reads are a few KB.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -57,8 +73,9 @@ namespace {
 // The limits come from the build (DEFINES in kernels/_build.py), where the
 // Python wrapper reads them too: query rows per block (wider S * group is
 // split across blocks) and the largest head width.
-#if !defined(SML_PA_MAX_ROWS) || !defined(SML_PA_MAX_D)
-#error "build with -DSML_PA_MAX_ROWS=... -DSML_PA_MAX_D=... (kernels/_build.py)"
+#if !defined(SML_PA_MAX_ROWS) || !defined(SML_PA_MAX_D) || \
+    !defined(SML_PA_SPLIT)
+#error "build with -DSML_PA_MAX_ROWS=... -DSML_PA_MAX_D=... -DSML_PA_SPLIT=... (kernels/_build.py)"
 #endif
 constexpr int kMaxRows = SML_PA_MAX_ROWS;
 constexpr int kMaxD = SML_PA_MAX_D;
@@ -294,6 +311,295 @@ int launch_d(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split kernel (bf16, f16): each block takes one chunk of kSplit keys
+// of one slot's span; a second kernel combines the chunks.
+// ---------------------------------------------------------------------------
+
+constexpr int kSplit = SML_PA_SPLIT;  // keys per block
+constexpr int kStages = 3;            // cp.async ring depth, in key tiles
+constexpr int kSplitThreads = kMaxRows / 16 * 32;  // a warp per 16 query rows
+constexpr int kCombineThreads = 128;
+static_assert(kSplit % kTile == 0 && kMaxRows % 16 == 0, "split geometry");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; bytes = 0 fills zeros and reads
+// nothing (the source address must still be valid)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory row of K, V (and q) in the cache's type: D + 8 elements, a
+// multiple of 16 bytes whose stride puts 8 consecutive rows on distinct banks
+template <int D>
+__host__ __device__ constexpr int split_ld() {
+  return D + 8;
+}
+
+template <typename T, int D>
+constexpr size_t split_smem_bytes(int rows) {
+  return kStages * 2 * kTile * split_ld<D>() * sizeof(T) +
+         (rows * D + rows * kTile + 3 * rows) * sizeof(float);
+}
+
+// Partials of one (slot, kv head, chunk): for each of the S * group query
+// rows, the running max m, the sum l and the D unnormalised accumulators,
+// f32, at ws[(((b * KV + h) * n_split + chunk) * rows + r) * (D + 2)].
+template <typename T, int D>
+__global__ void __launch_bounds__(kSplitThreads)
+paged_split_kernel(const T* __restrict__ q,            // (B, S, H, D)
+                   const T* __restrict__ k,            // (B, T, KV, D)
+                   const T* __restrict__ v,            // (B, T, KV, D)
+                   const int32_t* __restrict__ spans,  // (B,)
+                   float* __restrict__ ws,             // partials
+                   int S, int H, int KV, long long T_len, int n_split,
+                   float sqrt_d) {
+  constexpr int kVec = Vec<T>::N;
+  constexpr int kLd = split_ld<D>();
+  constexpr int kAcc = kMaxRows * D / kSplitThreads;
+  static_assert(kAcc >= 1 && kMaxRows * D % kSplitThreads == 0, "rows");
+  static_assert(D % kVec == 0, "a 16-byte copy must not straddle rows");
+
+  const int group = H / KV;
+  const int rows = S * group;
+  const int chunks = (rows + kMaxRows - 1) / kMaxRows;
+  const int split = blockIdx.x / chunks;  // row chunks of a split adjacent
+  const int r0 = (blockIdx.x % chunks) * kMaxRows;
+  const int R = min(kMaxRows, rows - r0);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int kWarps = kSplitThreads / 32;
+
+  const int span = spans[b];
+  const long long kmax = span < 0 ? 0 : (span < T_len ? span : T_len);
+  const long long c0 = (long long)split * kSplit;
+  // chunk 0 always writes its partials (all-masked for an empty span)
+  if (split > 0 && c0 >= kmax) return;
+  const long long c1 = kmax < c0 + kSplit ? kmax : c0 + kSplit;
+  const int n_tiles = (int)((c1 - c0 + kTile - 1) / kTile);
+  const long long row = (long long)KV * D;  // elements between keys
+  const T* kb = k + (long long)b * T_len * row + (long long)h * D;
+  const T* vb = v + (long long)b * T_len * row + (long long)h * D;
+  const long long lim0 = (long long)span - (S - 1);  // query j: kpos < lim0 + j
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // kStages x (K tile, V tile)
+  float* qs = reinterpret_cast<float*>(ring + kStages * 2 * kTile * kLd);
+  float* ps = qs + R * D;  // R x kTile: scores, then probabilities
+  float* ms = ps + R * kTile;
+  float* ls = ms + R;
+  float* as = ls + R;
+
+  // tile i of the chunk into stage i % kStages; keys past the chunk are
+  // zero-filled, so a masked key multiplies a finite 0 in P V
+  auto load_tile = [&](int i) {
+    T* ks = ring + (i % kStages) * 2 * kTile * kLd;
+    T* vs = ks + kTile * kLd;
+    const long long t0 = c0 + (long long)i * kTile;
+    for (int e = tid; e < kTile * (D / kVec); e += kSplitThreads) {
+      const int kk = e / (D / kVec), d = (e % (D / kVec)) * kVec;
+      const bool in = t0 + kk < c1;
+      const long long off = (in ? t0 + kk : 0) * row + d;
+      cp_async16(ks + kk * kLd + d, kb + off, in ? 16 : 0);
+      cp_async16(vs + kk * kLd + d, vb + off, in ? 16 : 0);
+    }
+  };
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  for (int e = tid * kVec; e < R * D; e += kSplitThreads * kVec) {
+    const int r = e / D, d = e % D;
+    const int j = (r0 + r) / group, g = (r0 + r) % group;
+    load_vec(q + (((long long)b * S + j) * H + h * group + g) * D + d, qs + e);
+  }
+  for (int r = tid; r < R; r += kSplitThreads) {
+    ms[r] = -FLT_MAX;
+    ls[r] = 0.f;
+  }
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<1>();  // tile i has landed (one newer group may fly)
+    __syncthreads();     // ... for every thread; tile i - 1 is consumed
+    if (i + 2 < n_tiles) load_tile(i + 2);
+    cp_async_commit();   // an empty group keeps the count uniform
+    const T* ks = ring + (i % kStages) * 2 * kTile * kLd;
+    const T* vs = ks + kTile * kLd;
+    const long long t0 = c0 + (long long)i * kTile;
+    for (int e = tid; e < R * kTile; e += kSplitThreads) {
+      const int r = e / kTile, jj = e % kTile;
+      const long long lim = lim0 + (r0 + r) / group;
+      float s = -FLT_MAX;
+      if (t0 + jj < (lim < c1 ? lim : c1)) {
+        const float* qr = qs + r * D;
+        const T* kr = ks + jj * kLd;
+        float dot = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; d += kVec) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(kr + d);
+          const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int u = 0; u < kVec; ++u) dot = fmaf(qr[d + u], to_f32(x[u]), dot);
+        }
+        s = dot / sqrt_d;
+      }
+      ps[e] = s;
+    }
+    __syncthreads();
+    for (int r = warp; r < R; r += kWarps) {
+      float* pr = ps + r * kTile;
+      float mx = -FLT_MAX;
+      for (int jj = lane; jj < kTile; jj += 32) mx = fmaxf(mx, pr[jj]);
+      mx = warp_max(mx);
+      const float m_prev = ms[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int jj = lane; jj < kTile; jj += 32) {
+        const float p = expf(pr[jj] - m_new);
+        pr[jj] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        ms[r] = m_new;
+        ls[r] = ls[r] * alpha + sum;
+        as[r] = alpha;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) {
+      const int e = tid + u * kSplitThreads;
+      if (e < R * D) {
+        const int r = e / D, d = e % D;
+        const float* pr = ps + r * kTile;
+        float pv = 0.f;
+#pragma unroll 8
+        for (int jj = 0; jj < kTile; ++jj)
+          pv = fmaf(pr[jj], to_f32(vs[jj * kLd + d]), pv);
+        acc[u] = acc[u] * as[r] + pv;
+      }
+    }
+  }
+  __syncthreads();
+  float* wsb = ws + (((long long)(b * KV + h) * n_split + split) * rows + r0) *
+                        (D + 2);
+  for (int r = tid; r < R; r += kSplitThreads) {
+    wsb[r * (D + 2)] = ms[r];
+    wsb[r * (D + 2) + 1] = ls[r];
+  }
+#pragma unroll
+  for (int u = 0; u < kAcc; ++u) {
+    const int e = tid + u * kSplitThreads;
+    if (e < R * D) wsb[(e / D) * (D + 2) + 2 + e % D] = acc[u];
+  }
+}
+
+// One thread per (slot, kv head, query row, d): rescales the live chunks'
+// partials by exp(m_chunk - m_max) and writes acc / max(l, 1e-30) in T.  A
+// chunk whose keys are all masked for the row has m = -FLT_MAX and weight
+// exp(-FLT_MAX - m_max) = 0, exactly as the one-pass online softmax.
+template <typename T, int D>
+__global__ void __launch_bounds__(kCombineThreads)
+paged_combine_kernel(const float* __restrict__ ws,
+                     const int32_t* __restrict__ spans, T* __restrict__ out,
+                     int S, int H, int KV, long long T_len, int n_split) {
+  const int group = H / KV;
+  const int rows = S * group;
+  const int e = blockIdx.x * kCombineThreads + threadIdx.x;
+  if (e >= rows * D) return;
+  const int r = e / D, d = e % D;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int span = spans[b];
+  const long long kmax = span < 0 ? 0 : (span < T_len ? span : T_len);
+  const int n_live = kmax > kSplit ? (int)((kmax + kSplit - 1) / kSplit) : 1;
+  const long long stride = (long long)rows * (D + 2);  // between chunks
+  const float* w = ws + (long long)(b * KV + h) * n_split * stride +
+                   (long long)r * (D + 2);
+  float m_max = -FLT_MAX;
+  for (int c = 0; c < n_live; ++c) m_max = fmaxf(m_max, w[c * stride]);
+  float l = 0.f, acc = 0.f;
+  for (int c = 0; c < n_live; ++c) {
+    const float wt = expf(w[c * stride] - m_max);
+    l = fmaf(wt, w[c * stride + 1], l);
+    acc = fmaf(wt, w[c * stride + 2 + d], acc);
+  }
+  const int j = r / group, g = r % group;
+  out[(((long long)b * S + j) * H + h * group + g) * D + d] =
+      from_f32<T>(acc / fmaxf(l, 1e-30f));
+}
+
+template <typename T, int D>
+int launch_split(const void* q, const void* k, const void* v,
+                 const int32_t* spans, void* out, float* ws, int B, int S,
+                 int H, int KV, long long T_len, int n_split, float sqrt_d,
+                 cudaStream_t stream) {
+  const int rows = S * (H / KV);
+  const int chunks = (rows + kMaxRows - 1) / kMaxRows;
+  const size_t smem =
+      split_smem_bytes<T, D>(rows < kMaxRows ? rows : kMaxRows);
+  auto kern = paged_split_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(n_split * chunks, KV, B), kSplitThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), spans, ws, S, H, KV, T_len, n_split, sqrt_d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_combine_kernel<T, D>
+      <<<dim3((rows * D + kCombineThreads - 1) / kCombineThreads, KV, B),
+         kCombineThreads, 0, stream>>>(ws, spans, static_cast<T*>(out), S, H,
+                                       KV, T_len, n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_split_d(int D, const void* q, const void* k, const void* v,
+                   const int32_t* spans, void* out, float* ws, int B, int S,
+                   int H, int KV, long long T_len, int n_split, float sqrt_d,
+                   cudaStream_t st) {
+  switch (D) {
+    case 16:
+      return launch_split<T, 16>(q, k, v, spans, out, ws, B, S, H, KV, T_len,
+                                 n_split, sqrt_d, st);
+    case 32:
+      return launch_split<T, 32>(q, k, v, spans, out, ws, B, S, H, KV, T_len,
+                                 n_split, sqrt_d, st);
+    case 64:
+      return launch_split<T, 64>(q, k, v, spans, out, ws, B, S, H, KV, T_len,
+                                 n_split, sqrt_d, st);
+    case 128:
+      return launch_split<T, 128>(q, k, v, spans, out, ws, B, S, H, KV, T_len,
+                                  n_split, sqrt_d, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 static_assert(kMaxD == 128, "head widths are instantiated up to 128");
 
 }  // namespace
@@ -322,6 +628,32 @@ int sml_paged_decode_attention(const void* q, const void* k, const void* v,
                                    sqrt_d, st);
   if (dtype == 2)
     return launch_d<__half>(D, q, k, v, spans, out, B, S, H, KV, T_len, sqrt_d, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split kernel and its combine, for dtype 1 (bfloat16) or 2 (float16).
+// ws holds B * KV * n_split * S * (H / KV) * (D + 2) floats, n_split =
+// ceil(T / SML_PA_SPLIT); only chunks inside a slot's span are written and
+// read.  Other arguments as above.
+int sml_paged_decode_attention_split(const void* q, const void* k,
+                                     const void* v, const int32_t* spans,
+                                     void* out, void* ws, int B, int S, int H,
+                                     int KV, int D, long long T_len,
+                                     int n_split, int dtype, float sqrt_d,
+                                     void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || T_len < 1 || B > 65535 ||
+      KV > 65535 || n_split != (T_len + kSplit - 1) / kSplit ||
+      (long long)n_split * ((S * (H / KV) + kMaxRows - 1) / kMaxRows) >
+          2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* w = static_cast<float*>(ws);
+  if (dtype == 1)
+    return launch_split_d<__nv_bfloat16>(D, q, k, v, spans, out, w, B, S, H,
+                                         KV, T_len, n_split, sqrt_d, st);
+  if (dtype == 2)
+    return launch_split_d<__half>(D, q, k, v, spans, out, w, B, S, H, KV,
+                                  T_len, n_split, sqrt_d, st);
   return (int)cudaErrorInvalidValue;
 }
 

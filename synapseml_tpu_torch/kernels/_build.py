@@ -41,9 +41,13 @@ DEFINES: Dict[str, Dict[str, int]] = {
     "paged_attn": {
         # query rows one block keeps (S verify positions x the GQA group
         # of one kv head) and the largest head width; at both limits a
-        # block takes 115,968 bytes of shared memory
+        # block of the f32 kernel takes 115,968 bytes of shared memory
         "SML_PA_MAX_ROWS": 64,
         "SML_PA_MAX_D": 128,
+        # keys of a slot's span that one block of the bf16/f16 split
+        # kernel takes (4 tiles of 64): the partials' workspace holds
+        # ceil(max_len / SML_PA_SPLIT) chunks per (slot, kv head)
+        "SML_PA_SPLIT": 256,
     },
 }
 

@@ -8,12 +8,15 @@ only each slot's live span, so decode-attention bytes scale with live
 tokens instead of cache capacity.
 
 :func:`paged_decode_attention` is the wrapper: for CUDA tensors it
-launches the hand-written Hopper kernel in
-``synapseml_tpu_torch/csrc/paged_attn.cu`` (one block per (kv head,
-slot), a dynamic loop over the slot's span, f32 online softmax); for CPU
-tensors it takes the plain PyTorch version
-:func:`paged_decode_attention_plain`.  There is no fallback between the
-two: a CUDA input the kernel cannot take raises.
+launches the hand-written Hopper kernels in
+``synapseml_tpu_torch/csrc/paged_attn.cu`` (bf16 and f16: the split
+kernel, one block per chunk of :data:`SPLIT_KEYS` keys of a slot's span,
+then a combine; f32: the previous kernel, one block per (kv head, slot)
+walking the whole span); for CPU tensors it takes the plain PyTorch
+version :func:`paged_decode_attention_plain`.  There is no fallback
+between the two: a CUDA input the kernels cannot take raises.
+:func:`paged_decode_attention_previous` launches the previous kernel at
+any type, as a same-run yardstick of the split kernel.
 
 The geometry, span buckets and byte ledger (:func:`paged_geometry`,
 :func:`span_bucket_tiles`, :func:`paged_read_bytes`,
@@ -52,6 +55,8 @@ ATTENTION_BACKENDS = ("auto", "dense", "paged", "interpret")
 #: blocks) and the largest head width
 _MAX_ROWS = DEFINES["paged_attn"]["SML_PA_MAX_ROWS"]
 _MAX_D = DEFINES["paged_attn"]["SML_PA_MAX_D"]
+#: keys of a slot's span one block of the split kernel takes
+SPLIT_KEYS = DEFINES["paged_attn"]["SML_PA_SPLIT"]
 #: head widths the kernel is instantiated for
 _HEAD_DIMS = tuple(d for d in (16, 32, 64, 128) if d <= _MAX_D)
 #: dtype codes of the kernel's C interface, and their names in launch keys
@@ -234,9 +239,22 @@ def _kernels() -> ctypes.CDLL:
     lib.sml_paged_decode_attention.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _P]
     lib.sml_paged_decode_attention.restype = _I
+    lib.sml_paged_decode_attention_split.argtypes = [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _I,
+        ctypes.c_float, _P]
+    lib.sml_paged_decode_attention_split.restype = _I
     lib.sml_pa_error_string.argtypes = [_I]
     lib.sml_pa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def split_workspace_shape(B: int, S: int, H: int, KV: int, D: int,
+                          T: int) -> tuple:
+    """The split kernel's f32 workspace: for each (slot, kv head) and each
+    of the ``ceil(T / SPLIT_KEYS)`` chunks of the cache row, the S * group
+    query rows' running max, sum and D accumulators.  Only chunks inside a
+    slot's span are written and read."""
+    return (B, KV, -(-T // SPLIT_KEYS), S * (H // KV), D + 2)
 
 
 def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -270,7 +288,7 @@ def check_kernel_layout(num_heads: int, num_kv_heads: int, d_head: int,
                          f"{_HEAD_DIMS}; use attention_backend='dense'")
 
 
-def _paged_decode_attention_cuda(q, k, v, spans):
+def _paged_decode_attention_cuda(q, k, v, spans, split: bool):
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
     dev = q4.device
@@ -283,20 +301,43 @@ def _paged_decode_attention_cuda(q, k, v, spans):
     _need(spans, "spans", torch.int32, (B,), dev)
     out = torch.empty_like(q4)
     lib = _kernels()
+    sqrt_d = float(np.float32(np.sqrt(D)))
     with torch.cuda.device(dev):
-        rc = lib.sml_paged_decode_attention(
-            q4.data_ptr(), k.data_ptr(), v.data_ptr(), spans.data_ptr(),
-            out.data_ptr(), B, S, H, KV, D, T, _DTYPE_CODES[q4.dtype],
-            float(np.float32(np.sqrt(D))),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if split:
+            ws = torch.empty(split_workspace_shape(B, S, H, KV, D, T),
+                             dtype=torch.float32, device=dev)
+            rc = lib.sml_paged_decode_attention_split(
+                q4.data_ptr(), k.data_ptr(), v.data_ptr(), spans.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), B, S, H, KV, D, T,
+                ws.shape[2], _DTYPE_CODES[q4.dtype], sqrt_d, stream)
+        else:
+            rc = lib.sml_paged_decode_attention(
+                q4.data_ptr(), k.data_ptr(), v.data_ptr(), spans.data_ptr(),
+                out.data_ptr(), B, S, H, KV, D, T, _DTYPE_CODES[q4.dtype],
+                sqrt_d, stream)
     if rc != 0:
         msg = lib.sml_pa_error_string(rc).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {rc} ({msg})")
-    # launch key: ``T`` the cache's max_len
+    # launch key: ``T`` the cache's max_len, ``variant`` the kernel
     launches.count("paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D,
-                   T=T, dtype=_DTYPE_NAMES[q4.dtype])
+                   T=T, dtype=_DTYPE_NAMES[q4.dtype],
+                   variant="split" if split else "previous")
     return out[:, 0] if squeeze else out
+
+
+def paged_decode_attention_previous(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor,
+                                    spans: torch.Tensor) -> torch.Tensor:
+    """The previous kernel (one block per (kv head, slot), the whole span
+    in one block) at any of its types: f32's kernel on the main path, and
+    for bf16/f16 the yardstick the split kernel is timed against.  CUDA
+    tensors only."""
+    if q.device.type != "cuda":
+        raise ValueError("paged_decode_attention_previous launches a CUDA "
+                         f"kernel; q is on {q.device}")
+    return _paged_decode_attention_cuda(q, k, v, spans, split=False)
 
 
 def paged_decode_attention(q: torch.Tensor,      # (B, H, D) | (B, S, H, D)
@@ -310,8 +351,10 @@ def paged_decode_attention(q: torch.Tensor,      # (B, H, D) | (B, S, H, D)
     ``spans[b]`` is slot b's live length including this step's S written
     positions: the last query attends keys ``[0, spans[b])`` and each
     earlier query one key fewer.  The queries' own K/V must already be in
-    the cache.  CUDA tensors launch the K3 kernel; CPU tensors run
+    the cache.  CUDA tensors launch the K3 kernels (bf16/f16 the split
+    kernel, f32 the previous one); CPU tensors run
     :func:`paged_decode_attention_plain`."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k, v, spans)
-    return _paged_decode_attention_cuda(q, k, v, spans)
+    return _paged_decode_attention_cuda(q, k, v, spans,
+                                        split=q.dtype != torch.float32)

@@ -157,10 +157,30 @@ def test_paged_attention_limits_come_from_the_build():
     assert "kMaxRows = SML_PA_MAX_ROWS" in src
     assert "kMaxD = SML_PA_MAX_D" in src
     assert "blockIdx.z * kMaxRows" in src
+    assert paged_attn.SPLIT_KEYS == d["SML_PA_SPLIT"]
+    assert f"-DSML_PA_SPLIT={d['SML_PA_SPLIT']}" in flags
+    assert "kSplit = SML_PA_SPLIT" in src
     with pytest.raises(ValueError):
         paged_attn.check_kernel_layout(8, 8, 2 * d["SML_PA_MAX_D"],
                                        torch.float32)
     paged_attn.check_kernel_layout(8, 8, d["SML_PA_MAX_D"], torch.float32)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 32])
+def test_split_workspace_at_the_engine_shapes(S):
+    """The split kernel's workspace at the decode engine's shapes
+    (Llama-3.2-1B heads, 16 slots x 2048 positions): ceil(T / C) chunks of
+    the S * group query rows' max, sum and D accumulators per (slot, kv
+    head), C read from the build."""
+    from synapseml_tpu_torch.kernels import _build
+    from synapseml_tpu_torch.models.llm import paged_attn
+    C = _build.DEFINES["paged_attn"]["SML_PA_SPLIT"]
+    B, H, KV, D, T = 16, 32, 8, 64, 2048
+    shape = paged_attn.split_workspace_shape(B, S, H, KV, D, T)
+    assert shape == (B, KV, -(-T // C), S * H // KV, D + 2)
+    assert shape[2] * C >= T > (shape[2] - 1) * C
+    # a cache row that is no multiple of C still gets its last chunk
+    assert paged_attn.split_workspace_shape(1, S, H, KV, D, C + 1)[2] == 2
 
 
 def test_launch_counts_are_one_registry():

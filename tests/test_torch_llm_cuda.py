@@ -6,10 +6,16 @@ Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_llm_cuda.py
 
-Tolerances: f32 atol 1e-5 (the kernel and the plain version both sum in
-f32, in different orders); bf16 and f16 atol = rtol = 1e-2 on rows with a
-live key (both widen to f32 and round the output once, so they differ by
-at most about one ulp of the output).
+Tolerances: f32 atol 1e-5 (f32 runs the previous kernel; it and the plain
+version both sum in f32, in different orders); bf16 and f16 atol = rtol =
+1e-2 on rows with a live key.  There the split kernel computes scores and
+the running softmax in f32, but rounds each probability to the compute
+type before P V (the port's dense rule), where the plain version keeps P
+in f32: each term of P V carries a relative error of at most 2^-8 (bf16),
+which averages out over the span, and the output is rounded once more, so
+the two differ by a few ulps of the output.  Rows with no live key (a slot
+at span 1 in a verify step) have an unspecified output and are not
+compared.
 """
 
 import numpy as np
@@ -40,21 +46,29 @@ def _operands(rng, B, S, H, KV, D, T, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("S", [1, 8, 32])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 32])
 @pytest.mark.parametrize("B,H,KV,D,T", [
     (16, 32, 8, 64, 2048), (5, 8, 4, 32, 96), (3, 8, 4, 16, 64),
-    (4, 8, 2, 128, 200)])
+    (4, 8, 2, 128, 200), (8, 16, 4, 64, 640)])
 def test_paged_kernel_equals_plain(dev, dtype, S, B, H, KV, D, T):
     """S = 32 at four or more query heads per kv head gives more query
-    rows than one block keeps: the rows spread over several blocks."""
+    rows than one block keeps: the rows spread over several blocks.  The
+    spans straddle the split kernel's chunks (C - 1, C, C + 1, 2C + 1 and
+    T for C = SPLIT_KEYS, where T allows), and span 1 at S > 1 leaves
+    rows with no live key: the live rows must still match, finite."""
     rng = np.random.default_rng(B * T + S)
-    spans = np.concatenate([[1, T, max(1, T - 1), min(T, 65)],
+    C = PA.SPLIT_KEYS
+    edges = [1, T] + [c for c in (C - 1, C, C + 1, 2 * C + 1) if c < T]
+    spans = np.concatenate([edges, [max(1, T - 1), min(T, 65)],
                             rng.integers(1, T + 1, B)])[:B]
     q, k, v = _operands(rng, B, S, H, KV, D, T, dtype, dev)
     sp = torch.as_tensor(spans.astype(np.int32), device=dev)
-    before = launches.total("paged_decode_attention")
+    launches.reset()
     out = PA.paged_decode_attention(q, k, v, sp)
-    assert launches.total("paged_decode_attention") == before + 1
+    kernel = "previous" if dtype == torch.float32 else "split"
+    assert list(launches.BY_SHAPE) == [launches.launch_key(
+        "paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D, T=T,
+        dtype=PA._DTYPE_NAMES[dtype], variant=kernel)]
     ref = PA.paged_decode_attention_plain(q, k, v, sp)
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.dtype == dtype
@@ -62,9 +76,30 @@ def test_paged_kernel_equals_plain(dev, dtype, S, B, H, KV, D, T):
         out, ref = out[:, None], ref[:, None]
     live = (torch.as_tensor(spans, device=dev)[:, None] - (S - 1)
             + torch.arange(S, device=dev)[None]) > 0
+    assert bool(torch.isfinite(out[live].float()).all())
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out[live].float(), ref[live].float(),
                                atol=tol, rtol=0 if tol == 1e-5 else tol)
+
+
+def test_f32_keeps_the_previous_kernel(dev):
+    """f32 launches the previous kernel, bit for bit what its own entry
+    point gives; bf16 launches the split kernel."""
+    rng = np.random.default_rng(7)
+    sp = torch.as_tensor([1, 300, 2048, 513], dtype=torch.int32, device=dev)
+    for dtype, kernel in ((torch.float32, "previous"),
+                          (torch.bfloat16, "split")):
+        q, k, v = _operands(rng, 4, 4, 32, 8, 64, 2048, dtype, dev)
+        launches.reset()
+        out = PA.paged_decode_attention(q, k, v, sp)
+        assert [key.endswith(f",variant={kernel}]")
+                for key in launches.BY_SHAPE] == [True]
+        prev = PA.paged_decode_attention_previous(q, k, v, sp)
+        if dtype == torch.float32:
+            assert torch.equal(out, prev)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        PA.paged_decode_attention_previous(q.cpu(), k.cpu(), v.cpu(),
+                                           sp.cpu())
 
 
 def test_paged_kernel_refuses_what_it_cannot_take(dev):
