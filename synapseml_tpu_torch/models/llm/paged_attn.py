@@ -10,9 +10,11 @@ tokens instead of cache capacity.
 :func:`paged_decode_attention` is the wrapper: for CUDA tensors it
 launches the hand-written Hopper kernels in
 ``synapseml_tpu_torch/csrc/paged_attn.cu`` (bf16 and f16: the split
-kernel, one block per chunk of :data:`SPLIT_KEYS` keys of a slot's span,
-then a combine; f32: the previous kernel, one block per (kv head, slot)
-walking the whole span); for CPU tensors it takes the plain PyTorch
+kernel, one block per chunk of :data:`SPLIT_KEYS` keys of a slot's span
+on ``mma.sync`` tensor cores with a ``cp.async`` tile ring, then a
+combine, with the probabilities rounded to the compute type before P V;
+f32: the previous kernel, one block per (kv head, slot) walking the
+whole span in f32); for CPU tensors it takes the plain PyTorch
 version :func:`paged_decode_attention_plain`.  There is no fallback
 between the two: a CUDA input the kernels cannot take raises.
 :func:`paged_decode_attention_previous` launches the previous kernel at
