@@ -145,9 +145,46 @@ def vals_for(rng, N, dev):
                           mask)
 
 
+def in_turns(kernel, previous, iters: int = 20):
+    """(kernel ms, previous kernel ms) on the same inputs, timed in turns
+    previous, kernel, kernel, previous; each the better of its two."""
+    prev_a = cuda_ms(previous, iters=iters)
+    ms = [cuda_ms(kernel, iters=iters) for _ in range(2)]
+    prev_b = cuda_ms(previous, iters=iters)
+    return min(ms), min(prev_a, prev_b)
+
+
+def geometry(nfeat, width, S) -> dict:
+    """hist_rows_kernel's geometry for one feature set: features per
+    block, tile, groups, dynamic shared bytes, resident blocks per SM (the
+    card's occupancy query) and the gathers one SM keeps in flight."""
+    from synapseml_tpu_torch.models.gbdt import hist as H
+    fpb, tile, groups, smem = H.rows_geometry(nfeat, width, S)
+    per_sm = H.rows_blocks_per_sm(smem)
+    return dict(fpb=fpb, tile=tile, groups=groups, smem=smem,
+                blocks_per_sm=per_sm,
+                flight_per_sm=per_sm * tile * (8 + 4 * fpb))
+
+
+def check_equal(what, got, want) -> int:
+    """→ the largest difference between two tuples of int32 outputs;
+    raises unless it is 0."""
+    err = 0
+    for a, b in zip(got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what}: outputs differ in kind")
+        if a is not None and a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    if err:
+        raise AssertionError(f"{what}: outputs differ by {err}")
+    return err
+
+
 def k2_case(rng, dev, N, F, S, B, shift, K):
     """One mid-tree wave (S pending leaves among 2S node ids) or, with
-    S=1, a tree's root pass (every row in leaf 0, split all-left)."""
+    S=1, a tree's root pass (every row in leaf 0, split all-left), in the
+    id form the grower calls: split and refined features are row ids of
+    the binned matrix."""
     from synapseml_tpu_torch.models.gbdt import hist as H
     i32 = torch.int32
     bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
@@ -157,7 +194,7 @@ def k2_case(rng, dev, N, F, S, B, shift, K):
     if root:
         node_id = torch.zeros(N, dtype=i32, device=dev)
         leaf = torch.zeros(1, dtype=i32, device=dev)
-        sel = bins[:1]
+        feat = torch.zeros(1, dtype=i32, device=dev)
         t1 = torch.full((1,), B, dtype=i32, device=dev)
         l_id = torch.zeros(1, dtype=i32, device=dev)
         r_id = l_id
@@ -165,83 +202,102 @@ def k2_case(rng, dev, N, F, S, B, shift, K):
         node_id = torch.as_tensor(rng.integers(0, 2 * S, N).astype(np.int32),
                                   device=dev)
         leaf = torch.arange(S, dtype=i32, device=dev) * 2 + 1
-        feat = torch.as_tensor(rng.integers(0, F, S), device=dev)
-        sel = bins.index_select(0, feat).contiguous()
+        feat = torch.as_tensor(rng.integers(0, F, S).astype(np.int32),
+                               device=dev)
         t1 = torch.as_tensor(rng.integers(0, B, S).astype(np.int32),
                              device=dev)
         l_id = torch.arange(S, dtype=i32, device=dev) * 2 + 2 * S
         r_id = l_id + 1
     rlo, rhi, dflt = (torch.full((S,), v, dtype=i32, device=dev)
                       for v in (-1, B, 1))
-    sel_k = bins[:K].contiguous() if K else None
-    args = (bins, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id, r_id,
-            vals, S, B, shift, sel_k)
-    out_k = H.route_and_hist_limbs(*args)
-    out_p = H.route_and_hist_plain(*args)
+    feat_k = (torch.as_tensor(rng.permutation(F)[:K].astype(np.int32),
+                              device=dev) if K else None)
+    # the previous kernel and the JAX signature take gathered rows
+    sel = bins.index_select(0, feat.long())
+    sel_k = bins.index_select(0, feat_k.long()) if K else None
+    route = (node_id, leaf)
+    split = (t1, rlo, rhi, dflt, l_id, r_id)
+    ids = (bins, *route, feat, *split, vals, S, B, shift, feat_k)
+    gathered = (bins, *route, sel, *split, vals, S, B, shift, sel_k)
+    out_k = H.route_and_hist_ids_limbs(*ids)
+    out_p = H.route_and_hist_plain(*gathered)
     torch.cuda.synchronize()
-    if not torch.equal(out_k[0], out_p[0]):
-        raise AssertionError("route_and_hist: new node ids differ")
-    err = 0
-    for a, b in zip(out_k[1:], out_p[1:]):
-        if (a is None) != (b is None):
-            raise AssertionError("route_and_hist: outputs differ in kind")
-        if a is not None:
-            err = max(err, int((a.long() - b.long()).abs().max()))
-    if err:
-        raise AssertionError(f"route_and_hist: limb sums differ by {err}")
+    err = max(check_equal("route_and_hist (ids)", out_k, out_p),
+              check_equal("route_and_hist (sel)",
+                          H.route_and_hist_limbs(*gathered), out_p),
+              check_equal("route_and_hist_previous",
+                          H.route_and_hist_limbs_previous(*gathered), out_p))
     Bh = H.coarse_bins(B, shift) if shift else B
-    # reads: bins, node id, each row's ONE split bin (the kernel reads
-    # sel[j] only for the slot whose leaf holds the row; at the root, sel
-    # is bins' first row, already counted), limbs, the refined rows and
-    # the split table; writes: new ids and the histograms (8 int32 lanes)
-    sel_bytes = 0 if root else N * 4
-    nbytes = (F * N * 4 + N * 4 + sel_bytes + N * 8 + K * N * 4 + 7 * S * 4
-              + N * 4 + F * Bh * S * 32 + K * B * S * 32)
+    # reads: bins (the split bins and the K refined rows are rows of it),
+    # node ids, limbs, the split table and ids; writes: new ids and the
+    # histograms (8 int32 lanes)
+    nbytes = (F * N * 4 + N * 4 + N * 8 + 8 * S * 4 + K * 4 + N * 4
+              + F * Bh * S * 32 + K * B * S * 32)
     b_ms, b_by = bound(nbytes, N * (F + K) * 7 + N * 4)
-    return dict(
-        ms=cuda_ms(lambda: H.route_and_hist_limbs(*args)),
-        plain_ms=cuda_ms(lambda: H.route_and_hist_plain(*args), iters=3),
+    ms, prev = in_turns(lambda: H.route_and_hist_ids_limbs(*ids),
+                        lambda: H.route_and_hist_limbs_previous(*gathered))
+    r = dict(
+        ms=ms, previous_ms=prev,
+        route_ms=cuda_ms(lambda: H.route_rows(node_id, leaf, bins, feat,
+                                              *split, S), iters=20),
+        plain_ms=cuda_ms(lambda: H.route_and_hist_plain(*gathered), iters=3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-        bytes=nbytes)
+        bytes=nbytes, rows_listed=int((H.route_plain(
+            node_id, leaf, sel, *split)[1] >= 0).sum()),
+        geometry=[geometry(F, Bh, S)] + ([geometry(K, B, S)] if K else []))
+    r["bw_share"] = nbytes / (ms * 1e-3) / PEAK_BYTES_S
+    return r
 
 
-def k1_case(rng, dev, N, F, S, B, shift):
-    """The two-level root's fine build (S=1, K refined rows) or a
-    node-batched build (S slots)."""
+def k1_case(rng, dev, N, F, S, B, shift, K=0):
+    """The two-level root's fine build (S=1, the K refined rows of F
+    features by id) or a node-batched build (S slots, all F features)."""
     from synapseml_tpu_torch.models.gbdt import hist as H
     bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
                            device=dev)
     slot = torch.as_tensor(rng.integers(-1, S, N).astype(np.int32),
                            device=dev)
     vals, _ = vals_for(rng, N, dev)
-    args = (bins, slot, vals, S, B, shift)
+    feat = (torch.as_tensor(rng.permutation(F)[:K].astype(np.int32),
+                            device=dev) if K else None)
+    bins_k = bins.index_select(0, feat.long()) if K else bins
+    Fk = K or F
+    args = (bins, slot, vals, S, B, shift, feat)
     out_k = H.build_hist_nodes_limbs(*args)
     out_p = H.build_hist_nodes_plain(*args)
     torch.cuda.synchronize()
-    err = int((out_k.long() - out_p.long()).abs().max())
-    if err:
-        raise AssertionError(f"build_hist_nodes: limb sums differ by {err}")
+    err = max(check_equal("build_hist_nodes", [out_k], [out_p]),
+              check_equal("build_hist_nodes_previous", [
+                  H.build_hist_nodes_limbs_previous(bins_k, slot, vals, S,
+                                                    B, shift)], [out_p]))
     # the library yardstick: one index_add_ over precomputed flat
     # (feature, bin, slot) ids, rows without a slot sent to a dump row
     Bh = H.coarse_bins(B, shift) if shift else B
     ok = slot >= 0
     ids = torch.where(ok[None, :],
-                      (torch.arange(F, device=dev)[:, None] * Bh
-                       + (bins.long() >> shift)) * S + slot.long()[None, :],
-                      F * Bh * S).reshape(-1)
-    src = vals.int()[None].expand(F, N, 8).reshape(-1, 8).contiguous()
-    acc = torch.zeros((F * Bh * S + 1, 8), dtype=torch.int32, device=dev)
-    lib = acc.clone().index_add_(0, ids, src)[:-1].view(F, Bh, S, 8)
+                      (torch.arange(Fk, device=dev)[:, None] * Bh
+                       + (bins_k.long() >> shift)) * S + slot.long()[None, :],
+                      Fk * Bh * S).reshape(-1)
+    src = vals.int()[None].expand(Fk, N, 8).reshape(-1, 8).contiguous()
+    acc = torch.zeros((Fk * Bh * S + 1, 8), dtype=torch.int32, device=dev)
+    lib = acc.clone().index_add_(0, ids, src)[:-1].view(Fk, Bh, S, 8)
     if not torch.equal(lib, out_k):
         raise AssertionError("build_hist_nodes: index_add_ yardstick "
                              "disagrees")
-    nbytes = F * N * 4 + N * 4 + N * 8 + F * Bh * S * 32
-    b_ms, b_by = bound(nbytes, N * F * 7)
-    return dict(
-        ms=cuda_ms(lambda: H.build_hist_nodes_limbs(*args)),
+    nbytes = Fk * N * 4 + N * 4 + N * 8 + K * 4 + Fk * Bh * S * 32
+    b_ms, b_by = bound(nbytes, N * Fk * 7)
+    ms, prev = in_turns(
+        lambda: H.build_hist_nodes_limbs(*args),
+        lambda: H.build_hist_nodes_limbs_previous(bins_k, slot, vals, S, B,
+                                                  shift))
+    r = dict(
+        ms=ms, previous_ms=prev,
         plain_ms=cuda_ms(lambda: H.build_hist_nodes_plain(*args), iters=3),
         library_ms=cuda_ms(lambda: acc.clone().index_add_(0, ids, src)),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes)
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes,
+        rows_listed=int(ok.sum()), geometry=[geometry(Fk, Bh, S)])
+    r["bw_share"] = nbytes / (ms * 1e-3) / PEAK_BYTES_S
+    return r
 
 
 # --------------------------------------------------------------------------
@@ -622,19 +678,31 @@ def main(argv=None) -> int:
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=S), 63),
         ("route_and_hist", dict(F=F, B=256, shift=3, K=0, S=1), 255),
         ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S), 255),
-        ("build_hist_nodes", dict(F=K, B=256, shift=0, S=1), 255),
+        # the two-level root's fine build: K of the F rows, by id
+        ("build_hist_nodes", dict(F=F, B=256, shift=0, S=1, K=K), 255),
         # the node-batched shape lossguide growth gives K1: checked and
         # timed, but no fit of this path launches it
         ("build_hist_nodes", dict(F=F, B=64, shift=0, S=S), None),
     ]
     cases = []
     for kern, dims, fit in shapes:
-        case = k2_case if kern == "route_and_hist" else k1_case
-        r = case(rng, dev, N, **dims)
-        key = L.launch_key(kern, **dims)
-        log(f"{key}: identical to plain; kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bytes']} B)")
+        if kern == "route_and_hist":
+            r = k2_case(rng, dev, N, **dims)
+            key = L.launch_key(kern, **dims, variant="rows")
+        else:
+            r = k1_case(rng, dev, N, **dims)
+            key = L.launch_key(kern, F=dims.get("K") or dims["F"],
+                               B=dims["B"], shift=dims["shift"], S=dims["S"],
+                               variant="rows")
+        route = (f", route alone {r['route_ms']:.4f} ms"
+                 if "route_ms" in r else "")
+        log(f"{key}: identical to plain and to the previous kernel; kernel "
+            f"{r['ms']:.4f} ms, previous kernel {r['previous_ms']:.4f} ms"
+            f"{route}, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bytes']} B, {r['bound_by']}; {r['bw_share']:.3f} of "
+            f"3.35 TB/s); rows listed {r['rows_listed']}; geometry "
+            f"{json.dumps(r['geometry'])}")
         cases.append((key, kern, fit, r))
 
     # -- data: bench.py's task at full width, and a holdout -----------------
@@ -751,7 +819,7 @@ def main(argv=None) -> int:
             launches=paths[fit]["shapes"][key],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], previous_ms=r["previous_ms"]))
     # each K3 shape with its launches in the one LLM run that runs it
     # (S=1 in the plain run, S>1 in the speculative run); a verify width
     # the drafts never reached is checked above and left out here

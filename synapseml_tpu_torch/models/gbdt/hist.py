@@ -7,7 +7,7 @@ scale) plus an exact 0/1 count lane, so every histogram is an EXACT int32
 sum of limbs; :func:`_reconstruct` turns limb sums into f32
 [grad, hess, count].  Lanes per row: ``[g0 g1 g2 h0 h1 h2 count pad]``.
 
-Two kernels, each a hand-written CUDA kernel for Hopper in
+Two kernels, each hand-written CUDA for Hopper in
 ``synapseml_tpu_torch/csrc/gbdt_hist.cu`` with a plain PyTorch version
 beside it:
 
@@ -17,7 +17,18 @@ beside it:
   pending leaves and build the left children's histograms in the same
   pass, optionally at coarse ``bin >> hist_shift`` resolution with
   full-resolution histograms of the refined features ``sel_k`` (replaces
-  ``route_and_hist_pallas``).
+  ``route_and_hist_pallas``).  :func:`route_and_hist_ids` is the same
+  function with the split and refined features given as row ids of
+  ``bins_t`` instead of gathered copies of their rows; the grower calls
+  it.
+
+On the card each is two launches: ``route_kernel`` routes every row once
+(K2) or reads its slot (K1) and appends the rows that have a slot to a
+compacted list, then ``hist_rows_kernel`` builds the histograms of the
+listed rows through a ``cp.async`` ring (:func:`rows_geometry` chooses its
+features per block and tile).  The previous kernel, which re-routed every
+row once per feature group, stays as a same-run yardstick
+(``*_previous``); no main path calls it.
 
 A wrapper takes the plain version for tensors on the CPU and launches the
 kernel for tensors on a card; there is no fallback between the two.  The
@@ -44,6 +55,12 @@ _Q_MAX = 1_040_447.0
 #: the CUDA kernels' compile-time limits (csrc/gbdt_hist.cu)
 _MAX_SLOTS = DEFINES["gbdt_hist"]["SML_MAX_SLOTS"]
 _MAX_SMEM = DEFINES["gbdt_hist"]["SML_MAX_SMEM"]
+#: hist_rows_kernel's geometry limits (kMaxFpb in csrc/gbdt_hist.cu) and
+#: the bytes of one tile's gathers a block keeps in flight: ~25 KB per SM
+#: covers 3.35 TB/s x ~1 us of latency spread over 132 SMs
+_MAX_FPB = 64
+_TILE_MIN, _TILE_MAX = 128, 2048
+_FLIGHT_BYTES = 32 * 1024
 
 # --------------------------------------------------------------------------
 # quantization
@@ -108,36 +125,38 @@ def coarse_bins(total_bins: int, shift: int) -> int:
 
 def hist_limbs_plain(bins_t: torch.Tensor, slot: torch.Tensor,
                      vals: torch.Tensor, n_slots: int, width: int,
-                     shift: int = 0) -> torch.Tensor:
-    """(F, N) bins, (N,) slots in [-1, S), (N, 8) int8 limbs → (F, width,
-    S, 8) int32 limb sums over rows with a slot, at ``bin >> shift``.
-    Bins outside [0, width) add nothing (they match no one-hot row of the
-    TPU kernel).  ``index_add_`` into int64, one feature at a time."""
-    F, N = bins_t.shape
+                     shift: int = 0, feat=None) -> torch.Tensor:
+    """(R, N) bins, (N,) slots in [-1, S), (N, 8) int8 limbs → (F, width,
+    S, 8) int32 limb sums over rows with a slot, at ``bin >> shift``, of
+    the rows ``feat`` (F,) of ``bins_t`` (all R rows when None).  Bins
+    outside [0, width) add nothing (they match no one-hot row of the TPU
+    kernel).  ``index_add_`` into int64, one feature at a time."""
+    rows = range(bins_t.shape[0]) if feat is None else feat.tolist()
     S = n_slots
     v64 = vals.to(torch.int64)
     has = (slot >= 0) & (slot < S)
     dump = width * S                   # rows without a cell land here
-    out = torch.empty((F, width, S, SLOT_LANES), dtype=torch.int32,
+    out = torch.empty((len(rows), width, S, SLOT_LANES), dtype=torch.int32,
                       device=bins_t.device)
-    for f in range(F):
+    for i, f in enumerate(rows):
         b = bins_t[f] >> shift if shift else bins_t[f]
         ok = has & (b >= 0) & (b < width)
         idx = torch.where(ok, b.to(torch.int64) * S + slot, dump)
         acc = torch.zeros((dump + 1, SLOT_LANES), dtype=torch.int64,
                           device=bins_t.device)
         acc.index_add_(0, idx, v64)
-        out[f] = acc[:dump].view(width, S, SLOT_LANES).to(torch.int32)
+        out[i] = acc[:dump].view(width, S, SLOT_LANES).to(torch.int32)
     return out
 
 
 def route_plain(node_id, leaf, sel, t1, rlo, rhi, dflt, l_id, r_id):
     """The fused kernel's routing: → (new node id (N,), left-child slot
-    (N,), -1 for rows that are not routed left).  Later slots win, as in
-    the Pallas kernel's slot loop."""
+    (N,), -1 for rows that are not routed left).  ``sel[j]`` is split j's
+    bin row: an (S, N) tensor or a sequence of S rows.  Later slots win,
+    as in the Pallas kernel's slot loop."""
     new = node_id
     bslot = torch.full_like(node_id, -1)
-    for j in range(sel.shape[0]):
+    for j in range(len(sel)):
         inleaf = node_id == leaf[j]
         xb = sel[j]
         in_range = (xb > rlo[j]) & (xb <= rhi[j])
@@ -148,10 +167,11 @@ def route_plain(node_id, leaf, sel, t1, rlo, rhi, dflt, l_id, r_id):
 
 
 def build_hist_nodes_plain(bins_t, slot, vals, n_slots: int,
-                           total_bins: int, hist_shift: int = 0):
+                           total_bins: int, hist_shift: int = 0, feat=None):
     """K1's plain version → (F, Bh, S, 8) int32 limb sums."""
     Bh = coarse_bins(total_bins, hist_shift) if hist_shift else total_bins
-    return hist_limbs_plain(bins_t, slot, vals, n_slots, Bh, hist_shift)
+    return hist_limbs_plain(bins_t, slot, vals, n_slots, Bh, hist_shift,
+                            feat)
 
 
 def route_and_hist_plain(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
@@ -169,6 +189,69 @@ def route_and_hist_plain(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
     return new_id, out, outf
 
 
+def route_and_hist_ids_plain(bins_t, node_id, leaf, feat, t1, rlo, rhi,
+                             dflt, l_id, r_id, vals, n_slots: int,
+                             total_bins: int, hist_shift: int = 0,
+                             feat_k=None):
+    """K2's plain version in the id form: split j's bins are the row
+    ``feat[j]`` of ``bins_t`` and the refined features the rows
+    ``feat_k``; rows are read in place, nothing is gathered."""
+    B = total_bins
+    Bh = coarse_bins(B, hist_shift) if hist_shift else B
+    rows = [bins_t[f] for f in feat.tolist()]
+    new_id, bslot = route_plain(node_id, leaf, rows, t1, rlo, rhi, dflt,
+                                l_id, r_id)
+    out = hist_limbs_plain(bins_t, bslot, vals, n_slots, Bh, hist_shift)
+    outf = (None if feat_k is None
+            else hist_limbs_plain(bins_t, bslot, vals, n_slots, B, 0,
+                                  feat_k))
+    return new_id, out, outf
+
+
+# --------------------------------------------------------------------------
+# the histogram pass's geometry (csrc/gbdt_hist.cu, hist_rows_kernel)
+# --------------------------------------------------------------------------
+
+def _hist_bytes(fpb: int, width: int, n_slots: int) -> int:
+    """A block's shared histograms: fpb features x width x S x 7 int32,
+    rounded up to 16 bytes (the ring after them takes 16-byte copies)."""
+    return -(-fpb * width * n_slots * _LIVE * 4 // 16) * 16
+
+
+def _ring_bytes(fpb: int, tile: int) -> int:
+    """The cp.async ring: 3 stages of tile (row, slot) entries, 2 of the
+    rows' 8 limbs and 2 of fpb bins per row."""
+    return tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb)
+
+
+def rows_geometry(nfeat: int, width: int, n_slots: int):
+    """→ (features per block, tile, feature groups, dynamic shared bytes)
+    of one feature set in ``hist_rows_kernel``.
+
+    The most features per block whose histograms and ring fit a block's
+    shared memory, each with the largest power-of-two tile whose gathers
+    (8 bytes of limbs plus 4 per feature and row) stay within
+    ``_FLIGHT_BYTES``; then the features spread evenly over the groups
+    that takes.  Raises ``ValueError`` when one feature's histogram does
+    not fit."""
+    if nfeat <= 0:
+        return 0, 0, 0, 0
+    for nf in range(min(nfeat, _MAX_FPB), 0, -1):
+        tile = _TILE_MAX
+        while tile > _TILE_MIN and tile * (8 + 4 * nf) > _FLIGHT_BYTES:
+            tile //= 2
+        if _hist_bytes(nf, width, n_slots) + _ring_bytes(nf, tile) \
+                <= _MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"one feature's histogram ({width} bins x "
+                         f"{n_slots} slots) exceeds a block's shared memory")
+    groups = -(-nfeat // nf)
+    fpb = -(-nfeat // groups)
+    return (fpb, tile, groups,
+            _hist_bytes(fpb, width, n_slots) + _ring_bytes(fpb, tile))
+
+
 # --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
@@ -182,14 +265,34 @@ _LL = ctypes.c_longlong
 def _kernels() -> ctypes.CDLL:
     from ...kernels._build import load_library
     lib = load_library("gbdt_hist")
-    lib.sml_hist_nodes.argtypes = [_P, _I, _LL, _P, _P, _I, _I, _I, _P, _P]
-    lib.sml_hist_nodes.restype = _I
+    lib.sml_route_rows.argtypes = [_LL, _I, _P, _P, _P, _P, _P, _P, _P, _P]
+    lib.sml_hist_nodes.argtypes = [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _I,
+                                   _I, _P, _P, _P, _P]
     lib.sml_route_and_hist.argtypes = [_P, _I, _LL, _P, _P, _I, _P, _P, _P,
-                                       _I, _I, _I, _I, _P, _P, _P, _P]
-    lib.sml_route_and_hist.restype = _I
+                                       _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _P, _P, _P, _P, _P, _P]
+    lib.sml_hist_nodes_previous.argtypes = [_P, _I, _LL, _P, _P, _I, _I, _I,
+                                            _P, _P]
+    lib.sml_route_and_hist_previous.argtypes = [
+        _P, _I, _LL, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.sml_hist_rows_blocks_per_sm.argtypes = [_I]
+    for fn in (lib.sml_route_rows, lib.sml_hist_nodes,
+               lib.sml_hist_rows_blocks_per_sm,
+               lib.sml_route_and_hist, lib.sml_hist_nodes_previous,
+               lib.sml_route_and_hist_previous):
+        fn.restype = _I
     lib.sml_cuda_error_string.argtypes = [_I]
     lib.sml_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def rows_blocks_per_sm(smem: int) -> int:
+    """Blocks of ``hist_rows_kernel`` one SM of the current card holds at
+    ``smem`` bytes of dynamic shared memory (the occupancy query)."""
+    n = _kernels().sml_hist_rows_blocks_per_sm(smem)
+    if n < 0:
+        _raise_on(-n, "the occupancy query")
+    return n
 
 
 def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -208,12 +311,12 @@ def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 
 def _check_smem(width: int, n_slots: int) -> None:
+    """One feature's histogram at (width, S) must fit a block beside the
+    smallest ring (and so fits the previous kernel too)."""
     if not 1 <= n_slots <= _MAX_SLOTS:
         raise ValueError(f"n_slots={n_slots}: the CUDA kernels take 1.."
                          f"{_MAX_SLOTS}")
-    if width * n_slots * _LIVE * 4 > _MAX_SMEM:
-        raise ValueError(f"one feature's histogram ({width} bins x "
-                         f"{n_slots} slots) exceeds a block's shared memory")
+    rows_geometry(1, width, n_slots)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -222,8 +325,249 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _row_list(N: int, dev: torch.device):
+    """Scratch of the compacted rows: N + 2 (row, slot) pairs (the hist
+    pass copies pairs, so one past the last never reads past the end) and
+    the zeroed count."""
+    if N >= 2 ** 31:
+        raise ValueError(f"N={N}: the row list holds int32 row indices")
+    return (torch.empty((N + 2, 2), dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _need_rows(base, rows, name: str, N: int, dev) -> None:
+    """``rows`` (n,) int32 ids of rows of ``base`` (R, N); the ids must lie
+    in [0, R) (the kernel reads them unchecked)."""
+    _need(base, name, torch.int32, (base.shape[0], N), dev)
+    _need(rows, f"{name} row ids", torch.int32, (rows.shape[0],), dev)
+
+
 def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
-                           hist_shift):
+                           hist_shift, feat):
+    dev = bins_t.device
+    R, N = bins_t.shape
+    F = R if feat is None else feat.shape[0]
+    Bh = coarse_bins(total_bins, hist_shift) if hist_shift else total_bins
+    _need(bins_t, "bins_t", torch.int32, (R, N), dev)
+    if feat is not None:
+        _need(feat, "feat", torch.int32, (F,), dev)
+    _need(slot, "slot", torch.int32, (N,), dev)
+    _need(vals, "vals", torch.int8, (N, SLOT_LANES), dev)
+    _check_smem(Bh, n_slots)
+    fpb, tile, _, _ = rows_geometry(F, Bh, n_slots)
+    out = torch.zeros((F, Bh, n_slots, SLOT_LANES), dtype=torch.int32,
+                      device=dev)
+    lst, cnt = _row_list(N, dev)
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        rc = lib.sml_hist_nodes(
+            bins_t.data_ptr(), _ptr(feat), F, N, slot.data_ptr(),
+            vals.data_ptr(), n_slots, Bh, hist_shift, fpb, tile,
+            lst.data_ptr(), cnt.data_ptr(), out.data_ptr(), _stream(dev))
+    _raise_on(rc, "build_hist_nodes")
+    # launch keys: K1 ``F, B, shift, S`` and K2 ``F, B, shift, K, S``, with
+    # ``B`` the full bin count, then the kernel variant
+    launches.count("build_hist_nodes", F=F, B=total_bins, shift=hist_shift,
+                   S=n_slots, variant="rows")
+    return out
+
+
+def _route_and_hist_cuda(bins_t, node_id, leaf, base, rows, t1, rlo, rhi,
+                         dflt, l_id, r_id, vals, n_slots, total_bins,
+                         hist_shift, kbase, krows):
+    """K2 on the card: split j's bins are row ``rows[j]`` of ``base`` and
+    the refined features rows ``krows`` of ``kbase`` (None: no refine)."""
+    dev = bins_t.device
+    F, N = bins_t.shape
+    S = n_slots
+    B = total_bins
+    Bh = coarse_bins(B, hist_shift) if hist_shift else B
+    params = torch.stack([leaf, t1, rlo, rhi, dflt, l_id, r_id, rows]).to(
+        device=dev, dtype=torch.int32).contiguous()
+    _need(bins_t, "bins_t", torch.int32, (F, N), dev)
+    _need(node_id, "node_id", torch.int32, (N,), dev)
+    _need(params, "leaf/t1/rlo/rhi/dflt/l_id/r_id/rows", torch.int32, (8, S),
+          dev)
+    _need_rows(base, rows, "split bins", N, dev)
+    _need(vals, "vals", torch.int8, (N, SLOT_LANES), dev)
+    _check_smem(Bh, S)
+    fpb0, tile0, _, _ = rows_geometry(F, Bh, S)
+    K = fpb1 = tile1 = 0
+    if krows is not None:
+        K = krows.shape[0]
+        _need_rows(kbase, krows, "refined bins", N, dev)
+        _check_smem(B, S)
+        fpb1, tile1, _, _ = rows_geometry(K, B, S)
+    new_id = torch.empty(N, dtype=torch.int32, device=dev)
+    out = torch.zeros((F, Bh, S, SLOT_LANES), dtype=torch.int32, device=dev)
+    outf = (torch.zeros((K, B, S, SLOT_LANES), dtype=torch.int32, device=dev)
+            if krows is not None else None)
+    lst, cnt = _row_list(N, dev)
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        rc = lib.sml_route_and_hist(
+            bins_t.data_ptr(), F, N, node_id.data_ptr(), params.data_ptr(),
+            S, base.data_ptr(), vals.data_ptr(),
+            _ptr(kbase) if K else None, _ptr(krows) if K else None, K, B,
+            Bh, hist_shift, fpb0, tile0, fpb1, tile1, new_id.data_ptr(),
+            lst.data_ptr(), cnt.data_ptr(), out.data_ptr(), _ptr(outf),
+            _stream(dev))
+    _raise_on(rc, "route_and_hist")
+    launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S,
+                   variant="rows")
+    return new_id, out, outf
+
+
+def route_rows(node_id, leaf, base, rows, t1, rlo, rhi, dflt, l_id, r_id,
+               n_slots: int):
+    """K2's first launch alone, on the card: → (new_id (N,), the
+    compacted (row, slot) list (N + 2, 2) int32, its length (1,) int32).
+    Each block's rows are in ascending order.  For timing the routing
+    apart from the histograms; no main path calls it."""
+    dev = node_id.device
+    if dev.type != "cuda":
+        raise ValueError(f"route_rows launches a CUDA kernel; node_id is on "
+                         f"{dev}")
+    N = node_id.shape[0]
+    S = n_slots
+    params = torch.stack([leaf, t1, rlo, rhi, dflt, l_id, r_id, rows]).to(
+        device=dev, dtype=torch.int32).contiguous()
+    _need(node_id, "node_id", torch.int32, (N,), dev)
+    _need(params, "leaf/t1/rlo/rhi/dflt/l_id/r_id/rows", torch.int32, (8, S),
+          dev)
+    _need_rows(base, rows, "split bins", N, dev)
+    _check_smem(1, S)
+    new_id = torch.empty(N, dtype=torch.int32, device=dev)
+    lst, cnt = _row_list(N, dev)
+    with torch.cuda.device(dev):
+        rc = _kernels().sml_route_rows(
+            N, S, node_id.data_ptr(), params.data_ptr(), base.data_ptr(),
+            None, new_id.data_ptr(), lst.data_ptr(), cnt.data_ptr(),
+            _stream(dev))
+    _raise_on(rc, "route_rows")
+    launches.count("route_rows", S=S)
+    return new_id, lst, cnt
+
+
+# --------------------------------------------------------------------------
+# entry points (signatures and returns of the JAX package's functions)
+# --------------------------------------------------------------------------
+
+def build_hist_nodes_limbs(bins_t, slot, vals, n_slots: int,
+                           total_bins: int, hist_shift: int = 0, feat=None):
+    """K1 → (F, Bh, S, 8) int32 limb sums of the rows ``feat`` (F,) int32
+    of ``bins_t`` (all its rows when None): the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if bins_t.is_cuda:
+        return _build_hist_nodes_cuda(bins_t, slot, vals, n_slots,
+                                      total_bins, hist_shift, feat)
+    return build_hist_nodes_plain(bins_t, slot, vals, n_slots, total_bins,
+                                  hist_shift, feat)
+
+
+def build_hist_nodes(bins_t, slot, vals, scales, n_slots: int,
+                     total_bins: int, hist_shift: int = 0,
+                     feat=None) -> torch.Tensor:
+    """→ (n_slots, F, Bh, 3) float32 [grad, hess, count] histograms
+    (Bh = :func:`coarse_bins` when ``hist_shift`` > 0) of the rows
+    ``feat`` of ``bins_t`` (all when None)."""
+    out = build_hist_nodes_limbs(bins_t, slot, vals, n_slots, total_bins,
+                                 hist_shift, feat)
+    return _reconstruct(out.permute(2, 0, 1, 3), scales)
+
+
+def route_and_hist_limbs(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
+                         l_id, r_id, vals, n_slots: int, total_bins: int,
+                         hist_shift: int = 0, sel_k=None):
+    """K2 → (new_id, (F, Bh, S, 8) int32, (K, B, S, 8) int32 or None): the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if bins_t.is_cuda:
+        def ids(t):
+            return torch.arange(t.shape[0], dtype=torch.int32,
+                                device=t.device)
+        return _route_and_hist_cuda(
+            bins_t, node_id, leaf, sel, ids(sel), t1, rlo, rhi, dflt, l_id,
+            r_id, vals, n_slots, total_bins, hist_shift, sel_k,
+            None if sel_k is None else ids(sel_k))
+    return route_and_hist_plain(bins_t, node_id, leaf, sel, t1, rlo, rhi,
+                                dflt, l_id, r_id, vals, n_slots, total_bins,
+                                hist_shift, sel_k)
+
+
+def route_and_hist_ids_limbs(bins_t, node_id, leaf, feat, t1, rlo, rhi,
+                             dflt, l_id, r_id, vals, n_slots: int,
+                             total_bins: int, hist_shift: int = 0,
+                             feat_k=None):
+    """:func:`route_and_hist_limbs` with split j's bins the row
+    ``feat[j]`` of ``bins_t`` and the refined features its rows
+    ``feat_k`` ((S,) and (K,) int32 ids in [0, F)): nothing is gathered."""
+    if bins_t.is_cuda:
+        return _route_and_hist_cuda(
+            bins_t, node_id, leaf, bins_t, feat, t1, rlo, rhi, dflt, l_id,
+            r_id, vals, n_slots, total_bins, hist_shift,
+            None if feat_k is None else bins_t, feat_k)
+    return route_and_hist_ids_plain(bins_t, node_id, leaf, feat, t1, rlo,
+                                    rhi, dflt, l_id, r_id, vals, n_slots,
+                                    total_bins, hist_shift, feat_k)
+
+
+def _hists(new_id, out, outf, scales):
+    hists = _reconstruct(out.permute(2, 0, 1, 3), scales)
+    if outf is None:
+        return new_id, hists
+    return new_id, hists, _reconstruct(outf.permute(2, 0, 1, 3), scales)
+
+
+def route_and_hist(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id,
+                   r_id, vals, scales, n_slots: int, total_bins: int,
+                   hist_shift: int = 0, sel_k=None):
+    """One pass: → (new_node_id (N,), hists (n_slots, F, Bh, 3)[,
+    fine_hists (n_slots, K, B, 3) when ``sel_k`` is given]).
+
+    Rows of ``leaf[j]`` go left iff ``x in (rlo, rhi] ? x <= t1 : dflt``
+    with x from ``sel[j]`` (the split column's bin row, gathered by the
+    caller); left rows get ``l_id[j]``, right rows ``r_id[j]``, and the
+    histograms are of the left rows by slot."""
+    return _hists(*route_and_hist_limbs(
+        bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id, r_id, vals,
+        n_slots, total_bins, hist_shift, sel_k), scales)
+
+
+def route_and_hist_ids(bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt,
+                       l_id, r_id, vals, scales, n_slots: int,
+                       total_bins: int, hist_shift: int = 0, feat_k=None):
+    """:func:`route_and_hist` with the split features ``feat`` (S,) and the
+    refined features ``feat_k`` (K,) given as int32 row ids of ``bins_t``
+    (the grower's form: it gathers no bin rows)."""
+    return _hists(*route_and_hist_ids_limbs(
+        bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt, l_id, r_id, vals,
+        n_slots, total_bins, hist_shift, feat_k), scales)
+
+
+# --------------------------------------------------------------------------
+# the previous kernel: a same-run yardstick, CUDA tensors only
+# --------------------------------------------------------------------------
+
+def _need_card(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} launches a CUDA kernel; its input is on "
+                         f"{t.device}")
+
+
+def build_hist_nodes_limbs_previous(bins_t, slot, vals, n_slots: int,
+                                    total_bins: int, hist_shift: int = 0):
+    """K1 through the previous kernel (grid of row blocks x feature
+    groups, each group reading every row's slot): the same output as
+    :func:`build_hist_nodes_limbs`."""
+    _need_card(bins_t, "build_hist_nodes_limbs_previous")
     dev = bins_t.device
     F, N = bins_t.shape
     Bh = coarse_bins(total_bins, hist_shift) if hist_shift else total_bins
@@ -233,23 +577,24 @@ def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
     _check_smem(Bh, n_slots)
     out = torch.zeros((F, Bh, n_slots, SLOT_LANES), dtype=torch.int32,
                       device=dev)
-    lib = _kernels()
     with torch.cuda.device(dev):
-        rc = lib.sml_hist_nodes(
+        rc = _kernels().sml_hist_nodes_previous(
             bins_t.data_ptr(), F, N, slot.data_ptr(), vals.data_ptr(),
-            n_slots, Bh, hist_shift, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "build_hist_nodes")
-    # launch keys: K1 ``F, B, shift, S`` and K2 ``F, B, shift, K, S``, with
-    # ``B`` the full bin count
+            n_slots, Bh, hist_shift, out.data_ptr(), _stream(dev))
+    _raise_on(rc, "build_hist_nodes_previous")
     launches.count("build_hist_nodes", F=F, B=total_bins, shift=hist_shift,
-                   S=n_slots)
+                   S=n_slots, variant="previous")
     return out
 
 
-def _route_and_hist_cuda(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
-                         l_id, r_id, vals, n_slots, total_bins, hist_shift,
-                         sel_k):
+def route_and_hist_limbs_previous(bins_t, node_id, leaf, sel, t1, rlo, rhi,
+                                  dflt, l_id, r_id, vals, n_slots: int,
+                                  total_bins: int, hist_shift: int = 0,
+                                  sel_k=None):
+    """K2 through the previous kernel (grid of row blocks x feature
+    groups, each group routing every row again, split rows gathered by
+    the caller): the same output as :func:`route_and_hist_limbs`."""
+    _need_card(bins_t, "route_and_hist_limbs_previous")
     dev = bins_t.device
     F, N = bins_t.shape
     S = n_slots
@@ -272,72 +617,13 @@ def _route_and_hist_cuda(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
     out = torch.zeros((F, Bh, S, SLOT_LANES), dtype=torch.int32, device=dev)
     outf = (torch.zeros((K, B, S, SLOT_LANES), dtype=torch.int32, device=dev)
             if K else None)
-    lib = _kernels()
     with torch.cuda.device(dev):
-        rc = lib.sml_route_and_hist(
+        rc = _kernels().sml_route_and_hist_previous(
             bins_t.data_ptr(), F, N, node_id.data_ptr(), params.data_ptr(),
-            S, sel.data_ptr(), vals.data_ptr(),
-            sel_k.data_ptr() if K else None, K, B, Bh, hist_shift,
-            new_id.data_ptr(), out.data_ptr(),
-            outf.data_ptr() if K else None,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "route_and_hist")
-    launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S)
+            S, sel.data_ptr(), vals.data_ptr(), _ptr(sel_k), K, B, Bh,
+            hist_shift, new_id.data_ptr(), out.data_ptr(), _ptr(outf),
+            _stream(dev))
+    _raise_on(rc, "route_and_hist_previous")
+    launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S,
+                   variant="previous")
     return new_id, out, outf
-
-
-# --------------------------------------------------------------------------
-# entry points (signatures and returns of the JAX package's functions)
-# --------------------------------------------------------------------------
-
-def build_hist_nodes_limbs(bins_t, slot, vals, n_slots: int,
-                           total_bins: int, hist_shift: int = 0):
-    """K1 → (F, Bh, S, 8) int32 limb sums: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if bins_t.is_cuda:
-        return _build_hist_nodes_cuda(bins_t, slot, vals, n_slots,
-                                      total_bins, hist_shift)
-    return build_hist_nodes_plain(bins_t, slot, vals, n_slots, total_bins,
-                                  hist_shift)
-
-
-def build_hist_nodes(bins_t, slot, vals, scales, n_slots: int,
-                     total_bins: int, hist_shift: int = 0) -> torch.Tensor:
-    """→ (n_slots, F, Bh, 3) float32 [grad, hess, count] histograms
-    (Bh = :func:`coarse_bins` when ``hist_shift`` > 0)."""
-    out = build_hist_nodes_limbs(bins_t, slot, vals, n_slots, total_bins,
-                                 hist_shift)
-    return _reconstruct(out.permute(2, 0, 1, 3), scales)
-
-
-def route_and_hist_limbs(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
-                         l_id, r_id, vals, n_slots: int, total_bins: int,
-                         hist_shift: int = 0, sel_k=None):
-    """K2 → (new_id, (F, Bh, S, 8) int32, (K, B, S, 8) int32 or None): the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    if bins_t.is_cuda:
-        return _route_and_hist_cuda(bins_t, node_id, leaf, sel, t1, rlo,
-                                    rhi, dflt, l_id, r_id, vals, n_slots,
-                                    total_bins, hist_shift, sel_k)
-    return route_and_hist_plain(bins_t, node_id, leaf, sel, t1, rlo, rhi,
-                                dflt, l_id, r_id, vals, n_slots, total_bins,
-                                hist_shift, sel_k)
-
-
-def route_and_hist(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id,
-                   r_id, vals, scales, n_slots: int, total_bins: int,
-                   hist_shift: int = 0, sel_k=None):
-    """One pass: → (new_node_id (N,), hists (n_slots, F, Bh, 3)[,
-    fine_hists (n_slots, K, B, 3) when ``sel_k`` is given]).
-
-    Rows of ``leaf[j]`` go left iff ``x in (rlo, rhi] ? x <= t1 : dflt``
-    with x from ``sel[j]`` (the split column's bin row, gathered by the
-    caller); left rows get ``l_id[j]``, right rows ``r_id[j]``, and the
-    histograms are of the left rows by slot."""
-    new_id, out, outf = route_and_hist_limbs(
-        bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id, r_id, vals,
-        n_slots, total_bins, hist_shift, sel_k)
-    hists = _reconstruct(out.permute(2, 0, 1, 3), scales)
-    if outf is None:
-        return new_id, hists
-    return new_id, hists, _reconstruct(outf.permute(2, 0, 1, 3), scales)

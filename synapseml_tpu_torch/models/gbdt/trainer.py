@@ -3,7 +3,7 @@
 The PyTorch port of the JAX package's ``models/gbdt/trainer.py`` for the
 grower the default fit runs: :func:`grow_tree_depthwise`, which splits
 every selected leaf of a wave at once, with one pass over the binned
-matrix per wave (:func:`~.hist.route_and_hist`) and, for wide bins, the
+matrix per wave (:func:`~.hist.route_and_hist_ids`) and, for wide bins, the
 two-level (coarse-then-refine) histograms.  Split gain follows LightGBM:
 with G/H the child gradient/hessian sums, ``score(G,H) = T(G)^2 / (H +
 λ2)`` where T is the L1 soft-threshold, and ``gain = score(GL,HL) +
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .hist import build_hist_nodes, coarse_bins, prep_hist_vals, \
-    route_and_hist
+    route_and_hist_ids
 
 
 class GrowthParams(NamedTuple):
@@ -235,10 +235,11 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
     """Grow one tree wave by wave → (tree, per-row leaf node ids).
 
     Within a wave the best ``n_slots`` splittable leaves split together;
-    one :func:`~.hist.route_and_hist` pass routes their rows and builds
-    the left children's histograms (right children by subtraction from
-    the parent).  All tensors lie on one device; the histogram kernels
-    run there."""
+    one :func:`~.hist.route_and_hist_ids` pass routes their rows and
+    builds the left children's histograms (right children by subtraction
+    from the parent), reading the split and refined features' bins in
+    place by their row ids.  All tensors lie on one device; the
+    histogram kernels run there."""
     if p.voting_k or (p.monotone_constraints
                       and any(p.monotone_constraints)):
         raise NotImplementedError(
@@ -271,9 +272,9 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
     # root: one pass with every row in one slot, riding the fused kernel
     # with a degenerate all-left split of leaf 0 (t1=B → every row left,
     # child id 0 → node ids unchanged)
-    _, root_hists = route_and_hist(
+    _, root_hists = route_and_hist_ids(
         bins_t, torch.zeros(N, dtype=i32, device=dev), ifull(1, 0),
-        bins_t[:1], ifull(1, B), ifull(1, -1), ifull(1, B), ifull(1, 1),
+        ifull(1, 0), ifull(1, B), ifull(1, -1), ifull(1, B), ifull(1, 1),
         ifull(1, 0), ifull(1, 0), vals8, scales, 1, B,
         hist_shift=(SH if tl else 0))
     root_hist = root_hists[0]                              # (F, Bh, 3)
@@ -282,7 +283,7 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
     root_stats = _prefix_sum(root_hist[0].t())[:, -1]
     root_g, root_h, root_c = root_stats[0], root_stats[1], root_stats[2]
 
-    topk = sel_k = None
+    topk = None
     if tl:
         # the refined feature set is chosen ONCE per tree from the ROOT's
         # coarse per-feature gains, so every wave refines left children
@@ -290,10 +291,10 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
         cg0, ccum0, fgain0 = _tl_coarse_gains(
             root_hist[None], root_g[None], root_h[None], root_c[None],
             depth0[None], num_bins_c, feature_mask, p)
-        topk = _topk_index(fgain0[0], K)[1]
-        sel_k = bins_t.index_select(0, topk.long())       # (K, N)
+        topk = _topk_index(fgain0[0], K)[1]               # (K,) int32
         rslot0 = torch.where(row_valid > 0, 0, -1).to(i32)
-        root_fine = build_hist_nodes(sel_k, rslot0, vals8, scales, 1, B)
+        root_fine = build_hist_nodes(bins_t, rslot0, vals8, scales, 1, B,
+                                     feat=topk)
         rbest = _tl_final_pick(cg0, ccum0, root_fine, topk, root_g[None],
                                root_h[None], root_c[None], depth0[None],
                                num_bins, feature_mask, p, SH)
@@ -345,23 +346,22 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
         pl = parents[:nv].long()
         bf_p, bb_p = best_feat[parents.long()], best_bin[parents.long()]
         # plain splits: the universal routing form with the full range
-        sel = bins_t.index_select(0, bf_p.long())           # (S, N)
         last_wave = leaves + nv >= L
         if last_wave:
             # this wave fills the leaf budget: its children never split
             # again, so it routes in plain tensor code and skips the
             # histogram pass, as the JAX grower does
             new_node_id = node_id
-            for j in range(nv):
-                gl = _route_left(sel[j], bb_p[j], -1, B, 1)
+            for j, f in enumerate(bf_p[:nv].tolist()):
+                gl = _route_left(bins_t[f], bb_p[j], -1, B, 1)
                 new_node_id = torch.where(
                     node_id == parents[j],
                     torch.where(gl, l_ids[j], r_ids[j]), new_node_id)
         else:
-            out = route_and_hist(
-                bins_t, node_id, parents, sel, bb_p, ifull(S, -1),
+            out = route_and_hist_ids(
+                bins_t, node_id, parents, bf_p, bb_p, ifull(S, -1),
                 ifull(S, B), ifull(S, 1), l_ids, r_ids, vals8, scales, S, B,
-                hist_shift=(SH if tl else 0), sel_k=sel_k)
+                hist_shift=(SH if tl else 0), feat_k=topk)
             new_node_id, l_hists = out[0], out[1]
             lf = out[2] if tl else None
 
