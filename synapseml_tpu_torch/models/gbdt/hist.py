@@ -61,6 +61,12 @@ _MAX_SMEM = DEFINES["gbdt_hist"]["SML_MAX_SMEM"]
 _MAX_FPB = 64
 _TILE_MIN, _TILE_MAX = 128, 2048
 _FLIGHT_BYTES = 32 * 1024
+#: hist_rows_kernel's packed cells (kPackBits, kFlushRows in the source):
+#: g digits as d0 + d1·2^21 + d2·2^42 in one int64, h likewise, the count
+#: an int32 (20 bytes); a block flushes at least every FLUSH_ROWS rows
+PACK_BITS = 21
+FLUSH_ROWS = 16383
+_CELL_BYTES = 20
 
 # --------------------------------------------------------------------------
 # quantization
@@ -213,9 +219,9 @@ def route_and_hist_ids_plain(bins_t, node_id, leaf, feat, t1, rlo, rhi,
 # --------------------------------------------------------------------------
 
 def _hist_bytes(fpb: int, width: int, n_slots: int) -> int:
-    """A block's shared histograms: fpb features x width x S x 7 int32,
-    rounded up to 16 bytes (the ring after them takes 16-byte copies)."""
-    return -(-fpb * width * n_slots * _LIVE * 4 // 16) * 16
+    """A block's shared cells: fpb features x width x S cells of 20
+    bytes, rounded up to 16 (the ring after them takes 16-byte copies)."""
+    return -(-fpb * width * n_slots * _CELL_BYTES // 16) * 16
 
 
 def _ring_bytes(fpb: int, tile: int) -> int:
@@ -224,30 +230,40 @@ def _ring_bytes(fpb: int, tile: int) -> int:
     return tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb)
 
 
+def _fit_tile(fpb: int, width: int, n_slots: int):
+    """The largest power-of-two tile whose gathers (8 bytes of limbs plus
+    4 per feature and row) stay within ``_FLIGHT_BYTES`` and, shrunk to no
+    less than half of that, fit a block beside fpb features' cells; None
+    if none does."""
+    row = 8 + 4 * fpb
+    tile = _TILE_MAX
+    while tile > _TILE_MIN and tile * row > _FLIGHT_BYTES:
+        tile //= 2
+    while True:
+        if _hist_bytes(fpb, width, n_slots) + _ring_bytes(fpb, tile) \
+                <= _MAX_SMEM:
+            return tile
+        if tile <= _TILE_MIN or tile * row <= _FLIGHT_BYTES // 2:
+            return None
+        tile //= 2
+
+
 def rows_geometry(nfeat: int, width: int, n_slots: int):
     """→ (features per block, tile, feature groups, dynamic shared bytes)
-    of one feature set in ``hist_rows_kernel``.
-
-    The most features per block whose histograms and ring fit a block's
-    shared memory, each with the largest power-of-two tile whose gathers
-    (8 bytes of limbs plus 4 per feature and row) stay within
-    ``_FLIGHT_BYTES``; then the features spread evenly over the groups
-    that takes.  Raises ``ValueError`` when one feature's histogram does
-    not fit."""
+    of one feature set in ``hist_rows_kernel``: the most features per
+    block that fit (:func:`_fit_tile`), the features spread evenly over
+    the groups that takes, and the tile refit for that many.  Raises
+    ``ValueError`` when one feature's cells do not fit."""
     if nfeat <= 0:
         return 0, 0, 0, 0
-    for nf in range(min(nfeat, _MAX_FPB), 0, -1):
-        tile = _TILE_MAX
-        while tile > _TILE_MIN and tile * (8 + 4 * nf) > _FLIGHT_BYTES:
-            tile //= 2
-        if _hist_bytes(nf, width, n_slots) + _ring_bytes(nf, tile) \
-                <= _MAX_SMEM:
-            break
-    else:
+    nf = next((n for n in range(min(nfeat, _MAX_FPB), 0, -1)
+               if _fit_tile(n, width, n_slots)), 0)
+    if nf == 0:
         raise ValueError(f"one feature's histogram ({width} bins x "
                          f"{n_slots} slots) exceeds a block's shared memory")
     groups = -(-nfeat // nf)
     fpb = -(-nfeat // groups)
+    tile = _fit_tile(fpb, width, n_slots)
     return (fpb, tile, groups,
             _hist_bytes(fpb, width, n_slots) + _ring_bytes(fpb, tile))
 

@@ -33,10 +33,11 @@ def _vals(rng, N, dev):
 
 def _slots(rng, N, S, kind):
     """Slots of K1's rows: random in [-1, S), none (an empty row list),
-    all in slot 0 (a root), or junk (values outside [-1, S) mixed in)."""
+    all in slot 0 (a root, or one cell of extreme digits), or junk
+    (values outside [-1, S) mixed in)."""
     if kind == "none":
         return np.full(N, -1, np.int32)
-    if kind == "all":
+    if kind in ("all", "extreme"):
         return np.zeros(N, np.int32)
     lo, hi = (-3, S + 3) if kind == "junk" else (-1, S)
     return rng.integers(lo, hi, N).astype(np.int32)
@@ -47,15 +48,22 @@ def _slots(rng, N, S, kind):
     (100_003, 8, 1, 256, 0, "random"), (50_000, 28, 16, 64, 0, "random"),
     (50_000, 11, 4, 256, 3, "random"), (30_001, 9, 16, 64, 0, "none"),
     (70_001, 28, 1, 64, 0, "all"), (20_011, 4, 64, 16, 0, "junk"),
-    (9_999, 30, 64, 32, 1, "random")])
+    (9_999, 30, 64, 32, 1, "random"), (16_000_000, 1, 1, 16, 0, "extreme")])
 def test_build_hist_nodes_kernel_equals_plain(dev, N, F, S, B, shift, kind):
     """The kernel equals the plain version and the previous kernel, and
-    its feature-id form equals it on the gathered rows."""
+    its feature-id form equals it on the gathered rows.  "extreme" sends
+    every row, its g digits at -64 and its h digits at +64, to one cell:
+    each block takes more than FLUSH_ROWS of them (16M rows over at most
+    4 blocks per SM), so the packed sums must flush in time."""
     rng = np.random.default_rng(N)
     bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
                            device=dev)
     slot = torch.as_tensor(_slots(rng, N, S, kind), device=dev)
     vals, scales = _vals(rng, N, dev)
+    if kind == "extreme":
+        bins.zero_()
+        vals = torch.tensor([-64, -64, -64, 64, 64, 64, 1, 0],
+                            dtype=torch.int8, device=dev).repeat(N, 1)
     launches.reset()
     k = H.build_hist_nodes_limbs(bins, slot, vals, S, B, shift)
     assert launches.BY_SHAPE == {launches.launch_key(
