@@ -42,14 +42,22 @@
 //    none.  The previous kernel re-routed every row once per feature group.
 // 3. Loads in flight.  A tile's list entries, then the rows' limbs and each
 //    group feature's bin, come into shared memory through a cp.async ring:
-//    the next tile's gathers (tile x (8 + 4 x features) bytes, ~24-32 KB)
-//    fly while the block scatters the current tile from shared memory, so
-//    the pass waits on bandwidth, not on one row's chain of dependent loads.
+//    the next tile's gathers (tile x (8 + 4 x features) bytes, ~24-32 KB
+//    per SM) fly while the block scatters the current tile from shared
+//    memory, so the pass waits on bandwidth, not on one row's chain of
+//    dependent loads.
 // 4. Histograms in shared memory up to what the ring leaves of the 227 KB
 //    a block may take, so the wide levels need few feature groups; a
 //    full-resolution feature at 256 bins x 16 slots (114.7 KB) takes a
 //    block of its own.  The wrapper (models/gbdt/hist.py, rows_geometry)
-//    chooses features per block and the tile and passes them in.
+//    chooses features per block and the tile and passes them in; blocks
+//    spread over the groups in proportion to their features.
+//
+// The scatter's shared int32 atomics (7 per row and feature) then bound a
+// root pass, where every row is listed.  Packing a cell's three g digits
+// into one 64-bit word (d0 + d1 * 2^21 + d2 * 2^42, likewise h) would cut
+// them to 3, but sm_90a has no native 64-bit shared add: it compiles to a
+// compare-and-swap loop (ATOMS.CAST.SPIN.64), which measured slower.
 //
 // The previous kernel (hist_kernel_previous, entry points *_previous) stays
 // as a same-run yardstick: grid (row blocks) x (feature groups), each group
@@ -84,13 +92,6 @@ constexpr int kRouteWarps = kRouteThreads / 32;
 // hist_rows_kernel: most features one block histograms (its feature-row
 // table is static shared memory)
 constexpr int kMaxFpb = 64;
-// hist_rows_kernel keeps a cell's three g digits in one signed 64-bit word,
-// d0 + d1 * 2^21 + d2 * 2^42, the h digits likewise, and the count in an
-// int32.  The sums unpack exactly while each field's sum stays within
-// [-2^20, 2^20): at |digit| <= 64 that holds for 16,383 rows, so a block
-// flushes its cells at least that often.
-constexpr int kPackBits = 21;
-constexpr int kFlushRows = 16383;
 
 int sm_count() {
   static int n = 0;
@@ -258,29 +259,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// three int8 digits (the low byte of each argument) -> d0 + d1 * 2^21 +
-// d2 * 2^42 in two's complement
-__device__ __forceinline__ unsigned long long pack3(int a, int b, int c) {
-  return (unsigned long long)((long long)(int8_t)a +
-                              (long long)(int8_t)b * (1LL << kPackBits) +
-                              (long long)(int8_t)c * (1LL << (2 * kPackBits)));
-}
-// a sum of packed words -> its three field sums, each in [-2^20, 2^20):
-// the low 21 bits sign-extended, then the same of what remains >> 21
-__device__ __forceinline__ long long sext21(long long x) {
-  return (long long)((unsigned long long)x << (64 - kPackBits)) >>
-         (64 - kPackBits);
-}
-__device__ __forceinline__ void unpack3(unsigned long long w, int32_t* d) {
-  const long long x = (long long)w;
-  const long long s0 = sext21(x);
-  const long long x1 = (x - s0) >> kPackBits;
-  const long long s1 = sext21(x1);
-  d[0] = (int32_t)s0;
-  d[1] = (int32_t)s1;
-  d[2] = (int32_t)((x1 - s1) >> kPackBits);
-}
-
 struct RowsSrc {
   const int32_t* bins;  // (R, N) row-major: the rows features come from
   const int32_t* feat;  // (nfeat,) rows of `bins`, or null: rows 0 .. nfeat-1
@@ -294,12 +272,10 @@ struct RowsSrc {
   int blocks;           // blocks per group, set at launch
 };
 
-// A block's cells: packed g (int64), packed h (int64) and count (int32)
-// per (feature, bin, slot), 20 bytes, in three arrays.  The ring after
-// them: 3 stages of list entries (tile k + 2 lands while k + 1's rows are
-// gathered and k is scattered) and 2 of limbs and bins.
+// The ring: 3 stages of list entries (tile k + 2 lands while k + 1's rows
+// are gathered and k is scattered) and 2 of limbs and bins.
 __host__ __device__ inline long long hist_bytes(int fpb, int width, int S) {
-  return ((long long)fpb * width * S * 20 + 15) / 16 * 16;
+  return ((long long)fpb * width * S * kLive * 4 + 15) / 16 * 16;
 }
 __host__ __device__ inline long long ring_bytes(int fpb, int tile) {
   return (long long)tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb);
@@ -334,44 +310,15 @@ hist_rows_kernel(RowsSrc src0, RowsSrc src1, long long N, int S,
   const int nt = ntiles > bx ? (ntiles - bx + s.blocks - 1) / s.blocks : 0;
   if (nt == 0) return;
 
-  // cell c = (fl * width + bin) * S + slot
-  const int cells = nf * s.width * S;
-  const int cap = s.fpb * s.width * S;
-  unsigned long long* hg = reinterpret_cast<unsigned long long*>(smem);
-  unsigned long long* hh = hg + cap;
-  int32_t* hn = reinterpret_cast<int32_t*>(hh + cap);
+  const int cells = nf * s.width * S * kLive;
+  int32_t* hist = reinterpret_cast<int32_t*>(smem);
   int2* ent = reinterpret_cast<int2*>(smem + hist_bytes(s.fpb, s.width, S));
   int2* val = ent + 3 * T;                                 // 8 limbs a row
   int32_t* bns = reinterpret_cast<int32_t*>(val + 2 * T);  // (2, fpb, T)
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    hg[i] = 0;
-    hh[i] = 0;
-    hn[i] = 0;
-  }
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0;
   for (int i = threadIdx.x; i < nf; i += blockDim.x) {
     fbase[i] = (long long)(s.feat ? s.feat[f0 + i] : f0 + i) * N;
   }
-  // add the block's sums to the (feature, bin, slot, 8) output and clear
-  // them: cell c's lanes are out[c * 8 + lane]
-  int32_t* out = s.out + (long long)f0 * s.width * S * kLanesOut;
-  auto flush = [&]() {
-    for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-      int32_t lane[kLive];
-      unpack3(hg[c], lane);
-      unpack3(hh[c], lane + 3);
-      lane[6] = hn[c];
-      int32_t* o = out + (long long)c * kLanesOut;
-#pragma unroll
-      for (int q = 0; q < kLive; ++q) {
-        if (lane[q]) atomicAdd(o + q, lane[q]);
-      }
-      hg[c] = 0;
-      hh[c] = 0;
-      hn[c] = 0;
-    }
-  };
-  // tiles between flushes: at most kFlushRows rows reach a cell
-  const int flush_tiles = kFlushRows / T;
 
   auto tile_start = [&](int k) -> long long {
     return ((long long)bx + (long long)k * s.blocks) * T;
@@ -438,22 +385,30 @@ hist_rows_kernel(RowsSrc src0, RowsSrc src1, long long N, int S,
       const unsigned bin = (unsigned)(b[i] >> s.shift);
       // a bin outside [0, width) matches no one-hot row on the TPU either
       if (bin >= (unsigned)s.width) continue;
-      const int c = ((i >> lgT) * s.width + (int)bin) * S + e[r].y;
-      const unsigned long long g = pack3(w.x, w.x >> 8, w.x >> 16);
-      const unsigned long long h = pack3(w.x >> 24, w.y, w.y >> 8);
-      const int n = (int)(int8_t)(w.y >> 16);
-      if (g) atomicAdd(hg + c, g);
-      if (h) atomicAdd(hh + c, h);
-      if (n) atomicAdd(hn + c, n);
-    }
-    if ((k + 1) % flush_tiles == 0 && k + 1 < nt) {
-      __syncthreads();
-      flush();
+      const int fl = i >> lgT;
+      int32_t* cell = hist + ((fl * s.width + (int)bin) * S + e[r].y) * kLive;
+      const int lv[kLive] = {
+          (int)(int8_t)(w.x), (int)(int8_t)(w.x >> 8),
+          (int)(int8_t)(w.x >> 16), (int)(int8_t)(w.x >> 24),
+          (int)(int8_t)(w.y), (int)(int8_t)(w.y >> 8),
+          (int)(int8_t)(w.y >> 16)};
+#pragma unroll
+      for (int q = 0; q < kLive; ++q) {
+        if (lv[q]) atomicAdd(cell + q, lv[q]);
+      }
     }
   }
   cp_async_wait_all();
   __syncthreads();
-  flush();
+
+  // cell i = ((fl * width + bin) * S + slot) * 7 + lane; the output keeps
+  // the same (feature, bin, slot) order with 8 lanes
+  int32_t* out = s.out + (long long)f0 * s.width * S * kLanesOut;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int32_t x = hist[i];
+    if (x == 0) continue;
+    atomicAdd(out + (long long)(i / kLive) * kLanesOut + (i % kLive), x);
+  }
 }
 
 RowsSrc make_rows_src(const int32_t* bins, const int32_t* feat, int32_t* out,

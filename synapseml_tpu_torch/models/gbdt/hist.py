@@ -57,16 +57,13 @@ _MAX_SLOTS = DEFINES["gbdt_hist"]["SML_MAX_SLOTS"]
 _MAX_SMEM = DEFINES["gbdt_hist"]["SML_MAX_SMEM"]
 #: hist_rows_kernel's geometry limits (kMaxFpb in csrc/gbdt_hist.cu) and
 #: the bytes of one tile's gathers a block keeps in flight: ~25 KB per SM
-#: covers 3.35 TB/s x ~1 us of latency spread over 132 SMs
+#: covers 3.35 TB/s x ~1 us of latency spread over 132 SMs; a tile may
+#: shrink to half that to fit one more feature per block
 _MAX_FPB = 64
 _TILE_MIN, _TILE_MAX = 128, 2048
 _FLIGHT_BYTES = 32 * 1024
-#: hist_rows_kernel's packed cells (kPackBits, kFlushRows in the source):
-#: g digits as d0 + d1·2^21 + d2·2^42 in one int64, h likewise, the count
-#: an int32 (20 bytes); a block flushes at least every FLUSH_ROWS rows
-PACK_BITS = 21
-FLUSH_ROWS = 16383
-_CELL_BYTES = 20
+#: shared memory of one H100 SM (228 KB)
+_SM_SMEM = 233472
 
 # --------------------------------------------------------------------------
 # quantization
@@ -219,9 +216,9 @@ def route_and_hist_ids_plain(bins_t, node_id, leaf, feat, t1, rlo, rhi,
 # --------------------------------------------------------------------------
 
 def _hist_bytes(fpb: int, width: int, n_slots: int) -> int:
-    """A block's shared cells: fpb features x width x S cells of 20
-    bytes, rounded up to 16 (the ring after them takes 16-byte copies)."""
-    return -(-fpb * width * n_slots * _CELL_BYTES // 16) * 16
+    """A block's shared histograms: fpb features x width x S x 7 int32,
+    rounded up to 16 bytes (the ring after them takes 16-byte copies)."""
+    return -(-fpb * width * n_slots * _LIVE * 4 // 16) * 16
 
 
 def _ring_bytes(fpb: int, tile: int) -> int:
@@ -230,42 +227,58 @@ def _ring_bytes(fpb: int, tile: int) -> int:
     return tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb)
 
 
-def _fit_tile(fpb: int, width: int, n_slots: int):
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks an H100 SM holds at ``smem`` dynamic shared bytes each (228
+    KB a SM, 1 KB reserved a block), at most the 2 the kernel's launch
+    bounds promise registers for."""
+    return min(2, _SM_SMEM // (smem + 1024))
+
+
+def _tile_cap(fpb: int) -> int:
     """The largest power-of-two tile whose gathers (8 bytes of limbs plus
-    4 per feature and row) stay within ``_FLIGHT_BYTES`` and, shrunk to no
-    less than half of that, fit a block beside fpb features' cells; None
-    if none does."""
-    row = 8 + 4 * fpb
+    4 per feature and row) stay within ``_FLIGHT_BYTES``."""
     tile = _TILE_MAX
-    while tile > _TILE_MIN and tile * row > _FLIGHT_BYTES:
+    while tile > _TILE_MIN and tile * (8 + 4 * fpb) > _FLIGHT_BYTES:
         tile //= 2
-    while True:
-        if _hist_bytes(fpb, width, n_slots) + _ring_bytes(fpb, tile) \
-                <= _MAX_SMEM:
-            return tile
-        if tile <= _TILE_MIN or tile * row <= _FLIGHT_BYTES // 2:
-            return None
-        tile //= 2
+    return tile
 
 
 def rows_geometry(nfeat: int, width: int, n_slots: int):
     """→ (features per block, tile, feature groups, dynamic shared bytes)
-    of one feature set in ``hist_rows_kernel``: the most features per
-    block that fit (:func:`_fit_tile`), the features spread evenly over
-    the groups that takes, and the tile refit for that many.  Raises
-    ``ValueError`` when one feature's cells do not fit."""
+    of one feature set in ``hist_rows_kernel``.
+
+    The most features per block whose histograms fit beside a ring at
+    :func:`_tile_cap`'s tile, spread evenly over the groups that takes;
+    a single feature too wide for that takes a smaller tile.  Where a
+    block is alone on its SM but two fit at half the tile, half the tile:
+    the SM keeps as many bytes in flight, with twice the threads
+    scattering.  Raises ``ValueError`` when one feature's histogram does
+    not fit."""
     if nfeat <= 0:
         return 0, 0, 0, 0
+
+    def smem(fpb, tile):
+        return _hist_bytes(fpb, width, n_slots) + _ring_bytes(fpb, tile)
     nf = next((n for n in range(min(nfeat, _MAX_FPB), 0, -1)
-               if _fit_tile(n, width, n_slots)), 0)
-    if nf == 0:
-        raise ValueError(f"one feature's histogram ({width} bins x "
-                         f"{n_slots} slots) exceeds a block's shared memory")
-    groups = -(-nfeat // nf)
-    fpb = -(-nfeat // groups)
-    tile = _fit_tile(fpb, width, n_slots)
-    return (fpb, tile, groups,
-            _hist_bytes(fpb, width, n_slots) + _ring_bytes(fpb, tile))
+               if smem(n, _tile_cap(n)) <= _MAX_SMEM), 0)
+    if nf:
+        groups = -(-nfeat // nf)
+        fpb = -(-nfeat // groups)
+        tile = _tile_cap(fpb)
+        if smem(fpb, tile) > _MAX_SMEM:
+            tile = _tile_cap(nf)
+    else:
+        groups, fpb, tile = nfeat, 1, _tile_cap(1)
+        while tile > _TILE_MIN and smem(1, tile) > _MAX_SMEM:
+            tile //= 2
+        if smem(1, tile) > _MAX_SMEM:
+            raise ValueError(f"one feature's histogram ({width} bins x "
+                             f"{n_slots} slots) exceeds a block's shared "
+                             "memory")
+    if (tile > _TILE_MIN and _blocks_per_sm(smem(fpb, tile)) < 2
+            and _blocks_per_sm(smem(fpb, tile // 2)) == 2):
+        tile //= 2
+    return fpb, tile, groups, smem(fpb, tile)
 
 
 # --------------------------------------------------------------------------

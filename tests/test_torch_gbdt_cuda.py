@@ -52,9 +52,9 @@ def _slots(rng, N, S, kind):
 def test_build_hist_nodes_kernel_equals_plain(dev, N, F, S, B, shift, kind):
     """The kernel equals the plain version and the previous kernel, and
     its feature-id form equals it on the gathered rows.  "extreme" sends
-    every row, its g digits at -64 and its h digits at +64, to one cell:
-    each block takes more than FLUSH_ROWS of them (16M rows over at most
-    4 blocks per SM), so the packed sums must flush in time."""
+    16M rows, their g digits at -64 and their h digits at +64, to one
+    cell: every block adds thousands of them to one shared cell, and the
+    lanes sum to -1.024e9 and +1.024e9, within int32."""
     rng = np.random.default_rng(N)
     bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
                            device=dev)

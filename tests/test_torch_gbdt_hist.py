@@ -83,7 +83,7 @@ def _route_case(seed, N, F, B, S, n_real):
     grad = rng.normal(size=N).astype(np.float32)
     hess = (np.abs(grad) + 0.1).astype(np.float32)
     mask = (rng.random(N) < 0.8).astype(np.float32)
-    route = dict(leaf=leaf, sel=bins_t[feat], t1=thr,
+    route = dict(leaf=leaf, feat=feat, sel=bins_t[feat], t1=thr,
                  rlo=np.full(S, -1, np.int32), rhi=np.full(S, B, np.int32),
                  dflt=np.ones(S, np.int32), l_id=l_id, r_id=r_id)
     return bins_t, node_id, route, (grad, hess, mask)
@@ -110,6 +110,39 @@ def test_route_and_hist_matches_pallas(shape, shift, K):
     np.testing.assert_array_equal(tout[0].numpy(), jout[0])     # new ids
     for t_h, j_h in zip(tout[1:], jout[1:]):
         assert tuple(t_h.shape) == j_h.shape
+        np.testing.assert_array_equal(t_h.numpy(), j_h)
+
+
+@pytest.mark.parametrize("shape,shift,K", [
+    ((2048, 9, 64, 16, 4), 0, 0),        # plain mode (maxBin=63 path)
+    ((8192, 7, 256, 4, 4), 3, 3),        # coarse + fine-K refine
+    ((4096, 5, 64, 1, 1), 0, 0),         # one slot
+])
+def test_route_and_hist_ids_matches_sel_form_and_pallas(shape, shift, K):
+    """The id form (split and refined features as row ids of bins_t, the
+    grower's call) equals the gathered-row form and the Pallas kernel."""
+    N, F, B, S, n_real = shape
+    bins_t, node_id, r, gh = _route_case(13, N, F, B, S, n_real)
+    (jv, js), (tv, ts) = _vals(*gh)
+    feat_k = np.array([4, 0, 6][:K], np.int32)
+    sel_k = bins_t[feat_k] if K else None
+    jout = route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
+                                    sel_k)
+    common = (_t(r["t1"]), _t(r["rlo"]), _t(r["rhi"]), _t(r["dflt"]),
+              _t(r["l_id"]), _t(r["r_id"]), tv)
+    ids = th.route_and_hist_ids_limbs(
+        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["feat"]), *common, S, B,
+        shift, _t(feat_k) if K else None)
+    sel = th.route_and_hist_limbs(
+        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["sel"]), *common, S, B,
+        shift, None if sel_k is None else _t(sel_k))
+    assert len(ids) == len(sel) == 3 and (ids[2] is None) == (K == 0)
+    for a, b in zip(ids, sel):
+        if a is not None:
+            assert torch.equal(a, b)
+    tout = th._hists(*ids, ts)
+    assert len(tout) == len(jout)
+    for t_h, j_h in zip(tout, jout):
         np.testing.assert_array_equal(t_h.numpy(), j_h)
 
 
@@ -164,3 +197,107 @@ def test_plain_versions_count_no_launches():
                 exp[f, b, s] += v[i]
     np.testing.assert_array_equal(out.numpy(), exp)
     assert launches.BY_SHAPE == {}
+
+
+def test_build_hist_nodes_ids_equal_gathered_rows():
+    """K1 by feature ids reads the rows in place: the same sums as the
+    gathered rows (the grower's two-level root build)."""
+    rng = np.random.default_rng(8)
+    N, F, B, S = 3000, 9, 64, 3
+    bins_t = rng.integers(0, B, (F, N)).astype(np.int32)
+    slot = rng.integers(-1, S, N).astype(np.int32)
+    vals = torch.from_numpy(rng.integers(-64, 64, (N, 8)).astype(np.int8))
+    feat = np.array([7, 2, 2, 0], np.int32)
+    got = th.build_hist_nodes_limbs(_t(bins_t), _t(slot), vals, S, B,
+                                    feat=_t(feat))
+    want = th.build_hist_nodes_limbs(_t(bins_t[feat]), _t(slot), vals, S, B)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("two_level", ["off", "on"])
+def test_grower_passes_feature_ids_and_gathers_no_rows(monkeypatch,
+                                                       two_level):
+    """The grower hands K2 the split features' ids (and K1/K2 the refined
+    features' ids) and never gathers bin rows with index_select."""
+    from synapseml_tpu_torch.models.gbdt import trainer as tt
+
+    def no_gather(*a, **k):
+        raise AssertionError("the grower gathered bin rows")
+    monkeypatch.setattr(torch.Tensor, "index_select", no_gather)
+    monkeypatch.setattr(torch, "index_select", no_gather)
+    calls = []
+    real = tt.route_and_hist_ids
+
+    def spy(bins_t, node_id, leaf, feat, *a, feat_k=None, **k):
+        calls.append((tuple(feat.shape), feat.dtype,
+                      None if feat_k is None else tuple(feat_k.shape)))
+        return real(bins_t, node_id, leaf, feat, *a, feat_k=feat_k, **k)
+    monkeypatch.setattr(tt, "route_and_hist_ids", spy)
+    rng = np.random.default_rng(2)
+    N, F, B = 4096, 7, 256
+    bins = torch.from_numpy(rng.integers(0, B, (F, N)).astype(np.int32))
+    grad = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    hess = torch.from_numpy((np.abs(grad.numpy()) * 0.5 + 0.2)
+                            .astype(np.float32))
+    ub = torch.from_numpy(np.sort(rng.normal(size=(F, B - 1))
+                                  .astype(np.float32), axis=1))
+    p = tt.GrowthParams(num_leaves=15, min_data_in_leaf=5.0, total_bins=B,
+                        two_level=two_level, refine_k=3)
+    t, _ = tt.grow_tree_depthwise(
+        bins, grad, hess, torch.ones(N), torch.ones(F, dtype=torch.bool), ub,
+        torch.full((F,), B, dtype=torch.int32), 0.1, p, n_slots=8)
+    assert int(t.num_nodes) > 1 and len(calls) >= 2
+    K = 3 if two_level == "on" else None
+    assert calls[0] == ((1,), torch.int32, None)            # the root
+    assert all(c == ((8,), torch.int32, None if K is None else (K,))
+               for c in calls[1:])
+
+
+#: (nfeat, width, S) of chip_smoke.py's phase-2 shapes -> (features per
+#: block, tile, groups, dynamic shared bytes) of hist_rows_kernel
+PHASE2_GEOMETRY = {
+    (28, 64, 1): (28, 128, 1, 83968),      # K2 root, maxBin=63
+    (28, 64, 16): (5, 1024, 6, 225280),    # K2 wave, maxBin=63; K1 lossguide
+    (28, 32, 1): (28, 256, 1, 92672),      # K2 root, coarse, maxBin=255
+    (28, 32, 16): (10, 512, 3, 204800),    # K2 wave, coarse, maxBin=255
+    (8, 256, 16): (1, 2048, 8, 212992),    # K2 wave, K=8 refined rows
+    (8, 256, 1): (8, 512, 1, 110592),      # K1 two-level root, K=8
+}
+
+
+@pytest.mark.parametrize("dims", sorted(PHASE2_GEOMETRY))
+def test_rows_geometry_at_the_phase2_shapes(dims):
+    """The wrapper's geometry, mirrored from the kernel's shared-memory
+    layout: histograms of fpb features at 7 int32 lanes per cell, then a
+    ring of 3 entry stages and 2 stages of limbs and bins.  Every block
+    fits the H100's 227 KB and keeps ~15-64 KB of gathers in flight per
+    SM."""
+    from synapseml_tpu_torch.kernels import _build
+    nfeat, width, S = dims
+    fpb, tile, groups, smem = th.rows_geometry(*dims)
+    assert (fpb, tile, groups, smem) == PHASE2_GEOMETRY[dims]
+    assert groups == -(-nfeat // fpb) and (groups - 1) * fpb < nfeat
+    assert tile & (tile - 1) == 0 and th._TILE_MIN <= tile <= th._TILE_MAX
+    assert smem == (-(-fpb * width * S * 7 * 4 // 16) * 16
+                    + tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb))
+    assert smem <= _build.DEFINES["gbdt_hist"]["SML_MAX_SMEM"] <= 232448
+    flight = th._blocks_per_sm(smem) * tile * (8 + 4 * fpb)
+    assert 15 * 1024 <= flight <= 64 * 1024
+    src = (_build._PKG / _build.SOURCES["gbdt_hist"]).read_text()
+    assert "fpb * width * S * kLive * 4 + 15) / 16 * 16" in src
+    assert "tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb)" in src
+    assert f"kMaxFpb = {th._MAX_FPB};" in src
+
+
+def test_rows_geometry_limits():
+    """One feature's histogram must fit beside the smallest ring: at 16
+    slots up to 501 bins (the tile shrinks), not 502; no features, no
+    groups."""
+    assert th.rows_geometry(0, 64, 16) == (0, 0, 0, 0)
+    fpb, tile, groups, smem = th.rows_geometry(3, 501, 16)
+    assert (fpb, groups) == (1, 3) and tile == th._TILE_MIN
+    assert smem <= th._MAX_SMEM
+    with pytest.raises(ValueError):
+        th.rows_geometry(1, 502, 16)
+    with pytest.raises(ValueError):
+        th._check_smem(64, th._MAX_SLOTS + 1)
