@@ -676,18 +676,6 @@ int sml_route_and_hist(const int32_t* bins, int F, long long N,
   return launch_rows(s0, s1, N, S, l, count, vals, st);
 }
 
-// Resident blocks of hist_rows_kernel per SM at `smem` bytes of dynamic
-// shared memory, or minus the CUDA error.
-int sml_hist_rows_blocks_per_sm(int smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      hist_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int n = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, hist_rows_kernel,
-                                                      kThreads, smem);
-  return e == cudaSuccess ? n : -(int)e;
-}
-
 // The previous kernel, K1: as sml_hist_nodes with bins (F, N), no list.
 int sml_hist_nodes_previous(const int32_t* bins, int F, long long N,
                             const int32_t* slot, const int8_t* vals, int S,

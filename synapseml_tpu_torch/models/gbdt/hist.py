@@ -227,7 +227,7 @@ def _ring_bytes(fpb: int, tile: int) -> int:
     return tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb)
 
 
-def _blocks_per_sm(smem: int) -> int:
+def rows_blocks_per_sm(smem: int) -> int:
     """Blocks an H100 SM holds at ``smem`` dynamic shared bytes each (228
     KB a SM, 1 KB reserved a block), at most the 2 the kernel's launch
     bounds promise registers for."""
@@ -275,8 +275,8 @@ def rows_geometry(nfeat: int, width: int, n_slots: int):
             raise ValueError(f"one feature's histogram ({width} bins x "
                              f"{n_slots} slots) exceeds a block's shared "
                              "memory")
-    if (tile > _TILE_MIN and _blocks_per_sm(smem(fpb, tile)) < 2
-            and _blocks_per_sm(smem(fpb, tile // 2)) == 2):
+    if (tile > _TILE_MIN and rows_blocks_per_sm(smem(fpb, tile)) < 2
+            and rows_blocks_per_sm(smem(fpb, tile // 2)) == 2):
         tile //= 2
     return fpb, tile, groups, smem(fpb, tile)
 
@@ -304,24 +304,13 @@ def _kernels() -> ctypes.CDLL:
                                             _P, _P]
     lib.sml_route_and_hist_previous.argtypes = [
         _P, _I, _LL, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
-    lib.sml_hist_rows_blocks_per_sm.argtypes = [_I]
     for fn in (lib.sml_route_rows, lib.sml_hist_nodes,
-               lib.sml_hist_rows_blocks_per_sm,
                lib.sml_route_and_hist, lib.sml_hist_nodes_previous,
                lib.sml_route_and_hist_previous):
         fn.restype = _I
     lib.sml_cuda_error_string.argtypes = [_I]
     lib.sml_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def rows_blocks_per_sm(smem: int) -> int:
-    """Blocks of ``hist_rows_kernel`` one SM of the current card holds at
-    ``smem`` bytes of dynamic shared memory (the occupancy query)."""
-    n = _kernels().sml_hist_rows_blocks_per_sm(smem)
-    if n < 0:
-        _raise_on(-n, "the occupancy query")
-    return n
 
 
 def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

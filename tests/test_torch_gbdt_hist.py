@@ -93,57 +93,33 @@ def _route_case(seed, N, F, B, S, n_real):
     ((2048, 9, 64, 16, 4), 0, 0),        # plain mode (maxBin=63 path)
     ((8192, 7, 256, 4, 4), 2, 0),        # coarse only
     ((8192, 7, 256, 4, 4), 3, 3),        # coarse + fine-K refine
+    ((4096, 5, 64, 1, 1), 0, 0),         # one slot
 ])
 def test_route_and_hist_matches_pallas(shape, shift, K):
+    """The gathered-row form (the JAX signature) and the id form (split
+    and refined features as row ids of bins_t, the grower's call) both
+    equal the Pallas kernel."""
     N, F, B, S, n_real = shape
     bins_t, node_id, r, gh = _route_case(11, N, F, B, S, n_real)
     (jv, js), (tv, ts) = _vals(*gh)
-    sel_k = bins_t[[0, 3, 5][:K]] if K else None
-    jout = route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
-                                    sel_k)
-    tout = th.route_and_hist(
-        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["sel"]), _t(r["t1"]),
-        _t(r["rlo"]), _t(r["rhi"]), _t(r["dflt"]), _t(r["l_id"]),
-        _t(r["r_id"]), tv, ts, S, B, hist_shift=shift,
-        sel_k=None if sel_k is None else _t(sel_k))
-    assert len(tout) == len(jout)
-    np.testing.assert_array_equal(tout[0].numpy(), jout[0])     # new ids
-    for t_h, j_h in zip(tout[1:], jout[1:]):
-        assert tuple(t_h.shape) == j_h.shape
-        np.testing.assert_array_equal(t_h.numpy(), j_h)
-
-
-@pytest.mark.parametrize("shape,shift,K", [
-    ((2048, 9, 64, 16, 4), 0, 0),        # plain mode (maxBin=63 path)
-    ((8192, 7, 256, 4, 4), 3, 3),        # coarse + fine-K refine
-    ((4096, 5, 64, 1, 1), 0, 0),         # one slot
-])
-def test_route_and_hist_ids_matches_sel_form_and_pallas(shape, shift, K):
-    """The id form (split and refined features as row ids of bins_t, the
-    grower's call) equals the gathered-row form and the Pallas kernel."""
-    N, F, B, S, n_real = shape
-    bins_t, node_id, r, gh = _route_case(13, N, F, B, S, n_real)
-    (jv, js), (tv, ts) = _vals(*gh)
-    feat_k = np.array([4, 0, 6][:K], np.int32)
+    feat_k = np.array([0, 3, 5][:K], np.int32)
     sel_k = bins_t[feat_k] if K else None
     jout = route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
                                     sel_k)
     common = (_t(r["t1"]), _t(r["rlo"]), _t(r["rhi"]), _t(r["dflt"]),
-              _t(r["l_id"]), _t(r["r_id"]), tv)
-    ids = th.route_and_hist_ids_limbs(
-        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["feat"]), *common, S, B,
-        shift, _t(feat_k) if K else None)
-    sel = th.route_and_hist_limbs(
-        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["sel"]), *common, S, B,
-        shift, None if sel_k is None else _t(sel_k))
-    assert len(ids) == len(sel) == 3 and (ids[2] is None) == (K == 0)
-    for a, b in zip(ids, sel):
-        if a is not None:
-            assert torch.equal(a, b)
-    tout = th._hists(*ids, ts)
-    assert len(tout) == len(jout)
-    for t_h, j_h in zip(tout, jout):
+              _t(r["l_id"]), _t(r["r_id"]), tv, ts, S, B)
+    tout = th.route_and_hist(
+        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["sel"]), *common,
+        hist_shift=shift, sel_k=None if sel_k is None else _t(sel_k))
+    iout = th.route_and_hist_ids(
+        _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["feat"]), *common,
+        hist_shift=shift, feat_k=_t(feat_k) if K else None)
+    assert len(tout) == len(iout) == len(jout)
+    np.testing.assert_array_equal(tout[0].numpy(), jout[0])     # new ids
+    for t_h, i_h, j_h in zip(tout, iout, jout):
+        assert tuple(t_h.shape) == j_h.shape
         np.testing.assert_array_equal(t_h.numpy(), j_h)
+        np.testing.assert_array_equal(i_h.numpy(), j_h)
 
 
 def route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
@@ -175,6 +151,12 @@ def test_build_hist_nodes_matches_pallas(shift):
                             hist_shift=shift)
     assert tuple(t.shape) == j.shape
     np.testing.assert_array_equal(t.numpy(), j)
+    # by feature ids: rows read in place from a matrix that holds them in
+    # another order (the grower's two-level root build)
+    feat = np.arange(F, dtype=np.int32)[::-1].copy()
+    t_ids = th.build_hist_nodes(_t(bins_t[feat]), _t(slot), tv, ts, S, B,
+                                hist_shift=shift, feat=_t(feat))
+    np.testing.assert_array_equal(t_ids.numpy(), j)
 
 
 def test_plain_versions_count_no_launches():
@@ -197,21 +179,6 @@ def test_plain_versions_count_no_launches():
                 exp[f, b, s] += v[i]
     np.testing.assert_array_equal(out.numpy(), exp)
     assert launches.BY_SHAPE == {}
-
-
-def test_build_hist_nodes_ids_equal_gathered_rows():
-    """K1 by feature ids reads the rows in place: the same sums as the
-    gathered rows (the grower's two-level root build)."""
-    rng = np.random.default_rng(8)
-    N, F, B, S = 3000, 9, 64, 3
-    bins_t = rng.integers(0, B, (F, N)).astype(np.int32)
-    slot = rng.integers(-1, S, N).astype(np.int32)
-    vals = torch.from_numpy(rng.integers(-64, 64, (N, 8)).astype(np.int8))
-    feat = np.array([7, 2, 2, 0], np.int32)
-    got = th.build_hist_nodes_limbs(_t(bins_t), _t(slot), vals, S, B,
-                                    feat=_t(feat))
-    want = th.build_hist_nodes_limbs(_t(bins_t[feat]), _t(slot), vals, S, B)
-    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("two_level", ["off", "on"])
@@ -281,7 +248,7 @@ def test_rows_geometry_at_the_phase2_shapes(dims):
     assert smem == (-(-fpb * width * S * 7 * 4 // 16) * 16
                     + tile * (3 * 8 + 2 * 8 + 2 * 4 * fpb))
     assert smem <= _build.DEFINES["gbdt_hist"]["SML_MAX_SMEM"] <= 232448
-    flight = th._blocks_per_sm(smem) * tile * (8 + 4 * fpb)
+    flight = th.rows_blocks_per_sm(smem) * tile * (8 + 4 * fpb)
     assert 15 * 1024 <= flight <= 64 * 1024
     src = (_build._PKG / _build.SOURCES["gbdt_hist"]).read_text()
     assert "fpb * width * S * kLive * 4 + 15) / 16 * 16" in src
