@@ -243,6 +243,7 @@ def _tile_cap(fpb: int) -> int:
     return tile
 
 
+@functools.lru_cache(maxsize=None)
 def rows_geometry(nfeat: int, width: int, n_slots: int):
     """→ (features per block, tile, feature groups, dynamic shared bytes)
     of one feature set in ``hist_rows_kernel``.
