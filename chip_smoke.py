@@ -43,25 +43,34 @@
 7. The decode engine on the card against the engine on the CPU, f32, at
    Llama-3.2-1B width and 2 layers (max_len 512, 4 slots, ragged
    repeated-phrase prompts admitted as slots free), once plain and once
-   with ``spec_draft_len=4``: greedy tokens must be equal on both, equal
-   to the port's dense ``generate`` on the card, and K3 must have
-   launched on the card.
+   with ``spec_draft_len=4``, each on the card both eagerly and with
+   ``warmup="sync"`` (every step a CUDA graph replay): greedy tokens must
+   be equal on all three, equal to the port's dense ``generate`` on the
+   card, and K3 must have launched on the card (the graph engine: at S=1
+   in the plain run and at S>1 in the speculative run, counted through
+   the replays, with one replay per step and no stall).
 8. The main LLM path at full width and depth: ``LlamaConfig.llama3_1b(
    max_len=2048)`` in bf16 (16 layers, vocab 128,256, tied head), random
    weights from ``--seed``, ``SlotEngine(n_slots=16)`` over 24 requests
    of 64-1536 prompt tokens and 64 new tokens each, admitted as slots
-   free, once with ``spec_draft_len=0`` and once with 7.  K3's launch
+   free, with ``spec_draft_len=0`` and with 7, each run eagerly and with
+   ``warmup="sync"`` in turns (eager, graph, graph, eager).  K3's launch
    counts are reset just before and read just after each run: the S=1
-   shape must have launched in the first, an S>1 shape in the second.
-   Reports decode tokens/s, mean step ms, admit (TTFT) p50, decode K/V
-   bytes per token (the reference's tile ledger and the exact live spans
-   the kernel reads), and the tokens' agreement with a dense-backend
-   engine (reported, not asserted: random bf16 weights give near-tied
-   argmaxes).
-9. Profiles a window of full-width decode steps with ``torch.profiler``:
-   the device's busy share, K3's device time, its top kernels, the
-   kernels launched per step and the operators that take the most host
-   time.
+   shape must have launched in each plain run, an S>1 shape in each
+   speculative run; a graph run must replay once per step and stall
+   never.  Reports per run decode tokens/s, mean step ms, admit (TTFT)
+   p50/p90, decode K/V bytes per token (the reference's tile ledger and
+   the exact live spans the kernel reads), and for a graph run the
+   plane's warm-up seconds, the graph pool's bytes, replays and stalls;
+   then the graph runs' token agreement with the eager runs and the
+   eager runs' agreement with a dense-backend engine (reported, not
+   asserted: random bf16 weights give near-tied argmaxes).
+9. Profiles a window of full-width plain decode steps with
+   ``torch.profiler``, eagerly and with graphs: the step's wall, the
+   device's busy share, K3's device time, the top kernels, the kernels
+   and ``cudaGraphLaunch`` calls per step, the host time inside PyTorch's
+   operators and CUDA runtime calls per step, and the operators that
+   take the most host time.
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -540,37 +549,53 @@ def llm_card_vs_cpu(dev, seed: int) -> dict:
              for p, n in zip(prompts, new)]
     res = {}
     for spec in (0, 4):
-        outs = {}
-        for d, m in (("cpu", cpu), ("card", card)):
+        outs, shapes = {}, {}
+        for d, m, warmup in (("cpu", cpu, "off"), ("card", card, "off"),
+                             ("graph", card, "sync")):
             eng = SlotEngine(m, n_slots=4, max_len=cfg.max_len,
-                             spec_draft_len=spec, device=m.device)
+                             spec_draft_len=spec, warmup=warmup,
+                             device=m.device)
             L.reset()
             outs[d] = drive(eng, prompts, new)["outs"]
-            if d == "card":
-                shapes = L.shapes("paged_decode_attention")
-                verify = [k for k in shapes if ",S=1," not in k]
-                if not shapes or (spec and not verify):
-                    raise AssertionError(f"spec={spec}: K3 did not launch "
-                                         f"on the card: {shapes}")
+            if d == "cpu":
+                continue
+            shapes[d] = L.shapes("paged_decode_attention")
+            verify = [k for k in shapes[d] if ",S=1," not in k]
+            if not shapes[d] or (spec and not verify) or (
+                    not spec and len(verify) == len(shapes[d])):
+                raise AssertionError(f"spec={spec}: K3 did not launch on "
+                                     f"the {d}: {shapes[d]}")
+            if warmup == "sync":
+                plane = eng.compile_plane
+                if plane.stalls or plane.replays != eng.steps_run:
+                    raise AssertionError(
+                        f"spec={spec}: {plane.replays} replays and "
+                        f"{plane.stalls} stalls in {eng.steps_run} steps")
         for i in range(len(prompts)):
             if not (np.array_equal(outs["cpu"][i], outs["card"][i])
+                    and np.array_equal(outs["graph"][i], outs["card"][i])
                     and np.array_equal(outs["card"][i], dense[i])):
                 raise AssertionError(
                     f"spec={spec} request {i}: card {outs['card'][i]}, "
-                    f"CPU {outs['cpu'][i]}, dense generate {dense[i]}")
+                    f"graph {outs['graph'][i]}, CPU {outs['cpu'][i]}, "
+                    f"dense generate {dense[i]}")
         res[spec] = dict(
             launches=shapes, steps=eng.steps_run, spec_steps=eng.spec_steps,
+            replays=eng.compile_plane.replays,
             tokens=int(sum(len(o) for o in outs["card"].values())))
     return res
 
 
-def llm_main_path(model, prompts, new, spec: int, backend: str = "auto"):
+def llm_main_path(model, prompts, new, spec: int, backend: str = "auto",
+                  warmup: str = "off"):
     """One full-width engine run; K3's counts are reset just before and
-    read just after it."""
+    read just after it.  A graph run (``warmup="sync"``) must replay once
+    per step and never stall."""
     from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.llm import SlotEngine
     eng = SlotEngine(model, n_slots=16, spec_draft_len=spec,
-                     attention_backend=backend, device=model.device)
+                     attention_backend=backend, warmup=warmup,
+                     device=model.device)
     L.reset()
     r = drive(eng, prompts, new)
     shapes = L.shapes("paged_decode_attention")
@@ -580,8 +605,18 @@ def llm_main_path(model, prompts, new, spec: int, backend: str = "auto"):
         if o is None or len(o) != n or o.min() < 0 or o.max() >= vocab:
             raise AssertionError(f"spec={spec}: request {i} gave {o}")
     steps = np.asarray(r["step_s"])
+    plane = {}
+    if eng.compile_plane is not None:
+        plane = eng.compile_plane.snapshot()
+        if plane["stalls"] or plane["replays"] != eng.steps_run:
+            raise AssertionError(f"spec={spec}: {plane['replays']} replays "
+                                 f"and {plane['stalls']} stalls in "
+                                 f"{eng.steps_run} steps")
     return dict(
-        backend=eng.attention_backend, spec=spec, requests=len(prompts),
+        backend=eng.attention_backend, spec=spec, warmup=warmup,
+        warmup_s=plane.get("warmup_seconds"),
+        pool_bytes=plane.get("pool_bytes"), replays=plane.get("replays"),
+        stalls=plane.get("stalls"), requests=len(prompts),
         steps=eng.steps_run, spec_steps=eng.spec_steps,
         acceptance=eng.spec_acceptance_rate,
         decode_tokens=r["step_tokens"],
@@ -599,13 +634,16 @@ def llm_main_path(model, prompts, new, spec: int, backend: str = "auto"):
         launches=shapes), r["outs"]
 
 
-def profile_decode(model, prompts, new, steps: int = 12) -> dict:
+def profile_decode(model, prompts, new, warmup: str = "off",
+                   steps: int = 12) -> dict:
     """Device time by kernel over a window of full-width decode steps
-    (16 slots busy, after 3 warm steps), from ``torch.profiler``."""
+    (16 slots busy, after 3 warm steps), from ``torch.profiler``, and the
+    host time inside PyTorch's operators and the CUDA runtime's calls
+    (self time; the rest of the wall is Python and the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     from synapseml_tpu_torch.models.llm import SlotEngine
-    eng = SlotEngine(model, n_slots=16, device=model.device)
+    eng = SlotEngine(model, n_slots=16, warmup=warmup, device=model.device)
     for p, n in list(zip(prompts, new))[:16]:
         eng.admit(p, n)
     for _ in range(3):
@@ -631,9 +669,18 @@ def profile_decode(model, prompts, new, steps: int = 12) -> dict:
     # K3's kernels (split and combine at bf16)
     k3_ms = sum(e.self_device_time_total for e in kern
                 if "paged_" in e.key) / 1e3
-    return dict(steps=steps, wall_s=wall, step_ms=wall / steps * 1e3,
-                kernel_s=total, busy_share=total / wall, k3_ms=k3_ms,
+    runtime = [e for e in host if e.key.startswith("cuda")]
+    return dict(warmup=warmup, steps=steps, wall_s=wall,
+                step_ms=wall / steps * 1e3, kernel_s=total,
+                busy_share=total / wall, k3_ms=k3_ms,
                 launches_per_step=sum(e.count for e in kern) / steps,
+                graph_launches_per_step=sum(
+                    e.count for e in host if e.key == "cudaGraphLaunch")
+                / steps,
+                op_host_ms_per_step=sum(e.self_cpu_time_total for e in host)
+                / 1e3 / steps,
+                runtime_host_ms_per_step=sum(
+                    e.self_cpu_time_total for e in runtime) / 1e3 / steps,
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
                      for e in kern[:10]],
                 top_host=[[e.key[:40], e.self_cpu_time_total / 1e3, e.count]
@@ -787,30 +834,53 @@ def main(argv=None) -> int:
     lengths = prng.integers(64, 1537, LLM_REQUESTS)
     prompts = phrase_prompts(prng, lengths, cfg.vocab_size, 8)
     new = [64] * LLM_REQUESTS
-    llm_runs, outs = {}, {}
+    # each speculative setting eagerly and with graphs, in turns: eager,
+    # graph, graph, eager; runs[spec][warmup] lists that mode's runs
+    runs = {0: {"off": [], "sync": []}, 7: {"off": [], "sync": []}}
+    outs = {0: {}, 7: {}}
     for spec in (0, 7):
-        llm_runs[spec], outs[spec] = llm_main_path(model, prompts, new, spec)
-        log(f"LLM llama3_1b bf16, 16 slots, spec_draft_len={spec}: "
-            f"{json.dumps(llm_runs[spec])}")
-    if not any(k.endswith(",S=1,H=32,KV=8,D=64,T=2048,dtype=bf16,"
-                          "variant=split]")
-               for k in llm_runs[0]["launches"]):
-        raise AssertionError("the plain run never launched K3 at S=1")
-    if not any(",S=1," not in k for k in llm_runs[7]["launches"]):
-        raise AssertionError("the speculative run never launched K3 at "
-                             "S>1")
+        for warmup in ("off", "sync", "sync", "off"):
+            r, o = llm_main_path(model, prompts, new, spec, warmup=warmup)
+            log(f"LLM llama3_1b bf16, 16 slots, spec_draft_len={spec}, "
+                f"warmup={warmup}: {json.dumps(r)}")
+            runs[spec][warmup].append(r)
+            outs[spec].setdefault(warmup, o)
+            if spec == 0 and not any(
+                    k.endswith(",S=1,H=32,KV=8,D=64,T=2048,dtype=bf16,"
+                               "variant=split]") for k in r["launches"]):
+                raise AssertionError(f"the plain run (warmup={warmup}) "
+                                     "never launched K3 at S=1")
+            if spec and not any(",S=1," not in k for k in r["launches"]):
+                raise AssertionError(f"the speculative run (warmup="
+                                     f"{warmup}) never launched K3 at S>1")
+        eager, graph = runs[spec]["off"], runs[spec]["sync"]
+        agree = float(np.mean([np.mean(outs[spec]["sync"][i]
+                                       == outs[spec]["off"][i])
+                               for i in range(len(prompts))]))
+        log(f"graph vs eager, spec_draft_len={spec}: decode tokens/s "
+            f"{[r['decode_tokens_per_s'] for r in graph]} against "
+            f"{[r['decode_tokens_per_s'] for r in eager]}, mean step ms "
+            f"{[r['mean_step_ms'] for r in graph]} against "
+            f"{[r['mean_step_ms'] for r in eager]}, TTFT p50 ms "
+            f"{[r['ttft_p50_ms'] for r in graph]} against "
+            f"{[r['ttft_p50_ms'] for r in eager]}; token agreement "
+            f"{agree:.4f}")
+    # the main path is the graph engine: its first runs give the kernels
+    # line's launches
+    llm_runs = {spec: runs[spec]["sync"][0] for spec in (0, 7)}
     dense, dense_outs = llm_main_path(model, prompts, new, 0, "dense")
     log(f"LLM llama3_1b bf16, dense backend: {json.dumps(dense)}")
     for spec in (0, 7):
-        agree = float(np.mean([np.mean(outs[spec][i] == dense_outs[i])
+        agree = float(np.mean([np.mean(outs[spec]["off"][i] == dense_outs[i])
                                for i in range(len(prompts))]))
         log(f"token agreement, paged spec_draft_len={spec} vs dense: "
             f"{agree:.4f} (reported; random bf16 weights give near-tied "
             "argmaxes)")
 
     # -- 9. where the decode time goes ------------------------------------
-    log(f"profile LLM decode: "
-        f"{json.dumps(profile_decode(model, prompts, new))}")
+    for warmup in ("off", "sync"):
+        log(f"profile LLM decode, warmup={warmup}: "
+            f"{json.dumps(profile_decode(model, prompts, new, warmup))}")
 
     # -- results -----------------------------------------------------------
     # each shape's launches in the one fit that runs it

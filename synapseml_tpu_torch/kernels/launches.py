@@ -5,14 +5,21 @@ and nowhere else: the plain versions never count.  Launches are kept by
 shape under :func:`launch_key`; :func:`total` sums one kernel's shapes.
 A caller that wants the launches of one run calls :func:`reset` just
 before it and reads :data:`BY_SHAPE` just after.
+
+A kernel recorded into a CUDA graph launches when the graph replays, not
+when the wrapper runs: inside :func:`recording` the wrapper's counts go
+to the recording instead, and each replay adds them with :func:`add`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator, Optional
 
 #: launches since the last :func:`reset`, keyed by :func:`launch_key`
 BY_SHAPE: Dict[str, int] = {}
+#: where :func:`count` goes while a CUDA graph captures (None: BY_SHAPE)
+_RECORDING: Optional[Dict[str, int]] = None
 
 
 def launch_key(kernel: str, **dims) -> str:
@@ -23,7 +30,27 @@ def launch_key(kernel: str, **dims) -> str:
 
 def count(kernel: str, **dims) -> None:
     key = launch_key(kernel, **dims)
-    BY_SHAPE[key] = BY_SHAPE.get(key, 0) + 1
+    into = BY_SHAPE if _RECORDING is None else _RECORDING
+    into[key] = into.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Counts made inside go into the yielded dict and not into
+    :data:`BY_SHAPE`: wrap a CUDA graph's capture in it, and :func:`add`
+    the dict at each replay."""
+    global _RECORDING
+    _RECORDING = {}
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = None
+
+
+def add(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a recorded graph."""
+    for key, n in counts.items():
+        BY_SHAPE[key] = BY_SHAPE.get(key, 0) + n
 
 
 def reset() -> None:

@@ -24,6 +24,7 @@ import torch
 
 from ...device import DeviceLike, resolve_device, synchronize
 from .binning import BinMapper, bin_features, fit_bin_mapper
+from .hist import rows_geometry
 from .objectives import get_objective, initial_score
 from .trainer import (TWO_LEVEL_MIN_ROWS, GrowthParams, Tree,
                       default_n_slots, grow_tree_depthwise,
@@ -146,6 +147,23 @@ def _check_ported(config: BoostingConfig) -> None:
         raise ValueError(f"two_level_hist={config.two_level_hist!r}: must "
                          "be 'auto', 'on', or 'off'")
     _fused_ingest_on(config)
+
+
+def _check_ported_on(config: BoostingConfig, device: torch.device) -> None:
+    """Raise ``NotImplementedError`` before any work for a config the
+    card cannot train: on a CUDA device, one feature's histogram at
+    ``max_bin + 1`` bins and the wave's slots must fit a block's shared
+    memory (``hist.rows_geometry``).  The CPU trains any width."""
+    if device.type != "cuda":
+        return
+    try:
+        rows_geometry(1, config.max_bin + 1,
+                      default_n_slots(config.num_leaves))
+    except ValueError as e:
+        raise NotImplementedError(
+            f"maxBin={config.max_bin} with numLeaves={config.num_leaves} "
+            "is not ported yet (ROADMAP queue A, GBDT breadth: maxBin on "
+            f"the card): {e}") from e
 
 
 class Booster:
@@ -373,6 +391,7 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
             "warm starts and checkpoints are not ported yet (ROADMAP queue "
             "A, GBDT breadth: checkpoints)")
     _check_ported(config)
+    _check_ported_on(config, dev)
     measures = InstrumentationMeasures()
     t0 = time.perf_counter()
 

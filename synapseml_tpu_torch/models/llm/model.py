@@ -124,6 +124,9 @@ def rope_frequencies(d_head: int, theta: float) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _inv_freq(d_head: int, theta: float, device: torch.device):
+    """The device copy of :func:`rope_frequencies`, made once per
+    ``(d_head, theta, device)``: a host-to-device copy from pageable
+    memory is illegal while a CUDA graph captures the forward."""
     return torch.from_numpy(rope_frequencies(d_head, theta)).to(device)
 
 
@@ -206,12 +209,8 @@ class CausalAttention(nn.Module):
                     v_w = torch.where(m, v, v_all[bidx, wpos])
                 k_all.index_put_((bidx, wpos), k_w)
                 v_all.index_put_((bidx, wpos), v_w)
-            key_pos = torch.arange(T, device=x.device)[None, :]
-            causal = key_pos[:, None, :] <= positions[:, :, None]  # (B,S,T)
         else:
             k_all, v_all = k, v
-            causal = torch.tril(torch.ones(S, S, dtype=torch.bool,
-                                           device=x.device))[None]
 
         if attention_backend in ("paged", "interpret") and vector:
             # the paged decode read (K3): each slot attends only its live
@@ -221,6 +220,12 @@ class CausalAttention(nn.Module):
             out = paged_decode_attention(q, k_all, v_all, spans)
             out = out.reshape(B, S, H * D)
         else:
+            if cache is not None:
+                key_pos = torch.arange(k_all.shape[1], device=x.device)
+                causal = key_pos[None, None, :] <= positions[:, :, None]
+            else:
+                causal = torch.tril(torch.ones(S, S, dtype=torch.bool,
+                                               device=x.device))[None]
             group = H // KV
             qg = q.reshape(B, S, KV, group, D)
             logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),

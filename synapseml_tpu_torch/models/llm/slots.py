@@ -41,16 +41,19 @@ verify positions only ever land at positions strictly beyond a slot's
 current length; decode writes position ``q`` BEFORE attending ``<= q``,
 so every attendable key was written by the slot's current occupant.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A1):
-the host KV arena (``kv_arena``), ahead-of-time warm-up (``warmup``; CUDA
-graph capture here), the step profiler and the metrics registry; the
-counters are plain attributes.  There is no tuning table: the prefill
-bucket floor is 8 and the paged geometry the gate's default, the
-reference's no-table choices.
+Warm-up (``warmup="sync"``) is the compile plane of :mod:`.warmup`: it
+builds the kernels, captures the decode step and every verify width as
+CUDA graphs over the live cache, and the steps replay them.  Not ported
+yet (each raises ``NotImplementedError`` naming ROADMAP A1): background
+warm-up, the host KV arena (``kv_arena``), the step profiler and the
+metrics registry; the counters are plain attributes.  There is no tuning
+table: the prefill bucket floor is 8 and the paged geometry the gate's
+default, the reference's no-table choices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -75,6 +78,41 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _prefill_program_key(pb: int) -> str:
+    """Stable label of one prefill-bucket program — with
+    :data:`PREFIX_COPY_KEY`, the naming contract between the engine's
+    program regions and the warm-up lattice (:mod:`.warmup` imports
+    them)."""
+    return f"prefill_b{pb}"
+
+
+#: label of the prefix-copy program
+PREFIX_COPY_KEY = "prefix_copy"
+
+
+def step_program(model: LlamaModel, cache, inputs: torch.Tensor,
+                 backend: str) -> torch.Tensor:
+    """One decode (``S == 1``) or verify (``S > 1``) forward of every slot
+    from the packed int32 step input ``(n_slots, S + 2)``: each row's S
+    tokens, then its write offset ``li`` (the position of its first fed
+    token), then its active flag.  Positions are ``li .. li + S - 1``;
+    the cache is written in place and inactive rows stay bitwise
+    unchanged (``slot_mask``).  → the logits ``(n_slots, V)`` f32 of a
+    decode step, or a verify step's greedy continuation ``(n_slots, S)``
+    int32.  The eager step and the CUDA graphs of :mod:`.warmup` run this
+    same function."""
+    S = inputs.shape[1] - 2
+    li = inputs[:, S]
+    positions = li[:, None] + torch.arange(S, dtype=torch.int32,
+                                           device=inputs.device)[None]
+    logits, _ = model(inputs[:, :S], positions=positions, cache=cache,
+                      cache_index=li, slot_mask=inputs[:, S + 1],
+                      attention_backend=backend)
+    if S == 1:
+        return logits[:, 0]
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -117,7 +155,7 @@ class SlotEngine:
                  top_p: float = 1.0, eos_id: Optional[int] = None,
                  pad_id: int = 0, min_prefix: int = 8, seed: int = 0,
                  attention_backend: str = "auto", step_profiler=None,
-                 spec_draft_len: int = 0, warmup: str = "off",
+                 spec_draft_len: int = 0, warmup: Any = "off",
                  kv_arena=None, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -127,11 +165,21 @@ class SlotEngine:
             raise NotImplementedError(
                 "kv_arena (the host KV tier) is not ported yet "
                 "(ROADMAP A1: kvtier arena and journal)")
-        if warmup != "off":
+        # the compile plane: 'sync' warms the whole program lattice
+        # before the constructor returns (a failure raises here); 'off'
+        # runs every step eagerly
+        if warmup in (None, False):
+            warmup = "off"
+        elif warmup is True:
+            warmup = "sync"
+        if warmup not in ("off", "sync", "background"):
+            raise ValueError(f"warmup={warmup!r}: must be 'off', 'sync', "
+                             "or 'background'")
+        if warmup == "background":
             raise NotImplementedError(
-                f"warmup={warmup!r}: ahead-of-time warm-up (CUDA graph "
-                "capture per bucket) is not ported yet (ROADMAP A1: "
-                "CUDA-graph warmup)")
+                "warmup='background' (warming on a thread behind the "
+                "/readyz gate) is not ported yet (ROADMAP A1.1: LLMServer, "
+                "background warm-up and /readyz)")
         if step_profiler is not None:
             raise NotImplementedError(
                 "step_profiler is not ported yet (ROADMAP A1: LLMServer + "
@@ -226,6 +274,10 @@ class SlotEngine:
         self.spec_accepted = 0
         self.spec_draft_hits = 0
         self.spec_draft_misses = 0
+        self.compile_plane = None
+        if warmup == "sync":
+            from .warmup import CompilePlane
+            self.compile_plane = CompilePlane(self).start(background=False)
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -241,76 +293,99 @@ class SlotEngine:
         """Accepted / drafted tokens, cumulative."""
         return self.spec_accepted / max(1, self.spec_drafted)
 
+    # -- compile plane -----------------------------------------------------
+    def _program_region(self, key: str):
+        """Wrap one eager serving program (a prefill bucket, the prefix
+        copy): a program the plane never warmed counts as a stall.  A
+        plane-less engine pays nothing."""
+        plane = self.compile_plane
+        return (contextlib.nullcontext() if plane is None
+                else plane.step_region(key))
+
+    def admission_ready(self, prompt_len: int) -> bool:
+        """Would admitting a ``prompt_len``-token prompt run a program the
+        plane has not warmed?  Always True without a plane and once the
+        plane is warm."""
+        plane = self.compile_plane
+        return plane is None or plane.admission_ready(prompt_len)
+
     # -- the cache programs (the reference's jitted bodies) ---------------
     @torch.no_grad()
     def _prefill_slot(self, padded: np.ndarray, plen: int, slot: int,
-                      start: int) -> torch.Tensor:
+                      start: int, cache=None) -> torch.Tensor:
         """Prefill ``plen`` real tokens (``padded`` to a bucket length)
-        into row ``slot`` from position ``start``, in place → the logits
-        (V,) f32 of the prompt's true last token."""
+        into row ``slot`` of ``cache`` (default: the engine's) from
+        position ``start``, in place → the logits (V,) f32 of the prompt's
+        true last token."""
+        cache = self.cache if cache is None else cache
         pb = len(padded)
         dev = self.device
         tokens = torch.as_tensor(padded[None], device=dev)
         positions = (start + torch.arange(pb, dtype=torch.int32,
                                           device=dev))[None]
         row = [{"k": c["k"][slot:slot + 1], "v": c["v"][slot:slot + 1]}
-               for c in self.cache]
+               for c in cache]
         logits, _ = self.model(tokens, positions=positions, cache=row,
                                cache_index=start)
         return logits[0, plen - 1]
 
     @torch.no_grad()
-    def _copy_prefix(self, src: int, dst: int, length: int) -> None:
+    def _copy_prefix(self, src: int, dst: int, length: int,
+                     cache=None) -> None:
         """Copy K/V positions ``[0, length)`` of slot ``src`` into slot
-        ``dst`` (the longest-common-prefix reuse transfer)."""
-        for c in self.cache:
+        ``dst`` of ``cache`` (default: the engine's) — the
+        longest-common-prefix reuse transfer."""
+        for c in (self.cache if cache is None else cache):
             c["k"][dst, :length] = c["k"][src, :length]
             c["v"][dst, :length] = c["v"][src, :length]
 
-    def _step_inputs(self, tokens: np.ndarray, lengths: np.ndarray):
-        """Device tensors of one decode/verify step: tokens (n, S),
-        positions ``lengths-1 .. lengths-1+S-1`` (int32), the write
-        offsets and the active mask.  Raises before any launch if an
-        active slot's writes would pass the cache's end (a CUDA scatter
+    def _pack_step(self, tokens: np.ndarray,
+                   lengths: np.ndarray) -> np.ndarray:
+        """The host side of one decode/verify step's input (the layout of
+        :func:`step_program`): tokens ``(n, S)``, write offsets
+        ``lengths - 1`` and the active mask.  Raises before any launch if
+        an active slot's writes would pass the cache's end (a CUDA scatter
         out of bounds would fault the device)."""
-        S = tokens.shape[1]
+        n, S = tokens.shape
         if (lengths[self.active] - 1 + S > self.max_len).any():
             raise RuntimeError(f"a verify of width {S} would write past "
                                f"max_len={self.max_len}")
-        dev = self.device
-        li = torch.as_tensor((lengths - 1).astype(np.int32), device=dev)
-        positions = li[:, None] + torch.arange(S, dtype=torch.int32,
-                                               device=dev)[None]
-        return (torch.as_tensor(tokens, device=dev), positions, li,
-                torch.as_tensor(self.active, device=dev))
+        packed = np.empty((n, S + 2), np.int32)
+        packed[:, :S] = tokens
+        packed[:, S] = lengths - 1
+        packed[:, S + 1] = self.active
+        return packed
 
     @torch.no_grad()
+    def _run_step(self, tokens: np.ndarray,
+                  lengths: np.ndarray) -> torch.Tensor:
+        """:func:`step_program` over every slot: a replay of the plane's
+        graph for this width when the engine has a plane, else eager."""
+        packed = self._pack_step(tokens, lengths)
+        if self.compile_plane is not None:
+            return self.compile_plane.run_step(packed)
+        return step_program(self.model, self.cache,
+                            torch.as_tensor(packed, device=self.device),
+                            self.attention_backend)
+
     def _decode_step(self, tokens: np.ndarray,
                      lengths: np.ndarray) -> np.ndarray:
         """One decode step for every slot: feed each slot's pending token
-        at its own position, sample the next.  Inactive slots compute a
+        at its own position, sample the next (eagerly, on the step's
+        logits, with the engine's generator).  Inactive slots compute a
         throwaway row and write nothing (``slot_mask``)."""
-        toks, positions, li, active = self._step_inputs(tokens[:, None],
-                                                        lengths)
-        logits, _ = self.model(toks, positions=positions, cache=self.cache,
-                               cache_index=li, slot_mask=active,
-                               attention_backend=self.attention_backend)
-        nxt = sample_logits(logits[:, 0], self._gen, self.temperature,
+        logits = self._run_step(tokens[:, None], lengths)
+        nxt = sample_logits(logits, self._gen, self.temperature,
                             self.top_k, self.top_p)
         return nxt.cpu().numpy()
 
-    @torch.no_grad()
     def _verify_forward(self, tokens: np.ndarray,
                         lengths: np.ndarray) -> np.ndarray:
         """One speculative VERIFY forward: every slot's pending token plus
         its drafted span (``tokens`` is ``(n_slots, S)``) at positions
         ``lengths-1 ..``, → the model's greedy continuation at every
         position ``(n_slots, S)`` int32."""
-        toks, positions, li, active = self._step_inputs(tokens, lengths)
-        logits, _ = self.model(toks, positions=positions, cache=self.cache,
-                               cache_index=li, slot_mask=active,
-                               attention_backend=self.attention_backend)
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        return self._run_step(tokens, lengths).cpu().numpy()
 
     # -- prefix reuse ------------------------------------------------------
     def _radix_for(self, tenant: str) -> RadixPrefixIndex:
@@ -414,7 +489,8 @@ class SlotEngine:
         src, lcp = self._best_prefix(prompt, slot)
         if src is not None and lcp > 0:
             if src != slot:
-                self._copy_prefix(src, slot, lcp)
+                with self._program_region(PREFIX_COPY_KEY):
+                    self._copy_prefix(src, slot, lcp)
             # src == slot: in-place resume, the K/V is already there
             self.prefix_hits += 1
             self.prefix_tokens_reused += lcp
@@ -424,7 +500,8 @@ class SlotEngine:
         pb = self._bucket(len(tail))
         padded = np.full(pb, self.pad_id, np.int32)
         padded[:len(tail)] = tail
-        last = self._prefill_slot(padded, len(tail), slot, lcp)
+        with self._program_region(_prefill_program_key(pb)):
+            last = self._prefill_slot(padded, len(tail), slot, lcp)
         logits = last.cpu().numpy().astype(np.float32)
         tok = (int(np.argmax(logits)) if self.temperature <= 0.0
                else self._sample_one(last))
@@ -519,7 +596,8 @@ class SlotEngine:
                 int(min(dlcp, self.kv_len[src], span)), span)
             if dlcp >= self.min_prefix:
                 if src != slot:
-                    self._copy_prefix(src, slot, dlcp)
+                    with self._program_region(PREFIX_COPY_KEY):
+                        self._copy_prefix(src, slot, dlcp)
                 est = dlcp
         if est < span:
             # cold tail: rebuild K/V for ids[est:span]; the logits are
@@ -528,7 +606,8 @@ class SlotEngine:
             pb = self._bucket(len(tail))
             padded = np.full(pb, self.pad_id, np.int32)
             padded[:len(tail)] = tail
-            self._prefill_slot(padded, len(tail), slot, est)
+            with self._program_region(_prefill_program_key(pb)):
+                self._prefill_slot(padded, len(tail), slot, est)
         ln = len(ids)
         self.ctx[slot, :ln] = ids
         self.lengths[slot] = ln
@@ -549,13 +628,15 @@ class SlotEngine:
             self._retire(slot, "cancelled")
 
     def reset(self) -> None:
-        """Clear every slot and rebuild the cache (after a failed step:
-        active sequences are lost and no K/V is a valid prefix any
-        more)."""
+        """Clear every slot and zero the cache in place (after a failed
+        step: active sequences are lost and no K/V is a valid prefix any
+        more).  The cache keeps its storage, so the plane's graphs stay
+        bound to it."""
         for slot in np.flatnonzero(self.active):
             self._retire(int(slot), "reset")
-        self.cache = init_cache(self.cfg, self.n_slots, self.max_len,
-                                self.device)
+        for c in self.cache:
+            c["k"].zero_()
+            c["v"].zero_()
         self.kv_len[:] = 0
         self.lengths[:] = 0
         self._radices.clear()

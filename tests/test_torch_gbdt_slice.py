@@ -147,6 +147,39 @@ def test_unported_config_raises(kw):
         ttrain(X, y, cfg, device="cpu")
 
 
+@pytest.mark.parametrize("max_bin,num_leaves,fits", [
+    (500, 31, True), (501, 31, False), (1023, 17, False), (1023, 4, True)])
+def test_card_width_check(max_bin, num_leaves, fits):
+    """One feature's histogram at maxBin + 1 bins and the wave's slots
+    (16 from numLeaves 17) must fit a block's shared memory on the card;
+    the CPU trains any width.  The check needs no card."""
+    import torch
+    from synapseml_tpu_torch.models.gbdt.booster import _check_ported_on
+    cfg = BoostingConfig(max_bin=max_bin, num_leaves=num_leaves)
+    _check_ported_on(cfg, torch.device("cpu"))
+    if fits:
+        _check_ported_on(cfg, torch.device("cuda"))
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="GBDT breadth: maxBin on the card"):
+            _check_ported_on(cfg, torch.device("cuda"))
+
+
+def test_card_width_check_comes_before_binning(monkeypatch):
+    """A card fit at maxBin 1023 raises before the data is binned."""
+    import torch
+    from synapseml_tpu_torch.models.gbdt import booster
+
+    def no_binning(*a, **kw):
+        raise AssertionError("the data was binned")
+    monkeypatch.setattr(booster, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    monkeypatch.setattr(booster, "fit_bin_mapper", no_binning)
+    X, y = _binary_data(n=200)
+    with pytest.raises(NotImplementedError, match="maxBin on the card"):
+        ttrain(X, y, BoostingConfig(max_bin=1023), device="cuda")
+
+
 def test_feature_fraction_draws_like_jax():
     """feature_fraction draws its per-tree masks from the same numpy
     stream as the JAX package: no tree splits on an unsampled feature."""

@@ -1,7 +1,8 @@
 """The port's paged decode-attention kernel (K3) against its plain
 PyTorch version, and the decode engine on the card against the engine on
-the CPU.  Marked ``gpu``: every test skips where no card is present (the
-check runs inside the fixture, so every worker collects the same tests).
+the CPU, with and without the compile plane's CUDA graphs.  Marked
+``gpu``: every test skips where no card is present (the check runs inside
+the fixture, so every worker collects the same tests).
 Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_llm_cuda.py
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from synapseml_tpu_torch.kernels import launches
+from synapseml_tpu_torch.models import llm as P
 from synapseml_tpu_torch.models.llm import paged_attn as PA
 from synapseml_tpu_torch.models.llm import LlamaConfig, LlamaModel, SlotEngine
 
@@ -181,3 +183,89 @@ def test_engine_on_card_refuses_a_layout_the_kernel_lacks(dev):
         SlotEngine(m, n_slots=2, device=dev)
     assert SlotEngine(m, n_slots=2, attention_backend="dense",
                       device=dev).attention_backend == "dense"
+
+
+def _drive(eng, prompts, new=(12, 10, 8)):
+    """Two requests, three steps, a third admitted mid-flight, run to the
+    end → each request's generated ids."""
+    r = [eng.admit(prompts[0], new[0]), eng.admit(prompts[1], new[1])]
+    for _ in range(3):
+        eng.step()
+    r.append(eng.admit(prompts[2], new[2]))
+    eng.run_to_completion()
+    return [np.asarray(eng.generated_ids(x.slot)) for x in r]
+
+
+def _card_model(dev, dtype):
+    """Llama-3.2-1B heads (32 / 8, d_head 64) at 2 layers, vocabulary and
+    MLP cut; random weights in ``dtype``."""
+    cfg = P.LlamaConfig.llama3_1b(num_layers=2, max_len=256,
+                                  vocab_size=2048, d_ff=1024, dtype=dtype)
+    return P.cast_params(P.LlamaModel(cfg, device=dev, seed=2), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_logits_equal_eager_bitwise(dev, dtype):
+    """Two engines on one model, one eager and one replaying graphs, fed
+    the same steps: decode logits, verify argmaxes and the caches are
+    bit-identical."""
+    m = _card_model(dev, dtype)
+    prompts = [np.tile(np.arange(1, 9), 12)[:n].astype(np.int32)
+               for n in (40, 23, 71, 9)]
+    engs = [P.SlotEngine(m, n_slots=4, spec_draft_len=7, warmup=w,
+                         device=dev) for w in ("off", "sync")]
+    for eng in engs:
+        for p in prompts:
+            eng.admit(p, 60)
+    rng = np.random.default_rng(1)
+    for it in range(6):
+        lengths = engs[0]._decode_step_args()
+        for S in (1, 2, 4, 8):
+            tokens = rng.integers(1, 2048, (4, S)).astype(np.int32)
+            a, b = (e._run_step(tokens, lengths).clone() for e in engs)
+            assert torch.equal(a, b), (it, S)
+        ev = [e.step() for e in engs]
+        assert [(x.slot, x.token) for x in ev[0]] == \
+            [(x.slot, x.token) for x in ev[1]]
+    for c0, c1 in zip(engs[0].cache, engs[1].cache):
+        assert torch.equal(c0["k"], c1["k"]) and torch.equal(c0["v"],
+                                                             c1["v"])
+    assert engs[1].compile_plane.stalls == 0
+
+
+@pytest.mark.parametrize("spec", [0, 4])
+def test_k3_launches_equal_with_and_without_graphs(dev, spec):
+    m = _card_model(dev, torch.bfloat16)
+    prompts = [np.tile(np.arange(1, 6), 20)[:n].astype(np.int32)
+               for n in (33, 17, 60)]
+    counts, outs = [], []
+    for w in ("off", "sync"):
+        eng = P.SlotEngine(m, n_slots=3, spec_draft_len=spec, warmup=w,
+                           device=dev)
+        launches.reset()
+        outs.append(_drive(eng, prompts, new=(20, 14, 9)))
+        counts.append(launches.shapes("paged_decode_attention"))
+    assert counts[0] == counts[1] and counts[0]
+    assert any(",S=1," in k for k in counts[1])
+    if spec:
+        assert any(",S=1," not in k for k in counts[1])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_replay_after_reset(dev):
+    m = _card_model(dev, torch.float32)
+    eng = P.SlotEngine(m, n_slots=3, spec_draft_len=4, warmup="sync",
+                       device=dev)
+    prompts = [np.tile(np.arange(3, 10), 10)[:n].astype(np.int32)
+               for n in (30, 12, 44)]
+    first = _drive(eng, prompts)
+    ptrs = [c["k"].data_ptr() for c in eng.cache]
+    eng.reset()
+    assert [c["k"].data_ptr() for c in eng.cache] == ptrs
+    again = _drive(eng, prompts)
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(b, a)
+    plane = eng.compile_plane
+    assert plane.stalls == 0 and plane.replays == eng.steps_run
+    assert plane.pool_bytes() > 0

@@ -269,7 +269,7 @@ def test_sampling_reproducible_and_inside_top_k(pair):
 
 def test_unported_options_raise(pair):
     _, _, tm = pair
-    for kw in ({"kv_arena": object()}, {"warmup": "sync"},
+    for kw in ({"kv_arena": object()}, {"warmup": "background"},
                {"step_profiler": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP A1"):
             _engine(tm, **kw)
