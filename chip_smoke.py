@@ -5,8 +5,9 @@
 1. Prints the software and the card (name and power limit from
    ``nvidia-smi``), and builds every CUDA kernel of the port from the
    sources in this checkout (one ``nvcc`` per source, all at once).
-2. For each histogram kernel (K1, K2), at the shapes the default fit
-   gives it, holds the kernel (in the id form the grower calls) against
+2. For each histogram kernel (K1, K2), at the shapes the main-path fits
+   give it (K1 also at the node-batched shape of two unported builds),
+   holds the kernel (in the id form the grower calls) against
    its plain PyTorch version, its gathered-row form and the previous
    kernel on the same inputs on the card: int32 limb histograms
    bit-identical and new node ids identical.  Times the kernel and the
@@ -72,7 +73,29 @@
    operators and CUDA runtime calls per step, and the operators that
    take the most host time.
 
-Prints the kernels' JSON line, then the card's name and power limit,
+10. GBDT breadth at full width (1M x 28, 100k holdout, ``--iters``
+    iterations; launch counts reset just before and read just after each
+    fit): (a) ``GBDTClassifier(growthPolicy="lossguide", numLeaves=31,
+    maxBin=255)``: both K1 shapes of a lossguide fit (coarse S=1 over the
+    left child, K refined rows by id) must launch once per tree root and
+    split, holdout AUC > 0.8; reports s/iteration beside the depthwise
+    fit's (phase 4) and profiles one fit (the histogram kernels' device
+    ms and the busy share); (b) three classes from the tertiles of the
+    label concept's score with ``baggingFraction=0.8, baggingFreq=1``,
+    depthwise: K2's root pass must launch for 3 trees per iteration,
+    holdout accuracy > 0.55; reports multi_logloss and s/iteration.
+11. Breadth, the card against the CPU on 65,536 rows, 3 iterations:
+    lossguide (two-level on and off), bagging, GOSS, DART, RF,
+    multiclass, multiclassova, huber and poisson: equal splits, tree
+    classes and weights, margins within 1e-4; the fit's gradients
+    (float64 rounded to f32) equal on the card and the CPU at 1M rows,
+    beside the count of rows where f32 ``sigmoid``/``exp``/``softmax``
+    alone differ; the bagging mask and GOSS weights drawn on the card
+    bit-identical to the CPU's, at 65,536 and 1,000,003 rows.
+
+Prints the kernels' JSON line (each K1/K2 shape with its launches summed
+over the runs that launch it, and by run), then the card's name and
+power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
 check raises, and the script exits nonzero without that line.  Without
 a card it exits 1 before printing any result.
@@ -265,8 +288,11 @@ def k2_case(rng, dev, N, F, S, B, shift, K):
 
 
 def k1_case(rng, dev, N, F, S, B, shift, K=0):
-    """The two-level root's fine build (S=1, the K refined rows of F
-    features by id) or a node-batched build (S slots, all F features)."""
+    """The two-level fine build (S=1, the K refined rows of F features by
+    id), lossguide's per-split coarse build (S=1, all F features) or a
+    node-batched build (S slots, all F features).  Slots are drawn in
+    [-1, S), so at S=1 about half the rows are listed, as a left child's
+    are."""
     from synapseml_tpu_torch.models.gbdt import hist as H
     bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
                            device=dev)
@@ -299,8 +325,12 @@ def k1_case(rng, dev, N, F, S, B, shift, K=0):
     if not torch.equal(lib, out_k):
         raise AssertionError("build_hist_nodes: index_add_ yardstick "
                              "disagrees")
-    nbytes = Fk * N * 4 + N * 4 + N * 8 + K * 4 + Fk * Bh * S * 32
-    b_ms, b_by = bound(nbytes, N * Fk * 7)
+    # reads: the slots, then the bins and limbs of the rows they list
+    # (what this run's slots need) and the feature ids; writes: the
+    # histograms (8 int32 lanes)
+    listed = int(ok.sum())
+    nbytes = N * 4 + listed * (Fk * 4 + 8) + K * 4 + Fk * Bh * S * 32
+    b_ms, b_by = bound(nbytes, listed * Fk * 7)
     ms, prev = in_turns(
         lambda: H.build_hist_nodes_limbs(*args),
         lambda: H.build_hist_nodes_limbs_previous(bins_k, slot, vals, S, B,
@@ -310,7 +340,7 @@ def k1_case(rng, dev, N, F, S, B, shift, K=0):
         plain_ms=cuda_ms(lambda: H.build_hist_nodes_plain(*args), iters=3),
         library_ms=cuda_ms(lambda: acc.clone().index_add_(0, ids, src)),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes,
-        rows_listed=int(ok.sum()), geometry=[geometry(Fk, Bh, S)])
+        rows_listed=listed, geometry=[geometry(Fk, Bh, S)])
     r["bw_share"] = nbytes / (ms * 1e-3) / PEAK_BYTES_S
     return r
 
@@ -319,43 +349,100 @@ def k1_case(rng, dev, N, F, S, B, shift, K=0):
 # phases 3 to 5: the main path
 # --------------------------------------------------------------------------
 
-def card_vs_cpu(X, y, Xh, two_level: str):
+def card_vs_cpu(X, y, Xh, kernels, iters: int = 2, **kw):
     """The same fit through ``train`` on the card and on the CPU: → the
     largest margin difference on ``Xh``; raises if any tree splits on
-    another feature or bin, or (two-level on) K1 never ran on the card."""
+    another feature or bin, the trees' classes or weights differ, or a
+    kernel in ``kernels`` never ran on the card."""
     from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
-    cfg = BoostingConfig(num_iterations=2, two_level_hist=two_level)
+    cfg = BoostingConfig(num_iterations=iters, **kw)
     res = {}
     for d in ("cuda", "cpu"):
         L.reset()
         booster, _ = train(X, y, cfg, device=d)
-        if d == "cuda" and (L.total("route_and_hist") == 0 or (
-                two_level == "on" and L.total("build_hist_nodes") == 0)):
-            raise AssertionError(f"two_level={two_level}: a kernel never ran "
-                                 f"on the card: {L.BY_SHAPE}")
+        if d == "cuda" and any(L.total(k) == 0 for k in kernels):
+            raise AssertionError(f"{kw}: a kernel never ran on the card: "
+                                 f"{L.BY_SHAPE}")
         res[d] = (booster, booster.predict_margin(Xh, device="cpu"))
-    for tc, tp in zip(res["cuda"][0].trees, res["cpu"][0].trees):
+    bc, bp = res["cuda"][0], res["cpu"][0]
+    if (bc.tree_class, bc.tree_weights) != (bp.tree_class, bp.tree_weights):
+        raise AssertionError(f"{kw}: card and CPU trees differ in class or "
+                             "weight")
+    for tc, tp in zip(bc.trees, bp.trees):
         n = int(tc.num_nodes)
         if int(tp.num_nodes) != n or not (
                 np.array_equal(tc.split_feature[:n], tp.split_feature[:n])
                 and np.array_equal(tc.split_bin[:n], tp.split_bin[:n])):
-            raise AssertionError(f"two_level={two_level}: card and CPU "
-                                 "trees split differently")
+            raise AssertionError(f"{kw}: card and CPU trees split "
+                                 "differently")
     return float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])))
 
 
-def fit_path(X, y, Xh, yh, max_bin, iters, device="cuda"):
+def masks_card_vs_cpu(dev, n: int, seed: int) -> None:
+    """The bagging mask and the GOSS weights drawn on the card equal the
+    CPU's bit for bit (the same threefry keys; GOSS on the same |grad|)."""
+    from synapseml_tpu_torch.models.gbdt import prng
+    from synapseml_tpu_torch.models.gbdt.booster import bag_mask, goss_weights
+    cpu = torch.device("cpu")
+    bag_key = prng.fold_in(prng.prng_key(3), 0)
+    goss_key = prng.prng_key((seed * 100003) & 0xffffffff)
+    bag = bag_mask(bag_key, n, 0.8, dev)
+    if not torch.equal(bag.cpu(), bag_mask(bag_key, n, 0.8, cpu)):
+        raise AssertionError(f"n={n}: the bagging masks differ")
+    g = torch.as_tensor(np.abs(np.random.default_rng(seed).normal(
+        size=n)).astype(np.float32))
+    got = goss_weights(g.to(dev), bag, goss_key, 0.2, 0.1).cpu()
+    if not torch.equal(got, goss_weights(g, bag.cpu(), goss_key, 0.2, 0.1)):
+        raise AssertionError(f"n={n}: the GOSS weights differ")
+
+
+def objectives_card_vs_cpu(dev, n: int, seed: int) -> dict:
+    """Rows whose f32 ``sigmoid`` / ``exp`` / 3-class ``softmax`` differ
+    between the card and the CPU, evaluated in f32 and (as
+    ``booster._grad_hess`` does) in float64 rounded to f32; raises if the
+    objectives' gradients as the fit computes them differ."""
+    from synapseml_tpu_torch.models.gbdt import objectives as O
+    from synapseml_tpu_torch.models.gbdt.booster import _grad_hess
+    rng = np.random.default_rng(seed)
+    m = n // 3
+    x = torch.as_tensor(rng.normal(scale=3, size=3 * m).astype(np.float32))
+    out = {}
+    for name, fn in (("sigmoid", torch.sigmoid), ("exp", torch.exp),
+                     ("softmax", lambda t: torch.softmax(t.view(m, 3), -1))):
+        for prec, cast in (("f32", lambda t: t),
+                           ("f64", lambda t: t.double())):
+            a, b = fn(cast(x.to(dev))).float().cpu(), fn(cast(x)).float()
+            out[f"{name}_{prec}_rows_differing"] = int((a != b).sum())
+    lab = torch.as_tensor(rng.integers(0, 3, 3 * m).astype(np.float32))
+    onehot = torch.nn.functional.one_hot(lab[:m].long(), 3).float()
+    for what, fn, s0, args in (
+            ("binary", O.binary, x, ((lab > 0).float(), torch.ones(3 * m))),
+            ("poisson", O.poisson, x, (lab, torch.ones(3 * m))),
+            ("softmax", O.softmax_grad_hess, x.view(m, 3),
+             (onehot, torch.ones(m)))):
+        got = _grad_hess(fn, s0.to(dev), *(a.to(dev) for a in args))
+        want = _grad_hess(fn, s0, *args)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"{what}: the fit's gradients differ "
+                                 "between the card and the CPU")
+    return out
+
+
+def fit_path(X, y, Xh, yh, iters, device="cuda", **params):
+    """``Pipeline([GBDTClassifier(**params)]).fit`` then ``transform`` on
+    the holdout; launch counts are reset just before the fit and read
+    just after it.  → (result, the fitted model stage)."""
     from synapseml_tpu_torch.core import Dataset, Pipeline
     from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
-    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    from synapseml_tpu_torch.models.gbdt.metrics import auc, multi_logloss
     ds = Dataset({"features": list(X), "label": y})
     hold = Dataset({"features": list(Xh), "label": yh})
     L.reset()
     t0 = time.perf_counter()
     model = Pipeline(stages=[GBDTClassifier(
-        numIterations=iters, maxBin=max_bin, device=device)]).fit(ds)
+        numIterations=iters, device=device, **params)]).fit(ds)
     if device == "cuda":
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
@@ -366,32 +453,41 @@ def fit_path(X, y, Xh, yh, max_bin, iters, device="cuda"):
     out = model.transform(hold)
     transform_s = time.perf_counter() - t0
     proba = np.stack(out["probability"])
-    if proba.shape != (len(Xh), 2) or not np.all(np.isfinite(proba)):
+    n_class = len(np.unique(y))
+    if proba.shape != (len(Xh), n_class) or not np.all(np.isfinite(proba)):
         raise AssertionError(f"transform gave {proba.shape} / non-finite")
     if set(out.columns) != {"features", "label", "rawPrediction",
                             "probability", "prediction"}:
         raise AssertionError(f"transform columns {out.columns}")
     gbdt = model.get_or_default("stages")[0]
     m = gbdt.training_measures
-    return dict(fit_s=fit_s, train_s=m.training_s,
-                s_per_iter=m.seconds_per_iteration(),
-                binning_s=m.binning_s, transform_s=transform_s,
-                auc=float(auc(yh, proba[:, 1])), launches=launches,
-                shapes=shapes,
-                two_level=gbdt.booster.config.two_level_hist), gbdt
+    trees = gbdt.booster.trees
+    r = dict(fit_s=fit_s, train_s=m.training_s,
+             s_per_iter=m.seconds_per_iteration(),
+             binning_s=m.binning_s, transform_s=transform_s,
+             trees=len(trees),
+             splits=sum((int(t.num_nodes) - 1) // 2 for t in trees),
+             launches=launches, shapes=shapes,
+             two_level=gbdt.booster.config.two_level_hist)
+    if n_class == 2:
+        r["auc"] = float(auc(yh, proba[:, 1]))
+    else:
+        r["accuracy"] = float(np.mean(np.asarray(out["prediction"]) == yh))
+        r["multi_logloss"] = float(multi_logloss(yh, np.log(proba)))
+    return r, gbdt
 
 
-def profile_fit(X, y, iters: int) -> dict:
-    """Device time by kernel over one default fit, from ``torch.profiler``
-    (which adds host overhead to the fit it watches): → {wall_s,
-    binning_s, train_s, kernel_s, busy_share, top: [[name, ms, calls],
-    ...]}."""
+def profile_fit(X, y, iters: int, **params) -> dict:
+    """Device time by kernel over one fit, from ``torch.profiler`` (which
+    adds host overhead to the fit it watches): → {wall_s, binning_s,
+    train_s, kernel_s, busy_share, hist_ms (the histogram kernels'
+    device ms), top: [[name, ms, calls], ...]}."""
     from torch.profiler import ProfilerActivity, profile
 
     from synapseml_tpu_torch.core import Dataset
     from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
     ds = Dataset({"features": list(X), "label": y})
-    est = GBDTClassifier(numIterations=iters)
+    est = GBDTClassifier(numIterations=iters, **params)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -403,8 +499,12 @@ def profile_fit(X, y, iters: int) -> dict:
             and e.self_device_time_total > 0]
     kern.sort(key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in kern) / 1e6
+    hist_ms = sum(e.self_device_time_total for e in kern
+                  if "route_kernel" in e.key or "hist_rows_kernel" in e.key
+                  ) / 1e3
     return dict(wall_s=wall, binning_s=m.binning_s, train_s=m.training_s,
-                kernel_s=total, busy_share=total / wall,
+                kernel_s=total, busy_share=total / wall, hist_ms=hist_ms,
+                hist_share=hist_ms / 1e3 / wall,
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
                      for e in kern[:10]])
 
@@ -721,22 +821,32 @@ def main(argv=None) -> int:
     src = "synapseml_tpu_torch/csrc/gbdt_hist.cu"
     refs = {"route_and_hist": "synapseml_tpu/models/gbdt/pallas_hist.py:526",
             "build_hist_nodes": "synapseml_tpu/models/gbdt/pallas_hist.py:317"}
-    # (kernel, shape, the main-path fit (maxBin) that launches it): each
+    # (kernel, shape, the main-path runs that launch it): each depthwise
     # tree's root pass runs K2 at one slot, every other wave at S slots;
-    # K1 builds the two-level root's K refined rows
+    # K1 builds the two-level root's K refined rows, and in a lossguide
+    # fit the root and every split's left child, coarse and refined
     shapes = [
-        ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1), 63),
-        ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=S), 63),
-        ("route_and_hist", dict(F=F, B=256, shift=3, K=0, S=1), 255),
-        ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S), 255),
-        # the two-level root's fine build: K of the F rows, by id
-        ("build_hist_nodes", dict(F=F, B=256, shift=0, S=1, K=K), 255),
-        # the node-batched shape lossguide growth gives K1: checked and
-        # timed, but no fit of this path launches it
-        ("build_hist_nodes", dict(F=F, B=64, shift=0, S=S), None),
+        ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
+         ("maxBin=63",)),
+        ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=S),
+         ("maxBin=63",)),
+        ("route_and_hist", dict(F=F, B=256, shift=3, K=0, S=1),
+         ("maxBin=255", "multiclass")),
+        ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S),
+         ("maxBin=255", "multiclass")),
+        # the two-level fine build: K of the F rows, by id
+        ("build_hist_nodes", dict(F=F, B=256, shift=0, S=1, K=K),
+         ("maxBin=255", "multiclass", "lossguide")),
+        # lossguide's per-split coarse build: all F rows at one slot over
+        # a left child's rows
+        ("build_hist_nodes", dict(F=F, B=256, shift=3, S=1), ("lossguide",)),
+        # the node-batched shape of the depthwise grower's unfused build
+        # and the feature-parallel grower (trainer.py:1220, :1657), neither
+        # ported: checked and timed, but no fit of the port launches it
+        ("build_hist_nodes", dict(F=F, B=64, shift=0, S=S), ()),
     ]
     cases = []
-    for kern, dims, fit in shapes:
+    for kern, dims, runs in shapes:
         if kern == "route_and_hist":
             r = k2_case(rng, dev, N, **dims)
             key = L.launch_key(kern, **dims, variant="rows")
@@ -754,7 +864,7 @@ def main(argv=None) -> int:
             f"({r['bytes']} B, {r['bound_by']}; {r['bw_share']:.3f} of "
             f"3.35 TB/s); rows listed {r['rows_listed']}; geometry "
             f"{json.dumps(r['geometry'])}")
-        cases.append((key, kern, fit, r))
+        cases.append((key, kern, runs, r))
 
     # -- data: bench.py's task at full width, and a holdout -----------------
     drng = np.random.default_rng(args.seed)
@@ -769,7 +879,10 @@ def main(argv=None) -> int:
     # below is timed in a warm process
     n_small = 65_536
     for tl in ("on", "off"):
-        diff = card_vs_cpu(X[:n_small], y[:n_small], Xh[:4096], tl)
+        diff = card_vs_cpu(X[:n_small], y[:n_small], Xh[:4096],
+                           ("route_and_hist",) + (("build_hist_nodes",)
+                                                  if tl == "on" else ()),
+                           two_level_hist=tl)
         if diff > 1e-4:
             raise AssertionError(f"two_level={tl}: card and CPU margins "
                                  f"differ by {diff}")
@@ -779,17 +892,22 @@ def main(argv=None) -> int:
     # -- 4. the main path at full width ------------------------------------
     # counts are reset just before and read just after each fit
     paths = {}
+
+    def check_path(name, r):
+        """Every kernel shape of the run ``name`` launched in it."""
+        for key, _, runs, _ in cases:
+            if name in runs and r["shapes"].get(key, 0) <= 0:
+                raise AssertionError(f"{name}: {key} never launched on "
+                                     "the main path")
+        paths[name] = r
+
     for max_bin in (255, 63):
-        r, _ = fit_path(X, y, Xh, yh, max_bin, args.iters)
+        r, _ = fit_path(X, y, Xh, yh, args.iters, maxBin=max_bin)
         log(f"fit maxBin={max_bin}: {json.dumps(r)}")
-        for key, _, fit, _ in cases:
-            if fit == max_bin and r["shapes"].get(key, 0) <= 0:
-                raise AssertionError(f"maxBin={max_bin}: {key} never "
-                                     "launched on the main path")
+        check_path(f"maxBin={max_bin}", r)
         if r["auc"] <= 0.8:
             raise AssertionError(f"maxBin={max_bin}: holdout AUC "
                                  f"{r['auc']}")
-        paths[max_bin] = r
 
     # -- 5. where the time goes --------------------------------------------
     log(f"profile maxBin=255: {json.dumps(profile_fit(X, y, 2))}")
@@ -882,15 +1000,111 @@ def main(argv=None) -> int:
         log(f"profile LLM decode, warmup={warmup}: "
             f"{json.dumps(profile_decode(model, prompts, new, warmup))}")
 
+    # -- 10. GBDT breadth at full width ------------------------------------
+    drng = np.random.default_rng(args.seed)
+    X = drng.normal(size=(N, F)).astype(np.float32)
+    y = gbdt_labels(drng, X)
+    Xh = drng.normal(size=(100_000, F)).astype(np.float32)
+    yh = gbdt_labels(drng, Xh)
+    # 10a. lossguide: K1 at one slot per split, coarse and refined
+    r, gbdt = fit_path(X, y, Xh, yh, args.iters, growthPolicy="lossguide",
+                       numLeaves=31, maxBin=255)
+    check_path("lossguide", r)
+    builds = r["trees"] + r["splits"]          # the root and every split
+    lg_keys = [key for key, _, runs, _ in cases if "lossguide" in runs]
+    if r["two_level"] != "on" or any(r["shapes"][k] != builds
+                                     for k in lg_keys):
+        raise AssertionError(f"lossguide: {builds} builds, launches "
+                             f"{r['shapes']}, two_level {r['two_level']}")
+    if r["auc"] <= 0.8:
+        raise AssertionError(f"lossguide: holdout AUC {r['auc']}")
+    # one host sync per split attempt: the splits, and a last check
+    # unless the leaf budget ended the tree
+    r["host_syncs_per_tree"] = sum(
+        min(30, (int(t.num_nodes) - 1) // 2 + 1)
+        for t in gbdt.booster.trees) / r["trees"]
+    r["depthwise_s_per_iter"] = paths["maxBin=255"]["s_per_iter"]
+    log(f"fit lossguide maxBin=255: {json.dumps(r)}")
+    log(f"profile lossguide maxBin=255: "
+        f"{json.dumps(profile_fit(X, y, 2, growthPolicy='lossguide'))}")
+    # 10b. multiclass with bagging: three classes from the tertiles of
+    # the label concept's score, depthwise, K trees per iteration
+    cut = np.quantile(X[:, 0] * 2 - X[:, 1] + X[:, 2] * X[:, 3], [1 / 3,
+                                                                   2 / 3])
+
+    def three(Z, rng):
+        return np.digitize(Z[:, 0] * 2 - Z[:, 1] + Z[:, 2] * Z[:, 3]
+                           + rng.normal(scale=0.5, size=len(Z)),
+                           cut).astype(np.float64)
+    y3, yh3 = three(X, drng), three(Xh, drng)
+    r, _ = fit_path(X, y3, Xh, yh3, args.iters, maxBin=255,
+                    baggingFraction=0.8, baggingFreq=1)
+    check_path("multiclass", r)
+    root = L.launch_key("route_and_hist", F=F, B=256, shift=3, K=0, S=1,
+                        variant="rows")
+    if r["trees"] != 3 * args.iters or r["shapes"][root] != r["trees"]:
+        raise AssertionError(f"multiclass: {r['trees']} trees, K2 roots "
+                             f"{r['shapes'].get(root)}")
+    if r["accuracy"] <= 0.55:
+        raise AssertionError(f"multiclass: holdout accuracy "
+                             f"{r['accuracy']}")
+    log(f"fit multiclass bagging 0.8 maxBin=255: {json.dumps(r)}")
+
+    # -- 11. breadth: the card against the CPU ------------------------------
+    Xs, Xhs = X[:n_small], Xh[:4096]
+    score = Xs[:, 0] * 2 - Xs[:, 1] + Xs[:, 2] * Xs[:, 3]
+    ys = {"binary": y[:n_small], "multi": y3[:n_small],
+          "huber": 0.3 * score.astype(np.float64),
+          "poisson": np.exp(0.5 * Xs[:, 0] + 0.2 * Xs[:, 1]).astype(
+              np.float64) * drng.gamma(2.0, 0.5, n_small)}
+    del X, y, Xh, yh, y3, yh3
+    k1, k2 = ("build_hist_nodes",), ("route_and_hist",)
+    breadth = [
+        ("lossguide, two-level on", "binary", k1,
+         dict(objective="binary", growth_policy="lossguide",
+              two_level_hist="on")),
+        ("lossguide, two-level off", "binary", k1,
+         dict(objective="binary", growth_policy="lossguide",
+              two_level_hist="off")),
+        ("bagging", "binary", k2, dict(objective="binary",
+                                       bagging_fraction=0.8, bagging_freq=1)),
+        ("goss", "binary", k2, dict(objective="binary", boosting_type="goss")),
+        ("dart", "binary", k2, dict(objective="binary", boosting_type="dart",
+                                    skip_drop=0.0, drop_rate=0.5)),
+        ("rf", "binary", k2, dict(objective="binary", boosting_type="rf",
+                                  bagging_fraction=0.7, bagging_freq=1)),
+        ("multiclass", "multi", k2, dict(objective="multiclass",
+                                         num_class=3)),
+        ("multiclassova", "multi", k2, dict(objective="multiclassova",
+                                            num_class=3)),
+        ("huber", "huber", k2, dict(objective="huber",
+                                    min_sum_hessian_in_leaf=1.0)),
+        ("poisson", "poisson", k2, dict(objective="poisson")),
+    ]
+    for what, kind, kern, kw in breadth:
+        diff = card_vs_cpu(Xs, ys[kind], Xhs, kern, iters=3, **kw)
+        if diff > 1e-4:
+            raise AssertionError(f"{what}: card and CPU margins differ by "
+                                 f"{diff}")
+        log(f"card vs CPU, {what}: same splits, margins within {diff:.3g}")
+    log(f"card vs CPU, f32 against float64-rounded transcendentals at "
+        f"{N // 3 * 3} rows (the fit's gradients equal): "
+        f"{json.dumps(objectives_card_vs_cpu(dev, N, args.seed))}")
+    for n in (n_small, N + 3):
+        masks_card_vs_cpu(dev, n, args.seed)
+    log(f"card vs CPU: bagging masks and GOSS weights bit-identical at "
+        f"{n_small} and {N + 3} rows")
+
     # -- results -----------------------------------------------------------
-    # each shape's launches in the one fit that runs it
+    # each shape's launches in the runs that launch it
     kernels = []
-    for key, kern, fit, r in cases:
-        if fit is None:
+    for key, kern, runs, r in cases:
+        if not runs:
             continue
+        by_run = {run: paths[run]["shapes"][key] for run in runs}
         kernels.append(dict(
             name=key, route="cuda", source=src, replaces=refs[kern],
-            launches=paths[fit]["shapes"][key],
+            launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], previous_ms=r["previous_ms"]))

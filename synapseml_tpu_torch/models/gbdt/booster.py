@@ -1,20 +1,24 @@
 """Boosting loop and the serializable Booster.
 
-The PyTorch port of the JAX package's ``models/gbdt/booster.py`` for
-``boosting_type="gbdt"`` with the ``binary`` and ``regression``
-objectives on one device.  The JAX package scans the boosting loop on the
-device; here it is a Python loop over :func:`~.trainer.grow_tree_depthwise`
-with the kernels on the card.  The model format is the JAX package's
-version-2 JSON (:meth:`Booster.to_dict`), so a model moves between the two
-packages both ways.
+The PyTorch port of the JAX package's ``models/gbdt/booster.py`` on one
+device: the boosting types gbdt, goss, dart and rf, bagging, the
+depthwise and lossguide growth policies, and the binary, multiclass,
+multiclassova and regression objectives.  The JAX package scans the
+boosting loop on the device; here it is a Python loop over the growers of
+:mod:`.trainer` with the kernels on the card.  The model format is the
+JAX package's version-2 JSON (:meth:`Booster.to_dict`), so a model moves
+between the two packages both ways.
 
-Every other config value raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+The config values not ported yet (validation and early stopping, EFB,
+monotone constraints, categorical features, voting/feature parallel
+growth, lambdarank) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -25,10 +29,13 @@ import torch
 from ...device import DeviceLike, resolve_device, synchronize
 from .binning import BinMapper, bin_features, fit_bin_mapper
 from .hist import rows_geometry
-from .objectives import get_objective, initial_score
+from . import prng
+from .objectives import (get_objective, initial_score, objective_kwargs,
+                         ova_grad_hess, softmax_grad_hess)
 from .trainer import (TWO_LEVEL_MIN_ROWS, GrowthParams, Tree,
-                      default_n_slots, grow_tree_depthwise,
-                      predict_raw_features, stack_trees, tree_depth)
+                      default_n_slots, grow_tree, grow_tree_depthwise,
+                      predict_binned_tree, predict_raw_features, stack_trees,
+                      tree_depth)
 
 
 @dataclasses.dataclass
@@ -115,17 +122,15 @@ def _fused_ingest_on(config: BoostingConfig) -> bool:
                      "True or False")
 
 
+#: objectives trained with K trees per iteration
+MULTICLASS = ("multiclass", "multiclassova")
+
+
 def _check_ported(config: BoostingConfig) -> None:
-    """Raise ``NotImplementedError`` for every config value this slice of
-    the port does not train, naming the ROADMAP item that ports it."""
+    """Raise ``NotImplementedError`` for every config value this port does
+    not train, naming the ROADMAP item that ports it."""
     todo = "is not ported yet (ROADMAP queue A, GBDT breadth: {})"
     checks = [
-        (config.boosting_type != "gbdt",
-         f"boosting_type={config.boosting_type!r}", "goss/dart/rf"),
-        (config.bagging_fraction < 1.0 and config.bagging_freq > 0,
-         "bagging", "goss/dart/rf/bagging"),
-        (config.growth_policy != "depthwise",
-         f"growth_policy={config.growth_policy!r}", "lossguide on K1"),
         (config.parallelism != "data_parallel",
          f"parallelism={config.parallelism!r}", "voting/feature parallel"),
         (config.enable_bundle, "enable_bundle", "EFB"),
@@ -136,29 +141,47 @@ def _check_ported(config: BoostingConfig) -> None:
          "categorical features"),
         (config.early_stopping_round > 0, "early_stopping_round",
          "validation and early stopping"),
-        (config.objective not in ("binary", "regression"),
-         f"objective={config.objective!r}", "multiclass and the other "
-         "objectives"),
+        (config.objective == "lambdarank", "objective='lambdarank'",
+         "lambdarank"),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} " + todo.format(item))
+    if config.objective not in MULTICLASS:
+        get_objective(config.objective)
+    elif config.num_class < 2:
+        raise ValueError(f"objective={config.objective!r} needs num_class "
+                         f">= 2, got {config.num_class}")
+    if config.boosting_type not in ("gbdt", "goss", "dart", "rf"):
+        raise ValueError(f"boosting_type={config.boosting_type!r}: must be "
+                         "'gbdt', 'goss', 'dart' or 'rf'")
+    if config.growth_policy not in ("depthwise", "lossguide"):
+        raise ValueError(f"growth_policy={config.growth_policy!r}: must be "
+                         "'depthwise' or 'lossguide'")
     if config.two_level_hist not in ("auto", "on", "off", True, False):
         raise ValueError(f"two_level_hist={config.two_level_hist!r}: must "
                          "be 'auto', 'on', or 'off'")
     _fused_ingest_on(config)
 
 
+def _n_slots(config: BoostingConfig) -> int:
+    """Histogram slots of one build: a depthwise wave's, or one for
+    lossguide's per-split build."""
+    if config.growth_policy == "lossguide":
+        return 1
+    return default_n_slots(config.num_leaves)
+
+
 def _check_ported_on(config: BoostingConfig, device: torch.device) -> None:
     """Raise ``NotImplementedError`` before any work for a config the
     card cannot train: on a CUDA device, one feature's histogram at
-    ``max_bin + 1`` bins and the wave's slots must fit a block's shared
-    memory (``hist.rows_geometry``).  The CPU trains any width."""
+    ``max_bin + 1`` bins and the slots of one build (a depthwise wave's,
+    or lossguide's one) must fit a block's shared memory
+    (``hist.rows_geometry``).  The CPU trains any width."""
     if device.type != "cuda":
         return
     try:
-        rows_geometry(1, config.max_bin + 1,
-                      default_n_slots(config.num_leaves))
+        rows_geometry(1, config.max_bin + 1, _n_slots(config))
     except ValueError as e:
         raise NotImplementedError(
             f"maxBin={config.max_bin} with numLeaves={config.num_leaves} "
@@ -369,6 +392,49 @@ class InstrumentationMeasures:
         return self.training_s / max(self.iterations, 1)
 
 
+def goss_weights(g_abs: torch.Tensor, bag: torch.Tensor, key: prng.Key,
+                 top_rate: float, other_rate: float) -> torch.Tensor:
+    """Gradient one-side sampling (the JAX package's ``goss_weights``):
+    keep the ``top_rate`` share of the bagged rows by |grad|, sample
+    ``other_rate`` of the rest from ``key`` and amplify them by
+    ``(1 - top_rate) / other_rate``; rows outside the bag weigh 0.  The
+    threshold is read from a sort on the device (no host sync)."""
+    n = g_abs.shape[0]
+    n_real = (bag > 0).sum().to(torch.float32)
+    k = torch.clamp_min((n_real * top_rate).to(torch.int32), 1)
+    sorted_desc = torch.sort(g_abs * (bag > 0), descending=True).values
+    thresh = sorted_desc[torch.clamp_max(k - 1, n - 1).long()]
+    topset = g_abs >= thresh
+    rest_keep = prng.uniform(key, n, g_abs.device) < other_rate
+    amp = (1.0 - top_rate) / max(other_rate, 1e-6)
+    return torch.where(topset, 1.0, torch.where(rest_keep, amp, 0.0)) * bag
+
+
+def bag_mask(key: prng.Key, n: int, fraction: float,
+             device: torch.device) -> torch.Tensor:
+    """The bagging mask (n,) f32 in {0, 1}: ``uniform(key) < fraction``,
+    drawn on ``device``."""
+    return (prng.uniform(key, n, device) < fraction).to(torch.float32)
+
+
+def _grad_hess(fn, scores: torch.Tensor, *args):
+    """The objective evaluated in float64 and rounded to float32.  The
+    card's and the CPU's f32 ``exp``/``sigmoid`` differ in the last bit
+    now and then, and the int8-limb quantization can carry that bit into
+    a histogram and flip a near-tie split; rounded from float64, both
+    devices give the correctly rounded f32 value."""
+    g, h = fn(scores.double(), *args)
+    return g.float(), h.float()
+
+
+def _add_scores(scores, contrib, k: int, K: int):
+    if K == 1:
+        return scores + contrib
+    out = scores.clone()
+    out[:, k] += contrib
+    return out
+
+
 def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
           sample_weight: Optional[np.ndarray] = None,
           feature_names: Optional[Sequence[str]] = None,
@@ -380,7 +446,10 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
 
     Raw features bin on the device; gradients, the binned matrix and the
     scores stay there for the whole run, and each tree comes back to the
-    host once it is grown."""
+    host once it is grown.  The random streams are the JAX package's:
+    the bagging and GOSS masks are threefry draws (:mod:`.prng`) made on
+    the device, and feature_fraction and DART draw from one host numpy
+    generator seeded with ``seed``, in the JAX package's order."""
     dev = resolve_device(device)
     if valid is not None:
         raise NotImplementedError(
@@ -397,6 +466,7 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
 
     X = np.ascontiguousarray(X, np.float32)
     n, F = X.shape
+    K = config.num_class if config.objective in MULTICLASS else 1
     feature_names = (list(feature_names) if feature_names
                      else [f"f{i}" for i in range(F)])
     rng = np.random.default_rng(config.seed)
@@ -422,11 +492,11 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
         labels_np = yb
     else:
         labels_np = np.asarray(y, np.float32)
-    if config.boost_from_average:
+    if config.boost_from_average and K == 1:
         init_sc = np.full(1, initial_score(config.objective, labels_np, w),
                           np.float32)
     else:
-        init_sc = np.zeros(1, np.float32)
+        init_sc = np.zeros(K, np.float32)
 
     # "auto" two-level resolves from the row count, as the JAX package
     # resolves it when its kernel grower is in play
@@ -436,44 +506,124 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
                                     else "off"))
     labels = torch.as_tensor(labels_np, device=dev)
     weights = torch.as_tensor(w, device=dev)
-    scores = torch.full((n,), float(init_sc[0]), dtype=torch.float32,
-                        device=dev)
-    row_valid = torch.ones(n, dtype=torch.float32, device=dev)
+    init_scores = torch.full((n,) if K == 1 else (n, K), float(init_sc[0]),
+                             dtype=torch.float32, device=dev)
+    scores = init_scores
+    if K > 1:
+        onehot = torch.nn.functional.one_hot(labels.long(), K).to(
+            torch.float32)
+        multi_fn = (ova_grad_hess if config.objective == "multiclassova"
+                    else softmax_grad_hess)
+    else:
+        objective_fn = functools.partial(
+            get_objective(config.objective),
+            **objective_kwargs(config.objective, config))
     upper_bounds = torch.as_tensor(mapper.upper_bounds, device=dev)
     num_bins = torch.as_tensor(mapper.num_bins, device=dev)
-    objective_fn = get_objective(config.objective)
     p = config.growth_params()
-    n_slots = default_n_slots(config.num_leaves)
+    is_rf = config.boosting_type == "rf"
+    is_dart = config.boosting_type == "dart"
+    use_goss = config.boosting_type == "goss"
+    lr = 1.0 if is_rf else config.learning_rate
+    use_bagging = (config.bagging_fraction < 1.0
+                   and (is_rf or config.bagging_freq > 0))
+    if config.growth_policy == "lossguide":
+        grower = grow_tree
+    else:
+        grower = functools.partial(grow_tree_depthwise,
+                                   n_slots=_n_slots(config))
     fused = _fused_ingest_on(config)
+    bag_root = prng.prng_key(config.bagging_seed)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    # leaf-wise depth is bounded by num_leaves - 1 splits
+    depth_hint = max(2, config.num_leaves)
     synchronize(dev)
     measures.data_prep_s = time.perf_counter() - t_prep
 
+    def contrib(tree: Tree, weight: float) -> torch.Tensor:
+        """One host tree's weighted outputs on the training rows (DART)."""
+        t = Tree(*[torch.as_tensor(a).to(dev) for a in tree])
+        return predict_binned_tree(bins_t, t, depth_hint) * weight
+
     t_train = time.perf_counter()
     trees: List[Tree] = []
+    tree_class: List[int] = []
+    tree_weights: List[float] = []
     fmask_dev = torch.ones(F, dtype=torch.bool, device=dev)
-    for _ in range(config.num_iterations):
+    for it in range(config.num_iterations):
         if config.feature_fraction < 1.0:
             # the host stream the JAX package draws from, draw for draw
-            k = max(1, int(round(F * config.feature_fraction)))
+            nf = max(1, int(round(F * config.feature_fraction)))
             fmask = np.zeros(F, bool)
-            fmask[rng.choice(F, k, replace=False)] = True
+            fmask[rng.choice(F, nf, replace=False)] = True
             fmask_dev = torch.as_tensor(fmask, device=dev)
-        grad, hess = objective_fn(scores, labels, weights)
-        if fused:
-            grad = grad.to(torch.bfloat16)
-            hess = hess.to(torch.bfloat16)
-        tree, node_id = grow_tree_depthwise(
-            bins_t, grad, hess, row_valid, fmask_dev, upper_bounds,
-            num_bins, config.learning_rate, p, n_slots=n_slots)
-        scores = scores + tree.leaf_value[node_id.long()]
-        trees.append(Tree(*[a.cpu() for a in tree]))
+        # dart: drop trees and take them out of the scores
+        dropped: List[int] = []
+        if is_dart and trees and rng.random() >= config.skip_drop:
+            drop = rng.random(len(trees)) < config.drop_rate
+            dropped = [int(d) for d in np.nonzero(drop)[0][:config.max_drop]]
+            for d in dropped:
+                scores = _add_scores(scores,
+                                     -contrib(trees[d], tree_weights[d]),
+                                     tree_class[d], K)
+        key = prng.prng_key((config.seed * 100003 + it) & 0xffffffff)
+        bag = ones
+        if use_bagging:
+            bag = bag_mask(prng.fold_in(
+                bag_root, it // max(config.bagging_freq, 1)), n,
+                config.bagging_fraction, dev)
+
+        if K == 1:
+            grad, hess = _grad_hess(objective_fn, scores, labels, weights)
+            g_all, h_all = grad[:, None], hess[:, None]
+        else:
+            g_all, h_all = _grad_hess(multi_fn, scores, onehot, weights)
+        new_trees, new_scores = [], scores
+        for k in range(K):
+            rv = bag
+            if use_goss:
+                # GOSS ranks |grad| at full f32 resolution, before the
+                # bf16 ingest below
+                rv = goss_weights(g_all[:, k].abs(), bag,
+                                  key if K == 1 else prng.fold_in(key, k),
+                                  config.top_rate, config.other_rate)
+            g, h = g_all[:, k], h_all[:, k]
+            if fused:
+                g, h = g.to(torch.bfloat16), h.to(torch.bfloat16)
+            tree, node_id = grower(bins_t, g, h, rv, fmask_dev,
+                                   upper_bounds, num_bins, lr, p)
+            new_scores = _add_scores(new_scores,
+                                     tree.leaf_value[node_id.long()], k, K)
+            new_trees.append(Tree(*[a.cpu() for a in tree]))
+
+        if dropped:
+            # normalize: the new trees weigh 1/(|D|+1), dropped trees
+            # are scaled by |D|/(|D|+1)
+            new_w = 1.0 / (len(dropped) + 1)
+            factor = len(dropped) / (len(dropped) + 1)
+            for k in range(K):
+                scores = _add_scores(scores, contrib(new_trees[k], new_w), k,
+                                     K)
+            for d in dropped:
+                tree_weights[d] *= factor
+                scores = _add_scores(scores,
+                                     contrib(trees[d], tree_weights[d]),
+                                     tree_class[d], K)
+            weights_new = [new_w] * K
+        else:
+            scores = new_scores
+            weights_new = [1.0] * K
+        trees += new_trees
+        tree_class += list(range(K))
+        tree_weights += weights_new
+        if is_rf:
+            # rf: every tree fits the gradients at the init margin
+            scores = init_scores
     synchronize(dev)
     measures.training_s = time.perf_counter() - t_train
-    measures.iterations = len(trees)
+    measures.iterations = len(trees) // K
     measures.total_s = time.perf_counter() - t0
-    booster = Booster(trees, [0] * len(trees), [1.0] * len(trees), 1,
-                      config.objective, init_sc, mapper, feature_names,
-                      config, device=dev)
+    booster = Booster(trees, tree_class, tree_weights, K, config.objective,
+                      init_sc, mapper, feature_names, config, device=dev)
     booster.measures = measures
     return booster, []
-

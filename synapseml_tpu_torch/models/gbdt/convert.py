@@ -1,12 +1,14 @@
 """Carry a model trained by the JAX package across to this package.
 
 A model of either package is the version-2 JSON of ``Booster.to_dict()``
-(trees as flat lists, the bin mapper's bounds, the init score, the
-config), so the conversion is a read of that JSON with the checks that
-what it holds is a model this package predicts: numeric features, no
-bundles, one output.  The reverse direction needs nothing: this package's
-``Booster.to_dict()`` emits the same schema, which the JAX package's
-``Booster.from_dict`` reads back.
+(trees as flat lists with their class and weight, the bin mapper's
+bounds, the init score per class, the config), so the conversion is a
+read of that JSON with the checks that what it holds is a model this
+package predicts: numeric features and no bundles.  Multiclass models
+keep ``tree_class``, DART models their ``tree_weights``, and RF models
+average their trees as in the JAX package.  The reverse direction needs
+nothing: this package's ``Booster.to_dict()`` emits the same schema,
+which the JAX package's ``Booster.from_dict`` reads back.
 """
 
 from __future__ import annotations
@@ -22,8 +24,4 @@ def booster_from_reference(d: Dict[str, Any],
     """The JAX package's ``Booster.to_dict()`` (plain JSON / numpy
     values) → this package's :class:`~.booster.Booster`, predicting on
     ``device``."""
-    if int(d.get("num_class", 1)) != 1:
-        raise NotImplementedError(
-            "multiclass models are not ported yet (ROADMAP queue A, GBDT "
-            "breadth: multiclass)")
     return Booster.from_dict(d, device=device)

@@ -1,7 +1,8 @@
-"""GBDT pipeline estimator: ``GBDTClassifier`` → ``GBDTClassificationModel``.
+"""GBDT pipeline estimators: ``GBDTClassifier`` → ``GBDTClassificationModel``
+and ``GBDTRegressor`` → ``GBDTRegressionModel``.
 
 The PyTorch port of the JAX package's ``models/gbdt/estimators.py`` for
-the classifier, on one card: ``fit`` trains with
+the classifier and the regressor, on one card: ``fit`` trains with
 :func:`~.booster.train` on the ``device`` param, ``transform`` scores
 whole column batches with one batched traversal on the model's
 ``device``.  The param surface is the JAX package's, less the mesh
@@ -48,9 +49,14 @@ class GBDTParams(Params):
     baggingFraction = FloatParam(doc="row subsample fraction", default=1.0)
     baggingFreq = IntParam(doc="resample every k iterations", default=0)
     baggingSeed = IntParam(doc="bagging seed", default=3)
-    boostingType = StringParam(doc="gbdt|rf|dart|goss (gbdt is ported)",
+    boostingType = StringParam(doc="gbdt|rf|dart|goss (all ported)",
                                default="gbdt",
                                allowed=("gbdt", "rf", "dart", "goss"))
+    growthPolicy = StringParam(
+        doc="depthwise (waves of up to 16 leaves, K2) | lossguide (strict "
+            "leaf-wise, LightGBM's order, one K1 build per split); both "
+            "ported", default="depthwise",
+        allowed=("depthwise", "lossguide"))
     topRate = FloatParam(doc="goss top-gradient keep rate", default=0.2)
     otherRate = FloatParam(doc="goss small-gradient sample rate", default=0.1)
     dropRate = FloatParam(doc="dart tree dropout rate", default=0.1)
@@ -98,6 +104,7 @@ class GBDTParams(Params):
         cfg = BoostingConfig(
             objective=objective,
             boosting_type=self.boostingType,
+            growth_policy=self.growthPolicy,
             num_iterations=self.numIterations,
             learning_rate=self.learningRate,
             num_leaves=self.numLeaves,
@@ -213,8 +220,10 @@ class GBDTModelBase(Model):
 
 class GBDTClassifier(GBDTParams, Estimator):
     """LightGBMClassifier analogue (reference: LightGBMClassifier.scala:27)."""
-    objective = StringParam(doc="binary|multiclass|multiclassova (binary "
-                                "is ported)", default="binary",
+    objective = StringParam(doc="binary|multiclass|multiclassova (all "
+                                "ported; binary with more than two label "
+                                "values trains multiclass)",
+                            default="binary",
                             allowed=("binary", "multiclass", "multiclassova"))
     probabilityCol = StringParam(doc="probability vector column", default="probability")
     rawPredictionCol = StringParam(doc="margin vector column", default="rawPrediction")
@@ -296,3 +305,56 @@ class GBDTClassificationModel(GBDTModelBase):
         b = Booster.from_json(s, device=device)
         return GBDTClassificationModel(boosterModel=b, device=device,
                                        numClasses=max(b.num_class, 2), **kw)
+
+
+class GBDTRegressor(GBDTParams, Estimator):
+    """LightGBMRegressor analogue."""
+    objective = StringParam(
+        doc="regression objective (all ported)", default="regression",
+        allowed=("regression", "regression_l1", "huber", "fair", "poisson",
+                 "quantile", "mape", "gamma", "tweedie", "mse", "mae"))
+    alpha = FloatParam(doc="huber/quantile alpha", default=0.9)
+    tweedieVariancePower = FloatParam(doc="tweedie variance power",
+                                      default=1.5)
+
+    def _fit(self, ds: Dataset) -> "GBDTRegressionModel":
+        kw = self._train_args(ds)
+        X = self._features_matrix(ds)
+        y = np.asarray(ds[self.labelCol], np.float64)
+        w = ds[self.weightCol].astype(np.float32) if self.weightCol else None
+        cfg = self._build_config(self.objective)
+        cfg.alpha = self.alpha
+        cfg.tweedie_variance_power = self.tweedieVariancePower
+        booster, history = train(X, y, cfg, sample_weight=w, **kw)
+        model = GBDTRegressionModel(
+            boosterModel=booster,
+            device=self.device,
+            featuresCol=self.featuresCol,
+            predictionCol=self.predictionCol,
+        )
+        model._eval_history = history
+        return model
+
+
+class GBDTRegressionModel(GBDTModelBase):
+    """LightGBMRegressionModel analogue: the margin, through exp for the
+    log-link objectives (poisson, gamma, tweedie)."""
+
+    def _transform(self, ds: Dataset) -> Dataset:
+        X = ds.to_numpy([self.featuresCol])
+        self._check_features(X)
+        ni = self.numIterationsUsed
+        pred = self.booster.predict_margin(X, None if ni < 0 else ni,
+                                           device=self.device)
+        if self.booster.objective in ("poisson", "gamma", "tweedie"):
+            pred = np.exp(pred)
+        out = ds.with_column(self.predictionCol, np.asarray(pred, np.float64))
+        return self._maybe_add_leaves(out, X)
+
+    @staticmethod
+    def load_native_model_from_string(s: str, device: str = "cuda",
+                                      **kw) -> "GBDTRegressionModel":
+        """A model from the version-2 JSON of either package."""
+        return GBDTRegressionModel(
+            boosterModel=Booster.from_json(s, device=device), device=device,
+            **kw)

@@ -103,8 +103,12 @@ def prep_hist_vals(grad: torch.Tensor, hess: torch.Tensor,
     as in JAX."""
     g = grad * mask
     h = hess * mask
-    s_g = torch.clamp_min(torch.max(torch.abs(g)), 1e-30) / _Q_MAX
-    s_h = torch.clamp_min(torch.max(torch.abs(h)), 1e-30) / _Q_MAX
+    # a tensor divisor: CUDA divides by a Python number as a multiply by
+    # its reciprocal, which can differ from the CPU's quotient in the last
+    # bit and so change every limb of the tree
+    q_max = torch.full((), _Q_MAX, dtype=torch.float32, device=g.device)
+    s_g = torch.clamp_min(torch.max(torch.abs(g)), 1e-30) / q_max
+    s_h = torch.clamp_min(torch.max(torch.abs(h)), 1e-30) / q_max
     g0, g1, g2 = _quant(g, s_g)
     h0, h1, h2 = _quant(h, s_h)
     count = (mask > 0).to(torch.int32)

@@ -1,10 +1,12 @@
-"""Depthwise histogram tree growth on one device.
+"""Histogram tree growth on one device.
 
-The PyTorch port of the JAX package's ``models/gbdt/trainer.py`` for the
-grower the default fit runs: :func:`grow_tree_depthwise`, which splits
-every selected leaf of a wave at once, with one pass over the binned
-matrix per wave (:func:`~.hist.route_and_hist_ids`) and, for wide bins, the
-two-level (coarse-then-refine) histograms.  Split gain follows LightGBM:
+The PyTorch port of the JAX package's ``models/gbdt/trainer.py`` for its
+two single-device growers: :func:`grow_tree_depthwise` (the default),
+which splits every selected leaf of a wave at once, with one pass over
+the binned matrix per wave (:func:`~.hist.route_and_hist_ids`, K2), and
+:func:`grow_tree`, strict leaf-wise (lossguide) growth with one K1 build
+per split (:func:`~.hist.build_hist_nodes`); both take, for wide bins,
+the two-level (coarse-then-refine) histograms.  Split gain follows LightGBM:
 with G/H the child gradient/hessian sums, ``score(G,H) = T(G)^2 / (H +
 λ2)`` where T is the L1 soft-threshold, and ``gain = score(GL,HL) +
 score(GR,HR) - score(G,H)``.  NaN maps to bin 0 and routes left.
@@ -17,9 +19,8 @@ writes the JAX grower sends to its junk node never happen here; the
 kernels still see all ``n_slots`` slots, the unused ones pointing at the
 junk node, as in the JAX package.
 
-Not part of this slice of the port (ROADMAP queue A, GBDT breadth):
-strict leaf-wise growth (``grow_tree``), feature- and voting-parallel
-growth, EFB bundle maps, monotone constraints.
+Not ported yet (ROADMAP queue A, GBDT breadth): feature- and
+voting-parallel growth, EFB bundle maps, monotone constraints.
 """
 
 from __future__ import annotations
@@ -130,10 +131,8 @@ def _gain_matrix(hist, sum_g, sum_h, sum_c, num_bins, feature_mask,
     and node stats of shape (...).  A split at bin b sends bins <= b
     left, b ∈ [0, B-2]."""
     B = hist.shape[-2]
-    gch, hch, cch = hist[..., 0], hist[..., 1], hist[..., 2]
-    gl = _prefix_sum(gch)
-    hl = _prefix_sum(hch)
-    cl = _prefix_sum(cch)
+    # one scan over the three channels at once: the same adds per channel
+    gl, hl, cl = _prefix_sum(hist.movedim(-1, 0))
     sg, sh, sc = sum_g[..., None, None], sum_h[..., None, None], \
         sum_c[..., None, None]
     gr, hr, cr = sg - gl, sh - hl, sc - cl
@@ -194,8 +193,8 @@ def _tl_final_pick(cg, ccum, f_hists, topk, sum_g, sum_h, sum_c, depth,
     ``topk`` features) with the unrefined coarse candidates → per-node
     best split in FINE bin space.  A coarse candidate at coarse bin c maps
     to the fine boundary ``(c+1)·2^shift - 1``."""
-    cg = cg.clone()
-    cg[:, topk.long(), :] = -torch.inf     # refined features compete fine
+    # refined features compete fine
+    cg = cg.index_fill(1, topk.long(), -torch.inf)
     cgain, cf, cc, cgl, chl, ccl = _pick(cg, ccum)
     step = 1 << shift
     cbin = torch.minimum(cc * step + step - 1, num_bins[cf.long()] - 1)
@@ -210,6 +209,37 @@ def _tl_final_pick(cg, ccum, f_hists, topk, sum_g, sum_h, sum_c, depth,
             torch.where(use_f, fgl, cgl),
             torch.where(use_f, fhl, chl),
             torch.where(use_f, fcl, ccl))
+
+
+def _tl_root_pick(bins_t, root_hist, root_stats, row_valid, vals8, scales,
+                  num_bins, num_bins_c, feature_mask, p: GrowthParams):
+    """The two-level root, shared by both growers: coarse gains → the
+    tree's refined feature set → the root's fine histograms of those
+    features (K1 by id) → the merged root pick.  The refined set is chosen
+    ONCE per tree from the root's coarse per-feature gains, so every later
+    build refines left children only and derives right children by fine
+    subtraction.  → (topk (K,) int32, root_fine (1, K, B, 3), the root's
+    (gain, feature, bin, gl, hl, cl))."""
+    B = p.total_bins
+    z1 = torch.zeros(1, dtype=torch.int32, device=bins_t.device)
+    g, h, c = (root_stats[i][None] for i in range(3))
+    cg0, ccum0, fgain0 = _tl_coarse_gains(root_hist[None], g, h, c, z1,
+                                          num_bins_c, feature_mask, p)
+    topk = _topk_index(fgain0[0], p.refine_k)[1]
+    rslot = torch.where(row_valid > 0, 0, -1).to(torch.int32)
+    root_fine = build_hist_nodes(bins_t, rslot, vals8, scales, 1, B,
+                                 feat=topk)
+    rbest = _tl_final_pick(cg0, ccum0, root_fine, topk, g, h, c, z1,
+                           num_bins, feature_mask, p, TWO_LEVEL_SHIFT)
+    return topk, root_fine, tuple(x[0] for x in rbest)
+
+
+def _two_level_on(p: GrowthParams, F: int, N: int) -> bool:
+    """Two-level histograms: wide bins, a refined set smaller than the
+    features, and enough rows (or "on")."""
+    return (p.refine_k > 0 and p.two_level != "off" and p.total_bins >= 128
+            and F > p.refine_k
+            and (p.two_level == "on" or N >= TWO_LEVEL_MIN_ROWS))
 
 
 def _route_left(xb, t1, rlo, rhi, dflt):
@@ -258,10 +288,7 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
         return torch.full((n,), v, dtype=i32, device=dev)
 
     vals8, scales = prep_hist_vals(grad, hess, row_valid)
-    # two-level histograms: wide bins and enough rows ("auto")
-    tl = (p.refine_k > 0 and p.two_level != "off" and B >= 128
-          and F > p.refine_k
-          and (p.two_level == "on" or N >= TWO_LEVEL_MIN_ROWS))
+    tl = _two_level_on(p, F, N)
     SH = TWO_LEVEL_SHIFT
     Bh = coarse_bins(B, SH) if tl else B   # stored-histogram width
     K = p.refine_k
@@ -285,20 +312,10 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
 
     topk = None
     if tl:
-        # the refined feature set is chosen ONCE per tree from the ROOT's
-        # coarse per-feature gains, so every wave refines left children
-        # only and derives right children by fine subtraction
-        cg0, ccum0, fgain0 = _tl_coarse_gains(
-            root_hist[None], root_g[None], root_h[None], root_c[None],
-            depth0[None], num_bins_c, feature_mask, p)
-        topk = _topk_index(fgain0[0], K)[1]               # (K,) int32
-        rslot0 = torch.where(row_valid > 0, 0, -1).to(i32)
-        root_fine = build_hist_nodes(bins_t, rslot0, vals8, scales, 1, B,
-                                     feat=topk)
-        rbest = _tl_final_pick(cg0, ccum0, root_fine, topk, root_g[None],
-                               root_h[None], root_c[None], depth0[None],
-                               num_bins, feature_mask, p, SH)
-        bg, bf_, bb, bgl, bhl, bcl = (x[0] for x in rbest)
+        topk, root_fine, rbest = _tl_root_pick(
+            bins_t, root_hist, root_stats, row_valid, vals8, scales,
+            num_bins, num_bins_c, feature_mask, p)
+        bg, bf_, bb, bgl, bhl, bcl = rbest
     else:
         bg, bf_, bb, bgl, bhl, bcl = _best_split(
             root_hist, root_g, root_h, root_c, num_bins, feature_mask,
@@ -440,6 +457,170 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
     return tree, node_id
 
 
+def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
+              grad: torch.Tensor,           # (N,) f32 or bf16
+              hess: torch.Tensor,           # (N,) f32 or bf16
+              row_valid: torch.Tensor,      # (N,) f32 bag or GOSS weight
+              feature_mask: torch.Tensor,   # (F,) bool
+              upper_bounds: torch.Tensor,   # (F, B-1) f32
+              num_bins: torch.Tensor,       # (F,) int32
+              learning_rate: float,
+              p: GrowthParams) -> Tuple[Tree, torch.Tensor]:
+    """Strict leaf-wise (lossguide) growth → (tree, per-row leaf node ids).
+
+    Each of at most ``num_leaves - 1`` splits takes the leaf of largest
+    gain, routes its rows, builds the left child's histogram with K1 at
+    one slot over the left child's rows (coarse when two-level is on,
+    plus the refined features' fine histograms by id) and the right
+    child's by subtraction from the parent, then picks both children's
+    best splits.  One host sync per split decides whether any leaf can
+    still split (the JAX grower's ``lax.cond``); everything else stays on
+    the device, with the chosen leaf as a one-element index tensor."""
+    if p.voting_k or (p.monotone_constraints
+                      and any(p.monotone_constraints)):
+        raise NotImplementedError(
+            "voting-parallel growth and monotone constraints are not "
+            "ported yet (ROADMAP queue A, GBDT breadth)")
+    dev = bins_t.device
+    i32, f32 = torch.int32, torch.float32
+    F, N = bins_t.shape
+    B = p.total_bins
+    L = p.num_leaves
+    M = max_nodes(L)
+    tl = _two_level_on(p, F, N)
+    SH = TWO_LEVEL_SHIFT if tl else 0
+    Bh = coarse_bins(B, SH) if tl else B
+    K = p.refine_k
+    num_bins = num_bins.to(i32)
+    num_bins_c = (num_bins + (1 << TWO_LEVEL_SHIFT) - 1) >> TWO_LEVEL_SHIFT
+
+    vals8, scales = prep_hist_vals(grad, hess, row_valid)
+    valid = row_valid > 0
+
+    def build(in_node, feat=None):
+        """K1 at one slot over the rows of ``in_node`` that carry weight:
+        (F, Bh, 3), or (K, B, 3) for the refined rows ``feat``."""
+        slot = torch.where(in_node & valid, 0, -1).to(i32)
+        return build_hist_nodes(bins_t, slot, vals8, scales, 1, B,
+                                hist_shift=(0 if feat is not None else SH),
+                                feat=feat)[0]
+
+    root_hist = build(torch.ones_like(valid))
+    # the scan's last entry: the same adds in the same order on every
+    # device (see _prefix_sum)
+    root_stats = _prefix_sum(root_hist[0].t())[:, -1]
+    topk = None
+    if tl:
+        topk, root_fine, rbest = _tl_root_pick(
+            bins_t, root_hist, root_stats, row_valid, vals8, scales,
+            num_bins, num_bins_c, feature_mask, p)
+    else:
+        rbest = _best_split(root_hist, root_stats[0], root_stats[1],
+                            root_stats[2], num_bins, feature_mask,
+                            torch.zeros((), dtype=i32, device=dev), p)
+
+    zi = torch.zeros(M, dtype=i32, device=dev)
+    zf = torch.zeros(M, dtype=f32, device=dev)
+    node_id = torch.zeros(N, dtype=i32, device=dev)
+    hist = torch.zeros((L + 1, F * Bh, 3), dtype=f32, device=dev)
+    hist[0] = root_hist.reshape(F * Bh, 3)
+    if tl:
+        hist_f = torch.zeros((L + 1, K * B, 3), dtype=f32, device=dev)
+        hist_f[0] = root_fine[0].reshape(K * B, 3)
+    slot = zi.clone()
+    sum_g, sum_h, sum_c = zf.clone(), zf.clone(), zf.clone()
+    sum_g[0], sum_h[0], sum_c[0] = root_stats
+    depth = zi.clone()
+    best_gain = torch.full((M,), -torch.inf, dtype=f32, device=dev)
+    best_feat, best_bin = zi.clone(), zi.clone()
+    best_gl, best_hl, best_cl = zf.clone(), zf.clone(), zf.clone()
+    for t, v in zip((best_gain, best_feat, best_bin, best_gl, best_hl,
+                     best_cl), rbest):
+        t[0] = v
+    active = torch.zeros(M, dtype=torch.bool, device=dev)
+    active[0] = True
+    split_feature = torch.full((M,), -1, dtype=i32, device=dev)
+    split_bin, split_gain, threshold = zi.clone(), zf.clone(), zf.clone()
+    left_child = torch.full((M,), -1, dtype=i32, device=dev)
+    right_child = left_child.clone()
+    num_nodes = 1
+
+    for _ in range(L - 1):
+        gains = torch.where(active, best_gain, -torch.inf)
+        if not bool(gains.max() > p.min_gain_to_split):   # the host sync
+            break
+        leaf = gains.argmax().view(1)                  # first best leaf
+        feat, sbin = best_feat[leaf], best_bin[leaf]
+        l_id, r_id = num_nodes, num_nodes + 1
+        kids = slice(l_id, l_id + 2)
+        r_slot = num_nodes // 2 + 1           # one fresh slot per split
+        go_left = _route_left(bins_t.index_select(0, feat.long())[0], sbin,
+                              -1, B, 1)
+        node_id = torch.where(node_id == leaf,
+                              torch.where(go_left, l_id, r_id),
+                              node_id).to(i32)
+        in_left = node_id == l_id
+        # left child by one K1 pass, right child by subtraction
+        pslot = slot[leaf].long()
+        l_hist = build(in_left).reshape(1, F * Bh, 3)
+        r_hist = hist[pslot] - l_hist
+        hist[pslot] = l_hist
+        hist[r_slot] = r_hist[0]
+        lg, lh, lc = best_gl[leaf], best_hl[leaf], best_cl[leaf]
+        cg = torch.cat([lg, sum_g[leaf] - lg])
+        ch = torch.cat([lh, sum_h[leaf] - lh])
+        cc = torch.cat([lc, sum_c[leaf] - lc])
+        cd = (depth[leaf] + 1).expand(2)
+        child_hists = torch.cat([l_hist, r_hist]).reshape(2, F, Bh, 3)
+        if tl:
+            lf = build(in_left, feat=topk).reshape(1, K * B, 3)
+            rf = hist_f[pslot] - lf
+            hist_f[pslot] = lf
+            hist_f[r_slot] = rf[0]
+            cgm, ccum, _ = _tl_coarse_gains(child_hists, cg, ch, cc, cd,
+                                            num_bins_c, feature_mask, p)
+            picks = _tl_final_pick(
+                cgm, ccum, torch.cat([lf, rf]).reshape(2, K, B, 3), topk,
+                cg, ch, cc, cd, num_bins, feature_mask, p, TWO_LEVEL_SHIFT)
+        else:
+            picks = _best_split(child_hists, cg, ch, cc, num_bins,
+                                feature_mask, cd, p)
+        split_feature[leaf] = feat
+        split_bin[leaf] = sbin
+        split_gain[leaf] = best_gain[leaf]
+        threshold[leaf] = torch.where(
+            sbin >= 1,
+            upper_bounds[feat.long(), torch.clamp_min(sbin - 1, 0).long()],
+            -torch.inf)
+        # index_fill_ takes the ids as kernel arguments (an index_put_ of a
+        # Python int would copy it from the host)
+        left_child.index_fill_(0, leaf, l_id)
+        right_child.index_fill_(0, leaf, r_id)
+        for t, v in zip((best_gain, best_feat, best_bin, best_gl, best_hl,
+                         best_cl), picks):
+            t[kids] = v
+        slot[l_id] = pslot[0]
+        slot[r_id] = r_slot
+        sum_g[kids], sum_h[kids], sum_c[kids] = cg, ch, cc
+        depth[kids] = cd
+        active.index_fill_(0, leaf, False)
+        active[kids] = True
+        num_nodes += 2
+
+    node_value = learning_rate * _leaf_output(sum_g, sum_h, p.lambda_l1,
+                                              p.lambda_l2)
+    leaf_value = torch.where(left_child < 0, node_value, 0.0)
+    tree = Tree(split_feature=split_feature, split_bin=split_bin,
+                threshold=threshold, split_gain=split_gain,
+                left_child=left_child, right_child=right_child,
+                leaf_value=leaf_value, node_value=node_value,
+                num_nodes=torch.tensor(num_nodes, dtype=i32, device=dev),
+                default_left=torch.ones(M, dtype=torch.bool, device=dev),
+                node_count=sum_c,
+                missing_zero=torch.zeros(M, dtype=torch.bool, device=dev))
+    return tree, node_id
+
+
 def predict_raw_features(features: torch.Tensor, trees_stacked: Tree,
                          depth_bound: int):
     """Sum of all trees' outputs on raw (N, F) float features, and the
@@ -467,6 +648,22 @@ def predict_raw_features(features: torch.Tensor, trees_stacked: Tree,
         total = total + t.leaf_value[k][node]
         leaves.append(node.to(torch.int32))
     return total, torch.stack(leaves)
+
+
+def predict_binned_tree(bins_t: torch.Tensor, tree: Tree,
+                        depth_bound: int) -> torch.Tensor:
+    """One tree's leaf values (N,) on the (F, N) binned training matrix
+    (DART's rescoring): each node sends bins <= its split bin left."""
+    N = bins_t.shape[1]
+    node = torch.zeros(N, dtype=torch.long, device=bins_t.device)
+    sf, sb = tree.split_feature.long(), tree.split_bin
+    lc, rc = tree.left_child.long(), tree.right_child.long()
+    for _ in range(depth_bound):
+        feat = sf[node]
+        xb = bins_t.gather(0, torch.clamp_min(feat, 0)[None])[0]
+        child = torch.where(xb <= sb[node], lc[node], rc[node])
+        node = torch.where(feat < 0, node, child)
+    return tree.leaf_value[node]
 
 
 def stack_trees(trees) -> Tree:

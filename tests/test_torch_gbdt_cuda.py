@@ -228,3 +228,181 @@ def test_grower_on_card_equals_cpu(dev):
     assert torch.equal(nc, np_)
     for f in T.Tree._fields:
         assert torch.equal(getattr(tc, f), getattr(tp, f)), f
+
+
+@pytest.mark.parametrize("two_level,rows", [
+    ("on", "all"), ("off", "all"), ("on", "goss"), ("off", "bag")])
+def test_lossguide_grower_on_card_equals_cpu(dev, two_level, rows):
+    """The lossguide tree (K1 at one slot per split, coarse plus refined
+    by id with two-level on) is the same on the card and on the CPU, with
+    0/1 bag weights and GOSS weights."""
+    rng = np.random.default_rng(11)
+    N, F, B = 30_000, 9, 256
+    bins = rng.integers(0, B, (F, N)).astype(np.int32)
+    grad = rng.normal(size=N).astype(np.float32)
+    hess = (np.abs(grad) * 0.5 + 0.2).astype(np.float32)
+    rv = np.ones(N, np.float32)
+    if rows == "bag":
+        rv = (rng.random(N) < 0.8).astype(np.float32)
+    elif rows == "goss":
+        rv = np.where(np.abs(grad) > 1.2, 1.0,
+                      np.where(rng.random(N) < 0.1, 8.0, 0.0)).astype(
+                          np.float32)
+    ub = np.sort(rng.normal(size=(F, B - 1)).astype(np.float32), axis=1)
+    nb = np.full(F, B, np.int32)
+    p = T.GrowthParams(num_leaves=31, min_data_in_leaf=5.0, total_bins=B,
+                       two_level=two_level, refine_k=4)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        launches.reset()
+        t, nid = T.grow_tree(
+            *(torch.as_tensor(a, device=d) for a in (
+                bins, grad, hess, rv, np.ones(F, bool), ub, nb)), 0.1, p)
+        out[d.type] = (T.Tree(*[a.cpu() for a in t]), nid.cpu())
+        if d.type == "cuda":
+            splits = (int(t.num_nodes) - 1) // 2
+            assert launches.total("build_hist_nodes") == (
+                (1 + splits) * (2 if two_level == "on" else 1))
+    (tc, nc), (tp, np_) = out["cuda"], out["cpu"]
+    assert torch.equal(nc, np_)
+    for f in T.Tree._fields:
+        assert torch.equal(getattr(tc, f), getattr(tp, f)), f
+
+
+def test_prep_hist_vals_on_card_equals_cpu(dev):
+    """The per-tree quantization scale is max|g| / Q_MAX as a true
+    division on both devices: at these maxima a multiply by the
+    reciprocal (what CUDA does for a Python divisor) differs in the last
+    bit, which would change every limb."""
+    rng = np.random.default_rng(4)
+    q = np.float32(H._Q_MAX)
+    for top in (1.4442534446716309, 3.6946444511413574, 0.6175495386123657):
+        assert np.float32(top) * (np.float32(1) / q) != np.float32(top) / q
+        g = rng.uniform(-1, 1, 10_000).astype(np.float32) * np.float32(top)
+        g[17] = top
+        h = np.abs(g) + np.float32(0.1)
+        m = (rng.random(10_000) < 0.8).astype(np.float32)
+        m[17] = 1.0
+        got = H.prep_hist_vals(*(torch.as_tensor(a, device=dev)
+                                 for a in (g, h, m)))
+        want = H.prep_hist_vals(*(torch.from_numpy(a) for a in (g, h, m)))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name", ["binary", "regression", "huber", "fair",
+                                  "poisson", "gamma", "tweedie", "softmax",
+                                  "ova"])
+def test_objective_gradients_on_card_equal_cpu(dev, name):
+    """The fit's gradients (``booster._grad_hess``: float64, rounded to
+    f32) are the same bits on the card and on the CPU, though f32
+    ``sigmoid``/``exp``/``softmax`` alone differ in the last bit."""
+    from synapseml_tpu_torch.models.gbdt import objectives as O
+    from synapseml_tpu_torch.models.gbdt.booster import _grad_hess
+    rng = np.random.default_rng(5)
+    n = 300_000
+    s = torch.as_tensor(rng.normal(scale=2, size=(n, 3)).astype(np.float32))
+    lab = torch.as_tensor(rng.integers(0, 3, n).astype(np.float32))
+    w = torch.as_tensor(rng.uniform(0.5, 2, n).astype(np.float32))
+    if name in ("softmax", "ova"):
+        fn = O.softmax_grad_hess if name == "softmax" else O.ova_grad_hess
+        args = (s, torch.nn.functional.one_hot(lab.long(), 3).float(), w)
+    else:
+        fn = O.get_objective(name)
+        y = (lab > 0).float() if name == "binary" else lab + 0.5
+        args = (s[:, 0], y, w)
+    got = _grad_hess(fn, *(a.to(dev) for a in args))
+    want = _grad_hess(fn, *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_masks_drawn_on_card_equal_cpu(dev):
+    """The threefry draws, the bagging mask and the GOSS weights are the
+    same bits on the card and on the CPU."""
+    from synapseml_tpu_torch.models.gbdt import prng
+    from synapseml_tpu_torch.models.gbdt.booster import bag_mask, \
+        goss_weights
+    rng = np.random.default_rng(3)
+    for n in (1, 7, 65_539, 1_000_003):
+        key = prng.fold_in(prng.prng_key(3), n)
+        assert torch.equal(prng.random_bits(key, n, dev).cpu(),
+                           prng.random_bits(key, n, "cpu"))
+        assert torch.equal(bag_mask(key, n, 0.8, dev).cpu(),
+                           bag_mask(key, n, 0.8, torch.device("cpu")))
+        g = np.abs(rng.normal(size=n)).astype(np.float32)
+        bag = (rng.random(n) < 0.8).astype(np.float32)
+        got = goss_weights(torch.as_tensor(g, device=dev),
+                           torch.as_tensor(bag, device=dev), key, 0.2, 0.1)
+        want = goss_weights(torch.from_numpy(g), torch.from_numpy(bag), key,
+                            0.2, 0.1)
+        assert torch.equal(got.cpu(), want)
+
+
+def _fit_data(kind, n=20_000, F=8, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    s = 2 * X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3] + rng.normal(
+        scale=0.5, size=n)
+    if kind == "multi":
+        return X, np.digitize(s, np.quantile(s, [1 / 3, 2 / 3])).astype(
+            np.float64)
+    if kind == "poisson":
+        return X, np.exp(0.5 * X[:, 0] + 0.2 * X[:, 1]) * rng.gamma(
+            2.0, 0.5, n)
+    if kind == "huber":
+        return X, 0.3 * s
+    return X, (s > 0).astype(np.float64)
+
+
+FIT_CASES = {
+    "lossguide": ("binary", dict(objective="binary",
+                                 growth_policy="lossguide")),
+    "lossguide_two_level": ("binary", dict(
+        objective="binary", growth_policy="lossguide", two_level_hist="on")),
+    "bagging": ("binary", dict(objective="binary", bagging_fraction=0.8,
+                               bagging_freq=1)),
+    "goss": ("binary", dict(objective="binary", boosting_type="goss")),
+    "dart": ("binary", dict(objective="binary", boosting_type="dart",
+                            skip_drop=0.0, drop_rate=0.5)),
+    "rf": ("binary", dict(objective="binary", boosting_type="rf",
+                          bagging_fraction=0.7, bagging_freq=1)),
+    "multiclass": ("multi", dict(objective="multiclass", num_class=3,
+                                 bagging_fraction=0.8, bagging_freq=1)),
+    "multiclassova": ("multi", dict(objective="multiclassova", num_class=3)),
+    "huber": ("huber", dict(objective="huber", min_sum_hessian_in_leaf=1.0)),
+    "poisson": ("poisson", dict(objective="poisson")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIT_CASES))
+def test_fit_on_card_equals_cpu(dev, name):
+    """The same fit through ``train`` on the card and on the CPU: every
+    tree splits on the same features and bins, the margins agree to
+    1e-4, and the fit's kernel ran on the card."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+    kind, kw = FIT_CASES[name]
+    X, y = _fit_data(kind)
+    cfg = BoostingConfig(num_iterations=4, num_leaves=15, **kw)
+    res = {}
+    for d in ("cuda", "cpu"):
+        launches.reset()
+        b, _ = train(X, y, cfg, device=d)
+        if d == "cuda":
+            kern = ("build_hist_nodes" if kw.get("growth_policy")
+                    == "lossguide" else "route_and_hist")
+            assert launches.total(kern) > 0
+        res[d] = b
+    bc, bp = res["cuda"], res["cpu"]
+    assert bc.tree_class == bp.tree_class
+    assert bc.tree_weights == bp.tree_weights
+    for tc, tp in zip(bc.trees, bp.trees):
+        n = int(tc.num_nodes)
+        assert int(tp.num_nodes) == n
+        np.testing.assert_array_equal(tc.split_feature[:n],
+                                      tp.split_feature[:n])
+        np.testing.assert_array_equal(tc.split_bin[:n], tp.split_bin[:n])
+    np.testing.assert_allclose(bc.predict_margin(X[:2000], device="cpu"),
+                               bp.predict_margin(X[:2000], device="cpu"),
+                               rtol=0, atol=1e-4)

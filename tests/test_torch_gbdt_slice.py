@@ -133,12 +133,10 @@ def test_two_level_fit_on_cpu_is_close_to_full_resolution():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(boosting_type="goss"), dict(boosting_type="dart"),
-    dict(bagging_fraction=0.5, bagging_freq=1),
-    dict(growth_policy="lossguide"), dict(enable_bundle=True),
+    dict(enable_bundle=True),
     dict(monotone_constraints=[1, 0, 0, 0, 0, 0, 0, 0]),
     dict(categorical_feature=[1]), dict(early_stopping_round=5),
-    dict(objective="multiclass"), dict(parallelism="voting_parallel"),
+    dict(objective="lambdarank"), dict(parallelism="voting_parallel"),
 ])
 def test_unported_config_raises(kw):
     X, y = _binary_data(n=200)
