@@ -6,7 +6,9 @@
    ``nvidia-smi``), and builds every CUDA kernel of the port from the
    sources in this checkout (one ``nvcc`` per source, all at once).
 2. For each histogram kernel (K1, K2), at the shapes the main-path fits
-   give it (K1 also at the node-batched shape of two unported builds),
+   give it (K1 also at the node-batched shape of two unported builds;
+   the full-resolution B=256 shapes of the EFB and monotone fits, and
+   K2 over a bundled matrix with random non-full routing ranges),
    holds the kernel (in the id form the grower calls) against
    its plain PyTorch version, its gathered-row form and the previous
    kernel on the same inputs on the card: int32 limb histograms
@@ -86,12 +88,32 @@
     holdout accuracy > 0.55; reports multi_logloss and s/iteration.
 11. Breadth, the card against the CPU on 65,536 rows, 3 iterations:
     lossguide (two-level on and off), bagging, GOSS, DART, RF,
-    multiclass, multiclassova, huber and poisson: equal splits, tree
-    classes and weights, margins within 1e-4; the fit's gradients
-    (float64 rounded to f32) equal on the card and the CPU at 1M rows,
-    beside the count of rows where f32 ``sigmoid``/``exp``/``softmax``
-    alone differ; the bagging mask and GOSS weights drawn on the card
-    bit-identical to the CPU's, at 65,536 and 1,000,003 rows.
+    multiclass, multiclassova, huber, poisson, 4 categorical
+    columns of 100 levels, EFB over 8 one-hot blocks of 32 levels
+    depthwise and lossguide, monotone constraints (basic, intermediate,
+    advanced, each depthwise and lossguide), a validation fit with early
+    stopping (the same best iteration, eval histories within 1e-9) and
+    a checkpoint resume: equal splits, tree classes and weights, margins
+    within 1e-4; the fit's gradients (float64 rounded to f32) equal on
+    the card and the CPU at 1M rows, beside the count of rows where f32
+    ``sigmoid``/``exp``/``softmax`` alone differ; the bagging mask and
+    GOSS weights drawn on the card bit-identical to the CPU's, at 65,536
+    and 1,000,003 rows.
+12. GBDT breadth II at full width (1M x 28, 100k holdout, fresh data
+    from ``--seed``), each fit through ``GBDTClassifier`` with its launch
+    check: (a) a 100k-row validation set (``validationIndicatorCol``,
+    ``earlyStoppingRound=5``, AUC, learning rate 0.5): best iteration,
+    its AUC and s/iteration beside the same fit without validation for
+    as many iterations; (b) ``checkpointInterval=5``: 5 iterations, then
+    resumed to 10, trees equal to an uninterrupted 10-iteration fit; (c)
+    4 categorical columns of 100 levels, holdout AUC > 0.8; (d) 8
+    one-hot blocks of 32 levels (284 features): EFB against unbundled,
+    both at ``two_level_hist="off"``, depthwise and lossguide, held to
+    the JAX package's EFB property (split features equal, split bins
+    within 1, margins within 1e-3), with the bundle count, both fits'
+    s/iteration and K2's launches with bundled ranges (> 0); (e)
+    monotone constraints on 3 features, each method: sweeps of each
+    constrained feature over 1,000 holdout rows find no violation.
 
 Prints the kernels' JSON line (each K1/K2 shape with its launches summed
 over the runs that launch it, and by run), then the card's name and
@@ -106,6 +128,8 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -120,6 +144,10 @@ PEAK_OPS_S = 67e12
 PEAK_BF16_S = 989e12
 #: requests of the full-width LLM run (phase 8): 1.5 waves of 16 slots
 LLM_REQUESTS = 24
+#: where phases 11 and 12 write their checkpoints (``build/`` is not
+#: committed); each run removes its own
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_checkpoints")
 #: copies of the K/V cache K3's timed calls rotate over (phase 6): at 16
 #: slots x 2048 positions, 6 x 67 MB in bf16, so no call finds its K/V in
 #: the 50 MB L2
@@ -163,10 +191,56 @@ def bound(nbytes: int, nops: int, peak_ops: float = PEAK_OPS_S):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def gbdt_labels(rng, X):
-    """bench.py's label concept for train and holdout."""
-    return (X[:, 0] * 2 - X[:, 1] + X[:, 2] * X[:, 3]
+def gbdt_labels(rng, X, extra=0.0):
+    """bench.py's label concept for train and holdout (plus ``extra``, a
+    generated columns' part of the score)."""
+    return (X[:, 0] * 2 - X[:, 1] + X[:, 2] * X[:, 3] + extra
             + rng.normal(scale=0.5, size=len(X)) > 0).astype(np.float64)
+
+
+#: phase 12's generated columns: 4 categorical columns of 100 levels, 8
+#: one-hot blocks of 32 levels (which EFB bundles into 8 columns beside
+#: the 28 dense ones)
+CAT_COLS, CAT_LEVELS = 4, 100
+OH_BLOCKS, OH_LEVELS = 8, 32
+#: phase 12's monotone constraints: x0 up, x1 down, x2 up (the task's
+#: x2·x3 term is not monotone in x2)
+MONO = [1, -1, 1] + [0] * 25
+
+
+def with_categorical(rng, X):
+    """X with 4 categorical columns (codes of 100 levels) appended, and
+    their part of the label score (category subsets)."""
+    c = rng.integers(0, CAT_LEVELS, (len(X), CAT_COLS))
+    extra = ((c[:, 0] % 3 == 0) * 1.0 - (c[:, 1] % 4 == 1) * 1.0
+             + (c[:, 2] < 20) * 0.5)
+    return np.concatenate([X, c.astype(np.float32)], axis=1), extra
+
+
+def with_onehot(rng, X):
+    """X with 8 one-hot blocks of 32 levels appended, and their part of
+    the label score."""
+    n = len(X)
+    c = rng.integers(0, OH_LEVELS, (n, OH_BLOCKS))
+    oh = np.zeros((n, OH_BLOCKS * OH_LEVELS), np.float32)
+    oh[np.arange(n)[:, None], np.arange(OH_BLOCKS) * OH_LEVELS + c] = 1.0
+    extra = (c[:, 0] < 8) * 1.0 - (c[:, 1] % 5 == 0) * 0.8
+    return np.concatenate([X, oh], axis=1), extra
+
+
+def sweep_violations(booster, base, feats_dirs, n_grid=32):
+    """Each constrained feature swept over ``n_grid`` values in [-3, 3]
+    from every base row, the other features fixed: → {feature: (steps
+    against its direction by more than 1e-6, the largest such step)}."""
+    out = {}
+    grid = np.linspace(-3, 3, n_grid, dtype=np.float32)
+    for f, d in feats_dirs:
+        probes = np.repeat(base, n_grid, axis=0)
+        probes[:, f] = np.tile(grid, len(base))
+        m = booster.predict_margin(probes).reshape(len(base), n_grid)
+        step = np.diff(m, axis=1) * d
+        out[f] = (int((step < -1e-6).sum()), max(0.0, -float(step.min())))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -218,11 +292,14 @@ def check_equal(what, got, want) -> int:
     return err
 
 
-def k2_case(rng, dev, N, F, S, B, shift, K):
+def k2_case(rng, dev, N, F, S, B, shift, K, ranges="full"):
     """One mid-tree wave (S pending leaves among 2S node ids) or, with
     S=1, a tree's root pass (every row in leaf 0, split all-left), in the
     id form the grower calls: split and refined features are row ids of
-    the binned matrix."""
+    the binned matrix.  ``ranges="bundle"``: an EFB wave over bundled
+    columns, each split routing through a random range (rlo, rhi] inside
+    the column, its threshold within the range and the rows outside by a
+    random ``dflt``."""
     from synapseml_tpu_torch.models.gbdt import hist as H
     i32 = torch.int32
     bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
@@ -248,6 +325,13 @@ def k2_case(rng, dev, N, F, S, B, shift, K):
         r_id = l_id + 1
     rlo, rhi, dflt = (torch.full((S,), v, dtype=i32, device=dev)
                       for v in (-1, B, 1))
+    if ranges == "bundle":
+        lo = rng.integers(0, B // 2, S)
+        hi = lo + rng.integers(1, B // 2, S)
+        rlo, rhi, t1, dflt = (
+            torch.as_tensor(a.astype(np.int32), device=dev) for a in (
+                lo, hi, lo + rng.integers(0, hi - lo + 1),
+                rng.integers(0, 2, S)))
     feat_k = (torch.as_tensor(rng.permutation(F)[:K].astype(np.int32),
                               device=dev) if K else None)
     # the previous kernel and the JAX signature take gathered rows
@@ -257,7 +341,7 @@ def k2_case(rng, dev, N, F, S, B, shift, K):
     split = (t1, rlo, rhi, dflt, l_id, r_id)
     ids = (bins, *route, feat, *split, vals, S, B, shift, feat_k)
     gathered = (bins, *route, sel, *split, vals, S, B, shift, sel_k)
-    out_k = H.route_and_hist_ids_limbs(*ids)
+    out_k = H.route_and_hist_ids_limbs(*ids, ranges=ranges)
     out_p = H.route_and_hist_plain(*gathered)
     torch.cuda.synchronize()
     err = max(check_equal("route_and_hist (ids)", out_k, out_p),
@@ -272,7 +356,8 @@ def k2_case(rng, dev, N, F, S, B, shift, K):
     nbytes = (F * N * 4 + N * 4 + N * 8 + 8 * S * 4 + K * 4 + N * 4
               + F * Bh * S * 32 + K * B * S * 32)
     b_ms, b_by = bound(nbytes, N * (F + K) * 7 + N * 4)
-    ms, prev = in_turns(lambda: H.route_and_hist_ids_limbs(*ids),
+    ms, prev = in_turns(lambda: H.route_and_hist_ids_limbs(*ids,
+                                                           ranges=ranges),
                         lambda: H.route_and_hist_limbs_previous(*gathered))
     r = dict(
         ms=ms, previous_ms=prev,
@@ -349,22 +434,37 @@ def k1_case(rng, dev, N, F, S, B, shift, K=0):
 # phases 3 to 5: the main path
 # --------------------------------------------------------------------------
 
-def card_vs_cpu(X, y, Xh, kernels, iters: int = 2, **kw):
+def card_vs_cpu(X, y, Xh, kernels, iters: int = 2, valid=None,
+                resume: bool = False, **kw):
     """The same fit through ``train`` on the card and on the CPU: → the
     largest margin difference on ``Xh``; raises if any tree splits on
     another feature or bin, the trees' classes or weights differ, or a
-    kernel in ``kernels`` never ran on the card."""
+    kernel in ``kernels`` never ran on the card.  ``valid``: the fits
+    evaluate it every iteration and must stop at the same iteration with
+    eval histories within 1e-9.  ``resume``: each device stops after
+    half the iterations (checkpoints every iteration under ``build/``)
+    and resumes."""
     from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
-    cfg = BoostingConfig(num_iterations=iters, **kw)
     res = {}
     for d in ("cuda", "cpu"):
         L.reset()
-        booster, _ = train(X, y, cfg, device=d)
+        if resume:
+            ck = os.path.join(CKPT_ROOT, f"card_vs_cpu_{d}")
+            shutil.rmtree(ck, ignore_errors=True)
+            for n in (iters // 2, iters):
+                booster, hist = train(X, y, BoostingConfig(
+                    num_iterations=n, **kw), checkpoint_dir=ck,
+                    checkpoint_interval=1, device=d)
+            shutil.rmtree(ck)
+        else:
+            booster, hist = train(X, y, BoostingConfig(num_iterations=iters,
+                                                       **kw),
+                                  valid=valid, device=d)
         if d == "cuda" and any(L.total(k) == 0 for k in kernels):
             raise AssertionError(f"{kw}: a kernel never ran on the card: "
                                  f"{L.BY_SHAPE}")
-        res[d] = (booster, booster.predict_margin(Xh, device="cpu"))
+        res[d] = (booster, booster.predict_margin(Xh, device="cpu"), hist)
     bc, bp = res["cuda"][0], res["cpu"][0]
     if (bc.tree_class, bc.tree_weights) != (bp.tree_class, bp.tree_weights):
         raise AssertionError(f"{kw}: card and CPU trees differ in class or "
@@ -376,6 +476,14 @@ def card_vs_cpu(X, y, Xh, kernels, iters: int = 2, **kw):
                 and np.array_equal(tc.split_bin[:n], tp.split_bin[:n])):
             raise AssertionError(f"{kw}: card and CPU trees split "
                                  "differently")
+    hc, hp = res["cuda"][2], res["cpu"][2]
+    if valid is not None and (
+            bc.best_iteration != bp.best_iteration or len(hc) != len(hp)
+            or max(abs(a.value - b.value) for a, b in zip(hc, hp)) > 1e-9):
+        raise AssertionError(f"{kw}: card and CPU validation differ: best "
+                             f"iteration {bc.best_iteration} against "
+                             f"{bp.best_iteration}, {len(hc)} against "
+                             f"{len(hp)} evaluations")
     return float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])))
 
 
@@ -429,15 +537,24 @@ def objectives_card_vs_cpu(dev, n: int, seed: int) -> dict:
     return out
 
 
-def fit_path(X, y, Xh, yh, iters, device="cuda", **params):
+def fit_path(X, y, Xh, yh, iters, device="cuda", valid=None, **params):
     """``Pipeline([GBDTClassifier(**params)]).fit`` then ``transform`` on
     the holdout; launch counts are reset just before the fit and read
-    just after it.  → (result, the fitted model stage)."""
+    just after it.  ``valid`` = (Xv, yv): rows appended to the training
+    set and flagged by ``validationIndicatorCol``.  → (result, the
+    fitted model stage)."""
     from synapseml_tpu_torch.core import Dataset, Pipeline
     from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
     from synapseml_tpu_torch.models.gbdt.metrics import auc, multi_logloss
-    ds = Dataset({"features": list(X), "label": y})
+    if valid is None:
+        ds = Dataset({"features": list(X), "label": y})
+    else:
+        ds = Dataset({"features": list(np.concatenate([X, valid[0]])),
+                      "label": np.concatenate([y, valid[1]]),
+                      "isValid": np.arange(len(X) + len(valid[0]))
+                      >= len(X)})
+        params = dict(params, validationIndicatorCol="isValid")
     hold = Dataset({"features": list(Xh), "label": yh})
     L.reset()
     t0 = time.perf_counter()
@@ -463,7 +580,8 @@ def fit_path(X, y, Xh, yh, iters, device="cuda", **params):
     m = gbdt.training_measures
     trees = gbdt.booster.trees
     r = dict(fit_s=fit_s, train_s=m.training_s,
-             s_per_iter=m.seconds_per_iteration(),
+             s_per_iter=m.seconds_per_iteration(), eval_s=m.eval_s,
+             iterations=m.iterations,
              binning_s=m.binning_s, transform_s=transform_s,
              trees=len(trees),
              splits=sum((int(t.num_nodes) - 1) // 2 for t in trees),
@@ -787,6 +905,134 @@ def profile_decode(model, prompts, new, warmup: str = "off",
                           for e in host[:10]])
 
 
+def breadth2(seed: int, N: int, F: int, iters: int, check_path,
+             device: str = "cuda") -> None:
+    """Phase 12: validation, checkpoint resume, categorical features, EFB
+    and monotone constraints at full width, each fit through
+    ``fit_path``; ``check_path(name, result)`` holds each run's launches
+    to its phase-2 shapes.  Raises on any failed check."""
+    FO, FB = F + OH_BLOCKS * OH_LEVELS, F + OH_BLOCKS
+    r12 = np.random.default_rng(seed + 12)
+    X = r12.normal(size=(N, F)).astype(np.float32)
+    y = gbdt_labels(r12, X)
+    Xh = r12.normal(size=(100_000, F)).astype(np.float32)
+    yh = gbdt_labels(r12, Xh)
+    # 12a. a 100k-row validation set with early stopping, then the same
+    # fit without it for as many iterations
+    Xv = r12.normal(size=(100_000, F)).astype(np.float32)
+    vkw = dict(learningRate=0.5, metric="auc")
+    r, gbdt = fit_path(X, y, Xh, yh, 100, device=device,
+                       valid=(Xv, gbdt_labels(r12, Xv)),
+                       earlyStoppingRound=5, **vkw)
+    check_path("validation", r)
+    hist, best = gbdt._eval_history, gbdt.booster.best_iteration
+    if len(hist) != r["iterations"] or not 0 <= best < len(hist):
+        raise AssertionError(f"validation: {len(hist)} evaluations in "
+                             f"{r['iterations']} iterations, best {best}")
+    r0, _ = fit_path(X, y, Xh, yh, r["iterations"], device=device, **vkw)
+    r.update(best_iteration=best, best_valid_auc=hist[best].value,
+             evaluations=len(hist), stopped_early=len(hist) < 100,
+             eval_s_per_iter=r["eval_s"] / r["iterations"],
+             s_per_iter_without_validation=r0["s_per_iter"])
+    log(f"fit validation 100k rows, earlyStoppingRound=5: {json.dumps(r)}")
+    del Xv
+
+    # 12b. checkpoints every 5 iterations: stopped after 5, resumed to 10,
+    # against 10 uninterrupted
+    ck = os.path.join(CKPT_ROOT, "phase12")
+    shutil.rmtree(ck, ignore_errors=True)
+    r_full, gb_full = fit_path(X, y, Xh, yh, 10, device=device)
+    fit_path(X, y, Xh, yh, 5, device=device, checkpointDir=ck,
+             checkpointInterval=5)
+    r, gb_res = fit_path(X, y, Xh, yh, 10, device=device, checkpointDir=ck,
+                         checkpointInterval=5)
+    shutil.rmtree(ck)
+    check_path("resumed", r)
+    same = gb_res.booster.num_trees == 10 and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(gb_full.booster.trees, gb_res.booster.trees)
+        for f in ("split_feature", "split_bin", "threshold", "leaf_value"))
+    if not same or r["auc"] != r_full["auc"]:
+        raise AssertionError("resumed: the trees differ from the "
+                             "uninterrupted fit's")
+    r["uninterrupted_auc"] = r_full["auc"]
+    log(f"fit resumed after 5 of 10 iterations: trees equal to the "
+        f"uninterrupted fit's; {json.dumps(r)}")
+
+    # 12c. 4 categorical columns of 100 levels
+    Xc, extra = with_categorical(r12, X)
+    Xhc, extra_h = with_categorical(r12, Xh)
+    r, gbdt = fit_path(Xc, gbdt_labels(r12, X, extra), Xhc,
+                       gbdt_labels(r12, Xh, extra_h), iters, device=device,
+                       categoricalSlotIndexes=list(range(F, F + CAT_COLS)))
+    check_path("categorical", r)
+    if r["auc"] <= 0.8 or not gbdt.booster.bin_mapper.has_categorical:
+        raise AssertionError(f"categorical: holdout AUC {r['auc']}")
+    log(f"fit categorical 4 x 100 levels: {json.dumps(r)}")
+    del Xc, Xhc
+
+    # 12d. 8 one-hot blocks of 32 levels: EFB against unbundled, both at
+    # two-level off, held to the JAX package's EFB property
+    Xo, extra = with_onehot(r12, X)
+    Xho, extra_h = with_onehot(r12, Xh)
+    yo, yho = gbdt_labels(r12, X, extra), gbdt_labels(r12, Xh, extra_h)
+    for policy in ("depthwise", "lossguide"):
+        fits = {}
+        for efb in (True, False):
+            name = f"{'EFB' if efb else 'unbundled'} {policy}"
+            r, gbdt = fit_path(Xo, yo, Xho, yho, iters, device=device,
+                               growthPolicy=policy, enableBundle=efb,
+                               passThroughArgs={"two_level_hist": "off"})
+            check_path(name, r)
+            fits[efb] = (r, gbdt.booster)
+        (re_, be), (ru, bu) = fits[True], fits[False]
+        bundled = sum(n for k, n in re_["shapes"].items()
+                      if "ranges=bundle" in k)
+        feat_equal = all(np.array_equal(a.split_feature, b.split_feature)
+                         for a, b in zip(be.trees, bu.trees))
+        bin_diff = max(int(np.abs(a.split_bin - b.split_bin).max())
+                       for a, b in zip(be.trees, bu.trees))
+        margin_diff = float(np.abs(be.predict_margin(Xho[:20_000])
+                                   - bu.predict_margin(Xho[:20_000])).max())
+        out = dict(bundles=be.bundler.num_bundles, features=FO,
+                   s_per_iter=re_["s_per_iter"],
+                   unbundled_s_per_iter=ru["s_per_iter"],
+                   k2_launches_bundled_ranges=bundled, auc=re_["auc"],
+                   unbundled_auc=ru["auc"], split_feature_equal=feat_equal,
+                   split_bin_max_diff=bin_diff, margin_max_diff=margin_diff,
+                   trees_equal=all(
+                       np.array_equal(getattr(a, f), getattr(b, f))
+                       for a, b in zip(be.trees, bu.trees)
+                       for f in ("split_feature", "split_bin",
+                                 "leaf_value")),
+                   launches=re_["shapes"], unbundled_launches=ru["shapes"])
+        if (out["bundles"] != FB or not feat_equal or bin_diff > 1
+                or margin_diff > 1e-3
+                or (policy == "depthwise" and bundled == 0)):
+            raise AssertionError(f"EFB {policy}: {out}")
+        log(f"fit EFB {policy} against unbundled, {FO} features: "
+            f"{json.dumps(out)}")
+    del Xo, Xho, yo, yho
+
+    # 12e. monotone constraints on x0 (up), x1 (down), x2 (up): sweeps of
+    # each from 1,000 holdout rows, against the unconstrained 10-iteration
+    # fit of 12b
+    base = Xh[:1000]
+    fd = [(f, d) for f, d in enumerate(MONO) if d]
+    log(f"sweep violations, unconstrained fit: "
+        f"{json.dumps(sweep_violations(gb_full.booster, base, fd))}")
+    for method in ("basic", "intermediate", "advanced"):
+        r, gbdt = fit_path(X, y, Xh, yh, iters, device=device,
+                           monotoneConstraints=MONO,
+                           monotoneConstraintsMethod=method)
+        check_path(f"monotone {method}", r)
+        r["violations"] = sweep_violations(gbdt.booster, base, fd)
+        if any(n for n, _ in r["violations"].values()) or r["auc"] <= 0.8:
+            raise AssertionError(f"monotone {method}: {r}")
+        log(f"fit monotone {method}: {json.dumps(r)}")
+    del X, y, Xh, yh, gb_full, gb_res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -825,18 +1071,22 @@ def main(argv=None) -> int:
     # tree's root pass runs K2 at one slot, every other wave at S slots;
     # K1 builds the two-level root's K refined rows, and in a lossguide
     # fit the root and every split's left child, coarse and refined
+    # phase 12's widths: the categorical fit's 28 + 4 columns, the EFB
+    # task's 28 + 8 x 32 columns and its bundles (one per dense column,
+    # one per one-hot block)
+    FC, FO, FB = F + CAT_COLS, F + OH_BLOCKS * OH_LEVELS, F + OH_BLOCKS
+    two_level = ("maxBin=255", "multiclass", "validation", "resumed")
+    mono = ("monotone basic", "monotone intermediate", "monotone advanced")
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
          ("maxBin=63",)),
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=S),
          ("maxBin=63",)),
-        ("route_and_hist", dict(F=F, B=256, shift=3, K=0, S=1),
-         ("maxBin=255", "multiclass")),
-        ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S),
-         ("maxBin=255", "multiclass")),
+        ("route_and_hist", dict(F=F, B=256, shift=3, K=0, S=1), two_level),
+        ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S), two_level),
         # the two-level fine build: K of the F rows, by id
         ("build_hist_nodes", dict(F=F, B=256, shift=0, S=1, K=K),
-         ("maxBin=255", "multiclass", "lossguide")),
+         two_level + ("lossguide", "categorical")),
         # lossguide's per-split coarse build: all F rows at one slot over
         # a left child's rows
         ("build_hist_nodes", dict(F=F, B=256, shift=3, S=1), ("lossguide",)),
@@ -844,12 +1094,37 @@ def main(argv=None) -> int:
         # and the feature-parallel grower (trainer.py:1220, :1657), neither
         # ported: checked and timed, but no fit of the port launches it
         ("build_hist_nodes", dict(F=F, B=64, shift=0, S=S), ()),
+        # the categorical fit (two-level, 32 columns)
+        ("route_and_hist", dict(F=FC, B=256, shift=3, K=0, S=1),
+         ("categorical",)),
+        ("route_and_hist", dict(F=FC, B=256, shift=3, K=K, S=S),
+         ("categorical",)),
+        # EFB and monotone constraints switch two-level off: K2 and K1 at
+        # full resolution, B=256; the EFB waves route through each split
+        # feature's range in its bundled column
+        ("route_and_hist", dict(F=FB, B=256, shift=0, K=0, S=S,
+                                ranges="bundle"), ("EFB depthwise",)),
+        ("route_and_hist", dict(F=FB, B=256, shift=0, K=0, S=1),
+         ("EFB depthwise",)),
+        ("route_and_hist", dict(F=FO, B=256, shift=0, K=0, S=S),
+         ("unbundled depthwise",)),
+        ("route_and_hist", dict(F=FO, B=256, shift=0, K=0, S=1),
+         ("unbundled depthwise",)),
+        ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=S), mono),
+        ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=1), mono),
+        ("build_hist_nodes", dict(F=FB, B=256, shift=0, S=1),
+         ("EFB lossguide",)),
+        ("build_hist_nodes", dict(F=FO, B=256, shift=0, S=1),
+         ("unbundled lossguide",)),
     ]
     cases = []
     for kern, dims, runs in shapes:
         if kern == "route_and_hist":
             r = k2_case(rng, dev, N, **dims)
-            key = L.launch_key(kern, **dims, variant="rows")
+            ranges = dims.pop("ranges", "full")
+            key = L.launch_key(kern, **dims, variant="rows",
+                               **({} if ranges == "full"
+                                  else {"ranges": ranges}))
         else:
             r = k1_case(rng, dev, N, **dims)
             key = L.launch_key(kern, F=dims.get("K") or dims["F"],
@@ -1057,6 +1332,16 @@ def main(argv=None) -> int:
           "huber": 0.3 * score.astype(np.float64),
           "poisson": np.exp(0.5 * Xs[:, 0] + 0.2 * Xs[:, 1]).astype(
               np.float64) * drng.gamma(2.0, 0.5, n_small)}
+    data = {kind: (Xs, yk, Xhs) for kind, yk in ys.items()}
+    # phase 12's generated columns at this size, and a validation
+    # set of the task's next 16,384 rows
+    r11 = np.random.default_rng(args.seed + 11)
+    for kind, add in (("categorical", with_categorical),
+                      ("onehot", with_onehot)):
+        Xk, extra = add(r11, Xs)
+        data[kind] = (Xk, gbdt_labels(r11, Xs, extra), add(r11, Xhs)[0])
+    valid_s = (X[n_small:n_small + 16_384], y[n_small:n_small + 16_384],
+               None)
     del X, y, Xh, yh, y3, yh3
     k1, k2 = ("build_hist_nodes",), ("route_and_hist",)
     breadth = [
@@ -1080,9 +1365,30 @@ def main(argv=None) -> int:
         ("huber", "huber", k2, dict(objective="huber",
                                     min_sum_hessian_in_leaf=1.0)),
         ("poisson", "poisson", k2, dict(objective="poisson")),
+        ("categorical", "categorical", k2, dict(
+            objective="binary",
+            categorical_feature=list(range(F, F + CAT_COLS)))),
+        ("EFB depthwise", "onehot", k2, dict(objective="binary",
+                                             enable_bundle=True)),
+        ("EFB lossguide", "onehot", k1, dict(objective="binary",
+                                             enable_bundle=True,
+                                             growth_policy="lossguide")),
+    ] + [(f"monotone {m} {g}", "binary", k1 if g == "lossguide" else k2,
+          dict(objective="binary", monotone_constraints=MONO,
+               monotone_constraints_method=m, growth_policy=g))
+         for m in ("basic", "intermediate", "advanced")
+         for g in ("depthwise", "lossguide")]
+    runs11 = [(what, kind, kern, kw, {}) for what, kind, kern, kw in breadth]
+    runs11 += [
+        ("validation, early stopping", "binary", k2,
+         dict(objective="binary", learning_rate=0.5, early_stopping_round=3,
+              metric="auc"), dict(iters=40, valid=valid_s)),
+        ("checkpoint resume", "binary", k2, dict(objective="binary"),
+         dict(iters=4, resume=True)),
     ]
-    for what, kind, kern, kw in breadth:
-        diff = card_vs_cpu(Xs, ys[kind], Xhs, kern, iters=3, **kw)
+    for what, kind, kern, kw, extra in runs11:
+        Xk, yk, Xhk = data[kind]
+        diff = card_vs_cpu(Xk, yk, Xhk, kern, **{"iters": 3, **extra, **kw})
         if diff > 1e-4:
             raise AssertionError(f"{what}: card and CPU margins differ by "
                                  f"{diff}")
@@ -1094,6 +1400,9 @@ def main(argv=None) -> int:
         masks_card_vs_cpu(dev, n, args.seed)
     log(f"card vs CPU: bagging masks and GOSS weights bit-identical at "
         f"{n_small} and {N + 3} rows")
+
+    # -- 12. GBDT breadth II at full width ----------------------------------
+    breadth2(args.seed, N, F, args.iters, check_path)
 
     # -- results -----------------------------------------------------------
     # each shape's launches in the runs that launch it

@@ -2,17 +2,18 @@
 
 The PyTorch port of the JAX package's ``models/gbdt/booster.py`` on one
 device: the boosting types gbdt, goss, dart and rf, bagging, the
-depthwise and lossguide growth policies, and the binary, multiclass,
-multiclassova and regression objectives.  The JAX package scans the
-boosting loop on the device; here it is a Python loop over the growers of
-:mod:`.trainer` with the kernels on the card.  The model format is the
-JAX package's version-2 JSON (:meth:`Booster.to_dict`), so a model moves
-between the two packages both ways.
+depthwise and lossguide growth policies, the binary, multiclass,
+multiclassova and regression objectives, validation sets with early
+stopping, iteration checkpoints and warm starts, categorical features,
+exclusive feature bundling (EFB) and monotone constraints.  The JAX
+package scans the boosting loop on the device; here it is a Python loop
+over the growers of :mod:`.trainer` with the kernels on the card.  The
+model format is the JAX package's version-2 JSON (:meth:`Booster.to_dict`),
+so a model, or a checkpoint, moves between the two packages both ways.
 
-The config values not ported yet (validation and early stopping, EFB,
-monotone constraints, categorical features, voting/feature parallel
-growth, lambdarank) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+The config values not ported yet (voting/feature parallel growth,
+lambdarank) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
+import re
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -27,15 +30,17 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, synchronize
-from .binning import BinMapper, bin_features, fit_bin_mapper
+from . import metrics as metrics_mod
+from .binning import (BinMapper, FeatureBundler, bin_features, bundle_bins,
+                      fit_bin_mapper)
 from .hist import rows_geometry
 from . import prng
 from .objectives import (get_objective, initial_score, objective_kwargs,
                          ova_grad_hess, softmax_grad_hess)
 from .trainer import (TWO_LEVEL_MIN_ROWS, GrowthParams, Tree,
                       default_n_slots, grow_tree, grow_tree_depthwise,
-                      predict_binned_tree, predict_raw_features, stack_trees,
-                      tree_depth)
+                      max_nodes, predict_binned_stacked, predict_binned_tree,
+                      predict_raw_features, stack_trees, tree_depth)
 
 
 @dataclasses.dataclass
@@ -97,7 +102,13 @@ class BoostingConfig:
     pass_through: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def growth_params(self) -> GrowthParams:
+        mono = None
+        if self.monotone_constraints and any(self.monotone_constraints):
+            mono = tuple(int(c) for c in self.monotone_constraints)
         return GrowthParams(
+            monotone_constraints=mono,
+            monotone_penalty=float(self.monotone_penalty),
+            monotone_method=self.monotone_constraints_method,
             num_leaves=self.num_leaves,
             max_depth=self.max_depth,
             min_data_in_leaf=float(self.min_data_in_leaf),
@@ -129,24 +140,17 @@ MULTICLASS = ("multiclass", "multiclassova")
 def _check_ported(config: BoostingConfig) -> None:
     """Raise ``NotImplementedError`` for every config value this port does
     not train, naming the ROADMAP item that ports it."""
-    todo = "is not ported yet (ROADMAP queue A, GBDT breadth: {})"
     checks = [
         (config.parallelism != "data_parallel",
-         f"parallelism={config.parallelism!r}", "voting/feature parallel"),
-        (config.enable_bundle, "enable_bundle", "EFB"),
-        (bool(config.monotone_constraints)
-         and any(config.monotone_constraints),
-         "monotone_constraints", "monotone constraints"),
-        (bool(config.categorical_feature), "categorical_feature",
-         "categorical features"),
-        (config.early_stopping_round > 0, "early_stopping_round",
-         "validation and early stopping"),
+         f"parallelism={config.parallelism!r}",
+         "A5, voting/feature parallel"),
         (config.objective == "lambdarank", "objective='lambdarank'",
-         "lambdarank"),
+         "A2.9, lambdarank"),
     ]
     for bad, what, item in checks:
         if bad:
-            raise NotImplementedError(f"{what} " + todo.format(item))
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
+                                      f"queue {item})")
     if config.objective not in MULTICLASS:
         get_objective(config.objective)
     elif config.num_class < 2:
@@ -162,6 +166,65 @@ def _check_ported(config: BoostingConfig) -> None:
         raise ValueError(f"two_level_hist={config.two_level_hist!r}: must "
                          "be 'auto', 'on', or 'off'")
     _fused_ingest_on(config)
+
+
+def _check_monotone(config: BoostingConfig, F: int) -> None:
+    """The JAX package's monotone config checks (``ValueError``)."""
+    if not (config.monotone_constraints and any(config.monotone_constraints)):
+        return
+    if config.monotone_constraints_method not in ("basic", "intermediate",
+                                                  "advanced"):
+        raise ValueError(
+            f"monotone_constraints_method="
+            f"{config.monotone_constraints_method!r}: must be 'basic', "
+            "'intermediate' or 'advanced'")
+    if len(config.monotone_constraints) != F:
+        raise ValueError(f"monotone_constraints has "
+                         f"{len(config.monotone_constraints)} entries for "
+                         f"{F} features")
+    if any(int(c) not in (-1, 0, 1) for c in config.monotone_constraints):
+        raise ValueError("monotone_constraints entries must be -1, 0, or 1")
+    cats = set(config.categorical_feature or [])
+    if any(int(c) != 0 and i in cats
+           for i, c in enumerate(config.monotone_constraints)):
+        raise ValueError("monotone constraints on categorical features are "
+                         "not meaningful (category-subset splits have no "
+                         "direction)")
+    if config.monotone_constraints_method == "advanced":
+        # the advanced refresh builds (M, M, F) masks (~5 bytes an entry)
+        # per wave or split: refuse a config whose masks pass the budget
+        m_nodes = max_nodes(config.num_leaves)
+        adv_bytes = 5 * m_nodes * m_nodes * F
+        budget = _advanced_mask_budget_bytes(config)
+        if adv_bytes > budget:
+            raise ValueError(
+                f"monotone_constraints_method='advanced' with num_leaves="
+                f"{config.num_leaves} and {F} features needs ~"
+                f"{adv_bytes / 2**30:.1f} GiB of (M, M, F) constraint masks "
+                f"per refresh (M={m_nodes} nodes), over the "
+                f"{budget / 2**30:.1f} GiB budget; use monotone_constraints_"
+                "method='intermediate' (a superset of the advanced "
+                "constraints) for models this size, or raise the budget "
+                "via SYNAPSEML_TPU_ADV_MONO_MASK_BYTES / pass_through="
+                "{'advanced_mask_bytes': ...}")
+
+
+def _advanced_mask_budget_bytes(config: BoostingConfig) -> int:
+    """Byte budget for the advanced method's (M, M, F) masks:
+    ``pass_through={"advanced_mask_bytes": ...}``, then the
+    ``SYNAPSEML_TPU_ADV_MONO_MASK_BYTES`` environment variable, else a
+    quarter of the host's free memory (``sysconf``) clamped to [1 GiB,
+    8 GiB], the JAX package's rule."""
+    override = config.pass_through.get(
+        "advanced_mask_bytes",
+        os.environ.get("SYNAPSEML_TPU_ADV_MONO_MASK_BYTES"))
+    if override is not None:
+        return int(float(override))
+    try:
+        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    except (AttributeError, OSError, ValueError):
+        free = 0
+    return min(max(1 << 30, free // 4), 8 << 30)
 
 
 def _n_slots(config: BoostingConfig) -> int:
@@ -197,7 +260,8 @@ class Booster:
                  tree_weights: List[float], num_class: int, objective: str,
                  init_score: np.ndarray, bin_mapper: BinMapper,
                  feature_names: List[str], config: BoostingConfig,
-                 best_iteration: int = -1, device: DeviceLike = "cuda"):
+                 best_iteration: int = -1, device: DeviceLike = "cuda",
+                 bundler: Optional[FeatureBundler] = None):
         self.trees = [Tree(*[np.asarray(torch.as_tensor(a).cpu())
                              for a in t]) for t in trees]
         self.tree_class = list(tree_class)
@@ -210,6 +274,7 @@ class Booster:
         self.config = config
         self.best_iteration = best_iteration
         self.device = str(device)
+        self.bundler = bundler
 
     # -- prediction --------------------------------------------------------
     @property
@@ -237,16 +302,25 @@ class Booster:
                        num_iteration: Optional[int] = None,
                        return_leaves: bool = False,
                        device: Optional[DeviceLike] = None):
-        """Raw margin (n,): batched tree traversal on the device."""
-        if self.bin_mapper.has_categorical:
-            raise NotImplementedError(
-                "categorical models are not ported yet (ROADMAP queue A, "
-                "GBDT breadth: categorical features)")
+        """Raw margin (n,) or (n, K): batched tree traversal on the
+        device.  Categorical models split in bin space: their rows bin on
+        the device and traverse by ``split_bin`` (an imported LightGBM
+        categorical model, whose mapper is a placeholder, maps only its
+        categorical columns to bin ids and keeps raw thresholds).  EFB
+        models need nothing special: their trees split original
+        features."""
         dev = resolve_device(self.device if device is None else device)
         features = np.ascontiguousarray(features, np.float32)
         n = features.shape[0]
         depth = self.depth_bound()
-        x = torch.as_tensor(features, device=dev)
+        binned = None
+        if self.bin_mapper.has_categorical:
+            if _placeholder_mapper(self.bin_mapper):
+                features = self._cat_columns_to_bins(features)
+            else:
+                binned = bin_features(features, self.bin_mapper, dev)
+        x = None if binned is not None else torch.as_tensor(features,
+                                                            device=dev)
         outs, leaves = [], []
         for k in range(self.num_class):
             stacked = self._stacked_for_class(k, num_iteration, dev)
@@ -255,7 +329,10 @@ class Booster:
                 outs.append(np.full(n, base, np.float32))
                 leaves.append(np.zeros((0, n), np.int32))
                 continue
-            total, lv = predict_raw_features(x, stacked, depth)
+            if binned is not None:
+                total, lv = predict_binned_stacked(binned, stacked, depth)
+            else:
+                total, lv = predict_raw_features(x, stacked, depth)
             total = total.cpu().numpy() + base
             if self.config.boosting_type == "rf":
                 ntree = stacked.split_feature.shape[0]
@@ -266,6 +343,23 @@ class Booster:
         if return_leaves:
             return margin, leaves
         return margin
+
+    def _cat_columns_to_bins(self, features: np.ndarray) -> np.ndarray:
+        """An imported model's hybrid view: categorical columns become
+        their bin ids (floats), numeric columns pass through.  Unseen
+        categories and NaN land in bin 0, which every bin-space split
+        sends left."""
+        out = features.copy()
+        for f, (vals, bins) in (self.bin_mapper.cat_features or {}).items():
+            col = features[:, f]
+            if len(vals) == 0:
+                out[:, f] = 0.0
+                continue
+            idx = np.searchsorted(vals, col)
+            idx_c = np.minimum(idx, len(vals) - 1)
+            hit = np.asarray(vals)[idx_c] == col
+            out[:, f] = np.where(hit, np.asarray(bins)[idx_c], 0)
+        return out
 
     def predict_leaf(self, features: np.ndarray,
                      device: Optional[DeviceLike] = None) -> np.ndarray:
@@ -313,9 +407,12 @@ class Booster:
                 "upper_bounds": self.bin_mapper.upper_bounds.tolist(),
                 "num_bins": self.bin_mapper.num_bins.tolist(),
                 "max_bin": self.bin_mapper.max_bin,
-                "cat_features": None,
+                "cat_features": {
+                    str(f): [np.asarray(v).tolist(), np.asarray(b).tolist()]
+                    for f, (v, b) in
+                    (self.bin_mapper.cat_features or {}).items()} or None,
             },
-            "bundler": None,
+            "bundler": self.bundler.to_dict() if self.bundler else None,
             "trees": [{f: np.asarray(getattr(t, f)).tolist()
                        for f in Tree._fields} for t in self.trees],
         }
@@ -331,22 +428,19 @@ class Booster:
         if int(d.get("version", 1)) != 2:
             raise ValueError(f"model JSON version {d.get('version')!r}: "
                              "only version 2 is read")
-        if d.get("bundler"):
-            raise NotImplementedError(
-                "EFB models are not ported yet (ROADMAP queue A, GBDT "
-                "breadth: EFB)")
-        if d["bin_mapper"].get("cat_features"):
-            raise NotImplementedError(
-                "categorical models are not ported yet (ROADMAP queue A, "
-                "GBDT breadth: categorical features)")
         names = {f.name for f in dataclasses.fields(BoostingConfig)}
         cfg = BoostingConfig(**{k: v for k, v in d["config"].items()
                                 if k in names})
+        cat_raw = d["bin_mapper"].get("cat_features")
         bm = BinMapper(
             upper_bounds=np.asarray(d["bin_mapper"]["upper_bounds"],
                                     np.float32),
             num_bins=np.asarray(d["bin_mapper"]["num_bins"], np.int32),
-            max_bin=d["bin_mapper"]["max_bin"])
+            max_bin=d["bin_mapper"]["max_bin"],
+            cat_features={int(f): (np.asarray(v, np.float32),
+                                   np.asarray(b, np.int32))
+                          for f, (v, b) in cat_raw.items()}
+            if cat_raw else None)
         trees = []
         for td in d["trees"]:
             m = len(td["leaf_value"])
@@ -370,7 +464,9 @@ class Booster:
                        d["num_class"], d["objective"],
                        np.asarray(d["init_score"], np.float32), bm,
                        d["feature_names"], cfg, d["best_iteration"],
-                       device=device)
+                       device=device,
+                       bundler=(FeatureBundler.from_dict(d["bundler"])
+                                if d.get("bundler") else None))
 
     @staticmethod
     def from_json(s: str, device: DeviceLike = "cuda") -> "Booster":
@@ -385,11 +481,129 @@ class InstrumentationMeasures:
     binning_s: float = 0.0            # bin-mapper fit + device binning
     data_prep_s: float = 0.0          # labels/weights/init score on device
     training_s: float = 0.0           # whole boosting loop
+    eval_s: float = 0.0               # validation (within training_s)
     iterations: int = 0
     total_s: float = 0.0
 
     def seconds_per_iteration(self) -> float:
         return self.training_s / max(self.iterations, 1)
+
+
+@dataclasses.dataclass
+class EvalRecord:
+    iteration: int
+    metric: str
+    value: float
+
+
+@dataclasses.dataclass
+class EarlyStopping:
+    """The JAX package's early-stopping rule over a validation metric:
+    stop once ``rounds`` (> 0) evaluations in a row did not improve on the
+    best; ``best_iter`` is the iteration of the best value."""
+    rounds: int
+    larger_better: bool
+    best_val: Optional[float] = None
+    best_iter: int = -1
+    since_best: int = 0
+
+    def update(self, it: int, val: float) -> bool:
+        """Record iteration ``it``'s value → True when training stops."""
+        if self.best_val is None or (val > self.best_val if
+                                     self.larger_better
+                                     else val < self.best_val):
+            self.best_val, self.best_iter, self.since_best = val, it, 0
+            return False
+        self.since_best += 1
+        return self.rounds > 0 and self.since_best >= self.rounds
+
+
+def _hist_psum_nulled(config: BoostingConfig, mesh_present: bool) -> bool:
+    """True where the data-parallel histogram psum does not exist (no
+    mesh, feature/voting parallelism): the JAX package's predicate for
+    "is the histogram wire codec live"."""
+    return (not mesh_present
+            or config.parallelism in ("feature_parallel", "voting_parallel"))
+
+
+def _effective_wire_key(config: BoostingConfig):
+    """The histogram-psum wire a fit uses, as the checkpoints stamp it:
+    ``None`` for the flat f32 wire, which is every fit without a mesh
+    (:func:`_hist_psum_nulled`), and every fit of this port runs on one
+    device, so a stamp written by either package reads the same."""
+    assert _hist_psum_nulled(config, mesh_present=False)
+    return None
+
+
+_CKPT = re.compile(r"iter_(\d+)\.json$")
+
+
+def _latest_checkpoint(directory: str,
+                       device: DeviceLike = "cuda") -> Optional["Booster"]:
+    """The newest ``iter_<n>.json`` of ``directory`` (either package's),
+    or None."""
+    if not os.path.isdir(directory):
+        return None
+    found = [(int(m.group(1)), name) for name in os.listdir(directory)
+             for m in [_CKPT.match(name)] if m]
+    if not found:
+        return None
+    with open(os.path.join(directory, max(found)[1])) as f:
+        return Booster.from_json(f.read(), device=device)
+
+
+def _write_checkpoint(directory: str, booster: "Booster",
+                      keep: int = 3) -> None:
+    """Write ``iter_<iterations>.json`` atomically (a temporary file, then
+    ``os.replace``, so a kill leaves only the previous checkpoint for
+    :func:`_latest_checkpoint`) and keep the newest ``keep``."""
+    os.makedirs(directory, exist_ok=True)
+    n = booster.num_trees // max(booster.num_class, 1)
+    path = os.path.join(directory, f"iter_{n:08d}.json")
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(booster.to_dict(), f)
+    os.replace(tmp, path)
+    steps = sorted(int(m.group(1)) for m in map(_CKPT.match,
+                                                os.listdir(directory)) if m)
+    for old in steps[:-keep]:
+        try:
+            os.remove(os.path.join(directory, f"iter_{old:08d}.json"))
+        except OSError:
+            pass
+
+
+def _placeholder_mapper(m: BinMapper) -> bool:
+    """An imported LightGBM model's mapper: all-inf bounds, one bin."""
+    return bool(np.all(m.num_bins <= 1)) and bool(np.all(np.isinf(
+        m.upper_bounds)))
+
+
+def _replay_margin(b: "Booster", X: np.ndarray,
+                   dev: torch.device) -> torch.Tensor:
+    """A warm start's training margin on the device, re-based in the
+    training order of f32 adds: the loop advances scores one add per tree
+    (``scores + leaf_value[node_id]``), while ``predict_margin`` sums the
+    trees in another order; replaying each tree's leaf values in turn
+    reproduces training's rounding, so a resumed gbdt/goss run continues
+    on the identical trees.  dart and rf reweight trees at predict time
+    and take ``predict_margin`` (their resume is approximate, as in the
+    JAX package)."""
+    if b.config.boosting_type not in ("gbdt", "goss") \
+            or any(w != 1.0 for w in b.tree_weights):
+        return torch.as_tensor(b.predict_margin(X, device=dev), device=dev)
+    _, leaves = b.predict_margin(X, return_leaves=True, device=dev)
+    K = max(b.num_class, 1)
+    cols = []
+    for k in range(K):
+        base = float(b.init_score[min(k, len(b.init_score) - 1)])
+        m = torch.full((len(X),), base, dtype=torch.float32, device=dev)
+        ids = torch.as_tensor(leaves[k], device=dev).long()
+        ktrees = [t for t, kc in zip(b.trees, b.tree_class) if kc == k]
+        for t, tree in enumerate(ktrees):
+            m = m + torch.as_tensor(tree.leaf_value, device=dev)[ids[t]]
+        cols.append(m)
+    return cols[0] if K == 1 else torch.stack(cols, dim=1)
 
 
 def goss_weights(g_abs: torch.Tensor, bag: torch.Tensor, key: prng.Key,
@@ -441,7 +655,8 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
           valid: Optional[Tuple] = None,
           init_model: Optional[Booster] = None,
           checkpoint_dir: Optional[str] = None,
-          device: DeviceLike = "cuda") -> Tuple[Booster, list]:
+          checkpoint_interval: int = 0,
+          device: DeviceLike = "cuda") -> Tuple[Booster, List[EvalRecord]]:
     """Full training run on ``device`` → (booster, eval history).
 
     Raw features bin on the device; gradients, the binned matrix and the
@@ -449,32 +664,111 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
     host once it is grown.  The random streams are the JAX package's:
     the bagging and GOSS masks are threefry draws (:mod:`.prng`) made on
     the device, and feature_fraction and DART draw from one host numpy
-    generator seeded with ``seed``, in the JAX package's order."""
+    generator seeded with ``seed``, in the JAX package's order.
+
+    ``valid`` = (X, y, weights or None): after every iteration the new
+    trees' outputs add to the validation margins on the device and the
+    metric (``config.metric``, else the objective's default) is copied to
+    the host, one scalar an iteration; ``early_stopping_round`` > 0 stops
+    after that many evaluations without improvement, and the model's
+    ``best_iteration`` is the best one's.  ``init_model`` continues
+    training from a model (its trees, bin mapper, bundler and init
+    score).  ``checkpoint_dir`` with ``checkpoint_interval`` > 0 writes
+    the partial model every that many iterations (the JAX package's
+    checkpoint files: either package resumes the other's) and a later
+    call with the same directory resumes from the newest one: an
+    unbagged gbdt/goss resume grows the trees the uninterrupted run
+    would; rf continues the same bag stream; dart freezes the carried
+    trees' weights (approximate, as in the JAX package)."""
     dev = resolve_device(device)
-    if valid is not None:
+    if checkpoint_dir is not None and not isinstance(checkpoint_dir,
+                                                     (str, os.PathLike)):
         raise NotImplementedError(
-            "validation sets are not ported yet (ROADMAP queue A, GBDT "
-            "breadth: validation and early stopping)")
-    if init_model is not None or checkpoint_dir:
-        raise NotImplementedError(
-            "warm starts and checkpoints are not ported yet (ROADMAP queue "
-            "A, GBDT breadth: checkpoints)")
+            "checkpoint managers (core.checkpoint.CheckpointManager) are "
+            "not ported yet (ROADMAP queue A5); pass a directory")
     _check_ported(config)
     _check_ported_on(config, dev)
     measures = InstrumentationMeasures()
     t0 = time.perf_counter()
+    ckpt_every = checkpoint_interval if checkpoint_dir else 0
+    if ckpt_every > 0:
+        resumed = _latest_checkpoint(checkpoint_dir, dev)
+        if resumed is not None:
+            # the remaining trees must grow on the histogram wire and
+            # ingest the carried ones grew on: a stamp from either
+            # package names them
+            saved_pt = resumed.config.pass_through or {}
+            saved_cc = saved_pt.get("_codec_wire_key")
+            saved_cc = tuple(saved_cc) if saved_cc is not None else None
+            cur_cc = _effective_wire_key(config)
+            if saved_cc != cur_cc:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir} was trained with "
+                    f"collective_compression wire {saved_cc!r} but this "
+                    f"fit requests {cur_cc!r}; resuming would grow the "
+                    "remaining trees under different histogram numerics "
+                    "— use a fresh checkpoint_dir or keep the codec")
+            saved_fused = bool(saved_pt.get("_fused_ingest", False))
+            cur_fused = _fused_ingest_on(config)
+            if saved_fused != cur_fused:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir} was trained with "
+                    f"fused_ingest={saved_fused} but this fit requests "
+                    f"{cur_fused}; resuming would grow the remaining "
+                    "trees under a different histogram ingest dtype — "
+                    "use a fresh checkpoint_dir or keep the knob "
+                    "(fused_ingest=False resumes pre-fused checkpoints)")
+            done = resumed.num_trees // max(resumed.num_class, 1)
+            if done >= config.num_iterations:
+                return resumed, []
+            config = dataclasses.replace(
+                config, num_iterations=config.num_iterations - done)
+            init_model = resumed
+        key = _effective_wire_key(config)
+        config = dataclasses.replace(config, pass_through={
+            **config.pass_through,
+            "_codec_wire_key": list(key) if key is not None else None,
+            "_fused_ingest": _fused_ingest_on(config),
+            "_fit_world_size": 1})
 
     X = np.ascontiguousarray(X, np.float32)
     n, F = X.shape
+    _check_monotone(config, F)
     K = config.num_class if config.objective in MULTICLASS else 1
     feature_names = (list(feature_names) if feature_names
                      else [f"f{i}" for i in range(F)])
     rng = np.random.default_rng(config.seed)
 
-    mapper = fit_bin_mapper(X, config.max_bin,
-                            sample_count=config.bin_sample_count,
-                            seed=config.seed, y=np.asarray(y, np.float64))
+    # a warm start bins with its model's mapper (an imported LightGBM
+    # model's placeholder mapper would put every row in bin 1)
+    if init_model is not None and not _placeholder_mapper(
+            init_model.bin_mapper):
+        mapper = init_model.bin_mapper
+    else:
+        mapper = fit_bin_mapper(
+            X, config.max_bin, sample_count=config.bin_sample_count,
+            seed=config.seed, categorical_features=config.categorical_feature,
+            y=np.asarray(y, np.float64))
     bins_t = bin_features(X, mapper, dev)                 # (F, n) int32
+    B = config.max_bin + 1
+    bundler = bundle_map = None
+    if config.enable_bundle:
+        # EFB: fit on the first 50k binned rows (the JAX package's
+        # sample), bundle the binned matrix on the device
+        if init_model is not None and init_model.bundler is not None:
+            bundler = init_model.bundler
+        else:
+            bundler = FeatureBundler.fit(
+                bins_t[:, :min(n, 50_000)].t().cpu().numpy(),
+                mapper.num_bins, max_total_bins=B,
+                max_conflict_rate=config.max_conflict_rate)
+        # a bundle holds at most max_bin + 1 bins, so the card's width
+        # check (_check_ported_on) covers the bundled histograms
+        assert int(bundler.num_bins.max()) <= B, bundler.num_bins.max()
+        bins_t = bundle_bins(bins_t, bundler)             # (Fb, n)
+        bundle_map = {k: torch.as_tensor(v.astype(np.int32), device=dev)
+                      for k, v in bundler.route_tables(mapper.num_bins,
+                                                       B).items()}
     synchronize(dev)
     measures.binning_s = time.perf_counter() - t0
     t_prep = time.perf_counter()
@@ -492,7 +786,9 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
         labels_np = yb
     else:
         labels_np = np.asarray(y, np.float32)
-    if config.boost_from_average and K == 1:
+    if init_model is not None:
+        init_sc = init_model.init_score
+    elif config.boost_from_average and K == 1:
         init_sc = np.full(1, initial_score(config.objective, labels_np, w),
                           np.float32)
     else:
@@ -508,7 +804,11 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
     weights = torch.as_tensor(w, device=dev)
     init_scores = torch.full((n,) if K == 1 else (n, K), float(init_sc[0]),
                              dtype=torch.float32, device=dev)
-    scores = init_scores
+    is_rf = config.boosting_type == "rf"
+    # a warm start continues from the carried model's margin (rf trees
+    # fit at the constant init margin)
+    scores = (_replay_margin(init_model, X, dev)
+              if init_model is not None and not is_rf else init_scores)
     if K > 1:
         onehot = torch.nn.functional.one_hot(labels.long(), K).to(
             torch.float32)
@@ -521,34 +821,76 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
     upper_bounds = torch.as_tensor(mapper.upper_bounds, device=dev)
     num_bins = torch.as_tensor(mapper.num_bins, device=dev)
     p = config.growth_params()
-    is_rf = config.boosting_type == "rf"
     is_dart = config.boosting_type == "dart"
     use_goss = config.boosting_type == "goss"
     lr = 1.0 if is_rf else config.learning_rate
     use_bagging = (config.bagging_fraction < 1.0
                    and (is_rf or config.bagging_freq > 0))
     if config.growth_policy == "lossguide":
-        grower = grow_tree
+        grower = functools.partial(grow_tree, bundle_map=bundle_map)
     else:
         grower = functools.partial(grow_tree_depthwise,
-                                   n_slots=_n_slots(config))
+                                   n_slots=_n_slots(config),
+                                   bundle_map=bundle_map)
     fused = _fused_ingest_on(config)
     bag_root = prng.prng_key(config.bagging_seed)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     # leaf-wise depth is bounded by num_leaves - 1 splits
     depth_hint = max(2, config.num_leaves)
+    # continued training picks the key streams up where the carried model
+    # left off, and fast-forwards the host stream
+    prior_iters = (len(init_model.trees) // K if init_model is not None
+                   else 0)
+    if prior_iters and config.feature_fraction < 1.0:
+        nf = max(1, int(round(F * config.feature_fraction)))
+        for _ in range(prior_iters):
+            rng.choice(F, nf, replace=False)
+
+    stopper = None
+    if valid is not None:
+        Xv, yv, wv = valid
+        Xv = np.ascontiguousarray(Xv, np.float32)
+        bins_v = bin_features(Xv, mapper, dev)     # original features
+        yv = ((np.asarray(yv) > 0) if config.objective == "binary"
+              else np.asarray(yv)).astype(np.float32)
+        yv_t = torch.as_tensor(yv, device=dev)
+        wv_t = None if wv is None else torch.as_tensor(
+            np.asarray(wv, np.float32), device=dev)
+        # the trees' part of the margins, apart from the init margin, so
+        # rf can average it
+        valid_contrib = torch.zeros((len(yv), K) if K > 1 else len(yv),
+                                    dtype=torch.float32, device=dev)
+        if init_model is not None:
+            valid_init = torch.as_tensor(
+                init_model.predict_margin(Xv, device=dev), device=dev)
+        else:
+            valid_init = torch.as_tensor(init_sc if K > 1 else init_sc[0],
+                                         device=dev)
+        metric_name = config.metric or metrics_mod.default_metric(
+            config.objective, K)
+        if metric_name.startswith("ndcg"):
+            raise NotImplementedError("ndcg evaluation is not ported yet "
+                                      "(ROADMAP queue A2.9, lambdarank)")
+        metric_fn, larger_better = metrics_mod.DEVICE_METRICS.get(
+            metric_name, metrics_mod.DEVICE_METRICS["l2"])
+        stopper = EarlyStopping(config.early_stopping_round, larger_better)
     synchronize(dev)
     measures.data_prep_s = time.perf_counter() - t_prep
 
+    def on_dev(tree: Tree) -> Tree:
+        return Tree(*[torch.as_tensor(a).to(dev) for a in tree])
+
     def contrib(tree: Tree, weight: float) -> torch.Tensor:
-        """One host tree's weighted outputs on the training rows (DART)."""
-        t = Tree(*[torch.as_tensor(a).to(dev) for a in tree])
-        return predict_binned_tree(bins_t, t, depth_hint) * weight
+        """One tree's weighted outputs on the training rows (DART)."""
+        return predict_binned_tree(bins_t, on_dev(tree), depth_hint,
+                                   bundle_map, B) * weight
 
     t_train = time.perf_counter()
     trees: List[Tree] = []
     tree_class: List[int] = []
     tree_weights: List[float] = []
+    eval_history: List[EvalRecord] = []
+    rf_count = 0
     fmask_dev = torch.ones(F, dtype=torch.bool, device=dev)
     for it in range(config.num_iterations):
         if config.feature_fraction < 1.0:
@@ -566,11 +908,12 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
                 scores = _add_scores(scores,
                                      -contrib(trees[d], tree_weights[d]),
                                      tree_class[d], K)
-        key = prng.prng_key((config.seed * 100003 + it) & 0xffffffff)
+        gi = prior_iters + it
+        key = prng.prng_key((config.seed * 100003 + gi) & 0xffffffff)
         bag = ones
         if use_bagging:
             bag = bag_mask(prng.fold_in(
-                bag_root, it // max(config.bagging_freq, 1)), n,
+                bag_root, gi // max(config.bagging_freq, 1)), n,
                 config.bagging_fraction, dev)
 
         if K == 1:
@@ -578,7 +921,7 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
             g_all, h_all = grad[:, None], hess[:, None]
         else:
             g_all, h_all = _grad_hess(multi_fn, scores, onehot, weights)
-        new_trees, new_scores = [], scores
+        new_dev, new_scores = [], scores
         for k in range(K):
             rv = bag
             if use_goss:
@@ -594,8 +937,10 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
                                    upper_bounds, num_bins, lr, p)
             new_scores = _add_scores(new_scores,
                                      tree.leaf_value[node_id.long()], k, K)
-            new_trees.append(Tree(*[a.cpu() for a in tree]))
+            new_dev.append(tree)
+        new_trees = [Tree(*[a.cpu() for a in t]) for t in new_dev]
 
+        reweighted = []                  # (dart) (tree, its old weight)
         if dropped:
             # normalize: the new trees weigh 1/(|D|+1), dropped trees
             # are scaled by |D|/(|D|+1)
@@ -605,6 +950,7 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
                 scores = _add_scores(scores, contrib(new_trees[k], new_w), k,
                                      K)
             for d in dropped:
+                reweighted.append((d, tree_weights[d]))
                 tree_weights[d] *= factor
                 scores = _add_scores(scores,
                                      contrib(trees[d], tree_weights[d]),
@@ -618,12 +964,55 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
         tree_weights += weights_new
         if is_rf:
             # rf: every tree fits the gradients at the init margin
+            rf_count += 1
             scores = init_scores
+
+        if stopper is not None:
+            t_eval = time.perf_counter()
+            # the new trees, and the weight changes of dart's dropped ones
+            for k in range(K):
+                valid_contrib = _add_scores(valid_contrib, predict_binned_tree(
+                    bins_v, new_dev[k], depth_hint) * weights_new[k], k, K)
+            for d, old_w in reweighted:
+                valid_contrib = _add_scores(valid_contrib, predict_binned_tree(
+                    bins_v, on_dev(trees[d]), depth_hint)
+                    * (tree_weights[d] - old_w), tree_class[d], K)
+            if is_rf:
+                # the rf model averages all its trees, carried ones too
+                base = torch.as_tensor(init_sc if K > 1 else init_sc[0],
+                                       device=dev)
+                count = torch.full((), max(prior_iters + rf_count, 1),
+                                   dtype=torch.float32, device=dev)
+                vm = base + ((valid_init - base) * prior_iters
+                             + valid_contrib) / count
+            else:
+                vm = valid_init + valid_contrib
+            val = float(metric_fn(yv_t, vm, wv_t))    # the one host copy
+            eval_history.append(EvalRecord(it, metric_name, val))
+            stop = stopper.update(it, val)
+            measures.eval_s += time.perf_counter() - t_eval
+            if stop:
+                break
+        if ckpt_every > 0 and (it + 1) % ckpt_every == 0:
+            pre_t, pre_c, pre_w = ((init_model.trees, init_model.tree_class,
+                                    init_model.tree_weights)
+                                   if init_model else ([], [], []))
+            _write_checkpoint(checkpoint_dir, Booster(
+                pre_t + trees, pre_c + tree_class, pre_w + tree_weights, K,
+                config.objective, init_sc, mapper, feature_names, config,
+                device=dev, bundler=bundler))
     synchronize(dev)
     measures.training_s = time.perf_counter() - t_train
     measures.iterations = len(trees) // K
+    if init_model is not None:
+        # continued training carries the previous trees forward
+        trees = init_model.trees + trees
+        tree_class = init_model.tree_class + tree_class
+        tree_weights = init_model.tree_weights + tree_weights
     measures.total_s = time.perf_counter() - t0
     booster = Booster(trees, tree_class, tree_weights, K, config.objective,
-                      init_sc, mapper, feature_names, config, device=dev)
+                      init_sc, mapper, feature_names, config,
+                      best_iteration=(stopper.best_iter if stopper else -1),
+                      device=dev, bundler=bundler)
     booster.measures = measures
-    return booster, []
+    return booster, eval_history

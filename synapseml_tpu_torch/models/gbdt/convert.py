@@ -2,11 +2,11 @@
 
 A model of either package is the version-2 JSON of ``Booster.to_dict()``
 (trees as flat lists with their class and weight, the bin mapper's
-bounds, the init score per class, the config), so the conversion is a
-read of that JSON with the checks that what it holds is a model this
-package predicts: numeric features and no bundles.  Multiclass models
-keep ``tree_class``, DART models their ``tree_weights``, and RF models
-average their trees as in the JAX package.  The reverse direction needs
+bounds and categorical tables, the EFB bundler, the init score per
+class, the config), so the conversion is a read of that JSON.
+Multiclass models keep ``tree_class``, DART models their
+``tree_weights``, RF models average their trees as in the JAX package,
+and categorical models predict through bin space.  The reverse direction needs
 nothing: this package's ``Booster.to_dict()`` emits the same schema,
 which the JAX package's ``Booster.from_dict`` reads back.
 """

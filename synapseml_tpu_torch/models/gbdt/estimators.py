@@ -6,9 +6,9 @@ the classifier and the regressor, on one card: ``fit`` trains with
 :func:`~.booster.train` on the ``device`` param, ``transform`` scores
 whole column batches with one batched traversal on the model's
 ``device``.  The param surface is the JAX package's, less the mesh
-(``numShards``, ``collectiveCompression``) and the checkpoint manager;
-params whose features are not ported raise ``NotImplementedError`` at
-``fit``.
+(``numShards``, ``collectiveCompression``); params whose features are not
+ported (the checkpoint manager, voting/feature parallelism) raise
+``NotImplementedError`` at ``fit``.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ class GBDTParams(Params):
     weightCol = StringParam(doc="sample weight column")
     predictionCol = StringParam(doc="prediction output column", default="prediction")
     validationIndicatorCol = StringParam(
-        doc="bool column marking validation rows (not ported yet)")
+        doc="bool column marking validation rows: they are evaluated "
+            "every iteration (``metric``, early stopping) and not trained "
+            "on")
     numIterations = IntParam(doc="number of boosting iterations", default=100)
     learningRate = FloatParam(doc="shrinkage rate", default=0.1)
     numLeaves = IntParam(doc="max leaves per tree", default=31)
@@ -68,26 +70,36 @@ class GBDTParams(Params):
     seed = IntParam(doc="master seed", default=0)
     verbosity = IntParam(doc="log verbosity", default=-1)
     numBatches = IntParam(
-        doc="split data into k sequential warm-started batches (not "
-            "ported yet)", default=0)
+        doc="split data into k sequential warm-started batches",
+        default=0)
     parallelism = StringParam(
         doc="data_parallel|voting_parallel|feature_parallel "
             "(data_parallel on one card is ported)",
         default="data_parallel",
         allowed=("data_parallel", "voting_parallel", "feature_parallel"))
     topK = IntParam(doc="voting-parallel top features per shard", default=20)
-    enableBundle = BoolParam(doc="exclusive feature bundling (not ported "
-                                 "yet)", default=False)
+    enableBundle = BoolParam(
+        doc="exclusive feature bundling: rarely-co-nonzero features share "
+            "a histogram column; the trees stay in original feature space",
+        default=False)
     maxConflictRate = FloatParam(doc="EFB allowed conflict fraction",
                                  default=0.0)
     categoricalSlotIndexes = ListParam(
-        doc="feature-vector slots holding category codes (not ported yet)")
+        doc="feature-vector slots holding category codes: binned in "
+            "target-statistic order so bin-range splits act as "
+            "category-subset splits")
     checkpointDir = StringParam(
-        doc="iteration-checkpoint directory (not ported yet)")
+        doc="iteration-checkpoint directory: the partial model is saved "
+            "every checkpointInterval iterations and a re-fit resumes "
+            "from the newest one")
     checkpointInterval = IntParam(doc="save every N boosting iterations "
                                       "(0 = off)", default=0)
+    checkpointManager = PyObjectParam(
+        doc="core.checkpoint.CheckpointManager to checkpoint through (not "
+            "ported yet: ROADMAP A5)")
     monotoneConstraints = ListParam(
-        doc="per-feature monotone direction {-1, 0, 1} (not ported yet)")
+        doc="per-feature monotone direction {-1, 0, 1}: 1 forces "
+            "predictions non-decreasing in the feature, -1 non-increasing")
     monotoneConstraintsMethod = StringParam(
         doc="constraint enforcement method", default="basic",
         allowed=("basic", "intermediate", "advanced"))
@@ -151,21 +163,56 @@ class GBDTParams(Params):
     def _features_matrix(self, ds: Dataset) -> np.ndarray:
         return ds.to_numpy([self.featuresCol])
 
-    def _train_args(self, ds: Dataset):
-        """Refuse what this slice of the port does not train."""
+    def _split_validation(self, ds: Dataset):
+        """(training rows, validation rows or None) by
+        ``validationIndicatorCol``."""
         vcol = self.validationIndicatorCol
         if vcol and vcol in ds:
+            mask = ds[vcol].astype(bool)
+            return ds.filter(~mask), ds.filter(mask)
+        return ds, None
+
+    def _valid_tuple(self, valid_ds, labels: np.ndarray):
+        if valid_ds is None or valid_ds.num_rows == 0:
+            return None
+        return (self._features_matrix(valid_ds), labels,
+                valid_ds[self.weightCol].astype(np.float32)
+                if self.weightCol else None)
+
+    def _train(self, X, y, cfg, w, valid):
+        if self.get("checkpointManager") is not None:
             raise NotImplementedError(
-                "validationIndicatorCol is not ported yet (ROADMAP queue "
-                "A, GBDT breadth: validation and early stopping)")
-        if self.numBatches and self.numBatches > 1:
-            raise NotImplementedError(
-                "numBatches > 1 (warm-started batches) is not ported yet "
-                "(ROADMAP queue A, GBDT breadth: checkpoints)")
-        return dict(checkpoint_dir=(self.get("checkpointDir")
-                                    if self.checkpointInterval > 0
-                                    else None),
-                    device=self.device)
+                "checkpointManager (core.checkpoint.CheckpointManager) is "
+                "not ported yet (ROADMAP queue A5); use checkpointDir")
+        return _train_batched(X, y, cfg, w, valid, self.numBatches,
+                              checkpoint_dir=self.get("checkpointDir"),
+                              checkpoint_interval=int(
+                                  self.checkpointInterval),
+                              device=self.device)
+
+
+def _train_batched(X, y, cfg, w, valid, num_batches: int,
+                   checkpoint_dir=None, checkpoint_interval: int = 0,
+                   device="cuda"):
+    """The ``numBatches`` fold: k sequential row batches, each fit warm
+    started from the model of the ones before."""
+    if num_batches and num_batches > 1:
+        if checkpoint_dir:
+            raise ValueError(
+                "checkpointDir cannot combine with numBatches > 1: the "
+                "batch fold is itself a warm-start sequence — checkpoint "
+                "single-batch training instead")
+        booster, history = None, []
+        for part in np.array_split(np.arange(len(X)), num_batches):
+            booster, h = train(X[part], y[part], cfg,
+                               sample_weight=None if w is None else w[part],
+                               valid=valid, init_model=booster,
+                               device=device)
+            history.extend(h)
+        return booster, history
+    return train(X, y, cfg, sample_weight=w, valid=valid,
+                 checkpoint_dir=checkpoint_dir,
+                 checkpoint_interval=checkpoint_interval, device=device)
 
 
 class GBDTModelBase(Model):
@@ -232,7 +279,7 @@ class GBDTClassifier(GBDTParams, Estimator):
     thresholds = ListParam(doc="per-class prediction thresholds")
 
     def _fit(self, ds: Dataset) -> "GBDTClassificationModel":
-        kw = self._train_args(ds)
+        ds, valid_ds = self._split_validation(ds)
         X = self._features_matrix(ds)
         y_raw = np.asarray(ds[self.labelCol], np.float64)
         w = ds[self.weightCol].astype(np.float32) if self.weightCol else None
@@ -247,7 +294,12 @@ class GBDTClassifier(GBDTParams, Estimator):
         cfg = self._build_config(objective, max(K, 1))
         cfg.is_unbalance = self.isUnbalance
         cfg.scale_pos_weight = self.scalePosWeight
-        booster, history = train(X, y, cfg, sample_weight=w, **kw)
+        valid = None
+        if valid_ds is not None:
+            valid = self._valid_tuple(valid_ds, np.searchsorted(
+                classes, np.asarray(valid_ds[self.labelCol],
+                                    np.float64)).astype(np.float64))
+        booster, history = self._train(X, y, cfg, w, valid)
         model = GBDTClassificationModel(
             boosterModel=booster,
             device=self.device,
@@ -318,14 +370,18 @@ class GBDTRegressor(GBDTParams, Estimator):
                                       default=1.5)
 
     def _fit(self, ds: Dataset) -> "GBDTRegressionModel":
-        kw = self._train_args(ds)
+        ds, valid_ds = self._split_validation(ds)
         X = self._features_matrix(ds)
         y = np.asarray(ds[self.labelCol], np.float64)
         w = ds[self.weightCol].astype(np.float32) if self.weightCol else None
         cfg = self._build_config(self.objective)
         cfg.alpha = self.alpha
         cfg.tweedie_variance_power = self.tweedieVariancePower
-        booster, history = train(X, y, cfg, sample_weight=w, **kw)
+        valid = None
+        if valid_ds is not None:
+            valid = self._valid_tuple(valid_ds, np.asarray(
+                valid_ds[self.labelCol], np.float64))
+        booster, history = self._train(X, y, cfg, w, valid)
         model = GBDTRegressionModel(
             boosterModel=booster,
             device=self.device,

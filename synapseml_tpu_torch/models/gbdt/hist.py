@@ -405,9 +405,12 @@ def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
 
 def _route_and_hist_cuda(bins_t, node_id, leaf, base, rows, t1, rlo, rhi,
                          dflt, l_id, r_id, vals, n_slots, total_bins,
-                         hist_shift, kbase, krows):
+                         hist_shift, kbase, krows, ranges="full"):
     """K2 on the card: split j's bins are row ``rows[j]`` of ``base`` and
-    the refined features rows ``krows`` of ``kbase`` (None: no refine)."""
+    the refined features rows ``krows`` of ``kbase`` (None: no refine).
+    ``ranges`` names the caller's routing ranges in the launch key:
+    "full", or "bundle" for EFB's bundled ranges (the key gains
+    ``ranges=bundle``)."""
     dev = bins_t.device
     F, N = bins_t.shape
     S = n_slots
@@ -445,7 +448,8 @@ def _route_and_hist_cuda(bins_t, node_id, leaf, base, rows, t1, rlo, rhi,
             _stream(dev))
     _raise_on(rc, "route_and_hist")
     launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S,
-                   variant="rows")
+                   variant="rows",
+                   **({} if ranges == "full" else {"ranges": ranges}))
     return new_id, out, outf
 
 
@@ -528,15 +532,17 @@ def route_and_hist_limbs(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
 def route_and_hist_ids_limbs(bins_t, node_id, leaf, feat, t1, rlo, rhi,
                              dflt, l_id, r_id, vals, n_slots: int,
                              total_bins: int, hist_shift: int = 0,
-                             feat_k=None):
+                             feat_k=None, ranges: str = "full"):
     """:func:`route_and_hist_limbs` with split j's bins the row
     ``feat[j]`` of ``bins_t`` and the refined features its rows
-    ``feat_k`` ((S,) and (K,) int32 ids in [0, F)): nothing is gathered."""
+    ``feat_k`` ((S,) and (K,) int32 ids in [0, F)): nothing is gathered.
+    ``ranges="bundle"`` marks a launch routed through EFB's bundled
+    ranges in its launch key."""
     if bins_t.is_cuda:
         return _route_and_hist_cuda(
             bins_t, node_id, leaf, bins_t, feat, t1, rlo, rhi, dflt, l_id,
             r_id, vals, n_slots, total_bins, hist_shift,
-            None if feat_k is None else bins_t, feat_k)
+            None if feat_k is None else bins_t, feat_k, ranges)
     return route_and_hist_ids_plain(bins_t, node_id, leaf, feat, t1, rlo,
                                     rhi, dflt, l_id, r_id, vals, n_slots,
                                     total_bins, hist_shift, feat_k)

@@ -1,15 +1,19 @@
-"""Evaluation metrics for boosting (host-side numpy).
+"""Evaluation metrics for boosting.
 
 The PyTorch port of the JAX package's ``models/gbdt/metrics.py``: AUC,
 binary and multiclass log loss and error, L2/RMSE, L1 and MAPE, and the
-default metric of each objective.  ``ndcg_at`` waits for lambdarank.
+default metric of each objective, as host numpy functions
+(:data:`METRICS`) and as float64 torch functions on the tensors' device
+(:data:`DEVICE_METRICS`), which a fit's validation evaluates without
+copying the margins to the host.  ``ndcg_at`` waits for lambdarank.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 
 def auc(labels, margin, weights=None) -> float:
@@ -118,3 +122,97 @@ def default_metric(objective: str, num_class: int) -> str:
     if objective in ("regression_l1", "mae"):
         return "l1"
     return "l2"
+
+
+# -- the same metrics on the device ------------------------------------------
+
+def _wmean_t(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
+    if w is None:
+        return x.mean()
+    w = w.double()
+    return (x * w).sum() / torch.clamp_min(w.sum(), 1e-12)
+
+
+def auc_t(labels, margin, weights=None) -> torch.Tensor:
+    """:func:`auc` on the device: the same rank sum, ties at their
+    average rank, each tie group's sums read from running sums (scans
+    and reductions whose order is fixed, so a run repeats exactly)."""
+    m = margin.double()
+    order = torch.argsort(m, stable=True)
+    m = m[order]
+    y = labels.double()[order] > 0
+    w = (torch.ones_like(m) if weights is None
+         else weights.double()[order])
+    pos, neg = y * w, (~y) * w
+    total_pos, total_neg = pos.sum(), neg.sum()
+    _, counts = torch.unique_consecutive(m, return_counts=True)
+    end = torch.cumsum(counts, 0) - 1            # each tie group's last row
+    zero = torch.zeros(1, dtype=m.dtype, device=m.device)
+    pos_end, neg_end = torch.cumsum(pos, 0)[end], torch.cumsum(neg, 0)[end]
+    neg_before = torch.cat([zero, neg_end[:-1]])
+    tie_pos = pos_end - torch.cat([zero, pos_end[:-1]])
+    tie_neg = neg_end - neg_before
+    s = (tie_pos * (neg_before + tie_neg / 2.0)).sum()
+    return torch.where((total_pos == 0) | (total_neg == 0),
+                       torch.full_like(s, 0.5),
+                       s / (total_pos * total_neg))
+
+
+def binary_logloss_t(labels, margin, weights=None) -> torch.Tensor:
+    p = torch.clamp(torch.sigmoid(margin.double()), 1e-15, 1 - 1e-15)
+    y = labels.double()
+    return _wmean_t(-(y * torch.log(p) + (1 - y) * torch.log(1 - p)),
+                    weights)
+
+
+def binary_error_t(labels, margin, weights=None) -> torch.Tensor:
+    return _wmean_t(((margin > 0).double() != labels.double()).double(),
+                    weights)
+
+
+def multi_logloss_t(labels, margin, weights=None) -> torch.Tensor:
+    p = torch.softmax(margin.double(), dim=1)
+    y = labels.long()
+    py = p.gather(1, y[:, None])[:, 0]
+    return _wmean_t(-torch.log(torch.clamp_min(py, 1e-15)), weights)
+
+
+def multi_error_t(labels, margin, weights=None) -> torch.Tensor:
+    return _wmean_t((margin.argmax(dim=1) != labels.long()).double(),
+                    weights)
+
+
+def l2_t(labels, pred, weights=None) -> torch.Tensor:
+    d = pred.double() - labels.double()
+    return _wmean_t(d * d, weights)
+
+
+def rmse_t(labels, pred, weights=None) -> torch.Tensor:
+    return torch.sqrt(l2_t(labels, pred, weights))
+
+
+def l1_t(labels, pred, weights=None) -> torch.Tensor:
+    return _wmean_t((pred.double() - labels.double()).abs(), weights)
+
+
+def mape_t(labels, pred, weights=None) -> torch.Tensor:
+    y = labels.double()
+    return _wmean_t((pred.double() - y).abs()
+                    / torch.clamp_min(y.abs(), 1.0), weights)
+
+
+#: metric name -> (fn(labels, margin_or_pred, weights) → 0-dim float64
+#: tensor, larger_is_better), on the tensors' device
+DEVICE_METRICS: Dict[str, tuple] = {
+    "auc": (auc_t, True),
+    "binary_logloss": (binary_logloss_t, False),
+    "binary_error": (binary_error_t, False),
+    "multi_logloss": (multi_logloss_t, False),
+    "multi_error": (multi_error_t, False),
+    "l2": (l2_t, False),
+    "mse": (l2_t, False),
+    "rmse": (rmse_t, False),
+    "l1": (l1_t, False),
+    "mae": (l1_t, False),
+    "mape": (mape_t, False),
+}

@@ -3,13 +3,24 @@
 The PyTorch port of the JAX package's ``models/gbdt/trainer.py`` for its
 two single-device growers: :func:`grow_tree_depthwise` (the default),
 which splits every selected leaf of a wave at once, with one pass over
-the binned matrix per wave (:func:`~.hist.route_and_hist_ids`, K2), and
-:func:`grow_tree`, strict leaf-wise (lossguide) growth with one K1 build
-per split (:func:`~.hist.build_hist_nodes`); both take, for wide bins,
-the two-level (coarse-then-refine) histograms.  Split gain follows LightGBM:
-with G/H the child gradient/hessian sums, ``score(G,H) = T(G)^2 / (H +
-λ2)`` where T is the L1 soft-threshold, and ``gain = score(GL,HL) +
-score(GR,HR) - score(G,H)``.  NaN maps to bin 0 and routes left.
+the binned matrix per wave (:func:`~.hist.route_and_hist_ids_limbs`,
+K2), and :func:`grow_tree`, strict leaf-wise (lossguide) growth with one
+K1 build per split (:func:`~.hist.build_hist_nodes_limbs`); both take,
+for wide bins, the two-level (coarse-then-refine) histograms.  Split
+gain follows LightGBM: with G/H the child gradient/hessian sums,
+``score(G,H) = T(G)^2 / (H + λ2)`` where T is the L1 soft-threshold, and
+``gain = score(GL,HL) + score(GR,HR) - score(G,H)``.  NaN maps to bin 0
+and routes left.
+
+Both growers take EFB-bundled matrices (``bundle_map``): splits route
+through each feature's bundled range (:func:`_slot_route_params`, K2's
+``rlo``/``rhi``/``dflt``), and each histogram the kernels build over the
+bundled columns unbundles to the original features in the kernels'
+int limb space (:func:`_unbundle_hists`), where the default bin's
+residual is exact, so split search and the trees stay in original
+feature space.  Monotone constraints take the basic, intermediate or
+advanced method; the whole-tree refresh of the last two runs on the
+device (:func:`_tree_bounds`).
 
 The JAX grower runs inside ``jit`` with static shapes; here the wave loop
 is a Python loop, and the few scalars that steer it (leaf count, best
@@ -19,8 +30,7 @@ writes the JAX grower sends to its junk node never happen here; the
 kernels still see all ``n_slots`` slots, the unused ones pointing at the
 junk node, as in the JAX package.
 
-Not ported yet (ROADMAP queue A, GBDT breadth): feature- and
-voting-parallel growth, EFB bundle maps, monotone constraints.
+Not ported yet (ROADMAP queue A5): feature- and voting-parallel growth.
 """
 
 from __future__ import annotations
@@ -30,8 +40,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .hist import build_hist_nodes, coarse_bins, prep_hist_vals, \
-    route_and_hist_ids
+from .hist import _reconstruct, build_hist_nodes, build_hist_nodes_limbs, \
+    coarse_bins, prep_hist_vals, route_and_hist_ids_limbs
 
 
 class GrowthParams(NamedTuple):
@@ -45,8 +55,16 @@ class GrowthParams(NamedTuple):
     min_gain_to_split: float = 0.0
     total_bins: int = 256             # B (incl. missing bin 0)
     voting_k: int = 0                 # >0: voting-parallel (not ported)
-    monotone_constraints: Optional[Tuple[int, ...]] = None   # not ported
+    #: per-feature {-1, 0, +1} (None: unconstrained): violating splits
+    #: are discarded and child outputs clamped to bounds
+    monotone_constraints: Optional[Tuple[int, ...]] = None
+    #: gain penalization for splits on constrained features near the root
     monotone_penalty: float = 0.0
+    #: "basic" (midpoint bounds propagated down the tree) |
+    #: "intermediate" (bounds from the opposite subtrees' leaf outputs,
+    #: refreshed over the whole tree after every wave or split) |
+    #: "advanced" (the exact pairwise constraints between ordered,
+    #: overlapping leaf boxes; see :func:`_advanced_bounds`)
     monotone_method: str = "basic"
     #: two-level histograms for wide-bin growth: "off" | "auto" (on for
     #: N >= TWO_LEVEL_MIN_ROWS) | "on".  Histograms build and store at
@@ -124,21 +142,67 @@ def _topk_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return v[:k], i[:k].to(torch.int32)
 
 
+def _mono_penalty_factor(node_depth, penalty: float):
+    """LightGBM's ComputeMonotoneSplitGainPenalty: 1 forbids constrained
+    splits at the root, higher values reach deeper."""
+    eps = 1e-10
+    d = node_depth.to(torch.float32)
+    if penalty <= 1.0:
+        fac = 1.0 - penalty / torch.exp2(d) + eps
+    else:
+        fac = 1.0 - torch.exp2(torch.tensor(penalty, dtype=torch.float32,
+                                            device=d.device) - 1.0 - d) + eps
+    return torch.where(penalty >= d + 1.0, eps, fac)
+
+
+def _obj2(g, h, w, l1, l2):
+    """2x the objective reduction at leaf output ``w``: equals
+    :func:`_leaf_score` at the unclamped optimum, so constrained gains
+    reduce to the unconstrained formula where no bound binds."""
+    return -(2.0 * g * w + (h + l2) * w * w + 2.0 * l1 * torch.abs(w))
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: max with ``lo``, then min with ``hi``."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def _gain_matrix(hist, sum_g, sum_h, sum_c, num_bins, feature_mask,
-                 node_depth, p: GrowthParams):
+                 node_depth, p: GrowthParams, node_lo=None, node_hi=None,
+                 mono_c=None):
     """Split-gain matrix (..., F, B) with invalid candidates at -inf, plus
     the cumulative left sums (gl, hl, cl), for histograms (..., F, B, 3)
     and node stats of shape (...).  A split at bin b sends bins <= b
-    left, b ∈ [0, B-2]."""
+    left, b ∈ [0, B-2].
+
+    With ``mono_c`` ((F,) int32 in {-1, 0, 1}) and the nodes' output
+    bounds ``node_lo``/``node_hi`` (...), gains come from the clamped
+    child outputs, splits whose clamped outputs break their feature's
+    direction are discarded, and constrained features' gains are
+    penalized by depth (``monotone_penalty``)."""
     B = hist.shape[-2]
     # one scan over the three channels at once: the same adds per channel
     gl, hl, cl = _prefix_sum(hist.movedim(-1, 0))
     sg, sh, sc = sum_g[..., None, None], sum_h[..., None, None], \
         sum_c[..., None, None]
     gr, hr, cr = sg - gl, sh - hl, sc - cl
-    gain = (_leaf_score(gl, hl, p.lambda_l1, p.lambda_l2)
-            + _leaf_score(gr, hr, p.lambda_l1, p.lambda_l2)
-            - _leaf_score(sg, sh, p.lambda_l1, p.lambda_l2))
+    l1, l2 = p.lambda_l1, p.lambda_l2
+    if mono_c is None:
+        gain = (_leaf_score(gl, hl, l1, l2) + _leaf_score(gr, hr, l1, l2)
+                - _leaf_score(sg, sh, l1, l2))
+    else:
+        lo, hi = node_lo[..., None, None], node_hi[..., None, None]
+        wl = _clip(_leaf_output(gl, hl, l1, l2), lo, hi)
+        wr = _clip(_leaf_output(gr, hr, l1, l2), lo, hi)
+        wp = _clip(_leaf_output(sg, sh, l1, l2), lo, hi)
+        gain = (_obj2(gl, hl, wl, l1, l2) + _obj2(gr, hr, wr, l1, l2)
+                - _obj2(sg, sh, wp, l1, l2))
+        cvec = mono_c[:, None]
+        viol = ((cvec == 1) & (wl > wr)) | ((cvec == -1) & (wl < wr))
+        gain = torch.where(viol, -torch.inf, gain)
+        if p.monotone_penalty > 0.0:
+            fac = _mono_penalty_factor(node_depth, p.monotone_penalty)
+            gain = torch.where(cvec != 0, gain * fac[..., None, None], gain)
     bins_idx = torch.arange(B, device=hist.device)[None, :]
     valid = ((cl >= p.min_data_in_leaf) & (cr >= p.min_data_in_leaf)
              & (hl >= p.min_sum_hessian_in_leaf)
@@ -163,11 +227,221 @@ def _pick(gain, cum):
 
 
 def _best_split(hist, sum_g, sum_h, sum_c, num_bins, feature_mask,
-                node_depth, p: GrowthParams):
+                node_depth, p: GrowthParams, node_lo=None, node_hi=None,
+                mono_c=None):
     """Best (gain, feature, bin, left sums) per node histogram (..., F, B,
     3)."""
     return _pick(*_gain_matrix(hist, sum_g, sum_h, sum_c, num_bins,
-                               feature_mask, node_depth, p))
+                               feature_mask, node_depth, p, node_lo,
+                               node_hi, mono_c))
+
+
+# -- monotone constraints ----------------------------------------------------
+
+def _mono_vec(p: GrowthParams, F: int, device) -> Optional[torch.Tensor]:
+    """(F,) int32 constraint vector padded/truncated to ``F`` features, or
+    None when unconstrained."""
+    if p.monotone_constraints is None or not any(p.monotone_constraints):
+        return None
+    c = tuple(p.monotone_constraints)[:F]
+    c = c + (0,) * (F - len(c))
+    return torch.tensor(c, dtype=torch.int32, device=device)
+
+
+def _mono_child_bounds(cf, lo, hi, wl, wr):
+    """Child output bounds after a split on a feature of constraint
+    ``cf`` (basic method): the clamped child outputs' midpoint caps the
+    side that would break the direction; unconstrained split features
+    pass the bounds through."""
+    mid = 0.5 * (wl + wr)
+    l_lo = torch.where(cf == -1, torch.maximum(lo, mid), lo)
+    l_hi = torch.where(cf == 1, torch.minimum(hi, mid), hi)
+    r_lo = torch.where(cf == 1, torch.maximum(lo, mid), lo)
+    r_hi = torch.where(cf == -1, torch.minimum(hi, mid), hi)
+    return l_lo, l_hi, r_lo, r_hi
+
+
+def _mono_node_bounds(mono_cf, p_lo, p_hi, lg, lh, rg, rh, p: GrowthParams):
+    """One split's child bounds: the parent's when unconstrained
+    (``mono_cf`` None), else the children's leaf outputs clamped to the
+    parent's bounds and the violating side capped at their midpoint."""
+    if mono_cf is None:
+        return p_lo, p_hi, p_lo, p_hi
+    wl = _clip(_leaf_output(lg, lh, p.lambda_l1, p.lambda_l2), p_lo, p_hi)
+    wr = _clip(_leaf_output(rg, rh, p.lambda_l1, p.lambda_l2), p_lo, p_hi)
+    return _mono_child_bounds(mono_cf, p_lo, p_hi, wl, wr)
+
+
+def _bool_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean matrix product (exact: 0/1 products, sums below 2^24)."""
+    return (a.to(torch.float32) @ b.to(torch.float32)) > 0
+
+
+def _descendants(left_child, right_child) -> torch.Tensor:
+    """(M, M) bool: ``desc[a, i]`` when node i lies in a's subtree (a
+    included), by squaring the child relation to its closure."""
+    M = left_child.shape[0]
+    dev = left_child.device
+    ar = torch.arange(M, device=dev)
+    desc = torch.eye(M, dtype=torch.bool, device=dev)
+    internal = left_child >= 0
+    for child in (left_child, right_child):
+        desc[ar[internal], child[internal].long()] = True
+    for _ in range(max(int(np.ceil(np.log2(max(M, 2)))), 1)):
+        desc = desc | _bool_mm(desc, desc)
+    return desc
+
+
+def _intermediate_bounds(split_feature, left_child, right_child, raw_value,
+                         mono_c):
+    """Intermediate-method bounds: a constrained split bounds each child
+    subtree by the opposite subtree's leaf outputs.  The constraints are
+    explicit pairs (for a split at node a on a feature with c=+1, every
+    node of L(a) <= every leaf of R(a), every node of R(a) >= every leaf
+    of L(a)), projected by :func:`_project_pairs`.  → (lo, hi, clamped
+    value), each (M,)."""
+    leaf = left_child < 0
+    desc = _descendants(left_child, right_child)
+    internal = left_child >= 0
+    inL = desc[left_child.clamp_min(0).long()] & internal[:, None]
+    inR = desc[right_child.clamp_min(0).long()] & internal[:, None]
+    c = torch.where(internal, mono_c[split_feature.clamp_min(0).long()], 0)
+    inc, dec = (c == 1)[:, None], (c == -1)[:, None]
+    low_side = (inc & inL) | (dec & inR)
+    high_side = (inc & inR) | (dec & inL)
+    P = _bool_mm(low_side.t(), high_side & leaf[None, :])
+    Q = _bool_mm(high_side.t(), low_side & leaf[None, :])
+    return _project_pairs(P, Q, raw_value, leaf)
+
+
+def _project_pairs(P, Q, raw_value, leaf):
+    """Feasible monotone values and bounds from explicit constraints:
+    ``P[i, j]``: ``val_i <= val_j``, ``Q[i, j]``: ``val_i >= val_j``, j a
+    leaf.  Leaves take ``(L + U) / 2`` with ``L`` the max of the raw
+    values over the leaf's transitive predecessors (itself included) and
+    ``U`` the min over its successors: feasible by construction, and the
+    raw value wherever that already was.  Internal nodes clamp to the
+    bounds the leaf values imply.  → (lo, hi, val), each (M,)."""
+    M = raw_value.shape[0]
+    close = P & leaf[:, None]
+    for _ in range(max(int(np.ceil(np.log2(max(M, 2)))), 1)):
+        close = close | _bool_mm(close, close)
+    inf = torch.full_like(raw_value, torch.inf)[None, :]
+    L = torch.maximum(raw_value, torch.where(
+        close.t(), raw_value[None, :], -inf).max(dim=1).values)
+    U = torch.minimum(raw_value, torch.where(
+        close, raw_value[None, :], inf).min(dim=1).values)
+    vleaf = torch.where(leaf, 0.5 * (L + U), raw_value)
+    hi = torch.where(P, vleaf[None, :], inf).min(dim=1).values
+    lo = torch.where(Q, vleaf[None, :], -inf).max(dim=1).values
+    return lo, hi, torch.where(leaf, vleaf, _clip(raw_value, lo, hi))
+
+
+def _advanced_bounds(split_feature, split_bin, left_child, right_child,
+                     raw_value, mono_c, total_bins: int):
+    """Advanced-method bounds: the exact minimal constraint set for one
+    tree's monotonicity.  ``val_i <= val_j`` is required iff leaves i and
+    j are ordered on a constrained feature f (i's bin box strictly left
+    of j's) and their boxes overlap on every other feature.  Each node's
+    bin box (lo, hi] per feature comes from its ancestors' splits.  Needs
+    O(M^2 F) memory (``booster._advanced_mask_budget_bytes``).  → (lo, hi,
+    clamped value), each (M,)."""
+    F = mono_c.shape[0]
+    dev = split_feature.device
+    leaf = left_child < 0
+    desc = _descendants(left_child, right_child)
+    internal = (left_child >= 0)[:, None]
+    inL = desc[left_child.clamp_min(0).long()] & internal    # (a, i)
+    inR = desc[right_child.clamp_min(0).long()] & internal
+    on_f = (split_feature.long()[:, None]
+            == torch.arange(F, device=dev)[None, :])           # (a, f)
+    sb = split_bin[:, None, None]
+    # hi[i, f]: the smallest split bin of an ancestor a on f with i in
+    # L(a); lo[i, f]: the largest of one with i in R(a)
+    hi = torch.where(inL[:, :, None] & on_f[:, None, :], sb,
+                     total_bins - 1).min(dim=0).values        # (i, f)
+    lo = torch.where(inR[:, :, None] & on_f[:, None, :], sb,
+                     -1).max(dim=0).values
+    # boxes (lo, hi] intersect iff lo_i < hi_j and lo_j < hi_i
+    ov = (lo[:, None, :] < hi[None, :, :]) & (lo[None, :, :] < hi[:, None, :])
+    n_ov = ov.to(torch.int32).sum(-1)
+    ov_exc = (n_ov[:, :, None] - ov.to(torch.int32)) == (F - 1)
+    ordered = hi[:, None, :] <= lo[None, :, :]          # i left of j on f
+    inc_f = ov_exc & (mono_c[None, None, :] == 1)
+    dec_f = ov_exc & (mono_c[None, None, :] == -1)
+    ordered_t = ordered.transpose(0, 1)
+    P_any = ((ordered & inc_f).any(-1)) | ((ordered_t & dec_f).any(-1))
+    Q_any = ((ordered_t & inc_f).any(-1)) | ((ordered & dec_f).any(-1))
+    return _project_pairs(P_any & leaf[None, :], Q_any & leaf[None, :],
+                          raw_value, leaf)
+
+
+def _tree_bounds(split_feature, split_bin, left_child, right_child,
+                 raw_value, mono_c, p: GrowthParams):
+    """Whole-tree bounds for ``p.monotone_method`` (intermediate or
+    advanced) → (lo, hi, clamped value)."""
+    if p.monotone_method == "advanced":
+        return _advanced_bounds(split_feature, split_bin, left_child,
+                                right_child, raw_value, mono_c, p.total_bins)
+    return _intermediate_bounds(split_feature, left_child, right_child,
+                                raw_value, mono_c)
+
+
+def _refresh_on(mono_c, p: GrowthParams) -> bool:
+    return mono_c is not None and p.monotone_method in ("intermediate",
+                                                        "advanced")
+
+
+# -- EFB ----------------------------------------------------------------------
+
+def _slot_route_params(feat, tbin, B: int, bundle_map):
+    """Routing of splits chosen on ORIGINAL features → (col, t1, rlo, rhi,
+    dflt): rows of column ``col`` go left iff ``x in (rlo, rhi] ? x <= t1
+    : dflt``.  Plain training routes the feature's own column with the
+    full range (``x <= tbin``); under EFB the split feature's bundled
+    range maps the original-bin threshold onto the bundled column (rank(b)
+    = b + (b < default)), and rows outside the range (the feature at its
+    default bin) take the default bin's direction."""
+    if bundle_map is None:
+        return (feat, tbin, torch.full_like(feat, -1),
+                torch.full_like(feat, B), torch.ones_like(feat))
+    f = feat.long()
+    col = bundle_map["col"][f]
+    lo = bundle_map["lo"][f]
+    d = bundle_map["default_bin"][f]
+    t1 = lo + tbin + (tbin < d).to(tbin.dtype)
+    return col, t1, lo, bundle_map["hi"][f], (d <= tbin).to(torch.int32)
+
+
+def _unbundle_hists(hists, gather_src, tot):
+    """Bundled histograms (..., Fb, Bb, C) → ORIGINAL-feature histograms
+    (..., F, B, C) by gather; a feature's DEFAULT bin takes the residual
+    ``tot`` (..., C) minus its other bins (the rows at its default sit at
+    bundled bin 0 or inside other features' ranges), out-of-range bins
+    take 0.  Any dtype: the growers unbundle the kernels' int64 limb
+    sums, where the residual is exact."""
+    lead = hists.shape[:-3]
+    F, B = gather_src.shape
+    C = hists.shape[-1]
+    flat = hists.reshape(lead + (-1, C))
+    V = flat.index_select(-2, gather_src.clamp_min(0).reshape(-1).long())
+    V = V.reshape(lead + (F, B, C))
+    V = torch.where((gather_src >= 0)[..., None], V, torch.zeros_like(V))
+    resid = tot[..., None, None, :] - V.sum(dim=-2, keepdim=True)
+    return torch.where((gather_src == -2)[..., None], resid, V)
+
+
+def _node_hists(limbs, scales, bundle_map=None):
+    """A kernel's int32 limb sums (R, Bh, S, 8) → (S, F, Bh, 3) f32
+    [grad, hess, count] histograms.  Under EFB (R bundled columns) they
+    unbundle first, in int64 limb space with every row's limbs counted
+    once by bundled column 0, so each original feature's histogram is
+    exactly the one its own column would give."""
+    h = limbs.permute(2, 0, 1, 3)
+    if bundle_map is not None:
+        h = h.to(torch.int64)
+        h = _unbundle_hists(h, bundle_map["gather_src"], h[:, 0].sum(dim=1))
+    return _reconstruct(h, scales)
 
 
 # -- two-level (coarse-then-refine) histograms ------------------------------
@@ -234,11 +508,14 @@ def _tl_root_pick(bins_t, root_hist, root_stats, row_valid, vals8, scales,
     return topk, root_fine, tuple(x[0] for x in rbest)
 
 
-def _two_level_on(p: GrowthParams, F: int, N: int) -> bool:
+def _two_level_on(p: GrowthParams, F: int, N: int, bundle_map=None) -> bool:
     """Two-level histograms: wide bins, a refined set smaller than the
-    features, and enough rows (or "on")."""
+    features, and enough rows (or "on"); never under EFB or monotone
+    constraints, whose splits the JAX package keeps at full
+    resolution."""
+    mono = bool(p.monotone_constraints) and any(p.monotone_constraints)
     return (p.refine_k > 0 and p.two_level != "off" and p.total_bins >= 128
-            and F > p.refine_k
+            and bundle_map is None and not mono and F > p.refine_k
             and (p.two_level == "on" or N >= TWO_LEVEL_MIN_ROWS))
 
 
@@ -252,7 +529,7 @@ def default_n_slots(num_leaves: int) -> int:
     return max(1, min(16, num_leaves - 1))
 
 
-def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
+def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
                         grad: torch.Tensor,         # (N,) f32 or bf16
                         hess: torch.Tensor,         # (N,) f32 or bf16
                         row_valid: torch.Tensor,    # (N,) f32 row weight
@@ -261,34 +538,40 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
                         num_bins: torch.Tensor,         # (F,) int32
                         learning_rate: float,
                         p: GrowthParams,
-                        n_slots: int = 16) -> Tuple[Tree, torch.Tensor]:
+                        n_slots: int = 16,
+                        bundle_map: Optional[dict] = None
+                        ) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree wave by wave → (tree, per-row leaf node ids).
 
     Within a wave the best ``n_slots`` splittable leaves split together;
-    one :func:`~.hist.route_and_hist_ids` pass routes their rows and
+    one :func:`~.hist.route_and_hist_ids_limbs` pass routes their rows and
     builds the left children's histograms (right children by subtraction
     from the parent), reading the split and refined features' bins in
     place by their row ids.  All tensors lie on one device; the
-    histogram kernels run there."""
-    if p.voting_k or (p.monotone_constraints
-                      and any(p.monotone_constraints)):
+    histogram kernels run there.  ``bundle_map`` (EFB,
+    ``FeatureBundler.route_tables`` on the device): ``bins_t`` holds the
+    bundled columns, while the features, bounds and the tree are the
+    original ones."""
+    if p.voting_k:
         raise NotImplementedError(
-            "voting-parallel growth and monotone constraints are not "
-            "ported yet (ROADMAP queue A, GBDT breadth)")
+            "voting-parallel growth is not ported yet (ROADMAP queue A5)")
     dev = bins_t.device
     i32, f32 = torch.int32, torch.float32
-    F, N = bins_t.shape
+    N = bins_t.shape[1]
+    F = num_bins.shape[0]          # original features (bundles under EFB)
     B = p.total_bins
     L = p.num_leaves
     M = max_nodes(L)
     S = n_slots
     JUNK = M - 1              # node index never reached (num_nodes <= M-1)
+    mono_c = _mono_vec(p, F, dev)
+    refresh = _refresh_on(mono_c, p)
 
     def ifull(n, v):
         return torch.full((n,), v, dtype=i32, device=dev)
 
     vals8, scales = prep_hist_vals(grad, hess, row_valid)
-    tl = _two_level_on(p, F, N)
+    tl = _two_level_on(p, F, N, bundle_map)
     SH = TWO_LEVEL_SHIFT
     Bh = coarse_bins(B, SH) if tl else B   # stored-histogram width
     K = p.refine_k
@@ -296,19 +579,25 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
     num_bins_c = (num_bins + (1 << SH) - 1) >> SH
     depth0 = torch.zeros((), dtype=i32, device=dev)
 
+    def pick(hists, g, h, c, d, lo, hi):
+        return _best_split(hists, g, h, c, num_bins, feature_mask, d, p, lo,
+                           hi, mono_c)
+
     # root: one pass with every row in one slot, riding the fused kernel
     # with a degenerate all-left split of leaf 0 (t1=B → every row left,
     # child id 0 → node ids unchanged)
-    _, root_hists = route_and_hist_ids(
+    out = route_and_hist_ids_limbs(
         bins_t, torch.zeros(N, dtype=i32, device=dev), ifull(1, 0),
         ifull(1, 0), ifull(1, B), ifull(1, -1), ifull(1, B), ifull(1, 1),
-        ifull(1, 0), ifull(1, 0), vals8, scales, 1, B,
+        ifull(1, 0), ifull(1, 0), vals8, 1, B,
         hist_shift=(SH if tl else 0))
-    root_hist = root_hists[0]                              # (F, Bh, 3)
+    root_hist = _node_hists(out[1], scales, bundle_map)[0]  # (F, Bh, 3)
     # the scan's last entry: the same adds in the same order on every
     # device (see _prefix_sum)
     root_stats = _prefix_sum(root_hist[0].t())[:, -1]
     root_g, root_h, root_c = root_stats[0], root_stats[1], root_stats[2]
+    node_lo = torch.full((M,), -torch.inf, dtype=f32, device=dev)
+    node_hi = torch.full((M,), torch.inf, dtype=f32, device=dev)
 
     topk = None
     if tl:
@@ -317,9 +606,8 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
             num_bins, num_bins_c, feature_mask, p)
         bg, bf_, bb, bgl, bhl, bcl = rbest
     else:
-        bg, bf_, bb, bgl, bhl, bcl = _best_split(
-            root_hist, root_g, root_h, root_c, num_bins, feature_mask,
-            depth0, p)
+        bg, bf_, bb, bgl, bhl, bcl = pick(root_hist, root_g, root_h, root_c,
+                                          depth0, node_lo[0], node_hi[0])
 
     zi = torch.zeros(M, dtype=i32, device=dev)
     zf = torch.zeros(M, dtype=f32, device=dev)
@@ -362,25 +650,30 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
         r_ids = torch.where(valid, num_nodes + 2 * jidx + 1, JUNK)
         pl = parents[:nv].long()
         bf_p, bb_p = best_feat[parents.long()], best_bin[parents.long()]
-        # plain splits: the universal routing form with the full range
+        # the universal routing form: the full range, or under EFB the
+        # split feature's range in its bundled column
+        col, t1, rlo, rhi, dflt = _slot_route_params(bf_p, bb_p, B,
+                                                     bundle_map)
         last_wave = leaves + nv >= L
         if last_wave:
             # this wave fills the leaf budget: its children never split
             # again, so it routes in plain tensor code and skips the
             # histogram pass, as the JAX grower does
             new_node_id = node_id
-            for j, f in enumerate(bf_p[:nv].tolist()):
-                gl = _route_left(bins_t[f], bb_p[j], -1, B, 1)
+            for j, c in enumerate(col[:nv].tolist()):
+                gl = _route_left(bins_t[c], t1[j], rlo[j], rhi[j], dflt[j])
                 new_node_id = torch.where(
                     node_id == parents[j],
                     torch.where(gl, l_ids[j], r_ids[j]), new_node_id)
         else:
-            out = route_and_hist_ids(
-                bins_t, node_id, parents, bf_p, bb_p, ifull(S, -1),
-                ifull(S, B), ifull(S, 1), l_ids, r_ids, vals8, scales, S, B,
-                hist_shift=(SH if tl else 0), feat_k=topk)
-            new_node_id, l_hists = out[0], out[1]
-            lf = out[2] if tl else None
+            out = route_and_hist_ids_limbs(
+                bins_t, node_id, parents, col, t1, rlo, rhi, dflt, l_ids,
+                r_ids, vals8, S, B, hist_shift=(SH if tl else 0),
+                feat_k=topk,
+                ranges=("full" if bundle_map is None else "bundle"))
+            new_node_id = out[0]
+            l_hists = _node_hists(out[1], scales, bundle_map)
+            lf = _node_hists(out[2], scales) if tl else None
 
         lid, rid = l_ids[:nv].long(), r_ids[:nv].long()
         cids = torch.cat([lid, rid])
@@ -393,42 +686,20 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
         ch = torch.cat([lh, rh])
         cc = torch.cat([lc, rc])
         cd = torch.cat([cdepth, cdepth])
-        if not last_wave:
-            # the budget-filling wave's children never split again: their
-            # histograms and picks would never be read
-            l_flat = l_hists[:nv].reshape(nv, F * Bh, 3)
-            r_flat = hist[pslot] - l_flat
-            hist[pslot] = l_flat
-            hist[r_slots] = r_flat
-            child_hists = torch.cat([l_flat, r_flat]).reshape(
-                2 * nv, F, Bh, 3)
-            if tl:
-                cgm, ccum, _ = _tl_coarse_gains(
-                    child_hists, cg, ch, cc, cd, num_bins_c, feature_mask,
-                    p)
-                lf_flat = lf[:nv].reshape(nv, K * B, 3)
-                rf_flat = hist_f[pslot] - lf_flat
-                hist_f[pslot] = lf_flat
-                hist_f[r_slots] = rf_flat
-                f_hists = torch.cat([lf_flat, rf_flat]).reshape(
-                    2 * nv, K, B, 3)
-                picks = _tl_final_pick(cgm, ccum, f_hists, topk, cg, ch, cc,
-                                       cd, num_bins, feature_mask, p, SH)
-            else:
-                picks = _best_split(child_hists, cg, ch, cc, num_bins,
-                                    feature_mask, cd, p)
-            for t, v in zip((best_gain, best_feat, best_bin, best_gl,
-                             best_hl, best_cl), picks):
-                t[cids] = v
+        if mono_c is not None and not refresh:
+            l_lo, l_hi, r_lo, r_hi = _mono_node_bounds(
+                mono_c[bf_p[:nv].long()], node_lo[pl], node_hi[pl], lg, lh,
+                rg, rh, p)
+            node_lo[cids] = torch.cat([l_lo, r_lo])
+            node_hi[cids] = torch.cat([l_hi, r_hi])
         bfv, bbv = bf_p[:nv], bb_p[:nv]
-        thr = torch.where(
-            bbv >= 1,
-            upper_bounds[bfv.long(), torch.clamp_min(bbv - 1, 0).long()],
-            -torch.inf)
         split_feature[pl] = bfv
         split_bin[pl] = bbv
         split_gain[pl] = best_gain[pl]
-        threshold[pl] = thr
+        threshold[pl] = torch.where(
+            bbv >= 1,
+            upper_bounds[bfv.long(), torch.clamp_min(bbv - 1, 0).long()],
+            -torch.inf)
         left_child[pl] = lid.to(i32)
         right_child[pl] = rid.to(i32)
         slot[lid] = pslot.to(i32)
@@ -441,23 +712,72 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (F, N) int32
         num_nodes += 2 * nv
         next_slot += nv
         if last_wave:
+            # the budget-filling wave's children never split again: their
+            # histograms and picks would never be read
             break
+        l_flat = l_hists[:nv].reshape(nv, F * Bh, 3)
+        r_flat = hist[pslot] - l_flat
+        hist[pslot] = l_flat
+        hist[r_slots] = r_flat
+        child_hists = torch.cat([l_flat, r_flat]).reshape(2 * nv, F, Bh, 3)
+        if refresh:
+            # intermediate / advanced: the whole tree's bounds, on the
+            # device; this wave's children pick under them
+            node_lo, node_hi, _ = _tree_bounds(
+                split_feature, split_bin, left_child, right_child,
+                _leaf_output(sum_g, sum_h, p.lambda_l1, p.lambda_l2), mono_c,
+                p)
+        if tl:
+            cgm, ccum, _ = _tl_coarse_gains(
+                child_hists, cg, ch, cc, cd, num_bins_c, feature_mask, p)
+            lf_flat = lf[:nv].reshape(nv, K * B, 3)
+            rf_flat = hist_f[pslot] - lf_flat
+            hist_f[pslot] = lf_flat
+            hist_f[r_slots] = rf_flat
+            f_hists = torch.cat([lf_flat, rf_flat]).reshape(2 * nv, K, B, 3)
+            picks = _tl_final_pick(cgm, ccum, f_hists, topk, cg, ch, cc, cd,
+                                   num_bins, feature_mask, p, SH)
+        else:
+            picks = pick(child_hists, cg, ch, cc, cd, node_lo[cids],
+                         node_hi[cids])
+        for t, v in zip((best_gain, best_feat, best_bin, best_gl, best_hl,
+                         best_cl), picks):
+            t[cids] = v
 
-    node_value = learning_rate * _leaf_output(sum_g, sum_h, p.lambda_l1,
-                                              p.lambda_l2)
+    return _finish_tree(split_feature, split_bin, threshold, split_gain,
+                        left_child, right_child, sum_g, sum_h, sum_c,
+                        num_nodes, node_lo, node_hi, mono_c, learning_rate,
+                        p), node_id
+
+
+def _finish_tree(split_feature, split_bin, threshold, split_gain, left_child,
+                 right_child, sum_g, sum_h, sum_c, num_nodes: int, node_lo,
+                 node_hi, mono_c, learning_rate: float, p: GrowthParams):
+    """The grown tree: node outputs from the node sums, under monotone
+    constraints clamped to the basic method's bounds or projected by the
+    whole-tree refresh, then shrunk."""
+    dev = sum_g.device
+    M = sum_g.shape[0]
+    node_value = _leaf_output(sum_g, sum_h, p.lambda_l1, p.lambda_l2)
+    if _refresh_on(mono_c, p):
+        node_value = _tree_bounds(split_feature, split_bin, left_child,
+                                  right_child, node_value, mono_c, p)[2]
+    elif mono_c is not None:
+        node_value = _clip(node_value, node_lo, node_hi)
+    node_value = learning_rate * node_value
     leaf_value = torch.where(left_child < 0, node_value, 0.0)
-    tree = Tree(split_feature=split_feature, split_bin=split_bin,
+    return Tree(split_feature=split_feature, split_bin=split_bin,
                 threshold=threshold, split_gain=split_gain,
                 left_child=left_child, right_child=right_child,
                 leaf_value=leaf_value, node_value=node_value,
-                num_nodes=torch.tensor(num_nodes, dtype=i32, device=dev),
+                num_nodes=torch.tensor(num_nodes, dtype=torch.int32,
+                                       device=dev),
                 default_left=torch.ones(M, dtype=torch.bool, device=dev),
                 node_count=sum_c,
                 missing_zero=torch.zeros(M, dtype=torch.bool, device=dev))
-    return tree, node_id
 
 
-def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
+def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
               grad: torch.Tensor,           # (N,) f32 or bf16
               hess: torch.Tensor,           # (N,) f32 or bf16
               row_valid: torch.Tensor,      # (N,) f32 bag or GOSS weight
@@ -465,7 +785,9 @@ def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
               upper_bounds: torch.Tensor,   # (F, B-1) f32
               num_bins: torch.Tensor,       # (F,) int32
               learning_rate: float,
-              p: GrowthParams) -> Tuple[Tree, torch.Tensor]:
+              p: GrowthParams,
+              bundle_map: Optional[dict] = None
+              ) -> Tuple[Tree, torch.Tensor]:
     """Strict leaf-wise (lossguide) growth → (tree, per-row leaf node ids).
 
     Each of at most ``num_leaves - 1`` splits takes the leaf of largest
@@ -475,19 +797,21 @@ def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
     child's by subtraction from the parent, then picks both children's
     best splits.  One host sync per split decides whether any leaf can
     still split (the JAX grower's ``lax.cond``); everything else stays on
-    the device, with the chosen leaf as a one-element index tensor."""
-    if p.voting_k or (p.monotone_constraints
-                      and any(p.monotone_constraints)):
+    the device, with the chosen leaf as a one-element index tensor.
+    ``bundle_map``: as in :func:`grow_tree_depthwise`."""
+    if p.voting_k:
         raise NotImplementedError(
-            "voting-parallel growth and monotone constraints are not "
-            "ported yet (ROADMAP queue A, GBDT breadth)")
+            "voting-parallel growth is not ported yet (ROADMAP queue A5)")
     dev = bins_t.device
     i32, f32 = torch.int32, torch.float32
-    F, N = bins_t.shape
+    N = bins_t.shape[1]
+    F = num_bins.shape[0]          # original features (bundles under EFB)
     B = p.total_bins
     L = p.num_leaves
     M = max_nodes(L)
-    tl = _two_level_on(p, F, N)
+    mono_c = _mono_vec(p, F, dev)
+    refresh = _refresh_on(mono_c, p)
+    tl = _two_level_on(p, F, N, bundle_map)
     SH = TWO_LEVEL_SHIFT if tl else 0
     Bh = coarse_bins(B, SH) if tl else B
     K = p.refine_k
@@ -497,14 +821,20 @@ def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
     vals8, scales = prep_hist_vals(grad, hess, row_valid)
     valid = row_valid > 0
 
-    def build(in_node, feat=None):
-        """K1 at one slot over the rows of ``in_node`` that carry weight:
-        (F, Bh, 3), or (K, B, 3) for the refined rows ``feat``."""
+    def build(in_node):
+        """K1 at one slot over the rows of ``in_node`` that carry weight
+        → (F, Bh, 3), unbundled under EFB."""
         slot = torch.where(in_node & valid, 0, -1).to(i32)
-        return build_hist_nodes(bins_t, slot, vals8, scales, 1, B,
-                                hist_shift=(0 if feat is not None else SH),
-                                feat=feat)[0]
+        return _node_hists(build_hist_nodes_limbs(
+            bins_t, slot, vals8, 1, B, hist_shift=SH), scales,
+            bundle_map)[0]
 
+    def pick(hists, g, h, c, d, lo, hi):
+        return _best_split(hists, g, h, c, num_bins, feature_mask, d, p, lo,
+                           hi, mono_c)
+
+    node_lo = torch.full((M,), -torch.inf, dtype=f32, device=dev)
+    node_hi = torch.full((M,), torch.inf, dtype=f32, device=dev)
     root_hist = build(torch.ones_like(valid))
     # the scan's last entry: the same adds in the same order on every
     # device (see _prefix_sum)
@@ -515,9 +845,9 @@ def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
             bins_t, root_hist, root_stats, row_valid, vals8, scales,
             num_bins, num_bins_c, feature_mask, p)
     else:
-        rbest = _best_split(root_hist, root_stats[0], root_stats[1],
-                            root_stats[2], num_bins, feature_mask,
-                            torch.zeros((), dtype=i32, device=dev), p)
+        rbest = pick(root_hist, root_stats[0], root_stats[1], root_stats[2],
+                     torch.zeros((), dtype=i32, device=dev), node_lo[0],
+                     node_hi[0])
 
     zi = torch.zeros(M, dtype=i32, device=dev)
     zf = torch.zeros(M, dtype=f32, device=dev)
@@ -554,8 +884,10 @@ def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
         l_id, r_id = num_nodes, num_nodes + 1
         kids = slice(l_id, l_id + 2)
         r_slot = num_nodes // 2 + 1           # one fresh slot per split
-        go_left = _route_left(bins_t.index_select(0, feat.long())[0], sbin,
-                              -1, B, 1)
+        col, t1, rlo, rhi, dflt = _slot_route_params(feat, sbin, B,
+                                                     bundle_map)
+        go_left = _route_left(bins_t.index_select(0, col.long())[0], t1,
+                              rlo, rhi, dflt)
         node_id = torch.where(node_id == leaf,
                               torch.where(go_left, l_id, r_id),
                               node_id).to(i32)
@@ -572,19 +904,6 @@ def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
         cc = torch.cat([lc, sum_c[leaf] - lc])
         cd = (depth[leaf] + 1).expand(2)
         child_hists = torch.cat([l_hist, r_hist]).reshape(2, F, Bh, 3)
-        if tl:
-            lf = build(in_left, feat=topk).reshape(1, K * B, 3)
-            rf = hist_f[pslot] - lf
-            hist_f[pslot] = lf
-            hist_f[r_slot] = rf[0]
-            cgm, ccum, _ = _tl_coarse_gains(child_hists, cg, ch, cc, cd,
-                                            num_bins_c, feature_mask, p)
-            picks = _tl_final_pick(
-                cgm, ccum, torch.cat([lf, rf]).reshape(2, K, B, 3), topk,
-                cg, ch, cc, cd, num_bins, feature_mask, p, TWO_LEVEL_SHIFT)
-        else:
-            picks = _best_split(child_hists, cg, ch, cc, num_bins,
-                                feature_mask, cd, p)
         split_feature[leaf] = feat
         split_bin[leaf] = sbin
         split_gain[leaf] = best_gain[leaf]
@@ -596,29 +915,49 @@ def grow_tree(bins_t: torch.Tensor,         # (F, N) int32
         # Python int would copy it from the host)
         left_child.index_fill_(0, leaf, l_id)
         right_child.index_fill_(0, leaf, r_id)
-        for t, v in zip((best_gain, best_feat, best_bin, best_gl, best_hl,
-                         best_cl), picks):
-            t[kids] = v
         slot[l_id] = pslot[0]
         slot[r_id] = r_slot
         sum_g[kids], sum_h[kids], sum_c[kids] = cg, ch, cc
         depth[kids] = cd
+        if refresh:
+            # intermediate / advanced: the whole tree's bounds, on the
+            # device; both children pick under them
+            node_lo, node_hi, _ = _tree_bounds(
+                split_feature, split_bin, left_child, right_child,
+                _leaf_output(sum_g, sum_h, p.lambda_l1, p.lambda_l2), mono_c,
+                p)
+        elif mono_c is not None:
+            l_lo, l_hi, r_lo, r_hi = _mono_node_bounds(
+                mono_c[feat.long()], node_lo[leaf], node_hi[leaf], cg[:1],
+                ch[:1], cg[1:], ch[1:], p)
+            node_lo[kids] = torch.cat([l_lo, r_lo])
+            node_hi[kids] = torch.cat([l_hi, r_hi])
+        if tl:
+            lf = _node_hists(build_hist_nodes_limbs(
+                bins_t, torch.where(in_left & valid, 0, -1).to(i32), vals8,
+                1, B, feat=topk), scales).reshape(1, K * B, 3)
+            rf = hist_f[pslot] - lf
+            hist_f[pslot] = lf
+            hist_f[r_slot] = rf[0]
+            cgm, ccum, _ = _tl_coarse_gains(child_hists, cg, ch, cc, cd,
+                                            num_bins_c, feature_mask, p)
+            picks = _tl_final_pick(
+                cgm, ccum, torch.cat([lf, rf]).reshape(2, K, B, 3), topk,
+                cg, ch, cc, cd, num_bins, feature_mask, p, TWO_LEVEL_SHIFT)
+        else:
+            picks = pick(child_hists, cg, ch, cc, cd, node_lo[kids],
+                         node_hi[kids])
+        for t, v in zip((best_gain, best_feat, best_bin, best_gl, best_hl,
+                         best_cl), picks):
+            t[kids] = v
         active.index_fill_(0, leaf, False)
         active[kids] = True
         num_nodes += 2
 
-    node_value = learning_rate * _leaf_output(sum_g, sum_h, p.lambda_l1,
-                                              p.lambda_l2)
-    leaf_value = torch.where(left_child < 0, node_value, 0.0)
-    tree = Tree(split_feature=split_feature, split_bin=split_bin,
-                threshold=threshold, split_gain=split_gain,
-                left_child=left_child, right_child=right_child,
-                leaf_value=leaf_value, node_value=node_value,
-                num_nodes=torch.tensor(num_nodes, dtype=i32, device=dev),
-                default_left=torch.ones(M, dtype=torch.bool, device=dev),
-                node_count=sum_c,
-                missing_zero=torch.zeros(M, dtype=torch.bool, device=dev))
-    return tree, node_id
+    return _finish_tree(split_feature, split_bin, threshold, split_gain,
+                        left_child, right_child, sum_g, sum_h, sum_c,
+                        num_nodes, node_lo, node_hi, mono_c, learning_rate,
+                        p), node_id
 
 
 def predict_raw_features(features: torch.Tensor, trees_stacked: Tree,
@@ -651,19 +990,49 @@ def predict_raw_features(features: torch.Tensor, trees_stacked: Tree,
 
 
 def predict_binned_tree(bins_t: torch.Tensor, tree: Tree,
-                        depth_bound: int) -> torch.Tensor:
-    """One tree's leaf values (N,) on the (F, N) binned training matrix
-    (DART's rescoring): each node sends bins <= its split bin left."""
+                        depth_bound: int, bundle_map: Optional[dict] = None,
+                        total_bins: int = 1 << 20) -> torch.Tensor:
+    """One tree's leaf values (N,) on an (F, N) binned matrix (DART's
+    rescoring, validation): each node sends bins <= its split bin left.
+    ``bundle_map``: the matrix holds EFB-bundled columns, and each split
+    routes through its feature's bundled range as in training
+    (:func:`_slot_route_params`)."""
+    return tree.leaf_value[_binned_leaves(bins_t, tree, depth_bound,
+                                          bundle_map, total_bins)]
+
+
+def _binned_leaves(bins_t, tree: Tree, depth_bound: int, bundle_map=None,
+                   total_bins: int = 1 << 20) -> torch.Tensor:
+    """Each row's leaf node (N,) int64 in one tree on binned features."""
     N = bins_t.shape[1]
+    rows = torch.arange(N, device=bins_t.device)
     node = torch.zeros(N, dtype=torch.long, device=bins_t.device)
-    sf, sb = tree.split_feature.long(), tree.split_bin
     lc, rc = tree.left_child.long(), tree.right_child.long()
     for _ in range(depth_bound):
-        feat = sf[node]
-        xb = bins_t.gather(0, torch.clamp_min(feat, 0)[None])[0]
-        child = torch.where(xb <= sb[node], lc[node], rc[node])
+        feat = tree.split_feature[node]
+        col, t1, rlo, rhi, dflt = _slot_route_params(
+            torch.clamp_min(feat, 0), tree.split_bin[node], total_bins,
+            bundle_map)
+        go_left = _route_left(bins_t[col.long(), rows], t1, rlo, rhi, dflt)
+        child = torch.where(go_left, lc[node], rc[node])
         node = torch.where(feat < 0, node, child)
-    return tree.leaf_value[node]
+    return node
+
+
+def predict_binned_stacked(bins_t: torch.Tensor, trees_stacked: Tree,
+                           depth_bound: int):
+    """Sum of all trees' outputs on (F, N) binned features, and the (T,
+    N) leaf node of each row in each tree: the predict path of models
+    that split in bin space (categorical features)."""
+    total = torch.zeros(bins_t.shape[1], dtype=torch.float32,
+                        device=bins_t.device)
+    leaves = []
+    for k in range(trees_stacked.split_feature.shape[0]):
+        tree = Tree(*[a[k] for a in trees_stacked])
+        node = _binned_leaves(bins_t, tree, depth_bound)
+        total = total + tree.leaf_value[node]
+        leaves.append(node.to(torch.int32))
+    return total, torch.stack(leaves)
 
 
 def stack_trees(trees) -> Tree:

@@ -87,8 +87,11 @@ def test_build_hist_nodes_kernel_equals_plain(dev, N, F, S, B, shift, kind):
 
 def _wave(rng, dev, N, F, S, B, kind):
     """A wave's routing inputs: S pending leaves among 2S node ids (the
-    last slot junk), a root (every row in leaf 0 and sent left), or a
-    wave whose leaves hold no row (an empty row list)."""
+    last slot junk), a root (every row in leaf 0 and sent left), a wave
+    whose leaves hold no row (an empty row list), or an EFB wave
+    ("bundle": each split routes through a range (rlo, rhi] inside the
+    column, its threshold within the range, the rows outside by
+    ``dflt``)."""
     i32 = torch.int32
     node_id = torch.as_tensor(rng.integers(0, 2 * S, N).astype(np.int32),
                               device=dev)
@@ -113,6 +116,11 @@ def _wave(rng, dev, N, F, S, B, kind):
         t1.fill_(B)
         rlo.fill_(-1)
         rhi.fill_(B)
+    elif kind == "bundle":
+        lo = rng.integers(0, B // 2, S)
+        hi = lo + rng.integers(1, B // 2, S)
+        rlo, rhi, t1 = (torch.as_tensor(a.astype(np.int32), device=dev)
+                        for a in (lo, hi, lo + rng.integers(0, hi - lo + 1)))
     l_id = torch.arange(S, dtype=i32, device=dev) * 2 + 2 * S
     return node_id, leaf, feat, t1, rlo, rhi, dflt, l_id, l_id + 1
 
@@ -121,7 +129,9 @@ def _wave(rng, dev, N, F, S, B, kind):
     (3, 2, 2, 16, 0, 0, "wave"), (65_537, 9, 16, 64, 0, 0, "wave"),
     (65_537, 28, 16, 256, 3, 8, "wave"), (20_000, 5, 3, 256, 2, 2, "wave"),
     (70_001, 28, 1, 256, 3, 0, "root"), (40_003, 28, 1, 64, 0, 0, "root"),
-    (30_001, 7, 16, 256, 3, 4, "none"), (25_013, 6, 64, 16, 0, 2, "wave")])
+    (30_001, 7, 16, 256, 3, 4, "none"), (25_013, 6, 64, 16, 0, 2, "wave"),
+    (65_537, 36, 16, 256, 0, 0, "bundle"), (40_003, 12, 5, 64, 0, 0,
+                                            "bundle")])
 def test_route_and_hist_kernel_equals_plain(dev, N, F, S, B, shift, K, kind):
     """The kernel equals the plain version and the previous kernel on the
     gathered split rows, and its feature-id form equals both."""
@@ -352,7 +362,39 @@ def _fit_data(kind, n=20_000, F=8, seed=0):
             2.0, 0.5, n)
     if kind == "huber":
         return X, 0.3 * s
+    if kind == "cat":
+        # two categorical columns (codes); the label reads category subsets
+        X[:, 1] = rng.integers(0, 30, n)
+        X[:, 3] = rng.integers(0, 300, n)
+        s = (X[:, 1] % 3 == 0) * 1.5 - (X[:, 3] % 5 == 1) * 1.2 + X[:, 0]
+        return X, (s + rng.normal(scale=0.5, size=n) > 0.3).astype(
+            np.float64)
+    if kind == "onehot":
+        # four one-hot blocks of 12 levels beside the dense columns
+        codes = rng.integers(0, 12, (n, 4))
+        oh = np.concatenate([np.eye(12, dtype=np.float32)[codes[:, j]]
+                             for j in range(4)], axis=1)
+        s = s + (codes[:, 0] < 4) * 1.5 - (codes[:, 1] > 8) * 1.2
+        return (np.concatenate([oh, X], axis=1),
+                (s > 0).astype(np.float64))
+    if kind == "mono":
+        return _mono_data(n, seed)
     return X, (s > 0).astype(np.float64)
+
+
+def _mono_data(n, seed):
+    """tests/test_gbdt_monotone.py's task: trends in x0 (up) and x1
+    (down) with sine wiggles that an unconstrained fit follows."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2, 2, (n, 4)).astype(np.float32)
+    y = (1.2 * X[:, 0] + 1.5 * np.sin(3 * X[:, 0]) - 1.0 * X[:, 1]
+         + 1.2 * np.sin(4 * X[:, 1]) + 0.3 * X[:, 2] ** 2
+         + rng.normal(0, 0.3, n))
+    return X, y.astype(np.float64)
+
+
+#: the monotone cases' constraints: x0 up, x1 down
+MONO = [1, -1, 0, 0]
 
 
 FIT_CASES = {
@@ -372,6 +414,16 @@ FIT_CASES = {
     "multiclassova": ("multi", dict(objective="multiclassova", num_class=3)),
     "huber": ("huber", dict(objective="huber", min_sum_hessian_in_leaf=1.0)),
     "poisson": ("poisson", dict(objective="poisson")),
+    "categorical": ("cat", dict(objective="binary",
+                                categorical_feature=[1, 3])),
+    "efb": ("onehot", dict(objective="binary", enable_bundle=True)),
+    "efb_lossguide": ("onehot", dict(objective="binary", enable_bundle=True,
+                                     growth_policy="lossguide")),
+    **{f"monotone_{m}_{g}": ("mono", dict(
+        objective="regression", monotone_constraints=MONO,
+        monotone_constraints_method=m, growth_policy=g))
+       for m in ("basic", "intermediate", "advanced")
+       for g in ("depthwise", "lossguide")},
 }
 
 
@@ -406,3 +458,99 @@ def test_fit_on_card_equals_cpu(dev, name):
     np.testing.assert_allclose(bc.predict_margin(X[:2000], device="cpu"),
                                bp.predict_margin(X[:2000], device="cpu"),
                                rtol=0, atol=1e-4)
+
+
+def _sweep_violation(booster, feat, direction, n_base=16, n_grid=48):
+    """The largest step against ``direction`` of the margin as feature
+    ``feat`` sweeps -2.2 → 2.2 from 16 base rows."""
+    rng = np.random.default_rng(3)
+    probes = np.repeat(rng.uniform(-2, 2, (n_base, 4)).astype(np.float32),
+                       n_grid, axis=0)
+    probes[:, feat] = np.tile(np.linspace(-2.2, 2.2, n_grid,
+                                          dtype=np.float32), n_base)
+    m = booster.predict_margin(probes).reshape(n_base, n_grid)
+    return float(-np.minimum(np.diff(m, axis=1) * direction, 0).min())
+
+
+@pytest.mark.parametrize("method", ["basic", "intermediate", "advanced"])
+def test_monotone_fit_on_card_has_no_violation(dev, method):
+    """A constrained fit on the card, scored on the card: no sweep of a
+    constrained feature moves the margin the wrong way, while the
+    unconstrained fit does."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+    X, y = _mono_data(20_000, 1)
+    kw = dict(objective="regression", num_iterations=10, num_leaves=15,
+              min_data_in_leaf=5)
+    free, _ = train(X, y, BoostingConfig(**kw), device="cuda")
+    mono, _ = train(X, y, BoostingConfig(
+        monotone_constraints=MONO, monotone_constraints_method=method,
+        **kw), device="cuda")
+    assert _sweep_violation(free, 0, 1) > 1e-3
+    assert _sweep_violation(mono, 0, 1) <= 1e-6
+    assert _sweep_violation(mono, 1, -1) <= 1e-6
+
+
+@pytest.mark.parametrize("policy", ["depthwise", "lossguide"])
+def test_efb_on_card_equals_unbundled_on_card(dev, policy):
+    """EFB trees on the card equal the unbundled trees on the card, and
+    the EFB waves launch K2 with the bundled ranges."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+    X, y = _fit_data("onehot")
+    kw = dict(objective="binary", num_iterations=4, num_leaves=15,
+              growth_policy=policy)
+    plain, _ = train(X, y, BoostingConfig(**kw), device="cuda")
+    launches.reset()
+    efb, _ = train(X, y, BoostingConfig(enable_bundle=True, **kw),
+                   device="cuda")
+    assert efb.bundler.num_bundles == 12
+    if policy == "depthwise":
+        assert launches.BY_SHAPE.get(launches.launch_key(
+            "route_and_hist", F=12, B=256, shift=0, K=0, S=14,
+            variant="rows", ranges="bundle"), 0) > 0
+    for tp, te in zip(plain.trees, efb.trees):
+        for f in ("split_feature", "split_bin", "leaf_value"):
+            np.testing.assert_array_equal(getattr(tp, f), getattr(te, f))
+
+
+@pytest.mark.parametrize("boosting", ["gbdt", "goss", "rf"])
+def test_resume_on_card_equals_uninterrupted(dev, tmp_path, boosting):
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+
+    def cfg(iters):
+        return BoostingConfig(objective="binary", num_iterations=iters,
+                              num_leaves=15, boosting_type=boosting,
+                              bagging_fraction=0.7, bagging_freq=1)
+    X, y = _fit_data("binary")
+    ck = str(tmp_path / "ck")
+    full, _ = train(X, y, cfg(8), device="cuda")
+    train(X, y, cfg(4), checkpoint_dir=ck, checkpoint_interval=2,
+          device="cuda")
+    resumed, _ = train(X, y, cfg(8), checkpoint_dir=ck,
+                       checkpoint_interval=2, device="cuda")
+    assert resumed.num_trees == full.num_trees == 8
+    for a, b in zip(full.trees, resumed.trees):
+        for f in ("split_feature", "split_bin", "leaf_value"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_validation_on_card_equals_cpu(dev):
+    """An early-stopped fit with a validation set: the same eval history
+    (within 1e-9) and best iteration on the card and on the CPU."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+    X, y = _fit_data("binary", n=30_000)
+    cfg = BoostingConfig(objective="binary", num_iterations=60,
+                         num_leaves=15, learning_rate=0.5,
+                         early_stopping_round=3, metric="auc")
+    res = {}
+    for d in ("cuda", "cpu"):
+        res[d] = train(X[:20_000], y[:20_000], cfg,
+                       valid=(X[20_000:], y[20_000:], None), device=d)
+    (bc, hc), (bp, hp) = res["cuda"], res["cpu"]
+    assert bc.best_iteration == bp.best_iteration >= 0
+    assert len(hc) == len(hp) < 60
+    np.testing.assert_allclose([r.value for r in hc],
+                               [r.value for r in hp], rtol=0, atol=1e-9)

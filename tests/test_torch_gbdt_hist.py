@@ -193,13 +193,13 @@ def test_grower_passes_feature_ids_and_gathers_no_rows(monkeypatch,
     monkeypatch.setattr(torch.Tensor, "index_select", no_gather)
     monkeypatch.setattr(torch, "index_select", no_gather)
     calls = []
-    real = tt.route_and_hist_ids
+    real = tt.route_and_hist_ids_limbs
 
     def spy(bins_t, node_id, leaf, feat, *a, feat_k=None, **k):
         calls.append((tuple(feat.shape), feat.dtype,
                       None if feat_k is None else tuple(feat_k.shape)))
         return real(bins_t, node_id, leaf, feat, *a, feat_k=feat_k, **k)
-    monkeypatch.setattr(tt, "route_and_hist_ids", spy)
+    monkeypatch.setattr(tt, "route_and_hist_ids_limbs", spy)
     rng = np.random.default_rng(2)
     N, F, B = 4096, 7, 256
     bins = torch.from_numpy(rng.integers(0, B, (F, N)).astype(np.int32))

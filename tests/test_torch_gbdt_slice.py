@@ -132,17 +132,23 @@ def test_two_level_fit_on_cpu_is_close_to_full_resolution():
     assert abs(aucs["on"] - aucs["off"]) <= 0.005, aucs
 
 
-@pytest.mark.parametrize("kw", [
-    dict(enable_bundle=True),
-    dict(monotone_constraints=[1, 0, 0, 0, 0, 0, 0, 0]),
-    dict(categorical_feature=[1]), dict(early_stopping_round=5),
-    dict(objective="lambdarank"), dict(parallelism="voting_parallel"),
+class _CheckpointManager:
+    """Stands in for a ``core.checkpoint.CheckpointManager``: an object
+    with a ``directory``."""
+    directory = "unused"
+
+
+@pytest.mark.parametrize("kw,train_kw,item", [
+    (dict(objective="lambdarank"), {}, "A2.9"),
+    (dict(parallelism="voting_parallel"), {}, "A5"),
+    ({}, dict(checkpoint_dir=_CheckpointManager(), checkpoint_interval=1),
+     "A5"),
 ])
-def test_unported_config_raises(kw):
+def test_unported_config_raises(kw, train_kw, item):
     X, y = _binary_data(n=200)
     cfg = BoostingConfig(**{"objective": "binary", **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain(X, y, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
+        ttrain(X, y, cfg, device="cpu", **train_kw)
 
 
 @pytest.mark.parametrize("max_bin,num_leaves,fits", [
