@@ -104,14 +104,16 @@
     check: (a) a 100k-row validation set (``validationIndicatorCol``,
     ``earlyStoppingRound=5``, AUC, learning rate 0.5): best iteration,
     its AUC and s/iteration beside the same fit without validation for
-    as many iterations; (b) ``checkpointInterval=5``: 5 iterations, then
+    as many iterations, and one evaluation's parts timed apart; (b) ``checkpointInterval=5``: 5 iterations, then
     resumed to 10, trees equal to an uninterrupted 10-iteration fit; (c)
     4 categorical columns of 100 levels, holdout AUC > 0.8; (d) 8
     one-hot blocks of 32 levels (284 features): EFB against unbundled,
     both at ``two_level_hist="off"``, depthwise and lossguide, held to
     the JAX package's EFB property (split features equal, split bins
     within 1, margins within 1e-3), with the bundle count, both fits'
-    s/iteration and K2's launches with bundled ranges (> 0); (e)
+    s/iteration, K2's waves over the bundled columns (> 0) and the
+    splits on features that share a bundle, which route through a
+    non-full range (> 0); (e)
     monotone constraints on 3 features, each method: sweeps of each
     constrained feature over 1,000 holdout rows find no violation.
 
@@ -224,7 +226,12 @@ def with_onehot(rng, X):
     c = rng.integers(0, OH_LEVELS, (n, OH_BLOCKS))
     oh = np.zeros((n, OH_BLOCKS * OH_LEVELS), np.float32)
     oh[np.arange(n)[:, None], np.arange(OH_BLOCKS) * OH_LEVELS + c] = 1.0
-    extra = (c[:, 0] < 8) * 1.0 - (c[:, 1] % 5 == 0) * 0.8
+    # level sets of two blocks, and single levels of four more, so that
+    # trees split on one-hot features (which share a bundle) as well as
+    # on the dense ones
+    extra = ((c[:, 0] < 8) * 1.0 - (c[:, 1] % 5 == 0) * 0.8
+             + 2.0 * ((c[:, 2] == 0) * 1.0 - (c[:, 3] == 1) + (c[:, 4] == 2)
+                      - (c[:, 5] == 3)))
     return np.concatenate([X, oh], axis=1), extra
 
 
@@ -341,7 +348,7 @@ def k2_case(rng, dev, N, F, S, B, shift, K, ranges="full"):
     split = (t1, rlo, rhi, dflt, l_id, r_id)
     ids = (bins, *route, feat, *split, vals, S, B, shift, feat_k)
     gathered = (bins, *route, sel, *split, vals, S, B, shift, sel_k)
-    out_k = H.route_and_hist_ids_limbs(*ids, ranges=ranges)
+    out_k = H.route_and_hist_ids_limbs(*ids)
     out_p = H.route_and_hist_plain(*gathered)
     torch.cuda.synchronize()
     err = max(check_equal("route_and_hist (ids)", out_k, out_p),
@@ -356,8 +363,7 @@ def k2_case(rng, dev, N, F, S, B, shift, K, ranges="full"):
     nbytes = (F * N * 4 + N * 4 + N * 8 + 8 * S * 4 + K * 4 + N * 4
               + F * Bh * S * 32 + K * B * S * 32)
     b_ms, b_by = bound(nbytes, N * (F + K) * 7 + N * 4)
-    ms, prev = in_turns(lambda: H.route_and_hist_ids_limbs(*ids,
-                                                           ranges=ranges),
+    ms, prev = in_turns(lambda: H.route_and_hist_ids_limbs(*ids),
                         lambda: H.route_and_hist_limbs_previous(*gathered))
     r = dict(
         ms=ms, previous_ms=prev,
@@ -905,6 +911,39 @@ def profile_decode(model, prompts, new, warmup: str = "off",
                           for e in host[:10]])
 
 
+def eval_parts(bst, Xv, yv, dev, reps: int = 20) -> dict:
+    """One validation step's parts on the card, as ``booster.train``
+    runs them: the last tree's traversal of the validation bins and the
+    device AUC, each in device ms (the host's dispatch hidden), and the
+    whole step (traversal, add, AUC, its one copy to the host) on the
+    host's clock."""
+    from synapseml_tpu_torch.models.gbdt import binning as BN
+    from synapseml_tpu_torch.models.gbdt import booster as BO
+    from synapseml_tpu_torch.models.gbdt.metrics import auc_t
+    bins_v = BN.bin_features(Xv, bst.bin_mapper, dev)
+    tree = type(bst.trees[-1])(*[torch.as_tensor(a).to(dev)
+                                 for a in bst.trees[-1]])
+    depth = max(2, bst.config.num_leaves)
+    yv_t = torch.as_tensor(yv, device=dev)
+    mv = BO.predict_binned_tree(bins_v, tree, depth)
+
+    def traverse():
+        return BO.predict_binned_tree(bins_v, tree, depth)
+
+    def step():
+        return float(auc_t(yv_t, mv + traverse()))
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    return dict(eval_traverse_ms=cuda_ms(traverse),
+                eval_auc_ms=cuda_ms(lambda: auc_t(yv_t, mv)),
+                eval_step_host_ms=host_ms)
+
+
 def breadth2(seed: int, N: int, F: int, iters: int, check_path,
              device: str = "cuda") -> None:
     """Phase 12: validation, checkpoint resume, categorical features, EFB
@@ -920,9 +959,9 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
     # 12a. a 100k-row validation set with early stopping, then the same
     # fit without it for as many iterations
     Xv = r12.normal(size=(100_000, F)).astype(np.float32)
+    yv = gbdt_labels(r12, Xv)
     vkw = dict(learningRate=0.5, metric="auc")
-    r, gbdt = fit_path(X, y, Xh, yh, 100, device=device,
-                       valid=(Xv, gbdt_labels(r12, Xv)),
+    r, gbdt = fit_path(X, y, Xh, yh, 100, device=device, valid=(Xv, yv),
                        earlyStoppingRound=5, **vkw)
     check_path("validation", r)
     hist, best = gbdt._eval_history, gbdt.booster.best_iteration
@@ -934,6 +973,8 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
              evaluations=len(hist), stopped_early=len(hist) < 100,
              eval_s_per_iter=r["eval_s"] / r["iterations"],
              s_per_iter_without_validation=r0["s_per_iter"])
+    if device == "cuda":
+        r.update(eval_parts(gbdt.booster, Xv, yv, torch.device(device)))
     log(f"fit validation 100k rows, earlyStoppingRound=5: {json.dumps(r)}")
     del Xv
 
@@ -986,8 +1027,16 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
             check_path(name, r)
             fits[efb] = (r, gbdt.booster)
         (re_, be), (ru, bu) = fits[True], fits[False]
+        # K2's waves over the bundled columns (F=FB is no other fit's
+        # width), each routing through its split features' ranges, and
+        # the splits on features that share a bundle, whose ranges are
+        # not their column's full range
         bundled = sum(n for k, n in re_["shapes"].items()
-                      if "ranges=bundle" in k)
+                      if k.startswith(f"route_and_hist[F={FB},")
+                      and ",S=1," not in k)
+        shares = np.bincount(be.bundler.bundle_of)[be.bundler.bundle_of] > 1
+        shared_splits = sum(int(shares[t.split_feature[t.split_feature >= 0]]
+                                .sum()) for t in be.trees)
         feat_equal = all(np.array_equal(a.split_feature, b.split_feature)
                          for a, b in zip(be.trees, bu.trees))
         bin_diff = max(int(np.abs(a.split_bin - b.split_bin).max())
@@ -997,7 +1046,8 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
         out = dict(bundles=be.bundler.num_bundles, features=FO,
                    s_per_iter=re_["s_per_iter"],
                    unbundled_s_per_iter=ru["s_per_iter"],
-                   k2_launches_bundled_ranges=bundled, auc=re_["auc"],
+                   k2_bundled_waves=bundled,
+                   splits_in_shared_bundles=shared_splits, auc=re_["auc"],
                    unbundled_auc=ru["auc"], split_feature_equal=feat_equal,
                    split_bin_max_diff=bin_diff, margin_max_diff=margin_diff,
                    trees_equal=all(
@@ -1008,6 +1058,7 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
                    launches=re_["shapes"], unbundled_launches=ru["shapes"])
         if (out["bundles"] != FB or not feat_equal or bin_diff > 1
                 or margin_diff > 1e-3
+                or shared_splits == 0
                 or (policy == "depthwise" and bundled == 0)):
             raise AssertionError(f"EFB {policy}: {out}")
         log(f"fit EFB {policy} against unbundled, {FO} features: "
@@ -1121,10 +1172,8 @@ def main(argv=None) -> int:
     for kern, dims, runs in shapes:
         if kern == "route_and_hist":
             r = k2_case(rng, dev, N, **dims)
-            ranges = dims.pop("ranges", "full")
-            key = L.launch_key(kern, **dims, variant="rows",
-                               **({} if ranges == "full"
-                                  else {"ranges": ranges}))
+            dims.pop("ranges", None)
+            key = L.launch_key(kern, **dims, variant="rows")
         else:
             r = k1_case(rng, dev, N, **dims)
             key = L.launch_key(kern, F=dims.get("K") or dims["F"],

@@ -209,22 +209,36 @@ def _check_monotone(config: BoostingConfig, F: int) -> None:
                 "{'advanced_mask_bytes': ...}")
 
 
+def _available_host_bytes() -> int:
+    """Best-effort available host memory (``MemAvailable`` of
+    /proc/meminfo, then ``sysconf``'s free pages), 0 when neither source
+    exists: the JAX package's order, so both refuse the same configs."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    try:
+        return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    except (AttributeError, OSError, ValueError):
+        return 0
+
+
 def _advanced_mask_budget_bytes(config: BoostingConfig) -> int:
     """Byte budget for the advanced method's (M, M, F) masks:
     ``pass_through={"advanced_mask_bytes": ...}``, then the
     ``SYNAPSEML_TPU_ADV_MONO_MASK_BYTES`` environment variable, else a
-    quarter of the host's free memory (``sysconf``) clamped to [1 GiB,
-    8 GiB], the JAX package's rule."""
+    quarter of the host's available memory clamped to [1 GiB, 8 GiB],
+    the JAX package's rule.  On the card the masks live in device
+    memory; at most 8 GiB of them fit an 80 GB card beside the fit."""
     override = config.pass_through.get(
         "advanced_mask_bytes",
         os.environ.get("SYNAPSEML_TPU_ADV_MONO_MASK_BYTES"))
     if override is not None:
         return int(float(override))
-    try:
-        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    except (AttributeError, OSError, ValueError):
-        free = 0
-    return min(max(1 << 30, free // 4), 8 << 30)
+    return min(max(1 << 30, _available_host_bytes() // 4), 8 << 30)
 
 
 def _n_slots(config: BoostingConfig) -> int:

@@ -13,14 +13,14 @@ beside it:
 
 - :func:`build_hist_nodes` (K1) — node-batched histograms of rows by
   slot (replaces ``build_hist_nodes_pallas``);
-- :func:`route_and_hist` (K2) — one depthwise wave: route the rows of the
-  pending leaves and build the left children's histograms in the same
-  pass, optionally at coarse ``bin >> hist_shift`` resolution with
+- :func:`route_and_hist_limbs` (K2) — one depthwise wave: route the rows
+  of the pending leaves and build the left children's histograms in the
+  same pass, optionally at coarse ``bin >> hist_shift`` resolution with
   full-resolution histograms of the refined features ``sel_k`` (replaces
-  ``route_and_hist_pallas``).  :func:`route_and_hist_ids` is the same
-  function with the split and refined features given as row ids of
+  ``route_and_hist_pallas``).  :func:`route_and_hist_ids_limbs` is the
+  same function with the split and refined features given as row ids of
   ``bins_t`` instead of gathered copies of their rows; the grower calls
-  it.
+  it and reconstructs the limb sums (``trainer._node_hists``).
 
 On the card each is two launches: ``route_kernel`` routes every row once
 (K2) or reads its slot (K1) and appends the rows that have a slot to a
@@ -405,12 +405,9 @@ def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
 
 def _route_and_hist_cuda(bins_t, node_id, leaf, base, rows, t1, rlo, rhi,
                          dflt, l_id, r_id, vals, n_slots, total_bins,
-                         hist_shift, kbase, krows, ranges="full"):
+                         hist_shift, kbase, krows):
     """K2 on the card: split j's bins are row ``rows[j]`` of ``base`` and
-    the refined features rows ``krows`` of ``kbase`` (None: no refine).
-    ``ranges`` names the caller's routing ranges in the launch key:
-    "full", or "bundle" for EFB's bundled ranges (the key gains
-    ``ranges=bundle``)."""
+    the refined features rows ``krows`` of ``kbase`` (None: no refine)."""
     dev = bins_t.device
     F, N = bins_t.shape
     S = n_slots
@@ -448,8 +445,7 @@ def _route_and_hist_cuda(bins_t, node_id, leaf, base, rows, t1, rlo, rhi,
             _stream(dev))
     _raise_on(rc, "route_and_hist")
     launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S,
-                   variant="rows",
-                   **({} if ranges == "full" else {"ranges": ranges}))
+                   variant="rows")
     return new_id, out, outf
 
 
@@ -532,53 +528,18 @@ def route_and_hist_limbs(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt,
 def route_and_hist_ids_limbs(bins_t, node_id, leaf, feat, t1, rlo, rhi,
                              dflt, l_id, r_id, vals, n_slots: int,
                              total_bins: int, hist_shift: int = 0,
-                             feat_k=None, ranges: str = "full"):
+                             feat_k=None):
     """:func:`route_and_hist_limbs` with split j's bins the row
     ``feat[j]`` of ``bins_t`` and the refined features its rows
-    ``feat_k`` ((S,) and (K,) int32 ids in [0, F)): nothing is gathered.
-    ``ranges="bundle"`` marks a launch routed through EFB's bundled
-    ranges in its launch key."""
+    ``feat_k`` ((S,) and (K,) int32 ids in [0, F)): nothing is gathered."""
     if bins_t.is_cuda:
         return _route_and_hist_cuda(
             bins_t, node_id, leaf, bins_t, feat, t1, rlo, rhi, dflt, l_id,
             r_id, vals, n_slots, total_bins, hist_shift,
-            None if feat_k is None else bins_t, feat_k, ranges)
+            None if feat_k is None else bins_t, feat_k)
     return route_and_hist_ids_plain(bins_t, node_id, leaf, feat, t1, rlo,
                                     rhi, dflt, l_id, r_id, vals, n_slots,
                                     total_bins, hist_shift, feat_k)
-
-
-def _hists(new_id, out, outf, scales):
-    hists = _reconstruct(out.permute(2, 0, 1, 3), scales)
-    if outf is None:
-        return new_id, hists
-    return new_id, hists, _reconstruct(outf.permute(2, 0, 1, 3), scales)
-
-
-def route_and_hist(bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id,
-                   r_id, vals, scales, n_slots: int, total_bins: int,
-                   hist_shift: int = 0, sel_k=None):
-    """One pass: → (new_node_id (N,), hists (n_slots, F, Bh, 3)[,
-    fine_hists (n_slots, K, B, 3) when ``sel_k`` is given]).
-
-    Rows of ``leaf[j]`` go left iff ``x in (rlo, rhi] ? x <= t1 : dflt``
-    with x from ``sel[j]`` (the split column's bin row, gathered by the
-    caller); left rows get ``l_id[j]``, right rows ``r_id[j]``, and the
-    histograms are of the left rows by slot."""
-    return _hists(*route_and_hist_limbs(
-        bins_t, node_id, leaf, sel, t1, rlo, rhi, dflt, l_id, r_id, vals,
-        n_slots, total_bins, hist_shift, sel_k), scales)
-
-
-def route_and_hist_ids(bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt,
-                       l_id, r_id, vals, scales, n_slots: int,
-                       total_bins: int, hist_shift: int = 0, feat_k=None):
-    """:func:`route_and_hist` with the split features ``feat`` (S,) and the
-    refined features ``feat_k`` (K,) given as int32 row ids of ``bins_t``
-    (the grower's form: it gathers no bin rows)."""
-    return _hists(*route_and_hist_ids_limbs(
-        bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt, l_id, r_id, vals,
-        n_slots, total_bins, hist_shift, feat_k), scales)
 
 
 # --------------------------------------------------------------------------

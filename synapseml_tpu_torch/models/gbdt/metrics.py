@@ -2,116 +2,20 @@
 
 The PyTorch port of the JAX package's ``models/gbdt/metrics.py``: AUC,
 binary and multiclass log loss and error, L2/RMSE, L1 and MAPE, and the
-default metric of each objective, as host numpy functions
-(:data:`METRICS`) and as float64 torch functions on the tensors' device
-(:data:`DEVICE_METRICS`), which a fit's validation evaluates without
-copying the margins to the host.  ``ndcg_at`` waits for lambdarank.
+default metric of each objective.  Each is one float64 torch function on
+the tensors' device (:data:`DEVICE_METRICS`), which a fit's validation
+evaluates without copying the margins to the host (AUC included: no
+shape depends on the data, so nothing syncs).  :data:`METRICS` and the
+names :func:`auc`, :func:`l2`, ... call the same functions on numpy
+arrays, on the CPU.  ``ndcg_at`` waits for lambdarank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-
-
-def auc(labels, margin, weights=None) -> float:
-    w = np.ones_like(margin) if weights is None else np.asarray(weights, np.float64)
-    order = np.argsort(margin, kind="stable")
-    y = np.asarray(labels, np.float64)[order]
-    w = w[order]
-    pos = (y > 0).astype(np.float64) * w
-    neg = (1.0 - (y > 0)) * w
-    cum_neg = np.cumsum(neg)
-    total_pos, total_neg = pos.sum(), neg.sum()
-    if total_pos == 0 or total_neg == 0:
-        return 0.5
-    # rank-sum with tie correction via average ranks over ties
-    m = np.asarray(margin, np.float64)[order]
-    auc_sum = 0.0
-    i = 0
-    n = len(m)
-    while i < n:
-        j = i
-        while j < n and m[j] == m[i]:
-            j += 1
-        tie_pos = pos[i:j].sum()
-        tie_neg = neg[i:j].sum()
-        neg_before = cum_neg[i - 1] if i > 0 else 0.0
-        auc_sum += tie_pos * (neg_before + tie_neg / 2.0)
-        i = j
-    return float(auc_sum / (total_pos * total_neg))
-
-
-def binary_logloss(labels, margin, weights=None) -> float:
-    p = 1.0 / (1.0 + np.exp(-np.asarray(margin, np.float64)))
-    p = np.clip(p, 1e-15, 1 - 1e-15)
-    y = np.asarray(labels, np.float64)
-    ll = -(y * np.log(p) + (1 - y) * np.log(1 - p))
-    return _wmean(ll, weights)
-
-
-def binary_error(labels, margin, weights=None) -> float:
-    pred = (np.asarray(margin) > 0).astype(np.float64)
-    return _wmean(pred != np.asarray(labels), weights)
-
-
-def multi_logloss(labels, margin, weights=None) -> float:
-    m = np.asarray(margin, np.float64)
-    m = m - m.max(axis=1, keepdims=True)
-    p = np.exp(m)
-    p /= p.sum(axis=1, keepdims=True)
-    y = np.asarray(labels, np.int64)
-    ll = -np.log(np.clip(p[np.arange(len(y)), y], 1e-15, None))
-    return _wmean(ll, weights)
-
-
-def multi_error(labels, margin, weights=None) -> float:
-    pred = np.argmax(margin, axis=1)
-    return _wmean(pred != np.asarray(labels), weights)
-
-
-def l2(labels, pred, weights=None) -> float:
-    d = np.asarray(pred, np.float64) - np.asarray(labels, np.float64)
-    return _wmean(d * d, weights)
-
-
-def rmse(labels, pred, weights=None) -> float:
-    return float(np.sqrt(l2(labels, pred, weights)))
-
-
-def l1(labels, pred, weights=None) -> float:
-    return _wmean(np.abs(np.asarray(pred, np.float64) - np.asarray(labels, np.float64)), weights)
-
-
-def mape(labels, pred, weights=None) -> float:
-    y = np.asarray(labels, np.float64)
-    return _wmean(np.abs(np.asarray(pred, np.float64) - y) / np.maximum(np.abs(y), 1.0), weights)
-
-
-def _wmean(x, weights=None) -> float:
-    x = np.asarray(x, np.float64)
-    if weights is None:
-        return float(x.mean())
-    w = np.asarray(weights, np.float64)
-    return float((x * w).sum() / max(w.sum(), 1e-12))
-
-
-#: metric name -> (fn(labels, margin_or_pred, weights), larger_is_better)
-METRICS: Dict[str, tuple] = {
-    "auc": (auc, True),
-    "binary_logloss": (binary_logloss, False),
-    "binary_error": (binary_error, False),
-    "multi_logloss": (multi_logloss, False),
-    "multi_error": (multi_error, False),
-    "l2": (l2, False),
-    "mse": (l2, False),
-    "rmse": (rmse, False),
-    "l1": (l1, False),
-    "mae": (l1, False),
-    "mape": (mape, False),
-}
 
 
 def default_metric(objective: str, num_class: int) -> str:
@@ -124,7 +28,7 @@ def default_metric(objective: str, num_class: int) -> str:
     return "l2"
 
 
-# -- the same metrics on the device ------------------------------------------
+# -- the metrics, on the tensors' device --------------------------------------
 
 def _wmean_t(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
     if w is None:
@@ -134,9 +38,12 @@ def _wmean_t(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def auc_t(labels, margin, weights=None) -> torch.Tensor:
-    """:func:`auc` on the device: the same rank sum, ties at their
-    average rank, each tie group's sums read from running sums (scans
-    and reductions whose order is fixed, so a run repeats exactly)."""
+    """The rank-sum AUC, ties at their average rank.  A row ends its tie
+    group where the next sorted margin differs; each group's sums are
+    read from running sums at its end and at the previous group's end
+    (a running max of end indices), so every shape is N and nothing
+    waits on the data.  Scans and reductions of fixed order: a run
+    repeats exactly."""
     m = margin.double()
     order = torch.argsort(m, stable=True)
     m = m[order]
@@ -145,14 +52,19 @@ def auc_t(labels, margin, weights=None) -> torch.Tensor:
          else weights.double()[order])
     pos, neg = y * w, (~y) * w
     total_pos, total_neg = pos.sum(), neg.sum()
-    _, counts = torch.unique_consecutive(m, return_counts=True)
-    end = torch.cumsum(counts, 0) - 1            # each tie group's last row
+    idx = torch.arange(m.shape[0], device=m.device)
+    is_end = torch.cat([m[1:] != m[:-1], torch.ones_like(m[:1], dtype=bool)])
+    # row i's previous group end, -1 in the first group
+    prev = torch.cummax(torch.where(is_end, idx, -1), 0).values
+    prev = torch.cat([torch.full_like(prev[:1], -1), prev[:-1]]) + 1
     zero = torch.zeros(1, dtype=m.dtype, device=m.device)
-    pos_end, neg_end = torch.cumsum(pos, 0)[end], torch.cumsum(neg, 0)[end]
-    neg_before = torch.cat([zero, neg_end[:-1]])
-    tie_pos = pos_end - torch.cat([zero, pos_end[:-1]])
-    tie_neg = neg_end - neg_before
-    s = (tie_pos * (neg_before + tie_neg / 2.0)).sum()
+    cpos = torch.cat([zero, torch.cumsum(pos, 0)])   # sums of the first k
+    cneg = torch.cat([zero, torch.cumsum(neg, 0)])
+    neg_before = cneg[prev]
+    tie_pos = cpos[idx + 1] - cpos[prev]
+    tie_neg = cneg[idx + 1] - neg_before
+    s = torch.where(is_end, tie_pos * (neg_before + tie_neg / 2.0),
+                    torch.zeros_like(m)).sum()
     return torch.where((total_pos == 0) | (total_neg == 0),
                        torch.full_like(s, 0.5),
                        s / (total_pos * total_neg))
@@ -216,3 +128,25 @@ DEVICE_METRICS: Dict[str, tuple] = {
     "mae": (l1_t, False),
     "mape": (mape_t, False),
 }
+
+
+def _on_host(fn: Callable) -> Callable:
+    """``fn`` over numpy arrays (or lists) on the CPU → a float."""
+    def host(labels, margin, weights=None) -> float:
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a))
+        return float(fn(t(labels), t(margin),
+                        None if weights is None else t(weights)))
+    host.__name__ = host.__qualname__ = fn.__name__[:-2]
+    host.__doc__ = fn.__doc__
+    return host
+
+
+#: metric name -> (fn(labels, margin_or_pred, weights) → float,
+#: larger_is_better), over numpy arrays
+METRICS: Dict[str, tuple] = {name: (_on_host(fn), larger)
+                             for name, (fn, larger) in DEVICE_METRICS.items()}
+auc, binary_logloss, binary_error, multi_logloss, multi_error, l2, rmse, \
+    l1, mape = (METRICS[k][0] for k in (
+        "auc", "binary_logloss", "binary_error", "multi_logloss",
+        "multi_error", "l2", "rmse", "l1", "mape"))

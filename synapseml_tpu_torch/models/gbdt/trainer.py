@@ -286,7 +286,8 @@ def _descendants(left_child, right_child) -> torch.Tensor:
     desc = torch.eye(M, dtype=torch.bool, device=dev)
     internal = left_child >= 0
     for child in (left_child, right_child):
-        desc[ar[internal], child[internal].long()] = True
+        c = child.clamp_min(0).long()
+        desc[ar, c] = desc[ar, c] | internal       # no data-sized shape
     for _ in range(max(int(np.ceil(np.log2(max(M, 2)))), 1)):
         desc = desc | _bool_mm(desc, desc)
     return desc
@@ -347,28 +348,34 @@ def _advanced_bounds(split_feature, split_bin, left_child, right_child,
     O(M^2 F) memory (``booster._advanced_mask_budget_bytes``).  → (lo, hi,
     clamped value), each (M,)."""
     F = mono_c.shape[0]
-    dev = split_feature.device
+    M = split_feature.shape[0]
     leaf = left_child < 0
     desc = _descendants(left_child, right_child)
     internal = (left_child >= 0)[:, None]
     inL = desc[left_child.clamp_min(0).long()] & internal    # (a, i)
     inR = desc[right_child.clamp_min(0).long()] & internal
-    on_f = (split_feature.long()[:, None]
-            == torch.arange(F, device=dev)[None, :])           # (a, f)
-    sb = split_bin[:, None, None]
     # hi[i, f]: the smallest split bin of an ancestor a on f with i in
-    # L(a); lo[i, f]: the largest of one with i in R(a)
-    hi = torch.where(inL[:, :, None] & on_f[:, None, :], sb,
-                     total_bins - 1).min(dim=0).values        # (i, f)
-    lo = torch.where(inR[:, :, None] & on_f[:, None, :], sb,
-                     -1).max(dim=0).values
-    # boxes (lo, hi] intersect iff lo_i < hi_j and lo_j < hi_i
+    # L(a); lo[i, f]: the largest of one with i in R(a).  Each ancestor
+    # splits on one feature, so (a, i) pairs reduce into (i, f) directly.
+    on_a = split_feature.clamp_min(0).long()[None, :].expand(M, M)
+    sb = split_bin[:, None].to(torch.int32)
+    hi = torch.full((M, F), total_bins - 1, dtype=torch.int32,
+                    device=split_feature.device).scatter_reduce_(
+        1, on_a, torch.where(inL, sb, total_bins - 1).T, "amin")
+    lo = torch.full_like(hi, -1).scatter_reduce_(
+        1, on_a, torch.where(inR, sb, -1).T, "amax")
+    # boxes (lo, hi] intersect iff lo_i < hi_j and lo_j < hi_i; ov_exc:
+    # they intersect on every feature but f.  The (M, M, F) bool masks
+    # live at most five at a time, the 5 bytes an entry that
+    # booster._advanced_mask_budget_bytes is held against.
     ov = (lo[:, None, :] < hi[None, :, :]) & (lo[None, :, :] < hi[:, None, :])
-    n_ov = ov.to(torch.int32).sum(-1)
-    ov_exc = (n_ov[:, :, None] - ov.to(torch.int32)) == (F - 1)
+    n_ov = ov.sum(-1, dtype=torch.int32)[:, :, None]
+    ov_exc = torch.where(ov, n_ov == F, n_ov == F - 1)
+    del ov
+    inc_f = ov_exc & (mono_c == 1)
+    dec_f = ov_exc & (mono_c == -1)
+    del ov_exc
     ordered = hi[:, None, :] <= lo[None, :, :]          # i left of j on f
-    inc_f = ov_exc & (mono_c[None, None, :] == 1)
-    dec_f = ov_exc & (mono_c[None, None, :] == -1)
     ordered_t = ordered.transpose(0, 1)
     P_any = ((ordered & inc_f).any(-1)) | ((ordered_t & dec_f).any(-1))
     Q_any = ((ordered_t & inc_f).any(-1)) | ((ordered & dec_f).any(-1))
@@ -669,8 +676,7 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
             out = route_and_hist_ids_limbs(
                 bins_t, node_id, parents, col, t1, rlo, rhi, dflt, l_ids,
                 r_ids, vals8, S, B, hist_shift=(SH if tl else 0),
-                feat_k=topk,
-                ranges=("full" if bundle_map is None else "bundle"))
+                feat_k=topk)
             new_node_id = out[0]
             l_hists = _node_hists(out[1], scales, bundle_map)
             lf = _node_hists(out[2], scales) if tl else None

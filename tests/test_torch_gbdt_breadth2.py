@@ -40,6 +40,7 @@ from synapseml_tpu_torch.models.gbdt.estimators import (GBDTClassifier,
                                                         GBDTRegressor)
 
 from test_gbdt_efb import onehot_data
+from test_torch_gbdt_cuda import random_tree_arrays
 from test_gbdt_monotone import CONS, max_violation, mono_data, sweep_margins
 
 CPU = torch.device("cpu")
@@ -514,23 +515,27 @@ def test_efb_fit_equals_unbundled(policy, boosting):
 
 
 def test_efb_grower_routes_through_bundle_ranges(monkeypatch):
-    """Under EFB every wave hands K2 the bundled columns and non-full
-    ranges, tagged in the launch key."""
+    """Under EFB every wave after the root hands K2 the bundled columns
+    and each split feature's range inside its bundle."""
     seen = []
     real = tt.route_and_hist_ids_limbs
 
-    def spy(bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt, *a, **k):
-        seen.append((bins_t.shape[0], int(rlo.min()), k.get("ranges")))
-        return real(bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt, *a,
-                    **k)
+    def spy(bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt, l_id, *a,
+            **k):
+        # the root pass is a degenerate all-left split into child id 0
+        seen.append((bins_t.shape[0], int(rlo.min()),
+                     int(l_id.max()) == 0))
+        return real(bins_t, node_id, leaf, feat, t1, rlo, rhi, dflt, l_id,
+                    *a, **k)
     monkeypatch.setattr(tt, "route_and_hist_ids_limbs", spy)
     X, y = onehot_data(n=2500)
     b, _ = ttrain(X, y, BoostingConfig(objective="binary", num_iterations=2,
                                        num_leaves=31, min_data_in_leaf=5,
                                        enable_bundle=True), device="cpu")
     Fb = b.bundler.num_bundles
-    assert seen[0] == (Fb, -1, None)                  # the root: all left
-    waves = [s for s in seen if s[2] == "bundle"]
+    roots = [s for s in seen if s[2]]
+    waves = [s for s in seen if not s[2]]
+    assert roots == [(Fb, -1, True)] * 2              # all rows left
     assert waves and all(s[0] == Fb and s[1] >= 0 for s in waves)
 
 
@@ -689,3 +694,43 @@ def test_monotone_config_errors_match_jax():
             ttrain(X, y, BoostingConfig(**cfg), device="cpu")
         with pytest.raises(ValueError, match=match):
             jtrain(X, y, JConfig(**cfg))
+
+
+@pytest.mark.parametrize("meminfo,free_pages", [
+    ("MemTotal: 99999999 kB\nMemAvailable: 8000000 kB\n", 10_000),
+    (None, 3_000_000), (None, None)])
+def test_advanced_mask_budget_matches_jax(monkeypatch, meminfo, free_pages):
+    """The advanced method's mask budget reads the host as the JAX
+    package does: /proc/meminfo's MemAvailable, then sysconf's free
+    pages, then nothing (the 1 GiB floor)."""
+    import io
+
+    def fake_open(path, *a, **k):
+        if meminfo is None:
+            raise OSError(path)
+        return io.StringIO(meminfo)
+
+    def fake_sysconf(name):
+        if free_pages is None:
+            raise ValueError(name)
+        return free_pages if name == "SC_AVPHYS_PAGES" else 4096
+
+    monkeypatch.setattr(os, "sysconf", fake_sysconf)
+    for mod in (tbooster, jbooster):
+        monkeypatch.setattr(mod, "open", fake_open, raising=False)
+    want = jbooster._available_host_bytes()
+    assert tbooster._available_host_bytes() == want
+    assert want == (8000000 * 1024 if meminfo else (free_pages or 0) * 4096)
+    assert (tbooster._advanced_mask_budget_bytes(BoostingConfig())
+            == jbooster._advanced_mask_budget_bytes(JConfig()))
+
+
+@pytest.mark.parametrize("seed,M,F", [(0, 31, 4), (1, 61, 9), (2, 125, 3)])
+def test_advanced_bounds_matches_jax(seed, M, F):
+    """The advanced method's whole-tree bounds equal the JAX package's on
+    random trees."""
+    arrs = random_tree_arrays(seed, M, F, 64)
+    want = jt._advanced_bounds(*[jnp.asarray(a) for a in arrs], 64)
+    got = tt._advanced_bounds(*[torch.from_numpy(a) for a in arrs], 64)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)

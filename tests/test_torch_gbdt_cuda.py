@@ -505,10 +505,15 @@ def test_efb_on_card_equals_unbundled_on_card(dev, policy):
     efb, _ = train(X, y, BoostingConfig(enable_bundle=True, **kw),
                    device="cuda")
     assert efb.bundler.num_bundles == 12
+    # splits on one-hot features, which share a bundle: their waves route
+    # through ranges inside the bundled column
+    shares = np.bincount(efb.bundler.bundle_of)[efb.bundler.bundle_of] > 1
+    assert sum(int(shares[t.split_feature[t.split_feature >= 0]].sum())
+               for t in efb.trees) > 0
     if policy == "depthwise":
         assert launches.BY_SHAPE.get(launches.launch_key(
             "route_and_hist", F=12, B=256, shift=0, K=0, S=14,
-            variant="rows", ranges="bundle"), 0) > 0
+            variant="rows"), 0) > 0
     for tp, te in zip(plain.trees, efb.trees):
         for f in ("split_feature", "split_bin", "leaf_value"):
             np.testing.assert_array_equal(getattr(tp, f), getattr(te, f))
@@ -554,3 +559,40 @@ def test_validation_on_card_equals_cpu(dev):
     assert len(hc) == len(hp) < 60
     np.testing.assert_allclose([r.value for r in hc],
                                [r.value for r in hp], rtol=0, atol=1e-9)
+
+
+def random_tree_arrays(seed, M, F, B):
+    """A tree grown by splitting random leaves until M nodes are used,
+    as the growers' (M,) arrays hold it: children -1 at leaves."""
+    rng = np.random.default_rng(seed)
+    left, right = np.full(M, -1, np.int32), np.full(M, -1, np.int32)
+    feat, sbin = np.full(M, -1, np.int32), np.zeros(M, np.int32)
+    leaves, used = [0], 1
+    while used + 2 <= M:
+        a = leaves.pop(int(rng.integers(len(leaves))))
+        left[a], right[a] = used, used + 1
+        feat[a], sbin[a] = rng.integers(0, F), rng.integers(0, B - 1)
+        leaves += [used, used + 1]
+        used += 2
+    raw = rng.normal(size=M).astype(np.float32)
+    mono = rng.integers(-1, 2, F).astype(np.int32)
+    return feat, sbin, left, right, raw, mono
+
+
+def test_advanced_bounds_on_card_within_mask_budget(dev):
+    """The advanced refresh on the card equals the CPU's, and its peak
+    memory stays within the 5 bytes an (M, M, F) entry that the mask
+    budget counts, plus (M, M) temporaries."""
+    M, F, B = 509, 64, 256
+    arrs = random_tree_arrays(0, M, F, B)
+    cpu = T._advanced_bounds(*[torch.from_numpy(a) for a in arrs], B)
+    args = [torch.from_numpy(a).to(dev) for a in arrs]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = T._advanced_bounds(*args, B)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak <= 5 * M * M * F + 64 * M * M, peak
+    for g, c in zip(got, cpu):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), atol=1e-6)

@@ -18,6 +18,7 @@ import torch
 from synapseml_tpu.models.gbdt import pallas_hist as jh
 from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models.gbdt import hist as th
+from synapseml_tpu_torch.models.gbdt import trainer as tt
 
 
 def _vals(grad, hess, mask):
@@ -107,19 +108,26 @@ def test_route_and_hist_matches_pallas(shape, shift, K):
     jout = route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
                                     sel_k)
     common = (_t(r["t1"]), _t(r["rlo"]), _t(r["rhi"]), _t(r["dflt"]),
-              _t(r["l_id"]), _t(r["r_id"]), tv, ts, S, B)
-    tout = th.route_and_hist(
+              _t(r["l_id"]), _t(r["r_id"]), tv, S, B)
+    tout = _hists(th.route_and_hist_limbs(
         _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["sel"]), *common,
-        hist_shift=shift, sel_k=None if sel_k is None else _t(sel_k))
-    iout = th.route_and_hist_ids(
+        hist_shift=shift, sel_k=None if sel_k is None else _t(sel_k)), ts)
+    iout = _hists(th.route_and_hist_ids_limbs(
         _t(bins_t), _t(node_id), _t(r["leaf"]), _t(r["feat"]), *common,
-        hist_shift=shift, feat_k=_t(feat_k) if K else None)
+        hist_shift=shift, feat_k=_t(feat_k) if K else None), ts)
     assert len(tout) == len(iout) == len(jout)
     np.testing.assert_array_equal(tout[0].numpy(), jout[0])     # new ids
     for t_h, i_h, j_h in zip(tout, iout, jout):
         assert tuple(t_h.shape) == j_h.shape
         np.testing.assert_array_equal(t_h.numpy(), j_h)
         np.testing.assert_array_equal(i_h.numpy(), j_h)
+
+
+def _hists(out, scales):
+    """K2's limb sums → (new ids, hists[, fine hists]) as the grower
+    reconstructs them."""
+    return (out[0],) + tuple(tt._node_hists(o, scales) for o in out[1:]
+                             if o is not None)
 
 
 def route_and_hist_pallas_np(bins_t, node_id, r, jv, js, S, B, shift,
