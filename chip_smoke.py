@@ -116,6 +116,31 @@
     non-full range (> 0); (e)
     monotone constraints on 3 features, each method: sweeps of each
     constrained feature over 1,000 holdout rows find no violation.
+13. GBDT breadth III (fresh data from ``--seed``; launch counts reset
+    just before and read just after each fit): (a) ``GBDTRanker
+    (numLeaves=31, maxBin=255)`` at MSLR-WEB10K's shape, 10,000 queries
+    of 1-239 rows (~1.2M rows) x 136 features, relevance 0-4, and 1,000
+    validation queries flagged by ``validationIndicatorCol`` (metric
+    ndcg): K1 and K2 launched at F=136, validation ndcg@10 above random
+    scores' by 0.1; reports s/iteration, the lambdarank objective's
+    device ms and ``Dataset.to_numpy``'s host seconds; (b) a streamed fit
+    at HIGGS's shape, 11,000,000 x 28 from an SMLC file under ``build/``
+    through ``ChunkedColumnSource``: ingest s, training s, s/iteration,
+    holdout AUC > 0.8 on 100k rows, and the peak of ``tracemalloc``'s
+    traced host allocations during ``train`` below a quarter of the raw
+    feature bytes; phase 4's 1M rows streamed from a file grow the
+    in-memory fit's trees; (c) phase 4's model, phase 10b's three-class
+    model and the ranker exported with ``get_model_string`` and
+    re-imported on the card: margins within 1e-6, the imported model's
+    export a fixed point; (d) ``featuresShapCol`` on 1,000 holdout rows
+    of phase 4's model and 200 of the ranker: each row's contributions
+    and bias sum to the card's margin within 1e-4; host s per 1,000 rows.
+
+Phase 2 also holds K2 and K1 at the shapes of phase 13 (F=136 at ~1.2M
+rows, F=28 at 11M rows: wave, root and refined build), and
+phase 11 adds lambdarank (groups of 1-239 rows, some past 128; with
+``labelGain``) and streamed fits from a ``ChunkedColumnSource`` (an odd
+``chunk_rows``) and a ``SparseChunkedSource`` with EFB.
 
 Prints the kernels' JSON line (each K1/K2 shape with its launches summed
 over the runs that launch it, and by run), then the card's name and
@@ -150,6 +175,10 @@ LLM_REQUESTS = 24
 #: committed); each run removes its own
 CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "chip_smoke_checkpoints")
+#: phase 13's shapes: MSLR-WEB10K's 136 features over 10,000 queries of
+#: 1-239 rows (and 1,000 validation queries); HIGGS's 11,000,000 x 28
+RANK_Q, RANK_VQ, RANK_F, RANK_MAXG = 10_000, 1_000, 136, 239
+HIGGS_N = 11_000_000
 #: copies of the K/V cache K3's timed calls rotate over (phase 6): at 16
 #: slots x 2048 positions, 6 x 67 MB in bf16, so no call finds its K/V in
 #: the 50 MB L2
@@ -441,7 +470,7 @@ def k1_case(rng, dev, N, F, S, B, shift, K=0):
 # --------------------------------------------------------------------------
 
 def card_vs_cpu(X, y, Xh, kernels, iters: int = 2, valid=None,
-                resume: bool = False, **kw):
+                resume: bool = False, train_kw=None, **kw):
     """The same fit through ``train`` on the card and on the CPU: → the
     largest margin difference on ``Xh``; raises if any tree splits on
     another feature or bin, the trees' classes or weights differ, or a
@@ -449,7 +478,8 @@ def card_vs_cpu(X, y, Xh, kernels, iters: int = 2, valid=None,
     evaluate it every iteration and must stop at the same iteration with
     eval histories within 1e-9.  ``resume``: each device stops after
     half the iterations (checkpoints every iteration under ``build/``)
-    and resumes."""
+    and resumes.  ``X`` may be a chunked source (``y`` None);
+    ``train_kw`` goes to ``train`` (``group``, ``valid_group``)."""
     from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
     res = {}
@@ -466,7 +496,7 @@ def card_vs_cpu(X, y, Xh, kernels, iters: int = 2, valid=None,
         else:
             booster, hist = train(X, y, BoostingConfig(num_iterations=iters,
                                                        **kw),
-                                  valid=valid, device=d)
+                                  valid=valid, device=d, **(train_kw or {}))
         if d == "cuda" and any(L.total(k) == 0 for k in kernels):
             raise AssertionError(f"{kw}: a kernel never ran on the card: "
                                  f"{L.BY_SHAPE}")
@@ -1084,6 +1114,246 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
     del X, y, Xh, yh, gb_full, gb_res
 
 
+def rank_data(rng, Q: int, F: int, max_group: int = RANK_MAXG):
+    """Q queries of 1..max_group rows (uniform), F normal features and
+    relevance 0-4 from a noisy linear score (the ranking fixture's
+    concept, tests/test_benchmark_fixtures.py): → (X, y, group sizes)."""
+    sizes = rng.integers(1, max_group + 1, Q)
+    n = int(sizes.sum())
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    rel = np.clip(X[:, 0] + 0.5 * X[:, 1] + rng.normal(scale=0.3, size=n),
+                  0, None)
+    return X, np.digitize(rel, [0.5, 1.2, 2.0, 2.8]).astype(np.float64), \
+        sizes
+
+
+def groups_to(sizes, n: int):
+    """The leading group sizes that cover n rows, the last one cut."""
+    c = np.cumsum(sizes)
+    k = int(np.searchsorted(c, n)) + 1
+    out = sizes[:k].copy()
+    out[-1] -= int(c[k - 1]) - n
+    return out
+
+
+def ranker_path(X, y, sizes, Xv, yv, vsizes, iters, device="cuda",
+                **params):
+    """``GBDTRanker(**params).fit`` over queries ``sizes`` plus validation
+    queries ``vsizes`` flagged by ``validationIndicatorCol`` (metric
+    ndcg), query ids shuffled across the rows so that the estimator
+    sorts them; launch counts reset just before the fit and read just
+    after.  → (result, the model)."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.estimators import GBDTRanker
+    qid = np.repeat(np.arange(len(sizes) + len(vsizes)),
+                    np.concatenate([sizes, vsizes]))
+    feats = np.concatenate([X, Xv])
+    ds = Dataset({"features": list(feats), "label": np.concatenate([y, yv]),
+                  "query": qid, "isValid": qid >= len(sizes)})
+    t0 = time.perf_counter()
+    ds.to_numpy(["features"])
+    to_numpy_s = time.perf_counter() - t0
+    del feats
+    L.reset()
+    t0 = time.perf_counter()
+    model = GBDTRanker(numIterations=iters, device=device, metric="ndcg",
+                       validationIndicatorCol="isValid", **params).fit(ds)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    m = model.training_measures
+    r = dict(fit_s=fit_s, train_s=m.training_s,
+             s_per_iter=m.seconds_per_iteration(), eval_s=m.eval_s,
+             binning_s=m.binning_s, iterations=m.iterations,
+             to_numpy_s=to_numpy_s, rows=len(X), valid_rows=len(Xv),
+             queries=len(sizes), launches={
+                 k: L.total(k) for k in ("build_hist_nodes",
+                                         "route_and_hist")},
+             shapes=dict(L.BY_SHAPE),
+             two_level=model.booster.config.two_level_hist,
+             valid_ndcg=[e.value for e in model._eval_history])
+    return r, model
+
+
+def lambdarank_ms(sizes, y, dev, reps: int = 5) -> float:
+    """Device ms of one evaluation of the fit's lambdarank objective
+    (float64, rounded to f32) at the groups ``sizes``."""
+    from synapseml_tpu_torch.models.gbdt.booster import _grad_hess
+    from synapseml_tpu_torch.models.gbdt.ranking import (
+        build_group_index, make_lambdarank_objective)
+    q, m = build_group_index(sizes)
+    n = len(y)
+    fn = make_lambdarank_objective(q, m, n, device=dev)
+    rng = np.random.default_rng(0)
+    s = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    lab = torch.as_tensor(y.astype(np.float32), device=dev)
+    w = torch.ones(n, dtype=torch.float32, device=dev)
+    return cuda_ms(lambda: _grad_hess(fn, s, lab, w), iters=reps)
+
+
+def breadth3(seed: int, iters: int, check_path, models, n_queries=RANK_Q,
+             n_valid_queries=RANK_VQ, n_stream=HIGGS_N, n_mem=1_000_000,
+             device: str = "cuda") -> None:
+    """Phase 13: the ranker at MSLR-WEB10K's shape, a streamed fit at
+    HIGGS's shape, LightGBM text export and import, TreeSHAP.  ``models``
+    holds phase 4's model stage, its holdout (``"default"``, ``"Xh"``) and
+    phase 10b's three-class model (``"three"``).  Raises on any failed
+    check."""
+    import tracemalloc
+
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.io.colstore import ChunkedColumnSource, \
+        write_matrix
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    from synapseml_tpu_torch.models.gbdt.estimators import (
+        GBDTClassificationModel, GBDTRankerModel)
+    from synapseml_tpu_torch.models.gbdt.metrics import auc, ndcg_at
+    dev = torch.device(device)
+    r13 = np.random.default_rng(seed + 13)
+
+    # 13a. the ranker at MSLR-WEB10K's shape
+    X, y, sizes = rank_data(r13, n_queries, RANK_F)
+    Xv, yv, vsizes = rank_data(r13, n_valid_queries, RANK_F)
+    r, ranker = ranker_path(X, y, sizes, Xv, yv, vsizes, iters,
+                            device=device, numLeaves=31, maxBin=255)
+    check_path("ranker", r)
+    ndcg10 = ndcg_at(10)
+    got = ndcg10(yv, ranker.booster.predict_margin(Xv), vsizes)
+    rand = ndcg10(yv, r13.normal(size=len(yv)), vsizes)
+    r.update(valid_ndcg10=got, random_ndcg10=rand,
+             objective_ms=(lambdarank_ms(sizes, y, dev) if device == "cuda"
+                           else None),
+             max_group=int(sizes.max()),
+             groups_past_128=int((sizes > 128).sum()))
+    log(f"fit ranker {len(X)} rows x {RANK_F}, {len(sizes)} queries: "
+        f"{json.dumps(r)} | {gpu_line() if device == 'cuda' else 'cpu'}")
+    if not got > rand + 0.1:
+        raise AssertionError(f"ranker: validation ndcg@10 {got} against "
+                             f"random {rand}")
+    del X, y
+
+    # 13b. a streamed fit at HIGGS's shape, from an SMLC file
+    os.makedirs(os.path.join(os.path.dirname(CKPT_ROOT)), exist_ok=True)
+    path = os.path.join(os.path.dirname(CKPT_ROOT), "phase13_stream.smlc")
+    F = 28
+    t0 = time.perf_counter()
+    Z = r13.normal(size=(n_stream, F + 1)).astype(np.float32)
+    Z[:, F] = gbdt_labels(r13, Z[:, :F])
+    write_matrix(path, Z)
+    raw = n_stream * F * 4
+    del Z
+    write_s = time.perf_counter() - t0
+    Xh = r13.normal(size=(100_000, F)).astype(np.float32)
+    yh = gbdt_labels(r13, Xh)
+    cfg = BoostingConfig(objective="binary", num_iterations=iters)
+    runs = {}
+    for traced in (False, True):
+        src = ChunkedColumnSource(path, label_col=F)
+        L.reset()
+        if traced:
+            tracemalloc.start()
+        t0 = time.perf_counter()
+        try:
+            b, _ = train(src, None, cfg, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = tracemalloc.get_traced_memory()[1] if traced else None
+        finally:
+            if traced:
+                tracemalloc.stop()
+        m = b.measures
+        runs[traced] = dict(wall_s=wall, ingest_s=m.binning_s,
+                            prep_s=m.data_prep_s, train_s=m.training_s,
+                            s_per_iter=m.seconds_per_iteration(),
+                            holdout_auc=float(auc(yh, b.predict_margin(Xh))),
+                            shapes=dict(L.BY_SHAPE),
+                            two_level=b.config.two_level_hist,
+                            traced_peak_bytes=peak)
+    r = dict(runs[False], rows=n_stream, features=F, raw_bytes=raw,
+             write_s=write_s, traced_run=runs[True],
+             peak_share=runs[True]["traced_peak_bytes"] / raw)
+    check_path("streamed", r)
+    log(f"fit streamed {n_stream} x {F} from {os.path.basename(path)}: "
+        f"{json.dumps(r)} | {gpu_line() if device == 'cuda' else 'cpu'}")
+    os.remove(path)
+    if r["holdout_auc"] <= 0.8 or r["peak_share"] >= 0.25:
+        raise AssertionError(f"streamed: AUC {r['holdout_auc']}, traced "
+                             f"peak {r['peak_share']} of the raw bytes")
+    # phase 4's 1M rows from a file: the in-memory fit's trees
+    drng = np.random.default_rng(seed)
+    X1 = drng.normal(size=(n_mem, F)).astype(np.float32)
+    y1 = gbdt_labels(drng, X1)
+    path1 = os.path.join(os.path.dirname(CKPT_ROOT), "phase13_1m.smlc")
+    write_matrix(path1, np.concatenate([X1, y1[:, None].astype(np.float32)],
+                                       axis=1))
+    bs, _ = train(ChunkedColumnSource(path1, label_col=F, chunk_rows=65_521),
+                  None, cfg, device=device)
+    bm, _ = train(X1, y1, cfg, device=device)
+    os.remove(path1)
+    same = bs.num_trees == bm.num_trees and all(
+        np.array_equal(a.split_feature, c.split_feature)
+        and np.array_equal(a.split_bin, c.split_bin)
+        for a, c in zip(bs.trees, bm.trees))
+    diff = float(np.abs(bs.predict_margin(Xh) - bm.predict_margin(Xh)).max())
+    log(f"streamed {n_mem} rows against in memory: trees equal {same}, "
+        f"margins within {diff:.3g}")
+    if not same or diff > 1e-5:
+        raise AssertionError(f"streamed 1M: trees equal {same}, margins "
+                             f"{diff}")
+    del X1, y1
+
+    # 13c. LightGBM text: export, import on the card, re-export
+    stage = models["default"]
+    Xh4 = models["Xh"]
+    out = {}
+    for name, model, rows in (("default", stage, Xh4),
+                              ("three-class", models["three"], Xh4),
+                              ("ranker", ranker, Xv)):
+        t0 = time.perf_counter()
+        text = model.get_model_string()
+        cls = (GBDTRankerModel if name == "ranker"
+               else GBDTClassificationModel)
+        back = cls.load_native_model_from_string(text, device=device)
+        io_s = time.perf_counter() - t0
+        again = back.get_model_string()
+        fixed = cls.load_native_model_from_string(
+            again, device=device).get_model_string() == again
+        md = float(np.abs(back.booster.predict_margin(rows)
+                          - model.booster.predict_margin(rows)).max())
+        out[name] = dict(bytes=len(text), trees=model.booster.num_trees,
+                         margin_max_diff=md, export_import_s=io_s,
+                         reexport_fixed_point=fixed,
+                         reexport_equals_first=again == text)
+        if md > 1e-6 or not fixed:
+            raise AssertionError(f"LightGBM text, {name}: {out[name]}")
+    log(f"LightGBM text round trips on the card: {json.dumps(out)}")
+
+    # 13d. TreeSHAP through featuresShapCol, against the card's margins
+    out = {}
+    for name, model, rows in (("default", stage, Xh4[:1000]),
+                              ("ranker", ranker, Xv[:200])):
+        model.set("featuresShapCol", "shap")
+        t0 = time.perf_counter()
+        res = model.transform(Dataset({"features": list(rows)}))
+        wall = time.perf_counter() - t0
+        model.set("featuresShapCol", "")
+        shap = np.stack(res["shap"])
+        margin = (np.stack(res["rawPrediction"])[:, 1] if name == "default"
+                  else np.asarray(res["prediction"]))
+        err = float(np.abs(shap.sum(1) - margin).max())
+        out[name] = dict(rows=len(rows), trees=model.booster.num_trees,
+                         transform_s=wall,
+                         s_per_1000_rows=wall / len(rows) * 1000,
+                         additivity_max_err=err)
+        if err > 1e-4 or shap.shape != (len(rows), rows.shape[1] + 1):
+            raise AssertionError(f"TreeSHAP, {name}: {out[name]}")
+    log(f"TreeSHAP (featuresShapCol, host) against the card's margins: "
+        f"{json.dumps(out)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1126,6 +1396,10 @@ def main(argv=None) -> int:
     # task's 28 + 8 x 32 columns and its bundles (one per dense column,
     # one per one-hot block)
     FC, FO, FB = F + CAT_COLS, F + OH_BLOCKS * OH_LEVELS, F + OH_BLOCKS
+    # the ranker's rows: 10,000 queries of 1-239 rows drawn as phase 13
+    # draws them
+    N_RANK = int(np.random.default_rng(args.seed + 13).integers(
+        1, RANK_MAXG + 1, RANK_Q).sum())
     two_level = ("maxBin=255", "multiclass", "validation", "resumed")
     mono = ("monotone basic", "monotone intermediate", "monotone advanced")
     shapes = [
@@ -1167,21 +1441,40 @@ def main(argv=None) -> int:
          ("EFB lossguide",)),
         ("build_hist_nodes", dict(F=FO, B=256, shift=0, S=1),
          ("unbundled lossguide",)),
+        # phase 13's ranker at MSLR-WEB10K's width (two-level on at ~1.2M
+        # rows): its waves, roots and refined builds over 136 features
+        ("route_and_hist", dict(F=RANK_F, B=256, shift=3, K=K, S=S,
+                                N=N_RANK), ("ranker",)),
+        ("route_and_hist", dict(F=RANK_F, B=256, shift=3, K=0, S=1,
+                                N=N_RANK), ("ranker",)),
+        ("build_hist_nodes", dict(F=RANK_F, B=256, shift=0, S=1, K=K,
+                                  N=N_RANK), ("ranker",)),
+        # phase 13's streamed fit at HIGGS's 11M rows
+        ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S, N=HIGGS_N),
+         ("streamed",)),
+        ("route_and_hist", dict(F=F, B=256, shift=3, K=0, S=1, N=HIGGS_N),
+         ("streamed",)),
+        ("build_hist_nodes", dict(F=F, B=256, shift=0, S=1, K=K,
+                                  N=HIGGS_N), ("streamed",)),
     ]
     cases = []
     for kern, dims, runs in shapes:
+        n_case = dims.pop("N", N)
         if kern == "route_and_hist":
-            r = k2_case(rng, dev, N, **dims)
+            r = k2_case(rng, dev, n_case, **dims)
             dims.pop("ranges", None)
             key = L.launch_key(kern, **dims, variant="rows")
         else:
-            r = k1_case(rng, dev, N, **dims)
+            r = k1_case(rng, dev, n_case, **dims)
             key = L.launch_key(kern, F=dims.get("K") or dims["F"],
                                B=dims["B"], shift=dims["shift"], S=dims["S"],
                                variant="rows")
+        r["N"] = n_case
+        torch.cuda.empty_cache()
         route = (f", route alone {r['route_ms']:.4f} ms"
                  if "route_ms" in r else "")
-        log(f"{key}: identical to plain and to the previous kernel; kernel "
+        log(f"{key} N={n_case}: identical to plain and to the previous "
+            f"kernel; kernel "
             f"{r['ms']:.4f} ms, previous kernel {r['previous_ms']:.4f} ms"
             f"{route}, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
@@ -1225,8 +1518,11 @@ def main(argv=None) -> int:
                                      "the main path")
         paths[name] = r
 
+    models = {"Xh": Xh}          # phase 13 exports these
     for max_bin in (255, 63):
-        r, _ = fit_path(X, y, Xh, yh, args.iters, maxBin=max_bin)
+        r, stage = fit_path(X, y, Xh, yh, args.iters, maxBin=max_bin)
+        if max_bin == 255:
+            models["default"] = stage
         log(f"fit maxBin={max_bin}: {json.dumps(r)}")
         check_path(f"maxBin={max_bin}", r)
         if r["auc"] <= 0.8:
@@ -1235,7 +1531,7 @@ def main(argv=None) -> int:
 
     # -- 5. where the time goes --------------------------------------------
     log(f"profile maxBin=255: {json.dumps(profile_fit(X, y, 2))}")
-    del X, y, Xh, yh
+    del X, y, yh
 
     # -- 6. K3 at the engine's shapes ---------------------------------------
     from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
@@ -1361,8 +1657,8 @@ def main(argv=None) -> int:
                            + rng.normal(scale=0.5, size=len(Z)),
                            cut).astype(np.float64)
     y3, yh3 = three(X, drng), three(Xh, drng)
-    r, _ = fit_path(X, y3, Xh, yh3, args.iters, maxBin=255,
-                    baggingFraction=0.8, baggingFreq=1)
+    r, models["three"] = fit_path(X, y3, Xh, yh3, args.iters, maxBin=255,
+                                  baggingFraction=0.8, baggingFreq=1)
     check_path("multiclass", r)
     root = L.launch_key("route_and_hist", F=F, B=256, shift=3, K=0, S=1,
                         variant="rows")
@@ -1391,6 +1687,28 @@ def main(argv=None) -> int:
         data[kind] = (Xk, gbdt_labels(r11, Xs, extra), add(r11, Xhs)[0])
     valid_s = (X[n_small:n_small + 16_384], y[n_small:n_small + 16_384],
                None)
+    # lambdarank over groups of 1-239 rows (some past 128), and streamed
+    # fits from an SMLC file (an odd chunk size) and from an SMLS file of
+    # the one-hot blocks with EFB
+    rel = np.clip(Xs[:, 0] + 0.5 * Xs[:, 1]
+                  + r11.normal(scale=0.3, size=n_small), 0, None)
+    data["rank"] = (Xs, np.digitize(rel, [0.5, 1.2, 2.0, 2.8]).astype(
+        np.float64), Xhs)
+    gsizes = groups_to(r11.integers(1, RANK_MAXG + 1, n_small), n_small)
+    from synapseml_tpu_torch.io import colstore as CS
+    build_dir = os.path.dirname(CKPT_ROOT)
+    os.makedirs(build_dir, exist_ok=True)
+    p_dense = os.path.join(build_dir, "phase11.smlc")
+    CS.write_matrix(p_dense, np.concatenate(
+        [Xs, ys["binary"][:, None].astype(np.float32)], axis=1))
+    Xo, yo, Xho = data["onehot"]
+    p_sparse = os.path.join(build_dir, "phase11.smls")
+    CS.write_csr(p_sparse, *CS.dense_to_csr(Xo), Xo.shape[1], labels=yo)
+    data["stream"] = (CS.ChunkedColumnSource(p_dense, label_col=F,
+                                             chunk_rows=4099), None, Xhs)
+    data["stream_sparse"] = (CS.SparseChunkedSource(p_sparse,
+                                                    chunk_rows=5001), None,
+                             Xho)
     del X, y, Xh, yh, y3, yh3
     k1, k2 = ("build_hist_nodes",), ("route_and_hist",)
     breadth = [
@@ -1434,6 +1752,16 @@ def main(argv=None) -> int:
               metric="auc"), dict(iters=40, valid=valid_s)),
         ("checkpoint resume", "binary", k2, dict(objective="binary"),
          dict(iters=4, resume=True)),
+        ("lambdarank, groups of 1-239 rows", "rank", k2,
+         dict(objective="lambdarank"),
+         dict(train_kw=dict(group=gsizes))),
+        ("lambdarank, labelGain", "rank", k2,
+         dict(objective="lambdarank", label_gain=[0.0, 1.0, 2.5, 6.0, 20.0]),
+         dict(train_kw=dict(group=gsizes))),
+        ("streamed, ChunkedColumnSource chunk_rows=4099", "stream", k2,
+         dict(objective="binary"), {}),
+        ("streamed, SparseChunkedSource with EFB", "stream_sparse", k2,
+         dict(objective="binary", enable_bundle=True), {}),
     ]
     for what, kind, kern, kw, extra in runs11:
         Xk, yk, Xhk = data[kind]
@@ -1442,6 +1770,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"{what}: card and CPU margins differ by "
                                  f"{diff}")
         log(f"card vs CPU, {what}: same splits, margins within {diff:.3g}")
+    os.remove(p_dense)
+    os.remove(p_sparse)
     log(f"card vs CPU, f32 against float64-rounded transcendentals at "
         f"{N // 3 * 3} rows (the fit's gradients equal): "
         f"{json.dumps(objectives_card_vs_cpu(dev, N, args.seed))}")
@@ -1453,6 +1783,10 @@ def main(argv=None) -> int:
     # -- 12. GBDT breadth II at full width ----------------------------------
     breadth2(args.seed, N, F, args.iters, check_path)
 
+    # -- 13. GBDT breadth III: ranker, streamed ingestion, text, TreeSHAP ----
+    breadth3(args.seed, args.iters, check_path, models)
+    del models
+
     # -- results -----------------------------------------------------------
     # each shape's launches in the runs that launch it
     kernels = []
@@ -1461,7 +1795,8 @@ def main(argv=None) -> int:
             continue
         by_run = {run: paths[run]["shapes"][key] for run in runs}
         kernels.append(dict(
-            name=key, route="cuda", source=src, replaces=refs[kern],
+            name=key if r["N"] == N else f"{key}@N={r['N']}", route="cuda",
+            source=src, replaces=refs[kern], rows=r["N"],
             launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],

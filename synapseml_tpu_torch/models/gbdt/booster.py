@@ -3,17 +3,19 @@
 The PyTorch port of the JAX package's ``models/gbdt/booster.py`` on one
 device: the boosting types gbdt, goss, dart and rf, bagging, the
 depthwise and lossguide growth policies, the binary, multiclass,
-multiclassova and regression objectives, validation sets with early
-stopping, iteration checkpoints and warm starts, categorical features,
-exclusive feature bundling (EFB) and monotone constraints.  The JAX
-package scans the boosting loop on the device; here it is a Python loop
-over the growers of :mod:`.trainer` with the kernels on the card.  The
-model format is the JAX package's version-2 JSON (:meth:`Booster.to_dict`),
-so a model, or a checkpoint, moves between the two packages both ways.
+multiclassova, regression and lambdarank objectives, validation sets
+with early stopping (NDCG for rankers), iteration checkpoints and warm
+starts, categorical features, exclusive feature bundling (EFB),
+monotone constraints, and streamed ingestion from a chunked source.  The
+JAX package scans the boosting loop on the device; here it is a Python
+loop over the growers of :mod:`.trainer` with the kernels on the card.
+Checkpoints are the JAX package's version-2 JSON (:meth:`Booster.to_dict`),
+and :meth:`Booster.to_string` writes the LightGBM text format, so a
+model, or a checkpoint, moves between the two packages both ways.
 
-The config values not ported yet (voting/feature parallel growth,
-lambdarank) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+What is not ported yet (a mesh: voting/feature parallel growth and
+distributed lambdarank) raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .hist import rows_geometry
 from . import prng
 from .objectives import (get_objective, initial_score, objective_kwargs,
                          ova_grad_hess, softmax_grad_hess)
+from .ranking import build_group_index, make_lambdarank_objective
 from .trainer import (TWO_LEVEL_MIN_ROWS, GrowthParams, Tree,
                       default_n_slots, grow_tree, grow_tree_depthwise,
                       max_nodes, predict_binned_stacked, predict_binned_tree,
@@ -144,16 +147,14 @@ def _check_ported(config: BoostingConfig) -> None:
         (config.parallelism != "data_parallel",
          f"parallelism={config.parallelism!r}",
          "A5, voting/feature parallel"),
-        (config.objective == "lambdarank", "objective='lambdarank'",
-         "A2.9, lambdarank"),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                       f"queue {item})")
-    if config.objective not in MULTICLASS:
+    if config.objective not in MULTICLASS + ("lambdarank",):
         get_objective(config.objective)
-    elif config.num_class < 2:
+    elif config.objective in MULTICLASS and config.num_class < 2:
         raise ValueError(f"objective={config.objective!r} needs num_class "
                          f">= 2, got {config.num_class}")
     if config.boosting_type not in ("gbdt", "goss", "dart", "rf"):
@@ -393,6 +394,67 @@ class Booster:
         p1 = 1.0 / (1.0 + np.exp(-margin))
         return np.stack([1 - p1, p1], axis=1)
 
+    def predict_contrib(self, features: np.ndarray,
+                        approximate: bool = False) -> np.ndarray:
+        """Per-feature contributions + bias (``featuresShapCol``), on the
+        host as in the JAX package: exact TreeSHAP over the per-node
+        covers (:mod:`.shap`) by default; ``approximate=True``, or a
+        model without cover counts (an imported file lacking
+        ``internal_count``), takes the Saabas path attribution.
+        Categorical models route in bin space; an imported categorical
+        model takes its hybrid view (categorical columns as bin ids).
+        → (n, F+1), or (n, K·(F+1)) for multiclass (the last slot of each
+        block is the bias)."""
+        imported_cat = (self.bin_mapper.has_categorical
+                        and _placeholder_mapper(self.bin_mapper))
+        bin_space = self.bin_mapper.has_categorical and not imported_cat
+        if imported_cat:
+            features = self._cat_columns_to_bins(
+                np.ascontiguousarray(features, np.float32))
+        from .shap import has_cover_counts, tree_shap_values
+        if not approximate and has_cover_counts(self):
+            return tree_shap_values(self, features, bin_space=bin_space)
+        features = np.ascontiguousarray(features, np.float32)
+        if bin_space:
+            features = self.bin_mapper.transform(features).astype(np.float32)
+        n = features.shape[0]
+        F = self.bin_mapper.num_features
+        out = np.zeros((n, self.num_class, F + 1), np.float64)
+        rows = np.arange(n)
+        for i, t in enumerate(self.trees):
+            k = self.tree_class[i]
+            w = self.tree_weights[i]
+            if self.config.boosting_type == "rf":
+                cls_count = max(sum(1 for c in self.tree_class if c == k), 1)
+                w = w / cls_count
+            nv = t.node_value.astype(np.float64)
+            cur = np.zeros(n, np.int64)
+            out[:, k, F] += nv[0] * w
+            for _ in range(tree_depth(t)):
+                feat = t.split_feature[cur]
+                internal = feat >= 0
+                if not internal.any():
+                    break
+                f = np.maximum(feat, 0)
+                x = features[rows, f]
+                if bin_space:
+                    go_left = x <= np.asarray(t.split_bin)[cur]
+                else:
+                    miss = np.isnan(x) | (np.asarray(t.missing_zero)[cur]
+                                          & (np.abs(x) <= 1e-35))
+                    go_left = np.where(miss, t.default_left[cur],
+                                       x <= t.threshold[cur])
+                nxt = np.where(go_left, t.left_child[cur], t.right_child[cur])
+                nxt = np.where(internal, nxt, cur)
+                delta = (nv[nxt] - nv[cur]) * w
+                np.add.at(out, (rows[internal], np.full(internal.sum(), k),
+                                f[internal]), delta[internal])
+                cur = nxt
+        out[:, :, F] += self.init_score[:self.num_class][None, :]
+        if self.num_class == 1:
+            return out[:, 0, :]
+        return out.reshape(n, -1)
+
     # -- introspection -----------------------------------------------------
     def feature_importance(self, importance_type: str = "split") -> np.ndarray:
         """Split counts or total gains per feature."""
@@ -485,6 +547,29 @@ class Booster:
     @staticmethod
     def from_json(s: str, device: DeviceLike = "cuda") -> "Booster":
         return Booster.from_dict(json.loads(s), device=device)
+
+    def to_string(self) -> str:
+        """The LightGBM text model format (:mod:`.lgbm_format`): the JAX
+        package's ``to_string`` bytes for the same model, loadable by any
+        LightGBM runtime.  Checkpoints keep the version-2 JSON
+        (:meth:`to_json`)."""
+        from .lgbm_format import booster_to_lgbm_string
+        return booster_to_lgbm_string(self)
+
+    @staticmethod
+    def from_string(s: str, device: DeviceLike = "cuda") -> "Booster":
+        """Read either format, in the JAX package's order: the version-2
+        JSON when the text starts with ``{``, else a LightGBM text
+        model."""
+        if s.lstrip().startswith("{"):
+            return Booster.from_json(s, device=device)
+        from .lgbm_format import booster_from_lgbm_string
+        return booster_from_lgbm_string(s, device=device)
+
+    @staticmethod
+    def from_file(path: str, device: DeviceLike = "cuda") -> "Booster":
+        with open(path) as f:
+            return Booster.from_string(f.read(), device=device)
 
 
 @dataclasses.dataclass
@@ -663,13 +748,38 @@ def _add_scores(scores, contrib, k: int, K: int):
     return out
 
 
-def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
+def _bin_stream(source, mapper: BinMapper,
+                bundler: Optional[FeatureBundler], n: int,
+                dev: torch.device) -> torch.Tensor:
+    """The binned matrix of a chunked source: each chunk is uploaded,
+    binned (and bundled) on ``dev`` and written straight into its column
+    range of one preallocated (Fb, n) int32 matrix, so neither the host
+    nor the device holds a second copy."""
+    Fb = bundler.num_bundles if bundler is not None else mapper.num_features
+    out = torch.empty((Fb, n), dtype=torch.int32, device=dev)
+    lo = 0
+    for cx, _, _ in source.iter_chunks():
+        b = bin_features(cx, mapper, dev)
+        if bundler is not None:
+            b = bundle_bins(b, bundler)
+        out[:, lo:lo + b.shape[1]] = b
+        lo += b.shape[1]
+    if lo != n:
+        raise ValueError(f"the source's chunks hold {lo} rows, its "
+                         f"num_rows {n}")
+    return out
+
+
+def train(X, y: Optional[np.ndarray], config: BoostingConfig,
           sample_weight: Optional[np.ndarray] = None,
           feature_names: Optional[Sequence[str]] = None,
           valid: Optional[Tuple] = None,
           init_model: Optional[Booster] = None,
           checkpoint_dir: Optional[str] = None,
           checkpoint_interval: int = 0,
+          group: Optional[np.ndarray] = None,
+          valid_group: Optional[np.ndarray] = None,
+          mesh=None,
           device: DeviceLike = "cuda") -> Tuple[Booster, List[EvalRecord]]:
     """Full training run on ``device`` → (booster, eval history).
 
@@ -693,8 +803,30 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
     call with the same directory resumes from the newest one: an
     unbagged gbdt/goss resume grows the trees the uninterrupted run
     would; rf continues the same bag stream; dart freezes the carried
-    trees' weights (approximate, as in the JAX package)."""
+    trees' weights (approximate, as in the JAX package).
+
+    ``X`` is a numpy matrix or a chunked source (anything with
+    ``num_rows``, ``num_features``, ``iter_chunks``, ``sample_rows``,
+    ``read_labels`` and ``read_weights``, such as
+    :class:`~synapseml_tpu_torch.io.colstore.ChunkedColumnSource`): the bin
+    mapper fits on ``sample_rows``, and each chunk is uploaded and binned
+    (and bundled) on the device straight into its column range of the
+    binned matrix, so host memory stays O(chunk) plus the label, weight
+    and score vectors.  With a source carrying a label column, ``y=None``
+    reads the labels from it.  Streamed categorical bins are ordered by
+    value (the sample carries no aligned labels), as in the JAX package.
+
+    ``objective="lambdarank"`` takes ``group``, the query group sizes in
+    row order (rows group-contiguous), and NDCG validation
+    ``valid_group``.  ``mesh`` is not ported (ROADMAP A5) and must be
+    None."""
     dev = resolve_device(device)
+    if mesh is not None:
+        raise NotImplementedError(
+            "train over a mesh (sharded histograms; for lambdarank whole "
+            "query groups packed onto shards, the sharded objective and "
+            "streamed distributed ranking) is not ported yet (ROADMAP "
+            "queue A5); pass mesh=None")
     if checkpoint_dir is not None and not isinstance(checkpoint_dir,
                                                      (str, os.PathLike)):
         raise NotImplementedError(
@@ -745,8 +877,19 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
             "_fused_ingest": _fused_ingest_on(config),
             "_fit_world_size": 1})
 
-    X = np.ascontiguousarray(X, np.float32)
-    n, F = X.shape
+    source = X if hasattr(X, "iter_chunks") else None
+    if source is not None:
+        n, F = source.num_rows, source.num_features
+        if y is None:
+            y = source.read_labels()
+            if y is None:
+                raise ValueError("streaming train with y=None needs the "
+                                 "source to carry a label_col")
+        if sample_weight is None:
+            sample_weight = source.read_weights()
+    else:
+        X = np.ascontiguousarray(X, np.float32)
+        n, F = X.shape
     _check_monotone(config, F)
     K = config.num_class if config.objective in MULTICLASS else 1
     feature_names = (list(feature_names) if feature_names
@@ -758,36 +901,54 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
     if init_model is not None and not _placeholder_mapper(
             init_model.bin_mapper):
         mapper = init_model.bin_mapper
+    elif source is not None:
+        # the streamed sample carries no aligned labels: categorical bins
+        # order by value instead of target statistic
+        mapper = fit_bin_mapper(
+            source.sample_rows(config.bin_sample_count, config.seed),
+            config.max_bin, sample_count=config.bin_sample_count,
+            seed=config.seed, categorical_features=config.categorical_feature)
     else:
         mapper = fit_bin_mapper(
             X, config.max_bin, sample_count=config.bin_sample_count,
             seed=config.seed, categorical_features=config.categorical_feature,
             y=np.asarray(y, np.float64))
-    bins_t = bin_features(X, mapper, dev)                 # (F, n) int32
+    bins_t = None if source is not None else bin_features(X, mapper, dev)
     B = config.max_bin + 1
     bundler = bundle_map = None
     if config.enable_bundle:
-        # EFB: fit on the first 50k binned rows (the JAX package's
-        # sample), bundle the binned matrix on the device
+        # EFB: fit on the first 50k binned rows (a source: on a 50k-row
+        # sample, the JAX package's samples)
         if init_model is not None and init_model.bundler is not None:
             bundler = init_model.bundler
         else:
+            if source is not None:
+                sample_b = bin_features(source.sample_rows(
+                    min(config.bin_sample_count, 50_000), config.seed),
+                    mapper, dev)
+            else:
+                sample_b = bins_t[:, :min(n, 50_000)]
             bundler = FeatureBundler.fit(
-                bins_t[:, :min(n, 50_000)].t().cpu().numpy(),
-                mapper.num_bins, max_total_bins=B,
-                max_conflict_rate=config.max_conflict_rate)
+                sample_b.t().cpu().numpy(), mapper.num_bins,
+                max_total_bins=B, max_conflict_rate=config.max_conflict_rate)
+            del sample_b
         # a bundle holds at most max_bin + 1 bins, so the card's width
         # check (_check_ported_on) covers the bundled histograms
         assert int(bundler.num_bins.max()) <= B, bundler.num_bins.max()
-        bins_t = bundle_bins(bins_t, bundler)             # (Fb, n)
+        if bins_t is not None:
+            bins_t = bundle_bins(bins_t, bundler)         # (Fb, n)
         bundle_map = {k: torch.as_tensor(v.astype(np.int32), device=dev)
                       for k, v in bundler.route_tables(mapper.num_bins,
                                                        B).items()}
+    if source is not None:
+        bins_t = _bin_stream(source, mapper, bundler, n, dev)
     synchronize(dev)
     measures.binning_s = time.perf_counter() - t0
     t_prep = time.perf_counter()
 
-    w = (np.ones(n, np.float32) if sample_weight is None
+    # w None: unit weights, made on the device (a host vector of ones
+    # would be one more O(n) allocation of a streamed fit)
+    w = (None if sample_weight is None
          else np.asarray(sample_weight, np.float32).copy())
     if config.objective == "binary":
         yb = (np.asarray(y) > 0).astype(np.float32)
@@ -796,10 +957,13 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
             neg = max(float(n - yb.sum()), 1.0)
             spw = (neg / pos) if config.is_unbalance \
                 else config.scale_pos_weight
+            w = np.ones(n, np.float32) if w is None else w
             w = np.where(yb > 0, w * spw, w).astype(np.float32)
         labels_np = yb
     else:
-        labels_np = np.asarray(y, np.float32)
+        # a copy where ``y`` is read-only (a source's memory-mapped column)
+        labels_np = np.require(np.asarray(y, np.float32), requirements="W")
+    y = None
     if init_model is not None:
         init_sc = init_model.init_score
     elif config.boost_from_average and K == 1:
@@ -815,19 +979,42 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
             config, two_level_hist=("on" if n >= TWO_LEVEL_MIN_ROWS
                                     else "off"))
     labels = torch.as_tensor(labels_np, device=dev)
-    weights = torch.as_tensor(w, device=dev)
+    weights = (torch.ones(n, dtype=torch.float32, device=dev) if w is None
+               else torch.as_tensor(w, device=dev))
     init_scores = torch.full((n,) if K == 1 else (n, K), float(init_sc[0]),
                              dtype=torch.float32, device=dev)
     is_rf = config.boosting_type == "rf"
     # a warm start continues from the carried model's margin (rf trees
     # fit at the constant init margin)
-    scores = (_replay_margin(init_model, X, dev)
-              if init_model is not None and not is_rf else init_scores)
+    if init_model is None or is_rf:
+        scores = init_scores
+    elif source is None:
+        scores = _replay_margin(init_model, X, dev)
+    else:
+        # the carried margin, replayed chunk by chunk (a row's margin
+        # depends on that row alone)
+        scores = torch.empty_like(init_scores)
+        lo = 0
+        for cx, _, _ in source.iter_chunks():
+            scores[lo:lo + len(cx)] = _replay_margin(init_model, cx, dev)
+            lo += len(cx)
     if K > 1:
         onehot = torch.nn.functional.one_hot(labels.long(), K).to(
             torch.float32)
         multi_fn = (ova_grad_hess if config.objective == "multiclassova"
                     else softmax_grad_hess)
+    elif config.objective == "lambdarank":
+        if group is None:
+            raise ValueError("lambdarank requires group sizes (groupCol)")
+        group = np.asarray(group)
+        if int(group.sum()) != n:
+            raise ValueError(f"group sizes sum to {int(group.sum())}, the "
+                             f"data has {n} rows")
+        qidx, qmask = build_group_index(group)
+        objective_fn = make_lambdarank_objective(
+            qidx, qmask, n_rows=n, sigma=1.0,
+            max_position=config.max_position,
+            label_gain=config.label_gain, device=dev)
     else:
         objective_fn = functools.partial(
             get_objective(config.objective),
@@ -883,10 +1070,18 @@ def train(X: np.ndarray, y: np.ndarray, config: BoostingConfig,
         metric_name = config.metric or metrics_mod.default_metric(
             config.objective, K)
         if metric_name.startswith("ndcg"):
-            raise NotImplementedError("ndcg evaluation is not ported yet "
-                                      "(ROADMAP queue A2.9, lambdarank)")
-        metric_fn, larger_better = metrics_mod.DEVICE_METRICS.get(
-            metric_name, metrics_mod.DEVICE_METRICS["l2"])
+            # NDCG@max_position over the validation groups, on the device
+            if valid_group is None:
+                raise ValueError("ndcg eval requires valid_group sizes")
+            grid = metrics_mod.GroupGrid(valid_group, dev)
+            k_pos = config.max_position
+
+            def metric_fn(yy, mm, ww):
+                return metrics_mod.ndcg_t(yy, mm, grid, ww, k_pos)
+            larger_better = True
+        else:
+            metric_fn, larger_better = metrics_mod.DEVICE_METRICS.get(
+                metric_name, metrics_mod.DEVICE_METRICS["l2"])
         stopper = EarlyStopping(config.early_stopping_round, larger_better)
     synchronize(dev)
     measures.data_prep_s = time.perf_counter() - t_prep

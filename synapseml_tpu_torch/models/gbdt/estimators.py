@@ -1,11 +1,15 @@
-"""GBDT pipeline estimators: ``GBDTClassifier`` → ``GBDTClassificationModel``
-and ``GBDTRegressor`` → ``GBDTRegressionModel``.
+"""GBDT pipeline estimators: ``GBDTClassifier`` → ``GBDTClassificationModel``,
+``GBDTRegressor`` → ``GBDTRegressionModel`` and ``GBDTRanker`` →
+``GBDTRankerModel``.
 
-The PyTorch port of the JAX package's ``models/gbdt/estimators.py`` for
-the classifier and the regressor, on one card: ``fit`` trains with
-:func:`~.booster.train` on the ``device`` param, ``transform`` scores
-whole column batches with one batched traversal on the model's
-``device``.  The param surface is the JAX package's, less the mesh
+The PyTorch port of the JAX package's ``models/gbdt/estimators.py`` on
+one card: ``fit`` trains with :func:`~.booster.train` on the ``device``
+param, ``transform`` scores whole column batches with one batched
+traversal on the model's ``device`` (``featuresShapCol`` adds TreeSHAP
+contributions, computed on the host as in the JAX package).
+``get_model_string`` writes the LightGBM text format and
+``load_native_model_from_string`` / ``_from_file`` read it or the
+version-2 JSON.  The param surface is the JAX package's, less the mesh
 (``numShards``, ``collectiveCompression``); params whose features are not
 ported (the checkpoint manager, voting/feature parallelism) raise
 ``NotImplementedError`` at ``fit``.
@@ -179,13 +183,16 @@ class GBDTParams(Params):
                 valid_ds[self.weightCol].astype(np.float32)
                 if self.weightCol else None)
 
-    def _train(self, X, y, cfg, w, valid):
+    def _checkpoint_dir(self):
         if self.get("checkpointManager") is not None:
             raise NotImplementedError(
                 "checkpointManager (core.checkpoint.CheckpointManager) is "
                 "not ported yet (ROADMAP queue A5); use checkpointDir")
+        return self.get("checkpointDir")
+
+    def _train(self, X, y, cfg, w, valid):
         return _train_batched(X, y, cfg, w, valid, self.numBatches,
-                              checkpoint_dir=self.get("checkpointDir"),
+                              checkpoint_dir=self._checkpoint_dir(),
                               checkpoint_interval=int(
                                   self.checkpointInterval),
                               device=self.device)
@@ -222,7 +229,7 @@ class GBDTModelBase(Model):
     predictionCol = StringParam(doc="prediction output column", default="prediction")
     leafPredictionCol = StringParam(doc="per-tree leaf index output column")
     featuresShapCol = StringParam(doc="per-feature contribution output "
-                                      "column (not ported yet)")
+                                      "column (TreeSHAP, plus the bias)")
     numIterationsUsed = IntParam(doc="trees used at predict (-1: all)", default=-1)
     predictDisableShapeCheck = BoolParam(doc="skip feature-count check",
                                          default=False)
@@ -245,8 +252,9 @@ class GBDTModelBase(Model):
         return self.booster.num_trees
 
     def get_model_string(self) -> str:
-        """The model as the JAX package's version-2 JSON."""
-        return self.booster.to_json()
+        """saveNativeModel analogue: the LightGBM text format
+        (:meth:`Booster.to_string`), as in the JAX package."""
+        return self.booster.to_string()
 
     def _check_features(self, X: np.ndarray):
         expected = self.booster.bin_mapper.num_features
@@ -254,15 +262,35 @@ class GBDTModelBase(Model):
             raise ValueError(f"feature count {X.shape[1]} != model's {expected}")
 
     def _maybe_add_leaves(self, ds: Dataset, X: np.ndarray) -> Dataset:
-        if self.featuresShapCol:
-            raise NotImplementedError(
-                "featuresShapCol (TreeSHAP) is not ported yet (ROADMAP "
-                "queue A, GBDT breadth)")
         if self.leafPredictionCol:
             leaves = self.booster.predict_leaf(
                 X, device=self.device).astype(np.float64)
             ds = ds.with_column(self.leafPredictionCol, list(leaves))
+        if self.featuresShapCol:
+            shap = self.booster.predict_contrib(X)
+            ds = ds.with_column(self.featuresShapCol, list(shap))
         return ds
+
+    @classmethod
+    def load_native_model_from_string(cls, s: str, device: str = "cuda",
+                                      **kw):
+        """loadNativeModelFromString analogue: a model from LightGBM text
+        or the version-2 JSON of either package (``Booster.from_string``),
+        predicting on ``device``."""
+        return cls._from_booster(Booster.from_string(s, device=device),
+                                 device=device, **kw)
+
+    @classmethod
+    def load_native_model_from_file(cls, path: str, device: str = "cuda",
+                                    **kw):
+        """loadNativeModelFromFile analogue."""
+        with open(path) as f:
+            return cls.load_native_model_from_string(f.read(), device=device,
+                                                     **kw)
+
+    @classmethod
+    def _from_booster(cls, b: Booster, **kw):
+        return cls(boosterModel=b, **kw)
 
 
 class GBDTClassifier(GBDTParams, Estimator):
@@ -350,13 +378,9 @@ class GBDTClassificationModel(GBDTModelBase):
         out = out.with_column(self.predictionCol, pred)
         return self._maybe_add_leaves(out, X)
 
-    @staticmethod
-    def load_native_model_from_string(s: str, device: str = "cuda",
-                                      **kw) -> "GBDTClassificationModel":
-        """A model from the version-2 JSON of either package."""
-        b = Booster.from_json(s, device=device)
-        return GBDTClassificationModel(boosterModel=b, device=device,
-                                       numClasses=max(b.num_class, 2), **kw)
+    @classmethod
+    def _from_booster(cls, b: Booster, **kw):
+        return cls(boosterModel=b, numClasses=max(b.num_class, 2), **kw)
 
 
 class GBDTRegressor(GBDTParams, Estimator):
@@ -407,10 +431,56 @@ class GBDTRegressionModel(GBDTModelBase):
         out = ds.with_column(self.predictionCol, np.asarray(pred, np.float64))
         return self._maybe_add_leaves(out, X)
 
-    @staticmethod
-    def load_native_model_from_string(s: str, device: str = "cuda",
-                                      **kw) -> "GBDTRegressionModel":
-        """A model from the version-2 JSON of either package."""
-        return GBDTRegressionModel(
-            boosterModel=Booster.from_json(s, device=device), device=device,
-            **kw)
+
+class GBDTRanker(GBDTParams, Estimator):
+    """LightGBMRanker analogue: the lambdarank objective over query
+    groups.  Rows are stable-sorted by ``groupCol`` (a query's rows must
+    be contiguous) and the group sizes come from ``np.unique``; a
+    validation set (``validationIndicatorCol``) is grouped the same way
+    and evaluated by NDCG@``maxPosition``."""
+    groupCol = StringParam(doc="query/group id column", default="query")
+    maxPosition = IntParam(doc="NDCG truncation position", default=10)
+    labelGain = ListParam(doc="relevance gain per label level")
+    evalAt = ListParam(doc="NDCG eval positions", default=[1, 3, 5, 10])
+
+    def _fit(self, ds: Dataset) -> "GBDTRankerModel":
+        ds, valid_ds = self._split_validation(ds)
+        ds = ds.sort(self.groupCol)
+        X = self._features_matrix(ds)
+        y = np.asarray(ds[self.labelCol], np.float64)
+        w = ds[self.weightCol].astype(np.float32) if self.weightCol else None
+        _, counts = np.unique(ds[self.groupCol], return_counts=True)
+        cfg = self._build_config("lambdarank")
+        cfg.max_position = self.maxPosition
+        if self.labelGain:
+            cfg.label_gain = list(self.labelGain)
+        valid = vgroups = None
+        if valid_ds is not None and valid_ds.num_rows > 0:
+            valid_ds = valid_ds.sort(self.groupCol)
+            _, vgroups = np.unique(valid_ds[self.groupCol],
+                                   return_counts=True)
+            valid = self._valid_tuple(valid_ds, np.asarray(
+                valid_ds[self.labelCol], np.float64))
+        booster, history = train(
+            X, y, cfg, sample_weight=w, valid=valid, group=counts,
+            valid_group=vgroups, checkpoint_dir=self._checkpoint_dir(),
+            checkpoint_interval=int(self.checkpointInterval),
+            device=self.device)
+        model = GBDTRankerModel(boosterModel=booster, device=self.device,
+                                featuresCol=self.featuresCol,
+                                predictionCol=self.predictionCol)
+        model._eval_history = history
+        return model
+
+
+class GBDTRankerModel(GBDTModelBase):
+    """LightGBMRankerModel analogue: transform writes the margin."""
+
+    def _transform(self, ds: Dataset) -> Dataset:
+        X = ds.to_numpy([self.featuresCol])
+        self._check_features(X)
+        ni = self.numIterationsUsed
+        pred = self.booster.predict_margin(X, None if ni < 0 else ni,
+                                           device=self.device)
+        out = ds.with_column(self.predictionCol, np.asarray(pred, np.float64))
+        return self._maybe_add_leaves(out, X)

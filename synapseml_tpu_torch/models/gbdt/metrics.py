@@ -1,13 +1,13 @@
 """Evaluation metrics for boosting.
 
 The PyTorch port of the JAX package's ``models/gbdt/metrics.py``: AUC,
-binary and multiclass log loss and error, L2/RMSE, L1 and MAPE, and the
-default metric of each objective.  Each is one float64 torch function on
-the tensors' device (:data:`DEVICE_METRICS`), which a fit's validation
-evaluates without copying the margins to the host (AUC included: no
-shape depends on the data, so nothing syncs).  :data:`METRICS` and the
-names :func:`auc`, :func:`l2`, ... call the same functions on numpy
-arrays, on the CPU.  ``ndcg_at`` waits for lambdarank.
+binary and multiclass log loss and error, L2/RMSE, L1, MAPE, NDCG@k
+and the default metric of each objective.  Each is one float64 torch
+function on the tensors' device (:data:`DEVICE_METRICS`), which a fit's
+validation evaluates without copying the margins to the host (AUC and
+NDCG included: no shape depends on the data, so nothing syncs).
+:data:`METRICS` and the names :func:`auc`, :func:`l2`, ... call the same
+functions on numpy arrays, on the CPU; :func:`ndcg_at` takes either.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ def default_metric(objective: str, num_class: int) -> str:
         return "multi_logloss"
     if objective in ("regression_l1", "mae"):
         return "l1"
+    if objective == "lambdarank":
+        return "ndcg"
     return "l2"
 
 
@@ -113,8 +115,76 @@ def mape_t(labels, pred, weights=None) -> torch.Tensor:
                     / torch.clamp_min(y.abs(), 1.0), weights)
 
 
+class GroupGrid:
+    """Query groups of a flat row order as a padded ``(Q, Dmax)`` grid
+    on ``device``: ``idx`` the rows (0 on pads) and ``mask`` the real
+    slots.  ``Dmax`` is the largest group: NDCG is never truncated."""
+
+    def __init__(self, groups, device="cpu"):
+        sizes = np.asarray(groups, np.int64).reshape(-1)
+        sizes = sizes[sizes > 0]            # empty groups are skipped
+        D = int(sizes.max()) if len(sizes) else 1
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        pos = np.arange(D)
+        mask = pos[None, :] < sizes[:, None]
+        dev = torch.device(device)
+        self.idx = torch.as_tensor(np.where(mask, starts[:, None] + pos, 0),
+                                   device=dev)
+        self.mask = torch.as_tensor(mask, device=dev)
+
+
+def ndcg_t(labels, scores, groups, weights=None, k: int = 10):
+    """Mean NDCG@k over the query groups (a :class:`GroupGrid`, or the
+    group sizes in row order), the JAX package's ``ndcg_at``: each group
+    ranks its rows by descending score (stable: ties in row order), gains
+    ``2^y - 1``, discounts ``1 / log2(position + 2)`` over the first k,
+    divided by the ideal order's; a group with zero ideal DCG counts as
+    1.0.  No group, 1.0.  ``weights`` are ignored, as there."""
+    if not isinstance(groups, GroupGrid):
+        groups = GroupGrid(groups, scores.device)
+    g = groups
+    if g.mask.shape[0] == 0:
+        return torch.ones((), dtype=torch.float64, device=scores.device)
+    inf = torch.tensor(float("inf"), dtype=torch.float64,
+                       device=scores.device)
+    y = labels.double()[g.idx]
+    s = torch.where(g.mask, -scores.double()[g.idx], inf)
+    D = g.mask.shape[1]
+    pos = torch.arange(D, device=scores.device)
+    disc = torch.where((pos[None, :] < k) & g.mask,
+                       1.0 / torch.log2(pos.double() + 2.0)[None, :],
+                       torch.zeros((), dtype=torch.float64,
+                                   device=scores.device))
+    gain = torch.pow(2.0, y) - 1.0
+
+    def dcg(order):
+        return (gain.gather(1, order) * disc).sum(1)
+
+    got = dcg(torch.argsort(s, dim=1, stable=True))
+    ideal = dcg(torch.argsort(torch.where(g.mask, -y, inf), dim=1,
+                              stable=True))
+    per = torch.where(ideal > 0, got / torch.where(ideal > 0, ideal, 1.0),
+                      torch.ones_like(got))
+    return per.mean()
+
+
+def ndcg_at(k: int):
+    """``fn(labels, scores, groups, weights=None)`` → mean NDCG@k: a 0-dim
+    float64 tensor on the scores' device for tensors, a float for numpy
+    arrays (computed on the CPU)."""
+    def ndcg(labels, scores, groups, weights=None):
+        if torch.is_tensor(scores):
+            return ndcg_t(labels, scores, groups, weights, k)
+        return float(ndcg_t(torch.as_tensor(np.asarray(labels)),
+                            torch.as_tensor(np.asarray(scores)), groups,
+                            None, k))
+    ndcg.__name__ = f"ndcg_at_{k}"
+    return ndcg
+
+
 #: metric name -> (fn(labels, margin_or_pred, weights) → 0-dim float64
-#: tensor, larger_is_better), on the tensors' device
+#: tensor, larger_is_better), on the tensors' device; ``ndcg`` also takes
+#: the groups: ``fn(labels, scores, groups, weights, k)``
 DEVICE_METRICS: Dict[str, tuple] = {
     "auc": (auc_t, True),
     "binary_logloss": (binary_logloss_t, False),
@@ -127,6 +197,7 @@ DEVICE_METRICS: Dict[str, tuple] = {
     "l1": (l1_t, False),
     "mae": (l1_t, False),
     "mape": (mape_t, False),
+    "ndcg": (ndcg_t, True),
 }
 
 
@@ -145,7 +216,8 @@ def _on_host(fn: Callable) -> Callable:
 #: metric name -> (fn(labels, margin_or_pred, weights) → float,
 #: larger_is_better), over numpy arrays
 METRICS: Dict[str, tuple] = {name: (_on_host(fn), larger)
-                             for name, (fn, larger) in DEVICE_METRICS.items()}
+                             for name, (fn, larger) in DEVICE_METRICS.items()
+                             if name != "ndcg"}
 auc, binary_logloss, binary_error, multi_logloss, multi_error, l2, rmse, \
     l1, mape = (METRICS[k][0] for k in (
         "auc", "binary_logloss", "binary_error", "multi_logloss",

@@ -4,7 +4,8 @@ The PyTorch port of the JAX package's ``models/gbdt/objectives.py``:
 ``binary`` (logistic), the regression objectives (L2, L1, huber, fair,
 poisson, quantile, mape, gamma, tweedie), the multiclass softmax and the
 multiclassova per-class sigmoid, plus the ``boost_from_average`` initial
-score.  Each is elementwise torch on the scores' device.
+score.  Each is elementwise torch on the scores' device.  lambdarank
+needs the query groups: :func:`.ranking.make_lambdarank_objective`.
 """
 
 from __future__ import annotations
@@ -118,9 +119,12 @@ def ova_grad_hess(scores, labels_onehot, weights):
 def get_objective(name: str) -> ObjectiveFn:
     if name in OBJECTIVES:
         return OBJECTIVES[name]
+    if name == "lambdarank":
+        raise ValueError("lambdarank needs the query groups: build it with "
+                         "ranking.make_lambdarank_objective")
     raise NotImplementedError(
-        f"objective {name!r} is not ported yet (ROADMAP queue A, GBDT "
-        f"breadth); ported: {sorted(OBJECTIVES)}")
+        f"objective {name!r} is not one this package trains; known: "
+        f"{sorted(OBJECTIVES) + ['lambdarank']}")
 
 
 def objective_kwargs(objective: str, config) -> Dict[str, float]:
@@ -136,10 +140,15 @@ def objective_kwargs(objective: str, config) -> Dict[str, float]:
 
 
 def initial_score(objective: str, labels, weights) -> float:
-    """``boost_from_average`` init margin (host-side float64)."""
+    """``boost_from_average`` init margin (host-side float64).
+    ``weights=None`` means unit weights, with the same result as a vector
+    of ones (x * 1.0 and a sum of ones are exact) and no such vector."""
     labels = np.asarray(labels, np.float64)
-    weights = np.asarray(weights, np.float64)
-    mean = float((labels * weights).sum() / max(weights.sum(), 1e-12))
+    if weights is None:
+        mean = float(labels.sum() / max(float(len(labels)), 1e-12))
+    else:
+        weights = np.asarray(weights, np.float64)
+        mean = float((labels * weights).sum() / max(weights.sum(), 1e-12))
     if objective == "binary":
         mean = min(max(mean, 1e-6), 1 - 1e-6)
         return float(np.log(mean / (1 - mean)))

@@ -596,3 +596,141 @@ def test_advanced_bounds_on_card_within_mask_budget(dev):
     assert peak <= 5 * M * M * F + 64 * M * M, peak
     for g, c in zip(got, cpu):
         np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), atol=1e-6)
+
+
+# -- breadth III: lambdarank, NDCG, streamed ingestion --------------------------
+
+
+def _rank_fit_data(n=20_000, seed=3):
+    """Groups of 1-239 rows (some past the objective's 128), relevance
+    0-4 from a noisy linear score."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 240, n // 60)
+    c = np.cumsum(sizes)
+    sizes = sizes[:int(np.searchsorted(c, n)) + 1]
+    sizes[-1] -= int(sizes.sum()) - n
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    rel = np.clip(X[:, 0] + 0.5 * X[:, 1] + rng.normal(scale=0.3, size=n),
+                  0, None)
+    return X, np.digitize(rel, [0.5, 1.2, 2.0, 2.8]).astype(np.float64), \
+        sizes
+
+
+def test_lambdarank_gradients_on_card_equal_cpu(dev):
+    """The fit's lambdarank gradients (float64, rounded to f32) are the
+    same bits on the card and on the CPU, over groups past 128 rows."""
+    from synapseml_tpu_torch.models.gbdt.booster import _grad_hess
+    from synapseml_tpu_torch.models.gbdt.ranking import (
+        build_group_index, make_lambdarank_objective)
+    X, y, sizes = _rank_fit_data()
+    q, m = build_group_index(sizes)
+    n = len(y)
+    rng = np.random.default_rng(1)
+    s = torch.as_tensor(np.round(rng.normal(size=n), 2).astype(np.float32))
+    lab = torch.as_tensor(y.astype(np.float32))
+    w = torch.as_tensor(rng.uniform(0.5, 2, n).astype(np.float32))
+    for gain in (None, [0.0, 1.0, 2.5, 6.0, 20.0]):
+        fc = make_lambdarank_objective(q, m, n, label_gain=gain, device=dev)
+        fp = make_lambdarank_objective(q, m, n, label_gain=gain)
+        got = _grad_hess(fc, s.to(dev), lab.to(dev), w.to(dev))
+        want = _grad_hess(fp, s, lab, w)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_ndcg_on_card_equals_cpu(dev):
+    from synapseml_tpu_torch.models.gbdt.metrics import GroupGrid, ndcg_t
+    X, y, sizes = _rank_fit_data()
+    s = torch.as_tensor(np.round(X[:, 0] + X[:, 2], 1))
+    for k in (1, 10, 1000):
+        got = ndcg_t(torch.as_tensor(y).to(dev), s.to(dev),
+                     GroupGrid(sizes, dev), None, k)
+        want = ndcg_t(torch.as_tensor(y), s, GroupGrid(sizes), None, k)
+        assert abs(float(got) - float(want)) <= 1e-12
+
+
+@pytest.mark.parametrize("case", ["plain", "label_gain", "validation"])
+def test_ranker_fit_on_card_equals_cpu(dev, case):
+    """A lambdarank fit (with ``label_gain``; with an NDCG validation set
+    and early stopping) splits the same on the card and on the CPU."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+    X, y, sizes = _rank_fit_data()
+    kw = dict(objective="lambdarank", num_iterations=4, num_leaves=15)
+    tkw = dict(group=sizes)
+    if case == "label_gain":
+        kw["label_gain"] = [0.0, 1.0, 2.5, 6.0, 20.0]
+    if case == "validation":
+        Xv, yv, vs = _rank_fit_data(n=4_000, seed=4)
+        kw.update(num_iterations=30, learning_rate=0.5,
+                  early_stopping_round=2)
+        tkw.update(valid=(Xv, yv, None), valid_group=vs)
+    res = {}
+    for d in ("cuda", "cpu"):
+        launches.reset()
+        res[d] = train(X, y, BoostingConfig(**kw), device=d, **tkw)
+        if d == "cuda":
+            assert launches.total("route_and_hist") > 0
+    (bc, hc), (bp, hp) = res["cuda"], res["cpu"]
+    for tc, tp in zip(bc.trees, bp.trees):
+        n = int(tc.num_nodes)
+        np.testing.assert_array_equal(tc.split_feature[:n],
+                                      tp.split_feature[:n])
+        np.testing.assert_array_equal(tc.split_bin[:n], tp.split_bin[:n])
+    np.testing.assert_allclose(bc.predict_margin(X[:2000], device="cpu"),
+                               bp.predict_margin(X[:2000], device="cpu"),
+                               rtol=0, atol=1e-4)
+    assert bc.best_iteration == bp.best_iteration
+    np.testing.assert_allclose([r.value for r in hc],
+                               [r.value for r in hp], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse_efb"])
+def test_streamed_fit_on_card_equals_cpu(dev, tmp_path, case):
+    """A streamed fit (an SMLC file at an odd chunk size; an SMLS file
+    with EFB) splits the same on the card and on the CPU, and the card's
+    streamed fit equals the card's in-memory fit."""
+    from synapseml_tpu_torch.io import colstore as CS
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+    X, y = _fit_data("onehot" if case == "sparse_efb" else "binary")
+    kw = dict(objective="binary", num_iterations=4, num_leaves=15,
+              enable_bundle=case == "sparse_efb")
+    if case == "dense":
+        p = str(tmp_path / "x.smlc")
+        CS.write_matrix(p, np.concatenate([X, y[:, None]], axis=1))
+
+        def src():
+            return CS.ChunkedColumnSource(p, label_col=X.shape[1],
+                                          chunk_rows=4099)
+    else:
+        p = str(tmp_path / "x.smls")
+        CS.write_csr(p, *CS.dense_to_csr(X), X.shape[1], labels=y)
+
+        def src():
+            return CS.SparseChunkedSource(p, chunk_rows=3001)
+    launches.reset()
+    bc, _ = train(src(), None, BoostingConfig(**kw), device="cuda")
+    assert launches.total("route_and_hist") > 0
+    bp, _ = train(src(), None, BoostingConfig(**kw), device="cpu")
+    bm, _ = train(X, y, BoostingConfig(**kw), device="cuda")
+    for tc, tp, tm in zip(bc.trees, bp.trees, bm.trees):
+        for f in ("split_feature", "split_bin"):
+            np.testing.assert_array_equal(getattr(tc, f), getattr(tp, f))
+            np.testing.assert_array_equal(getattr(tc, f), getattr(tm, f))
+    np.testing.assert_allclose(bc.predict_margin(X[:2000], device="cpu"),
+                               bp.predict_margin(X[:2000], device="cpu"),
+                               rtol=0, atol=1e-4)
+
+
+def test_treeshap_sums_to_the_card_margin(dev):
+    """TreeSHAP on the host (as in the JAX package) against a margin
+    computed on the card."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, \
+        train
+    X, y = _fit_data("binary")
+    b, _ = train(X, y, BoostingConfig(objective="binary", num_iterations=4),
+                 device="cuda")
+    contrib = b.predict_contrib(X[:300])
+    np.testing.assert_allclose(contrib.sum(1), b.predict_margin(X[:300]),
+                               rtol=0, atol=1e-4)

@@ -139,7 +139,8 @@ class _CheckpointManager:
 
 
 @pytest.mark.parametrize("kw,train_kw,item", [
-    (dict(objective="lambdarank"), {}, "A2.9"),
+    (dict(objective="lambdarank"), dict(group=[100, 100], mesh=object()),
+     "A5"),
     (dict(parallelism="voting_parallel"), {}, "A5"),
     ({}, dict(checkpoint_dir=_CheckpointManager(), checkpoint_interval=1),
      "A5"),
