@@ -136,6 +136,31 @@
     of phase 4's model and 200 of the ranker: each row's contributions
     and bias sum to the card's margin within 1e-4; host s per 1,000 rows.
 
+14. The DL text path (``models/dl``, plain PyTorch: no kernel of the
+    port): (a) the tiny ``TextEncoder`` at f32, dropout 0: three adamw
+    steps on the card against the CPU from the same seeded weights,
+    losses, parameters and eval logits within 1e-4 (bf16 reported); (b)
+    the main path, ``Pipeline([DeepTextClassifier(modelSize="base",
+    vocabSize=30522, maxTokenLen=128, batchSize=128, precision="bf16",
+    maxEpochs=2)]).fit`` then ``transform``: 8,192 texts of random words
+    from a 45,000-word list (the tokenizer fills its 30,522 ids), each
+    class planted by 10 marker words, 2,048 held-out texts at accuracy >
+    0.8; (c) bench.py's window, BERT-base at batch 128 x seq 128: 20
+    steps after 3 of warm-up, median of 3 windows, ``bf16`` and
+    ``bf16_grad`` in turns: samples/s, step ms and MFU (6·P·128 over
+    989 TFLOP/s); (d) ``torch.profiler`` over 5 bf16 steps: the device's
+    busy share, device ms by kernel kind and the top kernels.
+15. The DL vision path: (a) ResNet-18 at 16x16, f32, eval and train
+    forwards on the card against the CPU: logits and the new batch
+    statistics within 1e-4; (b) ``DeepVisionClassifier(backbone=
+    "resnet50", batchSize=256)`` at 224x224x3 on 4,096 seeded images
+    with a planted class marker, 2 epochs (32 steps, so the BatchNorm
+    running averages forget their init), then ``transform`` of 512:
+    accuracy reported; (c) a window as in 14(c) at batch 256, bf16: samples/s, the
+    forward flops per image counted from the convolution shapes
+    (2·kh·kw·Cin·Cout·Ho·Wo each, plus the head; x3 for a training step)
+    and MFU; (d) a profile as in 14(d).
+
 Phase 2 also holds K2 and K1 at the shapes of phase 13 (F=136 at ~1.2M
 rows, F=28 at 11M rows: wave, root and refined build), and
 phase 11 adds lambdarank (groups of 1-239 rows, some past 128; with
@@ -153,6 +178,7 @@ a card it exits 1 before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -1354,6 +1380,407 @@ def breadth3(seed: int, iters: int, check_path, models, n_queries=RANK_Q,
         f"{json.dumps(out)}")
 
 
+# --------------------------------------------------------------------------
+# phases 14 and 15: the DL estimators (plain PyTorch; no kernel of the port)
+
+class ieee_f32:
+    """Within: float32 matmuls and cuDNN convolutions in IEEE f32 (PyTorch
+    lets cuDNN convolutions take TF32 products by default), so an f32
+    card-against-CPU check compares f32 with f32."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def synchronize(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
+               for k in a)
+
+
+def dl_text_card_vs_cpu(dev, seed: int, dtype=torch.float32,
+                        steps: int = 3) -> dict:
+    """The tiny ``TextEncoder`` (dropout 0): ``steps`` adamw steps (clip
+    1.0, warmup-cosine) on ``dev`` and on the CPU from the same seeded
+    weights and batches → the largest difference of the losses, the
+    parameters and the eval logits after the steps."""
+    from synapseml_tpu_torch.models.dl import (DLTrainer, OptimizerConfig,
+                                               TextEncoder,
+                                               TransformerConfig)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(steps):
+        ids = rng.integers(0, 1024, (16, 32)).astype(np.int32)
+        mask = np.ones((16, 32), bool)
+        mask[::4, 20:] = False
+        batches.append((ids, mask, rng.integers(0, 2, 16).astype(np.int32)))
+    cfg = TransformerConfig.tiny(dtype=dtype, dropout_rate=0.0)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        model = TextEncoder(cfg, device=d, seed=None)
+        tr = DLTrainer(model, OptimizerConfig(
+            learning_rate=1e-3, schedule="cosine", warmup_steps=1,
+            total_steps=steps, grad_clip_norm=1.0), d)
+        state = tr.init_state(seed)
+        step = tr.train_step()
+        losses = []
+        for ids, mask, lab in batches:
+            bi, bm, bl = tr.shard_batch((ids, mask, lab))
+            state, m = step(state, (bi, bm), bl, seed)
+            losses.append(m["loss"])
+        logits = tr.eval_step()(state, tr.shard_batch(batches[0][:2]))
+        runs[d.type] = (torch.stack(losses), logits, model.state_dict())
+    (lc, gc, pc), (lh, gh, ph) = runs[dev.type], runs["cpu"]
+    return dict(loss=float((lc.cpu() - lh).abs().max()),
+                logits=float((gc.float().cpu() - gh.float()).abs().max()),
+                params=_max_diff(pc, ph))
+
+
+def make_words(rng, n: int):
+    """``n`` distinct lowercase words of 3-10 letters."""
+    words = set()
+    while len(words) < n:
+        lens = rng.integers(3, 11, n)
+        letters = rng.integers(0, 26, (n, 10))
+        for w, k in zip(letters, lens):
+            words.add("".join(chr(97 + c) for c in w[:k]))
+    return sorted(words)[:n]
+
+
+def text_corpus(rng, words, n: int, n_markers: int = 10,
+                length=(100, 140)):
+    """``n`` texts of random words from ``words[20:]``, each with
+    ``n_markers`` of its class's 10 marker words (``words[:10]`` for class
+    0, ``words[10:20]`` for class 1) at random places in the first 120
+    words → (texts, labels)."""
+    labels = rng.integers(0, 2, n)
+    body = words[20:]
+    texts = []
+    for y in labels:
+        k = int(rng.integers(*length))
+        toks = [body[i] for i in rng.integers(0, len(body), k)]
+        for pos, m in zip(rng.choice(min(k, 120), n_markers, replace=False),
+                          rng.integers(0, 10, n_markers)):
+            toks[pos] = words[10 * y + m]
+        texts.append(" ".join(toks))
+    return texts, labels.astype(np.float64)
+
+
+def train_windows(steps: dict, batch_size: int, n_steps: int = 20,
+                  windows: int = 3, warmup: int = 3) -> dict:
+    """Samples/s of each train step of ``steps`` ({name: fn()}, each one
+    update that returns its loss on the device): ``warmup`` steps each,
+    then ``windows`` rounds in which every step runs a window of
+    ``n_steps`` in turns; a window ends in a read of its last loss (a host
+    barrier).  → {name: {"sps": median, "windows": [...]}}."""
+    for fn in steps.values():
+        for _ in range(warmup):
+            loss = fn()
+        float(loss)
+    rates = {k: [] for k in steps}
+    for _ in range(windows):
+        for name, fn in steps.items():
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                loss = fn()
+            float(loss)
+            rates[name].append(n_steps * batch_size
+                               / (time.perf_counter() - t0))
+    return {k: {"sps": sorted(v)[len(v) // 2], "windows": v}
+            for k, v in rates.items()}
+
+
+#: kernel-name fragments → the category a DL profile sums them under
+#: (first match wins)
+KERNEL_KINDS = (("conv", ("cudnn", "conv", "implicit_gemm")),
+                ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+                ("batch_norm", ("batch_norm",)),
+                ("softmax", ("softmax",)),
+                ("dropout_rng", ("distribution", "philox", "uniform")),
+                ("optimizer", ("multi_tensor_apply",)),
+                ("reduce", ("reduce_kernel",)),
+                ("elementwise", ("elementwise",)))
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, frags in KERNEL_KINDS:
+        if any(f in low for f in frags):
+            return kind
+    return "other"
+
+
+def profile_steps(fn, n: int = 5) -> dict:
+    """Device time by kernel over ``n`` train steps (after the caller's
+    warm-up), from ``torch.profiler``: busy share of the wall, the device
+    ms a step by kernel kind and the top kernels.  The optimizer's
+    annotation range is not a kernel and is left out."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            loss = fn()
+        float(loss)
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in kern) / 1e6
+    kinds: dict = {}
+    for e in kern:
+        k = kernel_kind(e.key)
+        kinds[k] = kinds.get(k, 0.0) + e.self_device_time_total / 1e3 / n
+    return dict(step_ms=wall / n * 1e3, kernel_ms_per_step=total / n * 1e3,
+                busy_share=total / wall,
+                host_ms_per_step=sum(
+                    e.self_cpu_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CPU)
+                / 1e3 / n,
+                launches_per_step=sum(e.count for e in kern) / n,
+                ms_by_kind=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+                top=[[e.key[:90], e.self_device_time_total / 1e3 / n,
+                      e.count // n] for e in kern[:12]])
+
+
+def _step_fn(trainer, state, inputs, labels, seed: int):
+    step = trainer.train_step()
+    box = [state]
+
+    def run():
+        box[0], m = step(box[0], inputs, labels, seed)
+        return m["loss"]
+    return run
+
+
+def dl_text(seed: int, dev, n_train: int = 8192, n_hold: int = 2048,
+            n_words: int = 45_000, model_size: str = "base",
+            vocab: int = 30522, batch: int = 128, seq: int = 128,
+            epochs: int = 2, n_steps: int = 20, windows: int = 3) -> dict:
+    """Phase 14.  Raises on a failed check."""
+    from synapseml_tpu_torch.core import Dataset, Pipeline
+    from synapseml_tpu_torch.models.dl import (DeepTextClassifier, DLTrainer,
+                                               OptimizerConfig, TextEncoder,
+                                               resolve_precision)
+    out = {}
+    # 14a. the tiny encoder at f32, three steps on the card against the CPU
+    with ieee_f32():
+        d = dl_text_card_vs_cpu(dev, seed)
+    if max(d.values()) > 1e-4:
+        raise AssertionError(f"text card vs CPU at f32: {d}")
+    out["card_vs_cpu_f32"] = d
+    out["card_vs_cpu_bf16"] = dl_text_card_vs_cpu(dev, seed, torch.bfloat16)
+    log(f"phase 14a: text card vs CPU, f32 {d} (limit 1e-4); bf16 "
+        f"{out['card_vs_cpu_bf16']} (reported)")
+
+    # 14b. the main path: fit then transform through a Pipeline
+    rng = np.random.default_rng(seed + 14)
+    words = make_words(rng, n_words)
+    texts, labels = text_corpus(rng, words, n_train + n_hold)
+    train = Dataset({"text": texts[:n_train], "label": labels[:n_train]})
+    hold = Dataset({"text": texts[n_train:], "label": labels[n_train:]})
+    est = DeepTextClassifier(modelSize=model_size, vocabSize=vocab,
+                             maxTokenLen=seq, batchSize=batch,
+                             precision="bf16", maxEpochs=epochs, seed=seed,
+                             device=str(dev))
+    t0 = time.perf_counter()
+    pm = Pipeline([est]).fit(train)
+    synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = pm.transform(hold)
+    transform_s = time.perf_counter() - t0
+    acc = float((res["prediction"] == hold["label"]).mean())
+    model = pm.get_or_default("stages")[0]
+    proba = np.stack(list(res["probability"]))
+    if not (np.isfinite(proba).all() and proba.shape == (n_hold, 2)):
+        raise AssertionError("text transform: non-finite or misshapen "
+                             "probabilities")
+    out["main_path"] = dict(
+        fit_s=fit_s, transform_s=transform_s, holdout_accuracy=acc,
+        steps=-(-n_train // batch) * epochs,
+        history=model.modelPayload["history"],
+        vocab_words=len(words))
+    log(f"phase 14b: text main path {json.dumps(out['main_path'])}")
+    if acc <= 0.8:
+        raise AssertionError(f"text holdout accuracy {acc}")
+
+    # 14c. timed windows, bf16 and bf16_grad in turns; 14d. a profile
+    wrng = np.random.default_rng(seed)
+    ids = wrng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    mask = np.ones((batch, seq), bool)
+    lab = wrng.integers(0, 2, batch).astype(np.int32)
+    steps, n_params = {}, 0
+    for prec in ("bf16", "bf16_grad"):
+        pol = resolve_precision(prec)
+        # bench.py's model: the estimator's config at this size (for
+        # "base", TransformerConfig.bert_base(max_len=seq))
+        cfg = dataclasses.replace(est._model_config(2),
+                                  dtype=pol.compute_dtype)
+        tr = DLTrainer(TextEncoder(cfg, device=dev, seed=None),
+                       OptimizerConfig(learning_rate=2e-5), dev,
+                       precision=pol)
+        state = tr.init_state(seed)
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        bi, bm, bl = tr.shard_batch((ids, mask, lab))
+        steps[prec] = _step_fn(tr, state, (bi, bm), bl, seed)
+    win = train_windows(steps, batch, n_steps, windows)
+    flops = 6.0 * n_params * seq
+    for prec, r in win.items():
+        r.update(step_ms=batch / r["sps"] * 1e3,
+                 mfu=r["sps"] * flops / PEAK_BF16_S)
+    out["windows"] = dict(n_params=n_params, flops_per_sample=flops,
+                          **win)
+    log(f"phase 14c: {model_size} fine-tune, batch {batch}, seq {seq}: "
+        f"{json.dumps(out['windows'])}")
+    out["profile"] = prof = profile_steps(steps["bf16"])
+    # the profiler slows the host; the device's share of an unprofiled
+    # step is its kernel time over the window's step time
+    prof["busy_share_of_window_step"] = (prof["kernel_ms_per_step"]
+                                         / win["bf16"]["step_ms"])
+    log(f"phase 14d: profile bf16 {json.dumps(prof)}")
+    return out
+
+
+def conv_flops(model, size: int) -> float:
+    """Forward flops of one ``size``² image counted from the shapes:
+    2·kh·kw·Cin·Cout·Ho·Wo per convolution and 2·in·out for the head
+    (BatchNorm, ReLU, pooling and adds are not counted)."""
+    from synapseml_tpu_torch.models.dl.resnet import Conv
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        kh, kw, cin, cout = mod.kernel.shape
+        total[0] += 2.0 * kh * kw * cin * cout * out.shape[2] * out.shape[3]
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, Conv)]
+    with torch.no_grad():
+        model(torch.zeros((1, size, size, 3), device=model.device))
+    for h in hooks:
+        h.remove()
+    k = model.head.kernel.shape
+    return total[0] + 2.0 * k[0] * k[1]
+
+
+def vision_images(rng, n: int, size: int):
+    """``n`` images of uniform noise in [0, 0.5); class 1 brightens the
+    top-left quarter by 0.5, class 0 the bottom-right (values stay below 2,
+    so the estimator does not rescale by 255) → (images, labels)."""
+    labels = rng.integers(0, 2, n)
+    imgs = rng.random((n, size, size, 3), dtype=np.float32) * 0.5
+    q = size // 4
+    imgs[labels == 1, :q, :q] += 0.5
+    imgs[labels == 0, -q:, -q:] += 0.5
+    return imgs, labels.astype(np.float64)
+
+
+def dl_vision(seed: int, dev, n_train: int = 4096, n_hold: int = 512,
+              backbone: str = "resnet50", size: int = 224, batch: int = 256,
+              epochs: int = 2, n_steps: int = 20, windows: int = 3,
+              small: int = 16) -> dict:
+    """Phase 15.  Raises on a failed check."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models.dl import (DeepVisionClassifier,
+                                               DLTrainer, OptimizerConfig,
+                                               make_backbone)
+    out = {}
+    # 15a. ResNet-18 at f32, the card against the CPU
+    x = np.random.default_rng(seed).normal(
+        size=(8, small, small, 3)).astype(np.float32)
+    diffs = {}
+    for train in (False, True):
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            net = make_backbone("resnet18", 3, dtype=torch.float32,
+                                device=d, seed=seed)
+            with torch.no_grad(), ieee_f32():
+                logits = net(torch.from_numpy(x).to(d), train=train)
+            net.commit_batch_stats()
+            res[d.type] = (logits, dict(net.named_buffers()))
+        (gc, sc), (gh, sh) = res[dev.type], res["cpu"]
+        diffs["train" if train else "eval"] = dict(
+            logits=float((gc.cpu() - gh).abs().max()),
+            batch_stats=_max_diff(sc, sh))
+    if max(v for r in diffs.values() for v in r.values()) > 1e-4:
+        raise AssertionError(f"ResNet-18 card vs CPU at f32: {diffs}")
+    out["card_vs_cpu_f32"] = diffs
+    log(f"phase 15a: ResNet-18 {small}x{small} card vs CPU at f32 {diffs} "
+        "(limit 1e-4)")
+
+    # 15b. the main path: fit then transform
+    rng = np.random.default_rng(seed + 15)
+    imgs, labels = vision_images(rng, n_train + n_hold, size)
+    train = Dataset({"image": list(imgs[:n_train]),
+                     "label": labels[:n_train]})
+    hold = Dataset({"image": list(imgs[n_train:]), "label": labels[n_train:]})
+    del imgs
+    est = DeepVisionClassifier(backbone=backbone, batchSize=batch,
+                               maxEpochs=epochs, learningRate=1e-3,
+                               precision="bf16", seed=seed, device=str(dev))
+    t0 = time.perf_counter()
+    model = est.fit(train)
+    synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = model.transform(hold)
+    transform_s = time.perf_counter() - t0
+    proba = np.stack(list(res["probability"]))
+    if not (np.isfinite(proba).all() and proba.shape == (n_hold, 2)):
+        raise AssertionError("vision transform: non-finite or misshapen "
+                             "probabilities")
+    out["main_path"] = dict(
+        fit_s=fit_s, transform_s=transform_s,
+        holdout_accuracy=float((res["prediction"] == hold["label"]).mean()),
+        steps=-(-n_train // batch) * epochs,
+        history=model.modelPayload["history"])
+    log(f"phase 15b: {backbone} {size}x{size} main path "
+        f"{json.dumps(out['main_path'])}")
+    del train, hold, res
+
+    # 15c. a timed window and a profile at bf16
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    net = make_backbone(backbone, 2, device=dev, seed=None)
+    tr = DLTrainer(net, OptimizerConfig(learning_rate=1e-4), dev,
+                   has_batch_stats=True, train_kwarg="train")
+    state = tr.init_state(seed)
+    wrng = np.random.default_rng(seed)
+    bi, bl = tr.shard_batch(vision_images(wrng, batch, size))
+    bl = bl.long()
+    fn = _step_fn(tr, state, (bi,), bl, seed)
+    win = train_windows({"bf16": fn}, batch, n_steps, windows)["bf16"]
+    fwd = conv_flops(net, size)
+    win.update(step_ms=batch / win["sps"] * 1e3, fwd_flops_per_sample=fwd,
+               train_flops_per_sample=3 * fwd,
+               mfu=win["sps"] * 3 * fwd / PEAK_BF16_S)
+    if dev.type == "cuda":
+        win["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["windows"] = win
+    log(f"phase 15c: {backbone} {size}x{size} fine-tune, batch {batch}: "
+        f"{json.dumps(win)}")
+    out["profile"] = prof = profile_steps(fn)
+    prof["busy_share_of_window_step"] = (prof["kernel_ms_per_step"]
+                                         / win["step_ms"])
+    log(f"phase 15d: profile bf16 {json.dumps(prof)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1786,6 +2213,14 @@ def main(argv=None) -> int:
     # -- 13. GBDT breadth III: ranker, streamed ingestion, text, TreeSHAP ----
     breadth3(args.seed, args.iters, check_path, models)
     del models
+
+    # -- 14. the DL text path: a BERT-base fine-tune ------------------------
+    torch.cuda.empty_cache()
+    dl_text(args.seed, dev)
+
+    # -- 15. the DL vision path: ResNet-50 ----------------------------------
+    torch.cuda.empty_cache()
+    dl_vision(args.seed, dev)
 
     # -- results -----------------------------------------------------------
     # each shape's launches in the runs that launch it
