@@ -160,6 +160,36 @@
     forward flops per image counted from the convolution shapes
     (2·kh·kw·Cin·Cout·Ho·Wo each, plus the head; x3 for a training step)
     and MFU; (d) a profile as in 14(d).
+16. The online learners (``models/online``, plain PyTorch with CUDA
+    graphs: no kernel of the port): (a) at f32, 4,096 rows, each learner
+    fit on the card and on the CPU: ``OnlineSGDClassifier`` (logistic,
+    hinge), ``OnlineSGDRegressor`` (squared, quantile, poisson),
+    ``OnlineGeneric`` on VW lines, ``OnlineGenericProgressive`` (its
+    card seconds reported) and ``ContextualBandit``: states and outputs
+    within 1e-4 of their scale, and ``train_sgd``'s graph pass
+    bit-identical to its eager pass; (b) the main path at Criteo
+    display-ads' column shape (13 log1p counts, 26 categorical columns
+    over the published cardinalities with a Zipf tail; clicks from a
+    hidden logistic model over the hashed features at Criteo's 25.6%
+    rate): ``HashingFeaturizer(numBits=12)`` then
+    ``Pipeline([OnlineSGDClassifier(numPasses=1, batchSize=32)]).fit``
+    on 262,144 rows and ``transform`` of 65,536, holdout AUC > 0.75;
+    then one upload of the 4.3 GB blocked matrix and passes eager and
+    with graphs in turns (median of 3): rows/s, states bit-identical to
+    each other and to the estimator's fit; ``torch.profiler`` over a
+    graph pass and 512 eager steps: busy share and kernels a step.
+17. The MoE text encoder: (a) the tiny encoder with 4 experts card
+    against CPU at f32 (limit 1e-4), and the MoE FFN's gather form
+    against the reference's dense form on the card (limit 1e-5); (b)
+    ``DeepTextClassifier(modelSize="base", numExperts=8, moeTopK=2)``
+    (8 experts on every other FFN, capacity factor 1.25): 14(c)'s
+    window in bf16 with samples/s, step ms, peak memory, the share of
+    choices dropped by the capacity and MFU over the FLOPs executed
+    (the E·C padded slots counted), then a 64-step fit → transform on
+    14(b)'s corpus, holdout accuracy > 0.8; (c) a profile as in 14(d).
+
+Every phase's wall is printed on its own line, and their sum at the
+end.
 
 Phase 2 also holds K2 and K1 at the shapes of phase 13 (F=136 at ~1.2M
 rows, F=28 at 11M rows: wave, root and refined build), and
@@ -1410,11 +1440,12 @@ def _max_diff(a: dict, b: dict) -> float:
 
 
 def dl_text_card_vs_cpu(dev, seed: int, dtype=torch.float32,
-                        steps: int = 3) -> dict:
-    """The tiny ``TextEncoder`` (dropout 0): ``steps`` adamw steps (clip
-    1.0, warmup-cosine) on ``dev`` and on the CPU from the same seeded
-    weights and batches → the largest difference of the losses, the
-    parameters and the eval logits after the steps."""
+                        steps: int = 3, num_experts: int = 0) -> dict:
+    """The tiny ``TextEncoder`` (dropout 0; with ``num_experts``, MoE FFNs
+    on every other block): ``steps`` adamw steps (clip 1.0,
+    warmup-cosine) on ``dev`` and on the CPU from the same seeded weights
+    and batches → the largest difference of the losses, the parameters
+    and the eval logits after the steps."""
     from synapseml_tpu_torch.models.dl import (DLTrainer, OptimizerConfig,
                                                TextEncoder,
                                                TransformerConfig)
@@ -1425,7 +1456,8 @@ def dl_text_card_vs_cpu(dev, seed: int, dtype=torch.float32,
         mask = np.ones((16, 32), bool)
         mask[::4, 20:] = False
         batches.append((ids, mask, rng.integers(0, 2, 16).astype(np.int32)))
-    cfg = TransformerConfig.tiny(dtype=dtype, dropout_rate=0.0)
+    cfg = TransformerConfig.tiny(dtype=dtype, dropout_rate=0.0,
+                                 num_experts=num_experts)
     runs = {}
     for d in (dev, torch.device("cpu")):
         model = TextEncoder(cfg, device=d, seed=None)
@@ -1781,6 +1813,448 @@ def dl_vision(seed: int, dev, n_train: int = 4096, n_hold: int = 512,
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the online learners (plain PyTorch and CUDA graphs; no kernel)
+
+#: Criteo display-ads (the Kaggle release): distinct values of each of its
+#: 26 categorical columns, C1-C26
+CRITEO_CARDINALITY = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                      93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10,
+                      5652, 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+#: the share of clicks in Criteo's training days
+CRITEO_CTR = 0.256
+
+
+def criteo_columns(rng, n: int) -> dict:
+    """``n`` rows in Criteo display-ads' column shape: 13 integer counts
+    I1-I13 (heavy-tailed, 0 where missing, log1p as usually fed to a
+    linear learner) and 26 categorical columns C1-C26 of 8-hex-digit ids,
+    drawn with a Zipf tail over each column's published cardinality."""
+    cols = {}
+    for j in range(13):
+        mean = float(np.exp(rng.uniform(0, 6)))
+        v = rng.negative_binomial(1, 1.0 / (1.0 + mean), n)
+        v[rng.random(n) < rng.uniform(0.0, 0.4)] = 0
+        cols[f"I{j + 1}"] = np.log1p(v).astype(np.float32)
+    for j, card in enumerate(CRITEO_CARDINALITY):
+        rank = np.minimum(rng.zipf(1.1 + 0.4 * rng.random(), n), card) - 1
+        uniq, inv = np.unique(rank, return_inverse=True)
+        ids = (uniq.astype(np.uint64) * np.uint64(2654435761)
+               + np.uint64(j * 97)) % np.uint64(2 ** 32)
+        vocab = np.asarray([f"{int(x):08x}" for x in ids], object)
+        cols[f"C{j + 1}"] = vocab[inv]
+    return cols
+
+
+def hidden_clicks(rng, parts):
+    """Clicks from a hidden logistic model over the hashed features of
+    each matrix of ``parts``: one weight per hashed index, the margin
+    scaled to a standard deviation of 2 over all rows and shifted to
+    Criteo's click rate → one label array per part."""
+    w = rng.normal(size=parts[0].shape[1]).astype(np.float32)
+    ms = [X @ w for X in parts]
+    m = np.concatenate(ms)
+    mu, sd = float(m.mean()), max(float(m.std()), 1e-6)
+    shift = np.log(CRITEO_CTR / (1 - CRITEO_CTR))
+    out = []
+    for mp in ms:
+        p = 1.0 / (1.0 + np.exp(-((mp - mu) / sd * 2.0 + shift)))
+        out.append((rng.random(len(p)) < p).astype(np.float64))
+    return out
+
+
+def _state_diff(a, b) -> float:
+    """The largest difference of two SGD states, each field over its own
+    scale (max(1, max |x|))."""
+    from synapseml_tpu_torch.models.online import state_to_numpy
+    na, nb = state_to_numpy(a), state_to_numpy(b)
+    return max(float(np.max(np.abs(na[f] - nb[f])))
+               / max(1.0, float(np.max(np.abs(nb[f])))) for f in na)
+
+
+def _states_equal(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def online_card_vs_cpu(dev, seed: int, n: int = 4096, d: int = 256) -> dict:
+    """Phase 16a: every online learner fit on the card and on the CPU from
+    the same seeded data → the largest state (and output) difference of
+    each, each over its scale; and ``train_sgd`` on the card with and
+    without its CUDA graphs (bit-identical states)."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models import online as O
+    rng = np.random.default_rng(seed + 16)
+    X = (rng.normal(size=(n, d))
+         * rng.uniform(0.1, 3.0, size=d)).astype(np.float32)
+    m = X @ rng.normal(size=d) / np.sqrt(d) * 3
+    m = m / m.std()
+    wcol = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    labels = {
+        "logistic": (m + 0.3 * rng.normal(size=n) > 0).astype(np.float64),
+        "squared": m + 0.1 * rng.normal(size=n),
+        "poisson": rng.poisson(np.exp(0.3 * m)).astype(np.float64)}
+    labels["hinge"] = labels["logistic"]
+    labels["quantile"] = labels["squared"]
+    out = {}
+
+    def both(make, ds, out_col):
+        models = {k: make(k).fit(ds) for k in (str(dev), "cpu")}
+        res = {k: np.stack(list(mdl.transform(ds)[out_col])).astype(
+            np.float64) for k, mdl in models.items()}
+        st = {k: (mdl.state if mdl.state is not None else mdl.get("state"))
+              for k, mdl in models.items()}
+        scale = max(1.0, float(np.abs(res["cpu"]).max()))
+        return dict(state=_state_diff(st[str(dev)], st["cpu"]),
+                    output=float(np.abs(res[str(dev)] - res["cpu"]).max())
+                    / scale)
+
+    for loss in ("logistic", "hinge"):
+        ds = Dataset({"features": list(X), "label": labels[loss], "w": wcol})
+        out[f"classifier {loss}"] = both(
+            lambda k: O.OnlineSGDClassifier(lossFunction=loss, numPasses=2,
+                                            weightCol="w", device=k),
+            ds, "rawPrediction")
+    for loss in ("squared", "quantile", "poisson"):
+        ds = Dataset({"features": list(X), "label": labels[loss], "w": wcol})
+        # poisson's exp(margin) overflows at the default rate here
+        lr = 0.02 if loss == "poisson" else 0.5
+        out[f"regressor {loss}"] = both(
+            lambda k: O.OnlineSGDRegressor(lossFunction=loss, numPasses=2,
+                                           quantileTau=0.3, weightCol="w",
+                                           learningRate=lr, device=k),
+            ds, "prediction")
+    lines = np.asarray([
+        f"{1 if c else -1} {rng.uniform(0.5, 2):.3f} |w "
+        + " ".join(f"t{v}" for v in rng.integers(0, 400, 6))
+        + (" pos" if c else " neg") + f" |n x:{rng.normal():.4f}"
+        for c in rng.integers(0, 2, n)], object)
+    vw = Dataset({"value": lines})
+    out["generic logistic"] = both(
+        lambda k: O.OnlineGeneric(lossFunction="logistic", numPasses=2,
+                                  numBits=10, device=k), vw, "prediction")
+    t0 = time.perf_counter()
+    prog = O.OnlineGenericProgressive(lossFunction="logistic", numBits=10,
+                                      device=str(dev)).transform(
+        Dataset({"value": lines[:1024]}))["prediction"]
+    prog_s = time.perf_counter() - t0
+    prog_cpu = O.OnlineGenericProgressive(
+        lossFunction="logistic", numBits=10, device="cpu").transform(
+        Dataset({"value": lines[:1024]}))["prediction"]
+    out["progressive logistic"] = dict(
+        output=float(np.abs(prog - prog_cpu).max()),
+        card_s=prog_s, card_ms_per_batch=prog_s / (1024 / 32) * 1e3)
+    acts = np.eye(4, dtype=np.float32)
+    shared = rng.normal(size=(n // 4, 3)).astype(np.float32)
+    chosen = rng.integers(0, 4, n // 4)
+    cost = np.where(chosen == (shared[:, 0] > 0).astype(int), -1.0, 0.5)
+    bandit = Dataset({"shared": list(shared),
+                      "features": [list(acts)] * (n // 4),
+                      "chosenAction": chosen + 1,
+                      "label": cost.astype(np.float32),
+                      "probability": np.full(n // 4, 0.25, np.float32)})
+    out["contextual bandit"] = both(
+        lambda k: O.ContextualBandit(numPasses=2, device=k), bandit,
+        "prediction")
+    # train_sgd with its CUDA graphs (n / 32 = 128 steps: two replays of
+    # 64) against the same steps eagerly
+    y = np.where(labels["logistic"] > 0, 1.0, -1.0).astype(np.float32)
+    cfg = O.SGDConfig(loss="logistic", num_passes=2)
+    g, _ = O.train_sgd(X, y, cfg, sample_weight=wcol, device=dev, graph=True)
+    e, _ = O.train_sgd(X, y, cfg, sample_weight=wcol, device=dev,
+                       graph=False)
+    out["graph_equals_eager"] = _states_equal(g, e)
+    return out
+
+
+def online(seed: int, dev, n_train: int = 262_144, n_hold: int = 65_536,
+           num_bits: int = 12, batch: int = 32, turns: int = 3,
+           auc_floor: float = 0.75) -> dict:
+    """Phase 16.  Raises on a failed check."""
+    from synapseml_tpu_torch.core import Dataset, Pipeline
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    from synapseml_tpu_torch.models.online import (HashingFeaturizer,
+                                                   OnlineSGDClassifier,
+                                                   SGDConfig)
+    from synapseml_tpu_torch.models.online import sgd as SGD
+    out = {}
+    # 16a. every learner, the card against the CPU at f32
+    t0 = time.perf_counter()
+    with ieee_f32():
+        a = online_card_vs_cpu(dev, seed)
+    a["wall_s"] = time.perf_counter() - t0
+    worst = max(max(v for k, v in r.items() if k in ("state", "output"))
+                for r in a.values() if isinstance(r, dict))
+    out["card_vs_cpu"] = a
+    log(f"phase 16a: online learners card vs CPU, f32: {json.dumps(a)}; "
+        f"largest difference {worst:.3g} (limit 1e-4)")
+    if worst > 1e-4 or not a["graph_equals_eager"]:
+        raise AssertionError(f"online card vs CPU: {a}")
+
+    # 16b. the main path at Criteo's column shape
+    rng = np.random.default_rng(seed + 161)
+    t0 = time.perf_counter()
+    cols = criteo_columns(rng, n_train + n_hold)
+    columns_s = time.perf_counter() - t0
+    names = [f"I{j}" for j in range(1, 14)] + [f"C{j}" for j in range(1, 27)]
+    hasher = HashingFeaturizer(inputCols=names, numBits=num_bits)
+    t0 = time.perf_counter()
+    tr = hasher.transform(Dataset({k: v[:n_train] for k, v in cols.items()}))
+    ho = hasher.transform(Dataset({k: v[n_train:] for k, v in cols.items()}))
+    featurize_s = time.perf_counter() - t0
+    del cols
+    t0 = time.perf_counter()
+    Xtr = tr.to_numpy(["features"], np.float32)
+    Xho = ho.to_numpy(["features"], np.float32)
+    to_numpy_s = time.perf_counter() - t0
+    ytr, yho = hidden_clicks(rng, [Xtr, Xho])
+    tr = tr.with_column("label", ytr)
+    ho = ho.with_column("label", yho)
+    est = OnlineSGDClassifier(numPasses=1, batchSize=batch, device=str(dev))
+    t0 = time.perf_counter()
+    pm = Pipeline([est]).fit(tr)
+    synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = pm.transform(ho)
+    transform_s = time.perf_counter() - t0
+    margin = np.asarray(res["rawPrediction"], np.float64)
+    if not (np.isfinite(margin).all() and margin.shape == (n_hold,)):
+        raise AssertionError("online transform: non-finite or misshapen "
+                             "margins")
+    hold_auc = float(auc(yho, margin))
+    model = pm.get_or_default("stages")[0]
+    out["main_path"] = dict(
+        rows=n_train, holdout_rows=n_hold, dim=1 << num_bits,
+        columns_s=columns_s, featurize_s=featurize_s, to_numpy_s=to_numpy_s,
+        fit_s=fit_s, transform_s=transform_s,
+        holdout_auc=hold_auc, auc_floor=auc_floor,
+        click_rate=float(ytr.mean()),
+        average_loss=model.training_stats["average_loss"],
+        blocked_matrix_bytes=int(Xtr.nbytes))
+    log(f"phase 16b: online main path {json.dumps(out['main_path'])}")
+    if hold_auc <= auc_floor:
+        raise AssertionError(f"online holdout AUC {hold_auc}")
+
+    # eager against graph in turns on one upload: eager, graph, graph,
+    # eager, eager, graph ...; every pass from the same initial state
+    cfg = SGDConfig(loss="logistic", batch_size=batch)
+    y_pm = np.where(ytr > 0, 1.0, -1.0).astype(np.float32)
+    init = SGD.init_state(Xtr.shape[1], dev)
+    t0 = time.perf_counter()
+    run = SGD.BlockPass(cfg, init, SGD._pad_blocks(
+        Xtr, y_pm, np.ones(n_train, np.float32), batch), dev)
+    synchronize(dev)
+    upload_s = time.perf_counter() - t0
+    times = {"eager": [], "graph": []}
+    finals = {}
+    order = [m for i in range(turns) for m in
+             (("eager", "graph") if i % 2 == 0 else ("graph", "eager"))]
+    for mode in order:
+        run.reset(init)
+        t0 = time.perf_counter()
+        run.run_pass(graph=mode == "graph")
+        float(run.loss_sum)
+        times[mode].append(time.perf_counter() - t0)
+        finals.setdefault(mode, [t.clone() for t in run.state])
+    same = all(torch.equal(a_, b_) for a_, b_ in zip(finals["eager"],
+                                                     finals["graph"]))
+    ref = [t.cpu() for t in model.state]
+    same_as_fit = all(torch.equal(a_.cpu(), b_)
+                      for a_, b_ in zip(finals["graph"], ref))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    out["passes"] = dict(
+        upload_s=upload_s, train_s=times, median_s=med,
+        rows_per_s={k: n_train / v for k, v in med.items()},
+        graph_speedup=med["eager"] / med["graph"],
+        graph_equals_eager=same, equals_estimator_fit=same_as_fit,
+        steps=run.n_blocks, graph_chunk=SGD.GRAPH_CHUNK)
+    log(f"phase 16b: passes {json.dumps(out['passes'])}")
+    if not (same and same_as_fit):
+        raise AssertionError("online: the graph pass, the eager pass and "
+                             "the estimator's fit differ")
+    # device busy share and kernels a step: the first 512 steps with
+    # graphs and eagerly, each under the profiler (a whole pass would
+    # leave ~475,000 kernel events to sum up)
+    from torch.profiler import ProfilerActivity, profile
+    prof_out = {}
+    del run
+    short = SGD.BlockPass(cfg, init, SGD._pad_blocks(
+        Xtr[:512 * batch], y_pm[:512 * batch],
+        np.ones(512 * batch, np.float32), batch), dev)
+    for mode in ("graph", "eager"):
+        rp = short
+        rp.reset(init)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rp.run_pass(graph=mode == "graph")
+            float(rp.loss_sum)
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in kern) / 1e6
+        launches = sum(e.count for e in kern)
+        prof_out[mode] = dict(
+            steps=rp.n_blocks, wall_s=wall, kernel_s=total,
+            busy_share=total / wall,
+            # the profiler slows the host: the device's share of an
+            # unprofiled pass is its kernel time over that pass's time
+            busy_share_unprofiled=total / rp.n_blocks
+            / (med[mode] / n_train * batch),
+            kernels_per_step=launches / rp.n_blocks,
+            device_us_per_step=total / rp.n_blocks * 1e6,
+            top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                 for e in sorted(kern, key=lambda e:
+                                 -e.self_device_time_total)[:6]])
+    out["profile"] = prof_out
+    log(f"phase 16b: profile {json.dumps(prof_out)}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the MoE text encoder (plain PyTorch; no kernel)
+
+def moe_gather_vs_dense(dev, seed: int) -> dict:
+    """The MoE FFN's gather form against the reference's dense einsum form
+    on ``dev`` at f32: the largest output and gradient differences."""
+    from synapseml_tpu_torch.models.dl.moe import MoEFFN
+    ffn = MoEFFN(8, 64, 128, top_k=2, capacity_factor=1.0,
+                 dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        ffn.reset_parameters(torch.Generator().manual_seed(seed))
+    x = torch.randn(4, 32, 64, generator=torch.Generator().manual_seed(
+        seed + 1)).to(dev)
+    outs, grads = [], []
+    for dense in (False, True):
+        ffn.zero_grad()
+        xx = x.clone().requires_grad_(True)
+        o = ffn(xx, dense=dense)
+        (o.square().sum() + ffn.aux_loss).backward()
+        outs.append(o.detach())
+        grads.append([xx.grad] + [p.grad for p in ffn.parameters()])
+    return dict(output=float((outs[0] - outs[1]).abs().max()),
+                grads=max(float((a - b).abs().max())
+                          for a, b in zip(*grads)),
+                dropped=float(ffn.dropped))
+
+
+def moe_flops_per_step(model, batch: int, seq: int) -> dict:
+    """The FLOPs one training step executes: 6 x the parameters outside
+    the experts x the tokens (bench.py's dense count), plus each MoE
+    layer's expert GEMMs over all E·C slots, padded ones included
+    (2 GEMMs of 2·E·C·D·d_ff, x3 for forward and backward)."""
+    cfg = model.cfg
+    n_tok = batch * seq
+    moe = [getattr(model, f"layer_{i}").moe_ffn
+           for i in range(cfg.num_layers) if cfg.uses_moe(i)]
+    p_all = sum(p.numel() for p in model.parameters())
+    p_exp = sum(m.w_up.numel() + m.w_down.numel() for m in moe)
+    from synapseml_tpu_torch.models.dl.moe import capacity
+    C = capacity(cfg.moe_capacity_factor, cfg.moe_top_k, n_tok,
+                 cfg.num_experts)
+    expert = len(moe) * 3 * 2 * (2 * cfg.num_experts * C * cfg.d_model
+                                 * cfg.d_ff)
+    dense = 6.0 * (p_all - p_exp) * n_tok
+    return dict(params=p_all, expert_params=p_exp, capacity=C,
+                moe_layers=len(moe), dense_flops=dense,
+                expert_flops=float(expert), flops=dense + expert)
+
+
+def dl_moe(seed: int, dev, model_size: str = "base", vocab: int = 30522,
+           batch: int = 128, seq: int = 128, experts: int = 8,
+           top_k: int = 2, n_train: int = 4096, n_hold: int = 1024,
+           n_words: int = 45_000, epochs: int = 2, n_steps: int = 20,
+           windows: int = 3) -> dict:
+    """Phase 17.  Raises on a failed check."""
+    from synapseml_tpu_torch.core import Dataset, Pipeline
+    from synapseml_tpu_torch.models.dl import (DeepTextClassifier, DLTrainer,
+                                               OptimizerConfig, TextEncoder,
+                                               resolve_precision)
+    out = {}
+    # 17a. the tiny MoE encoder card against CPU; gather against dense
+    with ieee_f32():
+        d = dl_text_card_vs_cpu(dev, seed, num_experts=4)
+        g = moe_gather_vs_dense(dev, seed)
+    out["card_vs_cpu_f32"], out["gather_vs_dense_f32"] = d, g
+    log(f"phase 17a: MoE text card vs CPU, f32 {d} (limit 1e-4); gather vs "
+        f"dense on the card {g} (limit 1e-5)")
+    if max(d.values()) > 1e-4 or max(g["output"], g["grads"]) > 1e-5:
+        raise AssertionError(f"MoE card vs CPU {d}, gather vs dense {g}")
+
+    # 17b. BERT-base width with Switch-Base-8's expert layout, top-2
+    est = DeepTextClassifier(modelSize=model_size, vocabSize=vocab,
+                             maxTokenLen=seq, batchSize=batch,
+                             precision="bf16", maxEpochs=epochs, seed=seed,
+                             numExperts=experts, moeTopK=top_k,
+                             device=str(dev))
+    pol = resolve_precision("bf16")
+    cfg = dataclasses.replace(est._model_config(2), dtype=pol.compute_dtype)
+    tr = DLTrainer(TextEncoder(cfg, device=dev, seed=None),
+                   OptimizerConfig(learning_rate=2e-5), dev, precision=pol)
+    state = tr.init_state(seed)
+    wrng = np.random.default_rng(seed)
+    ids = wrng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    mask = np.ones((batch, seq), bool)
+    lab = wrng.integers(0, 2, batch).astype(np.int32)
+    bi, bm, bl = tr.shard_batch((ids, mask, lab))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    step = _step_fn(tr, state, (bi, bm), bl, seed)
+    win = train_windows({"bf16": step}, batch, n_steps, windows)["bf16"]
+    moe = [getattr(tr.model, f"layer_{i}").moe_ffn
+           for i in range(cfg.num_layers) if cfg.uses_moe(i)]
+    fl = moe_flops_per_step(tr.model, batch, seq)
+    win.update(
+        step_ms=batch / win["sps"] * 1e3,
+        mfu=win["sps"] * fl["flops"] / batch / PEAK_BF16_S,
+        peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                 if dev.type == "cuda" else None),
+        dropped_share=float(np.mean([float(m.dropped) for m in moe])),
+        **fl)
+    out["window"] = win
+    log(f"phase 17b: {model_size} MoE (E={experts}, top-{top_k}, every "
+        f"{cfg.moe_layer_freq}nd FFN, capacity factor "
+        f"{cfg.moe_capacity_factor}), batch {batch}, seq {seq}, bf16: "
+        f"{json.dumps(win)}")
+    # 17c. where the MoE step's time goes
+    out["profile"] = prof = profile_steps(step)
+    prof["busy_share_of_window_step"] = (prof["kernel_ms_per_step"]
+                                         / win["step_ms"])
+    log(f"phase 17c: profile MoE bf16 {json.dumps(prof)}")
+    del tr, state, bi, bm, bl, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the main path on phase 14's corpus: fit then transform
+    rng = np.random.default_rng(seed + 14)
+    words = make_words(rng, n_words)
+    texts, labels = text_corpus(rng, words, n_train + n_hold)
+    train = Dataset({"text": texts[:n_train], "label": labels[:n_train]})
+    hold = Dataset({"text": texts[n_train:], "label": labels[n_train:]})
+    t0 = time.perf_counter()
+    pm = Pipeline([est]).fit(train)
+    synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = pm.transform(hold)
+    transform_s = time.perf_counter() - t0
+    acc = float((res["prediction"] == hold["label"]).mean())
+    proba = np.stack(list(res["probability"]))
+    if not (np.isfinite(proba).all() and proba.shape == (n_hold, 2)):
+        raise AssertionError("MoE transform: non-finite or misshapen "
+                             "probabilities")
+    model = pm.get_or_default("stages")[0]
+    out["main_path"] = dict(
+        fit_s=fit_s, transform_s=transform_s, holdout_accuracy=acc,
+        steps=-(-n_train // batch) * epochs,
+        history=model.modelPayload["history"])
+    log(f"phase 17b: MoE main path {json.dumps(out['main_path'])}")
+    if acc <= 0.8:
+        raise AssertionError(f"MoE holdout accuracy {acc}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1799,6 +2273,15 @@ def main(argv=None) -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(f"device {name} | {card}")
+    walls = {}
+    mark = [time.perf_counter()]
+
+    def wall(phase: str) -> None:
+        """Print the wall of the phase that just ended, on its own line."""
+        now = time.perf_counter()
+        walls[phase] = now - mark[0]
+        mark[0] = now
+        log(f"phase {phase} wall {walls[phase]:.1f} s")
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1808,6 +2291,8 @@ def main(argv=None) -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {lib}: {line.strip()}")
+
+    wall("1")
 
     # -- 2. kernels at the main path's shapes --------------------------------
     rng = np.random.default_rng(args.seed)
@@ -1910,6 +2395,8 @@ def main(argv=None) -> int:
             f"{json.dumps(r['geometry'])}")
         cases.append((key, kern, runs, r))
 
+    wall("2")
+
     # -- data: bench.py's task at full width, and a holdout -----------------
     drng = np.random.default_rng(args.seed)
     X = drng.normal(size=(N, F)).astype(np.float32)
@@ -1932,6 +2419,8 @@ def main(argv=None) -> int:
                                  f"differ by {diff}")
         log(f"card vs CPU, two_level={tl}: same splits, margins within "
             f"{diff:.3g}")
+
+    wall("3")
 
     # -- 4. the main path at full width ------------------------------------
     # counts are reset just before and read just after each fit
@@ -1956,9 +2445,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"maxBin={max_bin}: holdout AUC "
                                  f"{r['auc']}")
 
+    wall("4")
+
     # -- 5. where the time goes --------------------------------------------
     log(f"profile maxBin=255: {json.dumps(profile_fit(X, y, 2))}")
     del X, y, yh
+    wall("5")
 
     # -- 6. K3 at the engine's shapes ---------------------------------------
     from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
@@ -1985,11 +2477,15 @@ def main(argv=None) -> int:
             f"3.35 TB/s)")
         k3[key] = r
 
+    wall("6")
+
     # -- 7. the engine on the card against the engine on the CPU ------------
     t0 = time.perf_counter()
     log(f"LLM card vs CPU, f32, 2 layers: tokens equal (and equal to dense "
         f"generate): {json.dumps(llm_card_vs_cpu(dev, args.seed))} in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    wall("7")
 
     # -- 8. the LLM main path at full width and depth -----------------------
     cfg = LlamaConfig.llama3_1b(max_len=T)
@@ -2042,10 +2538,13 @@ def main(argv=None) -> int:
             f"{agree:.4f} (reported; random bf16 weights give near-tied "
             "argmaxes)")
 
+    wall("8")
+
     # -- 9. where the decode time goes ------------------------------------
     for warmup in ("off", "sync"):
         log(f"profile LLM decode, warmup={warmup}: "
             f"{json.dumps(profile_decode(model, prompts, new, warmup))}")
+    wall("9")
 
     # -- 10. GBDT breadth at full width ------------------------------------
     drng = np.random.default_rng(args.seed)
@@ -2096,6 +2595,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"multiclass: holdout accuracy "
                              f"{r['accuracy']}")
     log(f"fit multiclass bagging 0.8 maxBin=255: {json.dumps(r)}")
+
+    wall("10")
 
     # -- 11. breadth: the card against the CPU ------------------------------
     Xs, Xhs = X[:n_small], Xh[:4096]
@@ -2207,20 +2708,38 @@ def main(argv=None) -> int:
     log(f"card vs CPU: bagging masks and GOSS weights bit-identical at "
         f"{n_small} and {N + 3} rows")
 
+    wall("11")
+
     # -- 12. GBDT breadth II at full width ----------------------------------
     breadth2(args.seed, N, F, args.iters, check_path)
+    wall("12")
 
     # -- 13. GBDT breadth III: ranker, streamed ingestion, text, TreeSHAP ----
     breadth3(args.seed, args.iters, check_path, models)
     del models
+    wall("13")
 
     # -- 14. the DL text path: a BERT-base fine-tune ------------------------
     torch.cuda.empty_cache()
     dl_text(args.seed, dev)
+    wall("14")
 
     # -- 15. the DL vision path: ResNet-50 ----------------------------------
     torch.cuda.empty_cache()
     dl_vision(args.seed, dev)
+    wall("15")
+
+    # -- 16. the online learners at Criteo's column shape --------------------
+    torch.cuda.empty_cache()
+    online(args.seed, dev)
+    wall("16")
+
+    # -- 17. the MoE text encoder at BERT-base width -------------------------
+    torch.cuda.empty_cache()
+    dl_moe(args.seed, dev)
+    wall("17")
+    log(f"phase walls {json.dumps(walls)}; total "
+        f"{sum(walls.values()):.1f} s")
 
     # -- results -----------------------------------------------------------
     # each shape's launches in the runs that launch it

@@ -45,7 +45,14 @@ def register_stage(cls: type) -> type:
     return cls
 
 
+#: the JAX package's module prefix: a stage it saved loads as the port's
+#: class of the same module path and name (the port never imports it)
+_REFERENCE_PREFIX = "synapseml_tpu."
+
+
 def lookup_stage(name: str) -> type:
+    if name.startswith(_REFERENCE_PREFIX):
+        name = "synapseml_tpu_torch." + name[len(_REFERENCE_PREFIX):]
     if name in _STAGE_REGISTRY:
         return _STAGE_REGISTRY[name]
     # lazy import: module path is encoded in the qualified name
@@ -103,6 +110,13 @@ class PipelineStage(Params):
                 meta["paramMap"][name] = p.json_value(value)
         with open(os.path.join(path, "metadata.json"), "w") as f:
             json.dump(meta, f, indent=1, default=_json_default)
+        self._save_extra(path)
+
+    def _save_extra(self, path: str) -> None:
+        """Hook for stages with non-param state (e.g. fitted weights)."""
+
+    def _load_extra(self, path: str) -> None:
+        pass
 
     @staticmethod
     def _save_complex(complex_dir: str, p: Param, value: Any) -> None:
@@ -163,6 +177,7 @@ def load_stage(path: str) -> PipelineStage:
     complex_dir = os.path.join(path, "complex")
     for name in meta.get("complexParams", []):
         stage._paramMap[name] = stage._load_complex(complex_dir, name)
+    stage._load_extra(path)
     return stage
 
 

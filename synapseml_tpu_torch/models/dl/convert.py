@@ -41,16 +41,12 @@ def params_from_reference(variables: Mapping,
     """The reference's variables → the port's state dict on ``device``.
 
     ``cfg`` is the ``TransformerConfig`` of a text model or the backbone
-    name of a vision model; a text tree with MoE layers, or a vision tree
-    without ``batch_stats``, raises."""
+    name of a vision model (a MoE block's ``moe_ffn`` leaves ``router``,
+    ``w_up`` and ``w_down`` keep their names); a vision tree without
+    ``batch_stats`` raises."""
     dev = resolve_device(device)
     if isinstance(cfg, TransformerConfig):
-        p = variables.get("params", variables)
-        if any("moe_ffn" in p.get(f"layer_{i}", {})
-               for i in range(cfg.num_layers)):
-            raise NotImplementedError("MoE parameter trees are not ported "
-                                      "yet (ROADMAP A3: moe)")
-        sd = flatten_tree(p)
+        sd = flatten_tree(variables.get("params", variables))
     else:
         if cfg not in BACKBONES:
             raise ValueError(f"unknown backbone {cfg!r}")

@@ -17,8 +17,8 @@ ported raises ``NotImplementedError`` naming its ROADMAP item before any
 tokenizing or image work: a mesh (``numDevices > 1``,
 ``modelParallelism > 1``, ``zero1``, ``collectiveCompression``,
 ``expertParallelism > 1``) and step checkpoints (``checkpointDir``,
-``checkpointManager``) wait for A5, ``stepProfiler`` for A6 and
-``numExperts > 0`` for A3's MoE.
+``checkpointManager``) wait for A5 and ``stepProfiler`` for A6.
+``numExperts > 0`` trains the MoE FFN (:mod:`.moe`) on the one card.
 """
 
 from __future__ import annotations
@@ -228,22 +228,18 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
             "(config.json + vocab.txt + weights) or a weights file; "
             "overrides modelSize/vocabSize with the checkpoint's dims")
     dropoutRate = FloatParam(doc="dropout rate", default=0.1)
-    numExperts = IntParam(doc="0 = dense FFN; > 0 = MoE FFN (not ported: "
-                              "ROADMAP A3)", default=0)
+    numExperts = IntParam(doc="0 = dense FFN; > 0 = MoE FFN with this many "
+                              "experts on every other encoder block "
+                              "(models/dl/moe.py)", default=0)
     gradientCheckpointing = BoolParam(
         doc="rematerialize encoder blocks in the backward pass (the legacy "
             "form of rematPolicy='full')", default=False)
-    moeTopK = IntParam(doc="MoE router top-k (with numExperts: not "
-                           "ported, ROADMAP A3)", default=2)
+    moeTopK = IntParam(doc="MoE router top-k", default=2)
     expertParallelism = IntParam(doc="expert-axis mesh size (not ported: "
                                      "ROADMAP A5)", default=1)
 
     def _check_ported(self) -> None:
         super()._check_ported()
-        if self.numExperts > 0:
-            raise NotImplementedError(
-                "DeepTextClassifier: numExperts > 0 (the MoE FFN, "
-                "models/dl/moe.py) is not ported yet (ROADMAP A3: moe)")
         if self.expertParallelism > 1:
             raise NotImplementedError(
                 "DeepTextClassifier: expertParallelism > 1 (an expert mesh "
@@ -257,7 +253,8 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
         }[self.modelSize]
         return TransformerConfig(
             vocab_size=self.vocabSize, max_len=self.maxTokenLen,
-            num_classes=num_classes, dropout_rate=self.dropoutRate, **sizes)
+            num_classes=num_classes, dropout_rate=self.dropoutRate,
+            num_experts=self.numExperts, moe_top_k=self.moeTopK, **sizes)
 
     def _fit(self, ds: Dataset) -> "DeepTextModel":
         self._check_ported()

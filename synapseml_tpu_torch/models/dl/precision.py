@@ -12,9 +12,11 @@ The PyTorch port of the JAX package's ``models/dl/precision.py``:
   ``torch.utils.checkpoint`` with ``use_reentrant=False``; the models
   wrap each block in :func:`run_block`.
 
-``"bf16_grad"`` rounds every gradient THROUGH bf16 and keeps it in f32
-(:func:`round_to`): torch wants a gradient's dtype to equal its
-parameter's, and the optimizer then reads the rounded values at f32.
+``"bf16_grad"`` casts every gradient to bf16 (:func:`cast_floating`'s
+rule) and the trainer's optimizer computes the clip and the moment
+products in bf16, promoting to the f32 moments as optax does
+(``training.OptaxOptimizer``).  :func:`round_to` (round through a dtype,
+keep f32) is the reference's rule for the manual data-parallel path.
 Rematerialization re-runs the same ops on the same values in the
 backward pass, so gradients equal the no-remat step's bit for bit.
 """

@@ -3,18 +3,17 @@
 The PyTorch port of the JAX package's ``models/dl/training.py`` for one
 device.  The step is eager PyTorch: forward in the model's compute dtype
 (explicit casts in the models), softmax cross-entropy on f32 logits,
-backward, gradients f32 (rounded through bf16 under ``bf16_grad``), the
-global-norm clip, then the optimizer.  The update matches optax, not
-torch's defaults:
+backward, gradients f32 (cast to bf16 under ``bf16_grad``), then
+:class:`OptaxOptimizer`: the global-norm clip and the update as optax
+computes them, dtype by dtype (torch's optimizers want gradients of the
+parameters' dtype and update by other formulas):
 
 - a schedule is read at the count of updates already made (the first
   update uses lr(0), which is 0 under the warmup-cosine schedule);
 - ``clip_by_global_norm`` scales by ``max_norm / g_norm`` only when
-  ``g_norm >= max_norm``, with no epsilon (``clip_grad_norm_`` adds 1e-6,
-  so it is not used);
+  ``g_norm >= max_norm``, with no epsilon;
 - adamw is b1 0.9, b2 0.999, eps 1e-8 with decay on every parameter,
-  biases and norms included; sgd's momentum is optax's ``trace``
-  (``SGD(momentum, dampening=0)``).
+  biases and norms included; sgd's momentum is optax's ``trace``.
 
 Step metrics stay on the device; the caller reads them when it needs them
 (the estimators once an epoch).  The mesh, tensor/ZeRO-1 sharding and the
@@ -91,22 +90,109 @@ class OptimizerConfig:
             return _linear(self.learning_rate, 0.0, max(self.total_steps, 1))
         return lambda count: self.learning_rate
 
-    def build(self, params: Sequence[nn.Parameter]) -> torch.optim.Optimizer:
-        """The optimizer over ``params``; the trainer sets its learning
-        rate from :meth:`schedule_fn` before every update."""
-        params = list(params)
-        if self.name == "adamw":
-            return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999),
-                                     eps=1e-8,
-                                     weight_decay=self.weight_decay,
-                                     foreach=True)
-        if self.name == "adam":
-            return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999),
-                                    eps=1e-8, foreach=True)
-        if self.name == "sgd":
-            return torch.optim.SGD(params, lr=0.0, momentum=self.momentum,
-                                   dampening=0.0, foreach=True)
-        raise ValueError(f"unknown optimizer {self.name!r}")
+    def build(self, params: Sequence[nn.Parameter]) -> "OptaxOptimizer":
+        """The optimizer over ``params``; the trainer passes it the
+        learning rate from :meth:`schedule_fn` at every update."""
+        if self.name not in ("adamw", "adam", "sgd"):
+            raise ValueError(f"unknown optimizer {self.name!r}")
+        return OptaxOptimizer(self, params)
+
+
+def _bf16_scalar(x: float, dtype) -> float:
+    """A Python scalar as JAX sees it beside an array of ``dtype``: a
+    weak-typed scalar is rounded to the array's type first."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+class OptaxOptimizer:
+    """optax's ``clip_by_global_norm`` chained with ``adamw`` / ``adam`` /
+    ``sgd(momentum)``, with optax's per-operation dtype rules.
+
+    Gradients arrive in their own dtype (f32, or bf16 under
+    ``bf16_grad``); parameters and moments are f32.  As in optax:
+
+    - the global norm squares and sums each leaf in the gradients' dtype
+      (a leaf's sum accumulates in f32 and rounds to that dtype), adds the
+      leaf sums one by one in that dtype and takes the square root there;
+      the clip is ``(g / norm) * max_norm`` in that dtype, applied only
+      when ``norm >= max_norm``;
+    - ``(1 - b1) * g`` and ``(1 - b2) * g * g`` are computed in the
+      gradients' dtype (the Python factor rounded to it first, as a
+      weak-typed scalar is) and promoted to f32 where they meet the f32
+      moments; sgd's trace ``g + momentum * trace`` promotes at the add;
+    - the bias correction, ``mu_hat / (sqrt(nu_hat) + eps)``, adamw's
+      ``+ weight_decay * p`` and ``p + (-lr) * update`` run in f32.
+    """
+
+    def __init__(self, cfg: "OptimizerConfig", params: Sequence[nn.Parameter]):
+        self.cfg = cfg
+        self.params = list(params)
+        self.count = 0
+        if cfg.name in ("adamw", "adam"):
+            self.mu = [torch.zeros_like(p) for p in self.params]
+            self.nu = [torch.zeros_like(p) for p in self.params]
+        else:
+            self.trace = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def _clip(self, grads):
+        max_norm = self.cfg.grad_clip_norm
+        if max_norm <= 0 or not grads:
+            return grads
+        dtype = grads[0].dtype
+        sums = torch._foreach_norm(torch._foreach_mul(grads, grads), 1)
+        if dtype == torch.float32:
+            total = torch.stack(sums).sum()
+        else:
+            # optax's Python ``sum`` rounds after every leaf
+            total = sums[0]
+            for s_ in sums[1:]:
+                total = total + s_
+        norm = torch.sqrt(total)
+        limit = torch.full((), _bf16_scalar(max_norm, dtype), dtype=dtype,
+                           device=norm.device)
+        keep = norm < limit
+        # (g / 1) * 1 is g exactly, so one pass serves both branches
+        one = torch.ones_like(norm)
+        return torch._foreach_mul(
+            torch._foreach_div(grads, torch.where(keep, one, norm)),
+            torch.where(keep, one, limit))
+
+    @torch.no_grad()
+    def step(self, grads, lr: float) -> None:
+        """One update of every parameter from ``grads`` (one per
+        parameter, in order) at learning rate ``lr``."""
+        cfg = self.cfg
+        grads = self._clip(grads)
+        dtype = grads[0].dtype
+        if cfg.name == "sgd":
+            torch._foreach_mul_(self.trace, cfg.momentum)
+            torch._foreach_add_(self.trace, grads)
+            updates = self.trace
+        else:
+            b1, b2, eps = 0.9, 0.999, 1e-8
+            self.count += 1
+            torch._foreach_mul_(self.mu, b1)
+            torch._foreach_add_(self.mu, torch._foreach_mul(
+                grads, _bf16_scalar(1 - b1, dtype)))
+            torch._foreach_mul_(self.nu, b2)
+            torch._foreach_add_(self.nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads),
+                _bf16_scalar(1 - b2, dtype)))
+            c = np.float32(self.count)
+            bc1 = float(np.float32(1) - np.float32(b1) ** c)
+            bc2 = float(np.float32(1) - np.float32(b2) ** c)
+            denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+            torch._foreach_add_(denom, eps)
+            updates = torch._foreach_div(torch._foreach_div(self.mu, bc1),
+                                         denom)
+            if cfg.name == "adamw":
+                torch._foreach_add_(updates, torch._foreach_mul(
+                    self.params, cfg.weight_decay))
+        torch._foreach_add_(self.params, torch._foreach_mul(updates, -lr))
 
 
 @dataclasses.dataclass
@@ -116,7 +202,7 @@ class TrainState:
     the optimizer (its moments)."""
     step: int
     model: nn.Module
-    opt: torch.optim.Optimizer
+    opt: OptaxOptimizer
 
 
 def softmax_cross_entropy(logits: torch.Tensor,
@@ -164,16 +250,6 @@ class DLTrainer:
                           opt=self._opt_cfg.build(self.model.parameters()))
 
     # -- steps ---------------------------------------------------------------
-    def _clip(self, grads) -> None:
-        max_norm = self._opt_cfg.grad_clip_norm
-        if max_norm <= 0 or not grads:
-            return
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < max_norm, torch.ones_like(norm),
-                            max_norm / norm)
-        torch._foreach_mul_(grads, scale)
-
     def train_step(self) -> Callable:
         """``step(state, inputs, labels, dropout_seed) -> (state,
         metrics)``: one update in place; ``metrics`` holds the loss and
@@ -181,7 +257,7 @@ class DLTrainer:
         ``(dropout_seed, state.step)``."""
         flag = self._flag(True)
         takes_seed = self.train_kwarg == "deterministic"
-        bf16_round = (self.precision.grad_dtype
+        grad_dtype = (self.precision.grad_dtype
                       if self.precision.casts_grads else None)
 
         def step(state: TrainState, inputs: Tuple, labels: torch.Tensor,
@@ -192,17 +268,19 @@ class DLTrainer:
                 kw["dropout_seed"] = mix_seed(dropout_seed, state.step)
             logits = model(*inputs, **kw)
             loss = self.loss_fn(logits, labels)
-            state.opt.zero_grad(set_to_none=True)
+            aux = model.aux_losses() if hasattr(model, "aux_losses") else []
+            if aux:
+                # the layers' auxiliary objectives (the MoE load-balance
+                # losses), summed from 0 as the reference sums its
+                # ``losses`` collection
+                loss = loss + sum(aux, torch.zeros((), device=loss.device))
+            state.opt.zero_grad()
             loss.backward()
-            grads = [p.grad for p in model.parameters()
-                     if p.grad is not None]
-            if bf16_round is not None:
-                for g in grads:
-                    g.copy_(g.to(bf16_round))
-            self._clip(grads)
-            for group in state.opt.param_groups:
-                group["lr"] = self.lr(state.step)
-            state.opt.step()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in state.opt.params]
+            if grad_dtype is not None:
+                grads = [g.to(grad_dtype) for g in grads]
+            state.opt.step(grads, self.lr(state.step))
             if self.has_batch_stats:
                 model.commit_batch_stats()
             state.step += 1

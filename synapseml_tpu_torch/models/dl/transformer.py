@@ -30,9 +30,11 @@ the reference's rbg keys by design, as a change of seed would.
 
 Attention runs as two einsums and a softmax (``attention_impl="einsum"``,
 and ``"auto"`` below 1024 tokens) or as the blockwise online-softmax scan
-(``"blockwise"``, and ``"auto"`` from 1024 tokens).  Ring attention over a
-mesh (ROADMAP A3: ring attention and pipeline) and the MoE FFN (ROADMAP
-A3: moe) are not ported; the estimator refuses ``numExperts > 0``.
+(``"blockwise"``, and ``"auto"`` from 1024 tokens).  With ``num_experts >
+0`` every ``moe_layer_freq``-th block's FFN is the MoE FFN
+(:mod:`.moe`, ``layer_{i}.moe_ffn``), as in the reference; its
+load-balance losses are :meth:`TextEncoder.aux_losses`.  Ring attention
+over a mesh (ROADMAP A3: ring attention and pipeline) is not ported.
 """
 
 from __future__ import annotations
@@ -75,6 +77,16 @@ class TransformerConfig:
     #: rematerialize each encoder block in the backward pass: False/True
     #: or a ``rematPolicy`` name (see :func:`.precision.remat_policy`)
     remat: Any = False
+    num_experts: int = 0    # >0: MoE FFN on every moe_layer_freq-th block
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_layer_freq: int = 2
+
+    def uses_moe(self, layer: int) -> bool:
+        """Whether block ``layer`` takes the MoE FFN (the reference's
+        ``i % moe_layer_freq == moe_layer_freq - 1``)."""
+        return (self.num_experts > 0
+                and layer % self.moe_layer_freq == self.moe_layer_freq - 1)
 
     @staticmethod
     def bert_base(num_classes: int = 2, **kw) -> "TransformerConfig":
@@ -304,13 +316,21 @@ class SelfAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_moe = use_moe
         self.attention = SelfAttention(cfg, device)
         self.ln_att = LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.ffn_up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device)
-        self.ffn_down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device)
+        if use_moe:
+            from .moe import MoEFFN
+            self.moe_ffn = MoEFFN(cfg.num_experts, cfg.d_model, cfg.d_ff,
+                                  top_k=cfg.moe_top_k,
+                                  capacity_factor=cfg.moe_capacity_factor,
+                                  dtype=cfg.dtype, device=device)
+        else:
+            self.ffn_up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device)
+            self.ffn_down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device)
         self.ln_ffn = LayerNorm(cfg.d_model, cfg.dtype, device)
 
     def forward(self, x, mask, seed: Optional[int]):
@@ -319,7 +339,10 @@ class EncoderBlock(nn.Module):
         a = dropout(a, rate, None if seed is None
                     else mix_seed(seed, _SITE_ATTN))
         x = self.ln_att(x + a)
-        h = self.ffn_down(F.gelu(self.ffn_up(x), approximate="tanh"))
+        if self.use_moe:
+            h = self.moe_ffn(x)
+        else:
+            h = self.ffn_down(F.gelu(self.ffn_up(x), approximate="tanh"))
         h = dropout(h, rate, None if seed is None
                     else mix_seed(seed, _SITE_FFN))
         return self.ln_ffn(x + h)
@@ -343,7 +366,8 @@ class TextEncoder(nn.Module):
         self.pos_embed = Embed(cfg.max_len, cfg.d_model, dev)
         self.ln_embed = LayerNorm(cfg.d_model, cfg.dtype, dev)
         for i in range(cfg.num_layers):
-            setattr(self, f"layer_{i}", EncoderBlock(cfg, dev))
+            setattr(self, f"layer_{i}",
+                    EncoderBlock(cfg, dev, use_moe=cfg.uses_moe(i)))
         self.pooler = Dense(cfg.d_model, cfg.d_model, cfg.dtype, dev)
         self.classifier = Dense(cfg.d_model, cfg.num_classes, torch.float32,
                                 dev)
@@ -356,6 +380,14 @@ class TextEncoder(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_embed.embedding.device
+
+    def aux_losses(self):
+        """The last forward's MoE load-balance losses, in the order of the
+        reference's ``losses`` collection (layer names sorted as
+        strings); empty without MoE blocks."""
+        names = sorted(f"layer_{i}" for i in range(self.cfg.num_layers)
+                       if self.cfg.uses_moe(i))
+        return [getattr(self, n).moe_ffn.aux_loss for n in names]
 
     def forward(self, input_ids, attention_mask=None, deterministic=True,
                 return_embeddings=False, dropout_seed: Optional[int] = None):

@@ -9,10 +9,11 @@ traversal on the model's ``device`` (``featuresShapCol`` adds TreeSHAP
 contributions, computed on the host as in the JAX package).
 ``get_model_string`` writes the LightGBM text format and
 ``load_native_model_from_string`` / ``_from_file`` read it or the
-version-2 JSON.  The param surface is the JAX package's, less the mesh
-(``numShards``, ``collectiveCompression``); params whose features are not
-ported (the checkpoint manager, voting/feature parallelism) raise
-``NotImplementedError`` at ``fit``.
+version-2 JSON.  The param surface is the JAX package's.  The mesh knobs
+train on the one card at ``numShards`` 0 or 1 and codec ``None`` /
+``'none'``; other values, and params whose features are not ported (the
+checkpoint manager, voting/feature parallelism), raise
+``NotImplementedError`` at ``fit`` before any work.
 """
 
 from __future__ import annotations
@@ -76,6 +77,10 @@ class GBDTParams(Params):
     numBatches = IntParam(
         doc="split data into k sequential warm-started batches",
         default=0)
+    numShards = IntParam(
+        doc="data-parallel shards over the device mesh; 0 = all local "
+            "devices.  The port trains on one card: 0 and 1 train, more "
+            "shards raise (ROADMAP queue A5)", default=0)
     parallelism = StringParam(
         doc="data_parallel|voting_parallel|feature_parallel "
             "(data_parallel on one card is ported)",
@@ -114,6 +119,23 @@ class GBDTParams(Params):
                                     "pass-through analogue)")
     predictDisableShapeCheck = BoolParam(doc="skip feature-count check at "
                                              "predict", default=False)
+    collectiveCompression = PyObjectParam(
+        doc="wire codec for the data-parallel histogram allreduce: "
+            "None or 'none' on the one card; any other codec raises "
+            "(ROADMAP queue A5)")
+
+    def _check_mesh_knobs(self) -> None:
+        """Refuse the mesh knobs the one card cannot honour, before any
+        work."""
+        if int(self.numShards) not in (0, 1):
+            raise NotImplementedError(
+                f"numShards={self.numShards}: data-parallel GBDT over "
+                "several cards is not ported yet (ROADMAP queue A5)")
+        codec = self.get("collectiveCompression")
+        if codec is not None and codec != "none":
+            raise NotImplementedError(
+                f"collectiveCompression={codec!r}: compressed histogram "
+                "collectives are not ported yet (ROADMAP queue A5)")
 
     def _build_config(self, objective: str, num_class: int = 1) -> BoostingConfig:
         extra = self.passThroughArgs or {}
@@ -307,6 +329,7 @@ class GBDTClassifier(GBDTParams, Estimator):
     thresholds = ListParam(doc="per-class prediction thresholds")
 
     def _fit(self, ds: Dataset) -> "GBDTClassificationModel":
+        self._check_mesh_knobs()
         ds, valid_ds = self._split_validation(ds)
         X = self._features_matrix(ds)
         y_raw = np.asarray(ds[self.labelCol], np.float64)
@@ -394,6 +417,7 @@ class GBDTRegressor(GBDTParams, Estimator):
                                       default=1.5)
 
     def _fit(self, ds: Dataset) -> "GBDTRegressionModel":
+        self._check_mesh_knobs()
         ds, valid_ds = self._split_validation(ds)
         X = self._features_matrix(ds)
         y = np.asarray(ds[self.labelCol], np.float64)
@@ -444,6 +468,7 @@ class GBDTRanker(GBDTParams, Estimator):
     evalAt = ListParam(doc="NDCG eval positions", default=[1, 3, 5, 10])
 
     def _fit(self, ds: Dataset) -> "GBDTRankerModel":
+        self._check_mesh_knobs()
         ds, valid_ds = self._split_validation(ds)
         ds = ds.sort(self.groupCol)
         X = self._features_matrix(ds)

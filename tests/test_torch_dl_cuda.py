@@ -155,3 +155,53 @@ def test_estimators_learn_on_card(dev):
                                lrSchedule="constant",
                                device="cuda").fit(vds).transform(vds)
     assert (out["prediction"] == vds["label"]).mean() > 0.9
+
+
+# -- the MoE FFN (ROADMAP A3.1) ------------------------------------------------
+
+def test_moe_text_steps_on_card_equal_cpu(dev):
+    """The tiny encoder with 4 experts on every other block: three adamw
+    steps (the aux losses in the objective) on the card against the CPU,
+    f32 atol 1e-4 as the dense encoder."""
+    runs = {}
+    for d in (dev, CPU):
+        rng = np.random.default_rng(0)
+        cfg = TransformerConfig.tiny(dtype=torch.float32, dropout_rate=0.0,
+                                     num_experts=4)
+        model = TextEncoder(cfg, device=d, seed=None)
+        tr = DLTrainer(model, OptimizerConfig(learning_rate=1e-3,
+                                              grad_clip_norm=1.0), d)
+        state = tr.init_state(0)
+        step = tr.train_step()
+        losses = []
+        for _ in range(3):
+            ids = rng.integers(0, 1024, (16, 32)).astype(np.int32)
+            lab = rng.integers(0, 2, 16).astype(np.int32)
+            bi, bl = tr.shard_batch((ids, lab))
+            state, m = step(state, (bi,), bl, 0)
+            losses.append(float(m["loss"]))
+        runs[d.type] = (losses, {k: v.cpu() for k, v in
+                                 model.state_dict().items()})
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-4)
+    for k, v in runs["cpu"][1].items():
+        np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(),
+                                   atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gather_equals_dense_on_card(dev, dtype):
+    """The gather form against the reference's dense form on the card:
+    f32 within 1e-5, bf16 within one bf16 ulp of the scale."""
+    from synapseml_tpu_torch.models.dl.moe import MoEFFN
+    ffn = MoEFFN(8, 64, 128, top_k=2, capacity_factor=0.75, dtype=dtype,
+                 device=dev)
+    with torch.no_grad():
+        ffn.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(4, 32, 64, generator=torch.Generator().manual_seed(1)
+                    ).to(dev, dtype)
+    with torch.no_grad():
+        g, d = ffn(x), ffn(x, dense=True)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    scale = max(1.0, float(d.float().abs().max()))
+    assert float((g.float() - d.float()).abs().max()) <= tol * scale
+    assert 0.0 < float(ffn.dropped) < 1.0

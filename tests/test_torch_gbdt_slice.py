@@ -144,12 +144,38 @@ class _CheckpointManager:
     (dict(parallelism="voting_parallel"), {}, "A5"),
     ({}, dict(checkpoint_dir=_CheckpointManager(), checkpoint_interval=1),
      "A5"),
+    # kw None: the estimator's mesh knobs (train_kw), refused before the
+    # data is read
+    (None, dict(numShards=2), "A5"),
+    (None, dict(collectiveCompression="int8"), "A5"),
 ])
-def test_unported_config_raises(kw, train_kw, item):
+def test_unported_config_raises(kw, train_kw, item, monkeypatch):
     X, y = _binary_data(n=200)
+    if kw is None:
+        def no_work(*a, **k):
+            raise AssertionError("the features were read")
+        monkeypatch.setattr(GBDTClassifier, "_features_matrix", no_work)
+        ds = TDataset({"features": list(X), "label": y})
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue {item}"):
+            GBDTClassifier(device="cpu", numIterations=2, **train_kw).fit(ds)
+        return
     cfg = BoostingConfig(**{"objective": "binary", **kw})
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
         ttrain(X, y, cfg, device="cpu", **train_kw)
+
+
+@pytest.mark.parametrize("est_kw", [
+    dict(numShards=0), dict(numShards=1),
+    dict(numShards=1, collectiveCompression="none"),
+    dict(collectiveCompression=None)])
+def test_one_card_mesh_knobs_train(est_kw):
+    """numShards 0 or 1 and codec None/'none' train on the one card, as
+    the JAX package's calls with those values do."""
+    X, y = _binary_data(n=600)
+    m = GBDTClassifier(device="cpu", numIterations=3, **est_kw).fit(
+        TDataset({"features": list(X), "label": y}))
+    assert len(m.booster.trees) == 3
 
 
 @pytest.mark.parametrize("max_bin,num_leaves,fits", [
