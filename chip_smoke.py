@@ -188,6 +188,35 @@
     (the E·C padded slots counted), then a 64-step fit → transform on
     14(b)'s corpus, holdout accuracy > 0.8; (c) a profile as in 14(d).
 
+18. The LLM served over HTTP: ``LLMServer(n_slots=16, max_len=2048,
+    warmup="background")`` over phase 8's model; ``/readyz`` must answer
+    503 "warming" at once and 200 after the plane's thread has captured
+    the graphs.  Phase 8's 24 requests are posted at once from client
+    threads, every other one streamed; K3's counts are reset just before
+    and read just after.  Every reply must equal phase 8's graph engine
+    driven directly, K3 must launch, and ``/metrics``'s
+    ``llm_engine_tokens_total`` must equal the tokens served.  Reports
+    HTTP tokens/s against the direct engine's, the client's time to the
+    stream's first byte (p50/p90) against the engine's admit ms, the
+    step ms and the ``/sloz`` TTFT objective.
+19. Fine-tune, then serve speculatively, at bench.py's configuration
+    (``LlamaConfig.tiny(vocab_size=512, d_model=1024, num_layers=12,
+    num_heads=16, num_kv_heads=4, max_len=256)``): (a) 3 adamw steps at
+    f32 on the card and the CPU from the same weights at lr 1e-4 (every
+    weight within 1e-4, losses within 1e-5 relative), and at lr 5e-4
+    reported; (b) ``finetune_lm`` over
+    250 batches of ``templated_log_corpus(rng, 32, 8)`` at lr 5e-4 in
+    bf16: first and final loss, steps/s, tokens/s, MFU over 6·P·tokens,
+    and a ``torch.profiler`` breakdown of 5 steps;
+    (c) the trained and the random-init model each served by
+    ``LLMServer`` with ``spec_draft_len=7`` and plain, 8 prompts x 64
+    tokens: speculative replies must equal the plain ones; reports the
+    committed tokens per slot-step, the drafter's hit rate and
+    acceptance (this random init repeats one token, which prompt lookup
+    drafts perfectly, so it is the anchor and not held to a ratio; the
+    1.5x contrast is ``tests/test_torch_llm_finetune.py``'s, at the JAX
+    test's configuration).
+
 Every phase's wall is printed on its own line, and their sum at the
 end.
 
@@ -2255,6 +2284,338 @@ def dl_moe(seed: int, dev, model_size: str = "base", vocab: int = 30522,
     return out
 
 
+def http_generate(url: str, payload: dict, timeout: float = 600.0):
+    """POST one request to an ``LLMServer`` → (ids, seconds to the first
+    body byte, seconds to the end).  A streamed reply must carry one line
+    per token, then a ``done`` line with the same ids."""
+    import http.client
+    from urllib.parse import urlsplit
+    u = urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", u.path, body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        first = resp.readline()
+        ttfb = time.perf_counter() - t0
+        body = first + resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"HTTP {resp.status}: {body[:200]!r}")
+    finally:
+        conn.close()
+    lines = [json.loads(ln) for ln in body.splitlines() if ln.strip()]
+    ids = lines[-1]["ids"]
+    if payload.get("stream"):
+        toks = [ln["token"] for ln in lines[:-1]]
+        if not lines[-1].get("done") or toks != ids:
+            raise AssertionError(f"stream lines {toks} against done {ids}")
+    return ids, ttfb, time.perf_counter() - t0
+
+
+def http_get(url: str):
+    """GET → (status, body bytes); an HTTP error status is returned."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def serve_all(srv, prompts, new, stream_every: int = 2):
+    """Post every prompt from its own client thread (every
+    ``stream_every``-th streamed) → (ids per request, TTFB per streamed
+    request, wall s); raises on a failed request."""
+    import threading
+    res, errs = {}, []
+
+    def call(i):
+        try:
+            res[i] = http_generate(srv.url, {
+                "ids": [int(t) for t in prompts[i]],
+                "max_new_tokens": int(new[i]),
+                "stream": i % stream_every == 1})
+        except Exception as e:          # re-raised below, on this thread
+            errs.append((i, e))
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errs or len(res) != len(prompts):
+        raise AssertionError(f"requests failed: {errs}")
+    ttfb = [res[i][1] for i in range(len(prompts))
+            if i % stream_every == 1]
+    return [res[i][0] for i in range(len(prompts))], ttfb, wall
+
+
+def timed_steps(engine) -> list:
+    """Record the host wall of every ``engine.step()`` (it ends in a copy
+    to the host, so it covers the device work) and, per step, the slots
+    that took part → [(seconds, active slots, events)]."""
+    real = engine.step
+    log_ = []
+
+    def step():
+        n = engine.active_count
+        t = time.perf_counter()
+        ev = real()
+        log_.append((time.perf_counter() - t, n, len(ev)))
+        return ev
+    engine.step = step
+    return log_
+
+
+def prom_value(text: str, family: str, **labels) -> float:
+    """One sample of a Prometheus text body (0.0 when absent)."""
+    want = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    for line in text.splitlines():
+        if line.startswith(f"{family}{{{want}}} "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def llm_http(model, prompts, new, want, dev, name: str = "phase18",
+             n_slots: int = 16, max_len: int = 2048,
+             ttft_slo_s: float = 5.0) -> dict:
+    """Phase 18: ``LLMServer`` over the full-width model, warmed in the
+    background (``/readyz`` 503 while warming, 200 after), all requests
+    posted at once from client threads, every other one streamed.  K3's
+    counts are reset just before the traffic and read just after it.
+    Raises unless every reply equals ``want`` (the same engine
+    configuration driven directly), K3 launched, and the engine's
+    ``llm_engine_tokens_total`` equals the tokens served."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.serving import LLMServer
+    t0 = time.perf_counter()
+    srv = LLMServer(model, n_slots=n_slots, max_len=max_len,
+                    warmup="background", ttft_slo_s=ttft_slo_s,
+                    device=dev, engine_kwargs={"name": name})
+    try:
+        construct_s = time.perf_counter() - t0
+        ready = srv.server.url_for("/readyz")
+        first, body = http_get(ready)
+        if first != 503 or json.loads(body)["status"] != "warming":
+            raise AssertionError(f"/readyz while warming: {first} {body}")
+        plane = srv.engine.compile_plane
+        if not plane.wait(600):
+            raise AssertionError("the compile plane did not warm")
+        after, _ = http_get(ready)
+        if after != 200:
+            raise AssertionError(f"/readyz after warm-up: {after}")
+        steps = timed_steps(srv.engine)
+        L.reset()
+        outs, ttfb, wall = serve_all(srv, prompts, new)
+        shapes = L.shapes("paged_decode_attention")
+        metrics = http_get(srv.server.url_for("/metrics"))[1].decode()
+        sloz = json.loads(http_get(srv.server.url_for("/sloz"))[1])
+        snap = plane.snapshot()
+    finally:
+        srv.close()
+    for i, o in enumerate(outs):
+        if not np.array_equal(np.asarray(o), np.asarray(want[i])):
+            raise AssertionError(f"request {i}: HTTP {o} against the "
+                                 f"direct engine {list(want[i])}")
+    if dev.type == "cuda" and not shapes:
+        raise AssertionError("K3 never launched while the server answered")
+    served = int(sum(len(o) for o in outs))
+    counted = prom_value(metrics, "llm_engine_tokens_total", engine=name)
+    if counted != served:
+        raise AssertionError(f"llm_engine_tokens_total {counted} against "
+                             f"{served} tokens served")
+    if snap["stalls"] or snap["replays"] != len(steps):
+        raise AssertionError(f"{snap['replays']} replays and "
+                             f"{snap['stalls']} stalls in {len(steps)} "
+                             "steps")
+    st = np.asarray([s[0] for s in steps])
+    plane_slo = sloz["planes"]["/generate"]["slo"]
+    return dict(requests=len(prompts), tokens=served,
+                http_tokens_per_s=served / wall, wall_s=wall,
+                construct_s=construct_s, readyz=[first, after],
+                warmup_s=snap.get("warmup_seconds"),
+                ttfb_p50_ms=float(np.median(ttfb) * 1e3),
+                ttfb_p90_ms=float(np.percentile(ttfb, 90) * 1e3),
+                steps=len(steps), mean_step_ms=float(st.mean() * 1e3),
+                decode_tokens_per_s=float(sum(s[2] for s in steps)
+                                          / st.sum()),
+                sloz_ttft=plane_slo.get("ttft"), launches=shapes)
+
+
+def spec_serve(model, prompts, new, dev, name: str, spec: int,
+               n_slots: int = 8):
+    """One ``LLMServer`` run of ``prompts`` (graphs, warmed before the
+    traffic) → (ids per request, committed tokens per slot-step, the
+    engine's drafter hit rate and acceptance, and K3's launches by shape,
+    counted from just before the traffic to just after it).  Raises on
+    the card if K3 never launched."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.serving import LLMServer
+    srv = LLMServer(model, n_slots=n_slots, max_len=model.cfg.max_len,
+                    spec_draft_len=spec, warmup="sync", device=dev,
+                    api_path=f"/{name}", engine_kwargs={"name": name})
+    try:
+        steps = timed_steps(srv.engine)
+        L.reset()
+        outs, _, wall = serve_all(srv, prompts, new)
+        shapes = L.shapes("paged_decode_attention")
+        eng = srv.engine
+    finally:
+        srv.close()
+    if dev.type == "cuda" and not shapes:
+        raise AssertionError(f"{name}: K3 never launched while the server "
+                             "answered")
+    drafted = eng.spec_draft_hits + eng.spec_draft_misses
+    return outs, dict(launches=shapes,
+        tokens_per_step=sum(s[2] for s in steps) / max(
+            1, sum(s[1] for s in steps)),
+        hit_rate=eng.spec_draft_hits / max(1, drafted),
+        acceptance=eng.spec_acceptance_rate, steps=len(steps),
+        wall_s=wall)
+
+
+def spec_vs_plain(models: dict, prompts, new, dev, tag: str,
+                  n_slots: int = 8) -> dict:
+    """Each model served plain and with ``spec_draft_len=7``: raises
+    unless the speculative replies equal the plain ones → each model's
+    speculative stats and the second's tokens per slot-step over the
+    first's (``ratio``)."""
+    out = {}
+    for label, m in models.items():
+        plain, plain_stats = spec_serve(m, prompts, new, dev,
+                                        f"{tag}-{label}-plain", 0, n_slots)
+        spec, stats = spec_serve(m, prompts, new, dev,
+                                 f"{tag}-{label}-spec", 7, n_slots)
+        for i, (a, b) in enumerate(zip(plain, spec)):
+            if a != b:
+                raise AssertionError(f"{tag} {label} request {i}: "
+                                     f"speculative {b} against greedy {a}")
+        out[label] = dict(stats, plain_launches=plain_stats["launches"])
+    first, second = (out[k]["tokens_per_step"] for k in models)
+    out["ratio"] = second / first
+    return out
+
+
+def finetune_serve(seed: int, dev, steps: int = 250, batch: int = 32,
+                   n_rec: int = 8, lr: float = 5e-4, check_batch: int = 4,
+                   check_steps: int = 3, **cfg_kw) -> dict:
+    """Phase 19 at bench.py's configuration (``LlamaConfig.tiny(
+    vocab_size=512, d_model=1024, num_layers=12, num_heads=16,
+    num_kv_heads=4, max_len=256)``): (a) ``check_steps`` adamw steps at
+    f32 on the card and on the CPU from the same weights at lr 1e-4,
+    every weight within 1e-4, and at ``lr`` reported; (b) ``finetune_lm``
+    over ``steps`` batches of ``templated_log_corpus(rng, batch, n_rec)``
+    at bf16, and a profile of 5 steps; (c) the trained model served through ``LLMServer(spec_draft_len=7)`` on 8 prompts of
+    ``templated_log_corpus(rng, 8, 3)`` x 64 new tokens, and the random
+    init beside it: replies equal the plain greedy server's.  Raises on
+    a failed check."""
+    from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
+                                                finetune_lm, lm_loss_fn,
+                                                make_lm_train_step,
+                                                templated_log_corpus)
+    shape = dict(vocab_size=512, d_model=1024, num_layers=12, num_heads=16,
+                 num_kv_heads=4, max_len=256)
+    shape.update(cfg_kw)
+    out = {}
+    # 19a. three f32 steps, card against CPU.  Adam's first steps move a
+    # weight by ~lr x a ratio of gradient moments, so where a gradient is
+    # a near-cancelling sum, f32 summation order moves the update by a
+    # share of lr: the check runs at lr 1e-4, and the fine-tune's lr is
+    # reported beside it (a spread that scales with lr is that rounding)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the f32 check needs "
+                             "full f32 products")
+    cfg32 = LlamaConfig.tiny(dtype=torch.float32, **shape)
+    rng = np.random.default_rng(seed)
+    batches = [templated_log_corpus(rng, check_batch, n_rec)
+               for _ in range(check_steps)]
+    start = LlamaModel(cfg32, device="cpu", seed=seed).state_dict()
+
+    def steps_from_start(device, step_lr):
+        m = LlamaModel(cfg32, device=device, seed=seed)
+        m.load_state_dict(start)
+        init, step = make_lm_train_step(m, step_lr)
+        opt = init()
+        losses = [float(step(opt, torch.as_tensor(b, device=device)))
+                  for b in batches]
+        return {k: v.cpu() for k, v in m.state_dict().items()}, losses
+
+    out["card_vs_cpu"] = {}
+    for step_lr in (1e-4, lr):
+        (w_cpu, l_cpu), (w_card, l_card) = (steps_from_start("cpu", step_lr),
+                                            steps_from_start(dev, step_lr))
+        r = dict(lr=step_lr, steps=check_steps,
+                 max_weight_diff=max(float((w_card[k] - v).abs().max())
+                                     for k, v in w_cpu.items()),
+                 max_loss_rel_diff=max(abs(a - b) / abs(b)
+                                       for a, b in zip(l_card, l_cpu)),
+                 losses=l_card)
+        out["card_vs_cpu"][str(step_lr)] = r
+        log(f"fine-tune card vs CPU, f32, {check_steps} steps: "
+            f"{json.dumps(r)}")
+    checked = out["card_vs_cpu"]["0.0001"]
+    if checked["max_weight_diff"] > 1e-4 \
+            or checked["max_loss_rel_diff"] > 1e-5:
+        raise AssertionError(f"f32 fine-tune, card vs CPU: {checked}")
+    # 19b. finetune_lm at bf16
+    cfg = LlamaConfig.tiny(**shape)
+    model = LlamaModel(cfg, device=dev, seed=seed)
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(seed + 1)
+    data = [templated_log_corpus(rng, batch, n_rec) for _ in range(steps)]
+    with torch.no_grad():
+        first = float(lm_loss_fn(model)(torch.as_tensor(data[0],
+                                                        device=dev)))
+    synchronize(dev)
+    t0 = time.perf_counter()
+    _, final = finetune_lm(model, iter(data), learning_rate=lr,
+                           device=dev)
+    synchronize(dev)
+    train_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = steps * batch * data[0].shape[1]
+    out["finetune"] = dict(
+        steps=steps, batch=list(data[0].shape), params=n_params,
+        first_loss=first, final_loss=final, train_s=train_s,
+        steps_per_s=steps / train_s, tokens_per_s=tokens / train_s,
+        step_ms=train_s / steps * 1e3,
+        mfu=6 * n_params * tokens / train_s / PEAK_BF16_S)
+    if not final < first:
+        raise AssertionError(f"the loss did not fall: {first} → {final}")
+    log(f"finetune_lm bf16: {json.dumps(out['finetune'])}")
+    # where a step's time goes: 5 profiled steps of a fresh model (after 2)
+    probe = LlamaModel(cfg, device=dev, seed=seed)
+    init, step = make_lm_train_step(probe, lr)
+    opt = init()
+    toks = torch.as_tensor(data[0], device=dev)
+    for _ in range(2):
+        step(opt, toks)
+    out["profile"] = profile_steps(lambda: step(opt, toks))
+    del probe, opt
+    log(f"profile finetune step: {json.dumps(out['profile'])}")
+    # 19c. served speculatively, trained against random init.  At this
+    # configuration the random init repeats one token per request, which
+    # prompt lookup drafts perfectly, so the anchor commits close to the
+    # spec_draft_len + 1 = 8 tokens a slot-step that bound any model:
+    # reported beside the trained model, not held to a ratio (the
+    # contrast is tests/test_torch_llm_finetune.py's, at the JAX test's
+    # configuration)
+    prompts = list(templated_log_corpus(rng, 8, 3))
+    new = [64] * len(prompts)
+    random_init = LlamaModel(cfg, device=dev, seed=seed)
+    random_init.load_state_dict(init_state)
+    out["serve"] = spec_vs_plain(
+        {"random_init": random_init, "finetuned": model}, prompts, new, dev,
+        "p19")
+    log(f"LLMServer spec_draft_len=7, 8 prompts x 64 tokens, replies equal "
+        f"the greedy server's: {json.dumps(out['serve'])}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2459,15 +2820,24 @@ def main(argv=None) -> int:
     B, H, KV, D, T = 16, 32, 8, 64, 2048
     edges = [1, 63, 64, 65, 255, 256, 257, 2047, 2048]
     spans = np.concatenate([edges, krng.integers(1, T + 1, B - len(edges))])
+    # phase 19c's engine: 8 slots of bench.py's 12-layer model (16 heads,
+    # 4 kv heads of 64) over a 256-token cache
+    B19, H19, KV19, T19 = 8, 16, 4, 256
+    spans19 = np.concatenate([[1, 63, 64, 65, 128, 255, 256],
+                              krng.integers(1, T19 + 1, 1)])
     k3 = {}
-    for S, dt in ((1, torch.bfloat16), (2, torch.bfloat16),
-                  (4, torch.bfloat16), (8, torch.bfloat16),
-                  (32, torch.bfloat16), (1, torch.float32)):
+    for S, dt, geo in (
+            *((S, torch.bfloat16, (B, H, KV, T, spans))
+              for S in (1, 2, 4, 8, 32)),
+            (1, torch.float32, (B, H, KV, T, spans)),
+            *((S, torch.bfloat16, (B19, H19, KV19, T19, spans19))
+              for S in (1, 2, 4, 8))):
+        b, h, kv, t, sp = geo
         bf16 = dt == torch.bfloat16
-        key = L.launch_key("paged_decode_attention", B=B, S=S, H=H, KV=KV,
-                            D=D, T=T, dtype="bf16" if bf16 else "f32",
+        key = L.launch_key("paged_decode_attention", B=b, S=S, H=h, KV=kv,
+                            D=D, T=t, dtype="bf16" if bf16 else "f32",
                             variant="split" if bf16 else "previous")
-        r = k3_case(dev, args.seed + S, B, S, H, KV, D, T, dt, spans)
+        r = k3_case(dev, args.seed + S, b, S, h, kv, D, t, dt, sp)
         log(f"{key}: max_abs_err {r['max_abs_err']:.3g} (SDPA "
             f"{r['sdpa_err']:.3g}); kernel {r['ms']:.4f} ms, previous "
             f"kernel {r['previous_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -2738,6 +3108,30 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dl_moe(args.seed, dev)
     wall("17")
+
+    # -- 18. the LLM served over HTTP at full width ---------------------------
+    torch.cuda.empty_cache()
+    http = llm_http(model, prompts, new, outs[0]["sync"], dev)
+    direct = llm_runs[0]
+    direct_tokens = int(sum(len(o) for o in outs[0]["sync"].values()))
+    log(f"LLMServer llama3_1b bf16, 16 slots, {LLM_REQUESTS} requests "
+        f"(every other streamed), replies equal the direct engine's: "
+        f"{json.dumps(http)}")
+    log(f"HTTP {http['http_tokens_per_s']:.1f} tokens/s against the direct "
+        f"engine's {direct_tokens / direct['wall_s']:.1f} (tokens over the "
+        f"run's wall); decode {http['decode_tokens_per_s']:.1f} against "
+        f"{direct['decode_tokens_per_s']:.1f} tokens/s, step "
+        f"{http['mean_step_ms']:.3f} against {direct['mean_step_ms']:.3f} "
+        f"ms; client TTFT p50/p90 {http['ttfb_p50_ms']:.1f}/"
+        f"{http['ttfb_p90_ms']:.1f} ms against admit "
+        f"{direct['ttft_p50_ms']:.1f}/{direct['ttft_p90_ms']:.1f} ms; "
+        f"/sloz TTFT {json.dumps(http['sloz_ttft'])}")
+    wall("18")
+
+    # -- 19. fine-tune, then serve speculatively -------------------------------
+    torch.cuda.empty_cache()
+    p19 = finetune_serve(args.seed, dev)
+    wall("19")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 
@@ -2755,19 +3149,33 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], previous_ms=r["previous_ms"]))
-    # each K3 shape with its launches in the one LLM run that runs it
-    # (S=1 in the plain run, S>1 in the speculative run); a verify width
-    # the drafts never reached is checked above and left out here
+    # each K3 shape with its launches in the LLM runs that run it: phase
+    # 8's plain and speculative engines, phase 18's HTTP server and phase
+    # 19c's servers; a verify width the drafts never reached is checked
+    # in phase 6 and left out here.  Every shape a run launched must be
+    # one phase 6 held against the plain version
+    k3_runs = {"engine": llm_runs[0]["launches"],
+               "engine_spec": llm_runs[7]["launches"],
+               "http": http["launches"]}
+    for label in ("random_init", "finetuned"):
+        st = p19["serve"][label]
+        k3_runs[f"p19_{label}_plain"] = st["plain_launches"]
+        k3_runs[f"p19_{label}_spec"] = st["launches"]
+    unchecked = {k for sh in k3_runs.values() for k in sh} - set(k3)
+    if unchecked:
+        raise AssertionError(f"K3 launched at shapes phase 6 did not hold "
+                             f"against the plain version: {unchecked}")
     for key, r in k3.items():
-        run = llm_runs[0] if ",S=1," in key else llm_runs[7]
-        n = run["launches"].get(key, 0)
-        if n == 0:
+        by_run = {run: sh[key] for run, sh in k3_runs.items()
+                  if sh.get(key)}
+        if not by_run:
             continue
         kernels.append(dict(
             name=key, route="cuda",
             source="synapseml_tpu_torch/csrc/paged_attn.cu",
             replaces="synapseml_tpu/models/llm/pallas_attn.py:315",
-            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=sum(by_run.values()), launches_by_run=by_run,
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             previous_ms=r["previous_ms"]))

@@ -9,17 +9,21 @@ before it and reads :data:`BY_SHAPE` just after.
 A kernel recorded into a CUDA graph launches when the graph replays, not
 when the wrapper runs: inside :func:`recording` the wrapper's counts go
 to the recording instead, and each replay adds them with :func:`add`.
+A recording holds the counts of its own thread only: another thread's
+launches meanwhile go to :data:`BY_SHAPE`.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Optional
+import threading
+from typing import Dict, Iterator
 
 #: launches since the last :func:`reset`, keyed by :func:`launch_key`
 BY_SHAPE: Dict[str, int] = {}
-#: where :func:`count` goes while a CUDA graph captures (None: BY_SHAPE)
-_RECORDING: Optional[Dict[str, int]] = None
+#: ``.into``: where this thread's :func:`count` goes while it captures a
+#: CUDA graph (absent or None: BY_SHAPE)
+_RECORDING = threading.local()
 
 
 def launch_key(kernel: str, **dims) -> str:
@@ -30,7 +34,9 @@ def launch_key(kernel: str, **dims) -> str:
 
 def count(kernel: str, **dims) -> None:
     key = launch_key(kernel, **dims)
-    into = BY_SHAPE if _RECORDING is None else _RECORDING
+    into = getattr(_RECORDING, "into", None)
+    if into is None:
+        into = BY_SHAPE
     into[key] = into.get(key, 0) + 1
 
 
@@ -39,12 +45,11 @@ def recording() -> Iterator[Dict[str, int]]:
     """Counts made inside go into the yielded dict and not into
     :data:`BY_SHAPE`: wrap a CUDA graph's capture in it, and :func:`add`
     the dict at each replay."""
-    global _RECORDING
-    _RECORDING = {}
+    _RECORDING.into = {}
     try:
-        yield _RECORDING
+        yield _RECORDING.into
     finally:
-        _RECORDING = None
+        _RECORDING.into = None
 
 
 def add(counts: Dict[str, int]) -> None:

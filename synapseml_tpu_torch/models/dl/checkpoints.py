@@ -18,9 +18,10 @@ Torch ``Linear.weight`` is (out, in) and the port's ``Dense.kernel`` is
 (in, out), so every dense mapping transposes.  The safetensors reader
 parses the format itself (an 8-byte little-endian header length, a JSON
 header, then raw little-endian bytes; BF16 widens to f32), so no
-``safetensors`` package is needed.  ``flax_model.msgpack`` files need
-flax or msgpack and are not read (ROADMAP A3: the msgpack reader);
-``import_llama`` goes with ROADMAP A1.7.
+``safetensors`` package is needed, and ``flax_model.msgpack`` files go
+through the port's own decoder (:mod:`synapseml_tpu_torch.io.msgpack`),
+so neither ``flax`` nor ``msgpack`` is.  ``import_llama`` goes with
+ROADMAP A1.7.
 """
 
 from __future__ import annotations
@@ -33,8 +34,10 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["read_checkpoint", "import_bert", "import_resnet",
-           "load_into_params"]
+from ...io.msgpack import BF16Bits, restore, widen_bf16
+
+__all__ = ["read_checkpoint", "read_msgpack", "import_bert",
+           "import_resnet", "load_into_params"]
 
 #: safetensors dtype codes → numpy dtypes (BF16 is widened separately)
 _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -83,6 +86,37 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def _leaf_to_numpy(x) -> np.ndarray:
+    """A decoded msgpack leaf → numpy as the reference's ``_to_numpy``
+    gives it (bf16 widened to f32; lists and scalars through
+    ``np.asarray``)."""
+    if isinstance(x, BF16Bits):
+        return widen_bf16(x)
+    if isinstance(x, list):
+        return np.asarray([_leaf_to_numpy(v) if isinstance(v, (BF16Bits,
+                                                               list))
+                           else v for v in x])
+    return np.asarray(x)
+
+
+def read_msgpack(path: str) -> Dict[str, np.ndarray]:
+    """Every leaf of a flax ``msgpack`` checkpoint (``flax.serialization``'s
+    format, chunked leaves rejoined) under its ``"."``-joined tree path."""
+    with open(path, "rb") as f:
+        tree = restore(f.read())
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+        else:
+            flat[prefix] = _leaf_to_numpy(node)
+
+    walk("", tree)
+    return flat
+
+
 def _read_torch(path: str) -> Dict[str, np.ndarray]:
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "state_dict" in state:
@@ -115,10 +149,7 @@ def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
     if path.endswith(".safetensors"):
         return read_safetensors(path)
     if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: flax msgpack checkpoints need flax or msgpack and are "
-            "not read by the port yet (ROADMAP A3: the msgpack reader); "
-            "convert to safetensors or a torch state dict")
+        return read_msgpack(path)
     return _read_torch(path)
 
 

@@ -90,7 +90,12 @@ class Conv(nn.Module):
             (ht, hb), (wl, wr) = self.padding
         w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
         x = x.to(self.dtype)
-        if ht == hb and wl == wr:
+        # a strided convolution pads its input explicitly: PyTorch's CPU
+        # bf16 convolution leaves the weight gradient of a tap that only
+        # ever reads implicit padding unwritten (a stride-2 3x3 over a
+        # 1x1 map returns uninitialized memory there)
+        if ht == hb and wl == wr and (self.strides == (1, 1)
+                                      or ht == wl == 0):
             return F.conv2d(x, w, None, self.strides, (ht, wl))
         x = F.pad(x, (wl, wr, ht, hb)).contiguous(
             memory_format=torch.channels_last)

@@ -1,18 +1,65 @@
-"""Longest-common-prefix index over token-id sequences.
+"""Longest-common-prefix index over token-id sequences, and the KV
+tier's metric handles.
 
-A copy of :class:`RadixPrefixIndex` from the JAX package's
-``models/llm/kvtier.py`` (the host KV arena, session journal and transfer
-codec of that module are not ported yet: ROADMAP A1).  The slot engine
-keeps one index per tenant over its slots' contexts and finds the true
-longest reusable prefix with one trie walk: matching compares tokens, so
-no hash can collide.
+Copies of :class:`RadixPrefixIndex` and ``kvtier_metrics`` from the JAX
+package's ``models/llm/kvtier.py`` (the host KV arena, session journal
+and transfer codec of that module are not ported yet: ROADMAP A1.2).  The
+slot engine keeps one index per tenant over its slots' contexts and
+finds the true longest reusable prefix with one trie walk: matching
+compares tokens, so no hash can collide.  It observes its admission
+latency under ``kvtier_admit_latency_seconds{path="cold"}``, as the
+reference does without an arena.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["RadixPrefixIndex"]
+from ...telemetry import get_registry
+
+__all__ = ["RadixPrefixIndex", "kvtier_metrics"]
+
+
+@dataclasses.dataclass
+class _KVTierMetrics:
+    spills: Any
+    restores: Any
+    arena_bytes: Any
+    arena_evictions: Any
+    admit_latency: Any
+
+
+def kvtier_metrics() -> _KVTierMetrics:
+    """Get-or-create the plane's metric handles (the registry
+    deduplicates by name, so every engine and loop shares one set)."""
+    reg = get_registry()
+    return _KVTierMetrics(
+        spills=reg.counter(
+            "kvtier_spills_total",
+            "K/V spans spilled to the host arena", ("engine", "kind")),
+        restores=reg.counter(
+            "kvtier_restores_total",
+            "warm-restore attempts by source (host arena / session "
+            "journal) and outcome (ok, corrupt, miss, truncated — "
+            "every non-ok outcome fell back to cold prefill)",
+            ("engine", "source", "outcome")),
+        arena_bytes=reg.gauge(
+            "kvtier_arena_bytes",
+            "bytes resident in the host KV arena", ("engine",)),
+        arena_evictions=reg.counter(
+            "kvtier_arena_evictions_total",
+            "arena entries dropped (pressure = LRU tail under the byte "
+            "budget, superseded = covered by a longer spill, corrupt = "
+            "failed its checksum at fetch)", ("engine", "reason")),
+        admit_latency=reg.histogram(
+            "kvtier_admit_latency_seconds",
+            "slot-admission latency by path (restore = host-arena span "
+            "restored, cold = full prefill) — the restore-vs-cold "
+            "comparison surface", ("engine", "path"),
+            buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                     1.0, 2.5, 5.0)),
+    )
 
 
 class _RadixNode:

@@ -344,3 +344,19 @@ class LlamaModel(nn.Module):
         if cache is not None:
             return logits, cache
         return logits
+
+
+def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy over shifted targets (f32): the mean over
+    every position, or over the positions whose next token ``mask``
+    keeps."""
+    targets = input_ids[:, 1:].long()
+    pred = logits[:, :-1].float()
+    losses = torch.nn.functional.cross_entropy(
+        pred.reshape(-1, pred.shape[-1]), targets.reshape(-1),
+        reduction="none").reshape(targets.shape)
+    if mask is not None:
+        m = mask[:, 1:].float()
+        return (losses * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return losses.mean()

@@ -41,13 +41,20 @@ verify positions only ever land at positions strictly beyond a slot's
 current length; decode writes position ``q`` BEFORE attending ``<= q``,
 so every attendable key was written by the slot's current occupant.
 
-Warm-up (``warmup="sync"``) is the compile plane of :mod:`.warmup`: it
-builds the kernels, captures the decode step and every verify width as
-CUDA graphs over the live cache, and the steps replay them.  Not ported
-yet (each raises ``NotImplementedError`` naming ROADMAP A1): background
-warm-up, the host KV arena (``kv_arena``), the step profiler and the
-metrics registry; the counters are plain attributes.  There is no tuning
-table: the prefill bucket floor is 8 and the paged geometry the gate's
+Warm-up (``warmup="sync"`` or ``"background"``) is the compile plane of
+:mod:`.warmup`: it builds the kernels, captures the decode step and every
+verify width as CUDA graphs over the live cache, and the steps replay
+them; ``"background"`` warms on the plane's own thread and
+:meth:`SlotEngine.admission_ready` holds admissions until it is done.
+
+The serving loop (``serving.server._DecodeLoop``) reads the engine
+through the reference's duck-typed hooks: ``trace_sink`` (per-slot
+decode/verify outcomes), :meth:`~SlotEngine.min_remaining_tokens`,
+:meth:`~SlotEngine.tokens_per_step_estimate` and the registry's
+``llm_*`` series under the reference's names and labels.  Not ported
+yet: the host KV arena (``kv_arena``, ROADMAP A1.2) and the step
+profiler (ROADMAP A6).  There is no tuning table (A6): the prefill bucket
+floor is ``min_bucket`` (default 8) and the paged geometry the gate's
 default, the reference's no-table choices.
 """
 
@@ -62,9 +69,10 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
+from ...telemetry import get_registry
 from .drafter import NgramDrafter
 from .generate import sample_logits
-from .kvtier import RadixPrefixIndex
+from .kvtier import RadixPrefixIndex, kvtier_metrics
 from .model import LlamaModel, init_cache
 from .paged_attn import (_itemsize, check_kernel_layout, dense_read_bytes,
                          paged_geometry, paged_read_bytes,
@@ -147,16 +155,21 @@ class SlotEngine:
     interleaves :meth:`admit` and :meth:`step` freely.  Greedy output is
     token-exact with the dense-cache :func:`~.generate.generate` path.
     The cache lives on ``device`` (default ``"cuda"``; raises without a
-    card unless ``device="cpu"``), which must be the model's."""
+    card unless ``device="cpu"``), which must be the model's.  ``name``
+    labels the engine's registry series."""
 
     def __init__(self, model: LlamaModel, n_slots: int = 16,
                  max_len: Optional[int] = None, *,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, eos_id: Optional[int] = None,
-                 pad_id: int = 0, min_prefix: int = 8, seed: int = 0,
+                 pad_id: int = 0, min_prefix: int = 8,
+                 min_bucket: Optional[int] = None, seed: int = 0,
+                 name: str = "llm",
                  attention_backend: str = "auto", step_profiler=None,
-                 spec_draft_len: int = 0, warmup: Any = "off",
-                 kv_arena=None, device: DeviceLike = "cuda"):
+                 spec_draft_len: int = 0, spec_ngram: int = 3,
+                 spec_adapt: bool = True, trace_sink=None,
+                 warmup: Any = "off", kv_arena=None,
+                 device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device} but "
@@ -164,7 +177,7 @@ class SlotEngine:
         if kv_arena is not None:
             raise NotImplementedError(
                 "kv_arena (the host KV tier) is not ported yet "
-                "(ROADMAP A1: kvtier arena and journal)")
+                "(ROADMAP A1.2: kvtier arena, session journal and resume)")
         # the compile plane: 'sync' warms the whole program lattice
         # before the constructor returns (a failure raises here); 'off'
         # runs every step eagerly
@@ -175,15 +188,10 @@ class SlotEngine:
         if warmup not in ("off", "sync", "background"):
             raise ValueError(f"warmup={warmup!r}: must be 'off', 'sync', "
                              "or 'background'")
-        if warmup == "background":
-            raise NotImplementedError(
-                "warmup='background' (warming on a thread behind the "
-                "/readyz gate) is not ported yet (ROADMAP A1.1: LLMServer, "
-                "background warm-up and /readyz)")
         if step_profiler is not None:
             raise NotImplementedError(
-                "step_profiler is not ported yet (ROADMAP A1: LLMServer + "
-                "_DecodeLoop + QoS/SLO/tracing)")
+                "step_profiler is not ported yet (ROADMAP A6: "
+                "telemetry/gangplane.py StepProfiler)")
         self.model = model
         self.cfg = model.cfg
         self.n_slots = int(n_slots)
@@ -213,23 +221,31 @@ class SlotEngine:
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
         self.min_prefix = max(1, int(min_prefix))
+        self.name = name
+        #: optional request-trace hook ``sink(slot, event, **attrs)``: the
+        #: serving loop installs one mapping slots to trace ids, and the
+        #: engine reports each slot's step outcome through it (``decode``
+        #: with tokens=1, ``verify`` with the drafted/accepted/committed
+        #: span sizes)
+        self.trace_sink = trace_sink
         self.spec_draft_len = max(0, int(spec_draft_len))
+        self.spec_adapt = bool(spec_adapt)
         if self.spec_draft_len and self.temperature > 0:
             raise ValueError(
                 "spec_draft_len > 0 requires greedy decoding "
                 "(temperature <= 0): speculative verification accepts a "
                 "draft token only when it equals the model's argmax, "
                 "which is only the sampling rule at temperature 0")
-        self._drafter = (NgramDrafter(self.n_slots)
+        self._drafter = (NgramDrafter(self.n_slots, ngram=int(spec_ngram))
                          if self.spec_draft_len else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.cache = init_cache(self.cfg, self.n_slots, self.max_len,
                                 self.device)
-        # prompt-length buckets: powers of two from 8 (the reference's
-        # floor without a tuning table) up to max_len
+        # prompt-length buckets: powers of two from min_bucket (8, the
+        # reference's floor without a tuning table) up to max_len
         buckets = []
-        b = 8
+        b = max(1, int(8 if min_bucket is None else min_bucket))
         while b < self.max_len:
             buckets.append(b)
             b *= 2
@@ -256,7 +272,46 @@ class SlotEngine:
             else 0
         self._spec_k = np.full(n, self._spec_k0, np.int64)
         self._spec_ewma = np.ones(n)
+        reg = get_registry()
+        self._m_admit = reg.counter(
+            "llm_admissions_total", "sequences admitted into a slot",
+            ("engine", "tenant"))
+        self._m_evict = reg.counter(
+            "llm_evictions_total", "sequences retired from a slot",
+            ("engine", "reason", "tenant"))
+        self._m_tokens = reg.counter(
+            "llm_engine_tokens_total", "tokens generated by the engine",
+            ("engine",))
+        self._m_reuse = reg.counter(
+            "llm_prefix_reuse_total", "admissions served a reused prefix",
+            ("engine",))
+        self._m_reuse_tok = reg.counter(
+            "llm_prefix_tokens_reused_total",
+            "prompt tokens copied from a cached prefix instead of "
+            "prefilled", ("engine",))
+        self._m_occ = reg.gauge(
+            "llm_slot_occupancy", "active slots / total slots", ("engine",))
+        self._m_decode_bytes = reg.gauge(
+            "llm_decode_bytes_per_token",
+            "decode-attention K/V bytes read per generated token this "
+            "step (exact DMA ledger for the paged kernel; the full-"
+            "capacity read model for dense)", ("engine", "backend"))
+        self._m_spec_span = reg.histogram(
+            "llm_spec_accepted_span_size",
+            "tokens committed per slot per speculative verify step "
+            "(accepted draft prefix + the bonus token)", ("engine",),
+            buckets=(1, 2, 3, 4, 5, 6, 8, 12, 16))
+        self._m_spec_hit = reg.counter(
+            "llm_spec_draft_hit_total",
+            "slot-steps where the n-gram drafter proposed a span",
+            ("engine",))
+        self._m_spec_miss = reg.counter(
+            "llm_spec_draft_miss_total",
+            "slot-steps where the n-gram drafter had no match (the slot "
+            "rode the plain one-token step)", ("engine",))
+        self._mkv = kvtier_metrics()
         self.admissions = 0
+        self.evictions = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
         self.tokens_generated = 0
@@ -274,10 +329,12 @@ class SlotEngine:
         self.spec_accepted = 0
         self.spec_draft_hits = 0
         self.spec_draft_misses = 0
+        self._tps_ewma: Optional[float] = None
         self.compile_plane = None
-        if warmup == "sync":
+        if warmup != "off":
             from .warmup import CompilePlane
-            self.compile_plane = CompilePlane(self).start(background=False)
+            self.compile_plane = CompilePlane(self).start(
+                background=warmup == "background")
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -292,6 +349,23 @@ class SlotEngine:
     def spec_acceptance_rate(self) -> float:
         """Accepted / drafted tokens, cumulative."""
         return self.spec_accepted / max(1, self.spec_drafted)
+
+    def min_remaining_tokens(self) -> Optional[int]:
+        """Smallest remaining token budget across active slots — the
+        soonest a slot can free up (the serving loop's SLO-projection
+        numerator).  None when no slot is active."""
+        if not self.active.any():
+            return None
+        return int((self._max_new - self._generated)[self.active].min())
+
+    def tokens_per_step_estimate(self) -> float:
+        """Committed tokens per slot per engine step, an EWMA over recent
+        steps, >= 1.0 (a plain step commits one token per active slot):
+        the serving loop divides its remaining-token floor by it."""
+        return max(1.0, self._tps_ewma or 1.0)
+
+    def _set_occupancy(self) -> None:
+        self._m_occ.set(self.active_count / self.n_slots, engine=self.name)
 
     # -- compile plane -----------------------------------------------------
     def _program_region(self, key: str):
@@ -482,6 +556,7 @@ class SlotEngine:
         slot = self._pick_slot()
         if slot is None:
             return None
+        t0 = time.perf_counter()
         tenant = str(tenant)
         # the slot's tenant is set BEFORE any cache lookup: _best_prefix
         # and _register_prefix scope themselves by it
@@ -494,6 +569,8 @@ class SlotEngine:
             # src == slot: in-place resume, the K/V is already there
             self.prefix_hits += 1
             self.prefix_tokens_reused += lcp
+            self._m_reuse.inc(1, engine=self.name)
+            self._m_reuse_tok.inc(lcp, engine=self.name)
         else:
             lcp = 0
         tail = prompt[lcp:]
@@ -519,10 +596,15 @@ class SlotEngine:
             self._spec_ewma[slot] = 1.0
             self._drafter.begin(slot, self.ctx[slot], plen + 1)
         self.admissions += 1
+        self._m_admit.inc(1, engine=self.name, tenant=tenant)
         self.tokens_generated += 1
+        self._m_tokens.inc(1, engine=self.name)
         finished, reason = self._finish_reason(slot, tok)
         if finished:
             self._retire(slot, reason)
+        self._set_occupancy()
+        self._mkv.admit_latency.observe(time.perf_counter() - t0,
+                                        engine=self.name, path="cold")
         return AdmitResult(slot, tok, finished, lcp, logits, bucket=pb,
                            reason=reason)
 
@@ -538,6 +620,9 @@ class SlotEngine:
     def _retire(self, slot: int, reason: str) -> None:
         self.active[slot] = False
         self._retired_at[slot] = time.monotonic()
+        self.evictions += 1
+        self._m_evict.inc(1, engine=self.name, reason=reason,
+                          tenant=self._slot_tenant[slot])
         span = int(self.kv_len[slot])
         if reason != "reset" and span >= self.min_prefix:
             # re-index the slot under its FULL retired context (prompt +
@@ -568,6 +653,7 @@ class SlotEngine:
         self._retire(slot, "preempted")
         if self._drafter is not None:
             self._drafter.forget(slot)
+        self._set_occupancy()
         return ticket
 
     def resume(self, ticket: Dict[str, Any]) -> Optional[int]:
@@ -620,12 +706,14 @@ class SlotEngine:
             self._spec_k[slot] = self._spec_k0
             self._spec_ewma[slot] = 1.0
             self._drafter.begin(slot, self.ctx[slot], ln)
+        self._set_occupancy()
         return slot
 
     def cancel(self, slot: int) -> None:
         """Retire ``slot`` early; its K/V stays as prefix material."""
         if self.active[slot]:
             self._retire(slot, "cancelled")
+            self._set_occupancy()
 
     def reset(self) -> None:
         """Clear every slot and zero the cache in place (after a failed
@@ -646,6 +734,7 @@ class SlotEngine:
                 self._drafter.forget(slot)
             self._spec_k[:] = self._spec_k0
             self._spec_ewma[:] = 1.0
+        self._m_occ.set(0.0, engine=self.name)
 
     def _decode_step_args(self) -> np.ndarray:
         """Per-slot live lengths for THIS step, inactive slots at 1: the
@@ -655,11 +744,12 @@ class SlotEngine:
         needed."""
         return np.where(self.active, self.lengths, 1)
 
-    def _account_decode_bytes(self, spans: np.ndarray) -> None:
+    def _account_decode_bytes(self, spans: np.ndarray, served: int) -> None:
         """Add one step's decode-attention K/V bytes in the reference's
         ledger (the paged read over ``spans``, every slot included, or the
-        full-capacity dense read) to :attr:`decode_attn_bytes`, and the
-        exact live-span bytes to :attr:`decode_attn_live_bytes`."""
+        full-capacity dense read) to :attr:`decode_attn_bytes` and, per
+        token ``served``, to the ``llm_decode_bytes_per_token`` gauge; the
+        exact live-span bytes go to :attr:`decode_attn_live_bytes`."""
         cfg = self.cfg
         itemsize = _itemsize(cfg.dtype)
         if self._paged_geo is not None:
@@ -676,6 +766,8 @@ class SlotEngine:
                 itemsize, cfg.num_layers)
         self.decode_attn_bytes += nbytes
         self.decode_attn_live_bytes += live
+        self._m_decode_bytes.set(nbytes / max(1, served), engine=self.name,
+                                 backend=self.attention_backend)
 
     def step(self) -> List[StepEvent]:
         """One decode step across every active slot → the per-slot events
@@ -693,10 +785,16 @@ class SlotEngine:
         return self._finish_step(self._plain_step())
 
     def _finish_step(self, events: List[StepEvent]) -> List[StepEvent]:
+        """Retirement, counters and the per-slot tokens-per-step EWMA."""
         for ev in events:
             if ev.finished:
                 self._retire(ev.slot, ev.reason)
         self.steps_run += 1
+        tps = len(events) / max(1, len({ev.slot for ev in events}))
+        self._tps_ewma = (tps if self._tps_ewma is None
+                          else 0.8 * self._tps_ewma + 0.2 * tps)
+        self._m_tokens.inc(len(events), engine=self.name)
+        self._set_occupancy()
         return events
 
     def _plain_step(self) -> List[StepEvent]:
@@ -707,7 +805,7 @@ class SlotEngine:
                           self.ctx[idx, np.maximum(self.lengths - 1, 0)],
                           self.pad_id).astype(np.int32)
         nxt = self._decode_step(tokens, lengths)
-        self._account_decode_bytes(lengths)
+        self._account_decode_bytes(lengths, int(self.active.sum()))
         events: List[StepEvent] = []
         for slot in np.flatnonzero(self.active):
             slot = int(slot)
@@ -720,6 +818,8 @@ class SlotEngine:
             self.tokens_generated += 1
             if self._drafter is not None:
                 self._drafter.extend(slot, self.ctx[slot], ln, ln + 1)
+            if self.trace_sink is not None:
+                self.trace_sink(slot, "decode", tokens=1)
             finished, reason = self._finish_reason(slot, tok)
             events.append(StepEvent(slot, tok, finished, reason))
         return events
@@ -751,6 +851,10 @@ class SlotEngine:
                 misses += 1
         self.spec_draft_hits += hits
         self.spec_draft_misses += misses
+        if hits:
+            self._m_spec_hit.inc(hits, engine=self.name)
+        if misses:
+            self._m_spec_miss.inc(misses, engine=self.name)
         return out
 
     def _spec_bucket(self, max_k: int, s_cap: int) -> int:
@@ -781,6 +885,7 @@ class SlotEngine:
             klen[slot] = len(d)
         g = self._verify_forward(tokens, lengths)
         self.spec_steps += 1
+        served = 0
         events: List[StepEvent] = []
         for slot in np.flatnonzero(self.active):
             slot = int(slot)
@@ -808,19 +913,25 @@ class SlotEngine:
             self.kv_len[slot] = ln + c - 1
             self._generated[slot] += c
             self.tokens_generated += c
+            served += c
             if k_s:
                 self.spec_drafted += k_s
                 self.spec_accepted += min(a, k_s)
-                self._adapt_slot(slot, min(a, k_s) / k_s)
+                self._m_spec_span.observe(c, engine=self.name)
+                if self.spec_adapt:
+                    self._adapt_slot(slot, min(a, k_s) / k_s)
             if self._drafter is not None:
                 self._drafter.extend(slot, self.ctx[slot], ln, ln + c)
+            if self.trace_sink is not None:
+                self.trace_sink(slot, "verify", tokens=c, drafted=k_s,
+                                accepted=min(a, k_s) if k_s else 0)
             finished, reason = self._finish_reason(slot, int(commit[-1]))
             for j, tok in enumerate(commit):
                 last = j == c - 1
                 events.append(StepEvent(slot, int(tok),
                                         finished and last,
                                         reason if last else None))
-        self._account_decode_bytes(lengths + (S - 1))
+        self._account_decode_bytes(lengths + (S - 1), served)
         return events
 
     def _adapt_slot(self, slot: int, acceptance: float) -> None:

@@ -26,16 +26,27 @@ gate then rewrites each row with the values it holds, so the cache stays
 bitwise unchanged.  The graphs share one memory pool, the widest
 captured first.  On the CPU the same static-buffer dispatch runs eagerly.
 
-:class:`CompilePlane` keeps plain counters in place of the reference's
-metrics registry: ``programs_warm``, ``replays`` and ``stalls`` (a
-program that first ran inside the serving loop).  Background warm-up
-behind ``/readyz`` is not ported (ROADMAP A1.1).
+:class:`CompilePlane` keeps plain counters: ``programs_warm``,
+``replays`` and ``stalls`` (a program that first ran inside the serving
+loop).  ``start(background=True)`` warms the lattice on the plane's own
+thread (the ``/readyz`` gate of ``serving.LLMServer`` answers 503
+"warming" until it is done).  Until the plane is warm,
+:meth:`CompilePlane.admission_ready` is False for every prompt, so a
+serving loop touches the device only after the last capture: nothing
+else launches work while a graph captures.  Every capture uses
+``capture_error_mode="thread_local"``, so CUDA calls that other threads
+make meanwhile (allocations, a listener's work, another engine's steps)
+do not invalidate it, and the captures of all the process's planes take
+turns under one lock (``_CAPTURE_LOCK``); :meth:`CompilePlane.snapshot`
+reads no device state.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -49,6 +60,12 @@ from .slots import (PREFIX_COPY_KEY, _next_pow2, _prefill_program_key,
 
 __all__ = ["CompilePlane", "EXEMPT_METHODS", "PROGRAM_METHODS",
            "ProgramSpec", "StepGraph", "program_lattice"]
+
+#: held for the whole of every graph capture in the process: two planes
+#: warming at once (two servers starting together) capture in turn, and
+#: the cyclic collector, which is process-wide, comes back on only once
+#: the capture that turned it off has ended
+_CAPTURE_LOCK = threading.Lock()
 
 #: the engine methods that run a program of the lattice, by the kinds
 #: they run (the entry-point sweep's contract: a new method that runs the
@@ -167,9 +184,21 @@ class StepGraph:
                 self._program()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with launches.recording() as counts, \
-                torch.cuda.graph(graph, pool=pool):
-            self.out = self._program()
+        # no cyclic collection while the stream captures: a collection
+        # run by this thread could free an unreachable engine's graphs or
+        # pinned buffers, whose destructors may not run during a capture
+        # (torch.cuda.graph collects once before it begins)
+        with _CAPTURE_LOCK:
+            gc_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with launches.recording() as counts, \
+                        torch.cuda.graph(graph, pool=pool,
+                                         capture_error_mode="thread_local"):
+                    self.out = self._program()
+            finally:
+                if gc_enabled:
+                    gc.enable()
         self.graph, self.counts = graph, counts
 
     @torch.no_grad()
@@ -193,14 +222,24 @@ class CompilePlane:
     through captured graphs.
 
     States: ``cold`` (created) → ``warming`` (lattice running) → ``warm``
-    (every program warm; ``warmup_seconds`` set), or ``failed`` when a
-    program raised — :meth:`start` then re-raises, and the engine's
-    constructor with it: there is no silent eager path."""
+    (every program warm; ``warmup_seconds`` and ``ready_at`` set), or
+    ``failed`` when a program raised — a synchronous :meth:`start` then
+    re-raises, and the engine's constructor with it; a background one
+    keeps the error in ``error`` (:meth:`wait` raises it), and its engine
+    admits nothing: there is no silent eager path."""
 
     def __init__(self, engine):
         self.engine = engine
         self.status = "cold"
         self.warmup_seconds: Optional[float] = None
+        #: ``time.monotonic()`` when the plane turned warm
+        self.ready_at: Optional[float] = None
+        #: the exception a background warm-up failed with
+        self.error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        #: the pool's bytes as of the last capture (the snapshot reads no
+        #: device state)
+        self._pool_bytes = 0
         #: step dispatches through the plane's graphs (eager runs of the
         #: same buffers on the CPU)
         self.replays = 0
@@ -232,30 +271,50 @@ class CompilePlane:
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def snapshot(self) -> Dict[str, Any]:
-        """State, progress, timings and counters."""
+        """State, progress, timings and counters (host values only: the
+        ``/readyz`` and ``/metrics`` handlers call it from the listener's
+        thread, never touching the device)."""
         out = {"state": self.status, "programs_warm": self.programs_warm,
                "programs_total": len({s.key for s in self._specs}
                                      | self._warmed),
                "replays": self.replays, "stalls": self.stalls,
-               "pool_bytes": self.pool_bytes()}
+               "pool_bytes": self._pool_bytes}
         if self.warmup_seconds is not None:
             out["warmup_seconds"] = self.warmup_seconds
+        if self.error is not None:
+            out["error"] = repr(self.error)
         return out
 
     # -- warm-up -----------------------------------------------------------
     def start(self, background: bool = False) -> "CompilePlane":
-        """Warm the whole lattice inline: the kernel build first, then the
-        step graphs widest first (the narrower captures reuse the pool
-        memory the wider one released), then the prefix copy and the
-        prefill buckets."""
-        if background:
-            raise NotImplementedError(
-                "background warm-up is not ported yet (ROADMAP A1.1: "
-                "LLMServer, background warm-up and /readyz)")
+        """Warm the whole lattice: the kernel build first, then the step
+        graphs widest first (the narrower captures reuse the pool memory
+        the wider one released), then the prefix copy and the prefill
+        buckets — inline, or on the plane's own thread with
+        ``background=True`` (:meth:`wait` joins it)."""
         if self.status != "cold":
             return self
         self.status = "warming"
         self._specs = program_lattice(self.engine)
+        if not background:
+            self._warm()
+            return self
+        self._thread = threading.Thread(
+            target=self._warm_in_background, daemon=True,
+            name=f"compile-plane-{getattr(self.engine, 'name', 'llm')}")
+        self._thread.start()
+        return self
+
+    def _warm_in_background(self) -> None:
+        try:
+            dev = self.engine.device
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                self._warm()
+        except BaseException as e:      # kept for wait() and the snapshot
+            self.error = e
+
+    def _warm(self) -> None:
         t0 = time.perf_counter()
         try:
             for spec in sorted(self._specs,
@@ -264,14 +323,25 @@ class CompilePlane:
                 self._warmed.add(spec.key)
             if self.engine.device.type == "cuda":
                 torch.cuda.synchronize(self.engine.device)
-        except Exception:
+            self._pool_bytes = self.pool_bytes()
+        except BaseException:
             self.status = "failed"
             raise
         finally:
             self._scratch_cache = None
         self.warmup_seconds = time.perf_counter() - t0
+        self.ready_at = time.monotonic()
         self.status = "warm"
-        return self
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Join a background warm-up; True once warm.  Raises the error a
+        failed warm-up raised."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+        if self.error is not None:
+            raise RuntimeError(f"compile-plane warm-up failed: "
+                               f"{self.error!r}") from self.error
+        return self.is_warm
 
     def _scratch(self):
         """The 2-row cache the eager programs warm on."""
@@ -298,20 +368,16 @@ class CompilePlane:
             self._warmed.add(_step_program_key(
                 self.engine.attention_backend, S))
             self.stalls += 1
+            self._pool_bytes = self.pool_bytes()
         self.replays += 1
         return graph.replay(packed)
 
     def admission_ready(self, prompt_len: int) -> bool:
-        """Can a ``prompt_len``-token prompt admit without running a
-        program the plane has not warmed?  True once warm; otherwise only
-        when every non-prefill program and the prompt's prefill bucket
-        are warm."""
-        if self.is_warm:
-            return True
-        base = all(s.key in self._warmed for s in self._specs
-                   if s.kind != "prefill")
-        return base and _prefill_program_key(
-            self.engine._bucket(prompt_len)) in self._warmed
+        """Can a ``prompt_len``-token prompt admit?  Only once the whole
+        lattice is warm: a partly warm plane may still be capturing on its
+        own thread, and an admission's launches would land inside that
+        capture."""
+        return self.is_warm
 
     @contextlib.contextmanager
     def step_region(self, key: str):

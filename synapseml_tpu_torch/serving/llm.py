@@ -1,0 +1,194 @@
+"""Continuous-batching LLM serving: one listener + slotted decode loop.
+
+The PyTorch port of the JAX package's ``serving/llm.py``.
+:class:`LLMServer` wires a :class:`~.server.ServingServer` to the port's
+:class:`~synapseml_tpu_torch.models.llm.SlotEngine` through the
+:class:`~.server._DecodeLoop` scheduler, so requests are admitted into
+KV-cache slots *every decode step* instead of waiting for a full batch.
+
+Request body (JSON, POST to the api path)::
+
+    {"ids": [1, 2, 3], "max_new_tokens": 32}          # raw token ids
+    {"prompt": "text", "stream": true}                 # with a tokenizer
+
+Replies carry ``{"ids": [...]}`` (plus ``"completion"`` when a
+tokenizer is configured); ``stream: true`` switches to a chunked body
+with one ``{"token": id}`` JSON line per generated token and a final
+``{"done": true, ...}`` line.  Load shedding, ``Retry-After``, drain
+semantics, and ``/metrics``/``/healthz``/``/readyz``/``/tracez``/
+``/sloz`` are the reference's serving contract.
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP item before any work: the host KV arena and the session journal
+(``kv_arena``, ``kv_arena_bytes``, ``journal``, ``journal_dir``, and
+``{"session", "resume"}`` requests: A1.2) and disaggregated prefill
+(``prefill_pool``: A8, ``serving/disagg.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+from .server import ServingRequest, ServingServer, _DecodeLoop
+
+#: ROADMAP items of the refused knobs
+_KV_TIER = "ROADMAP A1.2: the kvtier host arena, session journal and resume"
+_DISAGG = "ROADMAP A8: serving/disagg.py PrefillPool"
+
+
+class LLMServer:
+    """Serve an LLM with continuous batching over a slotted KV cache.
+
+    ``model`` (a :class:`~synapseml_tpu_torch.models.llm.LlamaModel`,
+    which holds its parameters) builds a
+    :class:`~synapseml_tpu_torch.models.llm.SlotEngine` on ``device``
+    (default ``"cuda"``, which raises without a card unless
+    ``device="cpu"``); or pass a prebuilt ``engine=`` on that device.
+    ``tokenizer`` (optional, ``encode``/``decode``) lets requests carry
+    ``"prompt"`` text instead of raw ``"ids"``.  ``ttft_slo_s`` arms
+    SLO-aware admission control: queued requests whose projected
+    time-to-first-token exceeds it answer 503 + ``Retry-After`` — and it
+    doubles as the windowed SLO plane's TTFT objective (``GET /sloz``;
+    ``token_slo_s`` optionally declares a per-token one).  Every request
+    is traced at admission (sampling via ``trace_sample_every``;
+    ``GET /tracez``) and the propagated ``X-SML-Trace-Id`` header keeps
+    cross-replica hops attributable.  ``attention_backend`` selects the
+    decode-step attention read (``'auto'`` = the paged K3 kernel when the
+    geometry fits).  ``spec_draft_len`` turns on speculative decoding
+    (greedy only).  ``warmup`` (``'background'``/``'sync'``; default
+    ``'off'``) arms the compile plane: ``'background'`` returns at once
+    and ``/readyz`` answers 503 ``"warming"`` until the plane's thread
+    has built the kernels and captured every step graph; the decode loop
+    holds queued requests until then."""
+
+    def __init__(self, model: Any = None, *, engine: Any = None,
+                 tokenizer: Any = None, n_slots: int = 16, max_len: Optional[int] = None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 api_path: str = "/generate",
+                 max_new_tokens_default: int = 32,
+                 ttft_slo_s: Optional[float] = None,
+                 token_slo_s: Optional[float] = None,
+                 eos_id: Optional[int] = None, pad_id: int = 0,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, min_prefix: int = 8,
+                 max_queue: int = 1024, reply_timeout_s: float = 30.0,
+                 attention_backend: str = "auto",
+                 spec_draft_len: int = 0, spec_ngram: int = 3,
+                 trace_sample_every: Optional[int] = None,
+                 warmup: str = "off",
+                 kv_arena: Any = None,
+                 kv_arena_bytes: Optional[int] = None,
+                 journal: Any = None,
+                 journal_dir: Optional[str] = None,
+                 qos: Any = None,
+                 tenant_policies: Optional[Dict[str, Any]] = None,
+                 max_tenants: int = 256,
+                 prefill_pool: Any = None,
+                 engine_kwargs: Optional[Dict[str, Any]] = None,
+                 device: Any = "cuda"):
+        if kv_arena is not None or kv_arena_bytes:
+            raise NotImplementedError(
+                f"kv_arena / kv_arena_bytes are not ported yet ({_KV_TIER})")
+        if journal is not None or journal_dir:
+            raise NotImplementedError(
+                f"journal / journal_dir are not ported yet ({_KV_TIER})")
+        if prefill_pool is not None:
+            raise NotImplementedError(
+                f"prefill_pool is not ported yet ({_DISAGG})")
+        from ..device import resolve_device
+        dev = resolve_device(device)
+        if engine is None:
+            from ..models.llm import SlotEngine
+            engine = SlotEngine(model, n_slots=n_slots, max_len=max_len,
+                                temperature=temperature, top_k=top_k,
+                                top_p=top_p, eos_id=eos_id, pad_id=pad_id,
+                                min_prefix=min_prefix,
+                                attention_backend=attention_backend,
+                                spec_draft_len=spec_draft_len,
+                                spec_ngram=spec_ngram, warmup=warmup,
+                                device=dev, **(engine_kwargs or {}))
+        elif engine.device != dev:
+            raise ValueError(f"the engine is on {engine.device} but "
+                             f"device={str(device)!r}")
+        self.engine = engine
+        self.tokenizer = tokenizer
+        self.server = ServingServer(host, port, api_path,
+                                    reply_timeout_s=reply_timeout_s,
+                                    max_queue=max_queue)
+        # compile-plane readiness gate: with a warming engine /readyz
+        # answers 503 "warming" (with the plane's snapshot, host values
+        # only) until every program is warm, so a balancer never routes
+        # traffic here early; direct requests queue and the decode loop
+        # holds them until the plane is warm
+        plane = getattr(engine, "compile_plane", None)
+        if plane is not None:
+            self.server.health.set_warmup(plane.snapshot)
+        # multi-tenant QoS: a prebuilt QosScheduler via qos=, or just
+        # per-tenant TenantPolicy contracts via tenant_policies= —
+        # requests carry their tenant in the X-SML-Tenant header or the
+        # "tenant" payload field; max_tenants bounds the dynamic
+        # (unregistered) tenant ids that may materialise planes
+        if qos is None and tenant_policies is not None:
+            from .qos import QosScheduler
+            qos = QosScheduler(policies=dict(tenant_policies))
+        self.qos = qos
+        self._loop = _DecodeLoop(
+            self.server, self.server._default, engine,
+            input_parser=self._parse,
+            output_formatter=self._format,
+            max_new_tokens_default=max_new_tokens_default,
+            ttft_slo_s=ttft_slo_s, token_slo_s=token_slo_s,
+            trace_sample_every=trace_sample_every,
+            qos=qos, max_tenants=max_tenants)
+        # the loop constructs a default scheduler when none was given —
+        # surface THAT one so callers can set policies/read attribution
+        if self.qos is None:
+            self.qos = self._loop.qos
+
+    # -- request/reply shaping --------------------------------------------
+    def _parse(self, req: ServingRequest) -> Dict[str, Any]:
+        body = req.json()
+        if body.get("resume"):
+            raise NotImplementedError(
+                f"session resume is not ported yet ({_KV_TIER})")
+        if "ids" in body:
+            spec = dict(body)
+        elif "prompt" in body and self.tokenizer is not None:
+            # budget prompt tokens against the engine window, leaving
+            # room for the continuation (LLMTransformer's contract)
+            budget = self.engine.max_len - int(
+                body.get("max_new_tokens",
+                         self._loop.max_new_tokens_default)) - 1
+            rows = self.tokenizer.encode([str(body["prompt"])],
+                                         max(budget, 1))[0]
+            ids = [int(t) for t in rows[0] if t]
+            spec = dict(body, ids=ids or [0])
+        else:
+            raise ValueError('request needs "ids" (or "prompt" with a '
+                             "tokenizer configured)")
+        return spec
+
+    def _format(self, ids: List[int]) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"ids": [int(t) for t in ids]}
+        if self.tokenizer is not None:
+            out["completion"] = self.tokenizer.decode([ids])[0]
+        return out
+
+    # -- server surface ----------------------------------------------------
+    @property
+    def url(self) -> str:
+        return self.server.url
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Graceful shutdown with the serving zero-drop contract:
+        the listener sheds NEW work immediately, the decode loop keeps
+        running so every in-flight sequence decodes to completion (or
+        answers a clean 503 + ``Retry-After`` when its projected TTFT is
+        already past the SLO), and only then does the loop stop."""
+        drained = self.server.drain(timeout_s)
+        self._loop.stop()
+        return drained
+
+    def close(self) -> None:
+        self._loop.stop()
+        self.server.close()

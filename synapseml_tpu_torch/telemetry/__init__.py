@@ -1,0 +1,50 @@
+"""Telemetry of the PyTorch port: metrics registry, span and request
+tracing, exposition, atomic artifacts, the flight recorder and the
+windowed SLO plane.
+
+Copies of the JAX package's stdlib-only ``telemetry`` modules, imports
+aside:
+
+- :mod:`.registry` — process-wide ``Counter``/``Gauge``/``Histogram``
+  with label sets; thread-safe, resettable (``get_registry()``).
+- :mod:`.tracing` — nested host-side spans with Chrome-trace export and
+  the per-request trace store behind ``GET /tracez``.
+- :mod:`.exposition` — Prometheus text + JSON rendering; served by
+  ``ServingServer`` at ``GET /metrics``.
+- :mod:`.artifact` — atomic, round-trip-verified JSON artifact writes.
+- :mod:`.flight` — the crash flight recorder's bounded event ring.
+- :mod:`.slo` — sliding-window percentile digests and SLO burn rates,
+  served at ``GET /sloz``.
+
+The autotuner, the gang plane (``StepProfiler``), the roofline auditor
+and the tuning table are ROADMAP A6.
+"""
+
+from .artifact import (SchemaError, check_schema, dumps_checked, read_json,
+                       write_json)
+from .exposition import (PROMETHEUS_CONTENT_TYPE, render_json,
+                         render_prometheus)
+from .flight import FlightRecorder, get_flight
+from .registry import (DEFAULT_BUCKETS, SERVING_TOKEN_LATENCY_BUCKETS,
+                       SERVING_TTFT_BUCKETS, Counter, Gauge, Histogram,
+                       MetricsRegistry, bucket_quantile, get_registry)
+from .slo import (SLO_METRICS, SLOZ_SCHEMA, SLOZ_SCHEMA_VERSION, SloStore,
+                  SloWindow, WindowedCounter, WindowedHistogram, check_sloz,
+                  get_slo_store, plane_tenant, tenant_plane_name)
+from .tracing import (RequestTraceStore, Span, Tracer, get_request_tracer,
+                      get_tracer, mint_trace_id, span)
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
+    "DEFAULT_BUCKETS", "SERVING_TTFT_BUCKETS",
+    "SERVING_TOKEN_LATENCY_BUCKETS", "bucket_quantile",
+    "Span", "Tracer", "get_tracer", "span",
+    "RequestTraceStore", "get_request_tracer", "mint_trace_id",
+    "SloStore", "SloWindow", "WindowedCounter", "WindowedHistogram",
+    "check_sloz", "get_slo_store", "SLOZ_SCHEMA", "SLOZ_SCHEMA_VERSION",
+    "SLO_METRICS", "plane_tenant", "tenant_plane_name",
+    "render_prometheus", "render_json", "PROMETHEUS_CONTENT_TYPE",
+    "SchemaError", "check_schema", "dumps_checked", "write_json",
+    "read_json",
+    "FlightRecorder", "get_flight",
+]

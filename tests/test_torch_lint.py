@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch port: it imports no JAX and nothing of the
-JAX package, and its entry points never fall back to the CPU."""
+"""Boundaries of the PyTorch port: it imports no JAX, no flax, no msgpack
+and nothing of the JAX package, and its entry points never fall back to
+the CPU."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "synapseml_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "synapseml_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "synapseml_tpu")
 
 
 def _port_files():
@@ -34,21 +35,36 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'synapseml_tpu'):\n"
+            f"for m in {FORBIDDEN!r}:\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'synapseml_tpu') and "
-            "sys.modules[m] is not None]\n"
+            f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_lint_covers_the_serving_plane():
+    """The serving slice's packages and the msgpack reader are among the
+    files both lint tests walk."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()[1:]}
+    for sub in ("serving", "telemetry", "resilience"):
+        assert any(r.startswith(sub + os.sep) for r in rel), sub
+    assert os.path.join("io", "msgpack.py") in rel
+    for m in ("synapseml_tpu_torch.serving.server",
+              "synapseml_tpu_torch.serving.llm",
+              "synapseml_tpu_torch.telemetry.slo",
+              "synapseml_tpu_torch.resilience.health",
+              "synapseml_tpu_torch.io.msgpack",
+              "synapseml_tpu_torch.models.llm.finetune"):
+        assert m in _modules(), m
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -24,8 +24,10 @@ The graphs themselves are held on a card by
 """
 
 import ast
+import dataclasses
 import inspect
 import textwrap
+import threading
 
 import flax.linen as nn
 import jax
@@ -190,8 +192,9 @@ def test_warmup_values_are_normalized(pair):
         assert _engine(tm, warmup=off).compile_plane is None
     for on in (True, "sync"):
         assert _engine(tm, warmup=on).compile_plane.status == "warm"
-    with pytest.raises(NotImplementedError, match="ROADMAP A1.1"):
-        _engine(tm, warmup="background")
+    eng = _engine(tm, warmup="background")
+    assert eng.compile_plane.wait(60) and eng.compile_plane.status == "warm"
+    assert eng.compile_plane.ready_at is not None
     with pytest.raises(ValueError, match="warmup='lazy'"):
         _engine(tm, warmup="lazy")
 
@@ -281,3 +284,69 @@ def test_launch_recording_defers_counts_to_replays():
     launches.add(rec)
     assert launches.BY_SHAPE == {"k[S=1]": 5}
     launches.reset()
+
+
+def test_launch_recording_holds_only_its_own_thread():
+    """Launches another thread makes while a graph captures count at
+    once, not at the capturing graph's replays."""
+    launches.reset()
+    with launches.recording() as rec:
+        launches.count("k", S=2)
+        t = threading.Thread(target=launches.count, args=("k",),
+                             kwargs={"S": 1})
+        t.start()
+        t.join()
+    assert rec == {"k[S=2]": 1} and launches.BY_SHAPE == {"k[S=1]": 1}
+    launches.reset()
+
+
+def _gated_lattice(monkeypatch, gate, fail=False):
+    """``program_lattice`` whose first program waits for ``gate`` (and
+    then raises, with ``fail``)."""
+    real = PW.program_lattice
+
+    def lattice(engine):
+        specs = real(engine)
+        run = specs[0].run
+
+        def held(plane):
+            assert gate.wait(30)
+            if fail:
+                raise RuntimeError("warm-up broke")
+            return run(plane)
+        specs[0] = dataclasses.replace(specs[0], run=held)
+        return specs
+    monkeypatch.setattr(PW, "program_lattice", lattice)
+
+
+def test_background_warmup_holds_admission(pair, monkeypatch):
+    """``warmup="background"`` returns at once with the plane warming on
+    its own thread; no prompt is admission-ready until the whole lattice
+    is warm, then the engine is token-exact against the eager one."""
+    tm = pair[2]
+    prompts = _prompts(2)
+    want = _drive(_engine(tm, spec_draft_len=4), prompts)
+    gate = threading.Event()
+    _gated_lattice(monkeypatch, gate)
+    eng = _engine(tm, spec_draft_len=4, warmup="background")
+    plane = eng.compile_plane
+    assert plane.status == "warming" and plane.ready_at is None
+    assert not any(eng.admission_ready(n) for n in (1, 9, 40))
+    assert plane.snapshot()["state"] == "warming"
+    gate.set()
+    assert plane.wait(60) and eng.admission_ready(9)
+    for a, b in zip(want, _drive(eng, prompts)):
+        np.testing.assert_array_equal(b, a)
+    assert plane.stalls == 0 and plane.replays == eng.steps_run
+
+
+def test_failed_background_warmup_admits_nothing(pair, monkeypatch):
+    gate = threading.Event()
+    _gated_lattice(monkeypatch, gate, fail=True)
+    eng = _engine(pair[2], warmup="background")
+    gate.set()
+    with pytest.raises(RuntimeError, match="warm-up failed"):
+        eng.compile_plane.wait(60)
+    snap = eng.compile_plane.snapshot()
+    assert snap["state"] == "failed" and "warm-up broke" in snap["error"]
+    assert not eng.admission_ready(9)
