@@ -216,6 +216,40 @@
     drafts perfectly, so it is the anchor and not held to a ratio; the
     1.5x contrast is ``tests/test_torch_llm_finetune.py``'s, at the JAX
     test's configuration).
+20. The rest of the LLM slice.  (a) ``LlamaConfig.tiny(num_layers=2)``
+    at f32, the same weights on the card and on the CPU, 4 slots of 128
+    positions: ``llama_from_pretrained`` on an HF directory written here
+    (logits within 1e-4), ``quantize_int8`` (int8 arrays and scales
+    bit-identical) and the int8 engine, a restore from the host KV arena
+    into a relaunched engine (equal to a cold ``generate`` of the whole
+    prompt), preempt → resume through the arena (equal to the
+    uninterrupted run), ``generate_speculative`` (equal to ``generate``,
+    stats equal) and ``LLMTransformer`` (equal to ``generate``'s decoded
+    tokens): tokens equal on both devices; then a child process serving
+    with a journal under ``build/`` is SIGKILLed at
+    ``kvtier.journal_append`` after 3 appends, and a fresh server on the
+    card replays the journal: the resumed reply must equal the
+    uninterrupted greedy one.  (b) Phase 8's model written as an HF
+    directory with Llama-3.2-1B's published ``config.json`` (~2.5 GB of
+    bf16 safetensors), read back by ``llama_from_pretrained(...,
+    max_len=2048)`` (logits bitwise equal to the model's), then
+    ``quantize_int8``: the reference test's relative logit error (held
+    below 0.05 at that test's configuration, reported at full width);
+    phase 8's 24 requests through a 16-slot graph engine, int8 and bf16
+    in turns (int8, bf16, bf16, int8): decode tokens/s, step ms, K3
+    launches (equal), greedy agreement, and a profile of each step.  (c)
+    ``LLMServer(n_slots=16, kv_arena_bytes=2 GiB, journal_dir=...)``: 24
+    two-turn conversations (turn 2 = turn 1's prompt + reply + 16 new
+    tokens), each turn posted at once; every session's journal must hold
+    its turn 2; reports the arena's restores and restored tokens, admit
+    ms restored against cold, spill ms and bytes per retirement, the
+    journal's µs per token, HTTP tokens/s against phase 18's, and turn
+    2's agreement with a cold engine (bf16: reported); then a full-width
+    slot preempted mid-decode and resumed from the arena must give the
+    uninterrupted run's tokens bit for bit.  K3's launches of 20a-c's
+    card runs join the kernels line; every shape they launched is one
+    phase 6 holds (phase 6 adds 20a's f32 shape: 4 slots, H=8, KV=4,
+    D=16, T=128).
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -2324,10 +2358,11 @@ def http_get(url: str):
         return e.code, e.read()
 
 
-def serve_all(srv, prompts, new, stream_every: int = 2):
+def serve_all(srv, prompts, new, stream_every: int = 2, extra=None):
     """Post every prompt from its own client thread (every
-    ``stream_every``-th streamed) → (ids per request, TTFB per streamed
-    request, wall s); raises on a failed request."""
+    ``stream_every``-th streamed; ``extra(i)`` adds fields to request
+    i's body) → (ids per request, TTFB per streamed request, wall s);
+    raises on a failed request."""
     import threading
     res, errs = {}, []
 
@@ -2336,7 +2371,8 @@ def serve_all(srv, prompts, new, stream_every: int = 2):
             res[i] = http_generate(srv.url, {
                 "ids": [int(t) for t in prompts[i]],
                 "max_new_tokens": int(new[i]),
-                "stream": i % stream_every == 1})
+                "stream": i % stream_every == 1,
+                **(extra(i) if extra else {})})
         except Exception as e:          # re-raised below, on this thread
             errs.append((i, e))
     t0 = time.perf_counter()
@@ -2616,6 +2652,509 @@ def finetune_serve(seed: int, dev, steps: int = 250, batch: int = 32,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the rest of the LLM slice (arena, journal, int8, speculative
+# generate, LLMTransformer, llama_from_pretrained)
+# ---------------------------------------------------------------------------
+
+#: Llama-3.2-1B's published config.json (meta-llama/Llama-3.2-1B on the
+#: Hugging Face hub): phase 20b writes it beside random weights
+LLAMA_32_1B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "hidden_act": "silu",
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0, "tie_word_embeddings": True,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0,
+                     "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "bos_token_id": 128000, "eos_token_id": 128001,
+    "torch_dtype": "bfloat16"}
+#: where phase 20 writes its checkpoints and journals (``build/`` is not
+#: committed); each run removes its own
+TIER_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "phase20")
+#: phase 20a's engines: 4 slots of ``LlamaConfig.tiny(num_layers=2)`` over
+#: 128 positions (K3 at H=8, KV=4, D=16, f32; phase 6 holds that shape)
+TIER_SLOTS, TIER_LEN = 4, 128
+
+
+def hf_config(cfg) -> dict:
+    """config.json of an HF Llama checkpoint for the port config ``cfg``
+    (the keys the loader reads)."""
+    return {"vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+            "intermediate_size": cfg.d_ff,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "max_position_embeddings": cfg.max_len,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "tie_word_embeddings": cfg.tie_embeddings}
+
+
+def write_hf_llama(path: str, model, config: dict) -> int:
+    """Write ``model``'s weights as an HF LlamaForCausalLM directory:
+    ``config.json`` and one ``model.safetensors`` (an 8-byte little-endian
+    header length, the JSON header, then each tensor's little-endian
+    bytes; bf16 as its bit patterns), written one tensor at a time →
+    the file's bytes.  Projection kernels transpose to ``(out, in)``."""
+    import struct
+    names = {"tok_embed.embedding": "model.embed_tokens.weight",
+             "ln_final.scale": "model.norm.weight",
+             "lm_head.kernel": "lm_head.weight"}
+    hf = {}
+    for key, t in model.state_dict().items():
+        if key in names:
+            hf_key = names[key]
+        else:
+            _, i, *rest = key.split(".")
+            sub = ".".join(rest[:-1])
+            hf_key = f"model.layers.{i}." + {
+                "ln_attn": "input_layernorm", "ln_mlp":
+                "post_attention_layernorm"}.get(
+                sub, ("self_attn." + sub[5:]) if sub.startswith("attn.")
+                else "mlp." + sub)
+            hf_key += ".weight"
+        hf[hf_key] = t.T if key.endswith(".kernel") else t
+    codes = {torch.float32: "F32", torch.bfloat16: "BF16"}
+    header, off = {}, 0
+    for k, t in hf.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    os.makedirs(path, exist_ok=True)
+    h = json.dumps(header).encode()
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for t in hf.values():
+            c = t.contiguous().cpu()
+            if c.dtype == torch.bfloat16:
+                c = c.view(torch.int16)
+            f.write(c.numpy().tobytes())
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return 8 + len(h) + off
+
+
+_TIER_CHILD = r"""
+import json, os, sys, urllib.request
+import torch
+from synapseml_tpu_torch.models.llm import LlamaConfig, LlamaModel
+from synapseml_tpu_torch.resilience import get_faults
+from synapseml_tpu_torch.serving import LLMServer
+
+cfg = LlamaConfig.tiny(num_layers=2, max_len=int(os.environ["P20_LEN"]),
+                       dtype=torch.float32)
+dev = os.environ["P20_DEVICE"]
+model = LlamaModel(cfg, device=dev)
+model.load_state_dict(torch.load(os.environ["P20_WEIGHTS"]))
+p1 = json.loads(os.environ["P20_P1"])
+srv = LLMServer(model, n_slots=int(os.environ["P20_SLOTS"]),
+                max_len=cfg.max_len, journal_dir=os.environ["P20_JDIR"],
+                device=dev, engine_kwargs={"name": "phase20-child"})
+
+def post(payload):
+    req = urllib.request.Request(srv.url, data=json.dumps(payload).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+out1 = post({"ids": p1, "session": "conv", "max_new_tokens": 5})["ids"]
+print("TURN1", json.dumps(out1), flush=True)
+# turn 2 journals 3 tokens, then the 4th append SIGKILLs this process
+get_faults().configure("kvtier.journal_append=kill:after=3")
+post({"ids": p1 + out1 + [3, 1, 4, 1, 5], "session": "conv",
+      "max_new_tokens": 8})
+print("UNREACHABLE", flush=True)
+"""
+
+
+def tier_card_vs_cpu(dev, seed: int, root: str) -> dict:
+    """Phase 20a: ``LlamaConfig.tiny(num_layers=2)`` at f32 on the card
+    and on the CPU (the same weights): ``llama_from_pretrained`` logits
+    within 1e-4; ``quantize_int8`` bit-identical and the int8 engine's
+    tokens equal; an arena restore equal to a cold ``generate`` of the
+    whole prompt; preempt → resume through the arena equal to the
+    uninterrupted run; ``generate_speculative`` equal to ``generate``;
+    ``LLMTransformer`` equal to ``generate``'s decoded tokens; then the
+    SIGKILL failover on the card.  K3's counts are reset just before and
+    read just after the card's engines run.  Raises on any difference."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.dl.tokenizer import WordTokenizer
+    from synapseml_tpu_torch.models.llm import (
+        HostKVArena, LlamaConfig, LlamaModel, LLMTransformer, SessionJournal,
+        SlotEngine, generate, generate_speculative, llama_from_pretrained,
+        quantize_int8)
+    from synapseml_tpu_torch.serving import LLMServer
+    cfg = LlamaConfig.tiny(num_layers=2, max_len=TIER_LEN,
+                           dtype=torch.float32)
+    cpu = LlamaModel(cfg, device="cpu", seed=seed)
+    card = LlamaModel(cfg, device=dev, seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 20)
+    V = cfg.vocab_size
+    out, toks = {}, {"cpu": {}, "card": {}}
+
+    def same(what, a, b):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"20a {what}: {a} against {b}")
+
+    def engine(m, name, **kw):
+        return SlotEngine(m, n_slots=TIER_SLOTS, max_len=TIER_LEN,
+                          warmup="sync", name=name, device=m.device, **kw)
+    # llama_from_pretrained on a directory written here
+    path = os.path.join(root, "tiny_hf")
+    write_hf_llama(path, cpu, hf_config(cfg))
+    ids = torch.as_tensor(rng.integers(1, V, (2, 24)).astype(np.int32))
+    with torch.no_grad():
+        lc = llama_from_pretrained(path, dtype=torch.float32,
+                                   device="cpu")(ids)
+        ld = llama_from_pretrained(path, dtype=torch.float32,
+                                   device=dev)(ids.to(dev)).cpu()
+        want = cpu(ids)
+    out["pretrained_max_abs_err"] = float((lc - ld).abs().max())
+    if out["pretrained_max_abs_err"] > 1e-4 or not torch.equal(lc, want):
+        raise AssertionError(f"20a pretrained: card {out} and CPU "
+                             f"{float((lc - want).abs().max())}")
+    qc, qd = quantize_int8(cpu), quantize_int8(card)
+    for k, v in qc.state_dict().items():
+        if not torch.equal(v, qd.state_dict()[k].cpu()):
+            raise AssertionError(f"20a quantize_int8: {k} differs")
+    p_int8 = [rng.integers(1, V, n).astype(np.int32) for n in (9, 17, 30, 6)]
+    p1 = rng.integers(1, V, 20).astype(np.int32)
+    suffix = rng.integers(1, V, 7).astype(np.int32)
+    p_long = rng.integers(1, V, 26).astype(np.int32)
+    rows = np.stack([np.tile(rng.integers(1, V, 4), 3),
+                     rng.integers(1, V, 12)]).astype(np.int32)
+    for d, m, q in (("cpu", cpu, qc), ("card", card, qd)):
+        L.reset()
+        t = toks[d]
+        eng = engine(q, f"p20a-int8-{d}")
+        t["int8"] = drive(eng, p_int8, [12] * 4)["outs"]
+        for i, p in enumerate(p_int8):
+            same(f"int8 {d} request {i}", t["int8"][i],
+                 generate(q, p[None], max_new_tokens=12)[0])
+        arena = HostKVArena(1 << 24, name=f"p20a-arena-{d}")
+        e1 = engine(m, f"p20a-arena-{d}", kv_arena=arena)
+        r1 = e1.admit(p1, 8)
+        o1 = e1.run_to_completion()[r1.slot]
+        p2 = np.concatenate([p1, o1, suffix])
+        e2 = engine(m, f"p20a-arena-{d}", kv_arena=arena)
+        r2 = e2.admit(p2, 8)
+        if r2.reused_tokens != len(p1) + 7 or e2.restore_count != 1:
+            raise AssertionError(f"20a {d}: no restore ({r2})")
+        t["restore"] = e2.run_to_completion()[r2.slot]
+        same(f"restore {d}", t["restore"],
+             generate(m, p2[None], max_new_tokens=8)[0])
+        e3 = engine(m, f"p20a-preempt-{d}",
+                    kv_arena=HostKVArena(1 << 24, name=f"p20a-pre-{d}"))
+        r3 = e3.admit(p_long, 16)
+        for _ in range(5):
+            e3.step()
+        ticket = e3.preempt(r3.slot)
+        slot = e3.resume(ticket)
+        if e3.restore_count != 1:
+            raise AssertionError(f"20a {d}: resume did not restore")
+        e3.run_to_completion()
+        t["resume"] = e3.generated_ids(slot)
+        same(f"resume {d}", t["resume"],
+             generate(m, p_long[None], max_new_tokens=16)[0])
+        if d == "card":
+            out["launches"] = L.shapes("paged_decode_attention")
+            if dev.type == "cuda" and not out["launches"]:
+                raise AssertionError("20a: K3 never launched on the card")
+        for e in (eng, e2, e3):
+            if e.compile_plane.stalls:
+                raise AssertionError(f"20a {d}: a stall")
+        sp, st = generate_speculative(m, rows, max_new_tokens=14,
+                                      draft_len=4)
+        t["spec"] = sp
+        same(f"speculative {d}", sp, generate(m, rows, max_new_tokens=14))
+        t["spec_stats"] = st
+    words = [f"w{i}" for i in range(300)]
+    tok = WordTokenizer.fit([" ".join(words[i:i + 30])
+                             for i in range(0, 300, 30)], vocab_size=V)
+    # distinct lengths: the stage calls generate once per prompt, as here
+    texts = [" ".join(rng.choice(words, n)) for n in (4, 6, 8)]
+    for d, m in (("cpu", cpu), ("card", card)):
+        got = LLMTransformer(bundle={"model": m, "tokenizer": tok},
+                             maxNewTokens=6).transform(
+            Dataset({"prompt": texts}))["completion"]
+        enc = [[t for t in row if t] for row in
+               tok.encode(texts, TIER_LEN - 6)[0]]
+        exp = [tok.decode(generate(m, np.asarray([e], np.int32),
+                                   max_new_tokens=6))[0] for e in enc]
+        if list(got) != exp:
+            raise AssertionError(f"20a LLMTransformer {d}: {got} vs {exp}")
+        toks[d]["stage"] = list(got)
+    for k in ("restore", "resume", "spec", "stage"):
+        same(f"{k} card vs CPU", toks["card"][k], toks["cpu"][k])
+    for i in toks["cpu"]["int8"]:
+        same(f"int8 card vs CPU {i}", toks["card"]["int8"][i],
+             toks["cpu"]["int8"][i])
+    if toks["card"]["spec_stats"] != toks["cpu"]["spec_stats"]:
+        raise AssertionError("20a speculative stats differ")
+    out["spec_stats"] = toks["card"]["spec_stats"]
+    # the SIGKILL failover on the card
+    jdir = os.path.join(root, "journal")
+    weights = os.path.join(root, "tiny.pt")
+    torch.save(cpu.state_dict(), weights)
+    pk = rng.integers(1, V, 10).astype(np.int32)
+    env = dict(os.environ, P20_WEIGHTS=weights, P20_JDIR=jdir,
+               P20_P1=json.dumps([int(t) for t in pk]),
+               P20_SLOTS=str(TIER_SLOTS), P20_LEN=str(TIER_LEN),
+               P20_DEVICE=str(dev),
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("SML_FAULTS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _TIER_CHILD],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=root)
+    out["child_s"] = time.perf_counter() - t0
+    if proc.returncode != -9 or "UNREACHABLE" in proc.stdout:
+        raise AssertionError(f"20a child: rc {proc.returncode} "
+                             f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    turn1 = json.loads(next(ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("TURN1")).split(None, 1)[1])
+    ref1 = generate(card, pk[None], max_new_tokens=5)[0]
+    same("failover turn 1", turn1, ref1)
+    pk2 = np.concatenate([pk, ref1, [3, 1, 4, 1, 5]]).astype(np.int32)
+    ref2 = generate(card, pk2[None], max_new_tokens=8)[0]
+    st = SessionJournal(jdir, name="p20a-probe").replay("conv")
+    if st.prompt != [int(t) for t in pk2] or \
+            st.committed != [int(t) for t in ref2[:3]]:
+        raise AssertionError(f"20a journal after the kill: {st}")
+    srv = LLMServer(card, n_slots=TIER_SLOTS, max_len=TIER_LEN,
+                    journal_dir=jdir, warmup="sync", device=dev,
+                    engine_kwargs={"name": "p20a-failover"})
+    try:
+        L.reset()
+        got, _, _ = http_generate(srv.url, {"session": "conv",
+                                            "resume": True})
+        out["launches_failover"] = L.shapes("paged_decode_attention")
+    finally:
+        srv.close()
+    same("failover resume", got, ref2)
+    out["failover_committed_before_kill"] = len(st.committed)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def pretrained_int8(model, prompts, new, dev, root: str,
+                    config: dict = LLAMA_32_1B_CONFIG,
+                    max_len: int = 2048) -> dict:
+    """Phase 20b: ``model``'s weights (Llama-3.2-1B in bf16) written as an
+    HF directory with Llama-3.2-1B's published config.json, read back by
+    ``llama_from_pretrained(..., max_len=2048)`` (logits bitwise equal to
+    ``model``'s), then ``quantize_int8``: the logits' relative error
+    against bf16 (the reference test's measure, < 0.05 at that test's
+    configuration, reported at full width); phase 8's requests through a 16-slot graph
+    engine, int8 and bf16 in turns (int8, bf16, bf16, int8).  Removes the
+    directory.  Raises on a failed check."""
+    from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
+                                                cast_params,
+                                                llama_from_pretrained,
+                                                quantize_int8)
+    path = os.path.join(root, "llama32_1b_hf")
+    out = {}
+    t0 = time.perf_counter()
+    out["file_bytes"] = write_hf_llama(path, model, config)
+    out["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = cast_params(llama_from_pretrained(
+        path, dtype=torch.bfloat16, max_len=max_len, device=dev),
+        torch.bfloat16)
+    synchronize(dev)
+    out["load_s"] = time.perf_counter() - t0
+    shutil.rmtree(path, ignore_errors=True)
+    if loaded.cfg != model.cfg:
+        raise AssertionError(f"20b config {loaded.cfg} against {model.cfg}")
+    # the reference test's measure (tests/test_llm.py, the int8 tests):
+    # max |int8 - bf16| over max |bf16| of the logits of 2 x 12 ids drawn
+    # uniformly from the vocabulary, held below 0.05 at that test's
+    # configuration (tiny, 4 layers, bf16) and reported at full width,
+    # beside the same measure over the first 128 positions of two of the
+    # requests
+    tiny = cast_params(LlamaModel(LlamaConfig.tiny(max_len=64), device=dev),
+                       torch.bfloat16)
+    tid = torch.as_tensor(np.random.default_rng(0).integers(
+        0, tiny.cfg.vocab_size, (2, 12)).astype(np.int32), device=dev)
+    with torch.no_grad():
+        full, quant = tiny(tid), quantize_int8(tiny)(tid)
+    out["int8_rel_err_reference_config"] = float(
+        (quant - full).abs().max() / full.abs().max())
+    if not out["int8_rel_err_reference_config"] < 0.05:
+        raise AssertionError(f"20b int8 relative error {out}")
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (2, 12)).astype(np.int32), device=dev)
+    ids128 = torch.as_tensor(np.stack([prompts[0][:128], prompts[1][:128]]),
+                             device=dev)
+    with torch.no_grad():
+        want, want128 = model(ids), model(ids128)
+        if not (torch.equal(loaded(ids), want)
+                and torch.equal(loaded(ids128), want128)):
+            raise AssertionError("20b: llama_from_pretrained's logits are "
+                                 "not bitwise the model's")
+        t0 = time.perf_counter()
+        q = quantize_int8(loaded)
+        synchronize(dev)
+        out["quantize_s"] = time.perf_counter() - t0
+        del loaded
+        got, got128 = q(ids), q(ids128)
+    out["int8_rel_err"] = float((got - want).abs().max()
+                                / want.abs().max())
+    out["int8_rel_err_prompts_2x128"] = float(
+        (got128 - want128).abs().max() / want128.abs().max())
+    out["int8_weight_bytes"] = int(sum(
+        p.numel() * p.element_size() for p in q.parameters()))
+    out["bf16_weight_bytes"] = int(sum(
+        p.numel() * p.element_size() for p in model.parameters()))
+    runs, outs = {"int8": [], "bf16": []}, {}
+    for label in ("int8", "bf16", "bf16", "int8"):
+        r, o = llm_main_path(q if label == "int8" else model, prompts, new,
+                             0, warmup="sync")
+        runs[label].append(r)
+        outs.setdefault(label, o)
+    out["agreement"] = float(np.mean([np.mean(outs["int8"][i]
+                                              == outs["bf16"][i])
+                                      for i in range(len(prompts))]))
+    for label, rs in runs.items():
+        out[label] = dict(
+            decode_tokens_per_s=[r["decode_tokens_per_s"] for r in rs],
+            mean_step_ms=[r["mean_step_ms"] for r in rs],
+            ttft_p50_ms=[r["ttft_p50_ms"] for r in rs],
+            k3_launches=[sum(r["launches"].values()) for r in rs],
+            launches=rs[0]["launches"])
+    if out["int8"]["k3_launches"][0] != out["bf16"]["k3_launches"][0]:
+        raise AssertionError(f"20b K3 launches {out}")
+    # where the int8 step's time goes, beside the bf16 step's
+    for label, m in (("int8", q), ("bf16", model)):
+        out[f"profile_{label}"] = profile_decode(m, prompts, new, "sync")
+    return out
+
+
+def arena_journal_http(model, prompts, new, dev, root: str,
+                       http18_tokens_per_s: float,
+                       name: str = "phase20") -> dict:
+    """Phase 20c: ``LLMServer(n_slots=16, kv_arena_bytes=2 GiB,
+    journal_dir=...)`` over phase 8's model; 24 two-turn conversations
+    (turn 2 = turn 1's prompt + reply + 16 new tokens), all posted at
+    once per turn, so the conversations whose slots were reclaimed
+    restore from the host.  K3's counts are reset before turn 1 and read
+    after turn 2.  Then a full-width slot preempted mid-decode and resumed
+    from the arena must give the uninterrupted run's tokens bit for bit.
+    Raises on a failed check."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.llm import HostKVArena, SlotEngine
+    from synapseml_tpu_torch.serving import LLMServer
+    jdir = os.path.join(root, "journal_http")
+    srv = LLMServer(model, n_slots=16, max_len=2048, kv_arena_bytes=2 << 30,
+                    journal_dir=jdir, warmup="sync", device=dev,
+                    engine_kwargs={"name": name})
+    eng, jnl = srv.engine, srv.journal
+    admits, appends = [], []
+    real_admit, real_append = eng.admit, jnl.append_tokens
+
+    def admit(ids, n, **kw):
+        r0 = eng.restore_count
+        t = time.perf_counter()
+        r = real_admit(ids, n, **kw)
+        admits.append((time.perf_counter() - t, eng.restore_count > r0,
+                       len(ids), 0 if r is None else r.reused_tokens))
+        return r
+
+    def append(*a, **kw):
+        t = time.perf_counter()
+        real_append(*a, **kw)
+        appends.append(time.perf_counter() - t)
+    eng.admit, jnl.append_tokens = admit, append
+    rng = np.random.default_rng(20)
+    try:
+        def sess(i):
+            return {"session": f"c{i}"}
+        L.reset()
+        out1, _, wall1 = serve_all(srv, prompts, new, extra=sess)
+        n1 = len(admits)
+        p2 = [np.concatenate([p, o, rng.integers(1, model.cfg.vocab_size,
+                                                 16)]).astype(np.int32)
+              for p, o in zip(prompts, out1)]
+        out2, _, wall2 = serve_all(srv, p2, new, extra=sess)
+        shapes = L.shapes("paged_decode_attention")
+        for i, p in enumerate(p2):
+            st = jnl.replay(f"c{i}")
+            if st.ids != [int(t) for t in p] + list(out2[i]):
+                raise AssertionError(f"20c journal of c{i}: {st}")
+    finally:
+        srv.close()
+        shutil.rmtree(jdir, ignore_errors=True)
+    if eng.restore_count < 1 or (dev.type == "cuda" and not shapes):
+        raise AssertionError(f"20c: {eng.restore_count} restores, K3 "
+                             f"{shapes}")
+    _, cold = llm_main_path(model, p2, new, 0, warmup="sync")
+    agree = float(np.mean([np.mean(np.asarray(out2[i]) == cold[i])
+                           for i in range(len(p2))]))
+    restored = [a for a in admits[n1:] if a[1]]
+    turn1 = admits[:n1]
+    out = dict(
+        restores=eng.restore_count, restored_tokens=eng.restore_tokens,
+        restore_hits_turn2=len(restored),
+        device_prefix_hits_turn2=sum(1 for a in admits[n1:]
+                                     if a[3] and not a[1]),
+        admit_ms_restored_p50=float(np.median([a[0] for a in restored])
+                                    * 1e3),
+        restored_prompt_tokens_p50=float(np.median([a[2]
+                                                    for a in restored])),
+        admit_ms_cold_turn1_p50=float(np.median([a[0] for a in turn1])
+                                      * 1e3),
+        cold_prompt_tokens_p50=float(np.median([a[2] for a in turn1])),
+        spills=eng.spill_count,
+        spill_ms_per_retirement=eng.spill_seconds / max(1, eng.spill_count)
+        * 1e3,
+        spill_bytes_per_retirement=eng.spill_bytes / max(1,
+                                                         eng.spill_count),
+        journal_appends=len(appends),
+        journal_us_per_token=float(np.mean(appends) * 1e6),
+        journal_us_per_token_p90=float(np.percentile(appends, 90) * 1e6),
+        http_tokens_per_s_turn1=sum(len(o) for o in out1) / wall1,
+        http_tokens_per_s_turn2=sum(len(o) for o in out2) / wall2,
+        http_tokens_per_s_phase18=http18_tokens_per_s,
+        turn2_agreement_with_cold=agree, launches=shapes)
+    # a full-width slot preempted mid-decode, resumed from the arena
+    arena = HostKVArena(2 << 30, name=f"{name}-preempt")
+    ref = SlotEngine(model, n_slots=16, warmup="sync", device=dev,
+                     name=f"{name}-uninterrupted")
+    want = drive(ref, prompts[:17], new[:17])["outs"]
+    e = SlotEngine(model, n_slots=16, warmup="sync", kv_arena=arena,
+                   device=dev, name=f"{name}-preempt")
+    slots = [e.admit(p, n).slot for p, n in zip(prompts[:16], new[:16])]
+    for _ in range(min(new[:16]) // 3):       # a third of the budget
+        e.step()
+    victim = int(np.argmax([len(p) for p in prompts[:16]]))
+    t0 = time.perf_counter()
+    ticket = e.preempt(slots[victim])
+    out["preempt_ms"] = (time.perf_counter() - t0) * 1e3
+    other = e.admit(prompts[16], new[16])        # takes the freed slot
+    while not e.free_slot_count:
+        e.step()
+    t0 = time.perf_counter()
+    slot = e.resume(ticket)
+    out["resume_ms"] = (time.perf_counter() - t0) * 1e3
+    if e.restore_count != 1 or other.slot != slots[victim]:
+        raise AssertionError(f"20c preempt: {e.restore_count} restores")
+    e.run_to_completion()
+    out["preempt_span_tokens"] = int(ticket["kv_len"])
+    if not np.array_equal(e.generated_ids(slot), want[victim]):
+        raise AssertionError(f"20c preempt/resume: {e.generated_ids(slot)} "
+                             f"against {want[victim]}")
+    if e.compile_plane.stalls:
+        raise AssertionError("20c: a stall")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2825,19 +3364,23 @@ def main(argv=None) -> int:
     B19, H19, KV19, T19 = 8, 16, 4, 256
     spans19 = np.concatenate([[1, 63, 64, 65, 128, 255, 256],
                               krng.integers(1, T19 + 1, 1)])
+    # phase 20a's engines: 4 slots of the tiny model (8 heads, 4 kv heads
+    # of 16) over 128 positions, f32
+    spans20 = [1, 31, 64, 128]
     k3 = {}
     for S, dt, geo in (
-            *((S, torch.bfloat16, (B, H, KV, T, spans))
+            *((S, torch.bfloat16, (B, H, KV, D, T, spans))
               for S in (1, 2, 4, 8, 32)),
-            (1, torch.float32, (B, H, KV, T, spans)),
-            *((S, torch.bfloat16, (B19, H19, KV19, T19, spans19))
-              for S in (1, 2, 4, 8))):
-        b, h, kv, t, sp = geo
+            (1, torch.float32, (B, H, KV, D, T, spans)),
+            *((S, torch.bfloat16, (B19, H19, KV19, D, T19, spans19))
+              for S in (1, 2, 4, 8)),
+            (1, torch.float32, (TIER_SLOTS, 8, 4, 16, TIER_LEN, spans20))):
+        b, h, kv, d, t, sp = geo
         bf16 = dt == torch.bfloat16
         key = L.launch_key("paged_decode_attention", B=b, S=S, H=h, KV=kv,
-                            D=D, T=t, dtype="bf16" if bf16 else "f32",
+                            D=d, T=t, dtype="bf16" if bf16 else "f32",
                             variant="split" if bf16 else "previous")
-        r = k3_case(dev, args.seed + S, b, S, h, kv, D, t, dt, sp)
+        r = k3_case(dev, args.seed + S, b, S, h, kv, d, t, dt, sp)
         log(f"{key}: max_abs_err {r['max_abs_err']:.3g} (SDPA "
             f"{r['sdpa_err']:.3g}); kernel {r['ms']:.4f} ms, previous "
             f"kernel {r['previous_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -3132,6 +3675,39 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p19 = finetune_serve(args.seed, dev)
     wall("19")
+
+    # -- 20. the rest of the LLM slice: arena, journal, int8, pretrained ------
+    torch.cuda.empty_cache()
+    shutil.rmtree(TIER_ROOT, ignore_errors=True)
+    os.makedirs(TIER_ROOT)
+    t0 = time.perf_counter()
+    p20a = tier_card_vs_cpu(dev, args.seed, os.path.join(TIER_ROOT, "a"))
+    log(f"phase 20a: tiny f32 card vs CPU, tokens equal (pretrained logits, "
+        f"int8 engine, arena restore, preempt/resume, speculative, "
+        f"LLMTransformer) and the SIGKILL failover resumed token-exact: "
+        f"{json.dumps(p20a)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    p20b = pretrained_int8(model, prompts, new, dev,
+                           os.path.join(TIER_ROOT, "b"))
+    log(f"phase 20b: Llama-3.2-1B from an HF directory, int8 against bf16: "
+        f"{json.dumps(p20b)} in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 20b: decode tokens/s int8 {p20b['int8']['decode_tokens_per_s']}"
+        f" against bf16 {p20b['bf16']['decode_tokens_per_s']}; step ms "
+        f"{p20b['int8']['mean_step_ms']} against "
+        f"{p20b['bf16']['mean_step_ms']}; K3 launches "
+        f"{p20b['int8']['k3_launches']} against "
+        f"{p20b['bf16']['k3_launches']}; greedy agreement "
+        f"{p20b['agreement']:.4f}; relative logit error "
+        f"{p20b['int8_rel_err']:.4g}")
+    t0 = time.perf_counter()
+    p20c = arena_journal_http(model, prompts, new, dev,
+                              os.path.join(TIER_ROOT, "c"),
+                              http["http_tokens_per_s"])
+    log(f"phase 20c: LLMServer with a 2 GiB arena and a journal, 24 two-turn "
+        f"conversations on 16 slots: {json.dumps(p20c)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(TIER_ROOT, ignore_errors=True)
+    wall("20")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 
@@ -3161,6 +3737,14 @@ def main(argv=None) -> int:
         st = p19["serve"][label]
         k3_runs[f"p19_{label}_plain"] = st["plain_launches"]
         k3_runs[f"p19_{label}_spec"] = st["launches"]
+    # phase 20's runs: the tiny engines and the failover server on the
+    # card (20a), the int8 and bf16 engines (20b) and the arena server
+    # (20c)
+    k3_runs["p20a_engines"] = p20a["launches"]
+    k3_runs["p20a_failover"] = p20a["launches_failover"]
+    k3_runs["p20b_int8"] = p20b["int8"]["launches"]
+    k3_runs["p20b_bf16"] = p20b["bf16"]["launches"]
+    k3_runs["p20c_http"] = p20c["launches"]
     unchecked = {k for sh in k3_runs.values() for k in sh} - set(k3)
     if unchecked:
         raise AssertionError(f"K3 launched at shapes phase 6 did not hold "

@@ -172,6 +172,10 @@ class UDFParam(ComplexParam):
         return value
 
 
+class PyObjectParam(ComplexParam):
+    """Arbitrary picklable object (a model bundle and the like)."""
+
+
 class EstimatorParam(ComplexParam):
     """Pipeline-stage-valued param (reference: param/EstimatorParam.scala)."""
 

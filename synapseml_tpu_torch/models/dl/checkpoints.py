@@ -10,6 +10,10 @@ per-family mapping table, and splice the arrays into a model's state dict.
   BertForSequenceClassification naming; the segment-0 token-type
   embedding is folded into every position, exact for single-segment
   inputs);
+- ``import_llama`` → :class:`~synapseml_tpu_torch.models.llm.model
+  .LlamaModel` (HF LlamaForCausalLM naming; HF stores q/k arranged for
+  the rotate-half RoPE that ``apply_rope`` implements, so the weights
+  copy as they are);
 - ``import_resnet`` → :class:`~.resnet.ResNet` (torchvision naming; conv
   OIHW → HWIO, BatchNorm running statistics into the batch-statistic
   buffers).
@@ -20,8 +24,7 @@ parses the format itself (an 8-byte little-endian header length, a JSON
 header, then raw little-endian bytes; BF16 widens to f32), so no
 ``safetensors`` package is needed, and ``flax_model.msgpack`` files go
 through the port's own decoder (:mod:`synapseml_tpu_torch.io.msgpack`),
-so neither ``flax`` nor ``msgpack`` is.  ``import_llama`` goes with
-ROADMAP A1.7.
+so neither ``flax`` nor ``msgpack`` is.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 from ...io.msgpack import BF16Bits, restore, widen_bf16
 
 __all__ = ["read_checkpoint", "read_msgpack", "import_bert",
-           "import_resnet", "load_into_params"]
+           "import_llama", "import_resnet", "load_into_params"]
 
 #: safetensors dtype codes → numpy dtypes (BF16 is widened separately)
 _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -172,8 +175,14 @@ def load_into_params(target: Mapping[str, torch.Tensor],
                 raise ValueError(
                     f"shape mismatch at {key}: checkpoint {val.shape} vs "
                     f"model {tuple(ref.shape)}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(val)).to(
-                device=ref.device, dtype=ref.dtype)
+            if not val.flags.c_contiguous and val.T.flags.c_contiguous:
+                # a transposed view (the (out, in) → (in, out) kernels):
+                # moved as stored and transposed on the leaf's device
+                out[key] = torch.from_numpy(val.T).to(
+                    device=ref.device, dtype=ref.dtype).T.contiguous()
+            else:
+                out[key] = torch.from_numpy(np.ascontiguousarray(val)).to(
+                    device=ref.device, dtype=ref.dtype)
         else:
             if strict:
                 raise ValueError(f"checkpoint missing tensor for {key}")
@@ -248,6 +257,50 @@ def import_bert(params: Mapping[str, torch.Tensor], checkpoint,
         load_head = ("classifier.weight" in hf and ref is not None
                      and hf["classifier.weight"].T.shape == tuple(ref.shape))
     mapped = _bert_mapping(hf, num_layers, with_head=load_head)
+    return load_into_params(params, mapped, strict=False)
+
+
+# --------------------------------------------------------------------------
+# Llama (HF LlamaForCausalLM → LlamaModel)
+# --------------------------------------------------------------------------
+
+def _llama_mapping(hf: Dict[str, np.ndarray], num_layers: int,
+                   tie_embeddings: bool) -> Dict[Tuple[str, ...], np.ndarray]:
+    def g(key):
+        for prefix in ("model.", ""):
+            if prefix + key in hf:
+                return hf[prefix + key]
+        raise KeyError(key)
+
+    m: Dict[Tuple[str, ...], np.ndarray] = {}
+    m[("tok_embed", "embedding")] = g("embed_tokens.weight")
+    for i in range(num_layers):
+        hfp = f"layers.{i}."
+        our = ("layers", str(i))
+        m[our + ("ln_attn", "scale")] = g(hfp + "input_layernorm.weight")
+        m[our + ("ln_mlp", "scale")] = g(hfp
+                                         + "post_attention_layernorm.weight")
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            m[our + ("attn", proj, "kernel")] = \
+                g(hfp + f"self_attn.{proj}.weight").T
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            m[our + (proj, "kernel")] = g(hfp + f"mlp.{proj}.weight").T
+    m[("ln_final", "scale")] = g("norm.weight")
+    if not tie_embeddings:
+        if "lm_head.weight" in hf:
+            m[("lm_head", "kernel")] = hf["lm_head.weight"].T
+        else:                      # tied checkpoint into an untied model
+            m[("lm_head", "kernel")] = g("embed_tokens.weight").T
+    return m
+
+
+def import_llama(params: Mapping[str, torch.Tensor], checkpoint,
+                 num_layers: int, tie_embeddings: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+    """Splice an HF Llama checkpoint (path or flat dict) into a
+    ``LlamaModel`` state dict."""
+    hf = read_checkpoint(checkpoint) if isinstance(checkpoint, str) else checkpoint
+    mapped = _llama_mapping(hf, num_layers, tie_embeddings)
     return load_into_params(params, mapped, strict=False)
 
 

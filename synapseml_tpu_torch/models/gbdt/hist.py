@@ -137,22 +137,40 @@ def hist_limbs_plain(bins_t: torch.Tensor, slot: torch.Tensor,
     S, 8) int32 limb sums over rows with a slot, at ``bin >> shift``, of
     the rows ``feat`` (F,) of ``bins_t`` (all R rows when None).  Bins
     outside [0, width) add nothing (they match no one-hot row of the TPU
-    kernel).  ``index_add_`` into int64, one feature at a time."""
-    rows = range(bins_t.shape[0]) if feat is None else feat.tolist()
+    kernel).  The rows that have a slot are compacted once; then one
+    ``index_add_`` into int64 per chunk of features, over a
+    feature-offset index (integer sums: the order changes nothing)."""
+    dev = bins_t.device
     S = n_slots
-    v64 = vals.to(torch.int64)
-    has = (slot >= 0) & (slot < S)
-    dump = width * S                   # rows without a cell land here
-    out = torch.empty((len(rows), width, S, SLOT_LANES), dtype=torch.int32,
-                      device=bins_t.device)
-    for i, f in enumerate(rows):
-        b = bins_t[f] >> shift if shift else bins_t[f]
-        ok = has & (b >= 0) & (b < width)
-        idx = torch.where(ok, b.to(torch.int64) * S + slot, dump)
-        acc = torch.zeros((dump + 1, SLOT_LANES), dtype=torch.int64,
-                          device=bins_t.device)
-        acc.index_add_(0, idx, v64)
-        out[i] = acc[:dump].view(width, S, SLOT_LANES).to(torch.int32)
+    fr = (torch.arange(bins_t.shape[0], device=dev) if feat is None
+          else torch.as_tensor(feat, device=dev).to(torch.int64))
+    F = int(fr.shape[0])
+    cells = width * S
+    out = torch.zeros((F, width, S, SLOT_LANES), dtype=torch.int32,
+                      device=dev)
+    idx = torch.nonzero((slot >= 0) & (slot < S)).squeeze(1)
+    n = int(idx.shape[0])
+    if n == 0 or F == 0:
+        return out
+    s64 = slot[idx].to(torch.int64)
+    v64 = vals[idx].to(torch.int64)
+    step = max(1, (1 << 21) // n)      # ~128 MB of int64 values a chunk
+    for f0 in range(0, F, step):
+        fc = fr[f0:f0 + step]
+        k = int(fc.shape[0])
+        b = bins_t[fc[:, None], idx[None, :]].to(torch.int64)
+        if shift:
+            b = b >> shift
+        off = torch.arange(k, device=dev, dtype=torch.int64)[:, None] * cells
+        key = torch.where((b >= 0) & (b < width), off + b * S + s64,
+                          k * cells)   # rows without a cell land here
+        acc = torch.zeros((k * cells + 1, SLOT_LANES), dtype=torch.int64,
+                          device=dev)
+        acc.index_add_(0, key.reshape(-1),
+                       v64.expand(k, n, SLOT_LANES).reshape(k * n,
+                                                            SLOT_LANES))
+        out[f0:f0 + k] = acc[:-1].view(k, width, S, SLOT_LANES).to(
+            torch.int32)
     return out
 
 

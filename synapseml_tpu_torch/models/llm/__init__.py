@@ -1,15 +1,23 @@
 """Decoder-only LLM and its continuous-batching decode engine (the port
 of the JAX package's ``models/llm``), with the paged decode-attention
-kernel K3 in CUDA, and the causal-LM fine-tuning of ``finetune``."""
+kernel K3 in CUDA; the host KV arena and session journal of ``kvtier``,
+int8 weights, speculative and dense generation, ``LLMTransformer``,
+``llama_from_pretrained``, and the causal-LM fine-tuning of
+``finetune``."""
 
 from .convert import params_from_reference
 from .drafter import NgramDrafter
 from .finetune import (finetune_lm, lm_loss_fn, make_lm_train_step,
                        templated_log_corpus)
-from .generate import cast_params, generate, sample_logits
-from .kvtier import RadixPrefixIndex
+from .generate import (cast_params, generate, generate_speculative,
+                       quantize_int8, sample_logits, spec_unpack)
+from .kvtier import (KVTIER_METRICS, ChecksumError, HostKVArena, KVTransfer,
+                     RadixPrefixIndex, SessionJournal, SessionState,
+                     kvtier_metrics, pack_kv_transfer, token_prefix_hash,
+                     unpack_kv_transfer)
 from .model import (CausalAttention, DecoderBlock, LlamaConfig, LlamaModel,
-                    RMSNorm, apply_rope, causal_lm_loss, init_cache,
+                    QuantDense, QuantEmbed, RMSNorm, apply_rope,
+                    causal_lm_loss, init_cache, llama_from_pretrained,
                     rope_frequencies)
 from .paged_attn import (ATTENTION_BACKENDS, PagedGeometry,
                          dense_read_bytes, paged_decode_attention,
@@ -17,15 +25,20 @@ from .paged_attn import (ATTENTION_BACKENDS, PagedGeometry,
                          paged_read_bytes, resolve_attention_backend,
                          span_bucket_tiles)
 from .slots import AdmitResult, SlotEngine, StepEvent
+from .stage import LLMTransformer
 
 __all__ = [
-    "ATTENTION_BACKENDS", "AdmitResult", "CausalAttention", "DecoderBlock",
-    "LlamaConfig", "LlamaModel", "NgramDrafter", "PagedGeometry", "RMSNorm",
-    "RadixPrefixIndex", "SlotEngine", "StepEvent", "apply_rope",
-    "cast_params", "causal_lm_loss", "dense_read_bytes", "finetune_lm",
-    "generate", "init_cache", "lm_loss_fn", "make_lm_train_step",
-    "paged_decode_attention", "paged_decode_attention_plain",
-    "paged_geometry", "paged_read_bytes", "params_from_reference",
-    "resolve_attention_backend", "rope_frequencies", "sample_logits",
-    "span_bucket_tiles", "templated_log_corpus",
+    "ATTENTION_BACKENDS", "AdmitResult", "CausalAttention", "ChecksumError",
+    "DecoderBlock", "HostKVArena", "KVTIER_METRICS", "KVTransfer",
+    "LLMTransformer", "LlamaConfig", "LlamaModel", "NgramDrafter",
+    "PagedGeometry", "QuantDense", "QuantEmbed", "RMSNorm",
+    "RadixPrefixIndex", "SessionJournal", "SessionState", "SlotEngine",
+    "StepEvent", "apply_rope", "cast_params", "causal_lm_loss",
+    "dense_read_bytes", "finetune_lm", "generate", "generate_speculative",
+    "init_cache", "kvtier_metrics", "llama_from_pretrained", "lm_loss_fn",
+    "make_lm_train_step", "pack_kv_transfer", "paged_decode_attention",
+    "paged_decode_attention_plain", "paged_geometry", "paged_read_bytes",
+    "params_from_reference", "quantize_int8", "resolve_attention_backend",
+    "rope_frequencies", "sample_logits", "spec_unpack", "span_bucket_tiles",
+    "templated_log_corpus", "token_prefix_hash", "unpack_kv_transfer",
 ]

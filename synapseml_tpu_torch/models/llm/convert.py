@@ -6,7 +6,10 @@ reference boxes every leaf with ``nn.with_partitioning``) — and returns
 the state dict of :class:`~.model.LlamaModel`.  The layouts already
 agree (``Dense`` kernels ``(in, out)``, the embedding ``(vocab,
 d_model)``), so the conversion renames ``layer_{i}`` to ``layers.{i}``
-and keeps every value bit for bit.  The port never imports flax.
+and keeps every value bit for bit.  An int8 tree (the reference's
+``quantize_int8``, for ``weight_quant="int8"``) carries ``kernel_q`` and
+``scale`` per projection and, tied, ``embedding_q`` and ``scale`` for
+the embedding; they keep their names.  The port never imports flax.
 """
 
 from __future__ import annotations
@@ -30,20 +33,25 @@ def params_from_reference(params: Mapping, cfg: LlamaConfig,
     a :class:`~.model.LlamaModel` state dict on ``device``."""
     dev = resolve_device(device)
     p = params.get("params", params)
-    if cfg.weight_quant != "none" or "embedding_q" in p.get("tok_embed", {}):
-        raise NotImplementedError("int8 parameter trees are not ported yet "
-                                  "(ROADMAP A1: int8 weights)")
-    sd = {"tok_embed.embedding": p["tok_embed"]["embedding"],
-          "ln_final.scale": p["ln_final"]["scale"]}
+    quant = "kernel_q" in p["layer_0"]["attn"]["q_proj"]
+    if quant != (cfg.weight_quant == "int8"):
+        raise ValueError(f"the tree is {'int8' if quant else 'float'} but "
+                         f"cfg.weight_quant={cfg.weight_quant!r}")
+    sd = {"ln_final.scale": p["ln_final"]["scale"]}
+    for name, leaf in p["tok_embed"].items():
+        sd["tok_embed." + name] = leaf
     for i in range(cfg.num_layers):
         layer = p[f"layer_{i}"]
         pre = f"layers.{i}."
         sd[pre + "ln_attn.scale"] = layer["ln_attn"]["scale"]
         sd[pre + "ln_mlp.scale"] = layer["ln_mlp"]["scale"]
         for n in _ATTN:
-            sd[pre + f"attn.{n}.kernel"] = layer["attn"][n]["kernel"]
+            for name, leaf in layer["attn"][n].items():
+                sd[pre + f"attn.{n}.{name}"] = leaf
         for n in _MLP:
-            sd[pre + f"{n}.kernel"] = layer[n]["kernel"]
+            for name, leaf in layer[n].items():
+                sd[pre + f"{n}.{name}"] = leaf
     if not cfg.tie_embeddings:
-        sd["lm_head.kernel"] = p["lm_head"]["kernel"]
+        for name, leaf in p["lm_head"].items():
+            sd["lm_head." + name] = leaf
     return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in sd.items()}

@@ -19,6 +19,15 @@ hidden state and the table to ``cfg.dtype`` (flax ``nn.Embed.attend``)
 before its logits go to f32.  The projections are plain ``torch.matmul``
 as the reference leaves them to XLA; the paged decode read is the K3
 kernel (:mod:`.paged_attn`).
+
+``weight_quant="int8"`` (weight-only int8, the reference's
+:class:`QuantDense` / :class:`QuantEmbed`): every projection holds an int8
+kernel and an f32 scale per output channel, and computes ``(x @
+kq.to(dtype)) * scale.to(dtype)``; a tied embedding holds an int8 table
+with an f32 scale per vocabulary row, and its head runs the product in
+f32 before multiplying by the scale.  The int8 tensors stay int8 on the
+device; each use casts them (no dequantized copy is kept).
+:func:`~.generate.quantize_int8` makes such a model from a float one.
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
-    #: "int8" weight-only quantization is not ported yet (ROADMAP A1)
+    #: "int8": projections (and a tied embedding) hold int8 weights with
+    #: f32 scales (:class:`QuantDense`, :class:`QuantEmbed`)
     weight_quant: str = "none"
 
     @property
@@ -100,6 +110,65 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+
+
+class QuantDense(nn.Module):
+    """int8 weight-only Dense: ``kernel_q`` (in, out) int8 and ``scale``
+    (out,) f32; the scale is applied after the product (a per-column
+    scale commutes with the contraction).  The product runs in the
+    promotion of the input's type and ``dtype``, as the reference's
+    ``dot_general``."""
+
+    def __init__(self, in_features: int, features: int, dtype,
+                 device: torch.device):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_q = nn.Parameter(
+            torch.zeros((in_features, features), dtype=torch.int8,
+                        device=device), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = torch.promote_types(x.dtype, self.dtype)
+        y = torch.matmul(x.to(ct), self.kernel_q.to(ct))
+        return y * self.scale.to(self.dtype)
+
+
+class QuantEmbed(nn.Module):
+    """int8 tied embedding: one (vocab, features) int8 table with an f32
+    scale per vocabulary row serves the lookup (exact per-row dequant)
+    and the :meth:`attend` head (the row scale commutes out of the
+    contraction over features and multiplies the logits columnwise)."""
+
+    def __init__(self, vocab: int, features: int, dtype,
+                 device: torch.device):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding_q = nn.Parameter(
+            torch.zeros((vocab, features), dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(vocab, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        ids = ids.long()
+        return (self.embedding_q[ids].to(self.dtype)
+                * self.scale[ids].to(self.dtype)[..., None])
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits (..., vocab) f32: the product of ``x`` and the int8 table
+        in f32 (the reference's ``preferred_element_type``), times the
+        row scales."""
+        return torch.matmul(x.float(), self.embedding_q.float().T) \
+            * self.scale
+
+
+def _dense(in_features: int, features: int, dtype, device, generator,
+           quant: str = "none") -> nn.Module:
+    if quant == "int8":
+        return QuantDense(in_features, features, dtype, device)
+    return Dense(in_features, features, dtype, device, generator)
 
 
 class RMSNorm(nn.Module):
@@ -160,12 +229,15 @@ class CausalAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
-        self.q_proj = Dense(cfg.d_model, H * D, cfg.dtype, device, generator)
-        self.k_proj = Dense(cfg.d_model, KV * D, cfg.dtype, device,
-                            generator)
-        self.v_proj = Dense(cfg.d_model, KV * D, cfg.dtype, device,
-                            generator)
-        self.o_proj = Dense(H * D, cfg.d_model, cfg.dtype, device, generator)
+        q = cfg.weight_quant
+        self.q_proj = _dense(cfg.d_model, H * D, cfg.dtype, device,
+                             generator, q)
+        self.k_proj = _dense(cfg.d_model, KV * D, cfg.dtype, device,
+                             generator, q)
+        self.v_proj = _dense(cfg.d_model, KV * D, cfg.dtype, device,
+                             generator, q)
+        self.o_proj = _dense(H * D, cfg.d_model, cfg.dtype, device,
+                             generator, q)
 
     def forward(self, x, positions, cache: Optional[Dict],
                 cache_index=None, slot_mask: Optional[torch.Tensor] = None,
@@ -249,12 +321,13 @@ class DecoderBlock(nn.Module):
         self.attn = CausalAttention(cfg, device, generator)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
                               device)
-        self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
-                               generator)
-        self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
-                             generator)
-        self.down_proj = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device,
-                               generator)
+        q = cfg.weight_quant
+        self.gate_proj = _dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
+                                generator, q)
+        self.up_proj = _dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
+                              generator, q)
+        self.down_proj = _dense(cfg.d_ff, cfg.d_model, cfg.dtype, device,
+                                generator, q)
 
     def forward(self, x, positions, cache, cache_index, slot_mask=None,
                 attention_backend: str = "dense"):
@@ -294,28 +367,33 @@ class LlamaModel(nn.Module):
     without a card unless ``device="cpu"``) in f32, drawn from ``seed`` as
     the reference initializes them (truncated normal, std 0.02; RMSNorm
     scales 1); :func:`~.generate.cast_params` casts them to the serving
-    type."""
+    type.  ``cfg.weight_quant="int8"`` builds the int8 modules (zero
+    kernels, unit scales, as the reference initializes them): load a
+    quantized state dict into them (:func:`~.generate.quantize_int8`)."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda",
                  seed: int = 0):
         super().__init__()
-        if cfg.weight_quant != "none":
-            raise NotImplementedError(
-                f"weight_quant={cfg.weight_quant!r} (QuantDense/QuantEmbed) "
-                "is not ported yet (ROADMAP A1: int8 weights)")
+        if cfg.weight_quant not in ("none", "int8"):
+            raise ValueError(f"weight_quant={cfg.weight_quant!r}: must be "
+                             "'none' or 'int8'")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         self.cfg = cfg
-        self.tok_embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, dev,
-                               gen)
+        if cfg.tie_embeddings and cfg.weight_quant == "int8":
+            self.tok_embed = QuantEmbed(cfg.vocab_size, cfg.d_model,
+                                        cfg.dtype, dev)
+        else:
+            self.tok_embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype,
+                                   dev, gen)
         self.layers = nn.ModuleList(DecoderBlock(cfg, dev, gen)
                                     for _ in range(cfg.num_layers))
         self.ln_final = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
                                 dev)
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, torch.float32,
-                                 dev, gen)
+            self.lm_head = _dense(cfg.d_model, cfg.vocab_size, torch.float32,
+                                  dev, gen, cfg.weight_quant)
 
     @property
     def device(self) -> torch.device:
@@ -336,7 +414,9 @@ class LlamaModel(nn.Module):
                          else None, cache_index, slot_mask,
                          attention_backend)
         x = self.ln_final(x)
-        if cfg.tie_embeddings:
+        if isinstance(self.tok_embed, QuantEmbed):
+            logits = self.tok_embed.attend(x)   # f32 product inside
+        elif cfg.tie_embeddings:
             logits = self.tok_embed.attend(x.float())
         else:
             logits = self.lm_head(x)
@@ -360,3 +440,59 @@ def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
         m = mask[:, 1:].float()
         return (losses * m).sum() / torch.clamp(m.sum(), min=1.0)
     return losses.mean()
+
+
+def llama_from_pretrained(path: str, dtype: Any = torch.bfloat16,
+                          max_len: Optional[int] = None,
+                          config: Optional[LlamaConfig] = None,
+                          seed: int = 0,
+                          device: DeviceLike = "cuda") -> LlamaModel:
+    """A :class:`LlamaModel` on ``device`` from an HF-format checkpoint.
+
+    ``path``: an HF model directory (``config.json`` beside safetensors,
+    a torch pickle or ``flax_model.msgpack``, possibly sharded) or a bare
+    weights file (then ``config`` is required unless a ``config.json``
+    lies beside it).  ``config.json`` is read as the reference reads it:
+    ``rope_theta`` defaults to 10,000 and ``rms_norm_eps`` to 1e-5 when
+    absent, ``tie_word_embeddings`` to False, ``num_key_value_heads`` to
+    the head count, and ``max_len`` overrides
+    ``max_position_embeddings`` (default 8192); other keys
+    (``rope_scaling`` among them) are ignored, as there.  ``dtype`` is the
+    compute type; the parameters stay f32 as loaded
+    (:func:`~.generate.cast_params` casts them).  The weights go through
+    the HF name mapping of
+    :func:`synapseml_tpu_torch.models.dl.checkpoints.import_llama`."""
+    import json
+    import os
+
+    from ..dl.checkpoints import import_llama, read_checkpoint
+
+    dev = resolve_device(device)
+    if config is None:
+        cfg_path = os.path.join(path, "config.json") if os.path.isdir(path) \
+            else os.path.join(os.path.dirname(path), "config.json")
+        if not os.path.exists(cfg_path):
+            raise ValueError(
+                f"no config.json beside {path!r}; pass config= explicitly")
+        with open(cfg_path) as f:
+            hc = json.load(f)
+        config = LlamaConfig(
+            vocab_size=hc["vocab_size"],
+            d_model=hc["hidden_size"],
+            num_layers=hc["num_hidden_layers"],
+            num_heads=hc["num_attention_heads"],
+            num_kv_heads=hc.get("num_key_value_heads",
+                                hc["num_attention_heads"]),
+            d_ff=hc["intermediate_size"],
+            max_len=max_len or int(hc.get("max_position_embeddings", 8192)),
+            # HF's default when config.json omits it (Llama-1/2 era)
+            rope_theta=float(hc.get("rope_theta", 10_000.0)),
+            rms_norm_eps=float(hc.get("rms_norm_eps", 1e-5)),
+            tie_embeddings=bool(hc.get("tie_word_embeddings", False)),
+            dtype=dtype)
+    model = LlamaModel(config, device=dev, seed=seed)
+    hf = read_checkpoint(path)
+    model.load_state_dict(import_llama(
+        model.state_dict(), hf, num_layers=config.num_layers,
+        tie_embeddings=config.tie_embeddings))
+    return model

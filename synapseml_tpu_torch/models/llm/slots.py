@@ -51,9 +51,15 @@ The serving loop (``serving.server._DecodeLoop``) reads the engine
 through the reference's duck-typed hooks: ``trace_sink`` (per-slot
 decode/verify outcomes), :meth:`~SlotEngine.min_remaining_tokens`,
 :meth:`~SlotEngine.tokens_per_step_estimate` and the registry's
-``llm_*`` series under the reference's names and labels.  Not ported
-yet: the host KV arena (``kv_arena``, ROADMAP A1.2) and the step
-profiler (ROADMAP A6).  There is no tuning table (A6): the prefill bucket
+``llm_*`` series under the reference's names and labels.
+
+The host KV tier (``kv_arena``, a :class:`~.kvtier.HostKVArena`): a
+retiring or preempted slot spills its live K/V span to host RAM (a
+device-side stack and one device-to-host copy), and an admission or
+resume whose prompt extends a spilled span longer than any device prefix
+restores it into the slot instead of prefilling it (a plain copy of the
+spilled bits; every degraded outcome cold-prefills).  Not ported yet: the
+step profiler (ROADMAP A6).  There is no tuning table (A6): the prefill bucket
 floor is ``min_bucket`` (default 8) and the paged geometry the gate's
 default, the reference's no-table choices.
 """
@@ -70,9 +76,10 @@ import torch
 
 from ...device import DeviceLike, resolve_device
 from ...telemetry import get_registry
+from ...telemetry.flight import record as _flight_record
 from .drafter import NgramDrafter
 from .generate import sample_logits
-from .kvtier import RadixPrefixIndex, kvtier_metrics
+from .kvtier import ChecksumError, RadixPrefixIndex, kvtier_metrics
 from .model import LlamaModel, init_cache
 from .paged_attn import (_itemsize, check_kernel_layout, dense_read_bytes,
                          paged_geometry, paged_read_bytes,
@@ -98,6 +105,12 @@ def _prefill_program_key(pb: int) -> str:
 
 #: label of the prefix-copy program
 PREFIX_COPY_KEY = "prefix_copy"
+
+
+def _restore_program_key(pb: int) -> str:
+    """Stable label of one host-restore program (one per prefill bucket:
+    a restored span is labelled by the bucket it pads to)."""
+    return f"restore_b{pb}"
 
 
 def step_program(model: LlamaModel, cache, inputs: torch.Tensor,
@@ -174,10 +187,6 @@ class SlotEngine:
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device} but "
                              f"device={str(device)!r}")
-        if kv_arena is not None:
-            raise NotImplementedError(
-                "kv_arena (the host KV tier) is not ported yet "
-                "(ROADMAP A1.2: kvtier arena, session journal and resume)")
         # the compile plane: 'sync' warms the whole program lattice
         # before the constructor returns (a failure raises here); 'off'
         # runs every step eagerly
@@ -309,7 +318,19 @@ class SlotEngine:
             "llm_spec_draft_miss_total",
             "slot-steps where the n-gram drafter had no match (the slot "
             "rode the plain one-token step)", ("engine",))
+        #: optional host KV arena (:class:`~.kvtier.HostKVArena`): retiring
+        #: slots spill their live span into it, and admissions restore
+        #: spilled conversations from it instead of prefilling them
+        self.kv_arena = kv_arena
         self._mkv = kvtier_metrics()
+        #: spills made by this engine, their bytes and host seconds (the
+        #: device-side stack, the device-to-host copy and the arena's put)
+        self.spill_count = 0
+        self.spill_bytes = 0
+        self.spill_seconds = 0.0
+        #: restores from the arena and the K/V positions they wrote
+        self.restore_count = 0
+        self.restore_tokens = 0
         self.admissions = 0
         self.evictions = 0
         self.prefix_hits = 0
@@ -412,6 +433,17 @@ class SlotEngine:
         for c in (self.cache if cache is None else cache):
             c["k"][dst, :length] = c["k"][src, :length]
             c["v"][dst, :length] = c["v"][src, :length]
+
+    @torch.no_grad()
+    def _restore_span(self, rows, slot: int, cache=None) -> None:
+        """Write host K/V rows (per-layer ``{"k", "v"}`` of shape ``(span,
+        kv_heads, d_head)``) into positions ``[0, span)`` of row ``slot``
+        of ``cache`` (default: the engine's): a plain copy, as the
+        reference's ``_restore_span_jit``, without its bucket padding."""
+        for c, r in zip(self.cache if cache is None else cache, rows):
+            span = r["k"].shape[0]
+            c["k"][slot, :span].copy_(r["k"])
+            c["v"][slot, :span].copy_(r["v"])
 
     def _pack_step(self, tokens: np.ndarray,
                    lengths: np.ndarray) -> np.ndarray:
@@ -562,8 +594,22 @@ class SlotEngine:
         # and _register_prefix scope themselves by it
         self._slot_tenant[slot] = tenant
         src, lcp = self._best_prefix(prompt, slot)
-        if src is not None and lcp > 0:
-            if src != slot:
+        restored = False
+        if self.kv_arena is not None:
+            # host tier: a spilled span longer than any device-resident
+            # prefix restores instead (device reuse wins ties); every
+            # failure degrades to the device or cold path below
+            akey, alcp = self.kv_arena.longest_prefix(prompt, tenant=tenant)
+            alcp = self._clamp_reuse(int(min(alcp, len(prompt) - 1)),
+                                     len(prompt))
+            if akey is not None and alcp >= self.min_prefix \
+                    and alcp > lcp:
+                restored = self._restore_from_arena(akey, alcp, slot,
+                                                    tenant=tenant)
+                if restored:
+                    src, lcp = None, alcp
+        if restored or (src is not None and lcp > 0):
+            if not restored and src != slot:
                 with self._program_region(PREFIX_COPY_KEY):
                     self._copy_prefix(src, slot, lcp)
             # src == slot: in-place resume, the K/V is already there
@@ -603,8 +649,9 @@ class SlotEngine:
         if finished:
             self._retire(slot, reason)
         self._set_occupancy()
-        self._mkv.admit_latency.observe(time.perf_counter() - t0,
-                                        engine=self.name, path="cold")
+        self._mkv.admit_latency.observe(
+            time.perf_counter() - t0, engine=self.name,
+            path="restore" if restored else "cold")
         return AdmitResult(slot, tok, finished, lcp, logits, bucket=pb,
                            reason=reason)
 
@@ -628,6 +675,58 @@ class SlotEngine:
             # re-index the slot under its FULL retired context (prompt +
             # generated tokens) so a follow-up turn matches through it
             self._register_prefix(slot, self.ctx[slot, :span])
+            if self.kv_arena is not None:
+                self._spill_slot(slot, span,
+                                 "preempt" if reason == "preempted"
+                                 else "retire")
+
+    @torch.no_grad()
+    def _spill_slot(self, slot: int, span: int, kind: str) -> None:
+        """Spill the slot's live K/V span to the host arena: the layers'
+        rows stacked on the device into one (L, 2, span, KH, DH) tensor,
+        then one device-to-host copy.  Never breaks retirement: a failure
+        is flight-recorded and the spill lost (the conversation
+        cold-prefills later)."""
+        t0 = time.perf_counter()
+        try:
+            rows = torch.stack([torch.stack([c["k"][slot, :span],
+                                             c["v"][slot, :span]])
+                                for c in self.cache]).cpu()
+            self.kv_arena.put(self.ctx[slot, :span], rows, kind=kind,
+                              tenant=self._slot_tenant[slot])
+        except Exception as exc:  # noqa: BLE001: a spill is best-effort
+            _flight_record("kvtier_spill_failed", engine=self.name,
+                           slot=int(slot), error=repr(exc))
+            return
+        self.spill_count += 1
+        self.spill_bytes += rows.numel() * rows.element_size()
+        self.spill_seconds += time.perf_counter() - t0
+
+    def _restore_from_arena(self, key: int, span: int, slot: int,
+                            tenant: str = "default") -> bool:
+        """Restore ``span`` K/V rows of arena entry ``key`` into ``slot``.
+        False on any degraded outcome (a checksum failure, an entry
+        evicted since the probe, another tenant's key): counted, and the
+        caller cold-prefills."""
+        try:
+            rows = self.kv_arena.fetch(key, span, tenant=tenant)
+        except ChecksumError:
+            self._mkv.restores.inc(1, engine=self.name, source="host",
+                                   outcome="corrupt")
+            _flight_record("kvtier_restore_corrupt", engine=self.name,
+                           key=int(key), tokens=int(span))
+            return False
+        except KeyError:
+            self._mkv.restores.inc(1, engine=self.name, source="host",
+                                   outcome="miss")
+            return False
+        with self._program_region(_restore_program_key(self._bucket(span))):
+            self._restore_span(rows, slot)
+        self.restore_count += 1
+        self.restore_tokens += int(span)
+        self._mkv.restores.inc(1, engine=self.name, source="host",
+                               outcome="ok")
+        return True
 
     # -- preemption --------------------------------------------------------
     def preempt_slot(self) -> Optional[int]:
@@ -639,10 +738,11 @@ class SlotEngine:
         return int(np.argmax(rem))
 
     def preempt(self, slot: int) -> Optional[Dict[str, Any]]:
-        """Evict an ACTIVE slot mid-decode → a resume ticket (the full
-        context including the pending token, the valid K/V span, the
-        budget position and the tenant).  :meth:`resume` continues the
-        sequence token-exactly."""
+        """Evict an ACTIVE slot mid-decode: spill its K/V to the arena
+        (when attached) and return a resume ticket (the full context
+        including the pending token, the valid K/V span, the budget
+        position and the tenant).  :meth:`resume` continues the sequence
+        token-exactly."""
         if not self.active[slot]:
             return None
         ticket = {"ids": self.ctx[slot, :int(self.lengths[slot])].copy(),
@@ -658,11 +758,11 @@ class SlotEngine:
 
     def resume(self, ticket: Dict[str, Any]) -> Optional[int]:
         """Re-admit a preempted ticket into a free slot and continue
-        decoding where it left off: the K/V span is copied from a
-        device-resident prefix when one is indexed, and the rest
-        cold-prefilled — both reproduce the same K/V, so the continuation
-        is token-exact.  Returns the slot, or None when every slot is
-        busy."""
+        decoding where it left off: the K/V span is restored from the host
+        arena when possible, else copied from a device-resident prefix,
+        and the rest cold-prefilled; all three reproduce the same K/V, so
+        the continuation is token-exact.  Returns the slot, or None when
+        every slot is busy."""
         ids = np.asarray(ticket["ids"], np.int32).reshape(-1)
         span = int(ticket["kv_len"])
         if len(ids) == 0 or span < 1 or span >= len(ids):
@@ -674,17 +774,26 @@ class SlotEngine:
         tenant = str(ticket.get("tenant", "default"))
         self._slot_tenant[slot] = tenant
         est = 0
-        radix = self._radices.get(tenant)
-        src, dlcp = (radix.longest_prefix(ids[:span], prefer=slot)
-                     if radix is not None else (None, 0))
-        if src is not None:
-            dlcp = self._clamp_reuse(
-                int(min(dlcp, self.kv_len[src], span)), span)
-            if dlcp >= self.min_prefix:
-                if src != slot:
-                    with self._program_region(PREFIX_COPY_KEY):
-                        self._copy_prefix(src, slot, dlcp)
-                est = dlcp
+        if self.kv_arena is not None and span >= self.min_prefix:
+            akey, alcp = self.kv_arena.longest_prefix(ids[:span],
+                                                      tenant=tenant)
+            alcp = self._clamp_reuse(int(min(alcp, span)), span)
+            if akey is not None and alcp >= self.min_prefix \
+                    and self._restore_from_arena(akey, alcp, slot,
+                                                 tenant=tenant):
+                est = alcp
+        if est == 0:
+            radix = self._radices.get(tenant)
+            src, dlcp = (radix.longest_prefix(ids[:span], prefer=slot)
+                         if radix is not None else (None, 0))
+            if src is not None:
+                dlcp = self._clamp_reuse(
+                    int(min(dlcp, self.kv_len[src], span)), span)
+                if dlcp >= self.min_prefix:
+                    if src != slot:
+                        with self._program_region(PREFIX_COPY_KEY):
+                            self._copy_prefix(src, slot, dlcp)
+                    est = dlcp
         if est < span:
             # cold tail: rebuild K/V for ids[est:span]; the logits are
             # discarded — the pending token ids[span] is already committed

@@ -16,7 +16,8 @@ the forward's ~1,100 kernels from Python.  So warming the lattice means:
 - capture each decode and verify program once as a
   ``torch.cuda.CUDAGraph`` over static buffers (:class:`StepGraph`), and
   replay it on every step;
-- run each prefill bucket and the prefix copy once, eagerly, on a 2-row
+- run each prefill bucket, the prefix copy and, for an engine with a
+  host KV arena, each bucket's restore copy once, eagerly, on a 2-row
   scratch cache.  They run once per admission and take host ints, so
   they are not captured.
 
@@ -56,7 +57,7 @@ import torch
 from ...kernels import launches
 from .model import init_cache
 from .slots import (PREFIX_COPY_KEY, _next_pow2, _prefill_program_key,
-                    step_program)
+                    _restore_program_key, step_program)
 
 __all__ = ["CompilePlane", "EXEMPT_METHODS", "PROGRAM_METHODS",
            "ProgramSpec", "StepGraph", "program_lattice"]
@@ -75,12 +76,15 @@ PROGRAM_METHODS = {
     "_run_step": ("decode", "verify"),
     "_prefill_slot": ("prefill",),
     "_copy_prefix": ("prefix_copy",),
+    "_restore_span": ("restore",),
 }
 #: methods that touch the cache outside the serving loop's programs
 EXEMPT_METHODS = {
     "__init__": "allocates the cache",
     "reset": "zeroes the cache in place between serving runs; the graphs "
              "stay bound to its storage",
+    "_spill_slot": "reads a retired slot's span back to the host arena "
+                   "(a device-side stack and one copy, no model program)",
 }
 
 
@@ -98,7 +102,7 @@ class ProgramSpec:
     (> 1) step (0 for the other kinds), and a closure that warms it,
     given the plane."""
     key: str
-    kind: str             # build | decode | verify | prefix_copy | prefill
+    kind: str     # build | decode | verify | prefix_copy | prefill | restore
     run: Callable[["CompilePlane"], Any]
     S: int = 0
 
@@ -108,7 +112,8 @@ def program_lattice(engine) -> List[ProgramSpec]:
     reference's order: the kernel build (on the card, when the engine
     launches K3), the decode step, the prefix copy, the verify steps at S
     = 2, 4, ... up to ``_next_pow2(1 + spec_draft_len)``, then the
-    prefill buckets ascending.  The reference's span buckets have no
+    prefill buckets ascending, then, for an engine with a host KV arena,
+    one restore copy per bucket.  The reference's span buckets have no
     counterpart: K3 reads each slot's span on the device."""
     backend = engine.attention_backend
     specs: List[ProgramSpec] = []
@@ -137,6 +142,16 @@ def program_lattice(engine) -> List[ProgramSpec]:
             engine._prefill_slot(padded, 1, 0, 0, cache=plane._scratch())
         specs.append(ProgramSpec(_prefill_program_key(pb), "prefill",
                                  prefill))
+    if getattr(engine, "kv_arena", None) is not None:
+        cfg = engine.cfg
+        for pb in engine._buckets:
+            def restore(plane, pb=pb):
+                row = torch.zeros((pb, cfg.num_kv_heads, cfg.d_head),
+                                  dtype=cfg.dtype)
+                engine._restore_span([{"k": row, "v": row}] * cfg.num_layers,
+                                     0, cache=plane._scratch())
+            specs.append(ProgramSpec(_restore_program_key(pb), "restore",
+                                     restore))
     return specs
 
 

@@ -10,6 +10,8 @@ Request body (JSON, POST to the api path)::
 
     {"ids": [1, 2, 3], "max_new_tokens": 32}          # raw token ids
     {"prompt": "text", "stream": true}                 # with a tokenizer
+    {"ids": [...], "session": "conv"}                  # journaled turn
+    {"session": "conv", "resume": true}                # failover resume
 
 Replies carry ``{"ids": [...]}`` (plus ``"completion"`` when a
 tokenizer is configured); ``stream: true`` switches to a chunked body
@@ -18,11 +20,14 @@ with one ``{"token": id}`` JSON line per generated token and a final
 semantics, and ``/metrics``/``/healthz``/``/readyz``/``/tracez``/
 ``/sloz`` are the reference's serving contract.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item before any work: the host KV arena and the session journal
-(``kv_arena``, ``kv_arena_bytes``, ``journal``, ``journal_dir``, and
-``{"session", "resume"}`` requests: A1.2) and disaggregated prefill
-(``prefill_pool``: A8, ``serving/disagg.py``).
+The session survivability plane: ``kv_arena`` / ``kv_arena_bytes``
+attach a host KV arena to the engine (retired slots spill, warm
+conversations restore instead of prefilling), and ``journal`` /
+``journal_dir`` arm the fsync'd per-session journal, so a killed
+replica's conversation resumes token-exactly here through a
+``{"session", "resume"}`` request.  Not ported yet, refused with
+``NotImplementedError`` naming its ROADMAP item before any work:
+disaggregated prefill (``prefill_pool``: A8, ``serving/disagg.py``).
 """
 
 from __future__ import annotations
@@ -31,8 +36,7 @@ from typing import Any, Dict, List, Optional
 
 from .server import ServingRequest, ServingServer, _DecodeLoop
 
-#: ROADMAP items of the refused knobs
-_KV_TIER = "ROADMAP A1.2: the kvtier host arena, session journal and resume"
+#: ROADMAP item of the refused knob
 _DISAGG = "ROADMAP A8: serving/disagg.py PrefillPool"
 
 
@@ -59,7 +63,11 @@ class LLMServer:
     ``'off'``) arms the compile plane: ``'background'`` returns at once
     and ``/readyz`` answers 503 ``"warming"`` until the plane's thread
     has built the kernels and captured every step graph; the decode loop
-    holds queued requests until then."""
+    holds queued requests until then.  ``kv_arena_bytes`` builds a
+    :class:`~synapseml_tpu_torch.models.llm.kvtier.HostKVArena` of that
+    budget for the engine (or pass ``kv_arena``), and ``journal_dir`` a
+    :class:`~synapseml_tpu_torch.models.llm.kvtier.SessionJournal` under
+    that directory (or pass ``journal``)."""
 
     def __init__(self, model: Any = None, *, engine: Any = None,
                  tokenizer: Any = None, n_slots: int = 16, max_len: Optional[int] = None,
@@ -86,17 +94,19 @@ class LLMServer:
                  prefill_pool: Any = None,
                  engine_kwargs: Optional[Dict[str, Any]] = None,
                  device: Any = "cuda"):
-        if kv_arena is not None or kv_arena_bytes:
-            raise NotImplementedError(
-                f"kv_arena / kv_arena_bytes are not ported yet ({_KV_TIER})")
-        if journal is not None or journal_dir:
-            raise NotImplementedError(
-                f"journal / journal_dir are not ported yet ({_KV_TIER})")
         if prefill_pool is not None:
             raise NotImplementedError(
                 f"prefill_pool is not ported yet ({_DISAGG})")
         from ..device import resolve_device
         dev = resolve_device(device)
+        if kv_arena is None and kv_arena_bytes:
+            from ..models.llm.kvtier import HostKVArena
+            kv_arena = HostKVArena(int(kv_arena_bytes),
+                                   name=api_path.strip("/") or "llm")
+        if journal is None and journal_dir:
+            from ..models.llm.kvtier import SessionJournal
+            journal = SessionJournal(journal_dir,
+                                     name=api_path.strip("/") or "llm")
         if engine is None:
             from ..models.llm import SlotEngine
             engine = SlotEngine(model, n_slots=n_slots, max_len=max_len,
@@ -106,11 +116,14 @@ class LLMServer:
                                 attention_backend=attention_backend,
                                 spec_draft_len=spec_draft_len,
                                 spec_ngram=spec_ngram, warmup=warmup,
-                                device=dev, **(engine_kwargs or {}))
+                                kv_arena=kv_arena, device=dev,
+                                **(engine_kwargs or {}))
         elif engine.device != dev:
             raise ValueError(f"the engine is on {engine.device} but "
                              f"device={str(device)!r}")
         self.engine = engine
+        self.kv_arena = getattr(engine, "kv_arena", kv_arena)
+        self.journal = journal
         self.tokenizer = tokenizer
         self.server = ServingServer(host, port, api_path,
                                     reply_timeout_s=reply_timeout_s,
@@ -139,7 +152,7 @@ class LLMServer:
             max_new_tokens_default=max_new_tokens_default,
             ttft_slo_s=ttft_slo_s, token_slo_s=token_slo_s,
             trace_sample_every=trace_sample_every,
-            qos=qos, max_tenants=max_tenants)
+            journal=journal, qos=qos, max_tenants=max_tenants)
         # the loop constructs a default scheduler when none was given —
         # surface THAT one so callers can set policies/read attribution
         if self.qos is None:
@@ -148,10 +161,12 @@ class LLMServer:
     # -- request/reply shaping --------------------------------------------
     def _parse(self, req: ServingRequest) -> Dict[str, Any]:
         body = req.json()
-        if body.get("resume"):
-            raise NotImplementedError(
-                f"session resume is not ported yet ({_KV_TIER})")
         if "ids" in body:
+            spec = dict(body)
+        elif body.get("resume") and body.get("session") is not None \
+                and self.journal is not None:
+            # failover resume: the prompt + committed tokens come from the
+            # session journal's replay, not the request body
             spec = dict(body)
         elif "prompt" in body and self.tokenizer is not None:
             # budget prompt tokens against the engine window, leaving

@@ -973,6 +973,18 @@ class _DecodeSeq:
     #: at least once (the compile_wait trace event fires on the first
     #: hold only)
     compile_waited: bool = False
+    #: conversation key for the session journal
+    session: Optional[str] = None
+    #: the sequence was rebuilt from a journal replay: ``ids`` is the
+    #: journaled prompt + committed tokens, ``tokens`` pre-seeded with the
+    #: committed tokens, ``max_new`` the REMAINING budget — the admit
+    #: prefills the whole context and the continuation is token-exact
+    #: with the interrupted turn
+    resumed: bool = False
+    #: the journal replay already holds the turn's FULL token budget (the
+    #: crash landed after the last token commit but before the reply):
+    #: the replay IS the reply
+    replay_complete: bool = False
     #: QoS tenant this sequence bills to (from the ``X-SML-Tenant``
     #: header or the ``tenant`` payload field)
     tenant: str = "default"
@@ -1054,11 +1066,19 @@ class _DecodeLoop:
                  token_slo_s: Optional[float] = None,
                  idle_timeout_s: float = 0.02,
                  trace_sample_every: Optional[int] = None,
-                 request_tracer=None, slo_window=None,
+                 request_tracer=None, slo_window=None, journal=None,
                  qos=None, max_tenants: int = 256):
         self.server = server
         self.api = api
         self.engine = engine
+        #: optional session journal (duck-typed on
+        #: :class:`~synapseml_tpu_torch.models.llm.kvtier.SessionJournal`:
+        #: ``begin``/``append_tokens``/``retire``/``replay`` with a
+        #: ``tenant`` keyword, and a public ``metrics``/``name``): every
+        #: committed token is journaled fsync-first, and a ``resume``
+        #: request replays the journal so a killed replica's conversation
+        #: continues token-exactly here
+        self.journal = journal
         self.input_parser = input_parser
         self.output_formatter = output_formatter or (
             lambda ids: {"ids": [int(t) for t in ids]})
@@ -1205,7 +1225,10 @@ class _DecodeLoop:
             try:
                 spec = self.input_parser(req)
                 ids = [int(t) for t in spec.get("ids", [])]
-                if not ids:
+                session = spec.get("session")
+                resume = bool(spec.get("resume", False)) \
+                    and session is not None and self.journal is not None
+                if not ids and not resume:
                     raise ValueError("empty prompt")
                 max_new = int(spec.get("max_new_tokens",
                                        self.max_new_tokens_default))
@@ -1245,6 +1268,26 @@ class _DecodeLoop:
             seq = _DecodeSeq(req, ids, max_new,
                              bool(spec.get("stream", False)),
                              tenant=tenant, priority=prio)
+            if session is not None:
+                seq.session = str(session)
+            if resume:
+                self._try_resume(seq)
+                if not seq.ids:
+                    # replay found nothing usable and the request carried
+                    # no prompt of its own: nothing to serve
+                    self._m_errors.inc(1, api=self.api.path, kind="parse")
+                    self._safe_reply(req.id, ServingReply(
+                        404, json.dumps(
+                            {"error": "resume: no journaled state for "
+                             "session"}).encode()))
+                    continue
+                if seq.replay_complete:
+                    payload = self.output_formatter(seq.tokens)
+                    self._safe_reply(req.id, ServingReply(
+                        200, json.dumps(payload).encode(),
+                        {"Content-Type": "application/json"}))
+                    self._m_records.inc(1, api=self.api.path)
+                    continue
             # trace minted here (admission into the serving plane) or
             # adopted from the upstream hop (always sampled: a
             # propagated request is never half-traced)
@@ -1254,6 +1297,58 @@ class _DecodeLoop:
                                prompt_tokens=len(ids), max_new=max_new,
                                stream=seq.stream)
             self._waiting.append(seq)
+
+    def _try_resume(self, seq: _DecodeSeq) -> None:
+        """Rebuild an interrupted conversation from the session journal
+        (the crash-failover path).  On a usable replay the sequence becomes
+        journaled prompt + committed tokens with the REMAINING budget, so
+        the prefill reproduces the dead replica's state and the
+        continuation is token-exact.  Every degraded outcome (no journal
+        file, a truncated state) is counted and the request falls back to
+        its own ids: a cold start, never a wrong token."""
+        m = self.journal.metrics
+        name = getattr(self.journal, "name", "llm")
+        try:
+            # tenant-namespaced replay: a cross-tenant session-id
+            # collision reads as a miss, never as another tenant's tokens
+            st = self.journal.replay(seq.session, tenant=seq.tenant)
+        except Exception:  # noqa: BLE001 — degraded, never fatal
+            st = None
+        if st is None or not (st.prompt or st.committed):
+            m.restores.inc(1, engine=name, source="journal",
+                           outcome="miss")
+            return
+        if st.truncated:
+            # the size cap dropped oldest tokens: a suffix is not
+            # token-exact material
+            m.restores.inc(1, engine=name, source="journal",
+                           outcome="truncated")
+            return
+        committed = [int(t) for t in st.committed]
+        seq.ids = [int(t) for t in st.prompt] + committed
+        seq.tokens = list(committed)
+        remaining = int(st.max_new) - len(committed)
+        if remaining <= 0:
+            # every budgeted token was journaled before the crash: the
+            # turn finished, only the reply was lost
+            seq.replay_complete = True
+        seq.max_new = max(1, remaining)
+        seq.resumed = True
+        m.restores.inc(1, engine=name, source="journal", outcome="ok")
+        _flight_record("kvtier_session_resume", api=self.api.path,
+                       session=seq.session, committed=len(committed),
+                       remaining=seq.max_new)
+
+    def _journal_safe(self, fn) -> None:
+        """Run one journal operation without ever failing the serving
+        path: a full disk loses durability (flight-recorded), not the
+        conversation.  An armed ``kill`` fault SIGKILLs inside ``fn``,
+        which is the crash the journal protects against."""
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 — serving must not die
+            _flight_record("kvtier_journal_error", api=self.api.path,
+                           error=repr(exc))
 
     def _queue_waited(self, seq: _DecodeSeq) -> float:
         """Seconds this request has spent as REAL queue pressure.
@@ -1479,6 +1574,12 @@ class _DecodeLoop:
                     self._tracer.finish(seq.trace_id, "expired")
                     continue
             self._by_slot[res.slot] = seq
+            if self.journal is not None and seq.session is not None:
+                # (re)baseline the journal BEFORE the first token lands:
+                # for a resumed turn ids already embeds the committed
+                # tokens, so a second crash stays token-exact
+                self._journal_safe(lambda s=seq: self.journal.begin(
+                    s.session, s.ids, s.max_new, tenant=s.tenant))
             self._on_token(seq, res.token, res.finished,
                            getattr(res, "reason", None))
         self._waiting = [s for s in keep if s.ticket is None]
@@ -1532,6 +1633,12 @@ class _DecodeLoop:
     # -- token/retirement handling ----------------------------------------
     def _on_token(self, seq: _DecodeSeq, token: int, finished: bool,
                   reason: Optional[str] = None) -> None:
+        if self.journal is not None and seq.session is not None:
+            # journal BEFORE the client sees the token: a token the client
+            # received survives a SIGKILL one instruction later (fsync'd)
+            self._journal_safe(lambda s=seq, t=token:
+                               self.journal.append_tokens(
+                                   s.session, [int(t)], tenant=s.tenant))
         seq.tokens.append(int(token))
         self._m_tokens.inc(1, api=self.api.path)
         if seq.stream_obj is not None:
@@ -1555,6 +1662,12 @@ class _DecodeLoop:
                            tokens=len(seq.tokens), reason=reason)
         self._tracer.finish(seq.trace_id, "retired",
                             tokens=len(seq.tokens), reason=reason)
+        if self.journal is not None and seq.session is not None:
+            # compaction at retirement: the session's history collapses to
+            # one state record, kept as the next turn's failover source
+            self._journal_safe(lambda s=seq:
+                               self.journal.retire(s.session,
+                                                   tenant=s.tenant))
         payload = self.output_formatter(seq.tokens)
         if seq.stream_obj is not None:
             payload["done"] = True

@@ -269,10 +269,12 @@ def test_sampling_reproducible_and_inside_top_k(pair):
 
 def test_unported_options_raise(pair):
     _, _, tm = pair
-    for kw, item in (({"kv_arena": object()}, "ROADMAP A1.2"),
-                     ({"step_profiler": object()}, "ROADMAP A6")):
+    for kw, item in (({"step_profiler": object()}, "ROADMAP A6"),):
         with pytest.raises(NotImplementedError, match=item):
             _engine(tm, **kw)
+    # the host KV arena is ported: an engine takes one
+    arena = P.HostKVArena(1 << 20, name="pt-unported-arena")
+    assert _engine(tm, kv_arena=arena).kv_arena is arena
     with pytest.raises(ValueError, match="greedy"):
         _engine(tm, spec_draft_len=2, temperature=0.5)
     if not torch.cuda.is_available():

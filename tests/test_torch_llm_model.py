@@ -183,8 +183,12 @@ def test_bf16_tied_head_promotes_to_compute_type():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        P.LlamaModel(P.LlamaConfig.tiny(weight_quant="int8"), device="cpu")
+    with pytest.raises(ValueError, match="weight_quant"):
+        P.LlamaModel(P.LlamaConfig.tiny(weight_quant="int4"), device="cpu")
+    # int8 is ported: the model holds int8 kernels
+    m8 = P.LlamaModel(P.LlamaConfig.tiny(num_layers=1, weight_quant="int8"),
+                      device="cpu")
+    assert m8.layers[0].attn.q_proj.kernel_q.dtype == torch.int8
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             P.LlamaModel(P.LlamaConfig.tiny(num_layers=1))

@@ -140,7 +140,9 @@ def test_every_program_method_is_in_the_lattice_or_exempt(pair):
         f"!= listed {sorted(listed)}: register new programs with the "
         "warm-up lattice (models/llm/warmup.py)")
     assert not set(PW.PROGRAM_METHODS) & set(PW.EXEMPT_METHODS)
-    eng = _engine(pair[2], spec_draft_len=4)
+    # an engine with a host KV arena runs every kind (restore included)
+    eng = _engine(pair[2], spec_draft_len=4,
+                  kv_arena=P.HostKVArena(1 << 20, name="pt-sweep-arena"))
     kinds = {s.kind for s in PW.program_lattice(eng)}
     assert kinds == {k for ks in PW.PROGRAM_METHODS.values() for k in ks}
 
