@@ -250,6 +250,30 @@
     card runs join the kernels line; every shape they launched is one
     phase 6 holds (phase 6 adds 20a's f32 shape: 4 slots, H=8, KV=4,
     D=16, T=128).
+21. ONNX batch inference and the image stages (``models/onnx``,
+    ``image``; no kernel of the port: XLA computes these in the JAX
+    package): (a) a small conv/BN/pool/gemm graph, a tiny BERT
+    classifier (2 layers, 32 wide, a padded mask) and ResNet-50 on one
+    3x64x64 image, f32 and bf16, and an ``ImageTransformer`` chain, on
+    the card against the port's CPU path (f32 within 1e-5 of scale,
+    ResNet-50 1e-4 with the argmax equal, bf16 2e-2, BERT bf16 5e-2);
+    (b) bench.py's ResNet-50 window (batch 32, 3x224x224, 1,000
+    classes, seed 0) through ``compile_onnx`` at f32 (TF32 off) and
+    bf16 in turns: images/s (median of 3 windows of 60 dispatches), step
+    ms, TFLOP/s over the convolutions' and head's flops counted from
+    their shapes, the folded and per-call node counts and no upload a
+    call; (c) ``ONNXModel.transform`` over 1,024 seeded images at
+    ``miniBatchSize`` 128, f32 and bf16: images/s, and a profiled run's
+    device kernel ms against the rest (host); (d) ``ImageTransformer``
+    (resize 256x256, center crop 224, ImageNet normalize) then a headless
+    ``ImageFeaturizer`` (ResNet-50's 2,048-d Flatten) over 512 seeded
+    256x320 images: features/s, features equal to the sliced
+    ``ONNXModel`` on the same tensors; (e) a BERT-base-width ONNX
+    classifier (12 layers, 768, 12 heads, seq 128, vocab 30,522, a
+    seeded HF-named state dict) at batch 64, f32 and bf16 in turns:
+    sequences/s and the argmax agreement; (f) ``torch.profiler`` over 5
+    bf16 ResNet-50 calls of (b): launches, device ms by kind, busy share.
+    Every line carries the card's name and power limit.
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -3155,6 +3179,392 @@ def arena_journal_http(model, prompts, new, dev, root: str,
     return out
 
 
+# -- phase 21: ONNX batch inference and the image stages ---------------------
+
+#: bench.py's ResNet-50 configuration (``bench_resnet50``): batch 32 of
+#: 3x224x224, 1,000 classes, seed 0, 60 dispatches a window
+ONNX_BATCH, ONNX_HW, ONNX_STEPS = 32, 224, 60
+#: ImageNet's channel statistics, the usual ImageFeaturizer preprocessing
+IMAGENET_STATS = ([0.485, 0.456, 0.406], [0.229, 0.224, 0.225])
+
+
+def random_bert_state_dict(seed: int, vocab_size: int, d_model: int,
+                           num_layers: int, intermediate: int,
+                           num_labels: int, max_positions: int = 512,
+                           std: float = 0.02) -> dict:
+    """A BertForSequenceClassification state dict under HF's tensor names,
+    drawn from ``seed`` with numpy (normal(0, ``std``) matrices,
+    embeddings and biases, LayerNorm gains 1 + normal(0, ``std``)) — what
+    the zoo's ``build_bert_classifier`` takes, without ``transformers``."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def normal(*shape):
+        return (rng.normal(size=shape) * std).astype(np.float32)
+
+    def dense(name, n_out, n_in):
+        sd[name + ".weight"] = normal(n_out, n_in)
+        sd[name + ".bias"] = normal(n_out)
+
+    def norm(name):
+        sd[name + ".weight"] = 1 + normal(d_model)
+        sd[name + ".bias"] = normal(d_model)
+
+    sd["bert.embeddings.word_embeddings.weight"] = normal(vocab_size, d_model)
+    sd["bert.embeddings.position_embeddings.weight"] = normal(max_positions,
+                                                              d_model)
+    sd["bert.embeddings.token_type_embeddings.weight"] = normal(2, d_model)
+    norm("bert.embeddings.LayerNorm")
+    for i in range(num_layers):
+        p = f"bert.encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            dense(p + "attention.self." + name, d_model, d_model)
+        dense(p + "attention.output.dense", d_model, d_model)
+        norm(p + "attention.output.LayerNorm")
+        dense(p + "intermediate.dense", intermediate, d_model)
+        dense(p + "output.dense", d_model, intermediate)
+        norm(p + "output.LayerNorm")
+    dense("bert.pooler.dense", d_model, d_model)
+    dense("classifier", num_labels, d_model)
+    return sd
+
+
+def onnx_small_cnn(seed: int) -> bytes:
+    """A small conv/BN/pool/gemm ONNX graph (16x16 images, 5 classes)."""
+    from synapseml_tpu_torch.models.onnx import GraphBuilder
+    rng = np.random.default_rng(seed)
+    b = GraphBuilder("cnn")
+    x = b.input("image", (None, 3, 16, 16))
+    h = b.node("Conv", [x, b.initializer(
+        "w1", (rng.normal(size=(8, 3, 3, 3)) * 0.3).astype(np.float32)),
+        b.initializer("b1", rng.normal(size=8).astype(np.float32))],
+        kernel_shape=[3, 3], pads=[1, 0, 2, 1])
+    h = b.node("BatchNormalization", [h] + [b.initializer(
+        k, v) for k, v in (("s", rng.uniform(0.5, 1.5, 8)),
+                           ("bb", rng.normal(size=8)),
+                           ("m", rng.normal(size=8)),
+                           ("v", rng.uniform(0.5, 2, 8)))], epsilon=1e-5)
+    h = b.node("Relu", [h])
+    h = b.node("MaxPool", [h], kernel_shape=[3, 3], strides=[2, 2],
+               pads=[1, 1, 1, 1])
+    h = b.node("AveragePool", [h], kernel_shape=[2, 2], pads=[0, 0, 1, 1])
+    h = b.node("Flatten", [b.node("GlobalAveragePool", [h])], axis=1)
+    b.output(b.node("Gemm", [h, b.initializer(
+        "wf", rng.normal(size=(5, 8)).astype(np.float32)), b.initializer(
+        "bf", rng.normal(size=5).astype(np.float32))], transB=1,
+        outputs=["logits"]))
+    return b.build()
+
+
+def _scale_err(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got.astype(np.float64) - want).max()
+                 / max(1.0, float(np.abs(want).max())))
+
+
+def onnx_card_vs_cpu(dev, seed: int, resnet: bytes) -> dict:
+    """21a: the small CNN, a tiny BERT classifier (2 layers, 32 wide, a
+    padded mask) and ResNet-50 on one 3x64x64 image, f32 and bf16, and the
+    image stages, on ``dev`` against the port's CPU path → the largest
+    differences over scale.  Raises past f32 1e-5 (ResNet-50 1e-4, argmax
+    equal), bf16 2e-2 (BERT 5e-2), stages 1e-5.  Also the bf16 products
+    whose float32 result is kept (a bias or scale follows): MatMul/Gemm's
+    and a convolution's on bf16 operands against the CPU's float32
+    product of the same values, within 1e-5 (a result rounded to bf16
+    would be off by ~1e-3)."""
+    import torch.nn.functional as F
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.device import full_f32
+    from synapseml_tpu_torch.image import ImageTransformer
+    from synapseml_tpu_torch.models.onnx import compile_onnx, ops, zoo
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).bfloat16()
+
+    a, b, a3 = bf16(64, 256), bf16(256, 96), bf16(4, 64, 256)
+    x, w = bf16(2, 64, 14, 14), bf16(32, 64, 3, 3)
+    with full_f32():
+        products = {
+            "mm_bf16_f32out": (ops.matmul_f32(a.to(dev), b.to(dev)),
+                               a.float() @ b.float()),
+            "bmm_bf16_f32out": (ops.matmul_f32(a3.to(dev), a3.to(dev).mT),
+                                a3.float() @ a3.float().mT),
+            "conv_bf16_f32out": (ops._conv_f32(F.conv2d, x.to(dev),
+                                               w.to(dev), padding=1),
+                                 F.conv2d(x.float(), w.float(), padding=1))}
+    for label, (got, want) in products.items():
+        if got.dtype != torch.float32:
+            raise AssertionError(f"21a {label}: {got.dtype}")
+        out[label] = _scale_err(got.cpu().numpy(), want.numpy())
+        if out[label] > 1e-5:
+            raise AssertionError(f"21a {label}: {out[label]} > 1e-5")
+    sd = random_bert_state_dict(seed, vocab_size=120, d_model=32,
+                                num_layers=2, intermediate=64,
+                                num_labels=3, max_positions=64)
+    mask = np.ones((4, 10), np.float32)
+    mask[1, 6:] = 0
+    mask[3, 3:] = 0
+    cases = {
+        "cnn": (onnx_small_cnn(seed), {"image": rng.normal(
+            size=(4, 3, 16, 16)).astype(np.float32)}, 1e-5, 2e-2),
+        "bert_tiny": (zoo.build_bert_classifier(sd, num_layers=2,
+                                                num_heads=4, seq_len=10),
+                      {"input_ids": rng.integers(0, 120, (4, 10)),
+                       "attention_mask": mask}, 1e-5, 5e-2),
+        "resnet50_64": (resnet, {"data": rng.normal(
+            size=(1, 3, 64, 64)).astype(np.float32)}, 1e-4, 2e-2)}
+    for name, (payload, feeds, tol32, tol16) in cases.items():
+        for dt, tol in ((None, tol32), ("bfloat16", tol16)):
+            got = {}
+            for d in (dev, torch.device("cpu")):
+                fn = compile_onnx(payload, dtype=dt, device=d)
+                got[d.type] = {k: v.float().cpu().numpy()
+                               for k, v in fn(**feeds).items()}
+            for k, want in got["cpu"].items():
+                err = _scale_err(got[dev.type][k], want)
+                label = f"{name}_{'f32' if dt is None else 'bf16'}"
+                out[label] = err
+                if err > tol:
+                    raise AssertionError(f"21a {label}: card vs CPU {err} "
+                                         f"> {tol}")
+                if name == "resnet50_64" and dt is None and \
+                        got[dev.type][k].argmax() != want.argmax():
+                    raise AssertionError("21a resnet50 f32 argmax differs")
+    imgs = [rng.uniform(0, 255, (40, 52, 3)).astype(np.float32)
+            for _ in range(4)]
+    stages = []
+    for d in (dev.type, "cpu"):
+        prep = (ImageTransformer(inputCol="img", outputCol="t", device=d)
+                .resize(36, 40).center_crop(32, 32).blur(5, 1.2).flip(1)
+                .normalize(*IMAGENET_STATS))
+        stages.append(np.stack(list(prep.transform(
+            Dataset({"img": imgs}))["t"])))
+    out["image_stages"] = _scale_err(*stages)
+    if out["image_stages"] > 1e-5:
+        raise AssertionError(f"21a image stages: {out['image_stages']}")
+    return out
+
+
+def onnx_conv_flops(payload: bytes, hw: int, dev) -> float:
+    """Forward flops of one ``hw``² image, counted from the shapes of every
+    Conv and Gemm node's output (2·Cin/group·kh·kw per output element of
+    a convolution, 2·in per output of a Gemm)."""
+    from synapseml_tpu_torch.models.onnx import load_graph
+    from synapseml_tpu_torch.models.onnx.runner import evaluate
+    g = load_graph(payload)
+    nodes = [n for n in g.nodes if n.op_type in ("Conv", "Gemm")]
+    outs = evaluate(g, {g.input_names[0]: np.zeros((1, 3, hw, hw),
+                                                   np.float32)},
+                    [n.outputs[0] for n in nodes], device=dev)
+    total = 0.0
+    for n in nodes:
+        w = g.initializers[n.inputs[1]]
+        o = outs[n.outputs[0]]
+        per_out = (2.0 * np.prod(w.shape[1:]) if n.op_type == "Conv"
+                   else 2.0 * w.shape[1 if n.attrs.get("transB") else 0])
+        total += per_out * o.numel()
+    return total
+
+
+def onnx_windows(fns: dict, inputs: dict, batch: int, steps: int,
+                 windows: int = 3) -> dict:
+    """Items/s of each ``fns[label](**inputs)`` as a median over
+    ``windows`` rounds of ``steps`` dispatches, the labels in turns; a
+    window ends in a read of one output value (the barrier)."""
+    def run(fn):
+        out = fn(**inputs)
+        return next(iter(out.values())).reshape(-1)[:1].cpu()
+
+    for fn in fns.values():
+        run(fn)
+    rates = {k: [] for k in fns}
+    for _ in range(windows):
+        for label, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(steps - 1):
+                fn(**inputs)
+            run(fn)
+            rates[label].append(steps * batch / (time.perf_counter() - t0))
+    return {k: dict(per_s=sorted(v)[len(v) // 2], windows=v,
+                    step_ms=batch / sorted(v)[len(v) // 2] * 1e3)
+            for k, v in rates.items()}
+
+
+def onnx_transform_split(model, ds, dev) -> dict:
+    """One ``model.transform(ds)`` timed (wall), then one under
+    ``torch.profiler``: the device's kernel ms over the transform and the
+    rest of the profiled wall (host work the device waited on)."""
+    from torch.profiler import ProfilerActivity, profile
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = model.transform(ds)
+    wall = time.perf_counter() - t0
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model.transform(ds)
+        pwall = time.perf_counter() - t0
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dict(out=out, wall_s=wall, per_s=ds.num_rows / wall,
+                profiled_wall_s=pwall, device_ms=dev_ms,
+                host_ms=pwall * 1e3 - dev_ms,
+                device_share=dev_ms / (pwall * 1e3))
+
+
+def onnx_image(seed: int, dev, card: str, resnet: bytes,
+               batch: int = ONNX_BATCH, hw: int = ONNX_HW,
+               steps: int = ONNX_STEPS, n_rows: int = 1024,
+               mini_batch: int = 128, n_images: int = 512,
+               img_hw=(256, 320), resize_to: int = 256,
+               bert_layers: int = 12, bert_width: int = 768,
+               bert_heads: int = 12, bert_seq: int = 128,
+               bert_vocab: int = 30522, bert_batch: int = 64,
+               bert_steps: int = 20) -> dict:
+    """Phase 21 (b-f).  Raises on a failed check."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.image import ImageTransformer
+    from synapseml_tpu_torch.models.onnx import (ImageFeaturizer, ONNXModel,
+                                                 compile_onnx, load_graph, zoo)
+    res = {}
+    rng = np.random.default_rng(seed)
+    # 21b. bench.py's ResNet-50 window through compile_onnx
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(batch, 3, hw, hw)).astype(np.float32)).to(dev)
+    fns = {"f32": compile_onnx(resnet, device=dev),
+           "bf16": compile_onnx(resnet, dtype="bfloat16", device=dev)}
+    res["flops_per_image"] = onnx_conv_flops(resnet, hw, dev)
+    win = onnx_windows(fns, {"data": x}, batch, steps)
+    for label, fn in fns.items():
+        plan = fn.plan(["data"])
+        peak = PEAK_OPS_S if label == "f32" else PEAK_BF16_S
+        win[label].update(
+            folded_nodes=plan.n_folded, per_call_nodes=plan.n_per_call,
+            uploads_per_call=plan.uploads,
+            tflops=win[label]["per_s"] * res["flops_per_image"] / 1e12,
+            share_of_peak=win[label]["per_s"] * res["flops_per_image"]
+            / peak)
+        if plan.uploads:
+            raise AssertionError(f"21b {label}: {plan.uploads} uploads a "
+                                 "call")
+    res["resnet50_window"] = win
+    log(f"phase 21b: ResNet-50 b{batch} {hw}² compile_onnx | {card}: "
+        + "; ".join(f"{k} {v['per_s']:.1f} images/s, step "
+                    f"{v['step_ms']:.3f} ms, {v['tflops']:.2f} TFLOP/s "
+                    f"({v['share_of_peak']:.3f} of peak), folded "
+                    f"{v['folded_nodes']} / per call {v['per_call_nodes']}"
+                    for k, v in win.items()))
+    # 21f. a profile of the bf16 window
+    bf = fns["bf16"]
+    res["resnet50_bf16_profile"] = profile_steps(
+        lambda: bf(data=x)["logits"][0, 0], n=5)
+    log(f"phase 21f: ResNet-50 bf16 b{batch} profile | {card}: "
+        f"{json.dumps(res['resnet50_bf16_profile'])}")
+    del fns, bf, x
+    # 21c. ONNXModel.transform over a Dataset of images
+    imgs = rng.standard_normal((n_rows, 3, hw, hw), dtype=np.float32)
+    ds = Dataset({"image": list(imgs)})
+    g = load_graph(resnet)
+    feat = [n for n in g.nodes if n.op_type == "Gemm"][-1].inputs[0]
+    trans = {}
+    for label in ("f32", "bf16"):
+        m = ONNXModel(resnet, feedDict={"data": "image"},
+                      fetchDict={"logits": "logits"},
+                      miniBatchSize=mini_batch,
+                      dtype="float32" if label == "f32" else "bfloat16",
+                      device=str(dev))
+        m.transform(Dataset({"image": list(imgs[:mini_batch])}))  # plan
+        r = onnx_transform_split(m, ds, dev)
+        logits = np.stack(list(r.pop("out")["logits"]))
+        if logits.shape != (n_rows, 1000) or not np.isfinite(logits).all():
+            raise AssertionError(f"21c {label}: logits {logits.shape}")
+        trans[label] = r
+        trans[label + "_argmax"] = logits.argmax(1)
+    res["onnxmodel_agreement"] = float(
+        (trans.pop("f32_argmax") == trans.pop("bf16_argmax")).mean())
+    res["onnxmodel_transform"] = trans
+    log(f"phase 21c: ONNXModel.transform {n_rows} images {hw}² "
+        f"miniBatchSize {mini_batch} | {card}: "
+        + "; ".join(f"{k} {v['per_s']:.1f} images/s (wall "
+                    f"{v['wall_s']:.3f} s; profiled: device "
+                    f"{v['device_ms']:.1f} ms, host {v['host_ms']:.1f} ms, "
+                    f"device share {v['device_share']:.3f})"
+                    for k, v in trans.items())
+        + f"; f32/bf16 argmax agreement {res['onnxmodel_agreement']:.4f}")
+    del ds, imgs
+    # 21d. ImageTransformer then the headless ImageFeaturizer
+    raw = [im for im in rng.uniform(0, 255, (n_images, *img_hw, 3)).astype(
+        np.float32)]
+    raw_ds = Dataset({"img": raw})
+    prep = (ImageTransformer(inputCol="img", outputCol="t", device=str(dev))
+            .resize(resize_to, resize_to).center_crop(hw, hw)
+            .normalize(*IMAGENET_STATS))
+    fz = ImageFeaturizer(ONNXModel(resnet), inputCol="t",
+                         featureTensorName=feat, miniBatchSize=mini_batch,
+                         device=str(dev))
+    fz.transform(prep.transform(Dataset({"img": raw[:mini_batch]})))
+    synchronize(dev)
+    t0 = time.perf_counter()
+    tensors = prep.transform(raw_ds)
+    t1 = time.perf_counter()
+    feats = fz.transform(tensors)
+    t2 = time.perf_counter()
+    f = np.stack(list(feats["features"]))
+    sliced = (ONNXModel(resnet, miniBatchSize=mini_batch, device=str(dev))
+              .slice_at_output(feat).set_feed_dict({"data": "t"}))
+    ref = np.stack(list(sliced.transform(tensors)[feat])).reshape(f.shape)
+    res["featurizer"] = dict(
+        features_per_s=n_images / (t2 - t0), prep_s=t1 - t0,
+        featurize_s=t2 - t1, dim=int(f.shape[1]),
+        vs_sliced_model=_scale_err(f, ref))
+    if f.shape != (n_images, 2048) or res["featurizer"]["vs_sliced_model"] \
+            > 1e-6:
+        raise AssertionError(f"21d: features {f.shape}, "
+                             f"{res['featurizer']['vs_sliced_model']}")
+    log(f"phase 21d: ImageTransformer (resize {resize_to}, center crop {hw}, "
+        f"normalize) + headless ImageFeaturizer over {n_images} "
+        f"{img_hw[0]}x{img_hw[1]} images | {card}: "
+        f"{json.dumps(res['featurizer'])}")
+    del raw, raw_ds, tensors, feats
+    # 21e. a BERT-base-width ONNX classifier
+    sd = random_bert_state_dict(seed, vocab_size=bert_vocab,
+                                d_model=bert_width, num_layers=bert_layers,
+                                intermediate=4 * bert_width, num_labels=2)
+    payload = zoo.build_bert_classifier(sd, num_layers=bert_layers,
+                                        num_heads=bert_heads,
+                                        seq_len=bert_seq)
+    del sd
+    ids = torch.from_numpy(rng.integers(0, bert_vocab, (bert_batch, bert_seq))
+                           ).to(dev)
+    lens = rng.integers(bert_seq // 4, bert_seq + 1, bert_batch)
+    mask = torch.from_numpy((np.arange(bert_seq)[None] < lens[:, None])
+                            .astype(np.float32)).to(dev)
+    bert = {"f32": compile_onnx(payload, device=dev),
+            "bf16": compile_onnx(payload, dtype="bfloat16", device=dev)}
+    win = onnx_windows(bert, {"input_ids": ids, "attention_mask": mask},
+                       bert_batch, bert_steps)
+    logits = {k: fn(input_ids=ids, attention_mask=mask)["logits"].float()
+              .cpu().numpy() for k, fn in bert.items()}
+    win["argmax_agreement"] = float((logits["f32"].argmax(1)
+                                     == logits["bf16"].argmax(1)).mean())
+    win["bf16_vs_f32"] = _scale_err(logits["bf16"], logits["f32"])
+    if not all(np.isfinite(v).all() for v in logits.values()) or \
+            win["bf16_vs_f32"] > 5e-2:
+        raise AssertionError(f"21e: bf16 against f32 {win['bf16_vs_f32']}")
+    res["bert_base"] = win
+    log(f"phase 21e: BERT-base-width ONNX classifier ({bert_layers} layers, "
+        f"{bert_width}, {bert_heads} heads, seq {bert_seq}, vocab "
+        f"{bert_vocab}) b{bert_batch} | {card}: "
+        f"f32 {win['f32']['per_s']:.1f} sequences/s (step "
+        f"{win['f32']['step_ms']:.2f} ms), bf16 {win['bf16']['per_s']:.1f} "
+        f"(step {win['bf16']['step_ms']:.2f} ms), argmax agreement "
+        f"{win['argmax_agreement']:.4f}, bf16 vs f32 {win['bf16_vs_f32']:.4g}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3708,6 +4118,17 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(TIER_ROOT, ignore_errors=True)
     wall("20")
+
+    # -- 21. ONNX batch inference and the image stages -------------------------
+    torch.cuda.empty_cache()
+    from synapseml_tpu_torch.models.onnx import zoo
+    resnet = zoo.build_resnet50(num_classes=1000, seed=args.seed)[0]
+    p21a = onnx_card_vs_cpu(dev, args.seed, resnet)
+    log(f"phase 21a: ONNX and image stages card vs CPU (error over scale) "
+        f"| {card}: {json.dumps(p21a)}")
+    onnx_image(args.seed, dev, card, resnet)
+    del resnet
+    wall("21")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

@@ -8,7 +8,9 @@ running somewhere else.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+import threading
+from typing import Iterator, Union
 
 import torch
 
@@ -39,3 +41,40 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+_F32_NAMES = ("allow_tf32", "allow_bf16_reduced_precision_reduction",
+              "allow_fp16_reduced_precision_reduction")
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved: list = []
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Products that sum in float32 at full precision: TF32 off for cuBLAS
+    matmuls and cuDNN convolutions (PyTorch lets cuDNN take TF32 products
+    by default), and no reduced-precision split-K sums for bf16/f16
+    matmuls.  The flags are process-wide, so the blocks that overlap, on
+    any threads, share one setting: the first to enter saves the
+    caller's flags and turns them off, the last to leave restores them.
+    Code outside every block sees them off while any block is open."""
+    global _f32_depth, _f32_saved
+    m = torch.backends.cuda.matmul
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = ([getattr(m, n) for n in _F32_NAMES]
+                          + [torch.backends.cudnn.allow_tf32])
+            for n in _F32_NAMES:
+                setattr(m, n, False)
+            torch.backends.cudnn.allow_tf32 = False
+        _f32_depth += 1
+    try:
+        yield
+    finally:
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                for n, v in zip(_F32_NAMES, _f32_saved):
+                    setattr(m, n, v)
+                torch.backends.cudnn.allow_tf32 = _f32_saved[-1]

@@ -13,9 +13,12 @@ aside:
   ``Retry-After`` hints, and the graceful-drain state machine behind
   ``ServingServer.drain()``.
 
+- :mod:`.rowguard` — the row guard's OOM-adaptive batching
+  (:func:`~.rowguard.run_adaptive`), which the ONNX runner calls.
+
 The retry policies, deadlines and circuit breakers come over with the
-first port module that calls them; the row guard (``handleInvalid``,
-quarantine, OOM-adaptive batching) is ROADMAP A6.
+first port module that calls them; the rest of the row guard
+(``handleInvalid`` skip/quarantine, poison-row bisection) is ROADMAP A6.
 """
 
 from .faults import (FAULTS_ENV, FAULTS_SEED_ENV, FaultRegistry, FaultRule,

@@ -67,6 +67,19 @@ def test_lint_covers_the_serving_plane():
         assert m in _modules(), m
 
 
+def test_lint_covers_the_onnx_and_image_slice():
+    """The ONNX modules, the image package and the row guard's OOM part
+    are among the files both lint tests walk."""
+    mods = _modules()
+    for m in ("protoparse", "graph", "zoo", "hub", "ops", "runner", "model"):
+        assert f"synapseml_tpu_torch.models.onnx.{m}" in mods, m
+    for m in ("ops", "stages", "superpixel"):
+        assert f"synapseml_tpu_torch.image.{m}" in mods, m
+    assert "synapseml_tpu_torch.models.onnx" in mods
+    assert "synapseml_tpu_torch.image" in mods
+    assert "synapseml_tpu_torch.resilience.rowguard" in mods
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_forbidden_import(path):
