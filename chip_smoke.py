@@ -274,6 +274,37 @@
     sequences/s and the argmax agreement; (f) ``torch.profiler`` over 5
     bf16 ResNet-50 calls of (b): launches, device ms by kind, busy share.
     Every line carries the card's name and power limit.
+22. The explainers and the classic estimators (``explainers``, ``nn``,
+    ``isolationforest``, ``recommendation``, ``cyber``; no TPU kernel in
+    the JAX package, so no K-kernel: only (c)'s GBDT fit may launch, K1
+    and K2 as in phase 4, counted as the kernels line's run
+    ``phase22c``):
+    (a) each module at a small size on the card and through the port's
+    CPU path on the same inputs, each largest difference printed beside
+    its limit: the batched float64 solvers (B = 64), Tabular/Vector/Text/
+    Image LIME and SHAP (SHAP's efficiency sum too) and ICE over a host
+    logistic model, KNN 4,096 x 32 with duplicated points, an isolation
+    forest on 10,000 x 8, SAR 500 x 300 with tied items and access-anomaly
+    ALS 400 x 200; (b) ``ImageLIME`` over bench.py's ResNet-50 zoo graph
+    (``ImageTransformer`` normalize then ``ImageFeaturizer(headless=
+    False)``, f32) explaining one class's logit on 8 seeded 224² images,
+    1,000 samples each, ``cellSize`` 16: explained images/s, scored
+    samples/s and the host perturbation / scoring / solve seconds; (c) a
+    ``GBDTClassifier`` (100 iterations, 31 leaves) at bench.py's 1M x 28
+    task, then ``TabularSHAP`` and ``TabularLIME`` over 256 rows at 1,000
+    samples: rows explained/s and the largest SHAP efficiency residual;
+    (d) KNN at SIFT1M's shape (1,000,000 x 128 f32 index, 10,000
+    queries, k = 100, ``leafSize`` 1024): queries/s, the top-100 of 100
+    queries equal, as sets, to a float64 brute force, and
+    ``ConditionalKNN`` over 10 labels with 1,000 queries; (e) an
+    isolation forest at the Credit Card Fraud dataset's shape (284,807 x
+    30, 100 trees of 256 samples): fit s and scored rows/s; (f) SAR at
+    MovieLens-1M's shape (6,040 users, 3,706 items, 1,000,209 timed
+    ratings, jaccard): fit s, ``recommend_for_all_users(10)`` s and
+    ``RankingEvaluator`` ndcg@10 on a per-user held-out quarter; (g)
+    ``AccessAnomaly`` on one tenant of 20,000 users x 5,000 resources and
+    1,000,000 access triples (rank 10, 25 iterations, regParam 1.0): fit
+    s, ms per ALS iteration and scored pairs/s.
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -3565,6 +3596,480 @@ def onnx_image(seed: int, dev, card: str, resnet: bytes,
     return res
 
 
+# -- phase 22: the explainers and the classic estimators ---------------------
+
+#: phase 22's public shapes: SIFT1M (ANN-benchmarks' sift-128-euclidean,
+#: k = its ground truth's depth), the Credit Card Fraud dataset,
+#: MovieLens-1M, and one access-anomaly tenant
+SIFT_N, SIFT_D, SIFT_Q, SIFT_K = 1_000_000, 128, 10_000, 100
+FRAUD_N, FRAUD_D = 284_807, 30
+ML_USERS, ML_ITEMS, ML_RATINGS = 6_040, 3_706, 1_000_209
+AA_USERS, AA_RES, AA_TRIPLES = 20_000, 5_000, 1_000_000
+
+
+def a6_models():
+    """The host models 22a explains (numpy, so both devices score the same
+    values and only the explainers' device work differs)."""
+    from synapseml_tpu_torch.core import Transformer
+
+    class Logistic(Transformer):
+        def _transform(self, ds):
+            x = np.stack([ds[c].astype(np.float64) for c in "abcd"], 1)
+            p = 1.0 / (1.0 + np.exp(-(x @ np.array([2.0, -3.0, 0.5, 0.0])
+                                      + 0.25)))
+            return ds.with_column("probability",
+                                  [np.array([1 - v, v]) for v in p])
+
+    class VectorScore(Transformer):
+        def _transform(self, ds):
+            m = np.stack([np.asarray(v, np.float64) for v in ds["features"]])
+            return ds.with_column("score", m[:, 0] + 2 * m[:, 2] - m[:, 3])
+
+    class TokenScore(Transformer):
+        def _transform(self, ds):
+            return ds.with_column("score", np.array(
+                [1.0 * ("good" in t.split()) - 0.5 * ("bad" in t.split())
+                 for t in map(str, ds["text"])]))
+
+    class Bright(Transformer):
+        def _transform(self, ds):
+            return ds.with_column("score", np.array(
+                [np.asarray(v, np.float64)[:16, :16].mean()
+                 for v in ds["image"]]))
+
+    return Logistic, VectorScore, TokenScore, Bright
+
+
+def blocky_images(rng, n: int, hw: int, block: int) -> list:
+    """Flat random blocks plus mild noise, 0-255 HWC float32."""
+    out = []
+    for _ in range(n):
+        low = rng.uniform(0, 255, (hw // block, hw // block, 3))
+        img = np.kron(low, np.ones((block, block, 1))).astype(np.float32)
+        out.append(img + rng.normal(0, 2, img.shape).astype(np.float32))
+    return out
+
+
+def ratings(rng, n_users: int, n_items: int, n: int) -> dict:
+    """Timed 1-5 ratings: every user has 20 or more (as in MovieLens-1M)
+    while ``n`` allows, user activity lognormal, item popularity
+    Zipf-like."""
+    act = rng.lognormal(0.0, 1.0, n_users)
+    pop = rng.permutation(1.0 / (np.arange(n_items) + 10.0))
+    base = np.repeat(np.arange(n_users), 20)[:n]
+    users = np.concatenate([base, rng.choice(n_users, n - len(base),
+                                             p=act / act.sum())])
+    return {"user": users,
+            "item": rng.choice(n_items, n, p=pop / pop.sum()),
+            "rating": rng.integers(1, 6, n).astype(np.float32),
+            "time": 9.6e8 + rng.uniform(0, 3 * 365 * 86400, n)}
+
+
+def access_triples(rng, n_users: int, n_res: int, n: int,
+                   n_groups: int = 50) -> dict:
+    """One tenant's accesses: each user mostly reaches its group's pool of
+    resources, sometimes any resource."""
+    users = rng.integers(0, n_users, n)
+    pool = n_res // n_groups
+    res = (users % n_groups) * pool + rng.integers(0, pool, n)
+    stray = rng.random(n) < 0.02
+    res[stray] = rng.integers(0, n_res, int(stray.sum()))
+    return {"tenant": np.full(n, "t0", dtype=object),
+            "user": users.astype(str).astype(object),
+            "res": res.astype(str).astype(object),
+            "likelihood": rng.integers(1, 20, n).astype(np.float64)}
+
+
+def a6_card_vs_cpu(dev, seed: int) -> dict:
+    """Phase 22a: each module of the slice on ``dev`` and on the CPU, same
+    inputs.  → {check: {"err", "limit"}}; raises when one is over."""
+    import synapseml_tpu_torch.explainers as E
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.cyber import AccessAnomaly
+    from synapseml_tpu_torch.isolationforest import IsolationForest
+    from synapseml_tpu_torch.nn import KNN
+    from synapseml_tpu_torch.recommendation import SAR
+    rng = np.random.default_rng(seed)
+    devs = (str(dev), "cpu")
+    out = {}
+
+    def check(name, err, limit):
+        out[name] = {"err": float(err), "limit": limit}
+
+    # the batched solvers, B = 64 well-conditioned problems
+    x = rng.normal(size=(64, 200, 10)).astype(np.float32)
+    y = (x @ rng.normal(size=10) + 0.1 * rng.normal(size=(64, 200))
+         ).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, (64, 200)).astype(np.float32)
+    for name, fn in (("least_squares", E.solvers.least_squares_batched),
+                     ("lasso", lambda *a, device: E.solvers.lasso_batched(
+                         a[0], a[1], 0.05, a[2], device=device))):
+        a, b = (fn(x, y, w, device=d).coefficients.cpu().numpy()
+                for d in devs)
+        check(name, _scale_err(a, b), 1e-6)
+
+    # the explainers over host models: the solves run in float64 on both
+    # devices (SHAP's efficiency sum within 1e-4 of the outputs' scale)
+    Logistic, VectorScore, TokenScore, Bright = a6_models()
+    tab = {c: rng.normal(size=8) for c in "abcd"}
+    bg_tab = Dataset({c: rng.normal(size=64) for c in "abcd"})
+    vec = {"features": list(rng.normal(size=(6, 5)))}
+    bg_vec = Dataset({"features": list(rng.normal(size=(32, 5)))})
+    text = {"text": np.array(["good film bad end", "a bad bad day",
+                              "good good good", "plain words here"],
+                             dtype=object)}
+    imgs = {"image": blocky_images(rng, 2, 32, 8)}
+    cases = {
+        "tabular_lime": (E.TabularLIME, Logistic, tab, dict(
+            inputCols=list("abcd"), backgroundData=bg_tab)),
+        "tabular_shap": (E.TabularSHAP, Logistic, tab, dict(
+            inputCols=list("abcd"), backgroundData=bg_tab)),
+        "vector_lime": (E.VectorLIME, VectorScore, vec, dict(
+            inputCol="features", targetCol="score", backgroundData=bg_vec)),
+        "vector_shap": (E.VectorSHAP, VectorScore, vec, dict(
+            inputCol="features", targetCol="score", backgroundData=bg_vec)),
+        "text_lime": (E.TextLIME, TokenScore, text, dict(targetCol="score")),
+        "text_shap": (E.TextSHAP, TokenScore, text, dict(targetCol="score")),
+        "image_lime": (E.ImageLIME, Bright, imgs, dict(
+            targetCol="score", cellSize=8.0, modifier=40.0)),
+        "image_shap": (E.ImageSHAP, Bright, imgs, dict(
+            targetCol="score", cellSize=8.0, modifier=40.0)),
+    }
+    for name, (cls, model, data, kw) in cases.items():
+        a, b = (cls(model(), numSamples=128, seed=seed, device=d, **kw)
+                .transform(Dataset(dict(data))) for d in devs)
+        check(name, max(_scale_err(p, q) for p, q in
+                        zip(a["explanation"], b["explanation"])), 1e-6)
+        if name.endswith("shap"):
+            fx = [float(np.asarray(v).ravel()[-1]) for v in
+                  model().transform(Dataset(dict(data)))[kw.get(
+                      "targetCol", "probability")]]
+            check(name + "_efficiency", max(
+                abs(e[0, 1:].sum() - (fx[i] - e[0, 0]))
+                for i, e in enumerate(a["explanation"]))
+                / max(1.0, max(map(abs, fx))), 1e-4)
+        for col in ("superpixels", "tokens"):
+            if col in a.columns and any(
+                    not np.array_equal(np.asarray(p), np.asarray(q))
+                    for p, q in zip(a[col], b[col])):
+                raise AssertionError(f"22a {name}: {col} differ")
+    ice = [E.ICETransformer(Logistic(), numericFeatures=["a", "b"],
+                            numSplits=5).transform(Dataset(dict(tab)))
+           for _ in devs]
+    check("ice", _scale_err(np.stack(ice[0]["a_dependence"]),
+                            np.stack(ice[1]["a_dependence"])), 0.0)
+
+    # KNN 4,096 x 32: every point twice, queries among the points
+    base = rng.normal(size=(2048, 32)).astype(np.float32)
+    index = np.concatenate([base, base])
+    queries = np.concatenate([index[::16], rng.normal(size=(256, 32)).astype(
+        np.float32)])
+    res = []
+    for d in devs:
+        m = KNN(k=10, leafSize=1024, device=d).fit(Dataset(
+            {"features": index, "values": np.arange(len(index))}))
+        res.append(m.transform(Dataset({"features": queries}))["output"])
+    if any([e["value"] for e in p] != [e["value"] for e in q]
+           for p, q in zip(*res)):
+        raise AssertionError("22a: KNN neighbours differ card vs CPU")
+    check("knn", max(abs(e["distance"] - f["distance"])
+                     / max(f["distance"], 1e-30)
+                     for p, q in zip(*res) for e, f in zip(p, q)), 1e-6)
+
+    # an isolation forest on 10,000 x 8
+    xf = rng.normal(size=(10_000, 8)).astype(np.float32)
+    xf[:50] += 5.0
+    sc = [IsolationForest(numEstimators=50, device=d).fit(
+        Dataset({"features": xf})).transform(Dataset({"features": xf}))
+        for d in devs]
+    if not np.array_equal(sc[0]["predictedLabel"], sc[1]["predictedLabel"]):
+        raise AssertionError("22a: isolation forest labels differ")
+    check("isolation_forest", np.abs(sc[0]["outlierScore"]
+                                     - sc[1]["outlierScore"]).max(), 1e-6)
+
+    # SAR 500 users x 300 items; items 0-3 tied (bought by the same users)
+    r = ratings(rng, 500, 296, 12_000)
+    r["item"] = r["item"] + 4
+    tied = np.repeat(np.arange(0, 500, 7), 4)
+    for k in ("user", "item", "rating", "time"):
+        extra = {"user": tied, "item": np.tile(np.arange(4), len(tied) // 4),
+                 "rating": np.ones(len(tied), np.float32),
+                 "time": np.full(len(tied), 9.6e8)}[k]
+        r[k] = np.concatenate([r[k], extra])
+    sars = [SAR(supportThreshold=2, timeCol="time", device=d).fit(
+        Dataset(dict(r))) for d in devs]
+    sims = [np.asarray(m.get("itemSimilarity")) for m in sars]
+    check("sar_similarity", np.abs(sims[0] - sims[1]).max()
+          / max(np.abs(sims[1]).max(), 1e-30), 1e-6)
+    recs = [m.recommend_for_all_users(10)["recommendations"] for m in sars]
+    if any([e["item"] for e in p] != [e["item"] for e in q]
+           for p, q in zip(*recs)):
+        raise AssertionError("22a: SAR top-10 differ card vs CPU")
+    check("sar_scores", max((abs(e["rating"] - f["rating"])
+                             / max(abs(f["rating"]), 1e-30)
+                             for p, q in zip(*recs) for e, f in zip(p, q)),
+                            default=0.0), 1e-6)
+
+    # access-anomaly ALS on 400 users x 200 resources
+    trip = access_triples(rng, 400, 200, 8_000, n_groups=8)
+    aa = [AccessAnomaly(device=d).fit(Dataset(dict(trip))) for d in devs]
+    s = [m.transform(Dataset(dict(trip)))["anomaly_score"] for m in aa]
+    fin = np.isfinite(s[1])
+    if not np.array_equal(fin, np.isfinite(s[0])):
+        raise AssertionError("22a: ALS finite scores differ card vs CPU")
+    check("als_scores", np.max(np.abs(s[0][fin] - s[1][fin])
+                               / np.maximum(1.0, np.abs(s[1][fin]))), 1e-4)
+    over = {k: v for k, v in out.items() if not v["err"] <= v["limit"]}
+    if over:
+        raise AssertionError(f"22a: card vs CPU over the limit: {over}; "
+                             f"all checks: {out}")
+    return out
+
+
+def a6_paths(seed: int, dev, card: str, resnet: bytes, n_images: int = 8,
+             lime_samples: int = 1000, img_hw: int = 224, lime_class: int = 7,
+             gbdt_rows: int = 1_000_000, gbdt_iters: int = 100,
+             n_explain: int = 256, tab_samples: int = 1000,
+             knn_n: int = SIFT_N, knn_q: int = SIFT_Q, knn_k: int = SIFT_K,
+             knn_check: int = 100, cknn_q: int = 1_000,
+             fraud_n: int = FRAUD_N, ml=(ML_USERS, ML_ITEMS, ML_RATINGS),
+             aa=(AA_USERS, AA_RES, AA_TRIPLES)) -> dict:
+    """Phase 22 (b-g) at the public shapes (smaller ones for a CPU run).
+    Only 22c's GBDT fit may launch a K-kernel (K1/K2, counted in
+    ``res["gbdt"]["shapes"]``); every other step must launch none.
+    Raises on a failed check."""
+    import synapseml_tpu_torch.explainers as E
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.core import Dataset, PipelineModel, Transformer
+    from synapseml_tpu_torch.cyber import AccessAnomaly, access_anomaly
+    from synapseml_tpu_torch.image import ImageTransformer
+    from synapseml_tpu_torch.isolationforest import IsolationForest
+    from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from synapseml_tpu_torch.models.onnx import ImageFeaturizer, ONNXModel
+    from synapseml_tpu_torch.nn import KNN, ConditionalKNN
+    from synapseml_tpu_torch.recommendation import RankingEvaluator, SAR
+    rng = np.random.default_rng(seed + 22)
+    d = str(dev)
+    res = {}
+    L.reset()
+
+    def no_kernel(step: str) -> None:
+        if L.BY_SHAPE:
+            raise AssertionError(f"{step} launched {dict(L.BY_SHAPE)}")
+
+    # 22b. ImageLIME over ResNet-50: normalize, then the logits
+    stats = [[v * 255.0 for v in vs] for vs in IMAGENET_STATS]
+    scorer = PipelineModel(stages=[
+        ImageTransformer(inputCol="image", outputCol="t", device=d)
+        .normalize(*stats),
+        ImageFeaturizer(ONNXModel(resnet), inputCol="t", headless=False,
+                        miniBatchSize=250, device=d)])
+    imgs = blocky_images(rng, n_images, img_hw, 16)
+    lime = E.ImageLIME(scorer, inputCol="image", targetCol="features",
+                       targetClasses=[lime_class], numSamples=lime_samples,
+                       cellSize=16.0, samplingFraction=0.7, seed=seed,
+                       device=d)
+    t0 = time.perf_counter()
+    out = lime.transform(Dataset({"image": imgs}))
+    wall_s = time.perf_counter() - t0
+    coefs = np.stack([e[0] for e in out["explanation"]], 0)
+    n_seg = [int(sp.max()) + 1 for sp in out["superpixels"]]
+    if not np.all(np.isfinite(coefs)) or coefs.shape[0] != n_images:
+        raise AssertionError(f"22b: explanations {coefs.shape}")
+    res["image_lime"] = dict(
+        images=n_images, samples=lime_samples, superpixels=n_seg,
+        wall_s=wall_s, images_per_s=n_images / wall_s,
+        samples_per_s=n_images * lime_samples / wall_s,
+        **{f"{k}_s": v for k, v in lime.timings.items()},
+        host_share=lime.timings["perturb"] / wall_s,
+        mean_r2=float(np.mean([r[0] for r in out["r2"]])))
+    log(f"phase 22b: ImageLIME over ResNet-50 ({n_images} {img_hw}² images, "
+        f"{lime_samples} samples, cellSize 16) | {card}: "
+        f"{json.dumps(res['image_lime'])}")
+
+    # 22c. TabularSHAP and TabularLIME over a GBDT at bench.py's task
+    X = rng.normal(size=(gbdt_rows, 28)).astype(np.float32)
+    yv = gbdt_labels(rng, X)
+    no_kernel("22b")
+    t0 = time.perf_counter()
+    gbdt = GBDTClassifier(numIterations=gbdt_iters, numLeaves=31,
+                          device=d).fit(Dataset({"features": X,
+                                                 "label": yv}))
+    synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    fit_shapes = dict(L.BY_SHAPE)
+    L.reset()
+    cols = [f"x{j}" for j in range(28)]
+
+    class Assemble(Transformer):
+        def _transform(self, ds):
+            return ds.with_column("features", np.stack(
+                [ds[c] for c in cols], 1).astype(np.float32))
+
+    model = PipelineModel(stages=[Assemble(), gbdt])
+    rows = Dataset({c: X[:n_explain, j] for j, c in enumerate(cols)})
+    bg = Dataset({c: X[-2048:, j] for j, c in enumerate(cols)})
+    fx = np.stack(model.transform(rows)["probability"])[:, 1]
+    res["gbdt"] = dict(rows=gbdt_rows, iterations=gbdt_iters, fit_s=fit_s,
+                       shapes=fit_shapes)
+    for name, cls in (("tabular_shap", E.TabularSHAP),
+                      ("tabular_lime", E.TabularLIME)):
+        ex = cls(model, inputCols=cols, backgroundData=bg,
+                 numSamples=tab_samples, seed=seed, device=d)
+        t0 = time.perf_counter()
+        o = ex.transform(rows)
+        wall_s = time.perf_counter() - t0
+        r = dict(rows=n_explain, samples=tab_samples, wall_s=wall_s,
+                 rows_per_s=n_explain / wall_s,
+                 scored_rows_per_s=n_explain * tab_samples / wall_s,
+                 **{f"{k}_s": v for k, v in ex.timings.items()})
+        if name == "tabular_shap":
+            r["max_efficiency_residual"] = float(max(
+                abs(e[0, 1:].sum() - (fx[i] - e[0, 0]))
+                for i, e in enumerate(o["explanation"])))
+            if r["max_efficiency_residual"] > 1e-3:
+                raise AssertionError(f"22c: efficiency {r}")
+        res[name] = r
+    log(f"phase 22c: GBDT {gbdt_rows} x 28, {gbdt_iters} iterations, 31 "
+        f"leaves, then SHAP and LIME over {n_explain} rows x {tab_samples} "
+        f"samples | {card}: gbdt {json.dumps(res['gbdt'])} shap "
+        f"{json.dumps(res['tabular_shap'])} lime "
+        f"{json.dumps(res['tabular_lime'])}")
+    del X, yv, gbdt, model
+    no_kernel("22c's explainers")
+
+    # 22d. KNN at SIFT1M's shape, held to a float64 brute force
+    g = torch.Generator(device=dev).manual_seed(seed)
+    index_t = torch.randn((knn_n, SIFT_D), generator=g, device=dev)
+    index = index_t.cpu().numpy()
+    queries = torch.randn((knn_q, SIFT_D), generator=g,
+                          device=dev).cpu().numpy()
+    knn = KNN(k=knn_k, leafSize=1024, device=d).fit(
+        Dataset({"features": index}))
+    knn.transform(Dataset({"features": queries[:16]}))  # warm-up
+    synchronize(dev)
+    t0 = time.perf_counter()
+    found = knn.transform(Dataset({"features": queries}))["output"]
+    knn_s = time.perf_counter() - t0
+    q64 = torch.as_tensor(queries[:knn_check], dtype=torch.float64,
+                          device=dev)
+    d2 = torch.cat([((q64[:, None] - index_t[lo:lo + 65536].double()[None])
+                     ** 2).sum(-1) for lo in range(0, knn_n, 65536)], 1)
+    truth = torch.sort(d2, dim=1, stable=True).indices[:, :knn_k].cpu()
+    sets_equal = all(set(truth[i].tolist()) ==
+                     {e["value"] for e in found[i]} for i in range(knn_check))
+    order_equal = sum(truth[i].tolist() == [e["value"] for e in found[i]]
+                      for i in range(knn_check))
+    del d2, q64
+    if not sets_equal:
+        raise AssertionError("22d: KNN top-k differs from float64 brute force")
+    labels = rng.integers(0, 10, knn_n)
+    cond = [list(rng.choice(10, size=int(c), replace=False))
+            for c in rng.integers(1, 4, cknn_q)]
+    cknn = ConditionalKNN(k=10, leafSize=1024, device=d).fit(
+        Dataset({"features": index, "labels": labels}))
+    t0 = time.perf_counter()
+    cout = cknn.transform(Dataset({"features": queries[:cknn_q],
+                                   "conditioner": cond}))["output"]
+    cknn_s = time.perf_counter() - t0
+    if any(e["label"] not in set(c) for c, row in zip(cond, cout)
+           for e in row) or any(len(row) != 10 for row in cout):
+        raise AssertionError("22d: conditional matches outside their labels")
+    res["knn"] = dict(index=[knn_n, SIFT_D], queries=knn_q, k=knn_k,
+                      transform_s=knn_s, queries_per_s=knn_q / knn_s,
+                      checked=knn_check, sets_equal=sets_equal,
+                      order_equal=order_equal, conditional_queries=cknn_q,
+                      conditional_queries_per_s=cknn_q / cknn_s)
+    log(f"phase 22d: KNN at SIFT1M's shape | {card}: "
+        f"{json.dumps(res['knn'])}")
+    del index_t, index, knn, cknn
+
+    # 22e. isolation forest at the Credit Card Fraud dataset's shape
+    xf = rng.normal(size=(fraud_n, FRAUD_D)).astype(np.float32)
+    xf[:492] += 4.0                     # the dataset's 492 frauds
+    t0 = time.perf_counter()
+    forest = IsolationForest(numEstimators=100, maxSamples=256, seed=seed,
+                             device=d).fit(Dataset({"features": xf}))
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = forest.transform(Dataset({"features": xf}))["outlierScore"]
+    score_s = time.perf_counter() - t0
+    if not (np.all((sc > 0) & (sc < 1))
+            and sc[:492].mean() > sc[492:].mean()):
+        raise AssertionError("22e: outlier scores")
+    res["iforest"] = dict(rows=fraud_n, fit_s=fit_s, score_s=score_s,
+                          rows_per_s=fraud_n / score_s,
+                          fraud_mean=float(sc[:492].mean()),
+                          rest_mean=float(sc[492:].mean()))
+    log(f"phase 22e: isolation forest {fraud_n} x {FRAUD_D}, 100 trees "
+        f"| {card}: {json.dumps(res['iforest'])}")
+
+    # 22f. SAR at MovieLens-1M's shape, ndcg@10 on a held-out quarter
+    r = ratings(rng, *ml)
+    held = rng.random(len(r["user"])) < 0.25
+    train = {k: v[~held] for k, v in r.items()}
+    t0 = time.perf_counter()
+    sar = SAR(timeCol="time", supportThreshold=4, device=d).fit(
+        Dataset(train))
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = sar.recommend_for_all_users(10)
+    rec_s = time.perf_counter() - t0
+    # each user's held-out items by rating desc, item asc, the top 10
+    hu, hi, hr = r["user"][held], r["item"][held], r["rating"][held]
+    order = np.lexsort((hi, -hr, hu))
+    truth = {}
+    for u, i in zip(hu[order], hi[order]):
+        lst = truth.setdefault(int(u), [])
+        if len(lst) < 10:
+            lst.append(int(i))
+    users = [int(u) for u in recs["user"] if int(u) in truth]
+    rec_map = {int(u): [e["item"] for e in row] for u, row in
+               zip(recs["user"], recs["recommendations"])}
+    ev_ds = Dataset({"user": np.array(users),
+                     "prediction": [[int(i) for i in rec_map[u]]
+                                    for u in users],
+                     "label": [truth[u] for u in users]})
+    ndcg = RankingEvaluator(k=10, metricName="ndcgAt").evaluate(ev_ds)
+    if not 0.0 < ndcg <= 1.0:
+        raise AssertionError(f"22f: ndcg@10 {ndcg}")
+    res["sar"] = dict(users=len(recs["user"]), items=int(len(
+        sar.get("itemVocabulary"))), ratings=int((~held).sum()), fit_s=fit_s,
+        recommend_s=rec_s, ndcg_at_10=ndcg, evaluated_users=len(users))
+    log(f"phase 22f: SAR at MovieLens-1M's shape | {card}: "
+        f"{json.dumps(res['sar'])}")
+
+    # 22g. AccessAnomaly: one tenant, dense ALS on the device
+    trip = access_triples(rng, *aa)
+    t0 = time.perf_counter()
+    aam = AccessAnomaly(device=d).fit(Dataset(dict(trip)))
+    fit_s = time.perf_counter() - t0
+    nu, nr = len(aam.get("userVectors")["t0"]), len(aam.get("resVectors")["t0"])
+    w = torch.rand((nu, nr), generator=g, device=dev)
+    tgt = (w > 0.99).to(torch.float32)
+    access_anomaly._als(w, tgt, 10, 2, 1.0, seed)         # warm-up
+    synchronize(dev)
+    t0 = time.perf_counter()
+    access_anomaly._als(w, tgt, 10, 25, 1.0, seed)
+    synchronize(dev)
+    als_ms = (time.perf_counter() - t0) * 1e3 / 25
+    del w, tgt
+    t0 = time.perf_counter()
+    sc = aam.transform(Dataset(dict(trip)))["anomaly_score"]
+    score_s = time.perf_counter() - t0
+    fin = sc[np.isfinite(sc)]
+    if not (abs(fin.mean()) < 0.1 and 0.5 < fin.std() < 1.5):
+        raise AssertionError(f"22g: training scores {fin.mean()} {fin.std()}")
+    no_kernel("22d-g")
+    res["access_anomaly"] = dict(
+        users=nu, resources=nr, triples=len(trip["user"]), fit_s=fit_s,
+        als_ms_per_iteration=als_ms, score_s=score_s,
+        pairs_per_s=len(trip["user"]) / score_s)
+    log(f"phase 22g: AccessAnomaly {nu} users x {nr} resources | {card}: "
+        f"{json.dumps(res['access_anomaly'])}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3622,7 +4127,8 @@ def main(argv=None) -> int:
     # draws them
     N_RANK = int(np.random.default_rng(args.seed + 13).integers(
         1, RANK_MAXG + 1, RANK_Q).sum())
-    two_level = ("maxBin=255", "multiclass", "validation", "resumed")
+    two_level = ("maxBin=255", "multiclass", "validation", "resumed",
+                 "phase22c")
     mono = ("monotone basic", "monotone intermediate", "monotone advanced")
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
@@ -4127,8 +4633,24 @@ def main(argv=None) -> int:
     log(f"phase 21a: ONNX and image stages card vs CPU (error over scale) "
         f"| {card}: {json.dumps(p21a)}")
     onnx_image(args.seed, dev, card, resnet)
-    del resnet
     wall("21")
+
+    # -- 22. the explainers and the classic estimators -------------------------
+    torch.cuda.empty_cache()
+    L.reset()
+    p22a = a6_card_vs_cpu(dev, args.seed)
+    log(f"phase 22a: explainers and estimators card vs CPU (error, limit) "
+        f"| {card}: {json.dumps(p22a)}")
+    if L.BY_SHAPE:
+        raise AssertionError(f"phase 22a launched {dict(L.BY_SHAPE)}")
+    p22 = a6_paths(args.seed, dev, card, resnet)
+    check_path("phase22c", p22["gbdt"])
+    log(f"phase 22: no K-kernel on this slice's path (the JAX package has "
+        f"no TPU kernel here): the explainers, KNN, the isolation forest, "
+        f"SAR and ALS launched none; K1/K2 launched only in 22c's GBDT fit "
+        f"{json.dumps(p22['gbdt']['shapes'])}")
+    del resnet
+    wall("22")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

@@ -172,10 +172,6 @@ class UDFParam(ComplexParam):
         return value
 
 
-class PyObjectParam(ComplexParam):
-    """Arbitrary picklable object (a model bundle and the like)."""
-
-
 class EstimatorParam(ComplexParam):
     """Pipeline-stage-valued param (reference: param/EstimatorParam.scala)."""
 

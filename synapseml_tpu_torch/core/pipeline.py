@@ -242,6 +242,16 @@ class Model(Transformer):
     _parent_uid: Optional[str] = None
 
 
+class Evaluator(Params):
+    """ds -> float metric."""
+
+    def evaluate(self, ds: Dataset) -> float:
+        raise NotImplementedError
+
+    def is_larger_better(self) -> bool:
+        return True
+
+
 # --------------------------------------------------------------------------
 
 

@@ -27,6 +27,7 @@ from synapseml_tpu_torch.models.dl import (DeepTextClassifier,
                                            OptimizerConfig, TextEncoder,
                                            TransformerConfig, make_backbone)
 from synapseml_tpu_torch.models.dl import transformer as PT
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 pytestmark = pytest.mark.gpu
 

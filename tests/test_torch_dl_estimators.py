@@ -36,6 +36,7 @@ from synapseml_tpu_torch.models.dl import convert as C
 from synapseml_tpu_torch.models.dl import estimators as PE
 from synapseml_tpu_torch.models.dl import training as PTr
 from synapseml_tpu_torch.models.dl import transformer as PT
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def text_data(n=64, seed=0):

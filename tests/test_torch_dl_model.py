@@ -36,6 +36,7 @@ from synapseml_tpu_torch.models.dl import convert as C
 from synapseml_tpu_torch.models.dl import resnet as PR
 from synapseml_tpu_torch.models.dl import tokenizer as PTok
 from synapseml_tpu_torch.models.dl import transformer as PT
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 CORPUS = ["the cat sat on the mat!", "dogs aren't cats, dogs are great",
           "a zebra's stripes", "unseen wordsmithing happens here",

@@ -38,6 +38,7 @@ from test_torch_dl_estimators import (TEXT_KW, _carry_jax_init, _proba,
 from test_torch_dl_training import (STEPS, TEXT_OPT, _assert_params,
                                     _batches, _run_jax, _run_port,
                                     _text_batch)
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 B, S, D, FF, E = 3, 8, 16, 32, 4
 

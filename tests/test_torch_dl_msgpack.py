@@ -27,6 +27,7 @@ from synapseml_tpu_torch.models.dl import convert as C
 from synapseml_tpu_torch.models.dl import estimators as PE
 from synapseml_tpu_torch.models.dl import resnet as PR
 from synapseml_tpu_torch.models.dl import transformer as PT
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 DTYPES = ["float64", "float32", "float16", "bfloat16", "int8", "int16",
           "int32", "int64", "uint8", "uint16", "uint32", "uint64", "bool",

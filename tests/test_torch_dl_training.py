@@ -39,6 +39,7 @@ from synapseml_tpu_torch.models.dl import precision as PP
 from synapseml_tpu_torch.models.dl import resnet as PR
 from synapseml_tpu_torch.models.dl import training as PTr
 from synapseml_tpu_torch.models.dl import transformer as PT
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 STEPS = 5
 

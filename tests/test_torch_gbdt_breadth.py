@@ -38,6 +38,7 @@ from synapseml_tpu_torch.models.gbdt.estimators import (GBDTClassifier,
                                                         GBDTRegressor)
 
 from test_benchmark_fixtures import TOLERANCE, _load_fixture_values
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 # -- the lossguide grower -----------------------------------------------------
 

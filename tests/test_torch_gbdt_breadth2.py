@@ -42,6 +42,7 @@ from synapseml_tpu_torch.models.gbdt.estimators import (GBDTClassifier,
 from test_gbdt_efb import onehot_data
 from test_torch_gbdt_cuda import random_tree_arrays
 from test_gbdt_monotone import CONS, max_violation, mono_data, sweep_margins
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 CPU = torch.device("cpu")
 

@@ -13,6 +13,7 @@ import torch
 from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models.gbdt import hist as H
 from synapseml_tpu_torch.models.gbdt import trainer as T
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 pytestmark = pytest.mark.gpu
 

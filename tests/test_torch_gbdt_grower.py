@@ -18,6 +18,7 @@ import torch
 
 from synapseml_tpu.models.gbdt import trainer as jt
 from synapseml_tpu_torch.models.gbdt import trainer as tt
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _setup(seed, N, F, B, masked=False):

@@ -19,6 +19,7 @@ from synapseml_tpu.models.gbdt import pallas_hist as jh
 from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models.gbdt import hist as th
 from synapseml_tpu_torch.models.gbdt import trainer as tt
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _vals(grad, hess, mask):

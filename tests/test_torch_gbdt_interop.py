@@ -30,6 +30,7 @@ from synapseml_tpu_torch.models.gbdt.estimators import (
     GBDTRegressionModel)
 
 from test_gbdt_categorical import cat_data
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 KINDS = {
     "binary": dict(objective="binary"),

@@ -29,6 +29,7 @@ from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig
 from synapseml_tpu_torch.models.gbdt.booster import train as ttrain
 from synapseml_tpu_torch.models.gbdt.estimators import (GBDTRanker,
                                                         GBDTRankerModel)
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 #: tests/benchmarks/fixtures.csv: lambdarank_ndcg10
 FIXTURE_NDCG10 = 0.9862

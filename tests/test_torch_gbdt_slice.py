@@ -30,6 +30,7 @@ from synapseml_tpu_torch.models.gbdt.booster import train as ttrain
 from synapseml_tpu_torch.models.gbdt.convert import booster_from_reference
 from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
 from synapseml_tpu_torch.models.gbdt.metrics import auc
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _binary_data(n=3000, F=8, seed=0):

@@ -24,6 +24,7 @@ from synapseml_tpu.models.gbdt import train as jtrain
 from synapseml_tpu_torch.io import colstore as tcs
 from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig
 from synapseml_tpu_torch.models.gbdt.booster import train as ttrain
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _dense(n=3000, F=8, seed=0):

@@ -26,6 +26,7 @@ import synapseml_tpu_torch.image as T
 from synapseml_tpu import Dataset as JDataset
 from synapseml_tpu_torch.core import Dataset
 from synapseml_tpu_torch.image import ops as TO
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _batch(seed, shape=(2, 13, 17, 3)):

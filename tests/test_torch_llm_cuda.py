@@ -27,6 +27,7 @@ from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models import llm as P
 from synapseml_tpu_torch.models.llm import paged_attn as PA
 from synapseml_tpu_torch.models.llm import LlamaConfig, LlamaModel, SlotEngine
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 pytestmark = pytest.mark.gpu
 

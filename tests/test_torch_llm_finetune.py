@@ -21,6 +21,7 @@ from synapseml_tpu.models import llm as J
 from synapseml_tpu.models.llm import finetune as JF
 from synapseml_tpu.models.llm import model as JM
 from synapseml_tpu_torch.models import llm as P
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def test_corpus_equals_reference():

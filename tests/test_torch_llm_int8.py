@@ -23,6 +23,7 @@ import torch
 
 from synapseml_tpu.models import llm as J
 from synapseml_tpu_torch.models import llm as P
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _carried(tie, dtype=jnp.float32, tdtype=torch.float32, seed=0, **kw):

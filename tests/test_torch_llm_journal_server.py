@@ -34,6 +34,7 @@ from synapseml_tpu_torch.models import llm as P
 from synapseml_tpu_torch.models.llm.kvtier import SessionJournal
 from synapseml_tpu_torch.serving import LLMServer
 from synapseml_tpu_torch.telemetry import get_registry
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from synapseml_tpu_torch.models.llm import kvtier as PK
 from synapseml_tpu_torch.models.llm import warmup as PW
 from synapseml_tpu_torch.resilience import get_faults
 from synapseml_tpu_torch.telemetry import get_registry
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 @pytest.fixture(scope="module")

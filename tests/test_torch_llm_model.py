@@ -19,6 +19,7 @@ import torch
 
 from synapseml_tpu.models import llm as J
 from synapseml_tpu_torch.models import llm as P
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["tied", "untied"])

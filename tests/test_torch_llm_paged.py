@@ -21,6 +21,7 @@ import torch
 from synapseml_tpu.models.llm import pallas_attn as J
 from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models.llm import paged_attn as P
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 B, T, KV, GROUP, D = 5, 96, 4, 2, 32
 H = KV * GROUP

@@ -37,6 +37,7 @@ from synapseml_tpu_torch.models import llm as P
 from synapseml_tpu_torch.models.llm import warmup as PW
 from synapseml_tpu_torch.serving import LLMServer
 from synapseml_tpu_torch.telemetry import get_registry
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ import torch
 from synapseml_tpu.models import llm as J
 from synapseml_tpu_torch.models import llm as P
 from synapseml_tpu_torch.telemetry import get_registry
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 # the modules (each package's ``generate`` name is the function)
 JG = importlib.import_module("synapseml_tpu.models.llm.generate")

@@ -30,6 +30,7 @@ from synapseml_tpu_torch.core import Dataset as PDataset
 from synapseml_tpu_torch.core import load_stage
 from synapseml_tpu_torch.models import llm as P
 from synapseml_tpu_torch.models.dl.tokenizer import WordTokenizer as PTok
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 _WORDS = [f"w{i}" for i in range(400)]
 

@@ -12,6 +12,7 @@ import torch
 
 from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models import llm as P
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 pytestmark = pytest.mark.gpu
 

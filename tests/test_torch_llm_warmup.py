@@ -41,6 +41,7 @@ from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models import llm as P
 from synapseml_tpu_torch.models.llm import slots as PS
 from synapseml_tpu_torch.models.llm import warmup as PW
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 @pytest.fixture(scope="module")

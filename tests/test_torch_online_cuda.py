@@ -19,6 +19,7 @@ import torch
 from synapseml_tpu_torch.core import Dataset
 from synapseml_tpu_torch.models import online as O
 from synapseml_tpu_torch.models.online import sgd as SGD
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 pytestmark = pytest.mark.gpu
 

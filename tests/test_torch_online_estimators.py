@@ -29,6 +29,7 @@ from synapseml_tpu_torch.models.online import (OnlineSGDClassificationModel,
                                                OnlineSGDClassifier,
                                                OnlineSGDRegressor,
                                                state_to_numpy)
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 TOL = 1e-5
 FIXTURES = os.path.join(os.path.dirname(__file__), "benchmarks",

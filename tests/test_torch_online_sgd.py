@@ -19,6 +19,7 @@ import pytest
 import jax.numpy as jnp
 from synapseml_tpu.models.online import sgd as J
 from synapseml_tpu_torch.models.online import sgd as T
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 LOSSES = ("squared", "logistic", "hinge", "quantile", "poisson")
 TOL = 1e-5

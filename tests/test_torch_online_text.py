@@ -24,6 +24,7 @@ from synapseml_tpu_torch.core import Dataset as TDataset
 from synapseml_tpu_torch.core import hashing as TH
 from synapseml_tpu_torch.models import online as T
 from synapseml_tpu_torch.models.online import generic as TG
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 TOL = 1e-5
 

@@ -29,6 +29,7 @@ from synapseml_tpu_torch.image import ImageTransformer, slic_segments
 from synapseml_tpu_torch.models.onnx import GraphBuilder
 from synapseml_tpu_torch.models.onnx import ops as TO
 from synapseml_tpu_torch.models.onnx import zoo as TZ
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 pytestmark = pytest.mark.gpu
 

@@ -38,6 +38,7 @@ from synapseml_tpu_torch.models.onnx import GraphBuilder
 from synapseml_tpu_torch.models.onnx import runner as TR
 from synapseml_tpu_torch.models.onnx import zoo as TZ
 from synapseml_tpu_torch.resilience import get_faults, rowguard
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 BERT = dict(vocab_size=120, d_model=32, num_layers=2, intermediate=64,
             num_labels=3, max_positions=64)

@@ -28,6 +28,7 @@ import synapseml_tpu.models.onnx as J
 import synapseml_tpu_torch.models.onnx as T
 from onnx_families import FAMILIES, TOL, _conv, check
 from synapseml_tpu_torch.models.onnx import GraphBuilder
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _run_both(payload, feeds):

@@ -13,6 +13,7 @@ import torch
 
 from synapseml_tpu_torch.models.gbdt import prng
 from synapseml_tpu_torch.models.gbdt.booster import bag_mask, goss_weights
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 LENGTHS = (1, 7, 1000, 65_539)
 

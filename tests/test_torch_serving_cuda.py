@@ -19,6 +19,7 @@ import torch
 from synapseml_tpu_torch.kernels import launches
 from synapseml_tpu_torch.models.llm import LlamaConfig, LlamaModel
 from synapseml_tpu_torch.serving import LLMServer
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 pytestmark = pytest.mark.gpu
 

@@ -29,6 +29,7 @@ from synapseml_tpu_torch.telemetry import exposition as PX
 from synapseml_tpu_torch.telemetry import registry as PR
 from synapseml_tpu_torch.telemetry import slo as PS
 from synapseml_tpu_torch.telemetry import tracing as PT
+import torch_workers  # noqa: F401  (shares the cores among xdist workers)
 
 
 class Clock:
