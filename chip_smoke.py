@@ -305,6 +305,43 @@
     ``AccessAnomaly`` on one tenant of 20,000 users x 5,000 resources and
     1,000,000 access triples (rank 10, 25 iterations, regParam 1.0): fit
     s, ms per ALS iteration and scored pairs/s.
+23. Serving on the card (``serving_paths``; only (b)'s fit launches K1
+    and K2, counted as the kernels line's run ``phase23``; any other
+    launch in the phase raises): (b) bench.py's task at HIGGS's width,
+    1,000,000 x 28 on a 1/64 grid plus a label, written as a 290 MB CSV
+    whose fields are each value's exact decimal, read back bit for bit
+    by ``Dataset.from_csv`` (the native parser must have read it:
+    ``native.CSV_PARSES``), parse s and MB/s; the permissive parse of
+    100,000 lines with 1% ragged or unparseable, whose quarantine must
+    hold exactly those lines with their line numbers;
+    ``csv_to_colstore`` read back equal through a ``ChunkedColumnSource``;
+    then ``GBDTClassifier`` (100 iterations, 31 leaves, maxBin 255) fit
+    from the CSV's Dataset; (a) the booster served from the card and,
+    carried as LightGBM text, from the CPU by ``PipelineServer``: 2,048
+    records over HTTP, each server's replies equal to one ``transform``
+    over the same rows, card against CPU margins within 1e-4 and labels
+    equal; (c) the walk of all trees at once against the per-tree walk
+    (bit-equal, in turns), then ``PipelineServer`` (batch 64, 10 ms) at
+    ``num_workers`` 1 and 2: 16 keep-alive HTTP clients x 256 records
+    (records/s, latency p50/p99, replies equal to one transform), the
+    per-batch split (parse, ``from_rows``, transform with its CUDA-event
+    stream span, format + reply) and, at one worker, a
+    ``ContinuousClient`` sending 4,096 frames in windows of 128
+    (marginal ms/record and solo round trip, medians of 3); (d) a
+    ``MultiPipelineServer`` with ``/gbdt`` and ``/bert`` (phase 21e's
+    BERT-base-width classifier in bf16, 128 token ids a record): each
+    API's records/s alone and both loaded at once, every reply a 200 of
+    its own API's shape; (e) the row guard on served batches, each with
+    exact statuses: NaN-poisoned records (1%) 422 under a ``skip``
+    pipeline whose first stage declares its input columns; the
+    ``rowguard.poison_row`` site armed on 3 of 64 records 500s exactly
+    those within the isolation budget; a real CUDA out-of-memory error
+    above 12 records halves the batch (every record 200, the
+    ``rowguard_safe_batch_size`` gauge set, the card usable after); a
+    ``PreemptionError`` 503s the batch after one transform; a
+    ``quarantine`` pipeline dead-letters 3 of 512 rows under their
+    pipeline-input row numbers and ``Quarantine.replay`` through the
+    fixed pipeline equals a clean run.
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -3586,6 +3623,8 @@ def onnx_image(seed: int, dev, card: str, resnet: bytes,
             win["bf16_vs_f32"] > 5e-2:
         raise AssertionError(f"21e: bf16 against f32 {win['bf16_vs_f32']}")
     res["bert_base"] = win
+    # phase 23d serves this classifier beside the GBDT
+    res["bert"] = dict(payload=payload, seq=bert_seq, vocab=bert_vocab)
     log(f"phase 21e: BERT-base-width ONNX classifier ({bert_layers} layers, "
         f"{bert_width}, {bert_heads} heads, seq {bert_seq}, vocab "
         f"{bert_vocab}) b{bert_batch} | {card}: "
@@ -4070,6 +4109,704 @@ def a6_paths(seed: int, dev, card: str, resnet: bytes, n_images: int = 8,
     return res
 
 
+# -- phase 23: serving on the card ---------------------------------------------
+
+#: phase 23c's HTTP load (16 keep-alive clients x 256 records) and the
+#: continuous client's records per window run (in windows of 128)
+SERVE_THREADS, SERVE_PER_THREAD, SERVE_FRAMES = 16, 256, 4096
+
+
+def exact_csv_bytes(M: np.ndarray) -> bytes:
+    """The CSV text of ``M``, whose values are multiples of 1/64 in
+    (-10, 10): each field is ``±d.dddddd``, the value's exact decimal
+    expansion (q/64 = q·15625/10⁶), so any correct parse gives ``M`` back
+    bit for bit.  Formatted with integer array arithmetic (no per-value
+    Python)."""
+    q = np.rint(np.asarray(M, np.float64) * 64).astype(np.int32)
+    if np.abs(q).max(initial=0) >= 640:
+        raise ValueError("exact_csv_bytes takes |value| < 10")
+    a = np.abs(q) * np.int32(15625)
+    out = np.empty(M.shape + (10,), np.uint8)
+    out[..., 0] = np.where(q < 0, ord("-"), ord("+"))
+    out[..., 1] = ord("0") + a // 1_000_000
+    out[..., 2] = ord(".")
+    frac = a % 1_000_000
+    for k in range(6):
+        out[..., 8 - k] = ord("0") + frac % 10
+        frac //= 10
+    out[..., 9] = ord(",")
+    out[:, -1, 9] = ord("\n")
+    return out.tobytes()
+
+
+#: the HTTP load generator: a child Python process (stdlib only), so the
+#: clients' threads do not share the server's interpreter lock.  argv:
+#: host port path threads bodies-file (one JSON body a line) out-file
+_HTTP_CLIENT = r"""
+import http.client, json, sys, threading, time
+host, port, path, threads, src, dst = sys.argv[1:7]
+bodies = open(src, "rb").read().split(b"\n")[:-1]
+out, errors = [None] * len(bodies), []
+share = -(-len(bodies) // int(threads))
+def run(lo):
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        for i in range(lo, min(lo + share, len(bodies))):
+            t0 = time.perf_counter()
+            conn.request("POST", path, body=bodies[i],
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            data = r.read()
+            out[i] = [r.status, data.decode(), time.perf_counter() - t0]
+    except Exception as e:
+        errors.append(repr(e))
+    finally:
+        conn.close()
+ts = [threading.Thread(target=run, args=(lo,))
+      for lo in range(0, len(bodies), share)]
+t0 = time.perf_counter()
+for t in ts:
+    t.start()
+for t in ts:
+    t.join()
+json.dump({"wall": time.perf_counter() - t0, "rows": out,
+           "errors": errors}, open(dst, "w"))
+"""
+
+
+def http_start(url: str, bodies, threads: int, workdir: str):
+    """Start the load generator: ``threads`` keep-alive HTTP/1.1
+    connections in a child process, each thread POSTing its contiguous
+    share of ``bodies`` one at a time.  → a handle for :func:`http_wait`."""
+    import tempfile
+    from urllib.parse import urlsplit
+    u = urlsplit(url)
+    fd, src = tempfile.mkstemp(suffix=".jsonl", dir=workdir)
+    with os.fdopen(fd, "wb") as f:
+        f.write(b"\n".join(bodies) + b"\n")
+    dst = src[:-len(".jsonl")] + ".out.json"
+    proc = subprocess.Popen([sys.executable, "-c", _HTTP_CLIENT, u.hostname,
+                             str(u.port), u.path or "/", str(threads), src,
+                             dst])
+    return proc, src, dst
+
+
+def http_wait(handle):
+    """→ (wall s, [(status, reply bytes, latency s)] in body order)."""
+    proc, src, dst = handle
+    try:
+        if proc.wait(timeout=600) != 0:
+            raise AssertionError(f"the HTTP load generator exited "
+                                 f"{proc.returncode}")
+        with open(dst) as f:
+            res = json.load(f)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for path in (src, dst):
+            if os.path.exists(path):
+                os.remove(path)
+    if res["errors"]:
+        raise AssertionError(f"HTTP clients failed: {res['errors'][:3]}")
+    return res["wall"], [(st, body.encode(), lat)
+                         for st, body, lat in res["rows"]]
+
+
+def http_many(url: str, bodies, threads: int, workdir: str):
+    return http_wait(http_start(url, bodies, threads, workdir))
+
+
+def latency_ms(rows, q: float) -> float:
+    lat = sorted(r[2] for r in rows)
+    return lat[min(len(lat) - 1, int(len(lat) * q))] * 1e3
+
+
+class CudaTimed:
+    """Duck-typed model that records a CUDA event pair on the current
+    stream around each ``transform`` of ``inner`` (the stream span of the
+    call: its kernels, copies and the gaps between them)."""
+
+    def __init__(self, inner, dev):
+        import threading
+        self.inner, self.dev, self.pairs = inner, dev, []
+        self._lock = threading.Lock()
+
+    def transform(self, ds):
+        if self.dev.type != "cuda":
+            return self.inner.transform(ds)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.inner.transform(ds)
+        b.record()
+        with self._lock:
+            self.pairs.append((a, b))
+        return out
+
+    def span_ms(self) -> float:
+        """Mean stream span of a call, ms (NaN on the CPU)."""
+        if not self.pairs:
+            return float("nan")
+        torch.cuda.synchronize(self.dev)
+        return float(np.mean([a.elapsed_time(b) for a, b in self.pairs]))
+
+
+def walk_ms(booster, X: np.ndarray, dev, reps: int = 4) -> dict:
+    """ms of ``trainer.predict_raw_features`` (every tree at once, the
+    served path) and of ``predict_raw_features_per_tree`` (the previous
+    walk) over ``X``, host clock ended by a synchronize, in turns
+    (previous, batched, batched, previous); raises unless both give the
+    same margins and leaves bit for bit."""
+    from synapseml_tpu_torch.models.gbdt import trainer
+    stacked = booster._stacked_for_class(0, None, dev)
+    x = torch.as_tensor(np.ascontiguousarray(X, np.float32), device=dev)
+    depth = booster.depth_bound()
+    fns = {"batched": trainer.predict_raw_features,
+           "per_tree": trainer.predict_raw_features_per_tree}
+    outs = {k: fn(x, stacked, depth) for k, fn in fns.items()}
+    if not (torch.equal(outs["batched"][0], outs["per_tree"][0])
+            and torch.equal(outs["batched"][1], outs["per_tree"][1])):
+        raise AssertionError("the batched walk differs from the per-tree "
+                             "walk")
+    times = {k: [] for k in fns}
+    for k in ("per_tree", "batched", "batched", "per_tree"):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fns[k](x, stacked, depth)
+        synchronize(dev)
+        times[k].append((time.perf_counter() - t0) / reps * 1e3)
+    return dict(rows=len(X), trees=int(stacked.split_feature.shape[0]),
+                depth=depth, equal=True,
+                **{f"{k}_ms": float(np.mean(v)) for k, v in times.items()})
+
+
+def phase23_stages():
+    """The served pipelines' own stages.  ``Assemble`` declares
+    ``inputCols`` (the 28 feature columns, so the row guard's NaN screen
+    covers them) and stacks them into ``features``, raising on a batch
+    with a first feature above ``bug_above`` (a deliberate bug, for the
+    quarantine-and-replay case); ``ReplyCols`` packs each row's margin,
+    probability and label into one JSON-ready ``reply`` value."""
+    from synapseml_tpu_torch.core import Transformer
+    from synapseml_tpu_torch.core.params import FloatParam, ListParam
+
+    class Assemble(Transformer):
+        inputCols = ListParam(doc="feature columns",
+                              default=[f"f{j}" for j in range(28)])
+        bug_above = FloatParam(doc="raise on a batch whose first feature "
+                               "exceeds this (a deliberate bug)")
+
+        def _transform(self, ds):
+            cols = self.get_or_default("inputCols")
+            cut = self.get_or_default("bug_above")
+            if cut is not None and (np.asarray(ds[cols[0]]) > cut).any():
+                raise ValueError(f"{cols[0]} above {cut}")
+            return ds.with_column("features", np.column_stack(
+                [ds[c] for c in cols]).astype(np.float32))
+
+    class ReplyCols(Transformer):
+        def _transform(self, ds):
+            raw, p = ds["rawPrediction"], ds["probability"]
+            lab = ds["prediction"]
+            return ds.with_column("reply", [
+                {"raw": float(raw[i][1]), "probability": float(p[i][1]),
+                 "label": float(lab[i])} for i in range(ds.num_rows)])
+    return Assemble, ReplyCols
+
+
+def feature_columns(X: np.ndarray) -> dict:
+    return {f"f{j}": X[:, j] for j in range(X.shape[1])}
+
+
+def serving_paths(seed: int, dev, card: str, bert: dict, check_path,
+                  n_rows: int = 1_000_000, iters: int = 100,
+                  n_lenient: int = 100_000, n_card_cpu: int = 2048,
+                  threads: int = SERVE_THREADS,
+                  per_thread: int = SERVE_PER_THREAD,
+                  n_frames: int = SERVE_FRAMES, n_bert: int = 1024,
+                  n_gbdt_multi: int = 2048,
+                  n_nan: int = 1024, root=None) -> dict:
+    """Phase 23 (a-e): CSV → ``Dataset.from_csv`` → ``GBDTClassifier.fit``
+    on the card (K1/K2, counted as run ``phase23`` through
+    ``check_path``) → ``PipelineServer`` / ``MultiPipelineServer``,
+    HTTP/1.1 and framed clients, and the row guard on served batches.
+    Only the fit may launch a K-kernel.  ``bert`` is phase 21e's
+    classifier: {"payload", "seq", "vocab"}.  Raises on a failed check;
+    smaller sizes run it on the CPU."""
+    import json as _json
+    from synapseml_tpu_torch import native
+    from synapseml_tpu_torch.core import Dataset, PipelineModel
+    from synapseml_tpu_torch.io import colstore as CS
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.estimators import (
+        GBDTClassificationModel, GBDTClassifier)
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    from synapseml_tpu_torch.models.onnx import ONNXModel
+    from synapseml_tpu_torch.resilience import get_faults
+    from synapseml_tpu_torch.resilience.faults import PreemptionError
+    from synapseml_tpu_torch.resilience.rowguard import (
+        Quarantine, is_oom_error, isolation_budget, reset_safe_batch,
+        safe_batch_size)
+    from synapseml_tpu_torch.serving import (ContinuousClient,
+                                             MultiPipelineServer,
+                                             PipelineServer, ServingRequest)
+    from synapseml_tpu_torch.telemetry import get_registry
+    d = str(dev)
+    F = 28
+    root = root or os.path.join(os.path.dirname(CKPT_ROOT), "phase23")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(seed + 23)
+    res = {}
+    Assemble, ReplyCols = phase23_stages()
+
+    def no_kernel(step: str) -> None:
+        if L.BY_SHAPE:
+            raise AssertionError(f"23{step} launched {dict(L.BY_SHAPE)}")
+
+    def parse_features(r):
+        return {"features": np.asarray(r.json()["features"], np.float32)}
+
+    # 23b. the CSV: bench.py's task at HIGGS's width, values on a 1/64 grid
+    X = (np.clip(np.rint(rng.normal(size=(n_rows, F)) * 64), -639, 639)
+         / 64).astype(np.float32)
+    y = gbdt_labels(rng, X).astype(np.float32)
+    csv = os.path.join(root, "higgs_shape.csv")
+    t0 = time.perf_counter()
+    text = exact_csv_bytes(np.column_stack([X, y]))
+    header = (",".join([f"f{j}" for j in range(F)] + ["label"]) + "\n"
+              ).encode()
+    with open(csv, "wb") as f:
+        f.write(header)
+        f.write(text)
+    write_s = time.perf_counter() - t0
+    nbytes = len(header) + len(text)
+    before = native.CSV_PARSES["native"]
+    t0 = time.perf_counter()
+    ds_csv = Dataset.from_csv(csv)
+    parse_s = time.perf_counter() - t0
+    if native.CSV_PARSES["native"] != before + 1:
+        raise AssertionError(f"23b: the native parser did not read the "
+                             f"file ({dict(native.CSV_PARSES)})")
+    if ds_csv.columns != [f"f{j}" for j in range(F)] + ["label"] or not (
+            all(np.array_equal(ds_csv[f"f{j}"], X[:, j]) for j in range(F))
+            and np.array_equal(ds_csv["label"], y)):
+        raise AssertionError("23b: from_csv did not read the matrix back")
+    # 1% of the first lines ragged (a field dropped) or unparseable
+    lines = text[:n_lenient * (F + 1) * 10].split(b"\n")[:n_lenient]
+    bad = np.sort(rng.choice(n_lenient, n_lenient // 100, replace=False))
+    ragged = set(bad[::2].tolist())
+    for i in bad:
+        fields = lines[i].split(b",")
+        lines[i] = b",".join(fields[:-1] if i in ragged
+                             else [b"oops"] + fields[1:])
+    lenient = os.path.join(root, "lenient.csv")
+    with open(lenient, "wb") as f:
+        f.write(header + b"\n".join(lines) + b"\n")
+    store = Quarantine(os.path.join(root, "quarantine_ingest"))
+    t0 = time.perf_counter()
+    ds_len = Dataset.from_csv(lenient, handle_invalid="quarantine",
+                              quarantine=store)
+    lenient_s = time.perf_counter() - t0
+    recs = sorted(store.records("Dataset.from_csv"),
+                  key=lambda r: r.row_index)
+    raw = store.rows("Dataset.from_csv")
+    keep = np.setdiff1d(np.arange(n_lenient), bad)
+    if ([r.row_index for r in recs] != bad.tolist()
+            or any(not r.error_message.startswith(f"line {i + 2}:")
+                   for r, i in zip(recs, bad))
+            or sorted(raw.source_index.tolist()) != bad.tolist()
+            or {s for s in raw["raw"]} != {lines[i].decode() for i in bad}
+            or ds_len.source_index.tolist() != keep.tolist()
+            or not np.array_equal(ds_len["f5"], X[keep, 5])):
+        raise AssertionError("23b: the quarantine does not hold exactly "
+                             "the bad lines")
+    smlc = os.path.join(root, "higgs_shape.smlc")
+    t0 = time.perf_counter()
+    rows_c, names_c = CS.csv_to_colstore(csv, smlc)
+    colstore_s = time.perf_counter() - t0
+    src = CS.ChunkedColumnSource(smlc, label_col=F, chunk_rows=65_536)
+    back = np.concatenate([c[0] for c in src.iter_chunks()])
+    if (rows_c != n_rows or not np.array_equal(back, X)
+            or not np.array_equal(src.read_labels(), y)):
+        raise AssertionError("23b: csv_to_colstore did not read back equal")
+    del back, src, text, lines
+    # the fit, from the CSV's Dataset
+    ds_fit = Dataset({"features": np.column_stack(
+        [ds_csv[f"f{j}"] for j in range(F)]), "label": ds_csv["label"]})
+    del ds_csv
+    L.reset()
+    t0 = time.perf_counter()
+    model = GBDTClassifier(numIterations=iters, numLeaves=31, maxBin=255,
+                           device=d).fit(ds_fit)
+    synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    shapes = dict(L.BY_SHAPE)
+    check_path("phase23", dict(shapes=shapes, rows=n_rows, iterations=iters,
+                               fit_s=fit_s))
+    L.reset()
+    Xh = (np.clip(np.rint(rng.normal(size=(100_000, F)) * 64), -639, 639)
+          / 64).astype(np.float32)
+    yh = gbdt_labels(rng, Xh)
+    fit_auc = float(auc(yh, np.stack(model.transform(Dataset(
+        {"features": Xh}))["probability"])[:, 1]))
+    if fit_auc <= 0.8:
+        raise AssertionError(f"23b: holdout AUC {fit_auc}")
+    res["b"] = dict(
+        rows=n_rows, csv_bytes=nbytes, write_s=write_s, parse_s=parse_s,
+        parse_mb_per_s=nbytes / parse_s / 1e6, parser="native",
+        lenient_lines=n_lenient, quarantined=len(recs),
+        lenient_s=lenient_s,
+        lenient_mb_per_s=os.path.getsize(lenient) / lenient_s / 1e6,
+        csv_to_colstore_s=colstore_s, fit_s=fit_s, holdout_auc=fit_auc,
+        shapes=shapes)
+    log(f"phase 23b: CSV ingest {n_rows} x {F} + label ({nbytes} B) | "
+        f"{card}: {_json.dumps(res['b'])}")
+    no_kernel("b's scoring")
+
+    # 23a. the same booster served from the card and from the CPU
+    cpu_model = GBDTClassificationModel.load_native_model_from_string(
+        model.get_model_string(), device="cpu")
+    idx = rng.choice(len(Xh), n_card_cpu, replace=False)
+    bodies = [_json.dumps({"features": Xh[i].tolist()}).encode()
+              for i in idx]
+    served, direct = {}, {}
+    for where, m in (("card", model), ("cpu", cpu_model)):
+        pipe = PipelineModel(stages=[m, ReplyCols()])
+        direct[where] = list(pipe.transform(Dataset(
+            {"features": Xh[idx]}))["reply"])
+        ps = PipelineServer(pipe, parse_features, output_col="reply",
+                            batch_size=64, batch_timeout_s=0.01)
+        try:
+            _, rows = http_many(ps.url, bodies, threads, root)
+        finally:
+            ps.close()
+        if any(r[0] != 200 for r in rows):
+            raise AssertionError(f"23a {where}: statuses "
+                                 f"{sorted({r[0] for r in rows})}")
+        served[where] = [_json.loads(r[1])["prediction"] for r in rows]
+        if served[where] != direct[where]:
+            raise AssertionError(f"23a {where}: served replies differ from "
+                                 "one transform over the same rows")
+    raw_diff = max(abs(a["raw"] - b["raw"])
+                   for a, b in zip(served["card"], served["cpu"]))
+    labels_equal = all(a["label"] == b["label"]
+                       for a, b in zip(served["card"], served["cpu"]))
+    if raw_diff > 1e-4 or not labels_equal:
+        raise AssertionError(f"23a: card vs CPU margins {raw_diff}, labels "
+                             f"equal {labels_equal}")
+    res["a"] = dict(records=n_card_cpu, max_margin_diff=raw_diff,
+                    limit=1e-4, labels_equal=labels_equal,
+                    served_equals_transform=True)
+    log(f"phase 23a: PipelineServer card vs CPU, {n_card_cpu} records | "
+        f"{card}: {_json.dumps(res['a'])}")
+    no_kernel("a")
+
+    # 23c. PipelineServer over the card model: HTTP, frames, the split;
+    # first the served walk (all trees at once) against the per-tree
+    # walk on one 16-row batch, in turns, equal bit for bit
+    res["c"] = {"walk": walk_ms(model.booster, Xh[:16], dev)}
+    log(f"phase 23c: GBDT walk of 16 rows, {iters} trees | {card}: "
+        f"{_json.dumps(res['c']['walk'])}")
+    pipe = PipelineModel(stages=[model, ReplyCols()])
+    n_http = threads * per_thread
+    hidx = rng.choice(len(Xh), n_http, replace=True)
+    bodies = [_json.dumps({"features": Xh[i].tolist()}).encode()
+              for i in hidx]
+    want = list(pipe.transform(Dataset({"features": Xh[hidx]}))["reply"])
+    for workers in (1, 2):
+        timed = CudaTimed(pipe, dev)
+        ps = PipelineServer(timed, parse_features, output_col="reply",
+                            batch_size=64, batch_timeout_s=0.01,
+                            num_workers=workers)
+        try:
+            http_many(ps.url, bodies[:threads * 8], threads, root)  # warm
+            t_before = dict(ps._loop.timings)
+            timed.pairs.clear()
+            wall, rows = http_many(ps.url, bodies, threads, root)
+            t_after = dict(ps._loop.timings)
+            if any(r[0] != 200 for r in rows) or [
+                    _json.loads(r[1])["prediction"] for r in rows] != want:
+                raise AssertionError(f"23c workers={workers}: replies "
+                                     "differ from one transform")
+            nb = t_after["batches"] - t_before["batches"]
+            split = {k[:-2] + "_ms_per_batch":
+                     (t_after[k] - t_before[k]) / max(nb, 1) * 1e3
+                     for k in ("parse_s", "from_rows_s", "transform_s",
+                               "reply_s")}
+            r = dict(records=n_http, clients=threads,
+                     records_per_s=n_http / wall,
+                     latency_p50_ms=latency_ms(rows, 0.5),
+                     latency_p99_ms=latency_ms(rows, 0.99),
+                     batches=nb, records_per_batch=(
+                         t_after["records"] - t_before["records"]) / max(
+                             nb, 1),
+                     transform_stream_ms_per_call=timed.span_ms(), **split)
+            if workers == 1:
+                host, port = ps.server.address
+                marg, solo = [], []
+                frames = [_json.dumps({"features": Xh[i].tolist()}).encode()
+                          for i in rng.choice(len(Xh), n_frames)]
+                with ContinuousClient(host, port, "/", timeout_s=60) as c:
+                    c.request(frames[0])
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        got = c.request_many(frames, window=128)
+                        marg.append((time.perf_counter() - t0)
+                                    / len(frames) * 1e3)
+                        if any(s != 200 for s, _ in got):
+                            raise AssertionError("23c: a framed reply "
+                                                 "failed")
+                        t0 = time.perf_counter()
+                        c.request(frames[1])
+                        solo.append((time.perf_counter() - t0) * 1e3)
+                r.update(frames=len(frames), window=128,
+                         continuous_marginal_ms_per_record=float(
+                             np.median(marg)),
+                         continuous_solo_rtt_ms=float(np.median(solo)),
+                         continuous_marginal_runs=marg,
+                         continuous_solo_runs=solo)
+        finally:
+            ps.close()
+        res["c"][f"workers={workers}"] = r
+        log(f"phase 23c: PipelineServer batch 64, timeout 10 ms, "
+            f"num_workers={workers} | {card}: {_json.dumps(r)}")
+    no_kernel("c")
+
+    # 23d. MultiPipelineServer: the GBDT and phase 21e's BERT classifier
+    seq, vocab = bert["seq"], bert["vocab"]
+    bert_model = ONNXModel(bert["payload"], feedDict={
+        "input_ids": "input_ids", "attention_mask": "attention_mask"},
+        fetchDict={"logits": "logits"}, miniBatchSize=64,
+        dtype="bfloat16", device=d)
+
+    def parse_ids(r):
+        ids = np.asarray(r.json()["ids"], np.int64)
+        if ids.shape != (seq,):
+            raise ValueError(f"ids must be {seq} token ids")
+        return {"input_ids": ids,
+                "attention_mask": np.ones(seq, np.float32)}
+
+    id_bodies = [_json.dumps({"ids": rng.integers(0, vocab, seq).tolist()})
+                 .encode() for _ in range(n_bert)]
+    srv = MultiPipelineServer({
+        "/gbdt": {"model": pipe, "input_parser": parse_features,
+                  "output_col": "reply", "batch_size": 64},
+        "/bert": {"model": bert_model, "input_parser": parse_ids,
+                  "output_col": "logits", "batch_size": 64}})
+    try:
+        http_many(srv.url_for("/bert"), id_bodies[:threads * 4], threads,
+                  root)
+        loads = {"/gbdt": bodies[:n_gbdt_multi], "/bert": id_bodies}
+
+        def check(api, rows):
+            for status, body, _ in rows:
+                p = _json.loads(body)["prediction"] if status == 200 else None
+                ok = status == 200 and (
+                    isinstance(p, dict) and "label" in p if api == "/gbdt"
+                    else isinstance(p, list) and len(p) == 2
+                    and all(np.isfinite(p)))
+                if not ok:
+                    raise AssertionError(f"23d {api}: {status} {body[:200]}")
+
+        def rates(api, wall, rows):
+            check(api, rows)
+            return dict(records=len(rows), records_per_s=len(rows) / wall,
+                        latency_p50_ms=latency_ms(rows, 0.5),
+                        latency_p99_ms=latency_ms(rows, 0.99))
+        alone = {api: rates(api, *http_many(srv.url_for(api), bs, threads,
+                                            root))
+                 for api, bs in loads.items()}
+        handles = {api: http_start(srv.url_for(api), bs, threads // 2, root)
+                   for api, bs in loads.items()}
+        try:
+            both = {api: rates(api, *http_wait(h))
+                    for api, h in handles.items()}
+        finally:
+            for proc, _, _ in handles.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    finally:
+        srv.close()
+    res["d"] = dict(alone=alone, together=both, bert_seq=seq)
+    log(f"phase 23d: MultiPipelineServer /gbdt + /bert (BERT-base width, "
+        f"bf16, seq {seq}) | {card}: {_json.dumps(res['d'])}")
+    no_kernel("d")
+
+    # 23e. the row guard on served batches
+    e = {}
+    # (1) NaN-poisoned records under a skip pipeline: 422, the rest 200
+    skip_pipe = PipelineModel(stages=[Assemble(), model, ReplyCols()],
+                              handleInvalid="skip")
+    eidx = rng.choice(len(Xh), n_nan, replace=False)
+    rows_x = Xh[eidx].copy()
+    poisoned = np.sort(rng.choice(n_nan, n_nan // 100, replace=False))
+    rows_x[poisoned, rng.integers(0, F, len(poisoned))] = np.nan
+    ebodies = [_json.dumps({"features": [None if np.isnan(v) else float(v)
+                                         for v in r]}).encode()
+               for r in rows_x]
+    clean = list(PipelineModel(stages=[Assemble(), model, ReplyCols()])
+                 .transform(Dataset(feature_columns(Xh[eidx])))["reply"])
+
+    def parse_columns(r):
+        v = r.json()["features"]
+        return {f"f{j}": np.nan if x is None else float(x)
+                for j, x in enumerate(v)}
+
+    ps = PipelineServer(skip_pipe, parse_columns, output_col="reply",
+                        batch_size=64, batch_timeout_s=0.01)
+    try:
+        _, rows = http_many(ps.url, ebodies, threads, root)
+    finally:
+        ps.close()
+    status = [r[0] for r in rows]
+    if ([i for i, s in enumerate(status) if s != 200] != poisoned.tolist()
+            or any(status[i] != 422 for i in poisoned)
+            or any(_json.loads(rows[i][1])["prediction"] != clean[i]
+                   for i in range(n_nan) if status[i] == 200)):
+        raise AssertionError(f"23e(1): statuses {sorted(set(status))}")
+    e["nan_skip"] = dict(records=n_nan, status_422=len(poisoned),
+                         status_200=n_nan - len(poisoned))
+
+    def direct_replies(m, n):
+        ps = PipelineServer(m, lambda r: r, output_col="reply",
+                            batch_size=n, batch_timeout_s=0.01)
+        got = {}
+        ps._loop.api.reply = lambda rid, rep: got.__setitem__(rid, rep)
+        reqs = [ServingRequest(id=f"r{i}", method="POST", path="/",
+                               headers={}, body=b"") for i in range(n)]
+        return ps, got, reqs
+
+    # (2) the rowguard.poison_row site armed on 3 of 64 records
+    faults = get_faults()
+    faults.clear()
+    poison = {7, 30, 51}
+    faults.inject("rowguard.poison_row", "poison",
+                  when=lambda c: bool(poison & set(map(int, c["rows"]))))
+    calls = []
+
+    class Sited:
+        def transform(self, ds):
+            calls.append(ds.num_rows)
+            faults.raise_point("rowguard.poison_row", stage="served",
+                               rows=ds["id"], n=ds.num_rows)
+            return pipe.transform(ds.drop("id"))
+
+    ps, got, reqs = direct_replies(Sited(), 64)
+    try:
+        ps._loop._transform_reply(reqs, [{"features": Xh[i], "id": i}
+                                         for i in range(64)])
+    finally:
+        ps.close()
+        faults.clear()
+    want = list(pipe.transform(Dataset({"features": Xh[:64]}))["reply"])
+    if ({i for i in range(64) if got[f"r{i}"].status == 500} != poison
+            or any(got[f"r{i}"].status != 200 or _json.loads(
+                got[f"r{i}"].body)["prediction"] != want[i]
+                for i in range(64) if i not in poison)
+            or len(calls) > isolation_budget(64)):
+        raise AssertionError(f"23e(2): {len(calls)} transforms, statuses "
+                             f"{ {k: v.status for k, v in got.items()} }")
+    e["poison_row"] = dict(records=64, status_500=sorted(poison),
+                           transforms=len(calls),
+                           budget=isolation_budget(64))
+    # (3) a real CUDA out-of-memory error above 12 records a batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        per_row = torch.cuda.mem_get_info(dev)[0] // 12
+        ooms = []
+
+        class Hungry:
+            def transform(self, ds):
+                try:
+                    buf = torch.empty(per_row * ds.num_rows,
+                                      dtype=torch.uint8, device=dev)
+                except Exception as err:
+                    ooms.append(err)
+                    raise
+                del buf
+                return pipe.transform(ds)
+
+        ps, got, reqs = direct_replies(Hungry(), 64)
+        try:
+            ps._loop._transform_reply(reqs, [{"features": Xh[i]}
+                                             for i in range(64)])
+            safe = safe_batch_size(ps._loop._oom_key, 64)
+            gauge = get_registry().gauge(
+                "rowguard_safe_batch_size", "", ("key",)).value(
+                    key=ps._loop._oom_key)
+        finally:
+            reset_safe_batch()
+            ps.close()
+            torch.cuda.empty_cache()
+        after = list(pipe.transform(Dataset({"features": Xh[:64]}))["reply"])
+        if (not ooms or not all(isinstance(x, torch.OutOfMemoryError)
+                                and is_oom_error(x) for x in ooms)
+                or safe > 12 or gauge != safe
+                or any(got[f"r{i}"].status != 200 or _json.loads(
+                    got[f"r{i}"].body)["prediction"] != want[i]
+                    for i in range(64)) or after != want):
+            raise AssertionError(f"23e(3): {len(ooms)} OOMs, safe {safe}, "
+                                 f"gauge {gauge}")
+        e["cuda_oom"] = dict(records=64, ooms=len(ooms), safe_batch=safe,
+                             gauge=gauge, card_usable_after=True)
+    # (4) a preemption: 503 for the batch, one transform, no halving
+    calls.clear()
+
+    class Preempted:
+        def transform(self, ds):
+            calls.append(ds.num_rows)
+            raise PreemptionError("evicted")
+
+    ps, got, reqs = direct_replies(Preempted(), 64)
+    try:
+        ps._loop._transform_reply(reqs, [{"features": Xh[i]}
+                                         for i in range(64)])
+    finally:
+        ps.close()
+    if calls != [64] or {r.status for r in got.values()} != {503} \
+            or len(got) != 64:
+        raise AssertionError(f"23e(4): transforms {calls}")
+    e["preemption"] = dict(records=64, status_503=64, transforms=len(calls))
+    # (5) quarantine with pipeline-input row numbers, then replay
+    qdir = os.path.join(root, "quarantine_serving")
+    qrows = Xh[:512].copy()
+    bug_rows = [40, 222, 480]
+    qrows[:, 0] = np.minimum(qrows[:, 0], 3.0)
+    qrows[bug_rows, 0] = 4.0
+    buggy = Assemble(bug_above=3.5)
+    qpipe = PipelineModel(stages=[buggy, model, ReplyCols()],
+                          handleInvalid="quarantine", quarantineDir=qdir)
+    fixed = PipelineModel(stages=[Assemble(), model, ReplyCols()])
+    qds = Dataset(feature_columns(qrows))
+    out = qpipe.transform(qds)
+    store = Quarantine(qdir)
+    recs = store.records(buggy.uid)
+    replayed = store.replay(fixed, stage_uid=buggy.uid)
+    clean_all = list(fixed.transform(qds)["reply"])
+    order = np.argsort(replayed.source_index)
+    kept = [i for i in range(512) if i not in bug_rows]
+    if (sorted(r.row_index for r in recs) != bug_rows
+            or sorted(replayed.source_index.tolist()) != bug_rows
+            or [replayed["reply"][k] for k in order]
+            != [clean_all[i] for i in bug_rows]
+            or out.source_index.tolist() != kept
+            or list(out["reply"]) != [clean_all[i] for i in kept]
+            or store.rows(buggy.uid) is not None):
+        raise AssertionError(f"23e(5): records {[r.row_index for r in recs]}")
+    e["quarantine_replay"] = dict(rows=512, quarantined=bug_rows,
+                                  replay_equals_clean=True)
+    res["e"] = e
+    log(f"phase 23e: the row guard on served batches | {card}: "
+        f"{_json.dumps(e)}")
+    no_kernel("e")
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4128,7 +4865,7 @@ def main(argv=None) -> int:
     N_RANK = int(np.random.default_rng(args.seed + 13).integers(
         1, RANK_MAXG + 1, RANK_Q).sum())
     two_level = ("maxBin=255", "multiclass", "validation", "resumed",
-                 "phase22c")
+                 "phase22c", "phase23")
     mono = ("monotone basic", "monotone intermediate", "monotone advanced")
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
@@ -4632,7 +5369,7 @@ def main(argv=None) -> int:
     p21a = onnx_card_vs_cpu(dev, args.seed, resnet)
     log(f"phase 21a: ONNX and image stages card vs CPU (error over scale) "
         f"| {card}: {json.dumps(p21a)}")
-    onnx_image(args.seed, dev, card, resnet)
+    p21 = onnx_image(args.seed, dev, card, resnet)
     wall("21")
 
     # -- 22. the explainers and the classic estimators -------------------------
@@ -4651,6 +5388,14 @@ def main(argv=None) -> int:
         f"{json.dumps(p22['gbdt']['shapes'])}")
     del resnet
     wall("22")
+
+    # -- 23. serving on the card: CSV → fit → PipelineServer ----------------
+    torch.cuda.empty_cache()
+    serving_paths(args.seed, dev, card, p21.pop("bert"), check_path)
+    del p21
+    log(f"phase 23: no K-kernel outside the fit: K1/K2 launched only in "
+        f"23b's GBDT fit {json.dumps(paths['phase23']['shapes'])}")
+    wall("23")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

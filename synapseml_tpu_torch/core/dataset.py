@@ -4,15 +4,31 @@ A copy of the JAX package's ``core/dataset.py`` for the PyTorch port: a
 :class:`Dataset` is a columnar table (dict of numpy arrays) carrying a
 ``num_partitions`` hint.  Numeric columns move to the device as dense
 blocks when a stage needs them; object columns (strings, ragged lists)
-stay host-side.  Ingest paths that need the native loader or the row
-guard (CSV, column store, permissive ``from_rows``) are not part of this
-slice of the port.
+stay host-side.  CSV ingest goes through the port's native parser
+(:func:`~synapseml_tpu_torch.native.read_csv_matrix`), and the permissive
+``from_rows``/``from_csv`` modes route invalid rows through the row
+guard's skip/quarantine policy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+
+def _dedupe_names(names: Sequence[str]) -> List[str]:
+    """Rename duplicate column names ``x`` → ``x_1``, ``x_2``… (dict-keyed
+    columns would silently drop duplicates); shared by both CSV paths so
+    strict and permissive modes produce identical schemas."""
+    uniq: List[str] = []
+    for n in names:
+        if n in uniq:
+            base, k = n, 1
+            while f"{base}_{k}" in uniq or f"{base}_{k}" in names:
+                k += 1
+            n = f"{base}_{k}"
+        uniq.append(n)
+    return uniq
 
 
 def _as_column(values, n_rows: Optional[int] = None) -> np.ndarray:
@@ -71,18 +87,176 @@ class Dataset:
         return Dataset(d, num_partitions)
 
     @staticmethod
-    def from_rows(rows: Sequence[Dict[str, Any]],
-                  num_partitions: int = 1) -> "Dataset":
-        """Build from a list of row dicts; a row missing a key raises."""
+    def from_rows(rows: Sequence[Dict[str, Any]], num_partitions: int = 1,
+                  handle_invalid: str = "error",
+                  quarantine: Any = None) -> "Dataset":
+        """Build from a list of row dicts.
+
+        ``handle_invalid="error"`` (default) keeps the strict behavior: a
+        row missing a key raises.  ``"skip"`` drops ragged rows (non-dict
+        rows and rows MISSING one of the schema's keys; extra keys are
+        ignored, exactly as the strict path ignores them);
+        ``"quarantine"`` additionally writes them — with their row
+        numbers — to the dead-letter store (``quarantine``: a
+        Quarantine, a directory, or None for the default dir)."""
         if not rows:
             raise ValueError("no rows")
-        keys = list(rows[0].keys())
-        return Dataset({k: [r[k] for r in rows] for k in keys},
-                       num_partitions)
+        if handle_invalid == "error":
+            keys = list(rows[0].keys())
+            return Dataset({k: [r[k] for r in rows] for k in keys},
+                           num_partitions)
+        # permissive: the schema comes from the FIRST DICT row — a
+        # non-dict row 0 is exactly the input this mode must tolerate
+        first = next((r for r in rows if isinstance(r, dict)), None)
+        if first is None:
+            raise ValueError(f"no dict rows among {len(rows)} inputs")
+        keys = list(first.keys())
+        keyset = set(keys)
+        good: List[Dict[str, Any]] = []
+        good_idx: List[int] = []
+        bad: List[Tuple[int, Any, str]] = []
+        for i, r in enumerate(rows):
+            if not isinstance(r, dict):
+                bad.append((i, r, f"row {i} is {type(r).__name__}, "
+                            "not a dict"))
+            elif not keyset.issubset(r.keys()):
+                # extra keys are fine (the strict path ignores them too);
+                # only MISSING schema keys make a row ragged
+                bad.append((i, r, f"ragged row {i}: missing keys "
+                            f"{sorted(map(str, keyset - set(r.keys())))}"))
+            else:
+                good.append(r)
+                good_idx.append(i)
+        Dataset._report_ingest_invalid(
+            "Dataset.from_rows", handle_invalid, quarantine,
+            [(i, repr(r), msg) for i, r, msg in bad])
+        if not good:
+            raise ValueError(
+                f"no valid rows: all {len(rows)} rows were ragged "
+                f"(first: {bad[0][2]})")
+        return Dataset({k: [r[k] for r in good] for k in keys},
+                       num_partitions,
+                       row_index=np.asarray(good_idx, dtype=np.int64))
 
     @staticmethod
     def from_pandas(df, num_partitions: int = 1) -> "Dataset":
         return Dataset({c: df[c].to_numpy() for c in df.columns}, num_partitions)
+
+    @staticmethod
+    def _report_ingest_invalid(source: str, handle_invalid: str,
+                               quarantine: Any,
+                               bad: Sequence[Tuple[int, str, str]]) -> None:
+        """Route ingest-time invalid rows/lines (``(index, raw, reason)``)
+        through the skip/quarantine policy + telemetry."""
+        if handle_invalid not in ("skip", "quarantine"):
+            raise ValueError(
+                f"handle_invalid must be 'error', 'skip' or 'quarantine', "
+                f"got {handle_invalid!r}")
+        if not bad:
+            return
+        from ..resilience.rowguard import ErrorRecord, Quarantine
+        from ..telemetry import get_registry
+        from .logging import logger
+        records = [ErrorRecord(stage_uid=source, stage_class=source,
+                               row_index=int(i), error_class="ParseError",
+                               error_message=msg, verb="ingest")
+                   for i, _, msg in bad]
+        get_registry().counter(
+            "rowguard_rows_total", "rows screened out by the guard",
+            ("stage", "outcome")).inc(len(bad), stage=source,
+                                      outcome=handle_invalid)
+        if handle_invalid == "quarantine":
+            store = (quarantine if isinstance(quarantine, Quarantine)
+                     else Quarantine(quarantine))
+            rows = Dataset(
+                {"raw": [raw for _, raw, _ in bad]},
+                row_index=np.asarray([i for i, _, _ in bad],
+                                     dtype=np.int64))
+            store.add(source, rows, records, stage_class=source)
+        logger.warning("%s: %s %d invalid row(s) (first: %s)",
+                       source, handle_invalid, len(bad), bad[0][2])
+
+    @staticmethod
+    def from_csv(path: str, delim: str = ",",
+                 num_partitions: int = 1, handle_invalid: str = "error",
+                 quarantine: Any = None) -> "Dataset":
+        """Numeric CSV via the native C++ parser (multithreaded mmap parse;
+        see synapseml_tpu_torch/native/loader.cpp), numpy fallback.
+
+        ``handle_invalid="skip"``/``"quarantine"`` switches to a
+        permissive line-validating parse: ragged lines (wrong field
+        count) and unparseable fields are dropped or dead-lettered with
+        their file line numbers instead of crashing the native parser,
+        and columns that parse to all-NaN are reported (they usually mean
+        a text column fed to a numeric reader)."""
+        if handle_invalid != "error":
+            return Dataset._from_csv_permissive(
+                path, delim, num_partitions, handle_invalid, quarantine)
+        from ..native import read_csv_matrix
+        mat, names = read_csv_matrix(path, delim)
+        return Dataset({n: mat[:, i].copy()
+                        for i, n in enumerate(_dedupe_names(names))},
+                       num_partitions)
+
+    @staticmethod
+    def _from_csv_permissive(path: str, delim: str, num_partitions: int,
+                             handle_invalid: str,
+                             quarantine: Any) -> "Dataset":
+        from ..native import _read_header
+        has_header, names = _read_header(path, delim)
+        names = _dedupe_names(names)
+        good: List[List[float]] = []
+        good_idx: List[int] = []
+        bad: List[Tuple[int, str, str]] = []
+        ncols = len(names)
+        with open(path, "r", errors="replace") as f:
+            if has_header:
+                f.readline()
+            data_row = 0
+            for lineno, line in enumerate(f, start=2 if has_header else 1):
+                raw = line.rstrip("\r\n")
+                if not raw.strip():
+                    continue
+                fields = raw.split(delim)
+                if len(fields) != ncols:
+                    bad.append((data_row, raw,
+                                f"line {lineno}: {len(fields)} fields, "
+                                f"expected {ncols}"))
+                    data_row += 1
+                    continue
+                try:
+                    # empty fields are missing values (genfromtxt parity)
+                    vals = [float(x) if x.strip() else float("nan")
+                            for x in fields]
+                except ValueError as e:
+                    bad.append((data_row, raw, f"line {lineno}: {e}"))
+                    data_row += 1
+                    continue
+                good.append(vals)
+                good_idx.append(data_row)
+                data_row += 1
+        Dataset._report_ingest_invalid("Dataset.from_csv", handle_invalid,
+                                       quarantine, bad)
+        if not good:
+            raise ValueError(f"{path}: no parseable data lines "
+                             f"({len(bad)} invalid)")
+        mat = np.asarray(good, dtype=np.float32)
+        all_nan = [names[j] for j in range(ncols)
+                   if bool(np.all(np.isnan(mat[:, j])))]
+        if all_nan:
+            from ..telemetry import get_registry
+            from .logging import logger
+            for c in all_nan:
+                get_registry().counter(
+                    "dataset_all_nan_columns_total",
+                    "columns that parsed to all-NaN on CSV ingest",
+                    ("column",)).inc(1, column=c)
+            logger.warning("%s: columns %s parsed to all-NaN — likely "
+                           "non-numeric data in a numeric reader",
+                           path, all_nan)
+        return Dataset({n: mat[:, j].copy() for j, n in enumerate(names)},
+                       num_partitions,
+                       row_index=np.asarray(good_idx, dtype=np.int64))
 
     def to_pandas(self):
         import pandas as pd

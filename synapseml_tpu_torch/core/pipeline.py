@@ -11,9 +11,9 @@ persistence).  Persistence layout:
 Every stage self-registers in a class registry keyed by qualified name so
 generic :func:`load_stage` can reconstruct it.
 
-Row-level fault isolation (``handleInvalid='skip'|'quarantine'``) is not
-part of this slice of the port: those modes raise ``NotImplementedError``
-at ``fit``/``transform``; ``'error'`` (the default) is a pass-through.
+Every ``fit``/``transform`` runs through the row guard
+(:mod:`synapseml_tpu_torch.resilience.rowguard`) under the stage's
+``handleInvalid`` policy; ``'error'`` (the default) is a pass-through.
 """
 
 from __future__ import annotations
@@ -27,11 +27,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from .dataset import Dataset
+from .logging import log_verb
 from .params import (DatasetParam, EstimatorParam, Param, Params,
                      PyObjectParam, StringParam, TransformerParam)
-
-#: the row-guard modes of the JAX package; only "error" is ported
-HANDLE_INVALID_MODES = ("error", "skip", "quarantine")
+from ..resilience.rowguard import (HANDLE_INVALID_MODES, guard_context,
+                                   guarded_fit, guarded_transform)
 
 _STAGE_REGISTRY: Dict[str, type] = {}
 
@@ -64,22 +64,57 @@ def lookup_stage(name: str) -> type:
     return _STAGE_REGISTRY[name]
 
 
-def _check_handle_invalid(stage: "PipelineStage") -> None:
-    mode = stage.get_or_default("handleInvalid")
-    if mode != "error":
-        raise NotImplementedError(
-            f"{type(stage).__name__}: handleInvalid={mode!r} needs the row "
-            "guard, which the PyTorch port has not ported yet (ROADMAP "
-            "queue A, resilience); use handleInvalid='error'")
-
-
 class PipelineStage(Params):
-    """Common base: params + save/load + the ``handleInvalid`` contract."""
+    """Common base: params + save/load + row-level fault policy.
+
+    Every stage carries the Spark ML ``handleInvalid`` contract, enforced
+    at ``fit``/``transform`` entry by
+    :mod:`synapseml_tpu_torch.resilience.rowguard`: ``"error"`` (default) is a
+    strict pass-through, ``"skip"`` drops rows that fail the stage
+    (NaN/Inf screens on declared input columns + poison-batch bisection
+    on stage exceptions), ``"quarantine"`` additionally dead-letters them
+    with source-row provenance for later :meth:`Quarantine.replay`.
+    """
 
     handleInvalid = StringParam(
         doc="row-level fault mode: 'error' raises on the first bad row "
-            "(Spark default); 'skip' and 'quarantine' are not ported yet",
+            "(Spark default), 'skip' drops bad rows, 'quarantine' routes "
+            "them to the dead-letter store",
         default="error", allowed=HANDLE_INVALID_MODES)
+    quarantineDir = StringParam(
+        doc="dead-letter directory for handleInvalid='quarantine' "
+            "(default: $SML_QUARANTINE_DIR, else ./sml_quarantine)")
+
+    #: params whose values name input columns the row guard
+    #: contract-checks (existence) and screens (NaN/Inf/None) — extend
+    #: per stage family when the input lives under another name
+    _guard_input_params = ("inputCol", "inputCols")
+    _guard_fit_params = ("labelCol",)
+    #: stages whose JOB is consuming NaN (imputers, NaN-native trainers)
+    #: opt out of the NaN/Inf screen; bisection still applies
+    _guard_screen_nan = True
+    #: containers (Pipeline) that propagate the policy to their children
+    #: instead of being guarded themselves
+    _guard_exempt = False
+
+    def guard_input_columns(self, for_fit: bool = False) -> List[str]:
+        """Columns the row guard requires + screens for this invocation,
+        resolved from the declared ``_guard_input_params`` (plus
+        ``_guard_fit_params`` for ``fit``)."""
+        names = self._guard_input_params
+        if for_fit:
+            names = tuple(names) + tuple(self._guard_fit_params)
+        po = self.param_objs()
+        cols: List[str] = []
+        for name in names:
+            if name not in po:
+                continue
+            v = self.get_or_default(name)
+            if isinstance(v, str) and v:
+                cols.append(v)
+            elif isinstance(v, (list, tuple)):
+                cols.extend(c for c in v if isinstance(c, str) and c)
+        return cols
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
@@ -210,11 +245,13 @@ def load_dataset(path: str) -> Dataset:
 
 
 class Transformer(PipelineStage):
-    """ds -> ds map. Subclasses implement ``_transform``."""
+    """ds -> ds map. Subclasses implement ``_transform``; the public
+    ``transform`` routes through the row guard (a pass-through in the
+    default ``handleInvalid='error'`` mode)."""
 
     def transform(self, ds: Dataset) -> Dataset:
-        _check_handle_invalid(self)
-        return self._transform(ds)
+        with log_verb(self, "transform", n_rows=ds.num_rows):
+            return guarded_transform(self, ds)
 
     def _transform(self, ds: Dataset) -> Dataset:
         raise NotImplementedError
@@ -224,11 +261,13 @@ class Transformer(PipelineStage):
 
 
 class Estimator(PipelineStage):
-    """ds -> Model. Subclasses implement ``_fit``."""
+    """ds -> Model. Subclasses implement ``_fit``; the public ``fit``
+    routes through the row guard (a pass-through in the default
+    ``handleInvalid='error'`` mode)."""
 
     def fit(self, ds: Dataset) -> "Model":
-        _check_handle_invalid(self)
-        model = self._fit(ds)
+        with log_verb(self, "fit", n_rows=ds.num_rows):
+            model = guarded_fit(self, ds)
         model._parent_uid = self.uid
         return model
 
@@ -256,16 +295,37 @@ class Evaluator(Params):
 
 
 class Pipeline(Estimator):
-    """Sequential stage composition (Spark ML Pipeline semantics)."""
+    """Sequential stage composition (Spark ML Pipeline semantics).
+
+    A ``handleInvalid``/``quarantineDir`` set on the Pipeline propagates
+    to every stage invocation (stages with their own explicit setting
+    win), and source-row provenance is attached at entry so a row
+    quarantined N stages deep still names the PIPELINE-input row that
+    produced it."""
 
     stages = PyObjectParam(doc="ordered list of pipeline stages")
+    #: the pipeline is not itself bisected — it propagates the policy to
+    #: its children, which are
+    _guard_exempt = True
 
     def __init__(self, stages: Optional[Sequence[PipelineStage]] = None, **kw):
         super().__init__(**kw)
         if stages is not None:
             self.set("stages", list(stages))
 
+    def _guard_ctx(self):
+        mode = self._paramMap.get("handleInvalid")
+        qdir = self._paramMap.get("quarantineDir")
+        return guard_context(mode, qdir) if (mode or qdir) else None
+
     def _fit(self, ds: Dataset) -> "PipelineModel":
+        ctx = self._guard_ctx()
+        if ctx is None:
+            return self._fit_stages(ds)
+        with ctx:
+            return self._fit_stages(ds.with_source_index())
+
+    def _fit_stages(self, ds: Dataset) -> "PipelineModel":
         fitted: List[Transformer] = []
         cur = ds
         stages = self.get_or_default("stages") or []
@@ -281,11 +341,16 @@ class Pipeline(Estimator):
                     cur = stage.transform(cur)
             else:
                 raise TypeError(f"stage {stage!r} is neither Estimator nor Transformer")
-        return PipelineModel(fitted)
+        model = PipelineModel(fitted)
+        for name in ("handleInvalid", "quarantineDir"):
+            if self.is_set(name):         # policy rides along to serving
+                model.set(name, self.get(name))
+        return model
 
 
 class PipelineModel(Model):
     stages = PyObjectParam(doc="ordered list of fitted transformers")
+    _guard_exempt = True
 
     def __init__(self, stages: Optional[Sequence[Transformer]] = None, **kw):
         super().__init__(**kw)
@@ -293,7 +358,15 @@ class PipelineModel(Model):
             self.set("stages", list(stages))
 
     def _transform(self, ds: Dataset) -> Dataset:
-        cur = ds
-        for stage in self.get_or_default("stages") or []:
-            cur = stage.transform(cur)
-        return cur
+        mode = self._paramMap.get("handleInvalid")
+        qdir = self._paramMap.get("quarantineDir")
+        if not (mode or qdir):
+            cur = ds
+            for stage in self.get_or_default("stages") or []:
+                cur = stage.transform(cur)
+            return cur
+        with guard_context(mode, qdir):
+            cur = ds.with_source_index()
+            for stage in self.get_or_default("stages") or []:
+                cur = stage.transform(cur)
+            return cur

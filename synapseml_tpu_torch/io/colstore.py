@@ -7,7 +7,9 @@ an SMLS CSR store and densifies only its own chunk, so host memory stays
 O(chunk) while a consumer (``models.gbdt.booster.train``) assembles its
 state on the device.  :func:`write_matrix` writes the v1 f32 format with
 its own numpy writer (the same bytes as the JAX package's native writer)
-or the v2 bf16 format; :func:`write_csr` writes SMLS stores.
+or the v2 bf16 format, :func:`read_matrix` reads a store back whole,
+:func:`csv_to_colstore` converts a CSV through the native parser, and
+:func:`write_csr` writes SMLS stores.
 ``shard(i, n)`` restricts a source to host ``i``'s contiguous row range.
 """
 
@@ -258,14 +260,23 @@ def _write_f32(path: str, matrix: np.ndarray) -> None:
         m.tofile(f)
 
 
+def read_matrix(path: str) -> np.ndarray:
+    """The whole SMLC store as a (rows, cols) float32 matrix (v2 bf16
+    stores upcast exactly) — the reader of :func:`write_matrix`'s files
+    and of the JAX package's native writer's."""
+    mm, _, _, bf16 = _open_colstore(path)
+    data = bf16_bits_to_f32(mm) if bf16 else np.array(mm, np.float32)
+    return data.T
+
+
 def csv_to_colstore(csv_path: str, out_path: str,
                     delim: str = ",") -> Tuple[int, list]:
-    """Parse a CSV and persist it as an SMLC column store: needs the
-    native CSV loader, which is not ported yet."""
-    raise NotImplementedError(
-        "csv_to_colstore needs the native CSV loader, which is not ported "
-        "yet (ROADMAP queue A6, the rest of core/dataset.py's ingest); "
-        "write the matrix with write_matrix")
+    """Parse a CSV with the native multithreaded loader and persist it as
+    an SMLC column store; returns (rows, column_names)."""
+    from ..native import read_csv_matrix
+    mat, names = read_csv_matrix(csv_path, delim)
+    _write_f32(out_path, mat)
+    return mat.shape[0], names
 
 
 # --------------------------------------------------------------------------

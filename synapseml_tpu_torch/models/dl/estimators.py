@@ -128,6 +128,10 @@ def _softmax_predict(logits: np.ndarray, classes: np.ndarray):
 
 
 class _DLParamsBase(Params):
+    #: the DL stages name their inputs textCol/imageCol — declare them to
+    #: the row guard so contract checks + None screens cover them
+    _guard_input_params = ("inputCol", "inputCols", "textCol", "imageCol")
+
     labelCol = StringParam(doc="label column", default="label")
     predictionCol = StringParam(doc="prediction column", default="prediction")
     probabilityCol = StringParam(doc="probability column", default="probability")

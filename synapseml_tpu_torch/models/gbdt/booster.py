@@ -296,11 +296,45 @@ class Booster:
     def num_trees(self) -> int:
         return len(self.trees)
 
+    def _derived(self) -> dict:
+        """Values derived from the trees (their depth bound, their stacks
+        on a device), kept while ``trees`` holds the same tree objects and
+        ``tree_weights`` / ``tree_class`` the same values.  Every predict
+        call needs them; a fitted booster computes each once.  Readers
+        never write an entry's tensors, and two threads that fill one key
+        at once build equal values."""
+        c = getattr(self, "_derived_cache", None)
+        if c is None or not (
+                len(c[0]) == len(self.trees)
+                and all(a is b for a, b in zip(c[0], self.trees))
+                and c[1] == self.tree_weights and c[2] == self.tree_class):
+            c = self._derived_cache = (tuple(self.trees),
+                                       list(self.tree_weights),
+                                       list(self.tree_class), {})
+        return c[3]
+
+    def __getstate__(self):
+        # a pickled booster carries no derived device tensors
+        state = dict(self.__dict__)
+        state.pop("_derived_cache", None)
+        return state
+
     def depth_bound(self) -> int:
-        return max((tree_depth(t) for t in self.trees), default=1)
+        d = self._derived()
+        if "depth" not in d:
+            d["depth"] = max((tree_depth(t) for t in self.trees), default=1)
+        return d["depth"]
 
     def _stacked_for_class(self, k: int, num_iteration: Optional[int],
                            dev: torch.device) -> Optional[Tree]:
+        d = self._derived()
+        key = ("stacked", k, num_iteration, str(dev))
+        if key not in d:
+            d[key] = self._stack_class(k, num_iteration, dev)
+        return d[key]
+
+    def _stack_class(self, k: int, num_iteration: Optional[int],
+                     dev: torch.device) -> Optional[Tree]:
         sel = [i for i, c in enumerate(self.tree_class) if c == k]
         if num_iteration is not None and num_iteration >= 0:
             sel = sel[:num_iteration]

@@ -966,11 +966,64 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
                         p), node_id
 
 
+#: (trees x rows) elements one traversal chunk of
+#: :func:`predict_raw_features` holds: each (T, rows) int64 temporary stays
+#: at 128 MB
+PREDICT_CHUNK_ELEMENTS = 1 << 24
+
+
 def predict_raw_features(features: torch.Tensor, trees_stacked: Tree,
                          depth_bound: int):
     """Sum of all trees' outputs on raw (N, F) float features, and the
     (T, N) leaf node of each row in each tree.  ``trees_stacked`` carries
-    a leading tree axis (T, M) on the features' device."""
+    a leading tree axis (T, M) on the features' device.
+
+    All trees walk together: a level is one set of ops over (T, rows)
+    (rows in chunks of :data:`PREDICT_CHUNK_ELEMENTS` / T), ~17 launches
+    a level instead of 17 a level and tree.  Each (tree, row) makes the
+    same comparisons as in :func:`predict_raw_features_per_tree`, and the
+    leaf values are added in tree order, so the sums are equal bit for
+    bit."""
+    N = features.shape[0]
+    t = trees_stacked
+    T, M = t.split_feature.shape
+    dev = features.device
+    base = (torch.arange(T, device=dev) * M)[:, None]
+    sf, thr = t.split_feature.reshape(-1).long(), t.threshold.reshape(-1)
+    lc = t.left_child.reshape(-1).long()
+    rc = t.right_child.reshape(-1).long()
+    dl, mz = t.default_left.reshape(-1), t.missing_zero.reshape(-1)
+    lv = t.leaf_value.reshape(-1)
+    chunk = max(1, PREDICT_CHUNK_ELEMENTS // max(T, 1))
+    totals, leaves = [], []
+    for lo in range(0, N, chunk) if N else (0,):
+        rows_t = features[lo:lo + chunk].t()          # (F, n)
+        n = rows_t.shape[1]
+        node = torch.zeros((T, n), dtype=torch.long, device=dev)
+        for _ in range(depth_bound):
+            g = node + base
+            feat = sf[g]
+            is_leaf = feat < 0
+            x = rows_t.gather(0, torch.clamp_min(feat, 0))
+            # LightGBM kZeroThreshold: missing_type=Zero treats |x|<=1e-35
+            # (and NaN) as missing
+            missing = torch.isnan(x) | (mz[g] & (torch.abs(x) <= 1e-35))
+            go_left = torch.where(missing, dl[g], x <= thr[g])
+            child = torch.where(go_left, lc[g], rc[g])
+            node = torch.where(is_leaf, node, child)
+        vals = lv[node + base]
+        total = torch.zeros(n, dtype=torch.float32, device=dev)
+        for k in range(T):
+            total = total + vals[k]
+        totals.append(total)
+        leaves.append(node.to(torch.int32))
+    return torch.cat(totals), torch.cat(leaves, dim=1)
+
+
+def predict_raw_features_per_tree(features: torch.Tensor,
+                                  trees_stacked: Tree, depth_bound: int):
+    """:func:`predict_raw_features` one tree at a time (the previous
+    walk): the plain version the tests hold the batched walk against."""
     N = features.shape[0]
     t = trees_stacked
     total = torch.zeros(N, dtype=torch.float32, device=features.device)

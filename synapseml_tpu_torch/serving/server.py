@@ -1,7 +1,7 @@
-"""HTTP serving for the LLM decode engine.
+"""HTTP ⇄ Dataset serving: the pipeline servers and the LLM decode loop.
 
 The PyTorch port's copy of the JAX package's ``serving/server.py``,
-imports aside, for the serving plane of :class:`~.llm.LLMServer`:
+imports aside:
 
 - :class:`ServingServer` hosts any number of registered APIs on one
   asyncio listener; each API owns a bounded request queue (backpressure:
@@ -14,16 +14,24 @@ imports aside, for the serving plane of :class:`~.llm.LLMServer`:
   while draining or while the engine's compile plane warms), the
   per-request traces and the windowed SLO snapshot.  ``GET /tunez`` (the
   tuning table) answers 501: the table is ROADMAP A6.
+- :class:`PipelineServer` is the continuous-serving loop for one model:
+  batch → ``model.transform`` → reply (:class:`_ApiLoop`), so the model
+  sees micro-batches instead of per-request calls; every batch runs
+  under the row guard's serving face (a poison record 500s itself, an
+  unparseable one 400s itself, a device OOM halves the batch, a
+  preemption sheds it with 503).  :class:`MultiPipelineServer` runs
+  several named pipelines on one listener, one loop per API.  The
+  servers take no device: the model carries its own (every stage of the
+  port takes ``device``), and the loop never moves a batch or a model.
+- Clients reach an API over HTTP/1.1 (keep-alive) or, after an
+  ``Upgrade: sml-frames`` handshake, over length-prefixed frames (the
+  client is :class:`~.continuous.ContinuousClient`).
 - :class:`_DecodeLoop` is the continuous-batching loop over a duck-typed
   decode engine (the port's
   :class:`~synapseml_tpu_torch.models.llm.SlotEngine`): admission every
   step, SLO-aware shedding, eviction, streaming, QoS and tracing.
 - :meth:`ServingServer.drain` stops accepting, flushes every accepted
   in-flight exchange, then closes — zero dropped work.
-
-The batch → transform → reply loop (``_ApiLoop``), ``PipelineServer`` and
-``MultiPipelineServer`` call the row guard on every batch; they move to
-the port with ``resilience/rowguard.py`` (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ from http.client import responses as _http_reasons
 from queue import Empty, Full, Queue
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
+from ..core.dataset import Dataset
+from ..core.pipeline import Transformer
 from ..resilience.health import HealthState, retry_after_from_depth
 from ..telemetry import (PROMETHEUS_CONTENT_TYPE, SERVING_TOKEN_LATENCY_BUCKETS,
                          SERVING_TTFT_BUCKETS, check_sloz, get_registry,
@@ -908,11 +920,285 @@ def _reply_never_raises(api: ApiHandle, request_id: str,
     """``api.reply`` that cannot kill a serving worker thread: after
     drain/close the asyncio loop is gone and call_soon_threadsafe
     raises — the exchange is already lost either way, the loop must
-    live."""
+    live.  Shared by ``_ApiLoop`` and ``_DecodeLoop``."""
     try:
         return api.reply(request_id, rep)
     except Exception:  # noqa: BLE001 — serving must not die
         return False
+
+
+class _BatchAlignmentError(RuntimeError):
+    """Model output rows cannot be mapped back onto requests (row count
+    changed with no provenance) — a deployment bug, not poison data, so
+    it must NOT enter the bisection path."""
+
+
+class _ApiLoop:
+    """One API's continuous loop: batch → transform → reply.
+
+    Row-level fault isolation (the serving face of
+    :mod:`synapseml_tpu_torch.resilience.rowguard`):
+
+    - a record whose ``input_parser`` throws answers 400 for ITSELF;
+      the rest of the batch proceeds;
+    - a poison record that makes ``transform`` throw is isolated by
+      recursive batch halving and answers 500 for itself — clean
+      records in the same micro-batch still get their 200s;
+    - a device out-of-memory failure (``torch.OutOfMemoryError`` from the
+      card, or the injected stand-in) halves the batch and retries both
+      halves; the safe size is remembered (``rowguard_safe_batch_size``
+      gauge) and caps every later micro-batch pull, so one oversized
+      burst degrades throughput instead of killing the loop;
+    - a ``PreemptionError`` sheds the batch with 503, never bisected.
+
+    The loop hands ``model.transform`` the batch as the parser built it
+    and never moves a batch or a model between devices: the model runs
+    where it was built.  :attr:`timings` sums the host seconds of each
+    part of a batch (parse, ``Dataset.from_rows``, ``transform``,
+    format + reply) over the batches served.
+    """
+
+    def __init__(self, server: ServingServer, api: ApiHandle,
+                 model: Transformer,
+                 input_parser: Callable[[ServingRequest], Dict[str, Any]],
+                 output_col: str,
+                 output_formatter: Callable[[Any], bytes],
+                 batch_size: int, batch_timeout_s: float,
+                 num_workers: int = 1,
+                 max_queue_wait_s: Optional[float] = None):
+        self.server = server
+        self.api = api
+        self.model = model
+        self.input_parser = input_parser
+        self.output_col = output_col
+        self.output_formatter = output_formatter
+        self.batch_size = batch_size
+        self.batch_timeout_s = batch_timeout_s
+        #: bound on time a request may sit queued before being shed with
+        #: 503 — under overload the tail stays bounded instead of every
+        #: request slowly timing out (None: no shedding)
+        self.max_queue_wait_s = max_queue_wait_s
+        reg = get_registry()
+        self._m_records = reg.counter(
+            "serving_records_total", "records replied 200", ("api",))
+        self._m_rps = reg.gauge(
+            "serving_records_per_sec",
+            "last-batch records/sec through transform+reply", ("api",))
+        self._m_batch = reg.histogram(
+            "serving_batch_size", "records per micro-batch", ("api",),
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+        self._m_errors = reg.counter(
+            "serving_errors_total", "batches failed (500) or shed (503)",
+            ("api", "kind"))
+        self._stop = threading.Event()
+        #: summed host seconds per part of a batch, and the batches and
+        #: records they cover (bisection probes included)
+        self.timings = {"batches": 0, "records": 0, "parse_s": 0.0,
+                        "from_rows_s": 0.0, "transform_s": 0.0,
+                        "reply_s": 0.0}
+        self._timings_lock = threading.Lock()
+        #: >1 workers drain one queue concurrently: while one worker's
+        #: transform holds the device/CPU (releasing the GIL), another
+        #: batches and replies — opt-in, because concurrent transform
+        #: calls require a thread-safe model.  The port's models are:
+        #: ``transform`` reads a fitted stage's state and writes none of
+        #: it (the GBDT stacks its host trees into tensors of its own on
+        #: every call); the caches some stages fill on first use (the
+        #: ONNX model's compiled plans) are idempotent, so two threads
+        #: filling one entry build equal values; and two threads' CUDA
+        #: calls queue on the card's default stream, which every thread
+        #: shares, through PyTorch's thread-safe caching allocator.
+        self._threads = [threading.Thread(target=self._loop, daemon=True)
+                         for _ in range(max(1, num_workers))]
+        for t in self._threads:
+            t.start()
+
+    @property
+    def _oom_key(self) -> str:
+        return f"serving:{self.api.path}"
+
+    def _loop(self) -> None:
+        from ..resilience.rowguard import safe_batch_size
+        while not self._stop.is_set():
+            pull = safe_batch_size(self._oom_key, self.batch_size)
+            batch = self.api.get_batch(pull, self.batch_timeout_s)
+            if not batch:
+                continue
+            if self.max_queue_wait_s is not None:
+                now = time.monotonic()
+                stale = [r for r in batch
+                         if now - r.enqueued_at > self.max_queue_wait_s]
+                if stale:
+                    body = json.dumps({"error": "queue wait exceeded "
+                                       f"{self.max_queue_wait_s}s"}).encode()
+                    for req in stale:
+                        self._safe_reply(req.id, ServingReply(503, body))
+                    self._m_errors.inc(len(stale), api=self.api.path,
+                                       kind="shed")
+                    batch = [r for r in batch
+                             if now - r.enqueued_at <= self.max_queue_wait_s]
+                    if not batch:
+                        continue
+            # per-record parse: a malformed record 400s ITSELF only
+            t_parse = time.perf_counter()
+            rows, good = [], []
+            for req in batch:
+                try:
+                    rows.append(self.input_parser(req))
+                    good.append(req)
+                except Exception as e:  # noqa: BLE001 — isolated to record
+                    self._m_errors.inc(1, api=self.api.path, kind="parse")
+                    self._safe_reply(req.id, ServingReply(400, json.dumps(
+                        {"error": f"unparseable record: {e}"}).encode()))
+            if not good:
+                continue
+            t0 = time.perf_counter()
+            self._add_timing(parse_s=t0 - t_parse)
+            served = self._transform_reply(good, rows)
+            dt = time.perf_counter() - t0
+            if served:
+                self._m_records.inc(served, api=self.api.path)
+                self._m_batch.observe(served, api=self.api.path)
+                if dt > 0:
+                    self._m_rps.set(served / dt, api=self.api.path)
+
+    def _safe_reply(self, request_id: str, rep: ServingReply) -> bool:
+        return _reply_never_raises(self.api, request_id, rep)
+
+    def _add_timing(self, **parts) -> None:
+        with self._timings_lock:
+            for k, v in parts.items():
+                self.timings[k] += v
+
+    def _reply_all(self, reqs: List[ServingRequest], status: int,
+                   e: Exception, kind: str) -> None:
+        self._m_errors.inc(len(reqs), api=self.api.path, kind=kind)
+        body = json.dumps({"error": str(e)}).encode()
+        for req in reqs:
+            self._safe_reply(req.id, ServingReply(status, body))
+
+    def _format_reply(self, req: ServingRequest, val: Any,
+                      to_send: List) -> None:
+        """Format one record's 200 (a formatter failure 500s only that
+        record — formatting is per-record work, not batch work)."""
+        try:
+            body = self.output_formatter(val)
+        except Exception as e:  # noqa: BLE001 — isolated to the record
+            self._m_errors.inc(1, api=self.api.path, kind="format")
+            to_send.append((req, ServingReply(500, json.dumps(
+                {"error": f"output formatting failed: {e}"}).encode())))
+            return
+        to_send.append((req, ServingReply(
+            200, body, {"Content-Type": "application/json"})))
+
+    def _transform_reply(self, reqs: List[ServingRequest],
+                         rows: List[Dict[str, Any]],
+                         budget: Optional[List[int]] = None) -> int:
+        """Transform + reply with row-level isolation; returns the number
+        of records answered 200.  No reply leaves inside the try: a
+        late exception after partial sends would otherwise re-answer
+        already-answered records from the bisection path."""
+        from ..resilience.faults import PreemptionError
+        from ..resilience.rowguard import (is_oom_error, isolation_budget,
+                                           oom_fault_point,
+                                           record_safe_batch)
+        if budget is None:
+            # bounds isolation work for batch-INDEPENDENT failures (a
+            # broken model fails both halves of every split): after the
+            # shared budget the remaining batch 500s wholesale — the
+            # pre-isolation behavior — instead of burning 2n-1
+            # transforms on a model that was never going to answer
+            budget = [isolation_budget(len(reqs))]
+        budget[0] -= 1
+        to_send: List[Tuple[ServingRequest, ServingReply]] = []
+        rejected = 0
+        try:
+            oom_fault_point(self._oom_key, len(rows))
+            t0 = time.perf_counter()
+            ds = Dataset.from_rows(rows)
+            t1 = time.perf_counter()
+            out = self.model.transform(ds)
+            t2 = time.perf_counter()
+            self._add_timing(from_rows_s=t1 - t0, transform_s=t2 - t1)
+            col = out[self.output_col]
+            if out.num_rows != len(reqs):
+                # a guarded model (handleInvalid='skip'/'quarantine')
+                # dropped poisoned rows: re-align replies through the
+                # guard's source-row provenance — positional zip would
+                # hand every later record its neighbor's prediction
+                if not out.has_source_index:
+                    raise _BatchAlignmentError(
+                        f"model returned {out.num_rows} rows for "
+                        f"{len(reqs)} records without row provenance; "
+                        "replies cannot be aligned")
+                idx = [int(p) for p in out.source_index]
+                if (len(set(idx)) != len(idx)
+                        or not all(0 <= p < len(reqs) for p in idx)):
+                    # a row-EXPANDING model (Explode-style duplicate
+                    # provenance) or foreign provenance: answering one
+                    # request several times would race the exchange —
+                    # fail loudly instead
+                    raise _BatchAlignmentError(
+                        "model output rows do not map 1:1 onto records "
+                        "(duplicate or out-of-range source rows)")
+                answered = set(idx)
+                for pos, val in zip(idx, col):
+                    self._format_reply(reqs[pos], val, to_send)
+                body = json.dumps({"error": "record rejected by the "
+                                   "model's handleInvalid policy"}).encode()
+                for i, req in enumerate(reqs):
+                    if i not in answered:
+                        rejected += 1
+                        to_send.append((req, ServingReply(422, body)))
+            else:
+                for req, val in zip(reqs, col):
+                    self._format_reply(req, val, to_send)
+        except PreemptionError as e:
+            # control plane, never row-attributable (rowguard's
+            # _NON_ROW_ERRORS contract): the process is being evicted —
+            # shed the batch retryably instead of bisecting it
+            self._reply_all(reqs, 503, e, "preempt")
+            return 0
+        except _BatchAlignmentError as e:
+            self._reply_all(reqs, 500, e, "transform")
+            return 0
+        except Exception as e:  # noqa: BLE001 — serving must not die
+            if getattr(e, "all_rows_invalid", False):
+                # the model's OWN row guard rejected every record in
+                # this (sub-)batch — that's a data verdict, not a model
+                # failure: same 422 the provenance-aligned path answers
+                self._reply_all(reqs, 422, e, "rejected")
+                return 0
+            oom = is_oom_error(e)
+            if len(reqs) == 1 or (budget[0] <= 0 and not oom):
+                self._reply_all(reqs, 500, e, "oom" if oom else "transform")
+                return 0
+            mid = len(reqs) // 2
+            if oom:
+                # batch-size failure: remember the size that fits so
+                # later micro-batch pulls stay under it
+                record_safe_batch(self._oom_key, max(1, mid))
+                self._m_errors.inc(1, api=self.api.path, kind="oom")
+            # halve either way: OOM retries smaller, a poison record is
+            # cornered in O(log n) transforms while clean ones still
+            # answer 200
+            return (self._transform_reply(reqs[:mid], rows[:mid], budget)
+                    + self._transform_reply(reqs[mid:], rows[mid:], budget))
+        if rejected:
+            self._m_errors.inc(rejected, api=self.api.path, kind="rejected")
+        served = 0
+        for req, rep in to_send:
+            self._safe_reply(req.id, rep)
+            if rep.status == 200:
+                served += 1
+        self._add_timing(reply_s=time.perf_counter() - t2, batches=1,
+                         records=len(reqs))
+        return served
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5)
 
 
 class _TokenStream:
@@ -1868,3 +2154,101 @@ class _DecodeLoop:
                 seq.stream_obj.finish()
         self._by_slot.clear()
         self._parked.clear()
+
+
+def _default_format(value: Any) -> bytes:
+    if isinstance(value, np.ndarray):
+        value = value.tolist()
+    elif isinstance(value, (np.generic,)):
+        value = value.item()
+    return json.dumps({"prediction": value}).encode()
+
+
+class PipelineServer:
+    """Continuous serving loop for ONE model: requests → Dataset →
+    ``model.transform`` → replies (the ``readStream.continuousServer()``
+    pipeline of reference §3.5 collapsed into one object)."""
+
+    def __init__(self, model: Transformer,
+                 input_parser: Callable[[ServingRequest], Dict[str, Any]],
+                 output_col: str = "prediction",
+                 output_formatter: Optional[Callable[[Any], bytes]] = None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 api_path: str = "/", batch_size: int = 64,
+                 batch_timeout_s: float = 0.01, max_queue: int = 1024,
+                 num_workers: int = 1,
+                 max_queue_wait_s: Optional[float] = None):
+        self.model = model
+        self.server = ServingServer(host, port, api_path,
+                                    max_queue=max_queue)
+        self._loop = _ApiLoop(self.server, self.server._default, model,
+                              input_parser, output_col,
+                              output_formatter or _default_format,
+                              batch_size, batch_timeout_s,
+                              num_workers=num_workers,
+                              max_queue_wait_s=max_queue_wait_s)
+
+    _default_format = staticmethod(_default_format)
+
+    @property
+    def url(self) -> str:
+        return self.server.url
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Graceful shutdown: the serving loop keeps replying while the
+        server sheds new work and flushes accepted exchanges, THEN the
+        loop stops (stopping it first would deadlock the flush)."""
+        drained = self.server.drain(timeout_s)
+        self._loop.stop()
+        return drained
+
+    def close(self) -> None:
+        self._loop.stop()
+        self.server.close()
+
+
+class MultiPipelineServer:
+    """Several named pipelines on ONE server — request paths route to the
+    API whose pipeline should serve them (reference: multiple named APIs
+    with per-executor shared servers, HTTPSourceV2.scala:47-90,
+    DistributedHTTPSource.scala:203).
+
+    ``apis``: {path: spec} where spec is a dict with keys ``model``,
+    ``input_parser`` and optional ``output_col``/``output_formatter``/
+    ``batch_size``/``batch_timeout_s``/``max_queue``.
+    """
+
+    def __init__(self, apis: Dict[str, Dict[str, Any]],
+                 host: str = "127.0.0.1", port: int = 0):
+        if not apis:
+            raise ValueError("MultiPipelineServer needs at least one API")
+        first = next(iter(apis))
+        self.server = ServingServer(
+            host, port, api_path=first,
+            max_queue=int(apis[first].get("max_queue", 1024)))
+        self._loops: List[_ApiLoop] = []
+        for path, spec in apis.items():
+            handle = self.server.register_api(
+                path, max_queue=int(spec.get("max_queue", 1024)))
+            self._loops.append(_ApiLoop(
+                self.server, handle, spec["model"], spec["input_parser"],
+                spec.get("output_col", "prediction"),
+                spec.get("output_formatter") or _default_format,
+                int(spec.get("batch_size", 64)),
+                float(spec.get("batch_timeout_s", 0.01)),
+                num_workers=int(spec.get("num_workers", 1)),
+                max_queue_wait_s=spec.get("max_queue_wait_s")))
+
+    def url_for(self, path: str) -> str:
+        return self.server.url_for(path)
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        drained = self.server.drain(timeout_s)
+        for loop in self._loops:
+            loop.stop()
+        return drained
+
+    def close(self) -> None:
+        for loop in self._loops:
+            loop.stop()
+        self.server.close()

@@ -346,3 +346,66 @@ def test_features_shap_col_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
     np.testing.assert_allclose(got.sum(1), tb.predict_margin(X[:40]),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,chunk", [(16, None), (1, None), (0, None),
+                                        (5000, None), (5000, 3 * 977)])
+def test_batched_walk_equals_per_tree_walk(monkeypatch, rows, chunk):
+    """The walk of all trees at once (the served predict path) gives the
+    per-tree walk's margins and leaves bit for bit: NaN and ±0 inputs,
+    any row count and traversal chunk; and the JAX package's margins
+    within 1e-6."""
+    import torch
+    from synapseml_tpu_torch.models.gbdt import trainer
+    rng = np.random.default_rng(rows + 1)
+    X = rng.normal(size=(3000, 6)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + rng.normal(scale=.3, size=3000)
+         > 0).astype(np.float32)
+    jb, _ = jtrain(X, y, JConfig(objective="binary", num_iterations=30,
+                                 num_leaves=15))
+    tb = booster_from_reference(json.loads(json.dumps(jb.to_dict())),
+                                device="cpu")
+    Z = rng.normal(size=(rows, 6)).astype(np.float32)
+    Z[rng.random(Z.shape) < 0.05] = np.nan
+    Z[rng.random(Z.shape) < 0.05] = 0.0
+    if chunk is not None:
+        monkeypatch.setattr(trainer, "PREDICT_CHUNK_ELEMENTS", chunk)
+    stacked = tb._stacked_for_class(0, None, torch.device("cpu"))
+    zt = torch.as_tensor(Z)
+    got = trainer.predict_raw_features(zt, stacked, tb.depth_bound())
+    want = trainer.predict_raw_features_per_tree(zt, stacked,
+                                                 tb.depth_bound())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].shape == (30, rows)
+    if rows:
+        np.testing.assert_allclose(tb.predict_margin(Z, device="cpu"),
+                                   jb.predict_margin(Z), rtol=0, atol=1e-6)
+
+
+def test_derived_stacks_follow_the_trees():
+    """The booster's derived values (depth bound, stacked trees) are
+    built once for a list of trees and rebuilt when the trees, weights
+    or classes change; a pickled booster carries none of them."""
+    import pickle
+    jb, _ = jtrain(*_data("binary"), JConfig(num_iterations=6,
+                                             num_leaves=7))
+    tb = booster_from_reference(json.loads(json.dumps(jb.to_dict())),
+                                device="cpu")
+    X = _data("binary")[0][:50]
+    first = tb.predict_margin(X, device="cpu")
+    st = tb._stacked_for_class(0, None, "cpu")
+    assert tb._stacked_for_class(0, None, "cpu") is st
+    assert tb._stacked_for_class(0, 3, "cpu") is not st
+    back = pickle.loads(pickle.dumps(tb))
+    assert "_derived_cache" not in back.__dict__
+    np.testing.assert_array_equal(back.predict_margin(X, device="cpu"),
+                                  first)
+    tb.tree_weights = [0.5] * len(tb.trees)
+    assert tb._stacked_for_class(0, None, "cpu") is not st
+    np.testing.assert_allclose(tb.predict_margin(X, device="cpu")
+                               - tb.init_score[0],
+                               (first - tb.init_score[0]) * 0.5,
+                               rtol=1e-6, atol=1e-6)
+    tb.trees, tb.tree_class = tb.trees[:2], tb.tree_class[:2]
+    tb.tree_weights = tb.tree_weights[:2]
+    assert tb._stacked_for_class(0, None, "cpu").split_feature.shape[0] == 2

@@ -113,8 +113,20 @@ def test_reader_reads_the_other_package_chunk_for_chunk(tmp_path, kind,
 
 
 def test_csv_to_colstore_names_a6(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        tcs.csv_to_colstore(str(tmp_path / "x.csv"), str(tmp_path / "x"))
+    """ROADMAP A6's ``csv_to_colstore`` (no longer refused): a CSV becomes
+    the same SMLC bytes as the JAX package's, and streams back equal."""
+    X = np.random.default_rng(4).normal(size=(300, 5)).astype(np.float32)
+    csv = tmp_path / "x.csv"
+    np.savetxt(csv, X, delimiter=",", fmt="%.9g",
+               header="a,b,c,d,e", comments="")
+    t, j = str(tmp_path / "t.smlc"), str(tmp_path / "j.smlc")
+    assert tcs.csv_to_colstore(str(csv), t) == (300, list("abcde"))
+    jcs.csv_to_colstore(str(csv), j)
+    assert open(t, "rb").read() == open(j, "rb").read()
+    src = tcs.ChunkedColumnSource(t, label_col=4, chunk_rows=77)
+    np.testing.assert_array_equal(
+        np.concatenate([c[0] for c in src.iter_chunks()]), X[:, :4])
+    np.testing.assert_array_equal(src.read_labels(), X[:, 4])
 
 
 def _node_rows(tree, bins):

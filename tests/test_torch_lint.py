@@ -81,6 +81,18 @@ def test_lint_covers_the_onnx_and_image_slice():
     assert "synapseml_tpu_torch.resilience.rowguard" in mods
 
 
+def test_lint_covers_the_pipeline_serving_slice():
+    """The pipeline servers, the continuous client, the row guard, the
+    retry policies, the verb logging and the CSV ingest are among the
+    files both lint tests walk."""
+    mods = _modules()
+    for m in ("serving.server", "serving.continuous", "resilience.rowguard",
+              "resilience.policy", "core.logging", "core.dataset",
+              "core.pipeline", "native", "io.colstore"):
+        assert f"synapseml_tpu_torch.{m}" in mods, m
+    assert os.path.exists(os.path.join(PKG, "native", "loader.cpp"))
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_forbidden_import(path):

@@ -1,8 +1,10 @@
-"""The port's ``LLMServer`` on the card: replies over HTTP from an engine
-on the card, against the same server on the CPU at f32 (token-exact),
-through background warm-up and the CUDA graphs of the compile plane, with
-K3 launched on every decode and verify step.  Marked ``gpu``: every test
-skips where no card is present.  Run on a machine with a card:
+"""The port's servers on the card.  ``LLMServer``: replies over HTTP from
+an engine on the card, against the same server on the CPU at f32
+(token-exact), through background warm-up and the CUDA graphs of the
+compile plane, with K3 launched on every decode and verify step.
+``PipelineServer``: a GBDT fitted on the card served against the same
+booster on the CPU, and a real CUDA out-of-memory error halving a served
+batch.  Marked ``gpu``: every test skips where no card is present.  Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_serving_cuda.py
 """
@@ -10,6 +12,7 @@ skips where no card is present.  Run on a machine with a card:
 import json
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -171,3 +174,117 @@ def test_two_background_planes_warm_together_beside_a_serving_loop(dev):
     finally:
         for srv in [warm] + servers:
             srv.close()
+
+
+# --------------------------------------------------------------------------
+# the pipeline servers over a model on the card
+# --------------------------------------------------------------------------
+
+
+def _post_raw(url, body, timeout=10):
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def test_pipeline_server_over_a_card_gbdt_equals_cpu(dev):
+    """A GBDT fitted on the card (K1/K2) and the same booster carried to
+    the CPU as LightGBM text, each under a PipelineServer: the served
+    margins agree within the fit's card-vs-CPU tolerance (1e-4), the
+    labels are equal, and serving launches no K-kernel."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models.gbdt.estimators import (
+        GBDTClassificationModel, GBDTClassifier)
+    from synapseml_tpu_torch.serving import PipelineServer
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(8192, 8)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] + 0.3 * rng.normal(size=8192) > 0) * 1.0
+    launches.reset()
+    card = GBDTClassifier(numIterations=10, device="cuda").fit(
+        Dataset({"features": list(x), "label": y}))
+    assert launches.total("route_and_hist") > 0
+    cpu = GBDTClassificationModel.load_native_model_from_string(
+        card.get_model_string(), device="cpu")
+
+    def parse(r):
+        return {"features": np.asarray(r.json()["features"], np.float32)}
+
+    bodies = [json.dumps({"features": x[i].tolist()}).encode()
+              for i in range(256)]
+    got = {}
+    launches.reset()
+    for where, model in (("cuda", card), ("cpu", cpu)):
+        ps = PipelineServer(model, parse, output_col="rawPrediction",
+                            batch_size=32, batch_timeout_s=0.01)
+        try:
+            import concurrent.futures
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                got[where] = list(pool.map(
+                    lambda b: _post_raw(ps.url, b), bodies))
+        finally:
+            ps.close()
+    assert not launches.BY_SHAPE
+    for (sc, bc), (sp, bp) in zip(got["cuda"], got["cpu"]):
+        assert sc == sp == 200
+        mc, mp = json.loads(bc)["prediction"], json.loads(bp)["prediction"]
+        np.testing.assert_allclose(mc, mp, rtol=0, atol=1e-4)
+        assert (mc[1] > 0) == (mp[1] > 0)
+
+
+def test_real_cuda_oom_halves_the_served_batch(dev):
+    """A stage on the card that allocates past the free memory above 12
+    records: the first 64-record batch raises a real
+    ``torch.OutOfMemoryError``, the loop halves it down to a size that
+    fits, every record answers 200, the safe size is remembered in the
+    ``rowguard_safe_batch_size`` gauge, and the card works afterwards."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.resilience.rowguard import (is_oom_error,
+                                                         reset_safe_batch,
+                                                         safe_batch_size)
+    from synapseml_tpu_torch.serving import PipelineServer, ServingRequest
+    from synapseml_tpu_torch.telemetry import get_registry
+    torch.cuda.empty_cache()
+    per_row = torch.cuda.mem_get_info(dev)[0] // 12
+    errors = []
+
+    class Hungry:
+        def transform(self, ds):
+            try:
+                buf = torch.empty(per_row * ds.num_rows, dtype=torch.uint8,
+                                  device=dev)
+            except Exception as e:
+                errors.append(e)
+                raise
+            x = torch.as_tensor(np.asarray(ds["x"], np.float32), device=dev)
+            del buf
+            return ds.with_column("prediction", (x * 2).cpu().numpy())
+
+    ps = PipelineServer(Hungry(), lambda r: {"x": 1.0}, batch_size=64,
+                        api_path="/hungry")
+    replies = {}
+    ps._loop.api.reply = lambda rid, rep: replies.__setitem__(rid, rep)
+    try:
+        reqs = [ServingRequest(id=f"r{i}", method="POST", path="/hungry",
+                               headers={}, body=b"") for i in range(64)]
+        served = ps._loop._transform_reply(
+            reqs, [{"x": float(i)} for i in range(64)])
+        assert served == 64
+        assert all(replies[f"r{i}"].status == 200 for i in range(64))
+        assert [json.loads(replies[f"r{i}"].body)["prediction"]
+                for i in range(64)] == [2.0 * i for i in range(64)]
+        assert errors and all(isinstance(e, torch.OutOfMemoryError)
+                              and is_oom_error(e) for e in errors)
+        safe = safe_batch_size(ps._loop._oom_key, 64)
+        assert safe <= 12
+        assert get_registry().gauge(
+            "rowguard_safe_batch_size", "", ("key",)).value(
+                key=ps._loop._oom_key) == safe
+    finally:
+        reset_safe_batch()
+        ps.close()
+        torch.cuda.empty_cache()
+    z = torch.ones(1024, device=dev)
+    assert float((z @ z).item()) == 1024.0
