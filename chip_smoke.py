@@ -86,7 +86,7 @@
     label concept's score with ``baggingFraction=0.8, baggingFreq=1``,
     depthwise: K2's root pass must launch for 3 trees per iteration,
     holdout accuracy > 0.55; reports multi_logloss and s/iteration.
-11. Breadth, the card against the CPU on 65,536 rows, 3 iterations:
+11. Breadth, the card against the CPU on 65,536 rows, 2 iterations:
     lossguide (two-level on and off), bagging, GOSS, DART, RF,
     multiclass, multiclassova, huber, poisson, 4 categorical
     columns of 100 levels, EFB over 8 one-hot blocks of 32 levels
@@ -342,6 +342,28 @@
     ``quarantine`` pipeline dead-letters 3 of 512 rows under their
     pipeline-input row numbers and ``Quarantine.replay`` through the
     fixed pipeline equals a clean run.
+24. The profiling and tuning plane: (a) the ``Autotuner`` runs
+    ``gbdt_hist_geometry`` at the four histogram geometries the default
+    1M x 28 fit launches with (K2's coarse 32 bins over 28 features and
+    refined 256 over 8, at 16 slots and 1; K1's refined build) and
+    ``paged_attn_variant`` at phase 8's cache (S=1, S=8) and phase 19c's
+    (S=1), every candidate first held against the plain version (K1
+    exactly, K3 within 1e-2), each candidate's device ms printed and the
+    winners persisted into a table under ``build/phase24/``; (b) a new
+    plane on that table: the 1M x 28 fit's histogram consults load, its
+    launches carry the winners' (features per block, tile) and its trees
+    equal an untuned fit's bit for bit; a bf16 engine at 19c's geometry
+    launches the winning K3 variant (held within 1e-2 of plain; greedy
+    tokens against the default variant printed); (c) ``StepProfiler`` on
+    that fit, unprofiled and profiled in turns (segments sum to the
+    total within 1%, trees equal, s/iteration of both), on a BERT-base
+    ``DeepTextClassifier`` fit with ``capture_xla`` (MFU in (0, 1], the
+    captured flops beside the analytic count; the profiler's per-step
+    sync timed against bare steps) and on the 1B graph engine (profiled
+    steps = engine steps, tokens equal an unprofiled run); (d) ``GET
+    /tunez`` on an ``LLMServer`` (200, ``check_tunez``, the engine's
+    consults); (e) ``core.trace`` around a short fit names
+    ``hist_rows_kernel``.
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -905,6 +927,7 @@ def k3_case(dev, seed, B, S, H, KV, D, T, dtype, spans):
             raise AssertionError(f"paged_decode_attention S={S} {dtype}: "
                                  f"{what} and plain differ by {diff.max()}")
     diff = (out - ref).abs()[live]
+    diff_prev = (prev - ref).abs()[live]
     qt = q.transpose(1, 2).contiguous()                        # (B, H, S, D)
     kt = k.transpose(1, 2).contiguous()                        # (B, KV, T, D)
     vt = v.transpose(1, 2).contiguous()
@@ -945,7 +968,9 @@ def k3_case(dev, seed, B, S, H, KV, D, T, dtype, spans):
         plain_ms=cuda_ms(on_copies(PA.paged_decode_attention_plain),
                          iters=5),
         library_ms=cuda_ms(lib, iters=20), bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=float(diff.max()), bytes=nbytes, sdpa_err=lib_err)
+        max_abs_err=float(diff.max()),
+        previous_max_abs_err=float(diff_prev.max()), bytes=nbytes,
+        sdpa_err=lib_err)
     # achieved share of the memory rate, and the time against SDPA's
     r["bw_share"] = nbytes / (r["ms"] * 1e-3) / PEAK_BYTES_S
     r["vs_sdpa"] = r["ms"] / r["library_ms"]
@@ -4807,6 +4832,438 @@ def serving_paths(seed: int, dev, card: str, bert: dict, check_path,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the profiling and tuning plane on the card
+# ---------------------------------------------------------------------------
+
+#: where phase 24 writes its tuning table and trace (``build/`` is not
+#: committed); removed at the end of the phase
+P24_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase24")
+#: the histogram geometries the default 1M x 28 fit launches with
+#: (two-level on: K2's coarse 32 bins over 28 features and its refined
+#: 256 over 8, at a wave's 16 slots and the root's 1; K1's refined build)
+P24_HIST_GEOMETRIES = ((28, 32, 16), (28, 32, 1), (8, 256, 16), (8, 256, 1))
+#: phase 19c's model (bench.py's 12-layer configuration)
+P24_SHAPE_19C = dict(vocab_size=512, d_model=1024, num_layers=12,
+                     num_heads=16, num_kv_heads=4, max_len=256)
+#: K3's tuned caches: phase 8's (16 slots x 2048, H=32, KV=8) at S=1 and
+#: S=8, and phase 19c's (8 slots x 256, H=16, KV=4) at S=1; D=64, bf16
+P24_K3 = (("phase 8", 16, 32, 8, 2048, 1), ("phase 8", 16, 32, 8, 2048, 8),
+          ("phase 19c", 8, 16, 4, 256, 1))
+
+
+def _same_trees(a, b) -> bool:
+    return len(a) == len(b) and all(
+        all(np.array_equal(np.asarray(x), np.asarray(y))
+            for x, y in zip(ta, tb)) for ta, tb in zip(a, b))
+
+
+def tune_kernels(seed: int, dev, card: str, table_dir: str,
+                 rows: int = 1_000_000, hist_geometries=P24_HIST_GEOMETRIES,
+                 k3=P24_K3) -> dict:
+    """Phase 24a: ``gbdt_hist_geometry`` and ``paged_attn_variant`` run by
+    the ``Autotuner`` on the card, every candidate held against the plain
+    version first (exact for K1, K3's bf16 tolerance), the winners
+    persisted into a table in ``table_dir``."""
+    from synapseml_tpu_torch.models.gbdt import hist as H
+    from synapseml_tpu_torch.telemetry.autotune import (Autotuner,
+                                                        registered_spaces)
+    from synapseml_tpu_torch.telemetry.tunetable import TunePlane
+    plane = TunePlane(directory=table_dir)
+    tuner = Autotuner(plane=plane, blocks=3)
+    spaces = registered_spaces()
+    out = {"hist": {}, "variant": {}}
+    for nf, width, S in hist_geometries:
+        r = tuner.run(spaces["gbdt_hist_geometry"], num_features=nf,
+                      total_bins=width, n_slots=S, n_rows=rows, device=dev,
+                      seed=seed)
+        fpb, tile = H.rows_geometry(nf, width, S)[:2]
+        default_ms = r["trials_ms"][f"fpb={fpb},tile={tile}"]
+        out["hist"][r["geometry"]] = dict(
+            winner=r["winner"], ms=r["measured_ms"],
+            default={"fpb": fpb, "tile": tile}, default_ms=default_ms,
+            default_over_best=default_ms / r["measured_ms"],
+            candidates=r["trial_count"])
+        log(f"phase 24a: gbdt_hist_geometry {r['geometry']}, {rows} rows "
+            f"| {card}: {r['trial_count']} candidates equal to the plain "
+            f"version; winner {r['winner']} {r['measured_ms']:.4f} ms, "
+            f"default (fpb={fpb}, tile={tile}) {default_ms:.4f} ms "
+            f"({default_ms / r['measured_ms']:.3f}x the best); every "
+            f"candidate's ms {json.dumps(r['trials_ms'])}")
+    for label, B, Hh, KV, T, S in k3:
+        r = tuner.run(spaces["paged_attn_variant"], max_len=T, num_heads=Hh,
+                      num_kv_heads=KV, d_head=64, n_slots=B, span=S,
+                      dtype="bfloat16", device=dev, seed=seed)
+        out["variant"][r["geometry"]] = dict(
+            cache=label, winner=r["winner"]["variant"],
+            ms=r["measured_ms"], trials_ms=r["trials_ms"])
+        log(f"phase 24a: paged_attn_variant {label} {r['geometry']} "
+            f"(full spans) | {card}: both variants within 1e-2 of the plain "
+            f"version; winner {r['winner']['variant']}; "
+            f"{json.dumps(r['trials_ms'])} ms")
+    out["entries"] = len(plane.snapshot()["entries"])
+    log(f"phase 24a: table {os.path.relpath(plane.directory)} holds "
+        f"{out['entries']} entries keyed "
+        f"{sorted({e['device_kind'] for e in plane.snapshot()['entries']})}")
+    return out
+
+
+def tuned_gbdt(seed: int, dev, card: str, table_dir: str, tuned: dict,
+               rows: int = 1_000_000, iters: int = 5) -> dict:
+    """Phase 24b-c (GBDT): the 1M x 28 fit untuned, then tuned with and
+    without a ``StepProfiler`` in turns (unprofiled, profiled, profiled,
+    unprofiled) under a new plane on the table.  Every fit's trees equal
+    the untuned fit's bit for bit; the tuned launches carry the winners'
+    ``(fpb, tile)``; a profiled iteration's segments sum to its total."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt import hist as H
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    from synapseml_tpu_torch.telemetry import tunetable as TT
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, 28)).astype(np.float32)
+    y = gbdt_labels(rng, X)
+    cfg = BoostingConfig(objective="binary", num_iterations=iters)
+    prev = TT.set_tuneplane(TT.TunePlane(directory=None))
+    try:
+        base, _ = train(X, y, cfg, device=dev)
+        plane = TT.TunePlane(directory=table_dir)
+        TT.set_tuneplane(plane)
+        fits = {"plain": [], "profiled": []}
+        profs = []
+        seen = {}
+
+        def fit(kind):
+            """One tuned fit → its s/iteration (a self-timed leg)."""
+            prof = (StepProfiler("phase24_gbdt") if kind == "profiled"
+                    else None)
+            L.reset()
+            H.LAUNCH_GEOMETRY.clear()
+            b, _ = train(X, y, cfg, device=dev, step_profiler=prof)
+            if not _same_trees(b.trees, base.trees):
+                raise AssertionError(f"a tuned {kind} fit's trees differ "
+                                     "from the untuned fit's")
+            fits[kind].append(b.measures.seconds_per_iteration())
+            if prof is not None:
+                profs.append(prof)
+            seen.update(launched=dict(L.BY_SHAPE),
+                        geometry=dict(H.LAUNCH_GEOMETRY))
+            return fits[kind][-1]
+        # the paired protocol: unprofiled and profiled fits in alternating
+        # order, the median of each block's differences, the best block
+        base_s, delta_s = StepProfiler.measure(
+            (lambda: fit("plain"), lambda: fit("profiled")), blocks=2,
+            pairs=2)
+        launched, geometry = seen["launched"], seen["geometry"]
+        consults = [c for c in plane.snapshot()["consults"]
+                    if c["space"] == H.HIST_GEOMETRY_SPACE]
+    finally:
+        TT.set_tuneplane(prev)
+    loaded = {c["geometry"] for c in consults if c["outcome"] == "loaded"}
+    if not loaded or loaded - set(tuned):
+        raise AssertionError(f"phase 24b: hist consults {consults}")
+    # each launch's (fpb, tile): the winner where its geometry was tuned
+    for key, geo in geometry.items():
+        if not launched.get(key):
+            continue
+        dims = dict(kv.split("=") for kv in key[key.index("[") + 1:-1]
+                    .split(","))
+        F, B, S = int(dims["F"]), int(dims["B"]), int(dims["S"])
+        shift = int(dims["shift"])
+        Bh = H.coarse_bins(B, shift) if shift else B
+        sets = ([(F, Bh)] if key.startswith("build_hist_nodes")
+                else [(F, Bh), (int(dims["K"]), B)])
+        want = []
+        for nf, width in sets:
+            g = H.hist_geometry_key(nf, width, S)
+            w = tuned.get(g, {}).get("winner")
+            want += ([w["fpb"], w["tile"]] if w and g in loaded
+                     else list(H.rows_geometry(nf, width, S)[:2]) if nf
+                     else [0, 0])
+        if list(geo) != want:
+            raise AssertionError(f"phase 24b: {key} launched with "
+                                 f"(fpb, tile) {geo}, expected {want}")
+    for prof in profs:
+        summ = prof.summary()
+        if summ["steps"] != iters:
+            raise AssertionError(f"profiled {summ['steps']} iterations")
+        for rec in summ["last_steps"]:
+            parts = sum(rec[s] for s in prof.SEGMENTS)
+            if abs(parts - rec["total"]) > 0.01 * rec["total"]:
+                raise AssertionError(f"segments {rec} do not sum to the "
+                                     "total")
+    seg = profs[-1].summary()["per_step_avg_seconds"]
+    out = dict(s_per_iter_plain=fits["plain"],
+               s_per_iter_profiled=fits["profiled"],
+               paired_base_s=base_s, paired_delta_s=delta_s,
+               profiler_overhead=delta_s / base_s,
+               segments_per_iter=seg, consults_loaded=sorted(loaded),
+               launch_geometry={k: list(v) for k, v in geometry.items()
+                                if launched.get(k)},
+               shapes=launched)
+    log(f"phase 24b: 1M x 28 fit under the table | {card}: trees equal the "
+        f"untuned fit's bit for bit; hist consults loaded "
+        f"{sorted(loaded)}; launches' (fpb, tile) "
+        f"{json.dumps(out['launch_geometry'])}")
+    log(f"phase 24c: StepProfiler on the 1M x 28 fit | {card}: s/iteration "
+        f"unprofiled {fits['plain']} against profiled {fits['profiled']} "
+        f"in alternating pairs; paired median difference "
+        f"{out['profiler_overhead']:+.4f} of {base_s:.5f}; segments a "
+        f"iteration "
+        f"{json.dumps(seg)}")
+    return out
+
+
+def tuned_engines(seed: int, dev, card: str, table_dir: str, llm, prompts,
+                  new_tokens: int = 16, n_19c: int = 8,
+                  shape19=P24_SHAPE_19C) -> dict:
+    """Phase 24b-c (LLM): a bf16 engine at phase 19c's geometry under the
+    table launches the winning K3 variant (its output held within 1e-2 of
+    the plain version); greedy tokens against the default variant are
+    printed.  Then phase 8's 1B engine in graph mode, unprofiled and with
+    a ``StepProfiler`` (``capture_xla``): profiled steps equal engine
+    steps and the tokens are equal."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
+                                                SlotEngine, cast_params)
+    from synapseml_tpu_torch.models.llm import paged_attn as PA
+    from synapseml_tpu_torch.telemetry import tunetable as TT
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    out = {}
+    cfg = LlamaConfig.tiny(**shape19)
+    T19, H19, KV19 = cfg.max_len, cfg.num_heads, cfg.num_kv_heads
+    m19 = cast_params(LlamaModel(cfg, device=dev, seed=seed), cfg.dtype)
+    rng = np.random.default_rng(seed + 24)
+    p19 = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+           for n in rng.integers(16, T19 * 5 // 8, n_19c)]
+    runs = {}
+    prev = TT.set_tuneplane(TT.TunePlane(directory=table_dir))
+    try:
+        for label, table in (("tuned", True), ("default", False)):
+            if not table:
+                TT.set_tuneplane(TT.TunePlane(directory=None))
+            eng = SlotEngine(m19, n_slots=8, max_len=T19, device=dev,
+                             name=f"phase24_{label}")
+            L.reset()
+            r = drive(eng, p19, [new_tokens * 2] * len(p19))
+            runs[label] = dict(variant=eng.paged_variant or
+                               PA.default_variant(cfg.dtype),
+                               launches=L.shapes("paged_decode_attention"),
+                               outs=r["outs"])
+        won = runs["tuned"]["variant"]
+        key_variant = "split" if won == "split" else "previous"
+        if dev.type == "cuda" and not runs["tuned"]["launches"] or not all(
+                k.endswith(f",variant={key_variant}]")
+                for k in runs["tuned"]["launches"]):
+            raise AssertionError(f"phase 24b: the tuned engine launched "
+                                 f"{runs['tuned']['launches']}, winner {won}")
+        # K3 at that shape through the winning variant, against plain
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        D19 = cfg.d_head
+        q = torch.randn((8, H19, D19), generator=g, device=dev).bfloat16()
+        k = torch.randn((8, T19, KV19, D19), generator=g,
+                        device=dev).bfloat16()
+        v = torch.randn((8, T19, KV19, D19), generator=g,
+                        device=dev).bfloat16()
+        sp = torch.as_tensor(np.linspace(1, T19, 8).astype(np.int32),
+                             device=dev)
+        got = PA.paged_decode_attention(q, k, v, sp, variant=won).float()
+        ref = PA.paged_decode_attention_plain(q, k, v, sp).float()
+        err = float((got - ref).abs().max())
+        if not bool(((got - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all()):
+            raise AssertionError(f"phase 24b: K3 {won} differs by {err}")
+        agree = float(np.mean([np.mean(runs["tuned"]["outs"][i]
+                                       == runs["default"]["outs"][i])
+                               for i in range(len(p19))]))
+        out["19c"] = dict(winner=won, k3_max_abs_err=err,
+                          launches=runs["tuned"]["launches"],
+                          token_agreement_vs_default=agree)
+        log(f"phase 24b: bf16 SlotEngine at 19c's geometry | {card}: "
+            f"variant {won} from the table, launches "
+            f"{json.dumps(runs['tuned']['launches'])}, K3 within 1e-2 of "
+            f"plain (max abs err {err:.3g}); greedy tokens against the "
+            f"default {runs['default']['variant']}: agreement {agree:.4f} "
+            "(printed, not held: bf16 on random weights)")
+        # 24c. the 1B engine in graph mode, unprofiled then profiled
+        TT.set_tuneplane(TT.TunePlane(directory=table_dir))
+        res = {}
+        n = 16
+        for label in ("plain", "profiled"):
+            prof = (StepProfiler("phase24_llm", capture_xla=True)
+                    if label == "profiled" else None)
+            eng = SlotEngine(llm, n_slots=16, warmup="sync", device=dev,
+                             step_profiler=prof, name=f"phase24_{label}")
+            L.reset()
+            r = drive(eng, prompts[:n], [new_tokens] * n)
+            res[label] = dict(outs=r["outs"], steps=eng.steps_run,
+                              variant=eng.paged_variant,
+                              launches=L.shapes("paged_decode_attention"),
+                              replays=eng.compile_plane.snapshot()["replays"],
+                              step_ms=float(np.median(r["step_s"]) * 1e3),
+                              prof=prof)
+        p, q_ = res["plain"], res["profiled"]
+        if p["variant"] != q_["variant"] or any(
+                not np.array_equal(p["outs"][i], q_["outs"][i])
+                for i in range(n)):
+            raise AssertionError("phase 24c: the profiled graph engine's "
+                                 "tokens differ from the unprofiled one's")
+        summ = q_["prof"].summary()
+        if summ["steps"] != q_["steps"] or q_["replays"] != q_["steps"]:
+            raise AssertionError(f"phase 24c: {summ['steps']} profiled "
+                                 f"steps, {q_['steps']} engine steps, "
+                                 f"{q_['replays']} replays")
+        cost = summ["roofline"].get(next(iter(summ["roofline"]), ""), None)
+        out["llm"] = dict(variant=p["variant"], steps=q_["steps"],
+                          step_ms_median_plain=p["step_ms"],
+                          step_ms_median_profiled=q_["step_ms"],
+                          compute_ms=summ["per_step_avg_seconds"]["compute"]
+                          * 1e3,
+                          cost={k: v for k, v in (cost or {}).items()
+                                if k in ("flops", "matmul_flops",
+                                         "bytes_accessed",
+                                         "achieved_bytes_per_sec",
+                                         "top_ops")})
+        log(f"phase 24c: StepProfiler on the 1B bf16 graph engine | {card}: "
+            f"{json.dumps(out['llm'])}")
+        out["launches"] = {k: v["launches"] for k, v in res.items()}
+    finally:
+        TT.set_tuneplane(prev)
+    return out
+
+
+def profiled_bert(seed: int, dev, card: str, n_steps: int = 4,
+                  batch: int = 128, seq: int = 128, vocab: int = 30522,
+                  model_size: str = "base", window: int = 10) -> dict:
+    """Phase 24c (DL): a BERT-base ``DeepTextClassifier`` fit at phase
+    14's shape for ``n_steps`` steps under a ``StepProfiler`` with
+    ``capture_xla``: MFU in (0, 1], the captured flops beside the
+    analytic 6 x parameters x tokens.  Then the profiler's cost on a
+    step: ``window`` trainer steps bare and under step_begin / sync /
+    mark / step_end, in turns (bare, profiled, profiled, bare)."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models.dl import (DeepTextClassifier, DLTrainer,
+                                               OptimizerConfig, TextEncoder,
+                                               resolve_precision)
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    rng = np.random.default_rng(seed + 24)
+    words = make_words(rng, 4096)
+    texts, labels = text_corpus(rng, words, n_steps * batch)
+    prof = StepProfiler("phase24_bert", capture_xla=True)
+    est = DeepTextClassifier(modelSize=model_size, vocabSize=vocab,
+                             maxTokenLen=seq, batchSize=batch,
+                             precision="bf16", maxEpochs=1, seed=seed,
+                             stepProfiler=prof, device=str(dev))
+    est.fit(Dataset({"text": texts, "label": labels}))
+    summ = prof.summary()
+    cost = summ["roofline"]["dl_text_step"]
+    compute_s = summ["per_step_avg_seconds"]["compute"]
+    mfu = cost["flops"] / compute_s / PEAK_BF16_S
+    if summ["steps"] != n_steps or not 0 < mfu <= 1:
+        raise AssertionError(f"phase 24c: {summ['steps']} steps, MFU {mfu}")
+    cfg = dataclasses.replace(est._model_config(2), dtype=torch.bfloat16)
+    pol = resolve_precision("bf16")
+    tr = DLTrainer(TextEncoder(cfg, device=dev, seed=None),
+                   OptimizerConfig(learning_rate=2e-5), dev, precision=pol)
+    state = tr.init_state(seed)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    analytic = 6.0 * n_params * seq * batch
+    ids = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    inputs = tr.shard_batch((ids, np.ones((batch, seq), bool),
+                             rng.integers(0, 2, batch).astype(np.int32)))
+    step = tr.train_step()
+    box = [state]
+    bare_prof = StepProfiler("phase24_bert_window")
+
+    def bare():
+        for _ in range(window):
+            box[0], _ = step(box[0], inputs[:2], inputs[2], seed)
+        synchronize(dev)
+
+    def profiled():
+        for i in range(window):
+            bare_prof.step_begin(i)
+            box[0], _ = step(box[0], inputs[:2], inputs[2], seed)
+            synchronize(dev)
+            bare_prof.mark("compute")
+            bare_prof.step_end()
+    bare()
+    times = {"bare": [], "profiled": []}
+    for kind in ("bare", "profiled", "profiled", "bare"):
+        t0 = time.perf_counter()
+        (bare if kind == "bare" else profiled)()
+        times[kind].append((time.perf_counter() - t0) / window * 1e3)
+    out = dict(steps=summ["steps"], mfu=mfu, compute_ms=compute_s * 1e3,
+               captured_flops=cost["flops"],
+               captured_matmul_flops=cost["matmul_flops"],
+               analytic_flops=analytic, n_params=n_params,
+               bytes_accessed=cost["bytes_accessed"],
+               bytes_per_sample=cost["bytes_per_sample"],
+               top_ops=cost["top_ops"][:5],
+               step_ms_bare=times["bare"], step_ms_profiled=times["profiled"],
+               sync_overhead=min(times["profiled"]) / min(times["bare"]) - 1)
+    log(f"phase 24c: StepProfiler on a BERT-base DeepTextClassifier fit, "
+        f"batch {batch}, seq {seq}, capture_xla | {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def tunez_and_trace(seed: int, dev, card: str, table_dir: str,
+                    trace_dir: str, shape19=P24_SHAPE_19C,
+                    trace_rows: int = 100_000) -> dict:
+    """Phase 24d-e: ``GET /tunez`` on an ``LLMServer`` under the table (200,
+    ``check_tunez`` holds, the engine's consults listed), and
+    ``core.trace`` around a short fit names ``hist_rows_kernel``."""
+    from synapseml_tpu_torch.core import trace
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
+                                                cast_params)
+    from synapseml_tpu_torch.serving import LLMServer
+    from synapseml_tpu_torch.telemetry import tunetable as TT
+    out = {}
+    prev = TT.set_tuneplane(TT.TunePlane(directory=table_dir))
+    try:
+        cfg = LlamaConfig.tiny(**shape19)
+        m = cast_params(LlamaModel(cfg, device=dev, seed=seed), cfg.dtype)
+        srv = LLMServer(m, n_slots=8, max_len=cfg.max_len, device=dev,
+                        engine_kwargs={"name": "phase24d"})
+        try:
+            status, body = http_get(srv.server.url_for("/tunez"))
+        finally:
+            srv.close()
+        if status != 200:
+            raise AssertionError(f"/tunez answered {status}: {body[:200]}")
+        snap = json.loads(body)
+        TT.check_tunez(snap)
+        sites = sorted({(c["site"], c["space"], c["outcome"])
+                        for c in snap["consults"]})
+        if ("SlotEngine", "paged_attn_variant", "loaded") not in sites:
+            raise AssertionError(f"/tunez consults {sites}")
+        out["tunez"] = dict(entries=len(snap["entries"]),
+                            device_kind=snap["device_kind"],
+                            consults=[list(s) for s in sites])
+        log(f"phase 24d: GET /tunez on an LLMServer | {card}: 200, "
+            f"check_tunez holds; {json.dumps(out['tunez'])}")
+    finally:
+        TT.set_tuneplane(prev)
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(trace_rows, 28)).astype(np.float32)
+    y = gbdt_labels(rng, X)
+    with trace(trace_dir):
+        train(X, y, BoostingConfig(objective="binary", num_iterations=1),
+              device=dev)
+        synchronize(dev)
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    text = "".join(open(f, encoding="utf-8").read() for f in files)
+    if "hist_rows_kernel" not in text:
+        raise AssertionError(f"the trace {files} names no hist_rows_kernel")
+    out["trace"] = dict(files=len(files), bytes=len(text))
+    log(f"phase 24e: core.trace around a {trace_rows}-row fit | {card}: "
+        f"{len(files)} file(s), {len(text)} bytes, names hist_rows_kernel")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4865,7 +5322,7 @@ def main(argv=None) -> int:
     N_RANK = int(np.random.default_rng(args.seed + 13).integers(
         1, RANK_MAXG + 1, RANK_Q).sum())
     two_level = ("maxBin=255", "multiclass", "validation", "resumed",
-                 "phase22c", "phase23")
+                 "phase22c", "phase23", "phase24")
     mono = ("monotone basic", "monotone intermediate", "monotone advanced")
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
@@ -5042,6 +5499,13 @@ def main(argv=None) -> int:
             f"({r['bytes']} B, {r['bound_by']}; {r['bw_share']:.3f} of "
             f"3.35 TB/s)")
         k3[key] = r
+        if bf16:
+            # the one-launch kernel at this shape, which a tuning table
+            # may pick for a bf16 engine (phase 24): held and timed above
+            k3[L.launch_key("paged_decode_attention", B=b, S=S, H=h, KV=kv,
+                            D=d, T=t, dtype="bf16", variant="previous")] = \
+                dict(r, ms=r["previous_ms"],
+                     max_abs_err=r["previous_max_abs_err"])
 
     wall("6")
 
@@ -5259,7 +5723,7 @@ def main(argv=None) -> int:
     ]
     for what, kind, kern, kw, extra in runs11:
         Xk, yk, Xhk = data[kind]
-        diff = card_vs_cpu(Xk, yk, Xhk, kern, **{"iters": 3, **extra, **kw})
+        diff = card_vs_cpu(Xk, yk, Xhk, kern, **{"iters": 2, **extra, **kw})
         if diff > 1e-4:
             raise AssertionError(f"{what}: card and CPU margins differ by "
                                  f"{diff}")
@@ -5396,6 +5860,22 @@ def main(argv=None) -> int:
     log(f"phase 23: no K-kernel outside the fit: K1/K2 launched only in "
         f"23b's GBDT fit {json.dumps(paths['phase23']['shapes'])}")
     wall("23")
+
+    # -- 24. the profiling and tuning plane -----------------------------------
+    torch.cuda.empty_cache()
+    shutil.rmtree(P24_ROOT, ignore_errors=True)
+    table_dir = os.path.join(P24_ROOT, "tunetable")
+    p24 = {"a": tune_kernels(args.seed, dev, card, table_dir, rows=N)}
+    p24["gbdt"] = tuned_gbdt(args.seed, dev, card, table_dir,
+                             p24["a"]["hist"], rows=N, iters=args.iters)
+    check_path("phase24", {"shapes": p24["gbdt"]["shapes"]})
+    p24["llm"] = tuned_engines(args.seed, dev, card, table_dir, model,
+                               prompts)
+    p24["bert"] = profiled_bert(args.seed, dev, card)
+    p24["de"] = tunez_and_trace(args.seed, dev, card, table_dir,
+                                os.path.join(P24_ROOT, "trace"))
+    shutil.rmtree(P24_ROOT, ignore_errors=True)
+    wall("24")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 
@@ -5433,6 +5913,11 @@ def main(argv=None) -> int:
     k3_runs["p20b_int8"] = p20b["int8"]["launches"]
     k3_runs["p20b_bf16"] = p20b["bf16"]["launches"]
     k3_runs["p20c_http"] = p20c["launches"]
+    # phase 24's engines: 19c's geometry under the table, and the 1B
+    # graph engine unprofiled and profiled
+    k3_runs["p24_19c_tuned"] = p24["llm"]["19c"]["launches"]
+    for label in ("plain", "profiled"):
+        k3_runs[f"p24_graph_{label}"] = p24["llm"]["launches"][label]
     unchecked = {k for sh in k3_runs.values() for k in sh} - set(k3)
     if unchecked:
         raise AssertionError(f"K3 launched at shapes phase 6 did not hold "

@@ -11,6 +11,13 @@ when the wrapper runs: inside :func:`recording` the wrapper's counts go
 to the recording instead, and each replay adds them with :func:`add`.
 A recording holds the counts of its own thread only: another thread's
 launches meanwhile go to :data:`BY_SHAPE`.
+
+Beside its count, every wrapper reports the bytes its launch reads and
+writes (:func:`io_bytes`: each operand and result once).  The
+kernels are reached through ctypes, below PyTorch's dispatcher, so a
+cost capture (``telemetry.roofline.capture``) learns their bytes only
+from this report, made while :func:`reporting_bytes` is active on the
+thread.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ from typing import Dict, Iterator
 
 #: launches since the last :func:`reset`, keyed by :func:`launch_key`
 BY_SHAPE: Dict[str, int] = {}
+#: ``.sink``: the callable ``sink(kernel, nbytes)`` this thread's
+#: :func:`io_bytes` reports go to (absent or None: nowhere)
+_BYTES = threading.local()
 #: ``.into``: where this thread's :func:`count` goes while it captures a
 #: CUDA graph (absent or None: BY_SHAPE)
 _RECORDING = threading.local()
@@ -56,6 +66,35 @@ def add(counts: Dict[str, int]) -> None:
     """Count the launches of one replay of a recorded graph."""
     for key, n in counts.items():
         BY_SHAPE[key] = BY_SHAPE.get(key, 0) + n
+
+
+def io_bytes(kernel: str, *parts) -> None:
+    """Report one launch's operand and result bytes to the cost capture
+    active on this thread, if any: each part is a tensor (all its bytes),
+    an int (bytes, for an operand read in part) or None (skipped)."""
+    sink = getattr(_BYTES, "sink", None)
+    if sink is not None:
+        sink(kernel, sum(p if isinstance(p, int)
+                         else p.numel() * p.element_size()
+                         for p in parts if p is not None))
+
+
+def wants_bytes() -> bool:
+    """Is a cost capture listening on this thread?  A wrapper whose byte
+    count needs a host sync computes it only then."""
+    return getattr(_BYTES, "sink", None) is not None
+
+
+@contextlib.contextmanager
+def reporting_bytes(sink) -> Iterator[None]:
+    """Send this thread's :func:`io_bytes` reports to ``sink(kernel,
+    nbytes)`` inside the block."""
+    prev = getattr(_BYTES, "sink", None)
+    _BYTES.sink = sink
+    try:
+        yield
+    finally:
+        _BYTES.sink = prev
 
 
 def reset() -> None:

@@ -17,8 +17,13 @@ ported raises ``NotImplementedError`` naming its ROADMAP item before any
 tokenizing or image work: a mesh (``numDevices > 1``,
 ``modelParallelism > 1``, ``zero1``, ``collectiveCompression``,
 ``expertParallelism > 1``) and step checkpoints (``checkpointDir``,
-``checkpointManager``) wait for A5 and ``stepProfiler`` for A6.
-``numExperts > 0`` trains the MoE FFN (:mod:`.moe`) on the one card.
+``checkpointManager``) wait for A5.  ``numExperts > 0`` trains the MoE
+FFN (:mod:`.moe`) on the one card.  ``stepProfiler`` (a
+:class:`~synapseml_tpu_torch.telemetry.gangplane.StepProfiler`) times
+each step's data / compute / other segments, synchronizing the device
+before ``compute`` ends (only when a profiler is set); with its
+``capture_xla`` it captures one step's cost (``dl_text_step`` /
+``dl_vision_step``), run on a deep copy of the training state.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from ...core.dataset import Dataset
 from ...core.params import (BoolParam, FloatParam, IntParam, Params,
                             PyObjectParam, StringParam)
 from ...core.pipeline import Estimator, Model
-from ...device import resolve_device
+from ...device import resolve_device, synchronize
+from ...telemetry.gangplane import check_profiler
 from .precision import resolve_precision
 from .resnet import BACKBONES, BottleneckResNetBlock, make_backbone
 from .tokenizer import WordPieceTokenizer, WordTokenizer, tokenizer_from_dict
@@ -127,6 +133,31 @@ def _softmax_predict(logits: np.ndarray, classes: np.ndarray):
     return classes[np.argmax(proba, axis=1)], proba
 
 
+def _profile_data(prof, key: str, step, state, inputs, labels, seed: int,
+                  items: int, dev) -> None:
+    """The step's data segment ends (the batch is on the device); with the
+    profiler's ``capture_xla``, its cost is captured once, on a deep copy
+    of the training state, outside the step's time."""
+    if prof is None:
+        return
+    prof.mark("data")
+    if prof.capture_xla and key not in prof.costs:
+        import copy
+        with prof.excluded():
+            prof.capture_cost(key, step, copy.deepcopy(state), inputs,
+                              labels, seed, items=items, device=dev)
+
+
+def _profile_step_end(prof, dev) -> None:
+    """The step's compute segment ends once the device has run it (the
+    step returns before the card finishes), and the step closes."""
+    if prof is None:
+        return
+    synchronize(dev)
+    prof.mark("compute")
+    prof.step_end()
+
+
 class _DLParamsBase(Params):
     #: the DL stages name their inputs textCol/imageCol — declare them to
     #: the row guard so contract checks + None screens cover them
@@ -163,7 +194,9 @@ class _DLParamsBase(Params):
     checkpointManager = PyObjectParam(
         doc="core.checkpoint.CheckpointManager (not ported: ROADMAP A5)")
     stepProfiler = PyObjectParam(
-        doc="telemetry.gangplane.StepProfiler (not ported: ROADMAP A6)")
+        doc="telemetry.gangplane.StepProfiler: per-step data / compute / "
+            "other wall time (and, with capture_xla, one step's counted "
+            "cost)")
     rematPolicy = StringParam(
         doc="rematerialize model blocks in the backward pass: 'none' | "
             "'dots_saveable' (keep matmul/conv outputs, recompute the "
@@ -199,8 +232,7 @@ class _DLParamsBase(Params):
         if self.get("checkpointDir") or self.get("checkpointManager"):
             refuse("checkpointDir/checkpointManager (DL step checkpoints, "
                    "built on core.checkpoint and the planner)", "A5")
-        if self.get("stepProfiler") is not None:
-            refuse("stepProfiler (telemetry.gangplane)", "A6")
+        check_profiler(self.get("stepProfiler"), type(self).__name__)
 
     def _precision_policy(self):
         return resolve_precision(self.precision)
@@ -309,22 +341,34 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
         rng = np.random.default_rng(self.seed)
 
         history: List[dict] = []
-        for _ in range(self.maxEpochs):
-            metrics = {}
-            for idx in iterate_minibatches(n, self.batchSize, 1, rng):
-                bi, bm, bl = trainer.shard_batch(
-                    (ids[idx], mask[idx], labels[idx]))
-                state, metrics = step(state, (bi, bm), bl, self.seed)
-            record = {k: float(v) for k, v in metrics.items()}
-            if n_val:
-                bs = max(int(self.batchSize), 1)
-                vlogits = np.concatenate([
-                    eval_step(state, trainer.shard_batch(
-                        (val_ids[s:s + bs], val_mask[s:s + bs])))
-                    .float().cpu().numpy() for s in range(0, n_val, bs)])
-                record["val_accuracy"] = float(
-                    (vlogits.argmax(-1) == val_labels).mean())
-            history.append(record)
+        prof = self.get("stepProfiler")
+        gstep = 0
+        try:
+            for _ in range(self.maxEpochs):
+                metrics = {}
+                for idx in iterate_minibatches(n, self.batchSize, 1, rng):
+                    gstep += 1
+                    if prof is not None:
+                        prof.step_begin(gstep)
+                    bi, bm, bl = trainer.shard_batch(
+                        (ids[idx], mask[idx], labels[idx]))
+                    _profile_data(prof, "dl_text_step", step, state, (bi, bm),
+                                  bl, self.seed, len(idx), dev)
+                    state, metrics = step(state, (bi, bm), bl, self.seed)
+                    _profile_step_end(prof, dev)
+                record = {k: float(v) for k, v in metrics.items()}
+                if n_val:
+                    bs = max(int(self.batchSize), 1)
+                    vlogits = np.concatenate([
+                        eval_step(state, trainer.shard_batch(
+                            (val_ids[s:s + bs], val_mask[s:s + bs])))
+                        .float().cpu().numpy() for s in range(0, n_val, bs)])
+                    record["val_accuracy"] = float(
+                        (vlogits.argmax(-1) == val_labels).mean())
+                history.append(record)
+        finally:
+            if prof is not None:
+                prof.finish()
 
         return DeepTextModel(
             modelPayload={
@@ -427,12 +471,24 @@ class DeepVisionClassifier(_DLParamsBase, Estimator):
         rng = np.random.default_rng(self.seed)
 
         history: List[dict] = []
-        for _ in range(self.maxEpochs):
-            metrics = {}
-            for idx in iterate_minibatches(n, self.batchSize, 1, rng):
-                bi, bl = trainer.shard_batch((imgs[idx], labels[idx]))
-                state, metrics = step(state, (bi,), bl, self.seed)
-            history.append({k: float(v) for k, v in metrics.items()})
+        prof = self.get("stepProfiler")
+        gstep = 0
+        try:
+            for _ in range(self.maxEpochs):
+                metrics = {}
+                for idx in iterate_minibatches(n, self.batchSize, 1, rng):
+                    gstep += 1
+                    if prof is not None:
+                        prof.step_begin(gstep)
+                    bi, bl = trainer.shard_batch((imgs[idx], labels[idx]))
+                    _profile_data(prof, "dl_vision_step", step, state, (bi,),
+                                  bl, self.seed, len(idx), dev)
+                    state, metrics = step(state, (bi,), bl, self.seed)
+                    _profile_step_end(prof, dev)
+                history.append({k: float(v) for k, v in metrics.items()})
+        finally:
+            if prof is not None:
+                prof.finish()
 
         return DeepVisionModel(
             modelPayload={

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, synchronize
+from ...telemetry.gangplane import check_profiler
 from . import metrics as metrics_mod
 from .binning import (BinMapper, FeatureBundler, bin_features, bundle_bins,
                       fit_bin_mapper)
@@ -814,6 +815,7 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
           group: Optional[np.ndarray] = None,
           valid_group: Optional[np.ndarray] = None,
           mesh=None,
+          step_profiler=None,
           device: DeviceLike = "cuda") -> Tuple[Booster, List[EvalRecord]]:
     """Full training run on ``device`` → (booster, eval history).
 
@@ -853,7 +855,16 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     ``objective="lambdarank"`` takes ``group``, the query group sizes in
     row order (rows group-contiguous), and NDCG validation
     ``valid_group``.  ``mesh`` is not ported (ROADMAP A5) and must be
-    None."""
+    None.
+
+    ``step_profiler`` (a :class:`~synapseml_tpu_torch.telemetry.gangplane
+    .StepProfiler`) decomposes each iteration's wall time into data (the
+    draws) / compute (the trees grown and copied to the host, a sync) /
+    other (evaluation, checkpoint).  With its ``capture_xla`` it captures
+    one iteration's cost once (``gbdt_step``), running the iteration on
+    a copy of the scores (the fit's trees do not change; the capture's
+    time is left out of the step).  Without a profiler nothing is
+    added."""
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
@@ -868,6 +879,7 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             "not ported yet (ROADMAP queue A5); pass a directory")
     _check_ported(config)
     _check_ported_on(config, dev)
+    check_profiler(step_profiler, "train")
     measures = InstrumentationMeasures()
     t0 = time.perf_counter()
     ckpt_every = checkpoint_interval if checkpoint_dir else 0
@@ -1135,30 +1147,10 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     eval_history: List[EvalRecord] = []
     rf_count = 0
     fmask_dev = torch.ones(F, dtype=torch.bool, device=dev)
-    for it in range(config.num_iterations):
-        if config.feature_fraction < 1.0:
-            # the host stream the JAX package draws from, draw for draw
-            nf = max(1, int(round(F * config.feature_fraction)))
-            fmask = np.zeros(F, bool)
-            fmask[rng.choice(F, nf, replace=False)] = True
-            fmask_dev = torch.as_tensor(fmask, device=dev)
-        # dart: drop trees and take them out of the scores
-        dropped: List[int] = []
-        if is_dart and trees and rng.random() >= config.skip_drop:
-            drop = rng.random(len(trees)) < config.drop_rate
-            dropped = [int(d) for d in np.nonzero(drop)[0][:config.max_drop]]
-            for d in dropped:
-                scores = _add_scores(scores,
-                                     -contrib(trees[d], tree_weights[d]),
-                                     tree_class[d], K)
-        gi = prior_iters + it
-        key = prng.prng_key((config.seed * 100003 + gi) & 0xffffffff)
-        bag = ones
-        if use_bagging:
-            bag = bag_mask(prng.fold_in(
-                bag_root, gi // max(config.bagging_freq, 1)), n,
-                config.bagging_fraction, dev)
 
+    def grow_iteration(scores, bag, key, fmask_dev):
+        """One iteration's gradients and trees → (the trees on the device,
+        the scores with their outputs added); ``scores`` is not changed."""
         if K == 1:
             grad, hess = _grad_hess(objective_fn, scores, labels, weights)
             g_all, h_all = grad[:, None], hess[:, None]
@@ -1181,69 +1173,119 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             new_scores = _add_scores(new_scores,
                                      tree.leaf_value[node_id.long()], k, K)
             new_dev.append(tree)
-        new_trees = [Tree(*[a.cpu() for a in t]) for t in new_dev]
+        return new_dev, new_scores
 
-        reweighted = []                  # (dart) (tree, its old weight)
-        if dropped:
-            # normalize: the new trees weigh 1/(|D|+1), dropped trees
-            # are scaled by |D|/(|D|+1)
-            new_w = 1.0 / (len(dropped) + 1)
-            factor = len(dropped) / (len(dropped) + 1)
-            for k in range(K):
-                scores = _add_scores(scores, contrib(new_trees[k], new_w), k,
-                                     K)
-            for d in dropped:
-                reweighted.append((d, tree_weights[d]))
-                tree_weights[d] *= factor
-                scores = _add_scores(scores,
-                                     contrib(trees[d], tree_weights[d]),
-                                     tree_class[d], K)
-            weights_new = [new_w] * K
-        else:
-            scores = new_scores
-            weights_new = [1.0] * K
-        trees += new_trees
-        tree_class += list(range(K))
-        tree_weights += weights_new
-        if is_rf:
-            # rf: every tree fits the gradients at the init margin
-            rf_count += 1
-            scores = init_scores
+    prof = step_profiler
+    try:
+        for it in range(config.num_iterations):
+            if prof is not None:
+                prof.step_begin(it)
+            if config.feature_fraction < 1.0:
+                # the host stream the JAX package draws from, draw by draw
+                nf = max(1, int(round(F * config.feature_fraction)))
+                fmask = np.zeros(F, bool)
+                fmask[rng.choice(F, nf, replace=False)] = True
+                fmask_dev = torch.as_tensor(fmask, device=dev)
+            # dart: drop trees and take them out of the scores
+            dropped: List[int] = []
+            if is_dart and trees and rng.random() >= config.skip_drop:
+                drop = rng.random(len(trees)) < config.drop_rate
+                dropped = [int(d)
+                           for d in np.nonzero(drop)[0][:config.max_drop]]
+                for d in dropped:
+                    scores = _add_scores(scores,
+                                         -contrib(trees[d], tree_weights[d]),
+                                         tree_class[d], K)
+            gi = prior_iters + it
+            key = prng.prng_key((config.seed * 100003 + gi) & 0xffffffff)
+            bag = ones
+            if use_bagging:
+                bag = bag_mask(prng.fold_in(
+                    bag_root, gi // max(config.bagging_freq, 1)), n,
+                    config.bagging_fraction, dev)
 
-        if stopper is not None:
-            t_eval = time.perf_counter()
-            # the new trees, and the weight changes of dart's dropped ones
-            for k in range(K):
-                valid_contrib = _add_scores(valid_contrib, predict_binned_tree(
-                    bins_v, new_dev[k], depth_hint) * weights_new[k], k, K)
-            for d, old_w in reweighted:
-                valid_contrib = _add_scores(valid_contrib, predict_binned_tree(
-                    bins_v, on_dev(trees[d]), depth_hint)
-                    * (tree_weights[d] - old_w), tree_class[d], K)
-            if is_rf:
-                # the rf model averages all its trees, carried ones too
-                base = torch.as_tensor(init_sc if K > 1 else init_sc[0],
-                                       device=dev)
-                count = torch.full((), max(prior_iters + rf_count, 1),
-                                   dtype=torch.float32, device=dev)
-                vm = base + ((valid_init - base) * prior_iters
-                             + valid_contrib) / count
+            if prof is not None:
+                prof.mark("data")
+                if prof.capture_xla and "gbdt_step" not in prof.costs:
+                    with prof.excluded():
+                        prof.capture_cost("gbdt_step", grow_iteration,
+                                          scores.clone(), bag, key,
+                                          fmask_dev, items=n, device=dev)
+            new_dev, new_scores = grow_iteration(scores, bag, key, fmask_dev)
+            new_trees = [Tree(*[a.cpu() for a in t]) for t in new_dev]
+            if prof is not None:
+                prof.mark("compute")      # the trees' host copy synchronized
+
+            reweighted = []                  # (dart) (tree, its old weight)
+            if dropped:
+                # normalize: the new trees weigh 1/(|D|+1), dropped trees
+                # are scaled by |D|/(|D|+1)
+                new_w = 1.0 / (len(dropped) + 1)
+                factor = len(dropped) / (len(dropped) + 1)
+                for k in range(K):
+                    scores = _add_scores(scores,
+                                         contrib(new_trees[k], new_w), k, K)
+                for d in dropped:
+                    reweighted.append((d, tree_weights[d]))
+                    tree_weights[d] *= factor
+                    scores = _add_scores(scores,
+                                         contrib(trees[d], tree_weights[d]),
+                                         tree_class[d], K)
+                weights_new = [new_w] * K
             else:
-                vm = valid_init + valid_contrib
-            val = float(metric_fn(yv_t, vm, wv_t))    # the one host copy
-            eval_history.append(EvalRecord(it, metric_name, val))
-            stop = stopper.update(it, val)
-            measures.eval_s += time.perf_counter() - t_eval
-            if stop:
-                break
-        if ckpt_every > 0 and (it + 1) % ckpt_every == 0:
-            pre_t, pre_c, pre_w = ((init_model.trees, init_model.tree_class,
-                                    init_model.tree_weights)
-                                   if init_model else ([], [], []))
-            _write_checkpoint(checkpoint_dir, Booster(
-                pre_t + trees, pre_c + tree_class, pre_w + tree_weights, K,
-                config.objective, init_sc, mapper, feature_names, config,
-                device=dev, bundler=bundler))
+                scores = new_scores
+                weights_new = [1.0] * K
+            trees += new_trees
+            tree_class += list(range(K))
+            tree_weights += weights_new
+            if is_rf:
+                # rf: every tree fits the gradients at the init margin
+                rf_count += 1
+                scores = init_scores
+
+            if stopper is not None:
+                t_eval = time.perf_counter()
+                # the new trees, and the weight changes of dart's dropped ones
+                for k in range(K):
+                    valid_contrib = _add_scores(
+                        valid_contrib, predict_binned_tree(
+                            bins_v, new_dev[k], depth_hint) * weights_new[k],
+                        k, K)
+                for d, old_w in reweighted:
+                    valid_contrib = _add_scores(
+                        valid_contrib, predict_binned_tree(
+                            bins_v, on_dev(trees[d]), depth_hint)
+                        * (tree_weights[d] - old_w), tree_class[d], K)
+                if is_rf:
+                    # the rf model averages all its trees, carried ones too
+                    base = torch.as_tensor(init_sc if K > 1 else init_sc[0],
+                                           device=dev)
+                    count = torch.full((), max(prior_iters + rf_count, 1),
+                                       dtype=torch.float32, device=dev)
+                    vm = base + ((valid_init - base) * prior_iters
+                                 + valid_contrib) / count
+                else:
+                    vm = valid_init + valid_contrib
+                val = float(metric_fn(yv_t, vm, wv_t))    # the one host copy
+                eval_history.append(EvalRecord(it, metric_name, val))
+                stop = stopper.update(it, val)
+                measures.eval_s += time.perf_counter() - t_eval
+                if stop:
+                    break
+            if ckpt_every > 0 and (it + 1) % ckpt_every == 0:
+                pre_t, pre_c, pre_w = (
+                    (init_model.trees, init_model.tree_class,
+                     init_model.tree_weights)
+                    if init_model else ([], [], []))
+                _write_checkpoint(checkpoint_dir, Booster(
+                    pre_t + trees, pre_c + tree_class, pre_w + tree_weights, K,
+                    config.objective, init_sc, mapper, feature_names, config,
+                    device=dev, bundler=bundler))
+            if prof is not None:
+                prof.step_end()       # evaluation + checkpoint: "other"
+    finally:
+        if prof is not None:
+            prof.finish()             # early stop or an exception
     synchronize(dev)
     measures.training_s = time.perf_counter() - t_train
     measures.iterations = len(trees) // K

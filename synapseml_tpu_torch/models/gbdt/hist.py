@@ -40,6 +40,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
+from typing import Dict, List, Optional, Tuple
+
 import torch
 
 from ...kernels import launches
@@ -305,6 +308,99 @@ def rows_geometry(nfeat: int, width: int, n_slots: int):
 
 
 # --------------------------------------------------------------------------
+# the tuned geometry (the gbdt_hist_geometry space of telemetry.autotune)
+# --------------------------------------------------------------------------
+
+#: the tuning-table space of ``hist_rows_kernel``'s (features per block,
+#: tile); its own name, so no table hands the JAX package's row-chunk
+#: winner (``gbdt_hist_chunk``) to this knob
+HIST_GEOMETRY_SPACE = "gbdt_hist_geometry"
+
+#: the (fpb, tile) of each feature set of the last launch under each launch
+#: key (K1: one pair; K2: the coarse pair, then the refined one or zeros)
+LAUNCH_GEOMETRY: Dict[str, Tuple[int, ...]] = {}
+
+#: plane -> {(device kind, F, width, S): (fpb, tile)}: one consult per
+#: plane, device kind and geometry
+_TUNED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def rows_geometry_ok(nfeat: int, width: int, n_slots: int, fpb: int,
+                     tile: int) -> bool:
+    """Does ``hist_rows_kernel`` take ``(fpb, tile)`` for this feature
+    set: ``fpb`` in [1, min(nfeat, 64)], ``tile`` a power of two in
+    [``_TILE_MIN``, :func:`_tile_cap` (fpb)] and the block's shared
+    histograms and ring within ``_MAX_SMEM``?"""
+    if any(isinstance(v, bool) or not isinstance(v, int)
+           for v in (fpb, tile)):
+        return False
+    return (1 <= fpb <= min(nfeat, _MAX_FPB)
+            and _TILE_MIN <= tile <= _tile_cap(fpb)
+            and tile & (tile - 1) == 0
+            and _hist_bytes(fpb, width, n_slots) + _ring_bytes(fpb, tile)
+            <= _MAX_SMEM)
+
+
+def rows_geometry_candidates(nfeat: int, width: int,
+                             n_slots: int) -> List[Tuple[int, int]]:
+    """The ``(fpb, tile)`` pairs the autotuner tries: ``fpb`` each even
+    spread ``ceil(nfeat / g)`` of the features over g groups (an uneven
+    spread only leaves a block short), ``tile`` every power of two
+    :func:`rows_geometry_ok` admits with it."""
+    out = []
+    for fpb in sorted({-(-nfeat // g) for g in range(1, nfeat + 1)}):
+        tile = _TILE_MIN
+        while tile <= _TILE_MAX:
+            if rows_geometry_ok(nfeat, width, n_slots, fpb, tile):
+                out.append((fpb, tile))
+            tile *= 2
+    return out
+
+
+def hist_geometry_key(nfeat: int, width: int, n_slots: int) -> str:
+    """The tuning-table geometry of one feature set's histogram pass: its
+    features, the bins it histograms (coarse ones under a shift) and its
+    slots.  The autotuner records under it and the launches consult it."""
+    from ...telemetry.tunetable import geometry_key
+    return geometry_key(features=int(nfeat), total_bins=int(width),
+                        slots=int(n_slots))
+
+
+def launch_geometry(nfeat: int, width: int, n_slots: int,
+                    device=None) -> Tuple[int, int]:
+    """The ``(fpb, tile)`` one feature set launches with: a ``loaded``
+    ``gbdt_hist_geometry`` winner for ``device`` and this geometry that
+    :func:`rows_geometry_ok` re-admits, else :func:`rows_geometry`'s
+    (what a process without a table launches).  The table is consulted
+    once per plane, device kind and geometry."""
+    from ...telemetry.tunetable import get_tuneplane
+    plane = get_tuneplane()
+    memo = _TUNED.setdefault(plane, {})
+    key = (plane.kind_of(device), nfeat, width, n_slots)
+    hit = memo.get(key)
+    if hit is None:
+        won = plane.consult(
+            "hist.launch_geometry", HIST_GEOMETRY_SPACE,
+            hist_geometry_key(nfeat, width, n_slots),
+            validate=lambda w: rows_geometry_ok(
+                nfeat, width, n_slots, w.get("fpb"), w.get("tile")),
+            device=device)
+        hit = memo[key] = (rows_geometry(nfeat, width, n_slots)[:2]
+                           if won is None
+                           else (int(won["fpb"]), int(won["tile"])))
+    return hit
+
+
+def _forced_geometry(nfeat, width, n_slots, geometry) -> Tuple[int, int]:
+    fpb, tile = (int(v) for v in geometry)
+    if not rows_geometry_ok(nfeat, width, n_slots, fpb, tile):
+        raise ValueError(f"geometry (fpb={fpb}, tile={tile}) does not fit "
+                         f"hist_rows_kernel at F={nfeat}, width={width}, "
+                         f"S={n_slots}")
+    return fpb, tile
+
+
+# --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
 
@@ -392,7 +488,7 @@ def _need_rows(base, rows, name: str, N: int, dev) -> None:
 
 
 def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
-                           hist_shift, feat):
+                           hist_shift, feat, geometry=None):
     dev = bins_t.device
     R, N = bins_t.shape
     F = R if feat is None else feat.shape[0]
@@ -403,7 +499,8 @@ def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
     _need(slot, "slot", torch.int32, (N,), dev)
     _need(vals, "vals", torch.int8, (N, SLOT_LANES), dev)
     _check_smem(Bh, n_slots)
-    fpb, tile, _, _ = rows_geometry(F, Bh, n_slots)
+    fpb, tile = (launch_geometry(F, Bh, n_slots, dev) if geometry is None
+                 else _forced_geometry(F, Bh, n_slots, geometry))
     out = torch.zeros((F, Bh, n_slots, SLOT_LANES), dtype=torch.int32,
                       device=dev)
     lst, cnt = _row_list(N, dev)
@@ -414,8 +511,12 @@ def _build_hist_nodes_cuda(bins_t, slot, vals, n_slots, total_bins,
             vals.data_ptr(), n_slots, Bh, hist_shift, fpb, tile,
             lst.data_ptr(), cnt.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(rc, "build_hist_nodes")
+    launches.io_bytes("build_hist_nodes", 4 * F * N, slot, vals, out)
     # launch keys: K1 ``F, B, shift, S`` and K2 ``F, B, shift, K, S``, with
     # ``B`` the full bin count, then the kernel variant
+    key = launches.launch_key("build_hist_nodes", F=F, B=total_bins,
+                              shift=hist_shift, S=n_slots, variant="rows")
+    LAUNCH_GEOMETRY[key] = (fpb, tile)
     launches.count("build_hist_nodes", F=F, B=total_bins, shift=hist_shift,
                    S=n_slots, variant="rows")
     return out
@@ -440,13 +541,14 @@ def _route_and_hist_cuda(bins_t, node_id, leaf, base, rows, t1, rlo, rhi,
     _need_rows(base, rows, "split bins", N, dev)
     _need(vals, "vals", torch.int8, (N, SLOT_LANES), dev)
     _check_smem(Bh, S)
-    fpb0, tile0, _, _ = rows_geometry(F, Bh, S)
+    fpb0, tile0 = launch_geometry(F, Bh, S, dev)
     K = fpb1 = tile1 = 0
     if krows is not None:
         K = krows.shape[0]
         _need_rows(kbase, krows, "refined bins", N, dev)
         _check_smem(B, S)
-        fpb1, tile1, _, _ = rows_geometry(K, B, S)
+        if K:
+            fpb1, tile1 = launch_geometry(K, B, S, dev)
     new_id = torch.empty(N, dtype=torch.int32, device=dev)
     out = torch.zeros((F, Bh, S, SLOT_LANES), dtype=torch.int32, device=dev)
     outf = (torch.zeros((K, B, S, SLOT_LANES), dtype=torch.int32, device=dev)
@@ -462,6 +564,11 @@ def _route_and_hist_cuda(bins_t, node_id, leaf, base, rows, t1, rlo, rhi,
             lst.data_ptr(), cnt.data_ptr(), out.data_ptr(), _ptr(outf),
             _stream(dev))
     _raise_on(rc, "route_and_hist")
+    launches.io_bytes("route_and_hist", bins_t, node_id, params,
+                      4 * (S + K) * N, vals, new_id, out, outf)
+    key = launches.launch_key("route_and_hist", F=F, B=B, shift=hist_shift,
+                              K=K, S=S, variant="rows")
+    LAUNCH_GEOMETRY[key] = (fpb0, tile0, fpb1, tile1)
     launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S,
                    variant="rows")
     return new_id, out, outf
@@ -494,6 +601,8 @@ def route_rows(node_id, leaf, base, rows, t1, rlo, rhi, dflt, l_id, r_id,
             None, new_id.data_ptr(), lst.data_ptr(), cnt.data_ptr(),
             _stream(dev))
     _raise_on(rc, "route_rows")
+    launches.io_bytes("route_rows", node_id, params, 4 * S * N, new_id, lst,
+                      cnt)
     launches.count("route_rows", S=S)
     return new_id, lst, cnt
 
@@ -503,13 +612,16 @@ def route_rows(node_id, leaf, base, rows, t1, rlo, rhi, dflt, l_id, r_id,
 # --------------------------------------------------------------------------
 
 def build_hist_nodes_limbs(bins_t, slot, vals, n_slots: int,
-                           total_bins: int, hist_shift: int = 0, feat=None):
+                           total_bins: int, hist_shift: int = 0, feat=None,
+                           geometry: Optional[Tuple[int, int]] = None):
     """K1 → (F, Bh, S, 8) int32 limb sums of the rows ``feat`` (F,) int32
     of ``bins_t`` (all its rows when None): the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors.  ``geometry`` forces the kernel's
+    ``(fpb, tile)`` (the autotuner's candidates; None:
+    :func:`launch_geometry`); the histogram does not depend on it."""
     if bins_t.is_cuda:
         return _build_hist_nodes_cuda(bins_t, slot, vals, n_slots,
-                                      total_bins, hist_shift, feat)
+                                      total_bins, hist_shift, feat, geometry)
     return build_hist_nodes_plain(bins_t, slot, vals, n_slots, total_bins,
                                   hist_shift, feat)
 
@@ -590,6 +702,7 @@ def build_hist_nodes_limbs_previous(bins_t, slot, vals, n_slots: int,
             bins_t.data_ptr(), F, N, slot.data_ptr(), vals.data_ptr(),
             n_slots, Bh, hist_shift, out.data_ptr(), _stream(dev))
     _raise_on(rc, "build_hist_nodes_previous")
+    launches.io_bytes("build_hist_nodes", bins_t, slot, vals, out)
     launches.count("build_hist_nodes", F=F, B=total_bins, shift=hist_shift,
                    S=n_slots, variant="previous")
     return out
@@ -632,6 +745,8 @@ def route_and_hist_limbs_previous(bins_t, node_id, leaf, sel, t1, rlo, rhi,
             hist_shift, new_id.data_ptr(), out.data_ptr(), _ptr(outf),
             _stream(dev))
     _raise_on(rc, "route_and_hist_previous")
+    launches.io_bytes("route_and_hist", bins_t, node_id, params, sel, vals,
+                      sel_k, new_id, out, outf)
     launches.count("route_and_hist", F=F, B=B, shift=hist_shift, K=K, S=S,
                    variant="previous")
     return new_id, out, outf

@@ -241,14 +241,17 @@ class CausalAttention(nn.Module):
 
     def forward(self, x, positions, cache: Optional[Dict],
                 cache_index=None, slot_mask: Optional[torch.Tensor] = None,
-                attention_backend: str = "dense"):
+                attention_backend: str = "dense",
+                paged_variant: Optional[str] = None):
         """→ ``(out, cache)``.  ``cache_index`` is an int (prefill: write
         the S new K/V rows at that offset of every batch row) or a ``(B,)``
         tensor (decode / verify: row b writes its S rows at its own
         offset).  ``slot_mask`` gates the vector write: an inactive row
         rewrites the values it holds, so its K/V is bitwise unchanged
         (the reference's payload masking).  Every written position must
-        lie inside the cache: the engine guarantees it."""
+        lie inside the cache: the engine guarantees it.  ``paged_variant``
+        picks the paged read's kernel (``paged_attn.PAGED_VARIANTS``;
+        None: its dtype's default)."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
@@ -289,7 +292,8 @@ class CausalAttention(nn.Module):
             # span; spans count the LAST query's keys.  'interpret' is the
             # reference's CPU spelling of the same read
             spans = (positions[:, -1].to(torch.int32) + 1).contiguous()
-            out = paged_decode_attention(q, k_all, v_all, spans)
+            out = paged_decode_attention(q, k_all, v_all, spans,
+                                         variant=paged_variant)
             out = out.reshape(B, S, H * D)
         else:
             if cache is not None:
@@ -330,9 +334,10 @@ class DecoderBlock(nn.Module):
                                 generator, q)
 
     def forward(self, x, positions, cache, cache_index, slot_mask=None,
-                attention_backend: str = "dense"):
+                attention_backend: str = "dense",
+                paged_variant: Optional[str] = None):
         a, cache = self.attn(self.ln_attn(x), positions, cache, cache_index,
-                             slot_mask, attention_backend)
+                             slot_mask, attention_backend, paged_variant)
         x = x + a
         h = self.ln_mlp(x)
         h = nn.functional.silu(self.gate_proj(h)) * self.up_proj(h)  # SwiGLU
@@ -401,7 +406,8 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, positions=None, cache=None,
                 cache_index=None, slot_mask: Optional[torch.Tensor] = None,
-                attention_backend: str = "dense"):
+                attention_backend: str = "dense",
+                paged_variant: Optional[str] = None):
         cfg = self.cfg
         B, S = input_ids.shape
         if positions is None:
@@ -412,7 +418,7 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             x, _ = layer(x, positions, cache[i] if cache is not None
                          else None, cache_index, slot_mask,
-                         attention_backend)
+                         attention_backend, paged_variant)
         x = self.ln_final(x)
         if isinstance(self.tok_embed, QuantEmbed):
             logits = self.tok_embed.attend(x)   # f32 product inside

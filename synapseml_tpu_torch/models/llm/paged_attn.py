@@ -67,6 +67,43 @@ _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16"}
 
 
+#: the tuning-table space of the kernel choice (its own name: the JAX
+#: package's ``paged_attn_tile`` tunes a TPU key tile, another knob)
+VARIANT_SPACE = "paged_attn_variant"
+#: the kernels a CUDA call can take: ``split`` (bf16/f16: per-chunk
+#: blocks, then a combine; launch key ``variant=split``) and ``single``
+#: (one block per (kv head, slot) over the whole span, every type; the
+#: previous kernel, launch key ``variant=previous``)
+PAGED_VARIANTS = ("split", "single")
+
+
+def default_variant(dtype) -> str:
+    """The kernel a call takes without a tuned choice: split for bf16 and
+    f16, single for f32 (and for a type no kernel takes, which the
+    launch then refuses)."""
+    return "split" if dtype in (torch.bfloat16, torch.float16) else "single"
+
+
+def variant_ok(variant: Any, dtype) -> bool:
+    """Can ``variant`` run at ``dtype``?  The split kernel is built for
+    bf16 and f16 only."""
+    return variant == "single" or (variant == "split"
+                                   and dtype in (torch.bfloat16,
+                                                 torch.float16))
+
+
+def paged_geometry_key(max_len: int, num_kv_heads: int, d_head: int,
+                       dtype: Any, max_query_span: int = 1) -> str:
+    """The tuning-table geometry of a paged cache: the autotuner records
+    the ``paged_attn_variant`` winner under it and ``SlotEngine``
+    consults with it (``dtype`` by its name, ``bfloat16``)."""
+    from ...telemetry.tunetable import geometry_key
+    return geometry_key(max_len=int(max_len), kv_heads=int(num_kv_heads),
+                        d_head=int(d_head),
+                        dtype=str(dtype).replace("torch.", ""),
+                        span=max(1, int(max_query_span)))
+
+
 def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
@@ -322,6 +359,13 @@ def _paged_decode_attention_cuda(q, k, v, spans, split: bool):
         msg = lib.sml_pa_error_string(rc).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {rc} ({msg})")
+    if launches.wants_bytes():
+        # the keys and values of the live spans (a host sync, so only
+        # under a cost capture), and the workspace the split kernel
+        # writes and reads back
+        live = int(spans.clamp(1, T).sum()) * KV * D * k.element_size() * 2
+        launches.io_bytes("paged_decode_attention", q4, live, spans, out,
+                          2 * ws.numel() * 4 if split else None)
     # launch key: ``T`` the cache's max_len, ``variant`` the kernel
     launches.count("paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D,
                    T=T, dtype=_DTYPE_NAMES[q4.dtype],
@@ -346,6 +390,7 @@ def paged_decode_attention(q: torch.Tensor,      # (B, H, D) | (B, S, H, D)
                            k: torch.Tensor,      # (B, max_len, KV, D)
                            v: torch.Tensor,      # (B, max_len, KV, D)
                            spans: torch.Tensor,  # (B,) int32 live lengths
+                           variant: Optional[str] = None,
                            ) -> torch.Tensor:
     """One decode step's attention for every slot, reading only each
     slot's live K/V span: → same shape as ``q``, in ``q.dtype``.
@@ -353,10 +398,16 @@ def paged_decode_attention(q: torch.Tensor,      # (B, H, D) | (B, S, H, D)
     ``spans[b]`` is slot b's live length including this step's S written
     positions: the last query attends keys ``[0, spans[b])`` and each
     earlier query one key fewer.  The queries' own K/V must already be in
-    the cache.  CUDA tensors launch the K3 kernels (bf16/f16 the split
-    kernel, f32 the previous one); CPU tensors run
+    the cache.  CUDA tensors launch the K3 kernel ``variant`` names
+    (:data:`PAGED_VARIANTS`; None: :func:`default_variant`, the split
+    kernel for bf16/f16 and the single one for f32); CPU tensors run
     :func:`paged_decode_attention_plain`."""
+    variant = default_variant(q.dtype) if variant is None else variant
+    if not variant_ok(variant, q.dtype):
+        raise ValueError(f"paged_decode_attention: variant={variant!r} "
+                         f"cannot run at {q.dtype} (one of "
+                         f"{PAGED_VARIANTS}; split takes bf16/f16)")
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k, v, spans)
     return _paged_decode_attention_cuda(q, k, v, spans,
-                                        split=q.dtype != torch.float32)
+                                        split=variant == "split")

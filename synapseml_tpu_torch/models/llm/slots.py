@@ -58,10 +58,18 @@ retiring or preempted slot spills its live K/V span to host RAM (a
 device-side stack and one device-to-host copy), and an admission or
 resume whose prompt extends a spilled span longer than any device prefix
 restores it into the slot instead of prefilling it (a plain copy of the
-spilled bits; every degraded outcome cold-prefills).  Not ported yet: the
-step profiler (ROADMAP A6).  There is no tuning table (A6): the prefill bucket
-floor is ``min_bucket`` (default 8) and the paged geometry the gate's
-default, the reference's no-table choices.
+spilled bits; every degraded outcome cold-prefills).
+
+The tuning table (:mod:`~synapseml_tpu_torch.telemetry.tunetable`) is
+consulted once, at construction, before any graph is captured: the
+``paged_attn_variant`` winner for this cache's geometry and device picks
+the K3 kernel every paged step launches (none: the dtype's default), and
+with ``min_bucket=None`` the ``llm_bucket_grid`` winner sets the prefill
+bucket floor (none: 8).  ``step_profiler`` (a
+:class:`~synapseml_tpu_torch.telemetry.gangplane.StepProfiler`) times each
+decode and verify step up to its one host copy as ``compute``; with its
+``capture_xla`` it captures each step shape's cost once, running the eager
+step on copies of the cache and of the generator.
 """
 
 from __future__ import annotations
@@ -77,13 +85,15 @@ import torch
 from ...device import DeviceLike, resolve_device
 from ...telemetry import get_registry
 from ...telemetry.flight import record as _flight_record
+from ...telemetry.gangplane import check_profiler
 from .drafter import NgramDrafter
 from .generate import sample_logits
 from .kvtier import ChecksumError, RadixPrefixIndex, kvtier_metrics
 from .model import LlamaModel, init_cache
-from .paged_attn import (_itemsize, check_kernel_layout, dense_read_bytes,
-                         paged_geometry, paged_read_bytes,
-                         resolve_attention_backend)
+from .paged_attn import (VARIANT_SPACE, _itemsize, check_kernel_layout,
+                         dense_read_bytes, paged_geometry,
+                         paged_geometry_key, paged_read_bytes,
+                         resolve_attention_backend, variant_ok)
 
 
 def _next_pow2(n: int) -> int:
@@ -114,7 +124,7 @@ def _restore_program_key(pb: int) -> str:
 
 
 def step_program(model: LlamaModel, cache, inputs: torch.Tensor,
-                 backend: str) -> torch.Tensor:
+                 backend: str, variant: Optional[str] = None) -> torch.Tensor:
     """One decode (``S == 1``) or verify (``S > 1``) forward of every slot
     from the packed int32 step input ``(n_slots, S + 2)``: each row's S
     tokens, then its write offset ``li`` (the position of its first fed
@@ -122,15 +132,15 @@ def step_program(model: LlamaModel, cache, inputs: torch.Tensor,
     the cache is written in place and inactive rows stay bitwise
     unchanged (``slot_mask``).  → the logits ``(n_slots, V)`` f32 of a
     decode step, or a verify step's greedy continuation ``(n_slots, S)``
-    int32.  The eager step and the CUDA graphs of :mod:`.warmup` run this
-    same function."""
+    int32.  ``variant`` is the paged read's K3 kernel.  The eager step and
+    the CUDA graphs of :mod:`.warmup` run this same function."""
     S = inputs.shape[1] - 2
     li = inputs[:, S]
     positions = li[:, None] + torch.arange(S, dtype=torch.int32,
                                            device=inputs.device)[None]
     logits, _ = model(inputs[:, :S], positions=positions, cache=cache,
                       cache_index=li, slot_mask=inputs[:, S + 1],
-                      attention_backend=backend)
+                      attention_backend=backend, paged_variant=variant)
     if S == 1:
         return logits[:, 0]
     return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -197,10 +207,10 @@ class SlotEngine:
         if warmup not in ("off", "sync", "background"):
             raise ValueError(f"warmup={warmup!r}: must be 'off', 'sync', "
                              "or 'background'")
-        if step_profiler is not None:
-            raise NotImplementedError(
-                "step_profiler is not ported yet (ROADMAP A6: "
-                "telemetry/gangplane.py StepProfiler)")
+        check_profiler(step_profiler, "SlotEngine")
+        #: optional StepProfiler over the decode and verify steps
+        self.step_profiler = step_profiler
+        self.compile_plane = None
         self.model = model
         self.cfg = model.cfg
         self.n_slots = int(n_slots)
@@ -224,6 +234,9 @@ class SlotEngine:
                                self.max_len, self.cfg.num_heads,
                                self.cfg.num_kv_heads, self.cfg.d_head,
                                self.cfg.dtype, max_query_span=spec_span))
+        #: the K3 kernel of every paged step (None: the dtype's default)
+        self.paged_variant = (None if self.attention_backend == "dense"
+                              else self._consult_paged_variant(spec_span))
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
@@ -251,10 +264,12 @@ class SlotEngine:
         self._gen.manual_seed(int(seed))
         self.cache = init_cache(self.cfg, self.n_slots, self.max_len,
                                 self.device)
-        # prompt-length buckets: powers of two from min_bucket (8, the
-        # reference's floor without a tuning table) up to max_len
+        # prompt-length buckets: powers of two from min_bucket (the tuned
+        # floor, else 8, the reference's) up to max_len
+        if min_bucket is None:
+            min_bucket = self._consult_min_bucket()
         buckets = []
-        b = max(1, int(8 if min_bucket is None else min_bucket))
+        b = max(1, int(min_bucket))
         while b < self.max_len:
             buckets.append(b)
             b *= 2
@@ -351,11 +366,94 @@ class SlotEngine:
         self.spec_draft_hits = 0
         self.spec_draft_misses = 0
         self._tps_ewma: Optional[float] = None
-        self.compile_plane = None
         if warmup != "off":
             from .warmup import CompilePlane
             self.compile_plane = CompilePlane(self).start(
                 background=warmup == "background")
+
+    # -- tuning-table consults -------------------------------------------
+    def _consult_paged_variant(self, spec_span: int) -> Optional[str]:
+        """The ``paged_attn_variant`` winner for this cache geometry on
+        this device, or None (the dtype's default kernel) when the table
+        has none or the winner cannot run at this dtype.  Called before
+        the compile plane exists: graphs capture the chosen kernel."""
+        from ...telemetry.tunetable import get_tuneplane
+        if self.compile_plane is not None:
+            raise RuntimeError("the K3 variant must be chosen before any "
+                               "graph is captured")
+        dtype = self.cfg.dtype
+        winner = get_tuneplane().consult(
+            "SlotEngine", VARIANT_SPACE,
+            paged_geometry_key(self.max_len, self.cfg.num_kv_heads,
+                               self.cfg.d_head, dtype, spec_span),
+            validate=lambda w: variant_ok(w.get("variant"), dtype),
+            device=self.device)
+        return None if winner is None else str(winner["variant"])
+
+    def _consult_min_bucket(self) -> int:
+        """``llm_bucket_grid`` winner for this ``max_len`` on this device
+        → the tuned bucket-grid floor, or the default 8."""
+        from ...telemetry.tunetable import geometry_key, get_tuneplane
+        winner = get_tuneplane().consult(
+            "SlotEngine", "llm_bucket_grid",
+            geometry_key(max_len=self.max_len),
+            validate=lambda w: (
+                isinstance(w.get("min_bucket"), int)
+                and not isinstance(w["min_bucket"], bool)
+                and 1 <= w["min_bucket"] <= self.max_len
+                and (w["min_bucket"] & (w["min_bucket"] - 1)) == 0),
+            device=self.device)
+        return int(winner["min_bucket"]) if winner is not None else 8
+
+    # -- step profiling ----------------------------------------------------
+    def _capture_step_cost(self, prof, tokens: np.ndarray,
+                           lengths: np.ndarray) -> None:
+        """Once per step shape: the eager step's counted cost, run on
+        copies of the cache and of the generator so the engine's state
+        does not move (outside any graph capture, and outside the
+        profiled step's time)."""
+        S = tokens.shape[1]
+        key = (f"llm_{'decode' if S == 1 else 'verify'}_step_"
+               f"{self.attention_backend}"
+               + (f"_s{S}" if S > 1 else "")
+               + (f"_{self.paged_variant}" if self.paged_variant else ""))
+        if key in prof.costs:
+            return
+        with prof.excluded():
+            packed = torch.as_tensor(self._pack_step(tokens, lengths),
+                                     device=self.device)
+            cache = [{n: t.clone() for n, t in c.items()}
+                     for c in self.cache]
+            gen = torch.Generator(device=self.device)
+            gen.set_state(self._gen.get_state())
+
+            @torch.no_grad()
+            def run():
+                out = step_program(self.model, cache, packed,
+                                   self.attention_backend, self.paged_variant)
+                if S == 1:
+                    out = sample_logits(out, gen, self.temperature,
+                                        self.top_k, self.top_p)
+                return out.cpu()
+
+            prof.capture_cost(key, run, items=float(self.active_count),
+                              device=self.device)
+
+    def _profiled(self, tokens: np.ndarray, lengths: np.ndarray, fn):
+        """``fn()`` (a step ending in its one host copy) as one profiled
+        step: all of it is ``compute``."""
+        prof = self.step_profiler
+        if prof is None:
+            return fn()
+        if prof.capture_xla:
+            self._capture_step_cost(prof, tokens, lengths)
+        prof.step_begin()
+        try:
+            out = fn()
+            prof.mark("compute")
+        finally:
+            prof.step_end()
+        return out
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -472,7 +570,7 @@ class SlotEngine:
             return self.compile_plane.run_step(packed)
         return step_program(self.model, self.cache,
                             torch.as_tensor(packed, device=self.device),
-                            self.attention_backend)
+                            self.attention_backend, self.paged_variant)
 
     def _decode_step(self, tokens: np.ndarray,
                      lengths: np.ndarray) -> np.ndarray:
@@ -480,10 +578,12 @@ class SlotEngine:
         at its own position, sample the next (eagerly, on the step's
         logits, with the engine's generator).  Inactive slots compute a
         throwaway row and write nothing (``slot_mask``)."""
-        logits = self._run_step(tokens[:, None], lengths)
-        nxt = sample_logits(logits, self._gen, self.temperature,
-                            self.top_k, self.top_p)
-        return nxt.cpu().numpy()
+        def run():
+            logits = self._run_step(tokens[:, None], lengths)
+            nxt = sample_logits(logits, self._gen, self.temperature,
+                                self.top_k, self.top_p)
+            return nxt.cpu().numpy()
+        return self._profiled(tokens[:, None], lengths, run)
 
     def _verify_forward(self, tokens: np.ndarray,
                         lengths: np.ndarray) -> np.ndarray:
@@ -491,7 +591,9 @@ class SlotEngine:
         its drafted span (``tokens`` is ``(n_slots, S)``) at positions
         ``lengths-1 ..``, → the model's greedy continuation at every
         position ``(n_slots, S)`` int32."""
-        return self._run_step(tokens, lengths).cpu().numpy()
+        return self._profiled(
+            tokens, lengths,
+            lambda: self._run_step(tokens, lengths).cpu().numpy())
 
     # -- prefix reuse ------------------------------------------------------
     def _radix_for(self, tenant: str) -> RadixPrefixIndex:

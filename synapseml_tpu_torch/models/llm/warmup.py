@@ -85,6 +85,9 @@ EXEMPT_METHODS = {
              "stay bound to its storage",
     "_spill_slot": "reads a retired slot's span back to the host arena "
                    "(a device-side stack and one copy, no model program)",
+    "_capture_step_cost": "the step profiler's cost capture: the eager "
+                          "step, once per step shape, on a copy of the "
+                          "cache and outside any graph",
 }
 
 
@@ -185,7 +188,7 @@ class StepGraph:
     def _program(self) -> torch.Tensor:
         eng = self.engine
         return step_program(eng.model, eng.cache, self.inputs,
-                            eng.attention_backend)
+                            eng.attention_backend, eng.paged_variant)
 
     @torch.no_grad()
     def _capture(self, pool) -> None:

@@ -7,13 +7,14 @@ imports aside:
   asyncio listener; each API owns a bounded request queue (backpressure:
   a full queue answers 503 immediately instead of parking the exchange)
   and a pending-exchange map keyed by request id.
-- ``GET /metrics``, ``/healthz``, ``/readyz``, ``/tracez`` and ``/sloz``
-  are RESERVED paths on every listener: the process-wide
+- ``GET /metrics``, ``/healthz``, ``/readyz``, ``/tracez``, ``/sloz`` and
+  ``/tunez`` are RESERVED paths on every listener: the process-wide
   :mod:`synapseml_tpu_torch.telemetry` registry as Prometheus text (JSON
   with ``?format=json``), liveness, readiness (503 + ``Retry-After``
   while draining or while the engine's compile plane warms), the
-  per-request traces and the windowed SLO snapshot.  ``GET /tunez`` (the
-  tuning table) answers 501: the table is ROADMAP A6.
+  per-request traces, the windowed SLO snapshot and the tuning table's
+  snapshot (entries and this process's consults,
+  schema-checked before serving; ``?space=`` filters).
 - :class:`PipelineServer` is the continuous-serving loop for one model:
   batch → ``model.transform`` → reply (:class:`_ApiLoop`), so the model
   sees micro-batches instead of per-request calls; every batch runs
@@ -742,12 +743,31 @@ class ServingServer:
             "Content-Type": "application/json"}
 
     def _serve_tunez(self, query: str, headers: Dict[str, str]):
-        """The autotune tuning-table snapshot: the tuning table is not
-        ported yet, so this answers 501 naming its ROADMAP item."""
-        return (501, json.dumps(
-            {"error": "the tuning table (/tunez) is not ported yet "
-             "(ROADMAP A6: telemetry/autotune.py and tunetable.py)"}
-        ).encode(), {"Content-Type": "application/json"})
+        """The autotune tuning-table snapshot: per-space winner with its
+        measured ms and provenance (``source``/``measured_unix``/
+        ``device_kind``), staleness against the plane's max age, and the
+        consult log — which construction sites loaded (or refused) the
+        table in THIS process.  Schema-validated BEFORE serving (the
+        ``/sloz`` discipline); ``?space=<name>`` filters entries and
+        consults to one search space."""
+        from urllib.parse import parse_qs
+        from ..telemetry.tunetable import check_tunez, get_tuneplane
+        params = parse_qs(query)
+        space = (params.get("space") or [None])[0]
+        snap = get_tuneplane().snapshot()
+        if space is not None:
+            snap["entries"] = [e for e in snap["entries"]
+                               if e.get("space") == space]
+            snap["consults"] = [c for c in snap["consults"]
+                                if c.get("space") == space]
+        try:
+            check_tunez(snap)
+        except ValueError as e:
+            return (500, json.dumps(
+                {"error": f"tunez snapshot failed validation: {e}"}).encode(),
+                {"Content-Type": "application/json"})
+        return 200, json.dumps(snap).encode("utf-8"), {
+            "Content-Type": "application/json"}
 
     async def _dispatch(self, method: str, path: str,
                         headers: Dict[str, str], body: bytes):

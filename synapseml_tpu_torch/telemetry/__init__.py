@@ -16,8 +16,18 @@ aside:
 - :mod:`.slo` — sliding-window percentile digests and SLO burn rates,
   served at ``GET /sloz``.
 
-The autotuner, the gang plane (``StepProfiler``), the roofline auditor
-and the tuning table are ROADMAP A6.
+and the profiling and tuning plane:
+
+- :mod:`.gangplane` — :class:`StepProfiler`, the step-level training
+  profiler (the reference module's gang half, the cross-rank export and
+  post-mortem bundles, waits for ROADMAP A5).
+- :mod:`.roofline` — counted bytes and flops of a step
+  (:func:`~.roofline.capture`) and the roofline blocks, against the
+  card's spec-sheet peaks.
+- :mod:`.tunetable` — the persisted per-(device, geometry) tuning table
+  behind ``GET /tunez``.
+- :mod:`.autotune` — the measured autotuner of the port's kernels and
+  the α-β collective cost model.
 """
 
 from .artifact import (SchemaError, check_schema, dumps_checked, read_json,
@@ -25,6 +35,7 @@ from .artifact import (SchemaError, check_schema, dumps_checked, read_json,
 from .exposition import (PROMETHEUS_CONTENT_TYPE, render_json,
                          render_prometheus)
 from .flight import FlightRecorder, get_flight
+from .gangplane import StepProfiler, current_profiler
 from .registry import (DEFAULT_BUCKETS, SERVING_TOKEN_LATENCY_BUCKETS,
                        SERVING_TTFT_BUCKETS, Counter, Gauge, Histogram,
                        MetricsRegistry, bucket_quantile, get_registry)
@@ -33,6 +44,7 @@ from .slo import (SLO_METRICS, SLOZ_SCHEMA, SLOZ_SCHEMA_VERSION, SloStore,
                   get_slo_store, plane_tenant, tenant_plane_name)
 from .tracing import (RequestTraceStore, Span, Tracer, get_request_tracer,
                       get_tracer, mint_trace_id, span)
+from .tunetable import TunePlane, get_tuneplane, set_tuneplane
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
@@ -47,4 +59,6 @@ __all__ = [
     "SchemaError", "check_schema", "dumps_checked", "write_json",
     "read_json",
     "FlightRecorder", "get_flight",
+    "StepProfiler", "current_profiler",
+    "TunePlane", "get_tuneplane", "set_tuneplane",
 ]

@@ -506,7 +506,10 @@ COMMON_REFUSALS = [
     ("numDevices", 2, "A5"), ("modelParallelism", 2, "A5"),
     ("zero1", True, "A5"), ("collectiveCompression", "int8", "A5"),
     ("checkpointDir", "/nonexistent/ckpt", "A5"),
-    ("checkpointManager", object(), "A5"), ("stepProfiler", object(), "A6"),
+    ("checkpointManager", object(), "A5"),
+    # the step profiler is ported: an object that is not one is refused
+    # before any work, with a TypeError
+    ("stepProfiler", object(), None),
 ]
 REFUSALS = ([("text",) + r for r in COMMON_REFUSALS]
             + [("vision",) + r for r in COMMON_REFUSALS]
@@ -531,6 +534,10 @@ def test_unported_knobs_refuse_before_any_work(monkeypatch, cls, knob,
     if knob == "numExperts":
         # the MoE FFN trains on one card; an expert mesh still waits
         est.set("expertParallelism", 2)
+    if item is None:
+        with pytest.raises(TypeError, match="StepProfiler"):
+            est.fit(ds)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         est.fit(ds)
 

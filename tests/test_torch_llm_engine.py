@@ -270,9 +270,13 @@ def test_sampling_reproducible_and_inside_top_k(pair):
 
 def test_unported_options_raise(pair):
     _, _, tm = pair
-    for kw, item in (({"step_profiler": object()}, "ROADMAP A6"),):
-        with pytest.raises(NotImplementedError, match=item):
-            _engine(tm, **kw)
+    # the step profiler is ported: an engine takes one, and refuses an
+    # object that is not one before any work
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    prof = StepProfiler("pt-unported-prof")
+    assert _engine(tm, step_profiler=prof).step_profiler is prof
+    with pytest.raises(TypeError, match="StepProfiler"):
+        _engine(tm, step_profiler=object())
     # the host KV arena is ported: an engine takes one
     arena = P.HostKVArena(1 << 20, name="pt-unported-arena")
     assert _engine(tm, kv_arena=arena).kv_arena is arena

@@ -412,14 +412,32 @@ def test_background_warmup_readyz_503_then_200(pair, monkeypatch):
 
 
 def test_tunez_answers_501_and_unported_knobs_raise(pair):
+    """``GET /tunez`` is ported: 200 with a snapshot that passes
+    ``check_tunez`` and lists the engine's consults (the name predates
+    the port of the tuning table); the unported knobs still raise."""
+    from synapseml_tpu_torch.telemetry.tunetable import (
+        TunePlane, check_tunez, set_tuneplane)
     _, _, tm = pair
-    srv = _server(tm, "pt-tunez")
+    prev = set_tuneplane(TunePlane(directory=None))
     try:
-        status, body, _ = _get(srv.server.url_for("/tunez"))
-        assert status == 501 and b"ROADMAP A6" in body
-        assert _get(srv.server.url_for("/healthz"))[0] == 200
+        srv = _server(tm, "pt-tunez")
+        try:
+            status, body, _ = _get(srv.server.url_for("/tunez"))
+            assert status == 200
+            snap = json.loads(body)
+            check_tunez(snap)
+            assert {(c["site"], c["outcome"]) for c in snap["consults"]} \
+                >= {("SlotEngine", "disabled")}
+            status, body, _ = _get(srv.server.url_for(
+                "/tunez?space=llm_bucket_grid"))
+            assert status == 200 and {
+                c["space"] for c in json.loads(body)["consults"]} == {
+                    "llm_bucket_grid"}
+            assert _get(srv.server.url_for("/healthz"))[0] == 200
+        finally:
+            srv.close()
     finally:
-        srv.close()
+        set_tuneplane(prev)
     for kw, item in (({"prefill_pool": object()}, "A8"),):
         with pytest.raises(NotImplementedError, match=item):
             LLMServer(tm, device="cpu", **kw)
