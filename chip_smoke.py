@@ -175,7 +175,7 @@
     ``Pipeline([OnlineSGDClassifier(numPasses=1, batchSize=32)]).fit``
     on 262,144 rows and ``transform`` of 65,536, holdout AUC > 0.75;
     then one upload of the 4.3 GB blocked matrix and passes eager and
-    with graphs in turns (median of 3): rows/s, states bit-identical to
+    with graphs, one pass each: rows/s, states bit-identical to
     each other and to the estimator's fit; ``torch.profiler`` over a
     graph pass and 512 eager steps: busy share and kernels a step.
 17. The MoE text encoder: (a) the tiny encoder with 4 experts card
@@ -235,8 +235,8 @@
     max_len=2048)`` (logits bitwise equal to the model's), then
     ``quantize_int8``: the reference test's relative logit error (held
     below 0.05 at that test's configuration, reported at full width);
-    phase 8's 24 requests through a 16-slot graph engine, int8 and bf16
-    in turns (int8, bf16, bf16, int8): decode tokens/s, step ms, K3
+    phase 8's 24 requests through a 16-slot graph engine, int8 then
+    bf16: decode tokens/s, step ms, K3
     launches (equal), greedy agreement, and a profile of each step.  (c)
     ``LLMServer(n_slots=16, kv_arena_bytes=2 GiB, journal_dir=...)``: 24
     two-turn conversations (turn 2 = turn 1's prompt + reply + 16 new
@@ -287,11 +287,11 @@
     forest on 10,000 x 8, SAR 500 x 300 with tied items and access-anomaly
     ALS 400 x 200; (b) ``ImageLIME`` over bench.py's ResNet-50 zoo graph
     (``ImageTransformer`` normalize then ``ImageFeaturizer(headless=
-    False)``, f32) explaining one class's logit on 8 seeded 224² images,
+    False)``, f32) explaining one class's logit on 2 seeded 224² images,
     1,000 samples each, ``cellSize`` 16: explained images/s, scored
     samples/s and the host perturbation / scoring / solve seconds; (c) a
     ``GBDTClassifier`` (100 iterations, 31 leaves) at bench.py's 1M x 28
-    task, then ``TabularSHAP`` and ``TabularLIME`` over 256 rows at 1,000
+    task, then ``TabularSHAP`` and ``TabularLIME`` over 128 rows at 1,000
     samples: rows explained/s and the largest SHAP efficiency residual;
     (d) KNN at SIFT1M's shape (1,000,000 x 128 f32 index, 10,000
     queries, k = 100, ``leafSize`` 1024): queries/s, the top-100 of 100
@@ -322,7 +322,7 @@
     over the same rows, card against CPU margins within 1e-4 and labels
     equal; (c) the walk of all trees at once against the per-tree walk
     (bit-equal, in turns), then ``PipelineServer`` (batch 64, 10 ms) at
-    ``num_workers`` 1 and 2: 16 keep-alive HTTP clients x 256 records
+    ``num_workers`` 1 and 2: 16 keep-alive HTTP clients x 128 records
     (records/s, latency p50/p99, replies equal to one transform), the
     per-batch split (parse, ``from_rows``, transform with its CUDA-event
     stream span, format + reply) and, at one worker, a
@@ -364,6 +364,29 @@
     /tunez`` on an ``LLMServer`` (200, ``check_tunez``, the engine's
     consults); (e) ``core.trace`` around a short fit names
     ``hist_rows_kernel``.
+25. The parallel layer (``synapseml_tpu_torch.parallel``): a gang of two
+    ranks, both on the one card over gloo (``run_on_local_cluster(...,
+    device="cuda", backend="gloo")``), each loading phase 1's kernel
+    build (its build time printed; a rank that compiles again fails):
+    (a) ``cluster_report`` on both ranks (sums, gathers, placement, the
+    device table naming the card), and the same on one NCCL rank; (b)
+    ``psum``, ``all_gather``, ``reduce_scatter``, ``ring_allreduce`` and
+    ``compressed_psum`` at bf16 and int8 on a wave's coarse histograms,
+    CUDA tensors against the same op over the CPU on the same seeded
+    values, bit-equal, with ms a call and the staged host bytes; (c) each
+    rank fits ``Pipeline([GBDTClassifier(numShards=0)])`` on phase 4's
+    1M x 28 task (500k rows a rank, maxBin 255, ``--iters``) with the
+    histogram wire in f32 and in int8: both ranks' models equal (md5),
+    rank 0's holdout AUC > 0.8 for both, K1 and K2 launched in each rank
+    (the kernels line's runs ``phase25r0`` and ``phase25r1``), the
+    all-reduces and their wire bytes an iteration (int8 fewer), and
+    beside them the one-process default fit's s/iteration
+    (informational: the ranks share the card); (d) on one NCCL rank, a
+    fit over the group bit-equal to the fit without one; (e) a 2-rank
+    fit at 20,000 rows on the card and over the CPU: splits equal,
+    margins within 1e-4.  Its functions run small on the CPU
+    (``parallel_gang(seed, torch.device("cpu"), "cpu", rows, iters,
+    check_path, small_rows=..., nccl_rows=...)``).
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -3063,14 +3086,15 @@ def tier_card_vs_cpu(dev, seed: int, root: str) -> dict:
 
 def pretrained_int8(model, prompts, new, dev, root: str,
                     config: dict = LLAMA_32_1B_CONFIG,
-                    max_len: int = 2048) -> dict:
+                    max_len: int = 2048,
+                    turns=("int8", "bf16", "bf16", "int8")) -> dict:
     """Phase 20b: ``model``'s weights (Llama-3.2-1B in bf16) written as an
     HF directory with Llama-3.2-1B's published config.json, read back by
     ``llama_from_pretrained(..., max_len=2048)`` (logits bitwise equal to
     ``model``'s), then ``quantize_int8``: the logits' relative error
     against bf16 (the reference test's measure, < 0.05 at that test's
     configuration, reported at full width); phase 8's requests through a 16-slot graph
-    engine, int8 and bf16 in turns (int8, bf16, bf16, int8).  Removes the
+    engine, int8 and bf16 in ``turns``.  Removes the
     directory.  Raises on a failed check."""
     from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
                                                 cast_params,
@@ -3131,7 +3155,7 @@ def pretrained_int8(model, prompts, new, dev, root: str,
     out["bf16_weight_bytes"] = int(sum(
         p.numel() * p.element_size() for p in model.parameters()))
     runs, outs = {"int8": [], "bf16": []}, {}
-    for label in ("int8", "bf16", "bf16", "int8"):
+    for label in turns:
         r, o = llm_main_path(q if label == "int8" else model, prompts, new,
                              0, warmup="sync")
         runs[label].append(r)
@@ -5264,6 +5288,337 @@ def tunez_and_trace(seed: int, dev, card: str, table_dir: str,
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 25: the parallel layer, a local gang of ranks on the one card
+# --------------------------------------------------------------------------
+
+#: every gang phase 25 launches ends within this many seconds
+P25_GANG_TIMEOUT_S = 300.0
+#: phase 25e's rows (the card against the CPU) and 25d's (one NCCL rank)
+P25_SMALL_ROWS, P25_NCCL_ROWS = 20_000, 65_536
+
+
+def p25_data(seed: int, rows: int, hold: int = 100_000, F: int = 28):
+    """Phase 4's task from ``seed``: (X, y, Xh, yh); every rank draws it
+    whole, identically."""
+    drng = np.random.default_rng(seed)
+    X = drng.normal(size=(rows, F)).astype(np.float32)
+    y = gbdt_labels(drng, X)
+    Xh = drng.normal(size=(hold, F)).astype(np.float32)
+    yh = gbdt_labels(drng, Xh)
+    return X, y, Xh, yh
+
+
+def p25_build(device: str) -> dict:
+    """This rank's kernel build: the libraries phase 1 left under
+    ``build/kernels`` load, nothing compiles again (a CPU rank builds
+    nothing)."""
+    from synapseml_tpu_torch.kernels._build import build_all
+    if device != "cuda":
+        return dict(build_s=0.0, cached=None)
+    t0 = time.perf_counter()
+    built = build_all()
+    return dict(build_s=time.perf_counter() - t0,
+                cached=all(b["cached"] for b in built.values()))
+
+
+def p25_collectives(card, host, seed: int, reps: int = 5) -> dict:
+    """Phase 25b on this rank: each collective on CUDA tensors over the
+    gloo group (``card``) and the same op on the same seeded values over
+    the CPU (``host``, the same group): bit-equal, ms a call (median of
+    ``reps``, synchronized), staged host bytes a call.  The values are a
+    depthwise wave's coarse histograms, (16, 28, 32, 3) f32."""
+    from synapseml_tpu_torch.parallel import collectives as C
+    from synapseml_tpu_torch.parallel import compression as Z
+    rng = np.random.default_rng(seed + 25 + card.rank)
+    x = rng.normal(size=(16, 28, 32, 3)).astype(np.float32)
+    x[..., 2] = np.round(np.abs(x[..., 2]) * 300)        # a count channel
+    cfg = {c: Z.CollectiveConfig(compression=c, strategy="flat")
+           for c in ("bf16", "int8")}
+    ops = {
+        "psum": lambda m, t: C.psum(t, m),
+        "all_gather": lambda m, t: C.all_gather(t, m),
+        "reduce_scatter": lambda m, t: C.reduce_scatter(t, m),
+        "ring_allreduce": lambda m, t: C.ring_allreduce(t, m),
+        "compressed_psum_bf16": lambda m, t: Z.compressed_psum(
+            t, m, "data", cfg["bf16"]),
+        "compressed_psum_int8": lambda m, t: Z.compressed_psum(
+            t, m, "data", cfg["int8"]),
+    }
+    xc, xh = torch.as_tensor(x, device=card.device), torch.as_tensor(x)
+    out = {}
+    for name, op in ops.items():
+        want = op(host, xh).numpy().tobytes()
+        equal = op(card, xc).cpu().numpy().tobytes() == want
+        staged = card.staged_bytes
+        times = []
+        for _ in range(reps):
+            synchronize(card.device)
+            t0 = time.perf_counter()
+            op(card, xc)
+            synchronize(card.device)
+            times.append(time.perf_counter() - t0)
+        out[name] = dict(equal=equal, ms=sorted(times)[reps // 2] * 1e3,
+                         staged_bytes=(card.staged_bytes - staged) // reps,
+                         payload_bytes=int(x.nbytes))
+    return out
+
+
+def p25_card_vs_cpu(card, host, seed: int, iters: int,
+                    rows: int = P25_SMALL_ROWS) -> dict:
+    """Phase 25e on this rank: the same data-parallel fit over the gloo
+    group on the card and on the CPU: → whether every tree splits on the
+    same features and bins, and the largest margin difference on 4,096
+    holdout rows (phase 3's rule: 1e-4)."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    X, y, Xh, _ = p25_data(seed + 251, rows, hold=4096)
+    cfg = BoostingConfig(objective="binary", num_iterations=iters)
+    bc, _ = train(X, y, cfg, mesh=card, device=card.device)
+    bp, _ = train(X, y, cfg, mesh=host, device="cpu")
+    same = len(bc.trees) == len(bp.trees) and all(
+        int(tc.num_nodes) == int(tp.num_nodes)
+        and np.array_equal(tc.split_feature[:int(tc.num_nodes)],
+                           tp.split_feature[:int(tc.num_nodes)])
+        and np.array_equal(tc.split_bin[:int(tc.num_nodes)],
+                           tp.split_bin[:int(tc.num_nodes)])
+        for tc, tp in zip(bc.trees, bp.trees))
+    diff = float(np.abs(bc.predict_margin(Xh, device="cpu")
+                        - bp.predict_margin(Xh, device="cpu")).max())
+    return dict(rows=rows, same_splits=bool(same), margin_diff=diff)
+
+
+def p25_main(card, seed: int, rows: int, iters: int) -> dict:
+    """Phase 25c on this rank: ``Pipeline([GBDTClassifier(numShards=0)])
+    .fit`` over the gang at ``rows`` x 28 (this rank holds half), with
+    the histogram wire in f32 and in int8.  Launch counts are reset just
+    before each fit and read just after; every histogram all-reduce is
+    counted (calls, logical and wire bytes by the codec's model, host
+    seconds between synchronizations).  Rank 0 transforms the 100k
+    holdout.  → per codec: fit s, s/iteration, the model string's md5,
+    launches, all-reduces and bytes an iteration, ms an all-reduce, and
+    rank 0's holdout AUC."""
+    import hashlib
+    from synapseml_tpu_torch.core import Dataset, Pipeline
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    from synapseml_tpu_torch.parallel.compression import (codec_eligible,
+                                                          wire_nbytes)
+    X, y, Xh, yh = p25_data(seed, rows)
+    ds = Dataset({"features": list(X), "label": y})
+    hold = (Dataset({"features": list(Xh), "label": yh}) if card.rank == 0
+            else None)
+    orig = B.planned_psum
+    out = {}
+    for codec in ("none", "int8"):
+        acc = dict(calls=0, logical=0, wire=0, seconds=0.0)
+
+        def counted(h, mesh, axis, config, op, acc=acc):
+            synchronize(card.device)
+            t0 = time.perf_counter()
+            res = orig(h, mesh, axis, config, op=op)
+            synchronize(card.device)
+            acc["seconds"] += time.perf_counter() - t0
+            acc["calls"] += 1
+            acc["logical"] += h.numel() * h.element_size()
+            live = config if codec_eligible(h.shape, h.dtype,
+                                            config) else None
+            acc["wire"] += wire_nbytes(h, live, channel_major=True)
+            return res
+
+        B.planned_psum = counted
+        try:
+            L.reset()
+            t0 = time.perf_counter()
+            model = Pipeline(stages=[GBDTClassifier(
+                numShards=0, numIterations=iters, device=str(card.device),
+                collectiveCompression=codec)]).fit(ds)
+            synchronize(card.device)
+            fit_s = time.perf_counter() - t0
+            shapes = dict(L.BY_SHAPE)
+            launches = {k: L.total(k) for k in ("build_hist_nodes",
+                                                "route_and_hist")}
+        finally:
+            B.planned_psum = orig
+        gbdt = model.get_or_default("stages")[0]
+        r = dict(fit_s=fit_s,
+                 s_per_iter=gbdt.training_measures.seconds_per_iteration(),
+                 md5=hashlib.md5(gbdt.get_model_string().encode())
+                 .hexdigest(), trees=len(gbdt.booster.trees),
+                 launches=launches, shapes=shapes,
+                 allreduces_per_iter=acc["calls"] / iters,
+                 logical_bytes_per_iter=acc["logical"] / iters,
+                 wire_bytes_per_iter=acc["wire"] / iters,
+                 allreduce_ms=acc["seconds"] / max(acc["calls"], 1) * 1e3,
+                 allreduce_s_per_iter=acc["seconds"] / iters)
+        if hold is not None:
+            t0 = time.perf_counter()
+            res = model.transform(hold)
+            r["transform_s"] = time.perf_counter() - t0
+            r["auc"] = float(auc(yh, np.stack(res["probability"])[:, 1]))
+        out[codec] = r
+    return out
+
+
+def phase25_gang(args: dict) -> dict:
+    """One rank of phase 25's two-rank gang, both ranks on the one card
+    over gloo (run by ``run_on_local_cluster``): the build, (a) the
+    cluster report, (b) the collectives card against CPU, (e) a small fit
+    card against CPU and (c) the main path.  ``parallel_gang`` checks."""
+    from synapseml_tpu_torch.parallel.distributed import rendezvous_seconds
+    from synapseml_tpu_torch.parallel.mesh import data_parallel_mesh
+    from synapseml_tpu_torch.parallel.selfcheck import cluster_report
+    dev = args.get("device", "cuda")
+    out = dict(task_start_unix=time.time(),
+               rendezvous_s=rendezvous_seconds(), **p25_build(dev))
+    out["report"] = cluster_report({"device": dev})
+    card = data_parallel_mesh(device=dev)
+    host = data_parallel_mesh(device="cpu")
+    out["collectives"] = p25_collectives(card, host, args["seed"])
+    out["card_vs_cpu"] = p25_card_vs_cpu(card, host, args["seed"],
+                                         args["iters"], args["small_rows"])
+    out["main"] = p25_main(card, args["seed"], args["rows"], args["iters"])
+    return out
+
+
+def phase25_nccl(args: dict) -> dict:
+    """Phase 25 (a) and (d) on a one-rank NCCL group: the cluster report,
+    and a fit over the group against the fit without one."""
+    import hashlib
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    from synapseml_tpu_torch.parallel.distributed import rendezvous_seconds
+    from synapseml_tpu_torch.parallel.mesh import data_parallel_mesh
+    from synapseml_tpu_torch.parallel.selfcheck import cluster_report
+    dev = args.get("device", "cuda")
+    out = dict(task_start_unix=time.time(),
+               rendezvous_s=rendezvous_seconds(), **p25_build(dev))
+    out["report"] = cluster_report({"device": dev})
+    X, y, _, _ = p25_data(args["seed"] + 252, args.get(
+        "nccl_rows", P25_NCCL_ROWS), hold=1)
+    cfg = BoostingConfig(objective="binary", num_iterations=args["iters"])
+    alone, _ = train(X, y, cfg, device=dev)
+    grouped, _ = train(X, y, cfg, mesh=data_parallel_mesh(device=dev),
+                       device=dev)
+    out["equal"] = alone.to_string() == grouped.to_string()
+    out["md5"] = hashlib.md5(grouped.to_string().encode()).hexdigest()
+    return out
+
+
+def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
+                  check_path, small_rows: int = P25_SMALL_ROWS,
+                  nccl_rows: int = P25_NCCL_ROWS) -> dict:
+    """Phase 25 from the launching process: the two-rank gloo gang and the one-rank
+    NCCL gang on the one card, then the one-process default fit.  Each
+    rank's default fit is the kernels line's run ``phase25r<rank>``
+    (``check_path``).  With ``dev`` the CPU it runs small there (the
+    one-rank gang over gloo).  Raises on a failed check."""
+    from synapseml_tpu_torch.parallel import run_on_local_cluster
+    on_card = dev.type == "cuda"
+    kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+    args = dict(seed=seed, rows=rows, iters=iters, device=dev.type,
+                small_rows=small_rows, nccl_rows=nccl_rows)
+    t0 = time.time()
+    ranks = run_on_local_cluster("chip_smoke:phase25_gang", 2,
+                                 task_args=args, device=dev.type,
+                                 backend="gloo",
+                                 timeout_s=P25_GANG_TIMEOUT_S)
+    gang_s = time.time() - t0
+    out = {"gang_s": gang_s}
+    for r, res in enumerate(ranks):
+        log(f"phase 25 rank {r}: build {res['build_s']:.4f} s (cached "
+            f"{res['cached']}), launch to task "
+            f"{res['task_start_unix'] - t0:.2f} s, rendezvous "
+            f"{res['rendezvous_s']:.3f} s | {card}")
+        if on_card and not res["cached"]:
+            raise AssertionError(f"phase 25: rank {r} compiled the kernels "
+                                 "again instead of loading phase 1's build")
+    # (a) the cluster report, both ranks on the one card
+    for r, res in enumerate(ranks):
+        rep = res["report"]
+        if (rep["process_index"], rep["process_count"], rep["backend"]) \
+                != (r, 2, "gloo") or rep["psum_local"] != [1.0] \
+                or rep["all_gather"] != [0.0, 1.0] \
+                or rep["device_table"] != [[0, kind], [1, kind]] \
+                or rep["placement"] != ranks[0]["report"]["placement"]:
+            raise AssertionError(f"phase 25a rank {r}: {rep}")
+    log(f"phase 25a: two gloo ranks on the card: sums, gathers and "
+        f"placement as expected, device table {ranks[0]['report']['device_table']}")
+    # (b) the collectives on CUDA tensors, bit-equal to the CPU group's
+    for r, res in enumerate(ranks):
+        bad = {k: v for k, v in res["collectives"].items() if not v["equal"]}
+        if bad:
+            raise AssertionError(f"phase 25b rank {r}: card differs from "
+                                 f"the CPU group: {bad}")
+    out["collectives"] = ranks[0]["collectives"]
+    log(f"phase 25b: collectives on CUDA tensors over gloo, bit-equal to "
+        f"the CPU group (ms a call, staged host bytes a call) | {card}: "
+        f"{json.dumps(out['collectives'])}")
+    # (e) a 2-rank fit on the card against the CPU
+    for r, res in enumerate(ranks):
+        e = res["card_vs_cpu"]
+        if not e["same_splits"] or e["margin_diff"] > 1e-4:
+            raise AssertionError(f"phase 25e rank {r}: {e}")
+    log(f"phase 25e: 2-rank fit at {small_rows} rows, card vs CPU: "
+        f"same splits, margins within "
+        f"{max(r['card_vs_cpu']['margin_diff'] for r in ranks):.3g}")
+    # (c) the main path over the gang
+    main = [res["main"] for res in ranks]
+    for codec in ("none", "int8"):
+        if main[0][codec]["md5"] != main[1][codec]["md5"]:
+            raise AssertionError(f"phase 25c {codec}: the ranks' models "
+                                 "differ")
+        if main[0][codec]["auc"] <= 0.8:
+            raise AssertionError(f"phase 25c {codec}: holdout AUC "
+                                 f"{main[0][codec]['auc']}")
+        for r, m in enumerate(main):
+            # (on the CPU the plain versions run and nothing launches)
+            if on_card and min(m[codec]["launches"].values()) <= 0:
+                raise AssertionError(f"phase 25c {codec} rank {r}: a kernel "
+                                     f"never launched {m[codec]['launches']}")
+    if main[0]["int8"]["wire_bytes_per_iter"] >= \
+            main[0]["none"]["wire_bytes_per_iter"]:
+        raise AssertionError("phase 25c: int8 moved no fewer wire bytes")
+    for r, m in enumerate(main):
+        check_path(f"phase25r{r}", {"shapes": m["none"]["shapes"]})
+    out["main"] = {codec: {r: {k: v for k, v in m[codec].items()
+                               if k != "shapes"} for r, m in enumerate(main)}
+                   for codec in ("none", "int8")}
+    log(f"phase 25c: GBDTClassifier(numShards=0) over 2 gloo ranks on the "
+        f"card, {rows} x 28, {iters} iterations (f32 and int8 histogram "
+        f"wire) | {card}: {json.dumps(out['main'])}")
+    # (d) one rank over NCCL
+    t0 = time.time()
+    backend = "nccl" if on_card else "gloo"
+    (one,) = run_on_local_cluster("chip_smoke:phase25_nccl", 1,
+                                  task_args=args, device=dev.type,
+                                  backend=backend,
+                                  timeout_s=P25_GANG_TIMEOUT_S)
+    out["nccl_gang_s"] = time.time() - t0
+    rep = one["report"]
+    if (rep["backend"], rep["psum_local"], rep["device_table"]) != (
+            backend, [0.0], [[0, kind]]) or (on_card and not one["cached"]):
+        raise AssertionError(f"phase 25a ({backend}): {one}")
+    if not one["equal"]:
+        raise AssertionError("phase 25d: the one-rank NCCL fit differs from "
+                             "the fit without a group")
+    log(f"phase 25d: one {backend} rank: report as expected, trees "
+        f"bit-equal to the fit without a group ({nccl_rows} rows); build "
+        f"{one['build_s']:.4f} s, launch to task "
+        f"{one['task_start_unix'] - t0:.2f} s, rendezvous "
+        f"{one['rendezvous_s']:.3f} s")
+    # beside them, the one-process default fit (informational: the two
+    # ranks share the one card)
+    X, y, Xh, yh = p25_data(seed, rows)
+    solo, _ = fit_path(X, y, Xh, yh, iters, device=dev.type)
+    out["one_process_s_per_iter"] = solo["s_per_iter"]
+    log(f"phase 25: s/iteration one process {solo['s_per_iter']:.4f}, two "
+        f"gloo ranks f32 {main[0]['none']['s_per_iter']:.4f}, int8 "
+        f"{main[0]['int8']['s_per_iter']:.4f} (informational: both ranks "
+        f"share the card) | {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5322,7 +5677,7 @@ def main(argv=None) -> int:
     N_RANK = int(np.random.default_rng(args.seed + 13).integers(
         1, RANK_MAXG + 1, RANK_Q).sum())
     two_level = ("maxBin=255", "multiclass", "validation", "resumed",
-                 "phase22c", "phase23", "phase24")
+                 "phase22c", "phase23", "phase24", "phase25r0", "phase25r1")
     mono = ("monotone basic", "monotone intermediate", "monotone advanced")
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
@@ -5761,7 +6116,8 @@ def main(argv=None) -> int:
 
     # -- 16. the online learners at Criteo's column shape --------------------
     torch.cuda.empty_cache()
-    online(args.seed, dev)
+    # one turn (eager, then graph): three turns cost ~17 s more
+    online(args.seed, dev, turns=1)
     wall("16")
 
     # -- 17. the MoE text encoder at BERT-base width -------------------------
@@ -5804,8 +6160,10 @@ def main(argv=None) -> int:
         f"LLMTransformer) and the SIGKILL failover resumed token-exact: "
         f"{json.dumps(p20a)} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    # one turn of each engine (int8, bf16): two turns cost ~10 s more
     p20b = pretrained_int8(model, prompts, new, dev,
-                           os.path.join(TIER_ROOT, "b"))
+                           os.path.join(TIER_ROOT, "b"),
+                           turns=("int8", "bf16"))
     log(f"phase 20b: Llama-3.2-1B from an HF directory, int8 against bf16: "
         f"{json.dumps(p20b)} in {time.perf_counter() - t0:.1f} s")
     log(f"phase 20b: decode tokens/s int8 {p20b['int8']['decode_tokens_per_s']}"
@@ -5844,7 +6202,9 @@ def main(argv=None) -> int:
         f"| {card}: {json.dumps(p22a)}")
     if L.BY_SHAPE:
         raise AssertionError(f"phase 22a launched {dict(L.BY_SHAPE)}")
-    p22 = a6_paths(args.seed, dev, card, resnet)
+    # ImageLIME over 2 images and tabular SHAP/LIME over 128 rows (8
+    # images and 256 rows cost ~24 s more)
+    p22 = a6_paths(args.seed, dev, card, resnet, n_images=2, n_explain=128)
     check_path("phase22c", p22["gbdt"])
     log(f"phase 22: no K-kernel on this slice's path (the JAX package has "
         f"no TPU kernel here): the explainers, KNN, the isolation forest, "
@@ -5855,7 +6215,10 @@ def main(argv=None) -> int:
 
     # -- 23. serving on the card: CSV → fit → PipelineServer ----------------
     torch.cuda.empty_cache()
-    serving_paths(args.seed, dev, card, p21.pop("bert"), check_path)
+    # 128 records a client, and the two-API load at half its records
+    # (256, 1,024 and 2,048 cost ~12 s more)
+    serving_paths(args.seed, dev, card, p21.pop("bert"), check_path,
+                  per_thread=128, n_bert=512, n_gbdt_multi=1024)
     del p21
     log(f"phase 23: no K-kernel outside the fit: K1/K2 launched only in "
         f"23b's GBDT fit {json.dumps(paths['phase23']['shapes'])}")
@@ -5876,6 +6239,11 @@ def main(argv=None) -> int:
                                 os.path.join(P24_ROOT, "trace"))
     shutil.rmtree(P24_ROOT, ignore_errors=True)
     wall("24")
+
+    # -- 25. the parallel layer: a local gang of ranks on the one card -------
+    torch.cuda.empty_cache()
+    parallel_gang(args.seed, dev, card, N, args.iters, check_path)
+    wall("25")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

@@ -220,18 +220,22 @@ class _DLParamsBase(Params):
                 f"{type(self).__name__}: {what} is not ported yet "
                 f"(ROADMAP {item})")
         if self.numDevices > 1:
-            refuse("numDevices > 1 (a data-parallel mesh)", "A5")
+            refuse("numDevices > 1 (a data-parallel mesh)",
+                   "A5: DL mesh training")
         if self.modelParallelism > 1:
-            refuse("modelParallelism > 1 (tensor parallelism)", "A5")
+            refuse("modelParallelism > 1 (tensor parallelism)",
+                   "A5: DL mesh training")
         if self.zero1:
-            refuse("zero1 (sharded optimizer moments)", "A5")
+            refuse("zero1 (sharded optimizer moments)",
+                   "A5: DL mesh training")
         cc = self.get("collectiveCompression")
         if cc is not None and cc != "none":
-            refuse(f"collectiveCompression={cc!r} (compressed collectives)",
-                   "A5")
+            refuse(f"collectiveCompression={cc!r} (compressed gradient "
+                   "collectives)", "A5: DL mesh training")
         if self.get("checkpointDir") or self.get("checkpointManager"):
             refuse("checkpointDir/checkpointManager (DL step checkpoints, "
-                   "built on core.checkpoint and the planner)", "A5")
+                   "built on core.checkpoint and the planner)",
+                   "A5: core/checkpoint.py")
         check_profiler(self.get("stepProfiler"), type(self).__name__)
 
     def _precision_policy(self):
@@ -279,7 +283,7 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
         if self.expertParallelism > 1:
             raise NotImplementedError(
                 "DeepTextClassifier: expertParallelism > 1 (an expert mesh "
-                "axis) is not ported yet (ROADMAP A5)")
+                "axis) is not ported yet (ROADMAP A5: expertParallelism)")
 
     def _model_config(self, num_classes: int) -> TransformerConfig:
         sizes = {

@@ -13,9 +13,16 @@ Checkpoints are the JAX package's version-2 JSON (:meth:`Booster.to_dict`),
 and :meth:`Booster.to_string` writes the LightGBM text format, so a
 model, or a checkpoint, moves between the two packages both ways.
 
-What is not ported yet (a mesh: voting/feature parallel growth and
-distributed lambdarank) raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+``train(..., mesh=ProcessMesh)`` trains data-parallel across the ranks
+of a ``torch.distributed`` group (:mod:`synapseml_tpu_torch.parallel`):
+every rank holds the full data and bins it identically, keeps its
+contiguous block of the rows (padded to a multiple of the world size
+with zero-weight rows), and the growers sum each decoded histogram
+across the ranks through the collective planner
+(``collective_compression``: none, bf16 or int8), so every rank grows
+the same trees.  What is not ported yet (voting- and feature-parallel
+growth, distributed lambdarank, a mesh fit's checkpoint directory)
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ from .binning import (BinMapper, FeatureBundler, bin_features, bundle_bins,
                       fit_bin_mapper)
 from .hist import rows_geometry
 from . import prng
+from ...parallel.compression import resolve_collective_config
+from ...parallel.heartbeat import beat
+from ...parallel.mesh import DATA_AXIS, ProcessMesh, block_bounds
+from ...parallel.planner import planned_psum
 from .objectives import (get_objective, initial_score, objective_kwargs,
                          ova_grad_hess, softmax_grad_hess)
 from .ranking import build_group_index, make_lambdarank_objective
@@ -147,7 +158,7 @@ def _check_ported(config: BoostingConfig) -> None:
     checks = [
         (config.parallelism != "data_parallel",
          f"parallelism={config.parallelism!r}",
-         "A5, voting/feature parallel"),
+         "A5: voting- and feature-parallel GBDT"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -783,27 +794,53 @@ def _add_scores(scores, contrib, k: int, K: int):
     return out
 
 
+def _bin_rows(x: np.ndarray, mapper: BinMapper,
+              bundler: Optional[FeatureBundler],
+              dev: torch.device) -> torch.Tensor:
+    b = bin_features(x, mapper, dev)
+    return bundle_bins(b, bundler) if bundler is not None else b
+
+
 def _bin_stream(source, mapper: BinMapper,
                 bundler: Optional[FeatureBundler], n: int,
-                dev: torch.device) -> torch.Tensor:
+                dev: torch.device, rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
     """The binned matrix of a chunked source: each chunk is uploaded,
     binned (and bundled) on ``dev`` and written straight into its column
     range of one preallocated (Fb, n) int32 matrix, so neither the host
-    nor the device holds a second copy."""
+    nor the device holds a second copy.  ``rows`` = [lo, hi): only those
+    rows of the source, rows at ``>= n`` binned as all-NaN pad rows (a
+    data-parallel rank's block)."""
+    lo, hi = rows if rows is not None else (0, n)
     Fb = bundler.num_bundles if bundler is not None else mapper.num_features
-    out = torch.empty((Fb, n), dtype=torch.int32, device=dev)
-    lo = 0
+    out = torch.empty((Fb, hi - lo), dtype=torch.int32, device=dev)
+    start = 0
     for cx, _, _ in source.iter_chunks():
-        b = bin_features(cx, mapper, dev)
-        if bundler is not None:
-            b = bundle_bins(b, bundler)
-        out[:, lo:lo + b.shape[1]] = b
-        lo += b.shape[1]
-    if lo != n:
-        raise ValueError(f"the source's chunks hold {lo} rows, its "
+        a, b = max(start, lo), min(start + len(cx), hi)
+        if a < b:
+            out[:, a - lo:b - lo] = _bin_rows(cx[a - start:b - start],
+                                              mapper, bundler, dev)
+        start += len(cx)
+    if start != n:
+        raise ValueError(f"the source's chunks hold {start} rows, its "
                          f"num_rows {n}")
+    if hi > n:
+        out[:, max(n, lo) - lo:] = _bin_rows(
+            np.full((1, mapper.num_features), np.nan, np.float32), mapper,
+            bundler, dev)
     return out
 
+
+def _block(a: Optional[np.ndarray], lo: int, hi: int, fill=0):
+    """Rows [lo, hi) of ``a``, padded past its end with ``fill``."""
+    if a is None:
+        return None
+    part = a[lo:min(hi, len(a))]
+    pad = hi - max(lo, len(a))
+    if pad > 0:
+        part = np.concatenate(
+            [part, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+    return part
 
 def train(X, y: Optional[np.ndarray], config: BoostingConfig,
           sample_weight: Optional[np.ndarray] = None,
@@ -854,8 +891,18 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
 
     ``objective="lambdarank"`` takes ``group``, the query group sizes in
     row order (rows group-contiguous), and NDCG validation
-    ``valid_group``.  ``mesh`` is not ported (ROADMAP A5) and must be
-    None.
+    ``valid_group``.
+
+    ``mesh`` (a :class:`~synapseml_tpu_torch.parallel.mesh.ProcessMesh`
+    on ``device``) trains data-parallel over its ``data`` axis, the JAX
+    package's ``train(..., mesh=data_parallel_mesh(n))``: every rank
+    passes the full data, fits the same bin mapper, keeps its contiguous
+    block of the rows padded to a multiple of the world size with
+    zero-weight rows, folds its rank into the bagging key, and sums each
+    decoded histogram across the ranks (``collective_compression`` on
+    the wire); every rank returns the same booster.  Lambdarank, a
+    checkpoint directory and the step profiler's cost capture are not
+    ported over a mesh (ROADMAP queue A5).
 
     ``step_profiler`` (a :class:`~synapseml_tpu_torch.telemetry.gangplane
     .StepProfiler`) decomposes each iteration's wall time into data (the
@@ -867,19 +914,40 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     added."""
     dev = resolve_device(device)
     if mesh is not None:
-        raise NotImplementedError(
-            "train over a mesh (sharded histograms; for lambdarank whole "
-            "query groups packed onto shards, the sharded objective and "
-            "streamed distributed ranking) is not ported yet (ROADMAP "
-            "queue A5); pass mesh=None")
+        if config.objective == "lambdarank":
+            raise NotImplementedError(
+                "lambdarank over a mesh (whole query groups packed onto "
+                "ranks, the sharded objective and streamed distributed "
+                "ranking) is not ported yet (ROADMAP queue A5: "
+                "distributed lambdarank); pass mesh=None")
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "a checkpoint directory over a mesh (every rank writing "
+                "one directory) waits for core/checkpoint.py (ROADMAP "
+                "queue A5: core/checkpoint.py)")
+        if not isinstance(mesh, ProcessMesh):
+            raise TypeError(f"mesh must be a ProcessMesh, got "
+                            f"{type(mesh).__name__}")
+        if mesh.device != dev:
+            raise ValueError(f"the mesh's device {mesh.device} is not "
+                             f"device={dev}")
+        if step_profiler is not None and step_profiler.capture_xla:
+            raise NotImplementedError(
+                "the step profiler's cost capture over a mesh (it reruns "
+                "an iteration, collectives included) is not ported yet "
+                "(ROADMAP queue A5: DL mesh training)")
     if checkpoint_dir is not None and not isinstance(checkpoint_dir,
                                                      (str, os.PathLike)):
         raise NotImplementedError(
             "checkpoint managers (core.checkpoint.CheckpointManager) are "
-            "not ported yet (ROADMAP queue A5); pass a directory")
+            "not ported yet (ROADMAP queue A5: core/checkpoint.py); pass a "
+            "directory")
     _check_ported(config)
     _check_ported_on(config, dev)
     check_profiler(step_profiler, "train")
+    # the histogram wire's codec (validated here; it applies only where
+    # the histogram all-reduce exists: over a mesh)
+    cconfig = resolve_collective_config(config.collective_compression)
     measures = InstrumentationMeasures()
     t0 = time.perf_counter()
     ckpt_every = checkpoint_interval if checkpoint_dir else 0
@@ -936,6 +1004,13 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     else:
         X = np.ascontiguousarray(X, np.float32)
         n, F = X.shape
+    # this rank's rows [lo, hi) of the padded rows (all rows on one device)
+    rank = 0
+    lo, hi = 0, n
+    if mesh is not None:
+        rank = mesh.axis_index(DATA_AXIS)
+        lo, hi = block_bounds(n, mesh.axis_size(DATA_AXIS), rank)
+    n_local = hi - lo
     _check_monotone(config, F)
     K = config.num_class if config.objective in MULTICLASS else 1
     feature_names = (list(feature_names) if feature_names
@@ -959,7 +1034,8 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             X, config.max_bin, sample_count=config.bin_sample_count,
             seed=config.seed, categorical_features=config.categorical_feature,
             y=np.asarray(y, np.float64))
-    bins_t = None if source is not None else bin_features(X, mapper, dev)
+    bins_t = (None if source is not None
+              else bin_features(_block(X, lo, hi, np.nan), mapper, dev))
     B = config.max_bin + 1
     bundler = bundle_map = None
     if config.enable_bundle:
@@ -972,8 +1048,11 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                 sample_b = bin_features(source.sample_rows(
                     min(config.bin_sample_count, 50_000), config.seed),
                     mapper, dev)
-            else:
+            elif mesh is None:
                 sample_b = bins_t[:, :min(n, 50_000)]
+            else:
+                # every rank fits on the same (global) first rows
+                sample_b = bin_features(X[:min(n, 50_000)], mapper, dev)
             bundler = FeatureBundler.fit(
                 sample_b.t().cpu().numpy(), mapper.num_bins,
                 max_total_bins=B, max_conflict_rate=config.max_conflict_rate)
@@ -987,7 +1066,7 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                       for k, v in bundler.route_tables(mapper.num_bins,
                                                        B).items()}
     if source is not None:
-        bins_t = _bin_stream(source, mapper, bundler, n, dev)
+        bins_t = _bin_stream(source, mapper, bundler, n, dev, (lo, hi))
     synchronize(dev)
     measures.binning_s = time.perf_counter() - t0
     t_prep = time.perf_counter()
@@ -1017,6 +1096,9 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                           np.float32)
     else:
         init_sc = np.zeros(K, np.float32)
+    # from here on this rank's rows only (pad rows: label 0, weight 0)
+    labels_np = _block(labels_np, lo, hi)
+    w = _block(w, lo, hi)
 
     # "auto" two-level resolves from the row count, as the JAX package
     # resolves it when its kernel grower is in play
@@ -1025,25 +1107,29 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             config, two_level_hist=("on" if n >= TWO_LEVEL_MIN_ROWS
                                     else "off"))
     labels = torch.as_tensor(labels_np, device=dev)
-    weights = (torch.ones(n, dtype=torch.float32, device=dev) if w is None
-               else torch.as_tensor(w, device=dev))
-    init_scores = torch.full((n,) if K == 1 else (n, K), float(init_sc[0]),
-                             dtype=torch.float32, device=dev)
+    weights = (torch.ones(n_local, dtype=torch.float32, device=dev)
+               if w is None else torch.as_tensor(w, device=dev))
+    init_scores = torch.full((n_local,) if K == 1 else (n_local, K),
+                             float(init_sc[0]), dtype=torch.float32,
+                             device=dev)
     is_rf = config.boosting_type == "rf"
     # a warm start continues from the carried model's margin (rf trees
     # fit at the constant init margin)
     if init_model is None or is_rf:
         scores = init_scores
     elif source is None:
-        scores = _replay_margin(init_model, X, dev)
+        scores = _replay_margin(init_model, _block(X, lo, hi, np.nan), dev)
     else:
         # the carried margin, replayed chunk by chunk (a row's margin
-        # depends on that row alone)
-        scores = torch.empty_like(init_scores)
-        lo = 0
+        # depends on that row alone); pad rows keep the init margin
+        scores = init_scores.clone()
+        start = 0
         for cx, _, _ in source.iter_chunks():
-            scores[lo:lo + len(cx)] = _replay_margin(init_model, cx, dev)
-            lo += len(cx)
+            a, b = max(start, lo), min(start + len(cx), hi)
+            if a < b:
+                scores[a - lo:b - lo] = _replay_margin(
+                    init_model, cx[a - start:b - start], dev)
+            start += len(cx)
     if K > 1:
         onehot = torch.nn.functional.one_hot(labels.long(), K).to(
             torch.float32)
@@ -1073,15 +1159,26 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     lr = 1.0 if is_rf else config.learning_rate
     use_bagging = (config.bagging_fraction < 1.0
                    and (is_rf or config.bagging_freq > 0))
+    hist_ar = None
+    if mesh is not None:
+        op = "gbdt_hist_psum" if cconfig is not None else "psum"
+
+        def hist_ar(h):
+            return planned_psum(h, mesh, DATA_AXIS, cconfig, op=op)
     if config.growth_policy == "lossguide":
-        grower = functools.partial(grow_tree, bundle_map=bundle_map)
+        grower = functools.partial(grow_tree, bundle_map=bundle_map,
+                                   hist_allreduce=hist_ar)
     else:
         grower = functools.partial(grow_tree_depthwise,
                                    n_slots=_n_slots(config),
-                                   bundle_map=bundle_map)
+                                   bundle_map=bundle_map,
+                                   hist_allreduce=hist_ar)
     fused = _fused_ingest_on(config)
     bag_root = prng.prng_key(config.bagging_seed)
-    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    # the rows' base weight: 1, and 0 for a rank's pad rows
+    ones = torch.ones(n_local, dtype=torch.float32, device=dev)
+    if hi > n:
+        ones[max(n, lo) - lo:] = 0.0
     # leaf-wise depth is bounded by num_leaves - 1 splits
     depth_hint = max(2, config.num_leaves)
     # continued training picks the key streams up where the carried model
@@ -1200,9 +1297,14 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             key = prng.prng_key((config.seed * 100003 + gi) & 0xffffffff)
             bag = ones
             if use_bagging:
-                bag = bag_mask(prng.fold_in(
-                    bag_root, gi // max(config.bagging_freq, 1)), n,
-                    config.bagging_fraction, dev)
+                bag_key = prng.fold_in(bag_root,
+                                       gi // max(config.bagging_freq, 1))
+                if mesh is not None:
+                    # each rank draws its own rows' bag, as the JAX
+                    # package's fold_in(bag_key, axis_index)
+                    bag_key = prng.fold_in(bag_key, rank)
+                bag = bag_mask(bag_key, n_local, config.bagging_fraction,
+                               dev) * ones
 
             if prof is not None:
                 prof.mark("data")
@@ -1281,6 +1383,8 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                     pre_t + trees, pre_c + tree_class, pre_w + tree_weights, K,
                     config.objective, init_sc, mapper, feature_names, config,
                     device=dev, bundler=bundler))
+            if mesh is not None:
+                beat(prior_iters + it + 1)    # the gang's progress
             if prof is not None:
                 prof.step_end()       # evaluation + checkpoint: "other"
     finally:

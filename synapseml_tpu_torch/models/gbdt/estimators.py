@@ -9,11 +9,16 @@ traversal on the model's ``device`` (``featuresShapCol`` adds TreeSHAP
 contributions, computed on the host as in the JAX package).
 ``get_model_string`` writes the LightGBM text format and
 ``load_native_model_from_string`` / ``_from_file`` read it or the
-version-2 JSON.  The param surface is the JAX package's.  The mesh knobs
-train on the one card at ``numShards`` 0 or 1 and codec ``None`` /
-``'none'``; other values, and params whose features are not ported (the
-checkpoint manager, voting/feature parallelism), raise
-``NotImplementedError`` at ``fit`` before any work.
+version-2 JSON.  The param surface is the JAX package's.  ``numShards``
+counts the ranks of the initialized ``torch.distributed`` group (in the
+JAX package it counts local devices): 0 trains over every rank (one
+rank, or no group, trains locally), 1 trains locally on each rank, the
+world size trains data-parallel (``booster.train(mesh=...)``, every rank
+fitting the same model), and any other value raises.
+``collectiveCompression`` (``none`` / ``bf16`` / ``int8`` or a
+``CollectiveConfig``) is the histogram all-reduce's wire codec.  Params
+whose features are not ported (the checkpoint manager, voting/feature
+parallelism) raise ``NotImplementedError`` at ``fit`` before any work.
 """
 
 from __future__ import annotations
@@ -78,9 +83,9 @@ class GBDTParams(Params):
         doc="split data into k sequential warm-started batches",
         default=0)
     numShards = IntParam(
-        doc="data-parallel shards over the device mesh; 0 = all local "
-            "devices.  The port trains on one card: 0 and 1 train, more "
-            "shards raise (ROADMAP queue A5)", default=0)
+        doc="data-parallel shards: the ranks of the initialized "
+            "torch.distributed group; 0 = every rank, 1 = train locally",
+        default=0)
     parallelism = StringParam(
         doc="data_parallel|voting_parallel|feature_parallel "
             "(data_parallel on one card is ported)",
@@ -105,7 +110,7 @@ class GBDTParams(Params):
                                       "(0 = off)", default=0)
     checkpointManager = PyObjectParam(
         doc="core.checkpoint.CheckpointManager to checkpoint through (not "
-            "ported yet: ROADMAP A5)")
+            "ported yet: ROADMAP A5, core/checkpoint.py)")
     monotoneConstraints = ListParam(
         doc="per-feature monotone direction {-1, 0, 1}: 1 forces "
             "predictions non-decreasing in the feature, -1 non-increasing")
@@ -120,22 +125,35 @@ class GBDTParams(Params):
     predictDisableShapeCheck = BoolParam(doc="skip feature-count check at "
                                              "predict", default=False)
     collectiveCompression = PyObjectParam(
-        doc="wire codec for the data-parallel histogram allreduce: "
-            "None or 'none' on the one card; any other codec raises "
-            "(ROADMAP queue A5)")
+        doc="wire codec for the data-parallel histogram allreduce: None / "
+            "'none', 'bf16', 'int8' or a CollectiveConfig (ignored without "
+            "a mesh, as in the JAX package)")
 
-    def _check_mesh_knobs(self) -> None:
-        """Refuse the mesh knobs the one card cannot honour, before any
-        work."""
-        if int(self.numShards) not in (0, 1):
+    def _mesh(self):
+        """The data-parallel mesh ``numShards`` asks for (None: train
+        locally), checked before any work."""
+        if self.parallelism != "data_parallel":
             raise NotImplementedError(
-                f"numShards={self.numShards}: data-parallel GBDT over "
-                "several cards is not ported yet (ROADMAP queue A5)")
-        codec = self.get("collectiveCompression")
-        if codec is not None and codec != "none":
-            raise NotImplementedError(
-                f"collectiveCompression={codec!r}: compressed histogram "
-                "collectives are not ported yet (ROADMAP queue A5)")
+                f"parallelism={self.parallelism!r} is not ported yet "
+                "(ROADMAP queue A5: voting- and feature-parallel GBDT)")
+        from ...parallel.compression import resolve_collective_config
+        resolve_collective_config(self.get("collectiveCompression"))
+        import torch.distributed as dist
+        world = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
+        shards = int(self.numShards) or world
+        if shards == 1:
+            return None
+        if shards != world:
+            raise ValueError(
+                f"numShards={self.numShards}: in the port the shards are "
+                f"the ranks of the initialized torch.distributed group, "
+                f"which has {world} (parallel.initialize_cluster, "
+                "parallel.run_on_local_cluster); in the JAX package they "
+                "are local devices.  Pass 0 (every rank), 1 (local) or "
+                f"{world}")
+        from ...parallel.mesh import data_parallel_mesh
+        return data_parallel_mesh(device=self.device)
 
     def _build_config(self, objective: str, num_class: int = 1) -> BoostingConfig:
         extra = self.passThroughArgs or {}
@@ -178,6 +196,8 @@ class GBDTParams(Params):
             if self.get("monotoneConstraints") else None,
             monotone_constraints_method=self.monotoneConstraintsMethod,
             monotone_penalty=self.monotonePenalty,
+            collective_compression=(self.get("collectiveCompression")
+                                    or "none"),
         )
         for k, v in extra.items():
             if hasattr(cfg, k):
@@ -209,20 +229,21 @@ class GBDTParams(Params):
         if self.get("checkpointManager") is not None:
             raise NotImplementedError(
                 "checkpointManager (core.checkpoint.CheckpointManager) is "
-                "not ported yet (ROADMAP queue A5); use checkpointDir")
+                "not ported yet (ROADMAP queue A5: core/checkpoint.py); use "
+                "checkpointDir")
         return self.get("checkpointDir")
 
-    def _train(self, X, y, cfg, w, valid):
+    def _train(self, X, y, cfg, w, valid, mesh=None):
         return _train_batched(X, y, cfg, w, valid, self.numBatches,
                               checkpoint_dir=self._checkpoint_dir(),
                               checkpoint_interval=int(
                                   self.checkpointInterval),
-                              device=self.device)
+                              mesh=mesh, device=self.device)
 
 
 def _train_batched(X, y, cfg, w, valid, num_batches: int,
                    checkpoint_dir=None, checkpoint_interval: int = 0,
-                   device="cuda"):
+                   mesh=None, device="cuda"):
     """The ``numBatches`` fold: k sequential row batches, each fit warm
     started from the model of the ones before."""
     if num_batches and num_batches > 1:
@@ -235,13 +256,14 @@ def _train_batched(X, y, cfg, w, valid, num_batches: int,
         for part in np.array_split(np.arange(len(X)), num_batches):
             booster, h = train(X[part], y[part], cfg,
                                sample_weight=None if w is None else w[part],
-                               valid=valid, init_model=booster,
+                               valid=valid, init_model=booster, mesh=mesh,
                                device=device)
             history.extend(h)
         return booster, history
     return train(X, y, cfg, sample_weight=w, valid=valid,
                  checkpoint_dir=checkpoint_dir,
-                 checkpoint_interval=checkpoint_interval, device=device)
+                 checkpoint_interval=checkpoint_interval, mesh=mesh,
+                 device=device)
 
 
 class GBDTModelBase(Model):
@@ -329,7 +351,7 @@ class GBDTClassifier(GBDTParams, Estimator):
     thresholds = ListParam(doc="per-class prediction thresholds")
 
     def _fit(self, ds: Dataset) -> "GBDTClassificationModel":
-        self._check_mesh_knobs()
+        mesh = self._mesh()
         ds, valid_ds = self._split_validation(ds)
         X = self._features_matrix(ds)
         y_raw = np.asarray(ds[self.labelCol], np.float64)
@@ -350,7 +372,7 @@ class GBDTClassifier(GBDTParams, Estimator):
             valid = self._valid_tuple(valid_ds, np.searchsorted(
                 classes, np.asarray(valid_ds[self.labelCol],
                                     np.float64)).astype(np.float64))
-        booster, history = self._train(X, y, cfg, w, valid)
+        booster, history = self._train(X, y, cfg, w, valid, mesh)
         model = GBDTClassificationModel(
             boosterModel=booster,
             device=self.device,
@@ -417,7 +439,7 @@ class GBDTRegressor(GBDTParams, Estimator):
                                       default=1.5)
 
     def _fit(self, ds: Dataset) -> "GBDTRegressionModel":
-        self._check_mesh_knobs()
+        mesh = self._mesh()
         ds, valid_ds = self._split_validation(ds)
         X = self._features_matrix(ds)
         y = np.asarray(ds[self.labelCol], np.float64)
@@ -429,7 +451,7 @@ class GBDTRegressor(GBDTParams, Estimator):
         if valid_ds is not None:
             valid = self._valid_tuple(valid_ds, np.asarray(
                 valid_ds[self.labelCol], np.float64))
-        booster, history = self._train(X, y, cfg, w, valid)
+        booster, history = self._train(X, y, cfg, w, valid, mesh)
         model = GBDTRegressionModel(
             boosterModel=booster,
             device=self.device,
@@ -468,7 +490,7 @@ class GBDTRanker(GBDTParams, Estimator):
     evalAt = ListParam(doc="NDCG eval positions", default=[1, 3, 5, 10])
 
     def _fit(self, ds: Dataset) -> "GBDTRankerModel":
-        self._check_mesh_knobs()
+        mesh = self._mesh()
         ds, valid_ds = self._split_validation(ds)
         ds = ds.sort(self.groupCol)
         X = self._features_matrix(ds)
@@ -489,7 +511,7 @@ class GBDTRanker(GBDTParams, Estimator):
         booster, history = train(
             X, y, cfg, sample_weight=w, valid=valid, group=counts,
             valid_group=vgroups, checkpoint_dir=self._checkpoint_dir(),
-            checkpoint_interval=int(self.checkpointInterval),
+            checkpoint_interval=int(self.checkpointInterval), mesh=mesh,
             device=self.device)
         model = GBDTRankerModel(boosterModel=booster, device=self.device,
                                 featuresCol=self.featuresCol,

@@ -30,12 +30,22 @@ writes the JAX grower sends to its junk node never happen here; the
 kernels still see all ``n_slots`` slots, the unused ones pointing at the
 junk node, as in the JAX package.
 
-Not ported yet (ROADMAP queue A5): feature- and voting-parallel growth.
+Data-parallel growth: with ``hist_allreduce`` (the booster passes the
+planner's ``planned_psum`` over the mesh's data axis) each rank builds
+its histograms over its own rows, quantized with its own scales and
+decoded, and every decoded histogram is summed across the ranks at the
+places where the JAX grower calls ``ar``: the root, the two-level root's
+refined build, each wave's coarse and refined builds, and each lossguide
+build.  Every host decision (how many leaves a wave splits, the last
+wave's routing columns, whether a lossguide leaf can split) is read from
+the reduced histograms, so all ranks take the same branches and grow the
+same tree.  Not ported yet (ROADMAP queue A5: voting- and
+feature-parallel GBDT): voting- and feature-parallel growth.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -493,13 +503,15 @@ def _tl_final_pick(cg, ccum, f_hists, topk, sum_g, sum_h, sum_c, depth,
 
 
 def _tl_root_pick(bins_t, root_hist, root_stats, row_valid, vals8, scales,
-                  num_bins, num_bins_c, feature_mask, p: GrowthParams):
+                  num_bins, num_bins_c, feature_mask, p: GrowthParams,
+                  ar: Callable = lambda h: h):
     """The two-level root, shared by both growers: coarse gains → the
     tree's refined feature set → the root's fine histograms of those
     features (K1 by id) → the merged root pick.  The refined set is chosen
     ONCE per tree from the root's coarse per-feature gains, so every later
     build refines left children only and derives right children by fine
-    subtraction.  → (topk (K,) int32, root_fine (1, K, B, 3), the root's
+    subtraction.  ``ar`` sums the refined build across data-parallel
+    ranks.  → (topk (K,) int32, root_fine (1, K, B, 3), the root's
     (gain, feature, bin, gl, hl, cl))."""
     B = p.total_bins
     z1 = torch.zeros(1, dtype=torch.int32, device=bins_t.device)
@@ -508,8 +520,8 @@ def _tl_root_pick(bins_t, root_hist, root_stats, row_valid, vals8, scales,
                                           num_bins_c, feature_mask, p)
     topk = _topk_index(fgain0[0], p.refine_k)[1]
     rslot = torch.where(row_valid > 0, 0, -1).to(torch.int32)
-    root_fine = build_hist_nodes(bins_t, rslot, vals8, scales, 1, B,
-                                 feat=topk)
+    root_fine = ar(build_hist_nodes(bins_t, rslot, vals8, scales, 1, B,
+                                    feat=topk))
     rbest = _tl_final_pick(cg0, ccum0, root_fine, topk, g, h, c, z1,
                            num_bins, feature_mask, p, TWO_LEVEL_SHIFT)
     return topk, root_fine, tuple(x[0] for x in rbest)
@@ -546,7 +558,8 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
                         learning_rate: float,
                         p: GrowthParams,
                         n_slots: int = 16,
-                        bundle_map: Optional[dict] = None
+                        bundle_map: Optional[dict] = None,
+                        hist_allreduce: Optional[Callable] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree wave by wave → (tree, per-row leaf node ids).
 
@@ -558,10 +571,13 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
     histogram kernels run there.  ``bundle_map`` (EFB,
     ``FeatureBundler.route_tables`` on the device): ``bins_t`` holds the
     bundled columns, while the features, bounds and the tree are the
-    original ones."""
+    original ones.  ``hist_allreduce``: the data-parallel sum of a
+    decoded histogram across ranks (see the module docstring)."""
     if p.voting_k:
         raise NotImplementedError(
-            "voting-parallel growth is not ported yet (ROADMAP queue A5)")
+            "voting-parallel growth is not ported yet (ROADMAP queue A5: "
+            "voting- and feature-parallel GBDT)")
+    ar = hist_allreduce or (lambda h: h)
     dev = bins_t.device
     i32, f32 = torch.int32, torch.float32
     N = bins_t.shape[1]
@@ -598,7 +614,7 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
         ifull(1, 0), ifull(1, B), ifull(1, -1), ifull(1, B), ifull(1, 1),
         ifull(1, 0), ifull(1, 0), vals8, 1, B,
         hist_shift=(SH if tl else 0))
-    root_hist = _node_hists(out[1], scales, bundle_map)[0]  # (F, Bh, 3)
+    root_hist = ar(_node_hists(out[1], scales, bundle_map)[0])  # (F, Bh, 3)
     # the scan's last entry: the same adds in the same order on every
     # device (see _prefix_sum)
     root_stats = _prefix_sum(root_hist[0].t())[:, -1]
@@ -610,7 +626,7 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
     if tl:
         topk, root_fine, rbest = _tl_root_pick(
             bins_t, root_hist, root_stats, row_valid, vals8, scales,
-            num_bins, num_bins_c, feature_mask, p)
+            num_bins, num_bins_c, feature_mask, p, ar)
         bg, bf_, bb, bgl, bhl, bcl = rbest
     else:
         bg, bf_, bb, bgl, bhl, bcl = pick(root_hist, root_g, root_h, root_c,
@@ -678,8 +694,9 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
                 r_ids, vals8, S, B, hist_shift=(SH if tl else 0),
                 feat_k=topk)
             new_node_id = out[0]
-            l_hists = _node_hists(out[1], scales, bundle_map)
-            lf = _node_hists(out[2], scales) if tl else None
+            # only the wave's nv real slots are read: they are reduced
+            l_hists = ar(_node_hists(out[1], scales, bundle_map)[:nv])
+            lf = ar(_node_hists(out[2], scales)[:nv]) if tl else None
 
         lid, rid = l_ids[:nv].long(), r_ids[:nv].long()
         cids = torch.cat([lid, rid])
@@ -721,7 +738,7 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
             # the budget-filling wave's children never split again: their
             # histograms and picks would never be read
             break
-        l_flat = l_hists[:nv].reshape(nv, F * Bh, 3)
+        l_flat = l_hists.reshape(nv, F * Bh, 3)
         r_flat = hist[pslot] - l_flat
         hist[pslot] = l_flat
         hist[r_slots] = r_flat
@@ -736,7 +753,7 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
         if tl:
             cgm, ccum, _ = _tl_coarse_gains(
                 child_hists, cg, ch, cc, cd, num_bins_c, feature_mask, p)
-            lf_flat = lf[:nv].reshape(nv, K * B, 3)
+            lf_flat = lf.reshape(nv, K * B, 3)
             rf_flat = hist_f[pslot] - lf_flat
             hist_f[pslot] = lf_flat
             hist_f[r_slots] = rf_flat
@@ -792,7 +809,8 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
               num_bins: torch.Tensor,       # (F,) int32
               learning_rate: float,
               p: GrowthParams,
-              bundle_map: Optional[dict] = None
+              bundle_map: Optional[dict] = None,
+              hist_allreduce: Optional[Callable] = None
               ) -> Tuple[Tree, torch.Tensor]:
     """Strict leaf-wise (lossguide) growth → (tree, per-row leaf node ids).
 
@@ -804,10 +822,13 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
     best splits.  One host sync per split decides whether any leaf can
     still split (the JAX grower's ``lax.cond``); everything else stays on
     the device, with the chosen leaf as a one-element index tensor.
-    ``bundle_map``: as in :func:`grow_tree_depthwise`."""
+    ``bundle_map`` and ``hist_allreduce``: as in
+    :func:`grow_tree_depthwise`."""
     if p.voting_k:
         raise NotImplementedError(
-            "voting-parallel growth is not ported yet (ROADMAP queue A5)")
+            "voting-parallel growth is not ported yet (ROADMAP queue A5: "
+            "voting- and feature-parallel GBDT)")
+    ar = hist_allreduce or (lambda h: h)
     dev = bins_t.device
     i32, f32 = torch.int32, torch.float32
     N = bins_t.shape[1]
@@ -831,9 +852,9 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
         """K1 at one slot over the rows of ``in_node`` that carry weight
         → (F, Bh, 3), unbundled under EFB."""
         slot = torch.where(in_node & valid, 0, -1).to(i32)
-        return _node_hists(build_hist_nodes_limbs(
+        return ar(_node_hists(build_hist_nodes_limbs(
             bins_t, slot, vals8, 1, B, hist_shift=SH), scales,
-            bundle_map)[0]
+            bundle_map)[0])
 
     def pick(hists, g, h, c, d, lo, hi):
         return _best_split(hists, g, h, c, num_bins, feature_mask, d, p, lo,
@@ -849,7 +870,7 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
     if tl:
         topk, root_fine, rbest = _tl_root_pick(
             bins_t, root_hist, root_stats, row_valid, vals8, scales,
-            num_bins, num_bins_c, feature_mask, p)
+            num_bins, num_bins_c, feature_mask, p, ar)
     else:
         rbest = pick(root_hist, root_stats[0], root_stats[1], root_stats[2],
                      torch.zeros((), dtype=i32, device=dev), node_lo[0],
@@ -939,9 +960,9 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
             node_lo[kids] = torch.cat([l_lo, r_lo])
             node_hi[kids] = torch.cat([l_hi, r_hi])
         if tl:
-            lf = _node_hists(build_hist_nodes_limbs(
+            lf = ar(_node_hists(build_hist_nodes_limbs(
                 bins_t, torch.where(in_left & valid, 0, -1).to(i32), vals8,
-                1, B, feat=topk), scales).reshape(1, K * B, 3)
+                1, B, feat=topk), scales)).reshape(1, K * B, 3)
             rf = hist_f[pslot] - lf
             hist_f[pslot] = lf
             hist_f[r_slot] = rf[0]

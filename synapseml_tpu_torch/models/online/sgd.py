@@ -296,7 +296,7 @@ def _check_mesh(mesh) -> None:
         raise NotImplementedError(
             "train_sgd over a data-axis mesh (pass-end parameter "
             "averaging, mid-pass syncs) is not ported yet (ROADMAP queue "
-            "A5); train on one device")
+            "A5: the online learners' mesh); train on one device")
 
 
 def train_sgd(x: np.ndarray, y: np.ndarray, cfg: SGDConfig,

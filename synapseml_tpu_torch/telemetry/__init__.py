@@ -19,8 +19,9 @@ aside:
 and the profiling and tuning plane:
 
 - :mod:`.gangplane` — :class:`StepProfiler`, the step-level training
-  profiler (the reference module's gang half, the cross-rank export and
-  post-mortem bundles, waits for ROADMAP A5).
+  profiler, and the gang plane: the ``SMLMP_TM:`` wire export of worker
+  ranks, :class:`~.gangplane.GangPlane` (the launcher's merged view) and
+  the post-mortem bundles.
 - :mod:`.roofline` — counted bytes and flops of a step
   (:func:`~.roofline.capture`) and the roofline blocks, against the
   card's spec-sheet peaks.

@@ -16,13 +16,15 @@ The PyTorch port of the JAX package's ``telemetry/autotune.py``:
   space ran on (``autotune_trials_total{space,outcome}`` + flight events,
   a roofline block per winner);
 - :func:`fit_alpha_beta` and :class:`CollectiveCostModel`: the α-β fit
-  of collective timings (pure arithmetic; the planner that consults it
-  is ROADMAP A5).
+  of collective timings (pure arithmetic), which the collective planner
+  consults (``COST_MODEL_SPACE``).
 
 The builtin spaces tune the port's own kernels: ``gbdt_hist_geometry``
 (K1/K2's ``hist_rows_kernel`` features per block and tile),
 ``paged_attn_variant`` (K3's split or single kernel) and
-``llm_bucket_grid`` (the engine's prefill bucket floor).  A kernel
+``llm_bucket_grid`` (the engine's prefill bucket floor); and
+``int8_codec_chunk``, the collectives' int8 codec chunk (the JAX
+package's ``int8_chunk``), which ``resolve_collective_config`` consults.  A kernel
 space's runner times its launches' device time with CUDA events on a
 card (the runner returns seconds, which :meth:`StepProfiler.measure`
 trusts) and the host clock on the CPU, where the plain versions run:
@@ -62,7 +64,7 @@ AUTOTUNE_METRICS = frozenset({
 })
 
 #: the tuning-table space/geometry a fitted collective model records
-#: under (its consult waits for the planner, ROADMAP A5)
+#: under (the collective planner consults it)
 COST_MODEL_SPACE = "collective_cost_model"
 COST_MODEL_GEOMETRY = "link=ici"
 
@@ -74,6 +76,8 @@ TUNABLE_ENTRY_POINTS = {
     "synapseml_tpu_torch.models.llm.paged_attn": frozenset({
         "paged_decode_attention"}),
     "synapseml_tpu_torch.models.llm.slots": frozenset({"SlotEngine"}),
+    "synapseml_tpu_torch.parallel.compression": frozenset({
+        "int8_roundtrip"}),
 }
 
 
@@ -439,6 +443,39 @@ def _build_llm_bucket_grid(max_len: int = 64, num_layers: int = 2,
     return geometry, trials
 
 
+def _build_int8_codec_chunk(numel: Optional[int] = None,
+                            candidates: Sequence[int] = (64, 128, 256, 512,
+                                                         1024),
+                            device: Any = "cuda", reps: int = 5):
+    """Candidates: the int8 codec's chunk; runner: an encode + decode
+    round trip (:func:`~..parallel.compression.int8_roundtrip`) of a
+    seeded flat f32 vector, timed like the kernel spaces (CUDA events on
+    a card)."""
+    import numpy as np
+    import torch
+    from ..device import resolve_device
+    from ..parallel import compression as comp
+
+    dev = resolve_device(device)
+    numel = int(numel or comp.INT8_CHUNK_NUMEL)
+    geometry = geometry_key(numel=numel)
+    flat = torch.as_tensor(
+        np.random.default_rng(0).standard_normal(numel).astype(np.float32),
+        device=dev)
+    trials = []
+    for chunk in candidates:
+        chunk = int(chunk)
+        if chunk < 8 or numel % chunk:
+            continue
+
+        def runner(chunk=chunk):
+            return _self_timed(lambda: comp.int8_roundtrip(flat, chunk),
+                               dev, reps)
+
+        trials.append(({"chunk": chunk}, runner))
+    return geometry, trials
+
+
 def _ensure_builtin_spaces() -> None:
     global _builtin_done
     with _spaces_lock:
@@ -465,6 +502,13 @@ def _ensure_builtin_spaces() -> None:
             entry_point="synapseml_tpu_torch.models.llm.slots:SlotEngine",
             build=_build_llm_bucket_grid,
             description="prefill/span bucket-grid floor (min_bucket)"),
+        TuneSpace(
+            name="int8_codec_chunk",
+            entry_point="synapseml_tpu_torch.parallel.compression:"
+                        "int8_roundtrip",
+            build=_build_int8_codec_chunk,
+            description="values sharing one f32 scale in the collectives' "
+                        "int8 codec"),
     ):
         register_space(space)
 
@@ -499,7 +543,7 @@ def fit_alpha_beta(samples: Sequence[Tuple[float, float]]
 
 class CollectiveCostModel:
     """α-β pricing of collective routes (pure arithmetic; the port's
-    collective planner, which consults it, is ROADMAP A5).
+    collective planner consults it).
 
     Per-hop transfer time is ``t(n) = α + β·n``.  A recursive-doubling
     tree over ``w`` pow-2 ranks pays ``L = log2(w)`` serial hops of the

@@ -145,10 +145,12 @@ class _CheckpointManager:
     (dict(parallelism="voting_parallel"), {}, "A5"),
     ({}, dict(checkpoint_dir=_CheckpointManager(), checkpoint_interval=1),
      "A5"),
-    # kw None: the estimator's mesh knobs (train_kw), refused before the
-    # data is read
-    (None, dict(numShards=2), "A5"),
-    (None, dict(collectiveCompression="int8"), "A5"),
+    # kw None: the estimator's knobs (train_kw), refused before the data
+    # is read; numShards and collectiveCompression themselves train now
+    # (test_num_shards_are_the_group_ranks)
+    (None, dict(numShards=2, parallelism="feature_parallel"), "A5"),
+    (None, dict(collectiveCompression="int8",
+                parallelism="voting_parallel"), "A5"),
 ])
 def test_unported_config_raises(kw, train_kw, item, monkeypatch):
     X, y = _binary_data(n=200)
@@ -177,6 +179,28 @@ def test_one_card_mesh_knobs_train(est_kw):
     m = GBDTClassifier(device="cpu", numIterations=3, **est_kw).fit(
         TDataset({"features": list(X), "label": y}))
     assert len(m.booster.trees) == 3
+
+
+def test_num_shards_are_the_group_ranks(monkeypatch):
+    """Without a process group the world is one rank: numShards=2 raises
+    naming the ranks before the data is read, and a codec without a mesh
+    is ignored (the fit equals the uncompressed one), as in the JAX
+    package, which applies it only where the histogram psum exists."""
+    X, y = _binary_data(n=600)
+    ds = TDataset({"features": list(X), "label": y})
+    plain = GBDTClassifier(device="cpu", numIterations=3).fit(ds)
+    coded = GBDTClassifier(device="cpu", numIterations=3,
+                           collectiveCompression="int8").fit(ds)
+    assert plain.get_model_string() == coded.get_model_string()
+
+    def no_work(*a, **k):
+        raise AssertionError("the features were read")
+    monkeypatch.setattr(GBDTClassifier, "_features_matrix", no_work)
+    with pytest.raises(ValueError, match="ranks of the initialized"):
+        GBDTClassifier(device="cpu", numShards=2).fit(ds)
+    with pytest.raises(ValueError, match="collectiveCompression"):
+        GBDTClassifier(device="cpu", numIterations=2,
+                       collectiveCompression="fp8").fit(ds)
 
 
 @pytest.mark.parametrize("max_bin,num_leaves,fits", [

@@ -1,0 +1,297 @@
+"""Gang tasks for the port's parallel-layer tests.
+
+Each function runs on every rank of a gang that
+``synapseml_tpu_torch.parallel.run_on_local_cluster`` launched (one
+process per rank, a ``torch.distributed`` group already formed) and
+returns a JSON-serializable result.  The module imports torch and the
+port only, so the card's gangs (tests/test_torch_parallel_cuda.py) run
+it too; the CPU tests hold the results against numpy and the JAX
+package.
+"""
+
+import base64
+import hashlib
+import time
+
+import numpy as np
+import torch
+
+from synapseml_tpu_torch.parallel import collectives as C
+from synapseml_tpu_torch.parallel import compression as Z
+from synapseml_tpu_torch.parallel.mesh import (DATA_AXIS, ProcessMesh,
+                                               data_parallel_mesh)
+
+
+def binary_data(n=2000, f=12, seed=7):
+    """tests/mp_tasks.py's binary task."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    logits = X[:, 0] * 1.5 - X[:, 1] + 0.5 * X[:, 2] * X[:, 3]
+    y = (logits + rng.normal(scale=0.5, size=n) > 0).astype(np.float32)
+    return X, y
+
+
+def rank_values(rank: int, n: int, seed: int = 0) -> np.ndarray:
+    """The seeded f32 values rank ``rank`` contributes: a histogram-like
+    (n, 3) block whose channels differ by orders of magnitude."""
+    rng = np.random.default_rng(seed + 1000 * rank)
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    v[:, 1] = np.abs(v[:, 1]) * 8
+    v[:, 2] = np.round(np.abs(v[:, 2]) * 300)
+    return v
+
+
+def _digest(t) -> str:
+    a = np.ascontiguousarray(t.detach().cpu().numpy())
+    return hashlib.md5(a.tobytes()).hexdigest()
+
+
+def _b64(a: np.ndarray) -> str:
+    return base64.b64encode(np.ascontiguousarray(a).tobytes()).decode()
+
+
+def _rel_err(got, exact) -> float:
+    """Largest error over each channel's largest magnitude."""
+    g = got.detach().cpu().numpy().astype(np.float64)
+    return float((np.abs(g - exact) / np.abs(exact).max(axis=0)).max())
+
+
+def collectives_check(args):
+    """Every collective on this rank, against numpy or against another
+    route to the same sum (→ booleans and raw bytes for the test)."""
+    args = args or {}
+    dev = args.get("device", "cpu")
+    n_vals = int(args.get("n", 4096))
+    mesh = data_parallel_mesh(device=dev)
+    n, me = mesh.axis_size(), mesh.axis_index()
+    x = torch.as_tensor(rank_values(me, n_vals), device=mesh.device)
+    want = sum(rank_values(r, n_vals).astype(np.float64) for r in range(n))
+    out = {"rank": me, "world": n}
+    flat = C.psum(x, mesh)
+    out["psum_close"] = bool(np.allclose(flat.cpu().numpy(), want,
+                                         rtol=1e-6, atol=1e-4))
+    out["psum_same_everywhere"] = _digest(flat)
+    out["ring_close"] = bool(np.allclose(
+        C.ring_allreduce(x, mesh).cpu().numpy(), want, rtol=1e-6,
+        atol=1e-4))
+    tree = {"a": x, "b": x[:7, 0].clone(),
+            "c": torch.arange(5, device=mesh.device, dtype=torch.int64)}
+    red = C.tree_psum_bucketed(tree, mesh, bucket_bytes=1 << 10)
+    out["tree_bucketed_ok"] = bool(
+        np.allclose(red["a"].cpu().numpy(), want, rtol=1e-6, atol=1e-4)
+        and np.allclose(red["b"].cpu().numpy(), want[:7, 0], rtol=1e-6,
+                        atol=1e-4)
+        and torch.equal(red["c"].cpu(), torch.arange(5) * n))
+    g = C.all_gather(x[:4], mesh)
+    out["all_gather_ok"] = bool(np.array_equal(
+        g.cpu().numpy(), np.stack([rank_values(r, n_vals)[:4]
+                                   for r in range(n)])))
+    rs = C.reduce_scatter(x, mesh)
+    per = n_vals // n
+    out["reduce_scatter_ok"] = bool(np.allclose(
+        rs.cpu().numpy(), want[me * per:(me + 1) * per], rtol=1e-6,
+        atol=1e-4))
+    shifted = C.ring_shift(x[:2], mesh)
+    out["ring_shift_ok"] = bool(np.array_equal(
+        shifted.cpu().numpy(), rank_values((me - 1) % n, n_vals)[:2]))
+    a2a = C.all_to_all(torch.full((n, 2), float(me), device=mesh.device),
+                       mesh)
+    out["all_to_all_ok"] = bool(np.array_equal(
+        a2a.cpu().numpy(), np.repeat(np.arange(n, dtype=np.float32)[:, None],
+                                     2, 1)))
+    out["pmax_ok"] = float(C.pmax(torch.tensor([float(me)],
+                                               device=mesh.device),
+                                  mesh)) == n - 1
+    out["pmin_ok"] = float(C.pmin(torch.tensor([float(me)],
+                                               device=mesh.device),
+                                  mesh)) == 0
+    out["pmean_ok"] = float(C.pmean(torch.tensor([float(me)],
+                                                 device=mesh.device),
+                                    mesh)) == (n - 1) / 2
+    out["barrier_ok"] = C.barrier(7, mesh) == 7
+    fn = C.allreduce_fn(mesh)
+    out["allreduce_fn_ok"] = bool(np.allclose(
+        fn(torch.stack([x, x])).cpu().numpy(), 2 * want, rtol=1e-6,
+        atol=1e-3))
+    # the codecs over the whole axis: digests for the numpy statement
+    for codec in ("bf16", "int8"):
+        cfg = Z.CollectiveConfig(compression=codec, strategy="flat")
+        r = Z.compressed_psum(x, mesh, DATA_AXIS, cfg)
+        out[f"compressed_{codec}"] = _digest(r)
+        out[f"compressed_{codec}_err"] = _rel_err(r, want)
+    out["staged_bytes"] = mesh.staged_bytes
+    if n == 4:
+        out.update(_two_axis_checks(x, mesh.device, n_vals))
+    return out
+
+
+def _two_axis_checks(x, dev, n_vals):
+    """On a 2 x 2 mesh: hierarchical_psum against the flat psum, the
+    codecs over a 2-rank axis (bit-equal to the numpy statement), and
+    the planner's ring / tree / hierarchical routes against flat."""
+    from synapseml_tpu_torch.parallel import planner as Pl
+    m2 = ProcessMesh({"outer": 2, "inner": 2}, device=dev)
+    world = data_parallel_mesh(device=dev)
+    out = {}
+    flat = C.psum(x, world)
+    hier = C.hierarchical_psum(x, m2, "inner", "outer")
+    out["hier_close"] = bool(np.allclose(hier.cpu().numpy(),
+                                         flat.cpu().numpy(), rtol=1e-6,
+                                         atol=1e-4))
+    out["inner_index"] = m2.axis_index("inner")
+    out["outer_index"] = m2.axis_index("outer")
+    for codec in ("bf16", "int8"):
+        cfg = Z.CollectiveConfig(compression=codec, strategy="flat")
+        r = Z.compressed_psum(x, m2, "inner", cfg)
+        out[f"inner_{codec}"] = _digest(r)
+    prev = Pl.set_planner(Pl.CollectivePlanner(
+        Pl.TopologySpec(n_hosts=2, devices_per_host=2)))
+    try:
+        for strategy in ("ring", "tree", "hierarchical"):
+            for codec in ("none", "bf16", "int8"):
+                cfg = Z.CollectiveConfig(compression=codec,
+                                         strategy=strategy)
+                r = Pl.planned_psum(x, world, DATA_AXIS, cfg)
+                ref = Z.compressed_psum(x, world, DATA_AXIS, Z.CollectiveConfig(
+                    compression=codec, strategy="flat"))
+                tol = 1e-4 if codec == "none" else 0.05
+                out[f"route_{strategy}_{codec}"] = bool(np.allclose(
+                    r.cpu().numpy(), ref.cpu().numpy(), rtol=tol,
+                    atol=tol * 40))
+                out[f"route_{strategy}_{codec}_digest"] = _digest(r)
+    finally:
+        Pl.set_planner(prev)
+    return out
+
+
+def gbdt_fits(args):
+    """The data-parallel GBDT on this gang: the rendezvous report, an
+    unbagged fit (model md5, first split, holdout margins), and a bagged
+    fit whose per-rank bag masks are recorded as drawn."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.parallel.selfcheck import cluster_report
+    args = args or {}
+    dev = args.get("device", "cpu")
+    out = {"report": cluster_report({"device": dev})}
+    X, y = binary_data(n=int(args.get("n", 2000)))
+    Xh, yh = binary_data(n=1000, seed=11)
+    mesh = data_parallel_mesh(device=dev)
+    cfg = B.BoostingConfig(objective="binary", num_iterations=6,
+                           num_leaves=15, min_data_in_leaf=5)
+    t0 = time.perf_counter()
+    booster, _ = B.train(X, y, cfg, mesh=mesh, device=dev)
+    out["fit_s"] = time.perf_counter() - t0
+    text = booster.to_string()
+    out["model_md5"] = hashlib.md5(text.encode()).hexdigest()
+    out["num_trees"] = booster.num_trees
+    t = booster.trees[0]
+    out["first_split"] = [int(t.split_feature[0]), float(t.threshold[0])]
+    out["holdout_margin"] = [float(v) for v in
+                             booster.predict_margin(Xh, device=dev)]
+    # bagged: record the masks the fit draws on this rank
+    drawn = []
+    orig = B.bag_mask
+
+    def recording(key, n, fraction, device):
+        m = orig(key, n, fraction, device)
+        drawn.append(np.packbits(m.cpu().numpy() > 0))
+        return m
+
+    B.bag_mask = recording
+    try:
+        bcfg = B.BoostingConfig(objective="binary", num_iterations=3,
+                                num_leaves=15, min_data_in_leaf=5,
+                                bagging_fraction=0.7, bagging_freq=1)
+        bagged, _ = B.train(X, y, bcfg, mesh=mesh, device=dev)
+    finally:
+        B.bag_mask = orig
+    out["bagged_md5"] = hashlib.md5(bagged.to_string().encode()).hexdigest()
+    out["bag_masks"] = [_b64(m) for m in drawn]
+    return out
+
+
+def one_rank_checks(args):
+    """On a 1-rank group: a fit over the group equals the fit without
+    one, bit for bit; then a hung collective raises CollectiveTimeout."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.resilience.faults import get_faults
+    args = args or {}
+    dev = args.get("device", "cpu")
+    X, y = binary_data(n=int(args.get("n", 2000)))
+    cfg = B.BoostingConfig(objective="binary", num_iterations=6,
+                           num_leaves=15, min_data_in_leaf=5)
+    alone, _ = B.train(X, y, cfg, device=dev)
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    mesh = data_parallel_mesh(device=dev)
+    prof = StepProfiler("gang_fit")
+    grouped, _ = B.train(X, y, cfg, mesh=mesh, step_profiler=prof,
+                         device=dev)
+    out = {"equal": alone.to_string() == grouped.to_string(),
+           "md5": hashlib.md5(grouped.to_string().encode()).hexdigest(),
+           "profiled_collective_bytes": prof.collective_bytes,
+           "profiled_collective_s": prof.collective_by_strategy.get("flat",
+                                                                    0.0)}
+    timeout = float(args.get("timeout_s", 1.0))
+    get_faults().inject("collective.dispatch", "hang", times=1)
+    t0 = time.perf_counter()
+    try:
+        C.psum(torch.ones(4, device=mesh.device), mesh, timeout_s=timeout)
+        out["raised"] = None
+    except C.CollectiveTimeout as e:
+        out["raised"] = type(e).__name__
+        out["message"] = str(e)
+    out["elapsed_s"] = time.perf_counter() - t0
+    get_faults().clear()
+    return out
+
+
+def fit_until_killed(args):
+    """A 2-rank fit; an armed ``kill_rank`` fault kills one rank
+    mid-fit (the test expects the gang to fail)."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    X, y = binary_data(n=2000)
+    cfg = B.BoostingConfig(objective="binary", num_iterations=6,
+                           num_leaves=15, min_data_in_leaf=5)
+    mesh = data_parallel_mesh(device="cpu")
+    B.train(X, y, cfg, mesh=mesh, device="cpu")
+    return {"finished": True}
+
+
+def card_checks(args):
+    """On a gang sharing the card over gloo: the rendezvous report, each
+    collective on CUDA tensors against the same op over the CPU (same
+    group, same values: bit-equal, with the staged host bytes), and a
+    small data-parallel fit's model md5."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.parallel.selfcheck import cluster_report
+    out = {"report": cluster_report({"device": "cuda"})}
+    card = data_parallel_mesh(device="cuda")
+    host = data_parallel_mesh(device="cpu")
+    x = rank_values(card.rank, 4096)
+    flat = {c: Z.CollectiveConfig(compression=c, strategy="flat")
+            for c in ("bf16", "int8")}
+    ops = {
+        "psum": lambda m, t: C.psum(t, m),
+        "all_gather": lambda m, t: C.all_gather(t, m),
+        "reduce_scatter": lambda m, t: C.reduce_scatter(t, m),
+        "ring_allreduce": lambda m, t: C.ring_allreduce(t, m),
+        "ppermute": lambda m, t: C.ring_shift(t, m),
+        "compressed_psum_bf16": lambda m, t: Z.compressed_psum(
+            t, m, DATA_AXIS, flat["bf16"]),
+        "compressed_psum_int8": lambda m, t: Z.compressed_psum(
+            t, m, DATA_AXIS, flat["int8"]),
+    }
+    out["equal"], out["staged"] = {}, {}
+    for name, op in ops.items():
+        before = card.staged_bytes
+        got = op(card, torch.as_tensor(x, device=card.device)).cpu()
+        out["staged"][name] = card.staged_bytes - before
+        out["equal"][name] = (got.numpy().tobytes()
+                              == op(host, torch.as_tensor(x)).numpy()
+                              .tobytes())
+    X, y = binary_data(n=2000)
+    cfg = B.BoostingConfig(objective="binary", num_iterations=4,
+                           num_leaves=15, min_data_in_leaf=5)
+    booster, _ = B.train(X, y, cfg, mesh=card, device=card.device)
+    out["model_md5"] = hashlib.md5(booster.to_string().encode()).hexdigest()
+    return out
