@@ -86,7 +86,7 @@
     label concept's score with ``baggingFraction=0.8, baggingFreq=1``,
     depthwise: K2's root pass must launch for 3 trees per iteration,
     holdout accuracy > 0.55; reports multi_logloss and s/iteration.
-11. Breadth, the card against the CPU on 65,536 rows, 2 iterations:
+11. Breadth, the card against the CPU on 32,768 rows, 2 iterations:
     lossguide (two-level on and off), bagging, GOSS, DART, RF,
     multiclass, multiclassova, huber, poisson, 4 categorical
     columns of 100 levels, EFB over 8 one-hot blocks of 32 levels
@@ -99,7 +99,7 @@
     ``sigmoid``/``exp``/``softmax`` alone differ; the bagging mask and
     GOSS weights drawn on the card bit-identical to the CPU's, at 65,536
     and 1,000,003 rows.
-12. GBDT breadth II at full width (1M x 28, 100k holdout, fresh data
+12. GBDT breadth II at full width (500k x 28, 100k holdout, fresh data
     from ``--seed``), each fit through ``GBDTClassifier`` with its launch
     check: (a) a 100k-row validation set (``validationIndicatorCol``,
     ``earlyStoppingRound=5``, AUC, learning rate 0.5): best iteration,
@@ -308,7 +308,7 @@
 23. Serving on the card (``serving_paths``; only (b)'s fit launches K1
     and K2, counted as the kernels line's run ``phase23``; any other
     launch in the phase raises): (b) bench.py's task at HIGGS's width,
-    1,000,000 x 28 on a 1/64 grid plus a label, written as a 290 MB CSV
+    500,000 x 28 on a 1/64 grid plus a label, written as a 145 MB CSV
     whose fields are each value's exact decimal, read back bit for bit
     by ``Dataset.from_csv`` (the native parser must have read it:
     ``native.CSV_PARSES``), parse s and MB/s; the permissive parse of
@@ -384,15 +384,35 @@
     (informational: the ranks share the card); (d) on one NCCL rank, a
     fit over the group bit-equal to the fit without one; (e) a 2-rank
     fit at 20,000 rows on the card and over the CPU: splits equal,
-    margins within 1e-4.  Its functions run small on the CPU
-    (``parallel_gang(seed, torch.device("cpu"), "cpu", rows, iters,
-    check_path, small_rows=..., nccl_rows=...)``).
+    margins within 1e-4, and the same at 20,000 rows for a
+    feature-parallel, a voting-parallel and a data-parallel lambdarank
+    fit, and ``train_sgd`` over the ranks at sync 0 and 4 (states within
+    1e-5); (f) ``GBDTClassifier(parallelism="feature_parallel",
+    numShards=0)`` on the 1M x 28 task (all rows, 14 features a rank):
+    both ranks' models equal, equal to the one-process depthwise fit at
+    two-level off, AUC > 0.8, K1 at the node-batched shape (F=14, B=256,
+    S=16) launched (runs ``phase25r<rank>_featpar``), the routing
+    all-reduces and their bytes an iteration; (g) voting-parallel at
+    topK 20 and 28 and the data-parallel lossguide fit at two-level off
+    (runs ``_vote``, ``_vote28``, ``_dplg``): ranks equal, AUC within
+    0.005, topK=28 splitting as data-parallel, the histogram psums and
+    bytes an iteration of each; (h) phase 13a's ranker (1.2M x 136)
+    through ``GBDTRanker(numShards=0)``, whole queries packed onto the
+    ranks: rankers equal, validation NDCG@10 within 0.01 of phase 13's
+    (runs ``_ranker``); (i) ``train_sgd`` over phase 16b's 262,144 x
+    4,096 rows (left by phase 16 under ``build/``) at sync 0 and 4:
+    states equal on both ranks, holdout AUC > 0.75.  Every shape the
+    new runs launch is one phase 2 held.  Its functions run small on
+    the CPU (``parallel_gang(seed, torch.device("cpu"), "cpu", rows,
+    iters, check_path, small_rows=..., nccl_rows=..., ranker_shape=(
+    queries, validation queries, features), online_auc_floor=...)``).
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
 
 Phase 2 also holds K2 and K1 at the shapes of phase 13 (F=136 at ~1.2M
-rows, F=28 at 11M rows: wave, root and refined build), and
+rows, F=28 at 11M rows: wave, root and refined build) and of phase 25
+(K1 at F=14, B=256, S=16 over 1M rows; F=28, B=256, S=1 over 500k), and
 phase 11 adds lambdarank (groups of 1-239 rows, some past 128; with
 ``labelGain``) and streamed fits from a ``ChunkedColumnSource`` (an odd
 ``chunk_rows``) and a ``SparseChunkedSource`` with EFB.
@@ -416,6 +436,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1453,12 +1474,12 @@ def lambdarank_ms(sizes, y, dev, reps: int = 5) -> float:
 
 def breadth3(seed: int, iters: int, check_path, models, n_queries=RANK_Q,
              n_valid_queries=RANK_VQ, n_stream=HIGGS_N, n_mem=1_000_000,
-             device: str = "cuda") -> None:
+             device: str = "cuda") -> dict:
     """Phase 13: the ranker at MSLR-WEB10K's shape, a streamed fit at
     HIGGS's shape, LightGBM text export and import, TreeSHAP.  ``models``
     holds phase 4's model stage, its holdout (``"default"``, ``"Xh"``) and
     phase 10b's three-class model (``"three"``).  Raises on any failed
-    check."""
+    check.  → {"ranker": 13a's validation NDCG@10 and rows}."""
     import tracemalloc
 
     from synapseml_tpu_torch.core import Dataset
@@ -1491,6 +1512,7 @@ def breadth3(seed: int, iters: int, check_path, models, n_queries=RANK_Q,
     if not got > rand + 0.1:
         raise AssertionError(f"ranker: validation ndcg@10 {got} against "
                              f"random {rand}")
+    ranker_out = dict(valid_ndcg10=float(got), rows=len(X))
     del X, y
 
     # 13b. a streamed fit at HIGGS's shape, from an SMLC file
@@ -1611,6 +1633,7 @@ def breadth3(seed: int, iters: int, check_path, models, n_queries=RANK_Q,
             raise AssertionError(f"TreeSHAP, {name}: {out[name]}")
     log(f"TreeSHAP (featuresShapCol, host) against the card's margins: "
         f"{json.dumps(out)}")
+    return {"ranker": ranker_out}
 
 
 # --------------------------------------------------------------------------
@@ -2169,10 +2192,47 @@ def online_card_vs_cpu(dev, seed: int, n: int = 4096, d: int = 256) -> dict:
     return out
 
 
+def save_rows(path: str, **arrays) -> None:
+    """Write matrices as CSR (``<name>_data``, ``_indices``, ``_indptr``,
+    ``_shape``) and vectors as they are into one ``.npz``."""
+    out = {}
+    for name, a in arrays.items():
+        if a.ndim == 2:
+            rows, cols = np.nonzero(a)
+            out[f"{name}_data"] = a[rows, cols]
+            out[f"{name}_indices"] = cols.astype(np.int32)
+            out[f"{name}_indptr"] = np.concatenate(
+                [[0], np.cumsum(np.bincount(rows, minlength=len(a)))])
+            out[f"{name}_shape"] = np.asarray(a.shape)
+        else:
+            out[name] = a
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **out)
+
+
+def load_rows(path: str) -> dict:
+    """:func:`save_rows`'s arrays, matrices dense again."""
+    out = {}
+    with np.load(path) as z:
+        names = {k.rsplit("_", 1)[0] for k in z.files if k.endswith("_shape")}
+        for name in names:
+            a = np.zeros(tuple(z[f"{name}_shape"]), np.float32)
+            ptr = z[f"{name}_indptr"]
+            rows = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+            a[rows, z[f"{name}_indices"]] = z[f"{name}_data"]
+            out[name] = a
+        for k in z.files:
+            if k.rsplit("_", 1)[0] not in names:
+                out[k] = z[k]
+    return out
+
+
 def online(seed: int, dev, n_train: int = 262_144, n_hold: int = 65_536,
            num_bits: int = 12, batch: int = 32, turns: int = 3,
-           auc_floor: float = 0.75) -> dict:
-    """Phase 16.  Raises on a failed check."""
+           auc_floor: float = 0.75, save: Optional[str] = None) -> dict:
+    """Phase 16.  ``save``: a path where 16b's featurized rows and labels
+    are written (sparse, :func:`save_rows`) for phase 25i's gang.
+    Raises on a failed check."""
     from synapseml_tpu_torch.core import Dataset, Pipeline
     from synapseml_tpu_torch.models.gbdt.metrics import auc
     from synapseml_tpu_torch.models.online import (HashingFeaturizer,
@@ -2210,6 +2270,8 @@ def online(seed: int, dev, n_train: int = 262_144, n_hold: int = 65_536,
     Xho = ho.to_numpy(["features"], np.float32)
     to_numpy_s = time.perf_counter() - t0
     ytr, yho = hidden_clicks(rng, [Xtr, Xho])
+    if save is not None:
+        save_rows(save, Xtr=Xtr, ytr=ytr, Xho=Xho, yho=yho)
     tr = tr.with_column("label", ytr)
     ho = ho.with_column("label", yho)
     est = OnlineSGDClassifier(numPasses=1, batchSize=batch, device=str(dev))
@@ -5461,11 +5523,361 @@ def p25_main(card, seed: int, rows: int, iters: int) -> dict:
     return out
 
 
+#: where phase 16 leaves 16b's featurized rows for phase 25i's gang
+P25_ONLINE_ROWS = os.path.join(os.path.dirname(CKPT_ROOT),
+                               "phase25_online.npz")
+#: phase 25i's sync schedules (sync_every_batches)
+P25_SYNCS = (0, 4)
+
+
+def coll_count(ops) -> dict:
+    """Calls and logical bytes of each collective ``op`` on the data axis
+    so far in this process (the registry's ``collective_*_total``)."""
+    from synapseml_tpu_torch.telemetry import get_registry
+    reg = get_registry()
+    calls = reg.get("collective_calls_total")
+    nbytes = reg.get("collective_bytes_total")
+    return {op: (calls.value(op=op, axis="data") if calls else 0.0,
+                 nbytes.value(op=op, axis="data") if nbytes else 0.0)
+            for op in ops}
+
+
+def coll_delta(before: dict, iters: int) -> dict:
+    """Each op's calls and bytes an iteration since ``before``."""
+    after = coll_count(before)
+    return {op: dict(calls_per_iter=(after[op][0] - before[op][0]) / iters,
+                     bytes_per_iter=(after[op][1] - before[op][1]) / iters)
+            for op in before}
+
+
+def model_md5(booster) -> str:
+    import hashlib
+    return hashlib.md5(booster.to_string().encode()).hexdigest()
+
+
+def split_digest(booster) -> str:
+    """md5 of every tree's split features, bins and thresholds (the nodes
+    in use), leaf values left out."""
+    import hashlib
+    h = hashlib.md5()
+    for t in booster.trees:
+        n = int(t.num_nodes)
+        for a in (t.split_feature, t.split_bin, t.threshold, t.left_child):
+            h.update(np.ascontiguousarray(np.asarray(a)[:n]).tobytes())
+    return h.hexdigest()
+
+
+def p25_fit(card, X, y, iters: int, ops, holdout=None, **params) -> dict:
+    """One ``booster.train`` over the gang with the launch counts reset
+    just before and read just after, and the collectives ``ops`` counted
+    → fit s, s/iteration, model md5, split digest, launches, shapes, the
+    ops an iteration, and the holdout AUC where ``holdout`` = (Xh, yh)."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    cfg = BoostingConfig(objective="binary", num_iterations=iters, **params)
+    before = coll_count(ops)
+    L.reset()
+    t0 = time.perf_counter()
+    b, _ = train(X, y, cfg, mesh=card, device=card.device)
+    synchronize(card.device)
+    r = dict(fit_s=time.perf_counter() - t0,
+             s_per_iter=b.measures.seconds_per_iteration(), md5=model_md5(b),
+             splits=split_digest(b), trees=b.num_trees,
+             launches={k: L.total(k) for k in ("build_hist_nodes",
+                                               "route_and_hist")},
+             shapes=dict(L.BY_SHAPE), collectives=coll_delta(before, iters))
+    if holdout is not None:
+        r["auc"] = float(auc(holdout[1], b.predict_margin(holdout[0])))
+    return r
+
+
+def p25_featpar(card, seed: int, rows: int, iters: int) -> dict:
+    """Phase 25f on this rank: ``GBDTClassifier(parallelism=
+    "feature_parallel", numShards=0).fit`` at ``rows`` x 28 (all rows, 14
+    features a rank), launches and the routing all-reduces counted;
+    rank 0 transforms the 100k holdout."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    X, y, Xh, yh = p25_data(seed, rows)
+    ds = Dataset({"features": list(X), "label": y})
+    ops = ("featpar_route_psum", "featpar_pick_gather",
+           "featpar_root_gather")
+    before = coll_count(ops)
+    L.reset()
+    t0 = time.perf_counter()
+    model = GBDTClassifier(parallelism="feature_parallel", numShards=0,
+                           numIterations=iters,
+                           device=str(card.device)).fit(ds)
+    synchronize(card.device)
+    r = dict(fit_s=time.perf_counter() - t0,
+             s_per_iter=model.training_measures.seconds_per_iteration(),
+             md5=model_md5(model.booster), trees=model.booster.num_trees,
+             launches={k: L.total(k) for k in ("build_hist_nodes",
+                                               "route_and_hist")},
+             shapes=dict(L.BY_SHAPE), collectives=coll_delta(before, iters))
+    if card.rank == 0:
+        res = model.transform(Dataset({"features": list(Xh), "label": yh}))
+        r["auc"] = float(auc(yh, np.stack(res["probability"])[:, 1]))
+    return r
+
+
+def p25_voting(card, seed: int, rows: int, iters: int) -> dict:
+    """Phase 25g on this rank: voting-parallel at ``rows`` x 28 (this rank
+    holds half) with topK=20 and topK=F=28, and the data-parallel
+    lossguide fit at two-level off they are held against; rank 0 scores
+    the holdout."""
+    X, y, Xh, yh = p25_data(seed, rows)
+    hold = (Xh, yh) if card.rank == 0 else None
+    vote_ops = ("gbdt_vote_psum",)
+    out = {k: p25_fit(card, X, y, iters, vote_ops, hold,
+                      parallelism="voting_parallel", top_k=k_)
+           for k, k_ in (("top20", 20), ("top28", 28))}
+    out["dp_lossguide"] = p25_fit(card, X, y, iters, ("psum",), hold,
+                                  growth_policy="lossguide",
+                                  two_level_hist="off")
+    return out
+
+
+def p25_ranker(card, seed: int, iters: int, n_queries: int = RANK_Q,
+               n_valid: int = RANK_VQ, n_feat: int = RANK_F) -> dict:
+    # (n_queries, n_valid, n_feat smaller only for a run on the CPU)
+    """Phase 25h on this rank: phase 13a's ranker (its generator and
+    config) over the gang, whole queries packed onto the ranks; rank 0
+    scores NDCG@10 on the validation queries."""
+    from synapseml_tpu_torch.models.gbdt.metrics import ndcg_at
+    r13 = np.random.default_rng(seed + 13)
+    X, y, sizes = rank_data(r13, n_queries, n_feat)
+    Xv, yv, vsizes = rank_data(r13, n_valid, n_feat)
+    r, ranker = ranker_path(X, y, sizes, Xv, yv, vsizes, iters,
+                            device=card.device.type, numLeaves=31,
+                            maxBin=255, numShards=0)
+    r["md5"] = model_md5(ranker.booster)
+    if card.rank == 0:
+        r["valid_ndcg10"] = float(ndcg_at(10)(
+            yv, ranker.booster.predict_margin(Xv), vsizes))
+    return r
+
+
+def p25_online_rows(args: dict) -> dict:
+    """Phase 16b's rows (Xtr, ytr, Xho, yho) from phase 16's file, or,
+    without one (a run on the CPU), a small generated set."""
+    path = args.get("online_rows")
+    if path:
+        return load_rows(path)
+    rng = np.random.default_rng(args["seed"] + 161)
+    d = args.get("online_dim", 256)
+    X = np.zeros((args.get("online_n", 8192) + 2048, d), np.float32)
+    cols = rng.integers(0, d, size=(len(X), 8))
+    X[np.arange(len(X))[:, None], cols] = 1.0
+    ytr, yho = hidden_clicks(rng, [X[:-2048], X[-2048:]])
+    return dict(Xtr=X[:-2048], ytr=ytr, Xho=X[-2048:], yho=yho)
+
+
+def p25_online(card, args: dict, batch: int = 32) -> dict:
+    """Phase 25i on this rank: ``train_sgd(mesh=...)`` over phase 16b's
+    rows (this rank holds half) at each schedule of :data:`P25_SYNCS`;
+    rank 0 scores the holdout."""
+    import hashlib
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    from synapseml_tpu_torch.models.online import sgd as SGD
+    d = p25_online_rows(args)
+    y_pm = np.where(d["ytr"] > 0, 1.0, -1.0).astype(np.float32)
+    out = {"rows": len(y_pm), "dim": int(d["Xtr"].shape[1])}
+    for k in P25_SYNCS:
+        cfg = SGD.SGDConfig(loss="logistic", batch_size=batch,
+                            sync_every_batches=k)
+        ops = ("sgd_sync_psum", "pmax")
+        before = coll_count(ops)
+        t0 = time.perf_counter()
+        state, stats = SGD.train_sgd(d["Xtr"], y_pm, cfg, mesh=card,
+                                     device=card.device)
+        synchronize(card.device)
+        arr = SGD.state_to_numpy(state)
+        r = dict(fit_s=time.perf_counter() - t0, examples=stats["examples"],
+                 average_loss=stats["average_loss"],
+                 md5=hashlib.md5(b"".join(arr[f].tobytes() for f in
+                                          sorted(arr))).hexdigest(),
+                 collectives=coll_delta(before, 1))
+        if card.rank == 0:
+            r["auc"] = float(auc(d["yho"], SGD.predict_margin(state,
+                                                              d["Xho"])))
+        out[f"sync{k}"] = r
+    return out
+
+
+def p25_modes_card_vs_cpu(card, host, seed: int, iters: int,
+                          rows: int = P25_SMALL_ROWS) -> dict:
+    """Phase 25e for the new modes on this rank: feature-parallel,
+    voting-parallel and a data-parallel lambdarank fit at ``rows`` rows
+    over the gloo group on the card and on the CPU (same splits, margins
+    within 1e-4 on 4,096 rows), and ``train_sgd`` over the group at each
+    schedule of :data:`P25_SYNCS` (states within 1e-5) → per mode: same
+    splits, largest difference, the card fit's shapes."""
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    from synapseml_tpu_torch.models.online import sgd as SGD
+    X, y, Xh, _ = p25_data(seed + 253, rows, hold=4096)
+    rng = np.random.default_rng(seed + 254)
+    Xr, yr, sizes = rank_data(rng, rows // (RANK_MAXG // 2), 28)
+    out = {}
+    modes = {"featpar": (X, y, dict(objective="binary",
+                                    parallelism="feature_parallel"), {}),
+             "vote": (X, y, dict(objective="binary",
+                                 parallelism="voting_parallel"), {}),
+             "lambdarank": (Xr, yr, dict(objective="lambdarank"),
+                            dict(group=sizes))}
+    for name, (Xm, ym, kw, extra) in modes.items():
+        cfg = BoostingConfig(num_iterations=iters, **kw)
+        L.reset()
+        bc, _ = train(Xm, ym, cfg, mesh=card, device=card.device, **extra)
+        shapes = dict(L.BY_SHAPE)
+        bp, _ = train(Xm, ym, cfg, mesh=host, device="cpu", **extra)
+        probe = Xh if name != "lambdarank" else Xr[:4096]
+        out[name] = dict(
+            same_splits=split_digest(bc) == split_digest(bp),
+            margin_diff=float(np.abs(bc.predict_margin(probe, device="cpu")
+                                     - bp.predict_margin(probe,
+                                                         device="cpu"))
+                              .max()), shapes=shapes)
+    d = p25_online_rows(dict(seed=seed + 255, online_n=rows - 2048))
+    y_pm = np.where(d["ytr"] > 0, 1.0, -1.0).astype(np.float32)
+    for k in P25_SYNCS:
+        cfg = SGD.SGDConfig(loss="logistic", batch_size=32,
+                            sync_every_batches=k)
+        sc, _ = SGD.train_sgd(d["Xtr"], y_pm, cfg, mesh=card,
+                              device=card.device)
+        sp, _ = SGD.train_sgd(d["Xtr"], y_pm, cfg, mesh=host, device="cpu")
+        a, b = SGD.state_to_numpy(sc), SGD.state_to_numpy(sp)
+        out[f"online_sync{k}"] = dict(state_diff=max(
+            float(np.abs(a[f] - b[f]).max()) for f in a))
+    return out
+
+
+def p25_new_modes(ranks, seed: int, dev, card: str, rows: int, iters: int,
+                  check_path, small_rows: int, ranker_ndcg10,
+                  online_auc_floor: float) -> dict:
+    """Phase 25e (the new modes), f, g, h and i from the ranks' results:
+    the checks and the lines.  Raises on a failed check."""
+    from synapseml_tpu_torch.models.gbdt.booster import BoostingConfig, train
+    on_card = dev.type == "cuda"
+    out = {}
+    # (e) each new mode at small_rows, the card against the CPU
+    for r, res in enumerate(ranks):
+        m = res["modes_card_vs_cpu"]
+        for name in ("featpar", "vote", "lambdarank"):
+            e = m[name]
+            if not e["same_splits"] or e["margin_diff"] > 1e-4:
+                raise AssertionError(f"phase 25e {name} rank {r}: {e}")
+            check_path(f"phase25r{r}_small_{name}", e, strict=True)
+        for k in P25_SYNCS:
+            if m[f"online_sync{k}"]["state_diff"] > 1e-5:
+                raise AssertionError(f"phase 25e online sync {k} rank {r}: "
+                                     f"{m[f'online_sync{k}']}")
+    m0 = ranks[0]["modes_card_vs_cpu"]
+    log(f"phase 25e: feature-parallel, voting-parallel and lambdarank fits "
+        f"at {small_rows} rows over 2 ranks, card vs CPU: same splits, "
+        f"margins within "
+        f"{max(m0[n]['margin_diff'] for n in ('featpar', 'vote', 'lambdarank')):.3g}"
+        f"; train_sgd over the ranks at sync "
+        f"{', '.join(map(str, P25_SYNCS))}: states within "
+        f"{max(m0[f'online_sync{k}']['state_diff'] for k in P25_SYNCS):.3g}")
+    # (f) feature-parallel at full width
+    fp = [res["featpar"] for res in ranks]
+    if fp[0]["md5"] != fp[1]["md5"]:
+        raise AssertionError("phase 25f: the ranks' models differ")
+    if fp[0]["auc"] <= 0.8:
+        raise AssertionError(f"phase 25f: holdout AUC {fp[0]['auc']}")
+    X, y, _, _ = p25_data(seed, rows, hold=1)
+    t0 = time.perf_counter()
+    solo, _ = train(X, y, BoostingConfig(objective="binary",
+                                         num_iterations=iters,
+                                         two_level_hist="off"), device=dev)
+    solo_s = time.perf_counter() - t0
+    del X, y
+    if model_md5(solo) != fp[0]["md5"]:
+        raise AssertionError("phase 25f: the feature-parallel model differs "
+                             "from the one-process depthwise fit at "
+                             "two-level off")
+    for r, f in enumerate(fp):
+        check_path(f"phase25r{r}_featpar", f, strict=True)
+        if on_card and f["launches"]["build_hist_nodes"] <= 0:
+            raise AssertionError(f"phase 25f rank {r}: K1 never launched")
+    out["featpar"] = {r: {k: v for k, v in f.items() if k != "shapes"}
+                      for r, f in enumerate(fp)}
+    out["featpar_one_process_s"] = solo_s
+    log(f"phase 25f: GBDTClassifier(parallelism=feature_parallel) over 2 "
+        f"gloo ranks on the card, {rows} x 28 (14 features a rank), {iters} "
+        f"iterations: ranks' models equal, equal to the one-process "
+        f"depthwise fit at two-level off ({solo_s:.2f} s) | {card}: "
+        f"{json.dumps(out['featpar'])}")
+    # (g) voting-parallel, against the data-parallel lossguide fit
+    vt = [res["vote"] for res in ranks]
+    for k in ("top20", "top28", "dp_lossguide"):
+        if vt[0][k]["md5"] != vt[1][k]["md5"]:
+            raise AssertionError(f"phase 25g {k}: the ranks' models differ")
+    a_dp, a_v = vt[0]["dp_lossguide"]["auc"], vt[0]["top20"]["auc"]
+    if abs(a_v - a_dp) > 0.005:
+        raise AssertionError(f"phase 25g: voting AUC {a_v} against the "
+                             f"data-parallel lossguide fit's {a_dp}")
+    if vt[0]["top28"]["splits"] != vt[0]["dp_lossguide"]["splits"]:
+        raise AssertionError("phase 25g: topK=F split differently from the "
+                             "data-parallel lossguide fit")
+    for r, v in enumerate(vt):
+        for k, run in (("top20", ""), ("top28", "28"),
+                       ("dp_lossguide", "_dplg")):
+            check_path(f"phase25r{r}_vote{run}", v[k], strict=True)
+    out["vote"] = {r: {k: {kk: vv for kk, vv in v[k].items()
+                           if kk != "shapes"} for k in v}
+                   for r, v in enumerate(vt)}
+    log(f"phase 25g: voting-parallel (lossguide) over 2 gloo ranks, "
+        f"{rows} x 28, topK 20 and 28, against the data-parallel "
+        f"lossguide fit at two-level off: ranks equal, AUC {a_v:.4f} vs "
+        f"{a_dp:.4f}, topK=28 splits equal | {card}: "
+        f"{json.dumps(out['vote'])}")
+    # (h) the distributed ranker
+    rk = [res["ranker"] for res in ranks]
+    if rk[0]["md5"] != rk[1]["md5"]:
+        raise AssertionError("phase 25h: the ranks' rankers differ")
+    got = rk[0]["valid_ndcg10"]
+    if ranker_ndcg10 is not None and abs(got - ranker_ndcg10) > 0.01:
+        raise AssertionError(f"phase 25h: NDCG@10 {got} against phase 13's "
+                             f"{ranker_ndcg10}")
+    for r, k in enumerate(rk):
+        check_path(f"phase25r{r}_ranker", k, strict=True)
+    out["ranker"] = {r: {k: v for k, v in x.items() if k != "shapes"}
+                     for r, x in enumerate(rk)}
+    log(f"phase 25h: GBDTRanker(numShards=0) over 2 gloo ranks, whole "
+        f"queries packed onto the ranks: rankers equal, validation NDCG@10 "
+        f"{got:.4f} against phase 13's {ranker_ndcg10} | {card}: "
+        f"{json.dumps(out['ranker'])}")
+    # (i) the online learners' mesh
+    on = [res["online"] for res in ranks]
+    for k in P25_SYNCS:
+        key = f"sync{k}"
+        if on[0][key]["md5"] != on[1][key]["md5"]:
+            raise AssertionError(f"phase 25i sync {k}: the ranks' states "
+                                 "differ")
+        if on[0][key]["auc"] <= online_auc_floor:
+            raise AssertionError(f"phase 25i sync {k}: holdout AUC "
+                                 f"{on[0][key]['auc']}")
+    out["online"] = {r: o for r, o in enumerate(on)}
+    log(f"phase 25i: train_sgd over 2 gloo ranks, phase 16b's "
+        f"{on[0]['rows']} rows x {on[0]['dim']}, sync "
+        f"{', '.join(map(str, P25_SYNCS))}: states equal on both ranks | "
+        f"{card}: {json.dumps(out['online'])}")
+    return out
+
+
 def phase25_gang(args: dict) -> dict:
     """One rank of phase 25's two-rank gang, both ranks on the one card
     over gloo (run by ``run_on_local_cluster``): the build, (a) the
-    cluster report, (b) the collectives card against CPU, (e) a small fit
-    card against CPU and (c) the main path.  ``parallel_gang`` checks."""
+    cluster report, (b) the collectives card against CPU, (e) small fits
+    card against CPU in every mode, (c) the data-parallel main path, (f)
+    feature-parallel, (g) voting-parallel, (h) the distributed ranker and
+    (i) the online learners' mesh.  ``parallel_gang`` checks."""
     from synapseml_tpu_torch.parallel.distributed import rendezvous_seconds
     from synapseml_tpu_torch.parallel.mesh import data_parallel_mesh
     from synapseml_tpu_torch.parallel.selfcheck import cluster_report
@@ -5479,6 +5891,14 @@ def phase25_gang(args: dict) -> dict:
     out["card_vs_cpu"] = p25_card_vs_cpu(card, host, args["seed"],
                                          args["iters"], args["small_rows"])
     out["main"] = p25_main(card, args["seed"], args["rows"], args["iters"])
+    out["modes_card_vs_cpu"] = p25_modes_card_vs_cpu(
+        card, host, args["seed"], args["iters"], args["small_rows"])
+    out["featpar"] = p25_featpar(card, args["seed"], args["rows"],
+                                 args["iters"])
+    out["vote"] = p25_voting(card, args["seed"], args["rows"], args["iters"])
+    out["ranker"] = p25_ranker(card, args["seed"], args["iters"],
+                               *args.get("ranker_shape", ()))
+    out["online"] = p25_online(card, args)
     return out
 
 
@@ -5507,17 +5927,28 @@ def phase25_nccl(args: dict) -> dict:
 
 def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
                   check_path, small_rows: int = P25_SMALL_ROWS,
-                  nccl_rows: int = P25_NCCL_ROWS) -> dict:
+                  nccl_rows: int = P25_NCCL_ROWS,
+                  ranker_ndcg10: Optional[float] = None,
+                  online_rows: Optional[str] = None, ranker_shape=(),
+                  online_auc_floor: float = 0.75) -> dict:
     """Phase 25 from the launching process: the two-rank gloo gang and the one-rank
     NCCL gang on the one card, then the one-process default fit.  Each
-    rank's default fit is the kernels line's run ``phase25r<rank>``
-    (``check_path``).  With ``dev`` the CPU it runs small there (the
-    one-rank gang over gloo).  Raises on a failed check."""
+    rank's default fit is the kernels line's run ``phase25r<rank>``, its
+    feature-parallel fit ``phase25r<rank>_featpar``, its voting fits
+    ``_vote`` (topK=20), ``_vote28`` and the data-parallel lossguide fit
+    ``_dplg``, its ranker ``_ranker`` (``check_path``; the new runs
+    strictly: every shape they launch is one phase 2 held).
+    ``ranker_ndcg10``: phase 13a's validation NDCG@10 (25h is held to it
+    within 0.01); ``online_rows``: phase 16's file of 16b's rows (None:
+    small generated rows).  With ``dev`` the CPU it runs small there
+    (``ranker_shape`` = (queries, validation queries, features); the
+    NCCL gang is a gloo rank).  Raises on a failed check."""
     from synapseml_tpu_torch.parallel import run_on_local_cluster
     on_card = dev.type == "cuda"
     kind = torch.cuda.get_device_name(0) if on_card else "cpu"
     args = dict(seed=seed, rows=rows, iters=iters, device=dev.type,
-                small_rows=small_rows, nccl_rows=nccl_rows)
+                small_rows=small_rows, nccl_rows=nccl_rows,
+                online_rows=online_rows, ranker_shape=list(ranker_shape))
     t0 = time.time()
     ranks = run_on_local_cluster("chip_smoke:phase25_gang", 2,
                                  task_args=args, device=dev.type,
@@ -5587,6 +6018,9 @@ def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
     log(f"phase 25c: GBDTClassifier(numShards=0) over 2 gloo ranks on the "
         f"card, {rows} x 28, {iters} iterations (f32 and int8 histogram "
         f"wire) | {card}: {json.dumps(out['main'])}")
+    out.update(p25_new_modes(ranks, seed, dev, card, rows, iters,
+                             check_path, small_rows, ranker_ndcg10,
+                             online_auc_floor))
     # (d) one rank over NCCL
     t0 = time.time()
     backend = "nccl" if on_card else "gloo"
@@ -5678,6 +6112,12 @@ def main(argv=None) -> int:
         1, RANK_MAXG + 1, RANK_Q).sum())
     two_level = ("maxBin=255", "multiclass", "validation", "resumed",
                  "phase22c", "phase23", "phase24", "phase25r0", "phase25r1")
+    # phase 25's runs on each of its two ranks (f: feature-parallel, 1M
+    # rows a rank; v: voting and the data-parallel lossguide fit it is
+    # held against, 500k rows a rank; r: the distributed ranker)
+    p25 = {k: tuple(f"phase25r{r}_{k}{x}" for r in (0, 1)
+                    for x in (("", "28", "_dplg") if k == "vote" else ("",)))
+           for k in ("featpar", "vote", "ranker")}
     mono = ("monotone basic", "monotone intermediate", "monotone advanced")
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
@@ -5693,9 +6133,19 @@ def main(argv=None) -> int:
         # a left child's rows
         ("build_hist_nodes", dict(F=F, B=256, shift=3, S=1), ("lossguide",)),
         # the node-batched shape of the depthwise grower's unfused build
-        # and the feature-parallel grower (trainer.py:1220, :1657), neither
-        # ported: checked and timed, but no fit of the port launches it
+        # (trainer.py:1220, not ported): checked and timed, but no fit of
+        # the port launches it
         ("build_hist_nodes", dict(F=F, B=64, shift=0, S=S), ()),
+        # the feature-parallel grower's node-batched build (trainer.py:
+        # 1657): each of phase 25's two ranks builds its 14 of the 28
+        # features over all rows, 16 slots a wave (the root in slot 0)
+        ("build_hist_nodes", dict(F=F // 2, B=256, shift=0, S=S),
+         p25["featpar"]),
+        # voting-parallel: lossguide at full resolution over a rank's
+        # half of the rows, one slot a split (and the data-parallel
+        # lossguide fit with two-level off it is held against)
+        ("build_hist_nodes", dict(F=F, B=256, shift=0, S=1, N=N // 2),
+         p25["vote"]),
         # the categorical fit (two-level, 32 columns)
         ("route_and_hist", dict(F=FC, B=256, shift=3, K=0, S=1),
          ("categorical",)),
@@ -5720,12 +6170,14 @@ def main(argv=None) -> int:
          ("unbundled lossguide",)),
         # phase 13's ranker at MSLR-WEB10K's width (two-level on at ~1.2M
         # rows): its waves, roots and refined builds over 136 features
+        # (and phase 25's distributed ranker, ~600k rows a rank: the
+        # same launch keys)
         ("route_and_hist", dict(F=RANK_F, B=256, shift=3, K=K, S=S,
-                                N=N_RANK), ("ranker",)),
+                                N=N_RANK), ("ranker",) + p25["ranker"]),
         ("route_and_hist", dict(F=RANK_F, B=256, shift=3, K=0, S=1,
-                                N=N_RANK), ("ranker",)),
+                                N=N_RANK), ("ranker",) + p25["ranker"]),
         ("build_hist_nodes", dict(F=RANK_F, B=256, shift=0, S=1, K=K,
-                                  N=N_RANK), ("ranker",)),
+                                  N=N_RANK), ("ranker",) + p25["ranker"]),
         # phase 13's streamed fit at HIGGS's 11M rows
         ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S, N=HIGGS_N),
          ("streamed",)),
@@ -5791,12 +6243,19 @@ def main(argv=None) -> int:
     # counts are reset just before and read just after each fit
     paths = {}
 
-    def check_path(name, r):
-        """Every kernel shape of the run ``name`` launched in it."""
+    def check_path(name, r, strict: bool = False):
+        """Every kernel shape of the run ``name`` launched in it; with
+        ``strict``, every shape it launched is one phase 2 held against
+        the plain version."""
         for key, _, runs, _ in cases:
             if name in runs and r["shapes"].get(key, 0) <= 0:
                 raise AssertionError(f"{name}: {key} never launched on "
                                      "the main path")
+        held = {key for key, _, _, _ in cases}
+        unheld = {k for k, v in r["shapes"].items() if v and k not in held}
+        if strict and unheld:
+            raise AssertionError(f"{name}: launched {unheld}, shapes phase 2 "
+                                 "did not hold against the plain version")
         paths[name] = r
 
     models = {"Xh": Xh}          # phase 13 exports these
@@ -5984,12 +6443,14 @@ def main(argv=None) -> int:
     wall("10")
 
     # -- 11. breadth: the card against the CPU ------------------------------
-    Xs, Xhs = X[:n_small], Xh[:4096]
+    # at half phase 3's rows: each config's CPU fit is what takes the time
+    n11 = n_small // 2
+    Xs, Xhs = X[:n11], Xh[:4096]
     score = Xs[:, 0] * 2 - Xs[:, 1] + Xs[:, 2] * Xs[:, 3]
-    ys = {"binary": y[:n_small], "multi": y3[:n_small],
+    ys = {"binary": y[:n11], "multi": y3[:n11],
           "huber": 0.3 * score.astype(np.float64),
           "poisson": np.exp(0.5 * Xs[:, 0] + 0.2 * Xs[:, 1]).astype(
-              np.float64) * drng.gamma(2.0, 0.5, n_small)}
+              np.float64) * drng.gamma(2.0, 0.5, n11)}
     data = {kind: (Xs, yk, Xhs) for kind, yk in ys.items()}
     # phase 12's generated columns at this size, and a validation
     # set of the task's next 16,384 rows
@@ -5998,16 +6459,16 @@ def main(argv=None) -> int:
                       ("onehot", with_onehot)):
         Xk, extra = add(r11, Xs)
         data[kind] = (Xk, gbdt_labels(r11, Xs, extra), add(r11, Xhs)[0])
-    valid_s = (X[n_small:n_small + 16_384], y[n_small:n_small + 16_384],
+    valid_s = (X[n11:n11 + 16_384], y[n11:n11 + 16_384],
                None)
     # lambdarank over groups of 1-239 rows (some past 128), and streamed
     # fits from an SMLC file (an odd chunk size) and from an SMLS file of
     # the one-hot blocks with EFB
     rel = np.clip(Xs[:, 0] + 0.5 * Xs[:, 1]
-                  + r11.normal(scale=0.3, size=n_small), 0, None)
+                  + r11.normal(scale=0.3, size=n11), 0, None)
     data["rank"] = (Xs, np.digitize(rel, [0.5, 1.2, 2.0, 2.8]).astype(
         np.float64), Xhs)
-    gsizes = groups_to(r11.integers(1, RANK_MAXG + 1, n_small), n_small)
+    gsizes = groups_to(r11.integers(1, RANK_MAXG + 1, n11), n11)
     from synapseml_tpu_torch.io import colstore as CS
     build_dir = os.path.dirname(CKPT_ROOT)
     os.makedirs(build_dir, exist_ok=True)
@@ -6095,12 +6556,12 @@ def main(argv=None) -> int:
 
     wall("11")
 
-    # -- 12. GBDT breadth II at full width ----------------------------------
-    breadth2(args.seed, N, F, args.iters, check_path)
+    # -- 12. GBDT breadth II at half the rows (500k: two-level still on) ----
+    breadth2(args.seed, N // 2, F, args.iters, check_path)
     wall("12")
 
     # -- 13. GBDT breadth III: ranker, streamed ingestion, text, TreeSHAP ----
-    breadth3(args.seed, args.iters, check_path, models)
+    p13 = breadth3(args.seed, args.iters, check_path, models)
     del models
     wall("13")
 
@@ -6116,8 +6577,9 @@ def main(argv=None) -> int:
 
     # -- 16. the online learners at Criteo's column shape --------------------
     torch.cuda.empty_cache()
-    # one turn (eager, then graph): three turns cost ~17 s more
-    online(args.seed, dev, turns=1)
+    # one turn (eager, then graph): three turns cost ~17 s more; 16b's
+    # rows are left for phase 25i
+    online(args.seed, dev, turns=1, save=P25_ONLINE_ROWS)
     wall("16")
 
     # -- 17. the MoE text encoder at BERT-base width -------------------------
@@ -6218,7 +6680,8 @@ def main(argv=None) -> int:
     # 128 records a client, and the two-API load at half its records
     # (256, 1,024 and 2,048 cost ~12 s more)
     serving_paths(args.seed, dev, card, p21.pop("bert"), check_path,
-                  per_thread=128, n_bert=512, n_gbdt_multi=1024)
+                  n_rows=N // 2, per_thread=128, n_bert=512,
+                  n_gbdt_multi=1024)
     del p21
     log(f"phase 23: no K-kernel outside the fit: K1/K2 launched only in "
         f"23b's GBDT fit {json.dumps(paths['phase23']['shapes'])}")
@@ -6242,7 +6705,10 @@ def main(argv=None) -> int:
 
     # -- 25. the parallel layer: a local gang of ranks on the one card -------
     torch.cuda.empty_cache()
-    parallel_gang(args.seed, dev, card, N, args.iters, check_path)
+    parallel_gang(args.seed, dev, card, N, args.iters, check_path,
+                  ranker_ndcg10=p13["ranker"]["valid_ndcg10"],
+                  online_rows=P25_ONLINE_ROWS)
+    os.remove(P25_ONLINE_ROWS)
     wall("25")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")

@@ -20,9 +20,21 @@ contiguous block of the rows (padded to a multiple of the world size
 with zero-weight rows), and the growers sum each decoded histogram
 across the ranks through the collective planner
 (``collective_compression``: none, bf16 or int8), so every rank grows
-the same trees.  What is not ported yet (voting- and feature-parallel
-growth, distributed lambdarank, a mesh fit's checkpoint directory)
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+the same trees.  ``parallelism="voting_parallel"`` shards the rows the
+same way but keeps each rank's histograms local: the lossguide grower
+votes for features and sums only the voted features' histograms
+(:func:`~.trainer._best_split_voting`).  ``parallelism=
+"feature_parallel"`` replicates the rows and shards the features: every
+rank bins all rows, keeps its slice of the columns (features padded to
+a multiple of the world size with masked one-bin features; under EFB
+one bundler per slice, padded to a common width) and grows with
+:func:`~.trainer.grow_tree_feature_parallel`.  Lambdarank over a mesh
+that shards rows packs whole query groups onto the ranks
+(:func:`~.ranking.pack_groups_for_shards`, pad rows of zero weight) and
+computes each rank's lambdas over its own groups; under feature_parallel
+every rank runs the plain objective on all rows.  A mesh fit's
+checkpoint directory raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -45,17 +57,22 @@ from .binning import (BinMapper, FeatureBundler, bin_features, bundle_bins,
                       fit_bin_mapper)
 from .hist import rows_geometry
 from . import prng
+from ...parallel.collectives import psum
 from ...parallel.compression import resolve_collective_config
 from ...parallel.heartbeat import beat
 from ...parallel.mesh import DATA_AXIS, ProcessMesh, block_bounds
 from ...parallel.planner import planned_psum
 from .objectives import (get_objective, initial_score, objective_kwargs,
                          ova_grad_hess, softmax_grad_hess)
-from .ranking import build_group_index, make_lambdarank_objective
+from .ranking import (build_group_index, make_lambdarank_objective,
+                      make_lambdarank_objective_sharded,
+                      pack_groups_for_shards)
 from .trainer import (TWO_LEVEL_MIN_ROWS, GrowthParams, Tree,
                       default_n_slots, grow_tree, grow_tree_depthwise,
-                      max_nodes, predict_binned_stacked, predict_binned_tree,
-                      predict_raw_features, stack_trees, tree_depth)
+                      grow_tree_feature_parallel, max_nodes,
+                      predict_binned_stacked, predict_binned_tree,
+                      predict_binned_tree_featpar, predict_raw_features,
+                      stack_trees, tree_depth)
 
 
 @dataclasses.dataclass
@@ -117,6 +134,8 @@ class BoostingConfig:
     pass_through: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def growth_params(self) -> GrowthParams:
+        """The growers' params; ``voting_k`` is ``top_k`` under
+        voting_parallel (it votes only over a mesh)."""
         mono = None
         if self.monotone_constraints and any(self.monotone_constraints):
             mono = tuple(int(c) for c in self.monotone_constraints)
@@ -132,6 +151,8 @@ class BoostingConfig:
             lambda_l2=self.lambda_l2,
             min_gain_to_split=self.min_gain_to_split,
             total_bins=self.max_bin + 1,
+            voting_k=(self.top_k if self.parallelism == "voting_parallel"
+                      else 0),
             two_level=({True: "on", False: "off"}.get(
                 self.two_level_hist, str(self.two_level_hist))),
             refine_k=int(self.refine_features),
@@ -150,20 +171,15 @@ def _fused_ingest_on(config: BoostingConfig) -> bool:
 
 #: objectives trained with K trees per iteration
 MULTICLASS = ("multiclass", "multiclassova")
+#: the ``parallelism`` values (LightGBM's tree learners)
+PARALLELISM = ("data_parallel", "voting_parallel", "feature_parallel")
 
 
 def _check_ported(config: BoostingConfig) -> None:
-    """Raise ``NotImplementedError`` for every config value this port does
-    not train, naming the ROADMAP item that ports it."""
-    checks = [
-        (config.parallelism != "data_parallel",
-         f"parallelism={config.parallelism!r}",
-         "A5: voting- and feature-parallel GBDT"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                      f"queue {item})")
+    """Raise ``ValueError`` for a config value no grower takes."""
+    if config.parallelism not in PARALLELISM:
+        raise ValueError(f"parallelism={config.parallelism!r}: must be one "
+                         f"of {PARALLELISM}")
     if config.objective not in MULTICLASS + ("lambdarank",):
         get_objective(config.objective)
     elif config.objective in MULTICLASS and config.num_class < 2:
@@ -254,10 +270,16 @@ def _advanced_mask_budget_bytes(config: BoostingConfig) -> int:
     return min(max(1 << 30, _available_host_bytes() // 4), 8 << 30)
 
 
+def _voting(config: BoostingConfig) -> bool:
+    """voting_parallel with votes to cast: it grows lossguide (the JAX
+    package's rule; with ``top_k`` 0 the fit is data-parallel)."""
+    return config.parallelism == "voting_parallel" and config.top_k > 0
+
+
 def _n_slots(config: BoostingConfig) -> int:
     """Histogram slots of one build: a depthwise wave's, or one for
-    lossguide's per-split build."""
-    if config.growth_policy == "lossguide":
+    lossguide's per-split build (voting grows lossguide)."""
+    if config.growth_policy == "lossguide" or _voting(config):
         return 1
     return default_n_slots(config.num_leaves)
 
@@ -842,6 +864,60 @@ def _block(a: Optional[np.ndarray], lo: int, hi: int, fill=0):
             [part, np.full((pad,) + a.shape[1:], fill, a.dtype)])
     return part
 
+
+def _featpar_columns(X, source, mapper: BinMapper, config: BoostingConfig,
+                     shards: int, rank: int, bins_full, dev) -> dict:
+    """This rank's columns under feature_parallel: the features pad to
+    ``F_loc · shards`` with one-bin features (bin 0, bound +inf, never
+    split), rank r keeps features [r·F_loc, (r+1)·F_loc).  Under EFB one
+    bundler fits each rank's slice of the 50k-row sample (bundles never
+    cross ranks; every rank fits all of them, so all agree on the common
+    width their bundled columns pad to) → {"bins" (Fb_loc, n), "bundle_map"
+    (this rank's route tables) or None, "upper_bounds" (F_loc, B-1),
+    "num_bins" (F_loc,), "F_loc"}."""
+    F = mapper.num_features
+    B = config.max_bin + 1
+    F_loc = -(-F // shards)
+    Fp = F_loc * shards
+    f0, f1 = rank * F_loc, min((rank + 1) * F_loc, F)
+    nb_pad = np.concatenate([mapper.num_bins,
+                             np.ones(Fp - F, mapper.num_bins.dtype)])
+    ub_pad = np.concatenate([mapper.upper_bounds, np.full(
+        (Fp - F, mapper.upper_bounds.shape[1]), np.inf, np.float32)])
+    if bins_full is None:
+        bins_full = _bin_stream(source, mapper, None, source.num_rows, dev)
+    bins = torch.zeros((F_loc, bins_full.shape[1]), dtype=torch.int32,
+                       device=dev)
+    bins[:max(f1 - f0, 0)] = bins_full[f0:f1]
+    del bins_full
+    bundle_map = None
+    if config.enable_bundle:
+        take = min(config.bin_sample_count, 50_000)
+        sample = (source.sample_rows(take, config.seed) if source is not None
+                  else X[:take])
+        sb = bin_features(np.ascontiguousarray(sample, np.float32), mapper,
+                          dev).t().cpu().numpy()
+        sb = np.concatenate([sb, np.zeros((len(sb), Fp - F), sb.dtype)], 1)
+        bundlers = [FeatureBundler.fit(
+            sb[:, r * F_loc:(r + 1) * F_loc], nb_pad[r * F_loc:(r + 1) * F_loc],
+            max_total_bins=B, max_conflict_rate=config.max_conflict_rate)
+            for r in range(shards)]
+        width = max(b.num_bundles for b in bundlers)
+        mine = bundlers[rank]
+        bundled = bundle_bins(bins, mine)
+        bins = torch.zeros((width, bins.shape[1]), dtype=torch.int32,
+                           device=dev)
+        bins[:bundled.shape[0]] = bundled
+        bundle_map = {k: torch.as_tensor(v.astype(np.int32), device=dev)
+                      for k, v in mine.route_tables(
+                          nb_pad[rank * F_loc:(rank + 1) * F_loc],
+                          B).items()}
+    return dict(bins=bins, bundle_map=bundle_map,
+                upper_bounds=ub_pad[rank * F_loc:(rank + 1) * F_loc],
+                num_bins=nb_pad[rank * F_loc:(rank + 1) * F_loc],
+                F_loc=F_loc)
+
+
 def train(X, y: Optional[np.ndarray], config: BoostingConfig,
           sample_weight: Optional[np.ndarray] = None,
           feature_names: Optional[Sequence[str]] = None,
@@ -900,7 +976,11 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     block of the rows padded to a multiple of the world size with
     zero-weight rows, folds its rank into the bagging key, and sums each
     decoded histogram across the ranks (``collective_compression`` on
-    the wire); every rank returns the same booster.  Lambdarank, a
+    the wire); every rank returns the same booster.  ``parallelism``
+    voting_parallel (rows sharded the same way, lossguide with the
+    voting pick) and feature_parallel (rows replicated, features
+    sharded) train over the mesh too, and so does lambdarank (whole
+    query groups packed onto the ranks where rows are sharded).  A
     checkpoint directory and the step profiler's cost capture are not
     ported over a mesh (ROADMAP queue A5).
 
@@ -914,12 +994,6 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     added."""
     dev = resolve_device(device)
     if mesh is not None:
-        if config.objective == "lambdarank":
-            raise NotImplementedError(
-                "lambdarank over a mesh (whole query groups packed onto "
-                "ranks, the sharded objective and streamed distributed "
-                "ranking) is not ported yet (ROADMAP queue A5: "
-                "distributed lambdarank); pass mesh=None")
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "a checkpoint directory over a mesh (every rank writing "
@@ -1004,12 +1078,44 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     else:
         X = np.ascontiguousarray(X, np.float32)
         n, F = X.shape
-    # this rank's rows [lo, hi) of the padded rows (all rows on one device)
-    rank = 0
+    n_src = n
+    featpar = mesh is not None and config.parallelism == "feature_parallel"
+    rank, shards = ((0, 1) if mesh is None else
+                    (mesh.axis_index(DATA_AXIS), mesh.axis_size(DATA_AXIS)))
+    if config.objective == "lambdarank":
+        if group is None:
+            raise ValueError("lambdarank requires group sizes (groupCol)")
+        group = np.asarray(group)
+        if int(group.sum()) != n:
+            raise ValueError(f"group sizes sum to {int(group.sum())}, the "
+                             f"data has {n} rows")
+    lr_pack = stream_perm = None
+    if config.objective == "lambdarank" and mesh is not None \
+            and not featpar:
+        # rows are sharded: whole groups pack onto the ranks, each rank's
+        # slab padded to a common length L with zero-weight rows; a
+        # streamed source permutes its binned columns on the device
+        perm, sq, smask, L = pack_groups_for_shards(group, shards, 1,
+                                                    max_group_size=128)
+        real = perm >= 0
+        pc = np.maximum(perm, 0)
+        if source is not None:
+            stream_perm = (pc[rank * L:(rank + 1) * L],
+                           real[rank * L:(rank + 1) * L])
+        else:
+            X = X[pc]
+            X[~real] = np.nan          # pads must not move the bin bounds
+        y = np.asarray(y)[pc] * real
+        sw = (np.asarray(sample_weight, np.float32)[pc]
+              if sample_weight is not None else np.ones(len(pc), np.float32))
+        sample_weight = (sw * real).astype(np.float32)
+        n = len(pc)
+        lr_pack = (sq, smask, L)
+    # this rank's rows [lo, hi) of the padded rows (all rows on one
+    # device, or on every rank under feature_parallel)
     lo, hi = 0, n
-    if mesh is not None:
-        rank = mesh.axis_index(DATA_AXIS)
-        lo, hi = block_bounds(n, mesh.axis_size(DATA_AXIS), rank)
+    if mesh is not None and not featpar:
+        lo, hi = block_bounds(n, shards, rank)
     n_local = hi - lo
     _check_monotone(config, F)
     K = config.num_class if config.objective in MULTICLASS else 1
@@ -1038,7 +1144,12 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
               else bin_features(_block(X, lo, hi, np.nan), mapper, dev))
     B = config.max_bin + 1
     bundler = bundle_map = None
-    if config.enable_bundle:
+    fp_cols = None
+    if featpar:
+        fp_cols = _featpar_columns(X, source, mapper, config, shards, rank,
+                                   bins_t, dev)
+        bins_t, bundle_map = fp_cols["bins"], fp_cols["bundle_map"]
+    elif config.enable_bundle:
         # EFB: fit on the first 50k binned rows (a source: on a 50k-row
         # sample, the JAX package's samples)
         if init_model is not None and init_model.bundler is not None:
@@ -1065,7 +1176,16 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
         bundle_map = {k: torch.as_tensor(v.astype(np.int32), device=dev)
                       for k, v in bundler.route_tables(mapper.num_bins,
                                                        B).items()}
-    if source is not None:
+    if source is not None and stream_perm is not None:
+        # this rank's packed slab of the source-order columns; pad rows
+        # take the NaN row's bins, as the in-memory packing bins them
+        pc, real = (torch.as_tensor(a, device=dev) for a in stream_perm)
+        full = _bin_stream(source, mapper, bundler, n_src, dev)
+        pad = _bin_rows(np.full((1, F), np.nan, np.float32), mapper, bundler,
+                        dev)
+        bins_t = torch.where(real[None], full[:, pc], pad)
+        del full
+    elif source is not None and not featpar:
         bins_t = _bin_stream(source, mapper, bundler, n, dev, (lo, hi))
     synchronize(dev)
     measures.binning_s = time.perf_counter() - t0
@@ -1101,11 +1221,14 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     w = _block(w, lo, hi)
 
     # "auto" two-level resolves from the row count, as the JAX package
-    # resolves it when its kernel grower is in play
+    # resolves it when its kernel grower is in play; the voting and
+    # feature-parallel growers build at full resolution
     if config.two_level_hist == "auto":
         config = dataclasses.replace(
-            config, two_level_hist=("on" if n >= TWO_LEVEL_MIN_ROWS
-                                    else "off"))
+            config, two_level_hist=(
+                "on" if (n >= TWO_LEVEL_MIN_ROWS and not featpar
+                         and config.parallelism != "voting_parallel")
+                else "off"))
     labels = torch.as_tensor(labels_np, device=dev)
     weights = (torch.ones(n_local, dtype=torch.float32, device=dev)
                if w is None else torch.as_tensor(w, device=dev))
@@ -1135,13 +1258,13 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             torch.float32)
         multi_fn = (ova_grad_hess if config.objective == "multiclassova"
                     else softmax_grad_hess)
+    elif lr_pack is not None:
+        # this rank's lambdas over its own packed groups
+        sq, smask, L = lr_pack
+        objective_fn = make_lambdarank_objective_sharded(
+            sq, smask, L, rank, sigma=1.0, max_position=config.max_position,
+            label_gain=config.label_gain, device=dev)
     elif config.objective == "lambdarank":
-        if group is None:
-            raise ValueError("lambdarank requires group sizes (groupCol)")
-        group = np.asarray(group)
-        if int(group.sum()) != n:
-            raise ValueError(f"group sizes sum to {int(group.sum())}, the "
-                             f"data has {n} rows")
         qidx, qmask = build_group_index(group)
         objective_fn = make_lambdarank_objective(
             qidx, qmask, n_rows=n, sigma=1.0,
@@ -1151,23 +1274,38 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
         objective_fn = functools.partial(
             get_objective(config.objective),
             **objective_kwargs(config.objective, config))
-    upper_bounds = torch.as_tensor(mapper.upper_bounds, device=dev)
-    num_bins = torch.as_tensor(mapper.num_bins, device=dev)
+    upper_bounds = torch.as_tensor(
+        mapper.upper_bounds if fp_cols is None else fp_cols["upper_bounds"],
+        device=dev)
+    num_bins = torch.as_tensor(
+        mapper.num_bins if fp_cols is None else fp_cols["num_bins"],
+        device=dev)
     p = config.growth_params()
     is_dart = config.boosting_type == "dart"
     use_goss = config.boosting_type == "goss"
     lr = 1.0 if is_rf else config.learning_rate
     use_bagging = (config.bagging_fraction < 1.0
                    and (is_rf or config.bagging_freq > 0))
-    hist_ar = None
-    if mesh is not None:
-        op = "gbdt_hist_psum" if cconfig is not None else "psum"
+    hist_ar = vote_psum = None
+    if mesh is not None and not featpar:
+        # the histogram wire's codec applies to the data-parallel psum only
+        wire = None if _hist_psum_nulled(config, True) else cconfig
+        op = "gbdt_hist_psum" if wire is not None else "psum"
 
         def hist_ar(h):
-            return planned_psum(h, mesh, DATA_AXIS, cconfig, op=op)
-    if config.growth_policy == "lossguide":
+            return planned_psum(h, mesh, DATA_AXIS, wire, op=op)
+
+        if _voting(config):
+            def vote_psum(t):
+                return psum(t, mesh, DATA_AXIS, op="gbdt_vote_psum")
+    if featpar:
+        grower = functools.partial(grow_tree_feature_parallel, mesh=mesh,
+                                   n_slots=_n_slots(config),
+                                   bundle_map=bundle_map)
+    elif config.growth_policy == "lossguide" or _voting(config):
         grower = functools.partial(grow_tree, bundle_map=bundle_map,
-                                   hist_allreduce=hist_ar)
+                                   hist_allreduce=hist_ar,
+                                   vote_psum=vote_psum)
     else:
         grower = functools.partial(grow_tree_depthwise,
                                    n_slots=_n_slots(config),
@@ -1233,7 +1371,13 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
         return Tree(*[torch.as_tensor(a).to(dev) for a in tree])
 
     def contrib(tree: Tree, weight: float) -> torch.Tensor:
-        """One tree's weighted outputs on the training rows (DART)."""
+        """One tree's weighted outputs on the training rows (DART); under
+        feature_parallel over the sharded columns, one all-reduce a
+        level."""
+        if featpar:
+            return predict_binned_tree_featpar(
+                bins_t, on_dev(tree), depth_hint, B, mesh,
+                bundle_map) * weight
         return predict_binned_tree(bins_t, on_dev(tree), depth_hint,
                                    bundle_map, B) * weight
 
@@ -1243,7 +1387,18 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     tree_weights: List[float] = []
     eval_history: List[EvalRecord] = []
     rf_count = 0
-    fmask_dev = torch.ones(F, dtype=torch.bool, device=dev)
+
+    def local_mask(fmask: np.ndarray) -> torch.Tensor:
+        """The grower's feature mask: the global one, or under
+        feature_parallel this rank's slice (pad features off)."""
+        if fp_cols is not None:
+            F_loc = fp_cols["F_loc"]
+            fmask = np.concatenate(
+                [fmask, np.zeros(F_loc * shards - F, bool)])[
+                    rank * F_loc:(rank + 1) * F_loc]
+        return torch.as_tensor(fmask, device=dev)
+
+    fmask_dev = local_mask(np.ones(F, bool))
 
     def grow_iteration(scores, bag, key, fmask_dev):
         """One iteration's gradients and trees → (the trees on the device,
@@ -1282,7 +1437,7 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                 nf = max(1, int(round(F * config.feature_fraction)))
                 fmask = np.zeros(F, bool)
                 fmask[rng.choice(F, nf, replace=False)] = True
-                fmask_dev = torch.as_tensor(fmask, device=dev)
+                fmask_dev = local_mask(fmask)
             # dart: drop trees and take them out of the scores
             dropped: List[int] = []
             if is_dart and trees and rng.random() >= config.skip_drop:
@@ -1299,9 +1454,10 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             if use_bagging:
                 bag_key = prng.fold_in(bag_root,
                                        gi // max(config.bagging_freq, 1))
-                if mesh is not None:
+                if mesh is not None and not featpar:
                     # each rank draws its own rows' bag, as the JAX
-                    # package's fold_in(bag_key, axis_index)
+                    # package's fold_in(bag_key, axis_index); replicated
+                    # rows (feature_parallel) draw the same bag
                     bag_key = prng.fold_in(bag_key, rank)
                 bag = bag_mask(bag_key, n_local, config.bagging_fraction,
                                dev) * ones

@@ -13,12 +13,17 @@ version-2 JSON.  The param surface is the JAX package's.  ``numShards``
 counts the ranks of the initialized ``torch.distributed`` group (in the
 JAX package it counts local devices): 0 trains over every rank (one
 rank, or no group, trains locally), 1 trains locally on each rank, the
-world size trains data-parallel (``booster.train(mesh=...)``, every rank
-fitting the same model), and any other value raises.
+world size trains over the group (``booster.train(mesh=...)``, every
+rank fitting the same model), and any other value raises.
+``parallelism`` picks the tree learner over the group: data_parallel
+(rows sharded, histograms summed), voting_parallel (rows sharded, the
+``topK`` votes of each rank choose the histograms summed; lossguide) or
+feature_parallel (rows replicated, features sharded); on one rank each
+trains as the JAX package trains it without a mesh.
 ``collectiveCompression`` (``none`` / ``bf16`` / ``int8`` or a
-``CollectiveConfig``) is the histogram all-reduce's wire codec.  Params
-whose features are not ported (the checkpoint manager, voting/feature
-parallelism) raise ``NotImplementedError`` at ``fit`` before any work.
+``CollectiveConfig``) is the data-parallel histogram all-reduce's wire
+codec.  The checkpoint manager, not ported, raises
+``NotImplementedError`` at ``fit`` before any work.
 """
 
 from __future__ import annotations
@@ -87,8 +92,9 @@ class GBDTParams(Params):
             "torch.distributed group; 0 = every rank, 1 = train locally",
         default=0)
     parallelism = StringParam(
-        doc="data_parallel|voting_parallel|feature_parallel "
-            "(data_parallel on one card is ported)",
+        doc="data_parallel|voting_parallel|feature_parallel: the tree "
+            "learner over the torch.distributed group (the reference's "
+            "tree_learner values)",
         default="data_parallel",
         allowed=("data_parallel", "voting_parallel", "feature_parallel"))
     topK = IntParam(doc="voting-parallel top features per shard", default=20)
@@ -130,12 +136,9 @@ class GBDTParams(Params):
             "a mesh, as in the JAX package)")
 
     def _mesh(self):
-        """The data-parallel mesh ``numShards`` asks for (None: train
-        locally), checked before any work."""
-        if self.parallelism != "data_parallel":
-            raise NotImplementedError(
-                f"parallelism={self.parallelism!r} is not ported yet "
-                "(ROADMAP queue A5: voting- and feature-parallel GBDT)")
+        """The mesh ``numShards`` asks for (None: train locally), checked
+        with the unported params before any work."""
+        self._checkpoint_dir()
         from ...parallel.compression import resolve_collective_config
         resolve_collective_config(self.get("collectiveCompression"))
         import torch.distributed as dist

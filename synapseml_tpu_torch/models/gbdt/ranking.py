@@ -14,8 +14,13 @@ At most ``_PAIR_BUDGET`` (query, i, j) pairs are alive at a time: the
 grid is processed in query chunks, and every row belongs to one query,
 so the result does not depend on the chunking.
 
-The sharded variant and ``pack_groups_for_shards`` (whole groups packed
-onto mesh shards) wait for ROADMAP A5.
+Distributed training follows the reference's partition rule: whole
+groups pack onto the ranks (greedy, largest first onto the lightest,
+:func:`pack_groups_for_shards`, numpy, the JAX package's), each rank's
+slab pads to a common row count with zero-weight rows, and each rank's
+objective (:func:`make_lambdarank_objective_sharded`) computes lambdas
+over its own groups only: they never cross ranks, and the histogram
+all-reduce is the only communication.
 """
 
 from __future__ import annotations
@@ -43,6 +48,42 @@ def build_group_index(group_sizes: np.ndarray,
         qidx[q, :take] = np.arange(start, start + take)
         start += g
     return qidx.astype(np.int32), (qidx >= 0)
+
+
+def pack_groups_for_shards(group_sizes: np.ndarray, shards: int,
+                           row_unit: int = 1, max_group_size: int = 128):
+    """Assign WHOLE groups to shards and lay rows out slab-contiguously.
+
+    Greedy balance: largest group first onto the lightest shard; each
+    shard's slab pads to the common length L (a multiple of
+    ``row_unit``).  Returns ``(perm, stacked_qidx, stacked_mask, L)``
+    where ``perm`` (shards·L,) holds original row indices (-1 ⇒ pad row)
+    and ``stacked_qidx`` (shards, Qmax, D) indexes each shard's LOCAL
+    rows (the JAX package's function, bit for bit)."""
+    sizes = np.asarray(group_sizes, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    order = np.argsort(-sizes, kind="stable")
+    shard_groups: list = [[] for _ in range(shards)]
+    shard_rows = np.zeros(shards, np.int64)
+    for g in order:
+        s = int(np.argmin(shard_rows))
+        shard_groups[s].append(int(g))
+        shard_rows[s] += sizes[g]
+    L = int(-(-max(int(shard_rows.max()), 1) // row_unit) * row_unit)
+    D = min(int(sizes.max()), max_group_size)
+    Qmax = max(len(gs) for gs in shard_groups) or 1
+    perm = np.full(shards * L, -1, np.int64)
+    qidx = np.full((shards, Qmax, D), -1, np.int64)
+    for s, gs in enumerate(shard_groups):
+        pos = 0
+        for qi, g in enumerate(sorted(gs)):    # stable within-shard order
+            gsz = int(sizes[g])
+            take = min(gsz, D)
+            perm[s * L + pos: s * L + pos + gsz] = \
+                np.arange(starts[g], starts[g] + gsz)
+            qidx[s, qi, :take] = pos + np.arange(take)
+            pos += gsz
+    return perm, qidx.astype(np.int32), (qidx >= 0), L
 
 
 def _lambda_grids(s, lab, mask, sigma: float, max_position: int,
@@ -132,3 +173,22 @@ def make_lambdarank_objective(qidx: np.ndarray, mask: np.ndarray,
         return grad * w, torch.clamp_min(hess, 1e-9) * w
 
     return objective
+
+
+def make_lambdarank_objective_sharded(stacked_qidx: np.ndarray,
+                                      stacked_mask: np.ndarray,
+                                      n_rows_local: int, rank: int,
+                                      sigma: float = 1.0,
+                                      max_position: int = 10,
+                                      label_gain: Optional[np.ndarray] = None,
+                                      device="cpu"):
+    """Rank ``rank``'s objective over its slab of
+    :func:`pack_groups_for_shards`: its own (Qmax, D) group grid of
+    local row indices over its ``n_rows_local`` rows.  Groups never span
+    ranks, so no lambda crosses them (the JAX package's
+    ``make_lambdarank_objective_sharded``, which picks the grid by
+    ``lax.axis_index`` inside ``shard_map``)."""
+    return make_lambdarank_objective(
+        np.asarray(stacked_qidx)[rank], np.asarray(stacked_mask)[rank],
+        n_rows_local, sigma=sigma, max_position=max_position,
+        label_gain=label_gain, device=device)

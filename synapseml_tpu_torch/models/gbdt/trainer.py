@@ -64,7 +64,7 @@ class GrowthParams(NamedTuple):
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
     total_bins: int = 256             # B (incl. missing bin 0)
-    voting_k: int = 0                 # >0: voting-parallel (not ported)
+    voting_k: int = 0                 # >0: voting-parallel with this top-k
     #: per-feature {-1, 0, +1} (None: unconstrained): violating splits
     #: are discarded and child outputs clamped to bounds
     monotone_constraints: Optional[Tuple[int, ...]] = None
@@ -145,11 +145,11 @@ def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _topk_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the k largest of a 1-D tensor, ties to the
-    lower index — ``lax.top_k``'s rule, which ``torch.topk`` does not
+    """(values, indices) of the k largest along the last axis, ties to
+    the lower index — ``lax.top_k``'s rule, which ``torch.topk`` does not
     promise."""
     v, i = torch.sort(x, descending=True, stable=True)
-    return v[:k], i[:k].to(torch.int32)
+    return v[..., :k], i[..., :k].to(torch.int32)
 
 
 def _mono_penalty_factor(node_depth, penalty: float):
@@ -207,7 +207,7 @@ def _gain_matrix(hist, sum_g, sum_h, sum_c, num_bins, feature_mask,
         wp = _clip(_leaf_output(sg, sh, l1, l2), lo, hi)
         gain = (_obj2(gl, hl, wl, l1, l2) + _obj2(gr, hr, wr, l1, l2)
                 - _obj2(sg, sh, wp, l1, l2))
-        cvec = mono_c[:, None]
+        cvec = mono_c[..., None]
         viol = ((cvec == 1) & (wl > wr)) | ((cvec == -1) & (wl < wr))
         gain = torch.where(viol, -torch.inf, gain)
         if p.monotone_penalty > 0.0:
@@ -217,9 +217,9 @@ def _gain_matrix(hist, sum_g, sum_h, sum_c, num_bins, feature_mask,
     valid = ((cl >= p.min_data_in_leaf) & (cr >= p.min_data_in_leaf)
              & (hl >= p.min_sum_hessian_in_leaf)
              & (hr >= p.min_sum_hessian_in_leaf)
-             & (bins_idx < num_bins[:, None])     # inside feature's bin range
+             & (bins_idx < num_bins[..., None])   # inside feature's bin range
              & (bins_idx < B - 1)
-             & feature_mask[:, None])
+             & feature_mask[..., None])
     if p.max_depth > 0:
         valid = valid & (node_depth[..., None, None] < p.max_depth)
     return torch.where(valid, gain, -torch.inf), (gl, hl, cl)
@@ -244,6 +244,51 @@ def _best_split(hist, sum_g, sum_h, sum_c, num_bins, feature_mask,
     return _pick(*_gain_matrix(hist, sum_g, sum_h, sum_c, num_bins,
                                feature_mask, node_depth, p, node_lo,
                                node_hi, mono_c))
+
+
+def _best_split_voting(local_hist, sum_g, sum_h, sum_c, num_bins,
+                       feature_mask, node_depth, p: GrowthParams,
+                       psum: Callable, node_lo=None, node_hi=None,
+                       mono_c=None):
+    """Voting-parallel split selection (LightGBM ``voting_parallel``, the
+    PV-Tree algorithm) for a batch of n nodes: ``local_hist`` (n, F, B,
+    3) holds this rank's histograms, ``sum_*`` (n,) the nodes' global
+    stats, ``psum`` sums a tensor across the ranks.
+
+    Each rank ranks the features by their best gain against its LOCAL
+    node stats and votes for its top ``voting_k``; one psum of the (n, F)
+    votes lets every rank select the same global top 2k features (votes
+    descending, lower index first: the score ``votes·(F+1) + (F-1-f)``
+    is exact in f32 and has no ties), and one psum of the selected (n,
+    2k, B, 3) histograms gives the global best split among them →
+    (gain, feature, bin, gl, hl, cl), each (n,).  The JAX package's
+    ``_best_split_voting`` for one node; the batch shares the two
+    psums."""
+    n, F, B, _ = local_hist.shape
+    dev = local_hist.device
+    k = min(p.voting_k, F)
+    sel_n = min(2 * k, F)
+    # (1) the local view: the local node sums live in every feature's
+    # bins; feature 0's scan gives them
+    lsum = _prefix_sum(local_hist[:, 0].transpose(1, 2))[..., -1]  # (n, 3)
+    lgain, _ = _gain_matrix(local_hist, lsum[:, 0], lsum[:, 1], lsum[:, 2],
+                            num_bins, feature_mask, node_depth, p, node_lo,
+                            node_hi, mono_c)
+    tv, top = _topk_index(lgain.max(dim=-1).values, k)        # (n, k)
+    votes = psum(torch.zeros((n, F), dtype=torch.float32, device=dev)
+                 .scatter_add_(1, top.long(),
+                               (tv > -torch.inf).to(torch.float32)))
+    # (2) the same global top 2k on every rank
+    rev = torch.arange(F - 1, -1, -1, dtype=torch.float32, device=dev)
+    sel = _topk_index(votes * float(F + 1) + rev, sel_n)[1]   # (n, sel_n)
+    sl = sel.long()
+    # (3) only the voted features' histograms cross the ranks
+    glob = psum(torch.take_along_dim(local_hist, sl[:, :, None, None], 1))
+    ggain, cum = _gain_matrix(glob, sum_g, sum_h, sum_c, num_bins[sl],
+                              feature_mask[sl], node_depth, p, node_lo,
+                              node_hi, None if mono_c is None else mono_c[sl])
+    g, bi, bb, gl, hl, cl = _pick(ggain, cum)
+    return g, sel.gather(1, bi.long()[:, None])[:, 0], bb, gl, hl, cl
 
 
 # -- monotone constraints ----------------------------------------------------
@@ -573,10 +618,6 @@ def grow_tree_depthwise(bins_t: torch.Tensor,       # (Fb, N) int32
     bundled columns, while the features, bounds and the tree are the
     original ones.  ``hist_allreduce``: the data-parallel sum of a
     decoded histogram across ranks (see the module docstring)."""
-    if p.voting_k:
-        raise NotImplementedError(
-            "voting-parallel growth is not ported yet (ROADMAP queue A5: "
-            "voting- and feature-parallel GBDT)")
     ar = hist_allreduce or (lambda h: h)
     dev = bins_t.device
     i32, f32 = torch.int32, torch.float32
@@ -810,7 +851,8 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
               learning_rate: float,
               p: GrowthParams,
               bundle_map: Optional[dict] = None,
-              hist_allreduce: Optional[Callable] = None
+              hist_allreduce: Optional[Callable] = None,
+              vote_psum: Optional[Callable] = None
               ) -> Tuple[Tree, torch.Tensor]:
     """Strict leaf-wise (lossguide) growth → (tree, per-row leaf node ids).
 
@@ -823,12 +865,17 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
     still split (the JAX grower's ``lax.cond``); everything else stays on
     the device, with the chosen leaf as a one-element index tensor.
     ``bundle_map`` and ``hist_allreduce``: as in
-    :func:`grow_tree_depthwise`."""
-    if p.voting_k:
-        raise NotImplementedError(
-            "voting-parallel growth is not ported yet (ROADMAP queue A5: "
-            "voting- and feature-parallel GBDT)")
-    ar = hist_allreduce or (lambda h: h)
+    :func:`grow_tree_depthwise`.
+
+    Voting-parallel growth (``p.voting_k`` > 0 with ``vote_psum``, the
+    sum across the ranks of the mesh's data axis): each rank's
+    histograms stay local, the root's feature-0 histogram is summed for
+    the global root stats (the data-parallel grower's scan over the same
+    sums), and every pick is :func:`_best_split_voting` (two psums for
+    both children of a split); two-level is off, as in the JAX
+    package."""
+    voting = p.voting_k > 0 and vote_psum is not None
+    ar = (lambda h: h) if voting else (hist_allreduce or (lambda h: h))
     dev = bins_t.device
     i32, f32 = torch.int32, torch.float32
     N = bins_t.shape[1]
@@ -838,7 +885,7 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
     M = max_nodes(L)
     mono_c = _mono_vec(p, F, dev)
     refresh = _refresh_on(mono_c, p)
-    tl = _two_level_on(p, F, N, bundle_map)
+    tl = _two_level_on(p, F, N, bundle_map) and not voting
     SH = TWO_LEVEL_SHIFT if tl else 0
     Bh = coarse_bins(B, SH) if tl else B
     K = p.refine_k
@@ -857,6 +904,10 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
             bundle_map)[0])
 
     def pick(hists, g, h, c, d, lo, hi):
+        if voting:
+            return _best_split_voting(hists, g, h, c, num_bins,
+                                      feature_mask, d, p, vote_psum, lo, hi,
+                                      mono_c)
         return _best_split(hists, g, h, c, num_bins, feature_mask, d, p, lo,
                            hi, mono_c)
 
@@ -864,13 +915,19 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
     node_hi = torch.full((M,), torch.inf, dtype=f32, device=dev)
     root_hist = build(torch.ones_like(valid))
     # the scan's last entry: the same adds in the same order on every
-    # device (see _prefix_sum)
-    root_stats = _prefix_sum(root_hist[0].t())[:, -1]
+    # device (see _prefix_sum); under voting over the summed feature 0
+    root_stats = _prefix_sum((vote_psum(root_hist[0]) if voting
+                              else root_hist[0]).t())[:, -1]
     topk = None
     if tl:
         topk, root_fine, rbest = _tl_root_pick(
             bins_t, root_hist, root_stats, row_valid, vals8, scales,
             num_bins, num_bins_c, feature_mask, p, ar)
+    elif voting:
+        rbest = tuple(x[0] for x in pick(
+            root_hist[None], root_stats[0:1], root_stats[1:2],
+            root_stats[2:3], torch.zeros(1, dtype=i32, device=dev),
+            node_lo[:1], node_hi[:1]))
     else:
         rbest = pick(root_hist, root_stats[0], root_stats[1], root_stats[2],
                      torch.zeros((), dtype=i32, device=dev), node_lo[0],
@@ -985,6 +1042,267 @@ def grow_tree(bins_t: torch.Tensor,         # (Fb, N) int32
                         left_child, right_child, sum_g, sum_h, sum_c,
                         num_nodes, node_lo, node_hi, mono_c, learning_rate,
                         p), node_id
+
+
+# -- feature-parallel growth ---------------------------------------------------
+
+def _fp_mesh(mesh):
+    from ...parallel.mesh import DATA_AXIS
+    return mesh.axis_index(DATA_AXIS), mesh.axis_size(DATA_AXIS)
+
+
+def _fp_route_left(bins_t, wf, wb, valid, B: int, F_loc: int, rank: int,
+                   mesh, bundle_map=None) -> torch.Tensor:
+    """Owner-exclusive routing of splits on GLOBAL features ``wf`` at
+    bins ``wb`` (each (n,)): the rank that owns a split's feature routes
+    every row through its own column (the universal routing form, so EFB
+    columns too), the others contribute 0, and one psum of the (n, N)
+    int8 masks gives every rank every split's go-left rows → (n, N)
+    bool.  int8 on both backends: the owner-exclusive 0/1 masks sum to at
+    most 1, and gloo and NCCL reduce int8 on CPU and CUDA tensors."""
+    from ...parallel.collectives import psum
+    mine = ((wf // F_loc) == rank) & valid
+    floc = torch.clamp(wf - rank * F_loc, 0, F_loc - 1)
+    col, t1, rlo, rhi, dflt = _slot_route_params(floc, wb, B, bundle_map)
+    gl = _route_left(bins_t.index_select(0, col.long()), t1[:, None],
+                     rlo[:, None], rhi[:, None], dflt[:, None])
+    masks = (gl & mine[:, None]).to(torch.int8)
+    return psum(masks, mesh, op="featpar_route_psum") > 0
+
+
+def grow_tree_feature_parallel(bins_t: torch.Tensor,   # (Fb_loc, N) int32
+                               grad: torch.Tensor,      # (N,) replicated
+                               hess: torch.Tensor,      # (N,) replicated
+                               row_valid: torch.Tensor,  # (N,) replicated
+                               feature_mask: torch.Tensor,   # (F_loc,)
+                               upper_bounds: torch.Tensor,   # (F_loc, B-1)
+                               num_bins: torch.Tensor,       # (F_loc,)
+                               learning_rate: float,
+                               p: GrowthParams,
+                               mesh,
+                               n_slots: int = 16,
+                               bundle_map: Optional[dict] = None
+                               ) -> Tuple[Tree, torch.Tensor]:
+    """Wave growth with the FEATURE axis sharded over the mesh's data axis
+    (LightGBM's ``tree_learner=feature``) → (tree, per-row leaf node ids),
+    the same tree on every rank; ``split_feature`` holds GLOBAL ids
+    (rank · F_loc + local id).  The JAX package's
+    ``grow_tree_feature_parallel``.
+
+    Every rank holds all rows and its slice of the features (padded with
+    masked one-bin features to the same F_loc on each rank).  Histograms
+    never cross the ranks: each wave builds the left children of its
+    splits node-batched with K1 over the rank's features
+    (:func:`~.hist.build_hist_nodes_limbs`, all ``n_slots`` slots in one
+    launch; the root is slot 0 of the same launch shape), the right
+    children by subtraction.  Each node's local best split (gain, global
+    feature, bin, left sums, the owner's threshold: a packed (7,) f32)
+    rides one all-gather a wave, and the winner is the first rank of the
+    largest gain, so ties go to the lower global feature as in the
+    one-process pick.  The split owner's go-left rows reach every rank
+    through one int8 psum of owner-exclusive (n, N) masks a wave
+    (:func:`_fp_route_left`).
+
+    The root stats are the scan of rank 0's feature-0 root histogram, as
+    :func:`grow_tree_depthwise` takes them, so on the same data both
+    growers make the same picks and the trees are equal bit for bit when
+    the one-process fit runs without two-level histograms (this grower
+    has no coarse/refined pass, as in the JAX package).  The
+    budget-filling wave routes only.  ``n_slots`` = 1 is lossguide's
+    strict best-first order (one split a wave).  Monotone constraints
+    slice the global vector for the local picks; bounds and the
+    intermediate/advanced refresh run replicated on the global tree.
+    ``bundle_map``: this rank's EFB route tables over its bundled
+    columns."""
+    from ...parallel.collectives import all_gather
+    rank, R = _fp_mesh(mesh)
+    dev = bins_t.device
+    i32, f32 = torch.int32, torch.float32
+    N = bins_t.shape[1]
+    F_loc = num_bins.shape[0]      # original features of this rank
+    B = p.total_bins
+    L = p.num_leaves
+    M = max_nodes(L)
+    S = n_slots
+    num_bins = num_bins.to(i32)
+    mono_global = _mono_vec(p, F_loc * R, dev)
+    mono_local = (None if mono_global is None
+                  else mono_global[rank * F_loc:(rank + 1) * F_loc])
+    refresh = _refresh_on(mono_global, p)
+    vals8, scales = prep_hist_vals(grad, hess, row_valid)
+
+    def build(slot):
+        """K1 over this rank's columns, all S slots → (S, F_loc, B, 3)."""
+        return _node_hists(build_hist_nodes_limbs(bins_t, slot, vals8, S, B),
+                           scales, bundle_map)
+
+    def global_pick(hists, g, h, c, d, lo, hi):
+        """Per node: the local best over this rank's features, then one
+        all-gather of the packed (n, 7) picks → the winners' (gain,
+        global feature, bin, gl, hl, cl, threshold)."""
+        bg, bf, bb, bgl, bhl, bcl = _best_split(
+            hists, g, h, c, num_bins, feature_mask, d, p, lo, hi, mono_local)
+        thr = torch.where(bb >= 1, upper_bounds[
+            bf.long(), torch.clamp_min(bb - 1, 0).long()], -torch.inf)
+        packed = torch.stack([bg, (rank * F_loc + bf).to(f32), bb.to(f32),
+                              bgl, bhl, bcl, thr], dim=-1)       # (n, 7)
+        allp = all_gather(packed, mesh, op="featpar_pick_gather")
+        win = allp[..., 0].argmax(dim=0)                         # first max
+        w = allp.gather(0, win[None, :, None].expand(1, -1, 7))[0]
+        return (w[:, 0], w[:, 1].to(i32), w[:, 2].to(i32), w[:, 3],
+                w[:, 4], w[:, 5], w[:, 6])
+
+    root_hist = build(torch.zeros(N, dtype=i32, device=dev))[0]
+    # rank 0 owns global feature 0: its scan gives the root stats, as in
+    # the one-process grower; an all-gather hands them on unchanged
+    root_stats = all_gather(_prefix_sum(root_hist[0].t())[:, -1], mesh,
+                            op="featpar_root_gather")[0]
+    node_lo = torch.full((M,), -torch.inf, dtype=f32, device=dev)
+    node_hi = torch.full((M,), torch.inf, dtype=f32, device=dev)
+    rbest = global_pick(root_hist[None], root_stats[0:1], root_stats[1:2],
+                        root_stats[2:3], torch.zeros(1, dtype=i32,
+                                                     device=dev),
+                        node_lo[:1], node_hi[:1])
+
+    zi = torch.zeros(M, dtype=i32, device=dev)
+    zf = torch.zeros(M, dtype=f32, device=dev)
+    node_id = torch.zeros(N, dtype=i32, device=dev)
+    hist = torch.zeros((L + 2, F_loc * B, 3), dtype=f32, device=dev)
+    hist[0] = root_hist.reshape(F_loc * B, 3)
+    slot = zi.clone()
+    sum_g, sum_h, sum_c = zf.clone(), zf.clone(), zf.clone()
+    sum_g[0], sum_h[0], sum_c[0] = root_stats
+    depth = zi.clone()
+    best_gain = torch.full((M,), -torch.inf, dtype=f32, device=dev)
+    best_feat, best_bin = zi.clone(), zi.clone()
+    best_gl, best_hl, best_cl, best_thr = (zf.clone(), zf.clone(),
+                                           zf.clone(), zf.clone())
+    bests = (best_gain, best_feat, best_bin, best_gl, best_hl, best_cl,
+             best_thr)
+    for t, v in zip(bests, rbest):
+        t[0] = v[0]
+    active = torch.zeros(M, dtype=torch.bool, device=dev)
+    active[0] = True
+    split_feature = torch.full((M,), -1, dtype=i32, device=dev)
+    split_bin, split_gain, threshold = zi.clone(), zf.clone(), zf.clone()
+    left_child = torch.full((M,), -1, dtype=i32, device=dev)
+    right_child = left_child.clone()
+    num_nodes, next_slot = 1, 1
+    jidx = torch.arange(S, dtype=i32, device=dev)
+
+    while True:
+        leaves = (num_nodes + 1) // 2
+        gains = torch.where(active, best_gain, -torch.inf)
+        tv, ti = _topk_index(gains, S)
+        valid = (tv > p.min_gain_to_split) & (jidx < L - leaves)
+        nv = int(valid.sum())        # a prefix: the sort packs them first
+        if leaves >= L or nv == 0:
+            break
+        pl = ti[:nv].long()
+        j = jidx[:nv]
+        lid = (num_nodes + 2 * j).long()
+        rid = lid + 1
+        wf, wb = best_feat[pl], best_bin[pl]
+        gl_slots = _fp_route_left(bins_t, wf, wb, valid[:nv], B, F_loc,
+                                  rank, mesh, bundle_map)        # (nv, N)
+        slot_of = torch.full((M,), -1, dtype=torch.long, device=dev)
+        slot_of[pl] = j.long()
+        rslot = slot_of[node_id.long()]
+        routed = rslot >= 0
+        rs = rslot.clamp_min(0)
+        go_left = gl_slots.gather(0, rs[None])[0] & routed
+        new_node_id = torch.where(routed, torch.where(
+            go_left, lid[rs], rid[rs]), node_id.long()).to(i32)
+        last_wave = leaves + nv >= L
+        if not last_wave:
+            l_hists = build(torch.where(go_left, rs, -1).to(i32))[:nv]
+
+        cids = torch.cat([lid, rid])
+        pslot = slot[pl].long()
+        r_slots = torch.arange(next_slot, next_slot + nv, device=dev)
+        lg, lh, lc = best_gl[pl], best_hl[pl], best_cl[pl]
+        rg, rh, rc = sum_g[pl] - lg, sum_h[pl] - lh, sum_c[pl] - lc
+        cdepth = depth[pl] + 1
+        cg = torch.cat([lg, rg])
+        ch = torch.cat([lh, rh])
+        cc = torch.cat([lc, rc])
+        cd = torch.cat([cdepth, cdepth])
+        if mono_global is not None and not refresh:
+            l_lo, l_hi, r_lo, r_hi = _mono_node_bounds(
+                mono_global[wf.long()], node_lo[pl], node_hi[pl], lg, lh,
+                rg, rh, p)
+            node_lo[cids] = torch.cat([l_lo, r_lo])
+            node_hi[cids] = torch.cat([l_hi, r_hi])
+        split_feature[pl] = wf
+        split_bin[pl] = wb
+        split_gain[pl] = best_gain[pl]
+        threshold[pl] = best_thr[pl]
+        left_child[pl] = lid.to(i32)
+        right_child[pl] = rid.to(i32)
+        slot[lid] = pslot.to(i32)
+        slot[rid] = r_slots.to(i32)
+        sum_g[cids], sum_h[cids], sum_c[cids] = cg, ch, cc
+        depth[cids] = cd
+        active[pl] = False
+        active[cids] = True
+        node_id = new_node_id
+        num_nodes += 2 * nv
+        next_slot += nv
+        if last_wave:
+            break
+        l_flat = l_hists.reshape(nv, F_loc * B, 3)
+        r_flat = hist[pslot] - l_flat
+        hist[pslot] = l_flat
+        hist[r_slots] = r_flat
+        child_hists = torch.cat([l_flat, r_flat]).reshape(2 * nv, F_loc, B,
+                                                           3)
+        if refresh:
+            node_lo, node_hi, _ = _tree_bounds(
+                split_feature, split_bin, left_child, right_child,
+                _leaf_output(sum_g, sum_h, p.lambda_l1, p.lambda_l2),
+                mono_global, p)
+        picks = global_pick(child_hists, cg, ch, cc, cd, node_lo[cids],
+                            node_hi[cids])
+        for t, v in zip(bests, picks):
+            t[cids] = v
+
+    return _finish_tree(split_feature, split_bin, threshold, split_gain,
+                        left_child, right_child, sum_g, sum_h, sum_c,
+                        num_nodes, node_lo, node_hi, mono_global,
+                        learning_rate, p), node_id
+
+
+def predict_binned_tree_featpar(bins_t: torch.Tensor, tree: Tree,
+                                depth_bound: int, total_bins: int, mesh,
+                                bundle_map: Optional[dict] = None
+                                ) -> torch.Tensor:
+    """One tree's leaf values (N,) over a FEATURE-SHARDED binned matrix
+    (this rank's (Fb_loc, N) columns; DART's rescoring under
+    feature_parallel): at each level the owner of each row's split
+    feature routes it and one int8 psum of the owner-exclusive go-left
+    mask reaches every rank, the grower's routing pattern — one
+    all-reduce a level.  ``bundle_map``: this rank's EFB route tables."""
+    from ...parallel.collectives import psum
+    rank, _ = _fp_mesh(mesh)
+    F_loc = (bundle_map["col"].shape[0] if bundle_map is not None
+             else bins_t.shape[0])
+    N = bins_t.shape[1]
+    rows = torch.arange(N, device=bins_t.device)
+    node = torch.zeros(N, dtype=torch.long, device=bins_t.device)
+    lc, rc = tree.left_child.long(), tree.right_child.long()
+    for _ in range(depth_bound):
+        feat = tree.split_feature[node]                    # global ids
+        f = torch.clamp_min(feat, 0)
+        floc = torch.clamp(f - rank * F_loc, 0, F_loc - 1)
+        col, t1, rlo, rhi, dflt = _slot_route_params(
+            floc, tree.split_bin[node], total_bins, bundle_map)
+        gl = _route_left(bins_t[col.long(), rows], t1, rlo, rhi, dflt)
+        mine = ((f // F_loc) == rank).to(torch.int8)
+        gl = psum(gl.to(torch.int8) * mine, mesh,
+                  op="featpar_predict_psum") > 0
+        child = torch.where(gl, lc[node], rc[node])
+        node = torch.where(feat < 0, node, child)
+    return tree.leaf_value[node]
 
 
 #: (trees x rows) elements one traversal chunk of

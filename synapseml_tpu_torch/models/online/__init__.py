@@ -5,8 +5,9 @@ The PyTorch port of the JAX package's ``models/online``: the learn loop
 is minibatch AdaGrad-normalized steps over a blocked matrix on the
 device, captured as CUDA graphs on the card (:mod:`.sgd`); the
 featurizers, the VW text parser, ds-json ingestion and policy evaluation
-run on the host.  VW's spanning-tree AllReduce (parameter averaging over
-a mesh) is not ported (ROADMAP queue A5).
+run on the host.  VW's spanning-tree AllReduce is parameter averaging
+over a ``ProcessMesh`` (``train_sgd(mesh=...)``, the estimators'
+``mesh``).
 """
 
 from .sgd import (SGDConfig, SGDState, predict_margin, state_from_jax,

@@ -1,8 +1,8 @@
 """Contextual bandit learner.
 
 The PyTorch port of the JAX package's ``models/online/bandit.py``: the
-learner is :func:`.sgd.train_sgd` on the ``device`` param; a ``mesh``
-raises naming ROADMAP queue A5.
+learner is :func:`.sgd.train_sgd` on the ``device`` param, over the
+``mesh`` (a ``ProcessMesh``) when one is given.
 
 Re-designs the reference's VW contextual-bandit estimator (reference:
 vw/.../VowpalWabbitContextualBandit.scala:1-376: schema = shared context
@@ -55,8 +55,8 @@ class _BanditParams:
     useInteractions = BoolParam(doc="include shared x action quadratic "
                                 "features (VW -q sa)", default=True)
     useBarrierExecutionMode = BoolParam(doc="parity", default=False)
-    mesh = PyObjectParam(doc="device mesh for data-parallel training (not "
-                             "ported: ROADMAP queue A5)")
+    mesh = PyObjectParam(doc="ProcessMesh for data-parallel training "
+                             "over a torch.distributed group")
 
 
 def _row_features(shared: Optional[np.ndarray], action: np.ndarray,
@@ -77,7 +77,7 @@ class ContextualBandit(_BanditParams, Estimator):
         super().__init__(**kw)
 
     def _fit(self, ds: Dataset) -> "ContextualBanditModel":
-        _check_mesh(self.get("mesh"))
+        _check_mesh(self.get("mesh"), self.device)
         n = ds.num_rows
         actions_col = ds[self.featuresCol]
         shared_col = ds[self.sharedCol] if self.sharedCol in ds else None
@@ -98,7 +98,7 @@ class ContextualBandit(_BanditParams, Estimator):
                         power_t=self.powerT, l1=self.l1, l2=self.l2,
                         num_passes=self.numPasses, batch_size=self.batchSize)
         state, stats = train_sgd(x, cost, cfg, sample_weight=iw,
-                                 device=self.device)
+                                 mesh=self.get("mesh"), device=self.device)
         model = ContextualBanditModel()
         model._copy_values_from(self)
         model.clear("mesh")

@@ -4,9 +4,11 @@ The PyTorch port of the JAX package's ``models/online/estimators.py``
 (the reference's VW Spark estimators: VowpalWabbitClassifier.scala,
 VowpalWabbitRegressor.scala, VowpalWabbitBase.scala:45 passThroughArgs):
 the same param surface (learningRate/powerT/l1/l2/numPasses/hashSeed),
-plus ``device``; training is :func:`.sgd.train_sgd` on that device.  A
-``mesh`` (data-parallel parameter averaging, and with it
-``numSyncsPerPass``) raises naming ROADMAP queue A5 before any work.
+plus ``device``; training is :func:`.sgd.train_sgd` on that device.
+``mesh`` (a ``ProcessMesh``, called on every rank of the gang) trains
+data-parallel: rows shard over its ``data`` axis and the states average
+at the end of each pass, or after every batch's gradient with
+``numSyncsPerPass`` > 0, as in the JAX package.
 Models save their state as the JAX package's ``state.npz``, so a model
 saved by either package loads in the other.
 """
@@ -47,8 +49,9 @@ class _OnlineSGDParams:
     useBarrierExecutionMode = BoolParam(doc="parity: gang-schedule tasks",
                                         default=False)
     numSyncsPerPass = IntParam(doc="extra mid-pass weight averages "
-                               "(VowpalWabbitSyncSchedule.scala); used "
-                               "only with a mesh", default=0)
+                               "(VowpalWabbitSyncSchedule.scala); > 0 "
+                               "averages every batch's gradient over a "
+                               "mesh, as in the JAX package", default=0)
     hashSeed = IntParam(doc="featurizer hash seed", default=0)
     passThroughArgs = DictParam(doc="extra engine args (ParamsStringBuilder "
                                 "pass-through analogue)")
@@ -97,7 +100,7 @@ class _SGDModelState:
 def _fit_model(est, model, x, y, w, cfg):
     state, stats = train_sgd(x, y, cfg, sample_weight=w,
                              init=est.get("initialModel"),
-                             device=est.device)
+                             mesh=est.get("mesh"), device=est.device)
     model._copy_values_from(est)
     model.clear("mesh")  # meshes are runtime handles, not model state
     model.state = state
@@ -113,8 +116,8 @@ class OnlineSGDClassifier(_OnlineSGDParams, Estimator):
                                allowed=("logistic", "hinge"))
     probabilityCol = StringParam(doc="probability output", default="probability")
     rawPredictionCol = StringParam(doc="margin output", default="rawPrediction")
-    mesh = PyObjectParam(doc="device mesh for data-parallel training (not "
-                             "ported: ROADMAP queue A5)")
+    mesh = PyObjectParam(doc="ProcessMesh for data-parallel training "
+                             "over a torch.distributed group")
 
     def __init__(self, featuresCol: Optional[str] = None,
                  labelCol: Optional[str] = None, **kw):
@@ -125,7 +128,7 @@ class OnlineSGDClassifier(_OnlineSGDParams, Estimator):
             self.set("labelCol", labelCol)
 
     def _fit(self, ds: Dataset) -> "OnlineSGDClassificationModel":
-        _check_mesh(self.get("mesh"))
+        _check_mesh(self.get("mesh"), self.device)
         x, y, w = self._xyw(ds)
         y_pm = np.where(y > 0, 1.0, -1.0).astype(np.float32)
         return _fit_model(self, OnlineSGDClassificationModel(), x, y_pm, w,
@@ -157,8 +160,8 @@ class OnlineSGDRegressor(_OnlineSGDParams, Estimator):
                                default="squared",
                                allowed=("squared", "quantile", "poisson"))
     quantileTau = FloatParam(doc="quantile loss tau", default=0.5)
-    mesh = PyObjectParam(doc="device mesh for data-parallel training (not "
-                             "ported: ROADMAP queue A5)")
+    mesh = PyObjectParam(doc="ProcessMesh for data-parallel training "
+                             "over a torch.distributed group")
 
     def __init__(self, featuresCol: Optional[str] = None,
                  labelCol: Optional[str] = None, **kw):
@@ -169,7 +172,7 @@ class OnlineSGDRegressor(_OnlineSGDParams, Estimator):
             self.set("labelCol", labelCol)
 
     def _fit(self, ds: Dataset) -> "OnlineSGDRegressionModel":
-        _check_mesh(self.get("mesh"))
+        _check_mesh(self.get("mesh"), self.device)
         x, y, w = self._xyw(ds)
         cfg = self._config(self.lossFunction, quantile_tau=self.quantileTau)
         return _fit_model(self, OnlineSGDRegressionModel(), x, y, w, cfg)

@@ -131,11 +131,11 @@ class _GenericParams(_OnlineSGDParams):
 class OnlineGeneric(_GenericParams, Estimator):
     """VowpalWabbitGeneric analogue: fit from raw VW text examples."""
 
-    mesh = PyObjectParam(doc="device mesh for data-parallel training (not "
-                             "ported: ROADMAP queue A5)")
+    mesh = PyObjectParam(doc="ProcessMesh for data-parallel training "
+                             "over a torch.distributed group")
 
     def _fit(self, ds: Dataset) -> "OnlineGenericModel":
-        _check_mesh(self.get("mesh"))
+        _check_mesh(self.get("mesh"), self.device)
         x, y, w = vectorize_vw_lines(ds[self.inputCol], int(self.numBits),
                                      int(self.hashSeed))
         loss = str(self.lossFunction)
@@ -144,7 +144,7 @@ class OnlineGeneric(_GenericParams, Estimator):
         cfg = self._config(loss)
         state, stats = train_sgd(x, y, cfg, sample_weight=w,
                                  init=self.get("initialModel"),
-                                 device=self.device)
+                                 mesh=self.get("mesh"), device=self.device)
         model = OnlineGenericModel(
             inputCol=self.inputCol, numBits=self.numBits,
             hashSeed=self.hashSeed, lossFunction=loss,

@@ -23,9 +23,26 @@ pass on the CPU, runs the same step eagerly.  Graph and eager run the same
 kernels on the same buffers, so their states are bit-identical.
 
 The state is f32, ``t`` included, as the reference keeps it.  The
-reference has no Pallas kernel here, so the step is plain torch ops.  The
-``data``-axis mesh (pass-end parameter averaging, mid-pass syncs) is not
-ported (ROADMAP queue A5).
+reference has no Pallas kernel here, so the step is plain torch ops.
+
+Over a :class:`~synapseml_tpu_torch.parallel.mesh.ProcessMesh`
+(``train_sgd(mesh=...)``) the rows shard over the ``data`` axis as the
+JAX package shards them (padded to whole blocks, with a mid-pass
+schedule to whole chunks of k blocks; rank i holds the i-th contiguous
+part), and ``sync_every_batches`` picks the schedule:
+
+- 0: each rank walks its blocks, then the states are averaged, weighted
+  by each rank's ``t``, with ``x_max`` the max over the ranks (one psum
+  and one pmax at the end of each pass; ``t`` becomes the examples seen,
+  where the JAX package doubles it, :func:`sync_state`);
+- k > 1: the same average after every chunk of k blocks;
+- 1: every step's gradient is averaged over the ranks inside the step,
+  plus the pass-end average.
+
+A collective cannot be captured in a CUDA graph, so on the card the
+graphs replay between the syncs (the chunk captured is ``min(k,
+GRAPH_CHUNK)`` steps under k > 1) and the all-reduces run outside them;
+under schedule 1 every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -60,7 +77,7 @@ class SGDConfig:
     quantile_tau: float = 0.5
     link: str = "identity"         # identity | logistic
     #: average weights across shards every k batches (0 = only at pass
-    #: end); used only with a mesh, which is not ported (ROADMAP queue A5)
+    #: end, 1 = the gradient of every batch); used only with a mesh
     sync_every_batches: int = 0
 
 
@@ -142,12 +159,13 @@ def _loss_value(loss: str, margin, y, tau: float):
     raise ValueError(f"unknown loss {loss!r}")
 
 
-def make_scan_step(cfg: SGDConfig):
+def make_scan_step(cfg: SGDConfig, grad_mean=None):
     """One minibatch update: ``step(state, block) -> (state, loss, wsum)``
     with ``block = (x (B, D), y (B,), sample_weight (B,), valid-mask
     (B,))``; ``loss`` and ``wsum`` are this block's weighted loss sum and
     weight sum (device scalars).  Functional: the inputs are not
-    modified."""
+    modified.  ``grad_mean`` (the mesh's schedule 1) averages the
+    (D + 1,) weight and bias gradient across the ranks."""
     if cfg.loss not in ("squared", "logistic", "hinge", "quantile",
                         "poisson"):
         raise ValueError(f"unknown loss {cfg.loss!r}")
@@ -161,6 +179,9 @@ def make_scan_step(cfg: SGDConfig):
         denom = torch.clamp(w_sum, min=1.0)
         grad_w = (x * g_m[:, None]).sum(0) / denom + cfg.l2 * state.w
         grad_b = g_m.sum() / denom
+        if grad_mean is not None:
+            both = grad_mean(torch.cat([grad_w, grad_b[None]]))
+            grad_w, grad_b = both[:-1], both[-1]
         x_max = torch.maximum(state.x_max, x.abs().amax(0))
         if cfg.normalized:
             grad_w = grad_w / x_max
@@ -219,8 +240,10 @@ class BlockPass:
     captured chunk on the card); :attr:`steps` counts the steps run."""
 
     def __init__(self, cfg: SGDConfig, state: SGDState, blocks,
-                 device: torch.device):
+                 device: torch.device, grad_mean=None,
+                 chunk: int = GRAPH_CHUNK):
         self.cfg = cfg
+        self.chunk = chunk
         self.device = device
         self.blocks = tuple(torch.from_numpy(np.ascontiguousarray(b))
                             .to(device) for b in blocks)
@@ -230,7 +253,7 @@ class BlockPass:
         self.loss_sum = torch.zeros((), **z)
         self.w_sum = torch.zeros((), **z)
         self.cursor = torch.zeros(1, dtype=torch.int64, device=device)
-        self._step = make_scan_step(cfg)
+        self._step = make_scan_step(cfg, grad_mean)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.steps = 0
 
@@ -255,9 +278,10 @@ class BlockPass:
         self.cursor.add_(1)
 
     def _capture(self) -> None:
-        """Capture :data:`GRAPH_CHUNK` steps.  The warm-up step runs on
-        copies (it must not move the state), and a capture executes
-        nothing, so the state and the sums are untouched."""
+        """Capture ``chunk`` steps (:data:`GRAPH_CHUNK` by default).  The
+        warm-up step runs on copies (it must not move the state), and a
+        capture executes nothing, so the state and the sums are
+        untouched."""
         saved = [t.clone() for t in (*self.state, self.loss_sum,
                                      self.w_sum, self.cursor)]
         side = torch.cuda.Stream(self.device)
@@ -270,33 +294,95 @@ class BlockPass:
             dst.copy_(src)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(GRAPH_CHUNK):
+            for _ in range(self.chunk):
                 self._one()
         self.graph = graph
 
-    def run_pass(self, graph: bool) -> None:
-        self.cursor.zero_()
+    def run_steps(self, count: int, graph: bool) -> None:
+        """The next ``count`` blocks from the cursor: whole chunks through
+        the captured graph on the card (``graph=True``), the rest
+        eagerly."""
         n_graph = 0
-        if graph and self.device.type == "cuda" \
-                and self.n_blocks >= GRAPH_CHUNK:
+        if graph and self.device.type == "cuda" and count >= self.chunk:
             if self.graph is None:
                 self._capture()
-            n_graph = self.n_blocks // GRAPH_CHUNK
+            n_graph = count // self.chunk
             for _ in range(n_graph):
                 self.graph.replay()
-        for _ in range(self.n_blocks - n_graph * GRAPH_CHUNK):
+        for _ in range(count - n_graph * self.chunk):
             self._one()
-        self.steps += self.n_blocks
+        self.steps += count
+
+    def run_pass(self, graph: bool) -> None:
+        self.cursor.zero_()
+        self.run_steps(self.n_blocks, graph)
 
 
-def _check_mesh(mesh) -> None:
-    """Refuse a mesh before any work (without one, the reference ignores
-    ``sync_every_batches`` too)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_sgd over a data-axis mesh (pass-end parameter "
-            "averaging, mid-pass syncs) is not ported yet (ROADMAP queue "
-            "A5: the online learners' mesh); train on one device")
+def _check_mesh(mesh, device=None) -> None:
+    """A mesh must be a ProcessMesh on the fit's device; checked before
+    any work."""
+    if mesh is None:
+        return
+    from ...parallel.mesh import ProcessMesh
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError(f"mesh must be a ProcessMesh, got "
+                        f"{type(mesh).__name__}")
+    if device is not None and mesh.device != resolve_device(device):
+        raise ValueError(f"the mesh's device {mesh.device} is not "
+                         f"device={resolve_device(device)}")
+
+
+def _shard_blocks(x, y, sw, cfg: SGDConfig, shards: int, rank: int):
+    """This rank's blocks under the mesh: rows pad at the end (weight 0,
+    mask 0) so each of the ``shards`` parts holds whole blocks and, under
+    a mid-pass schedule k > 1, whole chunks of k blocks; rank i holds the
+    i-th contiguous part (the JAX package's layout)."""
+    n, d = x.shape
+    unit = cfg.batch_size * max(1, cfg.sync_every_batches)
+    per = -(-n // shards)
+    per = -(-per // unit) * unit
+    lo, hi = rank * per, (rank + 1) * per
+    keep = slice(lo, min(hi, n))
+    pad = hi - max(lo, min(hi, n))
+    xs, ys, ws = x[keep], y[keep], sw[keep]
+    mask = np.ones(len(ys), np.float32)
+    if pad:
+        xs = np.concatenate([xs, np.zeros((pad, d), np.float32)])
+        ys = np.concatenate([ys, np.zeros(pad, np.float32)])
+        ws = np.concatenate([ws, np.zeros(pad, np.float32)])
+        mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+    b = per // cfg.batch_size
+    return (xs.reshape(b, cfg.batch_size, d), ys.reshape(b, cfg.batch_size),
+            ws.reshape(b, cfg.batch_size), mask.reshape(b, cfg.batch_size))
+
+
+def sync_state(state: SGDState, mesh, base_t: torch.Tensor) -> SGDState:
+    """Cross-rank parameter averaging weighted by the examples each rank
+    has seen (the JAX package's ``_sync_state``, mergeModels'
+    analogue): one psum of the weighted w, g2, bias, g2_bias, the
+    weights and the examples since the last sync, one pmax of ``x_max``;
+    every rank gets the same state.  ``base_t``: ``t`` at the last sync
+    (the same on every rank).
+
+    Each rank weighs in with its ``t`` (``base_t`` plus its own examples
+    since), as in the JAX package; the new ``t`` is ``base_t`` plus every
+    rank's examples since, the examples seen.  The JAX package sets it
+    to the sum of the ranks' ``t``, which counts ``base_t`` once a rank:
+    it doubles at every sync on two ranks, reaches inf after ~128 syncs
+    and then makes the averaged state NaN (ROADMAP queue C)."""
+    from ...parallel.collectives import pmax, psum
+    seen = torch.clamp_min(state.t, 1e-6)
+    D = state.w.shape[0]
+    packed = torch.cat([state.w * seen, state.g2 * seen,
+                        torch.stack([state.bias * seen,
+                                     state.g2_bias * seen, seen,
+                                     state.t - base_t])])
+    tot = psum(packed, mesh, op="sgd_sync_psum")
+    total = tot[-2]
+    return SGDState(w=tot[:D] / total, bias=tot[2 * D] / total,
+                    g2=tot[D:2 * D] / total, g2_bias=tot[2 * D + 1] / total,
+                    x_max=pmax(state.x_max, mesh),
+                    t=base_t + tot[-1])
 
 
 def train_sgd(x: np.ndarray, y: np.ndarray, cfg: SGDConfig,
@@ -306,8 +392,11 @@ def train_sgd(x: np.ndarray, y: np.ndarray, cfg: SGDConfig,
     """Run ``cfg.num_passes`` passes on ``device``; returns ``(state,
     stats)`` with ``stats = {"average_loss", "examples"}``, read from the
     device once at the end.  ``graph=False`` keeps every step eager on the
-    card.  A mesh raises (ROADMAP queue A5) before any work."""
-    _check_mesh(mesh)
+    card.  ``mesh`` (a ProcessMesh on ``device``; every rank passes the
+    full data) shards the rows over its ``data`` axis and syncs by
+    ``cfg.sync_every_batches`` (the module docstring); every rank
+    returns the same state, and the stats sum over the ranks."""
+    _check_mesh(mesh, device)
     dev = resolve_device(device)
     x = np.ascontiguousarray(x, np.float32)
     y = np.asarray(y, np.float32)
@@ -315,11 +404,38 @@ def train_sgd(x: np.ndarray, y: np.ndarray, cfg: SGDConfig,
           else np.ones(len(y), np.float32))
     state = (state_to(init, dev) if init is not None
              else init_state(x.shape[1], dev))
-    run = BlockPass(cfg, state, _pad_blocks(x, y, sw, cfg.batch_size), dev)
+    if mesh is None:
+        run = BlockPass(cfg, state, _pad_blocks(x, y, sw, cfg.batch_size),
+                        dev)
+        for _ in range(cfg.num_passes):
+            run.run_pass(graph)
+        loss_sum, w_sum, t = torch.stack(
+            [run.loss_sum, run.w_sum, run.state.t]).tolist()
+        return run.state, {"average_loss": loss_sum / max(w_sum, 1e-12),
+                           "examples": t}
+    from ...parallel.collectives import pmean, psum
+    from ...parallel.mesh import DATA_AXIS
+    k = cfg.sync_every_batches
+    blocks = _shard_blocks(x, y, sw, cfg, mesh.axis_size(DATA_AXIS),
+                           mesh.axis_index(DATA_AXIS))
+    run = BlockPass(cfg, state, blocks, dev, grad_mean=(
+        (lambda g: pmean(g, mesh)) if k == 1
+        else None), chunk=min(k, GRAPH_CHUNK) if k > 1 else GRAPH_CHUNK)
+
+    def load(new: SGDState) -> None:
+        for dst, src in zip(run.state, new):
+            dst.copy_(src)
+
     for _ in range(cfg.num_passes):
-        run.run_pass(graph)
-    loss_sum, w_sum, t = torch.stack(
-        [run.loss_sum, run.w_sum, run.state.t]).tolist()
+        run.cursor.zero_()
+        for count in ([k] * (run.n_blocks // k) if k > 1
+                      else [run.n_blocks]):
+            base_t = run.state.t.clone()
+            run.run_steps(count, graph and k != 1)
+            load(sync_state(run.state, mesh, base_t))
+    sums = psum(torch.stack([run.loss_sum, run.w_sum]), mesh,
+                op="sgd_loss_psum")
+    loss_sum, w_sum, t = torch.cat([sums, run.state.t[None]]).tolist()
     return run.state, {"average_loss": loss_sum / max(w_sum, 1e-12),
                        "examples": t}
 

@@ -233,13 +233,16 @@ def test_ranker_transform_and_label_gain():
     assert abs(got - want) <= TOLERANCE, (got, want)
 
 
-def test_mesh_is_refused_naming_a5():
-    """Distributed lambdarank (whole groups packed onto shards, the
-    sharded objective, streamed distributed ranking) waits for A5."""
+def test_mesh_is_refused_naming_a5(tmp_path):
+    """Distributed lambdarank trains over a gang
+    (tests/test_torch_gbdt_rank_parallel.py); what still waits for A5 is a
+    checkpoint directory over a mesh (core/checkpoint.py), refused before
+    any work."""
     X, y, sizes = _fixture_data()
     with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
         ttrain(X, y, BoostingConfig(**FIXTURE_KW), group=sizes,
-               mesh=object(), device="cpu")
+               mesh=object(), checkpoint_dir=str(tmp_path),
+               checkpoint_interval=1, device="cpu")
 
 
 @pytest.mark.parametrize("group,valid_group,err", [

@@ -140,17 +140,26 @@ class _CheckpointManager:
 
 
 @pytest.mark.parametrize("kw,train_kw,item", [
-    (dict(objective="lambdarank"), dict(group=[100, 100], mesh=object()),
+    # lambdarank and the voting/feature-parallel modes train over a mesh
+    # (tests/test_torch_gbdt_parallel_modes.py, _rank_parallel.py); a
+    # checkpoint directory over a mesh still waits for core/checkpoint.py
+    (dict(objective="lambdarank"), dict(group=[100, 100], mesh=object(),
+                                        checkpoint_dir="unused",
+                                        checkpoint_interval=1), "A5"),
+    (dict(parallelism="voting_parallel"), dict(mesh=object(),
+                                               checkpoint_dir="unused"),
      "A5"),
-    (dict(parallelism="voting_parallel"), {}, "A5"),
     ({}, dict(checkpoint_dir=_CheckpointManager(), checkpoint_interval=1),
      "A5"),
     # kw None: the estimator's knobs (train_kw), refused before the data
-    # is read; numShards and collectiveCompression themselves train now
-    # (test_num_shards_are_the_group_ranks)
-    (None, dict(numShards=2, parallelism="feature_parallel"), "A5"),
+    # is read; numShards, collectiveCompression and parallelism
+    # themselves train now (test_num_shards_are_the_group_ranks); the
+    # checkpoint manager is checked with them
+    (None, dict(numShards=2, parallelism="feature_parallel",
+                checkpointManager=_CheckpointManager()), "A5"),
     (None, dict(collectiveCompression="int8",
-                parallelism="voting_parallel"), "A5"),
+                parallelism="voting_parallel",
+                checkpointManager=_CheckpointManager()), "A5"),
 ])
 def test_unported_config_raises(kw, train_kw, item, monkeypatch):
     X, y = _binary_data(n=200)

@@ -125,8 +125,10 @@ def test_mesh_refused_before_any_work(est, monkeypatch):
     def no_work(*a, **k):
         raise AssertionError("the data was read")
     monkeypatch.setattr(est, "_xyw", no_work)
+    # the mesh trains now (tests/test_torch_online_mesh.py); anything but
+    # a ProcessMesh is refused before the data is read
     for kw in (dict(mesh=object()), dict(mesh=object(), numSyncsPerPass=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
+        with pytest.raises(TypeError, match="ProcessMesh"):
             est(device="cpu", **kw).fit(tds)
 
 

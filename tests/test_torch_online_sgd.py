@@ -133,8 +133,10 @@ def test_step_is_functional_and_pass_reads_no_host_value(monkeypatch):
 
 
 def test_mesh_is_refused_before_any_work():
+    """A mesh trains (tests/test_torch_online_mesh.py); anything but a
+    ProcessMesh is refused before any work."""
     x, y, _ = _data("squared", n=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         T.train_sgd(x, y, T.SGDConfig(), mesh=object(), device="cpu")
 
 

@@ -226,10 +226,11 @@ def test_contextual_bandit_equals_jax(kw, tmp_path):
 
 
 def test_mesh_refused_for_generic_and_bandit():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
+    """Both take a ProcessMesh now; anything else is refused."""
+    with pytest.raises(TypeError, match="ProcessMesh"):
         T.OnlineGeneric(device="cpu", mesh=object()).fit(
             TDataset({"value": _vw_corpus(20)}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         T.ContextualBandit(device="cpu", mesh=object()).fit(
             TDataset.from_rows(_bandit_rows(20)))
 

@@ -295,3 +295,302 @@ def card_checks(args):
     booster, _ = B.train(X, y, cfg, mesh=card, device=card.device)
     out["model_md5"] = hashlib.md5(booster.to_string().encode()).hexdigest()
     return out
+
+
+# -- voting- and feature-parallel GBDT, distributed lambdarank, online -------
+
+def modes_data(n=2000, f=11, seed=2):
+    """tests/test_gbdt.py's feature-parallel task (F=11: the feature
+    padding over 2 and 4 ranks)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = (2 * X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3]
+         + rng.normal(scale=0.5, size=n) > 0).astype(np.float32)
+    return X, y
+
+
+def sparse_data(n=2000, f=12, seed=11):
+    """Mostly-exclusive sparse features (tests/test_gbdt.py's EFB task):
+    bundling really merges columns."""
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n, f), np.float32)
+    owner = rng.integers(0, f // 4, n)
+    for j in range(f):
+        rows = owner == (j % (f // 4))
+        X[rows, j] = rng.normal(size=rows.sum())
+    y = (X.sum(axis=1) + rng.normal(scale=0.3, size=n) > 0).astype(
+        np.float32)
+    return X, y
+
+
+def vote_hists(rank, F=12, B=16, seed=5):
+    """Rank ``rank``'s local (2, F, B, 3) node histograms for the voting
+    pick: every feature's bins hold the same rows (equal per-feature
+    totals), gradients signed, hessians and counts positive."""
+    rng = np.random.default_rng(seed + 100 * rank)
+    h = np.zeros((2, F, B, 3), np.float32)
+    rows = rng.integers(0, B, size=(2, F, 300))
+    g = rng.normal(size=(2, 300)).astype(np.float32) + 0.3 * rank
+    hs = rng.uniform(0.1, 1.0, size=(2, 300)).astype(np.float32)
+    for node in range(2):
+        for f in range(F):
+            for r in range(300):
+                b = rows[node, f, r]
+                h[node, f, b] += (g[node, r], hs[node, r], 1.0)
+    return h
+
+
+#: the fits of the parallel-modes gangs: name → (BoostingConfig kwargs,
+#: data); every fit has its one-process and JAX counterparts in the tests
+MODE_FITS = {
+    "vote": (dict(parallelism="voting_parallel", top_k=6,
+                  num_iterations=8, num_leaves=15), "binary"),
+    "vote_all": (dict(parallelism="voting_parallel", top_k=12,
+                      num_iterations=4, num_leaves=7), "binary"),
+    "dp_lossguide": (dict(growth_policy="lossguide", num_iterations=4,
+                          num_leaves=7), "binary"),
+    "fp": (dict(parallelism="feature_parallel", num_iterations=8,
+                num_leaves=15), "modes"),
+    "fp_efb_lossguide": (dict(parallelism="feature_parallel",
+                              enable_bundle=True, growth_policy="lossguide",
+                              num_iterations=5, num_leaves=15), "sparse"),
+    "fp_dart_mono": (dict(parallelism="feature_parallel",
+                          boosting_type="dart", drop_rate=0.3, skip_drop=0.2,
+                          seed=13, monotone_constraints=[1, -1] + [0] * 9,
+                          monotone_constraints_method="intermediate",
+                          num_iterations=8, num_leaves=15), "modes"),
+}
+
+
+def mode_data(kind):
+    if kind == "binary":
+        return binary_data(n=2000)
+    if kind == "sparse":
+        return sparse_data()
+    return modes_data()
+
+
+def tree_digest(booster, values: bool = True) -> str:
+    """md5 of every tree's structure (split features, bins, thresholds,
+    children) and, with ``values``, its leaf values (the nodes in use)."""
+    h = hashlib.md5()
+    for t in booster.trees:
+        n = int(t.num_nodes)
+        fields = [t.split_feature, t.split_bin, t.threshold, t.left_child,
+                  t.right_child] + ([t.leaf_value] if values else [])
+        for a in fields:
+            h.update(np.ascontiguousarray(np.asarray(a)[:n]).tobytes())
+    return h.hexdigest()
+
+
+def _fit_record(booster, Xh) -> dict:
+    t = booster.trees[0]
+    return dict(digest=tree_digest(booster),
+                splits=tree_digest(booster, values=False),
+                num_trees=booster.num_trees,
+                first_split=[int(t.split_feature[0]), float(t.threshold[0])],
+                split_features=[int(f) for tr in booster.trees
+                                for f in tr.split_feature[:int(tr.num_nodes)]],
+                margin=[float(v) for v in
+                        booster.predict_margin(Xh, device="cpu")])
+
+
+def gbdt_modes(args):
+    """The voting pick on seeded per-rank histograms, the fits of
+    ``args["fits"]`` (``MODE_FITS`` names) over this gang, and the
+    estimators' ``parallelism`` / ``topK`` / ``numShards`` (2 ranks)."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.models.gbdt.trainer import (GrowthParams,
+                                                         _best_split_voting)
+    args = args or {}
+    dev = args.get("device", "cpu")
+    mesh = data_parallel_mesh(device=dev)
+    out = {"rank": mesh.rank}
+    if args.get("pick", False):
+        local = torch.as_tensor(vote_hists(mesh.rank), device=mesh.device)
+        tot = C.psum(local[:, 0].sum(dim=1), mesh)           # (2, 3)
+        p = GrowthParams(min_data_in_leaf=3.0, total_bins=16, voting_k=3)
+        nb = torch.full((12,), 16, dtype=torch.int32, device=mesh.device)
+        fm = torch.ones(12, dtype=torch.bool, device=mesh.device)
+        res = _best_split_voting(
+            local, tot[:, 0], tot[:, 1], tot[:, 2], nb, fm,
+            torch.zeros(2, dtype=torch.int32, device=mesh.device), p,
+            lambda t: C.psum(t, mesh))
+        out["pick"] = [[float(v) for v in r] for r in res]
+        out["pick_tot"] = tot.tolist()
+    for name in args.get("fits", []):
+        kw, kind = MODE_FITS[name]
+        X, y = mode_data(kind)
+        Xh = X[:512]
+        cfg = B.BoostingConfig(objective="binary", min_data_in_leaf=5, **kw)
+        booster, _ = B.train(X, y, cfg, mesh=mesh, device=dev)
+        out[name] = _fit_record(booster, Xh)
+    if args.get("estimators", False):
+        from synapseml_tpu_torch.core import Dataset
+        from synapseml_tpu_torch.models.gbdt.estimators import (
+            GBDTClassifier, GBDTRegressor)
+        X, y = binary_data(n=1500)
+        ds = Dataset({"features": list(X), "label": y})
+        est = {}
+        for name, e in (
+                ("clf_fp", GBDTClassifier(
+                    parallelism="feature_parallel", numShards=0,
+                    numIterations=6, numLeaves=15, minDataInLeaf=5,
+                    device=dev)),
+                ("clf_vote", GBDTClassifier(
+                    parallelism="voting_parallel", topK=4, numShards=2,
+                    numIterations=6, numLeaves=15, minDataInLeaf=5,
+                    device=dev)),
+                ("reg_fp_local", GBDTRegressor(
+                    parallelism="feature_parallel", numShards=1,
+                    numIterations=6, numLeaves=15, minDataInLeaf=5,
+                    device=dev))):
+            m = e.fit(ds)
+            col = "probability" if "clf" in name else "prediction"
+            pred = np.stack(m.transform(ds)[col]) if "clf" in name \
+                else np.asarray(m.transform(ds)[col])
+            pred = pred[:, 1] if pred.ndim == 2 else pred
+            est[name] = dict(digest=tree_digest(m.booster),
+                             pred=[float(v) for v in pred[:200]],
+                             parallelism=m.booster.config.parallelism,
+                             top_k=m.booster.config.top_k)
+        out["estimators"] = est
+    return out
+
+
+#: tests/test_gbdt.py's ranking task (Q=48 groups of 4-13 rows, F=5)
+def rank_task(seed=6, Q=48, F=5):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(4, 14, Q)
+    n = int(sizes.sum())
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    rel = np.clip(X[:, 0] * 2 + rng.normal(scale=0.3, size=n), -2, 2)
+    y = np.digitize(rel, [-0.5, 0.5, 1.2]).astype(np.float64)
+    return X, y, sizes
+
+
+RANK_KW = dict(objective="lambdarank", num_iterations=15, num_leaves=7,
+               learning_rate=0.2, min_data_in_leaf=3)
+
+
+def gbdt_rank_modes(args):
+    """Distributed lambdarank on this gang: each rank's sharded lambdas
+    at seeded scores, the ranker fit in each parallelism mode, and a
+    streamed fit (``args["stream"]``: a colstore of the same task with
+    the label as its last column) against the in-memory one."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.models.gbdt.ranking import (
+        make_lambdarank_objective_sharded, pack_groups_for_shards)
+    args = args or {}
+    dev = args.get("device", "cpu")
+    mesh = data_parallel_mesh(device=dev)
+    n_ranks, me = mesh.axis_size(), mesh.rank
+    X, y, sizes = rank_task()
+    out = {"rank": me}
+    perm, sq, smask, L = pack_groups_for_shards(sizes, n_ranks)
+    real = perm >= 0
+    pc = np.maximum(perm, 0)
+    ys = (y[pc] * real).astype(np.float32)[me * L:(me + 1) * L]
+    ws = real.astype(np.float32)[me * L:(me + 1) * L]
+    scores = np.random.default_rng(3 + me).normal(size=L)
+    obj = make_lambdarank_objective_sharded(sq, smask, L, me, device=dev)
+    g, h = B._grad_hess(obj, torch.as_tensor(scores, dtype=torch.float32,
+                                             device=mesh.device),
+                        torch.as_tensor(ys, device=mesh.device),
+                        torch.as_tensor(ws, device=mesh.device))
+    out["lambdas"] = [g.cpu().tolist(), h.cpu().tolist()]
+    for mode in args.get("modes", []):
+        cfg = B.BoostingConfig(parallelism=mode, top_k=3, **RANK_KW)
+        booster, _ = B.train(X, y, cfg, group=sizes, mesh=mesh, device=dev)
+        out[mode] = dict(digest=tree_digest(booster),
+                         margin=[float(v) for v in booster.predict_margin(
+                             X, device="cpu")])
+    if args.get("stream"):
+        from synapseml_tpu_torch.io.colstore import ChunkedColumnSource
+        cfg = B.BoostingConfig(**RANK_KW)
+        src = ChunkedColumnSource(args["stream"], label_col=X.shape[1],
+                                  chunk_rows=97)
+        booster, _ = B.train(src, None, cfg, group=sizes, mesh=mesh,
+                             device=dev)
+        out["streamed"] = dict(digest=tree_digest(booster),
+                               margin=[float(v) for v in
+                                       booster.predict_margin(X,
+                                                              device="cpu")])
+    return out
+
+
+def online_data(n=1000, d=16, seed=21):
+    """A logistic task for the online learners' mesh (labels +-1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[:, 3] *= 40.0                        # a wide column: normalization
+    w = rng.normal(size=d).astype(np.float32)
+    y = np.where(x @ w / np.sqrt(d) + rng.normal(scale=0.3, size=n) > 0,
+                 1.0, -1.0).astype(np.float32)
+    sw = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    return x, y, sw
+
+
+#: the online mesh fits: name → (SGDConfig kwargs, rows, whether rows
+#: carry sample weights).  1,000 rows leave rank 1 24 pad rows; "sync4"
+#: takes 1,024 rows of weight 1 (each rank's chunks weigh the same: see
+#: tests/test_torch_online_mesh.py) and "many_syncs" syncs 140 times
+ONLINE_FITS = {
+    "sync0": (dict(loss="logistic", batch_size=16, num_passes=2,
+                   sync_every_batches=0), 1000, True),
+    "sync1": (dict(loss="logistic", batch_size=16, sync_every_batches=1),
+              1000, True),
+    "sync4": (dict(loss="squared", batch_size=16, sync_every_batches=4,
+                   l1=1e-4), 1024, False),
+    "many_syncs": (dict(loss="logistic", batch_size=2,
+                        sync_every_batches=2), 1120, True),
+}
+
+
+def online_mesh(args):
+    """``train_sgd(mesh=...)`` at each sync schedule, and the classifier
+    over the mesh → each state as lists."""
+    from synapseml_tpu_torch.models.online import sgd as S
+    args = args or {}
+    dev = args.get("device", "cpu")
+    mesh = data_parallel_mesh(device=dev)
+    out = {"rank": mesh.rank}
+    for name, (kw, n, weighted) in ONLINE_FITS.items():
+        x, y, sw = online_data(n)
+        state, stats = S.train_sgd(x, y, S.SGDConfig(**kw),
+                                   sample_weight=sw if weighted else None,
+                                   mesh=mesh, device=dev)
+        out[name] = dict(state={k: v.tolist() for k, v in
+                                S.state_to_numpy(state).items()},
+                         stats=stats)
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models.online import OnlineSGDClassifier
+    x, y, _ = online_data()
+    ds = Dataset({"features": list(x), "label": (y > 0).astype(np.float32)})
+    m = OnlineSGDClassifier(mesh=mesh, batchSize=16, device=dev).fit(ds)
+    out["estimator"] = {k: v.tolist() for k, v in
+                        S.state_to_numpy(m.state).items()}
+    return out
+
+
+def featpar_card_cpu(args):
+    """On a gang sharing the card over gloo: a feature-parallel fit over
+    the card and the same fit over the CPU on the same group → their
+    split digests and the largest margin difference on 4,096 rows."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    card = data_parallel_mesh(device="cuda")
+    host = data_parallel_mesh(device="cpu")
+    X, y = modes_data(n=20_000, f=28, seed=3)
+    cfg = B.BoostingConfig(objective="binary",
+                           parallelism="feature_parallel", num_iterations=4,
+                           num_leaves=15, min_data_in_leaf=5)
+    from synapseml_tpu_torch.kernels import launches as L
+    L.reset()
+    bc, _ = B.train(X, y, cfg, mesh=card, device=card.device)
+    shapes = {k: v for k, v in L.BY_SHAPE.items()}
+    bp, _ = B.train(X, y, cfg, mesh=host, device="cpu")
+    diff = np.abs(bc.predict_margin(X[:4096], device="cpu")
+                  - bp.predict_margin(X[:4096], device="cpu")).max()
+    return dict(card=tree_digest(bc, values=False),
+                cpu=tree_digest(bp, values=False), margin_diff=float(diff),
+                shapes=shapes)
