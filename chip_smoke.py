@@ -173,8 +173,9 @@
     hidden logistic model over the hashed features at Criteo's 25.6%
     rate): ``HashingFeaturizer(numBits=12)`` then
     ``Pipeline([OnlineSGDClassifier(numPasses=1, batchSize=32)]).fit``
-    on 262,144 rows and ``transform`` of 65,536, holdout AUC > 0.75;
-    then one upload of the 4.3 GB blocked matrix and passes eager and
+    on 131,072 rows and ``transform`` of 32,768 (262,144 and 65,536
+    before PR 20), holdout AUC > 0.75;
+    then one upload of the 2.1 GB blocked matrix and passes eager and
     with graphs, one pass each: rows/s, states bit-identical to
     each other and to the estimator's fit; ``torch.profiler`` over a
     graph pass and 512 eager steps: busy share and kernels a step.
@@ -203,9 +204,9 @@
     (``LlamaConfig.tiny(vocab_size=512, d_model=1024, num_layers=12,
     num_heads=16, num_kv_heads=4, max_len=256)``): (a) 3 adamw steps at
     f32 on the card and the CPU from the same weights at lr 1e-4 (every
-    weight within 1e-4, losses within 1e-5 relative), and at lr 5e-4
-    reported; (b) ``finetune_lm`` over
-    250 batches of ``templated_log_corpus(rng, 32, 8)`` at lr 5e-4 in
+    weight within 1e-4, losses within 1e-5 relative); (b) ``finetune_lm``
+    over 120 batches (250 before PR 20) of ``templated_log_corpus(rng,
+    32, 8)`` at lr 5e-4 in
     bf16: first and final loss, steps/s, tokens/s, MFU over 6·P·tokens,
     and a ``torch.profiler`` breakdown of 5 steps;
     (c) the trained and the random-init model each served by
@@ -399,20 +400,58 @@
     bytes an iteration of each; (h) phase 13a's ranker (1.2M x 136)
     through ``GBDTRanker(numShards=0)``, whole queries packed onto the
     ranks: rankers equal, validation NDCG@10 within 0.01 of phase 13's
-    (runs ``_ranker``); (i) ``train_sgd`` over phase 16b's 262,144 x
+    (runs ``_ranker``); (i) ``train_sgd`` over phase 16b's 131,072 x
     4,096 rows (left by phase 16 under ``build/``) at sync 0 and 4:
     states equal on both ranks, holdout AUC > 0.75.  Every shape the
-    new runs launch is one phase 2 held.  Its functions run small on
+    new runs launch is one phase 2 held.  The NCCL rank's gang runs
+    beside the gloo gang.  Its functions run small on
     the CPU (``parallel_gang(seed, torch.device("cpu"), "cpu", rows,
     iters, check_path, small_rows=..., nccl_rows=..., ranker_shape=(
     queries, validation queries, features), online_auc_floor=...)``).
+26. Elastic resume (``core/checkpoint.py``, the supervisor's resize,
+    the kernel build cache): every gang a ``GangSupervisor`` of gloo
+    ranks on the one card with ``checkpoint_dir``, ``compile_cache_dir``
+    (empty for (a), so its first attempt builds; seeded with phase 1's
+    build for (b) and (c)) and ``heartbeat_interval_s``, the three gangs
+    (a)-(c) at once.  (a) 2
+    ranks fit ``GBDTClassifier(numShards=0, checkpointDir=...,
+    checkpointInterval=1)`` on phase 25c's 1M x 28 rows at maxBin 255;
+    ``SML_FAULTS="gbdt.checkpoint=kill_rank:rank=1:after=2:times=1"``
+    kills rank 1 after its third checkpoint, a ``RetryPolicy`` relaunches
+    the gang at 2, which resumes from iteration 3: restarts >= 1, both
+    ranks' model strings equal 25c's fault-free fit (md5) and its margins
+    on 8 rows bit for bit, ``last_recovery_s`` > 0, K1 and K2 launched in
+    each rank's resumed attempt (runs ``phase26a_r<rank>_resumed``); (b)
+    the same gang with ``min_ranks=1, shrink_after=1`` and rank 1 killed
+    at every attempt: ``resize_history`` (2, 1, "shrink"), the one rank
+    resumes from iteration >= 2 on all 1M rows with the
+    ``gbdt.resize_resume`` note 2 → 1, the full tree count, holdout AUC
+    within 0.005 of 25c's, K2 and K1 launched (run
+    ``phase26b_r0_resumed``); (c) a 1-rank gang fits
+    ``DeepVisionClassifier(backbone="resnet50", precision="f32")`` on 32
+    seeded 224² images, batch 16, 2 epochs, a checkpoint every step,
+    under deterministic cuDNN and cuBLAS (``CUBLAS_WORKSPACE_CONFIG``
+    through ``env_extra``), killed after its second checkpoint: the
+    relaunch resumes from step 2, and its probabilities match the
+    uninterrupted fit's (run by the relaunched rank) within ``rtol=1e-4,
+    atol=1e-5``; the checkpoint's bytes and seconds a save; (d) (a)'s
+    dead attempt built every kernel library into its empty cache (each
+    library a miss on at least one rank), and every relaunched or
+    resized attempt builds nothing and loads each library from its
+    cache; the dead attempts' reports are read from their log tails.  Its functions run small on the CPU
+    (``elastic_resume(seed, torch.device("cpu"), "cpu", rows, iters,
+    check_path, p25c, dl=dict(backbone="resnet18", n=8, size=32,
+    batch=4, epochs=2, faults=P26_DL["faults"]))`` with ``p25c`` from a
+    fault-free 2-rank ``phase26_gbdt`` gang; ~45 s).
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
 
 Phase 2 also holds K2 and K1 at the shapes of phase 13 (F=136 at ~1.2M
 rows, F=28 at 11M rows: wave, root and refined build) and of phase 25
-(K1 at F=14, B=256, S=16 over 1M rows; F=28, B=256, S=1 over 500k), and
+(K1 at F=14, B=256, S=16 over 1M rows; F=28, B=256, S=1 over 500k);
+phase 26's resumed attempts launch phase 4's two-level shapes (500k
+rows a rank, and 1M on the one rank left after the shrink), and
 phase 11 adds lambdarank (groups of 1-239 rows, some past 128; with
 ``labelGain``) and streamed fits from a ``ChunkedColumnSource`` (an odd
 ``chunk_rows``) and a ``SparseChunkedSource`` with EFB.
@@ -2745,7 +2784,7 @@ def finetune_serve(seed: int, dev, steps: int = 250, batch: int = 32,
     vocab_size=512, d_model=1024, num_layers=12, num_heads=16,
     num_kv_heads=4, max_len=256)``): (a) ``check_steps`` adamw steps at
     f32 on the card and on the CPU from the same weights at lr 1e-4,
-    every weight within 1e-4, and at ``lr`` reported; (b) ``finetune_lm``
+    every weight within 1e-4; (b) ``finetune_lm``
     over ``steps`` batches of ``templated_log_corpus(rng, batch, n_rec)``
     at bf16, and a profile of 5 steps; (c) the trained model served through ``LLMServer(spec_draft_len=7)`` on 8 prompts of
     ``templated_log_corpus(rng, 8, 3)`` x 64 new tokens, and the random
@@ -2762,8 +2801,8 @@ def finetune_serve(seed: int, dev, steps: int = 250, batch: int = 32,
     # 19a. three f32 steps, card against CPU.  Adam's first steps move a
     # weight by ~lr x a ratio of gradient moments, so where a gradient is
     # a near-cancelling sum, f32 summation order moves the update by a
-    # share of lr: the check runs at lr 1e-4, and the fine-tune's lr is
-    # reported beside it (a spread that scales with lr is that rounding)
+    # share of lr: the check runs at lr 1e-4 (PRs 12-19 also reported
+    # the fine-tune's lr beside it: a spread that scales with lr)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the f32 check needs "
                              "full f32 products")
@@ -2783,7 +2822,7 @@ def finetune_serve(seed: int, dev, steps: int = 250, batch: int = 32,
         return {k: v.cpu() for k, v in m.state_dict().items()}, losses
 
     out["card_vs_cpu"] = {}
-    for step_lr in (1e-4, lr):
+    for step_lr in (1e-4,):
         (w_cpu, l_cpu), (w_card, l_card) = (steps_from_start("cpu", step_lr),
                                             steps_from_start(dev, step_lr))
         r = dict(lr=step_lr, steps=check_steps,
@@ -5513,7 +5552,9 @@ def p25_main(card, seed: int, rows: int, iters: int) -> dict:
                  logical_bytes_per_iter=acc["logical"] / iters,
                  wire_bytes_per_iter=acc["wire"] / iters,
                  allreduce_ms=acc["seconds"] / max(acc["calls"], 1) * 1e3,
-                 allreduce_s_per_iter=acc["seconds"] / iters)
+                 allreduce_s_per_iter=acc["seconds"] / iters,
+                 margins8=[float(v) for v in
+                           gbdt.booster.predict_margin(X[:8])])
         if hold is not None:
             t0 = time.perf_counter()
             res = model.transform(hold)
@@ -5930,9 +5971,11 @@ def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
                   nccl_rows: int = P25_NCCL_ROWS,
                   ranker_ndcg10: Optional[float] = None,
                   online_rows: Optional[str] = None, ranker_shape=(),
-                  online_auc_floor: float = 0.75) -> dict:
-    """Phase 25 from the launching process: the two-rank gloo gang and the one-rank
-    NCCL gang on the one card, then the one-process default fit.  Each
+                  online_auc_floor: float = 0.75,
+                  solo_s_per_iter: Optional[float] = None) -> dict:
+    """Phase 25 from the launching process: the two-rank gloo gang and,
+    beside it at once, the one-rank NCCL gang on the one card, then the
+    one-process default fit.  Each
     rank's default fit is the kernels line's run ``phase25r<rank>``, its
     feature-parallel fit ``phase25r<rank>_featpar``, its voting fits
     ``_vote`` (topK=20), ``_vote28`` and the data-parallel lossguide fit
@@ -5940,7 +5983,9 @@ def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
     strictly: every shape they launch is one phase 2 held).
     ``ranker_ndcg10``: phase 13a's validation NDCG@10 (25h is held to it
     within 0.01); ``online_rows``: phase 16's file of 16b's rows (None:
-    small generated rows).  With ``dev`` the CPU it runs small there
+    small generated rows); ``solo_s_per_iter``: the one-process default
+    fit's s/iteration on the same rows (phase 4's; None: fit it here).
+    With ``dev`` the CPU it runs small there
     (``ranker_shape`` = (queries, validation queries, features); the
     NCCL gang is a gloo rank).  Raises on a failed check."""
     from synapseml_tpu_torch.parallel import run_on_local_cluster
@@ -5949,11 +5994,29 @@ def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
     args = dict(seed=seed, rows=rows, iters=iters, device=dev.type,
                 small_rows=small_rows, nccl_rows=nccl_rows,
                 online_rows=online_rows, ranker_shape=list(ranker_shape))
+    # (d)'s one-rank NCCL gang runs beside the two-rank gang
+    from concurrent.futures import ThreadPoolExecutor
+    backend = "nccl" if on_card else "gloo"
+
+    def nccl_gang():
+        t_start = time.time()
+        (res,) = run_on_local_cluster("chip_smoke:phase25_nccl", 1,
+                                      task_args=args, device=dev.type,
+                                      backend=backend,
+                                      timeout_s=P25_GANG_TIMEOUT_S)
+        return res, t_start, time.time() - t_start
+
+    pool = ThreadPoolExecutor(1)
+    nccl_future = pool.submit(nccl_gang)
     t0 = time.time()
-    ranks = run_on_local_cluster("chip_smoke:phase25_gang", 2,
-                                 task_args=args, device=dev.type,
-                                 backend="gloo",
-                                 timeout_s=P25_GANG_TIMEOUT_S)
+    try:
+        ranks = run_on_local_cluster("chip_smoke:phase25_gang", 2,
+                                     task_args=args, device=dev.type,
+                                     backend="gloo",
+                                     timeout_s=P25_GANG_TIMEOUT_S)
+        one, t_nccl, out_nccl_s = nccl_future.result()
+    finally:
+        pool.shutdown(wait=True)
     gang_s = time.time() - t0
     out = {"gang_s": gang_s}
     for r, res in enumerate(ranks):
@@ -6021,14 +6084,8 @@ def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
     out.update(p25_new_modes(ranks, seed, dev, card, rows, iters,
                              check_path, small_rows, ranker_ndcg10,
                              online_auc_floor))
-    # (d) one rank over NCCL
-    t0 = time.time()
-    backend = "nccl" if on_card else "gloo"
-    (one,) = run_on_local_cluster("chip_smoke:phase25_nccl", 1,
-                                  task_args=args, device=dev.type,
-                                  backend=backend,
-                                  timeout_s=P25_GANG_TIMEOUT_S)
-    out["nccl_gang_s"] = time.time() - t0
+    # (d) one rank over NCCL (its gang ran beside the two-rank one)
+    out["nccl_gang_s"] = out_nccl_s
     rep = one["report"]
     if (rep["backend"], rep["psum_local"], rep["device_table"]) != (
             backend, [0.0], [[0, kind]]) or (on_card and not one["cached"]):
@@ -6039,17 +6096,362 @@ def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
     log(f"phase 25d: one {backend} rank: report as expected, trees "
         f"bit-equal to the fit without a group ({nccl_rows} rows); build "
         f"{one['build_s']:.4f} s, launch to task "
-        f"{one['task_start_unix'] - t0:.2f} s, rendezvous "
+        f"{one['task_start_unix'] - t_nccl:.2f} s, rendezvous "
         f"{one['rendezvous_s']:.3f} s")
     # beside them, the one-process default fit (informational: the two
     # ranks share the one card)
-    X, y, Xh, yh = p25_data(seed, rows)
-    solo, _ = fit_path(X, y, Xh, yh, iters, device=dev.type)
-    out["one_process_s_per_iter"] = solo["s_per_iter"]
-    log(f"phase 25: s/iteration one process {solo['s_per_iter']:.4f}, two "
+    if solo_s_per_iter is None:
+        X, y, Xh, yh = p25_data(seed, rows)
+        solo_s_per_iter = fit_path(X, y, Xh, yh, iters,
+                                   device=dev.type)[0]["s_per_iter"]
+    out["one_process_s_per_iter"] = solo_s_per_iter
+    log(f"phase 25: s/iteration one process {solo_s_per_iter:.4f}, two "
         f"gloo ranks f32 {main[0]['none']['s_per_iter']:.4f}, int8 "
         f"{main[0]['int8']['s_per_iter']:.4f} (informational: both ranks "
         f"share the card) | {card}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 26: elastic resume on the card
+
+#: phase 26's scratch: each gang's checkpoint directory and the kernel
+#: build caches (``build/`` is not committed); removed at the end of the
+#: phase
+P26_ROOT = os.path.join(os.path.dirname(CKPT_ROOT), "phase26")
+P26_GANG_TIMEOUT_S = 300.0
+#: the line a phase-26 rank writes with its build report: a killed
+#: attempt's report is read back from its log tail
+P26_BUILD_MARKER = "P26_BUILD:"
+#: 26c: ResNet-50 at phase 15's 224², 32 images, batch 16, 2 epochs (4
+#: optimizer steps), a checkpoint every step; the fresh attempt is killed
+#: after its second checkpoint
+P26_DL = dict(backbone="resnet50", n=32, size=224, batch=16, epochs=2,
+              faults="dl.checkpoint=kill:after=1:times=1")
+#: deterministic cuBLAS for 26c's rank (with cuDNN's deterministic
+#: algorithms, which the task sets)
+P26_DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def p26_build(device: str) -> dict:
+    """This rank's kernels through the gang's build cache (the worker
+    pointed the builds at ``SMLTPU_COMPILE_CACHE_DIR`` before the task):
+    the build directory, the libraries found there (hits) and built
+    (misses).  Written on a line of its own, so a killed attempt's report
+    survives in its log tail.  A CPU rank builds nothing."""
+    from synapseml_tpu_torch.kernels._build import build_all, build_dir
+    from synapseml_tpu_torch.parallel.compilecache import cache_stats
+    from synapseml_tpu_torch.telemetry.gangplane import write_wire_line
+    t0 = time.perf_counter()
+    if device == "cuda":
+        build_all()
+    r = dict(build_s=time.perf_counter() - t0, build_dir=str(build_dir()),
+             **cache_stats())
+    write_wire_line(P26_BUILD_MARKER + json.dumps(r))
+    return r
+
+
+def p26_reports(sup) -> dict:
+    """rank → the build report a dead attempt's rank wrote (the last
+    failure's log tails)."""
+    out = {}
+    logs = sup.last_failure.logs if sup.last_failure is not None else {}
+    for r, text in logs.items():
+        for line in text.splitlines():
+            if line.startswith(P26_BUILD_MARKER):
+                out[r] = json.loads(line[len(P26_BUILD_MARKER):])
+    return out
+
+
+def p26_latest_iteration(directory: str) -> int:
+    """The newest ``iter_<n>.json`` of a GBDT checkpoint directory (0: none)."""
+    import re
+    names = os.listdir(directory) if os.path.isdir(directory) else []
+    found = [int(m.group(1)) for m in
+             map(re.compile(r"iter_(\d+)\.json$").match, names) if m]
+    return max(found, default=0)
+
+
+def phase26_gbdt(args: dict) -> dict:
+    """One rank of phase 26a/26b's gang: ``GBDTClassifier(numShards=0,
+    checkpointDir=$SMLTPU_CKPT_DIR, checkpointInterval=1)`` on phase 25c's
+    rows (``p25_data``, maxBin 255), resuming from the newest checkpoint
+    there.  Launch counts are reset just before the fit and read just
+    after.  → the build report, the iteration resumed from, fit s,
+    launches and shapes, the model string's md5, margins on 8 rows, the
+    ``gbdt.resize_resume`` notes, and rank 0's holdout AUC."""
+    import hashlib
+    import torch.distributed as dist
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    from synapseml_tpu_torch.parallel.mesh import data_parallel_mesh
+    from synapseml_tpu_torch.resilience import get_faults
+    out = dict(task_start_unix=time.time(), **p26_build(args["device"]))
+    faults = get_faults()
+    faults.record_calls = True
+    ckpt = os.environ["SMLTPU_CKPT_DIR"]
+    dev = data_parallel_mesh(device=args["device"]).device
+    out.update(rank=dist.get_rank(), world_size=dist.get_world_size(),
+               resumed_from=p26_latest_iteration(ckpt))
+    X, y, Xh, yh = p25_data(args["seed"], args["rows"])
+    ds = Dataset({"features": list(X), "label": y})
+    L.reset()
+    t0 = time.perf_counter()
+    model = GBDTClassifier(numShards=0, numIterations=args["iters"],
+                           device=str(dev), checkpointDir=ckpt,
+                           checkpointInterval=1).fit(ds)
+    synchronize(dev)
+    out["fit_s"] = time.perf_counter() - t0
+    out["shapes"] = dict(L.BY_SHAPE)
+    out["launches"] = {k: L.total(k) for k in ("build_hist_nodes",
+                                               "route_and_hist")}
+    b = model.booster
+    out.update(md5=hashlib.md5(model.get_model_string().encode())
+               .hexdigest(), trees=b.num_trees,
+               margins8=[float(v) for v in b.predict_margin(X[:8])],
+               resize_notes=[dict(c) for c in
+                             faults.calls_for("gbdt.resize_resume")])
+    if out["rank"] == 0:
+        res = model.transform(Dataset({"features": list(Xh), "label": yh}))
+        out["auc"] = float(auc(yh, np.stack(res["probability"])[:, 1]))
+    return out
+
+
+def phase26_dl(args: dict) -> dict:
+    """Phase 26c's rank: ``DeepVisionClassifier(precision="f32")`` at
+    ``args["dl"]`` (``P26_DL``: backbone, images) with step checkpoints in
+    ``$SMLTPU_CKPT_DIR`` through a manager that times each save, under
+    deterministic cuDNN and cuBLAS.  The fresh attempt arms
+    ``P26_DL["faults"]`` itself (a relaunched process starts its fault
+    counters at zero, so a rule armed by the environment would fire
+    again in the resumed attempt); the relaunched attempt resumes, then
+    fits the same model uninterrupted in the same process as the
+    reference.  → the step resumed from, the saves (bytes, s), both
+    fits' probabilities."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.core.checkpoint import CheckpointManager
+    from synapseml_tpu_torch.models.dl import DeepVisionClassifier
+    from synapseml_tpu_torch.resilience import get_faults
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = args["device"]
+    out = dict(task_start_unix=time.time(), **p26_build(dev))
+    saves = []
+
+    class TimedManager(CheckpointManager):
+        def save(self, step, pytree, metrics=None):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = super().save(step, pytree, metrics)
+            saves.append(dict(step=int(step), seconds=time.perf_counter()
+                              - t0, bytes=os.path.getsize(
+                                  os.path.join(path, "arrays.npz"))))
+            return path
+
+    mgr = TimedManager(os.environ["SMLTPU_CKPT_DIR"], max_to_keep=2)
+    out["resumed_from"] = mgr.latest_step() or 0
+    c = args["dl"]
+    if out["resumed_from"] == 0:
+        get_faults().configure(c["faults"])
+    imgs, labels = vision_images(np.random.default_rng(args["seed"] + 26),
+                                 c["n"], c["size"])
+    ds = Dataset({"image": list(imgs), "label": labels})
+    kw = dict(backbone=c["backbone"], batchSize=c["batch"],
+              maxEpochs=c["epochs"], learningRate=1e-3,
+              lrSchedule="constant", seed=args["seed"], precision="f32",
+              validationFraction=0.0, device=dev)
+    t0 = time.perf_counter()
+    model = DeepVisionClassifier(**kw, checkpointManager=mgr,
+                                 checkpointInterval=1).fit(ds)
+    out["fit_s"] = time.perf_counter() - t0
+    out["saves"] = saves
+    out["probs"] = np.stack(model.transform(ds)["probability"]).tolist()
+    ref = DeepVisionClassifier(**kw).fit(ds)
+    out["ref_probs"] = np.stack(ref.transform(ds)["probability"]).tolist()
+    return out
+
+
+def elastic_resume(seed: int, dev, card: str, rows: int, iters: int,
+                   check_path, p25c: dict, dl: Optional[dict] = None
+                   ) -> dict:
+    """Phase 26 from the launching process: (a) a 2-rank gloo gang on
+    the card killed at rank 1's third checkpoint and relaunched at the
+    same size, (b) the same gang under a persistent rank-1 loss, shrunk
+    to one rank, (c) ResNet-50 killed after its second step checkpoint
+    in a 1-rank gang and resumed, (d) every gang's kernels through a
+    build cache: (a)'s starts empty, so its dead attempt builds and its
+    relaunch loads what that attempt built; (b) and (c) share one seeded
+    with phase 1's build.  The three gangs run at once.  ``p25c``: phase 25c's f32-wire fit (md5, margins on 8
+    rows and rank 0's AUC), the fault-free reference of (a) and (b).
+    The resumed attempts' runs are ``phase26a_r<rank>_resumed`` and
+    ``phase26b_r0_resumed`` (``check_path``, strictly).  ``dl``: 26c's
+    model and images (default ``P26_DL``).  With ``dev`` the CPU it runs
+    small (no kernel loads; a small ``dl``).  Raises on a failed check."""
+    from synapseml_tpu_torch.kernels import _build
+    from synapseml_tpu_torch.parallel import GangSupervisor
+    from synapseml_tpu_torch.resilience import RetryPolicy
+    on_card = dev.type == "cuda"
+    if iters < 4:
+        raise AssertionError("phase 26 kills a rank at its third "
+                             "checkpoint: --iters must be at least 4")
+    shutil.rmtree(P26_ROOT, ignore_errors=True)
+    caches = {"a": os.path.join(P26_ROOT, "kernels_a"),
+              "b": os.path.join(P26_ROOT, "kernels"),
+              "c": os.path.join(P26_ROOT, "kernels")}
+    for d in caches.values():
+        os.makedirs(d, exist_ok=True)
+    if on_card:
+        # (b) and (c)'s cache holds phase 1's build, as a first gang
+        # would leave it; (a)'s stays empty
+        for info in _build.build_all().values():
+            shutil.copy2(info["path"], caches["b"])
+    n_libs = len(_build.SOURCES) if on_card else 0
+    out = {}
+
+    def gang(part, task, n, faults, task_args, env=None, **kw):
+        cache = caches[part]
+        sup = GangSupervisor(
+            f"chip_smoke:{task}", n, task_args=task_args, device=dev.type,
+            backend="gloo", timeout_s=P26_GANG_TIMEOUT_S,
+            heartbeat_interval_s=1.0,
+            checkpoint_dir=os.path.join(P26_ROOT, part),
+            compile_cache_dir=cache,
+            env_extra={**({"SML_FAULTS": faults} if faults else {}),
+                       **(env or {})},
+            retry_policy=RetryPolicy(max_retries=2, base_s=0.01, seed=seed),
+            **kw)
+        t0 = time.time()
+        ranks = sup.run()
+        first = p26_reports(sup)
+        for r, res in enumerate(ranks):
+            # 26d: every relaunched or resized attempt loads each library
+            # from the cache and builds nothing
+            if (res["compiles"], res["cache_misses"], res["cache_hits"]) \
+                    != (0, 0, n_libs) or res["build_dir"] != cache:
+                raise AssertionError(f"phase 26{part} rank {r}: the "
+                                     f"relaunch did not load the cache: "
+                                     f"{res}")
+        # the one dead attempt ran at the gang's first size, n ranks
+        if sup.restarts < 1 or len(first) != n or any(
+                (rep["cache_hits"] + rep["cache_misses"],
+                 rep["build_dir"]) != (n_libs, cache)
+                for rep in first.values()):
+            raise AssertionError(f"phase 26{part}: restarts "
+                                 f"{sup.restarts}, the dead attempt's "
+                                 f"build reports {first}")
+        # (a)'s cache started empty: each library was built by at least
+        # one rank of the dead attempt (ranks that started together may
+        # both build it), and the relaunch loaded those builds
+        if part == "a" and sum(rep["cache_misses"]
+                               for rep in first.values()) < n_libs:
+            raise AssertionError(f"phase 26a: the dead attempt found its "
+                                 f"empty cache filled: {first}")
+        return sup, ranks, first, time.time() - t0
+
+    args = dict(seed=seed, rows=rows, iters=iters, device=dev.type)
+    ref = {"md5": p25c["md5"], "margins8": p25c["margins8"],
+           "auc": p25c["auc"]}
+    c = dict(dl or P26_DL)
+    # the three gangs run at once on the card (each one's seconds are
+    # taken under the others' load)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(3) as pool:
+        runs = {
+            "a": pool.submit(
+                gang, "a", "phase26_gbdt", 2,
+                "gbdt.checkpoint=kill_rank:rank=1:after=2:times=1", args),
+            "b": pool.submit(
+                gang, "b", "phase26_gbdt", 2,
+                "gbdt.checkpoint=kill_rank:rank=1:after=2", args,
+                min_ranks=1, shrink_after=1),
+            "c": pool.submit(
+                gang, "c", "phase26_dl", 1, None,
+                dict(seed=seed, device=dev.type, dl=c),
+                env=P26_DETERMINISTIC_ENV)}
+        runs = {k: f.result() for k, f in runs.items()}
+    # (a) same-size kill and resume
+    sup, ranks, first, wall = runs["a"]
+    for r, res in enumerate(ranks):
+        if res["md5"] != ref["md5"] or res["margins8"] != ref["margins8"]:
+            raise AssertionError(f"phase 26a rank {r}: the resumed model "
+                                 f"differs from 25c's fault-free fit: "
+                                 f"{res['md5']} against {ref['md5']}")
+        if res["resumed_from"] < 1 or res["trees"] != iters:
+            raise AssertionError(f"phase 26a rank {r}: {res}")
+        if on_card and min(res["launches"].values()) <= 0:
+            raise AssertionError(f"phase 26a rank {r}: a kernel never "
+                                 f"launched {res['launches']}")
+        check_path(f"phase26a_r{r}_resumed", {"shapes": res["shapes"]},
+                   strict=True)
+    if not (sup.last_recovery_s or 0) > 0:
+        raise AssertionError(f"phase 26a: recovery {sup.last_recovery_s}")
+    out["a"] = dict(wall_s=wall, restarts=sup.restarts,
+                    recovery_s=sup.last_recovery_s, first_attempt=first,
+                    ranks={r: {k: v for k, v in res.items()
+                               if k not in ("shapes", "margins8")}
+                           for r, res in enumerate(ranks)})
+    log(f"phase 26a: 2 gloo ranks, rank 1 SIGKILLed after its third "
+        f"checkpoint, relaunched at 2: resumed from iteration "
+        f"{ranks[0]['resumed_from']}, models equal to 25c's fault-free "
+        f"fit (md5, margins on 8 rows), recovery "
+        f"{sup.last_recovery_s:.2f} s | {card}: {json.dumps(out['a'])}")
+    # (b) shrink to survive a persistent rank loss
+    sup, ranks, first, wall = runs["b"]
+    got = [(e["from"], e["to"], e["direction"]) for e in sup.resize_history]
+    (one,) = ranks
+    gap = abs(one["auc"] - ref["auc"])
+    if got != [(2, 1, "shrink")] or one["world_size"] != 1 \
+            or one["resumed_from"] < 2 or one["trees"] != iters \
+            or one["resize_notes"] != [{"saved": 2, "current": 1}] \
+            or gap > 0.005:
+        raise AssertionError(f"phase 26b: resizes {got}, {one}, AUC gap "
+                             f"{gap}")
+    if on_card and min(one["launches"].values()) <= 0:
+        raise AssertionError(f"phase 26b: a kernel never launched "
+                             f"{one['launches']}")
+    check_path("phase26b_r0_resumed", {"shapes": one["shapes"]},
+               strict=True)
+    out["b"] = dict(wall_s=wall, restarts=sup.restarts, resizes=got,
+                    recovery_s=sup.last_recovery_s, auc_gap=gap,
+                    first_attempt=first,
+                    rank0={k: v for k, v in one.items()
+                           if k not in ("shapes", "margins8")})
+    log(f"phase 26b: 2 gloo ranks, rank 1 lost at every attempt: shrunk "
+        f"2 → 1, resumed from iteration {one['resumed_from']} on all "
+        f"{rows} rows, holdout AUC {one['auc']:.6f} against 25c's "
+        f"{ref['auc']:.6f} (gap {gap:.6f}, limit 0.005) | {card}: "
+        f"{json.dumps(out['b'])}")
+    # (c) ResNet-50 killed after its second step checkpoint, resumed
+    sup, (dl,), first, wall = runs["c"]
+    probs, ref_probs = np.asarray(dl["probs"]), np.asarray(dl["ref_probs"])
+    diff = float(np.abs(probs - ref_probs).max())
+    ok = np.allclose(probs, ref_probs, rtol=1e-4, atol=1e-5)
+    saves = dl["saves"]
+    out["c"] = dict(wall_s=wall, restarts=sup.restarts,
+                    resumed_from=dl["resumed_from"], fit_s=dl["fit_s"],
+                    max_prob_diff=diff, saves=saves, first_attempt=first)
+    log(f"phase 26c: {c['backbone']} f32, {c['n']} images of "
+        f"{c['size']}², batch {c['batch']}, {c['epochs']} epochs, killed "
+        f"after step 2's checkpoint: "
+        f"resumed from step {dl['resumed_from']}, probabilities within "
+        f"{diff:.3g} of the uninterrupted fit (rtol 1e-4, atol 1e-5); a "
+        f"checkpoint {saves[0]['bytes'] if saves else 0} B in "
+        f"{np.mean([s['seconds'] for s in saves]) if saves else 0:.3f} s "
+        f"| {card}: {json.dumps(out['c'])}")
+    if dl["resumed_from"] != 2 or not ok:
+        raise AssertionError(f"phase 26c: resumed from "
+                             f"{dl['resumed_from']}, probabilities differ "
+                             f"by {diff}")
+    log(f"phase 26d: the build caches {caches}: (a)'s dead attempt "
+        f"built every library into its empty cache; every relaunched or "
+        f"resized attempt built nothing and loaded each of {n_libs} "
+        f"libraries from its cache; the dead attempts found "
+        f"{json.dumps({k: v['first_attempt'] for k, v in out.items()})}")
+    shutil.rmtree(P26_ROOT, ignore_errors=True)
     return out
 
 
@@ -6111,7 +6513,11 @@ def main(argv=None) -> int:
     N_RANK = int(np.random.default_rng(args.seed + 13).integers(
         1, RANK_MAXG + 1, RANK_Q).sum())
     two_level = ("maxBin=255", "multiclass", "validation", "resumed",
-                 "phase22c", "phase23", "phase24", "phase25r0", "phase25r1")
+                 "phase22c", "phase23", "phase24", "phase25r0", "phase25r1",
+                 # phase 26's resumed attempts: 2 ranks of 500k rows, and
+                 # one rank of all 1M after the shrink
+                 "phase26a_r0_resumed", "phase26a_r1_resumed",
+                 "phase26b_r0_resumed")
     # phase 25's runs on each of its two ranks (f: feature-parallel, 1M
     # rows a rank; v: voting and the data-parallel lossguide fit it is
     # held against, 500k rows a rank; r: the distributed ranker)
@@ -6263,6 +6669,8 @@ def main(argv=None) -> int:
         r, stage = fit_path(X, y, Xh, yh, args.iters, maxBin=max_bin)
         if max_bin == 255:
             models["default"] = stage
+            # phase 25's one-process fit: the same rows and config
+            solo_s_per_iter = r["s_per_iter"]
         log(f"fit maxBin={max_bin}: {json.dumps(r)}")
         check_path(f"maxBin={max_bin}", r)
         if r["auc"] <= 0.8:
@@ -6578,8 +6986,10 @@ def main(argv=None) -> int:
     # -- 16. the online learners at Criteo's column shape --------------------
     torch.cuda.empty_cache()
     # one turn (eager, then graph): three turns cost ~17 s more; 16b's
-    # rows are left for phase 25i
-    online(args.seed, dev, turns=1, save=P25_ONLINE_ROWS)
+    # rows are left for phase 25i.  131,072 + 32,768 rows (262,144 +
+    # 65,536 cost ~15 s more here and ~3 s in 25i)
+    online(args.seed, dev, n_train=131_072, n_hold=32_768, turns=1,
+           save=P25_ONLINE_ROWS)
     wall("16")
 
     # -- 17. the MoE text encoder at BERT-base width -------------------------
@@ -6608,7 +7018,8 @@ def main(argv=None) -> int:
 
     # -- 19. fine-tune, then serve speculatively -------------------------------
     torch.cuda.empty_cache()
-    p19 = finetune_serve(args.seed, dev)
+    # 120 fine-tune steps (250 cost ~11 s more; the loss still falls)
+    p19 = finetune_serve(args.seed, dev, steps=120)
     wall("19")
 
     # -- 20. the rest of the LLM slice: arena, journal, int8, pretrained ------
@@ -6705,11 +7116,18 @@ def main(argv=None) -> int:
 
     # -- 25. the parallel layer: a local gang of ranks on the one card -------
     torch.cuda.empty_cache()
-    parallel_gang(args.seed, dev, card, N, args.iters, check_path,
-                  ranker_ndcg10=p13["ranker"]["valid_ndcg10"],
-                  online_rows=P25_ONLINE_ROWS)
+    p25_out = parallel_gang(args.seed, dev, card, N, args.iters, check_path,
+                            ranker_ndcg10=p13["ranker"]["valid_ndcg10"],
+                            online_rows=P25_ONLINE_ROWS,
+                            solo_s_per_iter=solo_s_per_iter)
     os.remove(P25_ONLINE_ROWS)
     wall("25")
+
+    # -- 26. elastic resume: checkpoints, resize and the build cache ---------
+    torch.cuda.empty_cache()
+    elastic_resume(args.seed, dev, card, N, args.iters, check_path,
+                   p25_out["main"]["none"][0])
+    wall("26")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

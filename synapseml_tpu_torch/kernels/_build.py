@@ -7,6 +7,13 @@ root of the checkout (listed in ``.gitignore``), under a name that carries
 a hash of the source and flags, so an edited source never loads a stale
 library.  :func:`build_all` starts one ``nvcc`` per source and waits for
 all of them.  Nothing here runs at import.
+
+:func:`set_build_dir` points the builds elsewhere: a gang's ranks share
+one directory that way (``parallel/compilecache.py``, the kernel build
+cache), so a relaunched rank loads the library an earlier rank built.
+Each library is reported once a process to the listeners
+(:func:`add_build_listener`): ``("hit", name, 0.0)`` when it was found
+in the directory, ``("miss", name, seconds)`` when ``nvcc`` built it.
 """
 
 from __future__ import annotations
@@ -19,11 +26,44 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 REPO_ROOT = _PKG.parent
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+
+#: the directory builds go to when not :data:`BUILD_DIR`
+_build_dir: Optional[Path] = None
+#: callables ``fn(event, name, seconds)``, event "hit" or "miss"
+_listeners: List[Callable[[str, str, float], None]] = []
+#: library paths already reported in this process
+_reported: set = set()
+
+
+def build_dir() -> Path:
+    """Where the libraries are built and looked for."""
+    return _build_dir if _build_dir is not None else BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` (None: :data:`BUILD_DIR`)."""
+    global _build_dir
+    _build_dir = Path(path) if path is not None else None
+
+
+def add_build_listener(fn: Callable[[str, str, float], None]) -> None:
+    """Call ``fn(event, name, seconds)`` once a process for each library:
+    ``"hit"`` when it was found built, ``"miss"`` when it was built."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def _report(event: str, name: str, path: str, seconds: float) -> None:
+    if path in _reported:
+        return
+    _reported.add(path)
+    for fn in list(_listeners):
+        fn(event, name, seconds)
 
 #: library name -> source file, relative to the package
 SOURCES: Dict[str, str] = {"gbdt_hist": "csrc/gbdt_hist.cu",
@@ -82,7 +122,7 @@ def _target(name: str) -> Tuple[Path, Path]:
     src = _PKG / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(_flags(name)).encode())
-    return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    return src, build_dir() / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
@@ -91,7 +131,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     raises ``RuntimeError`` with the compiler's output if any build
     fails."""
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     out: Dict[str, dict] = {}
     t0 = time.perf_counter()
@@ -100,6 +140,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if lib.exists():
             out[name] = {"path": str(lib), "seconds": 0.0, "log": "",
                          "cached": True}
+            _report("hit", name, str(lib), 0.0)
             continue
         tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
         cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(src)]
@@ -115,6 +156,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         os.replace(tmp, lib)      # atomic: a concurrent loader sees all or none
         out[name] = {"path": str(lib), "seconds": time.perf_counter() - t0,
                      "log": log, "cached": False}
+        _report("miss", name, str(lib), out[name]["seconds"])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

@@ -16,8 +16,13 @@ The param surface is the JAX package's plus ``device``.  What is not
 ported raises ``NotImplementedError`` naming its ROADMAP item before any
 tokenizing or image work: a mesh (``numDevices > 1``,
 ``modelParallelism > 1``, ``zero1``, ``collectiveCompression``,
-``expertParallelism > 1``) and step checkpoints (``checkpointDir``,
-``checkpointManager``) wait for A5.  ``numExperts > 0`` trains the MoE
+``expertParallelism > 1``) waits for A5.  Step checkpoints
+(``checkpointDir`` or ``checkpointManager`` with ``checkpointInterval``)
+save the model's parameters and buffers, the optimizer's moments and
+count and the step every that many optimizer steps
+(:class:`_CheckpointLoop`); a later fit with the same directory resumes
+from the newest, replaying the data order so it trains on the batches
+the uninterrupted fit would.  ``numExperts > 0`` trains the MoE
 FFN (:mod:`.moe`) on the one card.  ``stepProfiler`` (a
 :class:`~synapseml_tpu_torch.telemetry.gangplane.StepProfiler`) times
 each step's data / compute / other segments, synchronizing the device
@@ -46,8 +51,8 @@ from ...telemetry.gangplane import check_profiler
 from .precision import resolve_precision
 from .resnet import BACKBONES, BottleneckResNetBlock, make_backbone
 from .tokenizer import WordPieceTokenizer, WordTokenizer, tokenizer_from_dict
-from .training import (DLTrainer, OptimizerConfig, iterate_minibatches,
-                       num_minibatches, to_device)
+from .training import (DLTrainer, OptimizerConfig, TrainState,
+                       iterate_minibatches, num_minibatches, to_device)
 from .transformer import TextEncoder, TransformerConfig
 
 
@@ -187,12 +192,13 @@ class _DLParamsBase(Params):
                           "A5)", default=False)
     validationFraction = FloatParam(doc="fraction held out for eval logging",
                                     default=0.0)
-    checkpointDir = StringParam(doc="step-checkpoint directory (not ported: "
-                                    "ROADMAP A5)")
+    checkpointDir = StringParam(doc="step-checkpoint directory: a fit "
+                                    "resumes from its newest checkpoint")
     checkpointInterval = IntParam(doc="save every N optimizer steps "
                                   "(0 = off)", default=0)
     checkpointManager = PyObjectParam(
-        doc="core.checkpoint.CheckpointManager (not ported: ROADMAP A5)")
+        doc="core.checkpoint.CheckpointManager to checkpoint through "
+            "(overrides checkpointDir)")
     stepProfiler = PyObjectParam(
         doc="telemetry.gangplane.StepProfiler: per-step data / compute / "
             "other wall time (and, with capture_xla, one step's counted "
@@ -232,14 +238,19 @@ class _DLParamsBase(Params):
         if cc is not None and cc != "none":
             refuse(f"collectiveCompression={cc!r} (compressed gradient "
                    "collectives)", "A5: DL mesh training")
-        if self.get("checkpointDir") or self.get("checkpointManager"):
-            refuse("checkpointDir/checkpointManager (DL step checkpoints, "
-                   "built on core.checkpoint and the planner)",
-                   "A5: core/checkpoint.py")
+        shards = _saved_shards(self.get("checkpointManager"),
+                               self.get("checkpointDir"))
+        if shards != 1:
+            refuse(f"resuming a {shards}-shard mesh fit's step checkpoint "
+                   "(re-sharding it onto one card)", "A5: DL mesh training")
         check_profiler(self.get("stepProfiler"), type(self).__name__)
 
     def _precision_policy(self):
         return resolve_precision(self.precision)
+
+    def _checkpoint_loop(self, trainer: DLTrainer,
+                         state: TrainState) -> "_CheckpointLoop":
+        return _CheckpointLoop(self, trainer, state)
 
     def _opt_config(self, total_steps: int) -> OptimizerConfig:
         return OptimizerConfig(
@@ -253,6 +264,132 @@ class _DLParamsBase(Params):
         y_raw = np.asarray(ds[col], np.float64)
         classes = np.unique(y_raw)
         return classes, np.searchsorted(classes, y_raw).astype(np.int32)
+
+
+def _saved_shards(manager, ckpt_dir) -> int:
+    """The ``shards`` the newest step checkpoint of ``manager`` (else of
+    ``ckpt_dir``) was written with; 1 when there is none."""
+    if manager is not None:
+        if getattr(manager, "directory", None) is None:
+            raise TypeError(
+                "checkpointManager must be a core.checkpoint."
+                "CheckpointManager (an object with a directory), got "
+                f"{type(manager).__name__}")
+        ckpt_dir = manager.directory
+    if not ckpt_dir or not os.path.isdir(ckpt_dir):
+        return 1
+    from ...core.checkpoint import CheckpointManager
+    mgr = CheckpointManager(ckpt_dir)
+    latest = mgr.latest_step()
+    if latest is None:
+        return 1
+    return int(mgr.metrics(latest).get("shards", 1.0))
+
+
+class _CheckpointLoop:
+    """Step checkpoints and resume for the DL fit loops (the JAX
+    package's ``_CheckpointLoop`` on one card).
+
+    The config guard takes the JAX package's keys: the data-order keys
+    (``batchSize``, ``seed``, ``validationFraction``), ``precision``,
+    ``shards`` (1 on one card) and the codec, sharding, error-feedback,
+    manual-step, min-size, chunk and routing keys, all 0.0 here.  A saved
+    value that differs in any key but ``shards`` raises ``ValueError``;
+    a saved ``shards`` other than 1 (a mesh fit's checkpoint) is refused
+    before any work (:func:`_saved_shards`): there is no DL mesh to
+    re-shard onto.
+
+    A save holds the model's parameters and buffers (its
+    ``state_dict``), the optimizer's moments and count and
+    ``TrainState.step``, every ``checkpointInterval`` optimizer steps,
+    with the ``dl.checkpoint`` kill point after it.  A resume restores
+    them onto the fit's device and :meth:`skips` the steps already taken
+    (their batches are drawn, nothing runs)."""
+
+    _CONFIG_KEYS = ("batchSize", "seed", "validationFraction")
+    #: keys of a mesh fit's gradient sync: 0.0 on one card, and a
+    #: checkpoint that predates them wrote none (the same 0.0)
+    _SYNC_KEYS = ("compression", "sharded_update", "error_feedback",
+                  "manual_step", "codec_min_size", "codec_chunk", "routing")
+
+    def __init__(self, est: "_DLParamsBase", trainer: DLTrainer,
+                 state: TrainState):
+        from ...core.checkpoint import CheckpointManager
+        from .precision import PRECISION_CODE
+        self.manager = None
+        self.start_step = 0
+        self.interval = int(est.checkpointInterval)
+        self.state = state
+        self.device = trainer.device
+        self._config = {k: float(est.get_or_default(k))
+                        for k in self._CONFIG_KEYS}
+        self._config["shards"] = 1.0
+        self._config.update({k: 0.0 for k in self._SYNC_KEYS})
+        self._config["precision"] = PRECISION_CODE[
+            str(est.get_or_default("precision"))]
+        manager = est.get("checkpointManager")
+        ckpt_dir = est.get("checkpointDir")
+        if manager is None and not ckpt_dir:
+            return
+        self.manager = (manager if manager is not None
+                        else CheckpointManager(ckpt_dir))
+        ckpt_dir = self.manager.directory
+        latest = self.manager.latest_step()
+        if latest is None:
+            return
+        saved_cfg = {k: v for k, v in self.manager.metrics(latest).items()
+                     if k in self._config}
+        for k in self._SYNC_KEYS + ("precision",):
+            saved_cfg.setdefault(k, 0.0)
+        mismatch = {k: (saved_cfg[k], self._config[k]) for k in saved_cfg
+                    if saved_cfg[k] != self._config[k] and k != "shards"}
+        if mismatch:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} step {latest} was written with a "
+                f"different data-order config {mismatch}; resuming would "
+                f"silently train on wrong batches — use a fresh "
+                f"checkpointDir or restore manually")
+        # a saved shards != 1 was refused before any work (_check_ported)
+        restored = self.manager.restore_state_dict(self._tree(state), latest,
+                                                   device=self.device)
+        self._load(state, restored)
+        self.start_step = state.step
+
+    @staticmethod
+    def _tree(state: TrainState) -> dict:
+        """The saved pytree: tensors on the fit's device."""
+        opt = state.opt
+        moments = ({"mu": opt.mu, "nu": opt.nu} if hasattr(opt, "mu")
+                   else {"trace": opt.trace})
+        return {"model": state.model.state_dict(),
+                "opt": {"count": np.asarray(opt.count, np.int64),
+                        **moments},
+                "step": np.asarray(state.step, np.int64)}
+
+    @staticmethod
+    def _load(state: TrainState, tree: dict) -> None:
+        state.model.load_state_dict(tree["model"])
+        opt = state.opt
+        with torch.no_grad():
+            for name in ("mu", "nu", "trace"):
+                if name in tree["opt"]:
+                    for dst, src in zip(getattr(opt, name),
+                                        tree["opt"][name]):
+                        dst.copy_(src)
+        opt.count = int(tree["opt"]["count"])
+        state.step = int(tree["step"])
+
+    def skips(self, gstep: int) -> bool:
+        """True while replaying steps the checkpoint already holds."""
+        return gstep <= self.start_step
+
+    def after_step(self, gstep: int, state: TrainState) -> None:
+        if self.manager and self.interval and gstep % self.interval == 0:
+            self.manager.save(gstep, self._tree(state),
+                              metrics=self._config)
+            # the preemption point: after a durable step, before the next
+            from ...resilience.faults import get_faults
+            get_faults().kill_point("dl.checkpoint", step=gstep)
 
 
 class DeepTextClassifier(_DLParamsBase, Estimator):
@@ -343,6 +480,7 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
         step = trainer.train_step()
         eval_step = trainer.eval_step()
         rng = np.random.default_rng(self.seed)
+        ckpt = self._checkpoint_loop(trainer, state)
 
         history: List[dict] = []
         prof = self.get("stepProfiler")
@@ -352,6 +490,8 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
                 metrics = {}
                 for idx in iterate_minibatches(n, self.batchSize, 1, rng):
                     gstep += 1
+                    if ckpt.skips(gstep):
+                        continue
                     if prof is not None:
                         prof.step_begin(gstep)
                     bi, bm, bl = trainer.shard_batch(
@@ -360,6 +500,9 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
                                   bl, self.seed, len(idx), dev)
                     state, metrics = step(state, (bi, bm), bl, self.seed)
                     _profile_step_end(prof, dev)
+                    ckpt.after_step(gstep, state)
+                if ckpt.skips(gstep):
+                    continue     # the checkpoint covers the whole epoch
                 record = {k: float(v) for k, v in metrics.items()}
                 if n_val:
                     bs = max(int(self.batchSize), 1)
@@ -473,6 +616,7 @@ class DeepVisionClassifier(_DLParamsBase, Estimator):
                 bottleneck=bb.keywords["block_cls"] is BottleneckResNetBlock))
         step = trainer.train_step()
         rng = np.random.default_rng(self.seed)
+        ckpt = self._checkpoint_loop(trainer, state)
 
         history: List[dict] = []
         prof = self.get("stepProfiler")
@@ -482,6 +626,8 @@ class DeepVisionClassifier(_DLParamsBase, Estimator):
                 metrics = {}
                 for idx in iterate_minibatches(n, self.batchSize, 1, rng):
                     gstep += 1
+                    if ckpt.skips(gstep):
+                        continue
                     if prof is not None:
                         prof.step_begin(gstep)
                     bi, bl = trainer.shard_batch((imgs[idx], labels[idx]))
@@ -489,6 +635,9 @@ class DeepVisionClassifier(_DLParamsBase, Estimator):
                                   bl, self.seed, len(idx), dev)
                     state, metrics = step(state, (bi,), bl, self.seed)
                     _profile_step_end(prof, dev)
+                    ckpt.after_step(gstep, state)
+                if ckpt.skips(gstep):
+                    continue     # the checkpoint covers the whole epoch
                 history.append({k: float(v) for k, v in metrics.items()})
         finally:
             if prof is not None:

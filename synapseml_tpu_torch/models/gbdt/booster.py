@@ -32,9 +32,11 @@ one bundler per slice, padded to a common width) and grows with
 that shards rows packs whole query groups onto the ranks
 (:func:`~.ranking.pack_groups_for_shards`, pad rows of zero weight) and
 computes each rank's lambdas over its own groups; under feature_parallel
-every rank runs the plain objective on all rows.  A mesh fit's
-checkpoint directory raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+every rank runs the plain objective on all rows.  A mesh fit's ranks
+checkpoint into one directory (every rank publishes the same
+``iter_<n>.json``), and a relaunched gang of any size resumes from the
+newest one: the rows re-shard over the new mesh, and a resize is
+recorded, never refused.
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ from ...parallel.compression import resolve_collective_config
 from ...parallel.heartbeat import beat
 from ...parallel.mesh import DATA_AXIS, ProcessMesh, block_bounds
 from ...parallel.planner import planned_psum
+from ...resilience.faults import get_faults
+from ...telemetry.flight import record as flight_record
 from .objectives import (get_objective, initial_score, objective_kwargs,
                          ova_grad_hess, softmax_grad_hess)
 from .ranking import (build_group_index, make_lambdarank_objective,
@@ -693,13 +697,33 @@ def _hist_psum_nulled(config: BoostingConfig, mesh_present: bool) -> bool:
             or config.parallelism in ("feature_parallel", "voting_parallel"))
 
 
-def _effective_wire_key(config: BoostingConfig):
-    """The histogram-psum wire a fit uses, as the checkpoints stamp it:
-    ``None`` for the flat f32 wire, which is every fit without a mesh
-    (:func:`_hist_psum_nulled`), and every fit of this port runs on one
-    device, so a stamp written by either package reads the same."""
-    assert _hist_psum_nulled(config, mesh_present=False)
-    return None
+def _mesh_world_size(mesh) -> int:
+    """The rank count of a fit's mesh (1 with no mesh): the one
+    derivation of the checkpoint stamp and the resume comparison."""
+    return 1 if mesh is None else int(mesh.world_size)
+
+
+def _effective_wire_key(config: BoostingConfig, mesh=None):
+    """The histogram-psum wire a fit uses, as the checkpoints stamp it
+    (the JAX package's key): ``None`` for the flat f32 wire, which is
+    every fit without a mesh or without the data-parallel psum
+    (:func:`_hist_psum_nulled`); else the codec's (compression, min_size,
+    int8 chunk), with the planner's routing appended when it is not flat.
+    The world size is not part of the key: a resize resumes."""
+    cc = resolve_collective_config(config.collective_compression)
+    if cc is None or _hist_psum_nulled(config, mesh is not None):
+        return None
+    from ...parallel.planner import get_planner
+    routing = get_planner().resolved_routing(
+        cc, world=_mesh_world_size(mesh))
+    if not cc.compresses and routing == "flat":
+        return None
+    key = ((cc.compression, cc.min_size,
+            cc.chunk if cc.compression == "int8" else 0)
+           if cc.compresses else ("none", 0, 0))
+    if routing != "flat":
+        key = key + (routing,)
+    return key
 
 
 _CKPT = re.compile(r"iter_(\d+)\.json$")
@@ -720,17 +744,35 @@ def _latest_checkpoint(directory: str,
 
 
 def _write_checkpoint(directory: str, booster: "Booster",
-                      keep: int = 3) -> None:
+                      keep: int = 3, rank: int = 0) -> None:
     """Write ``iter_<iterations>.json`` atomically (a temporary file, then
     ``os.replace``, so a kill leaves only the previous checkpoint for
-    :func:`_latest_checkpoint`) and keep the newest ``keep``."""
+    :func:`_latest_checkpoint`) and keep the newest ``keep``.
+
+    Every rank of a mesh fit writes the same file into the one
+    directory, each through its own temporary name (rank and pid).  The
+    concurrent publishes are safe: every rank holds the same booster, so
+    they rename equal bytes onto one name, and ``os.replace`` is atomic,
+    so a reader sees one whole copy or the previous step.  A relaunched
+    gang of any world size reads the newest.  After the publish the
+    iteration is this rank's durable position: it is beaten on the
+    heartbeat channel (the supervisor's recovery clock reads it) and
+    recorded in the flight ring, between the
+    ``gbdt.checkpoint.pre_publish`` and ``gbdt.checkpoint`` kill
+    points."""
     os.makedirs(directory, exist_ok=True)
     n = booster.num_trees // max(booster.num_class, 1)
     path = os.path.join(directory, f"iter_{n:08d}.json")
-    tmp = path + f".tmp{os.getpid()}"
+    tmp = path + f".tmp{rank}.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(booster.to_dict(), f)
+    # a SIGKILL here leaves only the temporary file, which
+    # _latest_checkpoint never matches: a resume sees the step before
+    get_faults().kill_point("gbdt.checkpoint.pre_publish", iteration=n)
     os.replace(tmp, path)
+    beat(step=n)
+    flight_record("checkpoint", step=n, path=path)
+    get_faults().kill_point("gbdt.checkpoint", iteration=n)
     steps = sorted(int(m.group(1)) for m in map(_CKPT.match,
                                                 os.listdir(directory)) if m)
     for old in steps[:-keep]:
@@ -946,13 +988,19 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     after that many evaluations without improvement, and the model's
     ``best_iteration`` is the best one's.  ``init_model`` continues
     training from a model (its trees, bin mapper, bundler and init
-    score).  ``checkpoint_dir`` with ``checkpoint_interval`` > 0 writes
+    score).  ``checkpoint_dir`` (a directory, or a
+    :class:`~synapseml_tpu_torch.core.checkpoint.CheckpointManager`,
+    whose ``directory`` is used) with ``checkpoint_interval`` > 0 writes
     the partial model every that many iterations (the JAX package's
     checkpoint files: either package resumes the other's) and a later
     call with the same directory resumes from the newest one: an
     unbagged gbdt/goss resume grows the trees the uninterrupted run
     would; rf continues the same bag stream; dart freezes the carried
-    trees' weights (approximate, as in the JAX package).
+    trees' weights (approximate, as in the JAX package).  A checkpoint
+    whose histogram wire (codec and routing) or ingest differs from this
+    fit's raises ``ValueError``; one written at another world size
+    resumes (a gang resize), recorded as the ``gbdt.resize_resume``
+    fault note and flight event.
 
     ``X`` is a numpy matrix or a chunked source (anything with
     ``num_rows``, ``num_features``, ``iter_chunks``, ``sample_rows``,
@@ -980,9 +1028,10 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     voting_parallel (rows sharded the same way, lossguide with the
     voting pick) and feature_parallel (rows replicated, features
     sharded) train over the mesh too, and so does lambdarank (whole
-    query groups packed onto the ranks where rows are sharded).  A
-    checkpoint directory and the step profiler's cost capture are not
-    ported over a mesh (ROADMAP queue A5).
+    query groups packed onto the ranks where rows are sharded).  Every
+    rank checkpoints into the same directory (:func:`_write_checkpoint`).
+    The step profiler's cost capture is not ported over a mesh (ROADMAP
+    queue A5).
 
     ``step_profiler`` (a :class:`~synapseml_tpu_torch.telemetry.gangplane
     .StepProfiler`) decomposes each iteration's wall time into data (the
@@ -994,28 +1043,27 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     added."""
     dev = resolve_device(device)
     if mesh is not None:
-        if checkpoint_dir is not None:
+        if step_profiler is not None and step_profiler.capture_xla:
             raise NotImplementedError(
-                "a checkpoint directory over a mesh (every rank writing "
-                "one directory) waits for core/checkpoint.py (ROADMAP "
-                "queue A5: core/checkpoint.py)")
+                "the step profiler's cost capture over a mesh (it reruns "
+                "an iteration, collectives included) is not ported yet "
+                "(ROADMAP queue A5: DL mesh training)")
         if not isinstance(mesh, ProcessMesh):
             raise TypeError(f"mesh must be a ProcessMesh, got "
                             f"{type(mesh).__name__}")
         if mesh.device != dev:
             raise ValueError(f"the mesh's device {mesh.device} is not "
                              f"device={dev}")
-        if step_profiler is not None and step_profiler.capture_xla:
-            raise NotImplementedError(
-                "the step profiler's cost capture over a mesh (it reruns "
-                "an iteration, collectives included) is not ported yet "
-                "(ROADMAP queue A5: DL mesh training)")
+    # a CheckpointManager (anything carrying ``.directory``) checkpoints
+    # into its directory
     if checkpoint_dir is not None and not isinstance(checkpoint_dir,
                                                      (str, os.PathLike)):
-        raise NotImplementedError(
-            "checkpoint managers (core.checkpoint.CheckpointManager) are "
-            "not ported yet (ROADMAP queue A5: core/checkpoint.py); pass a "
-            "directory")
+        if getattr(checkpoint_dir, "directory", None) is None:
+            raise TypeError(
+                "checkpoint_dir must be a directory or a "
+                "core.checkpoint.CheckpointManager (an object with a "
+                f"directory), got {type(checkpoint_dir).__name__}")
+        checkpoint_dir = checkpoint_dir.directory
     _check_ported(config)
     _check_ported_on(config, dev)
     check_profiler(step_profiler, "train")
@@ -1034,7 +1082,7 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
             saved_pt = resumed.config.pass_through or {}
             saved_cc = saved_pt.get("_codec_wire_key")
             saved_cc = tuple(saved_cc) if saved_cc is not None else None
-            cur_cc = _effective_wire_key(config)
+            cur_cc = _effective_wire_key(config, mesh)
             if saved_cc != cur_cc:
                 raise ValueError(
                     f"checkpoint at {checkpoint_dir} was trained with "
@@ -1052,18 +1100,35 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                     "trees under a different histogram ingest dtype — "
                     "use a fresh checkpoint_dir or keep the knob "
                     "(fused_ingest=False resumes pre-fused checkpoints)")
+            # the world size is not part of the refusal: an elastic gang
+            # resize resumes an N-rank checkpoint on M ranks (the rows
+            # re-shard below; the histogram psum sums over all rows, so
+            # the partition is not model state), and is recorded
+            cur_ws = _mesh_world_size(mesh)
+            saved_ws = saved_pt.get("_fit_world_size")
+            if saved_ws is not None and int(saved_ws) != cur_ws:
+                get_faults().note("gbdt.resize_resume",
+                                  saved=int(saved_ws), current=cur_ws)
+                flight_record("resize_resume", trainer="gbdt",
+                              saved_shards=int(saved_ws),
+                              current_shards=cur_ws)
             done = resumed.num_trees // max(resumed.num_class, 1)
+            if mesh is not None:
+                # the restored durable position: the supervisor's
+                # recovery clock closes on the first beat at the dead
+                # attempt's highest step, which a resume already holds
+                beat(done)
             if done >= config.num_iterations:
                 return resumed, []
             config = dataclasses.replace(
                 config, num_iterations=config.num_iterations - done)
             init_model = resumed
-        key = _effective_wire_key(config)
+        key = _effective_wire_key(config, mesh)
         config = dataclasses.replace(config, pass_through={
             **config.pass_through,
             "_codec_wire_key": list(key) if key is not None else None,
             "_fused_ingest": _fused_ingest_on(config),
-            "_fit_world_size": 1})
+            "_fit_world_size": _mesh_world_size(mesh)})
 
     source = X if hasattr(X, "iter_chunks") else None
     if source is not None:
@@ -1538,9 +1603,10 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                 _write_checkpoint(checkpoint_dir, Booster(
                     pre_t + trees, pre_c + tree_class, pre_w + tree_weights, K,
                     config.objective, init_sc, mapper, feature_names, config,
-                    device=dev, bundler=bundler))
-            if mesh is not None:
-                beat(prior_iters + it + 1)    # the gang's progress
+                    device=dev, bundler=bundler), rank=rank)
+            elif mesh is not None:
+                # the gang's progress (a checkpoint write beats its own)
+                beat(prior_iters + it + 1)
             if prof is not None:
                 prof.step_end()       # evaluation + checkpoint: "other"
     finally:

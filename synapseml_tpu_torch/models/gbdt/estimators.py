@@ -115,8 +115,9 @@ class GBDTParams(Params):
     checkpointInterval = IntParam(doc="save every N boosting iterations "
                                       "(0 = off)", default=0)
     checkpointManager = PyObjectParam(
-        doc="core.checkpoint.CheckpointManager to checkpoint through (not "
-            "ported yet: ROADMAP A5, core/checkpoint.py)")
+        doc="core.checkpoint.CheckpointManager to checkpoint through: the "
+            "iteration checkpoints go into its directory (overrides "
+            "checkpointDir)")
     monotoneConstraints = ListParam(
         doc="per-feature monotone direction {-1, 0, 1}: 1 forces "
             "predictions non-decreasing in the feature, -1 non-increasing")
@@ -229,12 +230,16 @@ class GBDTParams(Params):
                 if self.weightCol else None)
 
     def _checkpoint_dir(self):
-        if self.get("checkpointManager") is not None:
-            raise NotImplementedError(
-                "checkpointManager (core.checkpoint.CheckpointManager) is "
-                "not ported yet (ROADMAP queue A5: core/checkpoint.py); use "
-                "checkpointDir")
-        return self.get("checkpointDir")
+        """The checkpoint directory: the manager's, else checkpointDir."""
+        manager = self.get("checkpointManager")
+        if manager is None:
+            return self.get("checkpointDir")
+        if getattr(manager, "directory", None) is None:
+            raise TypeError(
+                "checkpointManager must be a core.checkpoint."
+                "CheckpointManager (an object with a directory), got "
+                f"{type(manager).__name__}")
+        return manager.directory
 
     def _train(self, X, y, cfg, w, valid, mesh=None):
         return _train_batched(X, y, cfg, w, valid, self.numBatches,

@@ -23,12 +23,13 @@ The PyTorch port of the JAX package's ``parallel/``.  The mapping:
 
 Every entry point takes ``device`` (default ``"cuda"``, a
 ``RuntimeError`` without a card unless the caller passed
-``device="cpu"``).  Waiting for ROADMAP A5: ``core/checkpoint.py`` with
-elastic resize and the compile cache, ``serving/distributed.py``,
-voting- and feature-parallel GBDT and distributed lambdarank, the online
-learners' mesh, expert parallelism, DL mesh training with
-``pipeline.py`` and the (data, model / seq / expert) mesh constructors
-(a ``ProcessMesh`` takes any named axis sizes meanwhile).
+``device="cpu"``).  The supervisor resumes a relaunched gang from its
+checkpoint directory and resizes it (``min_ranks``, ``resize``,
+``capacity_fn``); :mod:`.compilecache` shares the kernel builds across
+relaunches.  Waiting for ROADMAP A5: ``serving/distributed.py``, expert
+parallelism, DL mesh training with ``pipeline.py`` and the (data, model
+/ seq / expert) mesh constructors (a ``ProcessMesh`` takes any named
+axis sizes meanwhile).
 """
 
 from .collectives import (CollectiveTimeout, all_gather, all_to_all,

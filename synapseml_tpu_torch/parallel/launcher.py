@@ -21,9 +21,11 @@ per-rank cause map (``timeout`` / ``exit <code>`` / ``no result`` /
 ``hang at step N`` / ``no heartbeat`` / advisory ``straggler``) and every
 rank's log tail.  A :class:`~synapseml_tpu_torch.resilience.RetryPolicy`
 relaunches the whole gang (fresh port, fresh processes) through
-:class:`~.supervisor.GangSupervisor`.  Elastic resize and checkpoint
-threading wait for ``core/checkpoint.py`` (ROADMAP A5) and raise before
-any process starts.
+:class:`~.supervisor.GangSupervisor`; with ``checkpoint_dir`` threaded
+to every rank (``SMLTPU_CKPT_DIR``), checkpointing trainers resume from
+the last complete step instead of step 0, and the supervisor may resize
+the gang between attempts (a driver-requested teardown is
+:class:`GangInterrupted`, not a failure).
 """
 
 from __future__ import annotations
@@ -56,11 +58,8 @@ _MAX_LINE_CHARS = 4096
 #: env var carrying the worker-side rendezvous watchdog deadline
 RENDEZVOUS_TIMEOUT_ENV = "SMLTPU_RENDEZVOUS_TIMEOUT_S"
 
-#: what waits for ``core/checkpoint.py`` (the elastic-resize knobs)
-ELASTIC_WAITS = ("elastic resize and checkpoint threading re-shard "
-                 "checkpoints through core/checkpoint.py, which is not "
-                 "ported yet (ROADMAP A5: core/checkpoint.py, elastic "
-                 "resize)")
+#: env var carrying the checkpoint directory to every worker
+CKPT_DIR_ENV = "SMLTPU_CKPT_DIR"
 
 
 class ReservedPort:
@@ -150,9 +149,8 @@ class WorkerFailure(RuntimeError):
 
 
 class GangInterrupted(RuntimeError):
-    """The launcher tore a healthy gang down on purpose (the reference's
-    elastic ``resize()`` boundary).  Kept for the interface: elastic
-    resize waits for ROADMAP A5, so nothing raises it yet."""
+    """The launcher tore a healthy gang down on purpose: the supervisor's
+    elastic ``resize()`` boundary, not a failure."""
 
 
 class _RankReader(threading.Thread):
@@ -246,9 +244,12 @@ def _launch_once(task: str, n_processes: int, task_args: Any,
                  term_grace_s: float = 2.0,
                  tail_lines: int = DEFAULT_TAIL_LINES,
                  plane=None, tm_interval_s: float = 0.0,
-                 obs_dir: Optional[str] = None) -> List[Any]:
+                 obs_dir: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 interrupt: Optional[threading.Event] = None) -> List[Any]:
     """One rendezvous attempt: spawn, watch (heartbeats + exits + global
-    deadline), collect (or tear down and raise WorkerFailure)."""
+    deadline + the driver's ``interrupt``), collect (or tear down and
+    raise WorkerFailure, or GangInterrupted when ``interrupt`` was set)."""
     if get_faults().check("launcher.attempt") is not None:
         raise WorkerFailure("injected rendezvous failure", {},
                             causes={r: "injected" for r in range(n_processes)})
@@ -288,6 +289,8 @@ def _launch_once(task: str, n_processes: int, task_args: Any,
                     env[TM_INTERVAL_ENV] = str(tm_interval_s)
                 if obs_dir:
                     env[OBS_DIR_ENV] = str(obs_dir)
+                if checkpoint_dir:
+                    env[CKPT_DIR_ENV] = str(checkpoint_dir)
                 p = subprocess.Popen(
                     [sys.executable, "-m",
                      "synapseml_tpu_torch.parallel.worker"],
@@ -307,7 +310,14 @@ def _launch_once(task: str, n_processes: int, task_args: Any,
                   if heartbeat_interval_s > 0 else 0.05)
         timed_out: List[int] = []
         hb_causes: Dict[int, str] = {}
+        interrupted = False
         while True:
+            if interrupt is not None and interrupt.is_set():
+                # a driver-requested teardown (elastic resize): not a
+                # failure; the relaunch at the new size resumes from the
+                # last durable checkpoint
+                interrupted = True
+                break
             running = []
             failed_exit = False
             for rank, p in enumerate(procs):
@@ -326,6 +336,11 @@ def _launch_once(task: str, n_processes: int, task_args: Any,
             if not running:
                 break
             if monitor is not None:
+                # a rank that delivered its result is done: its beats may
+                # stop while the process shuts down
+                for r in readers:
+                    if r.result_line is not None:
+                        monitor.mark_done(r.rank)
                 for rank, age in monitor.ages().items():
                     g_hb_age.set(age, rank=str(rank))
                 hb_causes = monitor.verdicts()
@@ -339,12 +354,15 @@ def _launch_once(task: str, n_processes: int, task_args: Any,
         # snapshot exits BEFORE tearing down: a rank WE kill must not be
         # blamed with its teardown signal
         returncodes = {rank: p.poll() for rank, p in enumerate(procs)}
-        if timed_out or hb_causes or any(
+        if interrupted or timed_out or hb_causes or any(
                 rc not in (0, None) for rc in returncodes.values()):
             _teardown_gang(procs, term_grace_s=term_grace_s)
         for r in readers:
             r.join(timeout=10.0)
         logs = {r.rank: r.text() for r in readers}
+        if interrupted:
+            raise GangInterrupted(
+                "gang torn down by driver request (elastic resize)")
         stragglers = monitor.stragglers() if monitor is not None else {}
 
         def _with_steps(causes: Dict[int, str]) -> Dict[int, str]:
@@ -390,6 +408,8 @@ def _launch_once(task: str, n_processes: int, task_args: Any,
         reserved.release()
         _teardown_gang(procs, term_grace_s=0.0)
         if monitor is not None:
+            # removed, not zeroed: after a shrink the departed ranks
+            # leave no series behind
             for rank in range(n_processes):
                 g_hb_age.remove(rank=str(rank))
 
@@ -412,6 +432,9 @@ def run_on_local_cluster(task: str,
                          backend: Optional[str] = None,
                          checkpoint_dir: Optional[Any] = None,
                          min_ranks: Optional[int] = None,
+                         shrink_after: int = 2,
+                         resize_cooldown_s: float = 0.0,
+                         max_resizes: int = 8,
                          capacity_fn=None) -> List[Any]:
     """Run ``module:function`` on a real ``n_processes``-rank
     ``torch.distributed`` gang on this host; → the per-rank results in
@@ -427,9 +450,19 @@ def run_on_local_cluster(task: str,
     beats.  ``retry_policy`` relaunches the whole gang on
     :class:`WorkerFailure`.  ``observability_dir`` turns the gang plane
     on (wire export, flight dumps, ``postmortem.json``,
-    ``gang_trace.json``).  ``checkpoint_dir``, ``min_ranks`` and
-    ``capacity_fn`` (elastic resize) raise ``NotImplementedError``
-    naming ROADMAP A5 before any process starts."""
+    ``gang_trace.json``).  ``checkpoint_dir`` (a path or a
+    :class:`~synapseml_tpu_torch.core.checkpoint.CheckpointManager`)
+    reaches every worker as ``SMLTPU_CKPT_DIR`` so checkpointing trainers
+    resume instead of restarting.
+
+    Elastic resize (see :class:`~.supervisor.GangSupervisor`):
+    ``min_ranks < n_processes`` lets the job shrink to the largest
+    healthy size ≥ ``min_ranks`` when the same rank fails
+    ``shrink_after`` consecutive attempts (under ``resize_cooldown_s``
+    and ``max_resizes``), and ``capacity_fn`` (→ placeable rank count)
+    shrinks or grows the gang at the next relaunch boundary.  Keep a
+    :class:`~.supervisor.GangSupervisor` instead for mid-run
+    ``resize(n)`` requests."""
     from .supervisor import GangSupervisor
     return GangSupervisor(
         task, n_processes=n_processes, task_args=task_args,
@@ -441,4 +474,5 @@ def run_on_local_cluster(task: str,
         observability_dir=observability_dir, tm_interval_s=tm_interval_s,
         device=device, backend=backend,
         checkpoint_dir=checkpoint_dir, min_ranks=min_ranks,
-        capacity_fn=capacity_fn).run()
+        shrink_after=shrink_after, resize_cooldown_s=resize_cooldown_s,
+        max_resizes=max_resizes, capacity_fn=capacity_fn).run()

@@ -18,7 +18,12 @@ Environment (set by :func:`~.launcher.run_on_local_cluster`):
 around the rendezvous: a coordinator that never answers becomes a
 :class:`~.collectives.CollectiveTimeout`), ``SMLTPU_TM_INTERVAL_S`` and
 ``SMLTPU_OBS_DIR`` (the flight ring dumps there on SIGTERM, the signal a
-failing gang's healthy ranks receive, and on a clean exit).
+failing gang's healthy ranks receive, and on a clean exit),
+``SMLTPU_CKPT_DIR`` (the gang's checkpoint directory; tasks read it and
+resume from the newest checkpoint there), ``SMLTPU_COMPILE_CACHE_DIR``
+(the kernel build cache: enabled before the rendezvous, so the task's
+kernels load from and build into it; :mod:`.compilecache`) and
+``SMLTPU_TUNE_TABLE_DIR`` (the tuning table the task's plane reads).
 
 Run as ``python -m synapseml_tpu_torch.parallel.worker``.
 """
@@ -67,6 +72,10 @@ def main() -> int:
     from ..telemetry import gangplane
     tm_emitter = gangplane.start_emitter(rank)
     flight_dump = _install_flight_dump(rank)
+    # the kernel build cache, before anything loads a kernel; without the
+    # variable this only installs the build attribution
+    from .compilecache import enable_from_env
+    enable_from_env()
 
     from .distributed import ClusterConfig, initialize_cluster, \
         shutdown_cluster

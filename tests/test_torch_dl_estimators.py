@@ -505,8 +505,10 @@ def test_fit_from_bert_checkpoint_equals_jax(bert_dirs):
 COMMON_REFUSALS = [
     ("numDevices", 2, "A5"), ("modelParallelism", 2, "A5"),
     ("zero1", True, "A5"), ("collectiveCompression", "int8", "A5"),
-    ("checkpointDir", "/nonexistent/ckpt", "A5"),
-    ("checkpointManager", object(), "A5"),
+    # step checkpoints are ported; a checkpoint a mesh fit wrote (shards
+    # 2) waits for the DL mesh, refused before any work
+    ("checkpointDir", "mesh-checkpoint", "A5"),
+    ("checkpointManager", "mesh-checkpoint", "A5"),
     # the step profiler is ported: an object that is not one is refused
     # before any work, with a TypeError
     ("stepProfiler", object(), None),
@@ -519,9 +521,14 @@ REFUSALS = ([("text",) + r for r in COMMON_REFUSALS]
 
 @pytest.mark.parametrize("cls,knob,value,item", REFUSALS,
                          ids=[f"{c}-{k}" for c, k, _, _ in REFUSALS])
-def test_unported_knobs_refuse_before_any_work(monkeypatch, cls, knob,
-                                               value, item):
+def test_unported_knobs_refuse_before_any_work(monkeypatch, tmp_path, cls,
+                                               knob, value, item):
     ds = Dataset(text_data(4) if cls == "text" else vision_data(4))
+    if value == "mesh-checkpoint":
+        from synapseml_tpu_torch.core.checkpoint import CheckpointManager
+        mgr = CheckpointManager(str(tmp_path / "ckpt"))
+        mgr.save(3, {"x": np.zeros(1)}, metrics={"shards": 2.0})
+        value = mgr if knob == "checkpointManager" else mgr.directory
 
     def no_work(*a, **k):
         raise AssertionError("work started before the refusal")

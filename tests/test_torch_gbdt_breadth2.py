@@ -341,9 +341,13 @@ def test_checkpoint_dir_with_num_batches_raises(tmp_path):
         GBDTClassifier(device="cpu", numIterations=2, numBatches=3,
                        checkpointDir=str(tmp_path), checkpointInterval=1
                        ).fit(ds)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
-        GBDTClassifier(device="cpu", numIterations=2,
-                       checkpointManager=object()).fit(ds)
+    # a checkpoint manager is a checkpoint directory: the same refusal
+    from synapseml_tpu_torch.core.checkpoint import CheckpointManager
+    with pytest.raises(ValueError, match="numBatches"):
+        GBDTClassifier(device="cpu", numIterations=2, numBatches=3,
+                       checkpointManager=CheckpointManager(
+                           str(tmp_path / "m")), checkpointInterval=1
+                       ).fit(ds)
 
 
 # -- categorical features -----------------------------------------------------

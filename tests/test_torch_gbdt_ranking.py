@@ -235,14 +235,17 @@ def test_ranker_transform_and_label_gain():
 
 def test_mesh_is_refused_naming_a5(tmp_path):
     """Distributed lambdarank trains over a gang
-    (tests/test_torch_gbdt_rank_parallel.py); what still waits for A5 is a
-    checkpoint directory over a mesh (core/checkpoint.py), refused before
-    any work."""
+    (tests/test_torch_gbdt_rank_parallel.py), checkpoints included
+    (tests/test_torch_elastic.py); what still waits for A5 is the step
+    profiler's cost capture over a mesh, refused before any work."""
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
     X, y, sizes = _fixture_data()
     with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
         ttrain(X, y, BoostingConfig(**FIXTURE_KW), group=sizes,
                mesh=object(), checkpoint_dir=str(tmp_path),
-               checkpoint_interval=1, device="cpu")
+               checkpoint_interval=1,
+               step_profiler=StepProfiler("rank", capture_xla=True),
+               device="cpu")
 
 
 @pytest.mark.parametrize("group,valid_group,err", [

@@ -134,46 +134,60 @@ def test_two_level_fit_on_cpu_is_close_to_full_resolution():
 
 
 class _CheckpointManager:
-    """Stands in for a ``core.checkpoint.CheckpointManager``: an object
-    with a ``directory``."""
-    directory = "unused"
+    """Stands in for something that is not a
+    ``core.checkpoint.CheckpointManager``: an object without a
+    ``directory``."""
+
+
+#: the still-unported knob: the step profiler's cost capture over a mesh
+_A5 = (NotImplementedError, "ROADMAP queue A5")
+#: checkpoints over a mesh and through a manager are ported; an object
+#: that is not a manager is refused before any work
+_NOT_A_MANAGER = (TypeError, "CheckpointManager")
 
 
 @pytest.mark.parametrize("kw,train_kw,item", [
     # lambdarank and the voting/feature-parallel modes train over a mesh
-    # (tests/test_torch_gbdt_parallel_modes.py, _rank_parallel.py); a
-    # checkpoint directory over a mesh still waits for core/checkpoint.py
+    # (tests/test_torch_gbdt_parallel_modes.py, _rank_parallel.py), with
+    # checkpoints (tests/test_torch_elastic.py); the step profiler's cost
+    # capture over a mesh still waits for A5
     (dict(objective="lambdarank"), dict(group=[100, 100], mesh=object(),
                                         checkpoint_dir="unused",
-                                        checkpoint_interval=1), "A5"),
+                                        checkpoint_interval=1,
+                                        step_profiler="capture"), _A5),
     (dict(parallelism="voting_parallel"), dict(mesh=object(),
-                                               checkpoint_dir="unused"),
-     "A5"),
+                                               checkpoint_dir="unused",
+                                               step_profiler="capture"),
+     _A5),
     ({}, dict(checkpoint_dir=_CheckpointManager(), checkpoint_interval=1),
-     "A5"),
-    # kw None: the estimator's knobs (train_kw), refused before the data
+     _NOT_A_MANAGER),
+    # kw None: the estimator's knobs (train_kw), checked before the data
     # is read; numShards, collectiveCompression and parallelism
     # themselves train now (test_num_shards_are_the_group_ranks); the
     # checkpoint manager is checked with them
     (None, dict(numShards=2, parallelism="feature_parallel",
-                checkpointManager=_CheckpointManager()), "A5"),
+                checkpointManager=_CheckpointManager()), _NOT_A_MANAGER),
     (None, dict(collectiveCompression="int8",
                 parallelism="voting_parallel",
-                checkpointManager=_CheckpointManager()), "A5"),
+                checkpointManager=_CheckpointManager()), _NOT_A_MANAGER),
 ])
 def test_unported_config_raises(kw, train_kw, item, monkeypatch):
     X, y = _binary_data(n=200)
+    exc, match = item
     if kw is None:
         def no_work(*a, **k):
             raise AssertionError("the features were read")
         monkeypatch.setattr(GBDTClassifier, "_features_matrix", no_work)
         ds = TDataset({"features": list(X), "label": y})
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue {item}"):
+        with pytest.raises(exc, match=match):
             GBDTClassifier(device="cpu", numIterations=2, **train_kw).fit(ds)
         return
+    if train_kw.get("step_profiler") == "capture":
+        from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+        train_kw = dict(train_kw, step_profiler=StepProfiler(
+            "unported", capture_xla=True))
     cfg = BoostingConfig(**{"objective": "binary", **kw})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
+    with pytest.raises(exc, match=match):
         ttrain(X, y, cfg, device="cpu", **train_kw)
 
 

@@ -518,16 +518,21 @@ def test_watchdog_turns_a_hang_into_collective_timeout():
 
 
 def test_elastic_arguments_refused_before_any_process(monkeypatch):
+    """Elastic resize is ported (tests/test_torch_elastic.py); the
+    arguments the JAX package refuses are refused before any process
+    starts: ``min_ranks`` outside ``[1, n_processes]``, and ``resize``
+    below one rank or below ``min_ranks``."""
     def no_spawn(*a, **k):
         raise AssertionError("a process started")
     monkeypatch.setattr("subprocess.Popen", no_spawn)
-    for kw in (dict(min_ranks=1), dict(capacity_fn=lambda: 2),
-               dict(checkpoint_dir="/tmp/x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    for kw in (dict(min_ranks=0), dict(min_ranks=3, capacity_fn=lambda: 2),
+               dict(min_ranks=5, checkpoint_dir="/tmp/x")):
+        with pytest.raises(ValueError, match="min_ranks"):
             TL.run_on_local_cluster("m:f", 2, device="cpu", **kw)
-    sup = TS.GangSupervisor("m:f", 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        sup.resize(3)
+    sup = TS.GangSupervisor("m:f", 2, device="cpu", min_ranks=2)
+    for n in (0, 1):
+        with pytest.raises(ValueError, match="resize"):
+            sup.resize(n)
     # nccl with more ranks than cards raises before the rendezvous
     with pytest.raises(RuntimeError, match="Duplicate GPU"):
         TL.run_on_local_cluster("m:f", 2, device="cuda", backend="nccl")

@@ -594,3 +594,132 @@ def featpar_card_cpu(args):
     return dict(card=tree_digest(bc, values=False),
                 cpu=tree_digest(bp, values=False), margin_diff=float(diff),
                 shapes=shapes)
+
+
+# -- elastic resume (tests/test_torch_elastic.py) ---------------------------------
+
+def counter_state(seed: int, steps: int) -> int:
+    """``elastic_counter``'s final state, computed without a gang."""
+    state = int(seed)
+    for _ in range(steps):
+        state = (state * 6364136223846793005 + 1442695040888963407) \
+            % (1 << 63)
+    return state
+
+
+def elastic_counter(args):
+    """tests/mp_tasks.py's ``elastic_counter`` on the port: a
+    deterministic integer recurrence that checkpoints every step into
+    ``SMLTPU_CKPT_DIR/rank<r>`` through the port's CheckpointManager,
+    beats the step and passes the ``mp.step`` kill point; a relaunch
+    restores the newest step and continues, so the final state equals
+    the fault-free one at any world size."""
+    import os
+
+    import torch.distributed as dist
+
+    from synapseml_tpu_torch.core.checkpoint import CheckpointManager
+    from synapseml_tpu_torch.parallel.heartbeat import beat
+    from synapseml_tpu_torch.resilience import get_faults
+    args = args or {}
+    steps = int(args.get("steps", 8))
+    step_sleep_s = float(args.get("step_sleep_s", 0.0))
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    ckpt_dir = os.environ.get("SMLTPU_CKPT_DIR") or args.get("ckpt_dir")
+    mgr = (CheckpointManager(os.path.join(ckpt_dir, f"rank{rank}"),
+                             max_to_keep=3) if ckpt_dir else None)
+    state = np.int64(int(args.get("seed", 1)))
+    start = 0
+    if mgr is not None:
+        latest = mgr.latest_step()
+        if latest is not None:
+            state = np.int64(mgr.restore(latest)["state"])
+            start = latest + 1
+            beat(step=latest)           # the restored durable position
+    for step in range(start, steps):
+        state = np.int64((int(state) * 6364136223846793005
+                          + 1442695040888963407) % (1 << 63))
+        if mgr is not None:
+            mgr.save(step, {"state": np.asarray(state)})
+        beat(step=step)
+        get_faults().kill_point("mp.step", step=step, rank=rank)
+        if step_sleep_s > 0:
+            time.sleep(step_sleep_s)
+    return {"rank": rank, "state": int(state), "resumed_from": start,
+            "steps_run": steps - start, "world_size": world}
+
+
+def gbdt_elastic_digest(args):
+    """tests/mp_tasks.py's ``gbdt_elastic_digest`` on the port: a
+    data-parallel fit over the gang that checkpoints every iteration
+    into ``SMLTPU_CKPT_DIR``; → the model string's md5, margins on 8
+    rows, the holdout AUC on a fresh draw, and this rank's
+    ``gbdt.resize_resume`` notes."""
+    import os
+
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.models.gbdt.metrics import auc
+    from synapseml_tpu_torch.resilience import get_faults
+    args = args or {}
+    dev = args.get("device", "cpu")
+    f = int(args.get("f", 8))
+    X, y = binary_data(n=int(args.get("n", 400)), f=f)
+    mesh = data_parallel_mesh(device=dev)
+    faults = get_faults()
+    faults.record_calls = True
+
+    def cfg(iters, codec):
+        return B.BoostingConfig(objective="binary", num_iterations=iters,
+                                num_leaves=7, min_data_in_leaf=5, max_bin=31,
+                                collective_compression=codec)
+
+    ckpt_dir = os.environ.get("SMLTPU_CKPT_DIR") or args.get("ckpt_dir")
+    codec = args.get("compression", "none")
+    from synapseml_tpu_torch.kernels import launches as L
+    L.reset()
+    booster, _ = B.train(X, y, cfg(int(args.get("iters", 4)), codec),
+                         mesh=mesh, checkpoint_dir=ckpt_dir,
+                         checkpoint_interval=1, device=mesh.device)
+    launched = {k: L.total(k) for k in ("build_hist_nodes",
+                                        "route_and_hist")}
+    Xh, yh = binary_data(n=300, f=f, seed=99)
+    out = {"rank": mesh.rank, "world_size": mesh.world_size,
+           "launches": launched,
+           "model_md5": hashlib.md5(
+               booster.to_string().encode()).hexdigest(),
+           "num_trees": booster.num_trees,
+           "margins": [float(m) for m in booster.predict_margin(X[:8])],
+           "holdout_auc": float(auc(yh, booster.predict_margin(Xh))),
+           "resize_notes": [dict(c) for c in
+                            faults.calls_for("gbdt.resize_resume")]}
+    toggle = args.get("toggle_codec")
+    if toggle is not None:
+        # a codec toggle against the same checkpoint still refuses
+        try:
+            B.train(X, y, cfg(int(args.get("iters", 4)) + 1, toggle),
+                    mesh=mesh, checkpoint_dir=ckpt_dir,
+                    checkpoint_interval=1, device=mesh.device)
+            out["toggle_error"] = None
+        except ValueError as e:
+            out["toggle_error"] = str(e)
+    from synapseml_tpu_torch.kernels import _build
+    from synapseml_tpu_torch.parallel import compilecache
+    out["compile_cache_env"] = os.environ.get(compilecache.COMPILE_CACHE_ENV)
+    out["compile_cache_dir"] = compilecache.compilation_cache_dir()
+    out["build_dir"] = str(_build.build_dir())
+    from synapseml_tpu_torch.telemetry import tunetable
+    out["tune_table_env"] = os.environ.get(tunetable.TUNE_TABLE_ENV)
+    out["tune_plane_dir"] = tunetable.get_tuneplane().directory
+    return out
+
+
+def kernel_cache_probe(args):
+    """Build (or find) every kernel library through the gang's build
+    cache → the build directory and this process's hits and misses."""
+    from synapseml_tpu_torch.kernels import _build
+    from synapseml_tpu_torch.parallel.compilecache import cache_stats
+    t0 = time.perf_counter()
+    _build.build_all()
+    return {"build_dir": str(_build.build_dir()),
+            "build_s": time.perf_counter() - t0, **cache_stats()}
