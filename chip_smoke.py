@@ -43,6 +43,8 @@
    boolean span mask, each call on another of 6 copies of the cache so
    that it reads K/V cold from device memory as in the engine; computes
    the bound, the achieved share of 3.35 TB/s and the ratio to SDPA.
+   The same at the caches of phases 19c, 20a and 27 (27a: f32, 4 slots
+   of 512; 27b: bf16 at S=1, 8 slots of 2048).
 7. The decode engine on the card against the engine on the CPU, f32, at
    Llama-3.2-1B width and 2 layers (max_len 512, 4 slots, ragged
    repeated-phrase prompts admitted as slots free), once plain and once
@@ -86,7 +88,7 @@
     label concept's score with ``baggingFraction=0.8, baggingFreq=1``,
     depthwise: K2's root pass must launch for 3 trees per iteration,
     holdout accuracy > 0.55; reports multi_logloss and s/iteration.
-11. Breadth, the card against the CPU on 32,768 rows, 2 iterations:
+11. Breadth, the card against the CPU on 8,192 rows, 2 iterations:
     lossguide (two-level on and off), bagging, GOSS, DART, RF,
     multiclass, multiclassova, huber, poisson, 4 categorical
     columns of 100 levels, EFB over 8 one-hot blocks of 32 levels
@@ -313,7 +315,7 @@
     whose fields are each value's exact decimal, read back bit for bit
     by ``Dataset.from_csv`` (the native parser must have read it:
     ``native.CSV_PARSES``), parse s and MB/s; the permissive parse of
-    100,000 lines with 1% ragged or unparseable, whose quarantine must
+    50,000 lines with 1% ragged or unparseable, whose quarantine must
     hold exactly those lines with their line numbers;
     ``csv_to_colstore`` read back equal through a ``ChunkedColumnSource``;
     then ``GBDTClassifier`` (100 iterations, 31 leaves, maxBin 255) fit
@@ -323,11 +325,11 @@
     over the same rows, card against CPU margins within 1e-4 and labels
     equal; (c) the walk of all trees at once against the per-tree walk
     (bit-equal, in turns), then ``PipelineServer`` (batch 64, 10 ms) at
-    ``num_workers`` 1 and 2: 16 keep-alive HTTP clients x 128 records
+    ``num_workers`` 1 and 2: 16 keep-alive HTTP clients x 64 records
     (records/s, latency p50/p99, replies equal to one transform), the
     per-batch split (parse, ``from_rows``, transform with its CUDA-event
     stream span, format + reply) and, at one worker, a
-    ``ContinuousClient`` sending 4,096 frames in windows of 128
+    ``ContinuousClient`` sending 2,048 frames in windows of 128
     (marginal ms/record and solo round trip, medians of 3); (d) a
     ``MultiPipelineServer`` with ``/gbdt`` and ``/bert`` (phase 21e's
     BERT-base-width classifier in bf16, 128 token ids a record): each
@@ -443,6 +445,49 @@
     check_path, p25c, dl=dict(backbone="resnet18", n=8, size=32,
     batch=4, epochs=2, faults=P26_DL["faults"]))`` with ``p25c`` from a
     fault-free 2-rank ``phase26_gbdt`` gang; ~45 s).
+27. The LLM served across replicas (``serving/distributed.py``,
+    ``serving/disagg.py``, ``serving/autoscaler.py``): (a) f32 at the
+    Llama-3.2-1B width and 2 layers (max_len 512, 4 slots, seeded prompts
+    of 12-200 tokens): an ``LLMServer`` with a ``PrefillPool`` of one
+    ``PrefillWorker`` (a 2-slot engine on the same model) and a host
+    arena against a colocated ``LLMServer`` over HTTP, greedy tokens
+    equal and every handoff ``ok``; then with ``disagg.transfer=corrupt``,
+    ``=drop`` and ``disagg.prefill=error`` armed in turn (outcomes
+    ``corrupt``, ``timeout``, ``fallback``, tokens still equal); then two
+    decode servers sharing a journal behind a ``ReplicaRouter`` with
+    roles ``decode, decode, prefill``: the pinned one closes,
+    ``route_request(role="decode")`` repins to the survivor, whose
+    ``resume`` equals turn 1 and whose turn 2 equals the colocated
+    server's; K3 launched in every decode server (runs ``phase27a_*``).
+    (b) A 2-rank gloo gang on the one card: each rank a
+    ``DistributedServingServer`` echo (rank 0 reaches both; rank 1's
+    ``leave()``s at the end) and, in two passes, an
+    ``LLMServer(LlamaConfig.llama3_1b(max_len=2048))`` in bf16 (random
+    weights from ``--seed``, equal on both), 8 slots, a 1 GiB arena and
+    a shared journal directory, first with a ``PrefillPool`` over a
+    2-slot engine on the same model, then without; in each pass the LLM
+    servers' table gathered with ``exchange_routing_table`` over the
+    gang's mesh; rank 0 drives 16 sessions x 2 turns (64-1,024 prompt
+    tokens and 32 new, then 16-64 appended) through ``route_request``
+    from 8 client threads; after 8 sessions' first turns rank 1 starts
+    to leave (readyz draining, then the zero-drop drain once the
+    traffic is done): every request 200, ``repin`` = the sessions on
+    rank 1 (each resumed from the journal on rank 0, equal to its turn
+    1), ``hit`` for every other second turn, K3 at S=1 on both ranks
+    (runs ``phase27b_r0``, ``phase27b_r1``, ``phase27b_nopool_r0``,
+    ``phase27b_nopool_r1``), and in the pool's pass every fresh turn's
+    handoff ``ok``; reports tokens/s and TTFT p50/p90 of both passes and
+    of the same traffic straight to one server without the pool, the
+    handoff latency, bytes a handoff, the gathers' ms and the bf16
+    turn-1 agreement of the two passes.  (c) A
+    ``ServingReplicaSet`` of ``LLMServer``s over phase 20a's f32 engine
+    shape under an ``Autoscaler`` on the ``SloStore`` (2 s windows): an
+    open-loop burst that sheds grows it 1 → 2, a trickle lets it shrink
+    2 → 1, every request ends 200, the decisions are grow then shrink
+    (flight-recorded), the departed replica's breaker and probe row are
+    released (run ``phase27c``).  Its parts run small on the CPU
+    (``p27_exact``, ``p27_gang`` and ``p27_autoscale`` with tiny configs
+    and ``torch.device("cpu")``, ~15 s).
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -2559,10 +2604,12 @@ def dl_moe(seed: int, dev, model_size: str = "base", vocab: int = 30522,
     return out
 
 
-def http_generate(url: str, payload: dict, timeout: float = 600.0):
+def http_generate(url: str, payload: dict, timeout: float = 600.0,
+                  headers: Optional[dict] = None):
     """POST one request to an ``LLMServer`` → (ids, seconds to the first
     body byte, seconds to the end).  A streamed reply must carry one line
-    per token, then a ``done`` line with the same ids."""
+    per token, then a ``done`` line with the same ids.  ``headers`` are
+    added to the request's (a router's trace and tenant headers)."""
     import http.client
     from urllib.parse import urlsplit
     u = urlsplit(url)
@@ -2570,7 +2617,8 @@ def http_generate(url: str, payload: dict, timeout: float = 600.0):
     t0 = time.perf_counter()
     try:
         conn.request("POST", u.path, body=json.dumps(payload),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         first = resp.readline()
         ttfb = time.perf_counter() - t0
@@ -3336,9 +3384,13 @@ def arena_journal_http(model, prompts, new, dev, root: str,
     if eng.restore_count < 1 or (dev.type == "cuda" and not shapes):
         raise AssertionError(f"20c: {eng.restore_count} restores, K3 "
                              f"{shapes}")
-    _, cold = llm_main_path(model, p2, new, 0, warmup="sync")
+    # the cold re-run covers the first 16 conversations, one wave of the
+    # 16 slots (cut from all 24, two waves, to make room for phase 27)
+    t0 = time.perf_counter()
+    _, cold = llm_main_path(model, p2[:16], new[:16], 0, warmup="sync")
+    cold_s = time.perf_counter() - t0
     agree = float(np.mean([np.mean(np.asarray(out2[i]) == cold[i])
-                           for i in range(len(p2))]))
+                           for i in range(len(cold))]))
     restored = [a for a in admits[n1:] if a[1]]
     turn1 = admits[:n1]
     out = dict(
@@ -3364,7 +3416,8 @@ def arena_journal_http(model, prompts, new, dev, root: str,
         http_tokens_per_s_turn1=sum(len(o) for o in out1) / wall1,
         http_tokens_per_s_turn2=sum(len(o) for o in out2) / wall2,
         http_tokens_per_s_phase18=http18_tokens_per_s,
-        turn2_agreement_with_cold=agree, launches=shapes)
+        turn2_agreement_with_cold=agree, cold_conversations=len(cold),
+        cold_s=cold_s, launches=shapes)
     # a full-width slot preempted mid-decode, resumed from the arena
     arena = HostKVArena(2 << 30, name=f"{name}-preempt")
     ref = SlotEngine(model, n_slots=16, warmup="sync", device=dev,
@@ -6455,6 +6508,855 @@ def elastic_resume(seed: int, dev, card: str, rows: int, iters: int,
     return out
 
 
+# -- phase 27: the LLM served across replicas ---------------------------------
+
+#: 27b's traffic: sessions of two turns, client threads, the sessions
+#: whose first turn runs before rank 1 leaves, turn 1's prompt lengths
+#: and new tokens, turn 2's appended tokens
+P27_SESSIONS, P27_THREADS, P27_BEFORE_LEAVE = 16, 8, 8
+P27_PROMPT, P27_NEW, P27_APPEND = (64, 1024), 32, (16, 64)
+P27_GANG_TIMEOUT_S = 600.0
+#: 27b's host KV arena a rank (at least 512 MB)
+P27_ARENA_BYTES = 1 << 30
+P27_ROOT = os.path.join(os.path.dirname(CKPT_ROOT), "phase27")
+
+
+def p27_config(spec: dict):
+    """``{"kind": "llama3_1b" | "tiny", **LlamaConfig overrides}`` → the
+    config (the gang's ranks rebuild it from JSON task arguments)."""
+    from synapseml_tpu_torch.models.llm import LlamaConfig
+    spec = dict(spec)
+    kind = spec.pop("kind")
+    if "dtype" in spec:
+        spec["dtype"] = getattr(torch, spec["dtype"])
+    return getattr(LlamaConfig, kind)(**spec)
+
+
+def weight_digest(model) -> str:
+    """md5 of the model's first 4,096 parameter values of each tensor
+    (equal weights on two ranks)."""
+    import hashlib
+    h = hashlib.md5()
+    for p in model.parameters():
+        h.update(p.detach().flatten()[:4096].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def handoff_counts(name: str) -> dict:
+    from synapseml_tpu_torch.serving.disagg import HANDOFF_OUTCOMES
+    from synapseml_tpu_torch.telemetry import get_registry
+    m = get_registry().get("disagg_handoffs_total")
+    return {o: 0.0 if m is None else m.value(pool=name, outcome=o)
+            for o in HANDOFF_OUTCOMES}
+
+
+class FrameSizes:
+    """Records the bytes of every KV transfer frame the pools pack (the
+    pool imports ``kvtier.pack_kv_transfer`` at each handoff)."""
+
+    def __init__(self):
+        from synapseml_tpu_torch.models.llm import kvtier
+        self._mod, self._real = kvtier, kvtier.pack_kv_transfer
+        self.sizes, self.tokens, self.seconds = [], [], []
+
+        def pack(ids, *a, **kw):
+            t0 = time.perf_counter()
+            blob = self._real(ids, *a, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+            self.sizes.append(len(blob))
+            self.tokens.append(len(ids))
+            return blob
+        kvtier.pack_kv_transfer = pack
+
+    def close(self):
+        self._mod.pack_kv_transfer = self._real
+
+
+def p27_exact(seed: int, dev, cfg, root: str, n_slots: int = 4,
+              prompt_range=(12, 200), n_fresh: int = 12, n_fault: int = 4,
+              new: int = 16) -> dict:
+    """Phase 27a at f32, one process: (1) an ``LLMServer`` with a
+    ``PrefillPool`` of one ``PrefillWorker`` (a 2-slot engine on the same
+    model) and a host arena against a colocated ``LLMServer`` on the same
+    weights, over HTTP: greedy tokens equal for every request, and every
+    fresh request's handoff ``ok``; (2) the same with
+    ``disagg.transfer=corrupt``, then ``=drop``, then
+    ``disagg.prefill=error`` armed: outcomes ``corrupt`` / ``timeout`` /
+    ``fallback``, tokens still equal; (3) two decode ``LLMServer``s
+    sharing a journal directory behind a ``ReplicaRouter(roles=["decode",
+    "decode", "prefill"])``: the pinned replica closes mid-conversation,
+    ``route_request(role="decode")`` answers ``repin`` on the survivor
+    (never the prefill rank), whose ``resume`` equals the first turn and
+    whose second turn equals the colocated server's.  K3's counts are
+    reset just before and read just after each server's traffic (runs
+    ``phase27a_*``); each decode server must have launched it.  Raises on
+    a failed check."""
+    from types import SimpleNamespace
+
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.llm import (LlamaModel, SessionJournal,
+                                                SlotEngine)
+    from synapseml_tpu_torch.parallel import find_free_port
+    from synapseml_tpu_torch.resilience import get_faults
+    from synapseml_tpu_torch.serving import (DistributedServingServer,
+                                             LLMServer, PrefillPool,
+                                             PrefillWorker, ReplicaRouter)
+    on_card = dev.type == "cuda"
+    model = LlamaModel(cfg, device=dev, seed=seed)
+    rng = np.random.default_rng(seed + 27)
+    n_all = n_fresh + 3 * n_fault
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(prompt_range[0], prompt_range[1] + 1,
+                                     n_all)]
+    news = [new] * n_all
+    runs, out = {}, {}
+    faults = get_faults()
+    colo = LLMServer(model, n_slots=n_slots, max_len=cfg.max_len,
+                     api_path="/p27a-colo", device=dev,
+                     engine_kwargs={"name": "p27a-colo"})
+    try:
+        L.reset()
+        want, _, _ = serve_all(colo, prompts, news)
+        runs["phase27a_colocated"] = L.shapes("paged_decode_attention")
+        worker = PrefillWorker(SlotEngine(model, n_slots=2,
+                                          max_len=cfg.max_len, device=dev,
+                                          name="p27a-pf"))
+        pool = PrefillPool([worker], name="p27a")
+        dis = LLMServer(model, n_slots=n_slots, max_len=cfg.max_len,
+                        api_path="/p27a-disagg", kv_arena_bytes=256 << 20,
+                        prefill_pool=pool, device=dev,
+                        engine_kwargs={"name": "p27a-disagg"})
+        sections = (("ok", None, range(n_fresh)),
+                    ("corrupt", "disagg.transfer=corrupt",
+                     range(n_fresh, n_fresh + n_fault)),
+                    ("timeout", "disagg.transfer=drop",
+                     range(n_fresh + n_fault, n_fresh + 2 * n_fault)),
+                    ("fallback", "disagg.prefill=error",
+                     range(n_fresh + 2 * n_fault, n_all)))
+        try:
+            for outcome, rule, idx in sections:
+                faults.clear()
+                if rule:
+                    faults.configure(rule)
+                before = handoff_counts("p27a")
+                L.reset()
+                got, _, _ = serve_all(dis, [prompts[i] for i in idx],
+                                      [news[i] for i in idx])
+                runs[f"phase27a_{outcome}"] = L.shapes(
+                    "paged_decode_attention")
+                faults.clear()
+                after = handoff_counts("p27a")
+                delta = {o: after[o] - before[o] for o in after}
+                want_delta = {o: float(len(idx)) if o == outcome else 0.0
+                              for o in after}
+                if delta != want_delta:
+                    raise AssertionError(f"27a {outcome}: handoffs {delta}")
+                for j, i in enumerate(idx):
+                    if list(got[j]) != list(want[i]):
+                        raise AssertionError(
+                            f"27a {outcome} request {i}: disaggregated "
+                            f"{list(got[j])} against colocated "
+                            f"{list(want[i])}")
+                out[outcome] = len(idx)
+            out["restores"] = dis.engine.restore_count
+        finally:
+            faults.clear()
+            dis.close()
+        if out["restores"] < n_fresh:
+            raise AssertionError(f"27a: {out['restores']} restores for "
+                                 f"{n_fresh} ok handoffs")
+        # (3) repin → journal resume behind a role-aware router
+        jdir = os.path.join(root, "journal")
+        reps = [LLMServer(model, n_slots=n_slots, max_len=cfg.max_len,
+                          journal=SessionJournal(jdir, name=f"p27a-fo{i}"),
+                          api_path=f"/p27a-fo{i}", device=dev,
+                          engine_kwargs={"name": f"p27a-fo{i}"})
+                for i in range(2)]
+        try:
+            table = [r.server.address for r in reps] + [
+                ("127.0.0.1", find_free_port())]
+            stub = SimpleNamespace(router=ReplicaRouter(
+                table, name="p27a-fo", roles=["decode", "decode", "prefill"],
+                failure_threshold=1))
+            p1 = prompts[0]
+            res = DistributedServingServer.route_request(
+                stub, session="conv", role="decode")
+            if res.outcome != "miss" or res.rank not in (0, 1):
+                raise AssertionError(f"27a repin: first route {res}")
+            L.reset()
+            ids1 = http_generate(reps[res.rank].url, {
+                "ids": [int(t) for t in p1], "session": "conv",
+                "max_new_tokens": new}, headers=res.headers)[0]
+            runs[f"phase27a_replica{res.rank}"] = L.shapes(
+                "paged_decode_attention")
+            if list(ids1) != list(want[0]):
+                raise AssertionError(f"27a repin: turn 1 {ids1}")
+            stub.router.report(res.rank, ok=True, addr=res.addr)
+            hit = DistributedServingServer.route_request(
+                stub, session="conv", role="decode")
+            dead = res.rank
+            reps[dead].close()
+            stub.router.report(dead, ok=False, addr=res.addr)
+            res2 = DistributedServingServer.route_request(
+                stub, session="conv", role="decode")
+            if hit.outcome != "hit" or res2.outcome != "repin" \
+                    or res2.rank in (dead, 2):
+                raise AssertionError(f"27a repin: {hit}, then {res2}")
+            survivor = reps[res2.rank]
+            L.reset()
+            resumed = http_generate(survivor.url, {
+                "session": "conv", "resume": True}, headers=res2.headers)[0]
+            p2 = np.concatenate([p1, np.asarray(ids1, np.int32),
+                                 prompts[1][:8]]).astype(np.int32)
+            turn2 = http_generate(survivor.url, {
+                "ids": [int(t) for t in p2], "session": "conv",
+                "max_new_tokens": new}, headers=res2.headers)[0]
+            runs[f"phase27a_replica{res2.rank}"] = L.shapes(
+                "paged_decode_attention")
+        finally:
+            for r in reps:
+                r.close()
+        want2 = http_generate(colo.url, {"ids": [int(t) for t in p2],
+                                         "max_new_tokens": new})[0]
+        if list(resumed) != list(ids1) or list(turn2) != list(want2):
+            raise AssertionError(f"27a repin: resume {resumed} against "
+                                 f"{ids1}; turn 2 {turn2} against {want2}")
+    finally:
+        colo.close()
+        shutil.rmtree(os.path.join(root, "journal"), ignore_errors=True)
+    if on_card:
+        silent = [r for r, sh in runs.items() if not sh]
+        if silent:
+            raise AssertionError(f"27a: K3 never launched in {silent}")
+    out.update(requests=n_all, launches=runs)
+    return out
+
+
+def p27_post(url: str, payload: dict, timeout: float = 120.0) -> dict:
+    """POST one JSON request → the JSON reply (an HTTP error raises
+    ``urllib.error.HTTPError``)."""
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def phase27_gang(args: dict) -> dict:
+    """Phase 27b on one rank of the 2-rank gloo gang: (1) a
+    ``DistributedServingServer`` with an echo loop (rank 0 routes one
+    request to every rank; rank 1's loop also takes the ``leave`` cue);
+    (2) two passes of the same traffic, each over an ``LLMServer`` of
+    ``args["cfg"]`` (random weights from the seed, equal on both ranks)
+    with 8 slots, a host arena and a journal directory both ranks share:
+    ``"pool"`` with a ``PrefillPool`` of one ``PrefillWorker`` over a
+    2-slot engine on the same model, then ``"nopool"`` without it; in
+    each, the LLM servers' table and roles are gathered with
+    ``exchange_routing_table`` over the gang's mesh, rank 0 drives the
+    sessions through a ``ReplicaRouter`` over that table
+    (:func:`p27_drive`) while K3's counts run on both ranks, and rank 1
+    completes its leave with the zero-drop drain; (3) rank 1's echo
+    server ``leave()``s; rank 0 then serves the same traffic straight to
+    one server without the pool (``args["direct"]``)."""
+    import threading
+
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.llm import (LlamaModel, SlotEngine,
+                                                cast_params)
+    from synapseml_tpu_torch.parallel import collectives as C
+    from synapseml_tpu_torch.parallel.mesh import data_parallel_mesh
+    from synapseml_tpu_torch.serving import (DistributedServingServer,
+                                             LLMServer, PrefillPool,
+                                             PrefillWorker, ServingReply,
+                                             exchange_routing_table)
+    from synapseml_tpu_torch.telemetry import get_registry
+    device = args["device"]
+    mesh = data_parallel_mesh(device=device)
+    rank, dev = mesh.rank, mesh.device
+    out = {"rank": rank}
+    echo = DistributedServingServer(device=device,
+                                    gather_timeout_s=60.0)
+    llm = {}
+    stop = threading.Event()
+
+    def echo_loop():
+        while not stop.is_set():
+            for req in echo.get_batch(max_rows=8, timeout_s=0.05):
+                body = req.json()
+                if body.get("cmd") == "leave":
+                    # the leave's first step: readyz turns 503 draining
+                    # while accepted work finishes; the drain completes
+                    # once rank 0's traffic is done
+                    llm["server"].server.health.begin_drain()
+                echo.reply(req.id, ServingReply(200, json.dumps(
+                    {"rank": rank, "echo": body.get("x")}).encode()))
+
+    t = threading.Thread(target=echo_loop, daemon=True)
+    t.start()
+    cfg = p27_config(args["cfg"])
+    model = LlamaModel(cfg, device=dev, seed=args["seed"])
+    if cfg.dtype != torch.float32:
+        model = cast_params(model, cfg.dtype)
+    out["weights"] = weight_digest(model)
+    name = f"p27b-r{rank}"
+
+    def serve_pass(label: str, pool) -> dict:
+        jdir = os.path.join(args["journal_dir"], label)
+        os.makedirs(jdir, exist_ok=True)
+        srv = llm["server"] = LLMServer(
+            model, n_slots=8, max_len=cfg.max_len,
+            kv_arena_bytes=args["arena_bytes"], journal_dir=jdir,
+            prefill_pool=pool, device=dev, engine_kwargs={"name": f"{name}-{label}"})
+        res = {}
+        try:
+            t0 = time.perf_counter()
+            table, roles = exchange_routing_table(
+                *srv.server.address, timeout_s=60.0, role=0, device=device)
+            res["gather_ms"] = (time.perf_counter() - t0) * 1e3
+            res["table"], res["roles"] = [[h, p] for h, p in table], roles
+            C.barrier(None, mesh)
+            L.reset()
+            if rank == 0:
+                res["drive"] = p27_drive(table, roles, args, cfg.vocab_size,
+                                         echo.url_for_rank(1), label)
+            C.barrier(None, mesh)        # the routed traffic is done
+            res["launches"] = L.shapes("paged_decode_attention")
+            res["restores"] = srv.engine.restore_count
+            if rank == 1:
+                t0 = time.perf_counter()
+                res["left"] = srv.drain(timeout_s=60.0)
+                res["leave_s"] = time.perf_counter() - t0
+        finally:
+            srv.close()
+        return res
+
+    try:
+        C.barrier(None, mesh)            # every echo listener is up
+        if rank == 0:
+            import urllib.request
+            out["echoes"] = []
+            for r in range(len(echo.routing_table)):
+                with urllib.request.urlopen(urllib.request.Request(
+                        echo.url_for_rank(r), data=json.dumps(
+                            {"x": r * 10}).encode()), timeout=30) as rep:
+                    out["echoes"].append(json.loads(rep.read()))
+        out["echo_table"] = [[h, p] for h, p in echo.routing_table]
+        pool = PrefillPool([PrefillWorker(SlotEngine(
+            model, n_slots=2, max_len=cfg.max_len, device=dev,
+            name=f"{name}-pf"))], name=name)
+        frames = FrameSizes()
+        try:
+            out["pool"] = serve_pass("pool", pool)
+        finally:
+            frames.close()
+        out["handoffs"] = handoff_counts(name)
+        lat = get_registry().get("disagg_handoff_latency_seconds")
+        st = lat.stats(pool=name) if lat is not None else {"count": 0}
+        out["handoff_latency"] = dict(
+            count=st["count"],
+            p50_ms=lat.quantile(0.5, pool=name) * 1e3 if st["count"] else
+            None,
+            p90_ms=lat.quantile(0.9, pool=name) * 1e3 if st["count"] else
+            None)
+        out["frame_bytes"] = frames.sizes
+        out["frame_tokens"] = frames.tokens
+        out["pack_ms"] = [s * 1e3 for s in frames.seconds]
+        out["nopool"] = serve_pass("nopool", None)
+        if rank == 1:
+            out["echo_left"] = echo.leave(timeout_s=30.0)
+        elif args.get("direct", True):
+            out["direct"] = p27_direct(model, cfg, args)
+    finally:
+        stop.set()
+        t.join(timeout=5)
+        echo.close()
+    return out
+
+
+def p27_sessions(args: dict, vocab: int):
+    rng = np.random.default_rng(args["seed"] + 2700)
+    lo, hi = args["prompt"]
+    n = args["sessions"]
+    prompts = [rng.integers(1, vocab, int(k)).astype(np.int32)
+               for k in rng.integers(lo, hi + 1, n)]
+    adds = [rng.integers(1, vocab, int(k)).astype(np.int32)
+            for k in rng.integers(args["append"][0], args["append"][1] + 1,
+                                  n)]
+    return prompts, adds
+
+
+def p27_drive(table, roles, args: dict, vocab: int, leave_url: str,
+              label: str) -> dict:
+    """27b's traffic from rank 0 through a ``ReplicaRouter`` (named
+    ``p27b-<label>``) over the gathered table, ``args["threads"]`` client
+    threads, every request streamed: the first ``before_leave`` sessions'
+    first turns; then rank 1 is told to leave, a probe must see it
+    ``draining``; the other first turns (all to rank 0); then every
+    second turn (the conversation plus appended tokens): a session pinned
+    to rank 1 routes ``repin`` and is sent as ``{"session", "resume"}``
+    first (the survivor replays the shared journal: it must equal turn
+    1), then its second turn; every other second turn must route ``hit``.
+    → the outcomes, TTFTs, tokens and walls; raises on a non-200 or a
+    failed check."""
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    from synapseml_tpu_torch.serving import (DistributedServingServer,
+                                             ROLE_NAMES, ReplicaRouter)
+    prompts, adds = p27_sessions(args, vocab)
+    new = args["new"]
+    router = ReplicaRouter([tuple(a) for a in table], name=f"p27b-{label}",
+                           roles=[ROLE_NAMES[r] for r in roles])
+    stub = SimpleNamespace(router=router)
+    first, second, resumed = {}, {}, {}
+    rank_of, outcome1, outcome2 = {}, {}, {}
+    ttft = {"turn1": [], "turn2": []}
+
+    def turn1(i):
+        res = DistributedServingServer.route_request(
+            stub, "/generate", session=f"s{i}")
+        ids, ttfb, _ = http_generate(res.url, {
+            "ids": [int(t) for t in prompts[i]], "max_new_tokens": new,
+            "session": f"s{i}", "stream": True}, headers=res.headers)
+        router.report(res.rank, ok=True, addr=res.addr)
+        first[i], rank_of[i], outcome1[i] = ids, res.rank, res.outcome
+        ttft["turn1"].append(ttfb)
+
+    def turn2(i):
+        res = DistributedServingServer.route_request(
+            stub, "/generate", session=f"s{i}")
+        outcome2[i] = res.outcome
+        if res.outcome == "repin":
+            resumed[i] = http_generate(res.url, {
+                "session": f"s{i}", "resume": True,
+                "max_new_tokens": new}, headers=res.headers)[0]
+        conv = np.concatenate([prompts[i], np.asarray(first[i], np.int32),
+                               adds[i]])
+        ids, ttfb, _ = http_generate(res.url, {
+            "ids": [int(t) for t in conv], "max_new_tokens": new,
+            "session": f"s{i}", "stream": True}, headers=res.headers)
+        router.report(res.rank, ok=True, addr=res.addr)
+        second[i] = (res.rank, ids)
+        ttft["turn2"].append(ttfb)
+
+    n, cut = args["sessions"], args["before_leave"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(args["threads"]) as ex:
+        list(ex.map(turn1, range(cut)))
+        p27_post(leave_url, {"cmd": "leave"})
+        statuses = router.probe_all()
+        if statuses.get(1) != "draining" or statuses.get(0) != "healthy":
+            raise AssertionError(f"27b: probes after the leave {statuses}")
+        list(ex.map(turn1, range(cut, n)))
+        list(ex.map(turn2, range(n)))
+    wall = time.perf_counter() - t0
+    on_rank1 = sorted(i for i in range(n) if rank_of[i] == 1)
+    if any(rank_of[i] != 0 for i in range(cut, n)):
+        raise AssertionError(f"27b: a first turn after the leave went to "
+                             f"rank 1: {rank_of}")
+    if any(second[i][0] != 0 for i in range(n)):
+        raise AssertionError("27b: a second turn went to rank 1")
+    repins = sorted(i for i in range(n) if outcome2[i] == "repin")
+    hits = sorted(i for i in range(n) if outcome2[i] == "hit")
+    if repins != on_rank1 or len(hits) != n - len(on_rank1) \
+            or not on_rank1:
+        raise AssertionError(f"27b: repin {repins}, hit {hits}, sessions "
+                             f"on rank 1 {on_rank1}")
+    for i in repins:
+        if list(resumed[i]) != list(first[i]):
+            raise AssertionError(f"27b: session {i} resumed as "
+                                 f"{resumed[i]}, turn 1 was {first[i]}")
+    tokens = sum(len(first[i]) + len(second[i][1]) for i in range(n))
+    return dict(
+        statuses_after_leave=statuses, first_rank=rank_of,
+        outcomes_turn1=outcome1, outcomes_turn2=outcome2,
+        repin=len(repins), hit=len(hits), on_rank1=on_rank1,
+        requests=2 * n + len(repins), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        ttft_ms=ttft_quantiles(ttft["turn1"] + ttft["turn2"]),
+        ttft_turn1_ms=ttft_quantiles(ttft["turn1"]),
+        ttft_turn2_ms=ttft_quantiles(ttft["turn2"]),
+        outs={str(i): [list(map(int, first[i])),
+                       list(map(int, second[i][1]))] for i in range(n)})
+
+
+def ttft_quantiles(seconds) -> dict:
+    a = np.asarray(seconds) * 1e3
+    return {"p50": float(np.median(a)), "p90": float(np.percentile(a, 90)),
+            "n": int(len(a))}
+
+
+def p27_direct(model, cfg, args: dict) -> dict:
+    """27b's traffic again on rank 0 alone, straight to one ``LLMServer``
+    of the same configuration without the prefill pool and without the
+    router: turn 1 then turn 2 of every session from the client threads,
+    streamed → tokens/s and TTFT p50/p90."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from synapseml_tpu_torch.serving import LLMServer
+    prompts, adds = p27_sessions(args, cfg.vocab_size)
+    new, n = args["new"], args["sessions"]
+    srv = LLMServer(model, n_slots=8, max_len=cfg.max_len,
+                    kv_arena_bytes=args["arena_bytes"],
+                    api_path="/p27b-direct", device=model.device,
+                    engine_kwargs={"name": "p27b-direct"})
+    first, second, ttft = {}, {}, []
+
+    def turn(i, two):
+        conv = prompts[i] if not two else np.concatenate(
+            [prompts[i], np.asarray(first[i], np.int32), adds[i]])
+        ids, ttfb, _ = http_generate(srv.url, {
+            "ids": [int(t) for t in conv], "max_new_tokens": new,
+            "stream": True})
+        (second if two else first)[i] = ids
+        ttft.append(ttfb)
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(args["threads"]) as ex:
+            list(ex.map(lambda i: turn(i, False), range(n)))
+            list(ex.map(lambda i: turn(i, True), range(n)))
+        wall = time.perf_counter() - t0
+    finally:
+        srv.close()
+    tokens = sum(len(first[i]) + len(second[i]) for i in range(n))
+    return dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                ttft_ms=ttft_quantiles(ttft))
+
+
+def p27_gang(seed: int, dev, cfg_spec: dict, root: str,
+             sessions: int = P27_SESSIONS, threads: int = P27_THREADS,
+             before_leave: int = P27_BEFORE_LEAVE, prompt=P27_PROMPT,
+             new: int = P27_NEW, append=P27_APPEND,
+             arena_bytes: int = P27_ARENA_BYTES, direct: bool = True) -> dict:
+    """Phase 27b from the launching process: the 2-rank gloo gang on the
+    one card (``phase27_gang`` on each rank), then its checks: the echo
+    reached both ranks, one table and equal weights on both; in each pass
+    (``pool``, ``nopool``) every request answered, ``repin`` = the
+    sessions pinned to rank 1, ``hit`` for every other second turn,
+    rank 1's drain dropped nothing and K3's S=1 shape launched on each
+    rank (runs ``phase27b_r0``, ``phase27b_r1``, ``phase27b_nopool_r0``,
+    ``phase27b_nopool_r1``); in the ``pool`` pass every fresh turn's
+    handoff ``ok`` on the rank that served it, one transfer frame packed
+    for each; rank 1's echo server left clean.  → TTFT and tokens/s of
+    both passes (the same routed traffic over the same two ranks, with
+    and without the pool) and of the direct run, the handoffs' latency
+    and bytes, the gathers' ms and the bf16 turn-1 agreement of the two
+    passes.  Raises on a failed check."""
+    from synapseml_tpu_torch.parallel import run_on_local_cluster
+    on_card = dev.type == "cuda"
+    jdir = os.path.join(root, "journal")
+    os.makedirs(jdir, exist_ok=True)
+    args = dict(seed=seed, device=dev.type, cfg=cfg_spec,
+                journal_dir=jdir, arena_bytes=arena_bytes,
+                sessions=sessions, threads=threads,
+                before_leave=before_leave, prompt=list(prompt), new=new,
+                append=list(append), direct=direct)
+    t0 = time.perf_counter()
+    try:
+        ranks = run_on_local_cluster("chip_smoke:phase27_gang", 2,
+                                     task_args=args, device=dev.type,
+                                     backend="gloo",
+                                     timeout_s=P27_GANG_TIMEOUT_S)
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    gang_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    if r0["echoes"] != [{"rank": 0, "echo": 0}, {"rank": 1, "echo": 10}]:
+        raise AssertionError(f"27b: echoes {r0['echoes']}")
+    if r0["weights"] != r1["weights"] \
+            or r0["echo_table"] != r1["echo_table"] or not r1["echo_left"]:
+        raise AssertionError(f"27b: weights {r0['weights']} / "
+                             f"{r1['weights']}, echo tables "
+                             f"{r0['echo_table']} / {r1['echo_table']}, "
+                             f"echo left {r1['echo_left']}")
+    for label in ("pool", "nopool"):
+        a, b = r0[label], r1[label]
+        if a["table"] != b["table"] or a["roles"] != [0, 0] \
+                or b["roles"] != [0, 0]:
+            raise AssertionError(f"27b {label}: tables {a['table']} / "
+                                 f"{b['table']}, roles {a['roles']} / "
+                                 f"{b['roles']}")
+        if not b.get("left"):
+            raise AssertionError(f"27b {label}: rank 1's drain dropped work")
+        if on_card:
+            for r, res in enumerate((a, b)):
+                if not any(",S=1," in k for k in res["launches"]):
+                    raise AssertionError(
+                        f"27b {label} rank {r}: K3 at S=1 never launched: "
+                        f"{res['launches']}")
+    drive, base = r0["pool"]["drive"], r0["nopool"]["drive"]
+    # fresh turns a rank served: its sessions' first turns, and on rank 0
+    # every second turn (a resume skips the pool)
+    served = {0: sessions, 1: 0}
+    for i in range(sessions):
+        served[int(drive["first_rank"][str(i)])] += 1
+    for r, res in enumerate(ranks):
+        h = res["handoffs"]
+        if h["ok"] != served[r] or sum(h.values()) != served[r] \
+                or len(res["frame_bytes"]) != served[r]:
+            raise AssertionError(f"27b rank {r}: handoffs {h} and "
+                                 f"{len(res['frame_bytes'])} frames for "
+                                 f"{served[r]} fresh turns")
+    frames = r0["frame_bytes"] + r1["frame_bytes"]
+    toks = r0["frame_tokens"] + r1["frame_tokens"]
+    agree = [float(np.mean(np.asarray(drive["outs"][str(i)][0])
+                           == np.asarray(base["outs"][str(i)][0])))
+             for i in range(sessions)]
+    out = dict(
+        gang_s=gang_s,
+        gather_ms={label: [r0[label]["gather_ms"], r1[label]["gather_ms"]]
+                   for label in ("pool", "nopool")},
+        repin=drive["repin"], hit=drive["hit"], on_rank1=drive["on_rank1"],
+        repin_nopool=base["repin"], hit_nopool=base["hit"],
+        on_rank1_nopool=base["on_rank1"],
+        requests_answered_200=drive["requests"] + base["requests"],
+        rank1_drained_clean=[r1["pool"]["left"], r1["nopool"]["left"]],
+        rank1_echo_left=r1["echo_left"],
+        statuses_after_leave=drive["statuses_after_leave"],
+        leave_s=[r1["pool"]["leave_s"], r1["nopool"]["leave_s"]],
+        wall_s_routed=drive["wall_s"], wall_s_routed_nopool=base["wall_s"],
+        tokens_per_s_routed=drive["tokens_per_s"],
+        tokens_per_s_routed_nopool=base["tokens_per_s"],
+        ttft_routed_ms=drive["ttft_ms"],
+        ttft_routed_turn1_ms=drive["ttft_turn1_ms"],
+        ttft_routed_turn2_ms=drive["ttft_turn2_ms"],
+        ttft_routed_nopool_ms=base["ttft_ms"],
+        ttft_routed_nopool_turn1_ms=base["ttft_turn1_ms"],
+        ttft_routed_nopool_turn2_ms=base["ttft_turn2_ms"],
+        handoffs=[r0["handoffs"], r1["handoffs"]],
+        handoff_latency_ms=[r0["handoff_latency"], r1["handoff_latency"]],
+        handoff_bytes_mean=float(np.mean(frames)),
+        handoff_bytes_per_token=float(np.sum(frames) / np.sum(toks)),
+        pack_ms_p50=float(np.median(r0["pack_ms"] + r1["pack_ms"])),
+        restores=[r0["pool"]["restores"], r1["pool"]["restores"]],
+        turn1_agreement_bf16_pool_nopool=float(np.mean(agree)),
+        launches={"phase27b_r0": r0["pool"]["launches"],
+                  "phase27b_r1": r1["pool"]["launches"],
+                  "phase27b_nopool_r0": r0["nopool"]["launches"],
+                  "phase27b_nopool_r1": r1["nopool"]["launches"]})
+    if direct:
+        d = r0["direct"]
+        out.update(wall_s_direct=d["wall_s"],
+                   tokens_per_s_direct=d["tokens_per_s"],
+                   ttft_direct_ms=d["ttft_ms"])
+    return out
+
+
+def p27_autoscale(seed: int, dev, root: str, cfg_spec: dict,
+                  n_slots: int = TIER_SLOTS, max_len: int = TIER_LEN,
+                  ttft_slo_s: float = 0.05, burst_threads: int = 24,
+                  burst_s: float = 4.0, idle_s: float = 12.0,
+                  new: int = 24, window_s: float = 2.0) -> dict:
+    """Phase 27c: a ``ServingReplicaSet`` whose factory builds an
+    ``LLMServer`` over phase 20a's f32 engine shape (``n_slots`` x
+    ``max_len``) on ``dev``, behind a ``ReplicaRouter``; an
+    ``Autoscaler`` (max 2 replicas) polls the in-process ``SloStore``'s
+    plane of the replicas' api path (a ``window_s`` window).  An
+    open-loop burst (``burst_threads`` clients, no think time) sheds and
+    must grow the set 1 → 2; then a trickle (one client, a request every
+    0.1 s) must let it shrink 2 → 1.  Every request ends in a 200 (a shed
+    503 or a refused connection is retried after a short wait, counted);
+    the decisions other than hold must be exactly grow then shrink, each
+    in the flight ring as ``autoscale_decide``; the departed replica's
+    breaker and probe row are released; K3 launched (run ``phase27c``).
+    Raises on a failed check."""
+    import threading
+    import urllib.error
+
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.llm import LlamaModel
+    from synapseml_tpu_torch.resilience import breaker as PB
+    from synapseml_tpu_torch.serving import (AutoscalePolicy, Autoscaler,
+                                             LLMServer, ReplicaRouter,
+                                             ServingReplicaSet)
+    from synapseml_tpu_torch.telemetry import get_registry
+    from synapseml_tpu_torch.telemetry.flight import get_flight
+    from synapseml_tpu_torch.telemetry.slo import get_slo_store
+    cfg = p27_config(cfg_spec)
+    model = LlamaModel(cfg, device=dev, seed=seed)
+    api = "/p27c"
+    store = get_slo_store()
+    store.window(api, window_s=window_s, slices=4)
+    made = itertools.count()
+
+    def factory():
+        i = next(made)
+        return LLMServer(model, n_slots=n_slots, max_len=max_len,
+                         api_path=api, ttft_slo_s=ttft_slo_s, device=dev,
+                         engine_kwargs={"name": f"p27c-{i}"})
+
+    def source():
+        snap = store.snapshot()
+        return dict(snap, window_s=window_s,
+                    planes={api: snap["planes"][api]})
+
+    pool = ServingReplicaSet(factory, drain_timeout_s=30.0)
+    pool.grow(1)
+    router = ReplicaRouter(pool.addresses(), name="p27c")
+    pool.router = router
+    scaler = Autoscaler(pool, source=source, name="p27c",
+                        poll_interval_s=0.25,
+                        policy=AutoscalePolicy(
+                            min_replicas=1, max_replicas=2,
+                            sustain_polls=2, grow_cooldown_s=1.0,
+                            shrink_cooldown_s=1.0))
+    rng = np.random.default_rng(seed + 2727)
+    stats = {"requests": 0, "retries_503": 0, "retries_conn": 0}
+    lock = threading.Lock()
+    stop = threading.Event()
+    errors = []
+    ranks_seen = set()
+
+    def one_request():
+        ids = rng.integers(1, cfg.vocab_size, int(rng.integers(8, 48)))
+        payload = {"ids": [int(t) for t in ids], "max_new_tokens": new}
+        for _ in range(400):
+            try:
+                res = router.route(api)
+            except Exception:            # noqa: BLE001 — a refresh race
+                time.sleep(0.02)
+                continue
+            try:
+                p27_post(res.url, payload)
+            except urllib.error.HTTPError as e:
+                if e.code not in (429, 503):
+                    raise
+                with lock:
+                    stats["retries_503"] += 1
+                time.sleep(0.02)
+                continue
+            except (urllib.error.URLError, ConnectionError):
+                with lock:
+                    stats["retries_conn"] += 1
+                time.sleep(0.02)
+                continue
+            with lock:
+                stats["requests"] += 1
+                ranks_seen.add(tuple(res.addr))
+            return
+        raise AssertionError("27c: a request never got a 200")
+
+    def client(until: threading.Event, think_s: float):
+        try:
+            while not until.is_set():
+                one_request()
+                if think_s:
+                    time.sleep(think_s)
+        except Exception as e:           # re-raised on the calling thread
+            errors.append(repr(e))
+
+    # the controller's decisions as the flight ring records them, read
+    # while the run goes (the ring is bounded; requests fill it too)
+    flight, seen = get_flight(), {}
+
+    def read_flight():
+        for e in flight.events():
+            if e["kind"] == "autoscale_decide" \
+                    and e.get("scaler") == "p27c":
+                seen[e["seq"]] = e["verdict"]
+
+    t0 = time.perf_counter()
+    L.reset()
+    scaler.start()
+    trickle = threading.Thread(target=client, args=(stop, 0.1), daemon=True)
+    trickle.start()
+    try:
+        burst_stop = threading.Event()
+        burst = [threading.Thread(target=client, args=(burst_stop, 0.0),
+                                  daemon=True) for _ in range(burst_threads)]
+        for b in burst:
+            b.start()
+        deadline = time.perf_counter() + burst_s
+        grown_at = None
+        while time.perf_counter() < deadline or grown_at is None:
+            read_flight()
+            if pool.replica_count() == 2 and grown_at is None:
+                grown_at = time.perf_counter() - t0
+                router.probe_all()
+            if time.perf_counter() - t0 > burst_s + 30:
+                break
+            time.sleep(0.05)
+        burst_stop.set()
+        for b in burst:
+            b.join(timeout=120)
+        burst_end = time.perf_counter() - t0
+        departed = pool.addresses()[-1] if pool.replica_count() == 2 \
+            else None
+        deadline = time.perf_counter() + idle_s + 30
+        shrunk_at = None
+        while time.perf_counter() < deadline:
+            read_flight()
+            if departed is not None and pool.replica_count() == 1:
+                shrunk_at = time.perf_counter() - t0
+                break
+            time.sleep(0.05)
+        time.sleep(0.5)                  # the trickle flows past the shrink
+        read_flight()
+    finally:
+        stop.set()
+        trickle.join(timeout=60)
+        scaler.stop()
+        shapes = L.shapes("paged_decode_attention")
+        pool.close()
+    if errors:
+        raise AssertionError(f"27c: clients failed: {errors[:3]}")
+    acts = [d.verdict for d in scaler.decisions if d.verdict != "hold"]
+    if acts != ["grow", "shrink"] or grown_at is None or shrunk_at is None:
+        raise AssertionError(f"27c: decisions {acts}, grown at {grown_at}, "
+                             f"shrunk at {shrunk_at}: "
+                             f"{[d.reason for d in scaler.decisions][-8:]}")
+    evs = [v for _, v in sorted(seen.items()) if v != "hold"]
+    key = f"replica:p27c:{departed[0]}:{departed[1]}"
+    probe = get_registry().gauge("serving_replica_probe_status", "",
+                                 ("router", "rank"))
+    if evs != ["grow", "shrink"] or key in PB._breakers \
+            or ("p27c", "1") in probe.series():
+        raise AssertionError(f"27c: flight {evs}, departed breaker kept "
+                             f"{key in PB._breakers}, probe rows "
+                             f"{list(probe.series())}")
+    if dev.type == "cuda" and not shapes:
+        raise AssertionError("27c: K3 never launched")
+    return dict(decisions=acts, grown_at_s=grown_at, burst_end_s=burst_end,
+                shrunk_at_s=shrunk_at, polls=len(scaler.decisions),
+                replicas_routed=len(ranks_seen), launches=shapes,
+                reasons=[d.reason for d in scaler.decisions
+                         if d.verdict != "hold"], **stats)
+
+
+def replicated_serving(seed: int, dev, card: str, root: str,
+                       exact_cfg: dict, gang_cfg: dict,
+                       scale_cfg: dict) -> dict:
+    """Phase 27: 27a (:func:`p27_exact`), 27b (:func:`p27_gang`) and 27c
+    (:func:`p27_autoscale`), each logged with the card; → their results.
+    The parts run small on the CPU when called one by one with tiny
+    configs and smaller sizes (``dev`` the CPU)."""
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["a"] = p27_exact(seed, dev, p27_config(exact_cfg), root)
+        log(f"phase 27a: f32 disaggregated turns equal the colocated "
+            f"server's under every handoff outcome, repin → journal resume "
+            f"on the survivor | {card}: {json.dumps(out['a'])} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["b"] = p27_gang(seed, dev, gang_cfg, root)
+        log(f"phase 27b: 2 gloo ranks, an LLMServer each behind the "
+            f"gathered routing table, with a PrefillPool and then without, "
+            f"rank 1 left mid-run in both passes | {card}: "
+            f"{json.dumps(out['b'])} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["c"] = p27_autoscale(seed, dev, root, scale_cfg)
+        log(f"phase 27c: the autoscaler grew 1 → 2 under a shedding burst "
+            f"and shrank 2 → 1 at idle | {card}: {json.dumps(out['c'])} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6699,6 +7601,10 @@ def main(argv=None) -> int:
     # phase 20a's engines: 4 slots of the tiny model (8 heads, 4 kv heads
     # of 16) over 128 positions, f32
     spans20 = [1, 31, 64, 128]
+    # phase 27a's decode servers: 4 slots of the 1B width over 512
+    # positions, f32; 27b's: 8 slots of the 1B model over 2048, bf16
+    spans27a = [1, 64, 213, 512]
+    spans27b = [1, 63, 65, 256, 1100, 1187, 2047, 2048]
     k3 = {}
     for S, dt, geo in (
             *((S, torch.bfloat16, (B, H, KV, D, T, spans))
@@ -6706,7 +7612,9 @@ def main(argv=None) -> int:
             (1, torch.float32, (B, H, KV, D, T, spans)),
             *((S, torch.bfloat16, (B19, H19, KV19, D, T19, spans19))
               for S in (1, 2, 4, 8)),
-            (1, torch.float32, (TIER_SLOTS, 8, 4, 16, TIER_LEN, spans20))):
+            (1, torch.float32, (TIER_SLOTS, 8, 4, 16, TIER_LEN, spans20)),
+            (1, torch.float32, (4, H, KV, D, 512, spans27a)),
+            (1, torch.bfloat16, (8, H, KV, D, T, spans27b))):
         b, h, kv, d, t, sp = geo
         bf16 = dt == torch.bfloat16
         key = L.launch_key("paged_decode_attention", B=b, S=S, H=h, KV=kv,
@@ -6851,8 +7759,11 @@ def main(argv=None) -> int:
     wall("10")
 
     # -- 11. breadth: the card against the CPU ------------------------------
-    # at half phase 3's rows: each config's CPU fit is what takes the time
-    n11 = n_small // 2
+    # at an eighth of phase 3's rows: each config's CPU fit is what takes
+    # the time (32,768 rows took 67.2 s of wall and 16,384 rows 35.9 s)
+    n11 = n_small // 8
+    log(f"phase 11 at {n11} rows (cut from 32768 to make room for phase "
+        f"27: 67.2 s of wall at 32768, 35.9 s at 16384)")
     Xs, Xhs = X[:n11], Xh[:4096]
     score = Xs[:, 0] * 2 - Xs[:, 1] + Xs[:, 2] * Xs[:, 3]
     ys = {"binary": y[:n11], "multi": y3[:n11],
@@ -7054,6 +7965,9 @@ def main(argv=None) -> int:
     log(f"phase 20c: LLMServer with a 2 GiB arena and a journal, 24 two-turn "
         f"conversations on 16 slots: {json.dumps(p20c)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 20c's cold re-run over the first {p20c['cold_conversations']}"
+        f" conversations, one wave of the 16 slots (cut from 24, two waves, "
+        f"to make room for phase 27): {p20c['cold_s']:.1f} s")
     shutil.rmtree(TIER_ROOT, ignore_errors=True)
     wall("20")
 
@@ -7088,11 +8002,18 @@ def main(argv=None) -> int:
 
     # -- 23. serving on the card: CSV → fit → PipelineServer ----------------
     torch.cuda.empty_cache()
-    # 128 records a client, and the two-API load at half its records
-    # (256, 1,024 and 2,048 cost ~12 s more)
+    # 64 records a client, the two-API load at a quarter of its records,
+    # 2,048 frames and 50,000 permissive lines, to make room for phase 27
+    # (128 records, half the load, 4,096 frames and 100,000 lines took
+    # 54.9-79.3 s of wall); the CSV keeps 500k rows, the fewest at which
+    # the fit takes the two-level histograms its launch check expects
+    log("phase 23 at 64 records a client, 256 + 512 records of the "
+        "two-API load, 2048 frames and 50000 permissive lines (cut from "
+        "128, 512 + 1024, 4096 and 100000: 54.9-79.3 s of wall before "
+        "the cut)")
     serving_paths(args.seed, dev, card, p21.pop("bert"), check_path,
-                  n_rows=N // 2, per_thread=128, n_bert=512,
-                  n_gbdt_multi=1024)
+                  n_rows=N // 2, per_thread=64, n_bert=256,
+                  n_gbdt_multi=512, n_frames=2048, n_lenient=50_000)
     del p21
     log(f"phase 23: no K-kernel outside the fit: K1/K2 launched only in "
         f"23b's GBDT fit {json.dumps(paths['phase23']['shapes'])}")
@@ -7128,6 +8049,17 @@ def main(argv=None) -> int:
     elastic_resume(args.seed, dev, card, N, args.iters, check_path,
                    p25_out["main"]["none"][0])
     wall("26")
+
+    # -- 27. the LLM served across replicas -----------------------------------
+    torch.cuda.empty_cache()
+    p27 = replicated_serving(
+        args.seed, dev, card, P27_ROOT,
+        exact_cfg=dict(kind="llama3_1b", num_layers=2, max_len=512,
+                       dtype="float32"),
+        gang_cfg=dict(kind="llama3_1b", max_len=2048),
+        scale_cfg=dict(kind="tiny", num_layers=2, max_len=TIER_LEN,
+                       dtype="float32"))
+    wall("27")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 
@@ -7170,6 +8102,12 @@ def main(argv=None) -> int:
     k3_runs["p24_19c_tuned"] = p24["llm"]["19c"]["launches"]
     for label in ("plain", "profiled"):
         k3_runs[f"p24_graph_{label}"] = p24["llm"]["launches"][label]
+    # phase 27's servers: 27a's colocated, disaggregated (by handoff
+    # outcome) and failover replicas, 27b's two ranks in each pass, 27c's
+    # replica set
+    k3_runs.update(p27["a"]["launches"])
+    k3_runs.update(p27["b"]["launches"])
+    k3_runs["phase27c"] = p27["c"]["launches"]
     unchecked = {k for sh in k3_runs.values() for k in sh} - set(k3)
     if unchecked:
         raise AssertionError(f"K3 launched at shapes phase 6 did not hold "

@@ -22,8 +22,9 @@ feature_parallel (rows replicated, features sharded); on one rank each
 trains as the JAX package trains it without a mesh.
 ``collectiveCompression`` (``none`` / ``bf16`` / ``int8`` or a
 ``CollectiveConfig``) is the data-parallel histogram all-reduce's wire
-codec.  The checkpoint manager, not ported, raises
-``NotImplementedError`` at ``fit`` before any work.
+codec.  ``checkpointManager`` (a ``core.checkpoint.CheckpointManager``)
+with ``checkpointInterval`` saves the fit's state from every rank, and
+a fit of any gang size resumes from it.
 """
 
 from __future__ import annotations

@@ -39,8 +39,10 @@ refined build, each wave's coarse and refined builds, and each lossguide
 build.  Every host decision (how many leaves a wave splits, the last
 wave's routing columns, whether a lossguide leaf can split) is read from
 the reduced histograms, so all ranks take the same branches and grow the
-same tree.  Not ported yet (ROADMAP queue A5: voting- and
-feature-parallel GBDT): voting- and feature-parallel growth.
+same tree.  Voting-parallel growth (``voting_k > 0``: each rank votes
+its top features, and only the voted histograms are summed) and
+feature-parallel growth (rows replicated, each rank building and
+choosing over its own block of features) run here too.
 """
 
 from __future__ import annotations

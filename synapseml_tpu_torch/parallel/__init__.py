@@ -26,10 +26,11 @@ Every entry point takes ``device`` (default ``"cuda"``, a
 ``device="cpu"``).  The supervisor resumes a relaunched gang from its
 checkpoint directory and resizes it (``min_ranks``, ``resize``,
 ``capacity_fn``); :mod:`.compilecache` shares the kernel builds across
-relaunches.  Waiting for ROADMAP A5: ``serving/distributed.py``, expert
-parallelism, DL mesh training with ``pipeline.py`` and the (data, model
-/ seq / expert) mesh constructors (a ``ProcessMesh`` takes any named
-axis sizes meanwhile).
+relaunches.  ``serving.distributed`` gathers the serving routing table
+over a ``ProcessMesh``.  Waiting for ROADMAP A5: expert parallelism, DL
+mesh training with ``pipeline.py`` and the (data, model / seq / expert)
+mesh constructors (a ``ProcessMesh`` takes any named axis sizes
+meanwhile).
 """
 
 from .collectives import (CollectiveTimeout, all_gather, all_to_all,

@@ -1,5 +1,6 @@
 """Resilience of the PyTorch port: deterministic fault injection, retry
-policies and deadlines, serving health/drain, and the row guard.
+policies and deadlines, circuit breakers, serving health/drain, and the
+row guard.
 
 Copies of the JAX package's ``resilience`` modules, imports aside:
 
@@ -7,6 +8,10 @@ Copies of the JAX package's ``resilience`` modules, imports aside:
   jitter, ``Retry-After`` honoring), :class:`Deadline`,
   :func:`parse_retry_after`, and :class:`RetryBudget`, the token bucket
   behind the QoS plane's per-tenant shed budgets.
+- :mod:`.breaker` — per-endpoint :class:`CircuitBreaker` (closed → open
+  → half-open) exported to ``/metrics``, the process-wide registry
+  behind :func:`breaker_for` / :func:`drop_breaker`; the serving router
+  and the prefill pool keep one per replica or worker.
 - :mod:`.faults` — the seeded :class:`FaultRegistry` behind
   ``SML_FAULTS``: injectable 429/503s, socket resets, slow responses,
   and mid-write SIGKILL points.
@@ -19,11 +24,10 @@ Copies of the JAX package's ``resilience`` modules, imports aside:
   OOM-adaptive batching, and the shared :class:`ErrorRecord` /
   :class:`HasErrorCol` error schema.  Its names load on first attribute
   access (the module pulls in numpy and the core Dataset).
-
-The circuit breakers are ROADMAP A8 (with ``PrefillPool`` and the
-router).
 """
 
+from .breaker import (CircuitBreaker, CircuitOpenError, breaker_for,
+                      drop_breaker)
 from .faults import (FAULTS_ENV, FAULTS_SEED_ENV, FaultRegistry, FaultRule,
                      PoisonRowError, PreemptionError,
                      ResourceExhaustedError, get_faults)
@@ -43,6 +47,7 @@ _ROWGUARD_NAMES = (
 __all__ = [
     "RetryPolicy", "RetryBudget", "Deadline", "RETRY_STATUSES",
     "parse_retry_after",
+    "CircuitBreaker", "CircuitOpenError", "breaker_for", "drop_breaker",
     "FaultRegistry", "FaultRule", "PreemptionError",
     "ResourceExhaustedError", "PoisonRowError", "get_faults",
     "FAULTS_ENV", "FAULTS_SEED_ENV",

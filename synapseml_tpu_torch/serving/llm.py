@@ -25,9 +25,10 @@ attach a host KV arena to the engine (retired slots spill, warm
 conversations restore instead of prefilling), and ``journal`` /
 ``journal_dir`` arm the fsync'd per-session journal, so a killed
 replica's conversation resumes token-exactly here through a
-``{"session", "resume"}`` request.  Not ported yet, refused with
-``NotImplementedError`` naming its ROADMAP item before any work:
-disaggregated prefill (``prefill_pool``: A8, ``serving/disagg.py``).
+``{"session", "resume"}`` request.  Disaggregated prefill:
+``prefill_pool`` (a :class:`~.disagg.PrefillPool`) takes each fresh
+prompt's prefill off this replica and ships its K/V into this replica's
+host arena, so the admit restores it instead of prefilling.
 """
 
 from __future__ import annotations
@@ -35,9 +36,6 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from .server import ServingRequest, ServingServer, _DecodeLoop
-
-#: ROADMAP item of the refused knob
-_DISAGG = "ROADMAP A8: serving/disagg.py PrefillPool"
 
 
 class LLMServer:
@@ -67,7 +65,14 @@ class LLMServer:
     :class:`~synapseml_tpu_torch.models.llm.kvtier.HostKVArena` of that
     budget for the engine (or pass ``kv_arena``), and ``journal_dir`` a
     :class:`~synapseml_tpu_torch.models.llm.kvtier.SessionJournal` under
-    that directory (or pass ``journal``)."""
+    that directory (or pass ``journal``).  ``prefill_pool`` (a
+    :class:`~.disagg.PrefillPool`) offers every fresh prompt to the pool
+    before admission; its K/V lands in this replica's arena (so pass
+    ``kv_arena``/``kv_arena_bytes`` too) and every handoff failure
+    degrades to a local prefill on this engine's device, counted in
+    ``disagg_handoffs_total``.  The pool is bound to ``api_path``, so
+    ``/sloz`` grows the ``@phase=prefill|decode`` planes the per-phase
+    autoscalers read."""
 
     def __init__(self, model: Any = None, *, engine: Any = None,
                  tokenizer: Any = None, n_slots: int = 16, max_len: Optional[int] = None,
@@ -94,9 +99,6 @@ class LLMServer:
                  prefill_pool: Any = None,
                  engine_kwargs: Optional[Dict[str, Any]] = None,
                  device: Any = "cuda"):
-        if prefill_pool is not None:
-            raise NotImplementedError(
-                f"prefill_pool is not ported yet ({_DISAGG})")
         from ..device import resolve_device
         dev = resolve_device(device)
         if kv_arena is None and kv_arena_bytes:
@@ -145,6 +147,10 @@ class LLMServer:
             from .qos import QosScheduler
             qos = QosScheduler(policies=dict(tenant_policies))
         self.qos = qos
+        self.prefill_pool = prefill_pool
+        if prefill_pool is not None:
+            prefill_pool.bind(api_path, self.kv_arena,
+                              ttft_slo_s=ttft_slo_s)
         self._loop = _DecodeLoop(
             self.server, self.server._default, engine,
             input_parser=self._parse,
@@ -152,7 +158,8 @@ class LLMServer:
             max_new_tokens_default=max_new_tokens_default,
             ttft_slo_s=ttft_slo_s, token_slo_s=token_slo_s,
             trace_sample_every=trace_sample_every,
-            journal=journal, qos=qos, max_tenants=max_tenants)
+            journal=journal, qos=qos, max_tenants=max_tenants,
+            disagg=prefill_pool)
         # the loop constructs a default scheduler when none was given —
         # surface THAT one so callers can set policies/read attribution
         if self.qos is None:

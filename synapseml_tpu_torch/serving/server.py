@@ -1302,6 +1302,10 @@ class _DecodeSeq:
     #: the per-tenant rate budget was already charged for this request
     #: (charged once, at first admission consideration)
     budget_spent: bool = False
+    #: disaggregated-prefill handoff outcome for this request (None ⇒
+    #: no pool armed, or the handoff has not run yet — it runs at most
+    #: once per request; see serving.disagg.HANDOFF_OUTCOMES)
+    handoff_outcome: Optional[str] = None
 
     @property
     def remaining(self) -> int:
@@ -1373,7 +1377,7 @@ class _DecodeLoop:
                  idle_timeout_s: float = 0.02,
                  trace_sample_every: Optional[int] = None,
                  request_tracer=None, slo_window=None, journal=None,
-                 qos=None, max_tenants: int = 256):
+                 qos=None, max_tenants: int = 256, disagg=None):
         self.server = server
         self.api = api
         self.engine = engine
@@ -1452,6 +1456,25 @@ class _DecodeLoop:
         #: per-tenant, so tenant planes never observe it (their null
         #: occupancy is skipped by the autoscaler reduction).
         self._tenant_windows: Dict[str, Any] = {}
+        #: disaggregated prefill pool (duck-typed on serving.disagg.
+        #: PrefillPool: ``handoff(ids, session=, tenant=) -> outcome``):
+        #: when armed, every fresh request's prompt is offered to the
+        #: pool before admission — an ``ok`` handoff lands its K/V in
+        #: this engine's host arena so the admit warm-restores it; any
+        #: other outcome just means the admit prefills locally.  The
+        #: decode phase gets its own ``@phase=decode`` SLO plane so the
+        #: two pools scale independently.
+        self.disagg = disagg
+        self._phase_slo = None
+        if disagg is not None:
+            from ..telemetry.slo import phase_plane_name
+            self._phase_slo = get_slo_store().window(
+                phase_plane_name(api.path, "decode"))
+            if ttft_slo_s is not None:
+                self._phase_slo.set_objective("ttft", float(ttft_slo_s))
+            if token_slo_s is not None:
+                self._phase_slo.set_objective("token_latency",
+                                              float(token_slo_s))
         self._slo_export_at = 0.0
         reg = get_registry()
         self._m_ttft = reg.histogram(
@@ -1756,6 +1779,8 @@ class _DecodeLoop:
         self._m_errors.inc(1, api=self.api.path, kind="shed")
         self._slo.count("shed")
         self._tenant_slo(seq.tenant).count("shed")
+        if self._phase_slo is not None:
+            self._phase_slo.count("shed")
         self._tracer.event(seq.trace_id, "shed", reason=reason)
         self._tracer.finish(seq.trace_id, "shed")
         self._safe_reply(seq.req.id, ServingReply(
@@ -1772,6 +1797,8 @@ class _DecodeLoop:
         self._m_errors.inc(1, api=self.api.path, kind="shed")
         self._slo.count("shed")
         self._tenant_slo(seq.tenant).count("shed")
+        if self._phase_slo is not None:
+            self._phase_slo.count("shed")
         self._tracer.event(seq.trace_id, "shed", reason="budget")
         self._tracer.finish(seq.trace_id, "shed")
         self._safe_reply(seq.req.id, ServingReply(
@@ -1838,6 +1865,26 @@ class _DecodeLoop:
                 starved.append(seq)
                 keep.append(seq)
                 continue
+            if (self.disagg is not None and seq.handoff_outcome is None
+                    and not seq.resumed):
+                # disaggregated prefill: offer the prompt to the pool
+                # FIRST (at most once per request).  handoff() never
+                # raises — every failure mode is an attributed outcome
+                # — and an "ok" lands the K/V in this engine's arena so
+                # the admit below warm-restores it token-exactly; any
+                # other outcome means the admit prefills locally (the
+                # colocated fallback, never a wrong token).  Resumed
+                # turns skip the pool: the journal failover path owns
+                # their context reconstruction.
+                try:
+                    seq.handoff_outcome = self.disagg.handoff(
+                        seq.ids, session=seq.session, tenant=seq.tenant)
+                except Exception:  # noqa: BLE001 — belt over the contract
+                    seq.handoff_outcome = "fallback"
+                    _flight_record("disagg_handoff", api=self.api.path,
+                                   outcome="fallback", error=True)
+                self._tracer.event(seq.trace_id, "disagg_handoff",
+                                   outcome=seq.handoff_outcome)
             try:
                 res = (self.engine.admit(seq.ids, seq.max_new,
                                          tenant=seq.tenant)
@@ -1862,6 +1909,9 @@ class _DecodeLoop:
             tslo = self._tenant_slo(seq.tenant)
             tslo.observe_ttft(ttft)
             tslo.count("admitted")
+            if self._phase_slo is not None:
+                self._phase_slo.observe_ttft(ttft)
+                self._phase_slo.count("admitted")
             self._tracer.event(
                 seq.trace_id, "admitted", slot=res.slot,
                 reused_tokens=getattr(res, "reused_tokens", 0))
@@ -1964,6 +2014,8 @@ class _DecodeLoop:
         self._retired_window.append(now)
         self._slo.count("retired")
         self._tenant_slo(seq.tenant).count("retired")
+        if self._phase_slo is not None:
+            self._phase_slo.count("retired")
         self._tracer.event(seq.trace_id, "retired",
                            tokens=len(seq.tokens), reason=reason)
         self._tracer.finish(seq.trace_id, "retired",
@@ -2094,6 +2146,8 @@ class _DecodeLoop:
             self._m_tok_lat.observe(tok_s, api=self.api.path)
             self._slo.observe_token_latency(tok_s)
             self._tenant_slo(seq.tenant).observe_token_latency(tok_s)
+            if self._phase_slo is not None:
+                self._phase_slo.observe_token_latency(tok_s)
             # the DRR deficit is charged by COMMITTED tokens, one per
             # step event — a speculative engine commits several per
             # slot per step, so token-weighting (not request-counting)
@@ -2116,6 +2170,12 @@ class _DecodeLoop:
             self._slo.observe_occupancy(
                 self.engine.active_count / max(1, self.engine.n_slots))
             self._slo.export_gauges()
+            if self._phase_slo is not None:
+                # the decode phase's occupancy IS this engine's slots —
+                # the prefill pool samples its own plane per handoff
+                self._phase_slo.observe_occupancy(
+                    self.engine.active_count / max(1, self.engine.n_slots))
+                self._phase_slo.export_gauges()
             for w in self._tenant_windows.values():
                 w.export_gauges()
 

@@ -242,5 +242,18 @@ def test_arena_and_journal_knobs_build_and_prefill_pool_raises(pair,
         assert srv.journal.replay("s").ids == _ids(p2) + _ids(ref2)
     finally:
         srv.close()
-    with pytest.raises(NotImplementedError, match="A8"):
-        LLMServer(tm, device="cpu", prefill_pool=object())
+    # prefill_pool, refused here before the pool was ported, now binds
+    # to the server's arena: a fresh turn is handed off, then restored
+    from synapseml_tpu_torch.serving import PrefillPool, PrefillWorker
+    pool = PrefillPool([PrefillWorker(P.SlotEngine(
+        tm, n_slots=2, max_len=128, device="cpu", name="pt-knobs-pf"))],
+        name="pt-knobs-pool")
+    srv = _server(tm, "pt-knobs-disagg", kv_arena_bytes=1 << 22,
+                  prefill_pool=pool)
+    try:
+        assert srv.prefill_pool is pool and pool.arena is srv.kv_arena
+        _, body = _post(srv.url, {"ids": _ids(p1), "max_new_tokens": 6})
+        assert json.loads(body)["ids"] == _ids(ref1)
+        assert srv.engine.restore_count == 1
+    finally:
+        srv.close()

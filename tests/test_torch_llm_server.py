@@ -413,8 +413,9 @@ def test_background_warmup_readyz_503_then_200(pair, monkeypatch):
 
 def test_tunez_answers_501_and_unported_knobs_raise(pair):
     """``GET /tunez`` is ported: 200 with a snapshot that passes
-    ``check_tunez`` and lists the engine's consults (the name predates
-    the port of the tuning table); the unported knobs still raise."""
+    ``check_tunez`` and lists the engine's consults, and a prefill pool
+    is bound (the name predates the port of the tuning table and of the
+    pool)."""
     from synapseml_tpu_torch.telemetry.tunetable import (
         TunePlane, check_tunez, set_tuneplane)
     _, _, tm = pair
@@ -438,9 +439,19 @@ def test_tunez_answers_501_and_unported_knobs_raise(pair):
             srv.close()
     finally:
         set_tuneplane(prev)
-    for kw, item in (({"prefill_pool": object()}, "A8"),):
-        with pytest.raises(NotImplementedError, match=item):
-            LLMServer(tm, device="cpu", **kw)
+    # the one knob this test once held refused, prefill_pool, is ported:
+    # the server binds the pool to its arena and its @phase=prefill plane
+    from synapseml_tpu_torch.serving import PrefillPool
+    from synapseml_tpu_torch.telemetry.slo import phase_plane_name
+    pool = PrefillPool(name="pt-tunez-pool")
+    srv = _server(tm, "pt-tunez-pool", api_path="/pt-tunez-pool",
+                  kv_arena_bytes=1 << 20, prefill_pool=pool, ttft_slo_s=2.0)
+    try:
+        assert srv.prefill_pool is pool and pool.arena is srv.kv_arena
+        assert pool.slo.name == phase_plane_name("/pt-tunez-pool", "prefill")
+        assert pool.slo.snapshot()["slo"]["ttft"]["threshold_s"] == 2.0
+    finally:
+        srv.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             LLMServer(tm)

@@ -723,3 +723,80 @@ def kernel_cache_probe(args):
     _build.build_all()
     return {"build_dir": str(_build.build_dir()),
             "build_s": time.perf_counter() - t0, **cache_stats()}
+
+
+def distributed_serving_roundtrip(args):
+    """tests/mp_tasks.py's task on the port: each rank starts a
+    ``DistributedServingServer`` with an echo loop; rank 0 routes one
+    request to EVERY rank through the gathered routing table.  Also
+    gathers a second table of made-up addresses at or above 128.0.0.0
+    (one role a rank) through ``exchange_routing_table`` under a
+    timeout, times the first gather, and shows a wedged gather raising
+    ``CollectiveTimeout`` at its timeout."""
+    import json
+    import threading
+    import urllib.request
+
+    from synapseml_tpu_torch.serving import (DistributedServingServer,
+                                             ServingReply,
+                                             exchange_routing_table)
+
+    device = args.get("device", "cuda")
+    mesh = data_parallel_mesh(device=device)
+    rank = mesh.rank
+    t0 = time.perf_counter()
+    srv = DistributedServingServer(device=device,
+                                   gather_timeout_s=60.0,
+                                   role="prefill" if rank == 1 else "decode")
+    gather_s = time.perf_counter() - t0
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            for req in srv.get_batch(max_rows=8, timeout_s=0.05):
+                srv.reply(req.id, ServingReply(200, json.dumps(
+                    {"rank": rank, "echo": req.json()["x"]}).encode()))
+
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+    C.barrier(None, mesh)                # every rank's listener is up
+    results = []
+    if rank == 0:
+        for r in range(len(srv.routing_table)):
+            body = json.dumps({"x": r * 10}).encode()
+            rep = urllib.request.urlopen(urllib.request.Request(
+                srv.url_for_rank(r), data=body), timeout=10).read()
+            results.append(json.loads(rep))
+    C.barrier(None, mesh)                # replies done before any closes
+    stop.set()
+    t.join(timeout=5)
+    srv.close()
+    fake = (f"{200 + rank}.{rank}.255.{128 + rank}", 40000 + rank)
+    table, roles = exchange_routing_table(*fake, timeout_s=60.0,
+                                          role=rank % 2, device=device)
+    # a gather whose dispatch wedges (a lost peer's shape) is bounded by
+    # its timeout: the hang fires before the collective starts, so the
+    # group stays usable
+    from synapseml_tpu_torch.parallel import CollectiveTimeout
+    from synapseml_tpu_torch.resilience import get_faults
+    get_faults().inject("collective.dispatch", "hang", times=1)
+    try:
+        exchange_routing_table(*fake, timeout_s=0.3, device=device)
+        timed_out = False
+    except CollectiveTimeout:
+        timed_out = True
+    finally:
+        get_faults().clear()
+    C.barrier(None, mesh)
+    return {"rank": rank, "router": srv.router.name,
+            "table": [[h, p] for h, p in srv.routing_table],
+            "roles": srv.routing_roles, "results": results,
+            "fake_table": [[h, p] for h, p in table], "fake_roles": roles,
+            "gather_s": gather_s, "timed_out": timed_out}
+
+
+def llm_serving_gang(args):
+    """Phase 27b of chip_smoke.py on this rank (the LLM servers behind a
+    router over the gathered table; see ``chip_smoke.phase27_gang``)."""
+    import chip_smoke
+    return chip_smoke.phase27_gang(args)
