@@ -144,10 +144,10 @@
     losses, parameters and eval logits within 1e-4 (bf16 reported); (b)
     the main path, ``Pipeline([DeepTextClassifier(modelSize="base",
     vocabSize=30522, maxTokenLen=128, batchSize=128, precision="bf16",
-    maxEpochs=2)]).fit`` then ``transform``: 8,192 texts of random words
+    maxEpochs=2)]).fit`` then ``transform``: 4,096 texts of random words
     from a 45,000-word list (the tokenizer fills its 30,522 ids), each
     class planted by 10 marker words, 2,048 held-out texts at accuracy >
-    0.8; (c) bench.py's window, BERT-base at batch 128 x seq 128: 20
+    0.8; (c) bench.py's window, BERT-base at batch 128 x seq 128: 10
     steps after 3 of warm-up, median of 3 windows, ``bf16`` and
     ``bf16_grad`` in turns: samples/s, step ms and MFU (6·P·128 over
     989 TFLOP/s); (d) ``torch.profiler`` over 5 bf16 steps: the device's
@@ -386,8 +386,8 @@
     beside them the one-process default fit's s/iteration
     (informational: the ranks share the card); (d) on one NCCL rank, a
     fit over the group bit-equal to the fit without one; (e) a 2-rank
-    fit at 20,000 rows on the card and over the CPU: splits equal,
-    margins within 1e-4, and the same at 20,000 rows for a
+    fit at 10,000 rows on the card and over the CPU: splits equal,
+    margins within 1e-4, and the same at 10,000 rows for a
     feature-parallel, a voting-parallel and a data-parallel lambdarank
     fit, and ``train_sgd`` over the ranks at sync 0 and 4 (states within
     1e-5); (f) ``GBDTClassifier(parallelism="feature_parallel",
@@ -430,8 +430,8 @@
     ``gbdt.resize_resume`` note 2 → 1, the full tree count, holdout AUC
     within 0.005 of 25c's, K2 and K1 launched (run
     ``phase26b_r0_resumed``); (c) a 1-rank gang fits
-    ``DeepVisionClassifier(backbone="resnet50", precision="f32")`` on 32
-    seeded 224² images, batch 16, 2 epochs, a checkpoint every step,
+    ``DeepVisionClassifier(backbone="resnet50", precision="f32")`` on 16
+    seeded 224² images, batch 8, 2 epochs, a checkpoint every step,
     under deterministic cuDNN and cuBLAS (``CUBLAS_WORKSPACE_CONFIG``
     through ``env_extra``), killed after its second checkpoint: the
     relaunch resumes from step 2, and its probabilities match the
@@ -476,8 +476,9 @@
     1), ``hit`` for every other second turn, K3 at S=1 on both ranks
     (runs ``phase27b_r0``, ``phase27b_r1``, ``phase27b_nopool_r0``,
     ``phase27b_nopool_r1``), and in the pool's pass every fresh turn's
-    handoff ``ok``; reports tokens/s and TTFT p50/p90 of both passes and
-    of the same traffic straight to one server without the pool, the
+    handoff ``ok``; reports tokens/s and TTFT p50/p90 of both passes
+    (the same traffic straight to one server, ``p27_gang(direct=True)``,
+    is left out of the full run, to make room for phase 28), the
     handoff latency, bytes a handoff, the gathers' ms and the bf16
     turn-1 agreement of the two passes.  (c) A
     ``ServingReplicaSet`` of ``LLMServer``s over phase 20a's f32 engine
@@ -488,6 +489,39 @@
     released (run ``phase27c``).  Its parts run small on the CPU
     (``p27_exact``, ``p27_gang`` and ``p27_autoscale`` with tiny configs
     and ``torch.device("cpu")``, ~15 s).
+28. DL training over a gang of ranks (``models/dl`` over
+    ``parallel.mesh``): two gloo ranks sharing the card.  (a) f32, IEEE
+    products: BERT-base width (d 768, 12 heads, d_ff 3072, seq 128) cut
+    to 2 layers with 8 experts top-2 on the MoE block at capacity factor
+    0.5 (choices drop), five steps of 8 rows from the same seeded
+    weights and batches, each mesh fit against this process's one-rank
+    fit on the card (losses and parameters within 1e-5): (i) the data
+    mesh D=2, (ii) data 1 x expert 2, (iii) ``zero1`` (against (i), with
+    half the moment bytes); (iv) ``DeepVisionClassifier(numDevices=0)``
+    on 26c's backbone (ResNet-50, 224², sgd) against one process:
+    BatchNorm running statistics and the f32 probabilities within 1e-4
+    of their scale; (v) int8 + error feedback + the sharded update
+    within 0.05 of the f32 sync after 12 steps; (vi) the data mesh D=2
+    with dropout 0.1 at 32 rows a step, sgd, against this process's
+    one-rank fit (losses and parameters within 1e-5; step ms and peak
+    memory of both).  (b) Phase 17b's model at ``expertParallelism=2``
+    in bf16 (batch 128 x 128): each rank's samples/s, step ms, peak
+    memory against 17b's, the MoE all-reduces' bytes and ms a step, and
+    against 17b's one-process steps on the same weights and batch the
+    losses of the first 5 steps and step 1's gradient sums of squares
+    (experts summed over ranks, routers, the rest) within
+    ``P28_FULL_LIMITS``.  (c) An int8 + EF + sharded-update text fit
+    under a ``GangSupervisor``: rank 1 dies after its fourth checkpoint,
+    the gang shrinks to one rank, which resumes twice from the same
+    checkpoint bit-identically (the resize noted 2 → 1), runs only the
+    steps after the checkpoint and ends within ``P28_ELASTIC_LIMIT`` of
+    an uninterrupted one-rank fit's losses.  (d) The step profiler's
+    cost capture over the 2-rank mesh for a GBDT and a DL fit: the same
+    cost on both ranks and the fits equal to the uncaptured ones.  Every
+    reading is printed before a failed check raises.  Its parts run
+    small on the CPU
+    (``dl_gang(0, torch.device("cpu"), "cpu", sizes=...)`` with tiny
+    ``P28_*`` replacements, ~35 s).
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -2550,11 +2584,24 @@ def dl_moe(seed: int, dev, model_size: str = "base", vocab: int = 30522,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     step = _step_fn(tr, state, (bi, bm), bl, seed)
-    win = train_windows({"bf16": step}, batch, n_steps, windows)["bf16"]
+    first, grad_sq = [], []
+    head = P28_FULL["warmup"] + P28_FULL["steps"]
+
+    def counted():
+        loss = step()
+        if not grad_sq:
+            grad_sq.append(grad_sums(tr.model))    # step 1's gradients
+        if len(first) < head:
+            first.append(loss)        # steps 1.., from the seeded weights
+        return loss
+
+    win = train_windows({"bf16": counted}, batch, n_steps, windows)["bf16"]
     moe = [getattr(tr.model, f"layer_{i}").moe_ffn
            for i in range(cfg.num_layers) if cfg.uses_moe(i)]
     fl = moe_flops_per_step(tr.model, batch, seq)
     win.update(
+        loss1=float(first[0]), losses_head=[float(x) for x in first],
+        grad_sq1=grad_sq[0],
         step_ms=batch / win["sps"] * 1e3,
         mfu=win["sps"] * fl["flops"] / batch / PEAK_BF16_S,
         peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
@@ -5448,8 +5495,9 @@ def tunez_and_trace(seed: int, dev, card: str, table_dir: str,
 
 #: every gang phase 25 launches ends within this many seconds
 P25_GANG_TIMEOUT_S = 300.0
-#: phase 25e's rows (the card against the CPU) and 25d's (one NCCL rank)
-P25_SMALL_ROWS, P25_NCCL_ROWS = 20_000, 65_536
+#: phase 25e's rows (the card against the CPU; 20,000 until phase 28 took
+#: their time) and 25d's (one NCCL rank)
+P25_SMALL_ROWS, P25_NCCL_ROWS = 10_000, 65_536
 
 
 def p25_data(seed: int, rows: int, hold: int = 100_000, F: int = 28):
@@ -5981,18 +6029,26 @@ def phase25_gang(args: dict) -> dict:
     out["report"] = cluster_report({"device": dev})
     card = data_parallel_mesh(device=dev)
     host = data_parallel_mesh(device="cpu")
-    out["collectives"] = p25_collectives(card, host, args["seed"])
-    out["card_vs_cpu"] = p25_card_vs_cpu(card, host, args["seed"],
-                                         args["iters"], args["small_rows"])
-    out["main"] = p25_main(card, args["seed"], args["rows"], args["iters"])
-    out["modes_card_vs_cpu"] = p25_modes_card_vs_cpu(
-        card, host, args["seed"], args["iters"], args["small_rows"])
-    out["featpar"] = p25_featpar(card, args["seed"], args["rows"],
-                                 args["iters"])
-    out["vote"] = p25_voting(card, args["seed"], args["rows"], args["iters"])
-    out["ranker"] = p25_ranker(card, args["seed"], args["iters"],
-                               *args.get("ranker_shape", ()))
-    out["online"] = p25_online(card, args)
+    seconds = out["part_s"] = {}
+    parts = (
+        ("collectives", lambda: p25_collectives(card, host, args["seed"])),
+        ("card_vs_cpu", lambda: p25_card_vs_cpu(
+            card, host, args["seed"], args["iters"], args["small_rows"])),
+        ("main", lambda: p25_main(card, args["seed"], args["rows"],
+                                  args["iters"])),
+        ("modes_card_vs_cpu", lambda: p25_modes_card_vs_cpu(
+            card, host, args["seed"], args["iters"], args["small_rows"])),
+        ("featpar", lambda: p25_featpar(card, args["seed"], args["rows"],
+                                        args["iters"])),
+        ("vote", lambda: p25_voting(card, args["seed"], args["rows"],
+                                    args["iters"])),
+        ("ranker", lambda: p25_ranker(card, args["seed"], args["iters"],
+                                      *args.get("ranker_shape", ()))),
+        ("online", lambda: p25_online(card, args)))
+    for name, run in parts:
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t0
     return out
 
 
@@ -6073,6 +6129,8 @@ def parallel_gang(seed: int, dev, card: str, rows: int, iters: int,
     gang_s = time.time() - t0
     out = {"gang_s": gang_s}
     for r, res in enumerate(ranks):
+        log(f"phase 25 rank {r}: seconds a part "
+            f"{json.dumps(res['part_s'])} | {card}")
         log(f"phase 25 rank {r}: build {res['build_s']:.4f} s (cached "
             f"{res['cached']}), launch to task "
             f"{res['task_start_unix'] - t0:.2f} s, rendezvous "
@@ -6176,10 +6234,11 @@ P26_GANG_TIMEOUT_S = 300.0
 #: the line a phase-26 rank writes with its build report: a killed
 #: attempt's report is read back from its log tail
 P26_BUILD_MARKER = "P26_BUILD:"
-#: 26c: ResNet-50 at phase 15's 224², 32 images, batch 16, 2 epochs (4
-#: optimizer steps), a checkpoint every step; the fresh attempt is killed
-#: after its second checkpoint
-P26_DL = dict(backbone="resnet50", n=32, size=224, batch=16, epochs=2,
+#: 26c: ResNet-50 at phase 15's 224², 16 images, batch 8 (32 at batch 16
+#: until phase 28 took their time), 2 epochs (4 optimizer steps), a
+#: checkpoint every step; the fresh attempt is killed after its second
+#: checkpoint
+P26_DL = dict(backbone="resnet50", n=16, size=224, batch=8, epochs=2,
               faults="dl.checkpoint=kill:after=1:times=1")
 #: deterministic cuBLAS for 26c's rank (with cuDNN's deterministic
 #: algorithms, which the task sets)
@@ -7342,7 +7401,9 @@ def replicated_serving(seed: int, dev, card: str, root: str,
             f"on the survivor | {card}: {json.dumps(out['a'])} in "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        out["b"] = p27_gang(seed, dev, gang_cfg, root)
+        # without the direct run (7.6 s; ROADMAP A0.9's named cut), to
+        # make room for phase 28
+        out["b"] = p27_gang(seed, dev, gang_cfg, root, direct=False)
         log(f"phase 27b: 2 gloo ranks, an LLMServer each behind the "
             f"gathered routing table, with a PrefillPool and then without, "
             f"rank 1 left mid-run in both passes | {card}: "
@@ -7354,6 +7415,642 @@ def replicated_serving(seed: int, dev, card: str, root: str,
             f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# -- phase 28: DL training over a gang of ranks ------------------------------
+
+P28_ROOT = os.path.join(os.path.dirname(CKPT_ROOT), "phase28")
+P28_GANG_TIMEOUT_S = 600.0
+#: 28a: BERT-base width (d 768, 12 heads, d_ff 3072, seq 128) cut to 2
+#: layers, 8 experts on the MoE block (layer 1), top-2, capacity factor
+#: 0.5 (choices drop), f32, dropout 0; 8 rows a step
+P28_TEXT = dict(vocab_size=30522, max_len=128, num_layers=2, num_heads=12,
+                d_model=768, d_ff=3072, num_classes=2, dropout_rate=0.0,
+                num_experts=8, moe_top_k=2, moe_capacity_factor=0.5)
+P28_ROWS, P28_STEPS, P28_CODEC_STEPS = 8, 5, 12
+P28_OPT = dict(name="adamw", learning_rate=1e-4, weight_decay=0.01,
+               schedule="constant", total_steps=P28_CODEC_STEPS,
+               grad_clip_norm=1.0)
+#: 28a(v)'s codec: int8 with error feedback and the sharded update
+P28_CODEC = dict(compression="int8", error_feedback=True,
+                 sharded_update=True, min_size=2048)
+#: 28a(iv): phase 26c's backbone and images (ResNet-50 at 224²), 16
+#: images at batch 8, one epoch (2 steps), f32, sgd (adam's g / |g| would
+#: turn the two sums' last-bit differences of near-zero gradients into
+#: whole steps)
+P28_VISION = dict(backbone="resnet50", n=16, size=224, batch=8, epochs=1)
+#: 28a(vi): the data mesh at D=2 with dropout on against the launching
+#: process's one-process fit, 32 rows a step, sgd (adamw's g / sqrt(v)
+#: turned the two reductions' last-bit differences of near-zero gradients
+#: into 1.43e-5 of parameter on the H100, as 28a(iv) notes for adam);
+#: losses and parameters within 1e-5
+P28_DROP = dict(rows=32, rate=0.1,
+                opt=dict(P28_OPT, name="sgd", learning_rate=1e-2))
+#: 28b: phase 17b's model at expertParallelism=2 (BERT-base, 8 experts,
+#: top-2, batch 128 x 128, bf16): warm-up and window steps
+P28_FULL = dict(batch=128, seq=128, experts=8, warmup=1, steps=4)
+#: 28b's limits against 17b's one-process steps on the same weights and
+#: batch: the largest relative gap of the first warmup + steps losses
+#: and of step 1's gradient sums of squares (experts, routers, the rest).
+#: Read on the H100: both gaps 0.0 (the expert-parallel step is bit-equal
+#: to one process); the limits leave room for last-bit reorderings only
+P28_FULL_LIMITS = dict(losses=1e-4, grad_sums=1e-4)
+#: 28c: the resumed fit's per-epoch losses against an uninterrupted fit
+#: at one rank (absolute; read 1.44e-4 on the H100 and 3.3e-4 small on
+#: the CPU: int8 + EF at 2 ranks for the first 4 steps)
+P28_ELASTIC_LIMIT = 2e-3
+#: 28c: the small text classifier, int8 + EF + sharded update, 144 texts
+#: at batch 24 (6 steps an epoch), 2 epochs, a checkpoint every step;
+#: rank 1 dies after its fourth checkpoint (the rule fires past 3 passes)
+P28_ELASTIC = dict(n=144, batch=24, epochs=2,
+                   faults="dl.checkpoint=kill_rank:rank=1:after=3")
+
+
+def p28_sizes(over: Optional[dict]) -> None:
+    """Replace phase 28's sizes (``P28_*``) with ``over``'s, for a small
+    run on the CPU; the gang's ranks get the same ``over``."""
+    globals().update({k: v for k, v in (over or {}).items()
+                      if k.startswith("P28_")})
+
+
+def empty_cache(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def p28_batches(seed: int, steps: int, rows: int, seq: int, vocab: int):
+    """``steps`` seeded (ids, mask, labels) batches of ``rows`` rows."""
+    rng = np.random.default_rng(seed + 28)
+    out = []
+    for _ in range(steps):
+        mask = np.ones((rows, seq), bool)
+        mask[::3, seq // 2:] = False
+        out.append((rng.integers(0, vocab, (rows, seq)).astype(np.int64),
+                    mask, rng.integers(0, 2, rows).astype(np.int64)))
+    return out
+
+
+def p28_text_fit(dev, mesh, seed: int, steps: int, rows: int = 0,
+                 dropout: float = 0.0, opt: Optional[dict] = None,
+                 **trainer_kw) -> dict:
+    """28a's text model over ``mesh`` (None: this process alone) from
+    ``seed``'s weights: ``steps`` f32 steps (``opt``, default
+    ``P28_OPT``) on ``p28_batches`` of ``rows`` rows (0: ``P28_ROWS``)
+    at ``dropout``, each rank on its rows
+    → losses, this rank's moment bytes, the whole model's state (host)
+    after step ``P28_STEPS``, the step seconds and this process's peak
+    memory."""
+    from synapseml_tpu_torch.models.dl import (DLTrainer, OptimizerConfig,
+                                               TextEncoder,
+                                               TransformerConfig)
+    cfg = TransformerConfig(dtype=torch.float32,
+                            **dict(P28_TEXT, dropout_rate=dropout))
+    empty_cache(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = TextEncoder(cfg, device=dev, seed=None, mesh=mesh)
+    tr = DLTrainer(model, OptimizerConfig(**(opt or P28_OPT)), dev,
+                   mesh=mesh, **trainer_kw)
+    state = tr.init_state(seed)
+    step = tr.train_step()
+    losses, drop = [], []
+    synchronize(dev)
+    t0 = time.perf_counter()
+    for ids, mask, lab in p28_batches(seed, steps, rows or P28_ROWS,
+                                      cfg.max_len, cfg.vocab_size):
+        rows = tr.local_rows(np.arange(len(lab)))
+        state, m = step(state, tr.shard_batch((ids[rows], mask[rows])),
+                        tr.shard_batch((lab[rows],))[0], seed)
+        losses.append(float(m["loss"]))
+        drop.append(float(model.layer_1.moe_ffn.dropped))
+        if len(losses) == P28_STEPS:
+            snap = {k: v.detach().cpu().numpy().copy()
+                    for k, v in model.full_state_dict().items()}
+    step_s = (time.perf_counter() - t0) / steps
+    return dict(losses=losses, dropped=drop, step_s=step_s,
+                moment_bytes=state.opt.moment_bytes(), state=snap,
+                peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                         if dev.type == "cuda" else None))
+
+
+def p28_save_npz(path: str, arrays: dict) -> None:
+    """Write ``arrays`` to ``path`` atomically (a reader polls for it)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def p28_wait_npz(path: str, timeout_s: float = P28_GANG_TIMEOUT_S) -> dict:
+    """The arrays of ``path`` once the launching process has written it."""
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout_s:
+            raise TimeoutError(f"phase 28: {path} never appeared")
+        time.sleep(0.2)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def p28_max_diff(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+               for k in b)
+
+
+def p28_vision_fit(seed: int, dev: str, numDevices: int) -> dict:
+    """28a(iv): ``DeepVisionClassifier`` on 26c's backbone at f32 →
+    probabilities on the images, the BatchNorm running statistics and
+    the history."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models.dl import (DeepVisionClassifier,
+                                               make_backbone)
+    from synapseml_tpu_torch.models.dl.training import to_device
+    c = P28_VISION
+    imgs, labels = vision_images(np.random.default_rng(seed + 26), c["n"],
+                                 c["size"])
+    ds = Dataset({"image": list(imgs), "label": labels})
+    model = DeepVisionClassifier(
+        backbone=c["backbone"], batchSize=c["batch"], maxEpochs=c["epochs"],
+        optimizer="sgd", learningRate=1e-2, lrSchedule="constant",
+        seed=seed, precision="f32", numDevices=numDevices,
+        device=dev).fit(ds)
+    var = model.modelPayload["variables"]
+    # the probabilities of the fitted f32 model (DeepVisionModel scores
+    # in bf16, its default compute dtype)
+    net = make_backbone(c["backbone"], num_classes=2, dtype=torch.float32,
+                        device=dev, seed=None)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in var.items()})
+    with torch.no_grad():
+        (x,) = to_device((imgs,), torch.device(dev))
+        proba = torch.softmax(net(x, train=False), -1).cpu().numpy()
+    return dict(proba=proba, stats={k: v for k, v in var.items()
+                                    if k.endswith((".mean", ".var"))},
+                history=model.modelPayload["history"])
+
+
+def grad_sums(model, mesh=None) -> dict:
+    """The sums of squares of the last backward's gradients, by group:
+    the experts' weights (summed over ``expert``: each rank holds its
+    experts), the routers' and every other parameter's."""
+    from synapseml_tpu_torch.parallel.collectives import psum
+    from synapseml_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_size
+    groups = {"expert": [], "router": [], "other": []}
+    for k, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        g = ("expert" if k.endswith(("moe_ffn.w_up", "moe_ffn.w_down")) else
+             "router" if k.endswith("moe_ffn.router") else "other")
+        groups[g].append(p.grad.float().square().sum())
+    zero = torch.zeros((), device=next(model.parameters()).device)
+    sums = torch.stack([sum(v, zero) for v in groups.values()])
+    if axis_size(mesh, EXPERT_AXIS) > 1:
+        sums[0] = psum(sums[0], mesh, EXPERT_AXIS, op="phase28b_grad_sums")
+    return dict(zip(groups, sums.tolist()))
+
+
+def p28_full_width(seed: int, dev, mesh) -> dict:
+    """28b on this rank: phase 17b's model at expertParallelism=2 in
+    bf16: the losses of the first ``warmup + steps`` steps on 17b's batch
+    (the same batch every step), step 1's gradient sums, samples/s and
+    step ms over a window, this rank's peak memory, and the MoE
+    collectives' bytes and seconds a step."""
+    from synapseml_tpu_torch.models.dl import (DeepTextClassifier, DLTrainer,
+                                               OptimizerConfig, TextEncoder,
+                                               resolve_precision)
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    c = P28_FULL
+    est = DeepTextClassifier(modelSize="base", vocabSize=30522,
+                             maxTokenLen=c["seq"], batchSize=c["batch"],
+                             numExperts=c["experts"], moeTopK=2)
+    pol = resolve_precision("bf16")
+    cfg = dataclasses.replace(est._model_config(2), dtype=pol.compute_dtype,
+                              **P28_FULL.get("cfg", {}))
+    empty_cache(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    tr = DLTrainer(TextEncoder(cfg, device=dev, seed=None, mesh=mesh),
+                   OptimizerConfig(learning_rate=2e-5), dev, precision=pol,
+                   mesh=mesh)
+    state = tr.init_state(seed)
+    wrng = np.random.default_rng(seed)       # 17b's batch
+    ids = wrng.integers(0, cfg.vocab_size, (c["batch"], c["seq"])
+                        ).astype(np.int32)
+    mask = np.ones((c["batch"], c["seq"]), bool)
+    lab = wrng.integers(0, 2, c["batch"]).astype(np.int32)
+    bi, bm, bl = tr.shard_batch((ids, mask, lab))
+    step = tr.train_step()
+    state, m = step(state, (bi, bm), bl, seed)
+    loss1 = float(m["loss"])
+    grad_sq1 = grad_sums(tr.model, mesh)
+    losses = [m["loss"]]
+    for _ in range(c["warmup"] - 1):
+        state, m = step(state, (bi, bm), bl, seed)
+        losses.append(m["loss"])
+    float(m["loss"])
+    ops = ("moe_combine", "moe_token_grad", "moe_gate_grad")
+
+    def moe_bytes():
+        from synapseml_tpu_torch.telemetry import get_registry
+        c = get_registry().get("collective_bytes_total")
+        return sum(c.value(op=o, axis="expert") for o in ops) if c else 0.0
+
+    before = moe_bytes()
+    prof = StepProfiler("phase28b")
+    t0 = time.perf_counter()
+    for i in range(c["steps"]):
+        prof.step_begin(i)
+        state, m = step(state, (bi, bm), bl, seed)
+        synchronize(dev)
+        prof.mark("compute")
+        prof.step_end()
+        losses.append(m["loss"])
+    wall = time.perf_counter() - t0
+    per_step = (moe_bytes() - before) / c["steps"]
+    return dict(loss1=loss1, losses=[float(x) for x in losses],
+                grad_sq1=grad_sq1, sps=c["steps"] * c["batch"] / wall,
+                step_ms=wall / c["steps"] * 1e3,
+                peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                         if dev.type == "cuda" else None),
+                moe_allreduce_bytes_per_step=per_step,
+                collective_ms_per_step=prof.totals["collective"]
+                / c["steps"] * 1e3)
+
+
+def p28_capture(seed: int, dev: str, mesh) -> dict:
+    """28d on this rank: a data-parallel GBDT fit and a DL fit over the
+    mesh, each with and without the step profiler's cost capture → the
+    fits' digests and the captured costs."""
+    import hashlib
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models.dl import DeepTextClassifier
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    X, y, _, _ = p25_data(seed, 65_536, hold=10)
+    cfg = B.BoostingConfig(objective="binary", num_iterations=3,
+                           num_leaves=31)
+    plain, _ = B.train(X, y, cfg, mesh=mesh, device=dev)
+    prof = StepProfiler("phase28d_gbdt", capture_xla=True)
+    cap, _ = B.train(X, y, cfg, mesh=mesh, device=dev, step_profiler=prof)
+    out = {"gbdt": dict(equal=plain.to_string() == cap.to_string(),
+                        cost={k: prof.costs["gbdt_step"][k]
+                              for k in ("flops", "bytes_accessed")}
+                        if prof.costs.get("gbdt_step") else None)}
+    rng = np.random.default_rng(seed + 28)
+    words = make_words(rng, 2000)
+    texts, labels = text_corpus(rng, words, 96)
+    ds = Dataset({"text": texts, "label": labels})
+    kw = dict(modelSize="tiny", maxTokenLen=64, vocabSize=2048,
+              batchSize=32, maxEpochs=1, seed=seed, device=dev)
+
+    def digest(m):
+        h = hashlib.md5()
+        for k, v in sorted(m.modelPayload["variables"].items()):
+            h.update(np.ascontiguousarray(v).tobytes())
+        return h.hexdigest()
+
+    dl_prof = StepProfiler("phase28d_dl", capture_xla=True)
+    a = DeepTextClassifier(**kw).fit(ds)
+    b = DeepTextClassifier(stepProfiler=dl_prof, **kw).fit(ds)
+    cost = dl_prof.costs.get("dl_text_step")
+    out["dl"] = dict(equal=digest(a) == digest(b),
+                     cost=None if cost is None else
+                     {k: cost[k] for k in ("flops", "bytes_accessed")})
+    return out
+
+
+def phase28_gang(args: dict) -> dict:
+    """One rank of phase 28's two-rank gloo gang on the card: 28a's mesh
+    fits held against the one-process fits the launching process wrote,
+    28b's full-width expert-parallel window and 28d's captures."""
+    from synapseml_tpu_torch.parallel.mesh import (data_parallel_mesh,
+                                                   dp_ep_mesh)
+    p28_sizes(args.get("sizes"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev_name = args["device"]
+    out = dict(task_start_unix=time.time(), **p25_build(dev_name))
+    data = data_parallel_mesh(device=dev_name)
+    expert = dp_ep_mesh(2, device=dev_name)
+    dev, seed = data.device, args["seed"]
+    from synapseml_tpu_torch.parallel.compression import CollectiveConfig
+    # (i) is the f32 sync's first P28_STEPS steps, (v) runs on to
+    # P28_CODEC_STEPS beside the int8 fit
+    fits = {"d2": (data, P28_CODEC_STEPS, {}),
+            "ep2": (expert, P28_STEPS, {}),
+            "zero1": (data, P28_STEPS, {"zero1": True}),
+            "int8_ef_sharded": (data, P28_CODEC_STEPS, {
+                "collective": CollectiveConfig(**P28_CODEC)})}
+    a, states = {}, {}
+    for name, (mesh, steps, kw) in fits.items():
+        r = p28_text_fit(dev, mesh, seed, steps, **kw)
+        states[name] = r.pop("state")
+        a[name] = r
+    ref = p28_wait_npz(args["reference"])
+    for name in ("d2", "ep2", "zero1"):
+        a[name]["param_diff"] = p28_max_diff(states.pop(name), ref)
+    del states, ref
+    # (vi) dropout on: the data mesh against the launching process's
+    # one-process fit (each rank draws its rows of those masks)
+    d2 = p28_text_fit(dev, data, seed, P28_STEPS, rows=P28_DROP["rows"],
+                      dropout=P28_DROP["rate"], opt=P28_DROP["opt"])
+    dref = p28_wait_npz(args["dropout_reference"])
+    alone = {k[2:]: v for k, v in dref.items() if k.startswith("s.")}
+    a["dropout"] = dict(
+        losses={"d2": d2["losses"], "alone": dref["losses"].tolist()},
+        loss_rel=max(abs(x - y) / abs(y) for x, y in
+                     zip(d2["losses"], dref["losses"].tolist())),
+        param_diff=p28_max_diff(d2["state"], alone),
+        step_ms={"d2": d2["step_s"] * 1e3,
+                 "alone": float(dref["step_s"]) * 1e3},
+        peak_gb={"d2": d2["peak_gb"], "alone": float(dref["peak_gb"])})
+    del d2, dref, alone
+    v = p28_vision_fit(seed, dev_name, 0)
+    vref = p28_wait_npz(args["vision_reference"])
+    a["vision"] = dict(
+        proba_rel=float(np.abs(v["proba"] - vref["proba"]).max()
+                        / np.abs(vref["proba"]).max()),
+        stats_rel=max(float(np.abs(v["stats"][k] - vref[f"s.{k}"]).max()
+                            / max(np.abs(vref[f"s.{k}"]).max(), 1e-30))
+                      for k in v["stats"]),
+        history=v["history"])
+    out["a"] = a
+    empty_cache(dev)
+    out["b"] = p28_full_width(seed, dev, expert)
+    empty_cache(dev)
+    out["d"] = p28_capture(seed, dev_name, data)
+    return out
+
+
+def phase28_elastic(args: dict) -> dict:
+    """28c's rank: the small text classifier with int8 + EF + the sharded
+    update over the gang (``numDevices=0``), a checkpoint every step in
+    ``$SMLTPU_CKPT_DIR``.  Resumed at one rank, it first copies the
+    checkpoint it resumes from, then fits a second time from the copy,
+    then once more without a checkpoint → each fit's history, weight
+    digest and steps run, the step resumed from and the resize notes."""
+    import hashlib
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.core.checkpoint import CheckpointManager
+    from synapseml_tpu_torch.models.dl import DeepTextClassifier
+    from synapseml_tpu_torch.parallel.compression import CollectiveConfig
+    from synapseml_tpu_torch.resilience import get_faults
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    import torch.distributed as dist
+    p28_sizes(args.get("sizes"))
+    faults = get_faults()
+    faults.record_calls = True
+    c = P28_ELASTIC
+    rng = np.random.default_rng(args["seed"] + 280)
+    words = make_words(rng, 2000)
+    texts, labels = text_corpus(rng, words, c["n"])
+    ds = Dataset({"text": texts, "label": labels})
+    ckpt = os.environ["SMLTPU_CKPT_DIR"]
+    resumed_from = CheckpointManager(ckpt).latest_step() or 0
+    world = dist.get_world_size()
+    copy = ckpt.rstrip("/") + "_copy"
+    if world == 1 and resumed_from:
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(ckpt, copy)
+    kw = dict(modelSize="small", maxTokenLen=64, vocabSize=2048,
+              batchSize=c["batch"], maxEpochs=c["epochs"],
+              seed=args["seed"], learningRate=1e-3, lrSchedule="constant",
+              collectiveCompression=CollectiveConfig(**P28_CODEC),
+              device=args["device"])
+
+    def fit(directory):
+        prof = StepProfiler("phase28c")
+        ck = dict(checkpointDir=directory, checkpointInterval=1) \
+            if directory else {}
+        m = DeepTextClassifier(stepProfiler=prof, **ck, **kw).fit(ds)
+        h = hashlib.md5()
+        for k, v in sorted(m.modelPayload["variables"].items()):
+            h.update(np.ascontiguousarray(v).tobytes())
+        return dict(history=m.modelPayload["history"], md5=h.hexdigest(),
+                    steps=prof.steps)
+
+    out = dict(world=world, resumed_from=resumed_from, first=fit(ckpt))
+    if world == 1 and resumed_from:
+        out["second"] = fit(copy)
+        out["uninterrupted"] = fit(None)
+    out["resize_notes"] = [dict(n) for n in
+                           faults.calls_for("dl.resize_resume")]
+    return out
+
+
+def p28_elastic(seed: int, dev, sizes: Optional[dict]):
+    """28c from the launching process: the elastic text fit under a
+    ``GangSupervisor`` whose rank 1 dies after its fourth checkpoint
+    (``P28_ELASTIC``) → (supervisor, the one rank's result, wall s)."""
+    from synapseml_tpu_torch.parallel import GangSupervisor
+    from synapseml_tpu_torch.resilience import RetryPolicy
+    t0 = time.time()
+    sup = GangSupervisor(
+        "chip_smoke:phase28_elastic", 2,
+        task_args=dict(seed=seed, device=dev.type, sizes=sizes),
+        device=dev.type, backend="gloo", timeout_s=P28_GANG_TIMEOUT_S,
+        heartbeat_interval_s=1.0,
+        checkpoint_dir=os.path.join(P28_ROOT, "elastic"),
+        env_extra={"SML_FAULTS": P28_ELASTIC["faults"]}, min_ranks=1,
+        shrink_after=1,
+        retry_policy=RetryPolicy(max_retries=2, base_s=0.01, seed=seed))
+    (one,) = sup.run()
+    return sup, one, time.time() - t0
+
+
+def dl_gang(seed: int, dev, card: str, p17b: Optional[dict] = None,
+            sizes: Optional[dict] = None) -> dict:
+    """Phase 28 from the launching process: the one-process references on
+    the card, the two-rank gloo gang (28a, 28b, 28d) and 28c's elastic
+    fit under a supervisor, which runs beside the gang.  ``p17b``: phase
+    17b's window (its step-1 loss and peak memory; None: 17b's first step
+    runs here).  ``sizes`` replaces ``P28_*`` here and in the ranks (a
+    small run with ``dev`` the CPU).  Raises on a failed check."""
+    from synapseml_tpu_torch.parallel import run_on_local_cluster
+    p28_sizes(sizes)
+    shutil.rmtree(P28_ROOT, ignore_errors=True)
+    os.makedirs(P28_ROOT)
+    ref_path = os.path.join(P28_ROOT, "reference.npz")
+    dref_path = os.path.join(P28_ROOT, "dropout_reference.npz")
+    vref_path = os.path.join(P28_ROOT, "vision_reference.npz")
+    # 28c under its supervisor and the main gang start at once; this
+    # process fits the one-process references meanwhile (the ranks wait
+    # for them after their own fits)
+    from concurrent.futures import ThreadPoolExecutor
+    if dev.type == "cuda":
+        # this process's CUDA context comes up before the pool's threads
+        # start the gangs' processes
+        torch.zeros(1, device=dev)
+        synchronize(dev)
+    pool = ThreadPoolExecutor(2)
+    elastic = pool.submit(p28_elastic, seed, dev, sizes)
+    t0 = time.time()
+    gang = pool.submit(
+        run_on_local_cluster, "chip_smoke:phase28_gang", 2,
+        task_args=dict(seed=seed, device=dev.type, reference=ref_path,
+                       dropout_reference=dref_path,
+                       vision_reference=vref_path, sizes=sizes),
+        device=dev.type, backend="gloo", timeout_s=P28_GANG_TIMEOUT_S)
+    try:
+        with ieee_f32():
+            one = p28_text_fit(dev, None, seed, P28_STEPS)
+            p28_save_npz(ref_path, one["state"])
+            drop = p28_text_fit(dev, None, seed, P28_STEPS,
+                                rows=P28_DROP["rows"],
+                                dropout=P28_DROP["rate"],
+                                opt=P28_DROP["opt"])
+            p28_save_npz(dref_path, dict(
+                losses=np.asarray(drop["losses"]),
+                step_s=np.asarray(drop["step_s"]),
+                peak_gb=np.asarray(np.nan if drop["peak_gb"] is None
+                                   else drop["peak_gb"]),
+                **{f"s.{k}": v for k, v in drop.pop("state").items()}))
+            vone = p28_vision_fit(seed, str(dev), 1)
+            p28_save_npz(vref_path, dict(
+                proba=vone["proba"],
+                **{f"s.{k}": v for k, v in vone["stats"].items()}))
+        if p17b is None:
+            r17 = p28_full_width(seed, dev, None)
+            p17b = dict(loss1=r17["loss1"], losses_head=r17["losses"],
+                        grad_sq1=r17["grad_sq1"], peak_gb=None)
+        loss17 = p17b["loss1"]
+        log(f"phase 28: one-process references on the card: 28a text "
+            f"losses {one['losses']} (dropped {one['dropped']}), vision "
+            f"history {vone['history']}, 17b's step-1 loss {loss17:.6f} | "
+            f"{card}")
+        ranks = gang.result()
+        gang_s = time.time() - t0
+        sup, one_rank, elastic_s = elastic.result()
+    finally:
+        pool.shutdown(wait=True)
+    out = {"gang_s": gang_s}
+    # every reading is printed before a failed check raises
+    fails = []
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        for name in ("d2", "ep2", "zero1"):
+            base = one if name != "zero1" else a["d2"]
+            loss_rel = max(abs(x - y) / abs(y) for x, y in
+                           zip(a[name]["losses"][:P28_STEPS],
+                               base["losses"]))
+            if loss_rel > 1e-5 or a[name]["param_diff"] > 1e-5:
+                fails.append(
+                    f"phase 28a rank {r} {name}: losses {a[name]['losses']}"
+                    f" against {base['losses']} ({loss_rel}), parameters "
+                    f"{a[name]['param_diff']} (limits 1e-5)")
+        if min(a["d2"]["dropped"]) <= 0:
+            fails.append(f"phase 28a: the capacity never dropped "
+                                 f"{a['d2']['dropped']}")
+        if not a["zero1"]["moment_bytes"] * 2 <= \
+                a["d2"]["moment_bytes"] + 64:
+            fails.append(f"phase 28a(iii): zero1 holds "
+                                 f"{a['zero1']['moment_bytes']} moment "
+                                 f"bytes against {a['d2']['moment_bytes']}")
+        gap = abs(a["int8_ef_sharded"]["losses"][-1]
+                  - a["d2"]["losses"][-1])
+        if gap >= 0.05 or not np.isfinite(a["int8_ef_sharded"]["losses"]
+                                          ).all():
+            fails.append(f"phase 28a(v) rank {r}: int8 loss gap "
+                                 f"{gap} after {P28_CODEC_STEPS} steps")
+        v = a["vision"]
+        if v["proba_rel"] > 1e-4 or v["stats_rel"] > 1e-4:
+            fails.append(f"phase 28a(iv) rank {r}: {v}")
+        dr = a["dropout"]
+        if dr["loss_rel"] > 1e-5 or dr["param_diff"] > 1e-5:
+            fails.append(f"phase 28a(vi) rank {r}: dropout {dr}")
+        b = res["b"]
+        b["gaps"] = gaps = dict(
+            losses=max(abs(x - y) / abs(y) for x, y in
+                       zip(b["losses"], p17b["losses_head"])),
+            grad_sums=max(abs(b["grad_sq1"][k] - y) / abs(y)
+                          for k, y in p17b["grad_sq1"].items()))
+        if not (np.isfinite(b["losses"]).all()
+                and len(b["losses"]) == len(p17b["losses_head"])
+                and all(gaps[k] <= P28_FULL_LIMITS[k] for k in gaps)):
+            fails.append(
+                f"phase 28b rank {r}: losses {b['losses']} and gradient "
+                f"sums {b['grad_sq1']} against 17b's {p17b['losses_head']}"
+                f" and {p17b['grad_sq1']}: gaps {gaps} (limits "
+                f"{P28_FULL_LIMITS})")
+        d = res["d"]
+        if not (d["gbdt"]["equal"] and d["dl"]["equal"]
+                and d["gbdt"]["cost"] and d["dl"]["cost"]):
+            fails.append(f"phase 28d rank {r}: {d}")
+    if ranks[0]["d"] != ranks[1]["d"]:
+        fails.append(f"phase 28d: the ranks captured different "
+                             f"costs {ranks[0]['d']} / {ranks[1]['d']}")
+    out["a"] = {r: res["a"] for r, res in enumerate(ranks)}
+    out["b"] = {r: res["b"] for r, res in enumerate(ranks)}
+    out["d"] = ranks[0]["d"]
+    log(f"phase 28a: 2 gloo ranks on the card, BERT-base width cut to 2 "
+        f"layers with 8 experts top-2 (capacity factor 0.5), f32: the data "
+        f"mesh, data 1 x expert 2 and zero1 equal the one-process fit "
+        f"(losses, parameters within 1e-5), int8 + EF + sharded update "
+        f"within 0.05 of the f32 sync after {P28_CODEC_STEPS} steps, "
+        f"ResNet-50 at D=2 equal to one process (rtol 1e-4), the data "
+        f"mesh with dropout {P28_DROP['rate']} at {P28_DROP['rows']} rows "
+        f"equal to one process (sgd; losses and parameters within 1e-5) "
+        f"| {card}: "
+        f"{json.dumps(out['a'])}")
+    for r, res in enumerate(ranks):
+        dr = res["a"]["dropout"]
+        log(f"phase 28a(vi) rank {r}: dropout {P28_DROP['rate']}, "
+            f"{P28_DROP['rows']} rows a step, D=2 against one process: "
+            f"step {dr['step_ms']['d2']:.1f} against "
+            f"{dr['step_ms']['alone']:.1f} ms, peak {dr['peak_gb']['d2']} "
+            f"against {dr['peak_gb']['alone']} GB, losses within "
+            f"{dr['loss_rel']:.3g}, parameters within "
+            f"{dr['param_diff']:.3g} | {card}")
+    for r, b in out["b"].items():
+        log(f"phase 28b rank {r}: phase 17b's model at expertParallelism=2 "
+            f"(data 1 x expert 2), bf16, batch {P28_FULL['batch']} x "
+            f"{P28_FULL['seq']}: {b['sps']:.1f} samples/s, "
+            f"{b['step_ms']:.1f} ms a step, peak {b['peak_gb']} GB "
+            f"(17b one process: {p17b['peak_gb']}), MoE all-reduce "
+            f"{b['moe_allreduce_bytes_per_step'] / 1e6:.1f} MB and "
+            f"{b['collective_ms_per_step']:.1f} ms a step, step-1 loss "
+            f"{b['loss1']:.6f} (17b one process {loss17:.6f}), losses of "
+            f"steps 1-{len(b['losses'])} {b['losses']} against "
+            f"{p17b['losses_head']}, step-1 gradient sums of squares "
+            f"{b['grad_sq1']} against {p17b['grad_sq1']}: gaps "
+            f"{b['gaps']} (limits {P28_FULL_LIMITS}) | {card}")
+    log(f"phase 28d: the cost capture over 2 ranks, GBDT and DL, the same "
+        f"on both ranks, fits equal to the uncaptured fits | {card}: "
+        f"{json.dumps(out['d'])}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+    # 28c: rank 1 died after its fourth checkpoint, the gang shrank to one
+    got = [(e["from"], e["to"]) for e in sup.resize_history]
+    first, second = one_rank["first"], one_rank.get("second")
+    alone = one_rank.get("uninterrupted")
+    losses = [h["loss"] for h in first["history"]]
+    # the resumed fit runs only the steps after its checkpoint and ends
+    # where an uninterrupted one-rank fit ends (its history holds the
+    # epochs it ran to their end)
+    tail = alone["history"][-len(losses):] if alone and losses else []
+    gap = (max(abs(h - u["loss"]) for h, u in zip(losses, tail))
+           if len(tail) == len(losses) else None)
+    if got != [(2, 1)] or one_rank["world"] != 1 \
+            or one_rank["resumed_from"] < 4 or second is None \
+            or first != second \
+            or one_rank["resize_notes"] != [{"saved": 2, "current": 1}] * 2 \
+            or not np.isfinite(losses).all() \
+            or gap is None or gap > P28_ELASTIC_LIMIT \
+            or first["steps"] != alone["steps"] - one_rank["resumed_from"]:
+        raise AssertionError(f"phase 28c: resizes {got}, gap {gap}, "
+                             f"{one_rank}")
+    out["c"] = dict(wall_s=elastic_s, restarts=sup.restarts,
+                    recovery_s=sup.last_recovery_s, **one_rank)
+    log(f"phase 28c: int8 + EF + sharded update over 2 ranks, rank 1 "
+        f"killed after its fourth checkpoint, shrunk to 1 rank: resumed from "
+        f"step {one_rank['resumed_from']} (noted 2 -> 1), ran "
+        f"{first['steps']} of {alone['steps']} steps, two resumes "
+        f"bit-identical, losses {losses} against the uninterrupted one-rank "
+        f"fit's {[u['loss'] for u in tail]} (gap {gap:.3g}, "
+        f"limit {P28_ELASTIC_LIMIT}) | {card}: "
+        f"{json.dumps(out['c'])}")
+    shutil.rmtree(P28_ROOT, ignore_errors=True)
     return out
 
 
@@ -7886,26 +8583,37 @@ def main(argv=None) -> int:
 
     # -- 14. the DL text path: a BERT-base fine-tune ------------------------
     torch.cuda.empty_cache()
-    dl_text(args.seed, dev)
+    # 4,096 training texts (64 steps) and 10-step windows, to make room
+    # for phase 28 (8,192 texts and 20-step windows took 52.5-61.8 s)
+    log("phase 14 at 4096 training texts and 10-step windows (cut from "
+        "8192 and 20)")
+    dl_text(args.seed, dev, n_train=4096, n_steps=10)
     wall("14")
 
     # -- 15. the DL vision path: ResNet-50 ----------------------------------
     torch.cuda.empty_cache()
-    dl_vision(args.seed, dev)
+    # 10-step windows, for phase 28 (20-step windows took 32.8-34.5 s;
+    # the fit keeps its 32 steps for the BatchNorm averages)
+    log("phase 15 at 10-step windows (cut from 20)")
+    dl_vision(args.seed, dev, n_steps=10)
     wall("15")
 
     # -- 16. the online learners at Criteo's column shape --------------------
     torch.cuda.empty_cache()
     # one turn (eager, then graph): three turns cost ~17 s more; 16b's
-    # rows are left for phase 25i.  131,072 + 32,768 rows (262,144 +
-    # 65,536 cost ~15 s more here and ~3 s in 25i)
-    online(args.seed, dev, n_train=131_072, n_hold=32_768, turns=1,
+    # rows are left for phase 25i.  65,536 + 16,384 rows, to make room for
+    # phase 28 (131,072 + 32,768 took 42.0-44.4 s; 262,144 + 65,536 cost
+    # ~15 s more than that here and ~3 s in 25i)
+    log("phase 16 at 65536 + 16384 rows (cut from 131072 + 32768)")
+    online(args.seed, dev, n_train=65_536, n_hold=16_384, turns=1,
            save=P25_ONLINE_ROWS)
     wall("16")
 
     # -- 17. the MoE text encoder at BERT-base width -------------------------
     torch.cuda.empty_cache()
-    dl_moe(args.seed, dev)
+    # 10-step windows, for phase 28 (20-step windows took 39.0-42.2 s)
+    log("phase 17 at 10-step windows (cut from 20)")
+    p17 = dl_moe(args.seed, dev, n_steps=10)
     wall("17")
 
     # -- 18. the LLM served over HTTP at full width ---------------------------
@@ -7990,8 +8698,13 @@ def main(argv=None) -> int:
     if L.BY_SHAPE:
         raise AssertionError(f"phase 22a launched {dict(L.BY_SHAPE)}")
     # ImageLIME over 2 images and tabular SHAP/LIME over 128 rows (8
-    # images and 256 rows cost ~24 s more)
-    p22 = a6_paths(args.seed, dev, card, resnet, n_images=2, n_explain=128)
+    # images and 256 rows cost ~24 s more); AccessAnomaly on 10,000 users
+    # x 5,000 resources and 500,000 triples, to make room for phase 28
+    # (20,000 and 1,000,000: a 10.4 s fit)
+    log("phase 22g at 10000 users and 500000 triples (cut from 20000 and "
+        "1000000)")
+    p22 = a6_paths(args.seed, dev, card, resnet, n_images=2, n_explain=128,
+                   aa=(AA_USERS // 2, AA_RES, AA_TRIPLES // 2))
     check_path("phase22c", p22["gbdt"])
     log(f"phase 22: no K-kernel on this slice's path (the JAX package has "
         f"no TPU kernel here): the explainers, KNN, the isolation forest, "
@@ -8060,6 +8773,11 @@ def main(argv=None) -> int:
         scale_cfg=dict(kind="tiny", num_layers=2, max_len=TIER_LEN,
                        dtype="float32"))
     wall("27")
+
+    # -- 28. DL training over a gang of ranks ---------------------------------
+    torch.cuda.empty_cache()
+    dl_gang(args.seed, dev, card, p17b=p17["window"])
+    wall("28")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

@@ -6,8 +6,11 @@ numpy — ``{"params": ...}`` for a ``TextEncoder``, ``{"params": ...,
 the reference boxes every text leaf with ``nn.with_partitioning``) — and
 returns the port's state dict.  The port keeps the flax names and layouts
 (:mod:`.transformer`, :mod:`.resnet`), so each leaf's path joined with
-dots is its key and every value is kept bit for bit.  The port never
-imports flax.
+dots is its key and every value is kept bit for bit.  With a ``mesh``
+that has an ``expert`` axis, each MoE layer's ``w_up``/``w_down`` hand
+this rank its slice of the experts (``[i·E/ep, (i+1)·E/ep)`` for expert
+index ``i``), the layout of a ``TextEncoder`` built on that mesh.  The
+port never imports flax.
 """
 
 from __future__ import annotations
@@ -36,14 +39,16 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def params_from_reference(variables: Mapping,
                           cfg: Union[TransformerConfig, str],
-                          device: DeviceLike = "cuda"
-                          ) -> Dict[str, torch.Tensor]:
+                          device: DeviceLike = "cuda",
+                          mesh=None) -> Dict[str, torch.Tensor]:
     """The reference's variables → the port's state dict on ``device``.
 
     ``cfg`` is the ``TransformerConfig`` of a text model or the backbone
     name of a vision model (a MoE block's ``moe_ffn`` leaves ``router``,
     ``w_up`` and ``w_down`` keep their names); a vision tree without
-    ``batch_stats`` raises."""
+    ``batch_stats`` raises.  ``mesh``: this rank's experts only (module
+    docstring)."""
+    from ...parallel.mesh import EXPERT_AXIS, axis_index, axis_size
     dev = resolve_device(device)
     if isinstance(cfg, TransformerConfig):
         sd = flatten_tree(variables.get("params", variables))
@@ -54,5 +59,12 @@ def params_from_reference(variables: Mapping,
             raise ValueError("a ResNet's variables need 'batch_stats'")
         sd = flatten_tree(variables["params"])
         sd.update(flatten_tree(variables["batch_stats"]))
+    ep = axis_size(mesh, EXPERT_AXIS)
+    if ep > 1:
+        for k in [k for k in sd if k.endswith(("moe_ffn.w_up",
+                                               "moe_ffn.w_down"))]:
+            per = np.shape(sd[k])[0] // ep
+            lo = axis_index(mesh, EXPERT_AXIS) * per
+            sd[k] = np.asarray(sd[k])[lo:lo + per]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
             for k, v in sd.items()}

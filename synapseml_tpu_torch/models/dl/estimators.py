@@ -12,23 +12,33 @@ step's metrics stay on the device and the fit reads them once an epoch.
 out-of-memory error and remembering the size that worked per model
 shape.
 
-The param surface is the JAX package's plus ``device``.  What is not
-ported raises ``NotImplementedError`` naming its ROADMAP item before any
-tokenizing or image work: a mesh (``numDevices > 1``,
-``modelParallelism > 1``, ``zero1``, ``collectiveCompression``,
-``expertParallelism > 1``) waits for A5.  Step checkpoints
+The param surface is the JAX package's plus ``device``.  A fit runs over
+the ranks of the initialized ``torch.distributed`` group (the shards are
+ranks, as the GBDT's ``numShards``): ``numDevices=0`` means every rank,
+``1`` the local device, and any other value must equal the group's size
+(``ValueError`` before any work otherwise).  Over a gang each rank
+trains on its block of every batch (:mod:`.training`), the model is the
+same on every rank when the fit ends, and it loads on one card.
+``expertParallelism`` shards the MoE experts over an ``expert`` axis
+(``{data: world / ep, expert: ep}``), ``zero1`` shards the optimizer
+moments and ``collectiveCompression`` ('bf16' | 'int8' with error
+feedback, or a ``CollectiveConfig``) runs the manual data-parallel step;
+``modelParallelism > 1`` raises ``NotImplementedError`` naming ROADMAP
+A5 (tensor parallelism) before any work.  Step checkpoints
 (``checkpointDir`` or ``checkpointManager`` with ``checkpointInterval``)
 save the model's parameters and buffers, the optimizer's moments and
-count and the step every that many optimizer steps
-(:class:`_CheckpointLoop`); a later fit with the same directory resumes
-from the newest, replaying the data order so it trains on the batches
-the uninterrupted fit would.  ``numExperts > 0`` trains the MoE
-FFN (:mod:`.moe`) on the one card.  ``stepProfiler`` (a
+count, the residuals and the step every that many optimizer steps
+(:class:`_CheckpointLoop`; over a gang, rank 0 writes); a later fit with
+the same directory resumes from the newest, at any number of ranks,
+replaying the data order so it trains on the batches the uninterrupted
+fit would.  ``stepProfiler`` (a
 :class:`~synapseml_tpu_torch.telemetry.gangplane.StepProfiler`) times
 each step's data / compute / other segments, synchronizing the device
 before ``compute`` ends (only when a profiler is set); with its
 ``capture_xla`` it captures one step's cost (``dl_text_step`` /
-``dl_vision_step``), run on a deep copy of the training state.
+``dl_vision_step``), run on a deep copy of the training state; over a
+gang every rank captures the same step together (the copy's step runs
+the collectives), and the ranks must agree on ``capture_xla``.
 """
 
 from __future__ import annotations
@@ -47,12 +57,14 @@ from ...core.params import (BoolParam, FloatParam, IntParam, Params,
                             PyObjectParam, StringParam)
 from ...core.pipeline import Estimator, Model
 from ...device import resolve_device, synchronize
-from ...telemetry.gangplane import check_profiler
+from ...parallel.mesh import DATA_AXIS, axis_size
+from ...telemetry.gangplane import agree_capture, check_profiler
 from .precision import resolve_precision
 from .resnet import BACKBONES, BottleneckResNetBlock, make_backbone
 from .tokenizer import WordPieceTokenizer, WordTokenizer, tokenizer_from_dict
 from .training import (DLTrainer, OptimizerConfig, TrainState,
-                       iterate_minibatches, num_minibatches, to_device)
+                       iterate_minibatches, make_dl_mesh, num_minibatches,
+                       to_device)
 from .transformer import TextEncoder, TransformerConfig
 
 
@@ -85,9 +97,11 @@ def _bert_checkpoint_assets(path, dropout_rate):
 
 
 def _host_state(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The model's parameters and batch statistics as host numpy."""
-    return {k: v.detach().cpu().numpy() for k, v in
-            model.state_dict().items()}
+    """The whole model's parameters and batch statistics as host numpy
+    (an expert-sharded model's experts gathered: collective)."""
+    sd = (model.full_state_dict() if hasattr(model, "full_state_dict")
+          else model.state_dict())
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
 
 
 def _load_state(model: torch.nn.Module, state: Dict[str, np.ndarray]):
@@ -139,10 +153,11 @@ def _softmax_predict(logits: np.ndarray, classes: np.ndarray):
 
 
 def _profile_data(prof, key: str, step, state, inputs, labels, seed: int,
-                  items: int, dev) -> None:
+                  items: int, dev, mesh=None) -> None:
     """The step's data segment ends (the batch is on the device); with the
     profiler's ``capture_xla``, its cost is captured once, on a deep copy
-    of the training state, outside the step's time."""
+    of the training state, outside the step's time (over a mesh, by
+    every rank together)."""
     if prof is None:
         return
     prof.mark("data")
@@ -150,7 +165,8 @@ def _profile_data(prof, key: str, step, state, inputs, labels, seed: int,
         import copy
         with prof.excluded():
             prof.capture_cost(key, step, copy.deepcopy(state), inputs,
-                              labels, seed, items=items, device=dev)
+                              labels, seed, items=items, device=dev,
+                              mesh=mesh)
 
 
 def _profile_step_end(prof, dev) -> None:
@@ -184,12 +200,14 @@ class _DLParamsBase(Params):
     warmupRatio = FloatParam(doc="warmup fraction of steps", default=0.06)
     gradClipNorm = FloatParam(doc="gradient clip norm (0=off)", default=1.0)
     seed = IntParam(doc="rng seed", default=0)
-    numDevices = IntParam(doc="devices to use (0 = all; the port runs on "
-                              "one card, more is ROADMAP A5)", default=0)
+    numDevices = IntParam(doc="ranks to train over: 0 = every rank of the "
+                              "initialized process group, 1 = this device, "
+                              "else the group's size", default=0)
     modelParallelism = IntParam(doc="tensor-parallel size (not ported: "
-                                    "ROADMAP A5)", default=1)
-    zero1 = BoolParam(doc="shard optimizer moments (not ported: ROADMAP "
-                          "A5)", default=False)
+                                    "ROADMAP A5: tensor parallelism)",
+                                default=1)
+    zero1 = BoolParam(doc="shard the optimizer moments over the data axis "
+                          "(ZeRO-1)", default=False)
     validationFraction = FloatParam(doc="fraction held out for eval logging",
                                     default=0.0)
     checkpointDir = StringParam(doc="step-checkpoint directory: a fit "
@@ -216,34 +234,42 @@ class _DLParamsBase(Params):
             "optimizer and batch statistics)",
         default="bf16", allowed=("bf16", "f32", "bf16_grad"))
     collectiveCompression = PyObjectParam(
-        doc="gradient-sync codec: only 'none' on one card (the codecs are "
-            "ROADMAP A5)")
+        doc="wire codec + sharding for the gradient sync: 'none' (default) "
+            "| 'bf16' | 'int8' (both with error feedback) | a parallel."
+            "compression.CollectiveConfig (compression / sharded_update / "
+            "error_feedback / min_size knobs): runs the manual "
+            "data-parallel step; needs a pure data mesh")
 
-    def _check_ported(self) -> None:
-        """Refuse what is not ported, before any work."""
-        def refuse(what, item):
+    def _collective_config(self):
+        from ...parallel.compression import resolve_collective_config
+        return resolve_collective_config(self.get("collectiveCompression"))
+
+    def _resolve_mesh(self, ep: int = 1):
+        """Check the knobs and build the fit's mesh, before any work: None
+        for a fit on this device, else a ProcessMesh over every rank of
+        the group (``{data, expert}`` when ``ep > 1``)."""
+        name = type(self).__name__
+        _manager_dir(self.get("checkpointManager"))
+        check_profiler(self.get("stepProfiler"), name)
+        cc = self._collective_config()
+        if cc is not None and self.zero1:
+            raise ValueError(
+                f"{name}: zero1 and collectiveCompression are mutually "
+                "exclusive (sharded_update=True is the explicit form of "
+                "zero1 and composes with compression)")
+        if self.zero1 and ep > 1:
             raise NotImplementedError(
-                f"{type(self).__name__}: {what} is not ported yet "
-                f"(ROADMAP {item})")
-        if self.numDevices > 1:
-            refuse("numDevices > 1 (a data-parallel mesh)",
-                   "A5: DL mesh training")
-        if self.modelParallelism > 1:
-            refuse("modelParallelism > 1 (tensor parallelism)",
-                   "A5: DL mesh training")
-        if self.zero1:
-            refuse("zero1 (sharded optimizer moments)",
-                   "A5: DL mesh training")
-        cc = self.get("collectiveCompression")
-        if cc is not None and cc != "none":
-            refuse(f"collectiveCompression={cc!r} (compressed gradient "
-                   "collectives)", "A5: DL mesh training")
-        shards = _saved_shards(self.get("checkpointManager"),
-                               self.get("checkpointDir"))
-        if shards != 1:
-            refuse(f"resuming a {shards}-shard mesh fit's step checkpoint "
-                   "(re-sharding it onto one card)", "A5: DL mesh training")
-        check_profiler(self.get("stepProfiler"), type(self).__name__)
+                f"{name}: zero1 over an expert mesh is not ported yet "
+                "(ROADMAP A5: zero1 with expertParallelism)")
+        if cc is not None and ep > 1:
+            raise ValueError(
+                f"{name}: collectiveCompression runs the manual "
+                "data-parallel step, which needs a pure data mesh; drop "
+                "expertParallelism or collectiveCompression")
+        mesh = make_dl_mesh(self.modelParallelism, int(self.numDevices),
+                            ep, device=self.device, owner=name)
+        agree_capture(self.get("stepProfiler"), mesh)
+        return mesh
 
     def _precision_policy(self):
         return resolve_precision(self.precision)
@@ -266,51 +292,50 @@ class _DLParamsBase(Params):
         return classes, np.searchsorted(classes, y_raw).astype(np.int32)
 
 
-def _saved_shards(manager, ckpt_dir) -> int:
-    """The ``shards`` the newest step checkpoint of ``manager`` (else of
-    ``ckpt_dir``) was written with; 1 when there is none."""
-    if manager is not None:
-        if getattr(manager, "directory", None) is None:
-            raise TypeError(
-                "checkpointManager must be a core.checkpoint."
-                "CheckpointManager (an object with a directory), got "
-                f"{type(manager).__name__}")
-        ckpt_dir = manager.directory
-    if not ckpt_dir or not os.path.isdir(ckpt_dir):
-        return 1
-    from ...core.checkpoint import CheckpointManager
-    mgr = CheckpointManager(ckpt_dir)
-    latest = mgr.latest_step()
-    if latest is None:
-        return 1
-    return int(mgr.metrics(latest).get("shards", 1.0))
+def _manager_dir(manager):
+    """``checkpointManager``'s directory (None without one); raises
+    ``TypeError`` for an object that is not a manager."""
+    if manager is None:
+        return None
+    if getattr(manager, "directory", None) is None:
+        raise TypeError(
+            "checkpointManager must be a core.checkpoint."
+            "CheckpointManager (an object with a directory), got "
+            f"{type(manager).__name__}")
+    return manager.directory
 
 
 class _CheckpointLoop:
     """Step checkpoints and resume for the DL fit loops (the JAX
-    package's ``_CheckpointLoop`` on one card).
+    package's ``_CheckpointLoop``).
 
     The config guard takes the JAX package's keys: the data-order keys
     (``batchSize``, ``seed``, ``validationFraction``), ``precision``,
-    ``shards`` (1 on one card) and the codec, sharding, error-feedback,
-    manual-step, min-size, chunk and routing keys, all 0.0 here.  A saved
-    value that differs in any key but ``shards`` raises ``ValueError``;
-    a saved ``shards`` other than 1 (a mesh fit's checkpoint) is refused
-    before any work (:func:`_saved_shards`): there is no DL mesh to
-    re-shard onto.
+    ``shards`` (the data axis's size) and the gradient sync's codec,
+    sharding, error-feedback, manual-step, min-size, chunk and routing
+    keys, plus the port's ``zero1`` (its moments are laid out as one flat
+    stream).  A saved value that differs in any key but ``shards``
+    raises ``ValueError``; a saved ``shards`` that differs is an elastic
+    resize: the checkpoint is re-laid for this size
+    (:meth:`~.training.DLTrainer.load_checkpoint_tree`) and
+    ``dl.resize_resume`` (saved, current) is noted in the fault registry
+    and the flight ring.
 
-    A save holds the model's parameters and buffers (its
-    ``state_dict``), the optimizer's moments and count and
-    ``TrainState.step``, every ``checkpointInterval`` optimizer steps,
-    with the ``dl.checkpoint`` kill point after it.  A resume restores
-    them onto the fit's device and :meth:`skips` the steps already taken
-    (their batches are drawn, nothing runs)."""
+    A save holds :meth:`~.training.DLTrainer.checkpoint_tree` (the whole
+    model, the optimizer, the step and the residuals; gathered over a
+    mesh, written by rank 0, then a barrier) every
+    ``checkpointInterval`` optimizer steps, with the ``dl.checkpoint``
+    kill point after it.  A resume restores it and :meth:`skips` the
+    steps already taken (their batches are drawn, nothing runs)."""
 
     _CONFIG_KEYS = ("batchSize", "seed", "validationFraction")
-    #: keys of a mesh fit's gradient sync: 0.0 on one card, and a
-    #: checkpoint that predates them wrote none (the same 0.0)
+    #: keys of the gradient sync; a checkpoint that predates them wrote
+    #: none (0.0)
     _SYNC_KEYS = ("compression", "sharded_update", "error_feedback",
-                  "manual_step", "codec_min_size", "codec_chunk", "routing")
+                  "manual_step", "codec_min_size", "codec_chunk", "routing",
+                  "zero1")
+    #: collectiveCompression codec → config-guard float
+    _CODEC_CODE = {"none": 0.0, "bf16": 1.0, "int8": 2.0}
 
     def __init__(self, est: "_DLParamsBase", trainer: DLTrainer,
                  state: TrainState):
@@ -320,11 +345,11 @@ class _CheckpointLoop:
         self.start_step = 0
         self.interval = int(est.checkpointInterval)
         self.state = state
-        self.device = trainer.device
+        self.trainer = trainer
         self._config = {k: float(est.get_or_default(k))
                         for k in self._CONFIG_KEYS}
-        self._config["shards"] = 1.0
-        self._config.update({k: 0.0 for k in self._SYNC_KEYS})
+        self._config["shards"] = float(trainer.data_size)
+        self._config.update(self._sync_config(trainer))
         self._config["precision"] = PRECISION_CODE[
             str(est.get_or_default("precision"))]
         manager = est.get("checkpointManager")
@@ -349,35 +374,45 @@ class _CheckpointLoop:
                 f"different data-order config {mismatch}; resuming would "
                 f"silently train on wrong batches — use a fresh "
                 f"checkpointDir or restore manually")
-        # a saved shards != 1 was refused before any work (_check_ported)
-        restored = self.manager.restore_state_dict(self._tree(state), latest,
-                                                   device=self.device)
-        self._load(state, restored)
+        saved = int(saved_cfg.get("shards", self._config["shards"]))
+        current = int(self._config["shards"])
+        trainer.load_checkpoint_tree(
+            state, self.manager.restore(latest, device="cpu"), saved)
+        if saved != current:
+            from ...resilience.faults import get_faults
+            from ...telemetry.flight import record as flight_record
+            get_faults().note("dl.resize_resume", saved=saved,
+                              current=current)
+            flight_record("resize_resume", trainer="dl",
+                          saved_shards=saved, current_shards=current)
         self.start_step = state.step
 
-    @staticmethod
-    def _tree(state: TrainState) -> dict:
-        """The saved pytree: tensors on the fit's device."""
-        opt = state.opt
-        moments = ({"mu": opt.mu, "nu": opt.nu} if hasattr(opt, "mu")
-                   else {"trace": opt.trace})
-        return {"model": state.model.state_dict(),
-                "opt": {"count": np.asarray(opt.count, np.int64),
-                        **moments},
-                "step": np.asarray(state.step, np.int64)}
-
-    @staticmethod
-    def _load(state: TrainState, tree: dict) -> None:
-        state.model.load_state_dict(tree["model"])
-        opt = state.opt
-        with torch.no_grad():
-            for name in ("mu", "nu", "trace"):
-                if name in tree["opt"]:
-                    for dst, src in zip(getattr(opt, name),
-                                        tree["opt"][name]):
-                        dst.copy_(src)
-        opt.count = int(tree["opt"]["count"])
-        state.step = int(tree["step"])
+    @classmethod
+    def _sync_config(cls, trainer: DLTrainer) -> Dict[str, float]:
+        """The gradient sync's guard keys: 0.0 each without a codec."""
+        cc = trainer.collective
+        out = {k: 0.0 for k in cls._SYNC_KEYS}
+        out["zero1"] = float(trainer.zero1)
+        if cc is None:
+            return out
+        from ...parallel.planner import STRATEGIES, get_planner
+        out.update(
+            compression=cls._CODEC_CODE[cc.compression],
+            sharded_update=float(cc.sharded_update),
+            error_feedback=float(cc.error_feedback), manual_step=1.0,
+            codec_min_size=float(cc.min_size),
+            codec_chunk=float(cc.chunk if cc.compression == "int8"
+                              else 0.0))
+        # the resolved route: flat wherever the sync cannot route (no
+        # codec and no explicit route, or the sharded update's own
+        # reduce-scatter), as the reference stamps it
+        unroutable = cc.sharded_update or (not cc.compresses
+                                           and not cc.routes)
+        routing = ("flat" if unroutable else get_planner().resolved_routing(
+            cc, world=trainer.data_size))
+        out["routing"] = (0.0 if routing == "flat"
+                          else float(1 + STRATEGIES.index(routing)))
+        return out
 
     def skips(self, gstep: int) -> bool:
         """True while replaying steps the checkpoint already holds."""
@@ -385,8 +420,13 @@ class _CheckpointLoop:
 
     def after_step(self, gstep: int, state: TrainState) -> None:
         if self.manager and self.interval and gstep % self.interval == 0:
-            self.manager.save(gstep, self._tree(state),
-                              metrics=self._config)
+            tree = self.trainer.checkpoint_tree(state)
+            if self.trainer.is_writer:
+                self.manager.save(gstep, tree, metrics=self._config)
+            if self.trainer.mesh is not None:
+                # every rank leaves the step once the checkpoint is durable
+                import torch.distributed as dist
+                dist.barrier()
             # the preemption point: after a durable step, before the next
             from ...resilience.faults import get_faults
             get_faults().kill_point("dl.checkpoint", step=gstep)
@@ -412,15 +452,21 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
         doc="rematerialize encoder blocks in the backward pass (the legacy "
             "form of rematPolicy='full')", default=False)
     moeTopK = IntParam(doc="MoE router top-k", default=2)
-    expertParallelism = IntParam(doc="expert-axis mesh size (not ported: "
-                                     "ROADMAP A5)", default=1)
+    expertParallelism = IntParam(doc="expert-axis mesh size (> 1 shards "
+                                     "the MoE experts over the ranks; "
+                                     "requires numExperts > 0)", default=1)
 
-    def _check_ported(self) -> None:
-        super()._check_ported()
-        if self.expertParallelism > 1:
-            raise NotImplementedError(
-                "DeepTextClassifier: expertParallelism > 1 (an expert mesh "
-                "axis) is not ported yet (ROADMAP A5: expertParallelism)")
+    def _resolve_mesh(self, ep: int = 1):
+        ep = int(self.expertParallelism)
+        if ep > 1:
+            if self.numExperts <= 0:
+                raise ValueError("expertParallelism > 1 requires "
+                                 "numExperts > 0 (MoE FFN)")
+            if self.numExperts % ep:
+                raise ValueError(
+                    f"numExperts={self.numExperts} must be divisible by "
+                    f"expertParallelism={ep} to shard experts evenly")
+        return super()._resolve_mesh(max(ep, 1))
 
     def _model_config(self, num_classes: int) -> TransformerConfig:
         sizes = {
@@ -434,7 +480,7 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
             num_experts=self.numExperts, moe_top_k=self.moeTopK, **sizes)
 
     def _fit(self, ds: Dataset) -> "DeepTextModel":
-        self._check_ported()
+        mesh = self._resolve_mesh()
         dev = resolve_device(self.device)
         texts = list(ds[self.textCol])
         classes, labels = self._labels(ds, self.labelCol)
@@ -459,7 +505,9 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
                 ids[:keep], mask[:keep], labels[:keep], ids[keep:],
                 mask[keep:], labels[keep:])
         n = len(labels)
-        total_steps = num_minibatches(n, self.batchSize, 1) * self.maxEpochs
+        shards = axis_size(mesh, DATA_AXIS)
+        total_steps = (num_minibatches(n, self.batchSize, shards)
+                       * self.maxEpochs)
 
         base_cfg = (ckpt_cfg if ckpt_cfg is not None
                     else self._model_config(num_classes))
@@ -469,14 +517,17 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
         policy = self._precision_policy()
         cfg = dataclasses.replace(base_cfg, num_classes=num_classes,
                                   remat=remat, dtype=policy.compute_dtype)
-        model = TextEncoder(cfg, device=dev, seed=None)
+        model = TextEncoder(cfg, device=dev, seed=None, mesh=mesh)
         trainer = DLTrainer(model, self._opt_config(total_steps), dev,
-                            precision=policy)
+                            precision=policy, mesh=mesh,
+                            zero1=bool(self.zero1),
+                            collective=self._collective_config())
         state = trainer.init_state(self.seed)
         if ckpt_path:
             from .checkpoints import import_bert
-            model.load_state_dict(import_bert(
-                model.state_dict(), ckpt_path, num_layers=cfg.num_layers))
+            model.load_full_state_dict(import_bert(
+                model.full_state_dict(), ckpt_path,
+                num_layers=cfg.num_layers))
         step = trainer.train_step()
         eval_step = trainer.eval_step()
         rng = np.random.default_rng(self.seed)
@@ -488,16 +539,18 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
         try:
             for _ in range(self.maxEpochs):
                 metrics = {}
-                for idx in iterate_minibatches(n, self.batchSize, 1, rng):
+                for idx in iterate_minibatches(n, self.batchSize, shards,
+                                               rng):
                     gstep += 1
                     if ckpt.skips(gstep):
                         continue
                     if prof is not None:
                         prof.step_begin(gstep)
+                    idx = trainer.local_rows(idx)
                     bi, bm, bl = trainer.shard_batch(
                         (ids[idx], mask[idx], labels[idx]))
                     _profile_data(prof, "dl_text_step", step, state, (bi, bm),
-                                  bl, self.seed, len(idx), dev)
+                                  bl, self.seed, len(idx), dev, mesh)
                     state, metrics = step(state, (bi, bm), bl, self.seed)
                     _profile_step_end(prof, dev)
                     ckpt.after_step(gstep, state)
@@ -585,7 +638,7 @@ class DeepVisionClassifier(_DLParamsBase, Estimator):
             "shape matches")
 
     def _fit(self, ds: Dataset) -> "DeepVisionModel":
-        self._check_ported()
+        mesh = self._resolve_mesh()
         dev = resolve_device(self.device)
         imgs = np.stack([np.asarray(im, np.float32)
                          for im in ds[self.imageCol]])
@@ -596,16 +649,20 @@ class DeepVisionClassifier(_DLParamsBase, Estimator):
             imgs = imgs / 255.0
         classes, labels = self._labels(ds, self.labelCol)
         n = len(imgs)
-        total_steps = num_minibatches(n, self.batchSize, 1) * self.maxEpochs
+        shards = axis_size(mesh, DATA_AXIS)
+        total_steps = (num_minibatches(n, self.batchSize, shards)
+                       * self.maxEpochs)
 
         policy = self._precision_policy()
         model = make_backbone(self.backbone, num_classes=len(classes),
                               remat=self.rematPolicy,
                               dtype=policy.compute_dtype, device=dev,
-                              seed=None)
+                              seed=None, mesh=mesh)
         trainer = DLTrainer(model, self._opt_config(total_steps), dev,
                             has_batch_stats=True, train_kwarg="train",
-                            precision=policy)
+                            precision=policy, mesh=mesh,
+                            zero1=bool(self.zero1),
+                            collective=self._collective_config())
         state = trainer.init_state(self.seed)
         if self.get("checkpoint"):
             from .checkpoints import import_resnet
@@ -624,15 +681,17 @@ class DeepVisionClassifier(_DLParamsBase, Estimator):
         try:
             for _ in range(self.maxEpochs):
                 metrics = {}
-                for idx in iterate_minibatches(n, self.batchSize, 1, rng):
+                for idx in iterate_minibatches(n, self.batchSize, shards,
+                                               rng):
                     gstep += 1
                     if ckpt.skips(gstep):
                         continue
                     if prof is not None:
                         prof.step_begin(gstep)
+                    idx = trainer.local_rows(idx)
                     bi, bl = trainer.shard_batch((imgs[idx], labels[idx]))
                     _profile_data(prof, "dl_vision_step", step, state, (bi,),
-                                  bl, self.seed, len(idx), dev)
+                                  bl, self.seed, len(idx), dev, mesh)
                     state, metrics = step(state, (bi,), bl, self.seed)
                     _profile_step_end(prof, dev)
                     ckpt.after_step(gstep, state)

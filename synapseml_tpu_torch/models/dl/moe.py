@@ -29,18 +29,49 @@ into its ``(e, c)`` slot by index (each slot holds at most one token, so
 the sums are the same), and the combine is a K-term weighted gather of
 the experts' outputs.  :meth:`MoEFFN.forward` with ``dense=True`` runs the
 reference's einsum form, the plain version the tests hold the gather
-form against.  Expert parallelism over a mesh is not ported (ROADMAP
-A5).
+form against.
+
+Over a mesh (``mesh=``, a :class:`~synapseml_tpu_torch.parallel.mesh.
+ProcessMesh`), the layer computes what the reference computes under
+GSPMD, where the MoE sees the global batch:
+
+- with ``rows=`` (a training step's batch sharded over ``data``) the
+  capacity is ``capacity(cf, K, N_global, E)`` and the slot positions are
+  slot-major over the global token order (every first choice of every
+  shard before any second choice, shard 0's tokens before shard 1's):
+  one all-gather of each shard's ``(K, E)`` choice counts gives this
+  shard's offsets (:func:`route_sharded`).  The Switch loss takes
+  ``f_e`` and ``p_e`` over the global batch: the counts already hold
+  ``f_e``, and the router's probability sums are summed over ``data``
+  with the gradient passed through (:func:`~synapseml_tpu_torch.parallel.
+  collectives.reduce_forward`);
+- on an ``expert`` axis of size ep each rank holds only the ``E / ep``
+  experts ``[i·E/ep, (i+1)·E/ep)`` of its expert index ``i`` (``w_up``
+  and ``w_down`` local; the router replicated).  No all-to-all: a
+  token's expert output depends only on the token and that expert's
+  weights, so each rank runs its own rows' kept tokens through the
+  experts it owns, adds their gated outputs into an f32 partial sum and
+  the partials are summed over ``expert`` (forward sum, the gradient
+  passed through).  The tokens that enter the experts and the gates
+  pass through ``reduce_backward`` (forward identity, gradient summed
+  over ``expert``), so every replicated parameter's gradient is whole
+  on every expert rank and the expert weights' gradients are their
+  owner's: the trainer then reduces every gradient over ``data`` only.
+  At K = 2 the f32 sum of two partials equals the one-card combine bit
+  for bit.  On a ``(data > 1, expert > 1)`` mesh each rank's expert
+  buffer keeps all ``C`` slots of the global capacity, of which its
+  rows fill about ``1 / data``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import DATA_AXIS, EXPERT_AXIS, axis_index, axis_size
 from .transformer import _param, trunc_normal
 
 
@@ -75,24 +106,69 @@ def route(probs: torch.Tensor, top_k: int, cap: int
     return gate_vals, gate_idx, pos, pos < cap
 
 
+def route_sharded(probs: torch.Tensor, top_k: int, cap: int, mesh,
+                  axis: str = DATA_AXIS):
+    """:func:`route` for this rank's shard of a batch sharded over
+    ``axis``: positions slot-major over the GLOBAL token order (shard
+    ``d``'s tokens after those of shards ``< d``).  → ``(gate_vals,
+    gate_idx, pos, keep, counts)``, ``counts`` the global ``(K, E)``
+    choice counts (int64).  Without a sharded axis the positions equal
+    :func:`route`'s."""
+    from ...parallel.collectives import all_gather
+    N, E = probs.shape
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals = order.values[:, :top_k]
+    gate_idx = order.indices[:, :top_k]
+    oh = F.one_hot(gate_idx, E).permute(1, 2, 0).contiguous()   # (K, E, N)
+    local = oh.sum(-1)                                           # (K, E)
+    within = torch.cumsum(oh, dim=-1) - oh    # earlier tokens, same choice
+    local_pos = within.gather(1, gate_idx.t()[:, None, :]).squeeze(1).t()
+    if axis_size(mesh, axis) > 1:
+        every = all_gather(local, mesh, axis, op="moe_counts")   # (D, K, E)
+        counts = every.sum(0)
+        earlier = every[:axis_index(mesh, axis)].sum(0)
+    else:
+        counts, earlier = local, torch.zeros_like(local)
+    offset = torch.cumsum(counts, dim=0) - counts + earlier      # (K, E)
+    pos = local_pos + offset.gather(1, gate_idx.t()).t()
+    return gate_vals, gate_idx, pos, pos < cap, counts
+
+
+def kept_choices(counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """The (token, choice) pairs the capacity keeps, from the global
+    ``(K, E)`` counts: choice ``k`` of expert ``e`` fills the positions
+    after every earlier choice's, and the first ``cap`` are kept."""
+    before = torch.cumsum(counts, dim=0) - counts
+    return torch.minimum(torch.clamp(cap - before, min=0), counts).sum()
+
+
 class MoEFFN(nn.Module):
     """Drop-in FFN replacement: (B, S, D) → (B, S, D) through E experts.
     Parameters keep the flax names and layouts: ``router`` (D, E) f32,
-    ``w_up`` (E, D, d_ff) and ``w_down`` (E, d_ff, D)."""
+    ``w_up`` (E, D, d_ff) and ``w_down`` (E, d_ff, D); on a mesh with an
+    ``expert`` axis of size ep, ``w_up``/``w_down`` hold this rank's
+    ``E / ep`` experts from :attr:`expert_lo`."""
 
     def __init__(self, num_experts: int, d_model: int, d_ff: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
                  aux_loss_weight: float = 0.01, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
         self.num_experts = num_experts
         self.top_k = top_k
         self.capacity_factor = capacity_factor
         self.aux_loss_weight = aux_loss_weight
         self.dtype = dtype
+        self.mesh = mesh
+        self.ep = axis_size(mesh, EXPERT_AXIS)
+        if num_experts % self.ep:
+            raise ValueError(f"{num_experts} experts do not split over an "
+                             f"expert axis of {self.ep}")
+        self.local_experts = num_experts // self.ep
+        self.expert_lo = axis_index(mesh, EXPERT_AXIS) * self.local_experts
         self.router = _param((d_model, num_experts), device)
-        self.w_up = _param((num_experts, d_model, d_ff), device)
-        self.w_down = _param((num_experts, d_ff, d_model), device)
+        self.w_up = _param((self.local_experts, d_model, d_ff), device)
+        self.w_down = _param((self.local_experts, d_ff, d_model), device)
         #: the last forward's load-balance loss (f32 scalar)
         self.aux_loss = None
         #: the last forward's share of (token, choice) pairs dropped by
@@ -100,8 +176,13 @@ class MoEFFN(nn.Module):
         self.dropped = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        for p in (self.router, self.w_up, self.w_down):
-            p.copy_(trunc_normal(p.shape, gen, 0.02))
+        # every expert is drawn, so a rank's experts are the one-card
+        # model's from the same seed
+        self.router.copy_(trunc_normal(self.router.shape, gen, 0.02))
+        lo, hi = self.expert_lo, self.expert_lo + self.local_experts
+        for p in (self.w_up, self.w_down):
+            full = (self.num_experts,) + tuple(p.shape[1:])
+            p.copy_(trunc_normal(full, gen, 0.02)[lo:hi])
 
     def _experts(self, expert_in: torch.Tensor) -> torch.Tensor:
         """(E, C, D) in the model dtype → (E, C, D)."""
@@ -109,7 +190,47 @@ class MoEFFN(nn.Module):
         h = F.gelu(h, approximate="tanh")
         return torch.bmm(h, self.w_down.to(self.dtype))
 
-    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dense: bool = False,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """``x`` (B, S, D) → (B, S, D).  ``rows`` (``(lo, total)``, set by
+        a training step over a mesh) says ``x`` holds rows ``[lo, lo+B)``
+        of a ``total``-row batch sharded over the mesh's ``data`` axis:
+        capacity, positions and the Switch loss are then the global
+        batch's (module docstring)."""
+        B, S, D = x.shape
+        sharded = rows is not None and axis_size(self.mesh, DATA_AXIS) > 1
+        if not sharded and self.ep == 1:
+            return self._one_card(x, dense)
+        if dense and self.ep > 1:
+            raise ValueError("dense=True is the one-card plain version; "
+                             "an expert-sharded layer gathers")
+        E, K = self.num_experts, self.top_k
+        N = B * S
+        n_global = (rows[1] if sharded else B) * S
+        C = capacity(self.capacity_factor, K, n_global, E)
+        tokens = x.reshape(N, D)
+        probs = torch.softmax(tokens.float() @ self.router, dim=-1)
+        gate_vals, gate_idx, pos, keep, counts = route_sharded(
+            probs, K, C, self.mesh if sharded else None)
+        gates = gate_vals * keep
+        if dense:
+            out = self._dense(tokens, gate_idx, pos, keep, gates, C)
+        else:
+            out = self._gather(tokens, gate_idx, pos, keep, gates, C)
+        from ...parallel.collectives import reduce_forward
+        p_sum = probs.sum(0)
+        if sharded:
+            p_sum = reduce_forward(p_sum, self.mesh, DATA_AXIS,
+                                   op="moe_probs")
+        n_t = torch.tensor(float(n_global), device=x.device)
+        f_e = counts[0].float() / n_t
+        self.aux_loss = (self.aux_loss_weight * E
+                         * torch.sum(f_e * (p_sum / n_t)))
+        self.dropped = 1.0 - kept_choices(counts, C).float() / (n_t * K)
+        return out.reshape(B, S, D)
+
+    def _one_card(self, x, dense):
+        """The layer over the whole batch with every expert."""
         B, S, D = x.shape
         E, K = self.num_experts, self.top_k
         N = B * S
@@ -130,9 +251,20 @@ class MoEFFN(nn.Module):
 
     def _gather(self, tokens, gate_idx, pos, keep, gates, C):
         N, D = tokens.shape
-        E = self.num_experts
-        # slot of each kept choice; dropped ones aim at a spare slot E·C
-        slot = torch.where(keep, gate_idx * C + pos,
+        E, lo = self.local_experts, self.expert_lo
+        mine = keep
+        if self.ep > 1:
+            from ...parallel.collectives import reduce_backward
+            # the experts this rank runs see part of each token's and
+            # gate's uses: their gradients sum over the expert axis
+            tokens = reduce_backward(tokens, self.mesh, EXPERT_AXIS,
+                                     op="moe_token_grad")
+            gates = reduce_backward(gates, self.mesh, EXPERT_AXIS,
+                                    op="moe_gate_grad")
+            mine = keep & (gate_idx >= lo) & (gate_idx < lo + E)
+        # slot of each kept choice of this rank's experts; any other
+        # choice aims at a spare slot E·C
+        slot = torch.where(mine, (gate_idx - lo) * C + pos,
                            torch.full_like(pos, E * C))
         src = torch.full((E * C + 1,), N, dtype=torch.int64,
                          device=tokens.device)
@@ -147,7 +279,12 @@ class MoEFFN(nn.Module):
         picked = expert_out.index_select(0, slot.reshape(-1)) \
             .reshape(N, -1, D)
         g = gates.to(self.dtype)
-        return (g.float()[..., None] * picked.float()).sum(1).to(self.dtype)
+        out = (g.float()[..., None] * picked.float()).sum(1)
+        if self.ep > 1:
+            from ...parallel.collectives import reduce_forward
+            out = reduce_forward(out, self.mesh, EXPERT_AXIS,
+                                 op="moe_combine")
+        return out.to(self.dtype)
 
     def _dense(self, tokens, gate_idx, pos, keep, gates, C):
         """The reference's form: (N, E, C) dispatch/combine einsums."""

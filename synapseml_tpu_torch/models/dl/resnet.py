@@ -28,6 +28,15 @@ channels-last.  The reference's conventions kept here:
 On a card, a float32 convolution follows PyTorch's cuDNN setting
 (``torch.backends.cudnn.allow_tf32``, on by default: TF32 products); set
 it to False for IEEE f32.
+
+Over a data mesh (``mesh=``, a training step's batch sharded over
+``data``), BatchNorm takes the reference's GSPMD statistics: E[x] and
+E[x²] over the GLOBAL batch.  :class:`_SyncBatchNormTrain` all-reduces
+the per-channel f32 sums in the forward, and in the backward the sums of
+``dy`` and ``dy·x̂`` that the input gradient needs (the parameters'
+gradients stay this rank's sums, reduced with every other gradient by
+the trainer).  The running statistics follow the global ones, so they
+are the same on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...parallel.mesh import DATA_AXIS, axis_size
 from .precision import run_block
 from .transformer import Dense, _param, init_weights, trunc_normal
 
@@ -133,12 +143,61 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx, dscale, dbias, None
 
 
+class _SyncBatchNormTrain(torch.autograd.Function):
+    """:class:`_BatchNormTrain` over a batch sharded on the mesh's
+    ``data`` axis: the statistics are the global batch's.  Forward: one
+    all-reduce of the per-channel ``[Σx, Σx²]`` (f32).  Backward: one
+    all-reduce of ``[Σdy, Σdy·x̂]`` and ``dx = scale·rstd·(dy − Σdy/M −
+    x̂·Σdy·x̂/M)`` over the global count M; ``dscale``/``dbias`` are this
+    rank's sums."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float, mesh):
+        from ...parallel.collectives import psum
+        xf = x.float()
+        dims = (0, 2, 3)
+        sums = psum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), mesh,
+                    DATA_AXIS, op="bn_stats")
+        del xf
+        count = torch.tensor(float(x.numel() // x.shape[1]
+                                   * mesh.axis_size(DATA_AXIS)),
+                             device=x.device)
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+        y = torch.ops.aten.native_batch_norm(x, scale, bias, mean, var,
+                                             False, 0.0, eps)[0]
+        ctx.save_for_backward(x, scale, mean, torch.rsqrt(var + eps), count)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        from ...parallel.collectives import psum
+        x, scale, mean, rstd, count = ctx.saved_tensors
+        dims = (0, 2, 3)
+
+        def per_channel(v):
+            return v[None, :, None, None]
+
+        xhat = (x.float() - per_channel(mean)) * per_channel(rstd)
+        dyf = dy.float()
+        local = torch.stack([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        total = psum(local, ctx.mesh, DATA_AXIS, op="bn_grad")
+        dx = per_channel(scale * rstd) * (
+            dyf - per_channel(total[0] / count)
+            - xhat * per_channel(total[1] / count))
+        return dx.to(x.dtype), local[1], local[0], None, None
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=...)`` over
     NCHW: parameters ``scale``/``bias``, batch statistics ``mean``/``var``
     (buffers, f32).  In training the batch's statistics (flax's: f32
     reductions, the biased fast variance) normalize, and the running
-    update waits in ``pending`` for :meth:`commit`."""
+    update waits in ``pending`` for :meth:`commit`.  With a :attr:`mesh`
+    whose ``data`` axis is larger than 1, training statistics are the
+    global batch's (:class:`_SyncBatchNormTrain`)."""
 
     def __init__(self, features: int, dtype, device,
                  zero_scale: bool = False, momentum: float = 0.9,
@@ -153,6 +212,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
         self.pending: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.mesh = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.scale.fill_(0.0 if self.zero_scale else 1.0)
@@ -166,8 +226,12 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.mean, self.var, self.scale,
                                 self.bias, False, 0.0, self.eps
                                 ).to(self.dtype)
-        y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias,
-                                             self.eps)
+        if axis_size(self.mesh, DATA_AXIS) > 1:
+            y, mean, var = _SyncBatchNormTrain.apply(
+                x, self.scale, self.bias, self.eps, self.mesh)
+        else:
+            y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias,
+                                                 self.eps)
         m = self.momentum
         with torch.no_grad():
             self.pending = (m * self.mean + (1 - m) * mean,
@@ -238,12 +302,15 @@ class ResNet(nn.Module):
     Weights are drawn as the reference draws them (lecun-normal kernels,
     BatchNorm scale 1 but 0 on each block's last norm, zero biases) from
     ``seed`` by :func:`~.transformer.init_weights`; with ``seed=None``
-    they stay unset until the trainer's ``init_state`` draws them."""
+    they stay unset until the trainer's ``init_state`` draws them.
+    ``mesh`` (a ProcessMesh) makes a training forward's BatchNorm
+    statistics those of the batch sharded over its ``data`` axis."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_classes: int, num_filters: int = 64,
                  dtype: Any = torch.bfloat16, remat: Any = "none",
-                 device: DeviceLike = "cuda", seed: Optional[int] = 0):
+                 device: DeviceLike = "cuda", seed: Optional[int] = 0,
+                 mesh=None):
         super().__init__()
         dev = resolve_device(device)
         self.stage_sizes = tuple(stage_sizes)
@@ -268,6 +335,10 @@ class ResNet(nn.Module):
                 k += 1
         self.head = Dense(in_ch, num_classes, torch.float32, dev,
                           stddev=lecun_std(in_ch))
+        self.mesh = mesh
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm):
+                mod.mesh = mesh
         if seed is not None:
             self.init_weights(seed)
 

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, synchronize
-from ...telemetry.gangplane import check_profiler
+from ...telemetry.gangplane import agree_capture, check_profiler
 from . import metrics as metrics_mod
 from .binning import (BinMapper, FeatureBundler, bin_features, bundle_bins,
                       fit_bin_mapper)
@@ -1030,8 +1030,9 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     sharded) train over the mesh too, and so does lambdarank (whole
     query groups packed onto the ranks where rows are sharded).  Every
     rank checkpoints into the same directory (:func:`_write_checkpoint`).
-    The step profiler's cost capture is not ported over a mesh (ROADMAP
-    queue A5).
+    Over a mesh every rank captures the step profiler's cost at the same
+    iteration (the capture reruns it, collectives included): the ranks
+    must agree on ``capture_xla`` (``ValueError`` before any work).
 
     ``step_profiler`` (a :class:`~synapseml_tpu_torch.telemetry.gangplane
     .StepProfiler`) decomposes each iteration's wall time into data (the
@@ -1043,11 +1044,6 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     added."""
     dev = resolve_device(device)
     if mesh is not None:
-        if step_profiler is not None and step_profiler.capture_xla:
-            raise NotImplementedError(
-                "the step profiler's cost capture over a mesh (it reruns "
-                "an iteration, collectives included) is not ported yet "
-                "(ROADMAP queue A5: DL mesh training)")
         if not isinstance(mesh, ProcessMesh):
             raise TypeError(f"mesh must be a ProcessMesh, got "
                             f"{type(mesh).__name__}")
@@ -1067,6 +1063,7 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
     _check_ported(config)
     _check_ported_on(config, dev)
     check_profiler(step_profiler, "train")
+    agree_capture(step_profiler, mesh)
     # the histogram wire's codec (validated here; it applies only where
     # the histogram all-reduce exists: over a mesh)
     cconfig = resolve_collective_config(config.collective_compression)
@@ -1533,7 +1530,8 @@ def train(X, y: Optional[np.ndarray], config: BoostingConfig,
                     with prof.excluded():
                         prof.capture_cost("gbdt_step", grow_iteration,
                                           scores.clone(), bag, key,
-                                          fmask_dev, items=n, device=dev)
+                                          fmask_dev, items=n, device=dev,
+                                          mesh=mesh)
             new_dev, new_scores = grow_iteration(scores, bag, key, fmask_dev)
             new_trees = [Tree(*[a.cpu() for a in t]) for t in new_dev]
             if prof is not None:

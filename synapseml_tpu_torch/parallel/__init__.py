@@ -27,10 +27,11 @@ Every entry point takes ``device`` (default ``"cuda"``, a
 checkpoint directory and resizes it (``min_ranks``, ``resize``,
 ``capacity_fn``); :mod:`.compilecache` shares the kernel builds across
 relaunches.  ``serving.distributed`` gathers the serving routing table
-over a ``ProcessMesh``.  Waiting for ROADMAP A5: expert parallelism, DL
-mesh training with ``pipeline.py`` and the (data, model / seq / expert)
-mesh constructors (a ``ProcessMesh`` takes any named axis sizes
-meanwhile).
+over a ``ProcessMesh``.  DL training runs over a data mesh or the
+``(data, expert)`` mesh of :func:`~.mesh.dp_ep_mesh`
+(``models.dl.training``).  Waiting for ROADMAP A5: tensor parallelism,
+``pipeline.py`` and the (data, model / seq) mesh constructors (a
+``ProcessMesh`` takes any named axis sizes meanwhile).
 """
 
 from .collectives import (CollectiveTimeout, all_gather, all_to_all,
@@ -45,8 +46,8 @@ from .distributed import (ClusterConfig, initialize_cluster,
 from .launcher import (GangInterrupted, ReservedPort, WorkerFailure,
                        find_free_port, run_on_local_cluster)
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
-                   ProcessMesh, data_parallel_mesh, pad_to_multiple,
-                   shard_batch)
+                   ProcessMesh, data_parallel_mesh, dp_ep_mesh,
+                   pad_to_multiple, shard_batch)
 from .placement import (PlacementMap, partition_assignment,
                         place_partitions, rows_for_rank)
 from .planner import (CollectivePlanner, ReductionPlan, TopologySpec,

@@ -16,7 +16,9 @@ dispatches ``torch.distributed`` on that axis's process group:
   (reduce-scatter, then all-gather), the schedule LightGBM's socket ring
   runs; ``hierarchical_psum`` (inner reduce-scatter, outer psum, inner
   all-gather); ``tree_psum_bucketed`` (Horovod's tensor fusion);
-  ``allreduce_fn`` (the host-dispatched histogram all-reduce).
+  ``allreduce_fn`` (the host-dispatched histogram all-reduce);
+  ``reduce_forward`` / ``reduce_backward``, the differentiable pair a
+  model sharded over an axis is built from.
 
 Every op runs through :func:`dispatch_watchdog`: the
 ``collective.dispatch`` fault site, ``collective.begin``/``end`` flight
@@ -407,6 +409,50 @@ def hierarchical_psum(x: torch.Tensor, mesh, inner_axis: str,
     shard = reduce_scatter(x, mesh, inner_axis, record=False)
     shard = psum(shard, mesh, outer_axis, record=False)
     return all_gather(shard, mesh, inner_axis, tiled=True, record=False)
+
+
+class _ReduceForward(torch.autograd.Function):
+    """Sum over ``axis`` in the forward; the backward passes the
+    (replicated) cotangent through unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, op):
+        return psum(x, mesh, axis, op=op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _ReduceBackward(torch.autograd.Function):
+    """The identity in the forward; the backward sums the cotangent over
+    ``axis``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, op):
+        ctx.mesh, ctx.axis, ctx.op = mesh, axis, op
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axis, op=ctx.op), None, None, None
+
+
+def reduce_forward(x: torch.Tensor, mesh, axis: str = DATA_AXIS,
+                   op: str = "reduce_forward") -> torch.Tensor:
+    """Differentiable sum over ``axis`` whose result every rank then uses
+    alike: the gradient of a replicated consumer reaches each rank's
+    ``x`` unchanged (Megatron-LM's "g").  Pairs with
+    :func:`reduce_backward`: partial sums meet here, and an input that
+    feeds partial computations passes through there."""
+    return _ReduceForward.apply(x, mesh, axis, op)
+
+
+def reduce_backward(x: torch.Tensor, mesh, axis: str = DATA_AXIS,
+                    op: str = "reduce_backward") -> torch.Tensor:
+    """``x`` unchanged, its gradient summed over ``axis``: the input of a
+    computation each rank does only part of (Megatron-LM's "f")."""
+    return _ReduceBackward.apply(x, mesh, axis, op)
 
 
 def tree_psum_bucketed(tree, mesh, axis: str = DATA_AXIS,

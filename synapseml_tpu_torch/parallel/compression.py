@@ -11,9 +11,8 @@ levers cut the bytes a reduction moves:
   copies, the shard sums in f32 locally in rank order, and the
   re-quantized sum all-gathers back; both wire legs carry int8.
 - **Error feedback** (the 1-bit SGD lineage): the quantization error is
-  carried in a residual and added to the next step's gradient.  Its
-  consumer (DL mesh training) waits for ROADMAP A5; the helpers are
-  ported whole.
+  carried in a residual and added to the next step's gradient (DL mesh
+  training's manual step, ``models.dl.training``).
 
 The codecs are bit-exact against the reference's functions: the same
 f32 operations in the same order, round half to even, and every divide
@@ -55,7 +54,7 @@ class CollectiveConfig:
     #: "none" | "bf16" | "int8" — wire codec for eligible reductions
     compression: str = "none"
     #: reduce-scatter gradients, update the local shard, all-gather
-    #: params back (DL only; waits with DL mesh training, ROADMAP A5)
+    #: params back (DL only)
     sharded_update: bool = False
     #: carry quantization error into the next step's gradient (DL only)
     error_feedback: bool = False

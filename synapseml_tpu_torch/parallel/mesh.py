@@ -184,6 +184,11 @@ class ProcessMesh:
             self._subs[key] = _SubMesh(self, axis, *mine)
         return self._subs[key]
 
+    def __deepcopy__(self, memo) -> "ProcessMesh":
+        # the mesh names the process group's ranks and sub-groups: a deep
+        # copy of a model or a train state that holds it shares it
+        return self
+
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, rank={self.rank}, "
                 f"backend={self.backend!r}, device={self.device})")
@@ -211,6 +216,9 @@ class _SubMesh:
     def staged_bytes(self, v: int) -> None:
         self.parent.staged_bytes = v
 
+    def __deepcopy__(self, memo) -> "_SubMesh":
+        return self
+
     def _check(self, axis):
         if axis != self.axis:
             raise ValueError(f"sub-mesh of axis {self.axis!r}, asked {axis!r}")
@@ -236,6 +244,31 @@ def data_parallel_mesh(device="cuda",
                        timeout_s: Optional[float] = None) -> ProcessMesh:
     """Every rank of the group on the ``data`` axis."""
     return ProcessMesh(None, device=device, timeout_s=timeout_s)
+
+
+def dp_ep_mesh(ep: int, device="cuda",
+               timeout_s: Optional[float] = None) -> ProcessMesh:
+    """The ``(data, expert)`` mesh of an expert-parallel MoE fit:
+    ``{data: world / ep, expert: ep}``, expert innermost (the JAX
+    package's ``dp_ep_mesh``).  The ranks of one ``data`` slice hold the
+    same rows and different experts."""
+    if ep < 1:
+        raise ValueError(f"expert parallelism {ep} must be >= 1")
+    return ProcessMesh({DATA_AXIS: -1, EXPERT_AXIS: int(ep)}, device=device,
+                       timeout_s=timeout_s)
+
+
+def axis_size(mesh, axis: str = DATA_AXIS) -> int:
+    """The size of ``axis`` on ``mesh``: 1 without a mesh or where the
+    mesh has no such axis (one rank holds the whole axis)."""
+    if mesh is None or axis not in getattr(mesh, "shape", {}):
+        return 1
+    return mesh.axis_size(axis)
+
+
+def axis_index(mesh, axis: str = DATA_AXIS) -> int:
+    """This rank's index on ``axis``; 0 where :func:`axis_size` is 1."""
+    return mesh.axis_index(axis) if axis_size(mesh, axis) > 1 else 0
 
 
 def block_bounds(n: int, size: int, index: int) -> Tuple[int, int]:

@@ -539,6 +539,47 @@ def check_profiler(prof: Any, owner: str) -> None:
                         f"{', '.join(need)}); got {type(prof).__name__}")
 
 
+#: the counted costs a capture over a mesh agrees on
+_GANG_COUNTS = ("flops", "matmul_flops", "bytes_accessed")
+
+
+def _gang_max(entry: Optional[Dict[str, Any]], mesh: Any
+              ) -> Optional[Dict[str, Any]]:
+    """Each count of a captured cost at its maximum over the ranks (one
+    all-reduce); None on every rank where any rank's capture failed."""
+    import torch
+    import torch.distributed as dist
+    vals = [1.0] + [0.0] * len(_GANG_COUNTS)
+    if entry is not None:
+        vals = [0.0] + [float(entry[k]) for k in _GANG_COUNTS]
+    t = torch.tensor(vals, dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    if entry is None or float(t[0]) > 0:
+        return None
+    return {**entry, **{k: float(v) for k, v in
+                        zip(_GANG_COUNTS, t[1:].tolist())}}
+
+
+def agree_capture(prof: Any, mesh: Any) -> None:
+    """Over a mesh, the cost capture reruns one step on copies, its
+    collectives included, so every rank must capture the same step
+    together or the gang deadlocks.  One all-reduce over the whole group
+    checks, before any work, that the ranks agree on ``capture_xla``;
+    ``ValueError`` on every rank otherwise.  Free without a mesh."""
+    if mesh is None:
+        return
+    import torch
+    import torch.distributed as dist
+    on = int(prof is not None and bool(prof.capture_xla))
+    votes = torch.tensor([on, 1 - on], dtype=torch.int64, device=mesh.device)
+    dist.all_reduce(votes)
+    if int(votes[0]) and int(votes[1]):
+        raise ValueError(
+            f"the step profiler's capture_xla is on at {int(votes[0])} "
+            f"rank(s) and off at {int(votes[1])}: a capture over a mesh "
+            "reruns a step's collectives, so every rank must capture")
+
+
 class StepProfiler:
     """Wall-time decomposition of train steps into data / compute /
     collective / other segments.
@@ -798,7 +839,8 @@ class StepProfiler:
 
     # -- cost capture ----------------------------------------------------
     def capture_cost(self, key: str, fn, *args, items: Optional[float] = None,
-                     device=None, **kw) -> Optional[Dict[str, float]]:
+                     device=None, mesh=None,
+                     **kw) -> Optional[Dict[str, float]]:
         """Once per ``key``: run ``fn(*args, **kw)`` under
         :func:`~.roofline.capture` and record its flops, bytes and top
         byte movers.  ``items`` is the sample (or row) count one step
@@ -807,7 +849,11 @@ class StepProfiler:
         ``device`` is where the step runs (default: the first tensor's
         device among ``args``); its spec-sheet peak prices MFU.  The
         call EXECUTES ``fn``: hand it copies of live state.  Any failure
-        records None and never propagates."""
+        records None and never propagates.  Over a ``mesh`` every rank
+        captures the same step together (``fn`` runs its collectives);
+        one all-reduce then makes the counts each count's maximum over the
+        ranks (a rank's eager work depends on its rows), the same on every
+        rank, and None everywhere if any rank's capture failed."""
         if key in self.costs:
             return self.costs[key]
         from . import roofline as _roofline
@@ -816,6 +862,8 @@ class StepProfiler:
                            if hasattr(a, "device")
                            and hasattr(a, "data_ptr")), None)
         entry = _roofline.capture(fn, *args, **kw)
+        if mesh is not None:
+            entry = _gang_max(entry, mesh)
         self.costs[key] = entry
         self._cost_device[key] = device
         if items:

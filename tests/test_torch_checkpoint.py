@@ -226,7 +226,8 @@ def test_dl_vision_resume_matches_uninterrupted(tmp_path):
 def test_dl_text_resume_through_a_manager(tmp_path):
     """A tiny text classifier (dropout on: its masks follow the restored
     step) resumed through a CheckpointManager equals the uninterrupted
-    fit; a checkpoint of a mesh fit (shards 2) is refused by name."""
+    fit; a checkpoint a mesh fit wrote (shards 2) resumes at one rank,
+    the resize noted."""
     from synapseml_tpu_torch.models.dl import DeepTextClassifier
     rng = np.random.default_rng(3)
     words = ["good", "great", "fine", "bad", "poor", "sad", "t1", "t2"]
@@ -250,9 +251,19 @@ def test_dl_text_resume_through_a_manager(tmp_path):
                                rtol=1e-4, atol=1e-5)
     cfg = dict(mgr.metrics(10), shards=2.0)
     mgr.save(10, mgr.restore(10), metrics=cfg)
-    with pytest.raises(NotImplementedError, match="A5: DL mesh training"):
-        DeepTextClassifier(maxEpochs=3, **kw, checkpointManager=mgr,
-                           checkpointInterval=2).fit(ds)
+    from synapseml_tpu_torch.resilience import get_faults
+    faults = get_faults()
+    faults.clear()
+    faults.record_calls = True
+    try:
+        more = DeepTextClassifier(maxEpochs=3, **kw, checkpointManager=mgr,
+                                  checkpointInterval=2).fit(ds)
+        notes = [dict(c) for c in faults.calls_for("dl.resize_resume")]
+    finally:
+        faults.clear()
+    assert notes == [{"saved": 2, "current": 1}]
+    assert mgr.latest_step() == 14    # steps 11-15 ran, every 2nd saved
+    assert len(more.modelPayload["history"]) == 1
 
 
 # -- GBDT through a manager --------------------------------------------------------

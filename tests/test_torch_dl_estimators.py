@@ -502,21 +502,31 @@ def test_fit_from_bert_checkpoint_equals_jax(bert_dirs):
 
 # -- refusals ---------------------------------------------------------------------
 
+#: what a knob does on one process without a process group: refuse before
+#: any work (an exception type and its message), or pass the checks and
+#: start the fit's work (WORKS: the mesh knobs are ported, and on one rank
+#: zero1, a codec and a mesh fit's checkpoint train)
+WORKS = "works"
 COMMON_REFUSALS = [
-    ("numDevices", 2, "A5"), ("modelParallelism", 2, "A5"),
-    ("zero1", True, "A5"), ("collectiveCompression", "int8", "A5"),
-    # step checkpoints are ported; a checkpoint a mesh fit wrote (shards
-    # 2) waits for the DL mesh, refused before any work
-    ("checkpointDir", "mesh-checkpoint", "A5"),
-    ("checkpointManager", "mesh-checkpoint", "A5"),
+    # numDevices counts the ranks of the process group: 2 here, where the
+    # group is this one process, is a ValueError naming its size
+    ("numDevices", 2, (ValueError, "the group has 1 rank")),
+    ("modelParallelism", 2, (NotImplementedError,
+                             "ROADMAP A5: tensor parallelism")),
+    ("zero1", True, WORKS), ("collectiveCompression", "int8", WORKS),
+    # a checkpoint a 2-shard mesh fit wrote resumes, re-sharded, at one
+    ("checkpointDir", "mesh-checkpoint", WORKS),
+    ("checkpointManager", "mesh-checkpoint", WORKS),
     # the step profiler is ported: an object that is not one is refused
     # before any work, with a TypeError
-    ("stepProfiler", object(), None),
+    ("stepProfiler", object(), (TypeError, "StepProfiler")),
 ]
 REFUSALS = ([("text",) + r for r in COMMON_REFUSALS]
             + [("vision",) + r for r in COMMON_REFUSALS]
-            + [("text", "numExperts", 8, "A5"),
-               ("text", "expertParallelism", 2, "A5")])
+            + [("text", "numExperts", 8,
+                (ValueError, "expertParallelism=2 needs a gang")),
+               ("text", "expertParallelism", 2,
+                (ValueError, "requires numExperts > 0"))])
 
 
 @pytest.mark.parametrize("cls,knob,value,item", REFUSALS,
@@ -539,13 +549,14 @@ def test_unported_knobs_refuse_before_any_work(monkeypatch, tmp_path, cls,
            else PE.DeepVisionClassifier(device="cpu"))
     est.set(knob, value)
     if knob == "numExperts":
-        # the MoE FFN trains on one card; an expert mesh still waits
+        # the MoE FFN trains on one card; an expert mesh needs a gang
         est.set("expertParallelism", 2)
-    if item is None:
-        with pytest.raises(TypeError, match="StepProfiler"):
+    if item == WORKS:
+        with pytest.raises(AssertionError, match="work started"):
             est.fit(ds)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    exc, match = item
+    with pytest.raises(exc, match=match):
         est.fit(ds)
 
 

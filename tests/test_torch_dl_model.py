@@ -337,6 +337,33 @@ def test_dropout_masks_depend_on_seed_and_step_only():
     assert PT.dropout(x, 0.1, None) is x
 
 
+@pytest.mark.parametrize("total,ranks", [(16, 2), (24, 3), (32, 4),
+                                         (48, 16), (34, 17), (96, 32)])
+def test_dropout_rows_of_a_mesh_draw_the_whole_mask(total, ranks,
+                                                    monkeypatch):
+    """Each rank's rows (``rows=(lo, total)``) of the mask equal the
+    one-process mask's, and a rank draws no more than the one process:
+    one call of the whole batch."""
+    x = torch.ones(total, 3, 5)
+    whole = PT.dropout(x, 0.25, PT.mix_seed(7, 2))
+    drawn = []
+    rand = torch.rand
+
+    def counted(*shape, **kw):
+        out = rand(*shape, **kw)
+        drawn.append(out.shape[0])
+        return out
+
+    monkeypatch.setattr(torch, "rand", counted)
+    b = total // ranks
+    for d in range(ranks):
+        drawn.clear()
+        part = PT.dropout(x[d * b:(d + 1) * b], 0.25, PT.mix_seed(7, 2),
+                          rows=(d * b, total))
+        assert torch.equal(part, whole[d * b:(d + 1) * b])
+        assert drawn == [total]
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_dropout_keeps_one_minus_rate(rate):
     n = 200_000

@@ -236,11 +236,12 @@ def test_ranker_transform_and_label_gain():
 def test_mesh_is_refused_naming_a5(tmp_path):
     """Distributed lambdarank trains over a gang
     (tests/test_torch_gbdt_rank_parallel.py), checkpoints included
-    (tests/test_torch_elastic.py); what still waits for A5 is the step
-    profiler's cost capture over a mesh, refused before any work."""
+    (tests/test_torch_elastic.py), and so does the step profiler's cost
+    capture (tests/test_torch_dl_mesh_elastic.py): with a capture, a mesh
+    that is not a ProcessMesh is refused on its type before any work."""
     from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
     X, y, sizes = _fixture_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         ttrain(X, y, BoostingConfig(**FIXTURE_KW), group=sizes,
                mesh=object(), checkpoint_dir=str(tmp_path),
                checkpoint_interval=1,

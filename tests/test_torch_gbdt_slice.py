@@ -139,8 +139,10 @@ class _CheckpointManager:
     ``directory``."""
 
 
-#: the still-unported knob: the step profiler's cost capture over a mesh
-_A5 = (NotImplementedError, "ROADMAP queue A5")
+#: the step profiler's cost capture over a mesh is ported
+#: (tests/test_torch_dl_mesh_elastic.py): a capture with a mesh that is
+#: not a ProcessMesh fails on the mesh's type, before any work
+_A5 = (TypeError, "ProcessMesh")
 #: checkpoints over a mesh and through a manager are ported; an object
 #: that is not a manager is refused before any work
 _NOT_A_MANAGER = (TypeError, "CheckpointManager")
@@ -149,8 +151,8 @@ _NOT_A_MANAGER = (TypeError, "CheckpointManager")
 @pytest.mark.parametrize("kw,train_kw,item", [
     # lambdarank and the voting/feature-parallel modes train over a mesh
     # (tests/test_torch_gbdt_parallel_modes.py, _rank_parallel.py), with
-    # checkpoints (tests/test_torch_elastic.py); the step profiler's cost
-    # capture over a mesh still waits for A5
+    # checkpoints (tests/test_torch_elastic.py) and the step profiler's
+    # cost capture; the mesh itself must be a ProcessMesh
     (dict(objective="lambdarank"), dict(group=[100, 100], mesh=object(),
                                         checkpoint_dir="unused",
                                         checkpoint_interval=1,

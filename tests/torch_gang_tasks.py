@@ -800,3 +800,300 @@ def llm_serving_gang(args):
     router over the gathered table; see ``chip_smoke.phase27_gang``)."""
     import chip_smoke
     return chip_smoke.phase27_gang(args)
+
+
+# -- DL training over the gang (tests/test_torch_dl_mesh*.py) ---------------------
+
+def _dl_mesh(dev, ep=1):
+    from synapseml_tpu_torch.parallel.mesh import dp_ep_mesh
+    return dp_ep_mesh(ep, device=dev) if ep > 1 else \
+        data_parallel_mesh(device=dev)
+
+
+def _text_cfg(spec):
+    from synapseml_tpu_torch.models.dl import transformer as PT
+    return PT.TransformerConfig.tiny(dtype=torch.float32, **spec)
+
+
+def _load_npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _save_npz(path, tree):
+    np.savez(path, **{k: np.asarray(v) for k, v in tree.items()})
+
+
+def _trainer_run(case, mesh, dev):
+    """One trainer case over ``mesh`` (None: this process alone): the
+    model from ``case["init"]`` (a full state dict), ``case["steps"]``
+    steps on the global batches of ``case["batches"]`` (this rank's rows
+    of each) → losses, this rank's moment bytes, and the whole model's
+    final state (rank 0 writes it to ``case["out"]``)."""
+    from synapseml_tpu_torch.models.dl import resnet as PR
+    from synapseml_tpu_torch.models.dl import training as PTr
+    from synapseml_tpu_torch.models.dl import transformer as PT
+    from synapseml_tpu_torch.parallel.compression import CollectiveConfig
+    init = _load_npz(case["init"])
+    batches = _load_npz(case["batches"])
+    opt = PTr.OptimizerConfig(**case["opt"])
+    cc = case.get("collective")
+    cc = CollectiveConfig(**cc) if cc else None
+    if case["model"] == "text":
+        model = PT.TextEncoder(_text_cfg(case["cfg"]), device=dev, seed=None,
+                               mesh=mesh)
+        kw = {}
+    else:
+        model = PR.make_backbone(case["model"], num_classes=case["classes"],
+                                 dtype=torch.float32, device=dev, seed=None,
+                                 mesh=mesh)
+        kw = dict(has_batch_stats=True, train_kwarg="train")
+    tr = PTr.DLTrainer(model, opt, dev, mesh=mesh,
+                       zero1=bool(case.get("zero1")), collective=cc,
+                       precision=case.get("precision"), **kw)
+    state = tr.init_state(123)
+    sd = {k: torch.from_numpy(v) for k, v in init.items()}
+    if hasattr(model, "load_full_state_dict"):
+        model.load_full_state_dict(sd)
+    else:
+        model.load_state_dict(sd)
+    step = tr.train_step()
+    losses, dropped = [], []
+    moe = [m for m in model.modules() if hasattr(m, "dropped")]
+    n_steps = int(case["steps"])
+    for i in range(n_steps):
+        j = i % int(batches["n"])
+        arrays = [batches[f"{j}_{k}"] for k in case["inputs"]]
+        labels = batches[f"{j}_labels"]
+        rows = tr.local_rows(np.arange(len(labels)))
+        state, m = step(state, tr.shard_batch([a[rows] for a in arrays]),
+                        tr.shard_batch([labels[rows]])[0], 0)
+        losses.append(float(m["loss"]))
+        dropped += [float(f.dropped) for f in moe]
+    full = PTr._host
+    sd = (model.full_state_dict() if hasattr(model, "full_state_dict")
+          else model.state_dict())
+    if (mesh is None or mesh.rank == 0) and case.get("out"):
+        _save_npz(case["out"], {k: full(v) for k, v in sd.items()})
+    return {"losses": losses, "dropped": dropped,
+            "moment_bytes": state.opt.moment_bytes(),
+            "residual_bytes": sum(r.numel() * 4 for r in state.residuals)
+            if state.residuals is not None else 0}
+
+
+def dl_mesh_cases(args):
+    """Run every trainer case of ``args["cases"]`` on this gang (each on
+    its own mesh: ``ep`` > 1 builds the (data, expert) mesh) → per case,
+    :func:`_trainer_run`'s record."""
+    dev = args.get("device", "cpu")
+    if dev == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, case in args["cases"].items():
+        mesh = _dl_mesh(dev, int(case.get("ep", 1)))
+        out[name] = _trainer_run(case, mesh, mesh.device)
+    return out
+
+
+def moe_mesh_grads(args):
+    """A lone MoE FFN on the (data, expert) mesh: this rank's rows of the
+    global ``x`` through the layer, objective ``Σ out·w + aux`` of the
+    rows, backward.  Rank ``r`` writes ``args["out"]/rank<r>.npz``: its
+    output rows and their input gradient, the router gradient and its
+    experts' gradients summed over ``data`` (the global objective's
+    gradients), and the aux loss and dropped share."""
+    import os
+
+    from synapseml_tpu_torch.models.dl.moe import MoEFFN
+    from synapseml_tpu_torch.parallel.mesh import DATA_AXIS
+    dev = args.get("device", "cpu")
+    mesh = _dl_mesh(dev, int(args["ep"]))
+    res = {}
+    for name, case in args["cases"].items():
+        z = _load_npz(case["data"])
+        E, D, FF = z["w_up"].shape
+        m = MoEFFN(E, D, FF, top_k=int(case["top_k"]),
+                   capacity_factor=float(case["cf"]), dtype=torch.float32,
+                   device=mesh.device, mesh=mesh)
+        lo = m.expert_lo
+        with torch.no_grad():
+            m.router.copy_(torch.from_numpy(z["router"]))
+            m.w_up.copy_(torch.from_numpy(z["w_up"][lo:lo + m.local_experts]))
+            m.w_down.copy_(torch.from_numpy(
+                z["w_down"][lo:lo + m.local_experts]))
+        B = z["x"].shape[0]
+        d, n = mesh.axis_index(DATA_AXIS), mesh.axis_size(DATA_AXIS)
+        rows = slice(d * B // n, (d + 1) * B // n)
+        x = torch.from_numpy(z["x"][rows]).requires_grad_(True)
+        w = torch.from_numpy(z["w"][rows])
+        out = m(x, rows=(rows.start, B))
+        ((out * w).sum() + m.aux_loss).backward()
+        grads = {k: C.psum(getattr(m, k).grad, mesh, DATA_AXIS)
+                 for k in ("router", "w_up", "w_down")}
+        path = os.path.join(case["out"], f"rank{mesh.rank}.npz")
+        _save_npz(path, {"out": out.detach().numpy(),
+                         "x_grad": x.grad.numpy(),
+                         "aux": m.aux_loss.detach().numpy(),
+                         "dropped": m.dropped.numpy(),
+                         "rows": np.asarray([rows.start, rows.stop]),
+                         "expert_lo": np.asarray(lo),
+                         **{f"g_{k}": v.numpy() for k, v in grads.items()}})
+        res[name] = path
+    return {"rank": mesh.rank, "files": res}
+
+
+def bn_mesh_grads(args):
+    """A ResNet on the data mesh in training mode: this rank's rows
+    forward (BatchNorm over the global batch), objective ``Σ logits·w``
+    of the rows, backward.  Rank ``r`` writes ``args["out"]``'s
+    ``rank<r>.npz``: its logits and input gradient, every parameter's
+    gradient summed over ``data`` and the new running statistics."""
+    import os
+
+    from synapseml_tpu_torch.models.dl import resnet as PR
+    from synapseml_tpu_torch.parallel.mesh import DATA_AXIS
+    dev = args.get("device", "cpu")
+    if dev == "cuda":
+        # IEEE f32 convolutions, to hold the card against the CPU
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = _dl_mesh(dev)
+    z = _load_npz(args["data"])
+    model = PR.make_backbone(args["backbone"], num_classes=args["classes"],
+                             dtype=torch.float32, device=mesh.device,
+                             seed=None, mesh=mesh)
+    model.load_state_dict({k[5:]: torch.from_numpy(v) for k, v in z.items()
+                           if k.startswith("init.")})
+    B = z["x"].shape[0]
+    d, n = mesh.axis_index(DATA_AXIS), mesh.axis_size(DATA_AXIS)
+    rows = slice(d * B // n, (d + 1) * B // n)
+    x = torch.from_numpy(z["x"][rows]).to(mesh.device).requires_grad_(True)
+    logits = model(x, train=True)
+    (logits * torch.from_numpy(z["w"][rows]).to(mesh.device)).sum() \
+        .backward()
+    model.commit_batch_stats()
+    rec = {"logits": logits.detach(), "x_grad": x.grad}
+    for k, p in model.named_parameters():
+        rec[f"g.{k}"] = C.psum(p.grad, mesh, DATA_AXIS)
+    for k, b in model.named_buffers():
+        rec[f"s.{k}"] = b
+    path = os.path.join(args["out"], f"rank{mesh.rank}.npz")
+    _save_npz(path, {k: v.detach().cpu().numpy() for k, v in rec.items()})
+    return {"rank": mesh.rank, "file": path}
+
+
+def dl_fit(args):
+    """``DeepTextClassifier`` / ``DeepVisionClassifier`` over the gang
+    (``numDevices=0``) with ``args["kw"]``, from the initial weights of
+    ``args["init"]`` when given (each rank loads its slice), with step
+    checkpoints in ``SMLTPU_CKPT_DIR`` (or ``args["ckpt"]``) when set →
+    the history, the probabilities on the fit's rows, the
+    ``dl.resize_resume`` notes, and a codec toggle's refusal."""
+    import os
+
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.models.dl import estimators as PE
+    from synapseml_tpu_torch.models.dl import training as PTr
+    from synapseml_tpu_torch.resilience import get_faults
+    import torch.distributed as dist
+    faults = get_faults()
+    faults.record_calls = True
+    kind = args["kind"]
+    data = _load_npz(args["data"])
+    if kind == "text":
+        ds = Dataset({"text": [str(t) for t in data["text"]],
+                      "label": data["label"]})
+        cls = PE.DeepTextClassifier
+    else:
+        ds = Dataset({"image": list(data["image"]), "label": data["label"]})
+        cls = PE.DeepVisionClassifier
+    if args.get("init"):
+        init = {k: torch.from_numpy(v)
+                for k, v in _load_npz(args["init"]).items()}
+        orig = PTr.DLTrainer.init_state
+
+        def carry(self, seed):
+            state = orig(self, seed)
+            m = self.model
+            (m.load_full_state_dict if hasattr(m, "load_full_state_dict")
+             else m.load_state_dict)(init)
+            return state
+
+        PTr.DLTrainer.init_state = carry
+    kw = dict(args["kw"])
+    cc = kw.pop("collective", None)
+    if cc is not None:
+        from synapseml_tpu_torch.parallel.compression import CollectiveConfig
+        kw["collectiveCompression"] = CollectiveConfig(**cc)
+    ckpt = os.environ.get("SMLTPU_CKPT_DIR") or args.get("ckpt")
+    if ckpt:
+        kw.update(checkpointDir=ckpt, checkpointInterval=1)
+    if args.get("profile"):
+        from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+        kw["stepProfiler"] = StepProfiler(f"dl{dist.get_rank()}",
+                                          capture_xla=True)
+    try:
+        model = cls(device=args.get("device", "cpu"), **kw).fit(ds)
+    finally:
+        if args.get("init"):
+            PTr.DLTrainer.init_state = orig
+    variables = model.modelPayload["variables"]
+    if args.get("out") and dist.get_rank() == 0:
+        _save_npz(args["out"], variables)
+    digest = hashlib.md5()
+    for k in sorted(variables):
+        digest.update(np.ascontiguousarray(variables[k]).tobytes())
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "variables_md5": digest.hexdigest(),
+           "history": model.modelPayload["history"],
+           "proba": np.stack(list(model.transform(ds)["probability"]))
+           .tolist(),
+           "resize_notes": [dict(c) for c in
+                            faults.calls_for("dl.resize_resume")]}
+    if args.get("profile"):
+        cost = kw["stepProfiler"].costs
+        out["costs"] = {k: (None if v is None else
+                            {m: v[m] for m in ("flops", "bytes_accessed")})
+                        for k, v in cost.items()}
+    if args.get("toggle") and ckpt:
+        try:
+            cls(device=args.get("device", "cpu"),
+                **{**kw, "collectiveCompression": args["toggle"],
+                   "maxEpochs": kw["maxEpochs"] + 1}).fit(ds)
+            out["toggle_error"] = None
+        except ValueError as e:
+            out["toggle_error"] = str(e)
+    return out
+
+
+def gbdt_capture(args):
+    """A data-parallel GBDT fit over the gang with and without the step
+    profiler's cost capture → the two model strings' md5s and the
+    captured cost (the same on every rank)."""
+    from synapseml_tpu_torch.models.gbdt import booster as B
+    from synapseml_tpu_torch.telemetry.gangplane import StepProfiler
+    dev = args.get("device", "cpu")
+    X, y = binary_data(n=int(args.get("n", 600)), f=8)
+    mesh = data_parallel_mesh(device=dev)
+    cfg = B.BoostingConfig(objective="binary", num_iterations=3,
+                           num_leaves=7, min_data_in_leaf=5, max_bin=31)
+    plain, _ = B.train(X, y, cfg, mesh=mesh, device=mesh.device)
+    prof = StepProfiler(f"gbdt{mesh.rank}", capture_xla=True)
+    captured, _ = B.train(X, y, cfg, mesh=mesh, device=mesh.device,
+                          step_profiler=prof)
+    cost = prof.costs.get("gbdt_step")
+    return {"rank": mesh.rank,
+            "plain": hashlib.md5(plain.to_string().encode()).hexdigest(),
+            "captured": hashlib.md5(
+                captured.to_string().encode()).hexdigest(),
+            "cost": None if cost is None else
+            {k: cost[k] for k in ("flops", "bytes_accessed")}}
+
+
+def run_many(args):
+    """Run ``args["tasks"]`` (``[name, task_args]`` pairs of this
+    module's tasks) in order in this gang → their results, so one gang
+    start serves several checks."""
+    return [globals()[name](dict(task_args, device=args.get("device", "cpu")))
+            for name, task_args in args["tasks"]]
