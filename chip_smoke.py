@@ -723,6 +723,13 @@ def check_equal(what, got, want) -> int:
     return err
 
 
+def draw_bins(rng, B: int, F: int, N: int) -> np.ndarray:
+    """(F, N) int32 bins uniform in [0, B), drawn as int32: a quarter of
+    the host time of an int64 draw cast down (phase 2 draws ~2.3 billion
+    of them; to make room for phase 29)."""
+    return rng.integers(0, B, (F, N), dtype=np.int32)
+
+
 def k2_case(rng, dev, N, F, S, B, shift, K, ranges="full"):
     """One mid-tree wave (S pending leaves among 2S node ids) or, with
     S=1, a tree's root pass (every row in leaf 0, split all-left), in the
@@ -733,8 +740,7 @@ def k2_case(rng, dev, N, F, S, B, shift, K, ranges="full"):
     random ``dflt``."""
     from synapseml_tpu_torch.models.gbdt import hist as H
     i32 = torch.int32
-    bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
-                           device=dev)
+    bins = torch.as_tensor(draw_bins(rng, B, F, N), device=dev)
     vals, _ = vals_for(rng, N, dev)
     root = S == 1
     if root:
@@ -809,8 +815,7 @@ def k1_case(rng, dev, N, F, S, B, shift, K=0):
     [-1, S), so at S=1 about half the rows are listed, as a left child's
     are."""
     from synapseml_tpu_torch.models.gbdt import hist as H
-    bins = torch.as_tensor(rng.integers(0, B, (F, N)).astype(np.int32),
-                           device=dev)
+    bins = torch.as_tensor(draw_bins(rng, B, F, N), device=dev)
     slot = torch.as_tensor(rng.integers(-1, S, N).astype(np.int32),
                            device=dev)
     vals, _ = vals_for(rng, N, dev)
@@ -1441,10 +1446,14 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
     del Xc, Xhc
 
     # 12d. 8 one-hot blocks of 32 levels: EFB against unbundled, both at
-    # two-level off, held to the JAX package's EFB property
-    Xo, extra = with_onehot(r12, X)
+    # two-level off, held to the JAX package's EFB property.  At half the
+    # rows (two-level is off, so no launch shape depends on them), to
+    # make room for phase 29: four fits bin 284 columns each
+    Xd = X[:len(X) // 2]
+    log(f"phase 12d at {len(Xd)} rows (cut from {len(X)})")
+    Xo, extra = with_onehot(r12, Xd)
     Xho, extra_h = with_onehot(r12, Xh)
-    yo, yho = gbdt_labels(r12, X, extra), gbdt_labels(r12, Xh, extra_h)
+    yo, yho = gbdt_labels(r12, Xd, extra), gbdt_labels(r12, Xh, extra_h)
     for policy in ("depthwise", "lossguide"):
         fits = {}
         for efb in (True, False):
@@ -1491,7 +1500,7 @@ def breadth2(seed: int, N: int, F: int, iters: int, check_path,
             raise AssertionError(f"EFB {policy}: {out}")
         log(f"fit EFB {policy} against unbundled, {FO} features: "
             f"{json.dumps(out)}")
-    del Xo, Xho, yo, yho
+    del Xo, Xho, yo, yho, Xd
 
     # 12e. monotone constraints on x0 (up), x1 (down), x2 (up): sweeps of
     # each from 1,000 holdout rows, against the unconstrained 10-iteration
@@ -3280,26 +3289,53 @@ def tier_card_vs_cpu(dev, seed: int, root: str) -> dict:
     return out
 
 
+def depth_cut(model, layers: int):
+    """A LlamaModel of ``model``'s first ``layers`` blocks, its embedding
+    and final norm, sharing ``model``'s tensors."""
+    from synapseml_tpu_torch.models.llm import LlamaModel
+    cut = LlamaModel(dataclasses.replace(model.cfg, num_layers=layers),
+                     device=model.device)
+    keep = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < layers}
+    cut.load_state_dict(keep, assign=True)
+    return cut
+
+
+#: phase 20b writes and reads back the first 2 of the 1B model's 16
+#: blocks with its embedding (0.77 GB; the whole 2.47 GB took 2.3 s to
+#: write and 10.1 s to read back on the H100's host), to make room for
+#: phase 29
+P20B_HF_LAYERS = 2
+
+
 def pretrained_int8(model, prompts, new, dev, root: str,
                     config: dict = LLAMA_32_1B_CONFIG,
                     max_len: int = 2048,
-                    turns=("int8", "bf16", "bf16", "int8")) -> dict:
-    """Phase 20b: ``model``'s weights (Llama-3.2-1B in bf16) written as an
-    HF directory with Llama-3.2-1B's published config.json, read back by
-    ``llama_from_pretrained(..., max_len=2048)`` (logits bitwise equal to
-    ``model``'s), then ``quantize_int8``: the logits' relative error
-    against bf16 (the reference test's measure, < 0.05 at that test's
-    configuration, reported at full width); phase 8's requests through a 16-slot graph
-    engine, int8 and bf16 in ``turns``.  Removes the
-    directory.  Raises on a failed check."""
+                    turns=("int8", "bf16", "bf16", "int8"),
+                    hf_layers: Optional[int] = None) -> dict:
+    """Phase 20b: ``model``'s weights (Llama-3.2-1B in bf16), cut to its
+    first ``hf_layers`` blocks (None: every block), written as an HF
+    directory with Llama-3.2-1B's published config.json (its layer count
+    cut alike), read back by ``llama_from_pretrained(..., max_len=2048)``
+    (logits bitwise equal to the cut model's), then ``quantize_int8`` of
+    ``model``: the logits' relative error against bf16 (the reference
+    test's measure, < 0.05 at that test's configuration, reported at full
+    width); phase 8's requests through a 16-slot graph engine, int8 and
+    bf16 in ``turns``.  Removes the directory.  Raises on a failed
+    check."""
     from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
                                                 cast_params,
                                                 llama_from_pretrained,
                                                 quantize_int8)
     path = os.path.join(root, "llama32_1b_hf")
     out = {}
+    written = model
+    if hf_layers is not None and hf_layers < model.cfg.num_layers:
+        written = depth_cut(model, hf_layers)
+        config = dict(config, num_hidden_layers=hf_layers)
+    out["hf_layers"] = written.cfg.num_layers
     t0 = time.perf_counter()
-    out["file_bytes"] = write_hf_llama(path, model, config)
+    out["file_bytes"] = write_hf_llama(path, written, config)
     out["write_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     loaded = cast_params(llama_from_pretrained(
@@ -3308,8 +3344,9 @@ def pretrained_int8(model, prompts, new, dev, root: str,
     synchronize(dev)
     out["load_s"] = time.perf_counter() - t0
     shutil.rmtree(path, ignore_errors=True)
-    if loaded.cfg != model.cfg:
-        raise AssertionError(f"20b config {loaded.cfg} against {model.cfg}")
+    if loaded.cfg != written.cfg:
+        raise AssertionError(f"20b config {loaded.cfg} against "
+                             f"{written.cfg}")
     # the reference test's measure (tests/test_llm.py, the int8 tests):
     # max |int8 - bf16| over max |bf16| of the logits of 2 x 12 ids drawn
     # uniformly from the vocabulary, held below 0.05 at that test's
@@ -3331,16 +3368,16 @@ def pretrained_int8(model, prompts, new, dev, root: str,
     ids128 = torch.as_tensor(np.stack([prompts[0][:128], prompts[1][:128]]),
                              device=dev)
     with torch.no_grad():
-        want, want128 = model(ids), model(ids128)
-        if not (torch.equal(loaded(ids), want)
-                and torch.equal(loaded(ids128), want128)):
+        if not (torch.equal(loaded(ids), written(ids))
+                and torch.equal(loaded(ids128), written(ids128))):
             raise AssertionError("20b: llama_from_pretrained's logits are "
                                  "not bitwise the model's")
+        del loaded, written
+        want, want128 = model(ids), model(ids128)
         t0 = time.perf_counter()
-        q = quantize_int8(loaded)
+        q = quantize_int8(model)
         synchronize(dev)
         out["quantize_s"] = time.perf_counter() - t0
-        del loaded
         got, got128 = q(ids), q(ids128)
     out["int8_rel_err"] = float((got - want).abs().max()
                                 / want.abs().max())
@@ -8054,6 +8091,507 @@ def dl_gang(seed: int, dev, card: str, p17b: Optional[dict] = None,
     return out
 
 
+# -- phase 29: model parallelism over a gang -----------------------------------
+
+P29_ROOT = os.path.join(os.path.dirname(CKPT_ROOT), "phase29")
+P29_GANG_TIMEOUT_S = 600.0
+#: 29a: BERT-base (12 layers, d 768, 12 heads, d_ff 3072, sequence 128)
+#: at modelParallelism=2 through the text classifier's trainer: 5 adamw
+#: steps at batch 32, dropout 0.1, f32 with IEEE products, against one
+#: process from the same seed's weights and batches
+P29_TEXT = dict(cfg=dict(vocab_size=30522, max_len=128, num_layers=12,
+                         num_heads=12, d_model=768, d_ff=3072,
+                         num_classes=2, dropout_rate=0.1),
+                batch=32, steps=5, lr=1e-4)
+#: 29a's limits: phase 28a's data-mesh limits (losses relative,
+#: parameters absolute); its data mesh read 2.3e-6 on the H100
+P29_TEXT_LIMITS = dict(losses=1e-5, params=1e-5)
+#: 29b: Llama-3.2-1B's shapes (16 layers, d 2048, 32 heads, 8 key-value
+#: heads, d_ff 8192, tied 128,256-token head) in f32 at tp=2: greedy
+#: generate of 16 new tokens for 4 prompts of 32 tokens
+P29_LLAMA = dict(cfg=dict(max_len=64), prompts=4, prompt_len=32, new=16)
+#: 29b's limit on the first step's logits against one process (absolute;
+#: f32 sums in another order through 16 layers)
+P29_LLAMA_LIMIT = 1e-4
+#: 29c: ring attention at BERT-base head widths, B 1, S 8192 over seq=2
+P29_RING = dict(B=1, S=8192, H=12, D=64)
+#: 29c's limit on the output and on the q/k/v gradients of Σ out·w
+#: against full attention in one process (the reference's own at long
+#: sequences)
+P29_RING_LIMIT = 2e-5
+#: 29d: BERT-base's 12 blocks as 2 stages of 6, 4 microbatches of 8 rows
+#: of 128 tokens, dropout off, f32
+P29_PIPE = dict(cfg=dict(vocab_size=30522, max_len=128, num_layers=12,
+                         num_heads=12, d_model=768, d_ff=3072,
+                         num_classes=2, dropout_rate=0.0),
+                stages=2, micro=4, mb=8)
+#: 29d's limits: the reference's (tests/test_pipeline_parallel.py)
+P29_PIPE_LIMITS = dict(loss_rtol=5e-5, grad_rtol=2e-3, grad_atol=1e-5)
+
+
+def p29_sizes(over: Optional[dict]) -> None:
+    """Replace phase 29's sizes (``P29_*``) with ``over``'s, for a small
+    run (tests/test_torch_dl_tp_cuda.py, the CPU)."""
+    for k, v in (over or {}).items():
+        globals()[k] = v
+
+
+def p29_model_axis_ops() -> dict:
+    """This process's all-reduce calls and bytes over the ``model`` axis
+    so far (the counters of parallel.collectives)."""
+    from synapseml_tpu_torch.telemetry import get_registry
+    out = {}
+    for name in ("collective_calls_total", "collective_bytes_total"):
+        c = get_registry().get(name)
+        out[name] = sum(v for (op, axis), v in
+                        (c.series().items() if c else ())
+                        if axis == "model" and op.startswith("tp_"))
+    return out
+
+
+def p29_text_batches(seed: int):
+    c = P29_TEXT
+    rng = np.random.default_rng(seed + 29)
+    seq, vocab = c["cfg"]["max_len"], c["cfg"]["vocab_size"]
+    out = []
+    for _ in range(c["steps"]):
+        mask = np.ones((c["batch"], seq), bool)
+        mask[::3, seq // 2:] = False
+        out.append((rng.integers(0, vocab, (c["batch"], seq)).astype(
+            np.int64), mask, rng.integers(0, 2, c["batch"]).astype(np.int64)))
+    return out
+
+
+def p29_text(dev, mesh, seed: int) -> dict:
+    """29a on this process (``mesh`` None: alone): BERT-base through
+    ``DLTrainer`` from ``seed``'s weights → losses, the whole model's
+    state (host), step ms, peak GB and the model axis's all-reduces a
+    step."""
+    from synapseml_tpu_torch.models.dl import (DLTrainer, OptimizerConfig,
+                                               TextEncoder,
+                                               TransformerConfig)
+    c = P29_TEXT
+    cfg = TransformerConfig(dtype=torch.float32, **c["cfg"])
+    empty_cache(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = TextEncoder(cfg, device=dev, seed=None, mesh=mesh)
+    tr = DLTrainer(model, OptimizerConfig(learning_rate=c["lr"],
+                                          grad_clip_norm=1.0), dev,
+                   mesh=mesh)
+    state = tr.init_state(seed)
+    from synapseml_tpu_torch.telemetry.flight import get_flight
+    step = tr.train_step()
+    losses, times, waits = [], [], []
+    before = p29_model_axis_ops()
+    for ids, mask, lab in p29_text_batches(seed):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        seq = get_flight().last_seq
+        rows = tr.local_rows(np.arange(len(lab)))
+        state, m = step(state, tr.shard_batch((ids[rows], mask[rows])),
+                        tr.shard_batch((lab[rows],))[0], seed)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        # the host's seconds inside the model axis's collectives (the
+        # flight ring's collective.end events, the backward's included)
+        waits.append(sum(e.get("seconds", 0.0) for e in
+                         get_flight().events_since(seq)
+                         if e["kind"] == "collective.end"
+                         and e.get("axis") == "model"))
+    after = p29_model_axis_ops()
+    n = len(losses)
+    state_np = {k: v.detach().cpu().numpy()
+                for k, v in model.full_state_dict().items()}
+    return dict(losses=losses, state=state_np,
+                # the first step pays the allocator's growth
+                step_ms=float(np.median(times[1:] or times)) * 1e3,
+                step_ms_all=[t * 1e3 for t in times],
+                collective_ms=float(np.median(waits[1:] or waits)) * 1e3,
+                peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                         if dev.type == "cuda" else None),
+                model_allreduces_per_step=(
+                    after["collective_calls_total"]
+                    - before["collective_calls_total"]) / n,
+                model_allreduce_mb_per_step=(
+                    after["collective_bytes_total"]
+                    - before["collective_bytes_total"]) / n / 1e6)
+
+
+def p29_prompts(seed: int, vocab: int) -> np.ndarray:
+    c = P29_LLAMA
+    return np.random.default_rng(seed + 290).integers(
+        1, vocab, (c["prompts"], c["prompt_len"])).astype(np.int32)
+
+
+def p29_llama(dev, mesh, seed: int) -> dict:
+    """29b on this process: the f32 Llama (sharded over ``mesh``'s model
+    axis, or whole) from ``seed`` → the first step's logits (the
+    prompts' last position), the greedy tokens and ms a token."""
+    from synapseml_tpu_torch.models.llm import (LlamaConfig, LlamaModel,
+                                                generate)
+    c = P29_LLAMA
+    cfg = LlamaConfig.llama3_1b(dtype=torch.float32, **c["cfg"])
+    empty_cache(dev)
+    model = LlamaModel(cfg, device=dev, seed=seed, mesh=mesh)
+    prompts = p29_prompts(seed, cfg.vocab_size)
+    with torch.no_grad():
+        first = model(torch.as_tensor(prompts, device=dev))[:, -1]
+    first = first.cpu().numpy()
+    generate(model, prompts[:, :4], max_new_tokens=2)        # warm-up
+    synchronize(dev)
+    t0 = time.perf_counter()
+    tokens = generate(model, prompts, max_new_tokens=c["new"])
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    del model
+    empty_cache(dev)
+    return dict(first=first, tokens=tokens,
+                ms_per_token=wall / c["new"] * 1e3)
+
+
+def p29_ring_inputs(seed: int):
+    c = P29_RING
+    rng = np.random.default_rng(seed + 291)
+    shape = (c["B"], c["S"], c["H"], c["D"])
+    q, k, v, w = [rng.normal(size=shape).astype(np.float32)
+                  for _ in range(4)]
+    mask = np.ones((c["B"], c["S"]), bool)
+    mask[:, c["S"] - c["S"] // 16:] = False
+    return dict(q=q, k=k, v=v, w=w, mask=mask)
+
+
+def p29_ring(dev, mesh, seed: int) -> dict:
+    """29c: ``mesh`` given, this rank's ring attention block and its
+    q/k/v gradients of ``Σ out·w`` (gathered over ``seq``); None, full
+    attention in this process with autograd.  → out, dq, dk, dv (host)
+    and the wall ms."""
+    from synapseml_tpu_torch.models.dl.ring_attention import (ring_attention,
+                                                              shard_blocks)
+    z = p29_ring_inputs(seed)
+    empty_cache(dev)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    if mesh is not None:
+        from synapseml_tpu_torch.parallel.collectives import all_gather
+        q, k, v = [shard_blocks(z[n], mesh).requires_grad_(True)
+                   for n in ("q", "k", "v")]
+        w, mask = shard_blocks(z["w"], mesh), shard_blocks(z["mask"], mesh)
+        out = ring_attention(q, k, v, mask, mesh)
+        (out * w).sum().backward()
+
+        def whole(t):
+            parts = all_gather(t.detach().contiguous(), mesh, "seq")
+            return torch.cat(list(parts.unbind(0)), dim=1).cpu().numpy()
+
+        rec = dict(out=whole(out), dq=whole(q.grad), dk=whole(k.grad),
+                   dv=whole(v.grad))
+    else:
+        q, k, v = [torch.as_tensor(z[n], device=dev).requires_grad_(True)
+                   for n in ("q", "k", "v")]
+        D = q.shape[-1]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / float(np.sqrt(D))
+        logits = logits.masked_fill(
+            ~torch.as_tensor(z["mask"], device=dev)[:, None, None],
+            float(np.finfo(np.float32).min))
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+        (out * torch.as_tensor(z["w"], device=dev)).sum().backward()
+        del logits
+        rec = dict(out=out.detach().cpu().numpy(),
+                   dq=q.grad.cpu().numpy(), dk=k.grad.cpu().numpy(),
+                   dv=v.grad.cpu().numpy())
+    synchronize(dev)
+    rec["ms"] = (time.perf_counter() - t0) * 1e3
+    empty_cache(dev)
+    return rec
+
+
+def p29_pipe(dev, mesh, seed: int) -> dict:
+    """29d: ``mesh`` given (a ``pipe`` axis), ``pp_train_loss`` over it
+    and its gradients (stage leaves gathered over ``pipe``); None, the
+    sequential TextEncoder's loss and gradients.  Both from ``seed``'s
+    weights on the same batch; the step (forward + backward) runs twice
+    from fresh gradients → loss, gradients (host) of the second, and the
+    first (``first_ms``) and second (``ms``) steps' wall ms."""
+    from synapseml_tpu_torch.models.dl import (TextEncoder,
+                                               TransformerConfig)
+    from synapseml_tpu_torch.models.dl.pipeline import (merge_encoder_stages,
+                                                        pp_train_loss,
+                                                        split_encoder_stages)
+    c = P29_PIPE
+    cfg = TransformerConfig(dtype=torch.float32, **c["cfg"])
+    B = c["micro"] * c["mb"]
+    rng = np.random.default_rng(seed + 292)
+    S = cfg.max_len
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                          device=dev)
+    mask = torch.ones((B, S), dtype=torch.bool, device=dev)
+    mask[::4, S // 2:] = False
+    labels = torch.as_tensor(rng.integers(0, cfg.num_classes, B),
+                             device=dev)
+    empty_cache(dev)
+    model = TextEncoder(cfg, device=dev, seed=seed)
+    if mesh is not None:
+        from synapseml_tpu_torch.parallel.pipeline import local_stage
+        whole = {k: v.detach() for k, v in model.state_dict().items()}
+        del model
+        outer0, stacked = split_encoder_stages(whole, c["stages"])
+        mine0 = local_stage(stacked, mesh)
+        loss_fn = pp_train_loss(cfg, mesh, c["micro"])
+    times = []
+    for _ in range(2):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        if mesh is None:
+            model.zero_grad()
+            loss = torch.nn.functional.cross_entropy(
+                model(ids, mask).float(), labels)
+            loss.backward()
+        else:
+            outer = {k: v.clone().requires_grad_(True)
+                     for k, v in outer0.items()}
+            mine = {k: v.clone().requires_grad_(True)
+                    for k, v in mine0.items()}
+            loss = loss_fn(outer, mine, ids, mask, labels)
+            loss.backward()
+        synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if mesh is None:
+        grads = {k: p.grad.cpu().numpy()
+                 for k, p in model.named_parameters()}
+    else:
+        from synapseml_tpu_torch.parallel.collectives import all_gather
+        gathered = {k: torch.cat(list(all_gather(
+            v.grad, mesh, "pipe").unbind(0))) for k, v in mine.items()}
+        grads = {k: v.cpu().numpy() for k, v in merge_encoder_stages(
+            {k: v.grad for k, v in outer.items()}, gathered).items()}
+    empty_cache(dev)
+    return dict(loss=float(loss.detach()), grads=grads, first_ms=times[0],
+                ms=times[1])
+
+
+def phase29_gang(args: dict) -> dict:
+    """One rank of phase 29's two-rank gloo gang on the card: 29a on the
+    (data 1, model 2) mesh, 29b on a model axis of 2, 29c on (data 1,
+    seq 2), 29d on pipe 2.  Rank 0 writes each part's arrays under
+    ``args["root"]``; every rank returns its readings."""
+    from synapseml_tpu_torch.parallel.mesh import ProcessMesh, dp_tp_mesh
+    p29_sizes(args.get("sizes"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev_name, seed, root = args["device"], args["seed"], args["root"]
+    out = dict(task_start_unix=time.time())
+    walls = {}
+    t0 = time.perf_counter()
+    tp = dp_tp_mesh(2, device=dev_name)
+    dev = tp.device
+    rank0 = tp.rank == 0
+    a = p29_text(dev, tp, seed)
+    if rank0:
+        p28_save_npz(os.path.join(root, "a.npz"), a.pop("state"))
+    a.pop("state", None)
+    out["a"] = a
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = p29_llama(dev, tp, seed)
+    if rank0:
+        p28_save_npz(os.path.join(root, "b.npz"),
+                     dict(first=b["first"], tokens=b["tokens"]))
+    out["b"] = dict(ms_per_token=b["ms_per_token"],
+                    tokens=b["tokens"].tolist())
+    walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = p29_ring(dev, ProcessMesh({"data": 1, "seq": 2}, device=dev_name),
+                 seed)
+    if rank0:
+        p28_save_npz(os.path.join(root, "c.npz"),
+                     {k: v for k, v in c.items() if k != "ms"})
+    out["c"] = dict(ms=c["ms"])
+    walls["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = p29_pipe(dev, ProcessMesh({"pipe": 2}, device=dev_name), seed)
+    if rank0:
+        p28_save_npz(os.path.join(root, "d.npz"),
+                     {"loss": np.asarray(d["loss"]), **{
+                         f"g.{k}": v for k, v in d["grads"].items()}})
+    out["d"] = dict(loss=d["loss"], ms=d["ms"], first_ms=d["first_ms"])
+    walls["d"] = time.perf_counter() - t0
+    out["walls"] = walls
+    return out
+
+
+def model_parallel(seed: int, dev, card: str,
+                   sizes: Optional[dict] = None) -> dict:
+    """Phase 29 from the launching process: the two-rank gloo gang on the
+    card (``phase29_gang``) and, beside it, the one-process references
+    here; then every check.  ``sizes`` replaces ``P29_*`` here and in the
+    ranks (a small run).  Raises on a failed check, after printing every
+    reading."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from synapseml_tpu_torch.parallel import run_on_local_cluster
+    p29_sizes(sizes)
+    shutil.rmtree(P29_ROOT, ignore_errors=True)
+    os.makedirs(P29_ROOT)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        synchronize(dev)
+    pool = ThreadPoolExecutor(1)
+    t0 = time.time()
+    gang = pool.submit(
+        run_on_local_cluster, "chip_smoke:phase29_gang", 2,
+        task_args=dict(seed=seed, device=dev.type, root=P29_ROOT,
+                       sizes=sizes),
+        device=dev.type, backend="gloo", timeout_s=P29_GANG_TIMEOUT_S)
+    try:
+        with ieee_f32():
+            one = dict(a=p29_text(dev, None, seed))
+            one["b"] = p29_llama(dev, None, seed)
+            one["c"] = p29_ring(dev, None, seed)
+            one["d"] = p29_pipe(dev, None, seed)
+        ranks = gang.result()
+    finally:
+        pool.shutdown(wait=True)
+    gang_s = time.time() - t0
+    fails = []
+    # 29a: losses and the final parameters against one process
+    a1 = one["a"]
+    got = p28_wait_npz(os.path.join(P29_ROOT, "a.npz"))
+    a_loss = max(abs(x - y) / abs(y) for r in ranks for x, y in
+                 zip(r["a"]["losses"], a1["losses"]))
+    a_param = p28_max_diff(got, a1["state"])
+    if a_loss > P29_TEXT_LIMITS["losses"] or \
+            a_param > P29_TEXT_LIMITS["params"] or \
+            not np.isfinite([x for r in ranks for x in r["a"]["losses"]]).all():
+        fails.append(f"phase 29a: losses {[r['a']['losses'] for r in ranks]}"
+                     f" against {a1['losses']} ({a_loss:.3g}), parameters "
+                     f"{a_param:.3g} (limits {P29_TEXT_LIMITS})")
+    # 29b: the first step's logits, then the tokens
+    b1 = one["b"]
+    bz = p28_wait_npz(os.path.join(P29_ROOT, "b.npz"))
+    b_logit = float(np.abs(bz["first"] - b1["first"]).max())
+    if b_logit > P29_LLAMA_LIMIT:
+        fails.append(f"phase 29b: first-step logits differ by {b_logit:.3g} "
+                     f"(limit {P29_LLAMA_LIMIT})")
+    divergence = None
+    tok_tp, tok_one = bz["tokens"], b1["tokens"]
+    if any(r["b"]["tokens"] != tok_tp.tolist() for r in ranks):
+        fails.append("phase 29b: the ranks generated different tokens")
+    if not np.array_equal(tok_tp, tok_one):
+        row, col = [int(i[0]) for i in np.nonzero(tok_tp != tok_one)]
+        # the one-process logits at the first divergence: their top-2 gap
+        from synapseml_tpu_torch.models.llm import LlamaConfig, LlamaModel
+        cfg = LlamaConfig.llama3_1b(dtype=torch.float32, **P29_LLAMA["cfg"])
+        model = LlamaModel(cfg, device=dev, seed=seed)
+        ctx = np.concatenate([p29_prompts(seed, cfg.vocab_size)[row],
+                              tok_one[row, :col]])
+        with torch.no_grad(), ieee_f32():
+            lg = model(torch.as_tensor(ctx[None], device=dev))[0, -1]
+        top = torch.topk(lg.float(), 2).values.cpu().numpy()
+        del model
+        empty_cache(dev)
+        divergence = dict(row=row, token=col, top2_gap=float(top[0] - top[1]))
+        log(f"phase 29b: tokens part at row {row}, token {col}: the top-2 "
+            f"logit gap there is {divergence['top2_gap']:.3g} (limit "
+            f"{P29_LLAMA_LIMIT})")
+        if divergence["top2_gap"] >= P29_LLAMA_LIMIT:
+            fails.append(f"phase 29b: tokens differ at {divergence}")
+    # 29c: output and gradients within the limit of full attention
+    cz = p28_wait_npz(os.path.join(P29_ROOT, "c.npz"))
+    c_err = {k: float(np.abs(cz[k] - one["c"][k]).max())
+             for k in ("out", "dq", "dk", "dv")}
+    if max(c_err.values()) > P29_RING_LIMIT:
+        fails.append(f"phase 29c: ring against full attention {c_err} "
+                     f"(limit {P29_RING_LIMIT})")
+    # 29d: the pipelined loss and gradients against the sequential model
+    dz = p28_wait_npz(os.path.join(P29_ROOT, "d.npz"))
+    d1 = one["d"]
+    L = P29_PIPE_LIMITS
+    d_loss = abs(float(dz["loss"]) - d1["loss"]) / abs(d1["loss"])
+    # each leaf's largest error as a share of what the reference's
+    # allclose allows (atol + rtol |want|): over 1 fails
+    d_grad, worst = 0.0, None
+    for k, want in d1["grads"].items():
+        share = float(np.max(np.abs(dz[f"g.{k}"] - want)
+                             / (L["grad_atol"] + L["grad_rtol"]
+                                * np.abs(want))))
+        if share > d_grad:
+            d_grad, worst = share, k
+    if d_loss > L["loss_rtol"] or d_grad > 1.0 or \
+            any(abs(r["d"]["loss"] - float(dz["loss"])) > 0 for r in ranks):
+        fails.append(f"phase 29d: loss {float(dz['loss'])} against "
+                     f"{d1['loss']} ({d_loss:.3g}), gradient {worst} at "
+                     f"{d_grad:.3g} of its allowance {L}")
+    out = dict(
+        gang_s=gang_s, walls={r: res["walls"] for r, res in
+                              enumerate(ranks)},
+        a=dict(loss_rel=a_loss, param_diff=a_param,
+               losses=ranks[0]["a"]["losses"], one_losses=a1["losses"],
+               step_ms={r: res["a"]["step_ms"] for r, res in
+                        enumerate(ranks)},
+               one_step_ms=a1["step_ms"],
+               peak_gb={r: res["a"]["peak_gb"] for r, res in
+                        enumerate(ranks)},
+               one_peak_gb=a1["peak_gb"],
+               allreduces_per_step=ranks[0]["a"]["model_allreduces_per_step"],
+               collective_ms={r: res["a"]["collective_ms"] for r, res in
+                              enumerate(ranks)},
+               allreduce_mb_per_step=ranks[0]["a"][
+                   "model_allreduce_mb_per_step"]),
+        b=dict(logit_diff=b_logit, tokens_equal=bool(
+            np.array_equal(tok_tp, tok_one)), divergence=divergence,
+            ms_per_token={r: res["b"]["ms_per_token"] for r, res in
+                          enumerate(ranks)},
+            one_ms_per_token=b1["ms_per_token"]),
+        c=dict(err=c_err, ms={r: res["c"]["ms"] for r, res in
+                              enumerate(ranks)}, one_ms=one["c"]["ms"]),
+        d=dict(loss=float(dz["loss"]), one_loss=d1["loss"], loss_rel=d_loss,
+               grad_share=d_grad, grad_worst=worst,
+               ms={r: res["d"]["ms"] for r, res in enumerate(ranks)},
+               first_ms={r: res["d"]["first_ms"] for r, res in
+                         enumerate(ranks)},
+               one_ms=d1["ms"], one_first_ms=d1["first_ms"]))
+    a = out["a"]
+    log(f"phase 29a: BERT-base at modelParallelism=2 (2 gloo ranks on the "
+        f"card), f32, dropout {P29_TEXT['cfg']['dropout_rate']}, batch "
+        f"{P29_TEXT['batch']}: losses {a['losses']} against one process "
+        f"{a['one_losses']} (within {a['loss_rel']:.3g}), parameters within "
+        f"{a['param_diff']:.3g} (limits {P29_TEXT_LIMITS}); step ms "
+        f"{a['step_ms']} against {a['one_step_ms']:.1f}; "
+        f"{a['allreduces_per_step']:.0f} all-reduces over model a step, "
+        f"{a['allreduce_mb_per_step']:.1f} MB, {a['collective_ms']} ms of "
+        f"collectives a step; peak GB a rank "
+        f"{a['peak_gb']} against {a['one_peak_gb']} | {card}")
+    b = out["b"]
+    log(f"phase 29b: Llama-3.2-1B shapes, f32, tp=2: first-step logits "
+        f"within {b['logit_diff']:.3g} of one process (limit "
+        f"{P29_LLAMA_LIMIT}), tokens equal {b['tokens_equal']}; ms a token "
+        f"{b['ms_per_token']} against {b['one_ms_per_token']:.2f} "
+        f"({P29_LLAMA['prompts']} prompts of {P29_LLAMA['prompt_len']}, "
+        f"{P29_LLAMA['new']} new) | {card}")
+    c = out["c"]
+    log(f"phase 29c: ring attention over seq=2, B {P29_RING['B']}, S "
+        f"{P29_RING['S']}, H {P29_RING['H']}, D {P29_RING['D']}, f32: "
+        f"output and q/k/v gradients within {c['err']} of full attention "
+        f"(limit {P29_RING_LIMIT}); ms forward + backward {c['ms']} against "
+        f"{c['one_ms']:.1f} | {card}")
+    d = out["d"]
+    log(f"phase 29d: GPipe, BERT-base width's "
+        f"{P29_PIPE['cfg']['num_layers']} blocks as {P29_PIPE['stages']} "
+        f"stages, {P29_PIPE['micro']} microbatches of {P29_PIPE['mb']}: loss "
+        f"{d['loss']:.7f} against {d['one_loss']:.7f} ({d['loss_rel']:.3g}),"
+        f" gradients within {d['grad_share']:.3g} of the allowed error "
+        f"(atol + rtol |g|, worst {d['grad_worst']}; limits "
+        f"{P29_PIPE_LIMITS}); a step's forward + backward ms {d['ms']} "
+        f"against {d['one_ms']:.1f} (first steps {d['first_ms']} against "
+        f"{d['one_first_ms']:.1f}) | {card}")
+    log(f"phase 29: gang {gang_s:.1f} s, rank walls {json.dumps(out['walls'])}")
+    shutil.rmtree(P29_ROOT, ignore_errors=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8653,9 +9191,14 @@ def main(argv=None) -> int:
         f"{json.dumps(p20a)} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # one turn of each engine (int8, bf16): two turns cost ~10 s more
+    # the HF round trip over the first P20B_HF_LAYERS blocks, to make
+    # room for phase 29 (all 16 blocks' 2.47 GB: 2.3 s write, 10.1 s read)
+    log(f"phase 20b's HF directory at {P20B_HF_LAYERS} of 16 blocks (cut "
+        f"from 16: 2.47 GB)")
     p20b = pretrained_int8(model, prompts, new, dev,
                            os.path.join(TIER_ROOT, "b"),
-                           turns=("int8", "bf16"))
+                           turns=("int8", "bf16"),
+                           hf_layers=P20B_HF_LAYERS)
     log(f"phase 20b: Llama-3.2-1B from an HF directory, int8 against bf16: "
         f"{json.dumps(p20b)} in {time.perf_counter() - t0:.1f} s")
     log(f"phase 20b: decode tokens/s int8 {p20b['int8']['decode_tokens_per_s']}"
@@ -8778,6 +9321,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dl_gang(args.seed, dev, card, p17b=p17["window"])
     wall("28")
+
+    # -- 29. model parallelism over a gang ------------------------------------
+    torch.cuda.empty_cache()
+    L.reset()
+    model_parallel(args.seed, dev, card)
+    if L.BY_SHAPE:
+        raise AssertionError(f"phase 29 launched {dict(L.BY_SHAPE)}")
+    wall("29")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

@@ -7,10 +7,11 @@ the reference boxes every text leaf with ``nn.with_partitioning``) — and
 returns the port's state dict.  The port keeps the flax names and layouts
 (:mod:`.transformer`, :mod:`.resnet`), so each leaf's path joined with
 dots is its key and every value is kept bit for bit.  With a ``mesh``
-that has an ``expert`` axis, each MoE layer's ``w_up``/``w_down`` hand
-this rank its slice of the experts (``[i·E/ep, (i+1)·E/ep)`` for expert
-index ``i``), the layout of a ``TextEncoder`` built on that mesh.  The
-port never imports flax.
+that shards a ``TextEncoder`` (an ``expert`` axis: each MoE layer's
+``w_up``/``w_down`` hand this rank its experts ``[i·E/ep, (i+1)·E/ep)``;
+a ``model`` axis: the vocab-, column- and row-parallel leaves hand this
+rank its block), the state dict is one rank's shard, the layout of a
+``TextEncoder`` built on that mesh.  The port never imports flax.
 """
 
 from __future__ import annotations
@@ -46,9 +47,8 @@ def params_from_reference(variables: Mapping,
     ``cfg`` is the ``TransformerConfig`` of a text model or the backbone
     name of a vision model (a MoE block's ``moe_ffn`` leaves ``router``,
     ``w_up`` and ``w_down`` keep their names); a vision tree without
-    ``batch_stats`` raises.  ``mesh``: this rank's experts only (module
+    ``batch_stats`` raises.  ``mesh``: this rank's shard only (module
     docstring)."""
-    from ...parallel.mesh import EXPERT_AXIS, axis_index, axis_size
     dev = resolve_device(device)
     if isinstance(cfg, TransformerConfig):
         sd = flatten_tree(variables.get("params", variables))
@@ -59,12 +59,12 @@ def params_from_reference(variables: Mapping,
             raise ValueError("a ResNet's variables need 'batch_stats'")
         sd = flatten_tree(variables["params"])
         sd.update(flatten_tree(variables["batch_stats"]))
-    ep = axis_size(mesh, EXPERT_AXIS)
-    if ep > 1:
-        for k in [k for k in sd if k.endswith(("moe_ffn.w_up",
-                                               "moe_ffn.w_down"))]:
-            per = np.shape(sd[k])[0] // ep
-            lo = axis_index(mesh, EXPERT_AXIS) * per
-            sd[k] = np.asarray(sd[k])[lo:lo + per]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-            for k, v in sd.items()}
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+           for k, v in sd.items()}
+    if mesh is not None and isinstance(cfg, TransformerConfig):
+        from .transformer import TextEncoder, slice_full
+        # the layout of the model on this mesh (unset CPU parameters)
+        specs = TextEncoder(cfg, device="cpu", seed=None,
+                            mesh=mesh).shard_specs()
+        out = slice_full(out, specs, mesh)
+    return {k: v.to(dev) for k, v in out.items()}

@@ -20,11 +20,17 @@ ranks, as the GBDT's ``numShards``): ``numDevices=0`` means every rank,
 trains on its block of every batch (:mod:`.training`), the model is the
 same on every rank when the fit ends, and it loads on one card.
 ``expertParallelism`` shards the MoE experts over an ``expert`` axis
-(``{data: world / ep, expert: ep}``), ``zero1`` shards the optimizer
-moments and ``collectiveCompression`` ('bf16' | 'int8' with error
-feedback, or a ``CollectiveConfig``) runs the manual data-parallel step;
-``modelParallelism > 1`` raises ``NotImplementedError`` naming ROADMAP
-A5 (tensor parallelism) before any work.  Step checkpoints
+(``{data: world / ep, expert: ep}``), ``modelParallelism`` (text only,
+as in the reference) shards the encoder's weights over a ``model`` axis
+(``{data: world / tp, model: tp}``, the Megatron layout of
+:mod:`.transformer`; ignored when ``expertParallelism > 1``, and a
+``ValueError`` before any work when tp does not divide the group's
+ranks), ``zero1`` shards the optimizer moments over ``data`` on any of
+these meshes and ``collectiveCompression`` ('bf16' | 'int8' with error
+feedback, or a ``CollectiveConfig``) runs the manual data-parallel step
+(a pure data mesh only).  ``DeepVisionClassifier`` always trains
+data-parallel, whatever ``modelParallelism`` says, as the reference's
+does.  Step checkpoints
 (``checkpointDir`` or ``checkpointManager`` with ``checkpointInterval``)
 save the model's parameters and buffers, the optimizer's moments and
 count, the residuals and the step every that many optimizer steps
@@ -203,9 +209,12 @@ class _DLParamsBase(Params):
     numDevices = IntParam(doc="ranks to train over: 0 = every rank of the "
                               "initialized process group, 1 = this device, "
                               "else the group's size", default=0)
-    modelParallelism = IntParam(doc="tensor-parallel size (not ported: "
-                                    "ROADMAP A5: tensor parallelism)",
-                                default=1)
+    modelParallelism = IntParam(doc="tensor-parallel size: the text "
+                                    "encoder's weights shard over a "
+                                    "'model' axis of this many ranks "
+                                    "(ignored with expertParallelism > 1 "
+                                    "and by the vision classifier, as in "
+                                    "the reference)", default=1)
     zero1 = BoolParam(doc="shard the optimizer moments over the data axis "
                           "(ZeRO-1)", default=False)
     validationFraction = FloatParam(doc="fraction held out for eval logging",
@@ -244,10 +253,11 @@ class _DLParamsBase(Params):
         from ...parallel.compression import resolve_collective_config
         return resolve_collective_config(self.get("collectiveCompression"))
 
-    def _resolve_mesh(self, ep: int = 1):
+    def _resolve_mesh(self, ep: int = 1, tp: int = 1):
         """Check the knobs and build the fit's mesh, before any work: None
         for a fit on this device, else a ProcessMesh over every rank of
-        the group (``{data, expert}`` when ``ep > 1``)."""
+        the group (``{data, expert}`` when ``ep > 1``, ``{data, model}``
+        when ``tp > 1``)."""
         name = type(self).__name__
         _manager_dir(self.get("checkpointManager"))
         check_profiler(self.get("stepProfiler"), name)
@@ -257,17 +267,14 @@ class _DLParamsBase(Params):
                 f"{name}: zero1 and collectiveCompression are mutually "
                 "exclusive (sharded_update=True is the explicit form of "
                 "zero1 and composes with compression)")
-        if self.zero1 and ep > 1:
-            raise NotImplementedError(
-                f"{name}: zero1 over an expert mesh is not ported yet "
-                "(ROADMAP A5: zero1 with expertParallelism)")
-        if cc is not None and ep > 1:
+        if cc is not None and (ep > 1 or tp > 1):
             raise ValueError(
                 f"{name}: collectiveCompression runs the manual "
                 "data-parallel step, which needs a pure data mesh; drop "
-                "expertParallelism or collectiveCompression")
-        mesh = make_dl_mesh(self.modelParallelism, int(self.numDevices),
-                            ep, device=self.device, owner=name)
+                "expertParallelism / modelParallelism or "
+                "collectiveCompression")
+        mesh = make_dl_mesh(tp, int(self.numDevices), ep,
+                            device=self.device, owner=name)
         agree_capture(self.get("stepProfiler"), mesh)
         return mesh
 
@@ -456,7 +463,7 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
                                      "the MoE experts over the ranks; "
                                      "requires numExperts > 0)", default=1)
 
-    def _resolve_mesh(self, ep: int = 1):
+    def _resolve_mesh(self, ep: int = 1, tp: int = 1):
         ep = int(self.expertParallelism)
         if ep > 1:
             if self.numExperts <= 0:
@@ -466,7 +473,10 @@ class DeepTextClassifier(_DLParamsBase, Estimator):
                 raise ValueError(
                     f"numExperts={self.numExperts} must be divisible by "
                     f"expertParallelism={ep} to shard experts evenly")
-        return super()._resolve_mesh(max(ep, 1))
+        # the reference builds dp_ep_mesh and ignores modelParallelism
+        # when experts shard
+        tp = 1 if ep > 1 else int(self.modelParallelism)
+        return super()._resolve_mesh(max(ep, 1), max(tp, 1))
 
     def _model_config(self, num_classes: int) -> TransformerConfig:
         sizes = {

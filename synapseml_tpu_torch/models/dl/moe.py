@@ -60,7 +60,15 @@ GSPMD, where the MoE sees the global batch:
   At K = 2 the f32 sum of two partials equals the one-card combine bit
   for bit.  On a ``(data > 1, expert > 1)`` mesh each rank's expert
   buffer keeps all ``C`` slots of the global capacity, of which its
-  rows fill about ``1 / data``.
+  rows fill about ``1 / data``;
+- on a ``model`` axis of size tp (tensor parallelism, the reference's
+  ``w_up (expert, embed, mlp)`` / ``w_down (expert, mlp, embed)`` logical
+  names) each rank holds ``d_ff / tp`` of every expert's hidden units:
+  the tokens entering the experts pass ``reduce_backward`` over
+  ``model``, the down-projection's f32 partial products are summed over
+  ``model`` (``reduce_forward``) and rounded to the model dtype, and
+  everything after, the combine included, is replicated work.  The
+  router stays replicated.
 """
 
 from __future__ import annotations
@@ -71,7 +79,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...parallel.mesh import DATA_AXIS, EXPERT_AXIS, axis_index, axis_size
+from ...parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, axis_index,
+                              axis_size)
 from .transformer import _param, trunc_normal
 
 
@@ -166,29 +175,55 @@ class MoEFFN(nn.Module):
                              f"expert axis of {self.ep}")
         self.local_experts = num_experts // self.ep
         self.expert_lo = axis_index(mesh, EXPERT_AXIS) * self.local_experts
+        self.tp = axis_size(mesh, MODEL_AXIS)
+        if d_ff % self.tp:
+            raise ValueError(f"d_ff={d_ff} does not split over a model axis "
+                             f"of {self.tp}")
+        self.d_ff = d_ff
+        ff = d_ff // self.tp
+        self.ff_lo = axis_index(mesh, MODEL_AXIS) * ff
         self.router = _param((d_model, num_experts), device)
-        self.w_up = _param((self.local_experts, d_model, d_ff), device)
-        self.w_down = _param((self.local_experts, d_ff, d_model), device)
+        self.w_up = _param((self.local_experts, d_model, ff), device)
+        self.w_down = _param((self.local_experts, ff, d_model), device)
         #: the last forward's load-balance loss (f32 scalar)
         self.aux_loss = None
         #: the last forward's share of (token, choice) pairs dropped by
         #: the capacity (a device scalar)
         self.dropped = None
 
+    def shard_dims(self):
+        """Parameter name → the ``(axis, dim)`` splits of its shard."""
+        out = {"w_up": [], "w_down": []}
+        if self.ep > 1:
+            out["w_up"].append((EXPERT_AXIS, 0))
+            out["w_down"].append((EXPERT_AXIS, 0))
+        if self.tp > 1:
+            out["w_up"].append((MODEL_AXIS, 2))
+            out["w_down"].append((MODEL_AXIS, 1))
+        return out
+
     def reset_parameters(self, gen: torch.Generator) -> None:
-        # every expert is drawn, so a rank's experts are the one-card
+        # every expert is drawn whole, so a rank's shard is the one-card
         # model's from the same seed
         self.router.copy_(trunc_normal(self.router.shape, gen, 0.02))
         lo, hi = self.expert_lo, self.expert_lo + self.local_experts
-        for p in (self.w_up, self.w_down):
-            full = (self.num_experts,) + tuple(p.shape[1:])
-            p.copy_(trunc_normal(full, gen, 0.02)[lo:hi])
+        D = self.router.shape[0]
+        for p, full, dim in ((self.w_up, (self.num_experts, D, self.d_ff), 2),
+                             (self.w_down, (self.num_experts, self.d_ff, D),
+                              1)):
+            w = trunc_normal(full, gen, 0.02)[lo:hi]
+            p.copy_(w.narrow(dim, self.ff_lo, p.shape[dim]))
 
     def _experts(self, expert_in: torch.Tensor) -> torch.Tensor:
         """(E, C, D) in the model dtype → (E, C, D)."""
         h = torch.bmm(expert_in, self.w_up.to(self.dtype))
         h = F.gelu(h, approximate="tanh")
-        return torch.bmm(h, self.w_down.to(self.dtype))
+        if self.tp == 1:
+            return torch.bmm(h, self.w_down.to(self.dtype))
+        from ...parallel.collectives import reduce_forward
+        part = torch.bmm(h.float(), self.w_down.to(self.dtype).float())
+        return reduce_forward(part, self.mesh, MODEL_AXIS,
+                              op="moe_tp_sum").to(self.dtype)
 
     def forward(self, x: torch.Tensor, dense: bool = False,
                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -199,11 +234,11 @@ class MoEFFN(nn.Module):
         batch's (module docstring)."""
         B, S, D = x.shape
         sharded = rows is not None and axis_size(self.mesh, DATA_AXIS) > 1
-        if not sharded and self.ep == 1:
+        if not sharded and self.ep == 1 and self.tp == 1:
             return self._one_card(x, dense)
-        if dense and self.ep > 1:
+        if dense and (self.ep > 1 or self.tp > 1):
             raise ValueError("dense=True is the one-card plain version; "
-                             "an expert-sharded layer gathers")
+                             "a sharded layer gathers")
         E, K = self.num_experts, self.top_k
         N = B * S
         n_global = (rows[1] if sharded else B) * S
@@ -253,6 +288,12 @@ class MoEFFN(nn.Module):
         N, D = tokens.shape
         E, lo = self.local_experts, self.expert_lo
         mine = keep
+        if self.tp > 1:
+            from ...parallel.collectives import reduce_backward
+            # each rank runs part of every expert's hidden units: the
+            # tokens' gradient through the experts sums over model
+            tokens = reduce_backward(tokens.float(), self.mesh, MODEL_AXIS,
+                                     op="moe_tp_token_grad")
         if self.ep > 1:
             from ...parallel.collectives import reduce_backward
             # the experts this rank runs see part of each token's and

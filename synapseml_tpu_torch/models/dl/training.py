@@ -20,7 +20,8 @@ Step metrics stay on the device; the caller reads them when it needs them
 
 Over a gang of ranks (``mesh=``, a :class:`~synapseml_tpu_torch.parallel.
 mesh.ProcessMesh` whose ``data`` axis shards the batch; an ``expert`` axis
-shards the MoE experts, :mod:`.moe`) the step computes what the
+shards the MoE experts, :mod:`.moe`; a ``model`` axis shards the weights
+in the Megatron layout, :mod:`.transformer`) the step computes what the
 reference's GSPMD step computes over the global batch:
 
 - each rank takes its block of each batch's rows
@@ -32,6 +33,12 @@ reference's GSPMD step computes over the global batch:
   every rank and its gradient reaches each rank's tokens unreduced, so
   the objective a rank differentiates is ``ce_local + D · aux``: after
   the mean over ``data`` that is the gradient of ``ce + aux``;
+- the gradients are reduced over ``data`` only: a leaf sharded over
+  ``model`` or ``expert`` holds its own block's gradient, and a
+  replicated leaf's gradient is the same on every rank of those axes
+  (the layers' ``reduce_backward`` / ``reduce_forward`` pairs make it
+  so).  The clip's global norm sums each sharded leaf's squares over its
+  axes once and counts each replicated leaf once;
 - the reported loss and accuracy are the global batch's (one all-reduce
   of two scalars);
 - dropout: a D-rank fit draws the 1-rank fit's masks.  Each dropout site
@@ -40,13 +47,17 @@ reference's GSPMD step computes over the global batch:
   encoder), so the masks depend on (seed, step, site) alone at any world
   size and a resize stays deterministic; a rank's draw is the one-rank
   fit's (:mod:`.transformer` says why it is not split by rows);
-- ``zero1`` (the reference's GSPMD weight-update sharding): every float
-  parameter rides one flat f32 stream padded to a multiple of D; a
-  reduce-scatter gives each rank the mean gradient of its 1/D slice, the
-  global-norm clip takes its norm from a psum of the slices' squares,
-  :class:`ShardedOptimizer` updates the slice with optax's formulas and
-  an all-gather returns the parameters.  A rank holds 1/D of the moment
-  bytes;
+- ``zero1`` (the reference's GSPMD weight-update sharding, over any
+  mesh): every float parameter this rank holds (its ``model`` /
+  ``expert`` blocks) rides one flat f32 stream padded to a multiple of
+  D; a reduce-scatter over ``data`` gives each rank the mean gradient of
+  its 1/D slice, the global-norm clip takes its norm from a psum of the
+  slices' squares (the sharded leaves' parts also summed over their
+  axes), :class:`ShardedOptimizer` updates the slice with optax's
+  formulas and an all-gather returns the parameters.  A rank holds 1/D
+  of its blocks' moment bytes, the split the reference's
+  ``_zero1_shardings`` gives each moment leaf (the model or expert split
+  kept, a data split added);
 - a :class:`~synapseml_tpu_torch.parallel.compression.CollectiveConfig`
   (``collective=``) runs the reference's manual data-parallel step:
   ``replicated_update`` syncs through ``compressed_tree_sync`` (bf16 or
@@ -262,12 +273,15 @@ class ShardedOptimizer:
     only (``i`` its ``data`` index); the other (``small``) parameters keep
     replicated moments.  With ``clip`` (zero1: every parameter rides the
     stream) the slice's optimizer clips as optax does, by the global norm
-    (its leaf sum is the psum of the slices' sums of squares; the pad is
-    zero); otherwise neither part clips and the step scales the gradients
-    by the global norm first."""
+    (its leaf sum is the psum of the slices' sums of squares, the pad
+    being zero, and the parts of the leaves that ``leaf_axes`` names
+    sharded over ``model``/``expert`` are also summed over those axes);
+    otherwise neither part clips and the step scales the gradients by the
+    global norm first."""
 
     def __init__(self, cfg: "OptimizerConfig", params: Sequence[nn.Parameter],
-                 big: Sequence[int], padded: int, mesh, clip: bool = False):
+                 big: Sequence[int], padded: int, mesh, clip: bool = False,
+                 leaf_axes: Optional[Dict[int, Tuple[str, ...]]] = None):
         self.cfg = cfg
         self.params = list(params)
         self.big = list(big)
@@ -283,10 +297,31 @@ class ShardedOptimizer:
         plain = dataclasses.replace(cfg, grad_clip_norm=0.0)
         self.flat = OptaxOptimizer(cfg if clip else plain, [torch.zeros(
             self.shard, dtype=torch.float32, device=dev)])
-        if clip and self.n > 1:
+        self._groups = self._slice_groups(leaf_axes or {})
+        if clip and (self.n > 1 or self._groups):
             self.flat.leaf_sums = self._sum_over_slices
+        self._g_shard = None
         self.rest = OptaxOptimizer(plain, [self.params[i]
                                            for i in self.small])
+
+    def _slice_groups(self, leaf_axes) -> List[Tuple[Tuple[str, ...], list]]:
+        """This rank's slice as ranges grouped by the axes their leaves
+        are sharded over: ``[(axes, [(lo, hi), ...]), ...]`` (empty when
+        no big leaf is sharded)."""
+        if not any(leaf_axes.get(i) for i in self.big):
+            return []
+        lo, hi = self.index * self.shard, (self.index + 1) * self.shard
+        groups: Dict[Tuple[str, ...], list] = {}
+        offset = 0
+        for i in self.big:
+            n = self.params[i].numel()
+            a, b = max(offset, lo), min(offset + n, hi)
+            axes = tuple(leaf_axes.get(i, ()))
+            groups.setdefault(axes, [])
+            if a < b:
+                groups[axes].append((a - lo, b - lo))
+            offset += n
+        return sorted(groups.items())
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -294,8 +329,23 @@ class ShardedOptimizer:
 
     def _sum_over_slices(self, sums):
         from ...parallel.collectives import psum
-        return [psum(s_.float(), self.mesh, DATA_AXIS, op="grad_norm")
-                .to(s_.dtype) for s_ in sums]
+        if not self._groups:
+            return [psum(s_.float(), self.mesh, DATA_AXIS, op="grad_norm")
+                    .to(s_.dtype) for s_ in sums]
+        g = self._g_shard
+        parts = torch.stack([
+            sum(((g[a:b].float() ** 2).sum() for a, b in ranges),
+                torch.zeros((), device=g.device))
+            for _, ranges in self._groups])
+        if self.n > 1:
+            parts = psum(parts, self.mesh, DATA_AXIS, op="grad_norm")
+        for axis in sorted({a for axes, _ in self._groups for a in axes}):
+            rows = [j for j, (axes, _) in enumerate(self._groups)
+                    if axis in axes]
+            done = psum(parts[rows], self.mesh, axis, op="grad_norm")
+            parts = parts.index_copy(0, torch.tensor(rows,
+                                                     device=g.device), done)
+        return [parts.sum().to(sums[0].dtype)]
 
     def moment_bytes(self) -> int:
         return self.flat.moment_bytes() + self.rest.moment_bytes()
@@ -319,7 +369,9 @@ class ShardedOptimizer:
         parameters from ``small_grads``."""
         from ...parallel.collectives import all_gather
         p_shard = self.my_slice(self.flat_stream(self.params)).clone()
+        self._g_shard = g_shard
         self.flat.step([g_shard], lr, params=[p_shard])
+        self._g_shard = None
         full = p_shard if self.n == 1 else all_gather(
             p_shard, self.mesh, DATA_AXIS, tiled=True,
             op="param_all_gather")
@@ -356,26 +408,35 @@ def make_dl_mesh(tp: int = 1, num_devices: int = 0, ep: int = 1,
     """The DL fit's mesh over the ranks of the initialized process group
     (the reference's ``make_dl_mesh`` / ``dp_ep_mesh``, whose shards are
     local devices): None for a fit on this device alone
-    (``num_devices`` 1, or a world of one rank), else a ProcessMesh
-    ``{data: world}`` or, with ``ep > 1``, ``{data: world / ep, expert:
-    ep}``.  ``num_devices`` 0 means every rank; any other value must be
-    the group's size.  ``tp > 1`` (tensor parallelism) is not ported.
-    Raises before any work."""
-    from ...parallel.mesh import ProcessMesh
-    if tp > 1:
-        raise NotImplementedError(
-            f"{owner}: modelParallelism > 1 (tensor parallelism) is not "
-            "ported yet (ROADMAP A5: tensor parallelism)")
+    (``num_devices`` 1, or a world of one rank, with ``tp`` and ``ep``
+    1), else a ProcessMesh ``{data: world}``, ``{data: world / ep,
+    expert: ep}`` with ``ep > 1``, or ``{data: world / tp, model: tp}``
+    with ``tp > 1`` (``dp_tp_mesh``; the caller picks one of ``ep`` and
+    ``tp``, as the reference's estimator does).  ``num_devices`` 0 means
+    every rank; any other value must be the group's size.  Raises
+    ``ValueError`` before any work."""
+    from ...parallel.mesh import MODEL_AXIS, ProcessMesh
     import torch.distributed as dist
     world = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
     nd = int(num_devices)
+    tp, ep = int(tp), int(ep)
     if nd < 0 or (nd not in (0, 1) and nd != world):
         raise ValueError(
             f"{owner}: numDevices={nd} must be 0 (every rank), 1 (this "
             f"device) or the process group's size; the group has "
             f"{world} rank(s)")
-    if nd == 1 or world == 1:
+    if tp < 1 or ep < 1 or (tp > 1 and ep > 1):
+        raise ValueError(f"{owner}: modelParallelism={tp} and "
+                         f"expertParallelism={ep}: each >= 1, at most one "
+                         "> 1")
+    ranks = 1 if nd == 1 else world
+    if ranks % tp:
+        raise ValueError(
+            f"{owner}: modelParallelism={tp} does not divide the group's "
+            f"{ranks} rank(s) (numDevices={nd}; the group has {world} "
+            f"rank(s))")
+    if ranks == 1:
         if ep > 1:
             raise ValueError(
                 f"{owner}: expertParallelism={ep} needs a gang of ranks "
@@ -384,6 +445,8 @@ def make_dl_mesh(tp: int = 1, num_devices: int = 0, ep: int = 1,
     if world % ep:
         raise ValueError(f"{owner}: expertParallelism={ep} does not "
                          f"divide the group's {world} ranks")
+    if tp > 1:
+        return ProcessMesh({DATA_AXIS: -1, MODEL_AXIS: tp}, device=device)
     return ProcessMesh({DATA_AXIS: -1, EXPERT_AXIS: ep} if ep > 1 else None,
                        device=device)
 
@@ -454,10 +517,6 @@ class DLTrainer:
                     f"manual data-parallel step and supports pure data "
                     f"meshes only; this mesh also has {bad}: drop "
                     "tensor/expert parallelism or collectiveCompression")
-        if self.zero1 and axis_size(mesh, EXPERT_AXIS) > 1:
-            raise NotImplementedError(
-                "zero1 over an expert mesh is not ported yet (ROADMAP A5: "
-                "zero1 with expertParallelism)")
 
     @property
     def is_writer(self) -> bool:
@@ -483,12 +542,15 @@ class DLTrainer:
             opt = self._sharded(params, big, cc.chunk
                                 if cc.compression == "int8" else 1)
         elif self.zero1:
-            opt = self._sharded(params, range(len(params)), 1, clip=True)
+            opt = self._sharded(params, range(len(params)), 1, clip=True,
+                                leaf_axes={i: tuple(a for a, _ in splits)
+                                           for i, splits in
+                                           self._shard_params().items()})
         else:
             opt = self._opt_cfg.build(params)
-            experts = self._expert_params()
-            if experts:
-                opt.leaf_sums = self._expert_sums(experts)
+            sharded = self._shard_params()
+            if sharded:
+                opt.leaf_sums = self._sharded_sums(sharded)
         residuals = None
         if cc is not None and cc.compresses and cc.error_feedback:
             residuals = [torch.zeros_like(p, dtype=torch.float32)
@@ -496,24 +558,31 @@ class DLTrainer:
         return TrainState(step=0, model=self.model, opt=opt,
                           residuals=residuals)
 
-    def _expert_sums(self, experts: List[int]) -> Callable:
-        """The clip's hook over an expert mesh: the expert leaves' sums
-        of squares are summed over ``expert`` (one all-reduce), so the
-        global norm counts every expert, as the reference's does."""
+    def _sharded_sums(self, sharded: Dict[int, list]) -> Callable:
+        """The clip's hook over a mesh that shards leaves: each sharded
+        leaf's sum of squares is summed over each of its axes (one
+        all-reduce an axis), so the global norm counts every block once,
+        as the reference's does; a replicated leaf counts once."""
         from ...parallel.collectives import psum
         mesh = self.mesh
+        by_axis: Dict[str, List[int]] = {}
+        for i, splits in sharded.items():
+            for axis, _ in splits:
+                by_axis.setdefault(axis, []).append(i)
 
         def complete(sums):
-            total = psum(torch.stack([sums[i] for i in experts]), mesh,
-                         EXPERT_AXIS, op="grad_norm")
-            for j, i in enumerate(experts):
-                sums[i] = total[j]
+            for axis in sorted(by_axis):
+                idx = by_axis[axis]
+                total = psum(torch.stack([sums[i] for i in idx]), mesh,
+                             axis, op="grad_norm")
+                for j, i in enumerate(idx):
+                    sums[i] = total[j]
             return sums
 
         return complete
 
-    def _sharded(self, params, big, chunk: int,
-                 clip: bool = False) -> ShardedOptimizer:
+    def _sharded(self, params, big, chunk: int, clip: bool = False,
+                 leaf_axes=None) -> ShardedOptimizer:
         if self._opt_cfg.name not in ("adamw", "adam", "sgd"):
             raise ValueError(f"unknown optimizer {self._opt_cfg.name!r}")
         big = list(big)
@@ -521,7 +590,7 @@ class DLTrainer:
         unit = self.data_size * chunk
         padded = -(-max(total, 1) // unit) * unit
         return ShardedOptimizer(self._opt_cfg, params, big, padded,
-                                self.mesh, clip)
+                                self.mesh, clip, leaf_axes)
 
     # -- steps ---------------------------------------------------------------
     def train_step(self) -> Callable:
@@ -727,19 +796,73 @@ class DLTrainer:
             return t if tiled else t[None]
         return all_gather(t, self.mesh, axis, tiled=tiled, op=op)
 
-    def _expert_params(self) -> List[int]:
-        keys = set(self.model.expert_keys()) \
-            if hasattr(self.model, "expert_keys") else set()
-        return [i for i, (k, _) in enumerate(self.model.named_parameters())
-                if k in keys]
+    def _shard_params(self) -> Dict[int, list]:
+        """Parameter index → the ``(axis, dim)`` splits of the parameters
+        this rank holds a block of (the model's ``shard_specs``)."""
+        specs = self.model.shard_specs() \
+            if hasattr(self.model, "shard_specs") else {}
+        return {i: specs[k] for i, (k, _) in
+                enumerate(self.model.named_parameters()) if k in specs}
+
+    def _full_leaf(self, t: torch.Tensor, splits) -> torch.Tensor:
+        from .transformer import gather_full
+        return gather_full({"t": t}, {"t": splits}, self.mesh)["t"] \
+            if splits else t
+
+    def _own_block(self, t: torch.Tensor, splits) -> torch.Tensor:
+        from .transformer import slice_full
+        return slice_full({"t": t}, {"t": splits}, self.mesh)["t"] \
+            if splits else t
+
+    def _canonical_stream(self, opt: ShardedOptimizer,
+                          local: torch.Tensor) -> torch.Tensor:
+        """A sharded optimizer's padded local stream (this rank's blocks)
+        → the whole model's stream: each sharded leaf gathered over its
+        axes, in parameter order (what a one-rank fit holds)."""
+        sharded = self._shard_params()
+        if not sharded:
+            return local
+        leaves, offset = [], 0
+        for i in opt.big:
+            p = opt.params[i]
+            leaf = local[offset:offset + p.numel()].reshape(p.shape)
+            leaves.append(self._full_leaf(leaf, sharded.get(i)).reshape(-1))
+            offset += p.numel()
+        return torch.cat(leaves)
+
+    def _local_stream(self, opt: ShardedOptimizer,
+                      full: np.ndarray) -> np.ndarray:
+        """The inverse of :meth:`_canonical_stream`: the whole model's
+        stream → this rank's blocks' stream padded to ``opt.padded``."""
+        sharded = self._shard_params()
+        if not sharded:
+            if full.shape[0] != opt.padded:
+                from ...parallel import compression as Z
+                full = Z.reshard_flat_stream(full, opt.total, opt.padded)
+            return full
+        parts, offset = [], 0
+        for i in opt.big:
+            p = opt.params[i]
+            shape = list(p.shape)
+            for axis, dim in sharded.get(i, ()):
+                shape[dim] *= axis_size(self.mesh, axis)
+            n = int(np.prod(shape))
+            leaf = torch.from_numpy(np.ascontiguousarray(
+                full[offset:offset + n])).reshape(shape)
+            parts.append(self._own_block(leaf, sharded.get(i)).reshape(-1))
+            offset += n
+        out = np.zeros((opt.padded,), np.float32)
+        flat = torch.cat(parts).numpy()
+        out[:flat.shape[0]] = flat
+        return out
 
     def checkpoint_tree(self, state: TrainState) -> dict:
-        """The step checkpoint's tree, free of the world size, as host
-        arrays: the whole model's state dict, the step, the optimizer
-        (moments in parameter order and its count; a sharded optimizer's
-        flat moments as the whole padded stream) and the residuals
-        stacked ``(ranks, *shape)``.  Collective over a mesh: every rank
-        calls it."""
+        """The step checkpoint's tree, free of the world size and of the
+        mesh's shape, as host arrays: the whole model's state dict, the
+        step, the optimizer (moments in parameter order, sharded leaves
+        gathered, and its count; a sharded optimizer's flat moments as
+        the whole model's stream) and the residuals stacked ``(ranks,
+        *shape)``.  Collective over a mesh: every rank calls it."""
         model = state.model
         sd = (model.full_state_dict() if hasattr(model, "full_state_dict")
               else model.state_dict())
@@ -749,19 +872,18 @@ class DLTrainer:
         if isinstance(opt, ShardedOptimizer):
             tree["opt"] = {
                 "count": np.asarray(opt.flat.count, np.int64),
-                "flat": {k: [_host(self._gather(v[0], DATA_AXIS, True,
-                                                "gather_moments"))]
+                "flat": {k: [_host(self._canonical_stream(
+                    opt, self._gather(v[0], DATA_AXIS, True,
+                                      "gather_moments")))]
                          for k, v in opt.flat.moments().items()},
                 "small": {"count": np.asarray(opt.rest.count, np.int64),
                           **{k: [_host(m) for m in v]
                              for k, v in opt.rest.moments().items()}}}
         else:
-            experts = set(self._expert_params())
+            sharded = self._shard_params()
             tree["opt"] = {"count": np.asarray(opt.count, np.int64)}
             for k, v in opt.moments().items():
-                tree["opt"][k] = [_host(self._gather(m, EXPERT_AXIS, True,
-                                                     "gather_experts")
-                                        if i in experts else m)
+                tree["opt"][k] = [_host(self._full_leaf(m, sharded.get(i)))
                                   for i, m in enumerate(v)]
         if state.residuals is not None:
             tree["residuals"] = [_host(self._gather(r, DATA_AXIS, False,
@@ -773,10 +895,11 @@ class DLTrainer:
     def load_checkpoint_tree(self, state: TrainState, tree: dict,
                              saved_shards: int) -> None:
         """Load a :meth:`checkpoint_tree` written at ``saved_shards`` data
-        shards into ``state``, re-laid for this trainer's size where they
-        differ (the reference's ``reshard_restored``: the residuals
-        collapse to their total and restack with rank 0 carrying it, the
-        flat moment stream re-pads; every other leaf is world-size-free).
+        shards (and any ``model``/``expert`` shape) into ``state``,
+        re-laid for this trainer's mesh where they differ (the
+        reference's ``reshard_restored``: the residuals collapse to their
+        total and restack with rank 0 carrying it, the flat moment stream
+        re-pads, every sharded leaf gives this rank its block).
         Deterministic: the same checkpoint gives the same state at the
         same size, whatever size wrote it."""
         from ...parallel import compression as Z
@@ -790,9 +913,7 @@ class DLTrainer:
         dev = self.device
         if isinstance(opt, ShardedOptimizer):
             for k, (full,) in saved["flat"].items():
-                full = _host(full)
-                if full.shape[0] != opt.padded:
-                    full = Z.reshard_flat_stream(full, opt.total, opt.padded)
+                full = self._local_stream(opt, _host(full))
                 getattr(opt.flat, k)[0].copy_(torch.from_numpy(
                     np.ascontiguousarray(opt.my_slice(full))).to(dev))
             opt.flat.count = int(_host(saved["count"]))
@@ -801,13 +922,11 @@ class DLTrainer:
                     dst.copy_(torch.as_tensor(_host(src)).to(dev))
             opt.rest.count = int(_host(saved["small"]["count"]))
         else:
-            experts = self._expert_modules()
+            sharded = self._shard_params()
             for k, v in opt.moments().items():
                 for i, (dst, src) in enumerate(zip(v, saved[k])):
-                    src = torch.as_tensor(_host(src))
-                    if i in experts:
-                        lo, n = experts[i]
-                        src = src[lo:lo + n]
+                    src = self._own_block(torch.as_tensor(_host(src)),
+                                          sharded.get(i))
                     dst.copy_(src.to(dev))
             opt.count = int(_host(saved["count"]))
         if state.residuals is not None:
@@ -820,18 +939,6 @@ class DLTrainer:
                     np.ascontiguousarray(r[self.data_index])).to(dev))
             state.residuals = rows
         state.step = int(_host(tree["step"]))
-
-    def _expert_modules(self):
-        """Parameter index → (first expert, experts) of this rank's slice,
-        for the expert-sharded parameters."""
-        out = {}
-        named = dict(self.model.named_modules())
-        experts = set(self._expert_params())
-        for i, (k, _) in enumerate(self.model.named_parameters()):
-            if i in experts:
-                ffn = named[k.rsplit(".", 1)[0]]
-                out[i] = (ffn.expert_lo, ffn.local_experts)
-        return out
 
 
 def saved_residuals(tree: dict, saved_shards: int) -> List[np.ndarray]:

@@ -48,8 +48,42 @@ load-balance losses are :meth:`TextEncoder.aux_losses`.  Built with a
 ``mesh`` that has an ``expert`` axis, each MoE layer holds this rank's
 experts (:mod:`.moe`); :meth:`TextEncoder.full_state_dict` gathers the
 whole model and :meth:`TextEncoder.load_full_state_dict` takes this
-rank's slice of one.  Ring attention over a mesh (ROADMAP A3: ring
-attention and pipeline) is not ported.
+rank's slice of one.
+
+Tensor parallelism (a ``mesh`` with a ``model`` axis of size tp > 1) is
+the reference's ``LOGICAL_RULES`` (Megatron's layout), one shard a rank:
+
+- ``tok_embed`` is vocab-parallel: a rank holds ``vocab / tp`` rows,
+  looks up the ids in its range (zeros for the others) and the f32 rows
+  meet in one all-reduce over ``model``;
+- ``query``/``key``/``value`` and ``ffn_up`` are column-parallel (the
+  heads and the ``d_ff`` columns split, the bias sliced alike); each
+  one's input gradient is its ranks' f32 partial products summed over
+  ``model`` and rounded once, where one card rounds (Megatron's "f",
+  taken a layer at a time so the gradient is one card's);
+- ``out`` and ``ffn_down`` are row-parallel: the partial product runs in
+  f32 (the inputs rounded to ``cfg.dtype`` as one card rounds them), one
+  all-reduce sums it (Megatron's "g"), the sum is rounded to
+  ``cfg.dtype`` where one card's product is, and the bias is added once
+  after it;
+- ``pos_embed``, the LayerNorms, ``pooler`` and ``classifier`` stay
+  replicated; the MoE FFN splits ``d_ff`` of every expert (:mod:`.moe`).
+
+Every shard is drawn whole from the one-card stream and sliced, so one
+seed gives the one-card model's weights at any tp.  The replicated
+parameters' gradients are equal on every ``model`` rank.  Dropout keeps
+the rule above: the probabilities' site draws the whole batch's and all
+heads' mask and keeps this rank's rows and heads; the sites after a
+row-parallel sum draw the same mask on every ``model`` rank.
+
+``use_ring_attention`` (on a mesh with a ``seq`` axis) runs
+:func:`.ring_attention.ring_attention_inner` over it: each rank holds a
+contiguous block of every sequence (``input_ids`` (B, S / sp)), its
+positions are the block's global positions, the dropout sites draw the
+whole sequence's mask and keep the block, the [CLS] row reaches the
+head from the first block (one all-reduce over ``seq``), and the
+probabilities are not dropped, as in the reference's ring.  Outside such
+a mesh it raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -58,13 +92,14 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...parallel.mesh import MODEL_AXIS, axis_index, axis_size
 from .precision import run_block
+from .ring_attention import BIG_NEG, _block_attn, ring_attention_inner
 
 #: sequence length from which "auto" switches to blockwise attention
 BLOCKWISE_MIN_SEQ = 1024
@@ -72,8 +107,6 @@ BLOCKWISE_MIN_SEQ = 1024
 BLOCK_K = 512
 #: flax ``nn.LayerNorm``'s default epsilon
 LN_EPS = 1e-6
-#: the key mask's fill: f32's finite minimum
-BIG_NEG = float(np.finfo(np.float32).min)
 
 
 @dataclasses.dataclass(unsafe_hash=True)
@@ -96,6 +129,9 @@ class TransformerConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_layer_freq: int = 2
+    #: attention as a ring over the mesh's ``seq_axis`` (module docstring)
+    use_ring_attention: bool = False
+    seq_axis: str = "seq"
 
     def uses_moe(self, layer: int) -> bool:
         """Whether block ``layer`` takes the MoE FFN (the reference's
@@ -154,63 +190,173 @@ def mix_seed(seed: int, *parts: int) -> int:
 
 
 def dropout(x: torch.Tensor, rate: float, seed: Optional[int],
-            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            rows: Optional[Tuple[int, int]] = None,
+            part: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
     kept values by ``1 / (1 - rate)``; the mask comes from a generator on
     ``x``'s device seeded with ``seed`` (``None``: no dropout).  With
     ``rows=(lo, total)`` the mask is drawn for ``total`` leading rows and
-    rows ``[lo, lo + x.shape[0])`` of it are used."""
+    rows ``[lo, lo + x.shape[0])`` of it are used; ``part=(dim, lo,
+    total)`` does the same along ``dim`` (this rank's heads or sequence
+    block)."""
     if seed is None or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     gen = torch.Generator(device=x.device)
     gen.manual_seed(seed)
-    if rows is None:
+    if rows is None and part is None:
         keep = torch.rand(x.shape, generator=gen, device=x.device) \
             < 1.0 - rate
     else:
-        lo, total = rows
-        keep = torch.rand((total,) + tuple(x.shape[1:]), generator=gen,
-                          device=x.device)[lo:lo + x.shape[0]] < 1.0 - rate
+        shape, index = list(x.shape), [slice(None)] * x.dim()
+        for dim, lo, total in ([(0,) + tuple(rows)] if rows else []) + \
+                ([tuple(part)] if part else []):
+            shape[dim] = total
+            index[dim] = slice(lo, lo + x.shape[dim])
+        keep = torch.rand(shape, generator=gen,
+                          device=x.device)[tuple(index)] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
 
 # -- layers ---------------------------------------------------------------------
 
+def model_shards(mesh, n: int, what: str) -> Tuple[int, int]:
+    """``(tp, index)`` of ``mesh``'s ``model`` axis for a dimension of
+    ``n`` that splits over it; raises ``ValueError`` when it does not."""
+    tp = axis_size(mesh, MODEL_AXIS)
+    if n % tp:
+        raise ValueError(f"{what}={n} does not split over a model axis of "
+                         f"{tp}")
+    return tp, axis_index(mesh, MODEL_AXIS)
+
+
+class _ColumnMatmul(torch.autograd.Function):
+    """``x @ w`` of a column-parallel layer (Megatron's "f" folded in):
+    the forward is one card's product of this rank's columns; the input's
+    gradient is each rank's partial product ``g @ wᵀ`` in f32, summed over
+    ``model`` and rounded to ``x``'s dtype once, where one card rounds
+    its whole product (so the layer's input gradient is one card's)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mesh):
+        ctx.save_for_backward(x, w)
+        ctx.mesh = mesh
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...parallel.collectives import psum
+        x, w = ctx.saved_tensors
+        gx = psum(torch.matmul(g.float(), w.float().t()), ctx.mesh,
+                  MODEL_AXIS, op="tp_input_grad").to(x.dtype)
+        gw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1]))
+        return gx, gw, None
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` is ``(in, out)``; the input, kernel
     and bias are cast to ``dtype``, multiplied and added there.  The
-    kernel draws from a truncated normal of std ``stddev``."""
+    kernel draws from a truncated normal of std ``stddev``.
+
+    ``parallel`` (with a ``mesh`` whose ``model`` axis has tp > 1):
+    ``"column"`` holds output columns ``[i·out/tp, (i+1)·out/tp)`` of the
+    kernel and the bias, and its input's gradient sums over ``model``
+    (:class:`_ColumnMatmul`); ``"row"`` holds input rows ``[i·in/tp,
+    (i+1)·in/tp)`` of the kernel and the whole bias, sums the f32 partial
+    products over ``model`` and adds the bias once (module docstring)."""
 
     def __init__(self, in_features: int, features: int, dtype, device,
-                 stddev: float = 0.02):
+                 stddev: float = 0.02, mesh=None,
+                 parallel: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
         self.stddev = stddev
-        self.kernel = _param((in_features, features), device)
-        self.bias = _param((features,), device)
+        self.mesh = mesh
+        self.full_shape = (in_features, features)
+        tp, idx = 1, 0
+        if parallel == "column":
+            tp, idx = model_shards(mesh, features, "features")
+        elif parallel == "row":
+            tp, idx = model_shards(mesh, in_features, "in_features")
+        elif parallel is not None:
+            raise ValueError(f"parallel={parallel!r}: 'column' or 'row'")
+        self.parallel = parallel if tp > 1 else None
+        self.tp, self.tp_index = tp, idx
+        cols = features // tp if self.parallel == "column" else features
+        rows = in_features // tp if self.parallel == "row" else in_features
+        self.kernel = _param((rows, cols), device)
+        self.bias = _param((cols,), device)
+
+    def shard_dims(self) -> Dict[str, list]:
+        """Parameter name → the ``(axis, dim)`` splits of its shard."""
+        if self.parallel == "column":
+            return {"kernel": [(MODEL_AXIS, 1)], "bias": [(MODEL_AXIS, 0)]}
+        if self.parallel == "row":
+            return {"kernel": [(MODEL_AXIS, 0)]}
+        return {}
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        self.kernel.copy_(trunc_normal(self.kernel.shape, gen, self.stddev))
+        full = trunc_normal(self.full_shape, gen, self.stddev)
+        if self.parallel is not None:
+            dim = 1 if self.parallel == "column" else 0
+            n = self.kernel.shape[dim]
+            full = full.narrow(dim, self.tp_index * n, n)
+        self.kernel.copy_(full)
         self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.parallel == "row":
+            from ...parallel.collectives import reduce_forward
+            part = torch.matmul(x.to(self.dtype).float(),
+                                self.kernel.to(self.dtype).float())
+            y = reduce_forward(part, self.mesh, MODEL_AXIS, op="tp_row_sum")
+            return y.to(self.dtype) + self.bias.to(self.dtype)
+        if self.parallel == "column" and torch.is_grad_enabled():
+            return _ColumnMatmul.apply(x.to(self.dtype),
+                                       self.kernel.to(self.dtype),
+                                       self.mesh) + self.bias.to(self.dtype)
         return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype)) \
             + self.bias.to(self.dtype)
 
 
 class Embed(nn.Module):
     """flax ``nn.Embed``'s table ``(num, features)``, truncated normal
-    std 0.02; the caller gathers rows and casts them."""
+    std 0.02; the caller gathers rows (:meth:`lookup`) and casts them.
+    With ``vocab_parallel`` on a ``model`` axis of size tp a rank holds
+    rows ``[i·num/tp, (i+1)·num/tp)``."""
 
-    def __init__(self, num: int, features: int, device):
+    def __init__(self, num: int, features: int, device, mesh=None,
+                 vocab_parallel: bool = False):
         super().__init__()
-        self.embedding = _param((num, features), device)
+        self.mesh = mesh
+        self.full_shape = (num, features)
+        tp, idx = (model_shards(mesh, num, "vocab_size") if vocab_parallel
+                   else (1, 0))
+        self.tp, self.lo = tp, idx * (num // tp)
+        self.embedding = _param((num // tp, features), device)
+
+    def shard_dims(self) -> Dict[str, list]:
+        return {"embedding": [(MODEL_AXIS, 0)]} if self.tp > 1 else {}
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        self.embedding.copy_(trunc_normal(self.embedding.shape, gen, 0.02))
+        full = trunc_normal(self.full_shape, gen, 0.02)
+        self.embedding.copy_(full[self.lo:self.lo + self.embedding.shape[0]])
+
+    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """The f32 rows of ``ids``; vocab-parallel, each rank's rows of its
+        range (zeros elsewhere) summed over ``model``."""
+        if self.tp == 1:
+            return F.embedding(ids, self.embedding)
+        from ...parallel.collectives import reduce_forward
+        n = self.embedding.shape[0]
+        local = ids.long() - self.lo
+        mine = (local >= 0) & (local < n)
+        rows = F.embedding(local.clamp(0, n - 1), self.embedding)
+        rows = rows * mine[..., None].to(rows.dtype)
+        return reduce_forward(rows, self.mesh, MODEL_AXIS, op="tp_embed_sum")
 
 
 class LayerNorm(nn.Module):
@@ -237,36 +383,20 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.dtype)
 
 
-def block_attn(q, k, v, key_mask, m, l, o, scale: float,
-               p_for_values=None):
-    """One K/V block's contribution with an online softmax (the port of
-    ``ring_attention._block_attn``).
-
-    q: (B, Sq, H, D); k/v: (B, Sk, H, D); key_mask: (B, Sk) bool or None;
-    m/l: (B, H, Sq) f32 running max / normalizer; o: (B, Sq, H, D) f32.
-    ``p_for_values`` transforms the unnormalized probabilities on the
-    value path only (probabilities dropout)."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if key_mask is not None:
-        logits = torch.where(key_mask[:, None, None, :], logits,
-                             torch.full((), BIG_NEG, device=logits.device))
-    new_m = torch.maximum(m, logits.amax(-1))
-    correction = torch.exp(m - new_m)
-    p = torch.exp(logits - new_m[..., None])
-    new_l = l * correction + p.sum(-1)
-    pv_p = p if p_for_values is None else p_for_values(p)
-    pv = torch.einsum("bhqk,bkhd->bqhd", pv_p, v.float())
-    new_o = o * correction.transpose(1, 2)[..., None] + pv
-    return new_m, new_l, new_o
+#: one K/V block's online-softmax update, shared with the ring
+block_attn = _block_attn
 
 
 def blockwise_attention(q, k, v, mask, scale: float, dropout_rate: float,
                         seed: Optional[int], block_k: int = BLOCK_K,
-                        rows: Optional[Tuple[int, int]] = None):
+                        rows: Optional[Tuple[int, int]] = None,
+                        heads: Optional[Tuple[int, int]] = None):
     """Exact attention as an online-softmax scan over K/V blocks: the
     logits never materialize at O(S²).  Probabilities dropout hits the
     value path of each block with its own mask (``seed`` mixed with the
-    block index); the normalizer stays dropout-free.
+    block index); the normalizer stays dropout-free.  ``heads=(lo,
+    total)``: ``q`` holds heads ``[lo, lo+H)`` of ``total`` (tensor
+    parallelism), and the masks are those heads' of the whole draw.
 
     q/k/v: (B, S, H, D); mask: (B, S) key mask or None."""
     B, S, H, D = q.shape
@@ -286,7 +416,8 @@ def blockwise_attention(q, k, v, mask, scale: float, dropout_rate: float,
         thin = None
         if seed is not None and dropout_rate > 0.0:
             def thin(p, i=i):
-                return dropout(p, dropout_rate, mix_seed(seed, i), rows)
+                return dropout(p, dropout_rate, mix_seed(seed, i), rows,
+                               None if heads is None else (1,) + heads)
         m, l, o = block_attn(q, k[:, blk], v[:, blk], mask[:, blk], m, l, o,
                              scale, p_for_values=thin)
     out = o / torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
@@ -298,21 +429,32 @@ _SITE_PROBS, _SITE_ATTN, _SITE_FFN = 0, 1, 2
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         d = cfg.d_model
-        self.query = Dense(d, d, cfg.dtype, device)
-        self.key = Dense(d, d, cfg.dtype, device)
-        self.value = Dense(d, d, cfg.dtype, device)
-        self.out = Dense(d, d, cfg.dtype, device)
+        tp, idx = model_shards(mesh, cfg.num_heads, "num_heads")
+        #: this rank's heads ``[head_lo, head_lo + local_heads)``
+        self.local_heads = cfg.num_heads // tp
+        self.head_lo = idx * self.local_heads
+        self.query = Dense(d, d, cfg.dtype, device, mesh=mesh,
+                           parallel="column")
+        self.key = Dense(d, d, cfg.dtype, device, mesh=mesh,
+                         parallel="column")
+        self.value = Dense(d, d, cfg.dtype, device, mesh=mesh,
+                           parallel="column")
+        self.out = Dense(d, d, cfg.dtype, device, mesh=mesh, parallel="row")
 
     def forward(self, x, mask, seed: Optional[int],
                 rows: Optional[Tuple[int, int]] = None):
         cfg = self.cfg
         B, S, _ = x.shape
         d_head = cfg.d_model // cfg.num_heads
-        shape = (B, S, cfg.num_heads, d_head)
+        H = self.local_heads
+        heads = (None if H == cfg.num_heads
+                 else (self.head_lo, cfg.num_heads))
+        shape = (B, S, H, d_head)
         q = self.query(x).reshape(shape)
         k = self.key(x).reshape(shape)
         v = self.value(x).reshape(shape)
@@ -321,10 +463,14 @@ class SelfAttention(nn.Module):
             raise ValueError(
                 f"attention_impl={cfg.attention_impl!r}: expected 'auto', "
                 "'einsum', or 'blockwise'")
-        if (cfg.attention_impl == "blockwise"
+        if cfg.use_ring_attention:
+            out = ring_attention_inner(q, k, v, mask, self.mesh,
+                                       cfg.seq_axis)
+        elif (cfg.attention_impl == "blockwise"
                 or (cfg.attention_impl == "auto" and S >= BLOCKWISE_MIN_SEQ)):
             out = blockwise_attention(q, k, v, mask, 1.0 / math.sqrt(d_head),
-                                      cfg.dropout_rate, p_seed, rows=rows)
+                                      cfg.dropout_rate, p_seed, rows=rows,
+                                      heads=heads)
         else:
             # 1 / sqrt(d_head) rounded to the compute dtype, as the
             # reference's ``1.0 / jnp.sqrt(d_head).astype(dtype)``
@@ -336,9 +482,10 @@ class SelfAttention(nn.Module):
                     mask[:, None, None, :], logits.float(),
                     torch.full((), BIG_NEG, device=logits.device))
             probs = torch.softmax(logits.float(), dim=-1).to(cfg.dtype)
-            probs = dropout(probs, cfg.dropout_rate, p_seed, rows)
+            probs = dropout(probs, cfg.dropout_rate, p_seed, rows,
+                            None if heads is None else (1,) + heads)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out(out.reshape(B, S, cfg.d_model))
+        return self.out(out.reshape(B, S, H * d_head))
 
 
 class EncoderBlock(nn.Module):
@@ -347,7 +494,7 @@ class EncoderBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.use_moe = use_moe
-        self.attention = SelfAttention(cfg, device)
+        self.attention = SelfAttention(cfg, device, mesh)
         self.ln_att = LayerNorm(cfg.d_model, cfg.dtype, device)
         if use_moe:
             from .moe import MoEFFN
@@ -356,23 +503,28 @@ class EncoderBlock(nn.Module):
                                   capacity_factor=cfg.moe_capacity_factor,
                                   dtype=cfg.dtype, device=device, mesh=mesh)
         else:
-            self.ffn_up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device)
-            self.ffn_down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device)
+            self.ffn_up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
+                                mesh=mesh, parallel="column")
+            self.ffn_down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, device,
+                                  mesh=mesh, parallel="row")
         self.ln_ffn = LayerNorm(cfg.d_model, cfg.dtype, device)
 
     def forward(self, x, mask, seed: Optional[int],
-                rows: Optional[Tuple[int, int]] = None):
+                rows: Optional[Tuple[int, int]] = None,
+                part: Optional[Tuple[int, int, int]] = None):
+        """``part``: this rank's sequence block ``(1, lo, total)`` for the
+        activation dropout sites (ring attention)."""
         rate = self.cfg.dropout_rate
         a = self.attention(x, mask, seed, rows)
         a = dropout(a, rate, None if seed is None
-                    else mix_seed(seed, _SITE_ATTN), rows)
+                    else mix_seed(seed, _SITE_ATTN), rows, part)
         x = self.ln_att(x + a)
         if self.use_moe:
             h = self.moe_ffn(x, rows=rows)
         else:
             h = self.ffn_down(F.gelu(self.ffn_up(x), approximate="tanh"))
         h = dropout(h, rate, None if seed is None
-                    else mix_seed(seed, _SITE_FFN), rows)
+                    else mix_seed(seed, _SITE_FFN), rows, part)
         return self.ln_ffn(x + h)
 
 
@@ -384,15 +536,25 @@ class TextEncoder(nn.Module):
     scales 1, biases 0) from ``seed`` by :func:`init_weights`; with
     ``seed=None`` they stay unset until the trainer's ``init_state``
     draws them.  ``mesh`` (a ProcessMesh) shards the MoE layers' experts
-    over its ``expert`` axis, if it has one."""
+    over its ``expert`` axis and the weights over its ``model`` axis, if
+    it has them, and carries the ring of ``cfg.use_ring_attention`` over
+    its ``seq`` axis (module docstring)."""
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = "cuda",
                  seed: Optional[int] = 0, mesh=None):
         super().__init__()
+        if cfg.use_ring_attention and \
+                cfg.seq_axis not in getattr(mesh, "shape", {}):
+            raise ValueError(
+                "use_ring_attention=True runs the attention as a ring over "
+                f"the mesh's {cfg.seq_axis!r} axis: build the TextEncoder "
+                "with a ProcessMesh that has one (parallel.mesh."
+                "dp_sp_tp_mesh), or leave the flag off")
         dev = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
-        self.tok_embed = Embed(cfg.vocab_size, cfg.d_model, dev)
+        self.tok_embed = Embed(cfg.vocab_size, cfg.d_model, dev, mesh=mesh,
+                               vocab_parallel=True)
         self.pos_embed = Embed(cfg.max_len, cfg.d_model, dev)
         self.ln_embed = LayerNorm(cfg.d_model, cfg.dtype, dev)
         for i in range(cfg.num_layers):
@@ -420,33 +582,22 @@ class TextEncoder(nn.Module):
                        if self.cfg.uses_moe(i))
         return [getattr(self, n).moe_ffn.aux_loss for n in names]
 
-    def expert_keys(self):
-        """State-dict keys held per rank on an ``expert`` axis (empty
-        when the experts are whole)."""
-        return [k for k, m in self.named_modules() if hasattr(m, "ep")
-                and m.ep > 1 for k in (f"{k}.w_up", f"{k}.w_down")]
+    def shard_specs(self) -> Dict[str, list]:
+        """State-dict key → the ``(axis, dim)`` splits of the leaves a
+        rank holds a block of (``expert`` and ``model`` axes; empty for a
+        model whose every leaf is whole)."""
+        return shard_specs(self)
 
     def full_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The whole model's state dict on every rank: each expert leaf
-        all-gathered over the ``expert`` axis (collective on an expert
-        mesh; the plain ``state_dict`` otherwise)."""
-        from ...parallel.collectives import all_gather
-        from ...parallel.mesh import EXPERT_AXIS
-        sd = self.state_dict()
-        for k in self.expert_keys():
-            sd[k] = all_gather(sd[k], self.mesh, EXPERT_AXIS, tiled=True,
-                               op="gather_experts")
-        return sd
+        """The whole model's state dict on every rank: each sharded leaf
+        all-gathered over its axes (collective over a mesh; the plain
+        ``state_dict`` otherwise)."""
+        return gather_full(self.state_dict(), self.shard_specs(), self.mesh)
 
     def load_full_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
-        """Load a whole model's state dict: each expert leaf contributes
-        this rank's experts."""
-        sd = dict(sd)
-        for k in self.expert_keys():
-            ffn = self.get_submodule(k.rsplit(".", 1)[0])
-            lo = ffn.expert_lo
-            sd[k] = sd[k][lo:lo + ffn.local_experts]
-        self.load_state_dict(sd)
+        """Load a whole model's state dict: each sharded leaf contributes
+        this rank's block."""
+        self.load_state_dict(slice_full(sd, self.shard_specs(), self.mesh))
 
     def forward(self, input_ids, attention_mask=None, deterministic=True,
                 return_embeddings=False, dropout_seed: Optional[int] = None,
@@ -457,7 +608,9 @@ class TextEncoder(nn.Module):
         ``dropout_rate > 0`` needs ``dropout_seed`` (the step's seed).
         ``rows=(lo, total)``: the batch is rows ``[lo, lo+B)`` of a
         ``total``-row batch sharded over the mesh's ``data`` axis (a
-        training step over a mesh sets it)."""
+        training step over a mesh sets it).  Under ring attention the
+        inputs are this rank's sequence block and so are the embeddings;
+        the logits are every block's."""
         cfg = self.cfg
         B, S = input_ids.shape
         if attention_mask is None:
@@ -471,19 +624,34 @@ class TextEncoder(nn.Module):
                 raise ValueError("deterministic=False with dropout needs "
                                  "a dropout_seed")
             seed = int(dropout_seed)
-        tok = F.embedding(input_ids, self.tok_embed.embedding).to(cfg.dtype)
-        pos = self.pos_embed.embedding[:S].to(cfg.dtype)
+        part, s_index = None, 0
+        if cfg.use_ring_attention:
+            s_index = self.mesh.axis_index(cfg.seq_axis)
+            sp = self.mesh.axis_size(cfg.seq_axis)
+            part = (1, s_index * S, sp * S)
+        tok = self.tok_embed.lookup(input_ids).to(cfg.dtype)
+        lo = s_index * S
+        pos = self.pos_embed.embedding[lo:lo + S].to(cfg.dtype)
         x = self.ln_embed(tok + pos[None])
         x = dropout(x, cfg.dropout_rate,
-                    None if seed is None else mix_seed(seed, 0), rows)
+                    None if seed is None else mix_seed(seed, 0), rows, part)
         for i in range(cfg.num_layers):
             x = run_block(getattr(self, f"layer_{i}"), cfg.remat, x,
                           attention_mask,
                           None if seed is None else mix_seed(seed, 1 + i),
-                          rows)
+                          rows, part)
         if return_embeddings:
             return x
-        pooled = torch.tanh(self.pooler(x[:, 0, :]))
+        cls = x[:, 0, :]
+        if part is not None:
+            # the [CLS] row lives in the first block: one all-reduce over
+            # seq hands it to every rank (exact: the others add zeros)
+            from ...parallel.collectives import reduce_forward
+            cls = cls.float() if s_index == 0 else \
+                torch.zeros_like(cls, dtype=torch.float32)
+            cls = reduce_forward(cls, self.mesh, cfg.seq_axis,
+                                 op="ring_cls").to(cfg.dtype)
+        pooled = torch.tanh(self.pooler(cls))
         return self.classifier(pooled)
 
     @torch.no_grad()
@@ -492,3 +660,47 @@ class TextEncoder(nn.Module):
         featurization."""
         return self(input_ids, attention_mask, deterministic=True,
                     return_embeddings=True)
+
+
+def shard_specs(model: nn.Module) -> Dict[str, list]:
+    """State-dict key → ``(axis, dim)`` splits, from every submodule's
+    ``shard_dims()``."""
+    out = {}
+    for name, mod in model.named_modules():
+        dims = getattr(mod, "shard_dims", None)
+        if dims is None:
+            continue
+        for p, splits in dims().items():
+            if splits:
+                out[f"{name}.{p}" if name else p] = list(splits)
+    return out
+
+
+def gather_full(sd: Dict[str, torch.Tensor], specs: Dict[str, list],
+                mesh) -> Dict[str, torch.Tensor]:
+    """``sd`` with each leaf of ``specs`` all-gathered over its axes along
+    its dims (collective over ``mesh``)."""
+    from ...parallel.collectives import all_gather
+    sd = dict(sd)
+    for k, splits in specs.items():
+        t = sd[k]
+        for axis, dim in splits:
+            parts = all_gather(t.contiguous(), mesh, axis, op="gather_shards")
+            t = torch.cat(list(parts.unbind(0)), dim=dim)
+        sd[k] = t
+    return sd
+
+
+def slice_full(sd: Dict[str, torch.Tensor], specs: Dict[str, list],
+               mesh) -> Dict[str, torch.Tensor]:
+    """``sd`` (whole leaves) with each leaf of ``specs`` cut to this
+    rank's block (``mesh`` None: nothing is cut)."""
+    sd = dict(sd)
+    for k, splits in specs.items():
+        t = sd[k]
+        for axis, dim in splits:
+            n = axis_size(mesh, axis)
+            per = t.shape[dim] // n
+            t = t.narrow(dim, axis_index(mesh, axis) * per, per)
+        sd[k] = t.contiguous()
+    return sd

@@ -3,9 +3,11 @@ of the JAX package's ``models/llm``), with the paged decode-attention
 kernel K3 in CUDA; the host KV arena and session journal of ``kvtier``,
 int8 weights, speculative and dense generation, ``LLMTransformer``,
 ``llama_from_pretrained``, and the causal-LM fine-tuning of
-``finetune``."""
+``finetune``.  ``LlamaModel(..., mesh=)`` shards the decoder over a
+``model`` axis (the Megatron layout, ``tp_shard_specs``) for the dense
+``generate``."""
 
-from .convert import params_from_reference
+from .convert import params_from_reference, shard_state_dict
 from .drafter import NgramDrafter
 from .finetune import (finetune_lm, lm_loss_fn, make_lm_train_step,
                        templated_log_corpus)
@@ -18,7 +20,7 @@ from .kvtier import (KVTIER_METRICS, ChecksumError, HostKVArena, KVTransfer,
 from .model import (CausalAttention, DecoderBlock, LlamaConfig, LlamaModel,
                     QuantDense, QuantEmbed, RMSNorm, apply_rope,
                     causal_lm_loss, init_cache, llama_from_pretrained,
-                    rope_frequencies)
+                    rope_frequencies, tp_shard_specs)
 from .paged_attn import (ATTENTION_BACKENDS, PagedGeometry,
                          dense_read_bytes, paged_decode_attention,
                          paged_decode_attention_plain, paged_geometry,
@@ -39,6 +41,7 @@ __all__ = [
     "make_lm_train_step", "pack_kv_transfer", "paged_decode_attention",
     "paged_decode_attention_plain", "paged_geometry", "paged_read_bytes",
     "params_from_reference", "quantize_int8", "resolve_attention_backend",
-    "rope_frequencies", "sample_logits", "spec_unpack", "span_bucket_tiles",
-    "templated_log_corpus", "token_prefix_hash", "unpack_kv_transfer",
+    "rope_frequencies", "sample_logits", "shard_state_dict", "spec_unpack",
+    "span_bucket_tiles", "templated_log_corpus", "token_prefix_hash",
+    "tp_shard_specs", "unpack_kv_transfer",
 ]

@@ -9,7 +9,10 @@ d_model)``), so the conversion renames ``layer_{i}`` to ``layers.{i}``
 and keeps every value bit for bit.  An int8 tree (the reference's
 ``quantize_int8``, for ``weight_quant="int8"``) carries ``kernel_q`` and
 ``scale`` per projection and, tied, ``embedding_q`` and ``scale`` for
-the embedding; they keep their names.  The port never imports flax.
+the embedding; they keep their names.  With a ``mesh`` that has a
+``model`` axis the result is one rank's shard (the Megatron layout of
+:func:`~.model.tp_shard_specs`); :func:`shard_state_dict` cuts a whole
+torch state dict the same way.  The port never imports flax.
 """
 
 from __future__ import annotations
@@ -20,17 +23,29 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
-from .model import LlamaConfig
+from ...parallel.mesh import MODEL_AXIS, axis_size
+from .model import LlamaConfig, tp_shard_specs
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
 
 
+def shard_state_dict(sd: Mapping[str, torch.Tensor], mesh
+                     ) -> Dict[str, torch.Tensor]:
+    """A whole :class:`~.model.LlamaModel` state dict → this rank's shard
+    on ``mesh``'s ``model`` axis (the dict itself without one)."""
+    if axis_size(mesh, MODEL_AXIS) == 1:
+        return dict(sd)
+    from ..dl.transformer import slice_full
+    return slice_full(dict(sd), tp_shard_specs(sd.keys()), mesh)
+
+
 def params_from_reference(params: Mapping, cfg: LlamaConfig,
-                          device: DeviceLike = "cuda"
+                          device: DeviceLike = "cuda", mesh=None
                           ) -> Dict[str, torch.Tensor]:
     """The reference's ``{"params": ...}`` tree (or its inner dict) →
-    a :class:`~.model.LlamaModel` state dict on ``device``."""
+    a :class:`~.model.LlamaModel` state dict on ``device`` (this rank's
+    shard with a ``mesh``)."""
     dev = resolve_device(device)
     p = params.get("params", params)
     quant = "kernel_q" in p["layer_0"]["attn"]["q_proj"]
@@ -54,4 +69,5 @@ def params_from_reference(params: Mapping, cfg: LlamaConfig,
     if not cfg.tie_embeddings:
         for name, leaf in p["lm_head"].items():
             sd["lm_head." + name] = leaf
-    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in sd.items()}
+    whole = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return {k: v.to(dev) for k, v in shard_state_dict(whole, mesh).items()}

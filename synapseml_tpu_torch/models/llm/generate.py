@@ -61,14 +61,18 @@ def generate(model: LlamaModel, prompt_ids, max_new_tokens: int = 32,
     """Generate ``max_new_tokens`` continuations for a batch of
     equal-length prompts (B, P) → (B, max_new_tokens) int32, on the
     model's device: one prefill, then one cached step per token.  After
-    ``eos_id`` a row emits ``pad_id``."""
+    ``eos_id`` a row emits ``pad_id``.  On a model sharded over a
+    ``model`` axis every rank of the axis calls it with the same
+    arguments: each caches its own key-value heads, the logits are
+    all-gathered before sampling, and every rank returns the same
+    tokens (the replicated model's)."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
     cfg = model.cfg
     dev = model.device
     ids = torch.as_tensor(np.asarray(prompt_ids, np.int32), device=dev)
     B, P = ids.shape
-    cache = init_cache(cfg, B, P + max_new_tokens, dev)
+    cache = init_cache(cfg, B, P + max_new_tokens, dev, tp=getattr(model, "tp", 1))
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     positions = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(
@@ -125,10 +129,15 @@ def quantize_int8(model: LlamaModel) -> LlamaModel:
     channel, and a TIED embedding table per vocabulary row (for
     :class:`~.model.QuantEmbed`); norms and an untied table keep their
     values and types.  The int8 arrays and f32 scales equal the
-    reference's ``quantize_int8`` bit for bit."""
+    reference's ``quantize_int8`` bit for bit.  A model sharded over a
+    ``model`` axis quantizes its whole weights (gathered: every rank
+    calls it) and keeps its shard, so each row-parallel channel's scale
+    sees the whole channel."""
     cfg = dataclasses.replace(model.cfg, weight_quant="int8")
+    tp = getattr(model, "tp", 1)
     sd = {}
-    for name, t in model.state_dict().items():
+    whole = model.full_state_dict() if tp > 1 else model.state_dict()
+    for name, t in whole.items():
         if name.endswith(".kernel"):
             q, scale = _quant(t, 0)
             sd[name[:-len("kernel")] + "kernel_q"] = q
@@ -139,7 +148,10 @@ def quantize_int8(model: LlamaModel) -> LlamaModel:
             sd["tok_embed.scale"] = scale
         else:
             sd[name] = t
-    out = LlamaModel(cfg, device=model.device)
+    out = LlamaModel(cfg, device=model.device, mesh=model.mesh)
+    if tp > 1:
+        from ..dl.transformer import slice_full
+        sd = slice_full(sd, out.shard_specs(), model.mesh)
     out.load_state_dict(sd, assign=True)
     return out
 
@@ -188,7 +200,7 @@ def _generate_spec(model: LlamaModel, prompt: torch.Tensor,
     B, P = prompt.shape
     K = draft_len
     L = P + max_new_tokens + K + 2        # ctx/cache capacity with slack
-    cache = init_cache(cfg, B, L, dev)
+    cache = init_cache(cfg, B, L, dev, tp=getattr(model, "tp", 1))
     # K + 1 junk columns past L: a done row's unaccepted positions can
     # reach past the context; the reference's one-hot scatter drops them
     ctx = torch.full((B, L + K + 1), pad_id, dtype=torch.int32, device=dev)

@@ -28,6 +28,26 @@ with an f32 scale per vocabulary row, and its head runs the product in
 f32 before multiplying by the scale.  The int8 tensors stay int8 on the
 device; each use casts them (no dequantized copy is kept).
 :func:`~.generate.quantize_int8` makes such a model from a float one.
+
+Tensor parallelism (``mesh`` with a ``model`` axis of size tp > 1) is the
+reference's ``LLM_LOGICAL_RULES`` (Megatron's layout), one shard a rank:
+``q_proj``/``k_proj``/``v_proj``/``gate_proj``/``up_proj`` are
+column-parallel (a rank holds ``heads / tp`` query heads, ``kv / tp``
+key-value heads and ``d_ff / tp`` hidden units; an int8 kernel's
+``scale`` splits with its columns); ``o_proj`` and ``down_proj`` are
+row-parallel (the f32 partial products meet in one all-reduce over
+``model``, rounded to the compute type where one card's product is; an
+int8 row's ``scale`` stays whole and multiplies the sum); the embedding
+(``embedding`` or ``embedding_q`` and its row ``scale``) is
+vocab-parallel: a lookup sums each rank's rows of its range over
+``model``, and the head's logits (tied or ``lm_head``, split over the
+vocabulary) are all-gathered over ``model`` before anyone samples, so
+every rank holds the whole ``(B, S, vocab)`` logits.  The KV cache holds
+``kv / tp`` heads (:func:`init_cache` with ``tp``).  Every shard is drawn
+whole from the one-card stream and sliced, so one seed gives the
+one-card model's weights at any tp.  The dense ``generate`` runs such a
+model; the continuous-batching engine does not (:mod:`.slots` refuses
+it).
 """
 
 from __future__ import annotations
@@ -41,6 +61,7 @@ import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...parallel.mesh import MODEL_AXIS, axis_index, axis_size
 from .paged_attn import paged_decode_attention
 
 #: flax ``truncated_normal(stddev)`` draws from a standard normal cut at
@@ -90,25 +111,71 @@ class LlamaConfig:
         return LlamaConfig(**kw)
 
 
-def _trunc_normal(shape, device, generator, stddev: float = 0.02):
+def _trunc_normal(shape, device, generator, stddev: float = 0.02,
+                  block=None):
+    """A truncated-normal parameter drawn whole at ``shape``; ``block=
+    (dim, lo, n)`` keeps ``n`` entries from ``lo`` along ``dim`` (a
+    tensor-parallel shard of the one-card draw)."""
     s = stddev / _TRUNC_STD
     w = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(w, std=s, a=-2 * s, b=2 * s, generator=generator)
+    if block is not None:
+        w = w.narrow(*block).contiguous()
     return nn.Parameter(w)
+
+
+def _shards(mesh, parallel: Optional[str], in_features: int,
+            features: int):
+    """``(tp, index, rows, cols)`` of a projection's kernel shard."""
+    tp = axis_size(mesh, MODEL_AXIS) if parallel else 1
+    n = features if parallel == "column" else in_features
+    if n % tp:
+        raise ValueError(f"{n} does not split over a model axis of {tp}")
+    idx = axis_index(mesh, MODEL_AXIS) if tp > 1 else 0
+    rows = in_features // tp if parallel == "row" else in_features
+    cols = features // tp if parallel == "column" else features
+    return tp, idx, rows, cols
+
+
+def _row_sum(part: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel layer's f32 partial products summed over
+    ``model``."""
+    from ...parallel.collectives import reduce_forward
+    return reduce_forward(part, mesh, MODEL_AXIS, op="tp_row_sum")
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` without bias: ``kernel`` is ``(in, out)``; the
-    input and kernel are cast to ``dtype`` and multiplied there."""
+    input and kernel are cast to ``dtype`` and multiplied there.
+    ``parallel`` ("column" | "row", with a ``model`` axis on ``mesh``)
+    holds this rank's columns or rows (module docstring)."""
 
     def __init__(self, in_features: int, features: int, dtype,
-                 device: torch.device, generator: torch.Generator):
+                 device: torch.device, generator: torch.Generator,
+                 mesh=None, parallel: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
+        self.mesh = mesh
+        tp, idx, rows, cols = _shards(mesh, parallel, in_features, features)
+        self.parallel = parallel if tp > 1 else None
+        block = None
+        if self.parallel == "column":
+            block = (1, idx * cols, cols)
+        elif self.parallel == "row":
+            block = (0, idx * rows, rows)
         self.kernel = _trunc_normal((in_features, features), device,
-                                    generator)
+                                    generator, block=block)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.parallel == "row":
+            part = torch.matmul(x.to(self.dtype).float(),
+                                self.kernel.to(self.dtype).float())
+            return _row_sum(part, self.mesh).to(self.dtype)
+        if self.parallel == "column" and torch.is_grad_enabled():
+            # the input's gradient sums over model (the DL encoder's)
+            from ..dl.transformer import _ColumnMatmul
+            return _ColumnMatmul.apply(x.to(self.dtype),
+                                       self.kernel.to(self.dtype), self.mesh)
         return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
 
 
@@ -117,58 +184,112 @@ class QuantDense(nn.Module):
     (out,) f32; the scale is applied after the product (a per-column
     scale commutes with the contraction).  The product runs in the
     promotion of the input's type and ``dtype``, as the reference's
-    ``dot_general``."""
+    ``dot_general``.  ``parallel`` as :class:`Dense`'s: a column shard
+    splits ``scale`` with its columns, a row shard sums the f32 partial
+    products over ``model`` before the whole ``scale``."""
 
     def __init__(self, in_features: int, features: int, dtype,
-                 device: torch.device):
+                 device: torch.device, mesh=None,
+                 parallel: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
+        self.mesh = mesh
+        tp, _, rows, cols = _shards(mesh, parallel, in_features, features)
+        self.parallel = parallel if tp > 1 else None
         self.kernel_q = nn.Parameter(
-            torch.zeros((in_features, features), dtype=torch.int8,
+            torch.zeros((rows, cols), dtype=torch.int8,
                         device=device), requires_grad=False)
-        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32,
+        self.scale = nn.Parameter(torch.ones(cols, dtype=torch.float32,
                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = torch.promote_types(x.dtype, self.dtype)
-        y = torch.matmul(x.to(ct), self.kernel_q.to(ct))
+        if self.parallel == "row":
+            part = torch.matmul(x.to(ct).float(), self.kernel_q.float())
+            y = _row_sum(part, self.mesh).to(ct)
+        else:
+            y = torch.matmul(x.to(ct), self.kernel_q.to(ct))
         return y * self.scale.to(self.dtype)
 
 
-class QuantEmbed(nn.Module):
+class _VocabParallel:
+    """The vocab-parallel lookup and head of the embeddings: a rank holds
+    rows ``[lo, lo + n)`` of the table."""
+
+    def _vocab_split(self, vocab: int, mesh) -> int:
+        self.mesh = mesh
+        self.tp = axis_size(mesh, MODEL_AXIS)
+        if vocab % self.tp:
+            raise ValueError(f"vocab_size={vocab} does not split over a "
+                             f"model axis of {self.tp}")
+        n = vocab // self.tp
+        self.lo = (axis_index(mesh, MODEL_AXIS) if self.tp > 1 else 0) * n
+        return n
+
+    def _lookup(self, ids: torch.Tensor, rows_of) -> torch.Tensor:
+        """``rows_of(local ids)`` for this rank's range, zeros elsewhere,
+        summed over ``model`` (exact: one rank adds a nonzero row)."""
+        if self.tp == 1:
+            return rows_of(ids.long())
+        n = self.n_local
+        local = ids.long() - self.lo
+        mine = (local >= 0) & (local < n)
+        rows = rows_of(local.clamp(0, n - 1))
+        rows = rows.float() * mine[..., None].float()
+        from ...parallel.collectives import reduce_forward
+        return reduce_forward(rows, self.mesh, MODEL_AXIS,
+                              op="tp_embed_sum")
+
+    def _gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Each rank's vocabulary columns → the whole logits on every
+        rank (one all-gather over ``model``)."""
+        if self.tp == 1:
+            return logits
+        from ...parallel.collectives import all_gather
+        parts = all_gather(logits.contiguous(), self.mesh, MODEL_AXIS,
+                           op="tp_logits_gather")
+        return torch.cat(list(parts.unbind(0)), dim=-1)
+
+
+class QuantEmbed(nn.Module, _VocabParallel):
     """int8 tied embedding: one (vocab, features) int8 table with an f32
     scale per vocabulary row serves the lookup (exact per-row dequant)
     and the :meth:`attend` head (the row scale commutes out of the
     contraction over features and multiplies the logits columnwise)."""
 
     def __init__(self, vocab: int, features: int, dtype,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         super().__init__()
         self.dtype = dtype
+        self.n_local = self._vocab_split(vocab, mesh)
         self.embedding_q = nn.Parameter(
-            torch.zeros((vocab, features), dtype=torch.int8, device=device),
-            requires_grad=False)
-        self.scale = nn.Parameter(torch.ones(vocab, dtype=torch.float32,
+            torch.zeros((self.n_local, features), dtype=torch.int8,
+                        device=device), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(self.n_local,
+                                             dtype=torch.float32,
                                              device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        ids = ids.long()
-        return (self.embedding_q[ids].to(self.dtype)
-                * self.scale[ids].to(self.dtype)[..., None])
+        return self._lookup(ids, lambda i: (
+            self.embedding_q[i].to(self.dtype)
+            * self.scale[i].to(self.dtype)[..., None])).to(self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Logits (..., vocab) f32: the product of ``x`` and the int8 table
         in f32 (the reference's ``preferred_element_type``), times the
         row scales."""
-        return torch.matmul(x.float(), self.embedding_q.float().T) \
-            * self.scale
+        return self._gather_vocab(
+            torch.matmul(x.float(), self.embedding_q.float().T) * self.scale)
 
 
 def _dense(in_features: int, features: int, dtype, device, generator,
-           quant: str = "none") -> nn.Module:
+           quant: str = "none", mesh=None,
+           parallel: Optional[str] = None) -> nn.Module:
     if quant == "int8":
-        return QuantDense(in_features, features, dtype, device)
-    return Dense(in_features, features, dtype, device, generator)
+        return QuantDense(in_features, features, dtype, device, mesh,
+                          parallel)
+    return Dense(in_features, features, dtype, device, generator, mesh,
+                 parallel)
 
 
 class RMSNorm(nn.Module):
@@ -212,12 +333,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               device: DeviceLike = "cuda") -> List[Dict[str, torch.Tensor]]:
-    """Per-layer KV cache: ``batch`` rows of ``(max_len, kv_heads,
-    d_head)`` zeros in ``cfg.dtype``.  ``batch`` doubles as the slot axis
-    of the continuous-batching engine (:mod:`.slots`)."""
+               device: DeviceLike = "cuda",
+               tp: int = 1) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer KV cache: ``batch`` rows of ``(max_len, kv_heads / tp,
+    d_head)`` zeros in ``cfg.dtype`` (``tp``: the model's ``model``-axis
+    size; a rank caches its own key-value heads).  ``batch`` doubles as
+    the slot axis of the continuous-batching engine (:mod:`.slots`)."""
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.d_head)
+    shape = (batch, max_len, cfg.num_kv_heads // tp, cfg.d_head)
     return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
              "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
             for _ in range(cfg.num_layers)]
@@ -225,19 +348,25 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 class CausalAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, mesh=None):
         super().__init__()
         self.cfg = cfg
         H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+        tp = axis_size(mesh, MODEL_AXIS)
+        if H % tp or KV % tp:
+            raise ValueError(f"{H} heads and {KV} key-value heads must split "
+                             f"over a model axis of {tp}")
+        #: this rank's query and key-value heads
+        self.heads, self.kv_heads = H // tp, KV // tp
         q = cfg.weight_quant
         self.q_proj = _dense(cfg.d_model, H * D, cfg.dtype, device,
-                             generator, q)
+                             generator, q, mesh, "column")
         self.k_proj = _dense(cfg.d_model, KV * D, cfg.dtype, device,
-                             generator, q)
+                             generator, q, mesh, "column")
         self.v_proj = _dense(cfg.d_model, KV * D, cfg.dtype, device,
-                             generator, q)
+                             generator, q, mesh, "column")
         self.o_proj = _dense(H * D, cfg.d_model, cfg.dtype, device,
-                             generator, q)
+                             generator, q, mesh, "row")
 
     def forward(self, x, positions, cache: Optional[Dict],
                 cache_index=None, slot_mask: Optional[torch.Tensor] = None,
@@ -254,7 +383,7 @@ class CausalAttention(nn.Module):
         None: its dtype's default)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+        H, KV, D = self.heads, self.kv_heads, cfg.d_head
         q = apply_rope(self.q_proj(x).reshape(B, S, H, D), positions,
                        cfg.rope_theta)
         k = apply_rope(self.k_proj(x).reshape(B, S, KV, D), positions,
@@ -317,21 +446,21 @@ class CausalAttention(nn.Module):
 
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.ln_attn = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
                                device)
-        self.attn = CausalAttention(cfg, device, generator)
+        self.attn = CausalAttention(cfg, device, generator, mesh)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
                               device)
         q = cfg.weight_quant
         self.gate_proj = _dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
-                                generator, q)
+                                generator, q, mesh, "column")
         self.up_proj = _dense(cfg.d_model, cfg.d_ff, cfg.dtype, device,
-                              generator, q)
+                              generator, q, mesh, "column")
         self.down_proj = _dense(cfg.d_ff, cfg.d_model, cfg.dtype, device,
-                                generator, q)
+                                generator, q, mesh, "row")
 
     def forward(self, x, positions, cache, cache_index, slot_mask=None,
                 attention_backend: str = "dense",
@@ -344,23 +473,28 @@ class DecoderBlock(nn.Module):
         return x + self.down_proj(h), cache
 
 
-class Embed(nn.Module):
+class Embed(nn.Module, _VocabParallel):
     """flax ``nn.Embed``: ``embedding`` is ``(vocab, features)``; lookups
-    and :meth:`attend` compute in ``dtype``."""
+    and :meth:`attend` compute in ``dtype`` (vocab-parallel over a
+    ``model`` axis: module docstring)."""
 
     def __init__(self, vocab: int, features: int, dtype,
-                 device: torch.device, generator: torch.Generator):
+                 device: torch.device, generator: torch.Generator,
+                 mesh=None):
         super().__init__()
         self.dtype = dtype
-        self.embedding = _trunc_normal((vocab, features), device, generator)
+        self.n_local = self._vocab_split(vocab, mesh)
+        self.embedding = _trunc_normal(
+            (vocab, features), device, generator,
+            block=(0, self.lo, self.n_local) if self.tp > 1 else None)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return nn.functional.embedding(ids.long(), self.embedding).to(
-            self.dtype)
+        return self._lookup(ids, lambda i: nn.functional.embedding(
+            i, self.embedding)).to(self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype),
-                            self.embedding.to(self.dtype).T)
+        return self._gather_vocab(torch.matmul(
+            x.to(self.dtype), self.embedding.to(self.dtype).T))
 
 
 class LlamaModel(nn.Module):
@@ -374,10 +508,14 @@ class LlamaModel(nn.Module):
     scales 1); :func:`~.generate.cast_params` casts them to the serving
     type.  ``cfg.weight_quant="int8"`` builds the int8 modules (zero
     kernels, unit scales, as the reference initializes them): load a
-    quantized state dict into them (:func:`~.generate.quantize_int8`)."""
+    quantized state dict into them (:func:`~.generate.quantize_int8`).
+    ``mesh`` (a ProcessMesh with a ``model`` axis) shards the model
+    over it (module docstring); :meth:`load_full_state_dict` takes this
+    rank's shard of a whole state dict and :meth:`full_state_dict`
+    gathers one."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         super().__init__()
         if cfg.weight_quant not in ("none", "int8"):
             raise ValueError(f"weight_quant={cfg.weight_quant!r}: must be "
@@ -386,23 +524,47 @@ class LlamaModel(nn.Module):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         self.cfg = cfg
+        self.mesh = mesh
+        #: the ``model`` axis size (1: the whole model on this rank)
+        self.tp = axis_size(mesh, MODEL_AXIS)
+        if self.tp > 1 and cfg.d_ff % self.tp:
+            raise ValueError(f"d_ff={cfg.d_ff} does not split over a model "
+                             f"axis of {self.tp}")
         if cfg.tie_embeddings and cfg.weight_quant == "int8":
             self.tok_embed = QuantEmbed(cfg.vocab_size, cfg.d_model,
-                                        cfg.dtype, dev)
+                                        cfg.dtype, dev, mesh)
         else:
             self.tok_embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype,
-                                   dev, gen)
-        self.layers = nn.ModuleList(DecoderBlock(cfg, dev, gen)
+                                   dev, gen, mesh)
+        self.layers = nn.ModuleList(DecoderBlock(cfg, dev, gen, mesh)
                                     for _ in range(cfg.num_layers))
         self.ln_final = RMSNorm(cfg.d_model, cfg.rms_norm_eps, cfg.dtype,
                                 dev)
         if not cfg.tie_embeddings:
             self.lm_head = _dense(cfg.d_model, cfg.vocab_size, torch.float32,
-                                  dev, gen, cfg.weight_quant)
+                                  dev, gen, cfg.weight_quant, mesh, "column")
 
     @property
     def device(self) -> torch.device:
         return self.ln_final.scale.device
+
+    def shard_specs(self) -> Dict[str, list]:
+        """State-dict key → the ``(axis, dim)`` split of the leaves a rank
+        holds a block of (empty without a ``model`` axis)."""
+        return tp_shard_specs(self.state_dict().keys()) if self.tp > 1 \
+            else {}
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole model's state dict on every rank (collective over a
+        ``model`` axis)."""
+        from ..dl.transformer import gather_full
+        return gather_full(self.state_dict(), self.shard_specs(), self.mesh)
+
+    def load_full_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Load a whole model's state dict: each sharded leaf contributes
+        this rank's block."""
+        from ..dl.transformer import slice_full
+        self.load_state_dict(slice_full(sd, self.shard_specs(), self.mesh))
 
     def forward(self, input_ids, positions=None, cache=None,
                 cache_index=None, slot_mask: Optional[torch.Tensor] = None,
@@ -426,10 +588,36 @@ class LlamaModel(nn.Module):
             logits = self.tok_embed.attend(x.float())
         else:
             logits = self.lm_head(x)
+            if self.tp > 1:
+                logits = self.tok_embed._gather_vocab(logits)
         logits = logits.float()
         if cache is not None:
             return logits, cache
         return logits
+
+
+#: projections split over the ``model`` axis by their key's suffix:
+#: column-parallel (dim 1 of the kernel, the scale with it) or
+#: row-parallel (dim 0 of the kernel; the scale stays whole)
+_COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "lm_head")
+_ROW = ("o_proj", "down_proj")
+
+
+def tp_shard_specs(keys) -> Dict[str, list]:
+    """The Megatron layout of a :class:`LlamaModel` state dict's ``keys``:
+    key → ``[(MODEL_AXIS, dim)]`` for every leaf a rank holds a block of
+    (``LLM_LOGICAL_RULES``: heads, kv, mlp and vocab on ``model``)."""
+    out = {}
+    for k in keys:
+        parts = k.split(".")
+        leaf, owner = parts[-1], parts[-2] if len(parts) > 1 else ""
+        if owner == "tok_embed":
+            out[k] = [(MODEL_AXIS, 0)]
+        elif owner in _COLUMN:
+            out[k] = [(MODEL_AXIS, 1 if leaf.startswith("kernel") else 0)]
+        elif owner in _ROW and leaf.startswith("kernel"):
+            out[k] = [(MODEL_AXIS, 0)]
+    return out
 
 
 def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,

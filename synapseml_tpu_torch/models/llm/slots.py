@@ -197,6 +197,12 @@ class SlotEngine:
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device} but "
                              f"device={str(device)!r}")
+        if getattr(model, "tp", 1) > 1:
+            # the reference's tensor-parallel decoder runs through the
+            # dense generate only; its paged read has no sharded form
+            raise ValueError(
+                "SlotEngine serves a whole model; a model sharded over a "
+                "'model' axis decodes through generate()")
         # the compile plane: 'sync' warms the whole program lattice
         # before the constructor returns (a failure raises here); 'off'
         # runs every step eagerly

@@ -27,11 +27,13 @@ Every entry point takes ``device`` (default ``"cuda"``, a
 checkpoint directory and resizes it (``min_ranks``, ``resize``,
 ``capacity_fn``); :mod:`.compilecache` shares the kernel builds across
 relaunches.  ``serving.distributed`` gathers the serving routing table
-over a ``ProcessMesh``.  DL training runs over a data mesh or the
-``(data, expert)`` mesh of :func:`~.mesh.dp_ep_mesh`
-(``models.dl.training``).  Waiting for ROADMAP A5: tensor parallelism,
-``pipeline.py`` and the (data, model / seq) mesh constructors (a
-``ProcessMesh`` takes any named axis sizes meanwhile).
+over a ``ProcessMesh``.  DL training runs over a data mesh, the
+``(data, expert)`` mesh of :func:`~.mesh.dp_ep_mesh` or the ``(data,
+model)`` mesh of :func:`~.mesh.dp_tp_mesh` (``models.dl.training``);
+:func:`~.mesh.dp_sp_tp_mesh` adds a ``seq`` axis for ring attention
+(``models.dl.ring_attention``), and :mod:`.pipeline` runs the GPipe
+schedule over a ``pipe`` axis.  ``ppermute`` / ``ring_shift`` are
+differentiable (the gradient goes back along the inverse permutation).
 """
 
 from .collectives import (CollectiveTimeout, all_gather, all_to_all,
@@ -47,7 +49,9 @@ from .launcher import (GangInterrupted, ReservedPort, WorkerFailure,
                        find_free_port, run_on_local_cluster)
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                    ProcessMesh, data_parallel_mesh, dp_ep_mesh,
-                   pad_to_multiple, shard_batch)
+                   dp_sp_tp_mesh, dp_tp_mesh, pad_to_multiple, shard_batch)
+from .pipeline import (local_stage, pipeline_apply, pipeline_loss,
+                       stack_stage_params)
 from .placement import (PlacementMap, partition_assignment,
                         place_partitions, rows_for_rank)
 from .planner import (CollectivePlanner, ReductionPlan, TopologySpec,

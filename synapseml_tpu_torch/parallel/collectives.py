@@ -10,7 +10,8 @@ dispatches ``torch.distributed`` on that axis's process group:
 - ``psum`` → ``all_reduce(SUM)``; ``pmean``, ``pmax``, ``pmin``
 - ``all_gather`` (stacked, or ``tiled`` along dim 0),
   ``reduce_scatter`` (tiled), ``all_to_all`` (``all_to_all_single``)
-- ``ppermute`` / ``ring_shift`` (``batch_isend_irecv``), ``axis_index``,
+- ``ppermute`` / ``ring_shift`` (``batch_isend_irecv``; differentiable:
+  the gradient goes back along the inverse permutation), ``axis_index``,
   ``barrier``
 - ``ring_allreduce``: a real ring of 2(n-1) send/recv steps
   (reduce-scatter, then all-gather), the schedule LightGBM's socket ring
@@ -307,13 +308,10 @@ def _exchange(x: torch.Tensor, mesh, axis: str, send_to: Optional[int],
     return buf
 
 
-def ppermute(x: torch.Tensor, mesh, perm: Sequence[tuple],
-             axis: str = DATA_AXIS, *, op: str = "ppermute",
-             record: bool = True,
-             timeout_s: Optional[float] = None) -> torch.Tensor:
-    """Send ``x`` along ``perm`` ((source, destination) axis indices):
-    → what this rank receives, zeros if no pair names it (the
-    ``lax.ppermute`` contract)."""
+def _ppermute(x: torch.Tensor, mesh, perm: Sequence[tuple], axis: str,
+              op: str, record: bool,
+              timeout_s: Optional[float]) -> torch.Tensor:
+    """The exchange of :func:`ppermute`, outside autograd."""
     if record:
         _record(op, axis, x)
     me = mesh.axis_index(axis)
@@ -330,14 +328,54 @@ def ppermute(x: torch.Tensor, mesh, perm: Sequence[tuple],
                 timeout_s)
 
 
+class _PPermute(torch.autograd.Function):
+    """:func:`ppermute` whose backward sends the cotangent along the
+    inverse permutation (the transpose of ``lax.ppermute``): what a rank
+    received, its gradient goes back to the sender, and a rank that sent
+    nothing gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, perm, axis, op, record, timeout_s):
+        ctx.mesh, ctx.axis, ctx.op = mesh, axis, op
+        ctx.inverse = [(d, s) for s, d in perm]
+        ctx.record, ctx.timeout_s = record, timeout_s
+        return _ppermute(x, mesh, perm, axis, op, record, timeout_s)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = _ppermute(g.contiguous(), ctx.mesh, ctx.inverse, ctx.axis,
+                         ctx.op + "_grad", ctx.record, ctx.timeout_s)
+        return back, None, None, None, None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh, perm: Sequence[tuple],
+             axis: str = DATA_AXIS, *, op: str = "ppermute",
+             record: bool = True,
+             timeout_s: Optional[float] = None) -> torch.Tensor:
+    """Send ``x`` along ``perm`` ((source, destination) axis indices):
+    → what this rank receives, zeros if no pair names it (the
+    ``lax.ppermute`` contract).  Differentiable: the gradient goes back
+    along the inverse permutation (``op`` + ``"_grad"`` in the counters),
+    so every rank of the axis must run the backward too, in the same
+    order as the forward's sends.  On gloo over CUDA tensors both
+    directions stage through pinned host memory and count their
+    bytes."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PPermute.apply(x, mesh, list(perm), axis, op, record,
+                               timeout_s)
+    return _ppermute(x, mesh, perm, axis, op, record, timeout_s)
+
+
 def ring_shift(x: torch.Tensor, mesh, axis: str = DATA_AXIS, *,
-               reverse: bool = False, **kw) -> torch.Tensor:
+               reverse: bool = False, op: str = "ring_shift",
+               **kw) -> torch.Tensor:
     """Send to the next rank on the ring (the previous with
-    ``reverse``)."""
+    ``reverse``); differentiable as :func:`ppermute` (its gradient shifts
+    the other way)."""
     n = mesh.axis_size(axis)
     step = -1 if reverse else 1
     return ppermute(x, mesh, [(i, (i + step) % n) for i in range(n)], axis,
-                    op="ring_shift", **kw)
+                    op=op, **kw)
 
 
 def axis_index(mesh, axis: str = DATA_AXIS) -> int:

@@ -258,6 +258,30 @@ def dp_ep_mesh(ep: int, device="cuda",
                        timeout_s=timeout_s)
 
 
+def dp_tp_mesh(tp: int, device="cuda",
+               timeout_s: Optional[float] = None) -> ProcessMesh:
+    """The ``(data, model)`` mesh of a tensor-parallel fit: ``{data:
+    world / tp, model: tp}``, model innermost (the JAX package's
+    ``dp_tp_mesh``): the ranks of one ``data`` slice hold the same rows
+    and different shards of the weights."""
+    if tp < 1:
+        raise ValueError(f"tensor parallelism {tp} must be >= 1")
+    return ProcessMesh({DATA_AXIS: -1, MODEL_AXIS: int(tp)}, device=device,
+                       timeout_s=timeout_s)
+
+
+def dp_sp_tp_mesh(sp: int, tp: int, device="cuda",
+                  timeout_s: Optional[float] = None) -> ProcessMesh:
+    """The ``(data, seq, model)`` mesh for long-context training: ``{data:
+    world / (sp·tp), seq: sp, model: tp}`` (the JAX package's
+    ``dp_sp_tp_mesh``)."""
+    if sp < 1 or tp < 1:
+        raise ValueError(f"seq {sp} and model {tp} sizes must be >= 1")
+    return ProcessMesh({DATA_AXIS: -1, SEQ_AXIS: int(sp),
+                        MODEL_AXIS: int(tp)}, device=device,
+                       timeout_s=timeout_s)
+
+
 def axis_size(mesh, axis: str = DATA_AXIS) -> int:
     """The size of ``axis`` on ``mesh``: 1 without a mesh or where the
     mesh has no such axis (one rank holds the whole axis)."""

@@ -511,8 +511,6 @@ COMMON_REFUSALS = [
     # numDevices counts the ranks of the process group: 2 here, where the
     # group is this one process, is a ValueError naming its size
     ("numDevices", 2, (ValueError, "the group has 1 rank")),
-    ("modelParallelism", 2, (NotImplementedError,
-                             "ROADMAP A5: tensor parallelism")),
     ("zero1", True, WORKS), ("collectiveCompression", "int8", WORKS),
     # a checkpoint a 2-shard mesh fit wrote resumes, re-sharded, at one
     ("checkpointDir", "mesh-checkpoint", WORKS),
@@ -523,6 +521,13 @@ COMMON_REFUSALS = [
 ]
 REFUSALS = ([("text",) + r for r in COMMON_REFUSALS]
             + [("vision",) + r for r in COMMON_REFUSALS]
+            # tensor parallelism is ported: tp = 2 does not divide the
+            # group's one rank (a ValueError naming its size, as
+            # numDevices=2's); the vision classifier trains data-parallel
+            # whatever modelParallelism says, as the reference's does
+            + [("text", "modelParallelism", 2,
+                (ValueError, "the group has 1 rank")),
+               ("vision", "modelParallelism", 2, WORKS)]
             + [("text", "numExperts", 8,
                 (ValueError, "expertParallelism=2 needs a gang")),
                ("text", "expertParallelism", 2,

@@ -804,15 +804,23 @@ def llm_serving_gang(args):
 
 # -- DL training over the gang (tests/test_torch_dl_mesh*.py) ---------------------
 
-def _dl_mesh(dev, ep=1):
-    from synapseml_tpu_torch.parallel.mesh import dp_ep_mesh
+def _dl_mesh(dev, ep=1, tp=1):
+    from synapseml_tpu_torch.parallel.mesh import dp_ep_mesh, dp_tp_mesh
+    if tp > 1:
+        return dp_tp_mesh(tp, device=dev)
     return dp_ep_mesh(ep, device=dev) if ep > 1 else \
         data_parallel_mesh(device=dev)
 
 
 def _text_cfg(spec):
+    """The tiny text config with ``spec``'s fields (``dtype`` a torch
+    dtype's name; f32 unless it says otherwise)."""
+    import dataclasses
+
     from synapseml_tpu_torch.models.dl import transformer as PT
-    return PT.TransformerConfig.tiny(dtype=torch.float32, **spec)
+    spec = dict(spec)
+    spec["dtype"] = getattr(torch, spec.pop("dtype", "float32"))
+    return dataclasses.replace(PT.TransformerConfig.tiny(), **spec)
 
 
 def _load_npz(path):
@@ -883,15 +891,15 @@ def _trainer_run(case, mesh, dev):
 
 def dl_mesh_cases(args):
     """Run every trainer case of ``args["cases"]`` on this gang (each on
-    its own mesh: ``ep`` > 1 builds the (data, expert) mesh) → per case,
-    :func:`_trainer_run`'s record."""
+    its own mesh: ``ep`` > 1 builds the (data, expert) mesh, ``tp`` > 1
+    the (data, model) mesh) → per case, :func:`_trainer_run`'s record."""
     dev = args.get("device", "cpu")
     if dev == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for name, case in args["cases"].items():
-        mesh = _dl_mesh(dev, int(case.get("ep", 1)))
+        mesh = _dl_mesh(dev, int(case.get("ep", 1)), int(case.get("tp", 1)))
         out[name] = _trainer_run(case, mesh, mesh.device)
     return out
 
@@ -1097,3 +1105,287 @@ def run_many(args):
     start serves several checks."""
     return [globals()[name](dict(task_args, device=args.get("device", "cpu")))
             for name, task_args in args["tasks"]]
+
+
+# -- model parallelism over the gang (tests/test_torch_*_tp.py, ring, pipe) ----
+
+def tp_grads(args):
+    """One forward/backward of the tiny encoder over a (data, model) mesh
+    from the whole weights of ``args["init"]`` on this rank's rows of
+    ``args["batch"]`` → the largest difference of each replicated
+    leaf's gradient between the ``model`` ranks, the whole gradients
+    (sharded leaves gathered, summed over ``data``; rank 0 writes them
+    to ``args["out"]``) and the clip's global norm as the trainer's hook
+    completes it from this rank's leaves."""
+    from synapseml_tpu_torch.models.dl import training as PTr
+    from synapseml_tpu_torch.models.dl import transformer as PT
+    from synapseml_tpu_torch.parallel.mesh import MODEL_AXIS
+    dev = args.get("device", "cpu")
+    mesh = _dl_mesh(dev, tp=int(args["tp"]))
+    cfg = _text_cfg(args["cfg"])
+    model = PT.TextEncoder(cfg, device=mesh.device, seed=None, mesh=mesh)
+    model.load_full_state_dict({k: torch.from_numpy(v) for k, v in
+                                _load_npz(args["init"]).items()})
+    z = _load_npz(args["batch"])
+    tr = PTr.DLTrainer(model, PTr.OptimizerConfig(grad_clip_norm=1.0),
+                       mesh.device, mesh=mesh)
+    state = tr.init_state(0)
+    model.load_full_state_dict({k: torch.from_numpy(v) for k, v in
+                                _load_npz(args["init"]).items()})
+    rows = tr.local_rows(np.arange(len(z["labels"])))
+    ids, mask, labels = tr.shard_batch([z["ids"][rows], z["mask"][rows],
+                                        z["labels"][rows]])
+    B = len(rows)
+    kw = {}
+    if tr.data_size > 1:
+        kw["rows"] = (tr.data_index * B, tr.data_size * B)
+    logits = model(ids, mask, **kw)
+    loss = PTr.softmax_cross_entropy(logits, labels) / tr.data_size
+    loss.backward()
+    specs = model.shard_specs()
+    replicated_gap = 0.0
+    for k, p in model.named_parameters():
+        if k not in specs:
+            every = C.all_gather(p.grad, mesh, MODEL_AXIS)
+            replicated_gap = max(replicated_gap, float(
+                (every - every[0]).abs().max()))
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    if tr.data_size > 1:
+        grads = {k: C.psum(g, mesh, DATA_AXIS) for k, g in grads.items()}
+    whole = PT.gather_full(grads, specs, mesh)
+    sums = list(torch._foreach_norm(torch._foreach_mul(
+        list(grads.values()), list(grads.values())), 1))
+    norm = float(torch.sqrt(torch.stack(state.opt.leaf_sums(sums)).sum()))
+    if mesh.rank == 0:
+        _save_npz(args["out"], {k: v.detach().numpy()
+                                for k, v in whole.items()})
+    return {"rank": mesh.rank, "replicated_gap": replicated_gap,
+            "norm": norm, "n_sharded": len(specs)}
+
+
+def llm_tp(args):
+    """The tiny Llama over a ``model`` axis of every rank from the whole
+    state dicts of ``args["states"]`` (name → npz path, with the config
+    fields in ``args["cfgs"]``): each model's logits on ``args["ids"]``,
+    and with ``generate`` set, its greedy tokens → rank 0 writes
+    ``args["out"]``; every rank returns its tokens' digest."""
+    from synapseml_tpu_torch.models import llm as P
+    from synapseml_tpu_torch.parallel.mesh import MODEL_AXIS
+    dev = args.get("device", "cpu")
+    mesh = ProcessMesh({MODEL_AXIS: -1}, device=dev)
+    ids = torch.as_tensor(np.asarray(args["ids"], np.int32),
+                          device=mesh.device)
+    out, digests = {}, {}
+    for name, path in args["states"].items():
+        spec = dict(args["cfgs"][name])
+        dtype = getattr(torch, spec.pop("dtype"))
+        cfg = P.LlamaConfig.tiny(dtype=dtype, **spec)
+        model = P.LlamaModel(cfg, device=mesh.device, mesh=mesh)
+        sd = {k: torch.from_numpy(v) for k, v in _load_npz(path).items()}
+        model.load_full_state_dict(sd)
+        with torch.no_grad():
+            out[f"{name}.logits"] = model(ids).cpu().numpy()
+        out[f"{name}.kv_heads"] = np.asarray(model.layers[0].attn.kv_heads)
+        if args.get("generate"):
+            toks = P.generate(model, np.asarray(args["prompt"], np.int32),
+                              max_new_tokens=int(args["new"]))
+            out[f"{name}.tokens"] = toks
+            digests[name] = _digest(torch.from_numpy(toks))
+    if mesh.rank == 0:
+        _save_npz(args["out"], out)
+    return {"rank": mesh.rank, "digests": digests}
+
+
+def ring_cases(args):
+    """Ring attention over a (data, seq) mesh of every rank: per case of
+    ``args["cases"]`` (an npz of global ``q``, ``k``, ``v``, ``mask`` and
+    the loss weights ``w``) this rank's block through ``ring_attention``,
+    the loss ``Σ out·w`` of the block and its backward; the blocks of the
+    output and of the q/k/v gradients all-gathered → rank 0 writes them
+    to the case's ``out``.  ``args["encoder"]``: the tiny encoder with
+    ``use_ring_attention`` from whole weights, its embeddings and logits
+    on the rank's block (gathered the same way)."""
+    from synapseml_tpu_torch.models.dl import transformer as PT
+    from synapseml_tpu_torch.models.dl.ring_attention import (ring_attention,
+                                                              shard_blocks)
+    from synapseml_tpu_torch.parallel.mesh import SEQ_AXIS
+    dev = args.get("device", "cpu")
+    mesh = ProcessMesh({DATA_AXIS: int(args["data"]), SEQ_AXIS: -1},
+                       device=dev)
+
+    def gather(t):
+        # (B_l, S_l, ...) blocks → the global (B, S, ...) on every rank
+        t = C.all_gather(t.contiguous(), mesh, SEQ_AXIS)
+        t = torch.cat(list(t.unbind(0)), dim=1)
+        t = C.all_gather(t.contiguous(), mesh, DATA_AXIS)
+        return torch.cat(list(t.unbind(0)), dim=0)
+
+    res = {}
+    for name, case in args["cases"].items():
+        z = _load_npz(case["data"])
+        q, k, v = [shard_blocks(z[n], mesh).requires_grad_(True)
+                   for n in ("q", "k", "v")]
+        mask = shard_blocks(z["mask"], mesh)
+        w = shard_blocks(z["w"], mesh)
+        out = ring_attention(q, k, v, mask, mesh)
+        (out * w).sum().backward()
+        rec = {"out": gather(out.detach()), "dq": gather(q.grad),
+               "dk": gather(k.grad), "dv": gather(v.grad)}
+        if mesh.rank == 0:
+            _save_npz(case["out"], {n: t.numpy() for n, t in rec.items()})
+        res[name] = case["out"]
+    enc = args.get("encoder")
+    if enc:
+        # the ring alone, then the ring over (data, seq, model) with the
+        # weights sharded over model as well
+        from synapseml_tpu_torch.parallel.mesh import dp_sp_tp_mesh
+        cfg = _text_cfg(dict(enc["cfg"], use_ring_attention=True))
+        z = _load_npz(enc["batch"])
+        whole = {k: torch.from_numpy(v) for k, v in
+                 _load_npz(enc["init"]).items()}
+        for name, m in (("encoder", mesh),
+                        ("encoder_tp", dp_sp_tp_mesh(
+                            mesh.axis_size(SEQ_AXIS) // 2, 2, device=dev))):
+            model = PT.TextEncoder(cfg, device=m.device, seed=None, mesh=m)
+            model.load_full_state_dict(whole)
+            ids, mask = shard_blocks(z["ids"], m), shard_blocks(z["mask"], m)
+            with torch.no_grad():
+                emb = model(ids, mask, return_embeddings=True)
+                logits = model(ids, mask)
+            parts = C.all_gather(emb.contiguous(), m, SEQ_AXIS)
+            emb = torch.cat(list(parts.unbind(0)), dim=1)
+            emb = torch.cat(list(C.all_gather(emb.contiguous(), m,
+                                              DATA_AXIS).unbind(0)))
+            logits = torch.cat(list(C.all_gather(logits, m,
+                                                 DATA_AXIS).unbind(0)))
+            out_path = enc["out"].replace("enc_out", f"{name}_out")
+            if m.rank == 0:
+                _save_npz(out_path, {"emb": emb.numpy(),
+                                     "logits": logits.numpy()})
+            res[name] = out_path
+    return {"rank": mesh.rank, "files": res}
+
+
+def _mlp_stage(params, x):
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def pipeline_cases(args):
+    """The GPipe schedule over every rank: per case of ``args["cases"]``
+    (``mesh``: axis sizes; an npz of stacked ``w``/``b``, microbatches
+    ``x`` and, for a loss, targets ``y``) the MLP stages' outputs or the
+    loss and this rank's stage gradients; ``args["encoder"]``: the
+    pipelined text encoder's loss and gradients from whole weights →
+    rank 0 writes each case's ``out`` (stage gradients gathered over
+    ``pipe``); every rank returns its losses."""
+    from synapseml_tpu_torch.models.dl import pipeline as PP
+    from synapseml_tpu_torch.models.dl import transformer as PT
+    from synapseml_tpu_torch.parallel import pipeline as PL
+    from synapseml_tpu_torch.parallel.mesh import PIPE_AXIS
+    dev = args.get("device", "cpu")
+    res = {}
+    for name, case in args["cases"].items():
+        mesh = ProcessMesh(dict(case["mesh"]), device=dev)
+        z = _load_npz(case["data"])
+        stacked = {n: torch.from_numpy(z[n]).to(mesh.device)
+                   for n in ("w", "b")}
+        local = {n: t.clone().requires_grad_(True) for n, t in
+                 PL.local_stage(stacked, mesh).items()}
+        x = torch.from_numpy(z["x"]).to(mesh.device)
+        if case.get("shard_x"):
+            d, n = mesh.axis_index(DATA_AXIS), mesh.axis_size(DATA_AXIS)
+            per = x.shape[1] // n
+            x = x[:, d * per:(d + 1) * per]
+        rec = {}
+        if "y" in z:
+            y = torch.from_numpy(z["y"]).to(mesh.device)
+            loss = PL.pipeline_loss(_mlp_stage, local, x,
+                                    lambda out: ((out - y) ** 2).mean(),
+                                    mesh)
+            loss.backward()
+            for n, t in local.items():
+                g = C.all_gather(t.grad, mesh, PIPE_AXIS)
+                rec[f"g_{n}"] = torch.cat(list(g.unbind(0)))
+            res[name] = float(loss)
+        else:
+            out = PL.pipeline_apply(_mlp_stage, local, x, mesh)
+            if case.get("shard_x"):
+                out = torch.cat(list(C.all_gather(
+                    out.contiguous(), mesh, DATA_AXIS).unbind(0)), dim=1)
+            rec["out"] = out
+        if mesh.rank == 0:
+            _save_npz(case["out"], {n: t.detach().numpy()
+                                    for n, t in rec.items()})
+    enc = args.get("encoder")
+    if enc:
+        mesh = ProcessMesh(dict(enc["mesh"]), device=dev)
+        cfg = _text_cfg(enc["cfg"])
+        whole = {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in _load_npz(enc["init"]).items()}
+        outer, stacked = PP.split_encoder_stages(whole, mesh.axis_size(
+            PIPE_AXIS))
+        outer = {k: v.clone().requires_grad_(True) for k, v in outer.items()}
+        local = {k: v.clone().requires_grad_(True) for k, v in
+                 PL.local_stage(stacked, mesh).items()}
+        z = _load_npz(enc["batch"])
+        d, n = mesh.axis_index(DATA_AXIS), mesh.axis_size(DATA_AXIS)
+        per = len(z["labels"]) // n
+        rows = slice(d * per, (d + 1) * per)
+        ids, mask, labels = [torch.from_numpy(z[k][rows]).to(mesh.device)
+                             for k in ("ids", "mask", "labels")]
+        loss_fn = PP.pp_train_loss(cfg, mesh, int(enc["microbatches"]))
+        loss = loss_fn(outer, local, ids, mask, labels)
+        loss.backward()
+        rec = {f"outer.{k}": v.grad for k, v in outer.items()}
+        for k, v in local.items():
+            g = C.all_gather(v.grad, mesh, PIPE_AXIS)
+            rec[f"stacked.{k}"] = torch.cat(list(g.unbind(0)))
+        rec["loss"] = loss.detach()
+        if mesh.rank == 0:
+            _save_npz(enc["out"], {k: t.detach().numpy()
+                                   for k, t in rec.items()})
+        res["encoder"] = float(loss)
+    import torch.distributed as dist
+    return {"rank": dist.get_rank(), "losses": res}
+
+
+def bert_tp_import(args):
+    """An HF BERT checkpoint (``args["hf"]``, a flat npz) imported into
+    the tiny f32 encoder over a ``model`` axis of every rank: the whole
+    state gathered, ``import_bert`` spliced into it, this rank's shard
+    loaded → rank ``r`` writes its local state dict to
+    ``args["out"]/rank<r>.npz``; returns its shard specs."""
+    import os
+
+    from synapseml_tpu_torch.models.dl import transformer as PT
+    from synapseml_tpu_torch.models.dl.checkpoints import import_bert
+    dev = args.get("device", "cpu")
+    mesh = _dl_mesh(dev, tp=int(args["tp"]))
+    cfg = _text_cfg(args["cfg"])
+    model = PT.TextEncoder(cfg, device=mesh.device, seed=0, mesh=mesh)
+    hf = _load_npz(args["hf"])
+    model.load_full_state_dict(import_bert(model.full_state_dict(), hf,
+                                           num_layers=cfg.num_layers))
+    _save_npz(os.path.join(args["out"], f"rank{mesh.rank}.npz"),
+              {k: v.detach().cpu().numpy()
+               for k, v in model.state_dict().items()})
+    return {"rank": mesh.rank, "model_index": mesh.axis_index("model"),
+            "specs": {k: [list(s) for s in v]
+                      for k, v in model.shard_specs().items()}}
+
+
+
+class OneRankOf:
+    """The mesh interface a model's layout reads (axis sizes and this
+    rank's index on each), for one rank, without a process group:
+    ``OneRankOf(model=(2, 1))`` is rank 1 of a model axis of 2."""
+
+    def __init__(self, **axes):
+        self.shape = {k: v[0] for k, v in axes.items()}
+        self._index = {k: v[1] for k, v in axes.items()}
+
+    def axis_size(self, axis):
+        return self.shape[axis]
+
+    def axis_index(self, axis):
+        return self._index[axis]
