@@ -36,7 +36,8 @@
    tile and chunk edges and 2048): bf16 at S = 1, 2, 4, 8 and 32 through
    the split kernel (S=32 spreads its 128 query rows per kv head over two
    row chunks; atol = rtol = 1e-2 on rows with a live key) and f32 at S = 1
-   through the previous kernel (atol 1e-5).  Times, on the device alone,
+   through the f32 split kernel (atol 1e-5); each call launches the split
+   kernel at its shape.  Times, on the device alone,
    the kernel, the previous kernel on the same inputs (in turns: previous,
    kernel, kernel, previous), the plain version and one
    ``scaled_dot_product_attention`` call over the full cache rows with a
@@ -44,7 +45,9 @@
    that it reads K/V cold from device memory as in the engine; computes
    the bound, the achieved share of 3.35 TB/s and the ratio to SDPA.
    The same at the caches of phases 19c, 20a and 27 (27a: f32, 4 slots
-   of 512; 27b: bf16 at S=1, 8 slots of 2048).
+   of 512, at S=1 and at the drafts' widest verify S=8; 27b: bf16 at
+   S=1, 8 slots of 2048).  The previous kernel's times and errors enter
+   the kernels line under its own launch key (``variant=previous``).
 7. The decode engine on the card against the engine on the CPU, f32, at
    Llama-3.2-1B width and 2 layers (max_len 512, 4 slots, ragged
    repeated-phrase prompts admitted as slots free), once plain and once
@@ -1073,6 +1076,7 @@ def k3_case(dev, seed, B, S, H, KV, D, T, dtype, spans):
     one ``scaled_dot_product_attention`` call over the full cache rows with
     a boolean span mask (its inputs transposed to its head-major layout
     beforehand)."""
+    from synapseml_tpu_torch.kernels import launches as L
     from synapseml_tpu_torch.models.llm import paged_attn as PA
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -1081,7 +1085,12 @@ def k3_case(dev, seed, B, S, H, KV, D, T, dtype, spans):
     v = torch.randn((B, T, KV, D), generator=g, device=dev).to(dtype)
     q_in = q[:, 0] if S == 1 else q       # the decode step passes (B, H, D)
     sp = torch.as_tensor(np.asarray(spans, np.int32), device=dev)
+    L.reset()
     out = PA.paged_decode_attention(q_in, k, v, sp)
+    key = L.launch_key("paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D,
+                       T=T, dtype=PA._DTYPE_NAMES[dtype], variant="split")
+    if L.BY_SHAPE != {key: 1}:
+        raise AssertionError(f"K3 at {key} launched {L.BY_SHAPE}")
     prev = PA.paged_decode_attention_previous(q_in, k, v, sp)
     ref = PA.paged_decode_attention_plain(q_in, k, v, sp)
     out, prev, ref = (x.reshape(q.shape).float() for x in (out, prev, ref))
@@ -1137,7 +1146,7 @@ def k3_case(dev, seed, B, S, H, KV, D, T, dtype, spans):
         library_ms=cuda_ms(lib, iters=20), bound_ms=b_ms, bound_by=b_by,
         max_abs_err=float(diff.max()),
         previous_max_abs_err=float(diff_prev.max()), bytes=nbytes,
-        sdpa_err=lib_err)
+        sdpa_err=lib_err, launch_key=key)
     # achieved share of the memory rate, and the time against SDPA's
     r["bw_share"] = nbytes / (r["ms"] * 1e-3) / PEAK_BYTES_S
     r["vs_sdpa"] = r["ms"] / r["library_ms"]
@@ -8849,13 +8858,11 @@ def main(argv=None) -> int:
               for S in (1, 2, 4, 8)),
             (1, torch.float32, (TIER_SLOTS, 8, 4, 16, TIER_LEN, spans20)),
             (1, torch.float32, (4, H, KV, D, 512, spans27a)),
+            (8, torch.float32, (4, H, KV, D, 512, spans27a)),
             (1, torch.bfloat16, (8, H, KV, D, T, spans27b))):
         b, h, kv, d, t, sp = geo
-        bf16 = dt == torch.bfloat16
-        key = L.launch_key("paged_decode_attention", B=b, S=S, H=h, KV=kv,
-                            D=d, T=t, dtype="bf16" if bf16 else "f32",
-                            variant="split" if bf16 else "previous")
         r = k3_case(dev, args.seed + S, b, S, h, kv, d, t, dt, sp)
+        key = r["launch_key"]
         log(f"{key}: max_abs_err {r['max_abs_err']:.3g} (SDPA "
             f"{r['sdpa_err']:.3g}); kernel {r['ms']:.4f} ms, previous "
             f"kernel {r['previous_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -8864,13 +8871,11 @@ def main(argv=None) -> int:
             f"({r['bytes']} B, {r['bound_by']}; {r['bw_share']:.3f} of "
             f"3.35 TB/s)")
         k3[key] = r
-        if bf16:
-            # the one-launch kernel at this shape, which a tuning table
-            # may pick for a bf16 engine (phase 24): held and timed above
-            k3[L.launch_key("paged_decode_attention", B=b, S=S, H=h, KV=kv,
-                            D=d, T=t, dtype="bf16", variant="previous")] = \
-                dict(r, ms=r["previous_ms"],
-                     max_abs_err=r["previous_max_abs_err"])
+        # the previous kernel at this shape, which a tuning table may pick
+        # for an engine (phase 24): held and timed above
+        k3[key.replace(",variant=split]", ",variant=previous]")] = \
+            dict(r, ms=r["previous_ms"],
+                 max_abs_err=r["previous_max_abs_err"])
 
     wall("6")
 

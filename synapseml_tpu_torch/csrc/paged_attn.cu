@@ -10,10 +10,12 @@
 //       an f32 online softmax and the GQA query heads of one kv head
 //       grouped so each K/V tile is read once per kv head.
 //
-// Two kernels compute it: the split kernel for bf16 and f16 (the engine's
-// types), and the previous kernel, paged_decode_kernel, for f32.
+// Three kernels compute it: the split kernel for bf16 and f16 (the engine's
+// types), the f32 split kernel for f32 (the exactness path), and the
+// previous kernel, paged_decode_kernel, at every type as the yardstick both
+// are timed against and a tuning-table choice.
 //
-// What both keep of the Pallas kernel:
+// What all three keep of the Pallas kernel:
 //
 // - The S * group query rows of a kv head (row r = j * group + g holds query
 //   j of head h * group + g, the Pallas kernel's head-major row order) share
@@ -72,13 +74,65 @@
 //   device memory once and, for the later chunks, mostly from L2 (the row
 //   chunks of one key chunk are adjacent in the grid).
 //
+// The f32 split kernel (paged_f32_split_kernel) replaces the previous
+// kernel at f32.  It keeps full f32 products: plain FFMA, no mma and no
+// TF32, because the f32 engine is held token-exact to the CPU and to the
+// dense generate, and the 1e-5 tolerance of f32 rests on full products.
+// Bound: bytes.  At S <= 8 a (slot, kv head) does 4 S group D flops a key
+// against 8 D bytes, 2-16 flops a byte, below the ~20 at which the f32
+// FMAs (67 TFLOP/s) and not the memory (3.35 TB/s) would bound it.  What
+// each part of it is for:
+//
+// - Split of the span over blocks.  Grid (key chunk x row chunk, kv head,
+//   slot).  The chunk length C, a multiple of the 64-key tile in
+//   [64, SML_PA_SPLIT], is chosen from the shapes alone (B, KV, max_len
+//   and the row chunks; never the spans, which live on the device) as the
+//   fewest keys at which B * KV * row chunks * ceil(T / C) is at most
+//   SML_PA_F32_BLOCKS, about two blocks per SM: 64 keys at 4 slots x 512
+//   (256 blocks for the previous kernel's 32), 256 at 16 slots x 2048.
+//   A row that would take fewer than 4 chunks and fits one is one chunk
+//   (128 keys at 4 slots x 128): there the combine's tail costs more than
+//   the split saves.  The longest slot's tiles spread over blocks instead
+//   of running one after another in one block; a chunk past its slot's
+//   span exits.
+// - cp.async ring.  q and the chunk's 64-key K and V tiles come in as
+//   16-byte cp.async.cg copies, in f32, through a kStages-deep ring, so
+//   two tiles are in flight while one is computed; the ring's is the one
+//   block barrier a tile.  Shared rows are D + 4 floats: 16-byte aligned
+//   for the copies, and the 8 rows of one quarter-warp's 16-byte reads
+//   fall on distinct banks.
+// - Warp-level arithmetic.  Four warps each own 16 keys of every tile,
+//   with their own online softmax state; a block of one 4-row group of
+//   query rows (S = 1 at the engine's GQA groups) has just these, a wider
+//   block (at most SML_PA_F32_ACC / D rows) two such sets, one for each
+//   half of its rows, so a warp's accumulators take at most 32 registers
+//   a lane and twice the warps hide the latencies of the S > 1 loops.
+//   Scores: lane (key, half of D) keeps its half K row in registers and
+//   runs one FMA chain per query row against q rows read from shared
+//   memory (four rows at a time), the halves added by one shuffle.
+//   Softmax: lane r owns its warp's row r's running max and sum and
+//   rescales the row's 16 scores.  P V: lane owns D / 32 columns (two key
+//   groups at D = 16), four keys' V in registers against each row's four
+//   probabilities.  The warps merge their states in shared memory once,
+//   at the end of the chunk.  Measured on the H100 (tools/chip/
+//   k3_f32_chunks.py, one call): the two sets take S = 8 at 4 slots x 512
+//   from 0.0244 to 0.0169 ms, and cost S = 1 2-7%, hence one set there.
+// - Combine in the last-arriving block.  A chunk of a slot whose span
+//   takes several chunks writes its rows' (m, l, acc) to an f32 workspace,
+//   fences, and adds one to a counter per (slot, kv head, row chunk); the
+//   block that brings it to the slot's live chunk count rescales the
+//   partials by exp(m - m_max), normalises, writes out and sets the
+//   counter back to 0.  A slot whose span fits one chunk writes out
+//   directly.  One launch, and no combine launch after it; the counters
+//   belong to the wrapper, are zeroed once and stay zero between calls,
+//   so a captured graph replays while the spans change in place.
+//
 // The previous kernel (paged_decode_kernel) takes one block per (kv head,
-// slot, row chunk), walks the slot's whole span and widens each tile to f32
-// in shared memory, with scalar FMAs.  f32 stays on it: the f32 engine is
-// held token-exact to the CPU and the dense generate on it, and its full f32
-// products are what the 1e-5 tolerance of f32 rests on; the tensor cores
-// would compute f32 in TF32.  For bf16 and f16 it is the yardstick the split
-// kernel is timed against.
+// slot, row chunk), walks the slot's whole span in 64-key tiles loaded
+// through registers and widens each tile to f32 in shared memory, with
+// scalar FMAs and four barriers a tile.  It was f32's kernel until the f32
+// split kernel replaced it; it stays, at every type, as the yardstick both
+// split kernels are timed against and as a tuning-table choice.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -92,8 +146,9 @@ namespace {
 // Python wrapper reads them too: query rows per block (wider S * group is
 // split across blocks) and the largest head width.
 #if !defined(SML_PA_MAX_ROWS) || !defined(SML_PA_MAX_D) || \
-    !defined(SML_PA_SPLIT)
-#error "build with -DSML_PA_MAX_ROWS=... -DSML_PA_MAX_D=... -DSML_PA_SPLIT=... (kernels/_build.py)"
+    !defined(SML_PA_SPLIT) || !defined(SML_PA_F32_BLOCKS) || \
+    !defined(SML_PA_F32_ACC) || !defined(SML_PA_F32_MIN_CHUNKS)
+#error "build with the -DSML_PA_... limits of kernels/_build.py"
 #endif
 constexpr int kMaxRows = SML_PA_MAX_ROWS;
 constexpr int kMaxD = SML_PA_MAX_D;
@@ -728,6 +783,469 @@ int launch_split_d(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The f32 split kernel: each block takes one chunk of C keys of one slot's
+// span for one row chunk, in full f32 FMAs; the last block of a slot's
+// chunks to arrive combines them, in the same launch.
+// ---------------------------------------------------------------------------
+
+// warps across a tile's keys; a block of more than one 4-row group of
+// query rows has two such sets, one for each half of its rows
+constexpr int kF32KeyWarps = 4;
+constexpr int kF32Keys = kTile / kF32KeyWarps;  // keys of a tile per warp
+constexpr int kF32Ld = kF32Keys + 4;  // a row's scores, its rescale, pad
+constexpr long long kF32Blocks = SML_PA_F32_BLOCKS;
+static_assert(kF32Keys == 16, "a warp's lanes are 16 keys x 2 halves of D");
+
+// query rows one block keeps at head width D: rows x D accumulators of a
+// key quarter, which its row-half warps share
+__host__ __device__ constexpr int f32_rows(int D) {
+  return SML_PA_F32_ACC / D < kMaxRows ? SML_PA_F32_ACC / D : kMaxRows;
+}
+
+// The chunk length from the shapes alone: the fewest keys, a multiple of
+// the tile in [kTile, kSplit], at which the grid holds at most kF32Blocks
+// blocks; but a cache row that this would cut into fewer than
+// SML_PA_F32_MIN_CHUNKS chunks, and that one chunk can take, is one chunk
+// (the combine's serial tail costs more than so short a split saves).
+// models/llm/paged_attn.py's f32_chunk_keys states the same rule.
+__host__ __device__ inline int f32_chunk_keys(long long B, long long KV,
+                                              long long T_len,
+                                              long long row_chunks) {
+  int c = kTile;
+  while (c < kSplit && B * KV * row_chunks * ((T_len + c - 1) / c) >
+                           kF32Blocks)
+    c += kTile;
+  const long long whole = (T_len + kTile - 1) / kTile * kTile;
+  if ((T_len + c - 1) / c < SML_PA_F32_MIN_CHUNKS && whole <= kSplit)
+    return (int)whole;
+  return c;
+}
+
+// sets of key warps of a block of R4 (padded) query rows, and each warp's
+// rows: the block's 4-row groups split between the sets
+__host__ __device__ constexpr int f32_row_warps(int R4) {
+  return R4 > 4 ? 2 : 1;
+}
+__host__ __device__ constexpr int f32_warp_rows(int R4) {
+  return (R4 / 4 + f32_row_warps(R4) - 1) / f32_row_warps(R4) * 4;
+}
+
+// dynamic shared floats: the ring, q (R4 rows), each warp's scores
+// (f32_warp_rows x kF32Ld) and the rows' key limits
+template <int D>
+constexpr size_t f32_smem_bytes(int R4) {
+  return ((size_t)kStages * 2 * kTile * (D + 4) + (size_t)R4 * D +
+          (size_t)kF32KeyWarps * f32_row_warps(R4) * f32_warp_rows(R4) *
+              kF32Ld +
+          R4) *
+         sizeof(float);
+}
+
+// acc / max(l, 1e-30) into out's columns d .. d + 3 of query row rr of
+// kv head h (row rr = j * group + g is query j of head h * group + g)
+template <int D>
+__device__ __forceinline__ void store_row4(float* out, int b, int S, int H,
+                                           int group, int h, int rr, int d,
+                                           float4 a, float l) {
+  const int j = rr / group, g = rr % group;
+  l = fmaxf(l, 1e-30f);
+  *reinterpret_cast<float4*>(
+      out + (((long long)b * S + j) * H + h * group + g) * D + d) =
+      make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
+}
+
+// Partials of one (slot, kv head, chunk): for each of the S * group query
+// rows, the D unnormalised accumulators, m and l, at
+// ws[(((b * KV + h) * n_chunks + chunk) * rows + r) * (D + 4)], 16-byte
+// aligned; counters[(b * KV + h) * row_chunks + row chunk] counts the
+// chunks that wrote theirs.
+template <int D, int kRowWarps>
+__global__ void __launch_bounds__(kF32KeyWarps * kRowWarps * 32)
+paged_f32_split_kernel(const float* __restrict__ q,         // (B, S, H, D)
+                       const float* __restrict__ k,         // (B, T, KV, D)
+                       const float* __restrict__ v,         // (B, T, KV, D)
+                       const int32_t* __restrict__ spans,   // (B,)
+                       float* __restrict__ out,             // (B, S, H, D)
+                       float* __restrict__ ws, int* __restrict__ counters,
+                       int S, int H, int KV, long long T_len, int chunk,
+                       int n_chunks, float sqrt_d) {
+  constexpr int kRows = f32_rows(D);
+  constexpr int kF32Warps = kF32KeyWarps * kRowWarps;
+  constexpr int kF32Threads = kF32Warps * 32;
+  // the most rows of a warp: one 4-row group for one set of key warps,
+  // half the block's rows for two
+  constexpr int kRowsW = kRowWarps == 1 ? 4 : kRows / kRowWarps;
+  constexpr int kLd = D + 4;           // shared row of K, V
+  constexpr int kHalf = D / 2;         // a score lane's share of D
+  constexpr int kNc = D >= 32 ? D / 32 : 1;  // P V columns a lane owns
+  constexpr int kGroupLanes = D / kNc;       // lanes covering D
+  constexpr int kKg = 32 / kGroupLanes;      // P V key groups of a warp
+  constexpr int kKq = kF32Keys / (4 * kKg);  // 4-key steps of a group
+  constexpr int kW = D + 4;  // a row's D accumulators, m, l and 2 of pad
+  constexpr int kQ = D / 4;  // 16-byte groups of a row
+  static_assert(kHalf % 4 == 0 && kKg <= 2 && kKq >= 1 && kRowsW % 4 == 0 &&
+                    kRowsW <= 32,
+                "head width");
+
+  const int group = H / KV;
+  const int rows = S * group;
+  const int row_chunks = (rows + kRows - 1) / kRows;
+  const int ci = blockIdx.x / row_chunks;  // row chunks of a chunk adjacent
+  const int rc = blockIdx.x % row_chunks;
+  const int r0 = rc * kRows;
+  const int R = min(kRows, rows - r0);
+  const int R4 = (R + 3) & ~3;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int kw4 = warp % kF32KeyWarps;  // the warp's key quarter
+  // its rows: rb .. rb + nr - 1 (nr4 with the pad rows up to R4)
+  const int RW = f32_warp_rows(R4);
+  const int rb = warp / kF32KeyWarps * RW;
+  const int nr = max(0, min(RW, R - rb));
+  const int nr4 = max(0, min(RW, R4 - rb));
+
+  const int span = spans[b];
+  const long long kmax = span < 0 ? 0 : (span < T_len ? span : T_len);
+  const long long c0 = (long long)ci * chunk;
+  // chunk 0 always runs: it writes out for a slot that fits one chunk
+  // (an empty span included)
+  if (ci > 0 && c0 >= kmax) return;
+  const long long c1 = kmax < c0 + chunk ? kmax : c0 + chunk;
+  const int n_live = kmax > chunk ? (int)((kmax + chunk - 1) / chunk) : 1;
+  const int n_tiles = (int)((c1 - c0 + kTile - 1) / kTile);
+  const long long row = (long long)KV * D;  // elements between keys
+  const float* kb = k + (long long)b * T_len * row + (long long)h * D;
+  const float* vb = v + (long long)b * T_len * row + (long long)h * D;
+
+  extern __shared__ __align__(16) float fsm[];
+  float* ring = fsm;                              // kStages x (K, V)
+  float* qs = ring + kStages * 2 * kTile * kLd;   // R4 x D
+  float* pw = qs + R4 * D + warp * RW * kF32Ld;   // this warp's scores
+  int* lims = reinterpret_cast<int*>(qs + R4 * D + kF32Warps * RW * kF32Ld);
+  __shared__ int last;
+
+  // q's rows (the pad rows up to R4 zero) and each row's key limit inside
+  // the chunk: query j sees kpos < span - (S - 1) + j; pad rows none
+  for (int e = tid; e < R4 * (D / 4); e += kF32Threads) {
+    const int r = e / (D / 4), d = (e % (D / 4)) * 4;
+    const int rr = r0 + (r < R ? r : 0);
+    const int j = rr / group, g = rr % group;
+    cp_async16(qs + r * D + d,
+               q + (((long long)b * S + j) * H + h * group + g) * D + d,
+               r < R ? 16 : 0);
+  }
+  for (int r = tid; r < R4; r += kF32Threads) {
+    long long l = r < R ? (long long)span - (S - 1) + (r0 + r) / group : c0;
+    l = l < c1 ? l : c1;
+    lims[r] = (int)(l - c0);
+  }
+  // tile i of the chunk into stage i % kStages; keys past the chunk are
+  // zero-filled and masked
+  auto load_tile = [&](int i) {
+    float* ks = ring + (i % kStages) * 2 * kTile * kLd;
+    float* vs = ks + kTile * kLd;
+    const long long t0 = c0 + (long long)i * kTile;
+    for (int e = tid; e < kTile * (D / 4); e += kF32Threads) {
+      const int kk = e / (D / 4), d = (e % (D / 4)) * 4;
+      const bool in = t0 + kk < c1;
+      const long long off = (in ? t0 + kk : 0) * row + d;
+      cp_async16(ks + kk * kLd + d, kb + off, in ? 16 : 0);
+      cp_async16(vs + kk * kLd + d, vb + off, in ? 16 : 0);
+    }
+  };
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();  // q rides with tile 0
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  const int kj = lane & 15, kh = lane >> 4;  // scores: key, half of D
+  const int kg = lane / kGroupLanes;         // P V: key group, columns
+  const int cc = (lane % kGroupLanes) * kNc;
+  float acc[kRowsW][kNc];  // the warp's rows rb + r
+#pragma unroll
+  for (int r = 0; r < kRowsW; ++r)
+#pragma unroll
+    for (int c = 0; c < kNc; ++c) acc[r][c] = 0.f;
+  // row rb + lane: running max and sum
+  float m_own = -FLT_MAX;
+  float l_own = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<1>();  // tile i has landed (one newer group may fly)
+    __syncthreads();     // ... for every thread; tile i - 1 is consumed
+    if (i + 2 < n_tiles) load_tile(i + 2);
+    cp_async_commit();   // an empty group keeps the count uniform
+    if (nr == 0) continue;  // a row-half warp with no row only copies
+    const float* ks = ring + (i % kStages) * 2 * kTile * kLd;
+    const float* vs = ks + kTile * kLd;
+    const int kw = kw4 * kF32Keys;          // the warp's first key
+    const int kpos = i * kTile + kw + kj;   // this lane's key, from c0
+
+    // scores q . k / sqrt(D), masked keys at -FLT_MAX, into pw
+    float kr[kHalf];
+#pragma unroll
+    for (int t = 0; t < kHalf / 4; ++t) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          ks + (kw + kj) * kLd + kh * kHalf + 4 * t);
+      kr[4 * t] = x.x;
+      kr[4 * t + 1] = x.y;
+      kr[4 * t + 2] = x.z;
+      kr[4 * t + 3] = x.w;
+    }
+#pragma unroll
+    for (int rg = 0; rg < kRowsW / 4; ++rg) {
+      if (rg * 4 >= nr) break;
+      float dot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < kHalf / 4; ++t)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              qs + (rb + rg * 4 + u) * D + kh * kHalf + 4 * t);
+          dot[u] = fmaf(qv.x, kr[4 * t], dot[u]);
+          dot[u] = fmaf(qv.y, kr[4 * t + 1], dot[u]);
+          dot[u] = fmaf(qv.z, kr[4 * t + 2], dot[u]);
+          dot[u] = fmaf(qv.w, kr[4 * t + 3], dot[u]);
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = rg * 4 + u;
+        const float full = dot[u] + __shfl_xor_sync(0xffffffffu, dot[u], 16);
+        if (kh == 0)
+          pw[r * kF32Ld + kj] =
+              kpos < lims[rb + r] ? full / sqrt_d : -FLT_MAX;
+      }
+    }
+    __syncwarp();
+
+    // online softmax: lane r rescales row rb + r's 16 scores to
+    // probabilities and leaves the row's rescale of its accumulators
+    // beside them
+    if (lane < nr4) {
+      float* pr = pw + lane * kF32Ld;
+      float sv[kF32Keys];
+#pragma unroll
+      for (int t = 0; t < kF32Keys / 4; ++t) {
+        const float4 x = *reinterpret_cast<const float4*>(pr + 4 * t);
+        sv[4 * t] = x.x;
+        sv[4 * t + 1] = x.y;
+        sv[4 * t + 2] = x.z;
+        sv[4 * t + 3] = x.w;
+      }
+      float mx = m_own;
+#pragma unroll
+      for (int jj = 0; jj < kF32Keys; ++jj) mx = fmaxf(mx, sv[jj]);
+      const float alpha = expf(m_own - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kF32Keys; ++jj) {
+        sv[jj] = expf(sv[jj] - mx);
+        sum += sv[jj];
+      }
+      m_own = mx;
+      l_own = l_own * alpha + sum;
+#pragma unroll
+      for (int t = 0; t < kF32Keys / 4; ++t)
+        *reinterpret_cast<float4*>(pr + 4 * t) = make_float4(
+            sv[4 * t], sv[4 * t + 1], sv[4 * t + 2], sv[4 * t + 3]);
+      pr[kF32Keys] = alpha;
+    }
+    __syncwarp();
+
+    // acc = acc * alpha + P V over the lane's key group and columns
+#pragma unroll
+    for (int r = 0; r < kRowsW; ++r) {
+      if (r >= nr) break;
+      const float a = pw[r * kF32Ld + kF32Keys];
+#pragma unroll
+      for (int c = 0; c < kNc; ++c) acc[r][c] *= a;
+    }
+#pragma unroll
+    for (int kq = 0; kq < kKq; ++kq) {
+      // key groups interleave by 4 keys, so at D = 16 the two groups'
+      // V rows fall on different banks
+      const int j0 = (kq * kKg + kg) * 4;
+      float vv[4][kNc];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = vs + (kw + j0 + u) * kLd + cc;
+        if constexpr (kNc == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vr);
+          vv[u][0] = x.x;
+          vv[u][1] = x.y;
+          vv[u][2] = x.z;
+          vv[u][3] = x.w;
+        } else if constexpr (kNc == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(vr);
+          vv[u][0] = x.x;
+          vv[u][1] = x.y;
+        } else {
+          vv[u][0] = vr[0];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsW; ++r) {
+        if (r >= nr) break;
+        const float4 p = *reinterpret_cast<const float4*>(pw + r * kF32Ld + j0);
+#pragma unroll
+        for (int c = 0; c < kNc; ++c) {
+          float x = acc[r][c];
+          x = fmaf(p.x, vv[0][c], x);
+          x = fmaf(p.y, vv[1][c], x);
+          x = fmaf(p.z, vv[2][c], x);
+          x = fmaf(p.w, vv[3][c], x);
+          acc[r][c] = x;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states now
+
+  if constexpr (kKg == 2) {
+#pragma unroll
+    for (int r = 0; r < kRowsW; ++r)
+#pragma unroll
+      for (int c = 0; c < kNc; ++c)
+        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
+  }
+  // key quarter x R4 rows x (acc, m, l, pad): each row of a quarter is
+  // one warp's
+  float* mw = ring + (kw4 * R4 + rb) * kW;
+  if (lane < nr) {
+    mw[lane * kW + D] = m_own;
+    mw[lane * kW + D + 1] = l_own;
+  }
+  if (kg == 0) {
+#pragma unroll
+    for (int r = 0; r < kRowsW; ++r) {
+      if (r >= nr) break;
+#pragma unroll
+      for (int c = 0; c < kNc; ++c) mw[r * kW + cc + c] = acc[r][c];
+    }
+  }
+  __syncthreads();
+
+  // The warps' states merged, one thread per 4 columns of a row: out
+  // directly when the slot's span fits one chunk, else this chunk's
+  // partials.
+  const bool direct = n_live <= 1;
+  const long long bh = (long long)b * KV + h;
+  float* wsb = ws + ((bh * n_chunks + ci) * rows + r0) * kW;
+  for (int e = tid; e < R * kQ; e += kF32Threads) {
+    const int r = e / kQ, d = (e % kQ) * 4;
+    float mx = -FLT_MAX;
+#pragma unroll
+    for (int w = 0; w < kF32KeyWarps; ++w)
+      mx = fmaxf(mx, fsm[(w * R4 + r) * kW + D]);
+    float l = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kF32KeyWarps; ++w) {
+      const float* x = fsm + (w * R4 + r) * kW;
+      const float wt = expf(x[D] - mx);
+      const float4 xa = *reinterpret_cast<const float4*>(x + d);
+      l = fmaf(wt, x[D + 1], l);
+      a = make_float4(fmaf(wt, xa.x, a.x), fmaf(wt, xa.y, a.y),
+                      fmaf(wt, xa.z, a.z), fmaf(wt, xa.w, a.w));
+    }
+    if (direct) {
+      store_row4<D>(out, b, S, H, group, h, r0 + r, d, a, l);
+    } else {
+      *reinterpret_cast<float4*>(wsb + r * kW + d) = a;
+      if (d == 0) {
+        wsb[r * kW + D] = mx;
+        wsb[r * kW + D + 1] = l;
+      }
+    }
+  }
+  if (direct) return;
+
+  // the last of the slot's n_live chunks to arrive combines them
+  __threadfence();  // this block's partials are visible before its count
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counters + bh * row_chunks + rc;
+    last = atomicAdd(cnt, 1) == n_live - 1;
+    if (last) *cnt = 0;  // all of this launch's chunks arrived
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // each thread keeps its items' running (m, l, acc) over the chunks, so
+  // every chunk's loads of all its items are in flight together
+  constexpr int kItems =
+      (kRowsW * kRowWarps * kQ + kF32Threads - 1) / kF32Threads;
+  const float* wb = ws + (bh * n_chunks * rows + r0) * kW;
+  const long long stride = (long long)rows * kW;  // between chunks
+  float rm[kItems], rl[kItems];
+  float4 ra[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    rm[it] = -FLT_MAX;
+    rl[it] = 0.f;
+    ra[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll 2
+  for (int c = 0; c < n_live; ++c) {
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int e = tid + it * kF32Threads;
+      if (e < R * kQ) {
+        const float* w = wb + c * stride + (e / kQ) * kW;
+        const float mc = __ldcg(w + D);
+        const float lc = __ldcg(w + D + 1);
+        const float4 xc =
+            __ldcg(reinterpret_cast<const float4*>(w + (e % kQ) * 4));
+        const float mn = fmaxf(rm[it], mc);
+        const float so = expf(rm[it] - mn), sc = expf(mc - mn);
+        rl[it] = fmaf(sc, lc, rl[it] * so);
+        ra[it] = make_float4(fmaf(sc, xc.x, ra[it].x * so),
+                             fmaf(sc, xc.y, ra[it].y * so),
+                             fmaf(sc, xc.z, ra[it].z * so),
+                             fmaf(sc, xc.w, ra[it].w * so));
+        rm[it] = mn;
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int e = tid + it * kF32Threads;
+    if (e < R * kQ)
+      store_row4<D>(out, b, S, H, group, h, r0 + e / kQ, (e % kQ) * 4,
+                    ra[it], rl[it]);
+  }
+}
+
+template <int D>
+int launch_f32_split(const void* q, const void* k, const void* v,
+                     const int32_t* spans, void* out, float* ws,
+                     int* counters, int B, int S, int H, int KV,
+                     long long T_len, int chunk, int n_chunks, float sqrt_d,
+                     cudaStream_t stream) {
+  constexpr int kRows = f32_rows(D);
+  const int rows = S * (H / KV);
+  const int row_chunks = (rows + kRows - 1) / kRows;
+  const int R4 = ((rows < kRows ? rows : kRows) + 3) & ~3;
+  const size_t smem = f32_smem_bytes<D>(R4);
+  const int row_warps = f32_row_warps(R4);
+  auto kern = row_warps == 1 ? paged_f32_split_kernel<D, 1>
+                             : paged_f32_split_kernel<D, 2>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(n_chunks * row_chunks, KV, B), kF32KeyWarps * row_warps * 32,
+         smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), spans, static_cast<float*>(out), ws,
+      counters, S, H, KV, T_len, chunk, n_chunks, sqrt_d);
+  return (int)cudaGetLastError();
+}
+
 static_assert(kMaxD == 128, "head widths are instantiated up to 128");
 
 }  // namespace
@@ -783,6 +1301,48 @@ int sml_paged_decode_attention_split(const void* q, const void* k,
     return launch_split_d<__half>(D, q, k, v, spans, out, w, B, S, H, KV,
                                   T_len, n_split, sqrt_d, st);
   return (int)cudaErrorInvalidValue;
+}
+
+
+// The f32 split kernel, combine included, for float32.  chunk is the chunk
+// length the rule above gives for these shapes (f32_chunk_keys, with the
+// row chunks of f32_rows(D)); ws holds B * KV * ceil(T / chunk) * S *
+// (H / KV) * (D + 4) floats, only chunks inside a slot's span are written
+// and read; counters holds B * KV * row chunks int32, zero before the call
+// and zero after it.  Other arguments as above.
+int sml_paged_decode_attention_split_f32(const void* q, const void* k,
+                                         const void* v, const int32_t* spans,
+                                         void* out, void* ws, void* counters,
+                                         int B, int S, int H, int KV, int D,
+                                         long long T_len, int chunk,
+                                         float sqrt_d, void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || T_len < 1 || B > 65535 ||
+      KV > 65535 || T_len > 2147483647LL || D < 16 || D > kMaxD ||
+      (D & (D - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)S * (H / KV);
+  const long long row_chunks = (rows + f32_rows(D) - 1) / f32_rows(D);
+  if (chunk != f32_chunk_keys(B, KV, T_len, row_chunks))
+    return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (T_len + chunk - 1) / chunk;
+  if (n_chunks * row_chunks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
+  switch (D) {
+    case 16:
+      return launch_f32_split<16>(q, k, v, spans, out, w, c, B, S, H, KV,
+                                  T_len, chunk, (int)n_chunks, sqrt_d, st);
+    case 32:
+      return launch_f32_split<32>(q, k, v, spans, out, w, c, B, S, H, KV,
+                                  T_len, chunk, (int)n_chunks, sqrt_d, st);
+    case 64:
+      return launch_f32_split<64>(q, k, v, spans, out, w, c, B, S, H, KV,
+                                  T_len, chunk, (int)n_chunks, sqrt_d, st);
+    default:
+      return launch_f32_split<128>(q, k, v, spans, out, w, c, B, S, H, KV,
+                                   T_len, chunk, (int)n_chunks, sqrt_d, st);
+  }
 }
 
 }  // extern "C"

@@ -81,13 +81,23 @@ DEFINES: Dict[str, Dict[str, int]] = {
     "paged_attn": {
         # query rows one block keeps (S verify positions x the GQA group
         # of one kv head) and the largest head width; at both limits a
-        # block of the f32 kernel takes 115,968 bytes of shared memory
+        # block of the previous kernel takes 115,968 bytes of shared memory
         "SML_PA_MAX_ROWS": 64,
         "SML_PA_MAX_D": 128,
         # keys of a slot's span that one block of the bf16/f16 split
-        # kernel takes (4 tiles of 64): the partials' workspace holds
-        # ceil(max_len / SML_PA_SPLIT) chunks per (slot, kv head)
+        # kernel takes (4 tiles of 64), and the most one block of the f32
+        # split kernel takes: the partials' workspace holds
+        # ceil(max_len / chunk) chunks per (slot, kv head)
         "SML_PA_SPLIT": 256,
+        # the f32 split kernel: the grid its chunk length aims at (about
+        # two blocks on each of the H100's 132 SMs), and the query rows x
+        # head width one block keeps (a warp accumulates at most half:
+        # 32 registers a lane)
+        "SML_PA_F32_BLOCKS": 264,
+        "SML_PA_F32_ACC": 2048,
+        # the fewest chunks it cuts a cache row into, unless the row is
+        # one chunk (there the combine's tail costs more than it saves)
+        "SML_PA_F32_MIN_CHUNKS": 4,
     },
 }
 

@@ -13,12 +13,15 @@ launches the hand-written Hopper kernels in
 kernel, one block per chunk of :data:`SPLIT_KEYS` keys of a slot's span
 on ``mma.sync`` tensor cores with a ``cp.async`` tile ring, then a
 combine, with the probabilities rounded to the compute type before P V;
-f32: the previous kernel, one block per (kv head, slot) walking the
-whole span in f32); for CPU tensors it takes the plain PyTorch
-version :func:`paged_decode_attention_plain`.  There is no fallback
-between the two: a CUDA input the kernels cannot take raises.
-:func:`paged_decode_attention_previous` launches the previous kernel at
-any type, as a same-run yardstick of the split kernel.
+f32: the f32 split kernel, one block per chunk of
+:func:`f32_chunk_keys` keys in full f32 FMAs with a ``cp.async`` ring,
+the chunks combined by the last block to arrive, in one launch); for
+CPU tensors it takes the plain PyTorch version
+:func:`paged_decode_attention_plain`.  There is no fallback between the
+two: a CUDA input the kernels cannot take raises.
+:func:`paged_decode_attention_previous` launches the previous kernel
+(one block per (kv head, slot) walking the whole span) at any type, as
+a same-run yardstick of the split kernels.
 
 The geometry, span buckets and byte ledger (:func:`paged_geometry`,
 :func:`span_bucket_tiles`, :func:`paged_read_bytes`,
@@ -57,8 +60,17 @@ ATTENTION_BACKENDS = ("auto", "dense", "paged", "interpret")
 #: blocks) and the largest head width
 _MAX_ROWS = DEFINES["paged_attn"]["SML_PA_MAX_ROWS"]
 _MAX_D = DEFINES["paged_attn"]["SML_PA_MAX_D"]
-#: keys of a slot's span one block of the split kernel takes
+#: keys of a slot's span one block of the split kernel takes (and the
+#: most the f32 split kernel's chunk takes)
 SPLIT_KEYS = DEFINES["paged_attn"]["SML_PA_SPLIT"]
+#: the kernels' key tile (``kTile`` in csrc/paged_attn.cu)
+_TILE = 64
+#: the grid the f32 split kernel's chunk length aims at, and the query
+#: rows x head width one of its blocks keeps
+_F32_BLOCKS = DEFINES["paged_attn"]["SML_PA_F32_BLOCKS"]
+_F32_ACC = DEFINES["paged_attn"]["SML_PA_F32_ACC"]
+#: the fewest chunks it cuts a cache row into, unless the row is one chunk
+_F32_MIN_CHUNKS = DEFINES["paged_attn"]["SML_PA_F32_MIN_CHUNKS"]
 #: head widths the kernel is instantiated for
 _HEAD_DIMS = tuple(d for d in (16, 32, 64, 128) if d <= _MAX_D)
 #: dtype codes of the kernel's C interface, and their names in launch keys
@@ -70,26 +82,56 @@ _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
 #: the tuning-table space of the kernel choice (its own name: the JAX
 #: package's ``paged_attn_tile`` tunes a TPU key tile, another knob)
 VARIANT_SPACE = "paged_attn_variant"
-#: the kernels a CUDA call can take: ``split`` (bf16/f16: per-chunk
-#: blocks, then a combine; launch key ``variant=split``) and ``single``
-#: (one block per (kv head, slot) over the whole span, every type; the
-#: previous kernel, launch key ``variant=previous``)
+#: the kernels a CUDA call can take: ``split`` (per-chunk blocks: for
+#: bf16/f16 the tensor-core kernel and a combine, for f32 the f32 split
+#: kernel with its combine in the last block; launch key
+#: ``variant=split``) and ``single`` (one block per (kv head, slot) over
+#: the whole span, every type; the previous kernel, launch key
+#: ``variant=previous``)
 PAGED_VARIANTS = ("split", "single")
 
 
 def default_variant(dtype) -> str:
-    """The kernel a call takes without a tuned choice: split for bf16 and
-    f16, single for f32 (and for a type no kernel takes, which the
-    launch then refuses)."""
-    return "split" if dtype in (torch.bfloat16, torch.float16) else "single"
+    """The kernel a call takes without a tuned choice: split, at every
+    type (a type no kernel takes is refused by the launch)."""
+    return "split"
 
 
 def variant_ok(variant: Any, dtype) -> bool:
-    """Can ``variant`` run at ``dtype``?  The split kernel is built for
-    bf16 and f16 only."""
-    return variant == "single" or (variant == "split"
-                                   and dtype in (torch.bfloat16,
-                                                 torch.float16))
+    """Can ``variant`` run at ``dtype``?  Both kernels are built for
+    f32, bf16 and f16."""
+    return variant in PAGED_VARIANTS
+
+
+def f32_rows_per_block(d_head: int) -> int:
+    """Query rows one block of the f32 split kernel keeps at ``d_head``:
+    rows x d_head at most ``SML_PA_F32_ACC`` (each of its warps holds at
+    most half of them), and never more than the other kernels' rows."""
+    return min(_MAX_ROWS, _F32_ACC // int(d_head))
+
+
+def f32_chunk_keys(n_slots: int, num_kv_heads: int, max_len: int,
+                   rows: int, d_head: int) -> int:
+    """The f32 split kernel's chunk: the keys of a slot's span one block
+    takes, chosen from the shapes alone (never the spans, which live on
+    the device).  It is the fewest keys, a multiple of the 64-key tile in
+    ``[64, SPLIT_KEYS]``, at which ``n_slots * num_kv_heads * row chunks
+    * ceil(max_len / C)`` blocks are at most ``SML_PA_F32_BLOCKS`` (about
+    two on each of the H100's 132 SMs); ``rows`` is ``S * num_heads /
+    num_kv_heads``.  A cache row that C would cut into fewer than
+    :data:`_F32_MIN_CHUNKS` chunks and that one chunk can take is one
+    chunk: there the combine's serial tail costs more than the split
+    saves.  The kernel's entry point refuses any other C."""
+    T = int(max_len)
+    row_chunks = -(-int(rows) // f32_rows_per_block(d_head))
+    per_chunk = int(n_slots) * int(num_kv_heads) * row_chunks
+    c = _TILE
+    while c < SPLIT_KEYS and per_chunk * -(-T // c) > _F32_BLOCKS:
+        c += _TILE
+    whole = -(-T // _TILE) * _TILE
+    if -(-T // c) < _F32_MIN_CHUNKS and whole <= SPLIT_KEYS:
+        return whole
+    return c
 
 
 def paged_geometry_key(max_len: int, num_kv_heads: int, d_head: int,
@@ -282,6 +324,10 @@ def _kernels() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _I,
         ctypes.c_float, _P]
     lib.sml_paged_decode_attention_split.restype = _I
+    lib.sml_paged_decode_attention_split_f32.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I,
+        ctypes.c_float, _P]
+    lib.sml_paged_decode_attention_split_f32.restype = _I
     lib.sml_pa_error_string.argtypes = [_I]
     lib.sml_pa_error_string.restype = ctypes.c_char_p
     return lib
@@ -294,6 +340,41 @@ def split_workspace_shape(B: int, S: int, H: int, KV: int, D: int,
     query rows' running max, sum and D accumulators.  Only chunks inside a
     slot's span are written and read."""
     return (B, KV, -(-T // SPLIT_KEYS), S * (H // KV), D + 2)
+
+
+def f32_workspace_shape(B: int, S: int, H: int, KV: int, D: int,
+                        T: int) -> tuple:
+    """The f32 split kernel's workspace: for each (slot, kv head) and each
+    of the ``ceil(T / C)`` chunks (C from :func:`f32_chunk_keys`), the S *
+    group query rows' D accumulators, running max and sum, and two floats
+    that keep each row 16-byte aligned.  Only a slot whose span takes
+    more than one chunk writes and reads its chunks."""
+    C = f32_chunk_keys(B, KV, T, S * (H // KV), D)
+    return (B, KV, -(-T // C), S * (H // KV), D + 4)
+
+
+#: the f32 split kernel's arrival counters, (device index, K's address,
+#: count) -> int32 zeros; never freed, since a captured graph keeps the
+#: address it was recorded with
+_COUNTERS: dict = {}
+
+
+def _split_counters(k: torch.Tensor, n: int) -> torch.Tensor:
+    """The arrival counters of the f32 split kernel over the cache ``k``:
+    one per (slot, kv head, row chunk), zero before and after every
+    launch (the last-arriving block resets its own).  One buffer per
+    cache, so two engines on two streams never share a counter; made and
+    zeroed at the cache's first call, which the engine makes eagerly
+    before it captures a graph (a first call inside a capture records
+    the zeroing into the graph, which replays it)."""
+    key = (k.device.index, k.data_ptr(), n)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = torch.zeros(n, dtype=torch.int32, device=k.device)
+        if not torch.cuda.is_current_stream_capturing():
+            torch.cuda.current_stream(k.device).synchronize()
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -328,6 +409,7 @@ def check_kernel_layout(num_heads: int, num_kv_heads: int, d_head: int,
 
 
 def _paged_decode_attention_cuda(q, k, v, spans, split: bool):
+    """Launch K3's ``split`` kernel for q's type, or the previous one."""
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
     dev = q4.device
@@ -341,9 +423,21 @@ def _paged_decode_attention_cuda(q, k, v, spans, split: bool):
     out = torch.empty_like(q4)
     lib = _kernels()
     sqrt_d = float(np.float32(np.sqrt(D)))
+    ws = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if split:
+        if split and q4.dtype == torch.float32:
+            rows = S * (H // KV)
+            chunk = f32_chunk_keys(B, KV, T, rows, D)
+            ws = torch.empty(f32_workspace_shape(B, S, H, KV, D, T),
+                             dtype=torch.float32, device=dev)
+            counters = _split_counters(
+                k, B * KV * -(-rows // f32_rows_per_block(D)))
+            rc = lib.sml_paged_decode_attention_split_f32(
+                q4.data_ptr(), k.data_ptr(), v.data_ptr(), spans.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, S, H,
+                KV, D, T, chunk, sqrt_d, stream)
+        elif split:
             ws = torch.empty(split_workspace_shape(B, S, H, KV, D, T),
                              dtype=torch.float32, device=dev)
             rc = lib.sml_paged_decode_attention_split(
@@ -365,7 +459,7 @@ def _paged_decode_attention_cuda(q, k, v, spans, split: bool):
         # writes and reads back
         live = int(spans.clamp(1, T).sum()) * KV * D * k.element_size() * 2
         launches.io_bytes("paged_decode_attention", q4, live, spans, out,
-                          2 * ws.numel() * 4 if split else None)
+                          None if ws is None else 2 * ws.numel() * 4)
     # launch key: ``T`` the cache's max_len, ``variant`` the kernel
     launches.count("paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D,
                    T=T, dtype=_DTYPE_NAMES[q4.dtype],
@@ -377,9 +471,9 @@ def paged_decode_attention_previous(q: torch.Tensor, k: torch.Tensor,
                                     v: torch.Tensor,
                                     spans: torch.Tensor) -> torch.Tensor:
     """The previous kernel (one block per (kv head, slot), the whole span
-    in one block) at any of its types: f32's kernel on the main path, and
-    for bf16/f16 the yardstick the split kernel is timed against.  CUDA
-    tensors only."""
+    in one block) at any of its types: the yardstick the split kernels
+    are timed against (``variant="single"`` takes it too).  CUDA tensors
+    only."""
     if q.device.type != "cuda":
         raise ValueError("paged_decode_attention_previous launches a CUDA "
                          f"kernel; q is on {q.device}")
@@ -400,13 +494,12 @@ def paged_decode_attention(q: torch.Tensor,      # (B, H, D) | (B, S, H, D)
     earlier query one key fewer.  The queries' own K/V must already be in
     the cache.  CUDA tensors launch the K3 kernel ``variant`` names
     (:data:`PAGED_VARIANTS`; None: :func:`default_variant`, the split
-    kernel for bf16/f16 and the single one for f32); CPU tensors run
-    :func:`paged_decode_attention_plain`."""
+    kernel); CPU tensors run :func:`paged_decode_attention_plain`."""
     variant = default_variant(q.dtype) if variant is None else variant
     if not variant_ok(variant, q.dtype):
         raise ValueError(f"paged_decode_attention: variant={variant!r} "
                          f"cannot run at {q.dtype} (one of "
-                         f"{PAGED_VARIANTS}; split takes bf16/f16)")
+                         f"{PAGED_VARIANTS})")
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k, v, spans)
     return _paged_decode_attention_cuda(q, k, v, spans,

@@ -354,8 +354,8 @@ def _build_paged_attn_variant(max_len: int = 256, num_heads: int = 16,
                               check: bool = True, reps: int = 20,
                               seed: int = 0):
     """Candidates: the K3 kernels that run at ``dtype``
-    (``{"variant": "split"}`` and ``{"variant": "single"}`` for bf16/f16,
-    ``single`` alone at f32); runner: one ``paged_decode_attention`` call
+    (``{"variant": "split"}`` and ``{"variant": "single"}``, at f32, bf16
+    and f16 alike); runner: one ``paged_decode_attention`` call
     over full spans at query width ``span``.  ``check``: each candidate
     within K3's tolerance of the plain version (f32: atol 1e-5; bf16 and
     f16: atol = rtol = 1e-2) before it is timed."""

@@ -279,15 +279,18 @@ def test_variant_space_on_the_cpu(plane):
     res = TA.Autotuner(plane=plane, blocks=1).run(
         space, max_len=64, num_heads=4, num_kv_heads=2, d_head=16,
         n_slots=2, dtype="float32", device="cpu", reps=1)
-    assert res["winner"] == {"variant": "single"} and res["trial_count"] == 1
+    # both kernels take f32: the f32 split kernel and the previous one
+    assert set(res["trials_ms"]) == {"variant=split", "variant=single"}
+    assert res["trial_count"] == 2
     assert {e["device_kind"] for e in plane.snapshot()["entries"]} == {"cpu"}
 
 
 @pytest.mark.parametrize("dtype,winner,want,outcome", [
     (torch.bfloat16, "single", "single", "loaded"),
     (torch.bfloat16, "split", "split", "loaded"),
-    (torch.float32, "split", None, "invalid"),
-    (torch.float32, "single", "single", "loaded")])
+    (torch.float32, "split", "split", "loaded"),
+    (torch.float32, "single", "single", "loaded"),
+    (torch.float32, "tiled", None, "invalid")])
 def test_engine_takes_the_variant_winner(plane, tiny, dtype, winner, want,
                                          outcome):
     m = tiny[dtype]
@@ -312,13 +315,13 @@ def test_no_table_keeps_the_dtype_default(tiny):
     finally:
         TT.set_tuneplane(prev)
     assert PA.default_variant(torch.bfloat16) == "split"
-    assert PA.default_variant(torch.float32) == "single"
+    assert PA.default_variant(torch.float32) == "split"
     q = torch.zeros(1, 2, 16)
     with pytest.raises(ValueError, match="variant"):
         PA.paged_decode_attention(q, torch.zeros(1, 8, 1, 16),
                                   torch.zeros(1, 8, 1, 16),
                                   torch.ones(1, dtype=torch.int32),
-                                  variant="split")
+                                  variant="tiled")
 
 
 def test_variant_is_chosen_before_the_graphs(plane, tiny):

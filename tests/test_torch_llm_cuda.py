@@ -7,8 +7,9 @@ Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_llm_cuda.py
 
-Tolerances: f32 atol 1e-5 (f32 runs the previous kernel; it and the plain
-version both sum in f32, in different orders); bf16 and f16 atol = rtol =
+Tolerances: f32 atol 1e-5 (the f32 split kernel, the previous kernel and
+the plain version all multiply in full f32 and sum in f32, in different
+orders); bf16 and f16 atol = rtol =
 1e-2 on rows with a live key.  There the split kernel computes scores and
 the running softmax in f32, but rounds each probability to the compute
 type before P V (the port's dense rule), where the plain version keeps P
@@ -68,10 +69,9 @@ def test_paged_kernel_equals_plain(dev, dtype, S, B, H, KV, D, T):
     sp = torch.as_tensor(spans.astype(np.int32), device=dev)
     launches.reset()
     out = PA.paged_decode_attention(q, k, v, sp)
-    kernel = "previous" if dtype == torch.float32 else "split"
     assert list(launches.BY_SHAPE) == [launches.launch_key(
         "paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D, T=T,
-        dtype=PA._DTYPE_NAMES[dtype], variant=kernel)]
+        dtype=PA._DTYPE_NAMES[dtype], variant="split")]
     ref = PA.paged_decode_attention_plain(q, k, v, sp)
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.dtype == dtype
@@ -85,24 +85,99 @@ def test_paged_kernel_equals_plain(dev, dtype, S, B, H, KV, D, T):
                                atol=tol, rtol=0 if tol == 1e-5 else tol)
 
 
-def test_f32_keeps_the_previous_kernel(dev):
-    """f32 launches the previous kernel, bit for bit what its own entry
-    point gives; bf16 launches the split kernel."""
+def _f32_spans(B, S, H, KV, D, T, rng):
+    """The f32 split kernel's span edges for these shapes: 1, C - 1, C,
+    C + 1, T - 1 and T for its chunk C, then random spans."""
+    C = PA.f32_chunk_keys(B, KV, T, S * (H // KV), D)
+    edges = [1, T] + [c for c in (C - 1, C, C + 1, T - 1) if 1 < c < T]
+    return np.concatenate([edges, rng.integers(1, T + 1, B)])[:B]
+
+
+def _held(out, ref, spans, S, atol=1e-5):
+    """``out`` within ``atol`` of ``ref`` (plain) on the rows with a live
+    key, and finite there."""
+    if out.dim() == 3:
+        out, ref = out[:, None], ref[:, None]
+    live = (torch.as_tensor(spans, device=out.device)[:, None] - (S - 1)
+            + torch.arange(S, device=out.device)[None]) > 0
+    assert bool(torch.isfinite(out[live]).all())
+    torch.testing.assert_close(out[live], ref[live], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,H,KV,D,T", [
+    (6, 8, 4, 16, 128), (6, 8, 4, 16, 300), (6, 16, 4, 32, 640),
+    (6, 32, 8, 64, 512), (16, 32, 8, 64, 2048), (6, 8, 2, 128, 200),
+    # S x group above SML_PA_MAX_ROWS at S = 8: 128 rows of a kv head
+    (5, 64, 4, 64, 384)])
+def test_f32_split_kernel_equals_plain(dev, S, B, H, KV, D, T):
+    """The f32 split kernel at every head width, over its chunk's edges:
+    a span in one chunk writes out directly, a longer one is combined by
+    the last of its chunks to arrive."""
+    rng = np.random.default_rng(B * T + S + D)
+    spans = _f32_spans(B, S, H, KV, D, T, rng)
+    q, k, v = _operands(rng, B, S, H, KV, D, T, torch.float32, dev)
+    sp = torch.as_tensor(spans.astype(np.int32), device=dev)
+    launches.reset()
+    out = PA.paged_decode_attention(q, k, v, sp)
+    assert launches.BY_SHAPE == {launches.launch_key(
+        "paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D, T=T,
+        dtype="f32", variant="split"): 1}
+    ref = PA.paged_decode_attention_plain(q, k, v, sp)
+    torch.cuda.synchronize()
+    _held(out, ref, spans, S)
+    # a second call on the same counters: the first left them at zero
+    torch.testing.assert_close(PA.paged_decode_attention(q, k, v, sp), out,
+                               atol=0, rtol=0)
+
+
+def test_f32_takes_the_split_kernel(dev):
+    """f32 launches the f32 split kernel by default; ``variant="single"``
+    launches the previous kernel, bit for bit what its own entry point
+    gives; bf16 launches the split kernel."""
     rng = np.random.default_rng(7)
     sp = torch.as_tensor([1, 300, 2048, 513], dtype=torch.int32, device=dev)
-    for dtype, kernel in ((torch.float32, "previous"),
-                          (torch.bfloat16, "split")):
+    for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _operands(rng, 4, 4, 32, 8, 64, 2048, dtype, dev)
-        launches.reset()
-        out = PA.paged_decode_attention(q, k, v, sp)
-        assert [key.endswith(f",variant={kernel}]")
-                for key in launches.BY_SHAPE] == [True]
+        for variant, kernel in ((None, "split"), ("split", "split"),
+                                ("single", "previous")):
+            launches.reset()
+            out = PA.paged_decode_attention(q, k, v, sp, variant=variant)
+            assert [key.endswith(f",dtype={PA._DTYPE_NAMES[dtype]},"
+                                 f"variant={kernel}]")
+                    for key in launches.BY_SHAPE] == [True]
         prev = PA.paged_decode_attention_previous(q, k, v, sp)
-        if dtype == torch.float32:
-            assert torch.equal(out, prev)
+        assert torch.equal(out, prev)
     with pytest.raises(ValueError, match="CUDA kernel"):
         PA.paged_decode_attention_previous(q.cpu(), k.cpu(), v.cpu(),
                                            sp.cpu())
+
+
+def test_f32_split_replays_with_spans_changed_in_place(dev):
+    """A captured graph of the f32 split kernel, replayed three times
+    with the spans rewritten in place between replays (one chunk, several
+    chunks, the full row): each output equals plain, and the arrival
+    counters read zero after every replay."""
+    B, S, H, KV, D, T = 4, 4, 32, 8, 64, 512
+    rng = np.random.default_rng(11)
+    q, k, v = _operands(rng, B, S, H, KV, D, T, torch.float32, dev)
+    sp = torch.as_tensor([1, 64, 213, 512], dtype=torch.int32, device=dev)
+    PA.paged_decode_attention(q, k, v, sp)        # eager first: counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with launches.recording() as counts, torch.cuda.graph(
+            graph, capture_error_mode="thread_local"):
+        out = PA.paged_decode_attention(q, k, v, sp)
+    assert list(counts) == [launches.launch_key(
+        "paged_decode_attention", B=B, S=S, H=H, KV=KV, D=D, T=T,
+        dtype="f32", variant="split")]
+    counters = PA._COUNTERS[(dev.index, k.data_ptr(), B * KV)]
+    for spans in ([512, 1, 65, 300], [4, 129, 511, 64], [63, 512, 2, 257]):
+        sp.copy_(torch.as_tensor(spans, dtype=torch.int32, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        _held(out, PA.paged_decode_attention_plain(q, k, v, sp), spans, S)
+        assert int(counters.abs().sum()) == 0
 
 
 def test_paged_kernel_refuses_what_it_cannot_take(dev):
