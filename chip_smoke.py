@@ -504,14 +504,14 @@
     on 26c's backbone (ResNet-50, 224², sgd) against one process:
     BatchNorm running statistics and the f32 probabilities within 1e-4
     of their scale; (v) int8 + error feedback + the sharded update
-    within 0.05 of the f32 sync after 12 steps; (vi) the data mesh D=2
+    within 0.05 of the f32 sync after 8 steps; (vi) the data mesh D=2
     with dropout 0.1 at 32 rows a step, sgd, against this process's
     one-rank fit (losses and parameters within 1e-5; step ms and peak
     memory of both).  (b) Phase 17b's model at ``expertParallelism=2``
     in bf16 (batch 128 x 128): each rank's samples/s, step ms, peak
     memory against 17b's, the MoE all-reduces' bytes and ms a step, and
     against 17b's one-process steps on the same weights and batch the
-    losses of the first 5 steps and step 1's gradient sums of squares
+    losses of the first 3 steps and step 1's gradient sums of squares
     (experts summed over ranks, routers, the rest) within
     ``P28_FULL_LIMITS``.  (c) An int8 + EF + sharded-update text fit
     under a ``GangSupervisor``: rank 1 dies after its fourth checkpoint,
@@ -525,6 +525,33 @@
     small on the CPU
     (``dl_gang(0, torch.device("cpu"), "cpu", sizes=...)`` with tiny
     ``P28_*`` replacements, ~35 s).
+30. The JAX-free stages over the GBDT (``ops``, ``automl``, ``causal``;
+    ``a8_stages``).  (a) ``TrainClassifier(GBDTClassifier(
+    numIterations=10))`` on 1M rows of bench.py's 28 columns, an 8-level
+    string column and a "yes"/"no" label (Featurize: 28 + 8 one-hot
+    columns, two-level histograms), transform and
+    ``ComputeModelStatistics`` on 100,000 holdout rows: featurize, label
+    index, GBDT fit (s/iteration) and transform seconds from the stages'
+    per-verb records, holdout AUC > 0.8 (run ``phase30a``); the same
+    stage at 20,000 rows on the card and on the CPU: equal trees
+    (``split_digest``), margins within 1e-6, equal labels.  (b)
+    ``TuneHyperparameters`` over ``GBDTClassifier(numIterations=10)`` on
+    numLeaves {15, 31} x learningRate {0.1, 0.2} at 250,000 rows, at
+    parallelism 1 and 4 in this process (runs ``phase30b_p1``,
+    ``phase30b_p4``): equal ``allMetrics``, ``bestParams``,
+    ``bestMetric`` and launch counts by shape; both walls.  (c)
+    ``DoubleMLEstimator(maxIter=2)`` with GBDT nuisance models on 250,000
+    rows, a binary treatment and an ATE of 2.0: within 0.1 and inside
+    its interval; ``OrthoForestDMLEstimator``'s default forest (on the
+    card) on an effect of 1.5 (x1 <= 0) and 3.0 (x1 > 0): the groups'
+    mean effects ordered (run ``phase30c``); DML at 20,000 rows on the
+    card and on the CPU (nuisance fits of 10 iterations): raw effects
+    within 1e-6.  Every shape the runs
+    launch is one phase 2 held against the plain version.  Small on the
+    CPU: ``a8_stages(0, torch.device("cpu"), "cpu", check_path,
+    rows=20000, hold=4000, tune_rows=20000, dml_rows=20000, small=3000,
+    forest_cpu=True, auc_floor=0.7)`` (~2 min; its 30c ATE check needs
+    the full rows).
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -7474,7 +7501,8 @@ P28_GANG_TIMEOUT_S = 600.0
 P28_TEXT = dict(vocab_size=30522, max_len=128, num_layers=2, num_heads=12,
                 d_model=768, d_ff=3072, num_classes=2, dropout_rate=0.0,
                 num_experts=8, moe_top_k=2, moe_capacity_factor=0.5)
-P28_ROWS, P28_STEPS, P28_CODEC_STEPS = 8, 5, 12
+#: 28a(v)'s codec fits run 8 steps (12 until phase 30 took their time)
+P28_ROWS, P28_STEPS, P28_CODEC_STEPS = 8, 5, 8
 P28_OPT = dict(name="adamw", learning_rate=1e-4, weight_decay=0.01,
                schedule="constant", total_steps=P28_CODEC_STEPS,
                grad_clip_norm=1.0)
@@ -7495,7 +7523,8 @@ P28_DROP = dict(rows=32, rate=0.1,
                 opt=dict(P28_OPT, name="sgd", learning_rate=1e-2))
 #: 28b: phase 17b's model at expertParallelism=2 (BERT-base, 8 experts,
 #: top-2, batch 128 x 128, bf16): warm-up and window steps
-P28_FULL = dict(batch=128, seq=128, experts=8, warmup=1, steps=4)
+#: (4 steps until phase 30 took their time)
+P28_FULL = dict(batch=128, seq=128, experts=8, warmup=1, steps=2)
 #: 28b's limits against 17b's one-process steps on the same weights and
 #: batch: the largest relative gap of the first warmup + steps losses
 #: and of step 1's gradient sums of squares (experts, routers, the rest).
@@ -8601,6 +8630,356 @@ def model_parallel(seed: int, dev, card: str,
     return out
 
 
+# -- phase 30: the stages over the GBDT (ROADMAP A8) ---------------------------
+
+#: 30a's frame: bench.py's 28 columns (one column each), an 8-level
+#: string column and a string label; 30b's and 30c's rows
+P30_LEVELS = 8
+P30_ITERS = 10
+P30_TUNE_ROWS = 250_000
+P30_DML_ROWS = 250_000
+#: the card-against-CPU rows of 30a and 30c
+P30_SMALL = 20_000
+#: 30c's nuisance models: enough boosting that the residuals leave little
+#: of the confounding behind (the ATE's bias is the nuisance fits' error)
+P30_NUISANCE = dict(numIterations=40, learningRate=0.3)
+#: the nuisance models of 30c's card-against-CPU run: 10 iterations (40
+#: took 29.8 s on the CPU at one bootstrap iteration)
+P30_CHECK_NUISANCE = dict(P30_NUISANCE, numIterations=10)
+
+
+def a8_frame(rng, n: int, F: int = 28) -> dict:
+    """30a's columns: x0..x27 (bench.py's task), ``color`` (8 levels, two
+    of them in the label's score) and the label as "yes"/"no"."""
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    color = rng.integers(0, P30_LEVELS, n)
+    y = gbdt_labels(rng, X, extra=(color == 1) * 1.0 - (color == 5) * 1.0)
+    cols = {f"x{i}": X[:, i] for i in range(F)}
+    cols["color"] = [f"c{c}" for c in color]
+    cols["label"] = np.where(y > 0, "yes", "no").astype(object)
+    return cols
+
+
+class VerbTimes:
+    """The per-verb records the port's stages log (``core.logging``):
+    seconds summed by (class, verb) while the block is open."""
+
+    def __init__(self):
+        import logging
+
+        class _H(logging.Handler):
+            def emit(h, record):
+                try:
+                    d = json.loads(record.getMessage())
+                except (ValueError, TypeError):
+                    return
+                if "elapsedMs" in d:
+                    k = (d["className"], d["method"])
+                    self.s[k] = self.s.get(k, 0.0) + d["elapsedMs"] / 1e3
+        self.s = {}
+        self._h = _H()
+
+    def __enter__(self):
+        from synapseml_tpu_torch.core.logging import logger
+        self._level = logger.level
+        logger.setLevel("INFO")
+        logger.addHandler(self._h)
+        return self
+
+    def __exit__(self, *exc):
+        from synapseml_tpu_torch.core.logging import logger
+        logger.removeHandler(self._h)
+        logger.setLevel(self._level)
+
+    def get(self, cls: str, verb: str) -> float:
+        return self.s.get((cls, verb), 0.0)
+
+
+def a8_train(cols: dict, hold: dict, dev, iters: int):
+    """``TrainClassifier(GBDTClassifier)`` fit on ``cols``, then transform
+    and ``ComputeModelStatistics`` on ``hold``, the launch counts reset
+    just before the fit and read just after it.  → (readings, model)."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from synapseml_tpu_torch.ops import ComputeModelStatistics, TrainClassifier
+    ds, hds = Dataset(dict(cols)), Dataset(dict(hold))
+    with VerbTimes() as vt:
+        L.reset()
+        t0 = time.perf_counter()
+        model = TrainClassifier(model=GBDTClassifier(
+            numIterations=iters, device=dev.type), labelCol="label").fit(ds)
+        synchronize(dev)
+        fit_s = time.perf_counter() - t0
+        shapes = L.snapshot()
+        fit_verbs = dict(vt.s)
+        vt.s.clear()
+        t0 = time.perf_counter()
+        out = model.transform(hds)
+        transform_s = time.perf_counter() - t0
+        tr_verbs = dict(vt.s)
+    stats = ComputeModelStatistics(
+        labelCol="label", scoredLabelsCol="prediction",
+        scoresCol="probability", evaluationMetric="classification"
+    ).transform(out)
+    inner = model.innerModel
+    m = inner.training_measures
+    proba = np.stack(out["probability"])
+    if proba.shape != (len(hold["label"]), 2) or not np.all(
+            np.isfinite(proba)):
+        raise AssertionError(f"30a: transform gave {proba.shape} or "
+                             "non-finite probabilities")
+    if not set(out["prediction"]) <= {"yes", "no"}:
+        raise AssertionError("30a: predictions are not the label values")
+
+    def verbs(d, cls_verbs):
+        return sum(d.get(k, 0.0) for k in cls_verbs)
+    r = dict(
+        rows=len(cols["label"]), features=int(inner.booster.bin_mapper
+                                                .num_features),
+        fit_s=fit_s, transform_s=transform_s,
+        featurize_s=verbs(fit_verbs, [("Featurize", "fit"),
+                                      ("FeaturizeModel", "transform")]),
+        index_s=verbs(fit_verbs, [("ValueIndexer", "fit"),
+                                  ("ValueIndexerModel", "transform")]),
+        gbdt_fit_s=fit_verbs.get(("GBDTClassifier", "fit"), 0.0),
+        train_s=m.training_s, binning_s=m.binning_s,
+        s_per_iter=m.seconds_per_iteration(),
+        transform_featurize_s=tr_verbs.get(("FeaturizeModel", "transform"),
+                                           0.0),
+        transform_gbdt_s=tr_verbs.get(("GBDTClassificationModel",
+                                       "transform"), 0.0),
+        auc=float(stats["AUC"][0]), accuracy=float(stats["accuracy"][0]),
+        shapes=shapes)
+    return r, model
+
+
+def a8_tune(X, y, dev, parallelism: int, iters: int):
+    """30b: ``TuneHyperparameters`` over ``GBDTClassifier`` on the
+    2 x 2 grid at ``parallelism``, the launch counts reset just before
+    and read just after."""
+    from synapseml_tpu_torch.automl import (DiscreteHyperParam, GridSpace,
+                                            HyperparamBuilder,
+                                            TuneHyperparameters)
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    est = GBDTClassifier(numIterations=iters, device=dev.type)
+    space = GridSpace(HyperparamBuilder()
+                      .add_hyperparam(est, "numLeaves",
+                                      DiscreteHyperParam([15, 31]))
+                      .add_hyperparam(est, "learningRate",
+                                      DiscreteHyperParam([0.1, 0.2]))
+                      .build())
+    ds = Dataset({"features": list(X), "label": y})
+    L.reset()
+    t0 = time.perf_counter()
+    m = TuneHyperparameters(models=[est], paramSpace=space,
+                            parallelism=parallelism,
+                            evaluationMetric="AUC").fit(ds)
+    synchronize(dev)
+    return dict(wall_s=time.perf_counter() - t0,
+                all_metrics=m.get("allMetrics"),
+                best_params=m.get("bestParams"),
+                best_metric=m.get("bestMetric"), shapes=L.snapshot())
+
+
+def a8_causal_rows(rng, n: int, F: int = 28, heterogeneous: bool = False):
+    """30c's rows: ``F`` confounders, a binary treatment whose propensity
+    depends on x0, and an outcome with the effect 2.0 (heterogeneous:
+    1.5 where x1 <= 0 and 3.0 above)."""
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    t = (rng.random(n) < 1 / (1 + np.exp(-X[:, 0]))).astype(np.float32)
+    tau = np.where(X[:, 1] > 0, 3.0, 1.5) if heterogeneous else 2.0
+    yv = (tau * t + 1.5 * X[:, 0] - X[:, 2] + X[:, 3] * X[:, 4]
+          + rng.normal(0, 0.5, n)).astype(np.float32)
+    return {"features": list(X), "treatment": t, "outcome": yv}
+
+
+def a8_nuisance(dev, nuisance=None):
+    """30c's (treatment, outcome) nuisance models on ``dev``
+    (``nuisance``: their params, default :data:`P30_NUISANCE`)."""
+    from synapseml_tpu_torch.models.gbdt.estimators import (GBDTClassifier,
+                                                            GBDTRegressor)
+    kw = nuisance or P30_NUISANCE
+    return (GBDTClassifier(device=dev.type, **kw),
+            GBDTRegressor(device=dev.type, **kw))
+
+
+def a8_dml(cols, dev, max_iter: int = 2, seed: int = 0, nuisance=None):
+    from synapseml_tpu_torch.causal import DoubleMLEstimator
+    from synapseml_tpu_torch.core import Dataset
+    tm, om = a8_nuisance(dev, nuisance)
+    return DoubleMLEstimator(
+        treatmentModel=tm, outcomeModel=om, treatmentCol="treatment", outcomeCol="outcome", maxIter=max_iter,
+        seed=seed).fit(Dataset(dict(cols)))
+
+
+def a8_forest(cols, dev, seed: int = 0, forest=None):
+    """``OrthoForestDMLEstimator`` with GBDT nuisance models and its
+    default forest (on the card), or ``forest``."""
+    from synapseml_tpu_torch.causal import OrthoForestDMLEstimator
+    from synapseml_tpu_torch.core import Dataset
+    tm, om = a8_nuisance(dev)
+    kw = {} if forest is None else {"heterogeneityModel": forest}
+    return OrthoForestDMLEstimator(
+        treatmentModel=tm, outcomeModel=om, treatmentCol="treatment", outcomeCol="outcome", seed=seed,
+        **kw).fit(Dataset(dict(cols)))
+
+
+def a8_stages(seed: int, dev, card: str, check_path, rows: int = 1_000_000,
+              hold: int = 100_000, tune_rows: int = P30_TUNE_ROWS,
+              dml_rows: int = P30_DML_ROWS, small: int = P30_SMALL,
+              iters: int = P30_ITERS, auc_floor: float = 0.8,
+              forest_cpu: bool = False) -> dict:
+    """Phase 30: the JAX-free stages over the GBDT on ``dev``.  (a)
+    ``TrainClassifier`` → ``ComputeModelStatistics`` at ``rows`` (run
+    ``phase30a``), and the same stage at ``small`` rows on ``dev`` and on
+    the CPU: equal trees (``split_digest``), margins within 1e-6, equal
+    labels.  (b) ``TuneHyperparameters`` at parallelism 1 and 4 (runs
+    ``phase30b_p1``, ``phase30b_p4``): equal results and equal launch
+    counts by shape.  (c) ``DoubleMLEstimator(maxIter=2)`` on a binary
+    treatment with ATE 2.0 and ``OrthoForestDMLEstimator``'s default
+    forest on a heterogeneous effect (run ``phase30c``), and DML (nuisance
+    fits of 10 iterations) at ``small`` rows on ``dev`` and on the CPU:
+    raw effects within 1e-6.
+    ``forest_cpu``: the forest on the CPU (its default device is the
+    card; a small run on the CPU).  Raises on a failed check, after
+    printing every reading."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.kernels import launches as L
+    rng = np.random.default_rng(seed + 30)
+    out, fails = {}, []
+    marks = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        marks.append(time.perf_counter())
+        out.setdefault("walls", {})[name] = marks[-1] - marks[-2]
+
+    # (a) TrainClassifier at full width
+    cols, hcols = a8_frame(rng, rows), a8_frame(rng, hold)
+    a, _ = a8_train(cols, hcols, dev, iters)
+    check_path("phase30a", a)
+    out["a"] = a
+    log(f"phase 30a: TrainClassifier(GBDTClassifier(numIterations={iters}))"
+        f" on {rows} x 28 numeric + 1 string column (8 levels), string "
+        f"label, holdout {hold} | {card}: featurize {a['featurize_s']:.2f} "
+        f"s, label index {a['index_s']:.2f} s, GBDT fit {a['gbdt_fit_s']:.2f}"
+        f" s ({a['s_per_iter']:.4f} s/iteration, binning "
+        f"{a['binning_s']:.2f} s), stage fit {a['fit_s']:.2f} s; transform "
+        f"{a['transform_s']:.2f} s (featurize {a['transform_featurize_s']:.2f}"
+        f", GBDT {a['transform_gbdt_s']:.2f}); ComputeModelStatistics AUC "
+        f"{a['auc']:.4f}, accuracy {a['accuracy']:.4f}; launches "
+        f"{json.dumps(a['shapes'])}")
+    if a["auc"] <= auc_floor:
+        fails.append(f"30a: holdout AUC {a['auc']}")
+    del cols
+    small_cols = {k: v[:small] for k, v in a8_frame(
+        np.random.default_rng(seed + 301), small).items()}
+    h_small = {k: v[:4096] for k, v in hcols.items()}
+    fits = {}
+    t0 = time.perf_counter()
+    for d in (dev, torch.device("cpu")):
+        _, fits[d.type] = a8_train(small_cols, h_small, d, iters)
+    bc, bp = (fits[dev.type].innerModel.booster,
+              fits["cpu"].innerModel.booster)
+    oc = fits[dev.type].transform(Dataset(dict(h_small)))
+    op = fits["cpu"].transform(Dataset(dict(h_small)))
+    diff = float(np.abs(np.stack(oc["rawPrediction"])
+                        - np.stack(op["rawPrediction"])).max())
+    same = split_digest(bc) == split_digest(bp)
+    labels = list(oc["prediction"]) == list(op["prediction"])
+    out["a_card_vs_cpu"] = dict(rows=small, same_trees=same,
+                                margin_diff=diff, labels_equal=labels,
+                                seconds=time.perf_counter() - t0)
+    log(f"phase 30a: card vs CPU at {small} rows: "
+        f"{json.dumps(out['a_card_vs_cpu'])}")
+    if not (same and labels and diff <= 1e-6):
+        fails.append(f"30a card vs CPU: {out['a_card_vs_cpu']}")
+    del hcols
+    part("a")
+
+    # (b) the tuner at parallelism 1 and 4
+    X = rng.normal(size=(tune_rows, 28)).astype(np.float32)
+    y = gbdt_labels(rng, X)
+    b = {p: a8_tune(X, y, dev, p, iters) for p in (1, 4)}
+    for p in (1, 4):
+        check_path(f"phase30b_p{p}", b[p])
+    out["b"] = b
+    keys = ("all_metrics", "best_params", "best_metric")
+    log(f"phase 30b: TuneHyperparameters over GBDTClassifier(numIterations="
+        f"{iters}), numLeaves {{15, 31}} x learningRate {{0.1, 0.2}}, AUC, "
+        f"{tune_rows} rows (75% fit) | {card}: parallelism 1 wall "
+        f"{b[1]['wall_s']:.2f} s, parallelism 4 wall {b[4]['wall_s']:.2f} s"
+        f"; results {json.dumps({k: b[1][k] for k in keys})}; launches "
+        f"{json.dumps(b[1]['shapes'])}")
+    if any(b[1][k] != b[4][k] for k in keys):
+        fails.append(f"30b: parallelism 4 gave "
+                     f"{ {k: b[4][k] for k in keys} }")
+    if b[1]["shapes"] != b[4]["shapes"]:
+        fails.append(f"30b: launches at parallelism 4 {b[4]['shapes']} "
+                     f"against {b[1]['shapes']}")
+    del X, y
+    part("b")
+
+    # (c) double ML and the orthogonal forest
+    crng = np.random.default_rng(seed + 302)
+    dml_cols = a8_causal_rows(crng, dml_rows)
+    het_cols = a8_causal_rows(crng, dml_rows, heterogeneous=True)
+    forest = None
+    if forest_cpu:
+        from synapseml_tpu_torch.models.gbdt.estimators import GBDTRegressor
+        forest = GBDTRegressor(boostingType="rf", numIterations=32,
+                               maxDepth=4, device="cpu")
+    L.reset()
+    t0 = time.perf_counter()
+    dml = a8_dml(dml_cols, dev)
+    dml_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ortho = a8_forest(het_cols, dev, forest=forest)
+    eff = ortho.transform(Dataset(dict(het_cols)))["treatmentEffect"]
+    synchronize(dev)
+    forest_s = time.perf_counter() - t0
+    c = dict(shapes=L.snapshot(), dml_s=dml_s, forest_s=forest_s)
+    check_path("phase30c", c)
+    ate = dml.get_avg_treatment_effect()
+    lo, hi = dml.get_confidence_interval()
+    x1 = np.stack(het_cols["features"])[:, 1]
+    hi_eff, lo_eff = float(eff[x1 > 0].mean()), float(eff[x1 <= 0].mean())
+    c.update(ate=ate, ci=[lo, hi], effects=dml.get("rawTreatmentEffects"),
+             group_effects={"x1>0": hi_eff, "x1<=0": lo_eff})
+    s_cols = {k: v[:small] for k, v in dml_cols.items()}
+    t0 = time.perf_counter()
+    raw = {d.type: a8_dml(s_cols, d, nuisance=P30_CHECK_NUISANCE).get(
+        "rawTreatmentEffects") for d in (dev, torch.device("cpu"))}
+    c["card_vs_cpu"] = dict(rows=small, nuisance=P30_CHECK_NUISANCE,
+                            effects=raw,
+                            diff=float(np.max(np.abs(np.subtract(
+                                raw[dev.type], raw["cpu"])))),
+                            seconds=time.perf_counter() - t0)
+    out["c"] = c
+    log(f"phase 30c: DoubleMLEstimator(maxIter=2) with GBDTClassifier "
+        f"treatment and GBDTRegressor outcome models "
+        f"({json.dumps(P30_NUISANCE)}) "
+        f"on {dml_rows} rows, ATE 2.0 | {card}: ATE {ate:.4f}, CI "
+        f"[{lo:.4f}, {hi:.4f}], {dml_s:.2f} s; OrthoForestDMLEstimator's "
+        f"default forest on an effect of 1.5 (x1 <= 0) and 3.0 (x1 > 0): "
+        f"group means {json.dumps(c['group_effects'])}, {forest_s:.2f} s; "
+        f"card vs CPU at {small} rows {json.dumps(c['card_vs_cpu'])}; "
+        f"launches {json.dumps(c['shapes'])}")
+    if not (abs(ate - 2.0) <= 0.1 and lo <= ate <= hi):
+        fails.append(f"30c: ATE {ate}, CI {lo, hi}")
+    if not hi_eff > lo_eff + 0.3:
+        fails.append(f"30c: group effects {c['group_effects']}")
+    if c["card_vs_cpu"]["diff"] > 1e-6:
+        fails.append(f"30c card vs CPU: {c['card_vs_cpu']}")
+    part("c")
+    log(f"phase 30 parts' walls {json.dumps(out['walls'])}")
+    if fails:
+        raise AssertionError("phase 30: " + "; ".join(fails))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8671,6 +9050,12 @@ def main(argv=None) -> int:
                     for x in (("", "28", "_dplg") if k == "vote" else ("",)))
            for k in ("featpar", "vote", "ranker")}
     mono = ("monotone basic", "monotone intermediate", "monotone advanced")
+    # phase 30's runs: 30a's TrainClassifier fit (two-level at 1M rows over
+    # the featurized 28 + 8 one-hot columns), 30b's tuner at parallelism 1
+    # and 4 (~187,500 rows: two-level off) and 30c's DML and forest fits
+    # (125,000-250,000 rows: two-level off)
+    p30b = ("phase30b_p1", "phase30b_p4")
+    p30_full = p30b + ("phase30c",)
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
          ("maxBin=63",)),
@@ -8680,7 +9065,7 @@ def main(argv=None) -> int:
         ("route_and_hist", dict(F=F, B=256, shift=3, K=K, S=S), two_level),
         # the two-level fine build: K of the F rows, by id
         ("build_hist_nodes", dict(F=F, B=256, shift=0, S=1, K=K),
-         two_level + ("lossguide", "categorical")),
+         two_level + ("lossguide", "categorical", "phase30a")),
         # lossguide's per-split coarse build: all F rows at one slot over
         # a left child's rows
         ("build_hist_nodes", dict(F=F, B=256, shift=3, S=1), ("lossguide",)),
@@ -8714,8 +9099,18 @@ def main(argv=None) -> int:
          ("unbundled depthwise",)),
         ("route_and_hist", dict(F=FO, B=256, shift=0, K=0, S=1),
          ("unbundled depthwise",)),
-        ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=S), mono),
-        ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=1), mono),
+        ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=S),
+         mono + p30_full),
+        ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=1),
+         mono + p30_full),
+        # phase 30a's waves and roots over 28 + 8 featurized columns, and
+        # 30b's numLeaves=15 trials (14 slots a wave)
+        ("route_and_hist", dict(F=F + P30_LEVELS, B=256, shift=3, K=K, S=S),
+         ("phase30a",)),
+        ("route_and_hist", dict(F=F + P30_LEVELS, B=256, shift=3, K=0, S=1),
+         ("phase30a",)),
+        ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=14,
+                                N=P30_TUNE_ROWS * 3 // 4), p30b),
         ("build_hist_nodes", dict(F=FB, B=256, shift=0, S=1),
          ("EFB lossguide",)),
         ("build_hist_nodes", dict(F=FO, B=256, shift=0, S=1),
@@ -9334,6 +9729,12 @@ def main(argv=None) -> int:
     if L.BY_SHAPE:
         raise AssertionError(f"phase 29 launched {dict(L.BY_SHAPE)}")
     wall("29")
+
+    # -- 30. the stages over the GBDT -----------------------------------------
+    torch.cuda.empty_cache()
+    a8_stages(args.seed, dev, card, lambda n, r: check_path(n, r, True),
+              rows=N)
+    wall("30")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

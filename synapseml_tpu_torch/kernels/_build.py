@@ -14,6 +14,15 @@ cache), so a relaunched rank loads the library an earlier rank built.
 Each library is reported once a process to the listeners
 (:func:`add_build_listener`): ``("hit", name, 0.0)`` when it was found
 in the directory, ``("miss", name, seconds)`` when ``nvcc`` built it.
+
+Threads share one build: :func:`build_all` runs under a process-wide
+lock, so threads that reach a cold library together start one ``nvcc``
+and all load what it published, and :func:`loaded_once` (which
+:func:`load_library` and the wrappers' library loaders use) runs a
+loader at most once a process under the same lock.  The temporary file
+an ``nvcc`` writes carries the process and the thread, and is published
+with an atomic rename, so processes that share the directory never see
+a torn library.
 """
 
 from __future__ import annotations
@@ -24,9 +33,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 REPO_ROOT = _PKG.parent
@@ -38,6 +48,9 @@ _build_dir: Optional[Path] = None
 _listeners: List[Callable[[str, str, float], None]] = []
 #: library paths already reported in this process
 _reported: set = set()
+#: held by every build and every first load: re-entrant, since a loader
+#: (:func:`loaded_once`) calls :func:`build_all` inside it
+_LOCK = threading.RLock()
 
 
 def build_dir() -> Path:
@@ -139,8 +152,13 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Build the named libraries (all by default), one ``nvcc`` each, all
     started together.  → ``{name: {"path", "seconds", "log", "cached"}}``;
     raises ``RuntimeError`` with the compiler's output if any build
-    fails."""
-    names = list(SOURCES) if names is None else list(names)
+    fails.  Runs under the build lock: a library another thread is
+    building is found built once the lock is free."""
+    with _LOCK:
+        return _build_all(list(SOURCES) if names is None else list(names))
+
+
+def _build_all(names: List[str]) -> Dict[str, dict]:
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     out: Dict[str, dict] = {}
@@ -152,7 +170,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                          "cached": True}
             _report("hit", name, str(lib), 0.0)
             continue
-        tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
+        tmp = lib.with_name(
+            f"{lib.name}.tmp{os.getpid()}.{threading.get_ident()}")
         cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -172,7 +191,34 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+def loaded_once(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """``fn(*args)`` computed at most once a process for each ``args``,
+    the first call under the build lock (``functools.lru_cache`` lets
+    concurrent first calls all run ``fn``); later calls read the memo
+    without the lock.  ``cache_info().currsize`` counts the memo's
+    entries."""
+    memo: Dict[tuple, Any] = {}
+
+    @functools.wraps(fn)
+    def once(*args):
+        try:
+            return memo[args]
+        except KeyError:
+            pass
+        with _LOCK:
+            if args not in memo:
+                memo[args] = fn(*args)
+            return memo[args]
+
+    def cache_info():
+        n = len(memo)
+        return functools._CacheInfo(0, n, None, n)
+
+    once.cache_info = cache_info
+    return once
+
+
+@loaded_once
 def load_library(name: str) -> ctypes.CDLL:
     """The named kernel library, built first if needed."""
     return ctypes.CDLL(build_all([name])[name]["path"])

@@ -10,7 +10,9 @@ A kernel recorded into a CUDA graph launches when the graph replays, not
 when the wrapper runs: inside :func:`recording` the wrapper's counts go
 to the recording instead, and each replay adds them with :func:`add`.
 A recording holds the counts of its own thread only: another thread's
-launches meanwhile go to :data:`BY_SHAPE`.
+launches meanwhile go to :data:`BY_SHAPE`.  Every update and read of
+:data:`BY_SHAPE` here holds one lock, so the launches of wrappers that
+run on several threads at once (the tuner's trials) are all counted.
 
 Beside its count, every wrapper reports the bytes its launch reads and
 writes (:func:`io_bytes`: each operand and result once).  The
@@ -28,6 +30,8 @@ from typing import Dict, Iterator
 
 #: launches since the last :func:`reset`, keyed by :func:`launch_key`
 BY_SHAPE: Dict[str, int] = {}
+#: guards every read-modify-write of BY_SHAPE
+_LOCK = threading.Lock()
 #: ``.sink``: the callable ``sink(kernel, nbytes)`` this thread's
 #: :func:`io_bytes` reports go to (absent or None: nowhere)
 _BYTES = threading.local()
@@ -45,9 +49,11 @@ def launch_key(kernel: str, **dims) -> str:
 def count(kernel: str, **dims) -> None:
     key = launch_key(kernel, **dims)
     into = getattr(_RECORDING, "into", None)
-    if into is None:
-        into = BY_SHAPE
-    into[key] = into.get(key, 0) + 1
+    if into is not None:            # this thread's own recording
+        into[key] = into.get(key, 0) + 1
+        return
+    with _LOCK:
+        BY_SHAPE[key] = BY_SHAPE.get(key, 0) + 1
 
 
 @contextlib.contextmanager
@@ -64,8 +70,9 @@ def recording() -> Iterator[Dict[str, int]]:
 
 def add(counts: Dict[str, int]) -> None:
     """Count the launches of one replay of a recorded graph."""
-    for key, n in counts.items():
-        BY_SHAPE[key] = BY_SHAPE.get(key, 0) + n
+    with _LOCK:
+        for key, n in counts.items():
+            BY_SHAPE[key] = BY_SHAPE.get(key, 0) + n
 
 
 def io_bytes(kernel: str, *parts) -> None:
@@ -98,13 +105,21 @@ def reporting_bytes(sink) -> Iterator[None]:
 
 
 def reset() -> None:
-    BY_SHAPE.clear()
+    with _LOCK:
+        BY_SHAPE.clear()
+
+
+def snapshot() -> Dict[str, int]:
+    """A copy of :data:`BY_SHAPE`, taken under the lock."""
+    with _LOCK:
+        return dict(BY_SHAPE)
 
 
 def shapes(kernel: str) -> Dict[str, int]:
     """The launches of ``kernel`` since the last :func:`reset`, by shape."""
     pre = kernel + "["
-    return {k: n for k, n in BY_SHAPE.items() if k.startswith(pre)}
+    with _LOCK:
+        return {k: n for k, n in BY_SHAPE.items() if k.startswith(pre)}
 
 
 def total(kernel: str) -> int:

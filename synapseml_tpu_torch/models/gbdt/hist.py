@@ -46,7 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ...kernels import launches
-from ...kernels._build import DEFINES
+from ...kernels._build import DEFINES, load_library, loaded_once
 
 #: value channels per row (and output lanes per slot)
 SLOT_LANES = 8
@@ -409,9 +409,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
-@functools.lru_cache(maxsize=None)
+@loaded_once
 def _kernels() -> ctypes.CDLL:
-    from ...kernels._build import load_library
     lib = load_library("gbdt_hist")
     lib.sml_route_rows.argtypes = [_LL, _I, _P, _P, _P, _P, _P, _P, _P, _P]
     lib.sml_hist_nodes.argtypes = [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _I,

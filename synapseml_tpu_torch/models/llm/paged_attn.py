@@ -34,14 +34,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ...kernels import launches
-from ...kernels._build import DEFINES
+from ...kernels._build import DEFINES, load_library, loaded_once
 
 #: VMEM budget of the reference's TPU kernel working set; the geometry
 #: gate below is kept identical so the byte ledger prices the same tile
@@ -313,9 +312,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
-@functools.lru_cache(maxsize=None)
+@loaded_once
 def _kernels() -> ctypes.CDLL:
-    from ...kernels._build import load_library
     lib = load_library("paged_attn")
     lib.sml_paged_decode_attention.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _P]

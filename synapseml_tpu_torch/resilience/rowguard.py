@@ -68,7 +68,6 @@ import numpy as np
 from ..core.dataset import Dataset
 from ..core.logging import logger
 from ..core.params import Params, StringParam
-from ..io.colstore import read_matrix, write_matrix
 from ..telemetry import get_registry, read_json, write_json
 from ..telemetry.flight import record as _flight
 from .faults import PreemptionError, get_faults
@@ -336,6 +335,7 @@ class Quarantine:
                     if rows[c].dtype == np.float32]
         pkl_cols = [c for c in rows.columns if c not in col_cols]
         if col_cols:
+            from ..io.colstore import write_matrix
             write_matrix(os.path.join(tmp, "rows.smlc"),
                          np.column_stack([rows[c] for c in col_cols]))
         if pkl_cols:
@@ -395,6 +395,7 @@ class Quarantine:
                          schema=_SIDECAR_SCHEMA)
         cols: Dict[str, Any] = {}
         if meta["colstore_columns"]:
+            from ..io.colstore import read_matrix
             mat = read_matrix(os.path.join(batch_dir, "rows.smlc"))
             for i, c in enumerate(meta["colstore_columns"]):
                 cols[c] = mat[:, i].copy()

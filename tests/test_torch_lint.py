@@ -241,3 +241,15 @@ def test_launch_counts_are_one_registry():
     for mod in ("models/gbdt/hist.py", "models/llm/paged_attn.py"):
         src = (Path(launches.__file__).parent.parent / mod).read_text()
         assert "launches.count(" in src and "LAUNCHES" not in src
+
+
+def test_lint_covers_the_a8_stages():
+    """The JAX-free stages over the GBDT (ROADMAP A8) are among the files
+    both lint tests walk."""
+    mods = _modules()
+    for m in ("core.utils", "ops.featurize", "ops.train", "ops.stages",
+              "ops.text", "ops.batchers", "automl.space", "automl.tune",
+              "causal.dml", "exploratory.balance", "io.binary", "io.image",
+              "io.http", "io.port_forward", "plot", "ops", "automl",
+              "causal", "exploratory"):
+        assert f"synapseml_tpu_torch.{m}" in mods, m
