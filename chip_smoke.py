@@ -540,11 +540,11 @@
     parallelism 1 and 4 in this process (runs ``phase30b_p1``,
     ``phase30b_p4``): equal ``allMetrics``, ``bestParams``,
     ``bestMetric`` and launch counts by shape; both walls.  (c)
-    ``DoubleMLEstimator(maxIter=2)`` with GBDT nuisance models on 250,000
+    ``DoubleMLEstimator(maxIter=2)`` with GBDT nuisance models on 125,000
     rows, a binary treatment and an ATE of 2.0: within 0.1 and inside
     its interval; ``OrthoForestDMLEstimator``'s default forest (on the
     card) on an effect of 1.5 (x1 <= 0) and 3.0 (x1 > 0): the groups'
-    mean effects ordered (run ``phase30c``); DML at 20,000 rows on the
+    mean effects ordered (run ``phase30c``); DML at 5,000 rows on the
     card and on the CPU (nuisance fits of 10 iterations): raw effects
     within 1e-6.  Every shape the runs
     launch is one phase 2 held against the plain version.  Small on the
@@ -552,6 +552,26 @@
     rows=20000, hold=4000, tune_rows=20000, dml_rows=20000, small=3000,
     forest_cpu=True, auc_floor=0.7)`` (~2 min; its 30c ATE check needs
     the full rows).
+31. The clients beside the card (``services``, ``io.powerbi``,
+    ``downloader``; ``clients_beside_the_card``), against a recording
+    HTTP server the phase starts on 127.0.0.1 (no network).  (a)
+    ``OpenAIEmbedding`` over 2,048 short texts at concurrency 8, the mock
+    answering each with a 1,536-wide vector (ada-002's width) drawn from
+    the seed and a hash of the text: the vectors must be the mock's; then
+    ``KNN(k=10)`` fit/transform on the card and on the CPU: equal
+    neighbour ids; the stage's records/s and the KNN's walls.  (b)
+    ``ModelDownloader`` fetches a manifest and ``onnx_small_cnn(seed)``'s
+    bytes, checks the sha256 and refuses a tampered copy; ``ONNXModel``
+    runs the download on the card and on the CPU within phase 21a's f32
+    limit (1e-5 over scale).  (c) ``GBDTClassifier(numIterations=iters)``
+    fits on the card over 100,000 rows of bench.py's 28 columns (run
+    ``phase31``: K2's launches, strict), and ``PowerBIWriter`` posts the
+    predictions in batches of 1,000: the sink holds every row once, with
+    equal values; its rows/s.  (d) ``TextSentiment`` and
+    ``SimpleDetectAnomalies`` with an injected 503 (retried at zero
+    delay) and a 400 (``"400 Bad Request"`` in ``errors``).  Small on
+    the CPU: ``clients_beside_the_card(0, torch.device("cpu"), "cpu", 2,
+    lambda n, r: None, root)`` with smaller ``P31_*`` values.
 
 Every phase's wall is printed on its own line, and their sum at the
 end.
@@ -8637,9 +8657,13 @@ def model_parallel(seed: int, dev, card: str,
 P30_LEVELS = 8
 P30_ITERS = 10
 P30_TUNE_ROWS = 250_000
-P30_DML_ROWS = 250_000
-#: the card-against-CPU rows of 30a and 30c
+#: 30c's rows: 125,000 (at 250,000 DML took 21.0 s and the forest 12.5 s
+#: of a 1,146 s run, ROADMAP A0.9)
+P30_DML_ROWS = 125_000
+#: the card-against-CPU rows of 30a, and of 30c's DML (at 20,000 the
+#: latter took 22.1 s, most of it the CPU's nuisance fits)
 P30_SMALL = 20_000
+P30_DML_SMALL = 5_000
 #: 30c's nuisance models: enough boosting that the residuals leave little
 #: of the confounding behind (the ATE's bias is the nuisance fits' error)
 P30_NUISANCE = dict(numIterations=40, learningRate=0.3)
@@ -8830,8 +8854,8 @@ def a8_forest(cols, dev, seed: int = 0, forest=None):
 def a8_stages(seed: int, dev, card: str, check_path, rows: int = 1_000_000,
               hold: int = 100_000, tune_rows: int = P30_TUNE_ROWS,
               dml_rows: int = P30_DML_ROWS, small: int = P30_SMALL,
-              iters: int = P30_ITERS, auc_floor: float = 0.8,
-              forest_cpu: bool = False) -> dict:
+              dml_small: int = P30_DML_SMALL, iters: int = P30_ITERS,
+              auc_floor: float = 0.8, forest_cpu: bool = False) -> dict:
     """Phase 30: the JAX-free stages over the GBDT on ``dev``.  (a)
     ``TrainClassifier`` → ``ComputeModelStatistics`` at ``rows`` (run
     ``phase30a``), and the same stage at ``small`` rows on ``dev`` and on
@@ -8841,8 +8865,8 @@ def a8_stages(seed: int, dev, card: str, check_path, rows: int = 1_000_000,
     counts by shape.  (c) ``DoubleMLEstimator(maxIter=2)`` on a binary
     treatment with ATE 2.0 and ``OrthoForestDMLEstimator``'s default
     forest on a heterogeneous effect (run ``phase30c``), and DML (nuisance
-    fits of 10 iterations) at ``small`` rows on ``dev`` and on the CPU:
-    raw effects within 1e-6.
+    fits of 10 iterations) at ``dml_small`` rows on ``dev`` and on the
+    CPU: raw effects within 1e-6.
     ``forest_cpu``: the forest on the CPU (its default device is the
     card; a small run on the CPU).  Raises on a failed check, after
     printing every reading."""
@@ -8948,11 +8972,11 @@ def a8_stages(seed: int, dev, card: str, check_path, rows: int = 1_000_000,
     hi_eff, lo_eff = float(eff[x1 > 0].mean()), float(eff[x1 <= 0].mean())
     c.update(ate=ate, ci=[lo, hi], effects=dml.get("rawTreatmentEffects"),
              group_effects={"x1>0": hi_eff, "x1<=0": lo_eff})
-    s_cols = {k: v[:small] for k, v in dml_cols.items()}
+    s_cols = {k: v[:dml_small] for k, v in dml_cols.items()}
     t0 = time.perf_counter()
     raw = {d.type: a8_dml(s_cols, d, nuisance=P30_CHECK_NUISANCE).get(
         "rawTreatmentEffects") for d in (dev, torch.device("cpu"))}
-    c["card_vs_cpu"] = dict(rows=small, nuisance=P30_CHECK_NUISANCE,
+    c["card_vs_cpu"] = dict(rows=dml_small, nuisance=P30_CHECK_NUISANCE,
                             effects=raw,
                             diff=float(np.max(np.abs(np.subtract(
                                 raw[dev.type], raw["cpu"])))),
@@ -8965,7 +8989,7 @@ def a8_stages(seed: int, dev, card: str, check_path, rows: int = 1_000_000,
         f"[{lo:.4f}, {hi:.4f}], {dml_s:.2f} s; OrthoForestDMLEstimator's "
         f"default forest on an effect of 1.5 (x1 <= 0) and 3.0 (x1 > 0): "
         f"group means {json.dumps(c['group_effects'])}, {forest_s:.2f} s; "
-        f"card vs CPU at {small} rows {json.dumps(c['card_vs_cpu'])}; "
+        f"card vs CPU at {dml_small} rows {json.dumps(c['card_vs_cpu'])}; "
         f"launches {json.dumps(c['shapes'])}")
     if not (abs(ate - 2.0) <= 0.1 and lo <= ate <= hi):
         fails.append(f"30c: ATE {ate}, CI {lo, hi}")
@@ -8977,6 +9001,381 @@ def a8_stages(seed: int, dev, card: str, check_path, rows: int = 1_000_000,
     log(f"phase 30 parts' walls {json.dumps(out['walls'])}")
     if fails:
         raise AssertionError("phase 30: " + "; ".join(fails))
+    return out
+
+
+# -- phase 31: the clients beside the card (ROADMAP A9) -----------------------
+
+#: 31a: texts embedded through the mock at the width of OpenAI's ada-002,
+#: at 8 requests in flight; the KNN's neighbours
+P31_TEXTS, P31_EMBED_DIM, P31_CONCURRENCY, P31_K = 2048, 1536, 8, 10
+#: 31c: the GBDT fit's rows (bench.py's 28 columns) and the sink's batch
+P31_ROWS, P31_BATCH = 100_000, 1000
+#: 31d: rows of the sentiment and anomaly legs
+P31_SENTIMENT_ROWS, P31_GROUPS, P31_GROUP_ROWS = 64, 8, 16
+#: where 31b's downloader keeps its cache; the phase removes it
+P31_ROOT = os.path.join(os.path.dirname(CKPT_ROOT), "phase31")
+
+
+def p31_embedding(text: str, seed: int) -> list:
+    """The mock's embedding of ``text``: normal draws from a generator
+    seeded by ``seed`` and a hash of the text, rounded to 6 decimals (the
+    JSON the mock sends).  A text that starts ``topic <t>`` lies at half
+    that scale around topic t's center (drawn from ``seed`` and t), as
+    texts on one subject do: with ``P31_K`` texts a topic, each text's
+    k nearest are its topic's, far nearer than any other, so which ids
+    win does not hang on the last bits of the two devices' distances."""
+    import hashlib
+    h = int.from_bytes(hashlib.sha256(text.encode()).digest()[:8], "little")
+    v = np.random.default_rng([seed, h]).normal(size=P31_EMBED_DIM)
+    words = text.split()
+    if words[0] == "topic":
+        v = 0.5 * v + np.random.default_rng(
+            [seed, int(words[1])]).normal(size=P31_EMBED_DIM)
+    return np.round(v, 6).tolist()
+
+
+class P31Server:
+    """A local HTTP server on 127.0.0.1 (port 0, its own threads) that
+    answers phase 31's clients: ``/embeddings`` (an OpenAI embedding
+    per text), ``/models/<file>`` (the downloader's manifest and model),
+    ``/push`` (the PowerBI sink: every posted row is kept), ``/sentiment``
+    and ``/anomaly`` (the text-analytics and anomaly shapes).  A text or
+    series whose first timestamp holds ``flaky`` is answered 503 once and
+    then served; one holding ``reject`` is answered 400.  Counts every
+    request by path."""
+
+    def __init__(self, seed: int, files: dict):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import urlparse
+        self.seed, self.files = seed, files
+        self.rows, self.counts, self.seen = [], {}, set()
+        self.lock = threading.Lock()
+        outer = self
+
+        class H(BaseHTTPRequestHandler):
+            # headers and body leave in separate writes: without this,
+            # Nagle holds the body until the client's delayed ACK (~40 ms
+            # a request)
+            disable_nagle_algorithm = True
+
+            def log_message(self, *a):
+                pass
+
+            def reply(self, data: bytes, status: int = 200):
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                path = urlparse(self.path).path
+                outer.count(path)
+                data = outer.files.get(path.rsplit("/", 1)[-1])
+                if data is None:
+                    self.send_error(404)
+                else:
+                    self.reply(data)
+
+            def do_POST(self):
+                path = urlparse(self.path).path
+                outer.count(path)
+                n = int(self.headers.get("Content-Length", 0) or 0)
+                body = json.loads(self.rfile.read(n))
+                if path == "/embeddings":
+                    self.reply(json.dumps({"data": [{"embedding":
+                        p31_embedding(body["input"], outer.seed)}]})
+                        .encode())
+                elif path == "/push":
+                    with outer.lock:
+                        outer.rows.extend(body)
+                    self.reply(b"")
+                elif path in ("/sentiment", "/anomaly"):
+                    key = (body["documents"][0]["text"]
+                           if path == "/sentiment"
+                           else body["series"][0]["timestamp"])
+                    status = outer.injected(key)
+                    if status:
+                        self.send_error(status)
+                    elif path == "/sentiment":
+                        self.reply(json.dumps({"documents": [{
+                            "id": "0", "sentiment": "positive" if "good"
+                            in key else "negative"}]}).encode())
+                    else:
+                        self.reply(json.dumps({"isAnomaly": [
+                            p["value"] > 50 for p in body["series"]]})
+                            .encode())
+                else:
+                    self.send_error(404)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.httpd.daemon_threads = True
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def count(self, path: str) -> None:
+        with self.lock:
+            self.counts[path] = self.counts.get(path, 0) + 1
+
+    def injected(self, key: str):
+        """503 on a ``flaky`` key's first request, 400 on ``reject``."""
+        if "reject" in key:
+            return 400
+        with self.lock:
+            if "flaky" in key and key not in self.seen:
+                self.seen.add(key)
+                return 503
+        return None
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def p31_embed_knn(srv, seed: int, dev) -> dict:
+    """31a: ``OpenAIEmbedding`` over ``P31_TEXTS`` texts, ``P31_K`` a
+    topic, at concurrency 8 (the vectors must be the mock's), then
+    ``KNN(k=10)`` fit/transform on ``dev`` and on the CPU: equal
+    neighbour ids, each text its own nearest."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.nn import KNN
+    from synapseml_tpu_torch.resilience import RetryPolicy
+    from synapseml_tpu_torch.services import OpenAIEmbedding
+    rng = np.random.default_rng(seed + 31)
+    texts = np.array([f"topic {i // P31_K} ticket {i}: " + " ".join(
+        f"w{w}" for w in rng.integers(0, 5000, 12))
+        for i in range(P31_TEXTS)])
+    t0 = time.perf_counter()
+    emb = OpenAIEmbedding(url=srv.url + "/embeddings", model="ada-002",
+                          concurrency=P31_CONCURRENCY,
+                          retryPolicy=RetryPolicy(max_retries=2, base_s=0.0)
+                          ).transform(Dataset({"text": texts}))
+    embed_s = time.perf_counter() - t0
+    if any(e is not None for e in emb["errors"]):
+        raise AssertionError("31a: embedding errors "
+                             f"{[e for e in emb['errors'] if e][:3]}")
+    vecs = np.stack(list(emb["output"]))
+    want = np.asarray([p31_embedding(t, seed) for t in texts], np.float32)
+    if vecs.shape != (P31_TEXTS, P31_EMBED_DIM) or vecs.dtype != np.float32 \
+            or not np.array_equal(vecs, want):
+        raise AssertionError(f"31a: embeddings {vecs.shape} {vecs.dtype} "
+                             "are not the mock's vectors")
+    ds = Dataset({"features": list(vecs), "values": np.arange(P31_TEXTS)})
+    ids, walls = {}, {}
+    for d in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        out = KNN(k=P31_K, device=d).fit(ds).transform(ds)
+        walls[d] = time.perf_counter() - t0
+        ids[d] = [[int(m["value"]) for m in row] for row in out["output"]]
+    if ids[dev.type] != ids["cpu"]:
+        bad = sum(a != b for a, b in zip(ids[dev.type], ids["cpu"]))
+        raise AssertionError(f"31a: KNN ids differ in {bad} rows")
+    full = P31_TEXTS // P31_K * P31_K      # texts of the full topics
+    if any(row[0] != i or len(row) != P31_K or (
+            i < full and {j // P31_K for j in row} != {i // P31_K})
+           for i, row in enumerate(ids["cpu"])):
+        raise AssertionError("31a: a text's nearest are not itself and "
+                             "its topic's")
+    return dict(texts=P31_TEXTS, width=P31_EMBED_DIM,
+                concurrency=P31_CONCURRENCY, embed_s=embed_s,
+                records_per_s=P31_TEXTS / embed_s,
+                knn_card_s=walls[dev.type], knn_cpu_s=walls["cpu"],
+                requests=srv.counts.get("/embeddings", 0))
+
+
+def p31_download_onnx(srv, seed: int, dev, root: str) -> dict:
+    """31b: ``ModelDownloader`` fetches the manifest and the small CNN
+    from the server (sha256 checked), refuses a tampered copy, and
+    ``ONNXModel`` runs the downloaded model on ``dev`` and on the CPU:
+    error over scale within phase 21a's f32 limit (1e-5)."""
+    import hashlib
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.downloader import ModelDownloader
+    from synapseml_tpu_torch.models.onnx import ONNXModel
+    dl = ModelDownloader(os.path.join(root, "models"), srv.url + "/models")
+    t0 = time.perf_counter()
+    got = dl.downloadByName("small_cnn")
+    download_s = time.perf_counter() - t0
+    payload = srv.files["small_cnn.onnx"]
+    with open(got.uri, "rb") as f:
+        data = f.read()
+    if data != payload or hashlib.sha256(data).hexdigest() != got.hash:
+        raise AssertionError("31b: downloaded bytes differ from the model")
+    try:
+        dl.downloadByName("small_cnn_tampered")
+    except ValueError as e:
+        if "hash mismatch" not in str(e):
+            raise
+    else:
+        raise AssertionError("31b: a tampered model passed its sha256")
+    if os.path.exists(os.path.join(root, "models", "small_cnn_tampered"
+                                                   ".onnx")):
+        raise AssertionError("31b: the tampered file was kept")
+    images = np.random.default_rng(seed + 31).normal(
+        size=(256, 3, 16, 16)).astype(np.float32)
+    ds = Dataset({"image": list(images)})
+    out = {}
+    for d in (dev.type, "cpu"):
+        m = ONNXModel(got.uri, feedDict={"image": "image"}, device=d)
+        out[d] = np.stack(list(m.transform(ds)["logits"]))
+    err = _scale_err(out[dev.type], out["cpu"])
+    if out["cpu"].shape != (256, 5) or err > 1e-5:
+        raise AssertionError(f"31b: ONNX card vs CPU {err} > 1e-5 "
+                             f"({out['cpu'].shape})")
+    return dict(bytes=len(payload), download_s=download_s,
+                onnx_err_over_scale=err)
+
+
+def p31_gbdt_sink(srv, seed: int, dev, iters: int, check_path) -> dict:
+    """31c: ``GBDTClassifier`` fit on ``dev`` over ``P31_ROWS`` rows of
+    bench.py's 28 columns (launch counts reset just before the fit, read
+    just after, held by ``check_path("phase31", ...)``), transform, then
+    ``PowerBIWriter`` posts id, prediction and probability in batches of
+    ``P31_BATCH``, 4 at a time: the sink must hold every row once, with
+    equal values."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.io import PowerBIWriter
+    from synapseml_tpu_torch.kernels import launches as L
+    from synapseml_tpu_torch.models.gbdt import GBDTClassifier
+    rng = np.random.default_rng(seed + 31)
+    X = rng.normal(size=(P31_ROWS, 28)).astype(np.float32)
+    y = gbdt_labels(rng, X)
+    ds = Dataset({"features": list(X), "label": y})
+    L.reset()
+    t0 = time.perf_counter()
+    model = GBDTClassifier(numIterations=iters, device=dev.type).fit(ds)
+    synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    r = dict(rows=P31_ROWS, fit_s=fit_s, shapes=dict(L.BY_SHAPE))
+    check_path("phase31", r)
+    out = model.transform(ds)
+    proba = np.stack(list(out["probability"]))[:, 1]
+    pred = np.asarray(out["prediction"], np.float64)
+    sink = Dataset({"id": np.arange(P31_ROWS), "prediction": pred,
+                    "probability": proba})
+    srv.rows.clear()
+    t0 = time.perf_counter()
+    PowerBIWriter.write(sink, srv.url + "/push",
+                        {"batchSize": str(P31_BATCH), "concurrency": "4"})
+    sink_s = time.perf_counter() - t0
+    rows = sorted(srv.rows, key=lambda row: row["id"])
+    if [row["id"] for row in rows] != list(range(P31_ROWS)):
+        raise AssertionError(f"31c: the sink holds {len(rows)} rows, not "
+                             f"each of {P31_ROWS} once")
+    if [row["prediction"] for row in rows] != pred.tolist() or \
+            [row["probability"] for row in rows] != proba.tolist():
+        raise AssertionError("31c: the sink's values differ from the "
+                             "predictions")
+    r.update(sink_s=sink_s, sink_rows_per_s=P31_ROWS / sink_s,
+             posts=srv.counts.get("/push", 0),
+             accuracy=float(np.mean(pred == y)))
+    if r["posts"] != P31_ROWS // P31_BATCH or r["accuracy"] < 0.7:
+        raise AssertionError(f"31c: {r['posts']} posts, accuracy "
+                             f"{r['accuracy']}")
+    return r
+
+
+def p31_failures(srv) -> dict:
+    """31d: ``TextSentiment`` and ``SimpleDetectAnomalies`` through the
+    same server at zero-delay retries: the injected 503 is retried and
+    the row served; the 400 lands in ``errors`` as the reference's
+    ``"400 Bad Request"``; every other row is served."""
+    from synapseml_tpu_torch.core import Dataset
+    from synapseml_tpu_torch.resilience import RetryPolicy
+    from synapseml_tpu_torch.services import (SimpleDetectAnomalies,
+                                              TextSentiment)
+    policy = RetryPolicy(max_retries=2, base_s=0.0)
+    n = P31_SENTIMENT_ROWS
+    texts = [("good" if i % 2 else "awful") + f" day {i}" for i in range(n)]
+    texts[3], texts[10] = "good flaky day", "awful reject day"
+    t0 = time.perf_counter()
+    out = TextSentiment(url=srv.url + "/sentiment", concurrency=4,
+                        retryPolicy=policy).transform(
+        Dataset({"text": np.array(texts)}))
+    sentiment_s = time.perf_counter() - t0
+    errs = list(out["errors"])
+    want = [None] * n
+    want[10] = "400 Bad Request"
+    if errs != want:
+        raise AssertionError(f"31d: sentiment errors {errs}")
+    for i, t in enumerate(texts):
+        got = out["output"][i]
+        if i != 10 and got["sentiment"] != ("positive" if "good" in t
+                                           else "negative"):
+            raise AssertionError(f"31d: row {i} sentiment {got}")
+    G, R = P31_GROUPS, P31_GROUP_ROWS
+    groups = np.repeat([f"g{g}" for g in range(G)], R)
+    stamp = {"g2": "flaky-", "g5": "reject-"}
+    ts = np.array([f"{stamp.get(g, '')}t{i % R:02d}"
+                   for i, g in enumerate(groups)])
+    vals = np.random.default_rng(31).uniform(0, 100, G * R)
+    t0 = time.perf_counter()
+    an = SimpleDetectAnomalies(url=srv.url + "/anomaly", groupbyCol="group",
+                               concurrency=4, retryPolicy=policy).transform(
+        Dataset({"group": groups, "timestamp": ts, "value": vals}))
+    anomaly_s = time.perf_counter() - t0
+    for i, g in enumerate(groups):
+        e, o = an["errors"][i], an["output"][i]
+        if g == "g5":
+            if e != "400 Bad Request" or o is not None:
+                raise AssertionError(f"31d: anomaly row {i}: {e} {o}")
+        elif e is not None or o["isAnomaly"] != (vals[i] > 50):
+            raise AssertionError(f"31d: anomaly row {i}: {e} {o}")
+    counts = dict(sentiment=srv.counts.get("/sentiment", 0),
+                  anomaly=srv.counts.get("/anomaly", 0))
+    if counts != dict(sentiment=n + 1, anomaly=G + 1):
+        raise AssertionError(f"31d: requests {counts}, want one retry each")
+    return dict(sentiment_s=sentiment_s, anomaly_s=anomaly_s,
+                sentiment_records_per_s=n / sentiment_s, requests=counts)
+
+
+def clients_beside_the_card(seed: int, dev, card: str, iters: int,
+                            check_path, root: str) -> dict:
+    """Phase 31: the service clients, the downloader and the PowerBI sink
+    against a local server, feeding stages that run on ``dev``
+    (``p31_*``).  Raises on a failed check, after printing the
+    readings."""
+    import hashlib
+    payload = onnx_small_cnn(seed)
+    tampered = bytearray(payload)
+    tampered[-1] ^= 0xFF
+    sha = hashlib.sha256(payload).hexdigest()
+    files = {"small_cnn.onnx": payload,
+             "small_cnn_tampered.onnx": bytes(tampered),
+             "manifest.json": json.dumps([
+                 {"name": "small_cnn", "uri": "small_cnn.onnx",
+                  "hash": sha, "size": len(payload)},
+                 {"name": "small_cnn_tampered",
+                  "uri": "small_cnn_tampered.onnx", "hash": sha,
+                  "size": len(payload)}]).encode()}
+    shutil.rmtree(root, ignore_errors=True)
+    srv = P31Server(seed, files)
+    out, marks = {}, [time.perf_counter()]
+    try:
+        for leg, fn in (
+                ("a", lambda: p31_embed_knn(srv, seed, dev)),
+                ("b", lambda: p31_download_onnx(srv, seed, dev, root)),
+                ("c", lambda: p31_gbdt_sink(srv, seed, dev, iters,
+                                            check_path)),
+                ("d", lambda: p31_failures(srv))):
+            out[leg] = fn()
+            marks.append(time.perf_counter())
+            out[leg]["wall_s"] = marks[-1] - marks[-2]
+            log(f"phase 31{leg} | {card}: {json.dumps(out[leg])}")
+    finally:
+        srv.close()
+        shutil.rmtree(root, ignore_errors=True)
+    a, c = out["a"], out["c"]
+    log(f"phase 31: OpenAIEmbedding {a['records_per_s']:.1f} records/s "
+        f"({a['texts']} texts x {a['width']}, concurrency "
+        f"{a['concurrency']}), KNN(k={P31_K}) card {a['knn_card_s']:.3f} s "
+        f"/ CPU {a['knn_cpu_s']:.3f} s; GBDT fit {c['fit_s']:.2f} s at "
+        f"{c['rows']} rows, PowerBI sink {c['sink_rows_per_s']:.0f} rows/s "
+        f"| {card}")
     return out
 
 
@@ -9053,9 +9452,12 @@ def main(argv=None) -> int:
     # phase 30's runs: 30a's TrainClassifier fit (two-level at 1M rows over
     # the featurized 28 + 8 one-hot columns), 30b's tuner at parallelism 1
     # and 4 (~187,500 rows: two-level off) and 30c's DML and forest fits
-    # (125,000-250,000 rows: two-level off)
+    # (62,500-125,000 rows: two-level off)
     p30b = ("phase30b_p1", "phase30b_p4")
     p30_full = p30b + ("phase30c",)
+    # phase 31c's GBDT fit at 100,000 rows: two-level off, K2 at full
+    # resolution (its roots and waves)
+    p31 = ("phase31",)
     shapes = [
         ("route_and_hist", dict(F=F, B=64, shift=0, K=0, S=1),
          ("maxBin=63",)),
@@ -9100,9 +9502,9 @@ def main(argv=None) -> int:
         ("route_and_hist", dict(F=FO, B=256, shift=0, K=0, S=1),
          ("unbundled depthwise",)),
         ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=S),
-         mono + p30_full),
+         mono + p30_full + p31),
         ("route_and_hist", dict(F=F, B=256, shift=0, K=0, S=1),
-         mono + p30_full),
+         mono + p30_full + p31),
         # phase 30a's waves and roots over 28 + 8 featurized columns, and
         # 30b's numLeaves=15 trials (14 slots a wave)
         ("route_and_hist", dict(F=F + P30_LEVELS, B=256, shift=3, K=K, S=S),
@@ -9732,9 +10134,18 @@ def main(argv=None) -> int:
 
     # -- 30. the stages over the GBDT -----------------------------------------
     torch.cuda.empty_cache()
+    log(f"phase 30c at {P30_DML_ROWS} rows and its card-against-CPU DML at "
+        f"{P30_DML_SMALL} (cut from 250000 and 20000 for phase 31: 21.0 + "
+        "12.5 and 22.1 s of a 1146.1 s run)")
     a8_stages(args.seed, dev, card, lambda n, r: check_path(n, r, True),
               rows=N)
     wall("30")
+
+    # -- 31. the clients beside the card ---------------------------------------
+    torch.cuda.empty_cache()
+    clients_beside_the_card(args.seed, dev, card, args.iters,
+                            lambda n, r: check_path(n, r, True), P31_ROOT)
+    wall("31")
     log(f"phase walls {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
 

@@ -1,7 +1,6 @@
 """IO of the PyTorch port: HTTP client stages, binary/image file formats,
-port forwarding and the out-of-core column stores (reference:
-core/.../io/).  The PowerBI sink is queued with the services (ROADMAP
-A9)."""
+the PowerBI sink, port forwarding and the out-of-core column stores
+(reference: core/.../io/)."""
 
 from .http import (HTTPClient, HTTPRequestData, HTTPResponseData,
                    CustomInputParser, CustomOutputParser,
@@ -15,6 +14,7 @@ from .colstore import (ChunkedColumnSource, SparseChunkedSource,
 from .image import decode_image, read_images
 from .port_forward import (ForwardSession, TcpRelay,
                            forward_port_to_remote)
+from .powerbi import PowerBIResponseError, PowerBIWriter
 
 __all__ = [
     "HTTPClient", "HTTPRequestData", "HTTPResponseData", "HTTPTransformer",
@@ -23,5 +23,6 @@ __all__ = [
     "BinaryFileReader", "read_binary_files", "decode_image", "read_images",
     "ChunkedColumnSource", "SparseChunkedSource", "csv_to_colstore",
     "dense_to_csr", "write_csr", "write_matrix",
+    "PowerBIWriter", "PowerBIResponseError",
     "ForwardSession", "TcpRelay", "forward_port_to_remote",
 ]

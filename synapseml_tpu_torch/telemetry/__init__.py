@@ -33,19 +33,28 @@ and the profiling and tuning plane:
 
 from .artifact import (SchemaError, check_schema, dumps_checked, read_json,
                        write_json)
+from .autotune import (AUTOTUNE_METRICS, Autotuner, CollectiveCostModel,
+                       TuneSpace, fit_alpha_beta, register_space,
+                       registered_spaces, resolve_entry_point)
 from .exposition import (PROMETHEUS_CONTENT_TYPE, render_json,
                          render_prometheus)
 from .flight import FlightRecorder, get_flight
-from .gangplane import StepProfiler, current_profiler
+from .gangplane import (GangPlane, StepProfiler, TM_MARKER,
+                        check_postmortem, current_profiler, parse_telemetry,
+                        write_postmortem)
 from .registry import (DEFAULT_BUCKETS, SERVING_TOKEN_LATENCY_BUCKETS,
                        SERVING_TTFT_BUCKETS, Counter, Gauge, Histogram,
                        MetricsRegistry, bucket_quantile, get_registry)
+from .roofline import (ROOFLINE_BLOCK_KEYS, check_roofline_block,
+                       paired_roofline, roofline_block)
 from .slo import (SLO_METRICS, SLOZ_SCHEMA, SLOZ_SCHEMA_VERSION, SloStore,
                   SloWindow, WindowedCounter, WindowedHistogram, check_sloz,
                   get_slo_store, plane_tenant, tenant_plane_name)
 from .tracing import (RequestTraceStore, Span, Tracer, get_request_tracer,
                       get_tracer, mint_trace_id, span)
-from .tunetable import TunePlane, get_tuneplane, set_tuneplane
+from .tunetable import (TUNE_TABLE_ENV, TUNE_TABLE_SCHEMA_VERSION, TunePlane,
+                        check_tune_table, check_tunez, device_kind,
+                        geometry_key, get_tuneplane, set_tuneplane)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
@@ -60,6 +69,14 @@ __all__ = [
     "SchemaError", "check_schema", "dumps_checked", "write_json",
     "read_json",
     "FlightRecorder", "get_flight",
-    "StepProfiler", "current_profiler",
-    "TunePlane", "get_tuneplane", "set_tuneplane",
+    "GangPlane", "StepProfiler", "TM_MARKER", "check_postmortem",
+    "current_profiler", "parse_telemetry", "write_postmortem",
+    "ROOFLINE_BLOCK_KEYS", "check_roofline_block", "paired_roofline",
+    "roofline_block",
+    "AUTOTUNE_METRICS", "Autotuner", "CollectiveCostModel", "TuneSpace",
+    "fit_alpha_beta", "register_space", "registered_spaces",
+    "resolve_entry_point",
+    "TUNE_TABLE_ENV", "TUNE_TABLE_SCHEMA_VERSION", "TunePlane",
+    "check_tune_table", "check_tunez", "device_kind", "geometry_key",
+    "get_tuneplane", "set_tuneplane",
 ]
